@@ -1,0 +1,276 @@
+"""Kernel modules of the PyTorch port against the JAX package, on the CPU.
+
+The same numpy inputs go through the JAX function (Pallas in interpret mode,
+as the JAX suite runs it here) and through the port's wrapper, which on CPU
+tensors takes the kernel's plain PyTorch version. Bars are the JAX suite's:
+2e-5 at float32 (tests/test_flash_attention.py, tests/test_paged_decode.py)
+and 3e-2 at bfloat16 (tests/test_flash_attention.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_common as jax_dc
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import MappingConfig as JaxMapping
+from repro.kernels.flash_attention import flash_attention_fwd as jax_fa
+from repro.kernels.paged_decode_attention import paged_flash_decode as jax_decode
+from repro.kernels.paged_prefill_attention import paged_flash_prefill as jax_prefill
+
+from repro_torch.kernels import decode_common, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.paged_decode_attention import paged_flash_decode
+from repro_torch.kernels.paged_prefill_attention import paged_flash_prefill
+
+F32_TOL = 2e-5
+BF16_TOL = 3e-2
+HEADS = [(4, 2), (4, 4), (4, 1)]          # GQA, MHA, MQA
+HEAD_IDS = ["gqa", "mha", "mqa"]
+
+
+def _pair(a: np.ndarray, dtype="float32"):
+    """The same values as a JAX array and a torch tensor."""
+    if dtype == "bfloat16":
+        return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def _diff(j, t) -> float:
+    return float(np.max(np.abs(np.asarray(j, np.float32) - t.float().numpy())))
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# -- K1 ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
+@pytest.mark.parametrize("window,softcap", [(None, None), (24, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_flash_fwd_matches_jax(hq, hkv, window, softcap):
+    rng = np.random.default_rng(0)
+    q, k, v = (_normal(rng, 2, h, 64, 32) for h in (hq, hkv, hkv))
+    (qj, qt), (kj, kt), (vj, vt) = _pair(q), _pair(k), _pair(v)
+    oj, lj = jax_fa(qj, kj, vj, mapping=JaxMapping(block_m=32, block_n=32),
+                    causal=True, window=window, softcap=softcap, interpret=True)
+    ot, lt = flash_attention_fwd(qt, kt, vt, causal=True, window=window,
+                                 softcap=softcap)
+    assert _diff(oj, ot) < F32_TOL
+    assert _diff(lj, lt) < F32_TOL
+    lse = jax_ref.attention_lse(qj, kj, vj, causal=True, window=window,
+                                softcap=softcap)
+    assert _diff(lse, lt) < F32_TOL
+
+
+def test_flash_fwd_kv_len_padding_and_noncausal():
+    """Padded keys past ``kv_len`` are masked; non-causal attention."""
+    rng = np.random.default_rng(1)
+    q, k, v = _normal(rng, 1, 4, 32, 16), _normal(rng, 1, 2, 64, 16), _normal(rng, 1, 2, 64, 16)
+    (qj, qt), (kj, kt), (vj, vt) = _pair(q), _pair(k), _pair(v)
+    oj, lj = jax_fa(qj, kj, vj, mapping=JaxMapping(block_m=32, block_n=32),
+                    causal=False, kv_len=50, interpret=True)
+    ot, lt = flash_attention_fwd(qt, kt, vt, causal=False, kv_len=50)
+    assert _diff(oj, ot) < F32_TOL
+    assert _diff(lj, lt) < F32_TOL
+
+
+def test_flash_fwd_bf16_matches_jax():
+    rng = np.random.default_rng(2)
+    q, k, v = _normal(rng, 1, 4, 64, 32), _normal(rng, 1, 2, 64, 32), _normal(rng, 1, 2, 64, 32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (q, k, v))
+    oj, _ = jax_fa(qj, kj, vj, mapping=JaxMapping(block_m=32, block_n=32),
+                   causal=True, interpret=True)
+    ot, _ = flash_attention_fwd(qt, kt, vt, causal=True)
+    assert ot.dtype == torch.bfloat16
+    assert _diff(oj, ot) < BF16_TOL
+
+
+def test_ops_flash_attention_pads_and_matches_ref():
+    """The ops entry point (odd lengths, plan-resolved impl) equals the
+    JAX oracle."""
+    rng = np.random.default_rng(3)
+    q, k, v = _normal(rng, 2, 4, 37, 16), _normal(rng, 2, 2, 37, 16), _normal(rng, 2, 2, 37, 16)
+    (qj, qt), (kj, kt), (vj, vt) = _pair(q), _pair(k), _pair(v)
+    want = jax_ref.attention(qj, kj, vj, causal=True)
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    assert got.shape == qt.shape
+    assert _diff(want, got) < F32_TOL
+
+
+# -- K2 ------------------------------------------------------------------------
+
+
+def _paged_prefill_inputs(rng, hq, hkv, d=32, ps=16, st=24, mp=4, num_pages=20):
+    b = 2
+    q = _normal(rng, b, hq, st, d)
+    kt, vt = _normal(rng, b, hkv, st, d), _normal(rng, b, hkv, st, d)
+    kp, vp = _normal(rng, hkv, num_pages, ps, d), _normal(rng, hkv, num_pages, ps, d)
+    table = np.stack([rng.permutation(np.arange(1, num_pages))[:mp] for _ in range(b)])
+    plen = np.array([mp * ps - 7, 17], np.int32)        # not page multiples
+    tlen = np.array([st, 9], np.int32)                  # second tail padded
+    return q, kp, vp, table.astype(np.int32), kt, vt, plen, tlen
+
+
+@pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
+@pytest.mark.parametrize("window,softcap", [(None, None), (20, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_paged_prefill_matches_jax(hq, hkv, window, softcap):
+    rng = np.random.default_rng(10)
+    args = _paged_prefill_inputs(rng, hq, hkv)
+    jargs, targs = zip(*(_pair(a) for a in args))
+    oj = jax_prefill(*jargs, window=window, softcap=softcap, interpret=True)
+    ot = paged_flash_prefill(*targs, window=window, softcap=softcap)
+    assert _diff(oj, ot) < F32_TOL
+    # Rows at or past tail_len are exact zeros.
+    assert float(ot[1, :, 9:].abs().max()) == 0.0
+    want = jax_ref.paged_prefill_attention(*jargs, window=window, softcap=softcap)
+    assert _diff(want, ref.paged_prefill_attention(*targs, window=window,
+                                                   softcap=softcap)) < F32_TOL
+
+
+def test_paged_prefill_empty_table_matches_jax():
+    """A prefix table of width 0: only the causal tail is attended."""
+    rng = np.random.default_rng(11)
+    q, kp, vp, _, kt, vt, _, tlen = _paged_prefill_inputs(rng, 4, 2)
+    table = np.zeros((2, 0), np.int32)
+    plen = np.zeros((2,), np.int32)
+    args = (q, kp, vp, table, kt, vt, plen, tlen)
+    jargs, targs = zip(*(_pair(a) for a in args))
+    oj = jax_prefill(*jargs, interpret=True)
+    ot = paged_flash_prefill(*targs)
+    assert _diff(oj, ot) < F32_TOL
+
+
+def test_paged_prefill_bf16_matches_jax():
+    rng = np.random.default_rng(12)
+    args = _paged_prefill_inputs(rng, 4, 2)
+    conv = [_pair(a, "bfloat16") if a.dtype == np.float32 else _pair(a) for a in args]
+    jargs, targs = zip(*conv)
+    oj = jax_prefill(*jargs, interpret=True)
+    ot = paged_flash_prefill(*targs)
+    assert _diff(oj, ot) < BF16_TOL
+
+
+# -- K3 / K4 -------------------------------------------------------------------
+
+
+def _paged_decode_inputs(rng, hq, hkv, d=32, ps=16, mp=6, b=4):
+    num_pages = 1 + b * mp
+    q = _normal(rng, b, hq, d)
+    kp, vp = _normal(rng, hkv, num_pages, ps, d), _normal(rng, hkv, num_pages, ps, d)
+    perm = rng.permutation(np.arange(1, num_pages))
+    table = perm.reshape(b, mp).astype(np.int32)
+    lengths = np.array([0, 1, 50, mp * ps], np.int32)[:b]   # one length-0 row
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 7])
+@pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
+def test_paged_decode_matches_jax(num_splits, hq, hkv):
+    rng = np.random.default_rng(20 + num_splits)
+    window, softcap = ((None, None) if hkv == 2 else (24, 30.0))
+    args = _paged_decode_inputs(rng, hq, hkv)
+    jargs, targs = zip(*(_pair(a) for a in args))
+    oj = jax_decode(*jargs, num_splits=num_splits, window=window, softcap=softcap,
+                    interpret=True)
+    ot = paged_flash_decode(*targs, num_splits=num_splits, window=window,
+                            softcap=softcap)
+    assert _diff(oj, ot) < F32_TOL
+    assert float(ot[0].abs().max()) == 0.0           # length-0 row: exact zeros
+    want = jax_ref.split_decode_attention(
+        jargs[0], jax_ref.gather_pages(jargs[1], jargs[3]),
+        jax_ref.gather_pages(jargs[2], jargs[3]), jargs[4],
+        num_splits=num_splits, granule=16, window=window, softcap=softcap)
+    got = ref.split_decode_attention(
+        targs[0], ref.gather_pages(targs[1], targs[3]), ref.gather_pages(targs[2], targs[3]),
+        targs[4], num_splits=num_splits, granule=16, window=window, softcap=softcap)
+    assert _diff(want, got) < F32_TOL
+
+
+def test_paged_decode_bf16_matches_jax():
+    rng = np.random.default_rng(30)
+    args = _paged_decode_inputs(rng, 4, 2)
+    conv = [_pair(a, "bfloat16") if a.dtype == np.float32 else _pair(a) for a in args]
+    jargs, targs = zip(*conv)
+    oj = jax_decode(*jargs, num_splits=2, interpret=True)
+    ot = paged_flash_decode(*targs, num_splits=2)
+    assert _diff(oj, ot) < BF16_TOL
+
+
+def test_paged_decode_rejects_quantized_pools():
+    rng = np.random.default_rng(31)
+    _, targs = zip(*(_pair(a) for a in _paged_decode_inputs(rng, 4, 2)))
+    with pytest.raises(NotImplementedError):
+        paged_flash_decode(*targs, k_scales=torch.ones(2, 25), v_scales=torch.ones(2, 25))
+
+
+# -- decode_common pieces ------------------------------------------------------
+
+
+def test_combine_split_states_matches_jax():
+    """Including all-empty rows (every split NEG_INF, l == 0)."""
+    rng = np.random.default_rng(40)
+    acc = _normal(rng, 3, 2, 5, 4, 8)
+    m = _normal(rng, 3, 2, 5, 4, 1)
+    l = np.abs(_normal(rng, 3, 2, 5, 4, 1))
+    m[0, 0, 1:] = -1e30          # splits that saw no relevant KV
+    l[0, 0, 1:] = 0.0
+    acc[0, 0, 1:] = 0.0
+    m[1, 1] = -1e30              # a row with no live split
+    l[1, 1] = 0.0
+    acc[1, 1] = 0.0
+    want = jax_dc.combine_split_states(*(jnp.asarray(a) for a in (acc, m, l)))
+    got = decode_common.combine_split_states(*(torch.from_numpy(a) for a in (acc, m, l)))
+    assert _diff(want, got) < F32_TOL
+    assert float(got[1, 1].abs().max()) == 0.0
+
+
+def test_chunk_relevant_matches_jax():
+    for window in (None, 0, 1, 7, 16, 40):
+        for length in range(0, 70, 3):
+            for start in range(0, 80, 16):
+                want = bool(jax_dc.chunk_relevant(start, 16, length, window))
+                assert decode_common.chunk_relevant(start, 16, length, window) == want
+
+
+def test_accumulate_kv_block_matches_jax_ref():
+    """Two online steps over two units equal the exact decode oracle."""
+    rng = np.random.default_rng(41)
+    q = _normal(rng, 3, 4, 16)
+    k, v = _normal(rng, 3, 32, 16), _normal(rng, 3, 32, 16)
+    length = np.array([0, 20, 32], np.int64)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    ln = torch.from_numpy(length)
+    acc = torch.zeros(3, 4, 16)
+    m = torch.full((3, 4, 1), -1e30)
+    l = torch.zeros(3, 4, 1)
+    for start in (0, 16):
+        acc, m, l = decode_common.accumulate_kv_block(
+            qt, kt[:, start:start + 16], vt[:, start:start + 16], acc, m, l,
+            scale=0.25, softcap=None, window=None, block_start=start, length=ln)
+    got = acc / torch.where(l == 0, 1.0, l)
+    want = jax_ref.decode_attention(
+        jnp.asarray(q), jnp.asarray(k)[:, None], jnp.asarray(v)[:, None],
+        jnp.asarray(length.astype(np.int32)), scale=0.25)
+    assert _diff(want, got) < F32_TOL
+
+
+@pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
+def test_ref_oracles_match_jax(hq, hkv):
+    rng = np.random.default_rng(50)
+    q, k, v = _normal(rng, 2, hq, 12, 16), _normal(rng, 2, hkv, 12, 16), _normal(rng, 2, hkv, 12, 16)
+    (qj, qt), (kj, kt), (vj, vt) = _pair(q), _pair(k), _pair(v)
+    for kw in (dict(causal=True), dict(causal=True, window=5, softcap=20.0),
+               dict(causal=False)):
+        assert _diff(jax_ref.attention(qj, kj, vj, **kw), ref.attention(qt, kt, vt, **kw)) < F32_TOL
+        assert _diff(jax_ref.attention_lse(qj, kj, vj, **kw),
+                     ref.attention_lse(qt, kt, vt, **kw)) < F32_TOL
+    qd = _normal(rng, 2, hq, 16)
+    lengths = np.array([0, 9], np.int32)
+    (qdj, qdt), (lj, lt) = _pair(qd), _pair(lengths)
+    assert _diff(jax_ref.decode_attention(qdj, kj, vj, lj, window=4),
+                 ref.decode_attention(qdt, kt, vt, lt, window=4)) < F32_TOL
