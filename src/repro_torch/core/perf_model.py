@@ -12,12 +12,14 @@ from typing import Optional, Tuple
 
 from repro_torch.core.numa import Topology
 
-#: Fixed cost charged for the split-combine stage whenever num_splits > 1.
-#: In the port the combine is a second kernel launched from Python, so its
-#: price is dominated by the host's eager-launch path (wrapper checks, the
-#: partial-state allocations, the ctypes call), which is why it is larger
-#: than the JAX package's 2 µs. A modelled figure, not a measurement.
-COMBINE_LAUNCH_OVERHEAD_S = 10e-6
+#: Fixed cost charged for the split path whenever num_splits > 1: the
+#: combine kernel's launch and the partial-state allocations, as an eager
+#: decode tick pays them. Measured by ``chip_smoke.py`` (its "split path
+#: costs" line: host clock per call over back-to-back calls, one row of two
+#: pages, where splitting saves nothing) at 17.09 µs on an NVIDIA H100 80GB
+#: HBM3 at a 700 W power limit. The model's other terms are not calibrated
+#: (PERF.md, open questions).
+COMBINE_LAUNCH_OVERHEAD_S = 17e-6
 
 #: Cap on the split sweep (only bounds the candidate loop).
 MAX_DECODE_SPLITS = 16

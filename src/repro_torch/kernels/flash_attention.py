@@ -7,14 +7,16 @@ kernel is ``csrc/flash_attention.cu``; :func:`flash_attention_fwd` launches
 it for CUDA tensors and runs :func:`flash_attention_fwd_plain` for CPU
 tensors.
 
-``MappingConfig`` keeps the paper's four schedules. On Hopper two of its
-fields have a launch form: ``order`` (how ``blockIdx`` decodes into
+``MappingConfig`` holds the two fields of the paper's schedule that have a
+launch form on Hopper: ``order`` (how ``blockIdx`` decodes into
 (b, h, q block): head-first keeps one KV head's blocks consecutive, the
 paper's locality) and ``traversal`` (linear or sawtooth KV-tile order).
-``kv_resident`` and ``acc_parallel`` describe TPU VMEM residency and
-megacore grid semantics; an SM has no room for a resident K/V and every
-block already runs in parallel, so they are kept for the plan layer's
-bookkeeping and change nothing in the launch. No mapping changes an output.
+The paper's naive/swizzled variants differ only in VMEM residency and
+megacore grid semantics, which an SM does not have (no room for a resident
+K/V; every block already runs in parallel). So ``PAPER_MAPPINGS`` keeps the
+four names as aliases of the two Hopper orders: ``naive_head_first`` and
+``swizzled_head_first`` are one launch, as are the two block-first names.
+No mapping changes an output.
 """
 
 from __future__ import annotations
@@ -46,16 +48,15 @@ class MappingConfig:
     """Launch schedule of the FA2 forward (see the module docstring)."""
 
     order: str = HEAD_FIRST
-    kv_resident: bool = True
-    acc_parallel: bool = True
     traversal: str = swizzle.LINEAR
 
 
+#: The paper's four schedule names, aliases of the two Hopper launch orders.
 PAPER_MAPPINGS = {
-    "swizzled_head_first": MappingConfig(order=HEAD_FIRST, kv_resident=True, acc_parallel=True),
-    "naive_head_first": MappingConfig(order=HEAD_FIRST, kv_resident=False, acc_parallel=False),
-    "swizzled_block_first": MappingConfig(order=BLOCK_FIRST, kv_resident=True, acc_parallel=True),
-    "naive_block_first": MappingConfig(order=BLOCK_FIRST, kv_resident=False, acc_parallel=False),
+    "swizzled_head_first": MappingConfig(order=HEAD_FIRST),
+    "naive_head_first": MappingConfig(order=HEAD_FIRST),
+    "swizzled_block_first": MappingConfig(order=BLOCK_FIRST),
+    "naive_block_first": MappingConfig(order=BLOCK_FIRST),
 }
 
 

@@ -99,8 +99,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, k_tail, v_tail,
         plan = plan_attention(
             (b, hq, hkv, st, page_table.shape[1] * ps + st, d),
             phase=plan_lib.EXTEND, kv_layout=plan_lib.PAGED, page_size=ps,
-            prefix_pages=page_table.shape[1], window=window,
-            device_type=q.device.type, dtype_bytes=q.element_size())
+            window=window, device_type=q.device.type, dtype_bytes=q.element_size())
     fn = paged_flash_prefill_plain if plan.impl == "plain" else paged_flash_prefill
     return fn(q.contiguous(), k_pages, v_pages, page_table, k_tail.contiguous(),
               v_tail.contiguous(), prefix_len, tail_len, softcap=softcap,

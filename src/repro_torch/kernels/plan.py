@@ -46,9 +46,7 @@ class AttentionPlan:
     mapping: MappingConfig
     device_type: str               # "cuda" | "cpu"
     page_size: Optional[int] = None
-    prefix_pages: int = 0
     window: Optional[int] = None
-    placement: Optional[str] = None
     num_splits: int = 1
 
 
@@ -70,7 +68,7 @@ def _resolve_impl(impl: str, device_type: str) -> str:
 @functools.lru_cache(maxsize=2048)
 def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
                  phase, kv_layout, device_type, dtype_bytes, window, page_size,
-                 prefix_pages, mapping_name, impl) -> AttentionPlan:
+                 mapping_name, impl) -> AttentionPlan:
     name = DEFAULT_MAPPING if mapping_name == "auto" else mapping_name
     mapping = PAPER_MAPPINGS[name]  # KeyError = fail fast
     num_splits = 1
@@ -84,9 +82,7 @@ def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
     return AttentionPlan(
         phase=phase, kv_layout=kv_layout,
         impl=_resolve_impl(impl, device_type), mapping=mapping,
-        device_type=device_type, page_size=page_size,
-        prefix_pages=prefix_pages, window=window,
-        placement="head_aligned" if kv_layout == PAGED else None,
+        device_type=device_type, page_size=page_size, window=window,
         num_splits=num_splits,
     )
 
@@ -95,7 +91,7 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
                    phase: str = PREFILL, kv_layout: str = DENSE,
                    device_type: str = "cuda", dtype_bytes: int = 2,
                    window: Optional[int] = None,
-                   page_size: Optional[int] = None, prefix_pages: int = 0,
+                   page_size: Optional[int] = None,
                    mapping_name: str = "auto", impl: str = "auto"
                    ) -> AttentionPlan:
     """Resolve the :class:`AttentionPlan` for ``shape`` = ``(batch,
@@ -111,7 +107,7 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
     return _plan_cached(
         b, hq, hkv, sq, skv, d, phase, kv_layout, device_type,
         int(dtype_bytes), int(window) if window else None,
-        int(page_size) if page_size else None, int(prefix_pages),
+        int(page_size) if page_size else None,
         mapping_name, impl,
     )
 

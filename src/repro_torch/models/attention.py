@@ -76,8 +76,7 @@ def attention_prefill_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict
         plan = _plan(cfg, (b, cfg.n_heads, cfg.n_kv_heads, s,
                            page_table.shape[1] * k_pages.shape[2] + s, cfg.head_dim),
                      x, phase=plan_lib.EXTEND, kv_layout=plan_lib.PAGED,
-                     page_size=k_pages.shape[2], prefix_pages=page_table.shape[1],
-                     window=spec.window)
+                     page_size=k_pages.shape[2], window=spec.window)
     o = ops.paged_prefill_attention(
         q, k_pages, v_pages, page_table, k, v, prefix_len, tail_len,
         softcap=cfg.attn_softcap, window=spec.window, plan=plan)

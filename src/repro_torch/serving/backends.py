@@ -351,7 +351,7 @@ class PagedBackend:
                     (rows, self.cfg.n_heads, self.cfg.n_kv_heads, bucket,
                      mb * ps + bucket, self.cfg.head_dim),
                     device_type=dev.type, phase=plan_lib.EXTEND,
-                    kv_layout=plan_lib.PAGED, page_size=ps, prefix_pages=mb)
+                    kv_layout=plan_lib.PAGED, page_size=ps)
                 logits, tail_caches = transformer.prefill(
                     self.params, self.cfg, tokens, cache_len=bucket, last_positions=last,
                     prefix_caches=self.caches, page_table=torch.from_numpy(pt).to(dev),

@@ -8,9 +8,11 @@ Run them on a machine with a Hopper card and ``nvcc``::
 
 Without a card each test skips, decided inside the ``cuda`` fixture, so
 every pytest-xdist worker collects the same tests. The file imports no JAX:
-the machine with the card has none. Bars: 2e-5 at float32 (the kernels and
-the plain versions both compute in float32; only the order of the sums
-differs) and 3e-2 at bfloat16 (outputs rounded to bf16), the JAX suite's.
+the machine with the card has none. Bars: 2e-5 absolute at float32 (the
+kernels and the plain versions both compute in float32; only the order of
+the sums differs); at bfloat16, per row, max |o - ref| within 2^-6 of the
+row's max |ref| (two roundings to bf16 differ by one ulp, at most 2^-7 of
+the row's max; a row of ref that is all zero must be exactly zero), as ``chip_smoke.py`` holds them.
 """
 
 import dataclasses
@@ -31,10 +33,11 @@ from repro_torch.serving import LLMEngine, Request
 pytestmark = pytest.mark.requires_cuda
 
 F32_TOL = 2e-5
-BF16_TOL = 3e-2
+ROW_TOL = 2.0**-6
+LSE_TOL = 1e-5
 HEADS = [(8, 2), (4, 4), (4, 1)]          # GQA, MHA, MQA
 HEAD_IDS = ["gqa", "mha", "mqa"]
-DTYPES = {"f32": (torch.float32, F32_TOL), "bf16": (torch.bfloat16, BF16_TOL)}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 @pytest.fixture
@@ -54,25 +57,35 @@ def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def _row_err(a, ref) -> float:
+    diff = (a.float() - ref.float()).abs().amax(-1)
+    den = ref.float().abs().amax(-1)
+    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
+
+
+def _close(a, ref) -> bool:
+    """The bar of ``a``'s dtype (module docstring)."""
+    if a.dtype == torch.float32:
+        return _err(a, ref) < F32_TOL
+    return _row_err(a, ref) < ROW_TOL
+
+
 # -- K1 ------------------------------------------------------------------------
 
-MAPPINGS = sorted(fa.PAPER_MAPPINGS) + ["sawtooth"]
+# The distinct launches; the paper's four names are aliases of the two orders.
+MAPPINGS = {"head_first": fa.MappingConfig(order=fa.HEAD_FIRST),
+            "block_first": fa.MappingConfig(order=fa.BLOCK_FIRST),
+            "sawtooth": fa.MappingConfig(order=fa.HEAD_FIRST, traversal="sawtooth")}
 
 
-def _mapping(name):
-    if name == "sawtooth":
-        return dataclasses.replace(fa.PAPER_MAPPINGS["swizzled_head_first"],
-                                   traversal="sawtooth")
-    return fa.PAPER_MAPPINGS[name]
-
-
-@pytest.mark.parametrize("mapping", MAPPINGS)
+@pytest.mark.parametrize("mapping", sorted(MAPPINGS))
 @pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
 def test_flash_fwd_every_mapping_matches_plain(cuda, mapping, hq, hkv):
     rng = np.random.default_rng(0)
     q = _randn(rng, (2, hq, 200, 128), cuda)
     k, v = _randn(rng, (2, hkv, 200, 128), cuda), _randn(rng, (2, hkv, 200, 128), cuda)
-    o, lse = fa.flash_attention_fwd(q, k, v, mapping=_mapping(mapping), causal=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, mapping=MAPPINGS[mapping], causal=True)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert _err(o, o_ref) < F32_TOL and _err(lse, lse_ref) < F32_TOL
@@ -85,15 +98,15 @@ def test_flash_fwd_every_mapping_matches_plain(cuda, mapping, hq, hkv):
                                 dict(causal=True, kv_len=90)],
                          ids=["window_softcap", "noncausal_kvlen", "causal_kvlen"])
 def test_flash_fwd_masks_match_plain(cuda, dtype, d, kw):
-    dt, tol = DTYPES[dtype]
+    dt = DTYPES[dtype]
     rng = np.random.default_rng(1)
     q = _randn(rng, (1, 8, 130, d), cuda, dt)
     k, v = _randn(rng, (1, 2, 170, d), cuda, dt), _randn(rng, (1, 2, 170, d), cuda, dt)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert o.dtype == dt and _err(o, o_ref) < tol
-    assert _err(lse, lse_ref) < 1e-3
+    assert o.dtype == dt and _close(o, o_ref)
+    assert _err(lse, lse_ref) < LSE_TOL
 
 
 def test_flash_fwd_fully_masked_rows(cuda):
@@ -136,12 +149,12 @@ def _prefill_inputs(rng, dev, dt, hq, hkv, d=128, ps=16, st=70, mp=5, num_pages=
 @pytest.mark.parametrize("window,softcap", [(None, None), (50, 30.0)],
                          ids=["full", "window_softcap"])
 def test_paged_prefill_matches_plain(cuda, dtype, hq, hkv, window, softcap):
-    dt, tol = DTYPES[dtype]
+    dt = DTYPES[dtype]
     args = _prefill_inputs(np.random.default_rng(10), cuda, dt, hq, hkv)
     o = pp.paged_flash_prefill(*args, window=window, softcap=softcap)
     o_ref = pp.paged_flash_prefill_plain(*args, window=window, softcap=softcap)
     torch.cuda.synchronize()
-    assert _err(o, o_ref) < tol
+    assert _close(o, o_ref)
     assert float(o[1, :, 41:].abs().max()) == 0.0        # rows past tail_len
 
 
@@ -177,13 +190,13 @@ def _decode_inputs(rng, dev, dt, hq, hkv, d=128, ps=16, mp=20, b=5):
 def test_paged_decode_matches_plain(cuda, num_splits, dtype, hq, hkv, window, softcap):
     """Length-0 rows give exact zeros; rows of 1 and 17 tokens leave most
     splits empty, so the combine sees (0, -1e30, 0) states."""
-    dt, tol = DTYPES[dtype]
+    dt = DTYPES[dtype]
     args = _decode_inputs(np.random.default_rng(20 + num_splits), cuda, dt, hq, hkv)
     o = pd.paged_flash_decode(*args, num_splits=num_splits, window=window, softcap=softcap)
     o_ref = pd.paged_flash_decode_plain(*args, num_splits=num_splits, window=window,
                                         softcap=softcap)
     torch.cuda.synchronize()
-    assert _err(o, o_ref) < tol
+    assert _close(o, o_ref)
     assert float(o[0].float().abs().max()) == 0.0
 
 

@@ -3,6 +3,8 @@ ranges, page hashes, the page pool, the traversal order, the split-K
 estimator on the H100 topology, the plan layer, sampling and device
 selection."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from repro_torch.cache import layout, prefix
 from repro_torch.cache.pool import OutOfPages, PagePool
 from repro_torch.configs import llama3_8b, registry
 from repro_torch.core import device, numa, perf_model, swizzle
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.serving import sampling
 
@@ -140,6 +143,17 @@ def test_plan_resolves_impl_by_device():
         plan_lib.plan_attention(shape, device_type="cpu", impl="cuda")
     with pytest.raises(KeyError):
         plan_lib.plan_attention(shape, device_type="cpu", mapping_name="bogus")
+
+
+def test_paper_mapping_names_alias_the_two_hopper_orders():
+    """naive_/swizzled_ differ only in TPU residency and megacore semantics,
+    which have no launch form on Hopper: each pair is one launch."""
+    maps = fa.PAPER_MAPPINGS
+    assert maps["naive_head_first"] == maps["swizzled_head_first"] == \
+        fa.MappingConfig(order=fa.HEAD_FIRST)
+    assert maps["naive_block_first"] == maps["swizzled_block_first"] == \
+        fa.MappingConfig(order=fa.BLOCK_FIRST)
+    assert [f.name for f in dataclasses.fields(fa.MappingConfig)] == ["order", "traversal"]
 
 
 def test_greedy_sampling_is_exact_argmax():
