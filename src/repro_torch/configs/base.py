@@ -49,6 +49,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     attn_impl: str = "auto"       # kernels/plan.py: "auto" | "cuda" | "plain"
     mapping_name: str = "auto"    # "auto" or a PAPER_MAPPINGS name
+    # training
+    z_loss: float = 1e-4
 
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         """The spec of every layer, in stack order."""

@@ -27,6 +27,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: Library name -> CUDA source (one nvcc each).
 SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "paged_prefill": "paged_prefill.cu",
     "paged_decode": "paged_decode.cu",
 }
@@ -129,6 +130,21 @@ def check(status: int, what: str) -> None:
         raise ValueError(f"{what}: shape or dtype not instantiated by the CUDA build")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has
+    none: its output is written by the kernel, so it would carry no
+    ``grad_fn`` and the inputs would silently get no gradient. Grad mode is
+    off inside an ``autograd.Function``'s ``forward``, so a Function that
+    launches the kernel passes."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} cannot differentiate its CUDA kernel's output; call it "
+            "under torch.no_grad(), or use ops.flash_attention, whose "
+            "autograd Function runs the backward kernels")
 
 
 def stream_of(t) -> int:

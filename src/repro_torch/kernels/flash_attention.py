@@ -129,12 +129,14 @@ def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
     """FA2 forward. q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (o, lse).
 
     CUDA tensors launch the K1 kernel; CPU tensors take the plain version.
-    ``kv_len`` masks padding keys.
+    ``kv_len`` masks padding keys. On CUDA tensors that need a gradient it
+    raises: the differentiable route is ``ops.flash_attention``.
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
                                          softcap=softcap, scale=scale, kv_len=kv_len)
     _check_inputs(q, k, v)
+    build.refuse_grad("flash_attention_fwd", q, k, v)
     if mapping.order not in (HEAD_FIRST, BLOCK_FIRST):
         raise ValueError(f"unknown order {mapping.order!r}")
     if mapping.traversal not in swizzle.TRAVERSALS:

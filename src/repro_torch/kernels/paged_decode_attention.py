@@ -140,6 +140,7 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
             q, k_pages, v_pages, page_table, lengths, softcap=softcap,
             scale=scale, window=window, num_splits=num_splits)
     _check_inputs(q, k_pages, v_pages, page_table, lengths)
+    build.refuse_grad("paged_flash_decode", q, k_pages, v_pages)
     b, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
     mp = page_table.shape[1]

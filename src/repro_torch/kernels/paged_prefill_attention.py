@@ -133,6 +133,7 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
             tail_len, softcap=softcap, scale=scale, window=window)
     _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
                   prefix_len, tail_len)
+    build.refuse_grad("paged_flash_prefill", q, k_pages, v_pages, k_tail, v_tail)
     b, hq, st, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
     mp = page_table.shape[1]

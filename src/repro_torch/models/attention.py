@@ -1,12 +1,13 @@
-"""GQA self-attention blocks of the paged serving path.
+"""GQA self-attention blocks of the paged serving path and of training.
 
 Port of the self-attention subset of ``repro.models.attention``:
-``_project_qkv``, ``attention_prefill``, ``attention_prefill_paged``,
-``attention_decode_paged`` and ``init_paged_cache``. Layer weights are a
-dict ``{"wq", "wk", "wv", "wo"}`` in the compute dtype, laid out
-``(d_in, d_out)`` as in the JAX package. The page pools are updated in
-place (JAX returns new arrays); the functions still return the cache dict
-so call sites read the same in both packages.
+``_project_qkv``, ``attention_block`` (training), ``attention_prefill``,
+``attention_prefill_paged``, ``attention_decode_paged`` and
+``init_paged_cache``. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
+laid out ``(d_in, d_out)`` as in the JAX package, in any dtype: each is
+cast to the activations' dtype at its product. The page pools are updated
+in place (JAX returns new arrays); the functions still return the cache
+dict so call sites read the same in both packages.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, rope_theta):
     """x: (B, S, D) -> q (B, H, S, hd), k / v (B, Hkv, S, hd)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd).transpose(1, 2)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
     q = layers.apply_rotary(q, positions, rope_theta)
     k = layers.apply_rotary(k, positions, rope_theta)
     return q, k, v
@@ -41,7 +42,24 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, rope_theta):
 
 def _out(p, o, cfg: ModelConfig):
     b, _, s, _ = o.shape
-    return o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
+
+
+def attention_block(p, x, cfg: ModelConfig, spec: LayerSpec, *,
+                    positions=None) -> torch.Tensor:
+    """Full-sequence causal self-attention (training). x (B, S, D).
+
+    Differentiable: ``ops.flash_attention`` runs K1 forward and K5 / K6
+    backward on the card."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions, spec.rope_theta)
+    plan = _plan(cfg, (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.head_dim), x,
+                 phase=plan_lib.PREFILL, window=spec.window)
+    o = ops.flash_attention(q, k, v, causal=True, window=spec.window,
+                            softcap=cfg.attn_softcap, plan=plan)
+    return _out(p, o, cfg)
 
 
 def attention_prefill(p, x, cfg: ModelConfig, spec: LayerSpec, *, cache_len: int,
@@ -108,7 +126,7 @@ def attention_decode_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
     o = ops.paged_decode_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
                                    page_table, lengths, softcap=cfg.attn_softcap,
                                    window=spec.window, plan=plan)
-    return o.reshape(b, 1, h * hd) @ p["wo"], cache
+    return o.reshape(b, 1, h * hd) @ p["wo"].to(o.dtype), cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype,

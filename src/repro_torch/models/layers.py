@@ -1,13 +1,18 @@
-"""Core layers: RMSNorm, rotary embeddings, gated MLP, embedding, linear.
+"""Core layers: RMSNorm, rotary embeddings, gated MLP, embedding, linear,
+and the training loss.
 
 Port of ``repro.models.layers``, matching it operation for operation:
 RMSNorm in float32 with eps 1e-6 and the ``(1 + scale)`` gain, split-half
-rotary embeddings, and the SiLU-gated MLP. Functions take a tensor and the
-weights they need; products run in the activations' dtype, as the JAX
-package casts each weight to the compute dtype before its product.
+rotary embeddings, the SiLU-gated MLP and the float32 softmax
+cross-entropy with z-loss. Functions take a tensor and the weights they
+need; each weight is cast to the activations' dtype at its product, as the
+JAX package does, so float32 training masters and bf16 serving weights
+take the same code.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +48,10 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor,
 
 def mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
         x: torch.Tensor) -> torch.Tensor:
-    gate = x @ w_gate
-    up = x @ w_up
-    return (F.silu(gate) * up) @ w_down
+    dtype = x.dtype
+    gate = x @ w_gate.to(dtype)
+    up = x @ w_up.to(dtype)
+    return (F.silu(gate) * up) @ w_down.to(dtype)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, *, scale_by_dim: bool = False,
@@ -58,3 +64,25 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, *, scale_by_dim: bool = Fal
 
 def linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None, *,
+                          z_loss: float = 0.0) -> Tuple[torch.Tensor, dict]:
+    """Mean token cross-entropy in float32 with an optional z-loss.
+
+    logits (..., V); targets (...) integer; mask (...) 0/1. Returns
+    ``(loss, {"loss", "accuracy", "tokens"})``; the metrics are detached."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse**2
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    with torch.no_grad():
+        hits = (logits.argmax(-1) == targets.long()).float()
+        acc = (hits * mask).sum() / denom
+    return loss, {"loss": loss.detach(), "accuracy": acc, "tokens": denom.detach()}

@@ -1,17 +1,20 @@
 """The model stack: embedding, attention + MLP layers, final norm, LM head.
 
 Port of the ``kind="attn", ffn="mlp"`` stack of ``repro.models.transformer``
-(the llama family). A Python loop over layers takes the place of the JAX
-package's scan over periods. Parameters are a dict::
+(the llama family): ``forward`` (training), ``prefill`` and ``decode_step``.
+A Python loop over layers takes the place of the JAX package's scan over
+periods. Parameters are a dict::
 
     {"embed": (V, D), "ln_f": (D,), "head": (D, V),
      "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2",
                  "w_gate", "w_up", "w_down"}, ...]}
 
-Matmul weights and the embedding table are stored in the compute dtype on
-the device (the JAX package keeps float32 parameters and casts each to the
-compute dtype before its product, so the results are the same); norm gains
-and the LM head stay float32, as the JAX head runs in float32.
+Matmul weights and the embedding table are stored in ``param_dtype``: by
+default the compute dtype, which serving uses (the JAX package keeps
+float32 parameters and casts each to the compute dtype before its product,
+so the results are the same); training passes ``torch.float32``, the JAX
+package's parameter dtype, so AdamW updates float32 masters. Norm gains and
+the LM head stay float32, as the JAX head runs in float32.
 
 ``init_model`` draws weights from a ``torch.Generator`` with the JAX
 package's distributions; ``from_jax_params`` carries a JAX parameter tree
@@ -25,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as device_lib
@@ -49,16 +53,22 @@ def _check_supported(cfg: ModelConfig) -> None:
             "ported yet (ROADMAP Queue A, other model families)")
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+def _param_dtype(cfg: ModelConfig, param_dtype) -> torch.dtype:
+    return device_lib.dtype_of(cfg.compute_dtype) if param_dtype is None else param_dtype
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
+               param_dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``, with
     the distributions of ``repro.models.transformer.init_model``: normal
     weights scaled by 1/sqrt(fan_in), embedding by d_model^-0.5, zero norm
-    gains (the ``(1 + scale)`` identity)."""
+    gains (the ``(1 + scale)`` identity). Matmul weights and the embedding
+    are ``param_dtype`` (default: the compute dtype)."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    dt = device_lib.dtype_of(cfg.compute_dtype)
+    dt = _param_dtype(cfg, param_dtype)
     d, h, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
     def normal(shape, scale, dtype=dt):
@@ -88,13 +98,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     return params
 
 
-def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> Params:
+def from_jax_params(tree, cfg: ModelConfig, *, device=None,
+                    param_dtype: Optional[torch.dtype] = None) -> Params:
     """Convert a ``repro.models.transformer.init_model`` tree whose leaves
     are numpy arrays (``jax.tree.map(np.asarray, params)``) into this
-    package's parameter dict on ``device``."""
+    package's parameter dict on ``device``, matmul weights and embedding in
+    ``param_dtype`` (default: the compute dtype)."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
-    dt = device_lib.dtype_of(cfg.compute_dtype)
+    dt = _param_dtype(cfg, param_dtype)
 
     def t(a, dtype=dt):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
@@ -148,6 +160,35 @@ def _logits(params, cfg: ModelConfig, x):
 
 def _mlp(lp, x):
     return layers.mlp(lp["w_gate"], lp["w_up"], lp["w_down"], layers.rmsnorm(lp["ln2"], x))
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    """The JAX stack's aux losses; all zero for the llama family (no MoE)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_lb_loss": z, "moe_z_loss": z, "moe_dropped_frac": z}
+
+
+def _train_layer(lp, x, cfg: ModelConfig, spec):
+    x = x + attn_lib.attention_block(lp, layers.rmsnorm(lp["ln1"], x), cfg, spec)
+    return x + _mlp(lp, x)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: tokens (B, S) -> (logits (B, S, V) float32, aux).
+
+    With ``remat`` each layer runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward pass, as the JAX package's ``jax.checkpoint``
+    recomputes each period: only the layer inputs stay alive, and the
+    attention forward (K1) runs twice per layer."""
+    x = _embed_tokens(params, cfg, tokens)
+    for spec, lp in zip(cfg.layer_specs(), params["layers"]):
+        if remat:
+            x = checkpoint(_train_layer, lp, x, cfg, spec, use_reentrant=False)
+        else:
+            x = _train_layer(lp, x, cfg, spec)
+    x = layers.rmsnorm(params["ln_f"], x)
+    return _logits(params, cfg, x), _zero_aux(x.device)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

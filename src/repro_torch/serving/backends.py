@@ -301,10 +301,12 @@ class PagedBackend:
         self.page_table[row] = NULL_PAGE
         self.page_table[row, : len(pages)] = pages
 
+    @torch.no_grad()
     def flush(self, records) -> Dict[int, torch.Tensor]:
         """Run the admitted tail prefills in dependency waves (a borrower of
         same-round pages runs after their publisher). Returns per-row
-        last-position logits."""
+        last-position logits. Serving takes no gradient: parameters that
+        require grad build no graph here."""
         first_logits: Dict[int, torch.Tensor] = {}
         todo = list(records)
         published: set = set()
@@ -411,6 +413,7 @@ class PagedBackend:
                 self._copy_page(*cow)
             self._set_table(row)
 
+    @torch.no_grad()
     def decode(self, rows: List[int], tokens: List[int]) -> torch.Tensor:
         """One decode step for the active ``rows`` (their slots reserved by
         :meth:`reserve_rows`); returns their logits (len(rows), V)."""

@@ -1,6 +1,6 @@
 """Card-only tests: every CUDA kernel of the port against its plain PyTorch
-version on the card, at small shapes, plus the paged engine on the kernels
-against the same engine on the plain versions.
+version on the card, at small shapes, plus the paged engine and one train
+step on the kernels against the same on the plain versions.
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -24,11 +24,14 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import llama3_8b
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pd
 from repro_torch.kernels import paged_prefill_attention as pp
 from repro_torch.models import transformer
+from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serving import LLMEngine, Request
+from repro_torch.training import train_step as ts
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -127,6 +130,115 @@ def test_ops_flash_attention_pads_odd_lengths(cuda):
     want = fa.flash_attention_fwd_plain(q, k, v, causal=True)[0]
     torch.cuda.synchronize()
     assert got.shape == q.shape and _err(got, want) < F32_TOL
+
+
+# -- K5 / K6 -------------------------------------------------------------------
+
+
+def _slice_err(g, ref) -> float:
+    """Max over (b, head) slices of max |g - ref| / max |ref| (a slice of
+    ref that is all zero must be exactly zero)."""
+    diff = (g.float() - ref.float()).abs().flatten(2).amax(-1)
+    den = ref.float().abs().flatten(2).amax(-1)
+    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
+
+
+#: Gradient bars per (b, head) slice: float32 sums in another order differ
+#: by ~1e-6 of a slice's max; bf16 outputs by one rounding, as the forward's.
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: ROW_TOL}
+
+
+def _bwd_case(rng, dev, dt, hq, hkv, sq, skv, d, **kw):
+    q = _randn(rng, (2, hq, sq, d), dev, dt)
+    k, v = _randn(rng, (2, hkv, skv, d), dev, dt), _randn(rng, (2, hkv, skv, d), dev, dt)
+    do = _randn(rng, (2, hq, sq, d), dev, dt)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    return q, k, v, o.contiguous(), lse.contiguous(), do
+
+
+@pytest.mark.parametrize("order", [fa.HEAD_FIRST, fa.BLOCK_FIRST])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape,kw", [
+    ((8, 2, 192, 192), dict(causal=True)),
+    ((8, 2, 130, 130), dict(causal=True, window=37, softcap=20.0)),
+    ((4, 4, 77, 77), dict(causal=True)),
+    ((4, 1, 130, 170), dict(causal=False, kv_len=150)),
+], ids=["gqa_causal", "gqa_window_softcap_odd", "mha_odd", "mqa_noncausal_kvlen"])
+def test_flash_bwd_matches_plain(cuda, order, dtype, d, shape, kw):
+    dt = DTYPES[dtype]
+    args = _bwd_case(np.random.default_rng(50), cuda, dt, *shape, d, **kw)
+    got = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=order), **kw)
+    want = fb.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape, name
+        assert _slice_err(g, w) <= GRAD_TOL[dt], name
+
+
+def test_flash_bwd_fully_masked_rows(cuda):
+    """kv_len 0 masks every row; a window past a row's keys masks none."""
+    q, k, v, o, lse, do = _bwd_case(np.random.default_rng(51), cuda, torch.float32,
+                                    4, 2, 64, 64, 64, causal=False, kv_len=0)
+    dq, dk, dv = fb.flash_attention_bwd(q, k, v, o, lse, do, causal=False, kv_len=0)
+    torch.cuda.synchronize()
+    assert float(dq.abs().max()) == float(dk.abs().max()) == float(dv.abs().max()) == 0.0
+
+
+def test_flash_bwd_orders_agree_exactly(cuda):
+    """An order changes which blocks run together, never a block's sums."""
+    args = _bwd_case(np.random.default_rng(52), cuda, torch.bfloat16, 8, 2, 256, 256, 128,
+                     causal=True)
+    hf = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=fa.HEAD_FIRST))
+    bf = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=fa.BLOCK_FIRST))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(hf, bf))
+
+
+def test_ops_flash_attention_backward_runs_k1_k5_k6(cuda):
+    rng = np.random.default_rng(53)
+    leaves = [_randn(rng, shape, cuda).requires_grad_(True)
+              for shape in ((2, 8, 77, 128), (2, 2, 77, 128), (2, 2, 77, 128))]
+    do = _randn(rng, (2, 8, 77, 128), cuda)
+    kernels.reset_launch_counts()
+    out = ops.flash_attention(*leaves, causal=True)
+    (out * do).sum().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 1
+    ref = [t.detach().clone().requires_grad_(True) for t in leaves]
+    o_ref, _ = fa.flash_attention_fwd_plain(*ref, causal=True)
+    (o_ref * do).sum().backward()
+    for t, r in zip(leaves, ref):
+        assert _slice_err(t.grad, r.grad) <= GRAD_TOL[torch.float32]
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """A wrapper whose kernel writes its output through a pointer raises when
+    autograd would need a gradient, instead of returning a tensor with no
+    grad_fn; under no_grad it runs."""
+    rng = np.random.default_rng(54)
+    q = _randn(rng, (1, 4, 64, 64), cuda).requires_grad_(True)
+    k, v = _randn(rng, (1, 2, 64, 64), cuda), _randn(rng, (1, 2, 64, 64), cuda)
+    with pytest.raises(RuntimeError, match="flash_attention_fwd"):
+        fa.flash_attention_fwd(q, k, v)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd_dq"):   # double backward
+        fb.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+    args = list(_prefill_inputs(np.random.default_rng(55), cuda, torch.float32, 8, 2))
+    args[0] = args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="paged_flash_prefill"):
+        pp.paged_flash_prefill(*args)
+    dargs = list(_decode_inputs(np.random.default_rng(56), cuda, torch.float32, 8, 2))
+    dargs[1] = dargs[1].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="paged_flash_decode"):
+        pd.paged_flash_decode(*dargs)
+    with torch.no_grad():
+        pd.paged_flash_decode(*dargs)
+    torch.cuda.synchronize()
 
 
 # -- K2 ------------------------------------------------------------------------
@@ -265,3 +377,38 @@ def test_engine_on_kernels_matches_engine_on_plain_versions(cuda):
         else:
             assert sum(counts.values()) == 0
     assert tokens["auto"] == tokens["plain"]
+
+
+def test_train_step_on_kernels_matches_plain_path(cuda):
+    """SMOKE widened to head_dim 64, float32: one train step's gradients
+    through K1/K5/K6 against the same step on the plain versions, from the
+    same weights and batch; and the step went through the kernels."""
+    cfg = dataclasses.replace(llama3_8b.SMOKE, head_dim=64)
+    tcfg = ts.TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+                          microbatches=2)
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    batch = ts.to_device(make_pipeline(DataConfig(seq_len=100, global_batch=4,
+                                                  vocab=cfg.vocab)).batch_at(0), cuda)
+    grads, losses = {}, {}
+    for impl in ("auto", "plain"):
+        params = transformer.init_model(cfg, seed=0, device=cuda, param_dtype=torch.float32)
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, dataclasses.replace(cfg, attn_impl=impl),
+                                          batch, tcfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        grads[impl], losses[impl] = g, float(loss)
+        if impl == "auto":
+            # remat: K1 twice per layer per microbatch; K5 / K6 once.
+            assert counts["flash_attention_fwd"] == 2 * cfg.n_layers * 2
+            assert counts["flash_attention_bwd_dq"] == cfg.n_layers * 2
+            assert counts["flash_attention_bwd_dkv"] == cfg.n_layers * 2
+        else:
+            assert sum(counts.values()) == 0
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-5 * abs(losses["plain"])
+    from repro_torch.core import tree as tree_lib
+
+    for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
+                            tree_lib.leaves(grads["plain"])):
+        assert float((a - b).norm() / b.norm()) <= 1e-4, path
