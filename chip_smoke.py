@@ -6,9 +6,9 @@ card and ``nvcc``; without a card, or outside a checkout, it exits non-zero
 and prints no result. Phases, in order (any failure exits non-zero):
 
   1. probe  — the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build  — compiles the six attention kernels from ``src/repro_torch/
-     csrc`` with nvcc for sm_90a, one nvcc per source in parallel; prints
-     the build time and ptxas' register / shared-memory lines;
+  2. build  — compiles the nine kernels from ``src/repro_torch/csrc`` with
+     nvcc for sm_90a, one nvcc per source in parallel; prints the build
+     time and ptxas' register / shared-memory lines;
   3. kernels — each kernel against its plain PyTorch version on the card,
      at llama3-8b widths in bf16 (Hq 32, Hkv 8, D 128, page size 16):
      max error at a stated tolerance, CUDA-event median times of kernel and
@@ -18,13 +18,23 @@ and prints no result. Phases, in order (any failure exits non-zero):
      fixed cost per call of the split path over the one-pass path; then K5
      (dQ) and K6 (dK/dV) under both launch orders, with window + softcap,
      and at S 1000 padded to 1024 (kv_len masking), and SDPA's backward as
-     the library yardstick;
+     the library yardstick; then K7 / K8 (dense decode, one pass and
+     split-K) at llama3-8b and hymba-1.5b widths (window 1024 and global),
+     SDPA on the expanded, masked stripes as the library yardstick; then K9
+     (SSD intra-chunk) at hymba-1.5b's and mamba2-1.3b's prefill shapes;
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
      each; every kernel's launch count over that run must be above 0. Then
      one request's prefill and first-decode logits, kernel path against the
-     plain path on the card;
+     plain path on the card; then the same weights served from dense
+     stripes (``kv_layout="dense"``); then full-width hymba-1.5b through
+     ``LLMEngine(cfg, params)`` (``kv_layout`` resolves to dense): 8 greedy
+     requests off the prompt buckets, several past the 1024 window, then one
+     of 4000 tokens alone, whose decode the plan splits (K8); then
+     full-width mamba2-1.3b. Each dense run must launch its kernels and
+     hold its first-token and next-token logits to the plain path's (every
+     kernel off: ``attn_impl`` and ``ssm.impl`` "plain");
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -55,6 +65,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, NVIDIA data sheet
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 off the tensor cores, data sheet
 PEAK_HBM_BW = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 # bf16 outputs against their plain versions, per row: max |o - ref| over
 # max |ref| of that row (a row of ref that is all zero must be exactly zero).
@@ -63,6 +74,11 @@ PEAK_HBM_BW = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 # row moves o by ~2^-4 of its row max.
 ROW_TOL = 2.0**-6
 LSE_TOL = 1e-5             # float32 logsumexp, |lse| ~ 8: about 10 ulp
+# K9 (float32 in and out) against its plain version, per (b, chunk, head)
+# slice: max |y - ref| over max |ref|. Both sum float32 FMAs over at most
+# q + N terms in another order (about 1e-6 relative); a dropped or
+# mis-masked key tile moves y by a large fraction of its max.
+SSD_TOL = 1e-5
 # Logits of the kernel path against the plain path, relative to max |logit|:
 # bf16 attention outputs round differently in the two paths (~2^-8
 # relative) and the difference compounds over 32 layers.
@@ -100,6 +116,14 @@ KERNELS = {
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention_bwd.py:279",
                counter="flash_attention_bwd_dkv"),
+    "K7": dict(name="K7 flash_decode", source="src/repro_torch/csrc/dense_decode.cu",
+               replaces="src/repro/kernels/decode_attention.py:175", counter="flash_decode"),
+    "K8": dict(name="K8 flash_decode_split+combine",
+               source="src/repro_torch/csrc/dense_decode.cu",
+               replaces="src/repro/kernels/decode_attention.py:227",
+               counter="flash_decode_split"),
+    "K9": dict(name="K9 ssd_intra_chunk", source="src/repro_torch/csrc/ssd.cu",
+               replaces="src/repro/kernels/ssd.py:83", counter="ssd_intra_chunk"),
 }
 
 
@@ -141,8 +165,8 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_mem, t_ops = nbytes / PEAK_HBM_BW, flops / PEAK_BF16_FLOPS
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_mem, t_ops = nbytes / PEAK_HBM_BW, flops / peak_flops
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations")
 
 
@@ -231,6 +255,21 @@ def check_kernels(torch, timer, results):
     if e_r > ROW_TOL or e_l > LSE_TOL:
         raise AssertionError("K1 window+softcap disagrees with its plain version")
     del q, k, v, o, lse, o_ref, lse_ref
+
+    # K1 at hymba-1.5b's prefill widths: Hq 25, Hkv 5 (a GQA group of 5),
+    # D 64, S 4096, global and window 1024 (tile skips at D 64).
+    q, k, v = randn(1, 25, 4096, 64), randn(1, 5, 4096, 64), randn(1, 5, 4096, 64)
+    for window in (None, 1024):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        e_r, e_l = row_err(o, o_ref), err(lse, lse_ref)
+        log(f"K1 hymba-1.5b widths (Hq 25, Hkv 5, D 64, S 4096, window {window}): o "
+            f"row-relative {e_r:.3e} (tol {ROW_TOL:.3e}) lse {e_l:.3e} (tol {LSE_TOL})")
+        if e_r > ROW_TOL or e_l > LSE_TOL:
+            raise AssertionError("K1 at hymba widths disagrees with its plain version")
+        del o, lse, o_ref, lse_ref
+    del q, k, v
 
     # K2: prefix 1000 tokens (not a page multiple), tail 256, B 2.
     b, plen, st = 2, 1000, 256
@@ -401,6 +440,126 @@ def check_backward(torch, timer, results):
     check("S 1000 padded to 1024 (kv_len 1000)", args, kw, fa.MappingConfig())
 
 
+def check_dense_decode(torch, timer, results):
+    """K7 (one pass) and K8 (split-K + combine) against their plain version
+    on dense stripes, B 8, capacity 4096, ragged lengths with a length-0
+    row, per row within ROW_TOL: at llama3-8b widths (one pass, 4 and 7
+    splits), then at hymba-1.5b widths (Hq 25, Hkv 5, D 64) global and with
+    window 1024 (one pass and 4 splits). The bound counts what these
+    lengths need: each live key and value read once (``min(length,
+    window)`` per row), q read and o written once; the JSON line takes
+    hymba's global case, the serve path's. SDPA (q as (B, Hq, 1, D) against
+    K/V expanded to Hq and masked by length) is the library yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    b, smax = 8, 4096
+    lengths = torch.tensor([4096, 0, 3001, 17, 2048, 4000, 1, 1500], dtype=torch.int32,
+                           device="cuda")
+    chunk = plan_lib.decode_chunk(smax)
+    for label, hq, hkv, d, window, splits in (
+            ("llama3-8b", HQ, HKV, D, None, (1, 4, 7)),
+            ("hymba-1.5b global", 25, 5, 64, None, (1, 4)),
+            ("hymba-1.5b window 1024", 25, 5, 64, 1024, (1, 4))):
+        q, kc, vc = randn(b, hq, d), randn(b, hkv, smax, d), randn(b, hkv, smax, d)
+        live = int(torch.clamp(lengths, max=window or smax).sum())
+        dec_bound = bound(2 * hkv * live * d * 2 + 2 * nbytes(q) + nbytes(lengths),
+                          4.0 * hq * d * live)
+        group = hq // hkv
+        pos = torch.arange(smax, device="cuda")[None, :]
+        mask = pos < lengths[:, None].long()
+        if window:
+            mask = mask & (pos > lengths[:, None].long() - 1 - window)
+        kx, vx = kc.repeat_interleave(group, 1), vc.repeat_interleave(group, 1)
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kx, vx, attn_mask=mask[:, None, None, :]))
+        del kx, vx
+        for ns in splits:
+            kw = dict(window=window, chunk=chunk, num_splits=ns)
+            o = dd.flash_decode(q, kc, vc, lengths, **kw)
+            o_ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+            torch.cuda.synchronize()
+            e, e_r = err(o, o_ref), row_err(o, o_ref)
+            zero_row = float(o[1].float().abs().max())
+            ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lengths, **kw))
+            plain_ms = timer.ms(lambda: dd.flash_decode_plain(q, kc, vc, lengths, **kw))
+            key = "K7" if ns == 1 else "K8"
+            log(f"{key} {label} chunk {chunk} num_splits {ns}: max_err {e:.3e} (row-relative "
+                f"{e_r:.3e}, tol {ROW_TOL:.3e}), length-0 row max {zero_row}, {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, library sdpa {lib_ms:.4f} ms, bound "
+                f"{dec_bound[0]:.4f} ms ({dec_bound[1]})")
+            if e_r > ROW_TOL or zero_row != 0.0:
+                raise AssertionError(f"{key} {label} num_splits {ns} disagrees with its "
+                                     "plain version")
+            if label == "hymba-1.5b global" and key not in results:
+                results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=dec_bound[0], bound_by=dec_bound[1],
+                                    library_ms=lib_ms)
+        del q, kc, vc
+
+
+def check_ssd(torch, timer, results):
+    """K9 against its plain version at the prefill shapes of the serve path
+    (B 1, L 4096, chunk 256): hymba-1.5b (H 50, P 64, N 16) and mamba2-1.3b
+    (H 64, P 64, N 128), per (b, chunk, head) slice within SSD_TOL. Inputs
+    as ``ssd_chunked_cuda`` makes them: dt = softplus(normal), A = -exp of
+    the JAX package's initial log-decay range, acum the in-chunk cumsum.
+    The bound counts the causal half of the two (q x q) products and the
+    state product at the float32 peak, and each input read and output
+    written once; the JSON line takes hymba's case. No one PyTorch call
+    computes this block: no library time."""
+    from repro_torch.kernels import ssd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    bsz, length, q = 1, 4096, 256
+    nc = length // q
+    for label, h, p, n in (("hymba-1.5b", 50, 64, 16), ("mamba2-1.3b", 64, 64, 128)):
+        dt = torch.nn.functional.softplus(randn(bsz, nc, h, q))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+        acum = torch.cumsum(dt * a[None, None, :, None], dim=-1).contiguous()
+        xdt = (randn(bsz, nc, h, q, p) * dt[..., None]).contiguous()
+        bh, ch = randn(bsz, nc, h, q, n), randn(bsz, nc, h, q, n)
+        y, s = ssd.ssd_intra_chunk(xdt, bh, ch, acum)
+        y_ref, s_ref = ssd.ssd_intra_chunk_plain(xdt, bh, ch, acum)
+        # The same function in float64: how far each float32 route is from it.
+        y64, s64 = (t.float() for t in ssd.ssd_intra_chunk_plain(
+            *(t.double() for t in (xdt, bh, ch, acum))))
+        torch.cuda.synchronize()
+        e_y, e_s = slice_err(y, y_ref), slice_err(s, s_ref)
+        e = max(err(y, y_ref), err(s, s_ref))
+        log(f"K9 {label} against float64: kernel y {slice_err(y, y64):.3e} s "
+            f"{slice_err(s, s64):.3e}, plain y {slice_err(y_ref, y64):.3e} s "
+            f"{slice_err(s_ref, s64):.3e} (per-slice relative)")
+        del y64, s64
+        ms = timer.ms(lambda: ssd.ssd_intra_chunk(xdt, bh, ch, acum))
+        plain_ms = timer.ms(lambda: ssd.ssd_intra_chunk_plain(xdt, bh, ch, acum))
+        cells = bsz * nc * h
+        ops = 2.0 * cells * (q * (q + 1) // 2 * (n + p) + q * n * p)
+        k9_bound = bound(nbytes(xdt, bh, ch, acum, y, s), ops, PEAK_F32_FLOPS)
+        log(f"K9 {label} (B {bsz}, L {length}, H {h}, P {p}, N {n}, q {q}): per-slice "
+            f"relative y {e_y:.3e} s {e_s:.3e} (tol {SSD_TOL:.0e}), max abs {e:.3e}, "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {k9_bound[0]:.4f} ms "
+            f"({k9_bound[1]}, float32 peak)")
+        if max(e_y, e_s) > SSD_TOL:
+            raise AssertionError(f"K9 {label} disagrees with its plain version")
+        if "K9" not in results:
+            results["K9"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=k9_bound[0], bound_by=k9_bound[1], library_ms=None)
+        del xdt, bh, ch, acum, y, s, y_ref, s_ref
+
+
 def split_path_cost(torch, pd, randn, calls=200, rounds=5):
     """Time per call of the decode wrapper, host clock over ``calls``
     back-to-back calls ended by one sync (so whichever of host or card is
@@ -442,19 +601,24 @@ def split_path_cost(torch, pd, randn, calls=200, rounds=5):
 
 # -- phase 4: serve llama3-8b ------------------------------------------------
 
-def serve(torch, cfg, seed=0, device="cuda"):
-    import numpy as np
-
-    from repro_torch import kernels
+def init_params(torch, cfg, seed=0, device="cuda"):
     from repro_torch.models import transformer
-    from repro_torch.serving import LLMEngine, Request, SamplingParams
 
     t0 = time.perf_counter()
     params = transformer.init_model(cfg, seed=seed, device=device)
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
+    torch.cuda.synchronize()
     log(f"init_model {cfg.name}: {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return params
+
+
+def serve(torch, cfg, params, seed=0, device="cuda"):
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     engine_kw = dict(kv_layout="paged", max_batch=8, num_pages=1024, page_size=PS,
                      max_pages_per_seq=260, prompt_buckets=(256, 512, 4096), device=device)
     engine = LLMEngine(cfg, params, **engine_kw)
@@ -519,6 +683,87 @@ def serve(torch, cfg, seed=0, device="cuda"):
             f"{int(a.argmax())} vs {int(b.argmax())}")
         if not torch.isfinite(a).all() or rel > LOGIT_TOL:
             raise AssertionError(f"logits {label}: kernel path disagrees with the plain path")
+    return counts
+
+
+def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
+                want, kv_layout=None, rows=8, cache_len=4096,
+                buckets=(512, 1024, 2048, 4096), seed=0, device="cuda"):
+    """Dense serving through ``LLMEngine``: greedy requests of
+    ``prompt_lens`` tokens (none a bucket size, so each prefill is
+    right-padded), then one of ``lone_len`` alone, 32 new tokens each, with
+    the launch counts set to 0 just before and read just after; every
+    kernel of ``want`` must have launched. ``kv_layout=None`` takes the
+    engine's default ("auto"), which must resolve to dense. Then the
+    first-token and next-token logits of ``compare_lens`` prompts, kernel
+    path against the plain path (attention and SSM impl "plain"), each
+    prompt alone, within LOGIT_TOL of the plain path's max |logit|."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    kw = dict(max_batch=rows, cache_len=cache_len, prompt_buckets=buckets, device=device)
+    if kv_layout is not None:
+        kw["kv_layout"] = kv_layout
+    engine = LLMEngine(cfg, params, **kw)
+    if engine.kv_layout != "dense":
+        raise AssertionError(f"{cfg.name}: kv_layout resolved to {engine.kv_layout}, not dense")
+    lens = list(prompt_lens) + ([lone_len] if lone_len else [])
+    if any(n in buckets for n in lens):
+        raise AssertionError("serve_dense prompts must not be bucket sizes")
+    rng = np.random.default_rng(seed + 7)
+    prompts = {n: rng.integers(1, cfg.vocab, size=(n,)) for n in set(lens) | set(compare_lens)}
+    greedy = SamplingParams(max_tokens=32)
+    batches = [("batch", list(prompt_lens))] + ([("alone", [lone_len])] if lone_len else [])
+    kernels.reset_launch_counts()
+    runs = {}
+    for label, group in batches:
+        t = time.perf_counter()
+        out = engine.generate([Request(uid=i, prompt=prompts[n], sampling=greedy)
+                               for i, n in enumerate(group)])
+        torch.cuda.synchronize()
+        runs[label] = (out, time.perf_counter() - t)
+    counts = kernels.launch_counts()
+    stats = engine.stats()
+    for label, (out, secs) in runs.items():
+        ttft = sorted(engine.ttft[o.uid] * 1e3 for o in out)
+        log(f"serve {cfg.name} ({label}, prompts {[len(prompts[n]) for n in dict(batches)[label]]}): "
+            f"{len(out)} requests, {sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; "
+            f"TTFT ms min {ttft[0]:.1f} max {ttft[-1]:.1f}")
+        if any(len(o.tokens) != 32 for o in out):
+            raise AssertionError(f"serve {cfg.name} ({label}) did not generate 32 tokens each")
+    log(f"serve {cfg.name} kv_layout={engine.kv_layout}: decode {stats.decode_tok_s:.1f} "
+        f"tok/s over {stats.decode_elapsed_s:.2f} s (host clock); prefill launches "
+        f"{stats.prefill_launches}; launch counts {json.dumps(counts)}")
+    for key in want:
+        if counts[KERNELS[key]["counter"]] <= 0:
+            raise AssertionError(f"{key} was not launched on the {cfg.name} dense path")
+    engine.close()
+    del engine
+
+    plain_cfg = dataclasses.replace(
+        cfg, attn_impl="plain",
+        ssm=dataclasses.replace(cfg.ssm, impl="plain") if cfg.ssm else None)
+    outs = {}
+    for name, c in (("cuda", cfg), ("plain", plain_cfg)):
+        eng = LLMEngine(c, params, **dict(kw, max_batch=1))
+        logits = []
+        for n in compare_lens:
+            rec = eng.backend.try_admit(Request(uid=n, prompt=prompts[n], sampling=greedy))
+            first = eng.backend.flush([rec])[rec["row"]]
+            nxt = eng.backend.decode([rec["row"]], [int(first.argmax())])[0]
+            logits += [(f"prefill {n}", first.float()), (f"decode after {n}", nxt.float())]
+            eng.backend.release(rec["row"])
+        outs[name] = logits
+        eng.close()
+    for (label, a), (_, b) in zip(outs["cuda"], outs["plain"]):
+        rel = float((a - b).abs().max() / b.abs().max())
+        log(f"logits {cfg.name} {label}: max |cuda - plain| / max |plain| = {rel:.3e} (tol "
+            f"{LOGIT_TOL}), argmax {int(a.argmax())} vs {int(b.argmax())}")
+        if not torch.isfinite(a).all() or rel > LOGIT_TOL:
+            raise AssertionError(f"logits {cfg.name} {label}: kernel path disagrees with "
+                                 "the plain path")
     return counts
 
 
@@ -695,7 +940,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import llama3_8b
+    from repro_torch.configs import hymba_1_5b, llama3_8b, mamba2_1_3b
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -719,9 +964,38 @@ def main() -> int:
     timer = Timer(torch)
     check_kernels(torch, timer, results)
     check_backward(torch, timer, results)
+    log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32)")
+    check_dense_decode(torch, timer, results)
+    check_ssd(torch, timer, results)
     del timer
     log("== serve llama3-8b (paged, bf16, random weights)")
-    counts = serve(torch, llama3_8b.CONFIG)
+    params = init_params(torch, llama3_8b.CONFIG)
+    counts = serve(torch, llama3_8b.CONFIG, params)
+    log("== serve llama3-8b (dense, the same weights)")
+    paths = [serve_dense(torch, llama3_8b.CONFIG, params, kv_layout="dense", rows=4,
+                         prompt_lens=(300, 900, 1500, 2500), compare_lens=(900,),
+                         want=("K1",))]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== serve hymba-1.5b (kv_layout auto -> dense, bf16, random weights)")
+    params = init_params(torch, hymba_1_5b.CONFIG)
+    paths.append(serve_dense(torch, hymba_1_5b.CONFIG, params,
+                             prompt_lens=(100, 300, 600, 900, 1100, 1300, 1450, 1500),
+                             lone_len=4000, compare_lens=(1500, 4000),
+                             want=("K1", "K7", "K8", "K9")))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== serve mamba2-1.3b (kv_layout auto -> dense, bf16, random weights)")
+    params = init_params(torch, mamba2_1_3b.CONFIG)
+    paths.append(serve_dense(torch, mamba2_1_3b.CONFIG, params, rows=4,
+                             prompt_lens=(200, 700, 1300, 2000), compare_lens=(700, 2000),
+                             want=("K9",)))
+    del params
+    for path in paths:
+        for key, n in path.items():
+            counts[key] += n
     log(f"== train llama3-8b widths ({TRAIN_LAYERS} layers, seq {TRAIN_SEQ}, batch "
         f"{TRAIN_BATCH} in {TRAIN_MICRO} microbatches, bf16 compute, random weights)")
     train_counts = train(torch, llama3_8b.CONFIG)

@@ -1,3 +1,3 @@
 """Model configurations served by the port."""
 
-from repro_torch.configs.base import LayerSpec, ModelConfig  # noqa: F401
+from repro_torch.configs.base import LayerSpec, ModelConfig, SSMConfig  # noqa: F401

@@ -3,8 +3,10 @@
 A ``ModelConfig`` fully determines parameter shapes and the layer stack:
 ``n_layers`` repetitions of ``layer_pattern`` (one ``LayerSpec`` per pattern
 position). The fields and defaults match the JAX package's schema so a
-config built here describes the same model; the port serves only the
-``kind="attn", ffn="mlp"`` stacks of the llama family so far.
+config built here describes the same model. The port serves the
+``attn``, ``mamba`` and ``hybrid`` layer kinds with ``ffn="mlp"`` or
+``"none"`` (llama, mamba2, hymba); MoE, cross-attention and multi-codebook
+fields wait for their slices.
 """
 
 from __future__ import annotations
@@ -25,6 +27,20 @@ class LayerSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block dimensions."""
+
+    state_dim: int = 128         # N
+    head_dim: int = 64           # P
+    num_heads: int = 0           # 0 => derived: expand * d_model // head_dim
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+    num_groups: int = 1          # B/C groups (GVA)
+    impl: str = "auto"           # "auto" | "cuda" | "plain" (kernels/ssd.py)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     d_model: int
@@ -35,6 +51,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     layer_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    ssm: Optional[SSMConfig] = None
     # attention extras
     attn_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
@@ -52,7 +69,19 @@ class ModelConfig:
     # training
     z_loss: float = 1e-4
 
+    def pattern_for_depth(self) -> Tuple[Tuple[LayerSpec, ...], Tuple[LayerSpec, ...]]:
+        """(the repeated pattern, the remainder layers after the last whole
+        period): the JAX package's period scan, here only for its layer
+        order and its parameter tree."""
+        p = len(self.layer_pattern)
+        rem = self.n_layers - self.n_periods * p
+        return self.layer_pattern, self.layer_pattern[:rem]
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.layer_pattern)
+
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         """The spec of every layer, in stack order."""
-        p = len(self.layer_pattern)
-        return tuple(self.layer_pattern[i % p] for i in range(self.n_layers))
+        pattern, rem = self.pattern_for_depth()
+        return pattern * self.n_periods + rem

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port serves the llama family first; other architectures of the JAX
-package are listed in ROADMAP.md as still to be ported.
+The port serves the llama family, mamba2 and hymba; the other
+architectures of the JAX package are listed in ROADMAP.md as still to be
+ported.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_IDS = ("llama3-8b",)
+ARCH_IDS = ("mamba2-1.3b", "hymba-1.5b", "llama3-8b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCH_IDS}

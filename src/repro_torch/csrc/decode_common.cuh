@@ -1,13 +1,14 @@
-// Shared decode arithmetic for the paged decode kernels (K3 one-pass, K4
-// split-K and its combine): the CUDA form of repro_torch/kernels/
+// Shared decode arithmetic for the decode kernels (paged K3 one-pass, K4
+// split-K, dense K7 one-pass, K8 split-K, and the split combine that K4 and
+// K8 share): the CUDA form of repro_torch/kernels/
 // decode_common.py, itself the port of the JAX package's
 // src/repro/kernels/decode_common.py (chunk_relevant :36,
 // accumulate_kv_block :54, combine_split_states :107).
 //
 // A decode block of DC_THREADS threads serves one (b, kv head[, split])
 // cell: the whole GQA group of G query rows rides in the block, so every
-// page is loaded once and used by all G heads. KV is staged DC_BT positions
-// at a time (whole pages).
+// KV row is loaded once and used by all G heads. KV is staged DC_BT
+// positions at a time (whole pages, or a stripe's contiguous rows).
 #pragma once
 
 #include "common.cuh"
@@ -35,6 +36,15 @@ __device__ __forceinline__ bool pos_valid(int pos, int length, int limit, int wi
 template <int D>
 struct DecodeCols {
   static constexpr int CPT = (D + DC_THREADS - 1) / DC_THREADS;  // columns per thread
+};
+
+// Dynamic shared memory of a decode block: q (MAXG x D), K (DC_BT x (D + 1),
+// padded against bank conflicts), V (DC_BT x D), scores (MAXG x DC_BT), and
+// the running max, normaliser and rescale per row.
+template <int D, int MAXG>
+struct DecodeSmem {
+  static constexpr size_t bytes =
+      sizeof(float) * (size_t)(MAXG * D + DC_BT * (D + 1) + DC_BT * D + MAXG * DC_BT + 3 * MAXG);
 };
 
 // One online-softmax step over DC_BT staged positions starting at
@@ -126,6 +136,23 @@ __device__ __forceinline__ float combine_split_states(const float* acc, int acc_
     a_star += acc[s * acc_stride] * alpha;
   }
   return a_star / (l_star == 0.f ? 1.f : l_star);
+}
+
+// The split combine, one block per (b, kv head, group row): out row =
+// combine over the S splits of acc (B, Hkv, S, G, D), m / l (B, Hkv, S, G).
+template <typename T, int D>
+__global__ void __launch_bounds__(DC_THREADS)
+combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+               const float* __restrict__ l, T* __restrict__ out, int G, int S) {
+  const int row = blockIdx.x;        // (b * Hkv + h) * G + g
+  const int g = row % G;
+  const int cell = row / G;          // b * Hkv + h
+  const float* mr = m + (size_t)cell * S * G + g;
+  const float* lr = l + (size_t)cell * S * G + g;
+  for (int d = threadIdx.x; d < D; d += DC_THREADS) {
+    const float* ar = acc + ((size_t)cell * S * G + g) * D + d;
+    out[(size_t)row * D + d] = from_f<T>(combine_split_states(ar, G * D, mr, lr, G, S));
+  }
 }
 
 }  // namespace rt

@@ -22,18 +22,13 @@
 // memory (the group is not padded to the TPU's 8 sublanes). Split-K (K4)
 // multiplies the blocks by the split count over page-granular ranges from
 // cache.layout.decode_split_ranges, each block writing float32 (acc, m, l);
-// a second small kernel rescales the splits to the global max.
+// a second small kernel (decode_common.cuh, shared with K8) rescales the
+// splits to the global max.
 #include "decode_common.cuh"
 
 namespace {
 
 using namespace rt;
-
-template <int D, int MAXG>
-struct DecodeSmem {
-  static constexpr size_t bytes =
-      sizeof(float) * (size_t)(MAXG * D + DC_BT * (D + 1) + DC_BT * D + MAXG * DC_BT + 3 * MAXG);
-};
 
 // SPLIT = false: K3, grid (1, Hkv, B), writes the normalised row to `out`.
 // SPLIT = true: K4, grid (S, Hkv, B), split s walks pages
@@ -132,22 +127,6 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const size_t i = (((size_t)b * Hkv + h) * gridDim.x + s) * G + tid;
     m_out[i] = ms[tid];
     l_out[i] = ls[tid];
-  }
-}
-
-// One block per (b, kv head, group row): out row = combine over the S splits.
-template <typename T, int D>
-__global__ void __launch_bounds__(DC_THREADS)
-combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-               const float* __restrict__ l, T* __restrict__ out, int G, int S) {
-  const int row = blockIdx.x;        // (b * Hkv + h) * G + g
-  const int g = row % G;
-  const int cell = row / G;          // b * Hkv + h
-  const float* mr = m + (size_t)cell * S * G + g;
-  const float* lr = l + (size_t)cell * S * G + g;
-  for (int d = threadIdx.x; d < D; d += DC_THREADS) {
-    const float* ar = acc + ((size_t)cell * S * G + g) * D + d;
-    out[(size_t)row * D + d] = from_f<T>(combine_split_states(ar, G * D, mr, lr, G, S));
   }
 }
 

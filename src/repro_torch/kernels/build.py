@@ -30,6 +30,8 @@ SOURCES = {
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "paged_prefill": "paged_prefill.cu",
     "paged_decode": "paged_decode.cu",
+    "dense_decode": "dense_decode.cu",
+    "ssd": "ssd.cu",
 }
 
 NVCC_FLAGS = (

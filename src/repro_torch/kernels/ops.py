@@ -4,8 +4,8 @@ Port of ``repro.kernels.ops``. Every op takes an :class:`AttentionPlan`
 (built here when none is passed) and dispatches on ``plan.impl``:
 
   * ``"cuda"`` — the kernel wrappers (``flash_attention_fwd``,
-    ``paged_flash_prefill``, ``paged_flash_decode``), which launch the
-    hand-written kernels on CUDA tensors;
+    ``paged_flash_prefill``, ``paged_flash_decode``, ``flash_decode``),
+    which launch the hand-written kernels on CUDA tensors;
   * ``"plain"`` — the plain PyTorch version beside each kernel, on any
     device (the CPU path, and the reference the card compares against).
 
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels.decode_attention import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_attention import (
     BLOCK_M,
     BLOCK_N,
@@ -117,6 +118,30 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                    window=window, softcap=softcap, scale=scale,
                                    kv_len=skv)
     return o[:, :, :sq]
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
+                     window=None, plan: Optional[AttentionPlan] = None) -> torch.Tensor:
+    """Dense single-token decode. q (B, Hq, D); caches (B, Hkv, Smax, D);
+    lengths (B,) int32.
+
+    The KV chunk and ``num_splits`` ride the plan. Only a capacity that
+    the chunk does not divide pays the pad-to-chunk copy; the padded tail
+    sits past every ``lengths`` entry, so masking never admits it."""
+    b, hq, d = q.shape
+    hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    if plan is None:
+        plan = plan_attention((b, hq, hkv, 1, smax, d), phase=plan_lib.DECODE,
+                              kv_layout=plan_lib.DENSE, window=window,
+                              device_type=q.device.type,
+                              dtype_bytes=k_cache.element_size())
+    chunk = min(plan.chunk or smax, smax)
+    if smax % chunk:
+        k_cache = _pad_to(k_cache, 2, chunk)
+        v_cache = _pad_to(v_cache, 2, chunk)
+    fn = flash_decode_plain if plan.impl == "plain" else flash_decode
+    return fn(q, k_cache, v_cache, lengths, softcap=softcap, scale=scale, window=window,
+              chunk=chunk, num_splits=plan.num_splits)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,

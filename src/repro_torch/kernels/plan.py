@@ -3,7 +3,10 @@
 Port of ``repro.kernels.plan``. An :class:`AttentionPlan` carries the phase
 (prefill | extend | decode), the KV layout, the resolved ``MappingConfig``,
 the concrete implementation and, for decode, the split-K ``num_splits``
-chosen by ``core.perf_model.estimate_decode_splits`` on the H100 topology.
+chosen by ``core.perf_model.estimate_decode_splits`` on the H100 topology;
+dense decode also carries its KV ``chunk`` (:func:`decode_chunk`).
+:func:`resolve_kv_layout` ranks the dense and paged layouts for a decode
+mix with the decode models of ``core.perf_model``.
 
 Implementations: ``"cuda"`` (the hand-written kernels), ``"plain"`` (their
 plain PyTorch versions, on any device). ``"auto"`` resolves by the device of
@@ -20,7 +23,9 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+from repro_torch.cache import layout as layout_lib
 from repro_torch.core import numa, perf_model
+from repro_torch.kernels.decode_attention import STAGE as DECODE_BLOCK
 from repro_torch.kernels.flash_attention import PAPER_MAPPINGS, MappingConfig
 
 PREFILL = "prefill"
@@ -48,6 +53,7 @@ class AttentionPlan:
     page_size: Optional[int] = None
     window: Optional[int] = None
     num_splits: int = 1
+    chunk: Optional[int] = None    # dense decode: the KV chunk of the walk
 
 
 #: The machine plans are scored for. The port targets one H100; CPU runs
@@ -55,14 +61,35 @@ class AttentionPlan:
 TOPOLOGY = numa.H100
 
 
-def _resolve_impl(impl: str, device_type: str) -> str:
+def resolve_impl(impl: str, device_type: str) -> str:
+    """``"auto"`` -> ``"cuda"`` on CUDA tensors, ``"plain"`` on CPU ones;
+    a pinned ``"cuda"`` needs CUDA tensors. Shared by the attention plans
+    and the SSM dispatch (``models.ssm._ssd``)."""
     if impl not in IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r}; expected one of {IMPLS}")
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     if impl == "auto":
         return "cuda" if device_type == "cuda" else "plain"
     if impl == "cuda" and device_type != "cuda":
         raise ValueError("impl='cuda' needs CUDA tensors")
     return impl
+
+
+def decode_chunk(capacity: int) -> int:
+    """KV chunk of the dense decode kernels (K7/K8) for a stripe of
+    ``capacity`` positions: the largest multiple of 8 that divides the
+    capacity and is at most :data:`DECODE_BLOCK`, the 64 rows the kernel
+    stages per step. Without such a divisor the chunk stays at
+    ``min(DECODE_BLOCK, capacity)`` and ``ops.decode_attention`` pads the
+    stripe to a whole number of chunks: only odd capacities pay the pad
+    copy. The JAX package's ``_decode_chunk`` applies the same rule to its
+    resolver's ``block_n``; the port's ``MappingConfig`` has no ``block_n``."""
+    chunk = min(DECODE_BLOCK, capacity)
+    if capacity % chunk:
+        divisor = next((c for c in range(chunk, 7, -1)
+                        if capacity % c == 0 and c % 8 == 0), None)
+        if divisor is not None:
+            chunk = divisor
+    return chunk
 
 
 @functools.lru_cache(maxsize=2048)
@@ -72,18 +99,23 @@ def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
     name = DEFAULT_MAPPING if mapping_name == "auto" else mapping_name
     mapping = PAPER_MAPPINGS[name]  # KeyError = fail fast
     num_splits = 1
-    if phase == DECODE and kv_layout == PAGED:
+    chunk = None
+    if phase == DECODE:
+        # The granule is what the kernel can split at: KV chunks for the
+        # dense stripe, pages for the pool.
+        if kv_layout == DENSE:
+            chunk = decode_chunk(seq_kv)
         num_splits = perf_model.estimate_decode_splits(
             batch=batch, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
-            seq_kv=seq_kv, granule=page_size, head_dim=head_dim,
-            dtype_bytes=dtype_bytes, topo=TOPOLOGY,
+            seq_kv=seq_kv, granule=chunk if kv_layout == DENSE else page_size,
+            head_dim=head_dim, dtype_bytes=dtype_bytes, topo=TOPOLOGY,
             window=window,
         ).num_splits
     return AttentionPlan(
         phase=phase, kv_layout=kv_layout,
-        impl=_resolve_impl(impl, device_type), mapping=mapping,
+        impl=resolve_impl(impl, device_type), mapping=mapping,
         device_type=device_type, page_size=page_size, window=window,
-        num_splits=num_splits,
+        num_splits=num_splits, chunk=chunk,
     )
 
 
@@ -96,7 +128,8 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
                    ) -> AttentionPlan:
     """Resolve the :class:`AttentionPlan` for ``shape`` = ``(batch,
     num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim)``. For paged
-    decode, ``seq_kv`` is the page-table width times the page size."""
+    decode, ``seq_kv`` is the page-table width times the page size; for
+    dense decode, the stripe's capacity."""
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}; expected one of {PHASES}")
     if kv_layout not in (DENSE, PAGED):
@@ -110,6 +143,40 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
         int(page_size) if page_size else None,
         mapping_name, impl,
     )
+
+
+@functools.lru_cache(maxsize=256)
+def _score_kv_layout(batch: int, num_q_heads: int, num_kv_heads: int, mean_len: int,
+                     capacity: int, page_size: int, head_dim: int, dtype_bytes: int,
+                     shared_prefix_len: int) -> str:
+    dense = perf_model.estimate_dense_decode(
+        batch=batch, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+        capacity=capacity, head_dim=head_dim, dtype_bytes=dtype_bytes, topo=TOPOLOGY)
+    paged = perf_model.estimate_paged_decode(
+        batch=batch, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+        mean_len=mean_len, page_size=page_size, head_dim=head_dim,
+        dtype_bytes=dtype_bytes, topo=TOPOLOGY, policy=layout_lib.HEAD_ALIGNED,
+        shared_prefix_len=shared_prefix_len)
+    candidates = {"dense": dense.time, f"paged:{layout_lib.HEAD_ALIGNED}": paged.time}
+    return min(candidates, key=candidates.get)
+
+
+def resolve_kv_layout(shape: Tuple[int, int, int, int, int], *, capacity: int,
+                      page_size: int = 64, dtype_bytes: int = 2,
+                      shared_prefix_len: int = 0) -> str:
+    """Rank KV layouts for a decode mix; returns ``"dense"`` or
+    ``"paged:head_aligned"``.
+
+    ``shape`` is ``(batch, num_q_heads, num_kv_heads, mean_len, head_dim)``
+    — the decode batch and its mean live length; ``capacity`` is the dense
+    per-slot stripe the paged layout would replace. Scored with
+    ``core.perf_model``'s dense and paged decode models on the H100's
+    data-sheet constants: a choice by model, not by measurement. The port's
+    pool is head-major only, so the JAX package's third candidate, the
+    interleaved placement, is not scored."""
+    b, hq, hkv, mean_len, head_dim = (int(x) for x in shape)
+    return _score_kv_layout(b, hq, hkv, mean_len, int(capacity), int(page_size),
+                            head_dim, int(dtype_bytes), int(shared_prefix_len))
 
 
 def plan_for_config(cfg, shape, *, device_type: str, **kw) -> AttentionPlan:

@@ -1,13 +1,18 @@
 """Serving launcher: the port's LLMEngine over a synthetic request stream.
 
 The flags are those of ``repro.launch.serve``, plus ``--device`` (default
-``cuda``). Options the port has not ported yet (``--kv-layout`` other than
-paged, ``--mesh``, ``--steps-per-sync`` other than 1, ``--kv-dtype`` other
-than fp32, ``--host-pool-bytes``) reach the engine, which raises
+``cuda``). ``--kv-layout auto`` (the default) serves SSM and hybrid models
+(mamba2, hymba) from dense stripes and ranks dense against paged for the
+rest. Options the port has not ported yet (``--mesh``,
+``--steps-per-sync`` other than 1, ``--kv-dtype`` other than fp32,
+``--host-pool-bytes``) reach the engine, which raises
 ``NotImplementedError`` naming the ROADMAP item.
 
 Examples:
   python -m repro_torch.launch.serve --arch llama3-8b
+  python -m repro_torch.launch.serve --arch hymba-1.5b --cache-len 2048
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu \
+      --requests 4 --max-new-tokens 8
   python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
       --requests 4 --max-new-tokens 8 --shared-prefix 16
 """
@@ -27,7 +32,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--kv-layout", choices=("auto", "dense", "paged"), default="paged")
+    ap.add_argument("--kv-layout", choices=("auto", "dense", "paged"), default="auto")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4, help="decode rows (max_batch)")
     ap.add_argument("--cache-len", type=int, default=512)

@@ -1,13 +1,14 @@
-"""GQA self-attention blocks of the paged serving path and of training.
+"""GQA self-attention blocks of the serving paths and of training.
 
 Port of the self-attention subset of ``repro.models.attention``:
 ``_project_qkv``, ``attention_block`` (training), ``attention_prefill``,
-``attention_prefill_paged``, ``attention_decode_paged`` and
-``init_paged_cache``. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
+``attention_prefill_paged``, ``attention_decode`` (dense stripes),
+``attention_decode_paged``, ``init_cache`` and ``init_paged_cache``;
+cross-attention decode (``is_cross``) waits for the VLM slice. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
 laid out ``(d_in, d_out)`` as in the JAX package, in any dtype: each is
-cast to the activations' dtype at its product. The page pools are updated
-in place (JAX returns new arrays); the functions still return the cache
-dict so call sites read the same in both packages.
+cast to the activations' dtype at its product. The page pools and the
+dense stripes are updated in place (JAX returns new arrays); the functions
+still return the cache dict so call sites read the same in both packages.
 """
 
 from __future__ import annotations
@@ -103,6 +104,30 @@ def attention_prefill_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict
     return _out(p, o, cfg), cache_out
 
 
+def attention_decode(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
+                     lengths) -> Tuple[torch.Tensor, dict]:
+    """One-token decode over dense stripes. x (B, 1, D); cache k / v
+    (B, Hkv, Smax, hd), possibly a view cut to the live width; lengths (B,)
+    int32 *including* the new token. The new K/V row is written in place at
+    ``lengths - 1`` (a length-0 row writes position 0 of its free slot, as
+    the JAX package's clamped update does), then the dense decode kernel
+    reads the stripes."""
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    k, v = cache["k"], cache["v"]
+    positions = (lengths.long() - 1)[:, None]
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, spec.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    idx = torch.clamp(lengths.long() - 1, min=0)
+    k[rows, :, idx] = k_new[:, :, 0].to(k.dtype)
+    v[rows, :, idx] = v_new[:, :, 0].to(v.dtype)
+    plan = _plan(cfg, (b, h, hkv, 1, k.shape[2], hd), x, phase=plan_lib.DECODE,
+                 kv_layout=plan_lib.DENSE, window=spec.window)
+    o = ops.decode_attention(q[:, :, 0].contiguous(), k, v, lengths,
+                             softcap=cfg.attn_softcap, window=spec.window, plan=plan)
+    return o.reshape(b, 1, h * hd) @ p["wo"].to(o.dtype), cache
+
+
 def attention_decode_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
                            page_table, lengths) -> Tuple[torch.Tensor, dict]:
     """One-token decode over the paged pool. x (B, 1, D); lengths (B,) int32
@@ -127,6 +152,14 @@ def attention_decode_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
                                    page_table, lengths, softcap=cfg.attn_softcap,
                                    window=spec.window, plan=plan)
     return o.reshape(b, 1, h * hd) @ p["wo"].to(o.dtype), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -> dict:
+    """Dense per-slot stripes of one layer, zero-filled:
+    ``(batch, Hkv, cache_len, head_dim)`` for K and for V."""
+    shape = (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype,

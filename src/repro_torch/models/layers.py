@@ -3,8 +3,8 @@ and the training loss.
 
 Port of ``repro.models.layers``, matching it operation for operation:
 RMSNorm in float32 with eps 1e-6 and the ``(1 + scale)`` gain, split-half
-rotary embeddings, the SiLU-gated MLP and the float32 softmax
-cross-entropy with z-loss. Functions take a tensor and the weights they
+rotary embeddings, the SiLU-gated MLP, the tied float32 unembedding and
+the float32 softmax cross-entropy with z-loss. Functions take a tensor and the weights they
 need; each weight is cast to the activations' dtype at its product, as the
 JAX package does, so float32 training masters and bf16 serving weights
 take the same code.
@@ -60,6 +60,15 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, *, scale_by_dim: bool = Fal
     if scale_by_dim:
         x = x * torch.tensor(table.shape[1] ** 0.5, dtype=compute_dtype)
     return x
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor, *,
+            softcap: Optional[float] = None) -> torch.Tensor:
+    """Vocab logits through the tied embedding table (V, D), in float32."""
+    logits = x.float() @ table.float().T
+    if softcap is not None and softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
 
 
 def linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,34 @@
-"""The model stack: embedding, attention + MLP layers, final norm, LM head.
+"""The model stack: embedding, attention / Mamba-2 / hybrid layers, MLP,
+final norm, LM head.
 
-Port of the ``kind="attn", ffn="mlp"`` stack of ``repro.models.transformer``
-(the llama family): ``forward`` (training), ``prefill`` and ``decode_step``.
-A Python loop over layers takes the place of the JAX package's scan over
-periods. Parameters are a dict::
+Port of ``repro.models.transformer`` for the ``attn``, ``mamba`` and
+``hybrid`` layer kinds with ``ffn="mlp"`` or ``"none"`` (llama, mamba2,
+hymba): ``forward`` (training, attention stacks only), ``prefill`` and
+``decode_step`` over paged pools or dense stripes. A Python loop over
+layers takes the place of the JAX package's scan over periods. Parameters
+are a dict::
 
-    {"embed": (V, D), "ln_f": (D,), "head": (D, V),
-     "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2",
-                 "w_gate", "w_up", "w_down"}, ...]}
+    {"embed": (V, D), "ln_f": (D,), "head": (D, V) unless tied,
+     "layers": [{"ln1",
+                 "wq", "wk", "wv", "wo"              (attn, hybrid),
+                 "mamba": {...}                       (mamba, hybrid; models/ssm.py),
+                 "ln_attn_out", "ln_mamba_out"        (hybrid),
+                 "ln2", "w_gate", "w_up", "w_down"    (ffn "mlp")}, ...]}
 
-Matmul weights and the embedding table are stored in ``param_dtype``: by
-default the compute dtype, which serving uses (the JAX package keeps
-float32 parameters and casts each to the compute dtype before its product,
-so the results are the same); training passes ``torch.float32``, the JAX
-package's parameter dtype, so AdamW updates float32 masters. Norm gains and
-the LM head stay float32, as the JAX head runs in float32.
+Matmul weights are stored in ``param_dtype``: by default the compute
+dtype, which serving uses (the JAX package keeps float32 parameters and
+casts each to the compute dtype before its product, so the results are the
+same); training passes ``torch.float32``, the JAX package's parameter
+dtype, so AdamW updates float32 masters. Norm gains and the LM head stay
+float32, as the JAX head runs in float32; a tied embedding is kept in
+float32 for the same reason, since it is the head too.
+
+A hybrid layer (hymba) runs attention and a Mamba-2 block side by side on
+the same normed input and adds ``0.5 * (rmsnorm(ya) + rmsnorm(ym))``. The
+prefill's SSM cache is exact under right padding (``ssm.mamba_block`` with
+``last_positions``): the JAX package's ``_mamba_with_cache`` takes the
+state and the conv history from the padded sequence, so pad tokens leak
+into the recurrent state there (ROADMAP Queue C).
 
 ``init_model`` draws weights from a ``torch.Generator`` with the JAX
 package's distributions; ``from_jax_params`` carries a JAX parameter tree
@@ -30,27 +44,35 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import device as device_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_lib
 
 Params = Dict[str, Any]
 
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: Mamba-2 weights stored in the parameter dtype (the rest stay float32).
+_SSM_CAST_KEYS = ("win", "conv_w", "conv_b", "wout")
+_ATTN_KINDS = ("attn", "hybrid")
+_SSM_KINDS = ("mamba", "hybrid")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
-        if spec.kind != "attn" or spec.ffn != "mlp" or spec.cross_attn:
+        if spec.kind not in ("attn", "mamba", "hybrid") or spec.ffn not in ("mlp", "none") \
+                or spec.cross_attn:
             raise NotImplementedError(
                 f"layer kind={spec.kind!r} ffn={spec.ffn!r} cross_attn="
                 f"{spec.cross_attn} is not ported yet (ROADMAP Queue A, other "
                 "model families)")
-    if cfg.qk_norm or cfg.num_codebooks != 1 or cfg.tie_embeddings:
+        if spec.kind in _SSM_KINDS and cfg.ssm is None:
+            raise ValueError(f"layer kind={spec.kind!r} needs cfg.ssm")
+    if cfg.qk_norm or cfg.num_codebooks != 1:
         raise NotImplementedError(
-            "qk-norm, multi-codebook and tied-embedding models are not "
-            "ported yet (ROADMAP Queue A, other model families)")
+            "qk-norm and multi-codebook models are not ported yet (ROADMAP "
+            "Queue A, other model families)")
 
 
 def _param_dtype(cfg: ModelConfig, param_dtype) -> torch.dtype:
@@ -62,8 +84,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     """Random weights from a seeded ``torch.Generator`` on ``device``, with
     the distributions of ``repro.models.transformer.init_model``: normal
     weights scaled by 1/sqrt(fan_in), embedding by d_model^-0.5, zero norm
-    gains (the ``(1 + scale)`` identity). Matmul weights and the embedding
-    are ``param_dtype`` (default: the compute dtype)."""
+    gains (the ``(1 + scale)`` identity), ``ssm.init_mamba`` for Mamba-2
+    blocks. Matmul weights and an untied embedding are ``param_dtype``
+    (default: the compute dtype)."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev)
@@ -78,23 +101,29 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32, device=dev)
 
-    params: Params = {"embed": normal((cfg.vocab, d), d**-0.5)}
-    params["layers"] = [
-        {
-            "ln1": zeros(d),
-            "wq": normal((d, h * hd), 1 / math.sqrt(d)),
-            "wk": normal((d, hkv * hd), 1 / math.sqrt(d)),
-            "wv": normal((d, hkv * hd), 1 / math.sqrt(d)),
-            "wo": normal((h * hd, d), 1 / math.sqrt(h * hd)),
-            "ln2": zeros(d),
-            "w_gate": normal((d, f), 1 / math.sqrt(d)),
-            "w_up": normal((d, f), 1 / math.sqrt(d)),
-            "w_down": normal((f, d), 1 / math.sqrt(f)),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    def layer(spec: LayerSpec) -> dict:
+        lp = {"ln1": zeros(d)}
+        if spec.kind in _ATTN_KINDS:
+            lp.update(wq=normal((d, h * hd), 1 / math.sqrt(d)),
+                      wk=normal((d, hkv * hd), 1 / math.sqrt(d)),
+                      wv=normal((d, hkv * hd), 1 / math.sqrt(d)),
+                      wo=normal((h * hd, d), 1 / math.sqrt(h * hd)))
+        if spec.kind in _SSM_KINDS:
+            lp["mamba"] = ssm_lib.init_mamba(gen, d, cfg.ssm, dtype=dt, device=dev)
+        if spec.kind == "hybrid":
+            lp.update(ln_attn_out=zeros(d), ln_mamba_out=zeros(d))
+        if spec.ffn == "mlp":
+            lp.update(ln2=zeros(d), w_gate=normal((d, f), 1 / math.sqrt(d)),
+                      w_up=normal((d, f), 1 / math.sqrt(d)),
+                      w_down=normal((f, d), 1 / math.sqrt(f)))
+        return lp
+
+    params: Params = {"embed": normal((cfg.vocab, d), d**-0.5,
+                                      torch.float32 if cfg.tie_embeddings else dt)}
+    params["layers"] = [layer(spec) for spec in cfg.layer_specs()]
     params["ln_f"] = zeros(d)
-    params["head"] = normal((d, cfg.vocab), 1 / math.sqrt(d), torch.float32)
+    if not cfg.tie_embeddings:
+        params["head"] = normal((d, cfg.vocab), 1 / math.sqrt(d), torch.float32)
     return params
 
 
@@ -102,48 +131,64 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None,
                     param_dtype: Optional[torch.dtype] = None) -> Params:
     """Convert a ``repro.models.transformer.init_model`` tree whose leaves
     are numpy arrays (``jax.tree.map(np.asarray, params)``) into this
-    package's parameter dict on ``device``, matmul weights and embedding in
-    ``param_dtype`` (default: the compute dtype)."""
+    package's parameter dict on ``device``, matmul weights and an untied
+    embedding in ``param_dtype`` (default: the compute dtype)."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     dt = _param_dtype(cfg, param_dtype)
 
-    def t(a, dtype=dt):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=dtype)
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
     per_layer: List[dict] = []
     n_pattern = len(cfg.layer_pattern)
-    stacks, rem = tree["layers"], tree["layers_rem"]
-    n_periods = cfg.n_layers // n_pattern
-    for p in range(n_periods):
+    for p in range(cfg.n_periods):
         for j in range(n_pattern):
-            per_layer.append(_jax_layer(stacks[j], p))
-    for r in rem:
+            per_layer.append(_jax_layer(tree["layers"][j], p))
+    for r in tree["layers_rem"]:
         per_layer.append(_jax_layer(r, None))
     layers_out = []
     for lp in per_layer:
-        out = {k: t(v) for k, v in lp.items() if k in _MATMUL_KEYS}
-        out["ln1"] = t(lp["ln1"], torch.float32)
-        out["ln2"] = t(lp["ln2"], torch.float32)
+        out = {k: t(v, dt if k in _MATMUL_KEYS else torch.float32)
+               for k, v in lp.items() if k != "mamba"}
+        if "mamba" in lp:
+            out["mamba"] = {k: t(v, dt if k in _SSM_CAST_KEYS else torch.float32)
+                            for k, v in lp["mamba"].items()}
         layers_out.append(out)
-    return {
-        "embed": t(tree["embed"]["table_vd"]),
+    params = {
+        "embed": t(tree["embed"]["table_vd"],
+                   torch.float32 if cfg.tie_embeddings else dt),
         "layers": layers_out,
-        "ln_f": t(tree["ln_f"]["scale_r"], torch.float32),
-        "head": t(tree["head"]["w_dm"], torch.float32),
+        "ln_f": t(tree["ln_f"]["scale_r"]),
     }
+    if not cfg.tie_embeddings:
+        params["head"] = t(tree["head"]["w_dm"])
+    return params
 
 
 def _jax_layer(tree, period: Optional[int]) -> dict:
     pick = (lambda a: np.asarray(a)[period]) if period is not None else np.asarray
-    a, m = tree["attn"], tree["mlp"]
-    return {
-        "ln1": pick(tree["ln1"]["scale_r"]), "ln2": pick(tree["ln2"]["scale_r"]),
-        "wq": pick(a["wq_dm"]), "wk": pick(a["wk_dm"]), "wv": pick(a["wv_dm"]),
-        "wo": pick(a["wo_md"]), "w_gate": pick(m["wi_gate_dm"]),
-        "w_up": pick(m["wi_up_dm"]), "w_down": pick(m["wo_md"]),
-    }
+    out = {"ln1": pick(tree["ln1"]["scale_r"])}
+    if "attn" in tree:
+        a = tree["attn"]
+        out.update(wq=pick(a["wq_dm"]), wk=pick(a["wk_dm"]), wv=pick(a["wv_dm"]),
+                   wo=pick(a["wo_md"]))
+    if "mamba" in tree:
+        m = tree["mamba"]
+        out["mamba"] = {
+            "win": pick(m["win_dm"]), "conv_w": pick(m["conv_w"]),
+            "conv_b": pick(m["conv_b_r"]), "a_log": pick(m["a_log_r"]),
+            "d_skip": pick(m["d_skip_r"]), "dt_bias": pick(m["dt_bias_r"]),
+            "norm": pick(m["norm"]["scale_r"]), "wout": pick(m["wout_md"]),
+        }
+    if "ln_attn_out" in tree:
+        out.update(ln_attn_out=pick(tree["ln_attn_out"]["scale_r"]),
+                   ln_mamba_out=pick(tree["ln_mamba_out"]["scale_r"]))
+    if "mlp" in tree:
+        m = tree["mlp"]
+        out.update(ln2=pick(tree["ln2"]["scale_r"]), w_gate=pick(m["wi_gate_dm"]),
+                   w_up=pick(m["wi_up_dm"]), w_down=pick(m["wo_md"]))
+    return out
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -152,6 +197,8 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def _logits(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        return layers.unembed(params["embed"], x, softcap=cfg.final_softcap)
     logits = x.float() @ params["head"]
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
@@ -162,8 +209,21 @@ def _mlp(lp, x):
     return layers.mlp(lp["w_gate"], lp["w_up"], lp["w_down"], layers.rmsnorm(lp["ln2"], x))
 
 
+def _mix(lp, x, spec: LayerSpec, ya, ym):
+    """The residual update of a layer's token mixer(s); hymba's hybrid layer
+    normalizes and averages its parallel attention and SSM heads."""
+    if spec.kind == "attn":
+        x = x + ya
+    elif spec.kind == "mamba":
+        x = x + ym
+    else:
+        x = x + 0.5 * (layers.rmsnorm(lp["ln_attn_out"], ya)
+                       + layers.rmsnorm(lp["ln_mamba_out"], ym))
+    return x + _mlp(lp, x) if spec.ffn == "mlp" else x
+
+
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
-    """The JAX stack's aux losses; all zero for the llama family (no MoE)."""
+    """The JAX stack's aux losses; all zero without MoE."""
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"moe_lb_loss": z, "moe_z_loss": z, "moe_dropped_frac": z}
 
@@ -180,9 +240,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     With ``remat`` each layer runs under ``torch.utils.checkpoint`` and is
     recomputed in the backward pass, as the JAX package's ``jax.checkpoint``
     recomputes each period: only the layer inputs stay alive, and the
-    attention forward (K1) runs twice per layer."""
+    attention forward (K1) runs twice per layer. Attention + MLP stacks
+    only: Mamba-2 training waits for a backward of K9, which the JAX
+    package does not have either."""
+    specs = cfg.layer_specs()
+    if any(spec.kind != "attn" or spec.ffn != "mlp" for spec in specs):
+        raise NotImplementedError(
+            "training of mamba / hybrid / ffn='none' stacks is not ported yet "
+            "(ROADMAP Queue A, other model families: K9 has no backward)")
     x = _embed_tokens(params, cfg, tokens)
-    for spec, lp in zip(cfg.layer_specs(), params["layers"]):
+    for spec, lp in zip(specs, params["layers"]):
         if remat:
             x = checkpoint(_train_layer, lp, x, cfg, spec, use_reentrant=False)
         else:
@@ -198,13 +265,17 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_len: Optional[torch.Tensor] = None,
             plan=None) -> Tuple[torch.Tensor, List[dict]]:
     """Prefill: returns (logits at the last real position (B, V) float32,
-    per-layer caches ``{"k", "v"}`` of shape (B, Hkv, cache_len, hd)).
+    per-layer caches): ``{"k", "v"}`` of shape (B, Hkv, cache_len, hd) for
+    attention, ``{"conv", "ssm"}`` for Mamba-2 blocks, both for hybrid
+    layers.
 
+    ``last_positions`` (B,): each row's last real token in a right-padded
+    batch (default S - 1); the SSM caches are those of the unpadded prompt.
     ``prefix_caches`` (the per-layer page pools) + ``page_table`` (B, pages)
-    + ``prefix_len`` (B,): prefix-extension prefill — ``tokens`` holds only
-    the tail, which attends to the prefix in place in its pages; the
-    returned caches cover the tail only. ``plan`` is the caller-resolved
-    extend plan (None lets each layer resolve its own).
+    + ``prefix_len`` (B,): prefix-extension prefill of attention stacks —
+    ``tokens`` holds only the tail, which attends to the prefix in place in
+    its pages; the returned caches cover the tail only. ``plan`` is the
+    caller-resolved extend plan (None lets each layer resolve its own).
     """
     x = _embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
@@ -218,16 +289,23 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     caches = []
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs(), params["layers"])):
         h = layers.rmsnorm(lp["ln1"], x)
-        if prefix_caches is not None:
-            y, c = attn_lib.attention_prefill_paged(
-                lp, h, cfg, spec, prefix_caches[i], page_table, prefix_len,
-                tail_len, cache_len=cache_len, positions=positions, plan=plan)
-        else:
-            y, c = attn_lib.attention_prefill(lp, h, cfg, spec, cache_len=cache_len,
-                                              positions=positions)
-        caches.append(c)
-        x = x + y
-        x = x + _mlp(lp, x)
+        cache: dict = {}
+        ya = ym = None
+        if spec.kind in _ATTN_KINDS:
+            if prefix_caches is not None:
+                ya, c = attn_lib.attention_prefill_paged(
+                    lp, h, cfg, spec, prefix_caches[i], page_table, prefix_len,
+                    tail_len, cache_len=cache_len, positions=positions, plan=plan)
+            else:
+                ya, c = attn_lib.attention_prefill(lp, h, cfg, spec, cache_len=cache_len,
+                                                   positions=positions)
+            cache.update(c)
+        if spec.kind in _SSM_KINDS:
+            ym, c = ssm_lib.mamba_block(lp["mamba"], h, cfg.d_model, cfg.ssm,
+                                        last_positions=last_positions)
+            cache.update(c)
+        caches.append(cache)
+        x = _mix(lp, x, spec, ya, ym)
     if last_positions is None:
         x = x[:, -1:]
     else:
@@ -238,27 +316,59 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 caches: List[dict], lengths: torch.Tensor, *,
-                page_table: torch.Tensor) -> Tuple[torch.Tensor, List[dict]]:
-    """One decode step over the paged pools: returns (logits (B, V), caches).
+                page_table: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[dict]]:
+    """One decode step: returns (logits (B, V), caches).
 
-    ``token`` (B,); ``lengths`` (B,) int32 including the new token;
-    ``page_table`` (B, max_pages) int32. The pools are updated in place."""
+    ``token`` (B,); ``lengths`` (B,) int32 including the new token. With
+    ``page_table`` (B, max_pages) int32 the caches are paged pools;
+    without, dense per-row caches (``init_caches``, or views of them cut to
+    the live rows and width). Either way they are updated in place."""
     x = _embed_tokens(params, cfg, token[:, None])
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs(), params["layers"])):
         h = layers.rmsnorm(lp["ln1"], x)
-        y, _ = attn_lib.attention_decode_paged(lp, h, cfg, spec, caches[i],
-                                               page_table, lengths)
-        x = x + y
-        x = x + _mlp(lp, x)
+        ya = ym = None
+        if spec.kind in _ATTN_KINDS:
+            if page_table is not None:
+                ya, _ = attn_lib.attention_decode_paged(lp, h, cfg, spec, caches[i],
+                                                        page_table, lengths)
+            else:
+                ya, _ = attn_lib.attention_decode(lp, h, cfg, spec, caches[i], lengths)
+        if spec.kind in _SSM_KINDS:
+            ym, _ = ssm_lib.mamba_decode(lp["mamba"], h, cfg.d_model, cfg.ssm, caches[i])
+        x = _mix(lp, x, spec, ya, ym)
     x = layers.rmsnorm(params["ln_f"], x)
     return _logits(params, cfg, x)[:, 0], caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device) -> List[dict]:
+    """Zero dense caches, one dict per layer with the keys ``prefill``
+    returns: ``(batch, Hkv, cache_len, hd)`` stripes for attention, the
+    conv history and float32 state for Mamba-2 blocks."""
+    _check_supported(cfg)
+    dt = device_lib.dtype_of(cfg.compute_dtype)
+    caches = []
+    for spec in cfg.layer_specs():
+        c: dict = {}
+        if spec.kind in _ATTN_KINDS:
+            c.update(attn_lib.init_cache(cfg, batch, cache_len, dt, device))
+        if spec.kind in _SSM_KINDS:
+            c.update(ssm_lib.init_mamba_cache(cfg.d_model, cfg.ssm, batch, dt, device))
+        caches.append(c)
+    return caches
 
 
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                       device) -> List[dict]:
     """One zero-filled head-major page pool per attention layer, all indexed
-    by the same physical page ids (one allocator drives every layer)."""
+    by the same physical page ids (one allocator drives every layer). Only
+    pure self-attention stacks page: SSM state is not page-structured."""
     _check_supported(cfg)
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn" or spec.cross_attn:
+            raise ValueError(
+                "paged caches require a pure self-attention stack; "
+                f"got layer kind={spec.kind!r} cross_attn={spec.cross_attn}")
     dt = device_lib.dtype_of(cfg.compute_dtype)
     return [attn_lib.init_paged_cache(cfg, num_pages, page_size, dt, device)
             for _ in range(cfg.n_layers)]

@@ -1,18 +1,25 @@
-"""Paged execution backend for the serving engine: mechanism, not policy.
+"""Execution backends for the serving engine: mechanism, not policy.
 
-Port of ``repro.serving.backends.PagedBackend`` (``backends.py:533``):
-the paged KV pool with hash-chain prefix sharing, same-round in-flight page
-sharing, batched tail-prefill flush in dependency waves, per-token page
-append with copy-on-write, and preemption with resume by replay. Who is
-admitted or evicted is the scheduler's call.
+Port of ``repro.serving.backends``:
 
-Left out of this slice (ROADMAP.md): the dense-stripe backend, quantized
-pools, the host page tier, the serving mesh and the fused multi-step
-decode scan. Differences that follow from eager PyTorch: the pools are
-updated in place, and a decode tick runs only the active rows, with the
-page table cut to the widest live row (the JAX package keeps static
-shapes for ``jit``); the decode plan, and with it the split-K choice, is
-resolved for that live shape.
+  * ``DenseBackend`` (``backends.py:315``): one ``cache_len`` stripe per
+    decode row (and the Mamba-2 state of SSM and hybrid models); each
+    admitted prompt is right-padded to its bucket and prefilled into its
+    slot; one decode tick advances every active slot. No preemption.
+  * ``PagedBackend`` (``backends.py:533``): the paged KV pool with
+    hash-chain prefix sharing, same-round in-flight page sharing, batched
+    tail-prefill flush in dependency waves, per-token page append with
+    copy-on-write, and preemption with resume by replay.
+
+Who is admitted or evicted is the scheduler's call. Left out of this slice
+(ROADMAP.md): quantized pools, the host page tier, the serving mesh and the
+fused multi-step decode scan. Differences that follow from eager PyTorch:
+the caches are updated in place, and a decode tick runs only on the live
+shape (the JAX package keeps static shapes for ``jit``): the paged tick
+takes the active rows with the page table cut to the widest live row; the
+dense tick takes the rows up to the last active one, as a view of the
+stripes cut to the widest live row. The decode plan, and with it the
+split-K choice, is resolved for that live shape.
 """
 
 from __future__ import annotations
@@ -25,7 +32,10 @@ import torch
 from repro_torch.cache.pool import NULL_PAGE, OutOfPages, PagePool, SequencePages, SequenceReleasedError
 from repro_torch.cache.prefix import PrefixCache, page_hashes
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import device as device_lib
+from repro_torch.core import perf_model
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels.decode_attention import STAGE as DECODE_BLOCK
 from repro_torch.models import transformer
 from repro_torch.serving.scheduler import default_choose_victim
 
@@ -41,7 +51,196 @@ class _SeqState:
         self.submit_order = submit_order
 
 
-class PagedBackend:
+class _Backend:
+    """Row bookkeeping and prompt buckets, shared by both layouts."""
+
+    def _init_rows(self, rows: int, prompt_buckets) -> None:
+        self.rows = rows
+        self.lengths = np.zeros((rows,), np.int32)
+        self.active = np.zeros((rows,), bool)
+        #: Generated tokens per row (replayed resume tokens included).
+        self.out: List[List] = [[] for _ in range(rows)]
+        self.prompt_buckets = tuple(prompt_buckets)
+
+    @property
+    def num_active(self) -> int:
+        return int(self.active.sum())
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prompt_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds buckets {self.prompt_buckets}")
+
+    def fits_buckets(self, n: int) -> bool:
+        return any(n <= b for b in self.prompt_buckets)
+
+
+class DenseBackend(_Backend):
+    """Slot-based dense KV: each row owns a ``cache_len`` stripe (and, for
+    SSM and hybrid models, its recurrent state); a request prefills into a
+    free slot, right-padded to its prompt bucket; one decode tick advances
+    every active slot. A slot is committed until its sequence finishes."""
+
+    kv_layout = "dense"
+
+    def __init__(self, cfg: ModelConfig, params, *, device: torch.device, rows: int = 8,
+                 cache_len: int = 2048, prompt_buckets=(128, 512, 2048)):
+        self.cfg = cfg
+        self.params = params
+        self.device = device
+        self.cache_len = cache_len
+        self._init_rows(rows, (b for b in prompt_buckets if b <= cache_len))
+        self.slot_req: List[Optional[object]] = [None] * rows
+        self.stats = {"preemptions": 0, "resumed_tokens": 0, "prefill_launches": 0,
+                      "batched_prefills": 0}
+        self.caches = transformer.init_caches(cfg, rows, cache_len, device)
+
+    # -- capacity ----------------------------------------------------------
+
+    def validate(self, req) -> None:
+        n = len(req.prompt)
+        if not self.fits_buckets(n):
+            raise ValueError(f"prompt length {n} exceeds buckets {self.prompt_buckets}")
+        if n + req.max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"request {req.uid}: prompt {n} + max_tokens {req.max_new_tokens} "
+                f"exceeds the dense cache stripe ({self.cache_len} tokens)")
+
+    def decode_time_model(self, batch: int, mean_len: Optional[float] = None) -> float:
+        """Modelled tick time (``perf_model.estimate_dense_decode``): the
+        whole stripe per cell, whatever ``mean_len`` is live."""
+        return perf_model.estimate_dense_decode(
+            batch=batch, num_q_heads=self.cfg.n_heads, num_kv_heads=self.cfg.n_kv_heads,
+            capacity=self.cache_len, head_dim=self.cfg.head_dim,
+            dtype_bytes=device_lib.dtype_of(self.cfg.compute_dtype).itemsize,
+            topo=plan_lib.TOPOLOGY).time
+
+    @property
+    def page_occupancy(self) -> float:
+        return self.num_active / self.rows if self.rows else 0.0
+
+    def prefix_hit_rate(self) -> None:
+        """Dense stripes have no prefix cache: None, not a cache that never hit."""
+        return None
+
+    def prefix_stats(self) -> Dict[str, object]:
+        """Every sharing counter is a structural zero and
+        ``prefix_hit_rate`` is None, as in the JAX package."""
+        return {
+            "prefix_entries": 0.0, "pages_reused": 0.0, "prompt_pages": 0.0,
+            "prefix_hit_rate": None, "prefix_lookup_hits": 0.0,
+            "prefix_lookup_queries": 0.0, "prefix_evictions": 0.0,
+            **{k: float(v) for k, v in self.stats.items()},
+        }
+
+    # -- admission / prefill ----------------------------------------------
+
+    def try_admit(self, req, resume_tokens: Sequence = ()):
+        if len(resume_tokens):
+            raise ValueError("dense backend does not preempt, so it cannot resume")
+        free = np.flatnonzero(~self.active)
+        if len(free) == 0:
+            return None
+        n = len(req.prompt)
+        bucket = self._bucket_for(n)
+        row = int(free[0])
+        self.lengths[row] = n
+        self.active[row] = True
+        self.slot_req[row] = req
+        self.out[row] = []
+        return {"req": req, "row": row, "n": n, "bucket": bucket,
+                "prompt": np.asarray(req.prompt)}
+
+    def _write_slot(self, row: int, caches: List[dict]) -> None:
+        """Copy one prefilled sequence's caches into slot ``row``; the
+        stripe past the bucket is zeroed, as the JAX package's full-width
+        copy leaves it."""
+        for dst, src in zip(self.caches, caches):
+            for key, val in src.items():
+                if key in ("k", "v"):
+                    n = val.shape[2]
+                    dst[key][row, :, :n] = val[0].to(dst[key].dtype)
+                    dst[key][row, :, n:] = 0
+                else:
+                    dst[key][row] = val[0].to(dst[key].dtype)
+
+    @torch.no_grad()
+    def flush(self, records) -> Dict[int, torch.Tensor]:
+        """Prefill each admitted record into its slot (right-padded to its
+        bucket; the SSM state is the unpadded prompt's); returns per-row
+        last-position logits for the engine's first-token sample."""
+        first_logits: Dict[int, torch.Tensor] = {}
+        for rec in records:
+            n, bucket = rec["n"], rec["bucket"]
+            padded = np.pad(rec["prompt"], (0, bucket - n))[None]
+            self.stats["prefill_launches"] += 1
+            logits, caches = transformer.prefill(
+                self.params, self.cfg, torch.from_numpy(padded.astype(np.int64)).to(self.device),
+                cache_len=bucket,
+                last_positions=torch.tensor([n - 1], dtype=torch.int64, device=self.device))
+            self._write_slot(rec["row"], caches)
+            first_logits[rec["row"]] = logits[0]
+        return first_logits
+
+    # -- decode / teardown -------------------------------------------------
+
+    def reserve_rows(self) -> None:
+        """Dense stripes pre-reserve every position at admission."""
+
+    def _live_width(self, rows: int) -> int:
+        """Stripe width one tick reads: the widest live row of the first
+        ``rows`` rounded up to the decode kernels' staging block (so the
+        plan's chunk divides it), at most ``cache_len``."""
+        longest = int(self.lengths[:rows].max())
+        return min(self.cache_len, -(-longest // DECODE_BLOCK) * DECODE_BLOCK)
+
+    @torch.no_grad()
+    def decode(self, rows: List[int], tokens: List[int]) -> torch.Tensor:
+        """One decode step for the active ``rows``; returns their logits
+        (len(rows), V). The tick runs rows ``0 .. max(rows)`` over views of
+        the slots cut to the live width; a free slot inside that range gets
+        length 0 (no attention work) and its state is overwritten at its
+        next prefill."""
+        self.lengths[rows] += 1
+        hi = max(rows) + 1
+        width = self._live_width(hi)
+        tok = np.zeros((hi,), np.int64)
+        tok[rows] = [int(t) for t in tokens]
+        lengths = np.where(self.active[:hi], self.lengths[:hi], 0).astype(np.int32)
+        views = []
+        for c in self.caches:
+            v = {key: val[:hi] for key, val in c.items()}
+            for key in ("k", "v"):
+                if key in v:
+                    v[key] = v[key][:, :, :width]
+            views.append(v)
+        dev = self.device
+        logits, _ = transformer.decode_step(
+            self.params, self.cfg, torch.from_numpy(tok).to(dev), views,
+            torch.from_numpy(lengths).to(dev))
+        return logits[torch.as_tensor(rows, device=dev)]
+
+    def row_req(self, row: int):
+        return self.slot_req[row]
+
+    def release(self, row: int) -> None:
+        if self.slot_req[row] is None:
+            raise SequenceReleasedError(f"release of row {row}, which holds no sequence")
+        self.active[row] = False
+        self.slot_req[row] = None
+        self.lengths[row] = 0
+
+    def shutdown(self) -> None:
+        """Mark every slot free; dense rows own no pool pages, so there is
+        nothing to leak-check."""
+        for row in range(self.rows):
+            self.active[row] = False
+            self.slot_req[row] = None
+            self.lengths[row] = 0
+
+
+class PagedBackend(_Backend):
     """Paged KV-cache backend. ``rows`` is the decode batch width;
     capacity is the page pool: admission succeeds when a request's
     non-shared prompt pages fit the free list with ``reserve_pages`` of
@@ -68,16 +267,11 @@ class PagedBackend:
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
         self.cache_len = max_pages_per_seq * page_size
-        self.prompt_buckets = tuple(b for b in prompt_buckets if b <= self.cache_len)
         self.reserve_pages = reserve_pages
         self.prefix_sharing = prefix_sharing
         self.batch_prefills = batch_prefills
 
-        self.rows = rows
-        self.lengths = np.zeros((rows,), np.int32)
-        self.active = np.zeros((rows,), bool)
-        #: Generated tokens per row (replayed resume tokens included).
-        self.out: List[List] = [[] for _ in range(rows)]
+        self._init_rows(rows, (b for b in prompt_buckets if b <= self.cache_len))
         self._submit_counter = 0
         self.preempted: List[Tuple[object, List]] = []
         self.choose_victim: Callable = default_choose_victim
@@ -100,19 +294,6 @@ class PagedBackend:
         self.seqs: List[Optional[_SeqState]] = [None] * rows
 
     # -- capacity ----------------------------------------------------------
-
-    @property
-    def num_active(self) -> int:
-        return int(self.active.sum())
-
-    def _bucket_for(self, n: int) -> int:
-        for b in self.prompt_buckets:
-            if n <= b:
-                return b
-        raise ValueError(f"prompt length {n} exceeds buckets {self.prompt_buckets}")
-
-    def fits_buckets(self, n: int) -> bool:
-        return any(n <= b for b in self.prompt_buckets)
 
     def validate(self, req) -> None:
         tok = np.asarray(req.prompt)

@@ -1,18 +1,24 @@
 """``LLMEngine``: the serving entry point of the port.
 
-Port of ``repro.serving.engine.LLMEngine`` for the paged layout:
-``add_request`` / ``step() -> list[RequestOutput]`` continuous batching with
-streamed increments, ``generate`` as the blocking loop, per-request
-sampling, admission and preemption by ``serving.scheduler``, execution by
-``serving.backends.PagedBackend``. One ``step`` admits and prefills, then
-runs one decode tick over the active rows; greedy outputs equal the JAX
-engine's token for token.
+Port of ``repro.serving.engine.LLMEngine``: ``add_request`` /
+``step() -> list[RequestOutput]`` continuous batching with streamed
+increments, ``generate`` as the blocking loop, per-request sampling,
+admission and preemption by ``serving.scheduler``, execution by
+``serving.backends.DenseBackend`` or ``PagedBackend``. One ``step`` admits
+and prefills, then runs one decode tick over the active rows; greedy
+outputs equal the JAX engine's token for token (for SSM and hybrid models,
+where the JAX engine's padded prefill leaks pad tokens into the recurrent
+state, they equal the JAX package's unpadded prefill and decode; ROADMAP
+Queue C).
 
-Options of the JAX engine that this slice does not port raise
+``kv_layout="auto"`` (the default, as in the JAX package) serves models the
+paged pool cannot hold (SSM and hybrid stacks) from dense stripes, and
+ranks dense against paged for the rest with ``plan.resolve_kv_layout``.
+Options of the JAX engine that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item, never accepted and
-ignored: ``kv_layout`` other than ``"paged"``, ``kv_dtype`` other than
-``"fp32"`` (the unquantized pool in the compute dtype), ``host_pool_bytes``,
-``mesh``, ``steps_per_sync`` other than 1, and ``telemetry``.
+ignored: ``kv_dtype`` other than ``"fp32"`` (the unquantized pool in the
+compute dtype), ``host_pool_bytes``, ``mesh``, ``steps_per_sync`` other
+than 1, and ``telemetry``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as device_lib
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.serving import sampling as sampling_lib
-from repro_torch.serving.backends import PagedBackend
+from repro_torch.serving.backends import DenseBackend, PagedBackend
 from repro_torch.serving.request import (
     FINISH_LENGTH,
     FINISH_STOP,
@@ -40,22 +46,39 @@ from repro_torch.serving.scheduler import Scheduler, SchedulerStats
 
 __all__ = ["LLMEngine", "Request", "RequestOutput", "SamplingParams"]
 
+KV_LAYOUTS = ("auto", "dense", "paged")
+
 
 def _not_ported(option: str, item: str):
     return NotImplementedError(
         f"{option} is not ported to repro_torch yet (ROADMAP Queue A: {item})")
 
 
+def _paged_supported(cfg: ModelConfig) -> bool:
+    """Whether the paged pool can hold this model: pure self-attention
+    stacks, single-codebook streams (mirrors ``init_paged_caches``)."""
+    if cfg.num_codebooks != 1:
+        return False
+    return all(spec.kind == "attn" and not spec.cross_attn for spec in cfg.layer_specs())
+
+
 class LLMEngine:
-    """Paged serving engine over ``params`` (from ``transformer.init_model``
-    or ``transformer.from_jax_params``) on ``device`` (default ``cuda``)."""
+    """Serving engine over ``params`` (from ``transformer.init_model`` or
+    ``transformer.from_jax_params``) on ``device`` (default ``cuda``).
+
+    ``kv_layout="auto"`` resolves dense or paged (see the module
+    docstring); ``"dense"`` / ``"paged"`` pin it. Capacity knobs:
+    ``max_batch`` decode rows and a ``cache_len`` dense stripe, or
+    ``num_pages`` x ``page_size`` pool with ``max_pages_per_seq`` (default
+    ``cache_len // page_size``, clamped to the pool) for paged.
+    ``prompt_buckets=None`` picks per-layout defaults."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         params,
         *,
-        kv_layout: str = "paged",
+        kv_layout: str = "auto",
         max_batch: int = 8,
         cache_len: int = 2048,
         prompt_buckets=None,
@@ -75,8 +98,8 @@ class LLMEngine:
         detokenizer: Optional[Callable[[Sequence], str]] = None,
         device=None,
     ):
-        if kv_layout != "paged":
-            raise _not_ported(f"kv_layout={kv_layout!r}", "dense layout")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
         if kv_dtype != "fp32":
             raise _not_ported(f"kv_dtype={kv_dtype!r}", "quantized and tiered KV")
         if host_pool_bytes:
@@ -93,15 +116,30 @@ class LLMEngine:
             raise ValueError(f"params on {params['embed'].device}, engine on {self.device}")
         cfg = plan_lib.with_mapping(cfg, mapping)
         self.cfg = cfg
-        self.backend = PagedBackend(
-            cfg, params, device=self.device, num_pages=num_pages,
-            page_size=page_size, rows=max_batch,
-            max_pages_per_seq=(max_pages_per_seq
-                               or max(1, min(cache_len // page_size, num_pages - 1))),
-            prompt_buckets=prompt_buckets or (32, 64, 128),
-            prefix_sharing=prefix_sharing, reserve_pages=reserve_pages,
-            batch_prefills=batch_prefills,
-        )
+        if kv_layout == "auto":
+            if not _paged_supported(cfg):
+                kv_layout = "dense"
+            else:
+                pick = plan_lib.resolve_kv_layout(
+                    (max_batch, cfg.n_heads, cfg.n_kv_heads, max(cache_len // 2, 1),
+                     cfg.head_dim),
+                    capacity=cache_len, page_size=page_size,
+                    dtype_bytes=device_lib.dtype_of(cfg.compute_dtype).itemsize)
+                kv_layout = "paged" if pick.startswith("paged") else "dense"
+        if kv_layout == "dense":
+            self.backend = DenseBackend(
+                cfg, params, device=self.device, rows=max_batch, cache_len=cache_len,
+                prompt_buckets=prompt_buckets or (128, 512, 2048))
+        else:
+            self.backend = PagedBackend(
+                cfg, params, device=self.device, num_pages=num_pages,
+                page_size=page_size, rows=max_batch,
+                max_pages_per_seq=(max_pages_per_seq
+                                   or max(1, min(cache_len // page_size, num_pages - 1))),
+                prompt_buckets=prompt_buckets or (32, 64, 128),
+                prefix_sharing=prefix_sharing, reserve_pages=reserve_pages,
+                batch_prefills=batch_prefills,
+            )
         self.scheduler = scheduler or Scheduler()
         self.backend.choose_victim = self.scheduler.choose_victim
         self.backend.on_preempt = self._on_preempt
@@ -184,7 +222,7 @@ class LLMEngine:
         return done
 
     def close(self) -> None:
-        """Release every live row and prove the page pool is fully free."""
+        """Release every live row (and, paged, prove the pool is fully free)."""
         self.backend.shutdown()
 
     def stats(self) -> SchedulerStats:

@@ -10,7 +10,8 @@ JAX package's decode and extend time models; see ROADMAP.md):
     every ``aging_rounds`` rounds a request waits;
   * the page budget prices a request (pages needed minus prefix matches,
     plus decode headroom) against free + evictable pages before the
-    backend's allocator is touched;
+    backend's allocator is touched; a backend without a page pool (dense
+    slots) always passes it, its row check is in ``try_admit``;
   * ``choose_victim`` evicts the lowest-priority, newest active row.
 """
 
@@ -45,7 +46,7 @@ class SchedulerStats:
     tokens_per_s: float = 0.0
     decode_elapsed_s: float = 0.0
     decode_tok_s: float = 0.0
-    prefix_hit_rate: float = 0.0
+    prefix_hit_rate: Optional[float] = 0.0   # None: no prefix cache (dense)
     page_occupancy: float = 0.0
     preemptions: int = 0
     resumed_tokens: int = 0
@@ -53,11 +54,12 @@ class SchedulerStats:
     batched_prefills: int = 0
 
     def summary(self) -> str:
+        hit = "n/a" if self.prefix_hit_rate is None else f"{self.prefix_hit_rate:.2f}"
         return (
             f"[{self.kv_layout}] {self.completed} done / {self.running} running / "
             f"{self.waiting} waiting | {self.tokens_generated} tokens in "
             f"{self.elapsed_s:.2f}s ({self.tokens_per_s:.1f} tok/s wall, decode "
-            f"{self.decode_tok_s:.1f} tok/s) | prefix hit {self.prefix_hit_rate:.2f} | "
+            f"{self.decode_tok_s:.1f} tok/s) | prefix hit {hit} | "
             f"occupancy {self.page_occupancy:.2f} | {self.preemptions} preemptions "
             f"({self.resumed_tokens} tokens resumed) | {self.prefill_launches} "
             f"prefill launches ({self.batched_prefills} batched)"
@@ -72,7 +74,7 @@ class _Waiting:
 
 
 class Scheduler:
-    """Admission / fairness / preemption policy over a paged backend."""
+    """Admission / fairness / preemption policy over a serving backend."""
 
     def __init__(self, *, aging_rounds: int = 4):
         if aging_rounds < 1:
@@ -102,6 +104,8 @@ class Scheduler:
         return w.req.priority + w.rounds_waited // self.aging_rounds
 
     def page_budget_ok(self, backend, req) -> bool:
+        if not hasattr(backend, "quote"):
+            return True
         total, matched = backend.quote(req)
         return total - matched + backend.reserve_pages <= (
             backend.free_pages + backend.evictable_pages)

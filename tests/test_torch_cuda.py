@@ -1,6 +1,6 @@
 """Card-only tests: every CUDA kernel of the port against its plain PyTorch
-version on the card, at small shapes, plus the paged engine and one train
-step on the kernels against the same on the plain versions.
+version on the card, at small shapes, plus the paged and dense engines and
+one train step on the kernels against the same on the plain versions.
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -13,6 +13,10 @@ kernels and the plain versions both compute in float32; only the order of
 the sums differs); at bfloat16, per row, max |o - ref| within 2^-6 of the
 row's max |ref| (two roundings to bf16 differ by one ulp, at most 2^-7 of
 the row's max; a row of ref that is all zero must be exactly zero), as ``chip_smoke.py`` holds them.
+K9 (float32 in and out) is held per (b, chunk, head) slice: max |y - ref|
+within 1e-5 of the slice's max |ref| (float32 sums of at most q + N terms
+taken in another order; a dropped key tile moves y by a large fraction of
+its max).
 """
 
 import dataclasses
@@ -22,13 +26,15 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import hymba_1_5b, llama3_8b
+from repro_torch.kernels import decode_attention as dd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pd
 from repro_torch.kernels import paged_prefill_attention as pp
-from repro_torch.models import transformer
+from repro_torch.kernels import ssd as ssd_kernel
+from repro_torch.models import ssm, transformer
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serving import LLMEngine, Request
 from repro_torch.training import train_step as ts
@@ -37,6 +43,7 @@ pytestmark = pytest.mark.requires_cuda
 
 F32_TOL = 2e-5
 ROW_TOL = 2.0**-6
+SSD_TOL = 1e-5
 LSE_TOL = 1e-5
 HEADS = [(8, 2), (4, 4), (4, 1)]          # GQA, MHA, MQA
 HEAD_IDS = ["gqa", "mha", "mqa"]
@@ -110,6 +117,19 @@ def test_flash_fwd_masks_match_plain(cuda, dtype, d, kw):
     torch.cuda.synchronize()
     assert o.dtype == dt and _close(o, o_ref)
     assert _err(lse, lse_ref) < LSE_TOL
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_fwd_hymba_group_of_five(cuda, window):
+    """hymba-1.5b's head layout: Hq 25 over Hkv 5 (a GQA group of 5), D 64,
+    with and without a window."""
+    rng = np.random.default_rng(15)
+    q = _randn(rng, (1, 25, 300, 64), cuda, torch.bfloat16)
+    k, v = (_randn(rng, (1, 5, 300, 64), cuda, torch.bfloat16) for _ in range(2))
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    ref, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _close(o, ref)
 
 
 def test_flash_fwd_fully_masked_rows(cuda):
@@ -346,6 +366,139 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fa.flash_attention_fwd(y, y, y)
 
 
+# -- K7 / K8: dense decode ---------------------------------------------------
+
+
+def _dense_inputs(rng, dev, dt, hq, hkv, d, smax, b=6):
+    q = _randn(rng, (b, hq, d), dev, dt)
+    kc, vc = (_randn(rng, (b, hkv, smax, d), dev, dt) for _ in range(2))
+    lengths = torch.tensor([0, 1, 37, smax // 2 + 3, smax - 5, smax][:b], dtype=torch.int32,
+                           device=dev)
+    return q, kc, vc, lengths
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 7])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,d", [(25, 5, 64), (32, 8, 128), (4, 1, 64)],
+                         ids=["hymba", "llama", "mqa"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (40, 30.0), (8, None)],
+                         ids=["full", "window_softcap", "window_lt_chunk"])
+@pytest.mark.parametrize("smax,chunk", [(512, 64), (1000, 40)], ids=["c64", "c40"])
+def test_dense_decode_matches_plain(cuda, num_splits, dtype, hq, hkv, d, window, softcap,
+                                    smax, chunk):
+    rng = np.random.default_rng(60)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, DTYPES[dtype], hq, hkv, d, smax)
+    kw = dict(window=window, softcap=softcap, chunk=chunk, num_splits=num_splits)
+    o = dd.flash_decode(q, kc, vc, lengths, **kw)
+    ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _close(o, ref)
+    assert float(o[0].float().abs().max()) == 0.0
+
+
+def test_dense_decode_reads_a_width_view(cuda):
+    """The serving backend passes the stripes cut to the live width: a
+    strided view gives the contiguous copy's output, one pass and split."""
+    rng = np.random.default_rng(61)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.bfloat16, 25, 5, 64, 1024)
+    lengths = torch.clamp(lengths, max=300)
+    for ns in (1, 3):
+        o_view = dd.flash_decode(q, kc[:, :, :320], vc[:, :, :320], lengths, num_splits=ns)
+        o_copy = dd.flash_decode(q, kc[:, :, :320].contiguous(), vc[:, :, :320].contiguous(),
+                                 lengths, num_splits=ns)
+        torch.cuda.synchronize()
+        assert torch.equal(o_view, o_copy)
+
+
+@pytest.mark.parametrize("smax", [100, 700, 1000])
+def test_ops_decode_attention_pads_odd_capacities(cuda, smax):
+    rng = np.random.default_rng(62)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.float32, 8, 2, 64, smax)
+    o = ops.decode_attention(q, kc, vc, lengths)
+    ref = dd.flash_decode_plain(q, kc, vc, lengths, chunk=smax)
+    torch.cuda.synchronize()
+    assert _close(o, ref)
+
+
+# -- K9: SSD intra-chunk -----------------------------------------------------
+
+
+def _slice_rel(a, ref) -> float:
+    diff = (a - ref).abs().flatten(-2).amax(-1)
+    den = ref.abs().flatten(-2).amax(-1).clamp_min(1e-30)
+    return float((diff / den).max())
+
+
+def _ssd_inputs(rng, dev, b, l, h, p, g, n):
+    x = _randn(rng, (b, l, h, p), dev)
+    dt = torch.nn.functional.softplus(_randn(rng, (b, l, h), dev))
+    a = -torch.exp(_randn(rng, (h,), dev) * 0.5)
+    bm, cm = _randn(rng, (b, l, g, n), dev), _randn(rng, (b, l, g, n), dev)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("n,p", ssd_kernel.SHAPES)
+@pytest.mark.parametrize("q", [256, 200, 32])
+def test_ssd_intra_chunk_matches_plain(cuda, n, p, q):
+    rng = np.random.default_rng(63)
+    b, nc, h = 2, 3, 3
+    xdt = _randn(rng, (b, nc, h, q, p), cuda)
+    bh, ch = _randn(rng, (b, nc, h, q, n), cuda), _randn(rng, (b, nc, h, q, n), cuda)
+    dta = -torch.nn.functional.softplus(_randn(rng, (b, nc, h, q), cuda)) * 0.5
+    acum = torch.cumsum(dta, dim=-1).contiguous()
+    y, s = ssd_kernel.ssd_intra_chunk(xdt, bh, ch, acum)
+    y_ref, s_ref = ssd_kernel.ssd_intra_chunk_plain(xdt, bh, ch, acum)
+    torch.cuda.synchronize()
+    assert _slice_rel(y, y_ref) <= SSD_TOL
+    assert _slice_rel(s, s_ref) <= SSD_TOL
+
+
+@pytest.mark.parametrize("l,n,p,g", [(512, 16, 64, 1), (300, 128, 64, 1), (256, 16, 128, 2)])
+def test_ssd_chunked_cuda_matches_plain_and_hands_off_state(cuda, l, n, p, g):
+    rng = np.random.default_rng(64)
+    x, dt, a, bm, cm = _ssd_inputs(rng, cuda, 2, l, 4, p, g, n)
+    y, hT = ssd_kernel.ssd_chunked_cuda(x, dt, a, bm, cm, 128)
+    y_ref, h_ref = ssm.ssd_chunked(x, dt, a, bm, cm, 128)
+    torch.cuda.synchronize()
+    scale = float(y_ref.abs().max())
+    assert float((y - y_ref).abs().max()) <= SSD_TOL * 10 * scale
+    assert float((hT - h_ref).abs().max()) <= SSD_TOL * 10 * float(h_ref.abs().max())
+    half = 128
+    y1, h1 = ssd_kernel.ssd_chunked_cuda(x[:, :half], dt[:, :half], a, bm[:, :half],
+                                         cm[:, :half], 128)
+    y2, h2 = ssd_kernel.ssd_chunked_cuda(x[:, half:], dt[:, half:], a, bm[:, half:],
+                                         cm[:, half:], 128, h0=h1)
+    torch.cuda.synchronize()
+    assert float((torch.cat([y1, y2], 1) - y_ref).abs().max()) <= SSD_TOL * 10 * scale
+    assert float((h2 - h_ref).abs().max()) <= SSD_TOL * 10 * float(h_ref.abs().max())
+
+
+def test_new_kernels_count_and_refuse_grad(cuda):
+    rng = np.random.default_rng(65)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.bfloat16, 8, 2, 64, 512)
+    xdt = _randn(rng, (1, 2, 2, 64, 64), cuda)
+    bh = _randn(rng, (1, 2, 2, 64, 16), cuda)
+    acum = torch.cumsum(-torch.rand((1, 2, 2, 64), device=cuda), -1).contiguous()
+    kernels.reset_launch_counts()
+    dd.flash_decode_plain(q, kc, vc, lengths, num_splits=3)
+    ssd_kernel.ssd_intra_chunk_plain(xdt, bh, bh, acum)
+    dd.flash_decode(q, kc, vc, lengths)
+    dd.flash_decode(q, kc, vc, lengths, num_splits=3)
+    ssd_kernel.ssd_intra_chunk(xdt, bh, bh, acum)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_decode"] == 1 and counts["flash_decode_split"] == 1
+    assert counts["ssd_intra_chunk"] == 1
+    with pytest.raises(RuntimeError, match="flash_decode"):
+        dd.flash_decode(q.requires_grad_(True), kc, vc, lengths)
+    with pytest.raises(RuntimeError, match="ssd_intra_chunk"):
+        ssd_kernel.ssd_intra_chunk(xdt.requires_grad_(True), bh, bh, acum)
+    with pytest.raises(ValueError):                       # (N, P) = (16, 32)
+        ssd_kernel.ssd_intra_chunk(xdt[..., :32].contiguous(), bh, bh, acum)
+    with pytest.raises(ValueError):                       # Smax not a chunk multiple
+        dd.flash_decode(q.detach(), kc, vc, lengths, chunk=48)
+
+
 # -- the engine on the kernels -------------------------------------------------
 
 
@@ -374,6 +527,37 @@ def test_engine_on_kernels_matches_engine_on_plain_versions(cuda):
         if impl == "auto":
             assert counts["flash_attention_fwd"] > 0 and counts["paged_flash_prefill"] > 0
             assert counts["paged_flash_decode"] + counts["paged_flash_decode_split"] > 0
+        else:
+            assert sum(counts.values()) == 0
+    assert tokens["auto"] == tokens["plain"]
+
+
+def test_dense_engine_on_kernels_matches_plain_hymba(cuda):
+    """hymba SMOKE widened to attention head_dim 64 and SSM head 64 / state
+    16 (shapes the kernels take), float32: the dense engine on K1, K7/K8
+    and K9 gives the plain engine's greedy ids, prompts off the buckets."""
+    cfg = dataclasses.replace(hymba_1_5b.SMOKE, head_dim=64,
+                              ssm=dataclasses.replace(hymba_1_5b.SMOKE.ssm, head_dim=64,
+                                                      state_dim=16))
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(1, cfg.vocab, size=(n,)) for n in (20, 90, 45, 130)]
+    kw = dict(max_batch=3, cache_len=256, prompt_buckets=(32, 64, 128, 192), device=cuda)
+    tokens = {}
+    for impl in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=impl,
+                                ssm=dataclasses.replace(cfg.ssm, impl=impl))
+        eng = LLMEngine(c, params, **kw)
+        assert eng.kv_layout == "dense"
+        kernels.reset_launch_counts()
+        out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=10)
+                            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        tokens[impl] = {o.uid: [int(t) for t in o.tokens] for o in out}
+        if impl == "auto":
+            assert counts["flash_attention_fwd"] > 0 and counts["ssd_intra_chunk"] > 0
+            assert counts["flash_decode"] + counts["flash_decode_split"] > 0
         else:
             assert sum(counts.values()) == 0
     assert tokens["auto"] == tokens["plain"]

@@ -105,7 +105,7 @@ def test_stop_tokens_and_streaming_match_jax(models):
 def test_unported_options_raise(models):
     _, params = models
     cfg = llama3_8b.SMOKE
-    for kw in (dict(kv_layout="dense"), dict(kv_layout="auto"), dict(kv_dtype="int8"),
+    for kw in (dict(kv_dtype="int8"),
                dict(host_pool_bytes=1 << 20), dict(mesh=2), dict(steps_per_sync=4),
                dict(steps_per_sync="auto"), dict(telemetry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

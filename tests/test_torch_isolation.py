@@ -110,7 +110,7 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert "3 done" in out
 
 
-@pytest.mark.parametrize("flags", [["--kv-layout", "dense"], ["--kv-dtype", "int8"],
+@pytest.mark.parametrize("flags", [["--steps-per-sync", "4"], ["--kv-dtype", "int8"],
                                    ["--steps-per-sync", "auto"], ["--mesh", "2"],
                                    ["--host-pool-bytes", "4096"]])
 def test_serve_launcher_rejects_unported_options(flags):
