@@ -13,9 +13,13 @@ and prints no result. Phases, in order (any failure exits non-zero):
      at llama3-8b widths in bf16 (Hq 32, Hkv 8, D 128, page size 16):
      max error at a stated tolerance, CUDA-event median times of kernel and
      plain version, and the bound (bytes over 3.35 TB/s vs operations over
-     989 TFLOP/s, the H100 SXM data-sheet peaks); then the split-K
-     estimator's modelled decode times beside the measured ones, and the
-     fixed cost per call of the split path over the one-pass path; then K5
+     989 TFLOP/s, the H100 SXM data-sheet peaks). K1 in bf16 is the
+     tensor-core kernel: every launch order (head-first and block-first
+     bitwise equal), window + softcap, hymba-1.5b's widths (timed with SDPA
+     beside it); K1 in float32 (the CUDA-core kernel) held at 2e-5 and
+     timed at the same B 2, S 2048. Then the split-K estimator's modelled
+     decode times beside the measured ones, and the fixed cost per call of
+     the split path over the one-pass path; then K5
      (dQ) and K6 (dK/dV) under both launch orders, with window + softcap,
      and at S 1000 padded to 1024 (kv_len masking), and SDPA's backward as
      the library yardstick; then K7 / K8 (dense decode, one pass and
@@ -39,9 +43,10 @@ and prints no result. Phases, in order (any failure exits non-zero):
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
      compute, remat, 3 steps; K1, K5 and K6 must each launch as often as the
-     layer count predicts; then the step's attention kernels held against
-     their plain versions at its shapes (B 2, S 4096) and, with its float32
-     LM head, timed alone there, beside the step time; then one step's
+     layer count predicts (every path's K1 launches on the tensor cores);
+     then the step's attention kernels held against their plain versions
+     at its shapes (B 2, S 4096) and, with its float32 LM head, timed alone
+     there (K1 with SDPA beside it), beside the step time; then one step's
      gradients at 2 layers, sequence 1024, kernel path against the plain
      path.
 
@@ -74,6 +79,9 @@ PEAK_HBM_BW = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 # row moves o by ~2^-4 of its row max.
 ROW_TOL = 2.0**-6
 LSE_TOL = 1e-5             # float32 logsumexp, |lse| ~ 8: about 10 ulp
+# K1 in float32 (CUDA cores) against its plain version: both sum float32
+# products, in another order (the card tests' bar).
+F32_TOL = 2e-5
 # K9 (float32 in and out) against its plain version, per (b, chunk, head)
 # slice: max |y - ref| over max |ref|. Both sum float32 FMAs over at most
 # q + N terms in another order (about 1e-6 relative); a dropped or
@@ -97,8 +105,10 @@ REPS = 20                  # timed runs per case; the median is reported
 HQ, HKV, D, PS = 32, 8, 128, 16
 
 KERNELS = {
-    "K1": dict(name="K1 flash_attention_fwd", source="src/repro_torch/csrc/flash_attention.cu",
-               replaces="src/repro/kernels/flash_attention.py:361", counter="flash_attention_fwd"),
+    "K1": dict(name="K1 flash_attention_fwd (bf16, tensor cores)",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:361",
+               counter="flash_attention_fwd_tc"),
     "K2": dict(name="K2 paged_flash_prefill", source="src/repro_torch/csrc/paged_prefill.cu",
                replaces="src/repro/kernels/paged_prefill_attention.py:277",
                counter="paged_flash_prefill"),
@@ -174,6 +184,15 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def k1_bound_of(q, k, v, o, lse, *, causal, window=None, peak=PEAK_BF16_FLOPS):
+    """K1's bound: q, k, v read and o, lse written once, against the two
+    products' operations over the (row, key) pairs the masks leave live
+    (causal: row r sees min(r + 1, window) keys)."""
+    b, hq, s, d = q.shape
+    seen = [min(r + 1, window or s) if causal else s for r in range(s)]
+    return bound(nbytes(q, k, v, o, lse), 4.0 * d * b * hq * sum(seen), peak)
+
+
 def rel_err(a, ref, dims: int) -> float:
     """max |a - ref| / max |ref| over the last ``dims`` axes (a row, or a
     (b, head) slice of a gradient), the worst over the rest; where ref is
@@ -198,10 +217,19 @@ def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def check_k1_route(label, counts):
+    """Every K1 launch of a bf16 main path went to the tensor-core kernel."""
+    total, tc = counts["flash_attention_fwd"], counts["flash_attention_fwd_tc"]
+    log(f"{label}: K1 launches {total}, on the tensor cores {tc}")
+    if tc != total:
+        raise AssertionError(f"{label}: {total - tc} K1 launches missed the tensor-core kernel")
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
 def check_kernels(torch, timer, results):
     import torch.nn.functional as F
+    from repro_torch import kernels
     from repro_torch.core import numa, perf_model
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pd
@@ -213,37 +241,40 @@ def check_kernels(torch, timer, results):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    # K1: B 2, S 2048, causal, every mapping; then window + softcap.
+    # K1 (bf16, the tensor-core kernel): B 2, S 2048, causal, every mapping;
+    # head-first and block-first must give the same bits.
     b, s = 2, 2048
     q, k, v = randn(b, HQ, s, D), randn(b, HKV, s, D), randn(b, HKV, s, D)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
-    rows = torch.arange(s)
-    pairs = b * HQ * int((rows + 1).sum())
-    k1_bytes = nbytes(q, k, v, o_ref, lse_ref)
-    k1_bound = bound(k1_bytes, 4.0 * D * pairs)
+    k1_bound = k1_bound_of(q, k, v, o_ref, lse_ref, causal=True)
     # The three distinct launches: the paper's naive_/swizzled_ names are
     # aliases of the two orders (kernels/flash_attention.py).
     mappings = [("head_first", fa.MappingConfig(order=fa.HEAD_FIRST)),
                 ("block_first", fa.MappingConfig(order=fa.BLOCK_FIRST)),
                 ("head_first+sawtooth", fa.MappingConfig(order=fa.HEAD_FIRST,
                                                          traversal="sawtooth"))]
-    k1_main = None
+    k1_main, outs = None, {}
     for name, mapping in mappings:
-        o, lse = fa.flash_attention_fwd(q, k, v, mapping=mapping, causal=True)
+        o, lse = outs[name] = fa.flash_attention_fwd(q, k, v, mapping=mapping, causal=True)
         torch.cuda.synchronize()
         e_o, e_r, e_l = err(o, o_ref), row_err(o, o_ref), err(lse, lse_ref)
         ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, mapping=mapping, causal=True))
         log(f"K1 {name}: max_err o {e_o:.3e} (row-relative {e_r:.3e}, tol {ROW_TOL:.3e}) "
-            f"lse {e_l:.3e} (tol {LSE_TOL}) {ms:.3f} ms, bound {k1_bound[0]:.3f} ms "
+            f"lse {e_l:.3e} (tol {LSE_TOL}) {ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
             f"({k1_bound[1]})")
         if e_r > ROW_TOL or e_l > LSE_TOL:
             raise AssertionError(f"K1 {name} disagrees with its plain version")
         if k1_main is None:
             k1_main = (max(e_o, e_l), ms)
+    same = all(torch.equal(a, b_) for a, b_ in zip(outs["head_first"], outs["block_first"]))
+    log(f"K1 head-first and block-first bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K1's launch order changed its output")
+    del outs
     plain_ms = timer.ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True))
     lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                              enable_gqa=True))
-    log(f"K1 plain {plain_ms:.3f} ms, library sdpa {lib_ms:.3f} ms")
+    log(f"K1 plain {plain_ms:.3f} ms, library sdpa {lib_ms:.4f} ms")
     results["K1"] = dict(max_abs_err=k1_main[0], ms=k1_main[1], plain_ms=plain_ms,
                          bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=lib_ms)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=512, softcap=50.0)
@@ -257,19 +288,62 @@ def check_kernels(torch, timer, results):
     del q, k, v, o, lse, o_ref, lse_ref
 
     # K1 at hymba-1.5b's prefill widths: Hq 25, Hkv 5 (a GQA group of 5),
-    # D 64, S 4096, global and window 1024 (tile skips at D 64).
-    q, k, v = randn(1, 25, 4096, 64), randn(1, 5, 4096, 64), randn(1, 5, 4096, 64)
+    # D 64, S 4096, global and window 1024 (tile skips at D 64); timed, with
+    # SDPA beside it (the window as an explicit mask).
+    s = 4096
+    q, k, v = randn(1, 25, s, 64), randn(1, 5, s, 64), randn(1, 5, s, 64)
     for window in (None, 1024):
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
         o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         e_r, e_l = row_err(o, o_ref), err(lse, lse_ref)
-        log(f"K1 hymba-1.5b widths (Hq 25, Hkv 5, D 64, S 4096, window {window}): o "
-            f"row-relative {e_r:.3e} (tol {ROW_TOL:.3e}) lse {e_l:.3e} (tol {LSE_TOL})")
+        hb = k1_bound_of(q, k, v, o, lse, causal=True, window=window)
+        ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=window))
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True)
+        else:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          enable_gqa=True)
+        lib = timer.ms(sdpa)
+        log(f"K1 hymba-1.5b widths (Hq 25, Hkv 5, D 64, S {s}, window {window}): o "
+            f"row-relative {e_r:.3e} (tol {ROW_TOL:.3e}) lse {e_l:.3e} (tol {LSE_TOL}); "
+            f"{ms:.4f} ms, library sdpa {lib:.4f} ms, bound {hb[0]:.4f} ms ({hb[1]})")
         if e_r > ROW_TOL or e_l > LSE_TOL:
             raise AssertionError("K1 at hymba widths disagrees with its plain version")
         del o, lse, o_ref, lse_ref
     del q, k, v
+
+    # K1 in float32 stays on the CUDA cores: held at 2e-5 (both sum float32),
+    # then timed at the bf16 case's shape against the float32 peak.
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((1, HQ, 300, D), (1, HKV, 300, D), (1, HKV, 300, D)))
+    counts0 = kernels.launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    counts1 = kernels.launch_counts()
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    e_o, e_l = err(o, o_ref), err(lse, lse_ref)
+    on_cuda_cores = (counts1["flash_attention_fwd"] - counts0["flash_attention_fwd"] == 1
+                     and counts1["flash_attention_fwd_tc"] == counts0["flash_attention_fwd_tc"])
+    log(f"K1 float32 (CUDA cores, Hq 32, Hkv 8, S 300, causal): max_err o {e_o:.3e} lse "
+        f"{e_l:.3e} (tol {F32_TOL}); CUDA-core entry: {on_cuda_cores}")
+    if e_o > F32_TOL or e_l > F32_TOL or not on_cuda_cores:
+        raise AssertionError("K1 float32 disagrees with its plain version")
+    b, s = 2, 2048
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((b, HQ, s, D), (b, HKV, s, D), (b, HKV, s, D)))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    fb = k1_bound_of(q, k, v, o, lse, causal=True, peak=PEAK_F32_FLOPS)
+    ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = timer.ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True))
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True))
+    log(f"K1 float32 (CUDA cores) B {b} S {s} causal: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library sdpa {lib_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}, float32 peak)")
+    del q, k, v, o, lse, o_ref, lse_ref
 
     # K2: prefix 1000 tokens (not a page multiple), tail 256, B 2.
     b, plen, st = 2, 1000, 256
@@ -649,6 +723,7 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     log(f"serve decode {stats.decode_tok_s:.1f} tok/s over {stats.decode_elapsed_s:.2f} s "
         f"(host clock); prefix hit rate {stats.prefix_hit_rate:.3f}")
     log(f"launch counts over the serve run: {json.dumps(counts)}")
+    check_k1_route("serve llama3-8b paged", counts)
     for key in ("K1", "K2", "K3", "K4"):
         if counts[KERNELS[key]["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on the main path")
@@ -739,6 +814,8 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
     for key in want:
         if counts[KERNELS[key]["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on the {cfg.name} dense path")
+    if "K1" in want:
+        check_k1_route(f"serve {cfg.name} dense", counts)
     engine.close()
     del engine
 
@@ -818,7 +895,7 @@ def train(torch, cfg_full, seed=0):
             f"{rec['grad_norm']:.4f} step {rec['step_time_s']:.3f} s, "
             f"{tokens / rec['step_time_s']:.0f} tok/s (host clock, synced); launches "
             f"{json.dumps(step_counts)}")
-        want = {"flash_attention_fwd": 2 * TRAIN_LAYERS * TRAIN_MICRO,
+        want = {KERNELS["K1"]["counter"]: 2 * TRAIN_LAYERS * TRAIN_MICRO,
                 "flash_attention_bwd_dq": TRAIN_LAYERS * TRAIN_MICRO,
                 "flash_attention_bwd_dkv": TRAIN_LAYERS * TRAIN_MICRO}
         if step_counts != want:
@@ -831,6 +908,7 @@ def train(torch, cfg_full, seed=0):
         f"train run: {json.dumps(counts)}")
     if trainer.retries or trainer.step != TRAIN_STEPS:
         raise AssertionError(f"trainer made {trainer.retries} retries")
+    check_k1_route("train", counts)
     step_s = trainer.history[-1]["step_time_s"]
     del trainer, state
     gc.collect()
@@ -909,6 +987,9 @@ def train_breakdown(torch, cfg, step_s):
     if e_o > ROW_TOL or e_l > LSE_TOL or max(rel) > ROW_TOL:
         raise AssertionError("K1/K5/K6 at the train shape disagree with their plain versions")
     t_k1 = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+    t_sdpa = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    k1_bound = k1_bound_of(q, k, v, o, lse, causal=True)
     t_k5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
     t_k6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
     del q, k, v, do, o, lse, delta
@@ -920,11 +1001,13 @@ def train_breakdown(torch, cfg, step_s):
     del x, head, g, timer
     attn = TRAIN_MICRO * TRAIN_LAYERS * (2 * t_k1 + t_k5 + t_k6)
     head_ms = TRAIN_MICRO * t_head
-    log(f"train step parts at B {b} S {s} per microbatch: K1 {t_k1:.3f} ms, K5 {t_k5:.3f} "
-        f"ms, K6 {t_k6:.3f} ms, float32 LM head (3 products) {t_head:.3f} ms; per step: "
-        f"attention kernels {attn:.1f} ms ({attn / (step_s * 1e3):.1%} of the "
-        f"{step_s * 1e3:.1f} ms step), LM head {head_ms:.1f} ms "
-        f"({head_ms / (step_s * 1e3):.1%})")
+    k1_ms = TRAIN_MICRO * TRAIN_LAYERS * 2 * t_k1
+    log(f"train step parts at B {b} S {s} per microbatch: K1 {t_k1:.4f} ms (library sdpa "
+        f"{t_sdpa:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.3f} ms, K6 "
+        f"{t_k6:.3f} ms, float32 LM head (3 products) {t_head:.3f} ms; per step: attention "
+        f"kernels {attn:.1f} ms ({attn / (step_s * 1e3):.1%} of the {step_s * 1e3:.1f} ms "
+        f"step; K1 x 2 {k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}), LM head "
+        f"{head_ms:.1f} ms ({head_ms / (step_s * 1e3):.1%})")
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
 """Kernels of the serving and training paths, with their plain versions.
 
-K1 ``flash_attention.flash_attention_fwd``, K5/K6
+K1 ``flash_attention.flash_attention_fwd`` (``flash_attention_fwd_tc``
+counts its bf16 tensor-core launches alone), K5/K6
 ``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV), K2
 ``paged_prefill_attention.paged_flash_prefill``, K3/K4
 ``paged_decode_attention.paged_flash_decode`` (one-pass / split-K), K7/K8
@@ -27,6 +28,7 @@ from repro_torch.kernels import (
 def launch_counts() -> Dict[str, int]:
     return {
         "flash_attention_fwd": flash_attention.launches,
+        "flash_attention_fwd_tc": flash_attention.launches_tc,
         "flash_attention_bwd_dq": flash_attention_bwd.launches["dq"],
         "flash_attention_bwd_dkv": flash_attention_bwd.launches["dkv"],
         "paged_flash_prefill": paged_prefill_attention.launches,
@@ -40,6 +42,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
+    flash_attention.launches_tc = 0
     flash_attention_bwd.launches["dq"] = 0
     flash_attention_bwd.launches["dkv"] = 0
     paged_prefill_attention.launches = 0

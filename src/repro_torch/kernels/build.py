@@ -130,6 +130,8 @@ def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 def check(status: int, what: str) -> None:
     if status == -1:
         raise ValueError(f"{what}: shape or dtype not instantiated by the CUDA build")
+    if status == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a tensor map")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
 

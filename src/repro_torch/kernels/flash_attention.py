@@ -3,9 +3,11 @@ the NUMA-aware launch configuration.
 
 Port of ``repro.kernels.flash_attention.flash_attention_fwd`` (the two
 Pallas bodies ``_fwd_resident_kernel`` and ``_fwd_stream_kernel``). The
-kernel is ``csrc/flash_attention.cu``; :func:`flash_attention_fwd` launches
-it for CUDA tensors and runs :func:`flash_attention_fwd_plain` for CPU
-tensors.
+kernels are in ``csrc/flash_attention.cu``: bf16 runs ``fa2_fwd_tc`` on the
+tensor cores (``wgmma`` fed by TMA), float32 ``fa2_fwd`` on the CUDA cores
+in float32 (the tensor cores would round it to TF32).
+:func:`flash_attention_fwd` launches the one for its dtype on CUDA tensors
+and runs :func:`flash_attention_fwd_plain` for CPU tensors.
 
 ``MappingConfig`` holds the two fields of the paper's schedule that have a
 launch form on Hopper: ``order`` (how ``blockIdx`` decodes into
@@ -34,13 +36,17 @@ from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap
 HEAD_FIRST = "head_first"
 BLOCK_FIRST = "block_first"
 
-#: Tile sizes of the CUDA kernel (PF_BM / PF_BN in csrc/prefill_tile.cuh).
+#: Tile sizes of the float32 kernel (PF_BM / PF_BN in csrc/prefill_tile.cuh);
+#: ``ops.flash_attention`` pads sequences to them. The bf16 kernel tiles by
+#: 128 (tc::BM / tc::BN) and takes ragged lengths as they are.
 BLOCK_M = 64
 BLOCK_N = 64
 HEAD_DIMS = (64, 128)
 
-#: Launches of the CUDA kernel since the last reset.
+#: Launches of either CUDA kernel since the last reset; ``launches_tc``
+#: counts those of the bf16 tensor-core kernel alone.
 launches = 0
+launches_tc = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,16 +100,18 @@ def flash_attention_fwd_plain(q, k, v, *, causal=True, window=None,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+#: dtype -> the C entry point of K1 that takes it.
+_ENTRY = {torch.float32: "fa2_fwd", torch.bfloat16: "fa2_fwd_tc"}
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fn = build.bind("flash_attention", "fa2_fwd",
-                         [P, P, P, P, P] + [I] * 7 + [F, I, I, F, I, I, I, P])
-    return _fn
+        fn = _fns[dtype] = build.bind("flash_attention", _ENTRY[dtype],
+                                      [P, P, P, P, P] + [I] * 7 + [F, I, I, F, I, I, P])
+    return fn
 
 
 def _check_inputs(q, k, v):
@@ -128,7 +136,8 @@ def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FA2 forward. q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (o, lse).
 
-    CUDA tensors launch the K1 kernel; CPU tensors take the plain version.
+    CUDA tensors launch the K1 kernel of their dtype (bf16 on the tensor
+    cores, float32 on the CUDA cores); CPU tensors take the plain version.
     ``kv_len`` masks padding keys. On CUDA tensors that need a gradient it
     raises: the differentiable route is ``ops.flash_attention``.
     """
@@ -136,6 +145,12 @@ def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
         return flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
                                          softcap=softcap, scale=scale, kv_len=kv_len)
     _check_inputs(q, k, v)
+    # Both kernels read rows 16 bytes at a time, and TMA needs 16-byte
+    # aligned tensors; a tensor map has no empty dimension.
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start at 16-byte aligned addresses")
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError("flash_attention_fwd takes at least one query and one key")
     build.refuse_grad("flash_attention_fwd", q, k, v)
     if mapping.order not in (HEAD_FIRST, BLOCK_FIRST):
         raise ValueError(f"unknown order {mapping.order!r}")
@@ -148,15 +163,16 @@ def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
     kv_len = skv if kv_len is None else int(kv_len)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    global launches
+    global launches, launches_tc
     launches += 1
-    status = _kernel()(
+    if q.dtype == torch.bfloat16:
+        launches_tc += 1
+    status = _kernel(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, hq, hkv, sq, skv, kv_len, d, float(scale), int(bool(causal)),
         int(window or 0), float(softcap or 0.0),
         0 if mapping.order == HEAD_FIRST else 1,
-        int(mapping.traversal == swizzle.SAWTOOTH), _DTYPES[q.dtype],
-        build.stream_of(q),
+        int(mapping.traversal == swizzle.SAWTOOTH), build.stream_of(q),
     )
-    build.check(status, "fa2_fwd")
+    build.check(status, _ENTRY[q.dtype])
     return o, lse

@@ -12,7 +12,10 @@ the machine with the card has none. Bars: 2e-5 absolute at float32 (the
 kernels and the plain versions both compute in float32; only the order of
 the sums differs); at bfloat16, per row, max |o - ref| within 2^-6 of the
 row's max |ref| (two roundings to bf16 differ by one ulp, at most 2^-7 of
-the row's max; a row of ref that is all zero must be exactly zero), as ``chip_smoke.py`` holds them.
+the row's max; a row of ref that is all zero must be exactly zero), and
+lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
+tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
+cores and is held at 2e-5.
 K9 (float32 in and out) is held per (b, chunk, head) slice: max |y - ref|
 within 1e-5 of the slice's max |ref| (float32 sums of at most q + N terms
 taken in another order; a dropped key tile moves y by a large fraction of
@@ -150,6 +153,90 @@ def test_ops_flash_attention_pads_odd_lengths(cuda):
     want = fa.flash_attention_fwd_plain(q, k, v, causal=True)[0]
     torch.cuda.synchronize()
     assert got.shape == q.shape and _err(got, want) < F32_TOL
+
+
+# -- K1 in bf16: the tensor-core kernel ----------------------------------------
+
+# (Hq, Hkv, Sq, Skv, D): groups of 4 and 5, lengths that are not multiples of
+# the kernel's 128-row tiles, Sq < Skv.
+TC_SHAPES = [(32, 8, 130, 170, 128), (25, 5, 130, 170, 64), (32, 8, 77, 77, 64),
+             (25, 5, 200, 200, 128), (8, 2, 200, 333, 128), (8, 2, 200, 333, 64)]
+TC_MASKS = {"causal": dict(causal=True), "causal_kvlen": dict(causal=True, kv_len=-31),
+            "noncausal_kvlen": dict(causal=False, kv_len=-45),
+            "window_softcap": dict(causal=True, window=37, softcap=20.0)}
+
+
+@pytest.mark.parametrize("mask", sorted(TC_MASKS))
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_fwd_tensor_cores_match_plain(cuda, shape, mask):
+    """bf16 goes to the tensor-core entry (its own count moves), held per
+    row within 2^-6 and lse within 1e-5; a negative kv_len here counts back
+    from Skv."""
+    hq, hkv, sq, skv, d = shape
+    kw = dict(TC_MASKS[mask])
+    if "kv_len" in kw:
+        kw["kv_len"] += skv
+    rng = np.random.default_rng(70)
+    q = _randn(rng, (2, hq, sq, d), cuda, torch.bfloat16)
+    k, v = (_randn(rng, (2, hkv, skv, d), cuda, torch.bfloat16) for _ in range(2))
+    kernels.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_fwd"] == counts["flash_attention_fwd_tc"] == 1
+    assert o.dtype == torch.bfloat16 and _row_err(o, o_ref) < ROW_TOL
+    assert _err(lse, lse_ref) < LSE_TOL
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_tensor_cores_fully_masked_rows(cuda, d):
+    """kv_len 0: o exactly 0 and lse exactly -1e30, with no NaN."""
+    rng = np.random.default_rng(71)
+    q = _randn(rng, (1, 8, 200, d), cuda, torch.bfloat16)
+    k, v = (_randn(rng, (1, 2, 150, d), cuda, torch.bfloat16) for _ in range(2))
+    for causal in (True, False):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, kv_len=0)
+        torch.cuda.synchronize()
+        assert torch.equal(o, torch.zeros_like(o))
+        assert torch.equal(lse, torch.full_like(lse, -1e30))
+
+
+def test_flash_fwd_tensor_cores_orders_agree_exactly(cuda):
+    """Head-first and block-first change which blocks run together, never a
+    block's sums: the same bits. Sawtooth walks the KV tiles of odd q
+    blocks backwards, so it sums in another order: within the bars."""
+    rng = np.random.default_rng(72)
+    q = _randn(rng, (2, 32, 700, 128), cuda, torch.bfloat16)
+    k, v = (_randn(rng, (2, 8, 700, 128), cuda, torch.bfloat16) for _ in range(2))
+    outs = {name: fa.flash_attention_fwd(q, k, v, mapping=m, causal=True)
+            for name, m in MAPPINGS.items()}
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs["head_first"], outs["block_first"]))
+    for o, lse in outs.values():
+        assert _row_err(o, o_ref) < ROW_TOL and _err(lse, lse_ref) < LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_fwd_refuses_misaligned_or_strided_inputs(cuda, dtype):
+    """Both K1 kernels read 16-byte rows (the bf16 one through TMA maps):
+    an input that starts off a 16-byte boundary, or is not contiguous,
+    raises instead of launching."""
+    dt = DTYPES[dtype]
+    shape = (1, 4, 64, 128)
+    n = int(np.prod(shape))
+    good = torch.zeros(shape, device=cuda, dtype=dt)
+    off = torch.zeros(n + 8, device=cuda, dtype=dt)[1:n + 1].view(shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    strided = good.transpose(2, 3).contiguous().transpose(2, 3)
+    kernels.reset_launch_counts()
+    for bad in (off, strided):
+        with pytest.raises(ValueError):
+            fa.flash_attention_fwd(bad, good, good)
+        with pytest.raises(ValueError):
+            fa.flash_attention_fwd(good, good[:, :2].contiguous(), bad[:, :2])
+    assert kernels.launch_counts()["flash_attention_fwd"] == 0
 
 
 # -- K5 / K6 -------------------------------------------------------------------

@@ -89,6 +89,88 @@ def test_flash_fwd_bf16_matches_jax():
     assert _diff(oj, ot) < BF16_TOL
 
 
+ROW_TOL = 2.0**-6   # per row, against the row's max |o|: one bf16 ulp is 2^-7
+LSE_TOL = 1e-5
+
+
+def _tensor_core_k1(q, k, v, *, causal, window=None, softcap=None, kv_len=None,
+                    block_n=128):
+    """The arithmetic of K1's bf16 tensor-core kernel (``fa2_fwd_tc`` in
+    csrc/flash_attention.cu), written out in float32: products of bf16
+    inputs summed in float32; scores in log2 units with scale * log2(e)
+    folded into one multiply (softcap first, in natural units); an online
+    softmax over 128-key tiles with exp2; P rounded to bf16 before P V while
+    the row sum takes P unrounded; float32 accumulation; o rounded to bf16,
+    lse = m ln 2 + log l."""
+    log2e, ln2 = 1.4426950408889634, 0.6931471805599453
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    live = skv if kv_len is None else min(skv, kv_len)
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = k.float().repeat_interleave(group, 1), v.float().repeat_interleave(group, 1)
+    scale = 1.0 / d**0.5
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((b, hq, sq), -1e30)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, d))
+    for c0 in range(0, skv, block_n):
+        s = qf @ kf[:, :, c0:c0 + block_n].transpose(-1, -2)
+        if softcap:
+            x = softcap * torch.tanh(s * scale / softcap) * log2e
+        else:
+            x = s * torch.tensor(scale * log2e, dtype=torch.float32)
+        cols = torch.arange(c0, c0 + s.shape[-1])[None, :]
+        ok = cols < live
+        if causal:
+            ok = ok & (cols <= rows)
+        if window:
+            ok = ok & (cols > rows - window)
+        x = torch.where(ok, x, torch.tensor(-1e30))
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(x - m_new[..., None]), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, c0:c0 + block_n]
+        m = m_new
+    o = (acc / torch.where(l == 0, 1.0, l)[..., None]).to(torch.bfloat16)
+    lse = torch.where(l == 0, torch.tensor(-1e30), m * ln2 + torch.log(l))
+    return o, lse
+
+
+def _row_err(j, t) -> float:
+    """Max over rows of max |t - j| / max |j| (an all-zero row of j must be
+    exactly zero in t)."""
+    ref = torch.from_numpy(np.asarray(j, np.float32))
+    diff = (t.float() - ref).abs().amax(-1)
+    den = ref.abs().amax(-1)
+    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=50, softcap=30.0),
+                                dict(causal=False, kv_len=101)],
+                         ids=["causal", "window_softcap", "noncausal_kvlen"])
+def test_tensor_core_k1_arithmetic_matches_jax(d, kw):
+    """Rounding P to bf16 before P V, the tensor-core K1's one numerical
+    departure from the JAX kernel (which keeps P in float32), stays within
+    the card's bars: o per row within 2^-6, lse within 1e-5. Hq 8 over Hkv 2,
+    S 130 (one full 128-key tile and a ragged one)."""
+    rng = np.random.default_rng(60 + d)
+    q, k, v = _normal(rng, 1, 8, 130, d), _normal(rng, 1, 2, 130, d), _normal(rng, 1, 2, 130, d)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (q, k, v))
+    oj, lj = jax_fa(qj, kj, vj, mapping=JaxMapping(block_m=256, block_n=256),
+                    interpret=True, **kw)
+    ot, lt = _tensor_core_k1(qt, kt, vt, **kw)
+    assert _row_err(oj, ot) < ROW_TOL
+    assert _diff(lj, lt) < LSE_TOL
+    if kw.get("kv_len"):            # keys past kv_len change nothing
+        ot2, _ = _tensor_core_k1(qt, kt, torch.where(torch.arange(130)[:, None] < 101, vt,
+                                                     torch.tensor(7.0, dtype=vt.dtype)), **kw)
+        assert torch.equal(ot, ot2)
+
+
 def test_ops_flash_attention_pads_and_matches_ref():
     """The ops entry point (odd lengths, plan-resolved impl) equals the
     JAX oracle."""
