@@ -20,9 +20,11 @@ and prints no result. Phases, in order (any failure exits non-zero):
      timed at the same B 2, S 2048. Then the split-K estimator's modelled
      decode times beside the measured ones, and the fixed cost per call of
      the split path over the one-pass path; then K5
-     (dQ) and K6 (dK/dV) under both launch orders, with window + softcap,
-     and at S 1000 padded to 1024 (kv_len masking), and SDPA's backward as
-     the library yardstick; then K7 / K8 (dense decode, one pass and
+     (dQ) and K6 (dK/dV) in bf16, on the tensor cores, under both launch
+     orders (bitwise equal), with window + softcap, and at S 1000 padded to
+     1024 (kv_len masking), SDPA's backward as the library yardstick; K5 /
+     K6 in float32 (the CUDA-core kernels) held per slice at 1e-5 and timed
+     at the same B 2, S 2048; then K7 / K8 (dense decode, one pass and
      split-K) at llama3-8b and hymba-1.5b widths (window 1024 and global),
      SDPA on the expanded, masked stripes as the library yardstick; then K9
      (SSD intra-chunk) at hymba-1.5b's and mamba2-1.3b's prefill shapes;
@@ -43,10 +45,11 @@ and prints no result. Phases, in order (any failure exits non-zero):
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
      compute, remat, 3 steps; K1, K5 and K6 must each launch as often as the
-     layer count predicts (every path's K1 launches on the tensor cores);
-     then the step's attention kernels held against their plain versions
-     at its shapes (B 2, S 4096) and, with its float32 LM head, timed alone
-     there (K1 with SDPA beside it), beside the step time; then one step's
+     layer count predicts (every path's K1 launches, and every K5 / K6
+     launch, on the tensor cores); then the step's attention kernels held
+     against their plain versions at its shapes (B 2, S 4096) and, with its
+     float32 LM head, timed alone there (K1 with SDPA beside it, K5 + K6
+     with SDPA's backward), beside the step time; then one step's
      gradients at 2 layers, sequence 1024, kernel path against the plain
      path.
 
@@ -82,6 +85,10 @@ LSE_TOL = 1e-5             # float32 logsumexp, |lse| ~ 8: about 10 ulp
 # K1 in float32 (CUDA cores) against its plain version: both sum float32
 # products, in another order (the card tests' bar).
 F32_TOL = 2e-5
+# K5 / K6 in float32 (CUDA cores) against the plain backward, per (b, head)
+# slice of each gradient: float32 sums in another order differ by ~1e-6 of a
+# slice's max (the card tests' bar).
+GRAD_F32_TOL = 1e-5
 # K9 (float32 in and out) against its plain version, per (b, chunk, head)
 # slice: max |y - ref| over max |ref|. Both sum float32 FMAs over at most
 # q + N terms in another order (about 1e-6 relative); a dropped or
@@ -95,10 +102,12 @@ LOGIT_TOL = 5e-2
 # plain path's (same weights and batch, bf16 compute). The loss agrees as
 # the logits do; each gradient leaf is held by its relative norm.
 TRAIN_LOSS_TOL = 1e-2
-# Read 3.3e-3 at most (median 1.7e-3) at 2 layers, seq 1024 on an NVIDIA
+# Read 5.4e-3 at most (median 2.2e-3) at 2 layers, seq 1024 on an NVIDIA
 # H100 80GB HBM3 at 700 W: bf16 attention outputs that round differently in
-# the two paths, carried through the backward pass. 1e-2 keeps 3x headroom;
-# each kernel is also held per slice in phase 3.
+# the two paths, and the tensor-core backward's P and dS rounded to bf16
+# before their products, carried through the backward pass (3.3e-3 at most
+# with the float32 CUDA-core backward). 1e-2 keeps ~2x headroom; each
+# kernel is also held per slice in phase 3.
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
 REPS = 20                  # timed runs per case; the median is reported
@@ -119,13 +128,14 @@ KERNELS = {
                source="src/repro_torch/csrc/paged_decode.cu",
                replaces="src/repro/kernels/paged_decode_attention.py:323",
                counter="paged_flash_decode_split"),
-    "K5": dict(name="K5 flash_attention_bwd_dq", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+    "K5": dict(name="K5 flash_attention_bwd_dq (bf16, tensor cores)",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention_bwd.py:228",
-               counter="flash_attention_bwd_dq"),
-    "K6": dict(name="K6 flash_attention_bwd_dkv",
+               counter="flash_attention_bwd_dq_tc"),
+    "K6": dict(name="K6 flash_attention_bwd_dkv (bf16, tensor cores)",
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention_bwd.py:279",
-               counter="flash_attention_bwd_dkv"),
+               counter="flash_attention_bwd_dkv_tc"),
     "K7": dict(name="K7 flash_decode", source="src/repro_torch/csrc/dense_decode.cu",
                replaces="src/repro/kernels/decode_attention.py:175", counter="flash_decode"),
     "K8": dict(name="K8 flash_decode_split+combine",
@@ -223,6 +233,23 @@ def check_k1_route(label, counts):
     log(f"{label}: K1 launches {total}, on the tensor cores {tc}")
     if tc != total:
         raise AssertionError(f"{label}: {total - tc} K1 launches missed the tensor-core kernel")
+
+
+def bwd_launches(before, after):
+    """K5 and K6 launches between two reads of the counters: (all, on the
+    tensor cores) for each."""
+    return {key: (after[f"flash_attention_bwd_{key}"] - before[f"flash_attention_bwd_{key}"],
+                  after[f"flash_attention_bwd_{key}_tc"] - before[f"flash_attention_bwd_{key}_tc"])
+            for key in ("dq", "dkv")}
+
+
+def check_bwd_route(label, launched, tensor_cores=True):
+    """K5 and K6 launched, each on the tensor cores (bf16) or each on the
+    CUDA cores (float32)."""
+    log(f"{label}: K5 / K6 launches (all, on the tensor cores) {launched}")
+    for key, (total, tc) in launched.items():
+        if total <= 0 or tc != (total if tensor_cores else 0):
+            raise AssertionError(f"{label}: {key} launches {total}, {tc} on the tensor cores")
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -424,10 +451,13 @@ def check_kernels(torch, timer, results):
 
 
 def check_backward(torch, timer, results):
-    """K5 and K6 against the plain backward, per (b, head) slice of each
-    gradient: max |g - ref| / max |ref| within ROW_TOL (both round float32
-    sums to bf16 once; only the order of the sums differs)."""
+    """K5 and K6 (bf16, the tensor-core kernels) against the plain backward,
+    per (b, head) slice of each gradient: max |g - ref| / max |ref| within
+    ROW_TOL (both round float32 sums to bf16 once; the kernels also round P
+    and dS to bf16 before their products, and sum in another order). Then
+    the float32 CUDA-core kernels, per slice within GRAD_F32_TOL."""
     import torch.nn.functional as F
+    from repro_torch import kernels
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
@@ -453,18 +483,21 @@ def check_backward(torch, timer, results):
         dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, mapping=mapping, **kw)
         return (dq, dk, dv), delta
 
-    def check(label, args, kw, mapping):
+    def check(label, args, kw, mapping, tol=ROW_TOL):
+        before = kernels.launch_counts()
         got, delta = run(args, kw, mapping)
+        check_bwd_route(f"K5/K6 {label}", bwd_launches(before, kernels.launch_counts()),
+                        tensor_cores=args[0].dtype == torch.bfloat16)
         ref = fb.flash_attention_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
         rel = [slice_err(g, r) for g, r in zip(got, ref)]
         ab = [err(g, r) for g, r in zip(got, ref)]
         log(f"K5/K6 {label}: per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} "
-            f"dv {rel[2]:.3e} (tol {ROW_TOL:.3e}); max abs {ab[0]:.3e} {ab[1]:.3e} "
+            f"dv {rel[2]:.3e} (tol {tol:.3e}); max abs {ab[0]:.3e} {ab[1]:.3e} "
             f"{ab[2]:.3e}")
-        if max(rel) > ROW_TOL:
+        if max(rel) > tol:
             raise AssertionError(f"K5/K6 {label} disagree with the plain backward")
-        return ab, delta
+        return ab, delta, got
 
     # B 2, S 2048, causal: the K1 case, under both orders.
     b, s = 2, 2048
@@ -472,17 +505,23 @@ def check_backward(torch, timer, results):
     q, k, v, o, lse, do = args
     rows = torch.arange(s)
     pairs = b * HQ * int((rows + 1).sum())
-    main = {}
+    main, grads = {}, {}
     for name, order in (("head_first", fa.HEAD_FIRST), ("block_first", fa.BLOCK_FIRST)):
         mapping = fa.MappingConfig(order=order)
-        ab, delta = check(f"B {b} S {s} causal {name}", args, kw, mapping)
+        ab, delta, grads[name] = check(f"B {b} S {s} causal {name}", args, kw, mapping)
         ms_dq = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                                            mapping=mapping, **kw))
         ms_dkv = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                              mapping=mapping, **kw))
-        log(f"K5 {name} {ms_dq:.3f} ms, K6 {name} {ms_dkv:.3f} ms")
+        log(f"K5 {name} {ms_dq:.4f} ms, K6 {name} {ms_dkv:.4f} ms, pair "
+            f"{ms_dq + ms_dkv:.4f} ms")
         if not main:
             main = dict(ab=ab, dq=ms_dq, dkv=ms_dkv, delta=delta)
+    same = all(torch.equal(x, y) for x, y in zip(grads["head_first"], grads["block_first"]))
+    log(f"K5/K6 head-first and block-first bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K5/K6's launch order changed their gradients")
+    del grads
     delta = main["delta"]
     plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(*args, **kw))
     # SDPA's backward on the same shapes: one number beside K5 + K6, with
@@ -498,10 +537,10 @@ def check_backward(torch, timer, results):
     k5_bound = bound(dq_bytes, 6.0 * D * pairs)       # S, dP, dQ: 3 products
     k6_bound = bound(dkv_bytes, 8.0 * D * pairs)      # S, dP, dV, dK: 4 products
     pair_bound = bound(dq_bytes + nbytes(k, v), 10.0 * D * pairs)  # 5 distinct products
-    log(f"K5 {main['dq']:.3f} ms bound {k5_bound[0]:.4f} ({k5_bound[1]}); K6 "
-        f"{main['dkv']:.3f} ms bound {k6_bound[0]:.4f} ({k6_bound[1]}); pair "
-        f"{main['dq'] + main['dkv']:.3f} ms, least work {pair_bound[0]:.4f} ms; plain "
-        f"{plain_ms:.3f} ms; library sdpa backward {lib_ms:.3f} ms")
+    log(f"K5 {main['dq']:.4f} ms bound {k5_bound[0]:.4f} ({k5_bound[1]}); K6 "
+        f"{main['dkv']:.4f} ms bound {k6_bound[0]:.4f} ({k6_bound[1]}); pair "
+        f"{main['dq'] + main['dkv']:.4f} ms, least work {pair_bound[0]:.4f} ms; plain "
+        f"{plain_ms:.3f} ms; library sdpa backward {lib_ms:.4f} ms")
     results["K5"] = dict(max_abs_err=main["ab"][0], ms=main["dq"], plain_ms=plain_ms,
                          bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=lib_ms)
     results["K6"] = dict(max_abs_err=max(main["ab"][1:]), ms=main["dkv"], plain_ms=plain_ms,
@@ -512,6 +551,37 @@ def check_backward(torch, timer, results):
     del args
     args, kw = inputs(b, 1000, pad_to=1024, causal=True)
     check("S 1000 padded to 1024 (kv_len 1000)", args, kw, fa.MappingConfig())
+    del args
+
+    # float32 stays on the CUDA cores: held per slice at GRAD_F32_TOL (both
+    # sum float32), then timed at the bf16 case's shape against the float32
+    # peak, with the plain version and SDPA's float32 backward beside it.
+    def randn32(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v, do = randn32(1, HQ, 300, D), randn32(1, HKV, 300, D), randn32(1, HKV, 300, D), \
+        randn32(1, HQ, 300, D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    check("float32 (CUDA cores) Hq 32, Hkv 8, S 300 causal", (q, k, v, o, lse, do),
+          dict(causal=True), fa.MappingConfig(), tol=GRAD_F32_TOL)
+    q, k, v, do = randn32(b, HQ, s, D), randn32(b, HKV, s, D), randn32(b, HKV, s, D), \
+        randn32(b, HQ, s, D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do * o).sum(-1)
+    ms_dq = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True))
+    ms_dkv = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+    plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True))
+    leaves = [t.detach().requires_grad_(True)
+              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    del leaves, out
+    f5 = bound(nbytes(q, k, v, do, lse, delta, q), 6.0 * D * pairs, PEAK_F32_FLOPS)
+    f6 = bound(nbytes(q, k, v, do, lse, delta, k, v), 8.0 * D * pairs, PEAK_F32_FLOPS)
+    log(f"K5/K6 float32 (CUDA cores) B {b} S {s} causal: K5 {ms_dq:.3f} ms bound "
+        f"{f5[0]:.4f} ({f5[1]}, float32 peak), K6 {ms_dkv:.3f} ms bound {f6[0]:.4f} "
+        f"({f6[1]}, float32 peak); plain {plain_ms:.3f} ms; library sdpa backward "
+        f"(float32) {lib_ms:.3f} ms")
 
 
 def check_dense_decode(torch, timer, results):
@@ -896,8 +966,8 @@ def train(torch, cfg_full, seed=0):
             f"{tokens / rec['step_time_s']:.0f} tok/s (host clock, synced); launches "
             f"{json.dumps(step_counts)}")
         want = {KERNELS["K1"]["counter"]: 2 * TRAIN_LAYERS * TRAIN_MICRO,
-                "flash_attention_bwd_dq": TRAIN_LAYERS * TRAIN_MICRO,
-                "flash_attention_bwd_dkv": TRAIN_LAYERS * TRAIN_MICRO}
+                KERNELS["K5"]["counter"]: TRAIN_LAYERS * TRAIN_MICRO,
+                KERNELS["K6"]["counter"]: TRAIN_LAYERS * TRAIN_MICRO}
         if step_counts != want:
             raise AssertionError(f"train launches {step_counts}, expected {want} "
                                  "(remat: K1 twice per layer per microbatch)")
@@ -909,6 +979,7 @@ def train(torch, cfg_full, seed=0):
     if trainer.retries or trainer.step != TRAIN_STEPS:
         raise AssertionError(f"trainer made {trainer.retries} retries")
     check_k1_route("train", counts)
+    check_bwd_route("train", bwd_launches({key: 0 for key in counts}, counts))
     step_s = trainer.history[-1]["step_time_s"]
     del trainer, state
     gc.collect()
@@ -948,7 +1019,8 @@ def train_breakdown(torch, cfg, step_s):
     against its plain version on the same inputs (K1 per row, K5 / K6 per
     (b, head) slice, ROW_TOL); then each timed alone (CUDA-event medians, L2
     flushed) beside the float32 LM head, times its count per step, against
-    the measured step time: a breakdown by parts, not a profile. These
+    the measured step time: a breakdown by parts, not a profile. SDPA's
+    forward and backward are timed beside K1 and K5 + K6. These
     launches come after the train run's counts were read."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
@@ -992,7 +1064,12 @@ def train_breakdown(torch, cfg, step_s):
     k1_bound = k1_bound_of(q, k, v, o, lse, causal=True)
     t_k5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
     t_k6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    del q, k, v, do, o, lse, delta
+    group = HQ // HKV
+    leaves = [t.detach().requires_grad_(True)
+              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+    t_sdpa_bwd = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    del leaves, out, q, k, v, do, o, lse, delta
     x = randn(b * s, cfg.d_model, dtype=torch.float32)
     head = randn(cfg.d_model, cfg.vocab, dtype=torch.float32)
     g = randn(b * s, cfg.vocab, dtype=torch.float32)
@@ -1003,8 +1080,9 @@ def train_breakdown(torch, cfg, step_s):
     head_ms = TRAIN_MICRO * t_head
     k1_ms = TRAIN_MICRO * TRAIN_LAYERS * 2 * t_k1
     log(f"train step parts at B {b} S {s} per microbatch: K1 {t_k1:.4f} ms (library sdpa "
-        f"{t_sdpa:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.3f} ms, K6 "
-        f"{t_k6:.3f} ms, float32 LM head (3 products) {t_head:.3f} ms; per step: attention "
+        f"{t_sdpa:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.4f} ms, K6 "
+        f"{t_k6:.4f} ms (pair {t_k5 + t_k6:.4f} ms, library sdpa backward {t_sdpa_bwd:.4f} "
+        f"ms), float32 LM head (3 products) {t_head:.3f} ms; per step: attention "
         f"kernels {attn:.1f} ms ({attn / (step_s * 1e3):.1%} of the {step_s * 1e3:.1f} ms "
         f"step; K1 x 2 {k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}), LM head "
         f"{head_ms:.1f} ms ({head_ms / (step_s * 1e3):.1%})")

@@ -53,6 +53,38 @@ __device__ __forceinline__ float apply_softcap(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
+// blockIdx.x -> (b, h, tile) for a grid of B x H x n tiles under the
+// MappingConfig order: head-first (order 0) makes the n tiles of one head
+// consecutive, so blocks running at the same time share that head's
+// operands in L2; block-first (order 1) cycles the heads fastest.
+__device__ __forceinline__ void decode_block(int n, int H, int order, int& b, int& h,
+                                             int& tile) {
+  const int per_b = H * n;
+  b = blockIdx.x / per_b;
+  const int r = blockIdx.x - b * per_b;
+  if (order == 0) {
+    h = r / n;
+    tile = r - h * n;
+  } else {
+    tile = r / H;
+    h = r - tile * H;
+  }
+}
+
+// The KV tiles [n_lo, n_hi) of width bn that query rows [q0, q0 + bm) can
+// see: none at or past `live`, causal keys up to the last row, window keys
+// past the first row's edge.
+__device__ __forceinline__ void kv_tile_range(int q0, int bm, int bn, int live, int causal,
+                                              int window, int& n_lo, int& n_hi) {
+  n_hi = (live + bn - 1) / bn;
+  if (causal) n_hi = min(n_hi, (q0 + bm + bn - 1) / bn);
+  n_lo = 0;
+  if (window > 0) {
+    const int edge = q0 - window + 1;
+    n_lo = edge > 0 ? edge / bn : 0;
+  }
+}
+
 // Sets the dynamic shared-memory limit of a kernel before its launch.
 template <typename Kernel>
 __host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -53,33 +53,6 @@ namespace {
 
 using namespace rt;
 
-// blockIdx.x -> (b, h, q block) under the launch order (module comment).
-__device__ __forceinline__ void decode_block(int nm, int Hq, int order, int& b, int& h,
-                                             int& mb) {
-  const int per_b = Hq * nm;
-  b = blockIdx.x / per_b;
-  const int r = blockIdx.x - b * per_b;
-  if (order == 0) {  // head-first: q blocks of one head are consecutive
-    h = r / nm;
-    mb = r - h * nm;
-  } else {           // block-first: heads cycle fastest
-    mb = r / Hq;
-    h = r - mb * Hq;
-  }
-}
-
-// The KV tiles [n_lo, n_hi) of width bn that rows [q0, q0 + bm) can see.
-__device__ __forceinline__ void kv_tile_range(int q0, int bm, int bn, int live, int causal,
-                                              int window, int& n_lo, int& n_hi) {
-  n_hi = (live + bn - 1) / bn;
-  if (causal) n_hi = min(n_hi, (q0 + bm + bn - 1) / bn);
-  n_lo = 0;
-  if (window > 0) {
-    const int edge = q0 - window + 1;
-    n_lo = edge > 0 ? edge / bn : 0;
-  }
-}
-
 // -- float32 on the CUDA cores -------------------------------------------------
 
 template <int D>
@@ -178,15 +151,6 @@ constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, warpgroup 2 loads
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// 2^x on the special-function unit: ex2.approx.ftz (about 2 ulp, subnormal
-// results flushed to 0), what exp2f becomes under --use_fast_math. It holds
-// lse to 1e-5 and saves the range handling of the accurate exp2f.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Dynamic shared memory, in bytes from a 1024-byte aligned base: Q, then
 // the K and V stages, each a tile of D / 64 swizzled column chunks.
@@ -372,21 +336,17 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const size_t plane = (size_t)b * Hq + h;
     const int tile_row = row0 - row_lo;   // 0 .. 63, plus 8 for r = 1
     uint8_t* otile = smem + L::Q + wg * 64 * 128;
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      const int rr = tile_row + 8 * r;
-      const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(otile + (j / 8) * BM * 128 + rr * 128 +
-                                           (((j % 8) ^ (rr % 8)) * 16) + 4 * (lane & 3)) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
       const int row = row0 + 8 * r;
       if ((lane & 3) == 0 && row < Sq)
         lse[plane * Sq + row] = l[r] == 0.f ? NEG_INF_F : m[r] * LN2 + logf(l[r]);
     }
+    stage_tile_bf16<D>(otile, BM * 128, acc, inv, tile_row, lane);
     fence_async_smem();
     named_barrier_sync(1 + wg, 128);
     if ((threadIdx.x & 127) == 0) {

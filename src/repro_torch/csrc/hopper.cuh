@@ -216,6 +216,20 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 16, bf16, K-major, shared) . B (16 x 64,
+// bf16, K-major, shared). scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RT_D32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x N, f32) += A (64 x 16, bf16, four registers a thread) . B (16 x N,
 // bf16, MN-major in shared memory: the transpose bit is set).
 __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t (&a)[4],
@@ -263,6 +277,36 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit: ex2.approx.ftz (about 2 ulp, subnormal
+// results flushed to 0, 2^-inf = 0), what exp2f becomes under
+// --use_fast_math.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This thread's part of a warpgroup's 64 x D float32 accumulator (rows
+// tile_row and tile_row + 8 of the warpgroup's 64, scaled by mul[0] and
+// mul[1]) rounded to bf16 into a 128-byte-swizzled tile at `tile` (the
+// warpgroup's first row, column chunks `chunk` bytes apart): the layout a
+// TMA store reads.
+template <int D>
+__device__ __forceinline__ void stage_tile_bf16(uint8_t* tile, int chunk,
+                                                const float (&acc)[D / 2],
+                                                const float (&mul)[2], int tile_row,
+                                                int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = tile_row + 8 * r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(tile + (j / 8) * chunk + rr * 128 +
+                                         (((j % 8) ^ (rr % 8)) * 16) + 4 * (lane & 3)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul[r], acc[4 * j + 2 * r + 1] * mul[r]);
+  }
 }
 
 }  // namespace hopper

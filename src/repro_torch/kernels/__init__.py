@@ -2,7 +2,8 @@
 
 K1 ``flash_attention.flash_attention_fwd`` (``flash_attention_fwd_tc``
 counts its bf16 tensor-core launches alone), K5/K6
-``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV), K2
+``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV; the ``_tc``
+counters likewise), K2
 ``paged_prefill_attention.paged_flash_prefill``, K3/K4
 ``paged_decode_attention.paged_flash_decode`` (one-pass / split-K), K7/K8
 ``decode_attention.flash_decode`` (dense one-pass / split-K) and K9
@@ -31,6 +32,8 @@ def launch_counts() -> Dict[str, int]:
         "flash_attention_fwd_tc": flash_attention.launches_tc,
         "flash_attention_bwd_dq": flash_attention_bwd.launches["dq"],
         "flash_attention_bwd_dkv": flash_attention_bwd.launches["dkv"],
+        "flash_attention_bwd_dq_tc": flash_attention_bwd.launches["dq_tc"],
+        "flash_attention_bwd_dkv_tc": flash_attention_bwd.launches["dkv_tc"],
         "paged_flash_prefill": paged_prefill_attention.launches,
         "paged_flash_decode": paged_decode_attention.launches["one_pass"],
         "paged_flash_decode_split": paged_decode_attention.launches["split"],
@@ -43,8 +46,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.launches_tc = 0
-    flash_attention_bwd.launches["dq"] = 0
-    flash_attention_bwd.launches["dkv"] = 0
+    for key in flash_attention_bwd.launches:
+        flash_attention_bwd.launches[key] = 0
     paged_prefill_attention.launches = 0
     paged_decode_attention.launches["one_pass"] = 0
     paged_decode_attention.launches["split"] = 0

@@ -3,8 +3,11 @@ kernels and their plain version.
 
 Port of ``repro.kernels.flash_attention_bwd.flash_attention_bwd`` (the
 Pallas kernels ``_dq_kernel`` and ``_dkv_kernel``). The kernels are
-``csrc/flash_attention_bwd.cu``, each launched by its own wrapper
-(:func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`);
+``csrc/flash_attention_bwd.cu``: bf16 runs ``fa2_bwd_dq_tc`` /
+``fa2_bwd_dkv_tc`` on the tensor cores (``wgmma`` fed by TMA; P and dS
+rounded to bf16 before their products), float32 ``fa2_bwd_dq`` /
+``fa2_bwd_dkv`` on the CUDA cores in float32. Each pair is launched by its
+own wrapper (:func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`);
 :func:`flash_attention_bwd` launches both for CUDA tensors and runs
 :func:`flash_attention_bwd_plain` for CPU tensors. ``delta = rowsum(dO * O)``
 is computed here in PyTorch, outside the kernels, as the JAX package
@@ -28,13 +31,13 @@ from repro_torch.kernels.flash_attention import (
     BLOCK_FIRST,
     HEAD_FIRST,
     MappingConfig,
-    _DTYPES,
     _check_inputs,
 )
 from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap
 
-#: Launches of each CUDA kernel since the last reset.
-launches = {"dq": 0, "dkv": 0}
+#: Launches of K5 ("dq") and K6 ("dkv") since the last reset, either dtype;
+#: "dq_tc" / "dkv_tc" count those of the bf16 tensor-core kernels alone.
+launches = {"dq": 0, "dkv": 0, "dq_tc": 0, "dkv_tc": 0}
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=None,
@@ -80,20 +83,30 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+#: (kernel, dtype) -> the C entry point that takes it.
+_ENTRY = {("dq", torch.float32): "fa2_bwd_dq", ("dq", torch.bfloat16): "fa2_bwd_dq_tc",
+          ("dkv", torch.float32): "fa2_bwd_dkv", ("dkv", torch.bfloat16): "fa2_bwd_dkv_tc"}
 _fns = {}
 
 
-def _kernel(name: str):
+def _kernel(which: str, dtype):
+    name = _ENTRY[which, dtype]
     if name not in _fns:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        outs = [P] if name == "fa2_bwd_dq" else [P, P]
+        outs = [P] if which == "dq" else [P, P]
         _fns[name] = build.bind("flash_attention_bwd", name,
-                                [P] * 6 + outs + [I] * 7 + [F, I, I, F, I, I, P])
+                                [P] * 6 + outs + [I] * 7 + [F, I, I, F, I, P])
     return _fns[name]
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta, mapping):
     _check_inputs(q, k, v)
+    # Both routes read rows 16 bytes at a time, and TMA needs 16-byte
+    # aligned tensors; a tensor map has no empty dimension.
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("q, k, v and do must start at 16-byte aligned addresses")
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError("the FA2 backward takes at least one query and one key")
     b, hq, sq, _ = q.shape
     for name, t, dtype, shape in (("do", do, q.dtype, q.shape),
                                   ("lse", lse, torch.float32, (b, hq, sq)),
@@ -112,7 +125,13 @@ def _args(q, k, mapping, causal, window, softcap, scale, kv_len):
     return (b, hq, hkv, sq, skv, skv if kv_len is None else int(kv_len), d,
             float(1.0 / d**0.5 if scale is None else scale), int(bool(causal)),
             int(window or 0), float(softcap or 0.0),
-            0 if mapping.order == HEAD_FIRST else 1, _DTYPES[q.dtype], build.stream_of(q))
+            0 if mapping.order == HEAD_FIRST else 1, build.stream_of(q))
+
+
+def _count(which: str, dtype) -> None:
+    launches[which] += 1
+    if dtype == torch.bfloat16:
+        launches[which + "_tc"] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
@@ -120,15 +139,18 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
                            window=None, softcap=None, scale=None,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """K5 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype, from the forward's
-    ``lse`` and ``delta = rowsum(dO * O)`` (both (B, Hq, Sq) float32)."""
+    ``lse`` and ``delta = rowsum(dO * O)`` (both (B, Hq, Sq) float32). bf16
+    runs on the tensor cores, float32 on the CUDA cores; inputs must be
+    contiguous and 16-byte aligned."""
     _check_bwd_inputs(q, k, v, do, lse, delta, mapping)
     build.refuse_grad("flash_attention_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)
-    launches["dq"] += 1
-    build.check(_kernel("fa2_bwd_dq")(
+    _count("dq", q.dtype)
+    build.check(_kernel("dq", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
-        *_args(q, k, mapping, causal, window, softcap, scale, kv_len)), "fa2_bwd_dq")
+        *_args(q, k, mapping, causal, window, softcap, scale, kv_len)),
+        _ENTRY["dq", q.dtype])
     return dq
 
 
@@ -142,11 +164,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     _check_bwd_inputs(q, k, v, do, lse, delta, mapping)
     build.refuse_grad("flash_attention_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launches["dkv"] += 1
-    build.check(_kernel("fa2_bwd_dkv")(
+    _count("dkv", q.dtype)
+    build.check(_kernel("dkv", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_args(q, k, mapping, causal, window, softcap, scale, kv_len)), "fa2_bwd_dkv")
+        *_args(q, k, mapping, causal, window, softcap, scale, kv_len)),
+        _ENTRY["dkv", q.dtype])
     return dk, dv
 
 

@@ -7,7 +7,9 @@ The same numpy inputs go through the JAX Pallas backward
 ``flash_attention_bwd``, which on CPU tensors runs the kernels' plain
 version. Bars are the JAX suite's backward bar, 5e-5 at float32
 (``tests/test_flash_attention.py:88``), and 3e-2 at bfloat16
-(``tests/test_flash_attention.py:61``).
+(``tests/test_flash_attention.py:61``). The bf16 tensor-core kernels'
+arithmetic, which no CPU can run, is written out in float32 and held
+against the JAX kernels too.
 """
 
 import jax
@@ -56,11 +58,16 @@ def _inputs(seed, hq, hkv, s=64, d=32, b=2):
             for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d))]
 
 
-def _jax_grads(q, k, v, do, order, dtype, flags):
-    mc = JaxMapping(order=order, block_m=32, block_n=32)
+def _jax_fwd_bwd(q, k, v, do, order, dtype, flags, block=32):
+    """The JAX forward's (o, lse) and the Pallas backward's (dq, dk, dv)."""
+    mc = JaxMapping(order=order, block_m=block, block_n=block)
     qj, kj, vj, doj = (jnp.asarray(x, dtype) for x in (q, k, v, do))
     o, lse = jax_fwd(qj, kj, vj, mapping=mc, interpret=True, **flags)
-    return jax_bwd(qj, kj, vj, o, lse, doj, mapping=mc, interpret=True, **flags)
+    return o, lse, jax_bwd(qj, kj, vj, o, lse, doj, mapping=mc, interpret=True, **flags)
+
+
+def _jax_grads(q, k, v, do, order, dtype, flags):
+    return _jax_fwd_bwd(q, k, v, do, order, dtype, flags)[2]
 
 
 def _graph_names(fn, seen=None):
@@ -110,6 +117,115 @@ def test_bwd_matches_jax_pallas_bf16():
     for name, w, g in zip(("dq", "dk", "dv"), want, got):
         assert g.dtype == torch.bfloat16, name
         assert _diff(w, g) < BF16_TOL, name
+
+
+SLICE_TOL = 2.0**-6   # per (b, head) slice, against its max |g|: one bf16 ulp is 2^-7
+
+
+def _tensor_core_bwd(q, k, v, o, lse, do, *, causal, window=None, softcap=None,
+                     kv_len=None, tile=64, round_out=True):
+    """The arithmetic of the bf16 tensor-core K5 / K6 (``fa2_bwd_dq_tc`` /
+    ``fa2_bwd_dkv_tc`` in csrc/flash_attention_bwd.cu), written out in
+    float32: products of bf16 inputs summed in float32; p recomputed as
+    2^(s scale log2(e) - lse log2(e)) (with a softcap 2^(cap tanh(s scale /
+    cap) log2(e) - lse log2(e))), 0 where masked or the row is fully masked;
+    dS = P (dP - delta) from P unrounded, times 1 - tanh^2 with a softcap;
+    P and dS rounded to bf16 before dS K, P^T dO and dS^T Q; dQ summed over
+    64-key tiles, dK / dV over each q head's 64-row q tiles and the GQA
+    group, in float32; each output rounded to bf16 once (dQ and dK after
+    the scale), or left in float32 with ``round_out=False``."""
+    log2e = 1.4426950408889634
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    live = skv if kv_len is None else min(skv, kv_len)
+    scale = 1.0 / d**0.5
+    qf, dof = q.float(), do.float()
+    kf, vf = k.float().repeat_interleave(group, 1), v.float().repeat_interleave(group, 1)
+    delta = (dof * o.float()).sum(-1)
+    s = qf @ kf.transpose(-1, -2)
+    dp = dof @ vf.transpose(-1, -2)
+    nl = torch.where(lse > -1e30 / 2, -lse * log2e, torch.tensor(-float("inf")))[..., None]
+    if softcap:
+        th = torch.tanh(s * torch.tensor(scale / softcap, dtype=torch.float32))
+        p = torch.exp2(softcap * th * log2e + nl)
+        factor = 1.0 - th * th
+    else:
+        p = torch.exp2(s * torch.tensor(scale * log2e, dtype=torch.float32) + nl)
+        factor = 1.0
+    rows, cols = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    ok = cols < live
+    if causal:
+        ok = ok & (cols <= rows)
+    if window:
+        ok = ok & (cols > rows - window)
+    p = torch.where(ok, p, torch.tensor(0.0))
+    ds = p * factor * (dp - delta[..., None])
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = torch.zeros_like(qf)
+    for c0 in range(0, skv, tile):
+        dq += dsb[..., c0:c0 + tile] @ kf[:, :, c0:c0 + tile]
+    pg, dsg = (x.reshape(b, hkv, group, sq, skv) for x in (pb, dsb))
+    qg, dog = (x.reshape(b, hkv, group, sq, d) for x in (qf, dof))
+    dk = torch.zeros((b, hkv, skv, d))
+    dv = torch.zeros((b, hkv, skv, d))
+    for g in range(group):
+        for m0 in range(0, sq, tile):
+            rows_ = slice(m0, m0 + tile)
+            dv += pg[:, :, g, rows_].transpose(-1, -2) @ dog[:, :, g, rows_]
+            dk += dsg[:, :, g, rows_].transpose(-1, -2) @ qg[:, :, g, rows_]
+    out = (scale * dq, scale * dk, dv)
+    return tuple(x.to(torch.bfloat16) for x in out) if round_out else out
+
+
+def _slice_err(j, t) -> float:
+    """Max over (b, head) slices of max |t - j| / max |j| (an all-zero slice
+    of j must be exactly zero in t)."""
+    ref = torch.from_numpy(np.array(j, np.float32))
+    diff = (t.float() - ref).abs().flatten(2).amax(-1)
+    den = ref.abs().flatten(2).amax(-1)
+    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=50, softcap=30.0),
+                                dict(causal=False, kv_len=101)],
+                         ids=["causal", "window_softcap", "noncausal_kvlen"])
+def test_tensor_core_k5_k6_arithmetic_matches_jax(d, kw):
+    """Rounding P and dS to bf16 before their products, the tensor-core
+    K5 / K6's one numerical departure from the JAX kernels (which keep both
+    in float32), against the JAX Pallas backward. Hq 8 over Hkv 2, S 130
+    (two full 64-row tiles and a ragged one).
+
+    * In bf16, as in training (the JAX forward's bf16 o and its lse, every
+      output rounded to bf16 once): each (b, head) slice within 2^-6 of its
+      max, the card's bar.
+    * On the same bf16 values held in float32 (the JAX kernels' outputs and
+      the written-out arithmetic before its final rounding): within the JAX
+      suite's 3e-2 absolute bar. It is taken before the rounding that both
+      sides share because one bf16 ulp of a gradient of 8 or more is
+      0.0625: here dv reaches 9.4, and a difference of one rounding step
+      there is not the departure under test.
+    """
+    q, k, v, do = _inputs(80 + d, 8, 2, s=130, d=d, b=1)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
+    for dtype, round_out in ((jnp.bfloat16, True), (jnp.float32, False)):
+        vals = [x.float().numpy() for x in bf]
+        o, lse, want = _jax_fwd_bwd(*vals, J_HEAD_FIRST, dtype, kw, block=256)
+        ot = torch.from_numpy(np.array(o, np.float32))
+        lt = torch.from_numpy(np.array(lse, np.float32))
+        if round_out:
+            ot = ot.to(torch.bfloat16)
+        got = _tensor_core_bwd(bf[0], bf[1], bf[2], ot, lt, bf[3], round_out=round_out, **kw)
+        for name, w, g in zip(("dq", "dk", "dv"), want, got):
+            assert g.shape == w.shape, name
+            assert _slice_err(w, g) < SLICE_TOL, (name, dtype)
+            if not round_out:
+                assert _diff(w, g) < BF16_TOL, name
+        if kw.get("kv_len"):            # keys past kv_len get no gradient
+            assert float(got[1][:, :, 101:].abs().max()) == 0.0
+            assert float(got[2][:, :, 101:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("flags", sorted(FLAGS))

@@ -264,6 +264,13 @@ def _bwd_case(rng, dev, dt, hq, hkv, sq, skv, d, **kw):
     return q, k, v, o.contiguous(), lse.contiguous(), do
 
 
+def _bwd_routes(counts, dt) -> bool:
+    """One K5 and one K6 launch, on the tensor cores exactly when bf16."""
+    tc = int(dt == torch.bfloat16)
+    return (counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 1
+            and counts["flash_attention_bwd_dq_tc"] == counts["flash_attention_bwd_dkv_tc"] == tc)
+
+
 @pytest.mark.parametrize("order", [fa.HEAD_FIRST, fa.BLOCK_FIRST])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("d", [64, 128])
@@ -274,33 +281,87 @@ def _bwd_case(rng, dev, dt, hq, hkv, sq, skv, d, **kw):
     ((4, 1, 130, 170), dict(causal=False, kv_len=150)),
 ], ids=["gqa_causal", "gqa_window_softcap_odd", "mha_odd", "mqa_noncausal_kvlen"])
 def test_flash_bwd_matches_plain(cuda, order, dtype, d, shape, kw):
+    """bf16 runs the tensor-core K5 / K6 (their counters move), float32 the
+    CUDA-core ones (theirs do not)."""
     dt = DTYPES[dtype]
     args = _bwd_case(np.random.default_rng(50), cuda, dt, *shape, d, **kw)
+    kernels.reset_launch_counts()
     got = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=order), **kw)
+    counts = kernels.launch_counts()
     want = fb.flash_attention_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
+    assert _bwd_routes(counts, dt), counts
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dt and g.shape == w.shape, name
         assert _slice_err(g, w) <= GRAD_TOL[dt], name
 
 
-def test_flash_bwd_fully_masked_rows(cuda):
-    """kv_len 0 masks every row; a window past a row's keys masks none."""
-    q, k, v, o, lse, do = _bwd_case(np.random.default_rng(51), cuda, torch.float32,
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bwd_fully_masked_rows(cuda, dtype):
+    """kv_len 0 masks every row (lse -1e30): every gradient exactly 0, no NaN."""
+    dt = DTYPES[dtype]
+    q, k, v, o, lse, do = _bwd_case(np.random.default_rng(51), cuda, dt,
                                     4, 2, 64, 64, 64, causal=False, kv_len=0)
+    kernels.reset_launch_counts()
     dq, dk, dv = fb.flash_attention_bwd(q, k, v, o, lse, do, causal=False, kv_len=0)
     torch.cuda.synchronize()
+    assert _bwd_routes(kernels.launch_counts(), dt)
     assert float(dq.abs().max()) == float(dk.abs().max()) == float(dv.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_bwd_hymba_group_of_five(cuda, window):
+    """hymba-1.5b's head layout on the tensor-core K5 / K6: Hq 25 over Hkv 5
+    (K6 sums a GQA group of 5), D 64, with and without a window."""
+    kw = dict(causal=True, window=window)
+    args = _bwd_case(np.random.default_rng(57), cuda, torch.bfloat16, 25, 5, 300, 300, 64, **kw)
+    kernels.reset_launch_counts()
+    got = fb.flash_attention_bwd(*args, **kw)
+    counts = kernels.launch_counts()
+    want = fb.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bwd_routes(counts, torch.bfloat16), counts
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _slice_err(g, w) <= ROW_TOL, name
+
+
 def test_flash_bwd_orders_agree_exactly(cuda):
-    """An order changes which blocks run together, never a block's sums."""
+    """An order changes which blocks run together, never a block's sums:
+    the tensor-core K5 / K6 give the same bits under both."""
     args = _bwd_case(np.random.default_rng(52), cuda, torch.bfloat16, 8, 2, 256, 256, 128,
                      causal=True)
+    kernels.reset_launch_counts()
     hf = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=fa.HEAD_FIRST))
     bf = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=fa.BLOCK_FIRST))
     torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd_dq_tc"] == counts["flash_attention_bwd_dkv_tc"] == 2
     assert all(torch.equal(a, b) for a, b in zip(hf, bf))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_bwd_refuses_misaligned_or_strided_inputs(cuda, dtype):
+    """K5 / K6 read 16-byte rows (bf16 through TMA maps): an input that
+    starts off a 16-byte boundary, or is not contiguous, raises instead of
+    launching."""
+    dt = DTYPES[dtype]
+    shape = (1, 4, 64, 128)
+    n = int(np.prod(shape))
+    good = torch.zeros(shape, device=cuda, dtype=dt)
+    off = torch.zeros(n + 8, device=cuda, dtype=dt)[1:n + 1].view(shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    strided = good.transpose(2, 3).contiguous().transpose(2, 3)
+    stats = torch.zeros((1, 4, 64), device=cuda)
+    kv = good[:, :2].contiguous()
+    kernels.reset_launch_counts()
+    for bad in (off, strided):
+        for args in ((bad, kv, kv, good), (good, bad[:, :2], kv, good),
+                     (good, kv, kv, bad)):
+            for fn in (fb.flash_attention_bwd_dq, fb.flash_attention_bwd_dkv):
+                with pytest.raises(ValueError):
+                    fn(*args, stats, stats)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 0
 
 
 def test_ops_flash_attention_backward_runs_k1_k5_k6(cuda):
