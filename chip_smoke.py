@@ -25,8 +25,11 @@ and prints no result. Phases, in order (any failure exits non-zero):
      1024 (kv_len masking), SDPA's backward as the library yardstick; K5 /
      K6 in float32 (the CUDA-core kernels) held per slice at 1e-5 and timed
      at the same B 2, S 2048; then K7 / K8 (dense decode, one pass and
-     split-K) at llama3-8b and hymba-1.5b widths (window 1024 and global),
-     SDPA on the expanded, masked stripes as the library yardstick; then K9
+     split-K; bf16 on the tensor cores) at llama3-8b and hymba-1.5b widths
+     (window 1024 and global) and at hymba's serve batch, one pass against
+     4 splits, SDPA on the expanded, masked stripes as the library
+     yardstick, both timed with the launch queue primed; K7 / K8 in float32
+     (the CUDA-core kernel) held at 2e-5 and timed; then K9
      (SSD intra-chunk) at hymba-1.5b's and mamba2-1.3b's prefill shapes;
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
@@ -38,7 +41,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
      ``LLMEngine(cfg, params)`` (``kv_layout`` resolves to dense): 8 greedy
      requests off the prompt buckets, several past the 1024 window, then one
      of 4000 tokens alone, whose decode the plan splits (K8); then
-     full-width mamba2-1.3b. Each dense run must launch its kernels and
+     full-width mamba2-1.3b. Each dense run must launch its kernels (every
+     K7 / K8 launch of the llama and hymba runs on the tensor cores) and
      hold its first-token and next-token logits to the plain path's (every
      kernel off: ``attn_impl`` and ``ssm.impl`` "plain");
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
@@ -111,6 +115,7 @@ TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
 REPS = 20                  # timed runs per case; the median is reported
+PRIME_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any wrapper's host time
 HQ, HKV, D, PS = 32, 8, 128, 16
 
 KERNELS = {
@@ -136,12 +141,14 @@ KERNELS = {
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention_bwd.py:279",
                counter="flash_attention_bwd_dkv_tc"),
-    "K7": dict(name="K7 flash_decode", source="src/repro_torch/csrc/dense_decode.cu",
-               replaces="src/repro/kernels/decode_attention.py:175", counter="flash_decode"),
-    "K8": dict(name="K8 flash_decode_split+combine",
+    "K7": dict(name="K7 flash_decode (bf16, tensor cores)",
+               source="src/repro_torch/csrc/dense_decode.cu",
+               replaces="src/repro/kernels/decode_attention.py:175",
+               counter="flash_decode_tc"),
+    "K8": dict(name="K8 flash_decode_split+combine (bf16, tensor cores)",
                source="src/repro_torch/csrc/dense_decode.cu",
                replaces="src/repro/kernels/decode_attention.py:227",
-               counter="flash_decode_split"),
+               counter="flash_decode_split_tc"),
     "K9": dict(name="K9 ssd_intra_chunk", source="src/repro_torch/csrc/ssd.cu",
                replaces="src/repro/kernels/ssd.py:83", counter="ssd_intra_chunk"),
 }
@@ -162,19 +169,25 @@ def smi_line() -> str:
 
 class Timer:
     """CUDA-event medians of REPS runs; a 64 MB write before each run
-    leaves the 50 MB L2 cold, as the serving path finds it."""
+    leaves the 50 MB L2 cold, as the serving path finds it. ``primed``
+    puts a ~1 ms spin on the card before the start event, so the host has
+    enqueued every launch of ``fn`` before the card reaches them: the
+    reading is then the card's time alone, also where the wrapper takes
+    longer on the host than its kernel on the card."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn) -> float:
+    def ms(self, fn, primed=False) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(REPS):
             self.flush.zero_()
+            if primed:
+                torch.cuda._sleep(PRIME_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -584,62 +597,99 @@ def check_backward(torch, timer, results):
         f"(float32) {lib_ms:.3f} ms")
 
 
+def check_dense_route(label, counts):
+    """Every K7/K8 launch of a bf16 path went to the tensor-core kernel."""
+    total = counts["flash_decode"] + counts["flash_decode_split"]
+    tc = counts["flash_decode_tc"] + counts["flash_decode_split_tc"]
+    log(f"{label}: K7/K8 launches {total}, on the tensor cores {tc}")
+    if tc != total:
+        raise AssertionError(f"{label}: {total - tc} K7/K8 launches missed the tensor-core "
+                             "kernel")
+
+
 def check_dense_decode(torch, timer, results):
     """K7 (one pass) and K8 (split-K + combine) against their plain version
-    on dense stripes, B 8, capacity 4096, ragged lengths with a length-0
-    row, per row within ROW_TOL: at llama3-8b widths (one pass, 4 and 7
-    splits), then at hymba-1.5b widths (Hq 25, Hkv 5, D 64) global and with
-    window 1024 (one pass and 4 splits). The bound counts what these
-    lengths need: each live key and value read once (``min(length,
-    window)`` per row), q read and o written once; the JSON line takes
-    hymba's global case, the serve path's. SDPA (q as (B, Hq, 1, D) against
-    K/V expanded to Hq and masked by length) is the library yardstick."""
+    on dense stripes, B 8, per row within ROW_TOL, every bf16 launch on the
+    tensor-core kernel: capacity 4096 with ragged lengths and a length-0
+    row at llama3-8b widths (one pass, 4 and 7 splits), then at hymba-1.5b
+    widths (Hq 25, Hkv 5, D 64) global and with window 1024 (one pass and 4
+    splits); then hymba's serve batch at the end of its decode (8 rows of
+    100-1500 + 32 tokens, the stripes cut to the 1536-row live width as the
+    backend passes them), global and window 1024, one pass against 4
+    splits. The bound counts what these lengths need: each live key and
+    value read once (``min(length, window)`` per row), q read and o written
+    once; the JSON line takes hymba's global case. SDPA (q as (B, Hq, 1, D)
+    against K/V expanded to Hq and masked by length) is the library
+    yardstick. Kernel and SDPA are timed with the launch queue primed (the
+    wrapper's host time exceeds the kernel's), and the kernel also without.
+    Then float32 K7/K8 (the CUDA-core kernel) at hymba's global case, held
+    at F32_TOL and timed against the float32 peak."""
     import torch.nn.functional as F
+    from repro_torch import kernels
     from repro_torch.kernels import decode_attention as dd
     from repro_torch.kernels import plan as plan_lib
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     b, smax = 8, 4096
     lengths = torch.tensor([4096, 0, 3001, 17, 2048, 4000, 1, 1500], dtype=torch.int32,
                            device="cuda")
-    chunk = plan_lib.decode_chunk(smax)
-    for label, hq, hkv, d, window, splits in (
-            ("llama3-8b", HQ, HKV, D, None, (1, 4, 7)),
-            ("hymba-1.5b global", 25, 5, 64, None, (1, 4)),
-            ("hymba-1.5b window 1024", 25, 5, 64, 1024, (1, 4))):
-        q, kc, vc = randn(b, hq, d), randn(b, hkv, smax, d), randn(b, hkv, smax, d)
-        live = int(torch.clamp(lengths, max=window or smax).sum())
-        dec_bound = bound(2 * hkv * live * d * 2 + 2 * nbytes(q) + nbytes(lengths),
-                          4.0 * hq * d * live)
-        group = hq // hkv
-        pos = torch.arange(smax, device="cuda")[None, :]
-        mask = pos < lengths[:, None].long()
+    serve_lens = torch.tensor([100, 300, 600, 900, 1100, 1300, 1450, 1500], dtype=torch.int32,
+                              device="cuda") + 32
+
+    def case(q, kc, vc, lens, window):
+        """SDPA on the same inputs (the library yardstick) and the bound."""
+        width, hq, d = kc.shape[2], q.shape[1], q.shape[2]
+        live = int(torch.clamp(lens, max=window or width).sum())
+        peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        dec_bound = bound(2 * kc.shape[1] * live * d * kc.element_size() + 2 * nbytes(q)
+                          + nbytes(lens), 4.0 * hq * d * live, peak)
+        pos = torch.arange(width, device="cuda")[None, :]
+        mask = pos < lens[:, None].long()
         if window:
-            mask = mask & (pos > lengths[:, None].long() - 1 - window)
+            mask = mask & (pos > lens[:, None].long() - 1 - window)
+        group = hq // kc.shape[1]
         kx, vx = kc.repeat_interleave(group, 1), vc.repeat_interleave(group, 1)
         lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kx, vx, attn_mask=mask[:, None, None, :]))
-        del kx, vx
+            q[:, :, None], kx, vx, attn_mask=mask[:, None, None, :]), primed=True)
+        return dec_bound, lib_ms
+
+    for label, hq, hkv, d, window, splits, width, lens in (
+            ("llama3-8b", HQ, HKV, D, None, (1, 4, 7), smax, lengths),
+            ("hymba-1.5b global", 25, 5, 64, None, (1, 4), smax, lengths),
+            ("hymba-1.5b window 1024", 25, 5, 64, 1024, (1, 4), smax, lengths),
+            ("hymba-1.5b serve batch global", 25, 5, 64, None, (1, 4), 1536, serve_lens),
+            ("hymba-1.5b serve batch window 1024", 25, 5, 64, 1024, (1, 4), 1536,
+             serve_lens)):
+        q, kc, vc = randn(b, hq, d), randn(b, hkv, smax, d), randn(b, hkv, smax, d)
+        kc, vc = kc[:, :, :width], vc[:, :, :width]
+        chunk = plan_lib.decode_chunk(width)
+        dec_bound, lib_ms = case(q, kc, vc, lens, window)
         for ns in splits:
             kw = dict(window=window, chunk=chunk, num_splits=ns)
-            o = dd.flash_decode(q, kc, vc, lengths, **kw)
-            o_ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+            key = "K7" if ns == 1 else "K8"
+            kernels.reset_launch_counts()
+            o = dd.flash_decode(q, kc, vc, lens, **kw)
+            check_dense_route(f"{key} {label} num_splits {ns}", kernels.launch_counts())
+            o_ref = dd.flash_decode_plain(q, kc, vc, lens, **kw)
             torch.cuda.synchronize()
             e, e_r = err(o, o_ref), row_err(o, o_ref)
-            zero_row = float(o[1].float().abs().max())
-            ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lengths, **kw))
-            plain_ms = timer.ms(lambda: dd.flash_decode_plain(q, kc, vc, lengths, **kw))
-            key = "K7" if ns == 1 else "K8"
+            zero_row = float(o[(lens == 0).nonzero()[:1, 0]].float().abs().sum())
+            same = all(torch.equal(dd.flash_decode(q, kc, vc, lens, **kw), o)
+                       for _ in range(10))
+            ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lens, **kw), primed=True)
+            event_ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lens, **kw))
+            plain_ms = timer.ms(lambda: dd.flash_decode_plain(q, kc, vc, lens, **kw))
             log(f"{key} {label} chunk {chunk} num_splits {ns}: max_err {e:.3e} (row-relative "
-                f"{e_r:.3e}, tol {ROW_TOL:.3e}), length-0 row max {zero_row}, {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms, library sdpa {lib_ms:.4f} ms, bound "
-                f"{dec_bound[0]:.4f} ms ({dec_bound[1]})")
-            if e_r > ROW_TOL or zero_row != 0.0:
+                f"{e_r:.3e}, tol {ROW_TOL:.3e}), length-0 row sum |o| {zero_row}, 10 reruns "
+                f"bitwise equal {same}, {ms:.4f} ms (queue primed; {event_ms:.4f} ms with the "
+                f"wrapper's host time), plain {plain_ms:.3f} ms, library sdpa {lib_ms:.4f} ms, "
+                f"bound {dec_bound[0]:.5f} ms ({dec_bound[1]})")
+            if e_r > ROW_TOL or zero_row != 0.0 or not same:
                 raise AssertionError(f"{key} {label} num_splits {ns} disagrees with its "
                                      "plain version")
             if label == "hymba-1.5b global" and key not in results:
@@ -647,6 +697,31 @@ def check_dense_decode(torch, timer, results):
                                     bound_ms=dec_bound[0], bound_by=dec_bound[1],
                                     library_ms=lib_ms)
         del q, kc, vc
+
+    # float32 stays on the CUDA cores: hymba's global case in float32.
+    q, kc, vc = (randn(*shape, dtype=torch.float32)
+                 for shape in ((b, 25, 64), (b, 5, smax, 64), (b, 5, smax, 64)))
+    dec_bound, lib_ms = case(q, kc, vc, lengths, None)
+    for ns in (1, 4):
+        kw = dict(chunk=plan_lib.decode_chunk(smax), num_splits=ns)
+        kernels.reset_launch_counts()
+        o = dd.flash_decode(q, kc, vc, lengths, **kw)
+        counts = kernels.launch_counts()
+        o_ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+        torch.cuda.synchronize()
+        e = err(o, o_ref)
+        on_cuda_cores = (counts["flash_decode"] + counts["flash_decode_split"] == 1
+                         and counts["flash_decode_tc"] + counts["flash_decode_split_tc"] == 0)
+        ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lengths, **kw), primed=True)
+        plain_ms = timer.ms(lambda: dd.flash_decode_plain(q, kc, vc, lengths, **kw))
+        log(f"K7/K8 float32 (CUDA cores) hymba-1.5b global num_splits {ns}: max_err {e:.3e} "
+            f"(tol {F32_TOL}), CUDA-core entry: {on_cuda_cores}, {ms:.4f} ms (queue primed), "
+            f"plain {plain_ms:.3f} ms, library sdpa (float32) {lib_ms:.4f} ms, bound "
+            f"{dec_bound[0]:.5f} ms ({dec_bound[1]}, float32 peak)")
+        if e > F32_TOL or not on_cuda_cores:
+            raise AssertionError(f"K7/K8 float32 num_splits {ns} disagrees with its plain "
+                                 "version")
+    del q, kc, vc
 
 
 def check_ssd(torch, timer, results):
@@ -860,20 +935,23 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
     rng = np.random.default_rng(seed + 7)
     prompts = {n: rng.integers(1, cfg.vocab, size=(n,)) for n in set(lens) | set(compare_lens)}
     greedy = SamplingParams(max_tokens=32)
-    batches = [("batch", list(prompt_lens))] + ([("alone", [lone_len])] if lone_len else [])
+    # Each group its own uids, as serve() does: the lone request's TTFT is
+    # then its own, not the batch's uid 0.
+    batches = [("batch", list(prompt_lens), 0)] + (
+        [("alone", [lone_len], 100)] if lone_len else [])
     kernels.reset_launch_counts()
     runs = {}
-    for label, group in batches:
+    for label, group, uid0 in batches:
         t = time.perf_counter()
-        out = engine.generate([Request(uid=i, prompt=prompts[n], sampling=greedy)
+        out = engine.generate([Request(uid=uid0 + i, prompt=prompts[n], sampling=greedy)
                                for i, n in enumerate(group)])
         torch.cuda.synchronize()
-        runs[label] = (out, time.perf_counter() - t)
+        runs[label] = (out, time.perf_counter() - t, group)
     counts = kernels.launch_counts()
     stats = engine.stats()
-    for label, (out, secs) in runs.items():
+    for label, (out, secs, group) in runs.items():
         ttft = sorted(engine.ttft[o.uid] * 1e3 for o in out)
-        log(f"serve {cfg.name} ({label}, prompts {[len(prompts[n]) for n in dict(batches)[label]]}): "
+        log(f"serve {cfg.name} ({label}, prompts {[len(prompts[n]) for n in group]}): "
             f"{len(out)} requests, {sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; "
             f"TTFT ms min {ttft[0]:.1f} max {ttft[-1]:.1f}")
         if any(len(o.tokens) != 32 for o in out):
@@ -886,6 +964,8 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
             raise AssertionError(f"{key} was not launched on the {cfg.name} dense path")
     if "K1" in want:
         check_k1_route(f"serve {cfg.name} dense", counts)
+    if "K7" in want or "K8" in want:
+        check_dense_route(f"serve {cfg.name} dense", counts)
     engine.close()
     del engine
 
@@ -1135,7 +1215,7 @@ def main() -> int:
     log("== serve llama3-8b (dense, the same weights)")
     paths = [serve_dense(torch, llama3_8b.CONFIG, params, kv_layout="dense", rows=4,
                          prompt_lens=(300, 900, 1500, 2500), compare_lens=(900,),
-                         want=("K1",))]
+                         want=("K1", "K8"))]
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: TMA tensor
-// maps, tile loads and stores, mbarriers and named barriers, wgmma
-// shared-memory descriptors and instructions, and register reallocation
-// between warpgroups.
+// maps (contiguous, and strided views), tile loads and stores, mbarriers and
+// named barriers, wgmma shared-memory descriptors and instructions, the
+// warp-level mma.sync with ldmatrix from swizzled tiles, and register
+// reallocation between warpgroups.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzling: a tile of
 // R rows by C bf16 columns is stored as C / 64 column chunks of R rows of
@@ -64,6 +65,30 @@ inline int make_map_3d(CUtensorMap* map, const void* base, int cols, int rows, i
   return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
 }
 
+// A bf16 tensor (batch, heads, rows, cols) with free head and batch strides
+// (in elements; rows contiguous, `cols` elements apart) as a 4-D map whose
+// box is 64 columns by box_rows rows of one (batch, head), 128-byte
+// swizzled: a strided view, such as a stripe cut to its live width. A box
+// past `rows` is zero-filled and never reads the next head's rows. The
+// strides must be multiples of 8 elements (16 bytes).
+inline int make_map_4d(CUtensorMap* map, const void* base, int cols, int rows, int heads,
+                       int batch, long long head_stride, long long batch_stride,
+                       int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return MAP_ENCODE_FAILED;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 2, (cuuint64_t)head_stride * 2,
+                                 (cuuint64_t)batch_stride * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
+}
+
 // -- device: mbarriers and TMA ----------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -119,6 +144,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a 4-D map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -272,8 +308,44 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
   wgmma_rs_n64_tb(d, a, db);
 }
 
+// -- device: warp-level mma ----------------------------------------------------------
+
+// Byte offset of 16-byte unit `seg` (8 bf16 columns) of row `row` in a tile
+// of `rows` rows written by TMA with 128-byte swizzling (column chunks of 64
+// bf16, each rows * 128 bytes, 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128_offset(int row, int seg, int rows) {
+  return (uint32_t)((seg >> 3) * rows * 128 + row * 128 + (((seg & 7) ^ (row & 7)) << 4));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; register i holds this lane's pair of matrix i
+// (row lane / 4, columns 2 (lane % 4) and + 1), or with .trans of its
+// transpose.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, f32) += A (16 x 16, bf16, row-major fragment) . B (16 x 8, bf16,
+// column-major fragment b0, b1) on one warp's tensor cores.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats as one register of two bf16, the first in the low half: the
-// element order of a wgmma A fragment.
+// element order of a wgmma A fragment (and of an mma.sync one).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

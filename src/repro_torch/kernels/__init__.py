@@ -6,7 +6,9 @@ counts its bf16 tensor-core launches alone), K5/K6
 counters likewise), K2
 ``paged_prefill_attention.paged_flash_prefill``, K3/K4
 ``paged_decode_attention.paged_flash_decode`` (one-pass / split-K), K7/K8
-``decode_attention.flash_decode`` (dense one-pass / split-K) and K9
+``decode_attention.flash_decode`` (dense one-pass / split-K;
+``flash_decode_tc`` and ``flash_decode_split_tc`` count the bf16
+tensor-core launches alone) and K9
 ``ssd.ssd_intra_chunk`` (the Mamba-2 SSD intra-chunk block). Each wrapper
 counts the launches of its CUDA kernel; :func:`launch_counts` reads them
 and :func:`reset_launch_counts` sets them to zero.
@@ -39,6 +41,8 @@ def launch_counts() -> Dict[str, int]:
         "paged_flash_decode_split": paged_decode_attention.launches["split"],
         "flash_decode": decode_attention.launches["one_pass"],
         "flash_decode_split": decode_attention.launches["split"],
+        "flash_decode_tc": decode_attention.launches["one_pass_tc"],
+        "flash_decode_split_tc": decode_attention.launches["split_tc"],
         "ssd_intra_chunk": ssd.launches,
     }
 
@@ -51,6 +55,6 @@ def reset_launch_counts() -> None:
     paged_prefill_attention.launches = 0
     paged_decode_attention.launches["one_pass"] = 0
     paged_decode_attention.launches["split"] = 0
-    decode_attention.launches["one_pass"] = 0
-    decode_attention.launches["split"] = 0
+    for key in decode_attention.launches:
+        decode_attention.launches[key] = 0
     ssd.launches = 0

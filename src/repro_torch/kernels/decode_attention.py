@@ -2,20 +2,29 @@
 and their plain version.
 
 Port of ``repro.kernels.decode_attention.flash_decode`` and
-``_flash_decode_split``: one new token per sequence against a dense
-per-slot stripe ``(B, Hkv, Smax, D)``. The kernels are
-``csrc/dense_decode.cu`` (one block per (b, kv head), or per (b, kv head,
+``_flash_decode_split`` (the Pallas bodies ``_decode_kernel`` and
+``_decode_split_kernel``): one new token per sequence against a dense
+per-slot stripe ``(B, Hkv, Smax, D)``. The kernels are in
+``csrc/dense_decode.cu``, one block per (b, kv head), or per (b, kv head,
 split), serving the whole GQA group from each stripe row it loads; the
-split states merge in the combine kernel K4 uses). :func:`flash_decode`
-launches them for CUDA tensors and runs :func:`flash_decode_plain` — the
-same chunk walk, relevance gate and split combine, written with
-``decode_common`` — for CPU tensors.
+split states merge in the combine kernel K4 uses. bf16 runs
+``dense_decode_tc`` / ``dense_decode_split_tc`` on the tensor cores: a
+producer thread keeps 64-row K/V tiles in flight by TMA through a 128 KB
+ring, four warps take whole tiles in turn through ``mma.sync`` and merge
+once at the end (decode is bound by memory: the ring is what lets a block
+pull its share). float32 runs ``dense_decode`` /
+``dense_decode_split`` on the CUDA cores in float32 (the tensor cores would
+round it to TF32). :func:`flash_decode` launches the one for its dtype on
+CUDA tensors and runs :func:`flash_decode_plain` — the same chunk walk,
+relevance gate and split combine, written with ``decode_common`` — for CPU
+tensors.
 
 The walk goes in chunks of ``chunk`` positions (from the plan,
 ``kernels.plan``); split ranges are chunk-granular, from
 ``cache.layout.decode_split_ranges`` as in the JAX package. The stripe may
 be a view cut to the live width (the serving backend passes one): the rows
-of one head must be contiguous, the batch and head strides are free.
+of one head must be contiguous, the batch and head strides are free (for
+bf16, multiples of 8 elements: the tensor map's 16 bytes).
 """
 
 from __future__ import annotations
@@ -29,13 +38,14 @@ from repro_torch.kernels import build, decode_common
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 32
-#: Stripe rows staged per step (DC_BT in csrc/decode_common.cuh): the block
-#: the plan's chunk rule tiles by.
+#: Stripe rows staged per step (DC_BT in csrc/decode_common.cuh, tc::BT in
+#: csrc/dense_decode.cu): the block the plan's chunk rule tiles by.
 STAGE = 64
 
 #: Launches since the last reset: one-pass (K7) and split-K (K8; each
-#: launch is the split kernel followed by its combine).
-launches = {"one_pass": 0, "split": 0}
+#: launch is the split kernel followed by its combine), of either dtype;
+#: the ``_tc`` keys count the bf16 tensor-core kernel's alone.
+launches = {"one_pass": 0, "split": 0, "one_pass_tc": 0, "split_tc": 0}
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
@@ -81,21 +91,23 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, softcap=None, scale=None
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+#: (dtype, split) -> the C entry point that takes it.
+_ENTRY = {(torch.float32, False): "dense_decode", (torch.float32, True): "dense_decode_split",
+          (torch.bfloat16, False): "dense_decode_tc",
+          (torch.bfloat16, True): "dense_decode_split_tc"}
 _fns = {}
 
 
-def _kernel(split: bool):
-    fn = _fns.get(split)
+def _kernel(dtype, split: bool):
+    fn = _fns.get((dtype, split))
     if fn is None:
         P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         if split:
-            args = [P] * 8 + [I] * 4 + [L, L] + [I] * 4 + [F, I, F, I, P]
-            fn = build.bind("dense_decode", "dense_decode_split", args)
+            args = [P] * 8 + [I] * 4 + [L, L] + [I] * 4 + [F, I, F, P]
         else:
-            args = [P] * 5 + [I] * 4 + [L, L] + [I] * 2 + [F, I, F, I, P]
-            fn = build.bind("dense_decode", "dense_decode", args)
-        _fns[split] = fn
+            args = [P] * 5 + [I] * 4 + [L, L] + [I] * 2 + [F, I, F, P]
+        fn = _fns[(dtype, split)] = build.bind("dense_decode", _ENTRY[(dtype, split)], args)
     return fn
 
 
@@ -126,7 +138,10 @@ def _check_inputs(q, k_cache, v_cache, lengths, chunk):
     if v_cache.stride() != k_cache.stride():
         raise ValueError("k_cache and v_cache must share strides")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("the caches must start 16-byte aligned (16-byte loads)")
+        raise ValueError("the caches must start 16-byte aligned (16-byte loads, tensor maps)")
+    if q.dtype == torch.bfloat16 and (k_cache.stride(0) % 8 or k_cache.stride(1) % 8):
+        raise ValueError("bf16 caches: the batch and head strides must be multiples of 8 "
+                         "elements (the tensor map's 16 bytes)")
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
@@ -136,9 +151,10 @@ def flash_decode(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
     (B, Hq, D).
 
     ``num_splits > 1`` runs split-K over :func:`decode_split_ranges` of the
-    chunks (clamped to the chunk count). CUDA tensors launch the kernels,
-    CPU tensors take the plain version; under grad mode it raises: the
-    kernels have no backward.
+    chunks (clamped to the chunk count). CUDA tensors launch the kernel of
+    their dtype (bf16 on the tensor cores, float32 on the CUDA cores), CPU
+    tensors take the plain version; under grad mode it raises: the kernels
+    have no backward.
     """
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, softcap=softcap,
@@ -155,14 +171,15 @@ def flash_decode(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
     ranges = decode_split_ranges(num_chunks, num_splits)
     out = torch.empty_like(q)
     strides = (k_cache.stride(0), k_cache.stride(1))
-    common = (float(scale), int(window or 0), float(softcap or 0.0),
-              _DTYPES[q.dtype], build.stream_of(q))
+    common = (float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q))
+    tc = q.dtype == torch.bfloat16
     if len(ranges) == 1:
         launches["one_pass"] += 1
-        status = _kernel(False)(
+        launches["one_pass_tc"] += int(tc)
+        status = _kernel(q.dtype, False)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, hq, hkv, d, *strides, chunk, num_chunks, *common)
-        build.check(status, "dense_decode")
+        build.check(status, _ENTRY[(q.dtype, False)])
         return out
     s = len(ranges)
     cps = ranges[0][1] - ranges[0][0]
@@ -171,9 +188,10 @@ def flash_decode(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
     m = torch.empty((b, hkv, s, group), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     launches["split"] += 1
-    status = _kernel(True)(
+    launches["split_tc"] += int(tc)
+    status = _kernel(q.dtype, True)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, hq, hkv, d,
         *strides, chunk, num_chunks, s, cps, *common)
-    build.check(status, "dense_decode_split")
+    build.check(status, _ENTRY[(q.dtype, True)])
     return out

@@ -178,6 +178,8 @@ class LLMEngine:
         self._next_uid = max(self._next_uid, request.uid + 1)
         self.backend.validate(request)
         self.scheduler.add(request)
+        # A uid reused after its request finished gets a TTFT of its own.
+        self.ttft.pop(request.uid, None)
         self._arrival[request.uid] = time.perf_counter()
         return request.uid
 

@@ -15,7 +15,8 @@ row's max |ref| (two roundings to bf16 differ by one ulp, at most 2^-7 of
 the row's max; a row of ref that is all zero must be exactly zero), and
 lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
-cores and is held at 2e-5.
+cores and is held at 2e-5. K7/K8 likewise: bf16 on the tensor cores (P
+rounded to bf16), float32 on the CUDA cores.
 K9 (float32 in and out) is held per (b, chunk, head) slice: max |y - ref|
 within 1e-5 of the slice's max |ref| (float32 sums of at most q + N terms
 taken in another order; a dropped key tile moves y by a large fraction of
@@ -525,19 +526,30 @@ def _dense_inputs(rng, dev, dt, hq, hkv, d, smax, b=6):
     return q, kc, vc, lengths
 
 
+def _dense_routes(counts, dtype) -> bool:
+    """Every K7/K8 launch went to the tensor-core kernel (bf16), or none did
+    (float32)."""
+    total = counts["flash_decode"] + counts["flash_decode_split"]
+    tc = counts["flash_decode_tc"] + counts["flash_decode_split_tc"]
+    return total > 0 and tc == (total if dtype == torch.bfloat16 else 0)
+
+
 @pytest.mark.parametrize("num_splits", [1, 2, 7])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("hq,hkv,d", [(25, 5, 64), (32, 8, 128), (4, 1, 64)],
-                         ids=["hymba", "llama", "mqa"])
+@pytest.mark.parametrize("hq,hkv,d", [(25, 5, 64), (32, 8, 128), (4, 1, 64), (32, 1, 128)],
+                         ids=["hymba", "llama", "mqa", "group32"])
 @pytest.mark.parametrize("window,softcap", [(None, None), (40, 30.0), (8, None)],
                          ids=["full", "window_softcap", "window_lt_chunk"])
 @pytest.mark.parametrize("smax,chunk", [(512, 64), (1000, 40)], ids=["c64", "c40"])
 def test_dense_decode_matches_plain(cuda, num_splits, dtype, hq, hkv, d, window, softcap,
                                     smax, chunk):
+    """bf16 runs on the tensor cores, float32 on the CUDA cores."""
     rng = np.random.default_rng(60)
     q, kc, vc, lengths = _dense_inputs(rng, cuda, DTYPES[dtype], hq, hkv, d, smax)
     kw = dict(window=window, softcap=softcap, chunk=chunk, num_splits=num_splits)
+    kernels.reset_launch_counts()
     o = dd.flash_decode(q, kc, vc, lengths, **kw)
+    assert _dense_routes(kernels.launch_counts(), DTYPES[dtype])
     ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
     torch.cuda.synchronize()
     assert _close(o, ref)
@@ -546,16 +558,67 @@ def test_dense_decode_matches_plain(cuda, num_splits, dtype, hq, hkv, d, window,
 
 def test_dense_decode_reads_a_width_view(cuda):
     """The serving backend passes the stripes cut to the live width: a
-    strided view gives the contiguous copy's output, one pass and split."""
+    strided view gives the contiguous copy's output, one pass and split,
+    on the tensor cores."""
     rng = np.random.default_rng(61)
     q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.bfloat16, 25, 5, 64, 1024)
     lengths = torch.clamp(lengths, max=300)
     for ns in (1, 3):
+        kernels.reset_launch_counts()
         o_view = dd.flash_decode(q, kc[:, :, :320], vc[:, :, :320], lengths, num_splits=ns)
+        assert _dense_routes(kernels.launch_counts(), torch.bfloat16)
         o_copy = dd.flash_decode(q, kc[:, :, :320].contiguous(), vc[:, :, :320].contiguous(),
                                  lengths, num_splits=ns)
         torch.cuda.synchronize()
         assert torch.equal(o_view, o_copy)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_dense_decode_ignores_rows_past_length(cuda, window):
+    """The tensor-core kernel loads whole 64-row tiles of the view, so it
+    reads the rows past each length (stale rows of an earlier request, pad
+    rows of a right-padded prefill): masking gives them P = 0 exactly, so
+    filling them with +-1e4 gives the bits of filling them with zeros."""
+    rng = np.random.default_rng(63)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.bfloat16, 25, 5, 64, 1024)
+    lengths = torch.clamp(lengths, max=300)
+    past = (torch.arange(320, device=cuda)[None, None, :, None]
+            >= lengths.long()[:, None, None, None])
+    sign = torch.from_numpy(np.sign(rng.standard_normal((6, 5, 320, 64)))).to(cuda)
+    fill = (1e4 * sign).to(torch.bfloat16)
+    for ns in (1, 3):
+        outs = []
+        for value in (torch.zeros_like(fill), fill):
+            k, v = kc.clone(), vc.clone()
+            k[:, :, :320] = torch.where(past, value, k[:, :, :320])
+            v[:, :, :320] = torch.where(past, -value, v[:, :, :320])
+            outs.append(dd.flash_decode(q, k[:, :, :320], v[:, :, :320], lengths,
+                                        window=window, num_splits=ns))
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert bool(torch.isfinite(outs[1].float()).all())
+
+
+def test_dense_decode_refuses_misaligned_or_strided_caches(cuda):
+    """The bf16 kernel's tensor maps need a 16-byte aligned start and batch
+    and head strides of whole 16 bytes (8 elements); a cache that breaks
+    either raises before launching, as does one whose rows are not
+    contiguous."""
+    rng = np.random.default_rng(64)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.bfloat16, 8, 2, 64, 128)
+    n = kc.numel()
+    flat = torch.zeros(n + 64, device=cuda, dtype=torch.bfloat16)
+    off = flat[1:n + 1].view(kc.shape)                       # starts 2 bytes off
+    assert off.data_ptr() % 16
+    odd = torch.as_strided(flat, kc.shape, (2 * 128 * 64 + 4, 128 * 64 + 2, 64, 1))
+    rows = kc.transpose(2, 3).contiguous().transpose(2, 3)    # rows not contiguous
+    kernels.reset_launch_counts()
+    for bad in (off, odd, rows):
+        with pytest.raises(ValueError):
+            dd.flash_decode(q, bad, bad, lengths)
+        with pytest.raises(ValueError):
+            dd.flash_decode(q, bad, bad, lengths, num_splits=2)
+    assert sum(kernels.launch_counts().values()) == 0
 
 
 @pytest.mark.parametrize("smax", [100, 700, 1000])
@@ -636,6 +699,7 @@ def test_new_kernels_count_and_refuse_grad(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["flash_decode"] == 1 and counts["flash_decode_split"] == 1
+    assert counts["flash_decode_tc"] == 1 and counts["flash_decode_split_tc"] == 1
     assert counts["ssd_intra_chunk"] == 1
     with pytest.raises(RuntimeError, match="flash_decode"):
         dd.flash_decode(q.requires_grad_(True), kc, vc, lengths)

@@ -3,6 +3,8 @@ package's ``repro.serving.LLMEngine(kv_layout="paged")`` on
 ``llama3_8b.SMOKE`` with the same weights: identical greedy token ids, with
 prefix sharing and with preemption under a small pool."""
 
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -122,3 +124,21 @@ def test_engine_rejects_and_releases(models):
         eng.backend.release(0)
     with pytest.raises(ValueError):
         LLMEngine(llama3_8b.SMOKE, params, num_pages=4, max_pages_per_seq=8, device="cpu")
+
+
+def test_reused_uid_gets_its_own_ttft(models):
+    """Two ``generate`` calls on one engine that reuse uid 0: the second
+    request's TTFT is measured from its own arrival, not kept from the
+    first request's."""
+    _, params = models
+    eng = LLMEngine(llama3_8b.SMOKE, params, num_pages=32, page_size=16, max_batch=2,
+                    max_pages_per_seq=4, prompt_buckets=(16, 32), device="cpu")
+    rng = np.random.default_rng(9)
+    eng.generate([Request(uid=0, prompt=rng.integers(1, 400, size=(20,)), max_new_tokens=3)])
+    first = eng.ttft[0]
+    t0 = time.perf_counter()
+    eng.generate([Request(uid=0, prompt=rng.integers(1, 400, size=(7,)), max_new_tokens=3)])
+    elapsed = time.perf_counter() - t0
+    assert eng.ttft[0] != first
+    assert 0.0 < eng.ttft[0] <= elapsed
+    eng.close()

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone.
 
 ``import repro_torch`` (every module of it) leaves JAX and the JAX package
-out of ``sys.modules``; no file of the port, nor ``chip_smoke.py``, imports
-``jax`` or ``repro``; the kernel wrappers hold no fallback route and call no
-finished attention kernel; ``chip_smoke.py`` refuses to run without a card;
-and the serving launcher runs end to end on the CPU when asked to.
+out of ``sys.modules``; no file of the port, nor ``chip_smoke.py`` or
+``tools/``, imports ``jax`` or ``repro``; the kernel wrappers hold no
+fallback route and call no finished attention kernel; ``chip_smoke.py``
+refuses to run without a card; and the serving launcher runs end to end on
+the CPU when asked to.
 """
 
 import ast
@@ -24,7 +25,8 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(tree: ast.AST):
