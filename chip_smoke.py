@@ -17,7 +17,12 @@ and prints no result. Phases, in order (any failure exits non-zero):
      tensor-core kernel: every launch order (head-first and block-first
      bitwise equal), window + softcap, hymba-1.5b's widths (timed with SDPA
      beside it); K1 in float32 (the CUDA-core kernel) held at 2e-5 and
-     timed at the same B 2, S 2048. Then the split-K estimator's modelled
+     timed at the same B 2, S 2048; K2; then K3 / K4 (paged decode, one
+     pass and split-K; bf16 on the tensor cores) at B 8 with lengths up to
+     4096 and at the paged serve run's decode shape, every launch on the
+     tensor cores, ten reruns bitwise equal, timed with the launch queue
+     primed and without, gather + SDPA beside them as a two-call
+     yardstick. Then the split-K estimator's modelled
      decode times beside the measured ones, and the fixed cost per call of
      the split path over the one-pass path; then K5
      (dQ) and K6 (dK/dV) in bf16, on the tensor cores, under both launch
@@ -34,7 +39,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
-     each; every kernel's launch count over that run must be above 0. Then
+     each; every kernel's launch count over that run must be above 0, and
+     every K3 / K4 launch on the tensor cores. Then
      one request's prefill and first-decode logits, kernel path against the
      plain path on the card; then the same weights served from dense
      stripes (``kv_layout="dense"``); then full-width hymba-1.5b through
@@ -126,13 +132,14 @@ KERNELS = {
     "K2": dict(name="K2 paged_flash_prefill", source="src/repro_torch/csrc/paged_prefill.cu",
                replaces="src/repro/kernels/paged_prefill_attention.py:277",
                counter="paged_flash_prefill"),
-    "K3": dict(name="K3 paged_flash_decode", source="src/repro_torch/csrc/paged_decode.cu",
+    "K3": dict(name="K3 paged_flash_decode (bf16, tensor cores)",
+               source="src/repro_torch/csrc/paged_decode.cu",
                replaces="src/repro/kernels/paged_decode_attention.py:262",
-               counter="paged_flash_decode"),
-    "K4": dict(name="K4 paged_flash_decode_split+combine",
+               counter="paged_flash_decode_tc"),
+    "K4": dict(name="K4 paged_flash_decode_split+combine (bf16, tensor cores)",
                source="src/repro_torch/csrc/paged_decode.cu",
                replaces="src/repro/kernels/paged_decode_attention.py:323",
-               counter="paged_flash_decode_split"),
+               counter="paged_flash_decode_split_tc"),
     "K5": dict(name="K5 flash_attention_bwd_dq (bf16, tensor cores)",
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention_bwd.py:228",
@@ -270,9 +277,7 @@ def check_bwd_route(label, launched, tensor_cores=True):
 def check_kernels(torch, timer, results):
     import torch.nn.functional as F
     from repro_torch import kernels
-    from repro_torch.core import numa, perf_model
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_decode_attention as pd
     from repro_torch.kernels import paged_prefill_attention as pp
 
     gen = torch.Generator(device="cuda")
@@ -415,49 +420,108 @@ def check_kernels(torch, timer, results):
                          bound_by=k2_bound[1], library_ms=None)
     del kp, vp, q, kt, vt, o, o_ref
 
-    # K3 / K4: B 8, ragged lengths up to 4096 with one length-0 row.
-    b, smax = 8, 4096
-    mp = smax // PS
-    num_pages = 1 + b * mp
-    kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
-    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
-    table = perm.reshape(b, mp).to(torch.int32).contiguous()
-    lengths = torch.tensor([4096, 0, 3001, 17, 2048, 4000, 1, 1500], dtype=torch.int32,
-                           device="cuda")
+    check_paged_decode(torch, timer, results, gen)
+
+
+def check_paged_route(label, counts):
+    """Every K3/K4 launch of a bf16 path went to the tensor-core kernel."""
+    total = counts["paged_flash_decode"] + counts["paged_flash_decode_split"]
+    tc = counts["paged_flash_decode_tc"] + counts["paged_flash_decode_split_tc"]
+    log(f"{label}: K3/K4 launches {total}, on the tensor cores {tc}")
+    if total <= 0 or tc != total:
+        raise AssertionError(f"{label}: {total - tc} K3/K4 launches missed the tensor-core "
+                             "kernel")
+
+
+def check_paged_decode(torch, timer, results, gen):
+    """K3 (one pass) and K4 (split-K + combine), bf16 on the tensor cores,
+    against their plain version over scattered page tables, per row within
+    ROW_TOL, length-0 rows exactly zero, ten reruns bitwise equal, every
+    launch on the tensor-core kernel: B 8 with ragged lengths up to 4096 and
+    a length-0 row (one pass, 4 and 7 splits; the JSON line takes these),
+    then the paged serve run's decode shape, 8 rows of 560 tokens on a
+    36-page table (one pass and 2 splits). Each is timed with the launch
+    queue primed and without (the wrapper's host time shows in the second).
+    No one PyTorch call computes a paged decode (library_ms stays None);
+    the yardstick beside it is two calls, gather + SDPA: ``index_select``
+    of the table's pages into dense stripes, then
+    ``scaled_dot_product_attention`` with ``enable_gqa=True`` and the
+    length mask. The bound counts each live key and value read once, q
+    read and o written once, the table and lengths. Then the split-K
+    estimator's modelled times beside the measured ones, and the split
+    path's fixed cost per call."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.core import numa, perf_model
+    from repro_torch.kernels import paged_decode_attention as pd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def gather_sdpa(q, kp, vp, table, lengths):
+        b, mp = table.shape
+        hkv, _, ps, d = kp.shape
+        k, v = (p.index_select(1, table.flatten()).view(hkv, b, mp * ps, d).transpose(0, 1)
+                for p in (kp, vp))
+        mask = torch.arange(mp * ps, device="cuda")[None, :] < lengths[:, None]
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask[:, None, None, :],
+                                              enable_gqa=True)
+
     measured = {}
-    q = randn(b, HQ, D)
-    live = int(lengths.sum())
-    dec_bound = bound(2 * HKV * live * D * 2 + nbytes(q, q, table, lengths),
-                      4.0 * HQ * D * live)
-    for key, splits in (("K3", (1,)), ("K4", (4, 7))):
+    b = 8
+    for label, mp, lens, splits in (
+            ("B 8, table 4096", 4096 // PS, [4096, 0, 3001, 17, 2048, 4000, 1, 1500],
+             (1, 4, 7)),
+            ("serve decode shape, B 8 x 560, table 36 pages", 36, [560] * b, (1, 2))):
+        num_pages = 1 + b * mp
+        kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
+        perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+        table = perm.reshape(b, mp).to(torch.int32).contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = randn(b, HQ, D)
+        live = int(lengths.sum())
+        dec_bound = bound(2 * HKV * live * D * 2 + nbytes(q, q, table, lengths),
+                          4.0 * HQ * D * live)
+        yard_ms = timer.ms(lambda: gather_sdpa(q, kp, vp, table, lengths), primed=True)
         for ns in splits:
-            o = pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns)
+            key = "K3" if ns == 1 else "K4"
+            run = lambda: pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns)
+            kernels.reset_launch_counts()
+            o = run()
+            check_paged_route(f"{key} {label} num_splits {ns}", kernels.launch_counts())
             o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, num_splits=ns)
             torch.cuda.synchronize()
             e, e_r = err(o, o_ref), row_err(o, o_ref)
-            zero_row = float(o[1].float().abs().max())
-            ms = timer.ms(lambda: pd.paged_flash_decode(q, kp, vp, table, lengths,
-                                                        num_splits=ns))
+            zero_row = float(o[lengths == 0].float().abs().sum())
+            same = all(torch.equal(run(), o) for _ in range(10))
+            ms = timer.ms(run, primed=True)
+            event_ms = timer.ms(run)
             plain_ms = timer.ms(lambda: pd.paged_flash_decode_plain(
                 q, kp, vp, table, lengths, num_splits=ns))
-            log(f"{key} num_splits {ns}: max_err {e:.3e} (row-relative {e_r:.3e}, tol "
-                f"{ROW_TOL:.3e}), length-0 row max {zero_row}, {ms:.4f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {dec_bound[0]:.4f} ms ({dec_bound[1]})")
-            if e_r > ROW_TOL or zero_row != 0.0:
-                raise AssertionError(f"{key} num_splits {ns} disagrees with its plain version")
-            measured[ns] = ms
-            if key not in results:
-                results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=dec_bound[0], bound_by=dec_bound[1],
-                                    library_ms=None)
+            log(f"{key} {label} num_splits {ns}: max_err {e:.3e} (row-relative {e_r:.3e}, tol "
+                f"{ROW_TOL:.3e}), length-0 rows sum |o| {zero_row}, 10 reruns bitwise equal "
+                f"{same}, {ms:.4f} ms (queue primed; {event_ms:.4f} ms with the wrapper's host "
+                f"time), plain {plain_ms:.3f} ms, gather + sdpa {yard_ms:.4f} ms (two calls, "
+                f"primed), bound {dec_bound[0]:.5f} ms ({dec_bound[1]})")
+            if e_r > ROW_TOL or zero_row != 0.0 or not same:
+                raise AssertionError(f"{key} {label} num_splits {ns} disagrees with its plain "
+                                     "version")
+            if mp == 4096 // PS:
+                measured[ns] = ms
+                if key not in results:
+                    results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=dec_bound[0], bound_by=dec_bound[1],
+                                        library_ms=None)
+        del kp, vp, q, o, o_ref
 
-    # The split-K estimator's modelled times for this case, beside the
+    # The split-K estimator's modelled times for the first case, beside the
     # measured ones: the model is calibrated only where the two agree.
     est = perf_model.estimate_decode_splits(
-        batch=b, num_q_heads=HQ, num_kv_heads=HKV, seq_kv=smax, granule=PS, head_dim=D,
+        batch=b, num_q_heads=HQ, num_kv_heads=HKV, seq_kv=4096, granule=PS, head_dim=D,
         dtype_bytes=2, topo=numa.H100)
     model = dict(est.times)
-    log("split-K model vs measured (B 8, table 4096): " + ", ".join(
+    log("split-K model vs measured (B 8, table 4096, queue primed): " + ", ".join(
         f"num_splits {ns}: model {model[ns] * 1e3:.4f} ms, measured {measured[ns]:.4f} ms"
         for ns in sorted(measured)) + f"; model picks {est.num_splits}")
     split_path_cost(torch, pd, randn)
@@ -869,6 +933,7 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
         f"(host clock); prefix hit rate {stats.prefix_hit_rate:.3f}")
     log(f"launch counts over the serve run: {json.dumps(counts)}")
     check_k1_route("serve llama3-8b paged", counts)
+    check_paged_route("serve llama3-8b paged", counts)
     for key in ("K1", "K2", "K3", "K4"):
         if counts[KERNELS[key]["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on the main path")

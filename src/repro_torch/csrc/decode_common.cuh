@@ -1,9 +1,10 @@
-// Shared decode arithmetic for the decode kernels (paged K3 one-pass, K4
-// split-K, dense K7 one-pass, K8 split-K, and the split combine that K4 and
-// K8 share): the CUDA form of repro_torch/kernels/
-// decode_common.py, itself the port of the JAX package's
-// src/repro/kernels/decode_common.py (chunk_relevant :36,
-// accumulate_kv_block :54, combine_split_states :107).
+// Shared decode arithmetic of the float32 decode kernels on the CUDA cores
+// (paged K3 one-pass, K4 split-K, dense K7 one-pass, K8 split-K), and the
+// split combine that every K4 and K8 launch runs: the CUDA form of
+// repro_torch/kernels/decode_common.py, itself the port of the JAX
+// package's src/repro/kernels/decode_common.py (chunk_relevant :36,
+// accumulate_kv_block :54, combine_split_states :107). The bf16 kernels'
+// consumer is decode_tc.cuh.
 //
 // A decode block of DC_THREADS threads serves one (b, kv head[, split])
 // cell: the whole GQA group of G query rows rides in the block, so every

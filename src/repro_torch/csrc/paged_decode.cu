@@ -7,37 +7,63 @@
 // launched by _paged_flash_decode_split :306), with the combine of
 // kernels/decode_common.py:combine_split_states (:107). One query token per
 // sequence, q (B, Hq, D), over the head-major pool (Hkv, P, page_size, D)
-// through page_table (B, max_pages) and lengths (B,). Pages no position of
-// the row can see are skipped (chunk_relevant); length-0 rows give exact
-// zeros. The quantized-scale branch of the TPU kernels is not ported.
+// through page_table (B, max_pages) and lengths (B,). Length-0 rows give
+// exact zeros. The quantized-scale branch of the TPU kernels is not ported.
 //
 // What bounds it on an H100: decode reads every live K/V byte once and does
 // 2 * group operations per element, far below the card's balance point, so
-// it is bound by memory bandwidth — and, at small batch, by how few blocks
+// it is bound by memory bandwidth, and at small batch by how few blocks
 // there are to pull it: one block per (b, kv head) is 8 blocks for one
-// llama3-8b sequence on a 132-SM card.
-//
-// What the design does about it: one block per (b, kv head) loads each live
-// page once, with 16-byte loads, and serves the whole GQA group from shared
-// memory (the group is not padded to the TPU's 8 sublanes). Split-K (K4)
-// multiplies the blocks by the split count over page-granular ranges from
+// llama3-8b sequence on a 132-SM card. Split-K (K4) multiplies the blocks
+// by the split count over page-granular ranges from
 // cache.layout.decode_split_ranges, each block writing float32 (acc, m, l);
 // a second small kernel (decode_common.cuh, shared with K8) rescales the
 // splits to the global max.
+//
+// Two kernels:
+//
+// * paged_decode_tc_kernel, bf16 (every serve path). The consumer is
+//   decode_tc.cuh's, the one K7/K8 run: four warps on the tensor cores
+//   (mma.sync, q as A fragments, whole 64-row tiles in turn, P in bf16)
+//   over a 128 KB ring on mbarriers. Its producer fills a stage page by
+//   page: each pool (Hkv, P, ps, D) is one 3-D tensor map (Hkv, P * ps, D)
+//   whose box is 64 columns by one page, 128-byte swizzled, and a stage of
+//   64 rows takes 64 / ps pages. The swizzle repeats every 8 rows (1024
+//   bytes), so with ps a multiple of 8 a page's box lands its bytes where
+//   one 64-row box would put them, and the consumer addresses the stage as
+//   K7/K8's. The block reads the pages of the rows a valid position touches,
+//   [max(split start, length - window), min(split end, length)), from the
+//   first one's page start; positions before the range are masked. The
+//   producer warp's lanes each issue one box of a stage (ps 16, D 128: 16
+//   boxes, K and V), each reading its page id from the table one stage
+//   ahead. Every slot of every stage is written on every phase: a last
+//   stage with fewer live pages loads the range's last live page again
+//   into its surplus slots, which the consumer masks to P = 0 (an unwritten
+//   slot could hold NaN bits, and 0 * NaN is NaN inside an mma; a page id
+//   past the row's live pages is zero only by convention).
+// * paged_decode_kernel, float32: the tensor cores take float32 only as
+//   TF32 (~3 decimal digits), so float32 stays on the CUDA cores: one block
+//   of DC_THREADS stages DC_BT rows (whole pages) with 16-byte loads, skips
+//   pages no position of the row can see (chunk_relevant) and runs
+//   decode_common.cuh's accumulate_kv_block (shared with the float32 K7 /
+//   K8).
 #include "decode_common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
 using namespace rt;
 
+// -- float32 on the CUDA cores -------------------------------------------------
+
 // SPLIT = false: K3, grid (1, Hkv, B), writes the normalised row to `out`.
 // SPLIT = true: K4, grid (S, Hkv, B), split s walks pages
 // [s * pps, min((s + 1) * pps, mp)) and writes (acc, m, l).
-template <typename T, int D, int MAXG, bool SPLIT>
+template <int D, int MAXG, bool SPLIT>
 __global__ void __launch_bounds__(DC_THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages, const int* __restrict__ page_table,
-                    const int* __restrict__ lengths, T* __restrict__ out,
+paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
+                    const float* __restrict__ v_pages, const int* __restrict__ page_table,
+                    const int* __restrict__ lengths, float* __restrict__ out,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Hkv, int G, int P, int ps, int mp,
                     int pps, float scale, int window, float softcap) {
@@ -62,8 +88,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int p_hi = SPLIT ? min(p_lo + pps, mp) : mp;
   const int limit = p_hi * ps;
 
-  const T* qrow = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int idx = tid; idx < G * D; idx += DC_THREADS) qs[idx] = to_f(qrow[idx]);
+  const float* qrow = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  for (int idx = tid; idx < G * D; idx += DC_THREADS) qs[idx] = qrow[idx];
   if (tid < MAXG) {
     ms[tid] = NEG_INF_F;
     ls[tid] = 0.f;
@@ -118,8 +144,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         acc_out[((((size_t)b * Hkv + h) * gridDim.x + s) * G + g) * D + d] = acc[g][c];
       } else {
         const float l = ls[g];
-        out[((size_t)b * Hq + (size_t)h * G + g) * D + d] =
-            from_f<T>(acc[g][c] / (l == 0.f ? 1.f : l));
+        out[((size_t)b * Hq + (size_t)h * G + g) * D + d] = acc[g][c] / (l == 0.f ? 1.f : l);
       }
     }
   }
@@ -130,72 +155,216 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <int D, int MAXG, bool SPLIT, typename T>
-int launch_decode(const void* q, const void* kp, const void* vp, const int* pt,
-                  const int* lengths, void* out, float* acc, float* m, float* l, int B,
-                  int Hkv, int G, int P, int ps, int mp, int S, int pps, float scale,
-                  int window, float softcap, cudaStream_t stream) {
+template <int D, int MAXG, bool SPLIT>
+int launch_f32(const void* q, const void* kp, const void* vp, const int* pt,
+               const int* lengths, void* out, float* acc, float* m, float* l, int B, int Hkv,
+               int G, int P, int ps, int mp, int S, int pps, float scale, int window,
+               float softcap, cudaStream_t stream) {
   const size_t smem = DecodeSmem<D, MAXG>::bytes;
-  cudaError_t err = allow_smem(paged_decode_kernel<T, D, MAXG, SPLIT>, smem);
+  cudaError_t err = allow_smem(paged_decode_kernel<D, MAXG, SPLIT>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(S, Hkv, B);
-  paged_decode_kernel<T, D, MAXG, SPLIT><<<grid, DC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), pt,
-      lengths, static_cast<T*>(out), acc, m, l, Hkv, G, P, ps, mp, pps, scale, window,
-      softcap);
+  paged_decode_kernel<D, MAXG, SPLIT><<<grid, DC_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), pt, lengths, static_cast<float*>(out), acc, m, l, Hkv,
+      G, P, ps, mp, pps, scale, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return (int)err;
-  combine_kernel<T, D><<<B * Hkv * G, DC_THREADS, 0, stream>>>(acc, m, l,
-                                                              static_cast<T*>(out), G, S);
+  combine_kernel<float, D><<<B * Hkv * G, DC_THREADS, 0, stream>>>(
+      acc, m, l, static_cast<float*>(out), G, S);
+  return (int)cudaGetLastError();
+}
+
+template <bool SPLIT>
+int dispatch_f32(const void* q, const void* kp, const void* vp, const int* pt,
+                 const int* lengths, void* out, float* acc, float* m, float* l, int B, int Hq,
+                 int Hkv, int P, int ps, int mp, int D, int S, int pps, float scale,
+                 int window, float softcap, void* stream) {
+  if (B <= 0) return 0;
+  const int G = Hq / Hkv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DEC_CASE(DIM, MG)                                                                  \
+  return launch_f32<DIM, MG, SPLIT>(q, kp, vp, pt, lengths, out, acc, m, l, B, Hkv, G, P, \
+                                    ps, mp, S, pps, scale, window, softcap, st)
+  if (D == 128 && G <= 8) DEC_CASE(128, 8);
+  if (D == 128 && G <= 32) DEC_CASE(128, 32);
+  if (D == 64 && G <= 8) DEC_CASE(64, 8);
+  if (D == 64 && G <= 32) DEC_CASE(64, 32);
+#undef DEC_CASE
+  return -1;
+}
+
+// -- bf16 on the tensor cores ------------------------------------------------------
+
+namespace tc {
+
+using dtc::BT;
+using dtc::CONSUMER_WARPS;
+using dtc::THREADS;
+using dtc::Ring;
+
+// The paged producer of decode_tc.cuh's consumer. SPLIT = false: K3, grid
+// (1, Hkv, B), walks pages [0, mp). SPLIT = true: K4, grid (S, Hkv, B),
+// split s walks pages [s * pps, min((s + 1) * pps, mp)) and writes (acc, m,
+// l). ps is a multiple of 8 that divides BT.
+template <int D, int MT, bool SPLIT>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_tc_kernel(const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __nv_bfloat16* __restrict__ q, const int* __restrict__ page_table,
+                       const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ acc_out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int Hkv, int G, int ps, int mp, int pps,
+                       float scale, int window, float softcap) {
+  using namespace hopper;
+  using R = Ring<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = dtc::ring_base(smem_raw);
+
+  const int s = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int length = lengths[b];
+  // The positions a valid query of this cell sees, [lo, hi), on pages
+  // first_page .. last_page, 64 / ps pages a stage.
+  const int p_lo = SPLIT ? s * pps : 0;
+  const int p_hi = SPLIT ? min(p_lo + pps, mp) : mp;
+  int lo = p_lo * ps;
+  const int hi = min(p_hi * ps, length);
+  if (window > 0) lo = max(lo, length - window);
+  const int first_page = lo / ps;
+  const int last_page = hi > lo ? (hi - 1) / ps : first_page;
+  const int per_stage = BT / ps;
+  const int ntiles = hi > lo ? (last_page - first_page + per_stage) / per_stage : 0;
+  dtc::ring_init<D, MT>(smem);
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >> 5 == CONSUMER_WARPS) {
+    // Producer: lane (page i, column chunk c, K or V) issues one box of each
+    // stage; lanes past 2 * (D / 64) * per_stage boxes issue none.
+    const int kv = lane & 1;
+    const int c = (lane >> 1) % (D / 64);
+    const int i = (lane >> 1) / (D / 64);
+    const bool issues = i < per_stage;
+    const int* table = page_table + (size_t)b * mp;
+    uint64_t* full = dtc::full_bars<D>(smem);
+    uint64_t* empty = dtc::empty_bars<D>(smem);
+    uint8_t* dst = smem + (kv ? R::V : R::K) + c * BT * 128 + i * ps * 128;
+    const CUtensorMap* map = kv ? &tv : &tk;
+    // Page ids one stage ahead; a slot past the range's pages repeats its
+    // last live page.
+    int page = issues && ntiles > 0 ? table[min(first_page + i, last_page)] : 0;
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % R::STAGES;
+      mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(&full[st], 2 * R::TILE);
+      __syncwarp();
+      if (issues) {
+        tma_load_3d(dst + st * R::TILE, map, &full[st], c * 64, page * ps, h);
+        if (t + 1 < ntiles) page = table[min(first_page + (t + 1) * per_stage + i, last_page)];
+      }
+    }
+    return;
+  }
+  dtc::consume<D, MT, SPLIT>(smem, q, out, acc_out, m_out, l_out, Hkv, G, first_page * ps, lo,
+                             hi, ntiles, scale, softcap);
+}
+
+template <int D, int MT, bool SPLIT>
+int launch(const void* q, const void* kp, const void* vp, const int* pt, const int* lengths,
+           void* out, float* acc, float* m, float* l, int B, int Hkv, int G, int P, int ps,
+           int mp, int S, int pps, float scale, int window, float softcap,
+           cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  int err = hopper::make_map_3d(&tk, kp, D, P * ps, Hkv, ps);
+  if (err == 0) err = hopper::make_map_3d(&tv, vp, D, P * ps, Hkv, ps);
+  if (err != 0) return err;
+  const size_t smem = Ring<D>::bytes;
+  const cudaError_t e = allow_smem(paged_decode_tc_kernel<D, MT, SPLIT>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(S, Hkv, B);
+  paged_decode_tc_kernel<D, MT, SPLIT><<<grid, THREADS, smem, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), pt, lengths,
+      static_cast<__nv_bfloat16*>(out), acc, m, l, Hkv, G, ps, mp, pps, scale, window,
+      softcap);
+  cudaError_t err2 = cudaGetLastError();
+  if (err2 != cudaSuccess || !SPLIT) return (int)err2;
+  combine_kernel<__nv_bfloat16, D><<<B * Hkv * G, DC_THREADS, 0, stream>>>(
+      acc, m, l, static_cast<__nv_bfloat16*>(out), G, S);
   return (int)cudaGetLastError();
 }
 
 template <bool SPLIT>
 int dispatch(const void* q, const void* kp, const void* vp, const int* pt,
-             const int* lengths, void* out, float* acc, float* m, float* l, int B,
-             int Hq, int Hkv, int P, int ps, int mp, int D, int S, int pps, float scale,
-             int window, float softcap, int dtype, void* stream) {
+             const int* lengths, void* out, float* acc, float* m, float* l, int B, int Hq,
+             int Hkv, int P, int ps, int mp, int D, int S, int pps, float scale, int window,
+             float softcap, void* stream) {
   if (B <= 0) return 0;
+  if (ps % 8 != 0 || BT % ps != 0) return -1;
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DEC_CASE(DIM, MG, T)                                                           \
-  return launch_decode<DIM, MG, SPLIT, T>(q, kp, vp, pt, lengths, out, acc, m, l, B,  \
-                                          Hkv, G, P, ps, mp, S, pps, scale, window,   \
-                                          softcap, st)
-#define DEC_DTYPE(DIM, MG)                    \
-  if (dtype == 1) DEC_CASE(DIM, MG, __nv_bfloat16); \
-  if (dtype == 0) DEC_CASE(DIM, MG, float);
-  if (D == 128 && G <= 8) { DEC_DTYPE(128, 8) }
-  if (D == 128 && G <= 32) { DEC_DTYPE(128, 32) }
-  if (D == 64 && G <= 8) { DEC_DTYPE(64, 8) }
-  if (D == 64 && G <= 32) { DEC_DTYPE(64, 32) }
-#undef DEC_DTYPE
-#undef DEC_CASE
+#define PD_TC_CASE(DIM, MTILES)                                                              \
+  return launch<DIM, MTILES, SPLIT>(q, kp, vp, pt, lengths, out, acc, m, l, B, Hkv, G, P, \
+                                    ps, mp, S, pps, scale, window, softcap, st)
+  if (D == 128 && G <= 16) PD_TC_CASE(128, 1);
+  if (D == 128 && G <= 32) PD_TC_CASE(128, 2);
+  if (D == 64 && G <= 16) PD_TC_CASE(64, 1);
+  if (D == 64 && G <= 32) PD_TC_CASE(64, 2);
+#undef PD_TC_CASE
   return -1;
 }
 
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. page_size must divide 64. Returns a
-// cudaError_t (0 = success), or -1 for a shape / dtype this build does not
-// instantiate.
+// Each entry returns a cudaError_t (0 = success), or -1 for a shape this
+// build does not instantiate; the bf16 entries -2 if a tensor map could not
+// be encoded. page_size must divide 64 (float32), and be a multiple of 8 that
+// divides 64 (bf16). Split scratch: acc (B, Hkv, S, G, D), m / l
+// (B, Hkv, S, G) float32; split s walks pages [s * pages_per_split,
+// min((s + 1) * pages_per_split, mp)).
+
+// float32 one pass (K3), on the CUDA cores.
 extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pages,
                             const int* page_table, const int* lengths, void* out, int B,
                             int Hq, int Hkv, int P, int ps, int mp, int D, float scale,
-                            int window, float softcap, int dtype, void* stream) {
-  return dispatch<false>(q, k_pages, v_pages, page_table, lengths, out, nullptr, nullptr,
-                         nullptr, B, Hq, Hkv, P, ps, mp, D, 1, mp, scale, window, softcap,
-                         dtype, stream);
+                            int window, float softcap, void* stream) {
+  return dispatch_f32<false>(q, k_pages, v_pages, page_table, lengths, out, nullptr, nullptr,
+                             nullptr, B, Hq, Hkv, P, ps, mp, D, 1, mp, scale, window,
+                             softcap, stream);
 }
 
-// acc: (B, Hkv, S, G, D), m / l: (B, Hkv, S, G) float32 scratch.
+// float32 split-K (K4), on the CUDA cores.
 extern "C" int paged_decode_split(const void* q, const void* k_pages, const void* v_pages,
                                   const int* page_table, const int* lengths, void* out,
                                   float* acc, float* m, float* l, int B, int Hq, int Hkv,
                                   int P, int ps, int mp, int D, int num_splits,
                                   int pages_per_split, float scale, int window,
-                                  float softcap, int dtype, void* stream) {
-  return dispatch<true>(q, k_pages, v_pages, page_table, lengths, out, acc, m, l, B, Hq,
-                        Hkv, P, ps, mp, D, num_splits, pages_per_split, scale, window,
-                        softcap, dtype, stream);
+                                  float softcap, void* stream) {
+  return dispatch_f32<true>(q, k_pages, v_pages, page_table, lengths, out, acc, m, l, B, Hq,
+                            Hkv, P, ps, mp, D, num_splits, pages_per_split, scale, window,
+                            softcap, stream);
+}
+
+// bf16 one pass (K3), on the tensor cores.
+extern "C" int paged_decode_tc(const void* q, const void* k_pages, const void* v_pages,
+                               const int* page_table, const int* lengths, void* out, int B,
+                               int Hq, int Hkv, int P, int ps, int mp, int D, float scale,
+                               int window, float softcap, void* stream) {
+  return tc::dispatch<false>(q, k_pages, v_pages, page_table, lengths, out, nullptr, nullptr,
+                             nullptr, B, Hq, Hkv, P, ps, mp, D, 1, mp, scale, window,
+                             softcap, stream);
+}
+
+// bf16 split-K (K4), on the tensor cores.
+extern "C" int paged_decode_split_tc(const void* q, const void* k_pages, const void* v_pages,
+                                     const int* page_table, const int* lengths, void* out,
+                                     float* acc, float* m, float* l, int B, int Hq, int Hkv,
+                                     int P, int ps, int mp, int D, int num_splits,
+                                     int pages_per_split, float scale, int window,
+                                     float softcap, void* stream) {
+  return tc::dispatch<true>(q, k_pages, v_pages, page_table, lengths, out, acc, m, l, B, Hq,
+                            Hkv, P, ps, mp, D, num_splits, pages_per_split, scale, window,
+                            softcap, stream);
 }

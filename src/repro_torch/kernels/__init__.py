@@ -5,7 +5,9 @@ counts its bf16 tensor-core launches alone), K5/K6
 ``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV; the ``_tc``
 counters likewise), K2
 ``paged_prefill_attention.paged_flash_prefill``, K3/K4
-``paged_decode_attention.paged_flash_decode`` (one-pass / split-K), K7/K8
+``paged_decode_attention.paged_flash_decode`` (one-pass / split-K;
+``paged_flash_decode_tc`` and ``paged_flash_decode_split_tc`` count the
+bf16 tensor-core launches alone), K7/K8
 ``decode_attention.flash_decode`` (dense one-pass / split-K;
 ``flash_decode_tc`` and ``flash_decode_split_tc`` count the bf16
 tensor-core launches alone) and K9
@@ -39,6 +41,8 @@ def launch_counts() -> Dict[str, int]:
         "paged_flash_prefill": paged_prefill_attention.launches,
         "paged_flash_decode": paged_decode_attention.launches["one_pass"],
         "paged_flash_decode_split": paged_decode_attention.launches["split"],
+        "paged_flash_decode_tc": paged_decode_attention.launches["one_pass_tc"],
+        "paged_flash_decode_split_tc": paged_decode_attention.launches["split_tc"],
         "flash_decode": decode_attention.launches["one_pass"],
         "flash_decode_split": decode_attention.launches["split"],
         "flash_decode_tc": decode_attention.launches["one_pass_tc"],
@@ -53,8 +57,7 @@ def reset_launch_counts() -> None:
     for key in flash_attention_bwd.launches:
         flash_attention_bwd.launches[key] = 0
     paged_prefill_attention.launches = 0
-    paged_decode_attention.launches["one_pass"] = 0
-    paged_decode_attention.launches["split"] = 0
-    for key in decode_attention.launches:
-        decode_attention.launches[key] = 0
+    for counter in (paged_decode_attention.launches, decode_attention.launches):
+        for key in counter:
+            counter[key] = 0
     ssd.launches = 0

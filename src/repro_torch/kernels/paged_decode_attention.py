@@ -2,12 +2,18 @@
 and their plain version.
 
 Port of ``repro.kernels.paged_decode_attention.paged_flash_decode`` and
-``_paged_flash_decode_split``. The kernels are ``csrc/paged_decode.cu``
-(one block per (b, kv head), or per (b, kv head, split), serving the whole
+``_paged_flash_decode_split``. The kernels are ``csrc/paged_decode.cu``,
+one block per (b, kv head), or per (b, kv head, split), serving the whole
 GQA group from each page it loads; the split states merge in a second
-small kernel). :func:`paged_flash_decode` launches them for CUDA tensors and
-runs :func:`paged_flash_decode_plain` — the same page walk, relevance gate
-and split combine, written with ``decode_common`` — for CPU tensors.
+small kernel. bf16 runs ``paged_decode_tc`` / ``paged_decode_split_tc`` on
+the tensor cores: a producer warp loads K/V page by page by TMA into the
+64-row stages of a 128 KB ring, and the consumer warps are the ones K7/K8
+run (``csrc/decode_tc.cuh``); the page size must then be a multiple of 8
+that divides 64. float32 runs ``paged_decode`` / ``paged_decode_split`` on
+the CUDA cores (the tensor cores would round it to TF32).
+:func:`paged_flash_decode` launches the one for its dtype on CUDA tensors
+and runs :func:`paged_flash_decode_plain` — the same page walk, relevance
+gate and split combine, written with ``decode_common`` — for CPU tensors.
 The quantized-pool scale branch of the TPU kernels is not ported.
 """
 
@@ -22,12 +28,18 @@ from repro_torch.kernels import build, decode_common
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 32
-#: Positions staged per step (DC_BT in csrc/decode_common.cuh).
+#: Positions staged per step (DC_BT in csrc/decode_common.cuh, dtc::BT in
+#: csrc/decode_tc.cuh).
 STAGE = 64
+#: bf16 page sizes must be multiples of this: the 128-byte swizzle of a
+#: tensor-core stage repeats every 8 rows, so a page's box then lands where
+#: one 64-row box would put it.
+TC_PAGE_MULTIPLE = 8
 
 #: Launches since the last reset: one-pass (K3) and split-K (K4; each
-#: launch is the split kernel followed by its combine).
-launches = {"one_pass": 0, "split": 0}
+#: launch is the split kernel followed by its combine), of either dtype;
+#: the ``_tc`` keys count the bf16 tensor-core kernel's alone.
+launches = {"one_pass": 0, "split": 0, "one_pass_tc": 0, "split_tc": 0}
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
@@ -73,21 +85,23 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+#: (dtype, split) -> the C entry point that takes it.
+_ENTRY = {(torch.float32, False): "paged_decode", (torch.float32, True): "paged_decode_split",
+          (torch.bfloat16, False): "paged_decode_tc",
+          (torch.bfloat16, True): "paged_decode_split_tc"}
 _fns = {}
 
 
-def _kernel(split: bool):
-    fn = _fns.get(split)
+def _kernel(dtype, split: bool):
+    fn = _fns.get((dtype, split))
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if split:
-            args = [P] * 9 + [I] * 9 + [F, I, F, I, P]
-            fn = build.bind("paged_decode", "paged_decode_split", args)
+            args = [P] * 9 + [I] * 9 + [F, I, F, P]
         else:
-            args = [P] * 6 + [I] * 7 + [F, I, F, I, P]
-            fn = build.bind("paged_decode", "paged_decode", args)
-        _fns[split] = fn
+            args = [P] * 6 + [I] * 7 + [F, I, F, P]
+        fn = _fns[(dtype, split)] = build.bind("paged_decode", _ENTRY[(dtype, split)], args)
     return fn
 
 
@@ -111,12 +125,17 @@ def _check_inputs(q, k_pages, v_pages, page_table, lengths):
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if ps > STAGE or STAGE % ps:
         raise ValueError(f"page_size {ps} must divide {STAGE}")
+    if q.dtype == torch.bfloat16 and ps % TC_PAGE_MULTIPLE:
+        raise ValueError(f"bf16 page_size {ps} must be a multiple of {TC_PAGE_MULTIPLE} "
+                         "(the tensor-core kernel's swizzled stages)")
     if page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("page_table / lengths batch does not match q")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the pools must start 16-byte aligned (16-byte loads, tensor maps)")
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
@@ -128,8 +147,10 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     valid id — the null page); lengths (B,) int32. Returns (B, Hq, D).
 
     ``num_splits > 1`` runs split-K over :func:`decode_split_ranges`
-    (clamped to the table width). CUDA tensors launch the kernels, CPU
-    tensors take the plain version.
+    (clamped to the table width). CUDA tensors launch the kernel of their
+    dtype (bf16 on the tensor cores, float32 on the CUDA cores), CPU tensors
+    take the plain version; under grad mode it raises: the kernels have no
+    backward.
     """
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(
@@ -148,15 +169,16 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
         scale = 1.0 / d**0.5
     ranges = decode_split_ranges(mp, num_splits)
     out = torch.empty_like(q)
-    common = (float(scale), int(window or 0), float(softcap or 0.0),
-              _DTYPES[q.dtype], build.stream_of(q))
+    common = (float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q))
+    tc = q.dtype == torch.bfloat16
     if len(ranges) == 1:
         launches["one_pass"] += 1
-        status = _kernel(False)(
+        launches["one_pass_tc"] += int(tc)
+        status = _kernel(q.dtype, False)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             b, hq, hkv, num_pages, ps, mp, d, *common)
-        build.check(status, "paged_decode")
+        build.check(status, _ENTRY[(q.dtype, False)])
         return out
     s = len(ranges)
     pps = ranges[0][1] - ranges[0][0]
@@ -165,10 +187,11 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     m = torch.empty((b, hkv, s, group), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     launches["split"] += 1
-    status = _kernel(True)(
+    launches["split_tc"] += int(tc)
+    status = _kernel(q.dtype, True)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, hq, hkv, num_pages, ps, mp, d, s, pps, *common)
-    build.check(status, "paged_decode_split")
+    build.check(status, _ENTRY[(q.dtype, True)])
     return out

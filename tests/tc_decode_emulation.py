@@ -1,0 +1,152 @@
+"""The arithmetic of the bf16 tensor-core decode kernels, written out in
+float32 on the CPU: one walk, shared by K7/K8 (dense stripes,
+``dense_decode_tc_kernel``) and K3/K4 (paged pools,
+``paged_decode_tc_kernel``), which run one consumer
+(``src/repro_torch/csrc/decode_tc.cuh``) and differ only in where a tile's
+rows come from and where its first key sits.
+
+Not a test module: ``tests/test_torch_dense.py`` and
+``tests/test_torch_paged_tc.py`` import it.
+"""
+
+import numpy as np
+import torch
+
+from repro_torch.cache.layout import decode_split_ranges
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+TILE = 64   # rows of a K / V tile (dtc::BT)
+ROW_TOL = 2.0**-6   # per row, against the row's max |o|: one bf16 ulp is 2^-7
+
+
+def row_err(j, t) -> float:
+    """Max over rows of max |t - j| / max |j|, j a JAX output (an all-zero
+    row of j must be exactly zero in t)."""
+    ref = torch.from_numpy(np.asarray(j, np.float32))
+    diff = (t.float() - ref).abs().amax(-1)
+    den = ref.abs().amax(-1)
+    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
+
+
+def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
+    """The consumer's arithmetic, for q (B, Hq, D) over ``hkv`` kv heads.
+    ``cells(b)`` gives one ``(first, lo, hi)`` per split of row b: the
+    walk's first key and the positions it keeps; ``tile_kv(b, key0, hi)``
+    gives the bf16 K and V rows (Hkv, n, D), n <= TILE, of the tile whose
+    first key is ``key0``.
+
+    Tiles of 64 keys from ``first``, the four warps of a block (two for
+    each m16 tile when the group exceeds 16) taking whole tiles in turn,
+    each keeping its own online softmax: products of bf16 inputs summed in
+    float32, scores in log2 units with scale * log2(e) folded into one
+    multiply (softcap first, in natural units), positions outside
+    [lo, hi) masked, exp2, P rounded to bf16 before P V while the row sum
+    takes P unrounded. The warps' states merge once (exp2 weights). One
+    pass writes the normalised row; a split writes (acc, m ln 2, l), merged
+    by the combine kernel in natural units."""
+    b, hq, d = q.shape
+    group = hq // hkv
+    warps = 4 if group <= 16 else 2
+    scale = 1.0 / d**0.5
+    scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+    qf = q.float().reshape(b, hkv, group, d)
+    out = torch.zeros(b, hkv, group, d)
+    for bi in range(b):
+        states = []
+        for first, lo, hi in cells(bi):
+            ntiles = -(-(hi - first) // TILE) if hi > lo else 0
+            m = torch.full((warps, hkv, group), -1e30)
+            l = torch.zeros((warps, hkv, group))
+            acc = torch.zeros((warps, hkv, group, d))
+            for t in range(ntiles):
+                w, t0 = t % warps, first + t * TILE
+                kt, vt = (x.float() for x in tile_kv(bi, t0, hi))
+                s = torch.einsum("hgd,htd->hgt", qf[bi], kt)
+                if softcap:
+                    x = softcap * torch.tanh(s * scale / softcap) * LOG2E
+                else:
+                    x = s * scale2
+                pos = torch.arange(t0, t0 + kt.shape[1])[None, None, :]
+                ok = (pos >= lo) & (pos < hi)
+                x = torch.where(ok, x, torch.tensor(-1e30))
+                m_new = torch.maximum(m[w], x.amax(-1))
+                alpha = torch.exp2(m[w] - m_new)
+                p = torch.where(ok, torch.exp2(x - m_new[..., None]), torch.tensor(0.0))
+                l[w] = l[w] * alpha + p.sum(-1)
+                acc[w] = acc[w] * alpha[..., None] + torch.einsum(
+                    "hgt,htd->hgd", p.to(torch.bfloat16).float(), vt)
+                m[w] = m_new
+            m_star = m.amax(0)
+            wt = torch.exp2(m - m_star)
+            l_star = (l * wt).sum(0)
+            acc_star = (acc * wt[..., None]).sum(0)
+            states.append((acc_star, torch.where(l_star == 0, torch.tensor(-1e30),
+                                                 m_star * LN2), l_star))
+        if len(states) == 1:
+            acc_star, _, l_star = states[0]
+            out[bi] = acc_star / torch.where(l_star == 0, 1.0, l_star)[..., None]
+        else:
+            acc_s = torch.stack([s_[0] for s_ in states])
+            m_s = torch.stack([s_[1] for s_ in states])[..., None]
+            l_s = torch.stack([s_[2] for s_ in states])[..., None]
+            m_all = m_s.amax(0)
+            alpha = torch.exp(m_s - m_all)
+            l_all = (l_s * alpha).sum(0)
+            out[bi] = (acc_s * alpha).sum(0) / torch.where(l_all == 0, 1.0, l_all)
+    return out.reshape(b, hq, d).to(torch.bfloat16)
+
+
+def _range(lo, hi, length, window):
+    """[lo, hi) cut to the positions a row of ``length`` tokens sees."""
+    hi = min(hi, length)
+    if window:
+        lo = max(lo, length - window)
+    return lo, hi
+
+
+def dense_k7_k8(q, k, v, lengths, *, window=None, softcap=None, chunk=64, num_splits=1):
+    """K7/K8 on stripes k / v (B, Hkv, Smax, D): each (b, split) cell reads
+    rows [max(start, length - window), min(end, length)) of its
+    chunk-granular range in 64-row tiles from its first row."""
+    smax = k.shape[2]
+
+    def cells(bi):
+        length = int(lengths[bi])
+        out = []
+        for c_lo, c_hi in decode_split_ranges(smax // chunk, num_splits):
+            lo, hi = _range(c_lo * chunk, min(c_hi * chunk, smax), length, window)
+            out.append((lo, lo, hi))
+        return out
+
+    def tile_kv(bi, t0, hi):
+        return k[bi, :, t0:t0 + TILE], v[bi, :, t0:t0 + TILE]
+
+    return tensor_core_decode(q, k.shape[1], cells, tile_kv, softcap=softcap)
+
+
+def paged_k3_k4(q, k_pages, v_pages, page_table, lengths, *, window=None, softcap=None,
+                num_splits=1):
+    """K3/K4 on head-major pools (Hkv, P, ps, D): each (b, split) cell keeps
+    positions [max(start, length - window), min(end, length)) of its
+    page-granular range and walks 64-row stages of 64 / ps pages from the
+    page holding the first of them (the stage origin is page-aligned; the
+    positions before it are masked). A stage's slots past the range's last
+    live page hold that page again (masked)."""
+    hkv, _, ps, d = k_pages.shape
+    mp = page_table.shape[1]
+
+    def cells(bi):
+        length = int(lengths[bi])
+        out = []
+        for p_lo, p_hi in decode_split_ranges(mp, num_splits):
+            lo, hi = _range(p_lo * ps, p_hi * ps, length, window)
+            out.append(((lo // ps) * ps, lo, hi))
+        return out
+
+    def tile_kv(bi, t0, hi):
+        last = (hi - 1) // ps
+        ids = page_table[bi, [min(t0 // ps + i, last) for i in range(TILE // ps)]].long()
+        return k_pages[:, ids].reshape(hkv, TILE, d), v_pages[:, ids].reshape(hkv, TILE, d)
+
+    return tensor_core_decode(q, hkv, cells, tile_kv, softcap=softcap)

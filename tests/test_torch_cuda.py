@@ -15,8 +15,8 @@ row's max |ref| (two roundings to bf16 differ by one ulp, at most 2^-7 of
 the row's max; a row of ref that is all zero must be exactly zero), and
 lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
-cores and is held at 2e-5. K7/K8 likewise: bf16 on the tensor cores (P
-rounded to bf16), float32 on the CUDA cores.
+cores and is held at 2e-5. K3/K4 and K7/K8 likewise: bf16 on the tensor
+cores (P rounded to bf16), float32 on the CUDA cores.
 K9 (float32 in and out) is held per (b, chunk, head) slice: max |y - ref|
 within 1e-5 of the slice's max |ref| (float32 sums of at most q + N terms
 taken in another order; a dropped key tile moves y by a large fraction of
@@ -454,6 +454,7 @@ def test_paged_prefill_empty_table(cuda):
 
 
 def _decode_inputs(rng, dev, dt, hq, hkv, d=128, ps=16, mp=20, b=5):
+    """Rows of 0, 1, 50, 17 and mp * ps tokens over a scattered table."""
     num_pages = 1 + b * mp
     q = _randn(rng, (b, hq, d), dev, dt)
     kp, vp = (_randn(rng, (hkv, num_pages, ps, d), dev, dt) for _ in range(2))
@@ -463,6 +464,14 @@ def _decode_inputs(rng, dev, dt, hq, hkv, d=128, ps=16, mp=20, b=5):
     return q, kp, vp, table, lengths
 
 
+def _paged_routes(counts, dtype) -> bool:
+    """Every K3/K4 launch went to the tensor-core kernel (bf16), or none did
+    (float32)."""
+    total = counts["paged_flash_decode"] + counts["paged_flash_decode_split"]
+    tc = counts["paged_flash_decode_tc"] + counts["paged_flash_decode_split_tc"]
+    return total > 0 and tc == (total if dtype == torch.bfloat16 else 0)
+
+
 @pytest.mark.parametrize("num_splits", [1, 2, 7])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
@@ -470,15 +479,73 @@ def _decode_inputs(rng, dev, dt, hq, hkv, d=128, ps=16, mp=20, b=5):
                          ids=["full", "window_softcap"])
 def test_paged_decode_matches_plain(cuda, num_splits, dtype, hq, hkv, window, softcap):
     """Length-0 rows give exact zeros; rows of 1 and 17 tokens leave most
-    splits empty, so the combine sees (0, -1e30, 0) states."""
+    splits empty, so the combine sees (0, -1e30, 0) states. bf16 runs on
+    the tensor cores, float32 on the CUDA cores."""
     dt = DTYPES[dtype]
     args = _decode_inputs(np.random.default_rng(20 + num_splits), cuda, dt, hq, hkv)
+    kernels.reset_launch_counts()
     o = pd.paged_flash_decode(*args, num_splits=num_splits, window=window, softcap=softcap)
+    assert _paged_routes(kernels.launch_counts(), dt)
     o_ref = pd.paged_flash_decode_plain(*args, num_splits=num_splits, window=window,
                                         softcap=softcap)
     torch.cuda.synchronize()
     assert _close(o, o_ref)
     assert float(o[0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("num_splits", [1, 4, 7])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (25, 5, 64), (32, 1, 128)],
+                         ids=["llama", "hymba", "group32"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (75, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_paged_decode_tensor_cores_every_page_size(cuda, ps, num_splits, hq, hkv, d, window,
+                                                   softcap):
+    """The tensor-core kernel fills a 64-row stage with 64 / ps pages. Rows
+    of 50 and 17 tokens leave their last stage fewer live pages than that
+    at ps 8 and 16 (the surplus slots repeat the last live page, masked);
+    window 75 starts mid-page on every row longer than it."""
+    args = _decode_inputs(np.random.default_rng(70 + ps), cuda, torch.bfloat16, hq, hkv, d=d,
+                          ps=ps, mp=1280 // ps)
+    kw = dict(num_splits=num_splits, window=window, softcap=softcap)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(*args, **kw)
+    assert _paged_routes(kernels.launch_counts(), torch.bfloat16)
+    o_ref = pd.paged_flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _close(o, o_ref)
+    assert float(o[0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_decode_ignores_rows_past_length(cuda, ps, window):
+    """The tensor-core kernel loads whole pages, so it reads the rows past
+    each length inside the row's last live page (and loads that page again
+    into a last stage's surplus slots): masking gives them P = 0 exactly,
+    so filling them with +-1e4 gives the bits of filling them with zeros.
+    Ten reruns give the same bits."""
+    rng = np.random.default_rng(72)
+    q, kp, vp, table, lengths = _decode_inputs(rng, cuda, torch.bfloat16, 8, 2, ps=ps,
+                                               mp=1280 // ps)
+    lengths = torch.tensor([0, 1, 50, 17, 300], dtype=torch.int32, device=cuda)
+    for ns in (1, 3):
+        outs = []
+        for value in (0.0, 1e4):
+            k, v = kp.clone(), vp.clone()
+            for bi, length in enumerate(lengths.tolist()):
+                if length % ps:
+                    page = int(table[bi, length // ps])
+                    k[:, page, length % ps:] = value
+                    v[:, page, length % ps:] = -value
+            outs.append(pd.paged_flash_decode(q, k, v, table, lengths, window=window,
+                                              num_splits=ns))
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert bool(torch.isfinite(outs[1].float()).all())
+        assert all(torch.equal(pd.paged_flash_decode(q, k, v, table, lengths, window=window,
+                                                     num_splits=ns), outs[1])
+                   for _ in range(10))
 
 
 def test_launch_counts_count_kernel_launches_only(cuda):
@@ -492,7 +559,12 @@ def test_launch_counts_count_kernel_launches_only(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["paged_flash_decode"] == 1 and counts["paged_flash_decode_split"] == 2
+    assert counts["paged_flash_decode_tc"] == 1 and counts["paged_flash_decode_split_tc"] == 2
     assert counts["flash_attention_fwd"] == 0 and counts["paged_flash_prefill"] == 0
+    pd.paged_flash_decode(*(a.float() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["paged_flash_decode"] == 2 and counts["paged_flash_decode_tc"] == 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -507,6 +579,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(NotImplementedError):              # quantized pools
         pd.paged_flash_decode(q, kp, vp, table, lengths, k_scales=torch.ones(2, 101),
                               v_scales=torch.ones(2, 101))
+    # bf16 pages of 4 rows: the tensor-core stages need multiples of 8. It
+    # raises; it does not go to the CUDA-core kernel.
+    q4, kp4, vp4, table4, lengths4 = _decode_inputs(rng, cuda, torch.bfloat16, 8, 2, ps=4)
+    kernels.reset_launch_counts()
+    for ns in (1, 3):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pd.paged_flash_decode(q4, kp4, vp4, table4, lengths4, num_splits=ns)
+    assert sum(kernels.launch_counts().values()) == 0
+    q4, kp4, vp4 = q4.float(), kp4.float(), vp4.float()    # float32 takes pages of 4
+    o = pd.paged_flash_decode(q4, kp4, vp4, table4, lengths4)
+    assert _err(o, pd.paged_flash_decode_plain(q4, kp4, vp4, table4, lengths4)) < F32_TOL
     x = _randn(rng, (1, 4, 64, 32), cuda)
     with pytest.raises(ValueError):                       # head_dim 32
         fa.flash_attention_fwd(x, x, x)

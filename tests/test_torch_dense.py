@@ -21,8 +21,8 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels.decode_attention import flash_decode as jax_decode
 from repro.models import transformer as jax_tf
+from tc_decode_emulation import ROW_TOL, dense_k7_k8, row_err
 
-from repro_torch.cache.layout import decode_split_ranges
 from repro_torch.configs import llama3_8b
 from repro_torch.core import numa, perf_model
 from repro_torch.kernels import ops
@@ -165,91 +165,6 @@ def test_split_decode_edges(case):
         assert float(ot[0].abs().max()) == 0.0
 
 
-ROW_TOL = 2.0**-6   # per row, against the row's max |o|: one bf16 ulp is 2^-7
-
-
-def _tensor_core_k7_k8(q, k, v, lengths, *, window=None, softcap=None, chunk=64,
-                       num_splits=1, tile=64):
-    """The arithmetic of K7/K8's bf16 tensor-core kernel
-    (``dense_decode_tc_kernel`` in csrc/dense_decode.cu), written out in
-    float32. Each (b, split) cell reads rows [max(start, length - window),
-    min(end, length)) in 64-row tiles from its first row; the four warps of
-    a block (two for each m16 tile when the group exceeds 16) take whole
-    tiles in turn, each keeping its own online softmax: products of bf16
-    inputs summed in float32, scores in log2 units with scale * log2(e)
-    folded into one multiply (softcap first, in natural units), exp2, P
-    rounded to bf16 before P V while the row sum takes P unrounded. The
-    warps' states merge once (exp2 weights). One pass writes the
-    normalised row; a split writes (acc, m ln 2, l), merged by the combine
-    kernel in natural units."""
-    log2e, ln2 = 1.4426950408889634, 0.6931471805599453
-    b, hq, d = q.shape
-    hkv, smax = k.shape[1], k.shape[2]
-    group = hq // hkv
-    warps = 4 if group <= 16 else 2
-    scale = 1.0 / d**0.5
-    scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(log2e, dtype=torch.float32)
-    qf = q.float().reshape(b, hkv, group, d)
-    out = torch.zeros(b, hkv, group, d)
-    for bi in range(b):
-        length = int(lengths[bi])
-        states = []
-        for c_lo, c_hi in decode_split_ranges(smax // chunk, num_splits):
-            lo, hi = c_lo * chunk, min(c_hi * chunk, smax, length)
-            if window:
-                lo = max(lo, length - window)
-            ntiles = -(-(hi - lo) // tile) if hi > lo else 0
-            m = torch.full((warps, hkv, group), -1e30)
-            l = torch.zeros((warps, hkv, group))
-            acc = torch.zeros((warps, hkv, group, d))
-            for t in range(ntiles):
-                w, t0 = t % warps, lo + t * tile
-                kt = k[bi, :, t0:t0 + tile].float()
-                vt = v[bi, :, t0:t0 + tile].float()
-                s = torch.einsum("hgd,htd->hgt", qf[bi], kt)
-                if softcap:
-                    x = softcap * torch.tanh(s * scale / softcap) * log2e
-                else:
-                    x = s * scale2
-                ok = torch.arange(t0, t0 + kt.shape[1])[None, None, :] < hi
-                x = torch.where(ok, x, torch.tensor(-1e30))
-                m_new = torch.maximum(m[w], x.amax(-1))
-                alpha = torch.exp2(m[w] - m_new)
-                p = torch.where(ok, torch.exp2(x - m_new[..., None]), torch.tensor(0.0))
-                l[w] = l[w] * alpha + p.sum(-1)
-                acc[w] = acc[w] * alpha[..., None] + torch.einsum(
-                    "hgt,htd->hgd", p.to(torch.bfloat16).float(), vt)
-                m[w] = m_new
-            m_star = m.amax(0)
-            wt = torch.exp2(m - m_star)
-            l_star = (l * wt).sum(0)
-            acc_star = (acc * wt[..., None]).sum(0)
-            states.append((acc_star, torch.where(l_star == 0, torch.tensor(-1e30),
-                                                 m_star * ln2), l_star))
-        if len(states) == 1:
-            acc_star, _, l_star = states[0]
-            out[bi] = acc_star / torch.where(l_star == 0, 1.0, l_star)[..., None]
-        else:
-            acc_s = torch.stack([s_[0] for s_ in states])
-            m_s = torch.stack([s_[1] for s_ in states])[..., None]
-            l_s = torch.stack([s_[2] for s_ in states])[..., None]
-            m_all = m_s.amax(0)
-            alpha = torch.exp(m_s - m_all)
-            l_all = (l_s * alpha).sum(0)
-            out[bi] = (acc_s * alpha).sum(0) / torch.where(l_all == 0, 1.0, l_all)
-    return out.reshape(b, hq, d).to(torch.bfloat16)
-
-
-def _row_err(j, t) -> float:
-    """Max over rows of max |t - j| / max |j| (an all-zero row of j must be
-    exactly zero in t)."""
-    ref = torch.from_numpy(np.asarray(j, np.float32))
-    diff = (t.float() - ref).abs().amax(-1)
-    den = ref.abs().amax(-1)
-    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
-    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
-
-
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("hq,hkv", [(25, 5), (32, 8), (32, 1)], ids=["g5", "g4", "g32"])
 @pytest.mark.parametrize("num_splits", [1, 3])
@@ -267,15 +182,14 @@ def test_tensor_core_k7_k8_arithmetic_matches_jax(d, hq, hkv, num_splits, window
     lj, lt = _lengths([0, 1, 203, 320])
     kw = dict(window=window, softcap=softcap, chunk=chunk, num_splits=num_splits)
     oj = jax_decode(qj, kj, vj, lj, interpret=True, **kw)
-    ot = _tensor_core_k7_k8(qt, kt, vt, lt, **kw)
-    assert _row_err(oj, ot) < ROW_TOL
+    ot = dense_k7_k8(qt, kt, vt, lt, **kw)
+    assert row_err(oj, ot) < ROW_TOL
     assert _diff(oj, ot) < BF16_TOL
     assert float(ot[0].float().abs().max()) == 0.0
     # Rows past each length change nothing: the tiles read them, masked.
     past = torch.arange(320)[None, None, :, None] >= lt.long()[:, None, None, None]
     big = torch.tensor(1e4, dtype=torch.bfloat16)
-    ot2 = _tensor_core_k7_k8(qt, torch.where(past, big, kt), torch.where(past, -big, vt),
-                             lt, **kw)
+    ot2 = dense_k7_k8(qt, torch.where(past, big, kt), torch.where(past, -big, vt), lt, **kw)
     assert torch.equal(ot, ot2)
 
 
