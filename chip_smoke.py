@@ -6,9 +6,10 @@ card and ``nvcc``; without a card, or outside a checkout, it exits non-zero
 and prints no result. Phases, in order (any failure exits non-zero):
 
   1. probe  — the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build  — compiles the nine kernels from ``src/repro_torch/csrc`` with
+  2. build  — compiles the kernels from ``src/repro_torch/csrc`` with
      nvcc for sm_90a, one nvcc per source in parallel; prints the build
-     time and ptxas' register / shared-memory lines;
+     time and ptxas' register and spill lines of every kernel (K9's four
+     instantiations among them);
   3. kernels — each kernel against its plain PyTorch version on the card,
      at llama3-8b widths in bf16 (Hq 32, Hkv 8, D 128, page size 16):
      max error at a stated tolerance, CUDA-event median times of kernel and
@@ -22,7 +23,9 @@ and prints no result. Phases, in order (any failure exits non-zero):
      4096 and at the paged serve run's decode shape, every launch on the
      tensor cores, ten reruns bitwise equal, timed with the launch queue
      primed and without, gather + SDPA beside them as a two-call
-     yardstick. Then the split-K estimator's modelled
+     yardstick; K3 / K4 in float32 (the CUDA-core kernels) at B 8, lengths
+     up to 4096, 1 and 4 splits, held at 2e-5 and timed. Then the split-K
+     estimator's modelled
      decode times beside the measured ones, and the fixed cost per call of
      the split path over the one-pass path; then K5
      (dQ) and K6 (dK/dV) in bf16, on the tensor cores, under both launch
@@ -35,22 +38,29 @@ and prints no result. Phases, in order (any failure exits non-zero):
      4 splits, SDPA on the expanded, masked stripes as the library
      yardstick, both timed with the launch queue primed; K7 / K8 in float32
      (the CUDA-core kernel) held at 2e-5 and timed; then K9
-     (SSD intra-chunk) at hymba-1.5b's and mamba2-1.3b's prefill shapes;
+     (SSD intra-chunk, on the tensor cores in 3xTF32) at hymba-1.5b's and
+     mamba2-1.3b's prefill shapes, in the layout ``ssd_chunked_cuda`` gives
+     it (B and C per group, G 1), held per slice at 1e-5, ten reruns
+     bitwise equal, its bound at the TF32 peak beside the float32 one, and
+     the whole SSD scan timed part by part;
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
      each; every kernel's launch count over that run must be above 0, and
      every K3 / K4 launch on the tensor cores. Then
-     one request's prefill and first-decode logits, kernel path against the
-     plain path on the card; then the same weights served from dense
-     stripes (``kv_layout="dense"``); then full-width hymba-1.5b through
+     one request's prefill and first-decode logits (of the plain path's
+     greedy token), kernel path against the plain path on the card; then
+     the same weights served from dense stripes (``kv_layout="dense"``);
+     then full-width hymba-1.5b through
      ``LLMEngine(cfg, params)`` (``kv_layout`` resolves to dense): 8 greedy
      requests off the prompt buckets, several past the 1024 window, then one
      of 4000 tokens alone, whose decode the plan splits (K8); then
      full-width mamba2-1.3b. Each dense run must launch its kernels (every
-     K7 / K8 launch of the llama and hymba runs on the tensor cores) and
+     K7 / K8 launch of the llama and hymba runs on the tensor cores; one K9
+     launch, on the tensor cores, per SSM layer per prefill) and
      hold its first-token and next-token logits to the plain path's (every
-     kernel off: ``attn_impl`` and ``ssm.impl`` "plain");
+     kernel off: ``attn_impl`` and ``ssm.impl`` "plain"; both paths decode
+     the plain path's greedy token);
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -84,6 +94,7 @@ SRC = os.path.join(ROOT, "src")
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 off the tensor cores, data sheet
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 on the tensor cores, data sheet
 PEAK_HBM_BW = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 # bf16 outputs against their plain versions, per row: max |o - ref| over
 # max |ref| of that row (a row of ref that is all zero must be exactly zero).
@@ -99,10 +110,11 @@ F32_TOL = 2e-5
 # slice of each gradient: float32 sums in another order differ by ~1e-6 of a
 # slice's max (the card tests' bar).
 GRAD_F32_TOL = 1e-5
-# K9 (float32 in and out) against its plain version, per (b, chunk, head)
-# slice: max |y - ref| over max |ref|. Both sum float32 FMAs over at most
-# q + N terms in another order (about 1e-6 relative); a dropped or
-# mis-masked key tile moves y by a large fraction of its max.
+# K9 (float32 in and out; its products in 3xTF32 on the tensor cores, about
+# 22 bits each) against its plain version, per (b, chunk, head) slice: max
+# |y - ref| over max |ref|. Both sum over at most q + N terms in another
+# order (about 1e-6 relative); a dropped or mis-masked key tile moves y by
+# a large fraction of its max, a single TF32 pass by ~5e-4.
 SSD_TOL = 1e-5
 # Logits of the kernel path against the plain path, relative to max |logit|:
 # bf16 attention outputs round differently in the two paths (~2^-8
@@ -156,8 +168,9 @@ KERNELS = {
                source="src/repro_torch/csrc/dense_decode.cu",
                replaces="src/repro/kernels/decode_attention.py:227",
                counter="flash_decode_split_tc"),
-    "K9": dict(name="K9 ssd_intra_chunk", source="src/repro_torch/csrc/ssd.cu",
-               replaces="src/repro/kernels/ssd.py:83", counter="ssd_intra_chunk"),
+    "K9": dict(name="K9 ssd_intra_chunk (float32, tensor cores in 3xTF32)",
+               source="src/repro_torch/csrc/ssd.cu",
+               replaces="src/repro/kernels/ssd.py:83", counter="ssd_intra_chunk_tc"),
 }
 
 
@@ -449,7 +462,9 @@ def check_paged_decode(torch, timer, results, gen):
     length mask. The bound counts each live key and value read once, q
     read and o written once, the table and lengths. Then the split-K
     estimator's modelled times beside the measured ones, and the split
-    path's fixed cost per call."""
+    path's fixed cost per call. Between them, the first case in float32 (the
+    CUDA-core kernels), one pass and 4 splits, held at F32_TOL and timed
+    against the float32 peak."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.core import numa, perf_model
@@ -514,6 +529,44 @@ def check_paged_decode(torch, timer, results, gen):
                                         bound_ms=dec_bound[0], bound_by=dec_bound[1],
                                         library_ms=None)
         del kp, vp, q, o, o_ref
+
+    # float32 stays on the CUDA cores: the first case again in float32, one
+    # pass and 4 splits, against the float32 peak.
+    mp = 4096 // PS
+    num_pages = 1 + b * mp
+    kp, vp = (torch.randn((HKV, num_pages, PS, D), generator=gen, device="cuda")
+              for _ in range(2))
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, mp).to(torch.int32).contiguous()
+    lengths = torch.tensor([4096, 0, 3001, 17, 2048, 4000, 1, 1500], dtype=torch.int32,
+                           device="cuda")
+    q = torch.randn((b, HQ, D), generator=gen, device="cuda")
+    live = int(lengths.sum())
+    f32_bound = bound(2 * HKV * live * D * 4 + nbytes(q, q, table, lengths),
+                      4.0 * HQ * D * live, PEAK_F32_FLOPS)
+    for ns in (1, 4):
+        key = "K3" if ns == 1 else "K4"
+        kernels.reset_launch_counts()
+        o = pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns)
+        counts = kernels.launch_counts()
+        o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, num_splits=ns)
+        torch.cuda.synchronize()
+        e = err(o, o_ref)
+        on_cuda_cores = (counts["paged_flash_decode"] + counts["paged_flash_decode_split"] == 1
+                         and counts["paged_flash_decode_tc"]
+                         + counts["paged_flash_decode_split_tc"] == 0)
+        ms = timer.ms(lambda: pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns),
+                      primed=True)
+        plain_ms = timer.ms(lambda: pd.paged_flash_decode_plain(q, kp, vp, table, lengths,
+                                                                num_splits=ns))
+        log(f"{key} float32 (CUDA cores) B 8, table 4096 num_splits {ns}: max_err {e:.3e} "
+            f"(tol {F32_TOL}), CUDA-core entry: {on_cuda_cores}, {ms:.4f} ms (queue primed), "
+            f"plain {plain_ms:.3f} ms, bound {f32_bound[0]:.5f} ms ({f32_bound[1]}, float32 "
+            f"peak)")
+        if e > F32_TOL or not on_cuda_cores:
+            raise AssertionError(f"{key} float32 num_splits {ns} disagrees with its plain "
+                                 "version")
+    del kp, vp, q, o, o_ref
 
     # The split-K estimator's modelled times for the first case, beside the
     # measured ones: the model is calibrated only where the two agree.
@@ -791,56 +844,83 @@ def check_dense_decode(torch, timer, results):
 def check_ssd(torch, timer, results):
     """K9 against its plain version at the prefill shapes of the serve path
     (B 1, L 4096, chunk 256): hymba-1.5b (H 50, P 64, N 16) and mamba2-1.3b
-    (H 64, P 64, N 128), per (b, chunk, head) slice within SSD_TOL. Inputs
-    as ``ssd_chunked_cuda`` makes them: dt = softplus(normal), A = -exp of
-    the JAX package's initial log-decay range, acum the in-chunk cumsum.
-    The bound counts the causal half of the two (q x q) products and the
-    state product at the float32 peak, and each input read and output
-    written once; the JSON line takes hymba's case. No one PyTorch call
-    computes this block: no library time."""
+    (H 64, P 64, N 128), one group of B and C (G 1), in the layout
+    ``ssd_chunked_cuda`` gives the kernel: ``ssd.chunk_inputs`` of x, B, C
+    in bf16 as the SSM block passes them, dt = softplus(normal) and A = -1
+    .. -16 over the heads. Per (b, chunk, head) slice within SSD_TOL, both
+    routes' error against float64 printed, ten reruns bitwise equal. Timed
+    with the launch queue primed (the card's time; the JSON line takes
+    hymba's case) and without. The bound counts the causal half of the two
+    (q x q) products and the state product, three TF32 products each (the
+    3xTF32 split) at the dense TF32 peak, against each input read once (B
+    and C once per group) and y and the state written once; the bound at
+    the float32 peak (one float32 product each) is printed beside it. Then
+    the whole ``ssd_chunked_cuda`` call and its parts: the preparation
+    (padding, cumsum, dt x, float32 copies), K9, and the recurrence with
+    the cross-chunk term. No one PyTorch call computes this block: no
+    library time."""
     from repro_torch.kernels import ssd
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    bsz, length, q = 1, 4096, 256
-    nc = length // q
+    bsz, length, chunk = 1, 4096, 256
+    perm = (0, 1, 3, 2, 4)
     for label, h, p, n in (("hymba-1.5b", 50, 64, 16), ("mamba2-1.3b", 64, 64, 128)):
-        dt = torch.nn.functional.softplus(randn(bsz, nc, h, q))
+        x = randn(bsz, length, h, p, dtype=torch.bfloat16)
+        dt = torch.nn.functional.softplus(randn(bsz, length, h))
         a = -torch.linspace(1.0, 16.0, h, device="cuda")
-        acum = torch.cumsum(dt * a[None, None, :, None], dim=-1).contiguous()
-        xdt = (randn(bsz, nc, h, q, p) * dt[..., None]).contiguous()
-        bh, ch = randn(bsz, nc, h, q, n), randn(bsz, nc, h, q, n)
-        y, s = ssd.ssd_intra_chunk(xdt, bh, ch, acum)
-        y_ref, s_ref = ssd.ssd_intra_chunk_plain(xdt, bh, ch, acum)
+        bm, cm = (randn(bsz, length, 1, n, dtype=torch.bfloat16) for _ in range(2))
+        xdt, bq, cq, acum = ssd.chunk_inputs(x, dt, a, bm, cm, chunk)
+        nc, q = xdt.shape[1], xdt.shape[2]
+        jax_layout = (xdt.permute(perm), bq.permute(perm), cq.permute(perm),
+                      acum.permute(0, 1, 3, 2))
+
+        def run():
+            return ssd.ssd_intra_chunk_seq(xdt, bq, cq, acum)
+
+        y, s = run()
+        y_ref, s_ref = ssd.ssd_intra_chunk_plain(*jax_layout)
         # The same function in float64: how far each float32 route is from it.
         y64, s64 = (t.float() for t in ssd.ssd_intra_chunk_plain(
-            *(t.double() for t in (xdt, bh, ch, acum))))
+            *(t.double() for t in jax_layout)))
         torch.cuda.synchronize()
-        e_y, e_s = slice_err(y, y_ref), slice_err(s, s_ref)
-        e = max(err(y, y_ref), err(s, s_ref))
-        log(f"K9 {label} against float64: kernel y {slice_err(y, y64):.3e} s "
-            f"{slice_err(s, s64):.3e}, plain y {slice_err(y_ref, y64):.3e} s "
+        yk, sk = y.permute(perm), s.transpose(-1, -2)          # the JAX layout, as views
+        e_y, e_s = slice_err(yk, y_ref), slice_err(sk, s_ref)
+        e = max(err(yk, y_ref), err(sk, s_ref))
+        log(f"K9 {label} against float64: kernel y {slice_err(yk, y64):.3e} s "
+            f"{slice_err(sk, s64):.3e}, plain y {slice_err(y_ref, y64):.3e} s "
             f"{slice_err(s_ref, s64):.3e} (per-slice relative)")
-        del y64, s64
-        ms = timer.ms(lambda: ssd.ssd_intra_chunk(xdt, bh, ch, acum))
-        plain_ms = timer.ms(lambda: ssd.ssd_intra_chunk_plain(xdt, bh, ch, acum))
-        cells = bsz * nc * h
-        ops = 2.0 * cells * (q * (q + 1) // 2 * (n + p) + q * n * p)
-        k9_bound = bound(nbytes(xdt, bh, ch, acum, y, s), ops, PEAK_F32_FLOPS)
-        log(f"K9 {label} (B {bsz}, L {length}, H {h}, P {p}, N {n}, q {q}): per-slice "
-            f"relative y {e_y:.3e} s {e_s:.3e} (tol {SSD_TOL:.0e}), max abs {e:.3e}, "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {k9_bound[0]:.4f} ms "
-            f"({k9_bound[1]}, float32 peak)")
-        if max(e_y, e_s) > SSD_TOL:
+        del y64, s64, y_ref, s_ref
+        same = all(all(torch.equal(u, v) for u, v in zip(run(), (y, s))) for _ in range(10))
+        ms = timer.ms(run, primed=True)
+        event_ms = timer.ms(run)
+        plain_ms = timer.ms(lambda: ssd.ssd_intra_chunk_plain(*jax_layout))
+        ops = 2.0 * bsz * nc * h * (q * (q + 1) // 2 * (n + p) + q * n * p)
+        moved = nbytes(xdt, bq, cq, acum, y, s)
+        k9_bound = bound(moved, 3 * ops, PEAK_TF32_FLOPS)
+        f32_bound = bound(moved, ops, PEAK_F32_FLOPS)
+        log(f"K9 {label} (B {bsz}, L {length}, H {h}, P {p}, N {n}, G 1, q {q}): per-slice "
+            f"relative y {e_y:.3e} s {e_s:.3e} (tol {SSD_TOL:.0e}), max abs {e:.3e}, 10 reruns "
+            f"bitwise equal {same}; {ms:.4f} ms (queue primed; {event_ms:.4f} ms with the "
+            f"wrapper's host time), plain {plain_ms:.3f} ms; bound {k9_bound[0]:.4f} ms "
+            f"({k9_bound[1]}: {moved / 1e6:.1f} MB, 3 x {ops / 1e9:.2f} GFLOP at the TF32 "
+            f"peak), {f32_bound[0]:.4f} ms at the float32 peak ({f32_bound[1]})")
+        if max(e_y, e_s) > SSD_TOL or not same:
             raise AssertionError(f"K9 {label} disagrees with its plain version")
         if "K9" not in results:
             results["K9"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                                  bound_ms=k9_bound[0], bound_by=k9_bound[1], library_ms=None)
-        del xdt, bh, ch, acum, y, s, y_ref, s_ref
+        whole = timer.ms(lambda: ssd.ssd_chunked_cuda(x, dt, a, bm, cm, chunk), primed=True)
+        prep = timer.ms(lambda: ssd.chunk_inputs(x, dt, a, bm, cm, chunk), primed=True)
+        rest = timer.ms(lambda: ssd.inter_chunk(y, s, cq, acum, length), primed=True)
+        log(f"ssd_chunked_cuda {label} (bf16 x, B, C): {whole:.4f} ms (queue primed); parts "
+            f"alone: preparation {prep:.4f} ms, K9 {ms:.4f} ms, recurrence + y_inter "
+            f"{rest:.4f} ms")
+        del x, dt, bm, cm, xdt, bq, cq, acum, y, s, yk, sk
 
 
 def split_path_cost(torch, pd, randn, calls=200, rounds=5):
@@ -947,14 +1027,16 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
     small = dict(engine_kw, max_batch=1, num_pages=80, max_pages_per_seq=40,
                  prompt_buckets=(256, 512))
-    outs = {}
-    for name, c in (("cuda", cfg), ("plain", plain_cfg)):
+    outs, tokens = {}, {}
+    # The plain path first: both paths then decode its greedy token, so a
+    # near-tie that flips the first argmax cannot hand them different inputs.
+    for name, c in (("plain", plain_cfg), ("cuda", cfg)):
         eng = LLMEngine(c, params, **small)
         logits = []
         for uid, prompt in ((0, prompts_a[0]), (1, prompts_a[1])):
             rec = eng.backend.try_admit(Request(uid=uid, prompt=prompt, sampling=greedy))
             first = eng.backend.flush([rec])[rec["row"]]
-            tok = int(first.argmax())
+            tok = tokens.setdefault(uid, int(first.argmax()))
             eng.backend.reserve_rows()
             nxt = eng.backend.decode([rec["row"]], [tok])[0]
             logits += [first.float(), nxt.float()]
@@ -982,7 +1064,8 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
     engine's default ("auto"), which must resolve to dense. Then the
     first-token and next-token logits of ``compare_lens`` prompts, kernel
     path against the plain path (attention and SSM impl "plain"), each
-    prompt alone, within LOGIT_TOL of the plain path's max |logit|."""
+    prompt alone, within LOGIT_TOL of the plain path's max |logit|; the next
+    token both paths decode is the plain path's greedy one."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1031,20 +1114,33 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
         check_k1_route(f"serve {cfg.name} dense", counts)
     if "K7" in want or "K8" in want:
         check_dense_route(f"serve {cfg.name} dense", counts)
+    if "K9" in want:
+        # K9 has one kernel, on the tensor cores: one launch per SSM layer
+        # per prefill forward.
+        n_ssm = sum(spec.kind in ("mamba", "hybrid") for spec in cfg.layer_specs())
+        k9, want_k9 = counts["ssd_intra_chunk_tc"], n_ssm * stats.prefill_launches
+        log(f"serve {cfg.name} dense: K9 launches {k9} on the tensor cores "
+            f"(ssd_intra_chunk_tc), {n_ssm} SSM layers x {stats.prefill_launches} prefills "
+            f"= {want_k9}")
+        if k9 != want_k9:
+            raise AssertionError(f"serve {cfg.name}: {k9} K9 launches, expected {want_k9}")
     engine.close()
     del engine
 
     plain_cfg = dataclasses.replace(
         cfg, attn_impl="plain",
         ssm=dataclasses.replace(cfg.ssm, impl="plain") if cfg.ssm else None)
-    outs = {}
-    for name, c in (("cuda", cfg), ("plain", plain_cfg)):
+    outs, tokens = {}, {}
+    # The plain path first: both paths then decode its greedy token, so a
+    # near-tie that flips the first argmax cannot hand them different inputs.
+    for name, c in (("plain", plain_cfg), ("cuda", cfg)):
         eng = LLMEngine(c, params, **dict(kw, max_batch=1))
         logits = []
         for n in compare_lens:
             rec = eng.backend.try_admit(Request(uid=n, prompt=prompts[n], sampling=greedy))
             first = eng.backend.flush([rec])[rec["row"]]
-            nxt = eng.backend.decode([rec["row"]], [int(first.argmax())])[0]
+            tok = tokens.setdefault(n, int(first.argmax()))
+            nxt = eng.backend.decode([rec["row"]], [tok])[0]
             logits += [(f"prefill {n}", first.float()), (f"decode after {n}", nxt.float())]
             eng.backend.release(rec["row"])
         outs[name] = logits
@@ -1270,7 +1366,7 @@ def main() -> int:
     timer = Timer(torch)
     check_kernels(torch, timer, results)
     check_backward(torch, timer, results)
-    log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32)")
+    log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32 in 3xTF32)")
     check_dense_decode(torch, timer, results)
     check_ssd(torch, timer, results)
     del timer

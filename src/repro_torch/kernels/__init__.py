@@ -11,7 +11,9 @@ bf16 tensor-core launches alone), K7/K8
 ``decode_attention.flash_decode`` (dense one-pass / split-K;
 ``flash_decode_tc`` and ``flash_decode_split_tc`` count the bf16
 tensor-core launches alone) and K9
-``ssd.ssd_intra_chunk`` (the Mamba-2 SSD intra-chunk block). Each wrapper
+``ssd.ssd_intra_chunk`` / ``ssd.ssd_intra_chunk_seq`` (the Mamba-2 SSD
+intra-chunk block, one kernel on the tensor cores in 3xTF32 for every
+call: ``ssd_intra_chunk_tc``). Each wrapper
 counts the launches of its CUDA kernel; :func:`launch_counts` reads them
 and :func:`reset_launch_counts` sets them to zero.
 """
@@ -47,7 +49,7 @@ def launch_counts() -> Dict[str, int]:
         "flash_decode_split": decode_attention.launches["split"],
         "flash_decode_tc": decode_attention.launches["one_pass_tc"],
         "flash_decode_split_tc": decode_attention.launches["split_tc"],
-        "ssd_intra_chunk": ssd.launches,
+        "ssd_intra_chunk_tc": ssd.launches,
     }
 
 

@@ -17,10 +17,11 @@ lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
 cores and is held at 2e-5. K3/K4 and K7/K8 likewise: bf16 on the tensor
 cores (P rounded to bf16), float32 on the CUDA cores.
-K9 (float32 in and out) is held per (b, chunk, head) slice: max |y - ref|
-within 1e-5 of the slice's max |ref| (float32 sums of at most q + N terms
-taken in another order; a dropped key tile moves y by a large fraction of
-its max).
+K9 (float32 in and out, its products on the tensor cores in 3xTF32, about
+22 bits each) is held per (b, chunk, head) slice: max |y - ref| within 1e-5
+of the slice's max |ref| (sums of at most q + N terms taken in another
+order; a dropped key tile moves y by a large fraction of its max, a single
+TF32 pass by ~5e-4).
 """
 
 import dataclasses
@@ -731,11 +732,48 @@ def _ssd_inputs(rng, dev, b, l, h, p, g, n):
     return x, dt, a, bm, cm
 
 
+def _ssd_seq_inputs(rng, dev, b, nc, q, h, p, g, n, layout):
+    """K9's inputs in the layout ``ssd_chunked_cuda`` passes: xdt (B,nc,q,H,P),
+    acum (B,nc,q,H), and B / C (B,nc,q,G,N) as slices of one wider row, at
+    a 16-byte-aligned offset (read in place) or, for ``misaligned``, one
+    float off (the wrapper copies them first)."""
+    xdt = _randn(rng, (b, nc, q, h, p), dev)
+    off = 1 if layout == "misaligned" else 4
+    wide = _randn(rng, (2, b, nc, q, g, n + 8), dev)
+    bq, cq = wide[0, ..., off:off + n], wide[1, ..., off:off + n]
+    dta = -torch.nn.functional.softplus(_randn(rng, (b, nc, q, h), dev)) * 0.5
+    return xdt, bq, cq, torch.cumsum(dta, dim=2)
+
+
+def _ssd_check_seq(xdt, bq, cq, acum):
+    """K9 on the sequence-major entry against the plain version on the
+    per-head JAX layout, per slice."""
+    perm = (0, 1, 3, 2, 4)
+    y, s = ssd_kernel.ssd_intra_chunk_seq(xdt, bq, cq, acum)
+    y_ref, s_ref = ssd_kernel.ssd_intra_chunk_plain(xdt.permute(perm), bq.permute(perm),
+                                                    cq.permute(perm), acum.permute(0, 1, 3, 2))
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert _slice_rel(y.permute(perm), y_ref) <= SSD_TOL
+    assert _slice_rel(s.transpose(-1, -2), s_ref) <= SSD_TOL
+    return y, s
+
+
+@pytest.mark.parametrize("layout", ["per_head", "g1", "g2", "misaligned"])
 @pytest.mark.parametrize("n,p", ssd_kernel.SHAPES)
-@pytest.mark.parametrize("q", [256, 200, 32])
-def test_ssd_intra_chunk_matches_plain(cuda, n, p, q):
+@pytest.mark.parametrize("q", [300, 256, 200, 100, 32])
+def test_ssd_intra_chunk_matches_plain(cuda, n, p, q, layout):
+    """Per head in the JAX layout, as the JAX function takes it; and in the
+    layout ``ssd_chunked_cuda`` passes, B and C per group (G 1 and 2 over H
+    4) read in place through their strides, or copied when misaligned.
+    Chunks of any length: 300 takes three query tiles, 100 is a prompt
+    shorter than the chunk."""
     rng = np.random.default_rng(63)
-    b, nc, h = 2, 3, 3
+    b, nc, h = 2, 3, 4
+    if layout != "per_head":
+        g = 2 if layout == "g2" else 1
+        _ssd_check_seq(*_ssd_seq_inputs(rng, cuda, b, nc, q, h, p, g, n, layout))
+        return
     xdt = _randn(rng, (b, nc, h, q, p), cuda)
     bh, ch = _randn(rng, (b, nc, h, q, n), cuda), _randn(rng, (b, nc, h, q, n), cuda)
     dta = -torch.nn.functional.softplus(_randn(rng, (b, nc, h, q), cuda)) * 0.5
@@ -747,10 +785,47 @@ def test_ssd_intra_chunk_matches_plain(cuda, n, p, q):
     assert _slice_rel(s, s_ref) <= SSD_TOL
 
 
+@pytest.mark.parametrize("n,p", [(16, 64), (128, 64)])
+def test_ssd_intra_chunk_masks_before_exp(cuda, n, p):
+    """acum spanning -60..0 and -100..0 over a chunk: above the diagonal seg
+    reaches +100, where exp overflows float32; masked in log space first,
+    every output is finite and within SSD_TOL of the plain version."""
+    rng = np.random.default_rng(66)
+    b, nc, q, h = 1, 2, 256, 2
+    xdt, bq, cq, _ = _ssd_seq_inputs(rng, cuda, b, nc, q, h, p, 1, n, "g1")
+    steps = torch.from_numpy(rng.exponential(1.0, (b, nc, q, h)).astype(np.float32)).to(cuda)
+    acum = -torch.cumsum(steps, 2) / steps.sum(2, keepdim=True)
+    acum = acum * torch.tensor([60.0, 100.0], device=cuda)
+    _ssd_check_seq(xdt, bq, cq, acum)
+
+
+def test_ssd_intra_chunk_reruns_are_bitwise_equal(cuda):
+    """No atomics: 100 reruns at mamba2's widths give the same bits."""
+    rng = np.random.default_rng(67)
+    args = _ssd_seq_inputs(rng, cuda, 1, 4, 256, 4, 64, 1, 128, "g1")
+    y, s = _ssd_check_seq(*args)
+    differ = 0
+    for _ in range(100):
+        y2, s2 = ssd_kernel.ssd_intra_chunk_seq(*args)
+        differ += not (torch.equal(y, y2) and torch.equal(s, s2))
+    assert differ == 0
+
+
+@pytest.mark.parametrize("view", ["contiguous", "xbc_slices"])
 @pytest.mark.parametrize("l,n,p,g", [(512, 16, 64, 1), (300, 128, 64, 1), (256, 16, 128, 2)])
-def test_ssd_chunked_cuda_matches_plain_and_hands_off_state(cuda, l, n, p, g):
+def test_ssd_chunked_cuda_matches_plain_and_hands_off_state(cuda, l, n, p, g, view):
+    """The scan on K9 against the plain scan, and the state handed from one
+    half to the next; B and C either contiguous or, as the SSM block passes
+    them, slices of one projection row (bf16 there; float32 here)."""
     rng = np.random.default_rng(64)
     x, dt, a, bm, cm = _ssd_inputs(rng, cuda, 2, l, 4, p, g, n)
+    if view == "xbc_slices":
+        xbc = _randn(rng, (2, l, 8 + 2 * g * n), cuda)
+        xbc[..., 8:8 + g * n] = bm.reshape(2, l, g * n)
+        xbc[..., 8 + g * n:] = cm.reshape(2, l, g * n)
+        bm = xbc[..., 8:8 + g * n].reshape(2, l, g, n)
+        cm = xbc[..., 8 + g * n:].reshape(2, l, g, n)
+        assert not bm.is_contiguous()
     y, hT = ssd_kernel.ssd_chunked_cuda(x, dt, a, bm, cm, 128)
     y_ref, h_ref = ssm.ssd_chunked(x, dt, a, bm, cm, 128)
     torch.cuda.synchronize()
@@ -779,11 +854,14 @@ def test_new_kernels_count_and_refuse_grad(cuda):
     dd.flash_decode(q, kc, vc, lengths)
     dd.flash_decode(q, kc, vc, lengths, num_splits=3)
     ssd_kernel.ssd_intra_chunk(xdt, bh, bh, acum)
+    perm = (0, 1, 3, 2, 4)
+    ssd_kernel.ssd_intra_chunk_seq(xdt.permute(perm), bh[:, :, :1].permute(perm),
+                                   bh[:, :, :1].permute(perm), acum.permute(0, 1, 3, 2))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["flash_decode"] == 1 and counts["flash_decode_split"] == 1
     assert counts["flash_decode_tc"] == 1 and counts["flash_decode_split_tc"] == 1
-    assert counts["ssd_intra_chunk"] == 1
+    assert counts["ssd_intra_chunk_tc"] == 2
     with pytest.raises(RuntimeError, match="flash_decode"):
         dd.flash_decode(q.requires_grad_(True), kc, vc, lengths)
     with pytest.raises(RuntimeError, match="ssd_intra_chunk"):
@@ -851,7 +929,7 @@ def test_dense_engine_on_kernels_matches_plain_hymba(cuda):
         counts = kernels.launch_counts()
         tokens[impl] = {o.uid: [int(t) for t in o.tokens] for o in out}
         if impl == "auto":
-            assert counts["flash_attention_fwd"] > 0 and counts["ssd_intra_chunk"] > 0
+            assert counts["flash_attention_fwd"] > 0 and counts["ssd_intra_chunk_tc"] > 0
             assert counts["flash_decode"] + counts["flash_decode_split"] > 0
         else:
             assert sum(counts.values()) == 0
