@@ -18,7 +18,13 @@ and prints no result. Phases, in order (any failure exits non-zero):
      tensor-core kernel: every launch order (head-first and block-first
      bitwise equal), window + softcap, hymba-1.5b's widths (timed with SDPA
      beside it); K1 in float32 (the CUDA-core kernel) held at 2e-5 and
-     timed at the same B 2, S 2048; K2; then K3 / K4 (paged decode, one
+     timed at the same B 2, S 2048; then K2 (paged prefix prefill; bf16 on
+     the tensor cores) at B 2, prefix 1000, tail 256 and at the paged serve
+     run's extend shape, every launch on the tensor cores, rows past
+     tail_len exactly zero, ten reruns bitwise equal, timed with the launch
+     queue primed and without, gather + SDPA beside it as a two-call
+     yardstick; K2 in float32 (the CUDA-core kernel) held at 2e-5 and timed;
+     then K3 / K4 (paged decode, one
      pass and split-K; bf16 on the tensor cores) at B 8 with lengths up to
      4096 and at the paged serve run's decode shape, every launch on the
      tensor cores, ten reruns bitwise equal, timed with the launch queue
@@ -47,7 +53,7 @@ and prints no result. Phases, in order (any failure exits non-zero):
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
      each; every kernel's launch count over that run must be above 0, and
-     every K3 / K4 launch on the tensor cores. Then
+     every K1, K2 and K3 / K4 launch on the tensor cores. Then
      one request's prefill and first-decode logits (of the plain path's
      greedy token), kernel path against the plain path on the card; then
      the same weights served from dense stripes (``kv_layout="dense"``);
@@ -141,9 +147,10 @@ KERNELS = {
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:361",
                counter="flash_attention_fwd_tc"),
-    "K2": dict(name="K2 paged_flash_prefill", source="src/repro_torch/csrc/paged_prefill.cu",
+    "K2": dict(name="K2 paged_flash_prefill (bf16, tensor cores)",
+               source="src/repro_torch/csrc/paged_prefill.cu",
                replaces="src/repro/kernels/paged_prefill_attention.py:277",
-               counter="paged_flash_prefill"),
+               counter="paged_flash_prefill_tc"),
     "K3": dict(name="K3 paged_flash_decode (bf16, tensor cores)",
                source="src/repro_torch/csrc/paged_decode.cu",
                replaces="src/repro/kernels/paged_decode_attention.py:262",
@@ -403,37 +410,123 @@ def check_kernels(torch, timer, results):
         f"library sdpa {lib_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}, float32 peak)")
     del q, k, v, o, lse, o_ref, lse_ref
 
-    # K2: prefix 1000 tokens (not a page multiple), tail 256, B 2.
-    b, plen, st = 2, 1000, 256
-    mp = -(-plen // PS)
-    num_pages = 1 + b * mp
-    kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
-    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
-    table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
-    q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
-    plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
-    tlens = torch.tensor([st, st - 37], dtype=torch.int32, device="cuda")
-    args = (q, kp, vp, table, kt, vt, plens, tlens)
+    check_paged_prefill(torch, timer, results, gen)
+    check_paged_decode(torch, timer, results, gen)
+
+
+def check_k2_route(label, counts, tensor_cores=True):
+    """Every K2 launch went to the tensor-core kernel (bf16), or none did
+    (float32)."""
+    total, tc = counts["paged_flash_prefill"], counts["paged_flash_prefill_tc"]
+    log(f"{label}: K2 launches {total}, on the tensor cores {tc}")
+    if total <= 0 or tc != (total if tensor_cores else 0):
+        raise AssertionError(f"{label}: K2 launches {total}, {tc} on the tensor cores")
+
+
+def check_paged_prefill(torch, timer, results, gen):
+    """K2, bf16 on the tensor cores, against its plain version over
+    scattered page tables, per row within ROW_TOL, rows at or past tail_len
+    exactly zero, ten reruns bitwise equal, every launch on the tensor-core
+    kernel: B 2 with a prefix of 1000 positions (not a page multiple) and a
+    tail of 256, the second row's live to 219 (the JSON line takes this),
+    then the paged serve run's extend shape, the 7 requests that hit the
+    256-token system prefix, each a full tail of 256 over a 16-page table.
+    No one PyTorch call computes K2 (library_ms stays None); the yardstick
+    beside it is two calls, gather + SDPA: ``index_select`` of the table's
+    pages into dense stripes joined to the tail, then
+    ``scaled_dot_product_attention`` with ``enable_gqa=True`` and the
+    prefix / causal / tail_len mask as an explicit one. The bound counts
+    the live prefix K/V read once, q, the tail K/V and the lengths read and
+    o written once, against 4 D operations per live (row, key) pair. Then
+    the first case in float32 (the CUDA-core kernel), held at F32_TOL and
+    timed against the float32 peak."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import paged_prefill_attention as pp
+
+    def inputs(b, plen, st, tlens, dtype=torch.bfloat16):
+        mp = -(-plen // PS)
+        num_pages = 1 + b * mp
+        randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
+        perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+        table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
+        q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
+        plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+        return (q, kp, vp, table, kt, vt, plens,
+                torch.tensor(tlens, dtype=torch.int32, device="cuda"))
+
+    def k2_bound(args, o, peak=PEAK_BF16_FLOPS):
+        q, kp, _, table, kt, vt, plens, tlens = args
+        plen = plens.tolist()
+        pairs = HQ * sum(t * p + t * (t + 1) // 2 for t, p in zip(tlens.tolist(), plen))
+        live_kv = 2 * HKV * sum(plen) * D * kp.element_size()
+        return bound(live_kv + nbytes(q, kt, vt, o, table, plens, tlens), 4.0 * D * pairs,
+                     peak)
+
+    def gather_sdpa(args, mask):
+        q, kp, vp, table, kt, vt, plens, tlens = args
+        b, mp = table.shape
+        k, v = (torch.cat([p.index_select(1, table.flatten()).view(HKV, b, mp * PS, D)
+                           .transpose(0, 1), t], dim=2) for p, t in ((kp, kt), (vp, vt)))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    def sdpa_mask(args):
+        q, _, _, table, _, _, plens, tlens = args
+        rows = torch.arange(q.shape[2], device="cuda")[None, :, None]
+        cp = torch.arange(table.shape[1] * PS, device="cuda")[None, None, :]
+        ct = torch.arange(q.shape[2], device="cuda")[None, None, :]
+        ok = rows < tlens[:, None, None]
+        return torch.cat([(cp < plens[:, None, None]) & ok, (ct <= rows) & ok], dim=-1)[:, None]
+
+    for label, b, plen, st, tlens in (
+            ("prefix 1000 tail 256", 2, 1000, 256, [256, 219]),
+            ("serve extend shape, B 7 x prefix 256 tail 256", 7, 256, 256, [256] * 7)):
+        args = inputs(b, plen, st, tlens)
+        run = lambda: pp.paged_flash_prefill(*args)
+        kernels.reset_launch_counts()
+        o = run()
+        check_k2_route(f"K2 {label}", kernels.launch_counts())
+        o_ref = pp.paged_flash_prefill_plain(*args)
+        torch.cuda.synchronize()
+        e, e_r = err(o, o_ref), row_err(o, o_ref)
+        past = sum(float(o[i, :, t:].float().abs().sum()) for i, t in enumerate(tlens))
+        same = all(torch.equal(run(), o) for _ in range(10))
+        kb = k2_bound(args, o)
+        mask = sdpa_mask(args)
+        ms = timer.ms(run, primed=True)
+        event_ms = timer.ms(run)
+        plain_ms = timer.ms(lambda: pp.paged_flash_prefill_plain(*args))
+        yard_ms = timer.ms(lambda: gather_sdpa(args, mask), primed=True)
+        log(f"K2 {label}: max_err {e:.3e} (row-relative {e_r:.3e}, tol {ROW_TOL:.3e}), rows "
+            f"past tail_len sum |o| {past}, 10 reruns bitwise equal {same}, {ms:.4f} ms (queue "
+            f"primed; {event_ms:.4f} ms with the wrapper's host time), plain {plain_ms:.3f} ms, "
+            f"gather + sdpa {yard_ms:.4f} ms (two calls, primed), bound {kb[0]:.5f} ms "
+            f"({kb[1]})")
+        if e_r > ROW_TOL or past != 0.0 or not same:
+            raise AssertionError(f"K2 {label} disagrees with its plain version")
+        if "K2" not in results:
+            results["K2"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=kb[0],
+                                 bound_by=kb[1], library_ms=None)
+        del args, o, o_ref, mask
+
+    # float32 stays on the CUDA cores: the first case again in float32.
+    args = inputs(2, 1000, 256, [256, 219], dtype=torch.float32)
+    kernels.reset_launch_counts()
     o = pp.paged_flash_prefill(*args)
+    check_k2_route("K2 float32", kernels.launch_counts(), tensor_cores=False)
     o_ref = pp.paged_flash_prefill_plain(*args)
     torch.cuda.synchronize()
-    e, e_r = err(o, o_ref), row_err(o, o_ref)
-    ms = timer.ms(lambda: pp.paged_flash_prefill(*args))
+    e = err(o, o_ref)
+    fb = k2_bound(args, o, PEAK_F32_FLOPS)
+    ms = timer.ms(lambda: pp.paged_flash_prefill(*args), primed=True)
     plain_ms = timer.ms(lambda: pp.paged_flash_prefill_plain(*args))
-    live_rows = int(tlens.sum())
-    pairs = HQ * (live_rows * plen + sum(t * (t + 1) // 2 for t in tlens.tolist()))
-    kv_read = 2 * b * HKV * plen * D * 2
-    k2_bound = bound(kv_read + nbytes(q, kt, vt, o, table, plens, tlens), 4.0 * D * pairs)
-    log(f"K2 prefix {plen} tail {st}: max_err {e:.3e} (row-relative {e_r:.3e}, tol "
-        f"{ROW_TOL:.3e}) {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {k2_bound[0]:.3f} ms "
-        f"({k2_bound[1]})")
-    if e_r > ROW_TOL:
-        raise AssertionError("K2 disagrees with its plain version")
-    results["K2"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=k2_bound[0],
-                         bound_by=k2_bound[1], library_ms=None)
-    del kp, vp, q, kt, vt, o, o_ref
-
-    check_paged_decode(torch, timer, results, gen)
+    log(f"K2 float32 (CUDA cores) prefix 1000 tail 256: max_err {e:.3e} (tol {F32_TOL}), "
+        f"{ms:.4f} ms (queue primed), plain {plain_ms:.3f} ms, bound {fb[0]:.5f} ms ({fb[1]}, "
+        f"float32 peak)")
+    if e > F32_TOL:
+        raise AssertionError("K2 float32 disagrees with its plain version")
+    del args, o, o_ref
 
 
 def check_paged_route(label, counts):
@@ -1013,6 +1106,7 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
         f"(host clock); prefix hit rate {stats.prefix_hit_rate:.3f}")
     log(f"launch counts over the serve run: {json.dumps(counts)}")
     check_k1_route("serve llama3-8b paged", counts)
+    check_k2_route("serve llama3-8b paged", counts)
     check_paged_route("serve llama3-8b paged", counts)
     for key in ("K1", "K2", "K3", "K4"):
         if counts[KERNELS[key]["counter"]] <= 0:

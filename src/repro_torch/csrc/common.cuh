@@ -24,24 +24,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// Eight consecutive elements from a 16-byte aligned address, widened to
-// float32: one 16-byte load for bf16, two for float32.
+// Eight consecutive float32 elements from a 16-byte aligned address, in two
+// 16-byte loads.
 __device__ __forceinline__ void load8(const float* src, float* dst) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
   const float4 b = reinterpret_cast<const float4*>(src)[1];
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ void zero8(float* dst) {

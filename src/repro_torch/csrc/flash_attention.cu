@@ -17,16 +17,12 @@
 //   owns 128 query rows of one (b, q head): warpgroups 0 and 1 consume 64
 //   rows each, warpgroup 2 loads. One producer thread issues TMA loads of
 //   the Q tile (once) and of 128-key K and V tiles through a two-stage ring
-//   in shared memory (each stage a "full" mbarrier armed with its bytes and
-//   an "empty" one the eight consumer warps arrive on), so the next tile's
-//   copy overlaps this tile's products. S = Q K^T is wgmma m64n128k16 with
-//   both operands K-major from 128-byte-swizzled shared memory; the online
-//   softmax runs on S's registers (each row over the four threads of a
-//   quad, ex2.approx with scale * log2(e) folded into one multiply, masks
-//   only on tiles that straddle a boundary); P is rounded to bf16 in place,
-//   which is the A-register fragment of O += P V (wgmma with V MN-major,
-//   the transpose bit set). setmaxnreg gives the consumers 240 registers
-//   and the producer 24. Tensor maps are 3-D (D, S, B * H): a tile past S
+//   in shared memory, so the next tile's copy overlaps this tile's
+//   products. The consumers are prefill_tc.cuh's, shared with K2: S = Q K^T
+//   and O += P V as wgmma m64n128k16 from 128-byte-swizzled shared memory,
+//   the online softmax on S's registers (masks only on tiles that straddle
+//   a boundary), P rounded to bf16 as the A-register fragment of P V,
+//   setmaxnreg 240 / 24. Tensor maps are 3-D (D, S, B * H): a tile past S
 //   is zero-filled by the hardware instead of reading the next head's rows,
 //   and O leaves through shared memory by a TMA store that drops the rows
 //   past Sq.
@@ -46,7 +42,7 @@
 // is still in L2). Causal and window bounds skip whole KV tiles, so the
 // triangular half of the work is never done. No order changes a block's
 // arithmetic: head-first and block-first give the same bits.
-#include "hopper.cuh"
+#include "prefill_tc.cuh"
 #include "prefill_tile.cuh"
 
 namespace {
@@ -144,24 +140,31 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 
 namespace tc {
 
-constexpr int BM = 128;        // q rows of a block: two consumer warpgroups of 64
-constexpr int BN = 128;        // keys of a K / V tile
-constexpr int STAGES = 2;      // K / V tiles in flight
-constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, warpgroup 2 loads
-constexpr int CONSUMER_WARPS = 8;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+using ptc::BM;
+using ptc::BN;
+using ptc::STAGES;
+using ptc::THREADS;
 
-// Dynamic shared memory, in bytes from a 1024-byte aligned base: Q, then
-// the K and V stages, each a tile of D / 64 swizzled column chunks.
-template <int D>
-struct Smem {
-  static constexpr int TILE = BN * D * 2;
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BM * D * 2;
-  static constexpr int V = K + STAGES * TILE;
-  static constexpr int BAR = V + STAGES * TILE;   // full[STAGES], empty[STAGES], q
-  static constexpr size_t bytes = BAR + 8 * (2 * STAGES + 1) + 1024;   // + base alignment
+// K1's KV tiles: [n_lo, n_hi) of the dense K / V, walked backwards on odd q
+// blocks under sawtooth; masks past kv_len, above the diagonal and before
+// the window.
+struct DenseWalk {
+  int n_lo, n_hi, live, causal, window;
+  bool reverse;
+
+  __device__ __forceinline__ int col0(int t) const {
+    return (reverse ? n_hi - 1 - t : n_lo + t) * BN;
+  }
+  __device__ __forceinline__ bool edge(int, int c0, int row_lo) const {
+    return c0 + BN > live || (causal && c0 + BN - 1 > row_lo) ||
+           (window > 0 && c0 <= row_lo + 63 - window);
+  }
+  __device__ __forceinline__ bool ok(int, int row, int col) const {
+    bool ok = col < live;
+    if (causal) ok = ok && col <= row;
+    if (window > 0) ok = ok && col > row - window;
+    return ok;
+  }
 };
 
 template <int D, bool SOFTCAP>
@@ -173,12 +176,9 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
                   float softcap, int order, int sawtooth) {
   using namespace hopper;
-  using L = Smem<D>;
+  using L = ptc::Smem<D>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
-  uint64_t* empty = full + STAGES;
-  uint64_t* qbar = empty + STAGES;
+  uint8_t* smem = ptc::setup<D>(smem_raw);
 
   int b, h, mb;
   decode_block((Sq + BM - 1) / BM, Hq, order, b, h, mb);
@@ -188,24 +188,15 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   int n_lo, n_hi;
   kv_tile_range(q0, BM, BN, live, causal, window, n_lo, n_hi);
   const int ntiles = max(0, n_hi - n_lo);
-  const bool reverse = sawtooth && (mb & 1);
+  const DenseWalk walk{n_lo, n_hi, live, causal, window, sawtooth && (mb & 1)};
 
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    mbar_init(qbar, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (threadIdx.x / 128 == 2) {
     // Producer: one thread keeps the ring full.
     regs_dealloc<24>();
     if (threadIdx.x == 256) {
+      uint64_t* full = ptc::full_bars<D>(smem);
+      uint64_t* empty = ptc::empty_bars<D>(smem);
+      uint64_t* qbar = ptc::q_bar<D>(smem);
       mbar_expect_tx(qbar, BM * D * 2);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
@@ -213,7 +204,7 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        const int row = (reverse ? n_hi - 1 - t : n_lo + t) * BN;
+        const int row = walk.col0(t);
         mbar_expect_tx(&full[s], 2 * L::TILE);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
@@ -225,136 +216,8 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {
-    // Consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows
-    // row0 and row0 + 8, and of every 8 columns the two at 2 (lane % 4).
-    regs_alloc<240>();
-    const int lane = threadIdx.x & 31;
-    const int row_lo = q0 + 64 * wg;
-    const int row0 = row_lo + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
-    const float scale2 = scale * LOG2E;
-    const uint32_t qaddr = smem_u32(smem + L::Q) + wg * 64 * 128;
-    float s[BN / 2];
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float m[2] = {NEG_INF_F, NEG_INF_F};
-    float l[2] = {0.f, 0.f};   // this thread's part of each row's sum
-
-    mbar_wait(qbar, 0);
-    for (int t = 0; t < ntiles; ++t) {
-      const int st = t % STAGES;
-      const int c0 = (reverse ? n_hi - 1 - t : n_lo + t) * BN;
-      const uint32_t kaddr = smem_u32(smem + L::K + st * L::TILE);
-      const uint32_t vaddr = smem_u32(smem + L::V + st * L::TILE);
-      mbar_wait(&full[st], (t / STAGES) & 1);
-
-      // S = Q K^T: D / 16 steps of k16; a step is 32 bytes into a 128-byte
-      // swizzled row, every four steps the next column chunk.
-      fence_regs(s);
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const uint32_t col = (kc % 4) * 32;
-        wgmma_ss_n128(s, desc_sw128(qaddr + (kc / 4) * BM * 128 + col, 16, 1024),
-                      desc_sw128(kaddr + (kc / 4) * BN * 128 + col, 16, 1024), kc > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-
-      // Scores in log2 units; masks only where the tile straddles kv_len,
-      // the diagonal or the window edge (uniform over the warpgroup).
-      const bool edge = c0 + BN > live || (causal && c0 + BN - 1 > row_lo) ||
-                        (window > 0 && c0 <= row_lo + 63 - window);
-      float mx[2] = {NEG_INF_F, NEG_INF_F};
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        float x = SOFTCAP ? softcap * tanhf(s[i] * scale / softcap) * LOG2E : s[i] * scale2;
-        if (edge) {
-          const int row = row0 + 8 * ((i >> 1) & 1);
-          const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-          bool ok = col < live;
-          if (causal) ok = ok && col <= row;
-          if (window > 0) ok = ok && col > row - window;
-          x = ok ? x : NEG_INF_F;
-        }
-        s[i] = x;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = fast_exp2(m[r] - m_new);
-        m[r] = m_new;
-      }
-
-      // P in bf16, laid out as the A fragments of P V: k16 slice kk of the
-      // S accumulator is registers 8 kk .. 8 kk + 7. A masked entry is
-      // exactly NEG_INF_F (no live score comes near it) and gets p = 0, so
-      // a row with nothing live yet (m = NEG_INF_F) stays at zero.
-      uint32_t p[BN / 16][4];
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        float e[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int i = 8 * kk + u;
-          float pv = fast_exp2(s[i] - m[(i >> 1) & 1]);
-          if (edge && s[i] == NEG_INF_F) pv = 0.f;
-          e[u] = pv;
-          sum[(i >> 1) & 1] += pv;
-        }
-#pragma unroll
-        for (int w = 0; w < 4; ++w) p[kk][w] = pack_bf16(e[2 * w], e[2 * w + 1]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-      // O += P V: BN / 16 steps of 16 keys (16 rows of 128 bytes each).
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_tb(acc, p[kk], desc_sw128(vaddr + kk * 16 * 128, BN * 128, 1024));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(&empty[st]);
-    }
-
-    // O goes out through this warpgroup's own 64 rows of the Q tile, which
-    // only its finished products read: written there in the tensor map's
-    // swizzled layout, then stored by TMA, which drops the rows past Sq.
-    const size_t plane = (size_t)b * Hq + h;
-    const int tile_row = row0 - row_lo;   // 0 .. 63, plus 8 for r = 1
-    uint8_t* otile = smem + L::Q + wg * 64 * 128;
-    float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-      const int row = row0 + 8 * r;
-      if ((lane & 3) == 0 && row < Sq)
-        lse[plane * Sq + row] = l[r] == 0.f ? NEG_INF_F : m[r] * LN2 + logf(l[r]);
-    }
-    stage_tile_bf16<D>(otile, BM * 128, acc, inv, tile_row, lane);
-    fence_async_smem();
-    named_barrier_sync(1 + wg, 128);
-    if ((threadIdx.x & 127) == 0) {
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        tma_store_3d(&to, otile + c * BM * 128, c * 64, row_lo, (int)plane);
-      tma_store_wait();
-    }
+    ptc::consume<D, SOFTCAP, true>(smem, walk, ntiles, q0, b * Hq + h, &to, lse, Sq, scale,
+                                   softcap);
   }
 }
 
@@ -370,7 +233,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (err == 0) err = hopper::make_map_3d(&tv, v, D, Skv, B * Hkv, BN);
   if (err == 0) err = hopper::make_map_3d(&to, o, D, Sq, B * Hq, BM / 2);
   if (err != 0) return err;
-  const size_t smem = Smem<D>::bytes;
+  const size_t smem = ptc::Smem<D>::bytes;
   const cudaError_t e = allow_smem(fa2_fwd_tc_kernel<D, SOFTCAP>, smem);
   if (e != cudaSuccess) return (int)e;
   fa2_fwd_tc_kernel<D, SOFTCAP><<<(unsigned)blocks, THREADS, smem, stream>>>(

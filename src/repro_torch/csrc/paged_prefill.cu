@@ -2,40 +2,76 @@
 //
 // Replaces the Pallas body _paged_prefill_kernel of paged_flash_prefill in
 // the JAX package, src/repro/kernels/paged_prefill_attention.py (:66,
-// :176). Tail queries q (B, Hq, St, D) sit at absolute positions
-// prefix_len[b] + i. Each attends to the live prefix read straight from the
-// head-major page pool (Hkv, P, page_size, D) through page_table (B, mp),
-// then causally to the dense tail k / v (B, Hkv, St, D), in one online
-// softmax. Rows at or past tail_len[b] give exact zeros; prefix_len need not
-// be a page multiple; a table of width 0 means no prefix; window and
-// softcap as in K1.
+// pallas_call :277). Tail queries q (B, Hq, St, D) sit at absolute
+// positions prefix_len[b] + i. Each attends to the live prefix read
+// straight from the head-major page pool (Hkv, P, page_size, D) through
+// page_table (B, mp), then causally to the dense tail k / v (B, Hkv, St,
+// D), in one online softmax. Rows at or past tail_len[b] give exact zeros;
+// prefix_len need not be a page multiple; a table of width 0 means no
+// prefix; window and softcap as in K1.
 //
 // What bounds it on an H100: a 256-token tail over a 1000-token prefix does
 // ~64 operations per byte of prefix K/V per q head, times the GQA group,
-// so it is bound by arithmetic, like K1 (CUDA cores in float32 here).
+// so it is bound by arithmetic, like K1, and the bf16 tensor cores are the
+// only way to that bound. Two kernels:
 //
-// What the design does about the TPU's choices: the Pallas kernel folds the
-// whole GQA group and padded tail into one q block of group * St rows; at
-// llama3-8b with a 512-token tail that is a 2048 x 128 float32 accumulator,
-// which no SM holds. Here the folded rows are tiled 64 at a time, and folded
-// position-major (row = i * group + g), so one row tile holds every q head
-// of the group for 64 / group tail positions: each prefix page is read once
-// per (b, kv head, row tile) and serves all q heads of the group, never once
-// per q head. The page table is read by the block itself (no scalar
-// prefetch on a GPU).
+// * paged_prefill_tc_kernel, bf16 (every prefix-hit prefill): K1's block on
+//   the tensor cores (prefill_tc.cuh: two consumer warpgroups of 64 rows
+//   over 128 query rows of one (b, q head), wgmma m64n128k16 for S and for
+//   P V, P in bf16, setmaxnreg 240 / 24, O out by a TMA store), with its
+//   own producer and walk. Blocks run head-first (decode_block, order 0):
+//   the q heads of one GQA group sit on consecutive blocks and stream the
+//   same prefix pages through L2 at the same time, and Q is one 3-D TMA
+//   box (D, St, B * Hq) of 128 rows. The walk is the live prefix in
+//   128-key tiles from the page holding the row tile's first visible
+//   position, then the tail's 128-key tiles up to the last live row;
+//   prefix pages wholly before the earliest row's window are skipped, and a
+//   row tile whose rows all lie at or past tail_len walks nothing and
+//   stores zeros. The producer fills a prefix stage page by page: each pool
+//   is one 3-D tensor map (D, P * ps, Hkv) whose box is 64 columns by one
+//   page, 128-byte swizzled; with ps a multiple of 8 that divides 128 a
+//   page's box lands where one 128-row box would put it, so the consumer
+//   reads the stage as K1's. The producer warp's lanes each issue one box
+//   (two at ps 8, D 128), each reading its page id from the table one
+//   stage ahead: one lane issuing every box of a stage made K3 2.15x
+//   slower. A tail stage is one 128-row box per column chunk of the tail
+//   map (D, St, B * Hkv), as K1's K / V.
+//   Traps this design keeps clear of:
+//   - Unfilled stage slots. A slot the producer does not write holds stale
+//     shared memory, and P = 0 times a NaN of V is NaN inside an mma. So
+//     every slot is written on every phase: slots past the last live page
+//     load that page again (masked: their columns lie past the live
+//     prefix), and a tail box past St is zero-filled by TMA. Positions
+//     past prefix_len inside the last live page are read and masked; the
+//     pool holds finite values there (the engine zero-fills it).
+//   - The proxy fence. The stages are read only by wgmma, in the async
+//     proxy already, so a release needs no fence.proxy.async; a change
+//     that reads a TMA-written stage with ordinary loads must add one
+//     before the release (without it 14-18 of 100 decode runs were wrong).
+//   - Hangs. mbar_wait traps after ~10 s, so a barrier fault fails the
+//     launch instead of hanging the card.
+// * paged_prefill_kernel, float32: the tensor cores take float32 only as
+//   TF32 (~3 decimal digits), so float32 stays on the CUDA cores over
+//   prefill_tile.cuh (shared with K1's float32 kernel). The Pallas kernel
+//   folds the whole GQA group and padded tail into one q block of group *
+//   St rows; here the folded rows are tiled 64 at a time, position-major
+//   (row = i * group + g), so each prefix page is read once per (b, kv
+//   head, row tile) for every q head of the group. The page table is read
+//   by the block itself (no scalar prefetch on a GPU).
+#include "prefill_tc.cuh"
 #include "prefill_tile.cuh"
 
 namespace {
 
 using namespace rt;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(PF_THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages, const int* __restrict__ page_table,
-                     const T* __restrict__ k_tail, const T* __restrict__ v_tail,
+paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
+                     const float* __restrict__ v_pages, const int* __restrict__ page_table,
+                     const float* __restrict__ k_tail, const float* __restrict__ v_tail,
                      const int* __restrict__ prefix_len,
-                     const int* __restrict__ tail_len, T* __restrict__ o, int Hq,
+                     const int* __restrict__ tail_len, float* __restrict__ o, int Hq,
                      int Hkv, int St, int P, int ps, int mp, float scale,
                      int window, float softcap) {
   extern __shared__ float smem[];
@@ -54,7 +90,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int tlen = tail_len[b];
   const size_t q_head0 = (size_t)b * Hq + (size_t)hk * G;
 
-  stage_rows<D, DP, T>(Qs, [&](int rr) -> const T* {
+  stage_rows<D, DP, float>(Qs, [&](int rr) -> const float* {
     const int R = R0 + rr;
     if (R >= rows) return nullptr;
     const int i = R / G;
@@ -79,15 +115,15 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int n = a_lo; n < (pref + PF_BN - 1) / PF_BN; ++n) {
     const int c0 = n * PF_BN;
     __syncthreads();
-    auto page_row = [&](const T* pool, int rr) -> const T* {
+    auto page_row = [&](const float* pool, int rr) -> const float* {
       const int c = c0 + rr;
       if (c >= pref) return nullptr;
       const int page = c / ps;
       const int pid = pt_row[page];
       return pool + (((size_t)hk * P + pid) * ps + (c - page * ps)) * D;
     };
-    stage_rows<D, DP, T>(Ks, [&](int rr) { return page_row(k_pages, rr); });
-    stage_rows<D, D, T>(Vs, [&](int rr) { return page_row(v_pages, rr); });
+    stage_rows<D, DP, float>(Ks, [&](int rr) { return page_row(k_pages, rr); });
+    stage_rows<D, D, float>(Vs, [&](int rr) { return page_row(v_pages, rr); });
     __syncthreads();
     tile_step<D>(Qs, Ks, Vs, Ps, st, scale, softcap, [&](int ii, int jj) {
       const int R = R0 + ty + 16 * ii;
@@ -110,10 +146,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int n = b_lo; n <= (last_col >= 0 ? last_col / PF_BN : -1); ++n) {
     const int c0 = n * PF_BN;
     __syncthreads();
-    stage_rows<D, DP, T>(Ks, [&](int rr) -> const T* {
+    stage_rows<D, DP, float>(Ks, [&](int rr) -> const float* {
       return c0 + rr < St ? k_tail + tail_head + (size_t)(c0 + rr) * D : nullptr;
     });
-    stage_rows<D, D, T>(Vs, [&](int rr) -> const T* {
+    stage_rows<D, D, float>(Vs, [&](int rr) -> const float* {
       return c0 + rr < St ? v_tail + tail_head + (size_t)(c0 + rr) * D : nullptr;
     });
     __syncthreads();
@@ -134,52 +170,251 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int i = R / G;
     const float l = st.l[ii];
     const float l_safe = l == 0.f ? 1.f : l;
-    T* orow = o + ((q_head0 + (R - i * G)) * St + i) * D;
+    float* orow = o + ((q_head0 + (R - i * G)) * St + i) * D;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) orow[tx + 16 * c] = from_f<T>(st.acc[ii][c] / l_safe);
+    for (int c = 0; c < D / 16; ++c) orow[tx + 16 * c] = st.acc[ii][c] / l_safe;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const int* pt,
-           const void* kt, const void* vt, const int* plen, const int* tlen,
-           void* o, int B, int Hq, int Hkv, int St, int P, int ps, int mp,
-           float scale, int window, float softcap, cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* kp, const void* vp, const int* pt, const void* kt,
+               const void* vt, const int* plen, const int* tlen, void* o, int B, int Hq,
+               int Hkv, int St, int P, int ps, int mp, float scale, int window, float softcap,
+               cudaStream_t stream) {
   const size_t smem = PrefillSmem<D>::bytes;
-  cudaError_t err = allow_smem(paged_prefill_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(paged_prefill_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((Hq / Hkv) * St + PF_BM - 1) / PF_BM;
   if (B <= 0 || tiles <= 0) return 0;
   dim3 grid(tiles, Hkv, B);
-  paged_prefill_kernel<T, D><<<grid, PF_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      pt, static_cast<const T*>(kt), static_cast<const T*>(vt), plen, tlen,
-      static_cast<T*>(o), Hq, Hkv, St, P, ps, mp, scale, window, softcap);
+  paged_prefill_kernel<D><<<grid, PF_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), pt, static_cast<const float*>(kt),
+      static_cast<const float*>(vt), plen, tlen, static_cast<float*>(o), Hq, Hkv, St, P, ps,
+      mp, scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
+// -- bf16 on the tensor cores ----------------------------------------------------
+
+namespace tc {
+
+using ptc::BM;
+using ptc::BN;
+using ptc::STAGES;
+using ptc::THREADS;
+
+// The block's KV tiles: n_pref prefix tiles from column pref0 (a page
+// start), then tail tiles from column tail0. Prefix columns are absolute
+// positions (row i of the tail sits at plen + i); tail columns are
+// tail-local.
+struct PagedWalk {
+  int n_pref, pref0, tail0;
+  int live;     // live prefix columns: min(prefix_len, mp * ps)
+  int plen, tlen, window;
+
+  __device__ __forceinline__ int col0(int t) const {
+    return t < n_pref ? pref0 + t * BN : tail0 + (t - n_pref) * BN;
+  }
+  __device__ __forceinline__ bool edge(int t, int c0, int row_lo) const {
+    const int row_hi = row_lo + 63;
+    if (row_hi >= tlen) return true;
+    if (t < n_pref) return c0 + BN > live || (window > 0 && c0 <= plen + row_hi - window);
+    return c0 + BN - 1 > row_lo || (window > 0 && c0 <= row_hi - window);
+  }
+  __device__ __forceinline__ bool ok(int t, int row, int col) const {
+    bool ok = row < tlen;
+    if (t < n_pref) {
+      ok = ok && col < live;
+      if (window > 0) ok = ok && col > plen + row - window;
+    } else {
+      ok = ok && col <= row;
+      if (window > 0) ok = ok && col > row - window;
+    }
+    return ok;
+  }
+};
+
+// Boxes a producer lane issues for one prefix stage: 2 (K, V) x D / 64
+// column chunks x BN / ps pages over 32 lanes, at most 2 (ps 8, D 128).
+constexpr int MAX_BOXES = 2;
+
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tpk,
+                        const __grid_constant__ CUtensorMap tpv,
+                        const __grid_constant__ CUtensorMap ttk,
+                        const __grid_constant__ CUtensorMap ttv,
+                        const __grid_constant__ CUtensorMap to,
+                        const int* __restrict__ page_table, const int* __restrict__ prefix_len,
+                        const int* __restrict__ tail_len, int Hq, int Hkv, int St, int ps,
+                        int mp, float scale, int window, float softcap) {
+  using namespace hopper;
+  using L = ptc::Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = ptc::setup<D>(smem_raw);
+
+  int b, h, mb;
+  decode_block((St + BM - 1) / BM, Hq, 0, b, h, mb);
+  const int hk = h / (Hq / Hkv);
+  const int q0 = mb * BM;
+  const int plen = prefix_len[b];
+  const int tlen = tail_len[b];
+  const int live = min(plen, mp * ps);
+  // The rows q0 .. q_hi of this tile that attend anything; none if q0 is at
+  // or past the live tail.
+  const int q_hi = min(min(q0 + BM, tlen), St) - 1;
+  int n_pref = 0, n_tail = 0, first_page = 0, last_page = 0, tail_lo = 0;
+  const int per_stage = BN / ps;
+  if (q_hi >= q0) {
+    // Prefix: the pages from the one holding the first column row q0 sees.
+    const int lo = window > 0 ? max(0, plen + q0 - window + 1) : 0;
+    if (lo < live) {
+      first_page = lo / ps;
+      last_page = (live - 1) / ps;
+      n_pref = (last_page - first_page + per_stage) / per_stage;
+    }
+    // Tail: 128-key tiles from the first one row q0 sees to row q_hi's.
+    tail_lo = window > 0 ? max(0, q0 - window + 1) / BN : 0;
+    n_tail = q_hi / BN + 1 - tail_lo;
+  }
+  const PagedWalk walk{n_pref, first_page * ps, tail_lo * BN, live, plen, tlen, window};
+
+  if (threadIdx.x / 128 == 2) {
+    // Producer: warp 8 keeps the ring full; its lanes issue a prefix
+    // stage's page boxes side by side, lane 0 the Q and tail boxes.
+    regs_dealloc<24>();
+    if (threadIdx.x >= 256 + 32) return;
+    uint64_t* full = ptc::full_bars<D>(smem);
+    uint64_t* empty = ptc::empty_bars<D>(smem);
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      uint64_t* qbar = ptc::q_bar<D>(smem);
+      mbar_expect_tx(qbar, BM * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_3d(smem + L::Q + c * BM * 128, &tq, qbar, c * 64, q0, b * Hq + h);
+    }
+    // Box j = lane + 32 r of a prefix stage: K or V (j % 2), column chunk
+    // (j / 2) % (D / 64), page slot (j / 2) / (D / 64) of the stage.
+    const int boxes = 2 * (D / 64) * per_stage;
+    const int* table = page_table + (size_t)b * mp;
+    int page[MAX_BOXES];
+    auto page_of = [&](int t, int r) {
+      const int slot = ((lane + 32 * r) >> 1) / (D / 64);
+      return table[min(first_page + t * per_stage + slot, last_page)];
+    };
+#pragma unroll
+    for (int r = 0; r < MAX_BOXES; ++r)
+      page[r] = n_pref > 0 && lane + 32 * r < boxes ? page_of(0, r) : 0;
+    for (int t = 0; t < n_pref + n_tail; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(&full[st], 2 * L::TILE);
+      __syncwarp();
+      if (t < n_pref) {
+#pragma unroll
+        for (int r = 0; r < MAX_BOXES; ++r) {
+          const int j = lane + 32 * r;
+          if (j >= boxes) continue;
+          const int kv = j & 1;
+          const int c = (j >> 1) % (D / 64);
+          const int slot = (j >> 1) / (D / 64);
+          tma_load_3d(smem + (kv ? L::V : L::K) + st * L::TILE + c * BN * 128 +
+                          slot * ps * 128,
+                      kv ? &tpv : &tpk, &full[st], c * 64, page[r] * ps, hk);
+          if (t + 1 < n_pref) page[r] = page_of(t + 1, r);
+        }
+      } else if (lane == 0) {
+        const int row = walk.col0(t);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(smem + L::K + st * L::TILE + c * BN * 128, &ttk, &full[st], c * 64, row,
+                      b * Hkv + hk);
+          tma_load_3d(smem + L::V + st * L::TILE + c * BN * 128, &ttv, &full[st], c * 64, row,
+                      b * Hkv + hk);
+        }
+      }
+    }
+    return;
+  }
+  ptc::consume<D, SOFTCAP, false>(smem, walk, n_pref + n_tail, q0, b * Hq + h, &to, nullptr,
+                                  St, scale, softcap);
+}
+
+template <int D, bool SOFTCAP>
+int launch(const void* q, const void* kp, const void* vp, const int* pt, const void* kt,
+           const void* vt, const int* plen, const int* tlen, void* o, int B, int Hq, int Hkv,
+           int St, int P, int ps, int mp, float scale, int window, float softcap,
+           cudaStream_t stream) {
+  const long long blocks = (long long)B * Hq * ((St + BM - 1) / BM);
+  if (blocks <= 0) return 0;
+  CUtensorMap tq, tpk, tpv, ttk, ttv, to;
+  int err = hopper::make_map_3d(&tq, q, D, St, B * Hq, BM);
+  if (err == 0) err = hopper::make_map_3d(&tpk, kp, D, P * ps, Hkv, ps);
+  if (err == 0) err = hopper::make_map_3d(&tpv, vp, D, P * ps, Hkv, ps);
+  if (err == 0) err = hopper::make_map_3d(&ttk, kt, D, St, B * Hkv, BN);
+  if (err == 0) err = hopper::make_map_3d(&ttv, vt, D, St, B * Hkv, BN);
+  if (err == 0) err = hopper::make_map_3d(&to, o, D, St, B * Hq, BM / 2);
+  if (err != 0) return err;
+  const size_t smem = ptc::Smem<D>::bytes;
+  const cudaError_t e = allow_smem(paged_prefill_tc_kernel<D, SOFTCAP>, smem);
+  if (e != cudaSuccess) return (int)e;
+  paged_prefill_tc_kernel<D, SOFTCAP><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      tq, tpk, tpv, ttk, ttv, to, pt, plen, tlen, Hq, Hkv, St, ps, mp, scale, window,
+      softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success),
-// or -1 for a head_dim / dtype this build does not instantiate.
+// float32 q / pools / tail on the CUDA cores. Returns a cudaError_t (0 =
+// success), or -1 for a head_dim this build does not instantiate.
 extern "C" int paged_prefill(const void* q, const void* k_pages, const void* v_pages,
                              const int* page_table, const void* k_tail,
                              const void* v_tail, const int* prefix_len,
                              const int* tail_len, void* o, int B, int Hq, int Hkv,
                              int St, int P, int ps, int mp, int D, float scale,
-                             int window, float softcap, int dtype, void* stream) {
+                             int window, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PP_CASE(T, DIM)                                                              \
-  return launch<T, DIM>(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, \
-                        tail_len, o, B, Hq, Hkv, St, P, ps, mp, scale, window,       \
-                        softcap, s)
-  if (dtype == 1) {
-    if (D == 128) PP_CASE(__nv_bfloat16, 128);
-    if (D == 64) PP_CASE(__nv_bfloat16, 64);
-  } else if (dtype == 0) {
-    if (D == 128) PP_CASE(float, 128);
-    if (D == 64) PP_CASE(float, 64);
-  }
+#define PP_CASE(DIM)                                                                    \
+  return launch_f32<DIM>(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, \
+                         tail_len, o, B, Hq, Hkv, St, P, ps, mp, scale, window, softcap, s)
+  if (D == 128) PP_CASE(128);
+  if (D == 64) PP_CASE(64);
 #undef PP_CASE
+  return -1;
+}
+
+// bfloat16 q / pools / tail on the tensor cores; contiguous, 16-byte aligned
+// tensors (the tensor maps' requirement) and a page size that is a multiple
+// of 8 dividing 128. Returns a cudaError_t (0 = success), -1 for a head_dim
+// or page size this build does not take, -2 if a tensor map could not be
+// encoded.
+extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* v_pages,
+                                const int* page_table, const void* k_tail,
+                                const void* v_tail, const int* prefix_len,
+                                const int* tail_len, void* o, int B, int Hq, int Hkv,
+                                int St, int P, int ps, int mp, int D, float scale,
+                                int window, float softcap, void* stream) {
+  if (ps <= 0 || ps % 8 || tc::BN % ps) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PP_TC_CASE(DIM, CAP)                                                               \
+  return tc::launch<DIM, CAP>(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, \
+                              tail_len, o, B, Hq, Hkv, St, P, ps, mp, scale, window,       \
+                              softcap, s)
+  const bool cap = softcap > 0.f;
+  if (D == 128) {
+    if (cap) PP_TC_CASE(128, true);
+    PP_TC_CASE(128, false);
+  }
+  if (D == 64) {
+    if (cap) PP_TC_CASE(64, true);
+    PP_TC_CASE(64, false);
+  }
+#undef PP_TC_CASE
   return -1;
 }

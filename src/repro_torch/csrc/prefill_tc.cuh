@@ -1,0 +1,249 @@
+// The bf16 tensor-core prefill block, shared by K1 (fa2_fwd_tc,
+// flash_attention.cu: dense K / V) and K2 (paged_prefill_tc,
+// paged_prefill.cu: prefix pages, then the dense tail). Each kernel keeps
+// its own producer and its own walk over KV tiles; the shared-memory
+// layout, the barriers and everything the consumer warpgroups do live here
+// once.
+//
+// A block of THREADS threads owns BM = 128 query rows of one (b, q head):
+// warpgroups 0 and 1 consume 64 rows each, warpgroup 2 loads. The producer
+// fills the Q tile once (qbar) and 128-key K and V tiles through a
+// two-stage ring (each stage a "full" mbarrier armed with 2 * TILE bytes
+// and an "empty" one the eight consumer warps arrive on). Tiles are
+// 128-byte swizzled: D / 64 column chunks of 128 rows of 128 bytes, each
+// chunk 1024-byte aligned. Per tile the consumers run S = Q K^T as wgmma
+// m64n128k16 (both operands K-major in shared memory), the online softmax
+// in S's registers (each row over the four threads of a quad, ex2.approx
+// with scale * log2(e) folded into one multiply, softcap first), P rounded
+// to bf16 in place as the A-register fragment of O += P V (wgmma with V
+// MN-major, the transpose bit set). Masks run only on tiles the walk calls
+// an edge. setmaxnreg gives the consumers 240 registers (the producer
+// takes 24). O leaves through shared memory by a TMA store that drops the
+// rows past the tensor map's extent.
+//
+// A Walk names the block's KV tiles in order:
+//   int col0(int t)                   the column of tile t's first key;
+//   bool edge(int t, int c0, int lo)  whether any (row, key) pair of tile t
+//                                     and rows lo .. lo + 63 is masked
+//                                     (uniform over a warpgroup);
+//   bool ok(int t, int row, int col)  whether row may attend col.
+// Columns and rows are in the walk's own coordinates; only the walk reads
+// them.
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace rt {
+namespace ptc {
+
+constexpr int BM = 128;        // q rows of a block: two consumer warpgroups of 64
+constexpr int BN = 128;        // keys of a K / V tile
+constexpr int STAGES = 2;      // K / V tiles in flight
+constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, warpgroup 2 loads
+constexpr int CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Dynamic shared memory, in bytes from a 1024-byte aligned base: Q, then
+// the K and V stages, each a tile of D / 64 swizzled column chunks.
+template <int D>
+struct Smem {
+  static constexpr int TILE = BN * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BM * D * 2;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BAR = V + STAGES * TILE;   // full[STAGES], empty[STAGES], q
+  static constexpr size_t bytes = BAR + 8 * (2 * STAGES + 1) + 1024;   // + base alignment
+};
+
+template <int D>
+__device__ __forceinline__ uint64_t* full_bars(uint8_t* smem) {
+  return reinterpret_cast<uint64_t*>(smem + Smem<D>::BAR);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t* empty_bars(uint8_t* smem) {
+  return full_bars<D>(smem) + STAGES;
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t* q_bar(uint8_t* smem) {
+  return full_bars<D>(smem) + 2 * STAGES;
+}
+
+// The block's 1024-byte aligned base, its barriers set up by thread 0.
+// Every thread of the block calls this (it ends in a block-wide barrier).
+template <int D>
+__device__ __forceinline__ uint8_t* setup(uint8_t* smem_raw) {
+  using namespace hopper;
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bars<D>(smem)[s], 1);
+      mbar_init(&empty_bars<D>(smem)[s], CONSUMER_WARPS);
+    }
+    mbar_init(q_bar<D>(smem), 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  return smem;
+}
+
+// S's registers scaled to log2 units in place (softcap first), masked to
+// exactly NEG_INF_F where walk.ok says no under MASK, each row's max into mx.
+template <bool SOFTCAP, bool MASK, class Walk>
+__device__ __forceinline__ void scores(float (&s)[BN / 2], float (&mx)[2], const Walk& walk,
+                                       int t, int c0, int row0, int lane, float scale,
+                                       float softcap) {
+  const float scale2 = scale * LOG2E;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    float x = SOFTCAP ? softcap * tanhf(s[i] * scale / softcap) * LOG2E : s[i] * scale2;
+    if (MASK) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      x = walk.ok(t, row, col) ? x : NEG_INF_F;
+    }
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+}
+
+// The consumer warpgroups (threads 0 .. 255): ntiles tiles of `walk`, then
+// O of rows q0 .. q0 + 127 of plane `plane` through the map `to` (boxes of
+// 64 rows). LSE: also lse[plane * Sq + row] = m ln 2 + log l (-1e30 for a
+// row with nothing live) for rows below Sq.
+template <int D, bool SOFTCAP, bool LSE, class Walk>
+__device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int ntiles, int q0,
+                                        int plane, const CUtensorMap* to, float* lse,
+                                        int Sq, float scale, float softcap) {
+  using namespace hopper;
+  using L = Smem<D>;
+  uint64_t* full = full_bars<D>(smem);
+  uint64_t* empty = empty_bars<D>(smem);
+  // Warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows row0 and
+  // row0 + 8, and of every 8 columns the two at 2 (lane % 4).
+  regs_alloc<240>();
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int row_lo = q0 + 64 * wg;
+  const int row0 = row_lo + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+  const uint32_t qaddr = smem_u32(smem + L::Q) + wg * 64 * 128;
+  float s[BN / 2];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF_F, NEG_INF_F};
+  float l[2] = {0.f, 0.f};   // this thread's part of each row's sum
+
+  mbar_wait(q_bar<D>(smem), 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % STAGES;
+    const int c0 = walk.col0(t);
+    const uint32_t kaddr = smem_u32(smem + L::K + st * L::TILE);
+    const uint32_t vaddr = smem_u32(smem + L::V + st * L::TILE);
+    mbar_wait(&full[st], (t / STAGES) & 1);
+
+    // S = Q K^T: D / 16 steps of k16; a step is 32 bytes into a 128-byte
+    // swizzled row, every four steps the next column chunk.
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t col = (kc % 4) * 32;
+      wgmma_ss_n128(s, desc_sw128(qaddr + (kc / 4) * BM * 128 + col, 16, 1024),
+                    desc_sw128(kaddr + (kc / 4) * BN * 128 + col, 16, 1024), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Scores in log2 units; masks only where the walk says the tile has a
+    // masked pair for this warpgroup's rows. The two loops are written out
+    // apart: left to itself the compiler predicates the mask into the one
+    // loop, and the unmasked tiles pay for it (5% of K1's time).
+    const bool edge = walk.edge(t, c0, row_lo);
+    float mx[2] = {NEG_INF_F, NEG_INF_F};
+    if (edge)
+      scores<SOFTCAP, true>(s, mx, walk, t, c0, row0, lane, scale, softcap);
+    else
+      scores<SOFTCAP, false>(s, mx, walk, t, c0, row0, lane, scale, softcap);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+
+    // P in bf16, laid out as the A fragments of P V: k16 slice kk of the
+    // S accumulator is registers 8 kk .. 8 kk + 7. A masked entry is
+    // exactly NEG_INF_F (no live score comes near it) and gets p = 0, so
+    // a row with nothing live yet (m = NEG_INF_F) stays at zero.
+    uint32_t p[BN / 16][4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      float e[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = 8 * kk + u;
+        float pv = fast_exp2(s[i] - m[(i >> 1) & 1]);
+        if (edge && s[i] == NEG_INF_F) pv = 0.f;
+        e[u] = pv;
+        sum[(i >> 1) & 1] += pv;
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) p[kk][w] = pack_bf16(e[2 * w], e[2 * w + 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: BN / 16 steps of 16 keys (16 rows of 128 bytes each).
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_tb(acc, p[kk], desc_sw128(vaddr + kk * 16 * 128, BN * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // O goes out through this warpgroup's own 64 rows of the Q tile, which
+  // only its finished products read: written there in the tensor map's
+  // swizzled layout, then stored by TMA, which drops the rows past the
+  // map's extent.
+  const int tile_row = row0 - row_lo;   // 0 .. 63, plus 8 for r = 1
+  uint8_t* otile = smem + L::Q + wg * 64 * 128;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    const int row = row0 + 8 * r;
+    if (LSE && (lane & 3) == 0 && row < Sq)
+      lse[(size_t)plane * Sq + row] = l[r] == 0.f ? NEG_INF_F : m[r] * LN2 + logf(l[r]);
+  }
+  stage_tile_bf16<D>(otile, BM * 128, acc, inv, tile_row, lane);
+  fence_async_smem();
+  named_barrier_sync(1 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) tma_store_3d(to, otile + c * BM * 128, c * 64, row_lo, plane);
+    tma_store_wait();
+  }
+}
+
+}  // namespace ptc
+}  // namespace rt

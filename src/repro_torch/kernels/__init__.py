@@ -4,7 +4,8 @@ K1 ``flash_attention.flash_attention_fwd`` (``flash_attention_fwd_tc``
 counts its bf16 tensor-core launches alone), K5/K6
 ``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV; the ``_tc``
 counters likewise), K2
-``paged_prefill_attention.paged_flash_prefill``, K3/K4
+``paged_prefill_attention.paged_flash_prefill`` (``paged_flash_prefill_tc``
+counts its bf16 tensor-core launches alone), K3/K4
 ``paged_decode_attention.paged_flash_decode`` (one-pass / split-K;
 ``paged_flash_decode_tc`` and ``paged_flash_decode_split_tc`` count the
 bf16 tensor-core launches alone), K7/K8
@@ -41,6 +42,7 @@ def launch_counts() -> Dict[str, int]:
         "flash_attention_bwd_dq_tc": flash_attention_bwd.launches["dq_tc"],
         "flash_attention_bwd_dkv_tc": flash_attention_bwd.launches["dkv_tc"],
         "paged_flash_prefill": paged_prefill_attention.launches,
+        "paged_flash_prefill_tc": paged_prefill_attention.launches_tc,
         "paged_flash_decode": paged_decode_attention.launches["one_pass"],
         "paged_flash_decode_split": paged_decode_attention.launches["split"],
         "paged_flash_decode_tc": paged_decode_attention.launches["one_pass_tc"],
@@ -59,6 +61,7 @@ def reset_launch_counts() -> None:
     for key in flash_attention_bwd.launches:
         flash_attention_bwd.launches[key] = 0
     paged_prefill_attention.launches = 0
+    paged_prefill_attention.launches_tc = 0
     for counter in (paged_decode_attention.launches, decode_attention.launches):
         for key in counter:
             counter[key] = 0

@@ -38,7 +38,8 @@ BLOCK_FIRST = "block_first"
 
 #: Tile sizes of the float32 kernel (PF_BM / PF_BN in csrc/prefill_tile.cuh);
 #: ``ops.flash_attention`` pads sequences to them. The bf16 kernel tiles by
-#: 128 (tc::BM / tc::BN) and takes ragged lengths as they are.
+#: 128 (ptc::BM / ptc::BN in csrc/prefill_tc.cuh) and takes ragged lengths as
+#: they are.
 BLOCK_M = 64
 BLOCK_N = 64
 HEAD_DIMS = (64, 128)

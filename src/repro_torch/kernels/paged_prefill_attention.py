@@ -3,11 +3,16 @@
 Port of ``repro.kernels.paged_prefill_attention.paged_flash_prefill``. Tail
 queries at absolute positions ``prefix_len[b] + i`` attend to the prefix
 K/V read through the page table and causally to the dense tail K/V, under
-one online softmax. The kernel is ``csrc/paged_prefill.cu``: folded
-(position, head) rows are tiled 64 at a time, position-major, so each
-prefix page is read once per (b, kv head, row tile) for every q head of the
-GQA group. :func:`paged_flash_prefill` launches it for CUDA tensors and runs
-:func:`paged_flash_prefill_plain` for CPU tensors.
+one online softmax. The kernels are in ``csrc/paged_prefill.cu``. bf16
+runs ``paged_prefill_tc`` on the tensor cores: K1's consumer warpgroups
+(``csrc/prefill_tc.cuh``) over 128 query rows of one (b, q head), blocks
+head-first so a GQA group's heads stream the same prefix pages through L2,
+fed by a producer warp that loads each prefix page as one TMA box (the page
+size must then be a multiple of 8 that divides 128) and the tail in
+128-row boxes. float32 runs ``paged_prefill`` on the CUDA cores (the tensor
+cores would round it to TF32): folded (position, head) rows tiled 64 at a
+time. :func:`paged_flash_prefill` launches the one for its dtype on CUDA
+tensors and runs :func:`paged_flash_prefill_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,9 +25,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
 HEAD_DIMS = (64, 128)
+#: Keys of a tensor-core stage (ptc::BN in csrc/prefill_tc.cuh): a bf16 page
+#: size must divide it and be a multiple of TC_PAGE_MULTIPLE, the rows of
+#: one 128-byte swizzle period, so a page's box lands where one 128-row box
+#: would put it.
+TC_STAGE = 128
+TC_PAGE_MULTIPLE = 8
 
-#: Launches of the CUDA kernel since the last reset.
+#: Launches of either CUDA kernel since the last reset; ``launches_tc``
+#: counts those of the bf16 tensor-core kernel alone.
 launches = 0
+launches_tc = 0
 
 
 def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
@@ -68,17 +81,18 @@ def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
     return o.reshape(b, hq, st, d).to(q.dtype)
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+#: dtype -> the C entry point of K2 that takes it.
+_ENTRY = {torch.float32: "paged_prefill", torch.bfloat16: "paged_prefill_tc"}
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fn = build.bind("paged_prefill", "paged_prefill",
-                         [P] * 9 + [I] * 8 + [F, I, F, I, P])
-    return _fn
+        fn = _fns[dtype] = build.bind("paged_prefill", _ENTRY[dtype],
+                                      [P] * 9 + [I] * 8 + [F, I, F, P])
+    return fn
 
 
 def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
@@ -91,9 +105,9 @@ def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
     for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPES or any(
+    if q.dtype not in _ENTRY or any(
             t.dtype != q.dtype for t in (k_pages, v_pages, k_tail, v_tail)):
-        raise ValueError(f"q, pools and tail must share a dtype in {list(_DTYPES)}")
+        raise ValueError(f"q, pools and tail must share a dtype in {list(_ENTRY)}")
     for name, t in (("page_table", page_table), ("prefix_len", prefix_len),
                     ("tail_len", tail_len)):
         if t.dtype != torch.int32:
@@ -113,6 +127,19 @@ def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
     for name, t in (("q", q),) + tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # Both kernels read rows 16 bytes at a time, and TMA needs 16-byte
+    # aligned tensors.
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_tail, v_tail)):
+        raise ValueError("q, the pools and the tail must start 16-byte aligned")
+    if q.dtype == torch.bfloat16:
+        ps = k_pages.shape[2]
+        if ps % TC_PAGE_MULTIPLE or TC_STAGE % ps:
+            raise ValueError(f"bf16 page_size {ps} must be a multiple of {TC_PAGE_MULTIPLE} "
+                             f"that divides {TC_STAGE} (the tensor-core kernel's swizzled "
+                             "stages)")
+        if st == 0 or k_pages.shape[1] == 0:   # a tensor map has no empty dimension
+            raise ValueError("bf16 paged_flash_prefill takes at least one tail row and "
+                             "one page")
 
 
 def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
@@ -121,7 +148,8 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
     """q (B, Hq, St, D) tail queries; k/v_pages (Hkv, P, page_size, D);
     page_table (B, mp) int32 physical ids (null-page padded past the live
     prefix; mp may be 0); k/v_tail (B, Hkv, St, D); prefix_len / tail_len
-    (B,) int32. Returns (B, Hq, St, D). CUDA tensors launch the kernel, CPU
+    (B,) int32. Returns (B, Hq, St, D). CUDA tensors launch the kernel of
+    their dtype (bf16 on the tensor cores, float32 on the CUDA cores), CPU
     tensors take the plain version."""
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(
@@ -140,15 +168,15 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
     if scale is None:
         scale = 1.0 / d**0.5
     o = torch.empty_like(q)
-    global launches
+    global launches, launches_tc
     launches += 1
-    status = _kernel()(
+    launches_tc += int(q.dtype == torch.bfloat16)
+    status = _kernel(q.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
         prefix_len.data_ptr(), tail_len.data_ptr(), o.data_ptr(),
         b, hq, hkv, st, num_pages, ps, mp, d,
-        float(scale), int(window or 0), float(softcap or 0.0),
-        _DTYPES[q.dtype], build.stream_of(q),
+        float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q),
     )
-    build.check(status, "paged_prefill")
+    build.check(status, _ENTRY[q.dtype])
     return o

@@ -15,8 +15,8 @@ row's max |ref| (two roundings to bf16 differ by one ulp, at most 2^-7 of
 the row's max; a row of ref that is all zero must be exactly zero), and
 lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
-cores and is held at 2e-5. K3/K4 and K7/K8 likewise: bf16 on the tensor
-cores (P rounded to bf16), float32 on the CUDA cores.
+cores and is held at 2e-5. K2, K3/K4 and K7/K8 likewise: bf16 on the
+tensor cores (P rounded to bf16), float32 on the CUDA cores.
 K9 (float32 in and out, its products on the tensor cores in 3xTF32, about
 22 bits each) is held per (b, chunk, head) slice: max |y - ref| within 1e-5
 of the slice's max |ref| (sums of at most q + N terms taken in another
@@ -449,6 +449,119 @@ def test_paged_prefill_empty_table(cuda):
     o = pp.paged_flash_prefill(*args)
     torch.cuda.synchronize()
     assert _err(o, pp.paged_flash_prefill_plain(*args)) < F32_TOL
+
+
+# -- K2 in bf16: the tensor-core kernel ----------------------------------------
+
+# name -> (St, mp, prefix_len, tail_len) at a page size of ps, the table
+# scattered over 1 + B * mp pages (page 0 the null page): a prefix that is no
+# page multiple on a table of 11 pages (not a multiple of 128 / ps for any
+# ps up to 64); two row tiles (St 200) over a prefix of ~300 positions; an
+# empty table; tails padded past tail_len, one of them to nothing.
+TC_PREFILL = {
+    "ragged": lambda ps: (70, 11, [11 * ps - 5, 17], [70, 41]),
+    "two_row_tiles": lambda ps: (200, -(-300 // ps), [300, 129], [200, 150]),
+    "empty_table": lambda ps: (150, 0, [0, 0], [150, 97]),
+    "empty_tail": lambda ps: (40, 3, [3 * ps, 2 * ps + 1], [0, 40]),
+}
+
+
+def _tc_prefill_inputs(rng, dev, hq, hkv, d, ps, case):
+    st, mp, plen, tlen = TC_PREFILL[case](ps)
+    b = 2
+    num_pages = 1 + b * mp
+    q = _randn(rng, (b, hq, st, d), dev, torch.bfloat16)
+    kt, vt = (_randn(rng, (b, hkv, st, d), dev, torch.bfloat16) for _ in range(2))
+    kp, vp = (_randn(rng, (hkv, num_pages, ps, d), dev, torch.bfloat16) for _ in range(2))
+    table = rng.permutation(np.arange(1, num_pages)).reshape(b, mp).astype(np.int32)
+    as_int = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return (q, kp, vp, torch.from_numpy(table).to(dev), kt, vt, as_int(plen), as_int(tlen))
+
+
+def _prefill_routes(counts, dtype) -> bool:
+    """Every K2 launch went to the tensor-core kernel (bf16), or none did
+    (float32)."""
+    total, tc = counts["paged_flash_prefill"], counts["paged_flash_prefill_tc"]
+    return total > 0 and tc == (total if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("case", sorted(TC_PREFILL))
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (25, 5, 64), (8, 8, 128)],
+                         ids=["llama", "hymba", "group1"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (75, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_paged_prefill_tensor_cores_match_plain(cuda, ps, case, hq, hkv, d, window, softcap):
+    """bf16 goes to the tensor-core entry (its own count moves), held per
+    row within 2^-6; rows at or past tail_len are exact zeros. A prefix
+    stage takes 128 / ps pages: the last one of an 11-page table leaves
+    slots that repeat the last live page, masked; window 75 starts the walk
+    at a page inside the prefix for every row tile past its first rows."""
+    args = _tc_prefill_inputs(np.random.default_rng(90 + ps), cuda, hq, hkv, d, ps, case)
+    kw = dict(window=window, softcap=softcap)
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, **kw)
+    assert _prefill_routes(kernels.launch_counts(), torch.bfloat16)
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and _row_err(o, o_ref) < ROW_TOL
+    for bi, t in enumerate(args[7].tolist()):
+        assert float(o[bi, :, t:].float().abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_prefill_tensor_cores_ignore_rows_past_prefix(cuda, ps, window):
+    """The tensor-core kernel loads whole pages, so it reads the positions
+    past prefix_len inside the last live page (and loads that page again
+    into a last stage's surplus slots): masking gives them P = 0 exactly,
+    so filling them with +-1e4 gives the bits of filling them with zeros.
+    100 reruns give the same bits."""
+    rng = np.random.default_rng(91)
+    q, kp, vp, table, kt, vt, plen, tlen = _tc_prefill_inputs(rng, cuda, 32, 8, 128, ps,
+                                                              "two_row_tiles")
+    outs = []
+    for value in (0.0, 1e4):
+        k, v = kp.clone(), vp.clone()
+        for bi, n in enumerate(plen.tolist()):
+            if n % ps:
+                page = int(table[bi, n // ps])
+                k[:, page, n % ps:] = value
+                v[:, page, n % ps:] = -value
+        outs.append(pp.paged_flash_prefill(q, k, v, table, kt, vt, plen, tlen, window=window))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert bool(torch.isfinite(outs[1].float()).all())
+    assert all(torch.equal(pp.paged_flash_prefill(q, k, v, table, kt, vt, plen, tlen,
+                                                  window=window), outs[1])
+               for _ in range(100))
+
+
+def test_paged_prefill_page_sizes_and_routes(cuda):
+    """bf16 pages of 24 rows (not a divisor of the 128-key stage) and of 4
+    (not a multiple of 8) raise before any launch; float32 takes both, on
+    the CUDA cores, within 2e-5. Every bf16 launch counts as
+    ``paged_flash_prefill_tc``, no float32 one does."""
+    rng = np.random.default_rng(92)
+    for ps in (24, 4):
+        args = _tc_prefill_inputs(rng, cuda, 8, 2, 64, ps, "ragged")
+        kernels.reset_launch_counts()
+        with pytest.raises(ValueError, match="page_size"):
+            pp.paged_flash_prefill(*args)
+        assert sum(kernels.launch_counts().values()) == 0
+        args32 = [a.float() if a.is_floating_point() else a for a in args]
+        o = pp.paged_flash_prefill(*args32)
+        assert _prefill_routes(kernels.launch_counts(), torch.float32)
+        torch.cuda.synchronize()
+        assert _err(o, pp.paged_flash_prefill_plain(*args32)) < F32_TOL
+    args = _tc_prefill_inputs(rng, cuda, 8, 2, 64, 16, "ragged")
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        pp.paged_flash_prefill(*args)
+    pp.paged_flash_prefill(*(a.float() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["paged_flash_prefill"] == 4 and counts["paged_flash_prefill_tc"] == 3
 
 
 # -- K3 / K4 -------------------------------------------------------------------

@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""The bf16 prefill kernels of two checkouts side by side on one card: K2
+(the paged prefix-extension prefill) and K1 (the FA2 forward).
+
+Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
+
+    python3 tools/prefill_ab.py [OTHER_ROOT ...]
+
+Each root (this checkout, and every OTHER_ROOT, for example the parent
+commit unpacked with ``git archive``) runs in a process of its own, twice,
+in the order others, this, this, others reversed, so that drift of the
+card over the call falls on all alike. Each run builds that root's
+``paged_prefill`` and ``flash_attention`` libraries and, timed by this
+checkout's ``chip_smoke.Timer``, runs at llama3-8b widths (Hq 32, Hkv 8,
+D 128, bf16, pages of 16 on a scattered table):
+
+* K2 at ``chip_smoke.py``'s kernel-phase shape: B 2, a prefix of 1000
+  positions (not a page multiple), a tail of 256, the second row's tail
+  live to 219;
+* K2 at the paged serve run's extend shape: the 7 requests that hit the
+  256-token system prefix, each a full tail of 256 over a 16-page table;
+* K1 at B 2, S 2048, causal, head-first, and at hymba-1.5b's prefill
+  widths (B 1, Hq 25, Hkv 5, D 64, S 4096), global and window 1024, as
+  ``chip_smoke.py`` times it.
+
+Per case it reports the CUDA-event median of ``chip_smoke.Timer`` with the
+launch queue primed (the card's time alone), the sum of the device times of
+the case's kernel from ``torch.profiler``, the row-relative error against
+the root's plain version, and how many of 100 reruns (the L2 flushed before
+every third) differ bitwise from the first run. K1's o and lse are also
+compared bit for bit, case by case, with those of the first root run
+(saved under ``build/prefill_ab/``). The last line of each run is one JSON object of
+the times.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HQ, HKV, D, PS = 32, 8, 128, 16
+RERUNS = 100
+#: K1's cases: label, B, Hq, Hkv, D, S, window (all causal, head-first).
+K1_CASES = (("K1 (B 2, S 2048, causal, head-first)", 2, HQ, HKV, D, 2048, None),
+            ("K1 hymba-1.5b widths (S 4096, global)", 1, 25, 5, 64, 4096, None),
+            ("K1 hymba-1.5b widths (S 4096, window 1024)", 1, 25, 5, 64, 4096, 1024))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SAVED = os.path.join(HERE, "build", "prefill_ab")
+
+
+def k2_inputs(torch, gen, b, plen, st, tlens):
+    """bf16 q, pools, a scattered table (page 0 the null page), tail K/V and
+    the lengths of one K2 case."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    mp = -(-plen // PS)
+    num_pages = 1 + b * mp
+    kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
+    q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
+    plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+    tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
+    return (q, kp, vp, table, kt, vt, plens, tl)
+
+
+def run_one(root: str, tag: str, first: bool) -> None:
+    # The port from `root`; the timer and the bars from this checkout's
+    # chip_smoke.py, so both roots are measured alike.
+    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, HERE)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_prefill_attention as pp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all(["paged_prefill", "flash_attention"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    timer = cs.Timer(torch)
+
+    def device_ms(fn, name) -> float:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(cs.REPS):
+                timer.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return sum(getattr(ev, "device_time_total", 0) or 0 for ev in prof.key_averages()
+                   if name in ev.key) / cs.REPS / 1e3
+
+    def reruns_differ(fn, out) -> int:
+        differ = 0
+        for i in range(RERUNS):
+            if i % 3 == 0:
+                timer.flush.zero_()
+            differ += not all(torch.equal(u, v) for u, v in zip(fn(), out))
+        return differ
+
+    times = {}
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def report(label, fn, ref, name, note=""):
+        out = as_tuple(fn())
+        e = cs.row_err(out[0], ref)
+        ms = timer.ms(fn, primed=True)
+        dev = device_ms(fn, name)
+        differ = reruns_differ(lambda: as_tuple(fn()), out)
+        times[label] = dict(ms=ms, device_ms=dev, row_err=e, reruns_differ=differ)
+        print(f"[{tag}] {label}: {ms:.4f} ms (queue primed), device {dev:.4f} ms, row-relative "
+              f"error {e:.3e} (tol {cs.ROW_TOL:.3e}), {differ} of {RERUNS} reruns differ{note}",
+              flush=True)
+        return out
+
+    for label, b, plen, st, tlens in (
+            ("K2 smoke shape (B 2, prefix 1000, tail 256)", 2, 1000, 256, [256, 219]),
+            ("K2 serve extend shape (B 7, prefix 256, tail 256)", 7, 256, 256, [256] * 7)):
+        args = k2_inputs(torch, gen, b, plen, st, tlens)
+        ref = pp.paged_flash_prefill_plain(*args)
+        report(label, lambda: pp.paged_flash_prefill(*args), ref, "paged_prefill")
+        del args, ref
+
+    os.makedirs(SAVED, exist_ok=True)
+    for i, (label, b, hq, hkv, d, s, window) in enumerate(K1_CASES):
+        q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True, window=window)
+        fn = lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+        o, lse = fn()
+        torch.cuda.synchronize()
+        path = os.path.join(SAVED, f"k1_{i}.pt")
+        if first:
+            torch.save({"o": o.cpu(), "lse": lse.cpu()}, path)
+        saved = torch.load(path)
+        same = torch.equal(o.cpu(), saved["o"]) and torch.equal(lse.cpu(), saved["lse"])
+        report(label, fn, o_ref, "fa2_fwd",
+               note=f"; o and lse bitwise equal to the first root's: {same}")
+        times[label]["bitwise_equal_first_root"] = same
+        del q, k, v, o, lse, o_ref
+    print(json.dumps({"root": root, "tag": tag, "card": cs.smi_line(), "times": times}),
+          flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first")
+        return 0
+    others = [(os.path.abspath(p), os.path.basename(os.path.abspath(p))) for p in sys.argv[1:]]
+    order = others + [(HERE, "this")] * (2 if others else 1) + others[::-1]
+    rc = 0
+    for i, (root, tag) in enumerate(order):
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, tag,
+                              "first" if i == 0 else "later"], cwd=root).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
