@@ -52,21 +52,38 @@ and prints no result. Phases, in order (any failure exits non-zero):
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
-     each; every kernel's launch count over that run must be above 0, and
-     every K1, K2 and K3 / K4 launch on the tensor cores. Then
-     one request's prefill and first-decode logits (of the plain path's
-     greedy token), kernel path against the plain path on the card; then
-     the same weights served from dense stripes (``kv_layout="dense"``);
-     then full-width hymba-1.5b through
+     each, each run on an engine sized for it (a decode sync runs every row
+     over the whole page table as one CUDA graph replay, so the table's
+     width sets the decode plan: one pass over (a)'s 36 pages, two splits
+     over (b)'s 260); every kernel's launch count over that run must be
+     above 0, and every K1, K2 and K3 / K4 launch on the tensor cores. Then
+     each run once more for one sync at ``steps_per_sync=1`` through
+     ``engine.step()``, at its own engine sizes, kernel path against the
+     plain path (whose tick is a captured graph too): every request's
+     prefill logits and its decode tick's logits from the graph, and the
+     greedy ids (``compare_sync``). Then the fused decode on (a)'s
+     engine: ``steps_per_sync`` 1, 8 and "auto" on the same weights must
+     give identical ids, each run's decode tok/s, graphs captured and launch
+     counts printed; the eager tick (the one-tick graph's tick function run
+     without the graph) against one
+     replay of the one-tick graph, both with CUDA events; the host clock of
+     one steps_per_sync=1 sync minus that graph's device time (which sets
+     ``perf_model.HOST_SYNC_OVERHEAD_S``); and a torch.profiler summary of
+     an eager tick and of an 8-tick replay (device-busy share, top device
+     ops). Then the same weights served from dense stripes
+     (``kv_layout="dense"``), then full-width hymba-1.5b through
      ``LLMEngine(cfg, params)`` (``kv_layout`` resolves to dense): 8 greedy
-     requests off the prompt buckets, several past the 1024 window, then one
-     of 4000 tokens alone, whose decode the plan splits (K8); then
+     requests off the prompt buckets, several past the 1024 window, on
+     2048-token stripes (one pass, K7), then one of 4000 tokens alone on
+     4096-token stripes, whose decode the plan splits (K8); then
      full-width mamba2-1.3b. Each dense run must launch its kernels (every
      K7 / K8 launch of the llama and hymba runs on the tensor cores; one K9
      launch, on the tensor cores, per SSM layer per prefill) and
-     hold its first-token and next-token logits to the plain path's (every
-     kernel off: ``attn_impl`` and ``ssm.impl`` "plain"; both paths decode
-     the plain path's greedy token);
+     hold one sync of each run to the plain path's (every kernel off:
+     ``attn_impl`` and ``ssm.impl`` "plain"; ``compare_sync`` as above);
+     each dense path then runs the fused
+     decode at ``steps_per_sync`` 1 and 8 (identical ids) and times its
+     eager and one-tick graph ticks;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -824,8 +841,8 @@ def check_dense_decode(torch, timer, results):
     row at llama3-8b widths (one pass, 4 and 7 splits), then at hymba-1.5b
     widths (Hq 25, Hkv 5, D 64) global and with window 1024 (one pass and 4
     splits); then hymba's serve batch at the end of its decode (8 rows of
-    100-1500 + 32 tokens, the stripes cut to the 1536-row live width as the
-    backend passes them), global and window 1024, one pass against 4
+    100-1500 + 32 tokens over the whole 2048-row stripes, as the fused
+    decode's graph passes them), global and window 1024, one pass against 4
     splits. The bound counts what these lengths need: each live key and
     value read once (``min(length, window)`` per row), q read and o written
     once; the JSON line takes hymba's global case. SDPA (q as (B, Hq, 1, D)
@@ -872,8 +889,8 @@ def check_dense_decode(torch, timer, results):
             ("llama3-8b", HQ, HKV, D, None, (1, 4, 7), smax, lengths),
             ("hymba-1.5b global", 25, 5, 64, None, (1, 4), smax, lengths),
             ("hymba-1.5b window 1024", 25, 5, 64, 1024, (1, 4), smax, lengths),
-            ("hymba-1.5b serve batch global", 25, 5, 64, None, (1, 4), 1536, serve_lens),
-            ("hymba-1.5b serve batch window 1024", 25, 5, 64, 1024, (1, 4), 1536,
+            ("hymba-1.5b serve batch global", 25, 5, 64, None, (1, 4), 2048, serve_lens),
+            ("hymba-1.5b serve batch window 1024", 25, 5, 64, 1024, (1, 4), 2048,
              serve_lens)):
         q, kc, vc = randn(b, hq, d), randn(b, hkv, smax, d), randn(b, hkv, smax, d)
         kc, vc = kc[:, :, :width], vc[:, :, :width]
@@ -1068,6 +1085,23 @@ def init_params(torch, cfg, seed=0, device="cuda"):
     return params
 
 
+#: The paged serve engine of run (a) and of the fused decode phase: 8 rows,
+#: tables of 36 pages (576 tokens: a 512-token prompt and 32 new tokens).
+SERVE_PAGED_KW = dict(kv_layout="paged", max_batch=8, num_pages=1024, page_size=PS,
+                      max_pages_per_seq=36, prompt_buckets=(256, 512))
+
+
+def serve_prompts(cfg, seed=0):
+    """Run (a)'s prompts, 8 of 512 tokens sharing a 256-token prefix, and
+    the generator that drew them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, cfg.vocab, size=(256,))
+    return [np.concatenate([system, rng.integers(1, cfg.vocab, size=(256,))])
+            for _ in range(8)], rng
+
+
 def serve(torch, cfg, params, seed=0, device="cuda"):
     import numpy as np
 
@@ -1075,35 +1109,42 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     from repro_torch.serving import LLMEngine, Request, SamplingParams
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    engine_kw = dict(kv_layout="paged", max_batch=8, num_pages=1024, page_size=PS,
-                     max_pages_per_seq=260, prompt_buckets=(256, 512, 4096), device=device)
-    engine = LLMEngine(cfg, params, **engine_kw)
-    rng = np.random.default_rng(seed)
-    system = rng.integers(1, cfg.vocab, size=(256,))
-    prompts_a = [np.concatenate([system, rng.integers(1, cfg.vocab, size=(256,))])
-                 for _ in range(8)]
+    engine_kw = dict(SERVE_PAGED_KW, device=device)
+    prompts_a, rng = serve_prompts(cfg, seed)
     prompt_b = rng.integers(1, cfg.vocab, size=(4096,))
     greedy = SamplingParams(max_tokens=32)
 
+    # Each run on an engine sized for it: a sync decodes every row over the
+    # whole page table (one CUDA graph per (steps, stop width)), so the
+    # table width sets the decode plan: one pass (K3) over (a)'s 36 pages,
+    # two splits (K4) over (b)'s 260.
     kernels.reset_launch_counts()
-    runs = {}
-    for label, prompts, uid0 in (("a", prompts_a, 0), ("b", [prompt_b], 100)):
+    runs, stats = {}, {}
+    for label, prompts, uid0, kw in (("a", prompts_a, 0, engine_kw),
+                                     ("b", [prompt_b], 100,
+                                      dict(engine_kw, max_pages_per_seq=260,
+                                           prompt_buckets=(256, 512, 4096)))):
+        engine = LLMEngine(cfg, params, **kw)
         t = time.perf_counter()
         out = engine.generate([Request(uid=uid0 + i, prompt=p, sampling=greedy)
                                for i, p in enumerate(prompts)])
         sync()
-        runs[label] = (out, time.perf_counter() - t)
+        runs[label] = (out, time.perf_counter() - t, dict(engine.ttft))
+        stats[label] = engine.stats()
+        engine.close()
+        del engine
     counts = kernels.launch_counts()
-    stats = engine.stats()
-    for label, (out, secs) in runs.items():
+    for label, (out, secs, ttfts) in runs.items():
         uids = sorted(o.uid for o in out)
-        ttft = [engine.ttft[u] * 1e3 for u in uids]
+        ttft = [ttfts[u] * 1e3 for u in uids]
+        st = stats[label]
         log(f"serve ({label}): {len(out)} requests, {sum(len(o.tokens) for o in out)} tokens "
-            f"in {secs:.2f} s; TTFT ms min {min(ttft):.1f} max {max(ttft):.1f}")
+            f"in {secs:.2f} s; TTFT ms min {min(ttft):.1f} max {max(ttft):.1f}; decode "
+            f"{st.decode_tok_s:.1f} tok/s over {st.decode_elapsed_s:.2f} s (host clock, "
+            f"{st.steps_per_sync} step per sync, CUDA graphs); prefix hit rate "
+            f"{st.prefix_hit_rate:.3f}")
     for o in sorted(runs["a"][0], key=lambda o: o.uid)[:1] + runs["b"][0][:1]:
         log(f"  uid={o.uid} tokens={[int(t) for t in o.tokens]}")
-    log(f"serve decode {stats.decode_tok_s:.1f} tok/s over {stats.decode_elapsed_s:.2f} s "
-        f"(host clock); prefix hit rate {stats.prefix_hit_rate:.3f}")
     log(f"launch counts over the serve run: {json.dumps(counts)}")
     check_k1_route("serve llama3-8b paged", counts)
     check_k2_route("serve llama3-8b paged", counts)
@@ -1111,55 +1152,34 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     for key in ("K1", "K2", "K3", "K4"):
         if counts[KERNELS[key]["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on the main path")
-    for label, (out, _) in runs.items():
+    for label, (out, _, _) in runs.items():
         if any(len(o.tokens) != 32 for o in out):
             raise AssertionError(f"serve ({label}) did not generate 32 tokens per request")
-    engine.close()
-    del engine
 
-    # Kernel path against the plain path, same weights, on the card.
+    # Kernel path against the plain path, same weights, on the card: one
+    # sync of each run at its own engine sizes.
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
-    small = dict(engine_kw, max_batch=1, num_pages=80, max_pages_per_seq=40,
-                 prompt_buckets=(256, 512))
-    outs, tokens = {}, {}
-    # The plain path first: both paths then decode its greedy token, so a
-    # near-tie that flips the first argmax cannot hand them different inputs.
-    for name, c in (("plain", plain_cfg), ("cuda", cfg)):
-        eng = LLMEngine(c, params, **small)
-        logits = []
-        for uid, prompt in ((0, prompts_a[0]), (1, prompts_a[1])):
-            rec = eng.backend.try_admit(Request(uid=uid, prompt=prompt, sampling=greedy))
-            first = eng.backend.flush([rec])[rec["row"]]
-            tok = tokens.setdefault(uid, int(first.argmax()))
-            eng.backend.reserve_rows()
-            nxt = eng.backend.decode([rec["row"]], [tok])[0]
-            logits += [first.float(), nxt.float()]
-            eng.backend.release(rec["row"])
-        outs[name] = logits
-        eng.close()
-    labels = ("prefill K1", "decode after K1", "prefill K2 (prefix hit)", "decode after K2")
-    for label, a, b in zip(labels, outs["cuda"], outs["plain"]):
-        rel = float((a - b).abs().max() / b.abs().max())
-        log(f"logits {label}: max |cuda - plain| / max |plain| = {rel:.3e}, argmax "
-            f"{int(a.argmax())} vs {int(b.argmax())}")
-        if not torch.isfinite(a).all() or rel > LOGIT_TOL:
-            raise AssertionError(f"logits {label}: kernel path disagrees with the plain path")
+    compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (a)",
+                 engine_kw=engine_kw, prompts=prompts_a)
+    compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (b)",
+                 engine_kw=dict(engine_kw, max_pages_per_seq=260,
+                                prompt_buckets=(256, 512, 4096)), prompts=[prompt_b])
     return counts
 
 
-def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
+def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_len=None,
                 want, kv_layout=None, rows=8, cache_len=4096,
                 buckets=(512, 1024, 2048, 4096), seed=0, device="cuda"):
     """Dense serving through ``LLMEngine``: greedy requests of
     ``prompt_lens`` tokens (none a bucket size, so each prefill is
-    right-padded), then one of ``lone_len`` alone, 32 new tokens each, with
+    right-padded), then one of ``lone_len`` alone on an engine of
+    ``lone_cache_len`` stripes (a sync decodes every row over the whole
+    stripe, so the stripe sets the decode plan), 32 new tokens each, with
     the launch counts set to 0 just before and read just after; every
     kernel of ``want`` must have launched. ``kv_layout=None`` takes the
-    engine's default ("auto"), which must resolve to dense. Then the
-    first-token and next-token logits of ``compare_lens`` prompts, kernel
-    path against the plain path (attention and SSM impl "plain"), each
-    prompt alone, within LOGIT_TOL of the plain path's max |logit|; the next
-    token both paths decode is the plain path's greedy one."""
+    engine's default ("auto"), which must resolve to dense. Then each run
+    once more, one sync of it, kernel path against the plain path
+    (attention and SSM impl "plain"): ``compare_sync``."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1168,39 +1188,44 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
     kw = dict(max_batch=rows, cache_len=cache_len, prompt_buckets=buckets, device=device)
     if kv_layout is not None:
         kw["kv_layout"] = kv_layout
-    engine = LLMEngine(cfg, params, **kw)
-    if engine.kv_layout != "dense":
-        raise AssertionError(f"{cfg.name}: kv_layout resolved to {engine.kv_layout}, not dense")
     lens = list(prompt_lens) + ([lone_len] if lone_len else [])
     if any(n in buckets for n in lens):
         raise AssertionError("serve_dense prompts must not be bucket sizes")
     rng = np.random.default_rng(seed + 7)
-    prompts = {n: rng.integers(1, cfg.vocab, size=(n,)) for n in set(lens) | set(compare_lens)}
+    prompts = {n: rng.integers(1, cfg.vocab, size=(n,)) for n in set(lens)}
     greedy = SamplingParams(max_tokens=32)
     # Each group its own uids, as serve() does: the lone request's TTFT is
     # then its own, not the batch's uid 0.
-    batches = [("batch", list(prompt_lens), 0)] + (
-        [("alone", [lone_len], 100)] if lone_len else [])
+    batches = [("batch", list(prompt_lens), 0, kw)] + (
+        [("alone", [lone_len], 100, dict(kw, cache_len=lone_cache_len or cache_len))]
+        if lone_len else [])
     kernels.reset_launch_counts()
-    runs = {}
-    for label, group, uid0 in batches:
+    runs, prefills = {}, 0
+    for label, group, uid0, ekw in batches:
+        engine = LLMEngine(cfg, params, **ekw)
+        if engine.kv_layout != "dense":
+            raise AssertionError(f"{cfg.name}: kv_layout resolved to {engine.kv_layout}, "
+                                 "not dense")
         t = time.perf_counter()
         out = engine.generate([Request(uid=uid0 + i, prompt=prompts[n], sampling=greedy)
                                for i, n in enumerate(group)])
         torch.cuda.synchronize()
-        runs[label] = (out, time.perf_counter() - t, group)
+        runs[label] = (out, time.perf_counter() - t, group, dict(engine.ttft), engine.stats())
+        prefills += engine.stats().prefill_launches
+        engine.close()
+        del engine
     counts = kernels.launch_counts()
-    stats = engine.stats()
-    for label, (out, secs, group) in runs.items():
-        ttft = sorted(engine.ttft[o.uid] * 1e3 for o in out)
+    for label, (out, secs, group, ttfts, stats) in runs.items():
+        ttft = sorted(ttfts[o.uid] * 1e3 for o in out)
         log(f"serve {cfg.name} ({label}, prompts {[len(prompts[n]) for n in group]}): "
             f"{len(out)} requests, {sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; "
-            f"TTFT ms min {ttft[0]:.1f} max {ttft[-1]:.1f}")
+            f"TTFT ms min {ttft[0]:.1f} max {ttft[-1]:.1f}; decode {stats.decode_tok_s:.1f} "
+            f"tok/s over {stats.decode_elapsed_s:.2f} s (host clock, {stats.steps_per_sync} "
+            f"step per sync, CUDA graphs)")
         if any(len(o.tokens) != 32 for o in out):
             raise AssertionError(f"serve {cfg.name} ({label}) did not generate 32 tokens each")
-    log(f"serve {cfg.name} kv_layout={engine.kv_layout}: decode {stats.decode_tok_s:.1f} "
-        f"tok/s over {stats.decode_elapsed_s:.2f} s (host clock); prefill launches "
-        f"{stats.prefill_launches}; launch counts {json.dumps(counts)}")
+    log(f"serve {cfg.name} kv_layout=dense: prefill launches {prefills}; launch counts "
+        f"{json.dumps(counts)}")
     for key in want:
         if counts[KERNELS[key]["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on the {cfg.name} dense path")
@@ -1212,41 +1237,272 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, compare_lens,
         # K9 has one kernel, on the tensor cores: one launch per SSM layer
         # per prefill forward.
         n_ssm = sum(spec.kind in ("mamba", "hybrid") for spec in cfg.layer_specs())
-        k9, want_k9 = counts["ssd_intra_chunk_tc"], n_ssm * stats.prefill_launches
+        k9, want_k9 = counts["ssd_intra_chunk_tc"], n_ssm * prefills
         log(f"serve {cfg.name} dense: K9 launches {k9} on the tensor cores "
-            f"(ssd_intra_chunk_tc), {n_ssm} SSM layers x {stats.prefill_launches} prefills "
-            f"= {want_k9}")
+            f"(ssd_intra_chunk_tc), {n_ssm} SSM layers x {prefills} prefills = {want_k9}")
         if k9 != want_k9:
             raise AssertionError(f"serve {cfg.name}: {k9} K9 launches, expected {want_k9}")
-    engine.close()
-    del engine
-
     plain_cfg = dataclasses.replace(
         cfg, attn_impl="plain",
         ssm=dataclasses.replace(cfg.ssm, impl="plain") if cfg.ssm else None)
-    outs, tokens = {}, {}
-    # The plain path first: both paths then decode its greedy token, so a
-    # near-tie that flips the first argmax cannot hand them different inputs.
-    for name, c in (("plain", plain_cfg), ("cuda", cfg)):
-        eng = LLMEngine(c, params, **dict(kw, max_batch=1))
-        logits = []
-        for n in compare_lens:
-            rec = eng.backend.try_admit(Request(uid=n, prompt=prompts[n], sampling=greedy))
-            first = eng.backend.flush([rec])[rec["row"]]
-            tok = tokens.setdefault(n, int(first.argmax()))
-            nxt = eng.backend.decode([rec["row"]], [tok])[0]
-            logits += [(f"prefill {n}", first.float()), (f"decode after {n}", nxt.float())]
-            eng.backend.release(rec["row"])
-        outs[name] = logits
-        eng.close()
-    for (label, a), (_, b) in zip(outs["cuda"], outs["plain"]):
-        rel = float((a - b).abs().max() / b.abs().max())
-        log(f"logits {cfg.name} {label}: max |cuda - plain| / max |plain| = {rel:.3e} (tol "
-            f"{LOGIT_TOL}), argmax {int(a.argmax())} vs {int(b.argmax())}")
-        if not torch.isfinite(a).all() or rel > LOGIT_TOL:
-            raise AssertionError(f"logits {cfg.name} {label}: kernel path disagrees with "
-                                 "the plain path")
+    for label, group, _, ekw in batches:
+        compare_sync(torch, cfg, plain_cfg, params, label=f"{cfg.name} dense ({label})",
+                     engine_kw=ekw, prompts=[prompts[n] for n in group])
     return counts
+
+
+def compare_sync(torch, cfg, plain_cfg, params, *, label, engine_kw, prompts):
+    """The kernel path against the plain path on the main path's own
+    decode: one ``steps_per_sync=1`` sync through ``engine.step()``
+    (admission, the prefills, the first-token sample, one replay of the
+    one-tick graph over every row at the full table or stripe) on an engine
+    of ``engine_kw`` serving ``prompts`` (greedy), once with ``plain_cfg``
+    (whose tick is a captured graph too) and once with ``cfg``, on the same
+    weights. The plain path runs first, and the kernel engine's first-token
+    sample is handed the plain path's first tokens, so both decode ticks
+    take the same inputs. Each request's prefill logits and its decode
+    tick's logits (``backend.last_logits``) must lie within LOGIT_TOL of the
+    plain path's max |logit|, and their greedy ids must agree, except where
+    the plain logits' margin between the two ids is within twice the row's
+    largest error (a near-tie that an error within tolerance can flip)."""
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    greedy = SamplingParams(max_tokens=32)
+    runs, force = {}, None
+    for name, c in (("plain", plain_cfg), ("cuda", cfg)):
+        engine = LLMEngine(c, params, steps_per_sync=1, **engine_kw)
+        b = engine.backend
+        first = {}
+
+        def recording(records, b=b, flush=b.flush, first=first, force=force):
+            got = flush(records)
+            for row, x in got.items():
+                uid = b.row_req(row).uid
+                first[uid] = x.float().clone()
+                if force is not None:
+                    pick = torch.zeros_like(x)
+                    pick[force[uid]] = 1.0
+                    got[row] = pick
+            return got
+
+        b.flush = recording
+        for i, p in enumerate(prompts):
+            engine.add_request(Request(uid=i, prompt=p, sampling=greedy))
+        engine.step()
+        torch.cuda.synchronize()
+        rows = {b.row_req(r).uid: r for r in range(b.rows) if b.active[r]}
+        if sorted(rows) != list(range(len(prompts))) or b.stats["decode_traces"] != 1:
+            raise AssertionError(f"compare {label}: the first sync did not decode every "
+                                 "request in one graph")
+        runs[name] = dict(first=first, fed={u: int(b.out[r][0]) for u, r in rows.items()},
+                          last={u: b.last_logits[r].float().clone() for u, r in rows.items()})
+        if force is None:
+            force = runs[name]["fed"]
+        engine.close()
+        del engine, b
+    if runs["cuda"]["fed"] != force:
+        raise AssertionError(f"compare {label}: the kernel engine did not decode the plain "
+                             "path's first tokens")
+    worst, same, flips = {}, {}, 0
+    for stage in ("first", "last"):
+        worst[stage], same[stage] = 0.0, 0
+        for uid, ref in runs["plain"][stage].items():
+            got = runs["cuda"][stage][uid]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"compare {label}: non-finite {stage} logits, uid {uid}")
+            diff = float((got - ref).abs().max())
+            worst[stage] = max(worst[stage], diff / float(ref.abs().max()))
+            i, j = int(ref.argmax()), int(got.argmax())
+            if i == j:
+                same[stage] += 1
+            elif float(ref[i] - ref[j]) <= 2 * diff:
+                flips += 1
+            else:
+                raise AssertionError(f"compare {label} uid {uid}: {stage} argmax {j} against "
+                                     f"the plain path's {i}, outside the error's reach")
+    n = len(prompts)
+    log(f"compare {label}, one sync at steps_per_sync=1 ({n} requests, engine "
+        f"{json.dumps({k: v for k, v in engine_kw.items() if k != 'device'})}): prefill "
+        f"logits max |cuda - plain| / max |plain| = {worst['first']:.3e}, decode tick "
+        f"(graph) logits {worst['last']:.3e} (tol {LOGIT_TOL}); greedy ids equal "
+        f"{same['first']}/{n} prefill, {same['last']}/{n} decode ({flips} near-ties within "
+        "twice the error)")
+    if max(worst.values()) > LOGIT_TOL:
+        raise AssertionError(f"compare {label}: kernel path disagrees with the plain path")
+
+
+# -- phase 4 (fused decode): CUDA graphs of the decode tick ---------------------
+
+def graph_runs(torch, cfg, params, *, label, engine_kw, prompts, steps):
+    """The same greedy requests (32 new tokens each) on a fresh engine at
+    each ``steps_per_sync`` of ``steps``. Each engine first serves requests
+    of the same lengths drawn anew, which captures its graphs; then, the
+    launch counts set to 0 just before and read just after, ``prompts``:
+    that run must capture no graph, its decode must launch its kernels, all
+    on the tensor cores, and its ids must be identical across ``steps``.
+    Returns each measured run's host-clock decode tok/s (capture excluded)
+    and the seconds of the warm-up run's decode (captures included)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    greedy = SamplingParams(max_tokens=32)
+    rng = np.random.default_rng(99)
+    warm = [rng.integers(1, cfg.vocab, size=(len(p),)) for p in prompts]
+    ids, rates, first = {}, {}, {}
+    for n in steps:
+        engine = LLMEngine(cfg, params, steps_per_sync=n, **engine_kw)
+        engine.generate([Request(uid=1000 + i, prompt=p, sampling=greedy)
+                         for i, p in enumerate(warm)])
+        torch.cuda.synchronize()
+        st0, graphs = engine.stats(), engine.backend.stats["decode_traces"]
+        kernels.reset_launch_counts()
+        out = engine.generate([Request(uid=i, prompt=p, sampling=greedy)
+                               for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        st = engine.stats()
+        ids[n] = {o.uid: [int(t) for t in o.tokens] for o in out}
+        secs = st.decode_elapsed_s - st0.decode_elapsed_s
+        rates[n] = sum(len(t) for t in ids[n].values()) / secs
+        first[n] = st0.decode_elapsed_s
+        paged = engine.kv_layout == "paged"
+        log(f"fused {label} steps_per_sync={n!r}: decode {rates[n]:.1f} tok/s over {secs:.3f} "
+            f"s (host clock; N {st.steps_per_sync} at the last sync; the warm-up run's "
+            f"decode, which captured {graphs} CUDA graphs, took {st0.decode_elapsed_s:.3f} "
+            f"s); launch counts {json.dumps({k: v for k, v in counts.items() if v})}")
+        if engine.backend.stats["decode_traces"] != graphs:
+            raise AssertionError(f"fused {label} steps_per_sync={n!r}: a graph was captured "
+                                 "after warm-up")
+        if any(spec.kind != "mamba" for spec in cfg.layer_specs()):
+            (check_paged_route if paged else check_dense_route)(
+                f"fused {label} steps_per_sync={n!r}", counts)
+            decode = (counts["paged_flash_decode"] + counts["paged_flash_decode_split"]
+                      if paged else counts["flash_decode"] + counts["flash_decode_split"])
+            if decode <= 0:
+                raise AssertionError(f"fused {label}: no decode kernel launched in graphs")
+        if any(len(t) != 32 for t in ids[n].values()):
+            raise AssertionError(f"fused {label} steps_per_sync={n!r}: not 32 tokens each")
+        engine.close()
+        del engine
+    for n in steps[1:]:
+        if ids[n] != ids[steps[0]]:
+            raise AssertionError(f"fused {label}: steps_per_sync={n!r} ids differ from "
+                                 f"steps_per_sync={steps[0]!r}")
+    log(f"fused {label}: ids identical across steps_per_sync {list(steps)}")
+    return rates, first
+
+
+def profile_summary(torch, fn, label):
+    """One ``fn`` under torch.profiler: the device's busy time (its kernels'
+    time, summed) over the host clock of the profiled call, and the top
+    device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    kernels_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels_) / 1e3
+    log(f"profile {label}: {wall_ms:.3f} ms host clock (profiler on), device busy "
+        f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}%, {sum(e.count for e in kernels_)} "
+        "kernels; top device ops:")
+    if busy_ms <= 0:
+        log("  (the trace holds no device time)")
+    for e in sorted(kernels_, key=dev_us, reverse=True)[:8]:
+        log(f"  {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
+            f"x{e.count:<5d} {e.key[:100]}")
+    return busy_ms, wall_ms
+
+
+def tick_times(torch, timer, cfg, params, *, label, engine_kw, prompts, host_sync=False,
+               profile=False):
+    """On one engine at steps_per_sync=1 with ``prompts`` decoding: the
+    eager tick (the one-tick graph's tick function run without the graph,
+    CUDA events around each call, the host's launches included) against
+    one replay of the one-tick graph (CUDA events with the queue primed:
+    the card's time alone). ``host_sync``: also the host clock of a
+    steady-state sync, minus the one-tick graph's device time, which sets
+    ``perf_model.HOST_SYNC_OVERHEAD_S``. ``profile``: a torch.profiler
+    summary of an eager tick and of an 8-tick replay. Both re-run the last
+    sync's inputs and rewrite the same cache entries."""
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    greedy = SamplingParams(max_tokens=32)
+    engine = LLMEngine(cfg, params, steps_per_sync=1, **engine_kw)
+    b = engine.backend
+    for i, p in enumerate(prompts):
+        engine.add_request(Request(uid=i, prompt=p, sampling=greedy))
+    engine.step()
+    engine.step()
+    host = []
+    for _ in range(10):
+        t = time.perf_counter()
+        engine.step()
+        host.append((time.perf_counter() - t) * 1e3)
+    program = b._programs[(1, 0)]
+    graph_ms = timer.ms(program.graph.replay, primed=True)
+    rows = [r for r in range(b.rows) if b.active[r]]
+    eager = program.run
+    eager_ms = timer.ms(eager)
+    out = {"rows": len(rows), "eager_ms": eager_ms, "graph_ms": graph_ms}
+    log(f"tick {label}, {len(rows)} rows: eager tick {eager_ms:.3f} ms (CUDA events, "
+        f"host launches included; {1e3 * len(rows) / eager_ms:.1f} tok/s), one-tick graph "
+        f"replay {graph_ms:.3f} ms (queue primed; {1e3 * len(rows) / graph_ms:.1f} tok/s): "
+        f"{eager_ms / graph_ms:.1f}x")
+    if host_sync:
+        host_ms = statistics.median(host)
+        out["host_sync_ms"] = host_ms - graph_ms
+        log(f"host sync {label}: one steps_per_sync=1 sync {host_ms:.3f} ms (host clock, "
+            f"median of {len(host)}; min {min(host):.3f}) - one-tick graph {graph_ms:.3f} ms "
+            f"= {host_ms - graph_ms:.3f} ms (HOST_SYNC_OVERHEAD_S)")
+    if profile:
+        out["eager_profile"] = profile_summary(torch, eager, f"{label} eager tick")
+    engine.close()
+    del engine
+    if profile:
+        engine = LLMEngine(cfg, params, steps_per_sync=8, **engine_kw)
+        for i, p in enumerate(prompts):
+            engine.add_request(Request(uid=i, prompt=p, sampling=greedy))
+        engine.step()
+        replay = engine.backend._programs[(8, 0)].graph.replay
+        ms8 = timer.ms(replay, primed=True)
+        log(f"tick {label}: 8-tick graph replay {ms8:.3f} ms (queue primed), "
+            f"{ms8 / 8:.3f} ms a tick")
+        out["graph8_ms"] = ms8
+        out["graph8_profile"] = profile_summary(torch, replay, f"{label} 8-tick graph replay")
+        engine.close()
+        del engine
+    return out
+
+
+def fused_phase(torch, timer, cfg, params, *, label, engine_kw, prompts, steps=(1, 8),
+                **kw):
+    rates, _ = graph_runs(torch, cfg, params, label=label, engine_kw=engine_kw,
+                          prompts=prompts, steps=steps)
+    ticks = tick_times(torch, timer, cfg, params, label=label, engine_kw=engine_kw,
+                       prompts=prompts, **kw)
+    log(f"decode {label}: graphs {', '.join(f'N={n!r} {r:.1f}' for n, r in rates.items())} "
+        f"tok/s (host clock); eager tick {1e3 * ticks['rows'] / ticks['eager_ms']:.1f} "
+        f"tok/s (CUDA events); card: {smi_line()}")
+    return rates, ticks
+
+
+def dense_prompts(cfg, lens, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    return [rng.integers(1, cfg.vocab, size=(n,)) for n in lens]
 
 
 # -- phase 5: train llama3-8b widths ------------------------------------------
@@ -1467,28 +1723,63 @@ def main() -> int:
     log("== serve llama3-8b (paged, bf16, random weights)")
     params = init_params(torch, llama3_8b.CONFIG)
     counts = serve(torch, llama3_8b.CONFIG, params)
+    timer = Timer(torch)
+    fused = {}
+    log("== fused decode llama3-8b paged: steps_per_sync 1, 8 and auto, CUDA graphs")
+    prompts, _ = serve_prompts(llama3_8b.CONFIG)
+    fused["llama3-8b paged"] = fused_phase(
+        torch, timer, llama3_8b.CONFIG, params, label="llama3-8b paged",
+        engine_kw=dict(SERVE_PAGED_KW, device="cuda"), prompts=prompts,
+        steps=(1, 8, "auto"), host_sync=True, profile=True)
+    # The graphs run the whole table: the same 8 rows over (b)'s 260-page
+    # table cost this much more a tick than over 36 pages.
+    tick_times(torch, timer, llama3_8b.CONFIG, params, label="llama3-8b paged, 260-page table",
+               engine_kw=dict(SERVE_PAGED_KW, max_pages_per_seq=260,
+                              prompt_buckets=(256, 512, 4096), device="cuda"),
+               prompts=prompts)
     log("== serve llama3-8b (dense, the same weights)")
+    dense_lens = (300, 900, 1500, 2500)
     paths = [serve_dense(torch, llama3_8b.CONFIG, params, kv_layout="dense", rows=4,
-                         prompt_lens=(300, 900, 1500, 2500), compare_lens=(900,),
-                         want=("K1", "K8"))]
+                         prompt_lens=dense_lens, want=("K1", "K8"))]
+    fused["llama3-8b dense"] = fused_phase(
+        torch, timer, llama3_8b.CONFIG, params, label="llama3-8b dense",
+        engine_kw=dict(kv_layout="dense", max_batch=4, cache_len=4096,
+                       prompt_buckets=(512, 1024, 2048, 4096), device="cuda"),
+        prompts=dense_prompts(llama3_8b.CONFIG, dense_lens))
     del params
     gc.collect()
     torch.cuda.empty_cache()
     log("== serve hymba-1.5b (kv_layout auto -> dense, bf16, random weights)")
     params = init_params(torch, hymba_1_5b.CONFIG)
-    paths.append(serve_dense(torch, hymba_1_5b.CONFIG, params,
-                             prompt_lens=(100, 300, 600, 900, 1100, 1300, 1450, 1500),
-                             lone_len=4000, compare_lens=(1500, 4000),
+    hymba_lens = (100, 300, 600, 900, 1100, 1300, 1450, 1500)
+    paths.append(serve_dense(torch, hymba_1_5b.CONFIG, params, prompt_lens=hymba_lens,
+                             cache_len=2048, lone_len=4000, lone_cache_len=4096,
                              want=("K1", "K7", "K8", "K9")))
+    fused["hymba-1.5b dense"] = fused_phase(
+        torch, timer, hymba_1_5b.CONFIG, params, label="hymba-1.5b dense",
+        engine_kw=dict(max_batch=8, cache_len=2048, prompt_buckets=(512, 1024, 2048),
+                       device="cuda"),
+        prompts=dense_prompts(hymba_1_5b.CONFIG, hymba_lens))
     del params
     gc.collect()
     torch.cuda.empty_cache()
     log("== serve mamba2-1.3b (kv_layout auto -> dense, bf16, random weights)")
     params = init_params(torch, mamba2_1_3b.CONFIG)
+    mamba_lens = (200, 700, 1300, 2000)
     paths.append(serve_dense(torch, mamba2_1_3b.CONFIG, params, rows=4,
-                             prompt_lens=(200, 700, 1300, 2000), compare_lens=(700, 2000),
-                             want=("K9",)))
-    del params
+                             prompt_lens=mamba_lens, want=("K9",)))
+    fused["mamba2-1.3b dense"] = fused_phase(
+        torch, timer, mamba2_1_3b.CONFIG, params, label="mamba2-1.3b dense",
+        engine_kw=dict(max_batch=4, cache_len=4096, prompt_buckets=(512, 1024, 2048, 4096),
+                       device="cuda"),
+        prompts=dense_prompts(mamba2_1_3b.CONFIG, mamba_lens))
+    del params, timer
+    log("fused decode summary (decode tok/s; host clock for the engine runs, CUDA events "
+        f"for the ticks; card: {smi_line()}): " + json.dumps({
+            path: {"graphs_tok_s": {str(n): round(r, 1) for n, r in rates.items()},
+                   "eager_tick_ms": round(t["eager_ms"], 4),
+                   "graph_tick_ms": round(t["graph_ms"], 4), "rows": t["rows"]}
+            for path, (rates, t) in fused.items()}))
     for path in paths:
         for key, n in path.items():
             counts[key] += n

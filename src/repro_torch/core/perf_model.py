@@ -6,7 +6,9 @@ placement scoring comes with the distributed slice), and
 ``estimate_dense_decode`` / ``estimate_paged_decode``, which
 ``kernels.plan.resolve_kv_layout`` ranks. They run on the H100's data-sheet
 constants (``core.numa.H100``); their choices are a model's, not
-measurements.
+measurements. And ``choose_steps_per_sync``, the fused decode's ticks per
+host sync, which the engine feeds a measured tick and which charges the
+measured ``HOST_SYNC_OVERHEAD_S``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,21 @@ from repro_torch.core.numa import Topology
 #: HBM3 at a 700 W power limit. The model's other terms are not calibrated
 #: (PERF.md, open questions).
 COMBINE_LAUNCH_OVERHEAD_S = 17e-6
+
+#: Host cost of one decode sync that the card does not see: filling the
+#: graph's input buffers, the replay's launch, reading the results back and
+#: the engine's bookkeeping before the next sync. This is the per-token tax
+#: the fused multi-step decode amortizes. Measured by ``chip_smoke.py`` (its
+#: "host sync" line: host clock of one steps_per_sync=1 sync at the llama3-8b
+#: paged serve shape, 8 rows, median of 10: 12.794 ms, minus the device time
+#: of that sync's one-tick graph, 12.246 ms) at 0.548 ms on an NVIDIA H100
+#: 80GB HBM3 at a 700 W power limit.
+HOST_SYNC_OVERHEAD_S = 548e-6
+
+#: Cap on ``choose_steps_per_sync``. Powers of two up to this bound the
+#: fused decode's graphs at O(log MAX) per engine.
+MAX_STEPS_PER_SYNC = 32
+
 
 @dataclasses.dataclass(frozen=True)
 class DecodeEstimate:
@@ -156,3 +173,20 @@ def estimate_decode_splits(
         num_splits=best[1], time=best[0], base_time=times[0][1],
         times=tuple(times),
     )
+
+
+def amortized_host_overhead(steps_per_sync: int) -> float:
+    """Per-token host overhead when the engine syncs once per
+    ``steps_per_sync`` ticks: :data:`HOST_SYNC_OVERHEAD_S` spread over the
+    N tokens a sync produces."""
+    return HOST_SYNC_OVERHEAD_S / max(int(steps_per_sync), 1)
+
+
+def choose_steps_per_sync(*, decode_tick_s: float) -> int:
+    """The fused decode's ticks per sync: the smallest power of two whose
+    amortized host overhead drops below 10% of one tick, capped at
+    :data:`MAX_STEPS_PER_SYNC` (the JAX package's rule)."""
+    n = 1
+    while n < MAX_STEPS_PER_SYNC and amortized_host_overhead(n) > 0.1 * max(decode_tick_s, 0.0):
+        n *= 2
+    return n

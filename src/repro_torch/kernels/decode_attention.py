@@ -71,7 +71,7 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, softcap=None, scale=None
         l = torch.zeros((b * hkv, group, 1), device=q.device)
         for c in range(start, end):
             live = decode_common.chunk_relevant(c * chunk, chunk, ln, window)
-            if not bool(live.any()):
+            if decode_common.dead_block(live):
                 continue
             sl = slice(c * chunk, (c + 1) * chunk)
             k = k_cache[:, :, sl].reshape(b * hkv, chunk, d)

@@ -19,6 +19,15 @@ import torch
 NEG_INF = -1e30
 
 
+def dead_block(live: torch.Tensor) -> bool:
+    """Whether a plain walk may skip a block that no row needs. Never while
+    a CUDA graph captures: a graph cannot branch on data, so every block is
+    computed and then masked, to the same result."""
+    if live.is_cuda and torch.cuda.is_current_stream_capturing():
+        return False
+    return not bool(live.any())
+
+
 def chunk_relevant(chunk_start, chunk_len: int, length, window):
     """True iff the KV unit ``[chunk_start, chunk_start + chunk_len)`` can
     hold a valid key for a decode row of ``length`` live tokens: a position

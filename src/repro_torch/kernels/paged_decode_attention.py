@@ -65,7 +65,7 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
         l = torch.zeros((b * hkv, group, 1), device=q.device)
         for p in range(start, end):
             live = decode_common.chunk_relevant(p * ps, ps, ln, window)
-            if not bool(live.any()):
+            if decode_common.dead_block(live):
                 continue
             pids = table[:, p].repeat_interleave(hkv)
             k = k_pages[heads, pids]                           # (B*Hkv, ps, D)

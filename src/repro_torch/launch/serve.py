@@ -3,10 +3,11 @@
 The flags are those of ``repro.launch.serve``, plus ``--device`` (default
 ``cuda``). ``--kv-layout auto`` (the default) serves SSM and hybrid models
 (mamba2, hymba) from dense stripes and ranks dense against paged for the
-rest. Options the port has not ported yet (``--mesh``,
-``--steps-per-sync`` other than 1, ``--kv-dtype`` other than fp32,
-``--host-pool-bytes``) reach the engine, which raises
-``NotImplementedError`` naming the ROADMAP item.
+rest. ``--steps-per-sync N`` (or ``auto``) runs N decode ticks per host
+sync, one CUDA graph replay on the card. Options the port has not ported
+yet (``--mesh``, ``--kv-dtype`` other than fp32, ``--host-pool-bytes``)
+reach the engine, which raises ``NotImplementedError`` naming the ROADMAP
+item.
 
 Examples:
   python -m repro_torch.launch.serve --arch llama3-8b
@@ -15,6 +16,7 @@ Examples:
       --requests 4 --max-new-tokens 8
   python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
       --requests 4 --max-new-tokens 8 --shared-prefix 16
+  python -m repro_torch.launch.serve --arch llama3-8b --steps-per-sync auto
 """
 
 from __future__ import annotations

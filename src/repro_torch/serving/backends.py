@@ -5,38 +5,44 @@ Port of ``repro.serving.backends``:
   * ``DenseBackend`` (``backends.py:315``): one ``cache_len`` stripe per
     decode row (and the Mamba-2 state of SSM and hybrid models); each
     admitted prompt is right-padded to its bucket and prefilled into its
-    slot; one decode tick advances every active slot. No preemption.
+    slot. No preemption.
   * ``PagedBackend`` (``backends.py:533``): the paged KV pool with
     hash-chain prefix sharing, same-round in-flight page sharing, batched
-    tail-prefill flush in dependency waves, per-token page append with
+    tail-prefill flush in dependency waves, page reservation with
     copy-on-write, and preemption with resume by replay.
 
+Both decode through :meth:`_Backend.fused_decode`, the port of the JAX
+package's fused multi-step scan (``backends.py:170-307``): N decode ticks
+(decode, the batched sampler, the stop and length masks, the cache writes)
+with no host read between them, over every ``rows`` row at the full width
+(the whole page table, the whole stripe), as the JAX scan runs them. On the
+card the N ticks are one captured CUDA graph per (N, stop width), replayed
+once per sync; on the CPU the same tick function runs eagerly. There is no
+fallback: a capture or replay that fails raises.
+
 Who is admitted or evicted is the scheduler's call. Left out of this slice
-(ROADMAP.md): quantized pools, the host page tier, the serving mesh and the
-fused multi-step decode scan. Differences that follow from eager PyTorch:
-the caches are updated in place, and a decode tick runs only on the live
-shape (the JAX package keeps static shapes for ``jit``): the paged tick
-takes the active rows with the page table cut to the widest live row; the
-dense tick takes the rows up to the last active one, as a view of the
-stripes cut to the widest live row. The decode plan, and with it the
-split-K choice, is resolved for that live shape.
+(ROADMAP.md): quantized pools, the host page tier and the serving mesh. The
+caches are updated in place and never rebound, so a captured graph keeps
+reading the live caches.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.cache.pool import NULL_PAGE, OutOfPages, PagePool, SequencePages, SequenceReleasedError
 from repro_torch.cache.prefix import PrefixCache, page_hashes
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as device_lib
 from repro_torch.core import perf_model
 from repro_torch.kernels import plan as plan_lib
-from repro_torch.kernels.decode_attention import STAGE as DECODE_BLOCK
 from repro_torch.models import transformer
+from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.scheduler import default_choose_victim
 
 
@@ -51,8 +57,89 @@ class _SeqState:
         self.submit_order = submit_order
 
 
+#: Rows of the fused decode's integer inputs (``_Inputs.ints``).
+_TOK, _LEN, _GEN, _DONE, _TOP_K, _SEED, _MAX = range(7)
+
+
+class _Inputs:
+    """The fused decode's input buffers: persistent tensors on the engine's
+    device that every sync refills in place (a captured graph reads them
+    at fixed addresses), each with a pinned host mirror on the card."""
+
+    def __init__(self, rows: int, table_width: int, device: torch.device):
+        self.device = device
+        self.ints = torch.zeros((7, rows), dtype=torch.int64, device=device)
+        self.floats = torch.zeros((2, rows), dtype=torch.float32, device=device)
+        self.table = (torch.zeros((rows, table_width), dtype=torch.int32, device=device)
+                      if table_width else None)
+        self.stops: Dict[int, torch.Tensor] = {}
+        self._host: Dict[int, torch.Tensor] = {}
+
+    def stops_of(self, width: int) -> torch.Tensor:
+        if width not in self.stops:
+            self.stops[width] = torch.full((self.ints.shape[1], width), -1,
+                                           dtype=torch.int64, device=self.device)
+        return self.stops[width]
+
+    def _fill(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        src = torch.from_numpy(np.ascontiguousarray(src)).to(dst.dtype)
+        if self.device.type == "cpu":
+            dst.copy_(src)
+            return
+        host = self._host.get(id(dst))
+        if host is None:
+            host = self._host[id(dst)] = torch.empty(dst.shape, dtype=dst.dtype,
+                                                     pin_memory=True)
+        host.copy_(src)
+        dst.copy_(host, non_blocking=True)
+
+    def fill(self, ints: np.ndarray, floats: np.ndarray, table: Optional[np.ndarray],
+             stops: np.ndarray) -> None:
+        self._fill(self.ints, ints)
+        self._fill(self.floats, floats)
+        if self.table is not None:
+            self._fill(self.table, table)
+        if stops.shape[1]:
+            self._fill(self.stops_of(stops.shape[1]), stops)
+
+
+class _Program:
+    """One (n_steps, stop width) fused decode: on the card a captured CUDA
+    graph with its output tensors, the kernel launches its capture recorded
+    and two events around each replay; on the CPU the tick function
+    itself."""
+
+    __slots__ = ("run", "graph", "out", "logits", "launches", "events")
+
+    def __init__(self, run, graph=None, out=None, logits=None, launches=None):
+        self.run, self.graph, self.out, self.logits = run, graph, out, logits
+        self.launches = launches or {}
+        self.events = (None if graph is None else
+                       tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)))
+
+    def __call__(self):
+        if self.graph is None:
+            return self.run()
+        start, end = self.events
+        start.record()
+        self.graph.replay()
+        end.record()
+        kernels.add_launch_counts(self.launches)
+        return self.out, self.logits
+
+    def replay_seconds(self) -> float:
+        """Device time of the last replay; call after reading its outputs."""
+        start, end = self.events
+        return start.elapsed_time(end) / 1e3
+
+
 class _Backend:
-    """Row bookkeeping and prompt buckets, shared by both layouts."""
+    """Row bookkeeping, prompt buckets and the fused decode, shared by both
+    layouts."""
+
+    #: Ticks per sync the engine runs; the paged scheduler prices admission
+    #: headroom off it (``PagedBackend.sync_reserve_pages``).
+    steps_per_sync = 1
 
     def _init_rows(self, rows: int, prompt_buckets) -> None:
         self.rows = rows
@@ -61,6 +148,17 @@ class _Backend:
         #: Generated tokens per row (replayed resume tokens included).
         self.out: List[List] = [[] for _ in range(rows)]
         self.prompt_buckets = tuple(prompt_buckets)
+        self._programs: Dict[Tuple[int, int], _Program] = {}
+        self._inputs: Optional[_Inputs] = None
+        self._graph_pool = None
+        self._capture_stream = None
+        #: The last tick's logits (rows, V) of the latest fused sync; on the
+        #: card they live in the graphs' memory and hold until the next sync.
+        self.last_logits: Optional[torch.Tensor] = None
+        #: Measured time of one tick of the latest sync (the graph replay's
+        #: device time on the card, the tick function's host time on the
+        #: CPU) over its ticks; None before the first sync.
+        self.decode_tick_s: Optional[float] = None
 
     @property
     def num_active(self) -> int:
@@ -74,6 +172,148 @@ class _Backend:
 
     def fits_buckets(self, n: int) -> bool:
         return any(n <= b for b in self.prompt_buckets)
+
+    # -- fused multi-step decode ---------------------------------------------
+
+    def commit_scan(self, new_lengths: np.ndarray) -> None:
+        """Adopt the per-row lengths after a fused sync."""
+        self.lengths = np.array(new_lengths, dtype=self.lengths.dtype)
+
+    def fused_decode(self, tok, gen, stops, max_toks, temps, top_k, top_p, seeds,
+                     n_steps: int):
+        """Run ``n_steps`` decode ticks over every row with no host read
+        between them; return ``(ys, final_lengths)``.
+
+        Per tick: decode, :func:`sampling.sample_batch` at stream position
+        ``gen + 1``, the fed-stop, sampled-stop and max-token masks, and the
+        cache writes. A row finishes mid-sync by freezing: its length stops
+        advancing, a paged row's table row turns to the null page (its later
+        writes sink there) and a dense row re-feeds its last token at the
+        same position, rewriting the same K/V. Rows inactive at the start
+        run frozen throughout. ``tok``, ``gen``, ``max_toks``, the sampling
+        parameters: (rows,) host arrays; ``stops``: (rows, W) stop ids padded
+        with -1 (W 0: no stop detection). ``ys`` are (n_steps, rows) host
+        arrays: the fed token, the sampled token, and the live, appended-stop,
+        fed-stop and hit-max masks; ``final_lengths`` feeds
+        :meth:`commit_scan`."""
+        n, width = int(n_steps), int(stops.shape[1])
+        program = self._programs.get((n, width))
+        if program is None:
+            program = self._programs[(n, width)] = self._build(n, width)
+        ints = np.zeros((7, self.rows), np.int64)
+        ints[_TOK], ints[_LEN], ints[_GEN] = tok, self.lengths, gen
+        ints[_DONE], ints[_TOP_K], ints[_SEED], ints[_MAX] = ~self.active, top_k, seeds, max_toks
+        self._inputs.fill(ints, np.stack([temps, top_p]),
+                          self.page_table if self.kv_layout == "paged" else None, stops)
+        t0 = time.perf_counter()
+        out, self.last_logits = program()
+        host = out.cpu().numpy()
+        secs = time.perf_counter() - t0 if program.graph is None else program.replay_seconds()
+        self.decode_tick_s = secs / n
+        ys = host[: n * 6 * self.rows].reshape(n, 6, self.rows)
+        return tuple(ys[:, i] for i in range(6)), host[n * 6 * self.rows:]
+
+    def _tick_fn(self, n_steps: int, stop_width: int):
+        """The fused decode of ``n_steps`` ticks over the input buffers, as a
+        function of nothing: it returns the outputs packed into one int64
+        tensor (``n_steps`` x 6 x rows, then the final lengths) and the last
+        tick's logits. It holds the input buffers and the decoder, never
+        the backend, so dropping the backend's programs frees the graphs."""
+        inputs = self._inputs
+        paged = self.kv_layout == "paged"
+        decode = self._decoder()
+
+        @torch.no_grad()
+        def run():
+            tok, lengths, gen, done = (inputs.ints[i] for i in (_TOK, _LEN, _GEN, _DONE))
+            top_k, seeds, max_toks = (inputs.ints[i] for i in (_TOP_K, _SEED, _MAX))
+            temps, top_p = inputs.floats[0], inputs.floats[1]
+            stops = inputs.stops_of(stop_width) if stop_width else None
+            lengths, done, table = lengths.int(), done.bool(), inputs.table
+            ys = []
+            for _ in range(n_steps):
+                live = ~done
+                lengths1 = lengths + live.int()
+                logits = decode(tok, lengths1, table)
+                # A frozen row's logits are discarded: keep whatever they
+                # hold out of the sampler.
+                logits = logits.masked_fill(done[:, None], 0.0)
+                gen1 = gen + live.long()
+                nxt = sampling_lib.sample_batch(logits, temps, top_k, top_p, seeds, gen1)
+                if stops is not None:
+                    fed_stop = live & (tok[:, None] == stops).any(1)
+                    nxt_stop = (nxt[:, None] == stops).any(1)
+                else:
+                    fed_stop = nxt_stop = torch.zeros_like(done)
+                hit_max = live & (gen1 >= max_toks)
+                done_fed = fed_stop | hit_max
+                # A sampled stop token is recorded, never decoded.
+                append_nxt = live & ~done_fed & nxt_stop
+                newly = done_fed | append_nxt
+                if paged:
+                    table = table.masked_fill(newly[:, None], NULL_PAGE)
+                ys.append(torch.stack([tok, nxt, live.long(), append_nxt.long(),
+                                       fed_stop.long(), hit_max.long()]))
+                tok = torch.where(live & ~newly, nxt, tok)
+                lengths, gen, done = lengths1, gen1 + append_nxt.long(), done | newly
+            return torch.cat([torch.stack(ys).reshape(-1), lengths.long()]), logits
+
+        return run
+
+    def _build(self, n_steps: int, stop_width: int) -> _Program:
+        """The program of one (n_steps, stop width) key: on the CPU the tick
+        function; on the card its CUDA graph, captured into the backend's
+        one memory pool after one eager warm-up tick on the capture stream
+        (library workspaces and lazy set-up happen outside the capture).
+        ``stats["decode_traces"]`` counts builds."""
+        self.stats["decode_traces"] += 1
+        if self._inputs is None:
+            width = self.max_pages_per_seq if self.kv_layout == "paged" else 0
+            self._inputs = _Inputs(self.rows, width, self.device)
+        if stop_width:
+            self._inputs.stops_of(stop_width)
+        run = self._tick_fn(n_steps, stop_width)
+        if self.device.type == "cpu":
+            return _Program(run)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._warm_up(self._tick_fn(1, stop_width))
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+            out, logits = run()
+        after = kernels.launch_counts()
+        # The capture launched nothing: take its counts back, and add them
+        # at every replay instead.
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        kernels.add_launch_counts({k: -n for k, n in launches.items()})
+        return _Program(run, graph, out, logits, launches)
+
+    def _warm_up(self, run) -> None:
+        """One eager tick with every row frozen, at length 0 and on the null
+        page: its writes land where :meth:`_scratch_state` restores them."""
+        inputs = self._inputs
+        restore = self._scratch_state()
+        inputs.ints.zero_()
+        inputs.ints[_DONE] = 1
+        inputs.floats.zero_()
+        if inputs.table is not None:
+            inputs.table.fill_(NULL_PAGE)
+        run()
+        restore()
+
+    def _drop_programs(self) -> None:
+        """Free the fused decode's graphs, their memory pool and the input
+        buffers (with their pinned mirrors); the next sync builds anew."""
+        self._programs = {}
+        self._inputs = None
+        self._graph_pool = self._capture_stream = None
+        self.last_logits = None
 
 
 class DenseBackend(_Backend):
@@ -93,7 +333,7 @@ class DenseBackend(_Backend):
         self._init_rows(rows, (b for b in prompt_buckets if b <= cache_len))
         self.slot_req: List[Optional[object]] = [None] * rows
         self.stats = {"preemptions": 0, "resumed_tokens": 0, "prefill_launches": 0,
-                      "batched_prefills": 0}
+                      "batched_prefills": 0, "decode_traces": 0}
         self.caches = transformer.init_caches(cfg, rows, cache_len, device)
 
     # -- capacity ----------------------------------------------------------
@@ -185,41 +425,28 @@ class DenseBackend(_Backend):
 
     # -- decode / teardown -------------------------------------------------
 
-    def reserve_rows(self) -> None:
+    def reserve_rows(self, n_steps: int = 1) -> None:
         """Dense stripes pre-reserve every position at admission."""
 
-    def _live_width(self, rows: int) -> int:
-        """Stripe width one tick reads: the widest live row of the first
-        ``rows`` rounded up to the decode kernels' staging block (so the
-        plan's chunk divides it), at most ``cache_len``."""
-        longest = int(self.lengths[:rows].max())
-        return min(self.cache_len, -(-longest // DECODE_BLOCK) * DECODE_BLOCK)
+    def _decoder(self):
+        params, cfg, caches = self.params, self.cfg, self.caches
+        return lambda tok, lengths, table: transformer.decode_step(
+            params, cfg, tok, caches, lengths)[0]
 
-    @torch.no_grad()
-    def decode(self, rows: List[int], tokens: List[int]) -> torch.Tensor:
-        """One decode step for the active ``rows``; returns their logits
-        (len(rows), V). The tick runs rows ``0 .. max(rows)`` over views of
-        the slots cut to the live width; a free slot inside that range gets
-        length 0 (no attention work) and its state is overwritten at its
-        next prefill."""
-        self.lengths[rows] += 1
-        hi = max(rows) + 1
-        width = self._live_width(hi)
-        tok = np.zeros((hi,), np.int64)
-        tok[rows] = [int(t) for t in tokens]
-        lengths = np.where(self.active[:hi], self.lengths[:hi], 0).astype(np.int32)
-        views = []
+    def _scratch_state(self) -> Callable[[], None]:
+        """Save what a warm-up tick at length 0 overwrites (position 0 of
+        every stripe, the SSM state); the returned function restores it."""
+        saved = []
         for c in self.caches:
-            v = {key: val[:hi] for key, val in c.items()}
-            for key in ("k", "v"):
-                if key in v:
-                    v[key] = v[key][:, :, :width]
-            views.append(v)
-        dev = self.device
-        logits, _ = transformer.decode_step(
-            self.params, self.cfg, torch.from_numpy(tok).to(dev), views,
-            torch.from_numpy(lengths).to(dev))
-        return logits[torch.as_tensor(rows, device=dev)]
+            for key, val in c.items():
+                part = val[:, :, 0] if key in ("k", "v") else val
+                saved.append((part, part.clone()))
+
+        def restore():
+            for part, copy in saved:
+                part.copy_(copy)
+
+        return restore
 
     def row_req(self, row: int):
         return self.slot_req[row]
@@ -233,11 +460,12 @@ class DenseBackend(_Backend):
 
     def shutdown(self) -> None:
         """Mark every slot free; dense rows own no pool pages, so there is
-        nothing to leak-check."""
+        nothing to leak-check. Frees the decode graphs."""
         for row in range(self.rows):
             self.active[row] = False
             self.slot_req[row] = None
             self.lengths[row] = 0
+        self._drop_programs()
 
 
 class PagedBackend(_Backend):
@@ -281,7 +509,7 @@ class PagedBackend(_Backend):
             "preemptions": 0, "prefix_evictions": 0, "pages_reused": 0,
             "prompt_pages": 0, "cow_copies": 0, "extend_prefills": 0,
             "resumed_tokens": 0, "prefill_launches": 0, "batched_prefills": 0,
-            "inflight_pages_reused": 0,
+            "inflight_pages_reused": 0, "decode_traces": 0,
         }
 
         self.pool = PagePool(num_pages, page_size)
@@ -575,38 +803,63 @@ class PagedBackend(_Backend):
         self.on_preempt(row, state.req, generated)
         return True
 
-    def reserve_rows(self) -> None:
-        """Reserve every active row's next token slot, preempting other rows
-        under pool pressure; copy-on-write copies happen here."""
+    def reserve_rows(self, n_steps: int = 1) -> None:
+        """Reserve every active row's next ``min(n_steps, remaining)`` token
+        slots before a sync, preempting other rows under pool pressure;
+        partial progress is kept across retries. Copy-on-write copies happen
+        here, so a sync never writes a shared page. Slots a sync does not
+        use go back in :meth:`commit_scan`."""
         for row in range(self.rows):
             if not self.active[row]:
                 continue
             state = self.seqs[row]
-            while True:
+            # A sync never writes past max_tokens, so never past validate()'s cap.
+            remaining = state.req.max_new_tokens - len(self.out[row])
+            target = state.pages.length + min(n_steps, max(remaining, 1))
+            cows: List[Tuple[int, int]] = []
+            while state.pages.length < target:
                 try:
-                    _, _, cow = self.pool.append_token(state.pages)
-                    break
+                    self.pool.reserve_tokens(state.pages, target - state.pages.length, cows)
                 except OutOfPages:
                     if not (self._make_room(1) or self._preempt_one(row)):
                         raise OutOfPages("pool exhausted and nothing left to preempt")
-            if cow is not None:
+            for src, dst in cows:
                 self.stats["cow_copies"] += 1
-                self._copy_page(*cow)
+                self._copy_page(src, dst)
             self._set_table(row)
 
-    @torch.no_grad()
-    def decode(self, rows: List[int], tokens: List[int]) -> torch.Tensor:
-        """One decode step for the active ``rows`` (their slots reserved by
-        :meth:`reserve_rows`); returns their logits (len(rows), V)."""
-        self.lengths[rows] += 1
-        width = max(len(self.seqs[r].pages.pages) for r in rows)
-        dev = self.device
-        tok = torch.tensor([int(t) for t in tokens], dtype=torch.int64, device=dev)
-        lengths = torch.from_numpy(self.lengths[rows]).to(dev)
-        pt = torch.from_numpy(np.ascontiguousarray(self.page_table[rows, :width])).to(dev)
-        logits, self.caches = transformer.decode_step(
-            self.params, self.cfg, tok, self.caches, lengths, page_table=pt)
-        return logits
+    def commit_scan(self, new_lengths: np.ndarray) -> None:
+        """Trim each live row's reservation to what the sync used (its
+        final length); unused reserved pages go back on the free list. Rows
+        the sync finished are released by the engine after this."""
+        for row in range(self.rows):
+            state = self.seqs[row]
+            if state is None or not self.active[row]:
+                continue
+            want = int(new_lengths[row])
+            if want < state.pages.length:
+                self.pool.trim_tokens(state.pages, want)
+            self._set_table(row)
+        super().commit_scan(new_lengths)
+
+    @property
+    def sync_reserve_pages(self) -> int:
+        """Decode headroom the scheduler prices at admission: with N ticks a
+        sync, every live row (and the candidate) can grow ceil(N /
+        page_size) pages before the host next intervenes."""
+        n = self.steps_per_sync
+        if n <= 1:
+            return self.reserve_pages
+        return self.reserve_pages + -(-n // self.page_size) * (self.num_active + 1)
+
+    def _decoder(self):
+        params, cfg, caches = self.params, self.cfg, self.caches
+        return lambda tok, lengths, table: transformer.decode_step(
+            params, cfg, tok, caches, lengths, page_table=table)[0]
+
+    def _scratch_state(self) -> Callable[[], None]:
+        """A warm-up tick writes only the null page: nothing to restore."""
+        return lambda: None
 
     def row_req(self, row: int):
         return self.seqs[row].req
@@ -638,12 +891,13 @@ class PagedBackend(_Backend):
 
     def shutdown(self) -> None:
         """Release every live row, drain the prefix cache, prove the pool
-        is fully free."""
+        is fully free; free the decode graphs."""
         for row in range(self.rows):
             if self.seqs[row] is not None:
                 self.release(row)
         self.prefix.drain()
         self._pending_pages.clear()
+        self._drop_programs()
         self.pool.check_leaks()
 
     def prefix_hit_rate(self) -> float:

@@ -5,9 +5,12 @@ Port of ``repro.serving.engine.LLMEngine``: ``add_request`` /
 increments, ``generate`` as the blocking loop, per-request sampling,
 admission and preemption by ``serving.scheduler``, execution by
 ``serving.backends.DenseBackend`` or ``PagedBackend``. One ``step`` admits
-and prefills, then runs one decode tick over the active rows; greedy
-outputs equal the JAX engine's token for token (for SSM and hybrid models,
-where the JAX engine's padded prefill leaks pad tokens into the recurrent
+and prefills, then runs one fused decode sync over the active rows:
+``steps_per_sync`` ticks (an int >= 1, or ``"auto"``, which re-picks it
+from the last sync's measured tick before each admission) with the host
+reading results once, as one CUDA graph replay on the card; greedy outputs
+equal the JAX engine's token for token (for SSM and hybrid models, where
+the JAX engine's padded prefill leaks pad tokens into the recurrent
 state, they equal the JAX package's unpadded prefill and decode; ROADMAP
 Queue C).
 
@@ -17,13 +20,13 @@ ranks dense against paged for the rest with ``plan.resolve_kv_layout``.
 Options of the JAX engine that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item, never accepted and
 ignored: ``kv_dtype`` other than ``"fp32"`` (the unquantized pool in the
-compute dtype), ``host_pool_bytes``, ``mesh``, ``steps_per_sync`` other
-than 1, and ``telemetry``.
+compute dtype), ``host_pool_bytes``, ``mesh`` and ``telemetry``.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -71,7 +74,8 @@ class LLMEngine:
     ``max_batch`` decode rows and a ``cache_len`` dense stripe, or
     ``num_pages`` x ``page_size`` pool with ``max_pages_per_seq`` (default
     ``cache_len // page_size``, clamped to the pool) for paged.
-    ``prompt_buckets=None`` picks per-layout defaults."""
+    ``prompt_buckets=None`` picks per-layout defaults. ``steps_per_sync``:
+    decode ticks per host sync, an int >= 1 or ``"auto"``."""
 
     def __init__(
         self,
@@ -106,9 +110,16 @@ class LLMEngine:
             raise _not_ported("host_pool_bytes", "quantized and tiered KV")
         if mesh is not None:
             raise _not_ported("mesh", "distributed")
-        if steps_per_sync != 1:
-            raise _not_ported(f"steps_per_sync={steps_per_sync!r}",
-                              "fused decode as a CUDA graph")
+        # "auto": the scheduler re-picks N before every admission round from
+        # the last sync's measured tick (perf_model.choose_steps_per_sync),
+        # powers of two only, so the graphs per engine stay O(log N).
+        self._auto_steps = steps_per_sync == "auto"
+        if self._auto_steps:
+            steps_per_sync = 1
+        elif not isinstance(steps_per_sync, int) or steps_per_sync < 1:
+            raise ValueError(
+                f"steps_per_sync must be a positive int or 'auto', got {steps_per_sync!r}")
+        self.steps_per_sync = steps_per_sync
         if telemetry is not None:
             raise _not_ported("telemetry", "telemetry")
         self.device = device_lib.resolve(device)
@@ -140,9 +151,13 @@ class LLMEngine:
                 prefix_sharing=prefix_sharing, reserve_pages=reserve_pages,
                 batch_prefills=batch_prefills,
             )
+        self.backend.steps_per_sync = steps_per_sync
         self.scheduler = scheduler or Scheduler()
         self.backend.choose_victim = self.scheduler.choose_victim
-        self.backend.on_preempt = self._on_preempt
+        # Through a weak reference: the backend holds no cycle back to the
+        # engine, so a dropped engine frees its caches and graphs at once.
+        engine = weakref.ref(self)
+        self.backend.on_preempt = lambda *a: engine()._on_preempt(*a)
         self._detokenizer = detokenizer
         self._pending: Dict[int, int] = {}      # row -> next token to feed
         self._streamed: Dict[int, int] = {}     # uid -> tokens emitted
@@ -183,9 +198,20 @@ class LLMEngine:
         self._arrival[request.uid] = time.perf_counter()
         return request.uid
 
-    def step(self) -> List[RequestOutput]:
-        """Admit and prefill what fits, then one decode tick over every
-        active row. Returns the streamed increments."""
+    def step(self, max_steps: Optional[int] = None) -> List[RequestOutput]:
+        """One serving sync: admit and prefill what fits, then up to
+        ``max_steps`` (default ``steps_per_sync``) fused decode ticks over
+        every active row, the host reading their results once. Returns the
+        streamed increments: one :class:`RequestOutput` per request that
+        gained tokens or finished this sync."""
+        if self._auto_steps:
+            # Before admission: the page budget prices decode headroom off
+            # the N this sync runs (sync_reserve_pages).
+            self.steps_per_sync = self.scheduler.choose_steps_per_sync(self.backend)
+            self.backend.steps_per_sync = self.steps_per_sync
+        n_steps = self.steps_per_sync if max_steps is None else int(max_steps)
+        if n_steps < 1:
+            raise ValueError(f"max_steps must be >= 1, got {max_steps}")
         t0 = time.perf_counter()
         records: List = []
         try:
@@ -198,7 +224,7 @@ class LLMEngine:
         outputs: List[RequestOutput] = []
         if self.backend.active.any():
             td = time.perf_counter()
-            outputs = self._decode_tick()
+            outputs = self._decode_tick(n_steps)
             self._decode_elapsed += time.perf_counter() - td
         if self._detokenizer is not None:
             for o in outputs:
@@ -224,7 +250,8 @@ class LLMEngine:
         return done
 
     def close(self) -> None:
-        """Release every live row (and, paged, prove the pool is fully free)."""
+        """Release every live row (and, paged, prove the pool is fully free)
+        and free the decode graphs."""
         self.backend.shutdown()
 
     def stats(self) -> SchedulerStats:
@@ -241,6 +268,7 @@ class LLMEngine:
             preemptions=b.stats["preemptions"], resumed_tokens=b.stats["resumed_tokens"],
             prefill_launches=b.stats["prefill_launches"],
             batched_prefills=b.stats["batched_prefills"],
+            steps_per_sync=self.steps_per_sync,
         )
 
     # -- internals ---------------------------------------------------------
@@ -253,24 +281,36 @@ class LLMEngine:
         seed = req.sampling.seed
         return (req.uid if seed is None else seed) & 0x7FFFFFFF
 
-    def _sample(self, logits, rows: List[int], positions: List[int]) -> np.ndarray:
-        reqs = [self.backend.row_req(r) for r in rows]
-        sp = [r.sampling for r in reqs]
-        toks = sampling_lib.sample_tokens(
-            logits, [s.temperature for s in sp], [s.top_k for s in sp],
-            [s.top_p for s in sp], [self._seed_for(r) for r in reqs], positions)
-        return toks.cpu().numpy()
+    def _sampling_arrays(self, size: int, slots_rows):
+        """(size,) host arrays of sampling parameters for (array slot,
+        backend row) pairs; other slots keep inert defaults. The stream
+        position is the row's generated-token count now."""
+        temps = np.zeros((size,), np.float32)
+        top_k = np.zeros((size,), np.int64)
+        top_p = np.ones((size,), np.float32)
+        seeds = np.zeros((size,), np.int64)
+        pos = np.zeros((size,), np.int64)
+        for slot, row in slots_rows:
+            req = self.backend.row_req(row)
+            sp = req.sampling
+            temps[slot], top_k[slot], top_p[slot] = sp.temperature, sp.top_k, sp.top_p
+            seeds[slot] = self._seed_for(req)
+            pos[slot] = len(self.backend.out[row])
+        return temps, top_k, top_p, seeds, pos
 
     def _flush(self, records: List) -> None:
         """Run the admitted prefills and sample each row's first token (at
         stream position = tokens generated so far, so a resumed request
-        continues its stream exactly)."""
+        continues its stream exactly), through the program every tick runs."""
         first = self.backend.flush(records)
         rows = sorted(first)
         if not rows:
             return
         logits = torch.stack([first[r] for r in rows])
-        toks = self._sample(logits, rows, [len(self.backend.out[r]) for r in rows])
+        dev = logits.device
+        params = [torch.from_numpy(a).to(dev)
+                  for a in self._sampling_arrays(len(rows), list(enumerate(rows)))]
+        toks = sampling_lib.sample_batch(logits, *params).cpu().numpy()
         now = time.perf_counter()
         for r, t in zip(rows, toks):
             self._pending[r] = int(t)
@@ -278,41 +318,85 @@ class LLMEngine:
             if uid in self._arrival and uid not in self.ttft:
                 self.ttft[uid] = now - self._arrival[uid]
 
-    def _decode_tick(self) -> List[RequestOutput]:
-        """Reserve each active row's next slot (may preempt), feed every
-        row its pending token, sample the next, and apply the stop rules of
-        the JAX engine's fused tick: a fed stop token or the max_tokens cap
-        ends a row; a freshly sampled stop token is appended and ends it."""
+    def _stop_array(self, rows: List[int]) -> np.ndarray:
+        """(rows, W) stop ids padded with -1, W a power of two (a graph key
+        component, so bucketing bounds the captures); W 0 when no active
+        row has stop tokens."""
         b = self.backend
-        b.reserve_rows()
+        width = max((len(b.row_req(r).sampling.stop_token_ids) for r in rows), default=0)
+        if width == 0:
+            return np.zeros((b.rows, 0), np.int64)
+        width = 1 << (width - 1).bit_length()
+        stops = np.full((b.rows, width), -1, np.int64)
+        for r in rows:
+            ids = b.row_req(r).sampling.stop_token_ids
+            stops[r, : len(ids)] = ids
+        return stops
+
+    def _decode_tick(self, n_steps: int) -> List[RequestOutput]:
+        """Reserve room for the sync (may preempt), gather each active row's
+        token to feed and its sampling parameters, run the fused decode and
+        hand its results to :meth:`_sync_scan`. The sync runs at most as
+        many ticks as the longest remaining ``max_tokens`` of its rows,
+        rounded up to a power of two: every row is finished by then, so the
+        outputs are those of ``n_steps`` ticks."""
+        b = self.backend
+        b.reserve_rows(n_steps)
         rows = [r for r in range(b.rows) if b.active[r]]
         if not rows:
             return []
-        fed = [self._pending.pop(r) if r in self._pending else int(b.out[r][-1])
-               for r in rows]
-        logits = b.decode(rows, fed)
-        gen = [len(b.out[r]) + 1 for r in rows]
-        nxt = self._sample(logits, rows, gen)
-        self._decode_tokens += len(rows)
+        tok = np.zeros((b.rows,), np.int64)
+        for r in rows:
+            tok[r] = self._pending.pop(r) if r in self._pending else int(b.out[r][-1])
+        temps, top_k, top_p, seeds, pos = self._sampling_arrays(b.rows, [(r, r) for r in rows])
+        max_toks = np.zeros((b.rows,), np.int64)
+        for r in rows:
+            max_toks[r] = b.row_req(r).sampling.max_tokens
+        longest = int(max(max_toks[r] - pos[r] for r in rows))
+        n = min(n_steps, 1 << max(longest - 1, 0).bit_length())
+        ys, lengths = b.fused_decode(tok, pos, self._stop_array(rows), max_toks, temps,
+                                     top_k, top_p, seeds, n)
+        return self._sync_scan(ys, lengths)
+
+    def _sync_scan(self, ys, lengths) -> List[RequestOutput]:
+        """The once-per-sync host step: replay the ticks' masks into each
+        row's output, finish the rows that ended, and return one
+        :class:`RequestOutput` per row that gained tokens or finished. The
+        masks' priority is the single tick's: a fed stop token outranks the
+        length cap; a sampled stop token is appended and ends the row."""
+        b = self.backend
+        tok_seq, nxt_seq, live, appended, fed_stop, hit_max = ys
+        b.commit_scan(lengths)
+        self._decode_tokens += int(live.sum())
         outputs: List[RequestOutput] = []
-        for i, r in enumerate(rows):
+        for r in range(b.rows):
+            col = live[:, r]
+            if not col.any():
+                continue
             req = b.row_req(r)
-            sp = req.sampling
-            b.out[r].append(fed[i])
-            self._tokens_generated += 1
             reason = None
-            if fed[i] in sp.stop_token_ids:
-                reason = FINISH_STOP
-            elif gen[i] >= sp.max_tokens:
-                reason = FINISH_LENGTH
-            elif int(nxt[i]) in sp.stop_token_ids:
-                b.out[r].append(int(nxt[i]))
+            last_t = 0
+            for t in range(col.shape[0]):
+                if not col[t]:
+                    break
+                last_t = t
+                b.out[r].append(int(tok_seq[t, r]))
                 self._tokens_generated += 1
-                reason = FINISH_STOP
+                if fed_stop[t, r]:
+                    reason = FINISH_STOP
+                    break
+                if hit_max[t, r]:
+                    reason = FINISH_LENGTH
+                    break
+                if appended[t, r]:
+                    b.out[r].append(int(nxt_seq[t, r]))
+                    self._tokens_generated += 1
+                    reason = FINISH_STOP
+                    break
             if reason is not None:
                 outputs.append(self._finish(r, req, reason))
                 continue
-            self._pending[r] = int(nxt[i])
+            self._pending[r] = int(nxt_seq[last_t, r])
             delta = self._delta(req.uid, b.out[r])
             if delta:
                 outputs.append(RequestOutput(uid=req.uid, prompt_len=len(req.prompt),

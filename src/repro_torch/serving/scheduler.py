@@ -9,10 +9,15 @@ JAX package's decode and extend time models; see ROADMAP.md):
   * fairness is priority + FCFS with aging: effective priority grows by one
     every ``aging_rounds`` rounds a request waits;
   * the page budget prices a request (pages needed minus prefix matches,
-    plus decode headroom) against free + evictable pages before the
-    backend's allocator is touched; a backend without a page pool (dense
-    slots) always passes it, its row check is in ``try_admit``;
-  * ``choose_victim`` evicts the lowest-priority, newest active row.
+    plus decode headroom: ``sync_reserve_pages``, which grows with the
+    fused decode's ticks per sync) against free + evictable pages before
+    the backend's allocator is touched; a backend without a page pool
+    (dense slots) always passes it, its row check is in ``try_admit``;
+  * ``choose_victim`` evicts the lowest-priority, newest active row;
+  * ``choose_steps_per_sync`` picks the fused decode's ticks per sync for
+    ``steps_per_sync="auto"`` from the backend's measured tick (the JAX
+    package prices a modelled one; the port's decode model prices only the
+    attention, a small part of the tick on the card).
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 from collections import deque
 from typing import List, Optional, Sequence, Tuple
+
+from repro_torch.core import perf_model
 
 
 def default_choose_victim(candidates: Sequence[Tuple[int, int, int]],
@@ -52,6 +59,7 @@ class SchedulerStats:
     resumed_tokens: int = 0
     prefill_launches: int = 0
     batched_prefills: int = 0
+    steps_per_sync: int = 1
 
     def summary(self) -> str:
         hit = "n/a" if self.prefix_hit_rate is None else f"{self.prefix_hit_rate:.2f}"
@@ -62,7 +70,8 @@ class SchedulerStats:
             f"{self.decode_tok_s:.1f} tok/s) | prefix hit {hit} | "
             f"occupancy {self.page_occupancy:.2f} | {self.preemptions} preemptions "
             f"({self.resumed_tokens} tokens resumed) | {self.prefill_launches} "
-            f"prefill launches ({self.batched_prefills} batched)"
+            f"prefill launches ({self.batched_prefills} batched) | "
+            f"{self.steps_per_sync} steps per sync"
         )
 
 
@@ -107,8 +116,8 @@ class Scheduler:
         if not hasattr(backend, "quote"):
             return True
         total, matched = backend.quote(req)
-        return total - matched + backend.reserve_pages <= (
-            backend.free_pages + backend.evictable_pages)
+        reserve = getattr(backend, "sync_reserve_pages", backend.reserve_pages)
+        return total - matched + reserve <= backend.free_pages + backend.evictable_pages
 
     def _admission_ok(self, backend, req) -> bool:
         return backend.num_active < backend.rows and self.page_budget_ok(backend, req)
@@ -151,3 +160,15 @@ class Scheduler:
 
     def choose_victim(self, candidates, protect: int = -1) -> Optional[int]:
         return default_choose_victim(candidates, protect)
+
+    def choose_steps_per_sync(self, backend) -> int:
+        """Ticks per sync for ``steps_per_sync="auto"``: the smallest power
+        of two whose amortized host-sync cost drops under 10% of the
+        backend's measured tick (``decode_tick_s`` of its latest sync; every
+        sync runs all rows at the full width, so the next one costs the
+        same), ``perf_model.choose_steps_per_sync``. 1 until a sync has been
+        measured."""
+        tick = getattr(backend, "decode_tick_s", None)
+        if tick is None:
+            return 1
+        return perf_model.choose_steps_per_sync(decode_tick_s=float(tick))

@@ -1082,3 +1082,204 @@ def test_train_step_on_kernels_matches_plain_path(cuda):
     for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
                             tree_lib.leaves(grads["plain"])):
         assert float((a - b).norm() / b.norm()) <= 1e-4, path
+
+
+# -- the fused decode as CUDA graphs --------------------------------------------
+
+
+def _graph_cfg():
+    """SMOKE widened to head_dim 64 in bf16: every decode tick runs on the
+    tensor-core kernels (K3/K4 paged, K7/K8 dense)."""
+    return dataclasses.replace(llama3_8b.SMOKE, head_dim=64, compute_dtype="bfloat16")
+
+
+_GRAPH_KW = {"paged": dict(kv_layout="paged", num_pages=64, page_size=16, max_batch=3,
+                           max_pages_per_seq=8, prompt_buckets=(16, 32, 64)),
+             "dense": dict(kv_layout="dense", max_batch=3, cache_len=128,
+                           prompt_buckets=(32, 64))}
+
+
+def _graph_requests(cfg, seed=50, max_tokens=17):
+    from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab, size=(n,)) for n in (9, 21, 40)]
+    return [Request(uid=0, prompt=prompts[0], max_new_tokens=max_tokens),
+            Request(uid=1, prompt=prompts[1],
+                    sampling=SamplingParams(temperature=0.8, top_k=30, top_p=0.9,
+                                            max_tokens=max_tokens, seed=4)),
+            Request(uid=2, prompt=prompts[2], max_new_tokens=max_tokens)]
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_fused_graphs_one_tick_equals_eight_ticks_bitwise(cuda, layout):
+    """steps_per_sync 1 replays a one-tick graph of the tick function that
+    the 8-tick graph repeats: the same ids, and the logits of tick 8 with the
+    same bits. Each sync is one graph replay."""
+    cfg = _graph_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    ids, logits = {}, {}
+    for n in (1, 8):
+        eng = LLMEngine(cfg, params, steps_per_sync=n, device=cuda, **_GRAPH_KW[layout])
+        for r in _graph_requests(cfg):
+            eng.add_request(r)
+        seen, out = [], {}
+        while eng.backend.active.any() or eng.scheduler.has_work():
+            out.update({o.uid: o for o in eng.step() if o.finished})
+            seen.append(eng.backend.last_logits.clone())
+        ids[n] = {u: [int(t) for t in o.tokens] for u, o in out.items()}
+        logits[n] = seen
+        assert all(p.graph is not None for p in eng.backend._programs.values())
+        eng.close()
+    assert ids[1] == ids[8]
+    assert all(len(t) == 17 for t in ids[8].values())
+    # The 8-tick sync's last tick is the one-tick engine's eighth sync.
+    assert torch.equal(logits[8][0], logits[1][7])
+    assert torch.isfinite(logits[8][0]).all()
+
+
+# Logits of the bf16 graph engine against the plain engine, relative to the
+# plain path's max |logit|: bf16 attention outputs round differently in the
+# two paths, as ``chip_smoke.py``'s LOGIT_TOL holds them at full width.
+LOGIT_TOL = 5e-2
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_fused_graph_engine_matches_the_plain_engine_in_bf16(cuda, layout):
+    """bf16, steps_per_sync 1, in lockstep: each sync of the graph engine
+    (the tensor-core decode kernels) against the same sync of the plain
+    engine (attention impl "plain", its tick a captured graph too), the
+    same weights and greedy requests that finish at 3, 9 and 17 tokens (so
+    later syncs run rows that are free, on the null page or at length 0).
+    Every live row's last-tick logits lie within LOGIT_TOL of the plain
+    path's max |logit|, and its tokens so far are the plain path's; a row
+    whose ids part is followed no further, and may part only where the
+    plain logits' margin is within twice the row's error."""
+    cfg = _graph_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    prompts = [np.random.default_rng(54).integers(1, cfg.vocab, size=(n,))
+               for n in (9, 21, 40)]
+    engines, first = {}, {}
+    for impl in ("auto", "plain"):
+        eng = LLMEngine(dataclasses.replace(cfg, attn_impl=impl), params, steps_per_sync=1,
+                        device=cuda, **_GRAPH_KW[layout])
+        b, kept = eng.backend, first.setdefault(impl, {})
+
+        def recording(records, b=b, flush=b.flush, kept=kept):
+            got = flush(records)
+            kept.update({b.row_req(r).uid: x.float() for r, x in got.items()})
+            return got
+
+        b.flush = recording                 # keeps each request's prefill logits
+        for i, (p, m) in enumerate(zip(prompts, (3, 9, 17))):
+            eng.add_request(Request(uid=i, prompt=p, max_new_tokens=m))
+        engines[impl] = eng
+    compared, parted = 0, set()
+    while engines["plain"].backend.active.any() or engines["plain"].scheduler.has_work():
+        seen = {}
+        for impl, eng in engines.items():
+            eng.step()
+            b = eng.backend
+            seen[impl] = {b.row_req(r).uid: (b.last_logits[r].float(),
+                                             [int(t) for t in b.out[r]] + [eng._pending[r]])
+                          for r in range(b.rows) if b.active[r]}
+        assert sorted(seen["auto"]) == sorted(seen["plain"])
+        for uid, (ref, ref_ids) in seen["plain"].items():
+            got, ids = seen["auto"][uid]
+            if uid in parted:
+                continue
+            if ids[:1] != ref_ids[:1]:
+                # The first token comes from the prefill's logits.
+                ref, got = first["plain"][uid], first["auto"][uid]
+                ids, ref_ids = ids[:1], ref_ids[:1]
+            else:
+                assert ids[:-1] == ref_ids[:-1], uid
+                compared += 1
+            assert torch.isfinite(got).all()
+            diff = float((got - ref).abs().max())
+            assert diff <= LOGIT_TOL * float(ref.abs().max()), (uid, diff)
+            if ids != ref_ids:
+                i, j = ref_ids[-1], ids[-1]
+                assert float(ref[i] - ref[j]) <= 2 * diff, uid
+                parted.add(uid)
+    # 26 row-syncs in all (a row is live after m - 1 of them).
+    assert len(parted) <= 1 and compared >= 10
+    assert all(p.graph is not None for e in engines.values()
+               for p in e.backend._programs.values())
+    for eng in engines.values():
+        eng.close()
+
+
+def test_fused_graph_captures_flat_and_replays_count_launches(cuda):
+    """After the first wave captures its graphs, later waves capture none;
+    a replay adds the launches its capture recorded, so launch_counts()
+    still counts launches on the card: 4 ticks x layers decode launches a
+    sync, all on the tensor cores."""
+    cfg = _graph_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    eng = LLMEngine(cfg, params, steps_per_sync=4, device=cuda, **_GRAPH_KW["paged"])
+    eng.generate(_graph_requests(cfg, seed=51, max_tokens=9))
+    warm = eng.backend.stats["decode_traces"]
+    assert warm >= 1
+    eng.generate(_graph_requests(cfg, seed=52, max_tokens=9))
+    assert eng.backend.stats["decode_traces"] == warm
+    for r in _graph_requests(cfg, seed=53, max_tokens=9):
+        eng.add_request(r)
+    eng.step()                          # admission, prefill, the first sync
+    kernels.reset_launch_counts()
+    eng.step()                          # one sync: one replay of 4 ticks
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    decode = counts["paged_flash_decode"] + counts["paged_flash_decode_split"]
+    assert decode == 4 * cfg.n_layers
+    assert counts["paged_flash_decode_tc"] + counts["paged_flash_decode_split_tc"] == decode
+    assert counts["flash_attention_fwd"] == counts["paged_flash_prefill"] == 0
+    assert eng.backend.stats["decode_traces"] == warm
+    eng.generate([])
+    eng.close()
+
+
+_FAILED_CAPTURE = """
+import dataclasses, sys
+import numpy as np
+import torch
+from repro_torch.configs import llama3_8b
+from repro_torch.models import transformer
+from repro_torch.serving import LLMEngine, Request
+from repro_torch.serving import sampling
+
+cfg = dataclasses.replace(llama3_8b.SMOKE, head_dim=64, compute_dtype="bfloat16")
+params = transformer.init_model(cfg, seed=0, device="cuda")
+eng = LLMEngine(cfg, params, steps_per_sync=2, num_pages=32, max_batch=2,
+                max_pages_per_seq=4, prompt_buckets=(16, 32), device="cuda")
+plain = sampling.sample_batch
+
+def syncing(logits, *args):
+    int(logits.argmax())                 # a host read inside the tick
+    return plain(logits, *args)
+
+sampling.sample_batch = syncing
+try:
+    eng.generate([Request(uid=0, prompt=np.arange(1, 12), max_new_tokens=4)])
+except RuntimeError:
+    print("raised", eng.backend.stats["decode_traces"], len(eng.backend.out[0]))
+    sys.exit(0)
+print("no error")
+"""
+
+
+def test_a_failed_capture_raises_with_no_eager_fallback(cuda, tmp_path):
+    """A tick that reads the device from the host cannot be captured: the
+    engine raises instead of decoding eagerly (run in a child process, so
+    the aborted capture leaves this one clean)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["raised", "1", "0"], out.stdout

@@ -258,12 +258,14 @@ def test_train_step_leaves_params_servable(tmp_path):
         p.requires_grad_(True)
     eng = LLMEngine(llama3_8b.SMOKE, params, num_pages=16, max_batch=1,
                     prompt_buckets=(16,), device="cpu")
-    rec = eng.backend.try_admit(Request(uid=0, prompt=np.arange(1, 13),
-                                        sampling=SamplingParams(max_tokens=2)))
+    req = Request(uid=0, prompt=np.arange(1, 13), sampling=SamplingParams(max_tokens=2))
+    rec = eng.backend.try_admit(req)
     first = eng.backend.flush([rec])[rec["row"]]
-    eng.backend.reserve_rows()
-    nxt = eng.backend.decode([rec["row"]], [int(first.argmax())])
-    assert first.grad_fn is None and nxt.grad_fn is None
+    eng.backend.release(rec["row"])
+    eng.add_request(req)
+    eng.step()                          # prefill and one decode sync
+    nxt = eng.backend.last_logits
+    assert first.grad_fn is None and nxt is not None and nxt.grad_fn is None
     assert not any(t.requires_grad for t in tree_lib.leaves(eng.backend.caches))
     eng.close()
 
