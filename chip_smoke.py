@@ -30,7 +30,13 @@ and prints no result. Phases, in order (any failure exits non-zero):
      tensor cores, ten reruns bitwise equal, timed with the launch queue
      primed and without, gather + SDPA beside them as a two-call
      yardstick; K3 / K4 in float32 (the CUDA-core kernels) at B 8, lengths
-     up to 4096, 1 and 4 splits, held at 2e-5 and timed. Then the split-K
+     up to 4096, 1 and 4 splits, held at 2e-5 and timed. Then K3q / K4q and
+     K2q, the same kernels over int8 and fp8 pools (codes and per-page
+     scales, dequantized where they are staged, on the CUDA cores), at those
+     shapes and the serve run's decode shape with rows frozen on a null page
+     of NaN scales: bf16 q against the plain version per row, float32 q at
+     2e-5, against the unquantized bf16 kernel within the JAX suite's
+     budget (int8 0.03, fp8 0.12). Then the split-K
      estimator's modelled
      decode times beside the measured ones, and the fixed cost per call of
      the split path over the one-pass path; then K5
@@ -61,7 +67,15 @@ and prints no result. Phases, in order (any failure exits non-zero):
      ``engine.step()``, at its own engine sizes, kernel path against the
      plain path (whose tick is a captured graph too): every request's
      prefill logits and its decode tick's logits from the graph, and the
-     greedy ids (``compare_sync``). Then the fused decode on (a)'s
+     greedy ids (``compare_sync``). Then (a) and (b) again over int8 and
+     over fp8 pools (K2q on (a)'s extend wave, K3q and K4q in the decode
+     graphs, every launch counted, none on an unquantized paged kernel),
+     each held to the plain path on the same format by ``compare_sync``, its
+     logits against the bf16 pool's printed, and the pool's bytes; then the
+     host tier: a 48-page pool with 1 GiB of host memory behind it, a
+     prompt served, pushed host-side by three others and served again, its
+     ids equal to an untiered engine's, pages demoted and promoted, and one
+     page's payload timed both ways over the host link. Then the fused decode on (a)'s
      engine: ``steps_per_sync`` 1, 8 and "auto" on the same weights must
      give identical ids, each run's decode tok/s, graphs captured and launch
      counts printed; the eager tick (the one-tick graph's tick function run
@@ -195,7 +209,27 @@ KERNELS = {
     "K9": dict(name="K9 ssd_intra_chunk (float32, tensor cores in 3xTF32)",
                source="src/repro_torch/csrc/ssd.cu",
                replaces="src/repro/kernels/ssd.py:83", counter="ssd_intra_chunk_tc"),
+    "K2q": dict(name="K2q paged_flash_prefill, quantized pool (int8 codes, bf16 q, CUDA cores)",
+                source="src/repro_torch/csrc/paged_prefill.cu",
+                replaces="src/repro/kernels/paged_prefill_attention.py:277",
+                counter="paged_flash_prefill_q"),
+    "K3q": dict(name="K3q paged_flash_decode, quantized pool (int8 codes, bf16 q, CUDA cores)",
+                source="src/repro_torch/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_decode_attention.py:262",
+                counter="paged_flash_decode_q"),
+    "K4q": dict(name="K4q paged_flash_decode_split+combine, quantized pool (int8 codes, bf16 q, "
+                     "CUDA cores)",
+                source="src/repro_torch/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_decode_attention.py:323",
+                counter="paged_flash_decode_split_q"),
 }
+#: Quantized pools against the unquantized kernel, max |o_q - o|: the JAX
+#: suite's budget per format (tests/test_tiering.py QTOL), which averages
+#: the codes' error over the keys of a row. An fp8 row of fewer keys than a
+#: page averages over too few (a 1-key row outputs its one V row), so such
+#: a row is held within QTOL plus the largest rounding error its own V codes
+#: were measured to carry against the bf16 values.
+QTOL = {"int8": 0.03, "fp8": 0.12}
 
 
 def log(msg=""):
@@ -429,6 +463,7 @@ def check_kernels(torch, timer, results):
 
     check_paged_prefill(torch, timer, results, gen)
     check_paged_decode(torch, timer, results, gen)
+    check_quantized(torch, timer, results, gen)
 
 
 def check_k2_route(label, counts, tensor_cores=True):
@@ -688,6 +723,180 @@ def check_paged_decode(torch, timer, results, gen):
         f"num_splits {ns}: model {model[ns] * 1e3:.4f} ms, measured {measured[ns]:.4f} ms"
         for ns in sorted(measured)) + f"; model picks {est.num_splits}")
     split_path_cost(torch, pd, randn)
+
+
+def check_quantized(torch, timer, results, gen):
+    """K3q / K4q (paged decode over int8 and fp8 pools, one pass and split-K)
+    and K2q (paged prefill over a quantized prefix), the CUDA-core kernels
+    that dequantize each code by its page's scale where they stage it. Each
+    pool is made from float32 normal values; its null page (0) is then
+    overwritten as rows frozen on it leave it: NaN scales, and codes that
+    are NaN bits in e4m3 (0x7F). Tables pad with the null page past each
+    row's live pages. Decode: B 8 with lengths up to 4096 and a length-0 row
+    (one pass and 4 splits; the JSON line takes int8 here), then the serve
+    run's decode shape, 8 rows of 560 tokens on 36-page tables, 2 of them
+    frozen on the null page (one pass and 2 splits). Prefill: B 2, prefix
+    1000 (a 64-page table, the last null), tail 256, the second row live to
+    219. Bars: bf16 q against the plain version per live row within
+    ROW_TOL, float32 q within F32_TOL, each against the unquantized bf16
+    kernel on the same values within QTOL (an fp8 row of fewer keys than a
+    page within QTOL plus the largest error of its own dequantized V codes
+    against the bf16 values); live rows finite, length-0 rows
+    and rows past tail_len exactly zero; every launch on the quantized
+    entry. Times: CUDA-event medians, primed, L2 flushed. Bound: codes at 1
+    B for each live position, the scales of the live pages, q, the tail,
+    out and the table over 3.35 TB/s, against the operations over the peak
+    of q's type: int8 and e4m3 codes are exact in bf16 and the scale factors
+    out of each product, so the same work could run at the bf16 peak."""
+    from repro_torch import kernels
+    from repro_torch.cache import quant
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import paged_prefill_attention as pp
+
+    def pools(num_pages, kv_dtype):
+        """(float32 values, codes, scales) for K and for V."""
+        out = []
+        for _ in range(2):
+            x = torch.randn((HKV, num_pages, PS, D), generator=gen, device="cuda")
+            codes, scales = quant.quantize_pages(x, kv_dtype)
+            codes.view(torch.uint8)[:, 0] = 0x7F
+            scales[:, 0] = float("nan")
+            out.append((x, codes, scales))
+        return out
+
+    def table_of(lengths, mp, frozen=()):
+        """Scattered live pages per row, the null page past them; frozen
+        rows' tables are all null."""
+        perm = (torch.randperm(len(lengths) * mp, generator=gen, device="cuda") + 1).tolist()
+        table = torch.zeros((len(lengths), mp), dtype=torch.int32)
+        for i, n in enumerate(lengths):
+            if i not in frozen:
+                live = -(-n // PS)
+                table[i, :live] = torch.tensor(perm[i * mp: i * mp + live])
+        return table.cuda()
+
+    def only(counts, key):
+        return counts[key] == 1 and sum(counts.values()) == 1
+
+    def check(label, ok_rows, e_r, e32, o, o_bf, bars):
+        """``bars`` (rows,): each row's bar against the unquantized kernel."""
+        e_bf = (o.float() - o_bf.float()).abs().flatten(1).amax(1)
+        worst = int((e_bf / bars).argmax())
+        log(f"{label}: row-relative {e_r:.3e} (tol {ROW_TOL:.3e}); float32 q max_err {e32:.3e} "
+            f"(tol {F32_TOL}); against the unquantized bf16 kernel max {float(e_bf.max()):.3e}, "
+            f"nearest its bar at row {worst}: {float(e_bf[worst]):.3e} (tol "
+            f"{float(bars[worst]):.3e})")
+        for r in (bars > bars.min()).nonzero().flatten().tolist():
+            log(f"  row {r}, fewer keys than a page: {float(e_bf[r]):.3e} against its bar "
+                f"{float(bars[r]):.3e} (QTOL plus its own V codes' measured error)")
+        if not ok_rows or e_r > ROW_TOL or e32 > F32_TOL or bool((e_bf > bars).any()):
+            raise AssertionError(f"{label} disagrees")
+
+    def decode_bars(lens, rows, table, vc, vs, vb, kv_dtype):
+        bars = []
+        for i in rows:
+            bar = QTOL[kv_dtype]
+            if kv_dtype == "fp8" and 0 < lens[i] < PS:
+                pages = table[i, : -(-lens[i] // PS)].long()
+                deq = quant.dequantize_pages(vc[:, pages], vs[:, pages])
+                own = (deq - vb[:, pages].float()).flatten(1, 2)[:, : lens[i]]
+                bar += float(own.abs().max())
+            bars.append(bar)
+        return torch.tensor(bars, device="cuda")
+
+    for kv_dtype in ("int8", "fp8"):
+        for label, mp, lens, frozen, splits, timed in (
+                ("B 8, table 4096", 4096 // PS, [4096, 0, 3001, 17, 2048, 4000, 1, 1500], (),
+                 (1, 4), True),
+                ("serve decode shape, B 8 x 560, table 36, rows 6-7 frozen on the null page",
+                 36, [560] * 8, (6, 7), (1, 2), False)):
+            b = len(lens)
+            (xk, kc, ks), (xv, vc, vs) = pools(1 + b * mp, kv_dtype)
+            table = table_of(lens, mp, frozen)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = torch.randn((b, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+            kb, vb = xk.to(torch.bfloat16), xv.to(torch.bfloat16)
+            live = [i for i in range(b) if i not in frozen]
+            zero = [i for i in live if lens[i] == 0]
+            pages = sum(-(-lens[i] // PS) for i in live)
+            qb = bound(2 * HKV * D * sum(lens[i] for i in live) + 2 * HKV * pages * 4
+                       + nbytes(q, q, table, lengths), 4.0 * HQ * D * sum(lens),
+                       PEAK_BF16_FLOPS)
+            for ns in splits:
+                key = "K3q" if ns == 1 else "K4q"
+                kw = dict(num_splits=ns, k_scales=ks, v_scales=vs)
+                run = lambda: pd.paged_flash_decode(q, kc, vc, table, lengths, **kw)
+                kernels.reset_launch_counts()
+                o = run()
+                routed = only(kernels.launch_counts(), KERNELS[key]["counter"])
+                o_ref = pd.paged_flash_decode_plain(q, kc, vc, table, lengths, **kw)
+                o32 = pd.paged_flash_decode(q.float(), kc, vc, table, lengths, **kw)
+                o32_ref = pd.paged_flash_decode_plain(q.float(), kc, vc, table, lengths, **kw)
+                o_bf = pd.paged_flash_decode(q, kb, vb, table, lengths, num_splits=ns)
+                torch.cuda.synchronize()
+                ok = (routed and bool(torch.isfinite(o[live].float()).all())
+                      and all(float(o[i].float().abs().max()) == 0.0 for i in zero))
+                e_r, e = row_err(o[live], o_ref[live]), err(o[live], o_ref[live])
+                e32 = err(o32[live], o32_ref[live])
+                name = f"{key} {kv_dtype} {label} num_splits {ns}"
+                check(name, ok, e_r, e32, o[live], o_bf[live],
+                      decode_bars(lens, live, table, vc, vs, vb, kv_dtype))
+                ms = timer.ms(run, primed=True)
+                plain_ms = (timer.ms(lambda: pd.paged_flash_decode_plain(
+                    q, kc, vc, table, lengths, **kw)) if timed else float("nan"))
+                bf_ms = timer.ms(lambda: pd.paged_flash_decode(q, kb, vb, table, lengths,
+                                                               num_splits=ns), primed=True)
+                log(f"{name}: {ms:.4f} ms (queue primed), plain {plain_ms:.3f} ms, the bf16 "
+                    f"tensor-core kernel on bf16 pools {bf_ms:.4f} ms, bound {qb[0]:.5f} ms "
+                    f"({qb[1]})")
+                if timed and kv_dtype == "int8":
+                    results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=qb[0], bound_by=qb[1], library_ms=None)
+            del xk, xv, kc, vc, ks, vs, kb, vb, q, o, o_ref, o32, o32_ref, o_bf
+
+        # K2q: B 2, prefix 1000 on a 64-page table (the last entry null), tail 256.
+        b, plen, st, tlens = 2, 1000, 256, [256, 219]
+        mp = -(-plen // PS) + 1
+        (xk, kc, ks), (xv, vc, vs) = pools(1 + b * mp, kv_dtype)
+        table = table_of([plen] * b, mp)
+        randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
+        plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+        tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
+        kw = dict(k_scales=ks, v_scales=vs)
+        run = lambda: pp.paged_flash_prefill(q, kc, vc, table, kt, vt, plens, tl, **kw)
+        kernels.reset_launch_counts()
+        o = run()
+        routed = only(kernels.launch_counts(), KERNELS["K2q"]["counter"])
+        o_ref = pp.paged_flash_prefill_plain(q, kc, vc, table, kt, vt, plens, tl, **kw)
+        f32 = [t.float() for t in (q, kt, vt)]
+        o32 = pp.paged_flash_prefill(f32[0], kc, vc, table, f32[1], f32[2], plens, tl, **kw)
+        o32_ref = pp.paged_flash_prefill_plain(f32[0], kc, vc, table, f32[1], f32[2], plens,
+                                               tl, **kw)
+        kb, vb = xk.to(torch.bfloat16), xv.to(torch.bfloat16)
+        o_bf = pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens, tl)
+        torch.cuda.synchronize()
+        past = sum(float(o[i, :, t:].float().abs().sum()) for i, t in enumerate(tlens))
+        ok = routed and past == 0.0 and bool(torch.isfinite(o.float()).all())
+        name = f"K2q {kv_dtype} prefix 1000 (64-page table) tail 256"
+        check(name, ok, row_err(o, o_ref), err(o32, o32_ref), o, o_bf,
+              torch.full((b,), QTOL[kv_dtype], device="cuda"))
+        pairs = HQ * sum(t * plen + t * (t + 1) // 2 for t in tlens)
+        kq = bound(2 * HKV * D * plen * b + 2 * HKV * b * (mp - 1) * 4
+                   + nbytes(q, kt, vt, o, table, plens, tl), 4.0 * D * pairs, PEAK_BF16_FLOPS)
+        ms = timer.ms(run, primed=True)
+        plain_ms = timer.ms(lambda: pp.paged_flash_prefill_plain(q, kc, vc, table, kt, vt,
+                                                                 plens, tl, **kw))
+        bf_ms = timer.ms(lambda: pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens, tl),
+                         primed=True)
+        log(f"{name}: rows past tail_len sum |o| {past}; {ms:.4f} ms (queue primed), plain "
+            f"{plain_ms:.3f} ms, the bf16 tensor-core kernel on bf16 pools {bf_ms:.4f} ms, "
+            f"bound {kq[0]:.5f} ms ({kq[1]})")
+        if kv_dtype == "int8":
+            results["K2q"] = dict(max_abs_err=err(o, o_ref), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=kq[0], bound_by=kq[1], library_ms=None)
+        del xk, xv, kc, vc, ks, vs, kb, vb, q, kt, vt, o, o_ref, o32, o32_ref, o_bf
 
 
 def check_backward(torch, timer, results):
@@ -1130,18 +1339,19 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
                                for i, p in enumerate(prompts)])
         sync()
         runs[label] = (out, time.perf_counter() - t, dict(engine.ttft))
-        stats[label] = engine.stats()
+        stats[label] = (engine.stats(), engine.backend.decode_tick_s)
         engine.close()
         del engine
     counts = kernels.launch_counts()
     for label, (out, secs, ttfts) in runs.items():
         uids = sorted(o.uid for o in out)
         ttft = [ttfts[u] * 1e3 for u in uids]
-        st = stats[label]
+        st, tick = stats[label]
         log(f"serve ({label}): {len(out)} requests, {sum(len(o.tokens) for o in out)} tokens "
             f"in {secs:.2f} s; TTFT ms min {min(ttft):.1f} max {max(ttft):.1f}; decode "
             f"{st.decode_tok_s:.1f} tok/s over {st.decode_elapsed_s:.2f} s (host clock, "
-            f"{st.steps_per_sync} step per sync, CUDA graphs); prefix hit rate "
+            f"{st.steps_per_sync} step per sync, CUDA graphs); the last sync's graph replay "
+            f"{tick * 1e3:.3f} ms a tick (CUDA events); prefix hit rate "
             f"{st.prefix_hit_rate:.3f}")
     for o in sorted(runs["a"][0], key=lambda o: o.uid)[:1] + runs["b"][0][:1]:
         log(f"  uid={o.uid} tokens={[int(t) for t in o.tokens]}")
@@ -1159,12 +1369,157 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     # Kernel path against the plain path, same weights, on the card: one
     # sync of each run at its own engine sizes.
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
-    compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (a)",
-                 engine_kw=engine_kw, prompts=prompts_a)
-    compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (b)",
-                 engine_kw=dict(engine_kw, max_pages_per_seq=260,
-                                prompt_buckets=(256, 512, 4096)), prompts=[prompt_b])
-    return counts
+    logits = {"a": compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (a)",
+                                engine_kw=engine_kw, prompts=prompts_a),
+              "b": compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (b)",
+                                engine_kw=dict(engine_kw, max_pages_per_seq=260,
+                                               prompt_buckets=(256, 512, 4096)),
+                                prompts=[prompt_b])}
+    return counts, logits
+
+
+def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
+    """Run (a)'s and run (b)'s workloads on llama3-8b paged with the pool
+    stored as int8 and then as fp8 codes: (a) runs K1, then K2q on its
+    extend wave, then K3q in the decode graph; (b) K1 and K4q (2 splits over
+    260 pages). The launch counts are set to 0 just before each format's
+    two runs and read just after: K2q, K3q and K4q must each have launched,
+    and no decode or extend launch may have gone to an unquantized kernel.
+    Then one sync of each run, kernel path against the plain path on the
+    same format (``compare_sync``, LOGIT_TOL), and, informative only, each
+    run's logits against the bf16 pool's (``bf16_logits``, from ``serve``):
+    random weights through 32 layers may flip near-ties. Prints the pool's
+    bytes, scales included, against the bf16 pool's. Returns the summed
+    launch counts of the serve runs."""
+    from repro_torch import kernels
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    engine_kw = dict(SERVE_PAGED_KW, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    prompts_a, rng = serve_prompts(cfg, seed)
+    prompt_b = rng.integers(1, cfg.vocab, size=(4096,))
+    kw_b = dict(engine_kw, max_pages_per_seq=260, prompt_buckets=(256, 512, 4096))
+    greedy = SamplingParams(max_tokens=32)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
+    total = {}
+    for kv_dtype in ("int8", "fp8"):
+        kernels.reset_launch_counts()
+        for label, prompts, uid0, kw in (("a", prompts_a, 0, engine_kw),
+                                         ("b", [prompt_b], 100, kw_b)):
+            engine = LLMEngine(cfg, params, kv_dtype=kv_dtype, **kw)
+            t = time.perf_counter()
+            out = engine.generate([Request(uid=uid0 + i, prompt=p, sampling=greedy)
+                                   for i, p in enumerate(prompts)])
+            sync()
+            secs = time.perf_counter() - t
+            st, b = engine.stats(), engine.backend
+            bf16_bytes = 2 * cfg.n_layers * HKV * PS * D * 2 * b.pool.num_pages
+            log(f"serve {kv_dtype} ({label}): {len(out)} requests, "
+                f"{sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; decode "
+                f"{st.decode_tok_s:.1f} tok/s (host clock, CUDA graphs); the last sync's graph "
+                f"replay {b.decode_tick_s * 1e3:.3f} ms a tick (CUDA events); prefix hit rate "
+                f"{st.prefix_hit_rate:.3f}; pool {b.kv_pool_bytes() / 2**20:.1f} MiB with its "
+                f"scales against {bf16_bytes / 2**20:.1f} MiB in bf16 "
+                f"({b.kv_pool_bytes() / bf16_bytes:.4f}x)")
+            if any(len(o.tokens) != 32 for o in out):
+                raise AssertionError(f"serve {kv_dtype} ({label}): not 32 tokens each")
+            engine.close()
+            del engine, b
+        counts = kernels.launch_counts()
+        log(f"launch counts over the {kv_dtype} serve runs: "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        for key in ("K2q", "K3q", "K4q"):
+            if counts[KERNELS[key]["counter"]] <= 0:
+                raise AssertionError(f"{key} was not launched on the {kv_dtype} serve path")
+        unquantized = sum(counts[c] for c in ("paged_flash_prefill", "paged_flash_decode",
+                                              "paged_flash_decode_split"))
+        if unquantized:
+            raise AssertionError(f"{kv_dtype} serve: {unquantized} paged launches went to an "
+                                 "unquantized kernel")
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        for label, kw, prompts in (("a", engine_kw, prompts_a), ("b", kw_b, [prompt_b])):
+            got = compare_sync(torch, cfg, plain_cfg, params,
+                               label=f"llama3-8b paged {kv_dtype} ({label})",
+                               engine_kw=dict(kw, kv_dtype=kv_dtype), prompts=prompts)
+            dist = {stage: max(float((got[stage][u] - ref).abs().max() / ref.abs().max())
+                               for u, ref in bf16_logits[label][stage].items())
+                    for stage in ("first", "last")}
+            log(f"  {kv_dtype} ({label}) against the bf16 pool, informative: prefill logits "
+                f"max |{kv_dtype} - bf16| / max |bf16| = {dist['first']:.3e}, decode tick "
+                f"{dist['last']:.3e}")
+    return total
+
+
+def serve_tiered(torch, cfg, params, seed=0, device="cuda"):
+    """The host tier on llama3-8b paged (bf16 pool): a 48-page pool, too
+    small for the workload, with 1 GiB of host memory behind it. A
+    512-token prompt P, then three other 512-token prompts one after another
+    (each needs 34 of the 47 usable pages: P's cached pages demote), then P
+    again (its 31 reusable pages promote back). P's greedy ids, both times,
+    must equal those of an untiered 1024-page engine that serves P twice
+    (the second time off its cached pages, as the tiered engine's second P
+    extends off the promoted ones), with demoted and promoted pages counted.
+    Then one page's payload (every layer's K and V, packed into one byte
+    buffer) timed device -> pinned host and back, host clock around a
+    synchronize, median of 10."""
+    import numpy as np
+
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    rng = np.random.default_rng(seed + 3)
+    p_main = rng.integers(1, cfg.vocab, size=(512,))
+    fillers = [rng.integers(1, cfg.vocab, size=(512,)) for _ in range(3)]
+    kw = dict(kv_layout="paged", max_batch=8, page_size=PS, max_pages_per_seq=36,
+              prompt_buckets=(256, 512), device=device)
+    greedy = SamplingParams(max_tokens=32)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def ids(engine, prompts, uid0):
+        out = engine.generate([Request(uid=uid0 + i, prompt=p, sampling=greedy)
+                               for i, p in enumerate(prompts)])
+        return [[int(t) for t in o.tokens] for o in sorted(out, key=lambda o: o.uid)]
+
+    ref = LLMEngine(cfg, params, num_pages=1024, **kw)
+    want = ids(ref, [p_main], 0) + ids(ref, [p_main], 1)
+    ref.close()
+    del ref
+    engine = LLMEngine(cfg, params, num_pages=48, host_pool_bytes=1 << 30, **kw)
+    t = time.perf_counter()
+    got = ids(engine, [p_main], 0)
+    ids(engine, fillers, 10)
+    got += ids(engine, [p_main], 1)
+    sync()
+    secs = time.perf_counter() - t
+    b = engine.backend
+    st = b.prefix_stats()
+    log(f"serve tiered: 5 requests in {secs:.2f} s; {engine.stats().summary()}")
+    log(f"  demoted {st['demoted_pages']:.0f} pages, promoted {st['promoted_pages']:.0f}, "
+        f"{st['host_entries']:.0f} held ({st['host_bytes_resident'] / 2**20:.1f} MiB host); "
+        f"P's ids equal the untiered engine's: first {got[0] == want[0]}, again "
+        f"{got[1] == want[1]}")
+    if got != want or st["demoted_pages"] <= 0 or st["promoted_pages"] <= 0:
+        raise AssertionError("serve tiered: ids differ from the untiered engine, or nothing "
+                             "was demoted and promoted")
+    nbytes_page = b.page_nbytes()
+    down, up = [], []
+    for _ in range(10):
+        sync()
+        t = time.perf_counter()
+        payload = b._page_payload(1)
+        down.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        b._restore_page(payload, 2)
+        sync()
+        up.append(time.perf_counter() - t)
+    d_s, u_s = statistics.median(down), statistics.median(up)
+    log(f"host link, one page payload ({nbytes_page / 2**20:.2f} MiB: {cfg.n_layers} layers x "
+        f"K and V, packed on the device into one copy): device -> pinned host "
+        f"{d_s * 1e3:.3f} ms ({nbytes_page / d_s / 1e9:.2f} GB/s), host -> device "
+        f"{u_s * 1e3:.3f} ms ({nbytes_page / u_s / 1e9:.2f} GB/s) (host clock, synced, "
+        f"median of 10; card: {smi_line()})")
+    engine.close()
+    del engine, b, payload
 
 
 def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_len=None,
@@ -1329,6 +1684,7 @@ def compare_sync(torch, cfg, plain_cfg, params, *, label, engine_kw, prompts):
         "twice the error)")
     if max(worst.values()) > LOGIT_TOL:
         raise AssertionError(f"compare {label}: kernel path disagrees with the plain path")
+    return runs["cuda"]
 
 
 # -- phase 4 (fused decode): CUDA graphs of the decode tick ---------------------
@@ -1722,7 +2078,12 @@ def main() -> int:
     del timer
     log("== serve llama3-8b (paged, bf16, random weights)")
     params = init_params(torch, llama3_8b.CONFIG)
-    counts = serve(torch, llama3_8b.CONFIG, params)
+    counts, bf16_logits = serve(torch, llama3_8b.CONFIG, params)
+    log("== serve llama3-8b paged over quantized pools (int8, fp8) and with a host tier")
+    quantized = serve_quantized(torch, llama3_8b.CONFIG, params, bf16_logits)
+    for key in ("K2q", "K3q", "K4q"):
+        counts[KERNELS[key]["counter"]] += quantized[KERNELS[key]["counter"]]
+    serve_tiered(torch, llama3_8b.CONFIG, params)
     timer = Timer(torch)
     fused = {}
     log("== fused decode llama3-8b paged: steps_per_sync 1, 8 and auto, CUDA graphs")

@@ -103,9 +103,13 @@ class PrefixCache:
             added += 1
         return added
 
-    def evict(self, max_pages: int) -> int:
+    def evict(self, max_pages: int, on_evict=None) -> int:
         """Free up to ``max_pages`` pool pages by dropping LRU entries whose
-        page only the cache still references. Returns pages freed."""
+        page only the cache still references. Returns pages freed.
+
+        ``on_evict(hash, pid)``, when given, fires for each victim *before*
+        its entry is dropped and its reference released, while the page
+        content is still valid: the host tier's demotion hook."""
         freed = 0
         if max_pages <= 0:
             return freed
@@ -115,6 +119,8 @@ class PrefixCache:
                 # A live sequence still shares it: dropping the entry would
                 # not free the page, only lose future sharing. Keep it.
                 continue
+            if on_evict is not None:
+                on_evict(h, pid)
             del self._entries[h]
             freed += bool(self.pool.decref(pid))
             if freed >= max_pages:

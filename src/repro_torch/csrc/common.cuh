@@ -1,6 +1,7 @@
 // Shared helpers for the Hopper attention kernels of repro_torch.
 //
-// Element types: every kernel reads float32 or bfloat16 and computes in
+// Element types: every kernel reads float32 or bfloat16 (and the paged
+// kernels int8 or float8_e4m3fn codes of a quantized pool) and computes in
 // float32, the precision the JAX package's kernels compute in.
 // NEG_INF_F is the large-but-finite mask value of the JAX package
 // (kernels/ref.py NEG_INF): fully masked rows stay NaN-free because
@@ -8,6 +9,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,6 +33,34 @@ __device__ __forceinline__ void load8(const float* src, float* dst) {
   const float4 b = reinterpret_cast<const float4*>(src)[1];
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+
+// Eight consecutive bf16 elements from a 16-byte aligned address, widened.
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+// Eight consecutive 1-byte codes from an 8-byte aligned address, widened to
+// float32 (exact for int8 and e4m3).
+__device__ __forceinline__ void load8(const int8_t* src, float* dst) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dst[i] = static_cast<float>(c[i]);
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* src, float* dst) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const __nv_fp8_e4m3* c = reinterpret_cast<const __nv_fp8_e4m3*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dst[i] = static_cast<float>(c[i]);
 }
 
 __device__ __forceinline__ void zero8(float* dst) {

@@ -41,12 +41,22 @@
 //   into its surplus slots, which the consumer masks to P = 0 (an unwritten
 //   slot could hold NaN bits, and 0 * NaN is NaN inside an mma; a page id
 //   past the row's live pages is zero only by convention).
-// * paged_decode_kernel, float32: the tensor cores take float32 only as
-//   TF32 (~3 decimal digits), so float32 stays on the CUDA cores: one block
-//   of DC_THREADS stages DC_BT rows (whole pages) with 16-byte loads, skips
-//   pages no position of the row can see (chunk_relevant) and runs
-//   decode_common.cuh's accumulate_kv_block (shared with the float32 K7 /
-//   K8).
+// * paged_decode_kernel, float32 arithmetic on the CUDA cores, for two
+//   inputs. A float32 pool: the tensor cores take float32 only as TF32
+//   (~3 decimal digits). A quantized pool, the scale branch of the TPU
+//   kernels (_paged_decode_kernel :122-134, the split body :180-191): int8
+//   or float8_e4m3fn codes with one float32 scale per (kv head, physical
+//   page) for K and V, q and out float32 or bf16. One block of DC_THREADS
+//   stages DC_BT rows (whole pages), skips pages no position of the row can
+//   see (chunk_relevant), widens each code to float32 and multiplies it by
+//   its page's scale where it stages it (where the JAX kernel dequantizes,
+//   so HBM streams 1-byte codes), and runs decode_common.cuh's
+//   accumulate_kv_block (shared with the float32 K7 / K8). Positions no
+//   query may see are staged as zeros by select, never loaded: rows frozen
+//   on the null page write codes and scales there, which may be anything.
+//   The quantized walk reads a quarter of the float32 pool's bytes but does
+//   the same float32 work, and that work, not the bytes, bounds this kernel
+//   (PERF.md); a tensor-core design for codes is ROADMAP Queue B's.
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
 
@@ -54,19 +64,29 @@ namespace {
 
 using namespace rt;
 
-// -- float32 on the CUDA cores -------------------------------------------------
+// -- float32 arithmetic on the CUDA cores (float32 q and pools; quantized pools) --
 
+// T: q and out (float or bf16); C: the pool's elements (float for a
+// float32 pool; int8_t or __nv_fp8_e4m3 codes for a quantized one, whose
+// (Hkv, P) float32 scale tables ks_tab / vs_tab dequantize each staged row:
+// code -> float, times the scale of (h, page)).
 // SPLIT = false: K3, grid (1, Hkv, B), writes the normalised row to `out`.
 // SPLIT = true: K4, grid (S, Hkv, B), split s walks pages
 // [s * pps, min((s + 1) * pps, mp)) and writes (acc, m, l).
-template <int D, int MAXG, bool SPLIT>
+// A staged position no query may see (past the row's length, outside the
+// window or the split) is written as zeros, never loaded: its page may be
+// the null page, whose codes and scale are whatever rows frozen on it
+// wrote, and P = 0 times a NaN is NaN.
+template <typename T, typename C, int D, int MAXG, bool SPLIT>
 __global__ void __launch_bounds__(DC_THREADS)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
-                    const float* __restrict__ v_pages, const int* __restrict__ page_table,
-                    const int* __restrict__ lengths, float* __restrict__ out,
+paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_pages,
+                    const C* __restrict__ v_pages, const float* __restrict__ ks_tab,
+                    const float* __restrict__ vs_tab, const int* __restrict__ page_table,
+                    const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Hkv, int G, int P, int ps, int mp,
                     int pps, float scale, int window, float softcap) {
+  constexpr bool QUANT = sizeof(C) == 1;
   constexpr int DP = D + 1;
   constexpr int CPT = DecodeCols<D>::CPT;
   extern __shared__ float smem[];
@@ -88,8 +108,8 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pag
   const int p_hi = SPLIT ? min(p_lo + pps, mp) : mp;
   const int limit = p_hi * ps;
 
-  const float* qrow = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int idx = tid; idx < G * D; idx += DC_THREADS) qs[idx] = qrow[idx];
+  const T* qrow = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  for (int idx = tid; idx < G * D; idx += DC_THREADS) qs[idx] = to_f(qrow[idx]);
   if (tid < MAXG) {
     ms[tid] = NEG_INF_F;
     ls[tid] = 0.f;
@@ -113,10 +133,20 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pag
       const int c8 = (idx - t * (D / 8)) * 8;
       const int pp = pg + t / ps;
       float tk[8], tv[8];
-      if (pp < p_hi && chunk_relevant(pp * ps, ps, length, window)) {
-        const size_t off = (((size_t)h * P + pt_row[pp]) * ps + (t - (t / ps) * ps)) * D + c8;
+      if (pp < p_hi && pos_valid(pg * ps + t, length, limit, window)) {
+        const int pid = pt_row[pp];
+        const size_t off = (((size_t)h * P + pid) * ps + (t - (t / ps) * ps)) * D + c8;
         load8(k_pages + off, tk);
         load8(v_pages + off, tv);
+        if (QUANT) {
+          const float k_sc = ks_tab[(size_t)h * P + pid];
+          const float v_sc = vs_tab[(size_t)h * P + pid];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            tk[e] *= k_sc;
+            tv[e] *= v_sc;
+          }
+        }
       } else {
         zero8(tk);
         zero8(tv);
@@ -144,7 +174,8 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pag
         acc_out[((((size_t)b * Hkv + h) * gridDim.x + s) * G + g) * D + d] = acc[g][c];
       } else {
         const float l = ls[g];
-        out[((size_t)b * Hq + (size_t)h * G + g) * D + d] = acc[g][c] / (l == 0.f ? 1.f : l);
+        out[((size_t)b * Hq + (size_t)h * G + g) * D + d] =
+            from_f<T>(acc[g][c] / (l == 0.f ? 1.f : l));
       }
     }
   }
@@ -155,43 +186,64 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pag
   }
 }
 
-template <int D, int MAXG, bool SPLIT>
-int launch_f32(const void* q, const void* kp, const void* vp, const int* pt,
-               const int* lengths, void* out, float* acc, float* m, float* l, int B, int Hkv,
-               int G, int P, int ps, int mp, int S, int pps, float scale, int window,
-               float softcap, cudaStream_t stream) {
+template <typename T, typename C, int D, int MAXG, bool SPLIT>
+int launch_cc(const void* q, const void* kp, const void* vp, const float* ks_tab,
+              const float* vs_tab, const int* pt, const int* lengths, void* out, float* acc,
+              float* m, float* l, int B, int Hkv, int G, int P, int ps, int mp, int S, int pps,
+              float scale, int window, float softcap, cudaStream_t stream) {
   const size_t smem = DecodeSmem<D, MAXG>::bytes;
-  cudaError_t err = allow_smem(paged_decode_kernel<D, MAXG, SPLIT>, smem);
+  cudaError_t err = allow_smem(paged_decode_kernel<T, C, D, MAXG, SPLIT>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(S, Hkv, B);
-  paged_decode_kernel<D, MAXG, SPLIT><<<grid, DC_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kp),
-      static_cast<const float*>(vp), pt, lengths, static_cast<float*>(out), acc, m, l, Hkv,
-      G, P, ps, mp, pps, scale, window, softcap);
+  paged_decode_kernel<T, C, D, MAXG, SPLIT><<<grid, DC_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(kp), static_cast<const C*>(vp), ks_tab,
+      vs_tab, pt, lengths, static_cast<T*>(out), acc, m, l, Hkv, G, P, ps, mp, pps, scale,
+      window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return (int)err;
-  combine_kernel<float, D><<<B * Hkv * G, DC_THREADS, 0, stream>>>(
-      acc, m, l, static_cast<float*>(out), G, S);
+  combine_kernel<T, D><<<B * Hkv * G, DC_THREADS, 0, stream>>>(
+      acc, m, l, static_cast<T*>(out), G, S);
   return (int)cudaGetLastError();
 }
 
-template <bool SPLIT>
-int dispatch_f32(const void* q, const void* kp, const void* vp, const int* pt,
-                 const int* lengths, void* out, float* acc, float* m, float* l, int B, int Hq,
-                 int Hkv, int P, int ps, int mp, int D, int S, int pps, float scale,
-                 int window, float softcap, void* stream) {
+template <typename T, typename C, bool SPLIT>
+int dispatch_cc(const void* q, const void* kp, const void* vp, const float* ks_tab,
+                const float* vs_tab, const int* pt, const int* lengths, void* out,
+                float* acc, float* m, float* l, int B, int Hq, int Hkv, int P, int ps, int mp,
+                int D, int S, int pps, float scale, int window, float softcap, void* stream) {
   if (B <= 0) return 0;
+  if (ps <= 0 || DC_BT % ps != 0) return -1;
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DEC_CASE(DIM, MG)                                                                  \
-  return launch_f32<DIM, MG, SPLIT>(q, kp, vp, pt, lengths, out, acc, m, l, B, Hkv, G, P, \
-                                    ps, mp, S, pps, scale, window, softcap, st)
+#define DEC_CASE(DIM, MG)                                                                 \
+  return launch_cc<T, C, DIM, MG, SPLIT>(q, kp, vp, ks_tab, vs_tab, pt, lengths, out, acc, \
+                                         m, l, B, Hkv, G, P, ps, mp, S, pps, scale,        \
+                                         window, softcap, st)
   if (D == 128 && G <= 8) DEC_CASE(128, 8);
   if (D == 128 && G <= 32) DEC_CASE(128, 32);
   if (D == 64 && G <= 8) DEC_CASE(64, 8);
   if (D == 64 && G <= 32) DEC_CASE(64, 32);
 #undef DEC_CASE
   return -1;
+}
+
+// A quantized pool: q / out float32 (q_bf16 0) or bf16 (1), codes int8 (fp8
+// 0) or float8_e4m3fn (1).
+template <bool SPLIT>
+int dispatch_q(const void* q, const void* kp, const void* vp, const float* ks_tab,
+               const float* vs_tab, const int* pt, const int* lengths, void* out, float* acc,
+               float* m, float* l, int B, int Hq, int Hkv, int P, int ps, int mp, int D, int S,
+               int pps, int q_bf16, int fp8, float scale, int window, float softcap,
+               void* stream) {
+#define Q_CASE(T, C)                                                                       \
+  return dispatch_cc<T, C, SPLIT>(q, kp, vp, ks_tab, vs_tab, pt, lengths, out, acc, m, l, B, \
+                                  Hq, Hkv, P, ps, mp, D, S, pps, scale, window, softcap,   \
+                                  stream)
+  if (!q_bf16 && !fp8) Q_CASE(float, int8_t);
+  if (!q_bf16 && fp8) Q_CASE(float, __nv_fp8_e4m3);
+  if (q_bf16 && !fp8) Q_CASE(__nv_bfloat16, int8_t);
+  Q_CASE(__nv_bfloat16, __nv_fp8_e4m3);
+#undef Q_CASE
 }
 
 // -- bf16 on the tensor cores ------------------------------------------------------
@@ -330,9 +382,9 @@ extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pa
                             const int* page_table, const int* lengths, void* out, int B,
                             int Hq, int Hkv, int P, int ps, int mp, int D, float scale,
                             int window, float softcap, void* stream) {
-  return dispatch_f32<false>(q, k_pages, v_pages, page_table, lengths, out, nullptr, nullptr,
-                             nullptr, B, Hq, Hkv, P, ps, mp, D, 1, mp, scale, window,
-                             softcap, stream);
+  return dispatch_cc<float, float, false>(q, k_pages, v_pages, nullptr, nullptr, page_table,
+                                         lengths, out, nullptr, nullptr, nullptr, B, Hq, Hkv,
+                                         P, ps, mp, D, 1, mp, scale, window, softcap, stream);
 }
 
 // float32 split-K (K4), on the CUDA cores.
@@ -342,9 +394,10 @@ extern "C" int paged_decode_split(const void* q, const void* k_pages, const void
                                   int P, int ps, int mp, int D, int num_splits,
                                   int pages_per_split, float scale, int window,
                                   float softcap, void* stream) {
-  return dispatch_f32<true>(q, k_pages, v_pages, page_table, lengths, out, acc, m, l, B, Hq,
-                            Hkv, P, ps, mp, D, num_splits, pages_per_split, scale, window,
-                            softcap, stream);
+  return dispatch_cc<float, float, true>(q, k_pages, v_pages, nullptr, nullptr, page_table,
+                                        lengths, out, acc, m, l, B, Hq, Hkv, P, ps, mp, D,
+                                        num_splits, pages_per_split, scale, window, softcap,
+                                        stream);
 }
 
 // bf16 one pass (K3), on the tensor cores.
@@ -367,4 +420,30 @@ extern "C" int paged_decode_split_tc(const void* q, const void* k_pages, const v
   return tc::dispatch<true>(q, k_pages, v_pages, page_table, lengths, out, acc, m, l, B, Hq,
                             Hkv, P, ps, mp, D, num_splits, pages_per_split, scale, window,
                             softcap, stream);
+}
+
+// A quantized pool (K3): q / out float32 or bf16 (q_bf16), int8 or
+// float8_e4m3fn codes (fp8) with (Hkv, P) float32 scale tables, on the CUDA
+// cores.
+extern "C" int paged_decode_q(const void* q, const void* k_codes, const void* v_codes,
+                              const float* k_scale_tab, const float* v_scale_tab,
+                              const int* page_table, const int* lengths, void* out, int B,
+                              int Hq, int Hkv, int P, int ps, int mp, int D, int q_bf16,
+                              int fp8, float scale, int window, float softcap, void* stream) {
+  return dispatch_q<false>(q, k_codes, v_codes, k_scale_tab, v_scale_tab, page_table, lengths,
+                           out, nullptr, nullptr, nullptr, B, Hq, Hkv, P, ps, mp, D, 1, mp,
+                           q_bf16, fp8, scale, window, softcap, stream);
+}
+
+// A quantized pool, split-K (K4) and the combine.
+extern "C" int paged_decode_split_q(const void* q, const void* k_codes, const void* v_codes,
+                                    const float* k_scale_tab, const float* v_scale_tab,
+                                    const int* page_table, const int* lengths, void* out,
+                                    float* acc, float* m, float* l, int B, int Hq, int Hkv,
+                                    int P, int ps, int mp, int D, int num_splits,
+                                    int pages_per_split, int q_bf16, int fp8, float scale,
+                                    int window, float softcap, void* stream) {
+  return dispatch_q<true>(q, k_codes, v_codes, k_scale_tab, v_scale_tab, page_table, lengths,
+                          out, acc, m, l, B, Hq, Hkv, P, ps, mp, D, num_splits,
+                          pages_per_split, q_bf16, fp8, scale, window, softcap, stream);
 }

@@ -50,9 +50,14 @@
 //     before the release (without it 14-18 of 100 decode runs were wrong).
 //   - Hangs. mbar_wait traps after ~10 s, so a barrier fault fails the
 //     launch instead of hanging the card.
-// * paged_prefill_kernel, float32: the tensor cores take float32 only as
-//   TF32 (~3 decimal digits), so float32 stays on the CUDA cores over
-//   prefill_tile.cuh (shared with K1's float32 kernel). The Pallas kernel
+// * paged_prefill_kernel, float32 arithmetic on the CUDA cores over
+//   prefill_tile.cuh (shared with K1's float32 kernel), for two inputs. A
+//   float32 pool: the tensor cores take float32 only as TF32 (~3 decimal
+//   digits). A quantized pool, the scale branch of the TPU kernel
+//   (:134-141): int8 or float8_e4m3fn prefix codes with one float32 scale
+//   per (kv head, physical page) for K and V, widened and scaled where each
+//   prefix row is staged; q, the fresh tail and o in float32 or bf16. The
+//   bf16 tensor-core kernel above takes no codes (ROADMAP Queue B). The Pallas kernel
 //   folds the whole GQA group and padded tail into one q block of group *
 //   St rows; here the folded rows are tiled 64 at a time, position-major
 //   (row = i * group + g), so each prefix page is read once per (b, kv
@@ -65,15 +70,23 @@ namespace {
 
 using namespace rt;
 
-template <int D>
+// T: q, the tail and o (float or bf16); C: the pool's elements (float for a
+// float32 pool; int8_t or __nv_fp8_e4m3 codes for a quantized one, whose
+// (Hkv, P) float32 scale tables ks_tab / vs_tab dequantize each staged
+// prefix row: code -> float, times the scale of (hk, page)). The tail is
+// fresh K / V in T. Prefix rows at or past prefix_len are staged as zeros,
+// never loaded: the table pads with the null page.
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(PF_THREADS)
-paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
-                     const float* __restrict__ v_pages, const int* __restrict__ page_table,
-                     const float* __restrict__ k_tail, const float* __restrict__ v_tail,
+paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_pages,
+                     const C* __restrict__ v_pages, const float* __restrict__ ks_tab,
+                     const float* __restrict__ vs_tab, const int* __restrict__ page_table,
+                     const T* __restrict__ k_tail, const T* __restrict__ v_tail,
                      const int* __restrict__ prefix_len,
-                     const int* __restrict__ tail_len, float* __restrict__ o, int Hq,
+                     const int* __restrict__ tail_len, T* __restrict__ o, int Hq,
                      int Hkv, int St, int P, int ps, int mp, float scale,
                      int window, float softcap) {
+  constexpr bool QUANT = sizeof(C) == 1;
   extern __shared__ float smem[];
   constexpr int DP = PrefillSmem<D>::DP;
   float* Qs = smem;
@@ -90,7 +103,7 @@ paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_pa
   const int tlen = tail_len[b];
   const size_t q_head0 = (size_t)b * Hq + (size_t)hk * G;
 
-  stage_rows<D, DP, float>(Qs, [&](int rr) -> const float* {
+  stage_rows<D, DP, T>(Qs, [&](int rr) -> const T* {
     const int R = R0 + rr;
     if (R >= rows) return nullptr;
     const int i = R / G;
@@ -115,15 +128,25 @@ paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_pa
   for (int n = a_lo; n < (pref + PF_BN - 1) / PF_BN; ++n) {
     const int c0 = n * PF_BN;
     __syncthreads();
-    auto page_row = [&](const float* pool, int rr) -> const float* {
+    auto page_row = [&](const C* pool, int rr) -> const C* {
       const int c = c0 + rr;
       if (c >= pref) return nullptr;
       const int page = c / ps;
       const int pid = pt_row[page];
       return pool + (((size_t)hk * P + pid) * ps + (c - page * ps)) * D;
     };
-    stage_rows<D, DP, float>(Ks, [&](int rr) { return page_row(k_pages, rr); });
-    stage_rows<D, D, float>(Vs, [&](int rr) { return page_row(v_pages, rr); });
+    if constexpr (QUANT) {
+      auto row_scale = [&](const float* tab, int rr) -> float {
+        return tab[(size_t)hk * P + pt_row[(c0 + rr) / ps]];
+      };
+      stage_rows_scaled<D, DP, C>(Ks, [&](int rr) { return page_row(k_pages, rr); },
+                                  [&](int rr) { return row_scale(ks_tab, rr); });
+      stage_rows_scaled<D, D, C>(Vs, [&](int rr) { return page_row(v_pages, rr); },
+                                 [&](int rr) { return row_scale(vs_tab, rr); });
+    } else {
+      stage_rows<D, DP, C>(Ks, [&](int rr) { return page_row(k_pages, rr); });
+      stage_rows<D, D, C>(Vs, [&](int rr) { return page_row(v_pages, rr); });
+    }
     __syncthreads();
     tile_step<D>(Qs, Ks, Vs, Ps, st, scale, softcap, [&](int ii, int jj) {
       const int R = R0 + ty + 16 * ii;
@@ -146,10 +169,10 @@ paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_pa
   for (int n = b_lo; n <= (last_col >= 0 ? last_col / PF_BN : -1); ++n) {
     const int c0 = n * PF_BN;
     __syncthreads();
-    stage_rows<D, DP, float>(Ks, [&](int rr) -> const float* {
+    stage_rows<D, DP, T>(Ks, [&](int rr) -> const T* {
       return c0 + rr < St ? k_tail + tail_head + (size_t)(c0 + rr) * D : nullptr;
     });
-    stage_rows<D, D, float>(Vs, [&](int rr) -> const float* {
+    stage_rows<D, D, T>(Vs, [&](int rr) -> const T* {
       return c0 + rr < St ? v_tail + tail_head + (size_t)(c0 + rr) * D : nullptr;
     });
     __syncthreads();
@@ -170,29 +193,44 @@ paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_pa
     const int i = R / G;
     const float l = st.l[ii];
     const float l_safe = l == 0.f ? 1.f : l;
-    float* orow = o + ((q_head0 + (R - i * G)) * St + i) * D;
+    T* orow = o + ((q_head0 + (R - i * G)) * St + i) * D;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) orow[tx + 16 * c] = st.acc[ii][c] / l_safe;
+    for (int c = 0; c < D / 16; ++c) orow[tx + 16 * c] = from_f<T>(st.acc[ii][c] / l_safe);
   }
 }
 
-template <int D>
-int launch_f32(const void* q, const void* kp, const void* vp, const int* pt, const void* kt,
-               const void* vt, const int* plen, const int* tlen, void* o, int B, int Hq,
-               int Hkv, int St, int P, int ps, int mp, float scale, int window, float softcap,
-               cudaStream_t stream) {
+template <typename T, typename C, int D>
+int launch_cc(const void* q, const void* kp, const void* vp, const float* ks_tab,
+              const float* vs_tab, const int* pt, const void* kt, const void* vt,
+              const int* plen, const int* tlen, void* o, int B, int Hq, int Hkv, int St, int P,
+              int ps, int mp, float scale, int window, float softcap, cudaStream_t stream) {
   const size_t smem = PrefillSmem<D>::bytes;
-  cudaError_t err = allow_smem(paged_prefill_kernel<D>, smem);
+  cudaError_t err = allow_smem(paged_prefill_kernel<T, C, D>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((Hq / Hkv) * St + PF_BM - 1) / PF_BM;
   if (B <= 0 || tiles <= 0) return 0;
   dim3 grid(tiles, Hkv, B);
-  paged_prefill_kernel<D><<<grid, PF_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kp),
-      static_cast<const float*>(vp), pt, static_cast<const float*>(kt),
-      static_cast<const float*>(vt), plen, tlen, static_cast<float*>(o), Hq, Hkv, St, P, ps,
-      mp, scale, window, softcap);
+  paged_prefill_kernel<T, C, D><<<grid, PF_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(kp), static_cast<const C*>(vp), ks_tab,
+      vs_tab, pt, static_cast<const T*>(kt), static_cast<const T*>(vt), plen, tlen,
+      static_cast<T*>(o), Hq, Hkv, St, P, ps, mp, scale, window, softcap);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename C>
+int dispatch_cc(const void* q, const void* kp, const void* vp, const float* ks_tab,
+                const float* vs_tab, const int* pt, const void* kt, const void* vt,
+                const int* plen, const int* tlen, void* o, int B, int Hq, int Hkv, int St,
+                int P, int ps, int mp, int D, float scale, int window, float softcap,
+                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PP_CASE(DIM)                                                                        \
+  return launch_cc<T, C, DIM>(q, kp, vp, ks_tab, vs_tab, pt, kt, vt, plen, tlen, o, B, Hq, \
+                              Hkv, St, P, ps, mp, scale, window, softcap, s)
+  if (D == 128) PP_CASE(128);
+  if (D == 64) PP_CASE(64);
+#undef PP_CASE
+  return -1;
 }
 
 // -- bf16 on the tensor cores ----------------------------------------------------
@@ -379,14 +417,30 @@ extern "C" int paged_prefill(const void* q, const void* k_pages, const void* v_p
                              const int* tail_len, void* o, int B, int Hq, int Hkv,
                              int St, int P, int ps, int mp, int D, float scale,
                              int window, float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PP_CASE(DIM)                                                                    \
-  return launch_f32<DIM>(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, \
-                         tail_len, o, B, Hq, Hkv, St, P, ps, mp, scale, window, softcap, s)
-  if (D == 128) PP_CASE(128);
-  if (D == 64) PP_CASE(64);
-#undef PP_CASE
-  return -1;
+  return dispatch_cc<float, float>(q, k_pages, v_pages, nullptr, nullptr, page_table, k_tail,
+                                   v_tail, prefix_len, tail_len, o, B, Hq, Hkv, St, P, ps, mp,
+                                   D, scale, window, softcap, stream);
+}
+
+// A quantized pool on the CUDA cores: q / tail / o float32 (q_bf16 0) or
+// bf16 (1); int8 (fp8 0) or float8_e4m3fn (1) prefix codes with (Hkv, P)
+// float32 scale tables. Returns as paged_prefill does.
+extern "C" int paged_prefill_q(const void* q, const void* k_codes, const void* v_codes,
+                               const float* k_scale_tab, const float* v_scale_tab,
+                               const int* page_table, const void* k_tail, const void* v_tail,
+                               const int* prefix_len, const int* tail_len, void* o, int B,
+                               int Hq, int Hkv, int St, int P, int ps, int mp, int D,
+                               int q_bf16, int fp8, float scale, int window, float softcap,
+                               void* stream) {
+#define PQ_CASE(T, C)                                                                        \
+  return dispatch_cc<T, C>(q, k_codes, v_codes, k_scale_tab, v_scale_tab, page_table,      \
+                           k_tail, v_tail, prefix_len, tail_len, o, B, Hq, Hkv, St, P, ps, \
+                           mp, D, scale, window, softcap, stream)
+  if (!q_bf16 && !fp8) PQ_CASE(float, int8_t);
+  if (!q_bf16 && fp8) PQ_CASE(float, __nv_fp8_e4m3);
+  if (q_bf16 && !fp8) PQ_CASE(__nv_bfloat16, int8_t);
+  PQ_CASE(__nv_bfloat16, __nv_fp8_e4m3);
+#undef PQ_CASE
 }
 
 // bfloat16 q / pools / tail on the tensor cores; contiguous, 16-byte aligned

@@ -141,4 +141,28 @@ __device__ __forceinline__ void stage_rows(float* dst, RowPtr src_row) {
   }
 }
 
+// stage_rows for a quantized pool's rows: row r's codes (src_row(r), nullptr
+// = zeros) widen to float32 and are multiplied by scale_of(r), the scale of
+// the (kv head, page) that holds it.
+template <int D, int STRIDE, typename C, typename RowPtr, typename RowScale>
+__device__ __forceinline__ void stage_rows_scaled(float* dst, RowPtr src_row,
+                                                  RowScale scale_of) {
+  for (int idx = threadIdx.x; idx < PF_BN * (D / 8); idx += PF_THREADS) {
+    const int r = idx / (D / 8);
+    const int c8 = (idx - r * (D / 8)) * 8;
+    float tmp[8];
+    const C* src = src_row(r);
+    if (src != nullptr) {
+      load8(src + c8, tmp);
+      const float sc = scale_of(r);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) tmp[e] *= sc;
+    } else {
+      zero8(tmp);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[r * STRIDE + c8 + e] = tmp[e];
+  }
+}
+
 }  // namespace rt

@@ -5,10 +5,13 @@ counts its bf16 tensor-core launches alone), K5/K6
 ``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV; the ``_tc``
 counters likewise), K2
 ``paged_prefill_attention.paged_flash_prefill`` (``paged_flash_prefill_tc``
-counts its bf16 tensor-core launches alone), K3/K4
+counts its bf16 tensor-core launches alone, ``paged_flash_prefill_q`` its
+launches over a quantized pool, which the other two do not count), K3/K4
 ``paged_decode_attention.paged_flash_decode`` (one-pass / split-K;
 ``paged_flash_decode_tc`` and ``paged_flash_decode_split_tc`` count the
-bf16 tensor-core launches alone), K7/K8
+bf16 tensor-core launches alone; ``paged_flash_decode_q`` and
+``paged_flash_decode_split_q`` the launches over a quantized pool, which
+the others do not count), K7/K8
 ``decode_attention.flash_decode`` (dense one-pass / split-K;
 ``flash_decode_tc`` and ``flash_decode_split_tc`` count the bf16
 tensor-core launches alone) and K9
@@ -44,10 +47,13 @@ _COUNTERS = {
     "flash_attention_bwd_dkv_tc": (flash_attention_bwd, "launches", "dkv_tc"),
     "paged_flash_prefill": (paged_prefill_attention, "launches", None),
     "paged_flash_prefill_tc": (paged_prefill_attention, "launches_tc", None),
+    "paged_flash_prefill_q": (paged_prefill_attention, "launches_q", None),
     "paged_flash_decode": (paged_decode_attention, "launches", "one_pass"),
     "paged_flash_decode_split": (paged_decode_attention, "launches", "split"),
     "paged_flash_decode_tc": (paged_decode_attention, "launches", "one_pass_tc"),
     "paged_flash_decode_split_tc": (paged_decode_attention, "launches", "split_tc"),
+    "paged_flash_decode_q": (paged_decode_attention, "launches", "one_pass_q"),
+    "paged_flash_decode_split_q": (paged_decode_attention, "launches", "split_q"),
     "flash_decode": (decode_attention, "launches", "one_pass"),
     "flash_decode_split": (decode_attention, "launches", "split"),
     "flash_decode_tc": (decode_attention, "launches", "one_pass_tc"),

@@ -40,17 +40,25 @@ def chunk_relevant(chunk_start, chunk_len: int, length, window):
 
 
 def accumulate_kv_block(q, k, v, acc, m, l, *, scale, softcap, window,
-                        block_start: int, length):
+                        block_start: int, length, k_scale=None, v_scale=None):
     """One online-softmax step over a KV unit for a batch of decode rows.
 
     q: ``(N, G, D)`` fp32; k/v: ``(N, block_len, D)``; acc ``(N, G, D)``,
     m/l ``(N, G, 1)`` running state; ``length`` ``(N,)``. Positions at or
-    past ``length`` (and outside the window) are masked per element; the
-    caller gates whole irrelevant units with :func:`chunk_relevant`.
-    Returns the new ``(acc, m, l)``.
+    past ``length`` (and outside the window) are masked per element, by
+    select: their V rows are zeroed before the product, so a NaN there never
+    reaches the row. The caller gates whole irrelevant units with
+    :func:`chunk_relevant`. ``k_scale`` / ``v_scale`` ``(N,)``: a quantized
+    unit's codes widen to float32 and are multiplied by their page's scale
+    before the products, as the JAX kernel does. Returns the new ``(acc, m,
+    l)``.
     """
     block_len = k.shape[1]
-    s = torch.einsum("ngd,ntd->ngt", q, k.float()) * scale
+    k, v = k.float(), v.float()
+    if k_scale is not None:
+        k = k * k_scale[:, None, None]
+        v = v * v_scale[:, None, None]
+    s = torch.einsum("ngd,ntd->ngt", q, k) * scale
     if softcap is not None and softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     pos = block_start + torch.arange(block_len, device=q.device)[None, None, :]
@@ -63,7 +71,8 @@ def accumulate_kv_block(q, k, v, acc, m, l, *, scale, softcap, window,
     alpha = torch.exp(m - m_new)
     p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
     l = l * alpha + p.sum(dim=-1, keepdim=True)
-    acc = acc * alpha + torch.einsum("ngt,ntd->ngd", p, v.float())
+    v = torch.where(valid[:, 0, :, None], v, torch.zeros_like(v))
+    acc = acc * alpha + torch.einsum("ngt,ntd->ngd", p, v)
     return acc, m_new, l
 
 

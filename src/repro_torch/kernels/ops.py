@@ -146,9 +146,11 @@ def decode_attention(q, k_cache, v_cache, lengths, *, softcap=None, scale=None,
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            softcap=None, scale=None, window=None,
-                           plan: Optional[AttentionPlan] = None) -> torch.Tensor:
+                           plan: Optional[AttentionPlan] = None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
     """Paged single-token decode. q (B, Hq, D); k/v_pages (Hkv, P, ps, D);
-    page_table (B, max_pages) int32; lengths (B,) int32."""
+    page_table (B, max_pages) int32; lengths (B,) int32; ``k_scales`` /
+    ``v_scales`` (Hkv, P) float32 for a quantized pool."""
     b, hq, d = q.shape
     hkv, _, ps, _ = k_pages.shape
     if plan is None:
@@ -159,16 +161,18 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                               dtype_bytes=k_pages.element_size())
     fn = paged_flash_decode_plain if plan.impl == "plain" else paged_flash_decode
     return fn(q, k_pages, v_pages, page_table, lengths, softcap=softcap,
-              scale=scale, window=window, num_splits=plan.num_splits)
+              scale=scale, window=window, num_splits=plan.num_splits,
+              k_scales=k_scales, v_scales=v_scales)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_table, k_tail, v_tail,
                             prefix_len, tail_len, *, softcap=None, scale=None,
-                            window=None, plan: Optional[AttentionPlan] = None
-                            ) -> torch.Tensor:
+                            window=None, plan: Optional[AttentionPlan] = None,
+                            k_scales=None, v_scales=None) -> torch.Tensor:
     """Prefix-extension prefill over paged prefix K/V. q (B, Hq, St, D);
     page_table (B, prefix_pages) int32; k/v_tail (B, Hkv, St, D);
-    prefix_len / tail_len (B,) int32."""
+    prefix_len / tail_len (B,) int32; ``k_scales`` / ``v_scales`` (Hkv, P)
+    float32 for a quantized pool."""
     b, hq, st, d = q.shape
     hkv, _, ps, _ = k_pages.shape
     if plan is None:
@@ -179,4 +183,4 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, k_tail, v_tail,
     fn = paged_flash_prefill_plain if plan.impl == "plain" else paged_flash_prefill
     return fn(q.contiguous(), k_pages, v_pages, page_table, k_tail.contiguous(),
               v_tail.contiguous(), prefix_len, tail_len, softcap=softcap,
-              scale=scale, window=window)
+              scale=scale, window=window, k_scales=k_scales, v_scales=v_scales)

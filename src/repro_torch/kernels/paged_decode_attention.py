@@ -10,11 +10,15 @@ the tensor cores: a producer warp loads K/V page by page by TMA into the
 64-row stages of a 128 KB ring, and the consumer warps are the ones K7/K8
 run (``csrc/decode_tc.cuh``); the page size must then be a multiple of 8
 that divides 64. float32 runs ``paged_decode`` / ``paged_decode_split`` on
-the CUDA cores (the tensor cores would round it to TF32).
-:func:`paged_flash_decode` launches the one for its dtype on CUDA tensors
+the CUDA cores (the tensor cores would round it to TF32). A quantized pool
+(int8 or float8_e4m3fn codes with ``(Hkv, P)`` float32 ``k_scales`` /
+``v_scales``, ``cache.quant``) runs ``paged_decode_q`` /
+``paged_decode_split_q``: the float32 CUDA-core walk with each code widened
+to float32 and multiplied by its page's scale where it is staged, q and the
+output in float32 or bf16 (the TPU kernels' scale branch).
+:func:`paged_flash_decode` launches the one for its dtypes on CUDA tensors
 and runs :func:`paged_flash_decode_plain` — the same page walk, relevance
 gate and split combine, written with ``decode_common`` — for CPU tensors.
-The quantized-pool scale branch of the TPU kernels is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.cache import quant
 from repro_torch.cache.layout import decode_split_ranges
 from repro_torch.kernels import build, decode_common
 
@@ -37,16 +42,23 @@ STAGE = 64
 TC_PAGE_MULTIPLE = 8
 
 #: Launches since the last reset: one-pass (K3) and split-K (K4; each
-#: launch is the split kernel followed by its combine), of either dtype;
-#: the ``_tc`` keys count the bf16 tensor-core kernel's alone.
-launches = {"one_pass": 0, "split": 0, "one_pass_tc": 0, "split_tc": 0}
+#: launch is the split kernel followed by its combine) over an unquantized
+#: pool, of either dtype; the ``_tc`` keys count the bf16 tensor-core
+#: kernel's alone; the ``_q`` keys count the kernels over a quantized pool.
+launches = {"one_pass": 0, "split": 0, "one_pass_tc": 0, "split_tc": 0,
+            "one_pass_q": 0, "split_q": 0}
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
                              softcap=None, scale=None, window=None,
-                             num_splits: int = 1) -> torch.Tensor:
+                             num_splits: int = 1, k_scales=None, v_scales=None
+                             ) -> torch.Tensor:
     """What K3/K4 compute, in plain PyTorch: per split range of pages, an
-    online-softmax walk over the relevant pages, then the combine."""
+    online-softmax walk over the relevant pages, then the combine. A
+    quantized pool's pages are dequantized by their scales in the block
+    step."""
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    quantized = quant.scale_pair(k_scale_tab, v_scale_tab)
     b, hq, d = q.shape
     hkv, _, ps, _ = k_pages.shape
     mp = page_table.shape[1]
@@ -68,11 +80,14 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
             if decode_common.dead_block(live):
                 continue
             pids = table[:, p].repeat_interleave(hkv)
-            k = k_pages[heads, pids]                           # (B*Hkv, ps, D)
-            v = v_pages[heads, pids]
+            k = quant.index_pages(k_pages, (heads, pids))      # (B*Hkv, ps, D)
+            v = quant.index_pages(v_pages, (heads, pids))
+            k_sc = k_scale_tab[heads, pids] if quantized else None
+            v_sc = v_scale_tab[heads, pids] if quantized else None
             acc1, m1, l1 = decode_common.accumulate_kv_block(
                 qg, k, v, acc, m, l, scale=scale, softcap=softcap,
-                window=window, block_start=p * ps, length=ln)
+                window=window, block_start=p * ps, length=ln, k_scale=k_sc,
+                v_scale=v_sc)
             keep = live[:, None, None]
             acc = torch.where(keep, acc1, acc)
             m = torch.where(keep, m1, m)
@@ -86,10 +101,14 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: (dtype, split) -> the C entry point that takes it.
+#: Code dtypes of a quantized pool.
+_CODES = (torch.int8, torch.float8_e4m3fn)
+#: (dtype, split) -> the C entry point that takes it; dtype None is a
+#: quantized pool (q float32 or bf16, selected by an argument).
 _ENTRY = {(torch.float32, False): "paged_decode", (torch.float32, True): "paged_decode_split",
           (torch.bfloat16, False): "paged_decode_tc",
-          (torch.bfloat16, True): "paged_decode_split_tc"}
+          (torch.bfloat16, True): "paged_decode_split_tc",
+          (None, False): "paged_decode_q", (None, True): "paged_decode_split_q"}
 _fns = {}
 
 
@@ -97,7 +116,9 @@ def _kernel(dtype, split: bool):
     fn = _fns.get((dtype, split))
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if split:
+        if dtype is None:
+            args = ([P] * 11 + [I] * 11 if split else [P] * 8 + [I] * 9) + [F, I, F, P]
+        elif split:
             args = [P] * 9 + [I] * 9 + [F, I, F, P]
         else:
             args = [P] * 6 + [I] * 7 + [F, I, F, P]
@@ -105,13 +126,27 @@ def _kernel(dtype, split: bool):
     return fn
 
 
-def _check_inputs(q, k_pages, v_pages, page_table, lengths):
+def _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab=None,
+                  v_scale_tab=None):
     dev = q.device
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("lengths", lengths)):
+    tensors = (("k_pages", k_pages), ("v_pages", v_pages), ("page_table", page_table),
+               ("lengths", lengths))
+    quantized = k_scale_tab is not None
+    if quantized:
+        tensors += (("k_scales", k_scale_tab), ("v_scales", v_scale_tab))
+    for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be one of {list(_DTYPES)}")
+    if quantized:
+        if k_pages.dtype not in _CODES or v_pages.dtype != k_pages.dtype:
+            raise ValueError(f"quantized pools must share a code dtype in {list(_CODES)}")
+        hkv, num_pages = k_pages.shape[:2]
+        for name, t in (("k_scales", k_scale_tab), ("v_scales", v_scale_tab)):
+            if t.dtype != torch.float32 or t.shape != (hkv, num_pages):
+                raise ValueError(f"{name} must be float32 of shape {(hkv, num_pages)}")
+    elif k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError(f"q and the pools must share a dtype in {list(_DTYPES)}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("page_table and lengths must be int32")
@@ -125,17 +160,17 @@ def _check_inputs(q, k_pages, v_pages, page_table, lengths):
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if ps > STAGE or STAGE % ps:
         raise ValueError(f"page_size {ps} must divide {STAGE}")
-    if q.dtype == torch.bfloat16 and ps % TC_PAGE_MULTIPLE:
+    if q.dtype == torch.bfloat16 and not quantized and ps % TC_PAGE_MULTIPLE:
         raise ValueError(f"bf16 page_size {ps} must be a multiple of {TC_PAGE_MULTIPLE} "
                          "(the tensor-core kernel's swizzled stages)")
     if page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("page_table / lengths batch does not match q")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("lengths", lengths)):
+    for name, t in (("q", q),) + tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the pools must start 16-byte aligned (16-byte loads, tensor maps)")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("q and the pools must start 16-byte aligned (16-byte loads, "
+                         "tensor maps)")
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
@@ -145,22 +180,23 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     """q (B, Hq, D); k/v_pages (Hkv, P, page_size, D) head-major;
     page_table (B, max_pages) int32 (entries past a row's live pages hold a
     valid id — the null page); lengths (B,) int32. Returns (B, Hq, D).
+    ``k_scales`` / ``v_scales`` (Hkv, P) float32, both or neither, mark the
+    pools as int8 or float8_e4m3fn codes (``cache.quant``).
 
     ``num_splits > 1`` runs split-K over :func:`decode_split_ranges`
     (clamped to the table width). CUDA tensors launch the kernel of their
-    dtype (bf16 on the tensor cores, float32 on the CUDA cores), CPU tensors
-    take the plain version; under grad mode it raises: the kernels have no
-    backward.
+    dtypes (bf16 on the tensor cores, float32 and quantized pools on the
+    CUDA cores), CPU tensors take the plain version; under grad mode it
+    raises: the kernels have no backward.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized page pools are not ported yet (ROADMAP Queue A, "
-            "quantized and tiered KV)")
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    quantized = quant.scale_pair(k_scale_tab, v_scale_tab)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(
             q, k_pages, v_pages, page_table, lengths, softcap=softcap,
-            scale=scale, window=window, num_splits=num_splits)
-    _check_inputs(q, k_pages, v_pages, page_table, lengths)
+            scale=scale, window=window, num_splits=num_splits, k_scales=k_scale_tab,
+            v_scales=v_scale_tab)
+    _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab, v_scale_tab)
     build.refuse_grad("paged_flash_decode", q, k_pages, v_pages)
     b, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
@@ -170,15 +206,20 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     ranges = decode_split_ranges(mp, num_splits)
     out = torch.empty_like(q)
     common = (float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q))
-    tc = q.dtype == torch.bfloat16
+    tc = q.dtype == torch.bfloat16 and not quantized
+    key = None if quantized else q.dtype
+    pointers = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if quantized:
+        pointers += (k_scale_tab.data_ptr(), v_scale_tab.data_ptr())
+    pointers += (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    dtypes = ((int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.float8_e4m3fn))
+              if quantized else ())
     if len(ranges) == 1:
-        launches["one_pass"] += 1
+        launches["one_pass_q" if quantized else "one_pass"] += 1
         launches["one_pass_tc"] += int(tc)
-        status = _kernel(q.dtype, False)(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, hq, hkv, num_pages, ps, mp, d, *common)
-        build.check(status, _ENTRY[(q.dtype, False)])
+        status = _kernel(key, False)(*pointers, b, hq, hkv, num_pages, ps, mp, d, *dtypes,
+                                     *common)
+        build.check(status, _ENTRY[(key, False)])
         return out
     s = len(ranges)
     pps = ranges[0][1] - ranges[0][0]
@@ -186,12 +227,9 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     acc = torch.empty((b, hkv, s, group, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, s, group), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    launches["split"] += 1
+    launches["split_q" if quantized else "split"] += 1
     launches["split_tc"] += int(tc)
-    status = _kernel(q.dtype, True)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, hq, hkv, num_pages, ps, mp, d, s, pps, *common)
-    build.check(status, _ENTRY[(q.dtype, True)])
+    status = _kernel(key, True)(*pointers, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                b, hq, hkv, num_pages, ps, mp, d, s, pps, *dtypes, *common)
+    build.check(status, _ENTRY[(key, True)])
     return out

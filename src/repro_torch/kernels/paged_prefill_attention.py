@@ -11,7 +11,12 @@ fed by a producer warp that loads each prefix page as one TMA box (the page
 size must then be a multiple of 8 that divides 128) and the tail in
 128-row boxes. float32 runs ``paged_prefill`` on the CUDA cores (the tensor
 cores would round it to TF32): folded (position, head) rows tiled 64 at a
-time. :func:`paged_flash_prefill` launches the one for its dtype on CUDA
+time. A quantized pool (int8 or float8_e4m3fn prefix codes with ``(Hkv,
+P)`` float32 ``k_scales`` / ``v_scales``, ``cache.quant``) runs
+``paged_prefill_q``: the float32 CUDA-core kernel with each prefix code
+widened and multiplied by its page's scale where it is staged, q, the fresh
+tail and the output in float32 or bf16 (the TPU kernel's scale branch).
+:func:`paged_flash_prefill` launches the one for its dtypes on CUDA
 tensors and runs :func:`paged_flash_prefill_plain` for CPU tensors.
 """
 
@@ -21,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.cache import quant
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
@@ -32,18 +38,25 @@ HEAD_DIMS = (64, 128)
 TC_STAGE = 128
 TC_PAGE_MULTIPLE = 8
 
-#: Launches of either CUDA kernel since the last reset; ``launches_tc``
-#: counts those of the bf16 tensor-core kernel alone.
+#: Launches over an unquantized pool since the last reset, of either CUDA
+#: kernel; ``launches_tc`` counts those of the bf16 tensor-core kernel
+#: alone, ``launches_q`` the launches over a quantized pool.
 launches = 0
 launches_tc = 0
+launches_q = 0
 
 
 def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
                               prefix_len, tail_len, *, softcap=None,
-                              scale=None, window=None) -> torch.Tensor:
+                              scale=None, window=None, k_scales=None,
+                              v_scales=None) -> torch.Tensor:
     """What K2 computes, in plain PyTorch: the prefix pages read through the
-    table (only the live ``prefix_len`` columns), then the causal tail, one
-    softmax per row; rows at or past ``tail_len`` give exact zeros."""
+    table (only the live ``prefix_len`` columns: the rest are zeroed by
+    select, as the kernel stages them), then the causal tail, one softmax
+    per row; rows at or past ``tail_len`` give exact zeros. A quantized
+    pool's prefix pages are dequantized by their scales in float32."""
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    quantized = quant.scale_pair(k_scale_tab, v_scale_tab)
     b, hq, st, d = q.shape
     hkv, _, ps, _ = k_pages.shape
     group = hq // hkv
@@ -55,10 +68,18 @@ def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
     tlen = tail_len.to(dev).long()
     table = page_table.to(dev).long()
     # (B, Hkv, mp * ps, D): the prefix view the kernel walks page by page.
-    kp = k_pages[:, table].permute(1, 0, 2, 3, 4).reshape(b, hkv, mp * ps, d)
-    vp = v_pages[:, table].permute(1, 0, 2, 3, 4).reshape(b, hkv, mp * ps, d)
-    k = torch.cat([kp, k_tail], dim=2).float()
-    v = torch.cat([vp, v_tail], dim=2).float()
+    kp = quant.index_pages(k_pages, (slice(None), table)).float()
+    vp = quant.index_pages(v_pages, (slice(None), table)).float()
+    if quantized:
+        kp = kp * k_scale_tab[:, table][..., None, None]
+        vp = vp * v_scale_tab[:, table][..., None, None]
+    kp = kp.permute(1, 0, 2, 3, 4).reshape(b, hkv, mp * ps, d)
+    vp = vp.permute(1, 0, 2, 3, 4).reshape(b, hkv, mp * ps, d)
+    live = (torch.arange(mp * ps, device=dev)[None, :] < plen[:, None])[:, None, :, None]
+    kp = torch.where(live, kp, torch.zeros_like(kp))
+    vp = torch.where(live, vp, torch.zeros_like(vp))
+    k = torch.cat([kp, k_tail.float()], dim=2)
+    v = torch.cat([vp, v_tail.float()], dim=2)
     qg = q.float().reshape(b, hkv, group, st, d)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
     s = _softcap(s, softcap)
@@ -81,8 +102,11 @@ def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
     return o.reshape(b, hq, st, d).to(q.dtype)
 
 
-#: dtype -> the C entry point of K2 that takes it.
-_ENTRY = {torch.float32: "paged_prefill", torch.bfloat16: "paged_prefill_tc"}
+#: dtype -> the C entry point of K2 that takes it; None is a quantized pool
+#: (q float32 or bf16, selected by an argument).
+_ENTRY = {torch.float32: "paged_prefill", torch.bfloat16: "paged_prefill_tc",
+          None: "paged_prefill_q"}
+_CODES = (torch.int8, torch.float8_e4m3fn)
 _fns = {}
 
 
@@ -90,24 +114,36 @@ def _kernel(dtype):
     fn = _fns.get(dtype)
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = _fns[dtype] = build.bind("paged_prefill", _ENTRY[dtype],
-                                      [P] * 9 + [I] * 8 + [F, I, F, P])
+        args = [P] * 11 + [I] * 10 if dtype is None else [P] * 9 + [I] * 8
+        fn = _fns[dtype] = build.bind("paged_prefill", _ENTRY[dtype], args + [F, I, F, P])
     return fn
 
 
 def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
-                  prefix_len, tail_len):
+                  prefix_len, tail_len, k_scale_tab=None, v_scale_tab=None):
     dev = q.device
+    quantized = k_scale_tab is not None
     tensors = (("k_pages", k_pages), ("v_pages", v_pages),
                ("page_table", page_table), ("k_tail", k_tail),
                ("v_tail", v_tail), ("prefix_len", prefix_len),
                ("tail_len", tail_len))
+    if quantized:
+        tensors += (("k_scales", k_scale_tab), ("v_scales", v_scale_tab))
     for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _ENTRY or any(
-            t.dtype != q.dtype for t in (k_pages, v_pages, k_tail, v_tail)):
-        raise ValueError(f"q, pools and tail must share a dtype in {list(_ENTRY)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in (k_tail, v_tail)):
+        raise ValueError("q and the tail must share a dtype in [float32, bfloat16]")
+    if quantized:
+        if k_pages.dtype not in _CODES or v_pages.dtype != k_pages.dtype:
+            raise ValueError(f"quantized pools must share a code dtype in {list(_CODES)}")
+        hkv, num_pages = k_pages.shape[:2]
+        for name, t in (("k_scales", k_scale_tab), ("v_scales", v_scale_tab)):
+            if t.dtype != torch.float32 or t.shape != (hkv, num_pages):
+                raise ValueError(f"{name} must be float32 of shape {(hkv, num_pages)}")
+    elif any(t.dtype != q.dtype for t in (k_pages, v_pages)):
+        raise ValueError("q, pools and tail must share a dtype in [float32, bfloat16]")
     for name, t in (("page_table", page_table), ("prefix_len", prefix_len),
                     ("tail_len", tail_len)):
         if t.dtype != torch.int32:
@@ -131,7 +167,7 @@ def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
     # aligned tensors.
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_tail, v_tail)):
         raise ValueError("q, the pools and the tail must start 16-byte aligned")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and not quantized:
         ps = k_pages.shape[2]
         if ps % TC_PAGE_MULTIPLE or TC_STAGE % ps:
             raise ValueError(f"bf16 page_size {ps} must be a multiple of {TC_PAGE_MULTIPLE} "
@@ -148,19 +184,20 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
     """q (B, Hq, St, D) tail queries; k/v_pages (Hkv, P, page_size, D);
     page_table (B, mp) int32 physical ids (null-page padded past the live
     prefix; mp may be 0); k/v_tail (B, Hkv, St, D); prefix_len / tail_len
-    (B,) int32. Returns (B, Hq, St, D). CUDA tensors launch the kernel of
-    their dtype (bf16 on the tensor cores, float32 on the CUDA cores), CPU
+    (B,) int32. ``k_scales`` / ``v_scales`` (Hkv, P) float32, both or
+    neither, mark the pools as int8 or float8_e4m3fn codes. Returns (B, Hq,
+    St, D). CUDA tensors launch the kernel of their dtypes (bf16 on the
+    tensor cores, float32 and quantized pools on the CUDA cores), CPU
     tensors take the plain version."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized page pools are not ported yet (ROADMAP Queue A, "
-            "quantized and tiered KV)")
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    quantized = quant.scale_pair(k_scale_tab, v_scale_tab)
     if q.device.type == "cpu":
         return paged_flash_prefill_plain(
             q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len,
-            tail_len, softcap=softcap, scale=scale, window=window)
+            tail_len, softcap=softcap, scale=scale, window=window,
+            k_scales=k_scale_tab, v_scales=v_scale_tab)
     _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
-                  prefix_len, tail_len)
+                  prefix_len, tail_len, k_scale_tab, v_scale_tab)
     build.refuse_grad("paged_flash_prefill", q, k_pages, v_pages, k_tail, v_tail)
     b, hq, st, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
@@ -168,15 +205,22 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
     if scale is None:
         scale = 1.0 / d**0.5
     o = torch.empty_like(q)
-    global launches, launches_tc
-    launches += 1
-    launches_tc += int(q.dtype == torch.bfloat16)
-    status = _kernel(q.dtype)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+    global launches, launches_tc, launches_q
+    pointers = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if quantized:
+        launches_q += 1
+        pointers += (k_scale_tab.data_ptr(), v_scale_tab.data_ptr())
+        dtypes = (int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.float8_e4m3fn))
+    else:
+        launches += 1
+        launches_tc += int(q.dtype == torch.bfloat16)
+        dtypes = ()
+    key = None if quantized else q.dtype
+    status = _kernel(key)(
+        *pointers, page_table.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
         prefix_len.data_ptr(), tail_len.data_ptr(), o.data_ptr(),
-        b, hq, hkv, st, num_pages, ps, mp, d,
+        b, hq, hkv, st, num_pages, ps, mp, d, *dtypes,
         float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q),
     )
-    build.check(status, _ENTRY[q.dtype])
+    build.check(status, _ENTRY[key])
     return o

@@ -24,6 +24,7 @@ import functools
 from typing import Optional, Tuple
 
 from repro_torch.cache import layout as layout_lib
+from repro_torch.cache import quant as quant_lib
 from repro_torch.core import numa, perf_model
 from repro_torch.kernels.decode_attention import STAGE as DECODE_BLOCK
 from repro_torch.kernels.flash_attention import PAPER_MAPPINGS, MappingConfig
@@ -124,18 +125,25 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
                    device_type: str = "cuda", dtype_bytes: int = 2,
                    window: Optional[int] = None,
                    page_size: Optional[int] = None,
-                   mapping_name: str = "auto", impl: str = "auto"
-                   ) -> AttentionPlan:
+                   mapping_name: str = "auto", impl: str = "auto",
+                   kv_dtype: str = "fp32") -> AttentionPlan:
     """Resolve the :class:`AttentionPlan` for ``shape`` = ``(batch,
     num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim)``. For paged
     decode, ``seq_kv`` is the page-table width times the page size; for
-    dense decode, the stripe's capacity."""
+    dense decode, the stripe's capacity. A quantized ``kv_dtype`` (paged
+    only) scores the bytes its codes move: ``dtype_bytes`` becomes
+    ``cache.quant.kv_itemsize``, as in the JAX package."""
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}; expected one of {PHASES}")
     if kv_layout not in (DENSE, PAGED):
         raise ValueError(f"unknown kv layout {kv_layout!r}")
     if kv_layout == PAGED and page_size is None:
         raise ValueError("paged plans require page_size")
+    quant_lib.validate_kv_dtype(kv_dtype)
+    if kv_dtype != "fp32":
+        if kv_layout != PAGED:
+            raise ValueError(f"kv_dtype={kv_dtype!r} requires the paged KV layout")
+        dtype_bytes = quant_lib.kv_itemsize(kv_dtype)
     b, hq, hkv, sq, skv, d = (int(x) for x in shape)
     return _plan_cached(
         b, hq, hkv, sq, skv, d, phase, kv_layout, device_type,

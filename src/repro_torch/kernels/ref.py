@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.cache import quant
 from repro_torch.cache.layout import decode_split_ranges
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
@@ -143,25 +144,33 @@ def split_decode_attention(q, k_cache, v_cache, lengths, *, num_splits: int,
     return o.to(q.dtype)
 
 
-def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense view of head-major pages: (Hkv, P, ps, D) + (B, mp) ->
-    (B, Hkv, mp * ps, D), logical order per sequence."""
+    (B, Hkv, mp * ps, D), logical order per sequence. ``scales`` ((Hkv, P)
+    float32) marks the pool as quantized codes: each gathered page is
+    dequantized by its (head, page) scale, in float32."""
     hkv, _, ps, d = pages.shape
     b, mp = page_table.shape
-    g = pages[:, page_table.reshape(-1).long()]  # (Hkv, B*mp, ps, D)
+    flat = page_table.reshape(-1).long()
+    g = quant.index_pages(pages, (slice(None), flat))  # (Hkv, B*mp, ps, D)
+    if scales is not None:
+        g = g.float() * scales[:, flat][..., None, None]
     return g.reshape(hkv, b, mp * ps, d).transpose(0, 1)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_table, k_tail, v_tail,
                             prefix_len, tail_len, *, softcap=None, scale=None,
-                            window=None) -> torch.Tensor:
+                            window=None, k_scales=None, v_scales=None) -> torch.Tensor:
     """Prefix-extension prefill oracle: gather the prefix pages, append the
     tail K/V, exact attention with per-row offsets. Rows at or past
-    ``tail_len`` give exact zeros. Returns (B, Hq, St, D)."""
+    ``tail_len`` give exact zeros. ``k_scales`` / ``v_scales`` dequantize
+    quantized pools (:func:`gather_pages`). Returns (B, Hq, St, D)."""
+    quant.scale_pair(k_scales, v_scales)
     b, hq, st, d = q.shape
     group = hq // k_pages.shape[0]
-    kp = gather_pages(k_pages, page_table).to(k_tail.dtype)
-    vp = gather_pages(v_pages, page_table).to(v_tail.dtype)
+    kp = gather_pages(k_pages, page_table, k_scales).to(k_tail.dtype)
+    vp = gather_pages(v_pages, page_table, v_scales).to(v_tail.dtype)
     sp = kp.shape[2]
     k = _expand_kv(torch.cat([kp, k_tail], dim=2), group)
     v = _expand_kv(torch.cat([vp, v_tail], dim=2), group)
@@ -196,10 +205,13 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, k_tail, v_tail,
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
-                           softcap=None, scale=None, window=None) -> torch.Tensor:
-    """Paged decode oracle: gather pages to a dense cache, then the dense
+                           softcap=None, scale=None, window=None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """Paged decode oracle: gather pages to a dense cache (dequantized by
+    ``k_scales`` / ``v_scales`` for a quantized pool), then the dense
     oracle (the gather is exactly what the paged kernels avoid)."""
-    k = gather_pages(k_pages, page_table)
-    v = gather_pages(v_pages, page_table)
+    quant.scale_pair(k_scales, v_scales)
+    k = gather_pages(k_pages, page_table, k_scales)
+    v = gather_pages(v_pages, page_table, v_scales)
     return decode_attention(q, k, v, lengths, softcap=softcap, scale=scale,
                             window=window)

@@ -4,10 +4,11 @@ The flags are those of ``repro.launch.serve``, plus ``--device`` (default
 ``cuda``). ``--kv-layout auto`` (the default) serves SSM and hybrid models
 (mamba2, hymba) from dense stripes and ranks dense against paged for the
 rest. ``--steps-per-sync N`` (or ``auto``) runs N decode ticks per host
-sync, one CUDA graph replay on the card. Options the port has not ported
-yet (``--mesh``, ``--kv-dtype`` other than fp32, ``--host-pool-bytes``)
-reach the engine, which raises ``NotImplementedError`` naming the ROADMAP
-item.
+sync, one CUDA graph replay on the card. ``--kv-dtype int8`` / ``fp8``
+stores the paged pool as codes with per-page scales, ``--host-pool-bytes N``
+puts a host KV tier of N bytes behind it; both serve paged. ``--mesh``, not
+ported yet, reaches the engine, which raises ``NotImplementedError`` naming
+the ROADMAP item.
 
 Examples:
   python -m repro_torch.launch.serve --arch llama3-8b
@@ -17,6 +18,8 @@ Examples:
   python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
       --requests 4 --max-new-tokens 8 --shared-prefix 16
   python -m repro_torch.launch.serve --arch llama3-8b --steps-per-sync auto
+  python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
+      --kv-dtype int8 --host-pool-bytes 1048576 --shared-prefix 16
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Port of the self-attention subset of ``repro.models.attention``:
 ``_project_qkv``, ``attention_block`` (training), ``attention_prefill``,
 ``attention_prefill_paged``, ``attention_decode`` (dense stripes),
-``attention_decode_paged``, ``init_cache`` and ``init_paged_cache``;
-cross-attention decode (``is_cross``) waits for the VLM slice. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
+``attention_decode_paged``, ``init_cache`` and ``init_paged_cache``, with
+quantized page pools (int8 / fp8 codes and per-(kv head, page) scales,
+``cache.quant``); cross-attention decode (``is_cross``) waits for the VLM
+slice. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
 laid out ``(d_in, d_out)`` as in the JAX package, in any dtype: each is
 cast to the activations' dtype at its product. The page pools and the
 dense stripes are updated in place (JAX returns new arrays); the functions
@@ -18,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.cache import quant
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import plan as plan_lib
@@ -86,8 +89,8 @@ def attention_prefill_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict
                             ) -> Tuple[torch.Tensor, dict]:
     """Prefix-extension prefill: the first ``prefix_len[b]`` positions are
     already in the pool; the tail attends to them in place through
-    ``page_table`` (the K2 kernel, no gather). Returns the tail's K/V padded
-    to ``cache_len``."""
+    ``page_table`` (the K2 kernel, no gather; a quantized pool's scales ride
+    along). Returns the tail's K/V padded to ``cache_len``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, spec.rope_theta)
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]
@@ -98,7 +101,8 @@ def attention_prefill_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict
                      page_size=k_pages.shape[2], window=spec.window)
     o = ops.paged_prefill_attention(
         q, k_pages, v_pages, page_table, k, v, prefix_len, tail_len,
-        softcap=cfg.attn_softcap, window=spec.window, plan=plan)
+        softcap=cfg.attn_softcap, window=spec.window, plan=plan,
+        k_scales=cache.get("k_scales"), v_scales=cache.get("v_scales"))
     pad = cache_len - s
     cache_out = {"k": F.pad(k, (0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, pad))}
     return _out(p, o, cfg), cache_out
@@ -132,8 +136,10 @@ def attention_decode_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
                            page_table, lengths) -> Tuple[torch.Tensor, dict]:
     """One-token decode over the paged pool. x (B, 1, D); lengths (B,) int32
     *including* the new token. The new K/V row is written in place into the
-    sequence's tail page, then the paged decode kernel reads the pool
-    through the page table."""
+    sequence's tail page (a quantized pool through
+    ``quant.append_rows``, rescaling the page when the row widens its
+    range, so the new token's own K is quantized before it is read), then
+    the paged decode kernel reads the pool through the page table."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]
@@ -143,14 +149,19 @@ def attention_decode_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
     idx = torch.clamp(lengths.long() - 1, min=0)
     pids = torch.gather(page_table.long(), 1, (idx // ps)[:, None])[:, 0]
     offs = idx % ps
-    k_pages[:, pids, offs] = k_new[:, :, 0].transpose(0, 1).to(k_pages.dtype)
-    v_pages[:, pids, offs] = v_new[:, :, 0].transpose(0, 1).to(v_pages.dtype)
+    kv_dtype = quant.kv_dtype_of(k_pages.dtype)
+    k_scale_tab, v_scale_tab = cache.get("k_scales"), cache.get("v_scales")
+    quant.append_rows(k_pages, k_scale_tab, k_new[:, :, 0].transpose(0, 1), pids, offs,
+                      kv_dtype)
+    quant.append_rows(v_pages, v_scale_tab, v_new[:, :, 0].transpose(0, 1), pids, offs,
+                      kv_dtype)
     plan = _plan(cfg, (b, h, hkv, 1, page_table.shape[1] * ps, hd), x,
                  phase=plan_lib.DECODE, kv_layout=plan_lib.PAGED, page_size=ps,
-                 window=spec.window)
+                 window=spec.window, kv_dtype=kv_dtype)
     o = ops.paged_decode_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
                                    page_table, lengths, softcap=cfg.attn_softcap,
-                                   window=spec.window, plan=plan)
+                                   window=spec.window, plan=plan, k_scales=k_scale_tab,
+                                   v_scales=v_scale_tab)
     return o.reshape(b, 1, h * hd) @ p["wo"].to(o.dtype), cache
 
 
@@ -163,9 +174,19 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -> d
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype,
-                     device) -> dict:
+                     device, kv_dtype: str = "fp32") -> dict:
     """Head-major page pool of one layer, zero-filled:
-    ``(Hkv, num_pages, page_size, head_dim)`` for K and for V."""
+    ``(Hkv, num_pages, page_size, head_dim)`` for K and for V, in ``dtype``.
+    A quantized ``kv_dtype`` ("int8", "fp8") stores 1-byte codes instead,
+    plus zeroed ``(Hkv, num_pages)`` float32 ``k_scales`` / ``v_scales``,
+    one per (kv head, physical page), as the JAX package does."""
+    quant.validate_kv_dtype(kv_dtype)
     shape = (cfg.n_kv_heads, num_pages, page_size, cfg.head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_dtype == "fp32":
+        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    codes = quant.storage_dtype(kv_dtype)
+    return {"k_pages": torch.zeros(shape, dtype=codes, device=device),
+            "v_pages": torch.zeros(shape, dtype=codes, device=device),
+            "k_scales": torch.zeros(shape[:2], dtype=torch.float32, device=device),
+            "v_scales": torch.zeros(shape[:2], dtype=torch.float32, device=device)}

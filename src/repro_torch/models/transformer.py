@@ -359,10 +359,11 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device) -> List[di
 
 
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
-                      device) -> List[dict]:
+                      device, kv_dtype: str = "fp32") -> List[dict]:
     """One zero-filled head-major page pool per attention layer, all indexed
-    by the same physical page ids (one allocator drives every layer). Only
-    pure self-attention stacks page: SSM state is not page-structured."""
+    by the same physical page ids (one allocator drives every layer); a
+    quantized ``kv_dtype`` adds each layer's scale tables. Only pure
+    self-attention stacks page: SSM state is not page-structured."""
     _check_supported(cfg)
     for spec in cfg.layer_specs():
         if spec.kind != "attn" or spec.cross_attn:
@@ -370,5 +371,5 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                 "paged caches require a pure self-attention stack; "
                 f"got layer kind={spec.kind!r} cross_attn={spec.cross_attn}")
     dt = device_lib.dtype_of(cfg.compute_dtype)
-    return [attn_lib.init_paged_cache(cfg, num_pages, page_size, dt, device)
+    return [attn_lib.init_paged_cache(cfg, num_pages, page_size, dt, device, kv_dtype)
             for _ in range(cfg.n_layers)]

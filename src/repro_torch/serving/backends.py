@@ -20,10 +20,14 @@ card the N ticks are one captured CUDA graph per (N, stop width), replayed
 once per sync; on the CPU the same tick function runs eagerly. There is no
 fallback: a capture or replay that fails raises.
 
-Who is admitted or evicted is the scheduler's call. Left out of this slice
-(ROADMAP.md): quantized pools, the host page tier and the serving mesh. The
-caches are updated in place and never rebound, so a captured graph keeps
-reading the live caches.
+The paged pool may hold int8 / fp8 codes with per-(kv head, page) scales
+(``kv_dtype``, ``cache.quant``), and may keep a host tier behind it
+(``host_pool_bytes``, ``cache.tier``): under pool pressure idle prefix pages
+demote to host memory instead of being dropped, and admission promotes them
+back. Who is admitted or evicted is the scheduler's call. Left out of this
+slice (ROADMAP.md): the serving mesh. The caches, scale tables included, are
+updated in place and never rebound, so a captured graph keeps reading the
+live caches.
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.cache import quant
 from repro_torch.cache.pool import NULL_PAGE, OutOfPages, PagePool, SequencePages, SequenceReleasedError
 from repro_torch.cache.prefix import PrefixCache, page_hashes
+from repro_torch.cache.tier import HostPageStore
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as device_lib
 from repro_torch.core import perf_model
@@ -59,6 +65,20 @@ class _SeqState:
 
 #: Rows of the fused decode's integer inputs (``_Inputs.ints``).
 _TOK, _LEN, _GEN, _DONE, _TOP_K, _SEED, _MAX = range(7)
+
+#: Device index -> the stream every backend on that card captures its
+#: graphs on. PyTorch keeps one cuBLAS workspace per (handle, stream) for the
+#: life of the process, so a stream per backend left one workspace behind
+#: per engine.
+_capture_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = _capture_streams.get(index)
+    if stream is None:
+        stream = _capture_streams[index] = torch.cuda.Stream(index)
+    return stream
 
 
 class _Inputs:
@@ -151,7 +171,6 @@ class _Backend:
         self._programs: Dict[Tuple[int, int], _Program] = {}
         self._inputs: Optional[_Inputs] = None
         self._graph_pool = None
-        self._capture_stream = None
         #: The last tick's logits (rows, V) of the latest fused sync; on the
         #: card they live in the graphs' memory and hold until the next sync.
         self.last_logits: Optional[torch.Tensor] = None
@@ -264,7 +283,9 @@ class _Backend:
         """The program of one (n_steps, stop width) key: on the CPU the tick
         function; on the card its CUDA graph, captured into the backend's
         one memory pool after one eager warm-up tick on the capture stream
-        (library workspaces and lazy set-up happen outside the capture).
+        (library workspaces and lazy set-up happen outside the capture). Every
+        backend on a device captures on one shared stream, so the library
+        workspaces tied to that stream are made once per process.
         ``stats["decode_traces"]`` counts builds."""
         self.stats["decode_traces"] += 1
         if self._inputs is None:
@@ -277,8 +298,7 @@ class _Backend:
             return _Program(run)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
-        stream = self._capture_stream
+        stream = _capture_stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             self._warm_up(self._tick_fn(1, stop_width))
@@ -312,7 +332,7 @@ class _Backend:
         buffers (with their pinned mirrors); the next sync builds anew."""
         self._programs = {}
         self._inputs = None
-        self._graph_pool = self._capture_stream = None
+        self._graph_pool = None
         self.last_logits = None
 
 
@@ -371,7 +391,7 @@ class DenseBackend(_Backend):
             "prefix_entries": 0.0, "pages_reused": 0.0, "prompt_pages": 0.0,
             "prefix_hit_rate": None, "prefix_lookup_hits": 0.0,
             "prefix_lookup_queries": 0.0, "prefix_evictions": 0.0,
-            **{k: float(v) for k, v in self.stats.items()},
+            **{k: float(v) for k, v in self.stats.items()}, "kv_dtype": "fp32",
         }
 
     # -- admission / prefill ----------------------------------------------
@@ -472,7 +492,10 @@ class PagedBackend(_Backend):
     """Paged KV-cache backend. ``rows`` is the decode batch width;
     capacity is the page pool: admission succeeds when a request's
     non-shared prompt pages fit the free list with ``reserve_pages`` of
-    decode headroom."""
+    decode headroom. ``kv_dtype`` "int8" / "fp8" stores the pool as codes
+    with per-(kv head, page) scales; ``host_pool_bytes`` puts a host tier of
+    that budget behind the pool (it needs ``prefix_sharing``: demoted pages
+    are keyed by the prefix hash chain)."""
 
     kv_layout = "paged"
 
@@ -480,7 +503,9 @@ class PagedBackend(_Backend):
                  num_pages: int = 128, page_size: int = 16, rows: int = 8,
                  max_pages_per_seq: int = 16, prompt_buckets=(32, 64, 128),
                  prefix_sharing: bool = True, reserve_pages: int = 1,
-                 batch_prefills: bool = True):
+                 batch_prefills: bool = True, kv_dtype: str = "fp32",
+                 host_pool_bytes=None):
+        self.kv_dtype = quant.validate_kv_dtype(kv_dtype)
         for b in prompt_buckets:
             if b % page_size:
                 raise ValueError(
@@ -509,19 +534,44 @@ class PagedBackend(_Backend):
             "preemptions": 0, "prefix_evictions": 0, "pages_reused": 0,
             "prompt_pages": 0, "cow_copies": 0, "extend_prefills": 0,
             "resumed_tokens": 0, "prefill_launches": 0, "batched_prefills": 0,
-            "inflight_pages_reused": 0, "decode_traces": 0,
+            "inflight_pages_reused": 0, "decode_traces": 0, "demoted_pages": 0,
+            "promoted_pages": 0,
         }
 
         self.pool = PagePool(num_pages, page_size)
         self.prefix = PrefixCache(self.pool)
+        self.host: Optional[HostPageStore] = None
+        if host_pool_bytes:
+            if not prefix_sharing:
+                raise ValueError("host_pool_bytes requires prefix_sharing=True: demoted "
+                                 "pages are keyed by the prefix hash chain")
+            self.host = HostPageStore(int(host_pool_bytes), self.page_nbytes())
         #: chain hash -> (physical page, publishing uid) for pages admitted
         #: but not yet prefilled this round; cleared by :meth:`flush`.
         self._pending_pages: Dict[bytes, Tuple[int, int]] = {}
-        self.caches = transformer.init_paged_caches(cfg, num_pages, page_size, device)
+        self.caches = transformer.init_paged_caches(cfg, num_pages, page_size, device,
+                                                    kv_dtype=kv_dtype)
         self.page_table = np.zeros((rows, max_pages_per_seq), np.int32)
         self.seqs: List[Optional[_SeqState]] = [None] * rows
 
     # -- capacity ----------------------------------------------------------
+
+    def page_nbytes(self) -> int:
+        """Bytes of one physical page over every layer, K and V: its codes,
+        plus one float32 scale per kv head for a quantized pool (the JAX
+        package's ``_page_slice_bytes`` on one device). Also the host
+        footprint of a demoted page."""
+        cfg = self.cfg
+        if self.kv_dtype in quant.QMAX:
+            per_head = self.page_size * cfg.head_dim * quant.kv_itemsize(self.kv_dtype) + 4
+        else:
+            per_head = (self.page_size * cfg.head_dim
+                        * device_lib.dtype_of(cfg.compute_dtype).itemsize)
+        return 2 * cfg.n_layers * cfg.n_kv_heads * per_head
+
+    def kv_pool_bytes(self) -> int:
+        """Device bytes of the page pools, scale tables included."""
+        return self.page_nbytes() * self.pool.num_pages
 
     def validate(self, req) -> None:
         tok = np.asarray(req.prompt)
@@ -565,23 +615,56 @@ class PagedBackend(_Backend):
     # -- page plumbing -----------------------------------------------------
 
     def _scatter_tail(self, tail_caches: List[dict], pids: np.ndarray) -> None:
-        """Write prefilled tails' K/V into their pages, every layer. ``pids``
-        (rows, bucket / ps): destinations past a tail's real pages are the
-        null page, a garbage sink."""
+        """Write prefilled tails' K/V into their pages, every layer, through
+        ``quant.scatter_pages`` (a quantized pool stores codes and sets the
+        pages' scales). ``pids`` (rows, bucket / ps): destinations past a
+        tail's real pages are the null page, a garbage sink."""
         flat = torch.from_numpy(pids.reshape(-1).astype(np.int64)).to(self.device)
         ps = self.page_size
         for pool, tail in zip(self.caches, tail_caches):
-            for name, dense in (("k_pages", tail["k"]), ("v_pages", tail["v"])):
+            for kv in ("k", "v"):
+                dense = tail[kv]
                 rows, hkv, bucket, hd = dense.shape
                 new = dense.reshape(rows, hkv, bucket // ps, ps, hd).permute(1, 0, 2, 3, 4)
-                pool[name][:, flat] = new.reshape(hkv, rows * (bucket // ps), ps, hd).to(
-                    pool[name].dtype)
+                quant.scatter_pages(pool[f"{kv}_pages"], pool.get(f"{kv}_scales"),
+                                    new.reshape(hkv, rows * (bucket // ps), ps, hd), flat,
+                                    self.kv_dtype)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write: physical page ``src`` -> ``dst``, every layer."""
+        """Copy-on-write: physical page ``src`` -> ``dst``, every layer; a
+        quantized page's scale entries follow it (``quant.cow_scales``)."""
         for pool in self.caches:
-            for name in ("k_pages", "v_pages"):
-                pool[name][:, dst] = pool[name][:, src]
+            for kv in ("k", "v"):
+                pages = pool[f"{kv}_pages"]
+                quant.put_pages(pages, (slice(None), dst), pages[:, src])
+                quant.cow_scales(pool.get(f"{kv}_scales"), src, dst)
+
+    def _page_payload(self, pid: int) -> torch.Tensor:
+        """Physical page ``pid`` over every layer as one host byte buffer:
+        each layer's K and V codes and, for a quantized pool, their scale
+        entries, packed on the device so that one copy crosses the host
+        link. Pinned memory on the card; returns once the copy has landed,
+        so the caller may free the device page."""
+        packed = torch.cat([t[:, pid].contiguous().view(torch.uint8).reshape(-1)
+                            for pool in self.caches for t in pool.values()])
+        if self.device.type != "cuda":
+            return packed
+        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def _restore_page(self, payload: torch.Tensor, dst: int) -> None:
+        """Inverse of :meth:`_page_payload`: unpack a promoted page's bytes
+        into physical page ``dst``, every layer (codes and scale entries)."""
+        data = payload.to(self.device, non_blocking=True)
+        offset = 0
+        for pool in self.caches:
+            for t in pool.values():
+                part = t[:, dst]
+                n = part.numel() * part.element_size()
+                part.copy_(data[offset:offset + n].view(t.dtype).view(part.shape))
+                offset += n
 
     @staticmethod
     def _prefix_page_bucket(pages: int) -> int:
@@ -594,13 +677,57 @@ class PagedBackend(_Backend):
     # -- admission ---------------------------------------------------------
 
     def _make_room(self, pages_needed: int) -> bool:
-        """Evict idle prefix-cache pages until ``pages_needed`` fit; report
+        """Evict idle prefix-cache pages until ``pages_needed`` fit (with a
+        host tier their content demotes instead of being lost); report
         whether they do."""
         short = pages_needed - self.pool.free_pages
         if short > 0 and len(self.prefix):
-            self.stats["prefix_evictions"] += self.prefix.evict(short)
+            on_evict = self._demote_entry if self.host is not None else None
+            self.stats["prefix_evictions"] += self.prefix.evict(short, on_evict=on_evict)
             short = pages_needed - self.pool.free_pages
         return short <= 0
+
+    def _demote_entry(self, h: bytes, pid: int) -> None:
+        """Prefix-eviction hook: copy the page host-side before the device
+        page is freed (:meth:`_page_payload` returns once the copy has
+        landed)."""
+        if self.host.admit(h, self._page_payload(pid)):
+            self.stats["demoted_pages"] += 1
+
+    def _promote_chain(self, hashes, pinned: Sequence[int]) -> List[int]:
+        """Continue a device prefix miss into the host tier: restore the
+        longest host-resident run of ``hashes`` into fresh device pages and
+        publish them to the prefix cache, so the caller extends off them as
+        if they had never left. Each host copy is consumed as its page lands
+        (residency stays exclusive). The matched pages ``pinned`` and the
+        pages restored so far hold a reference through the walk, so the
+        room made for the next page never evicts them. Stops early when the
+        pool cannot free a page."""
+        run = self.host.lookup_chain(hashes)
+        pids: List[int] = []
+        for p in pinned:
+            self.pool.incref(p)
+        try:
+            for h in run:
+                if not self._make_room(1):
+                    break
+                try:
+                    pid = self.pool.alloc()
+                except OutOfPages:
+                    break
+                if h not in self.host:
+                    # The room just made demoted pages that pushed this entry
+                    # out of the host LRU: the run is broken.
+                    self.pool.decref(pid)
+                    break
+                self._restore_page(self.host.take(h), pid)
+                self.prefix.insert([h], [pid])
+                pids.append(pid)
+                self.stats["promoted_pages"] += 1
+        finally:
+            for p in list(pinned) + pids:
+                self.pool.decref(p)
+        return pids
 
     def _reserve(self, num_tokens: int, matched) -> Optional[SequencePages]:
         """Pin the matched prefix pages, make room, allocate; None when the
@@ -660,6 +787,9 @@ class PagedBackend(_Backend):
                 after.add(owner)
                 inflight += 1
             self.stats["inflight_pages_reused"] += inflight
+            # ... and then into the host tier.
+            if self.host is not None and len(matched) < limit:
+                matched.extend(self._promote_chain(hashes[len(matched):limit], matched))
 
         if not self.fits_buckets(n - len(matched) * ps):
             if len(resume_tokens):
@@ -762,7 +892,7 @@ class PagedBackend(_Backend):
                     (rows, self.cfg.n_heads, self.cfg.n_kv_heads, bucket,
                      mb * ps + bucket, self.cfg.head_dim),
                     device_type=dev.type, phase=plan_lib.EXTEND,
-                    kv_layout=plan_lib.PAGED, page_size=ps)
+                    kv_layout=plan_lib.PAGED, page_size=ps, kv_dtype=self.kv_dtype)
                 logits, tail_caches = transformer.prefill(
                     self.params, self.cfg, tokens, cache_len=bucket, last_positions=last,
                     prefix_caches=self.caches, page_table=torch.from_numpy(pt).to(dev),
@@ -775,6 +905,11 @@ class PagedBackend(_Backend):
             for i, r in enumerate(grp):
                 if self.prefix_sharing:
                     nfull = r["n"] // ps
+                    if self.host is not None:
+                        # A freshly prefilled page supersedes a host copy
+                        # under the same hash: device or host, never both.
+                        for h in r["hashes"][:nfull]:
+                            self.host.discard(h)
                     self.prefix.insert(r["hashes"][:nfull], r["seq"].pages[:nfull])
                 first_logits[r["row"]] = logits[i]
 
@@ -858,8 +993,16 @@ class PagedBackend(_Backend):
             params, cfg, tok, caches, lengths, page_table=table)[0]
 
     def _scratch_state(self) -> Callable[[], None]:
-        """A warm-up tick writes only the null page: nothing to restore."""
-        return lambda: None
+        """A warm-up tick writes only the null page: save its codes and, for
+        a quantized pool, its scale entries (which the frozen rows' appends
+        move), so the first replay sees the state the eager path would."""
+        saved = [(t, t[:, NULL_PAGE].clone()) for pool in self.caches for t in pool.values()]
+
+        def restore():
+            for t, copy in saved:
+                t[:, NULL_PAGE].copy_(copy)
+
+        return restore
 
     def row_req(self, row: int):
         return self.seqs[row].req
@@ -896,6 +1039,8 @@ class PagedBackend(_Backend):
             if self.seqs[row] is not None:
                 self.release(row)
         self.prefix.drain()
+        if self.host is not None:
+            self.host.drain()
         self._pending_pages.clear()
         self._drop_programs()
         self.pool.check_leaks()
@@ -903,3 +1048,18 @@ class PagedBackend(_Backend):
     def prefix_hit_rate(self) -> float:
         total = self.stats["prompt_pages"]
         return self.stats["pages_reused"] / total if total else 0.0
+
+    def prefix_stats(self) -> Dict[str, object]:
+        """The sharing and tier counters, the pool's storage format and its
+        device bytes, and what the host tier holds."""
+        host = self.host
+        return {
+            "prefix_entries": float(len(self.prefix)),
+            "prefix_hit_rate": self.prefix_hit_rate(),
+            **{k: float(v) for k, v in self.stats.items()},
+            "free_pages": float(self.pool.free_pages),
+            "kv_dtype": self.kv_dtype,
+            "kv_pool_bytes": float(self.kv_pool_bytes()),
+            "host_entries": float(len(host)) if host is not None else 0.0,
+            "host_bytes_resident": float(host.bytes_resident) if host is not None else 0.0,
+        }

@@ -17,10 +17,13 @@ Queue C).
 ``kv_layout="auto"`` (the default, as in the JAX package) serves models the
 paged pool cannot hold (SSM and hybrid stacks) from dense stripes, and
 ranks dense against paged for the rest with ``plan.resolve_kv_layout``.
-Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item, never accepted and
-ignored: ``kv_dtype`` other than ``"fp32"`` (the unquantized pool in the
-compute dtype), ``host_pool_bytes``, ``mesh`` and ``telemetry``.
+``kv_dtype`` "int8" / "fp8" (quantized pages; "fp32" is the unquantized
+pool in the compute dtype) and ``host_pool_bytes`` (a host KV tier) are
+paged features: with ``kv_layout="auto"`` they resolve to paged, with
+"dense" they raise ``ValueError``, as in the JAX package. Options of the
+JAX engine that the port does not have yet raise ``NotImplementedError``
+naming the ROADMAP item, never accepted and ignored: ``mesh`` and
+``telemetry``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.cache import quant
 from repro_torch.cache.pool import OutOfPages
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as device_lib
@@ -75,7 +79,9 @@ class LLMEngine:
     ``num_pages`` x ``page_size`` pool with ``max_pages_per_seq`` (default
     ``cache_len // page_size``, clamped to the pool) for paged.
     ``prompt_buckets=None`` picks per-layout defaults. ``steps_per_sync``:
-    decode ticks per host sync, an int >= 1 or ``"auto"``."""
+    decode ticks per host sync, an int >= 1 or ``"auto"``. ``kv_dtype``
+    ("fp32", "int8", "fp8") and ``host_pool_bytes`` (0 / None: no host
+    tier) configure the paged pool."""
 
     def __init__(
         self,
@@ -104,10 +110,13 @@ class LLMEngine:
     ):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
-        if kv_dtype != "fp32":
-            raise _not_ported(f"kv_dtype={kv_dtype!r}", "quantized and tiered KV")
-        if host_pool_bytes:
-            raise _not_ported("host_pool_bytes", "quantized and tiered KV")
+        quant.validate_kv_dtype(kv_dtype)
+        # Quantized pools and the host tier are paged features: force the
+        # layout rather than drop the options where "auto" would pick dense.
+        if kv_dtype != "fp32" or host_pool_bytes:
+            if kv_layout == "dense":
+                raise ValueError("kv_dtype / host_pool_bytes require the paged KV layout")
+            kv_layout = "paged"
         if mesh is not None:
             raise _not_ported("mesh", "distributed")
         # "auto": the scheduler re-picks N before every admission round from
@@ -149,7 +158,8 @@ class LLMEngine:
                                    or max(1, min(cache_len // page_size, num_pages - 1))),
                 prompt_buckets=prompt_buckets or (32, 64, 128),
                 prefix_sharing=prefix_sharing, reserve_pages=reserve_pages,
-                batch_prefills=batch_prefills,
+                batch_prefills=batch_prefills, kv_dtype=kv_dtype,
+                host_pool_bytes=host_pool_bytes,
             )
         self.backend.steps_per_sync = steps_per_sync
         self.scheduler = scheduler or Scheduler()
@@ -256,6 +266,7 @@ class LLMEngine:
 
     def stats(self) -> SchedulerStats:
         b = self.backend
+        pool = b.prefix_stats()
         return SchedulerStats(
             kv_layout=b.kv_layout, running=b.num_active,
             waiting=self.scheduler.num_waiting, completed=len(self._completed),
@@ -268,7 +279,10 @@ class LLMEngine:
             preemptions=b.stats["preemptions"], resumed_tokens=b.stats["resumed_tokens"],
             prefill_launches=b.stats["prefill_launches"],
             batched_prefills=b.stats["batched_prefills"],
-            steps_per_sync=self.steps_per_sync,
+            steps_per_sync=self.steps_per_sync, kv_dtype=str(pool["kv_dtype"]),
+            demoted_pages=int(pool.get("demoted_pages", 0)),
+            promoted_pages=int(pool.get("promoted_pages", 0)),
+            host_bytes_resident=int(pool.get("host_bytes_resident", 0)),
         )
 
     # -- internals ---------------------------------------------------------

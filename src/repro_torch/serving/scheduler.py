@@ -60,18 +60,27 @@ class SchedulerStats:
     prefill_launches: int = 0
     batched_prefills: int = 0
     steps_per_sync: int = 1
+    kv_dtype: str = "fp32"         # pool storage (fp32 = the compute dtype, int8, fp8)
+    demoted_pages: int = 0         # pages demoted device -> host tier
+    promoted_pages: int = 0        # pages promoted host tier -> device
+    host_bytes_resident: int = 0   # host-tier bytes held now
 
     def summary(self) -> str:
         hit = "n/a" if self.prefix_hit_rate is None else f"{self.prefix_hit_rate:.2f}"
+        dtype = f" {self.kv_dtype}" if self.kv_dtype != "fp32" else ""
+        tier = ""
+        if self.demoted_pages or self.promoted_pages:
+            tier = (f" | tier {self.demoted_pages} demoted / {self.promoted_pages} promoted "
+                    f"({self.host_bytes_resident} host bytes)")
         return (
-            f"[{self.kv_layout}] {self.completed} done / {self.running} running / "
+            f"[{self.kv_layout}{dtype}] {self.completed} done / {self.running} running / "
             f"{self.waiting} waiting | {self.tokens_generated} tokens in "
             f"{self.elapsed_s:.2f}s ({self.tokens_per_s:.1f} tok/s wall, decode "
             f"{self.decode_tok_s:.1f} tok/s) | prefix hit {hit} | "
             f"occupancy {self.page_occupancy:.2f} | {self.preemptions} preemptions "
             f"({self.resumed_tokens} tokens resumed) | {self.prefill_launches} "
             f"prefill launches ({self.batched_prefills} batched) | "
-            f"{self.steps_per_sync} steps per sync"
+            f"{self.steps_per_sync} steps per sync{tier}"
         )
 
 

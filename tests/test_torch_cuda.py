@@ -16,8 +16,10 @@ the row's max; a row of ref that is all zero must be exactly zero), and
 lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
 cores and is held at 2e-5. K2, K3/K4 and K7/K8 likewise: bf16 on the
-tensor cores (P rounded to bf16), float32 on the CUDA cores.
-K9 (float32 in and out, its products on the tensor cores in 3xTF32, about
+tensor cores (P rounded to bf16), float32 on the CUDA cores. Over int8 and
+fp8 pools (codes and per-page scales) K2, K3 and K4 run their quantized
+entries on the CUDA cores, q in float32 or bf16, held at the bar of q's
+dtype. K9 (float32 in and out, its products on the tensor cores in 3xTF32, about
 22 bits each) is held per (b, chunk, head) slice: max |y - ref| within 1e-5
 of the slice's max |ref| (sums of at most q + N terms taken in another
 order; a dropped key tile moves y by a large fraction of its max, a single
@@ -690,9 +692,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pd.paged_flash_decode(q.half(), kp.half(), vp.half(), table, lengths)
     with pytest.raises(ValueError):                       # lengths on the CPU
         pd.paged_flash_decode(q, kp, vp, table, lengths.cpu())
-    with pytest.raises(NotImplementedError):              # quantized pools
-        pd.paged_flash_decode(q, kp, vp, table, lengths, k_scales=torch.ones(2, 101),
-                              v_scales=torch.ones(2, 101))
+    with pytest.raises(ValueError, match="together"):      # one scale table alone
+        pd.paged_flash_decode(q, kp, vp, table, lengths, k_scales=torch.ones(2, 101,
+                                                                             device=cuda))
     # bf16 pages of 4 rows: the tensor-core stages need multiples of 8. It
     # raises; it does not go to the CUDA-core kernel.
     q4, kp4, vp4, table4, lengths4 = _decode_inputs(rng, cuda, torch.bfloat16, 8, 2, ps=4)
@@ -1155,14 +1157,33 @@ def test_fused_graph_engine_matches_the_plain_engine_in_bf16(cuda, layout):
     path's max |logit|, and its tokens so far are the plain path's; a row
     whose ids part is followed no further, and may part only where the
     plain logits' margin is within twice the row's error."""
+    _lockstep_against_plain(cuda, _GRAPH_KW[layout])
+
+
+def test_fused_graph_engine_matches_the_plain_engine_int8(cuda):
+    """The same lockstep over an int8 pool: the graph engine's decode runs
+    the quantized K3 (K2q on the extend waves), the plain engine the plain
+    versions over the same codes and scales; frozen rows append to the
+    null page in both."""
+    counts = _lockstep_against_plain(cuda, dict(_GRAPH_KW["paged"], kv_dtype="int8"))
+    assert counts["paged_flash_decode_q"] + counts["paged_flash_decode_split_q"] > 0
+    assert counts["paged_flash_decode"] + counts["paged_flash_decode_split"] == 0
+
+
+def _lockstep_against_plain(cuda, engine_kw):
+    """The body of the lockstep tests on an engine of ``engine_kw``;
+    returns the launch counts of the run."""
     cfg = _graph_cfg()
     params = transformer.init_model(cfg, seed=0, device=cuda)
+    layout = engine_kw["kv_layout"]
+    kernels.reset_launch_counts()
     prompts = [np.random.default_rng(54).integers(1, cfg.vocab, size=(n,))
                for n in (9, 21, 40)]
     engines, first = {}, {}
     for impl in ("auto", "plain"):
         eng = LLMEngine(dataclasses.replace(cfg, attn_impl=impl), params, steps_per_sync=1,
-                        device=cuda, **_GRAPH_KW[layout])
+                        device=cuda, **engine_kw)
+        assert eng.kv_layout == layout
         b, kept = eng.backend, first.setdefault(impl, {})
 
         def recording(records, b=b, flush=b.flush, kept=kept):
@@ -1208,6 +1229,7 @@ def test_fused_graph_engine_matches_the_plain_engine_in_bf16(cuda, layout):
                for p in e.backend._programs.values())
     for eng in engines.values():
         eng.close()
+    return kernels.launch_counts()
 
 
 def test_fused_graph_captures_flat_and_replays_count_launches(cuda):
@@ -1283,3 +1305,122 @@ def test_a_failed_capture_raises_with_no_eager_fallback(cuda, tmp_path):
                          env=dict(os.environ, PYTHONPATH=str(root / "src")))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["raised", "1", "0"], out.stdout
+
+
+# -- K2 / K3 / K4 over quantized pools -------------------------------------------
+
+CODES = ["int8", "fp8"]
+
+
+def _quantized(rng, dev, hkv, num_pages, ps, d, kv_dtype):
+    """A quantized K and V pool made on the card from normal values, and
+    the null page (0) overwritten as rows frozen on it leave it: codes
+    that are NaN bits in e4m3 (0x7F) or extreme in int8, and NaN scales."""
+    from repro_torch.cache import quant
+
+    pools = []
+    for _ in range(2):
+        codes, scales = quant.quantize_pages(
+            _randn(rng, (hkv, num_pages, ps, d), dev), kv_dtype)
+        codes.view(torch.uint8)[:, 0] = 0x7F
+        scales[:, 0] = float("nan")
+        pools += [codes, scales]
+    return pools
+
+
+def _serve_decode_inputs(rng, dev, dt, kv_dtype, mp=36, lengths=(560, 0, 300, 17, 576, 1,
+                                                                      560, 560)):
+    """llama3-8b's decode at the serve run's shape (8 rows, 36-page table,
+    pages of 16): scattered tables padded with the null page, a length-0
+    row, and rows 6 and 7 frozen on the null page (table all 0, length
+    kept, as the fused decode leaves a finished row)."""
+    b, hq, hkv, d, ps = len(lengths), 32, 8, 128, 16
+    num_pages = 1 + b * mp
+    kc, ks, vc, vs = _quantized(rng, dev, hkv, num_pages, ps, d, kv_dtype)
+    table = np.zeros((b, mp), np.int32)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    for i, n in enumerate(lengths):
+        if i < 6:
+            live = -(-n // ps)
+            table[i, :live] = [free.pop() for _ in range(live)]
+    q = _randn(rng, (b, hq, d), dev, dt)
+    return (q, kc, vc, torch.from_numpy(table).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev)), dict(k_scales=ks,
+                                                                         v_scales=vs)
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("num_splits", [1, 2, 4])
+def test_quantized_paged_decode_matches_plain(cuda, kv_dtype, dtype, num_splits):
+    """K3q / K4q at the serve shape over the full table: live rows within
+    the bar of q's dtype, the length-0 row exactly zero, and the garbage on
+    the null page (NaN codes and scales) in no live row."""
+    dt = DTYPES[dtype]
+    args, scales = _serve_decode_inputs(np.random.default_rng(80 + num_splits), cuda, dt,
+                                        kv_dtype)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(*args, num_splits=num_splits, **scales)
+    counts = kernels.launch_counts()
+    o_ref = pd.paged_flash_decode_plain(*args, num_splits=num_splits, **scales)
+    torch.cuda.synchronize()
+    key = "paged_flash_decode_q" if num_splits == 1 else "paged_flash_decode_split_q"
+    assert counts[key] == 1 and sum(counts.values()) == 1
+    live = [0, 2, 3, 4, 5]
+    assert torch.isfinite(o[live].float()).all()
+    assert _close(o[live], o_ref[live])
+    assert float(o[1].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("window,softcap", [(None, None), (50, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_quantized_paged_prefill_matches_plain(cuda, kv_dtype, dtype, window, softcap):
+    """K2q: quantized prefix pages through a table padded with the garbage
+    null page, a fresh tail in q's dtype; rows past tail_len exactly zero."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(90)
+    q, _, _, table, kt, vt, plen, tlen = _prefill_inputs(rng, cuda, dt, 32, 8)
+    kc, ks, vc, vs = _quantized(rng, cuda, 8, 24, 16, 128, kv_dtype)
+    table = torch.cat([table, torch.zeros_like(table[:, :3])], dim=1)   # null-page padding
+    args = (q, kc, vc, table, kt, vt, plen, tlen)
+    kw = dict(window=window, softcap=softcap, k_scales=ks, v_scales=vs)
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, **kw)
+    assert kernels.launch_counts()["paged_flash_prefill_q"] == 1
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    assert _close(o, o_ref)
+    assert float(o[1, :, 41:].float().abs().max()) == 0.0
+
+
+def test_closed_graph_engines_hold_no_device_memory(cuda):
+    """Engines that capture decode graphs all capture on one stream per
+    card, so closing them returns what they took. One engine is built,
+    stepped and closed first, so the default and capture streams' cuBLAS
+    workspaces exist before the start is read, whatever ran before; then
+    more than the stream pool's 32 of them, each built, stepped and
+    closed, leave memory_allocated() within one cuBLAS workspace (32 MiB)
+    of that start."""
+    import gc
+
+    cfg = _graph_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+
+    def build_step_close(seed):
+        eng = LLMEngine(cfg, params, steps_per_sync=2, device=cuda, **_GRAPH_KW["paged"])
+        eng.generate(_graph_requests(cfg, seed=seed, max_tokens=3)[:1])
+        assert eng.backend.stats["decode_traces"] >= 1
+        eng.close()
+
+    build_step_close(59)
+    gc.collect()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    for i in range(34):
+        build_step_close(60 + i)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - start <= 32 << 20

@@ -105,12 +105,19 @@ def test_stop_tokens_and_streaming_match_jax(models):
 
 
 def test_unported_options_raise(models):
+    """``mesh`` and ``telemetry`` are not ported and raise; ``kv_dtype`` and
+    ``host_pool_bytes`` are, and build a paged engine."""
     _, params = models
     cfg = llama3_8b.SMOKE
-    for kw in (dict(kv_dtype="int8"),
-               dict(host_pool_bytes=1 << 20), dict(mesh=2), dict(telemetry=object())):
+    for kw in (dict(mesh=2), dict(telemetry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LLMEngine(cfg, params, device="cpu", **kw)
+    for kw in (dict(kv_dtype="int8"), dict(host_pool_bytes=1 << 20)):
+        eng = LLMEngine(cfg, params, device="cpu", **kw)
+        assert eng.kv_layout == "paged"
+        assert eng.stats().kv_dtype == kw.get("kv_dtype", "fp32")
+        assert (eng.backend.host is not None) == ("host_pool_bytes" in kw)
+        eng.close()
 
 
 def test_engine_rejects_and_releases(models):

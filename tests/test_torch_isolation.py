@@ -114,8 +114,19 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [["--kv-dtype", "int8"], ["--mesh", "2"],
                                    ["--host-pool-bytes", "4096"]])
-def test_serve_launcher_rejects_unported_options(flags):
+def test_serve_launcher_rejects_unported_options(flags, capsys):
+    """``--mesh`` is not ported and raises; ``--kv-dtype`` and
+    ``--host-pool-bytes`` are, and serve on the CPU."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu", *flags])
+    argv = ["--arch", "llama3-8b", "--smoke", "--device", "cpu", *flags]
+    if flags[0] == "--mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.main(argv)
+        return
+    serve.main(argv + ["--requests", "3", "--slots", "2", "--max-new-tokens", "4",
+                       "--prompt-len", "32", "--shared-prefix", "16"])
+    out = capsys.readouterr().out
+    assert "kv_layout=paged device=cpu" in out
+    assert out.count("finish=length") == 3 and "3 done" in out
+    assert ("[paged int8]" in out) == (flags[0] == "--kv-dtype")

@@ -284,10 +284,11 @@ def test_paged_decode_bf16_matches_jax():
 
 
 def test_paged_decode_rejects_quantized_pools():
+    """A quantized pool needs both scale tables: one alone raises."""
     rng = np.random.default_rng(31)
     _, targs = zip(*(_pair(a) for a in _paged_decode_inputs(rng, 4, 2)))
-    with pytest.raises(NotImplementedError):
-        paged_flash_decode(*targs, k_scales=torch.ones(2, 25), v_scales=torch.ones(2, 25))
+    with pytest.raises(ValueError, match="together"):
+        paged_flash_decode(*targs, k_scales=torch.ones(2, 25))
 
 
 # -- decode_common pieces ------------------------------------------------------
