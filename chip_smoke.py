@@ -32,11 +32,14 @@ and prints no result. Phases, in order (any failure exits non-zero):
      yardstick; K3 / K4 in float32 (the CUDA-core kernels) at B 8, lengths
      up to 4096, 1 and 4 splits, held at 2e-5 and timed. Then K3q / K4q and
      K2q, the same kernels over int8 and fp8 pools (codes and per-page
-     scales, dequantized where they are staged, on the CUDA cores), at those
-     shapes and the serve run's decode shape with rows frozen on a null page
-     of NaN scales: bf16 q against the plain version per row, float32 q at
-     2e-5, against the unquantized bf16 kernel within the JAX suite's
-     budget (int8 0.03, fp8 0.12). Then the split-K
+     scales; K3q / K4q of bf16 q on the tensor cores, the codes widened to
+     bf16 and the scales folded into S and P, everything else on the CUDA
+     cores), at those shapes, the serve run (a)'s decode shape with rows
+     frozen on a null page of NaN scales and run (b)'s at 1, 2, 4 and 8
+     splits: bf16 q against the plain version per row, float32 q at 2e-5,
+     against the unquantized bf16 kernel within the JAX suite's budget
+     (int8 0.03, fp8 0.12), ten reruns bitwise equal, each timed beside the
+     CUDA-core walk it replaced. Then the split-K
      estimator's modelled
      decode times beside the measured ones, and the fixed cost per call of
      the split path over the one-pass path; then K5
@@ -69,7 +72,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
      prefill logits and its decode tick's logits from the graph, and the
      greedy ids (``compare_sync``). Then (a) and (b) again over int8 and
      over fp8 pools (K2q on (a)'s extend wave, K3q and K4q in the decode
-     graphs, every launch counted, none on an unquantized paged kernel),
+     graphs, every launch counted, every K3q / K4q launch on the tensor
+     cores, none on an unquantized paged kernel),
      each held to the plain path on the same format by ``compare_sync``, its
      logits against the bf16 pool's printed, and the pool's bytes; then the
      host tier: a 48-page pool with 1 GiB of host memory behind it, a
@@ -213,15 +217,15 @@ KERNELS = {
                 source="src/repro_torch/csrc/paged_prefill.cu",
                 replaces="src/repro/kernels/paged_prefill_attention.py:277",
                 counter="paged_flash_prefill_q"),
-    "K3q": dict(name="K3q paged_flash_decode, quantized pool (int8 codes, bf16 q, CUDA cores)",
+    "K3q": dict(name="K3q paged_flash_decode, quantized pool (int8 codes, bf16 q, tensor cores)",
                 source="src/repro_torch/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/paged_decode_attention.py:262",
-                counter="paged_flash_decode_q"),
+                counter="paged_flash_decode_q_tc"),
     "K4q": dict(name="K4q paged_flash_decode_split+combine, quantized pool (int8 codes, bf16 q, "
-                     "CUDA cores)",
+                     "tensor cores)",
                 source="src/repro_torch/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/paged_decode_attention.py:323",
-                counter="paged_flash_decode_split_q"),
+                counter="paged_flash_decode_split_q_tc"),
 }
 #: Quantized pools against the unquantized kernel, max |o_q - o|: the JAX
 #: suite's budget per format (tests/test_tiering.py QTOL), which averages
@@ -726,32 +730,40 @@ def check_paged_decode(torch, timer, results, gen):
 
 
 def check_quantized(torch, timer, results, gen):
-    """K3q / K4q (paged decode over int8 and fp8 pools, one pass and split-K)
-    and K2q (paged prefill over a quantized prefix), the CUDA-core kernels
-    that dequantize each code by its page's scale where they stage it. Each
-    pool is made from float32 normal values; its null page (0) is then
-    overwritten as rows frozen on it leave it: NaN scales, and codes that
-    are NaN bits in e4m3 (0x7F). Tables pad with the null page past each
-    row's live pages. Decode: B 8 with lengths up to 4096 and a length-0 row
-    (one pass and 4 splits; the JSON line takes int8 here), then the serve
-    run's decode shape, 8 rows of 560 tokens on 36-page tables, 2 of them
-    frozen on the null page (one pass and 2 splits). Prefill: B 2, prefix
-    1000 (a 64-page table, the last null), tail 256, the second row live to
-    219. Bars: bf16 q against the plain version per live row within
-    ROW_TOL, float32 q within F32_TOL, each against the unquantized bf16
-    kernel on the same values within QTOL (an fp8 row of fewer keys than a
-    page within QTOL plus the largest error of its own dequantized V codes
-    against the bf16 values); live rows finite, length-0 rows
-    and rows past tail_len exactly zero; every launch on the quantized
-    entry. Times: CUDA-event medians, primed, L2 flushed. Bound: codes at 1
-    B for each live position, the scales of the live pages, q, the tail,
-    out and the table over 3.35 TB/s, against the operations over the peak
-    of q's type: int8 and e4m3 codes are exact in bf16 and the scale factors
-    out of each product, so the same work could run at the bf16 peak."""
+    """K3q / K4q (paged decode of bf16 q over int8 and fp8 pools, one pass
+    and split-K, on the tensor cores: the codes widened to bf16 in shared
+    memory, the page scales folded into S's and P's columns) and K2q (paged
+    prefill over a quantized prefix, on the CUDA cores). Each pool is made
+    from float32 normal values; its null page (0) is then overwritten as
+    rows frozen on it leave it: NaN scales, and codes that are NaN bits in
+    e4m3 (0x7F). Tables pad with the null page past each row's live pages.
+    Decode: B 8 with lengths up to 4096 and a length-0 row (one pass and 4
+    splits; the JSON line takes int8 here), then the serve run (a)'s decode
+    shape, 8 rows of 560 tokens on 36-page tables, 2 of them frozen on the
+    null page (one pass and 2 splits), then run (b)'s, one row of 4096
+    tokens on a 260-page table at 1, 2, 4 and 8 splits beside the split
+    estimator's choice for the format. Prefill: B 2, prefix 1000 (a
+    64-page table, the last null), tail 256, the second row live to 219.
+    Bars: bf16 q against the plain version per live row within ROW_TOL,
+    float32 q (the CUDA-core kernels) within F32_TOL, each against the
+    unquantized bf16 kernel on the same values within QTOL (an fp8 row of
+    fewer keys than a page within QTOL plus the largest error of its own
+    dequantized V codes against the bf16 values); live rows finite,
+    length-0 rows and rows past tail_len exactly zero; every launch on its
+    entry (bf16 q's decode on the tensor cores); ten reruns of each decode
+    case bitwise equal, the frozen rows' NaNs too. Times: CUDA-event
+    medians, primed, L2 flushed; each decode case's tensor-core kernel and
+    the CUDA-core walk it replaced (``paged_flash_decode_q_cuda_cores``) in
+    turns, new, old, old, new. Bound: codes at 1 B for each live position,
+    the scales of the live pages, q, the tail, out and the table over 3.35
+    TB/s, against the operations over the peak of q's type: int8 and e4m3
+    codes are exact in bf16 and the scale factors out of each product, so
+    the same work runs at the bf16 peak."""
     from repro_torch import kernels
     from repro_torch.cache import quant
     from repro_torch.kernels import paged_decode_attention as pd
     from repro_torch.kernels import paged_prefill_attention as pp
+    from repro_torch.kernels import plan
 
     def pools(num_pages, kv_dtype):
         """(float32 values, codes, scales) for K and for V."""
@@ -775,8 +787,8 @@ def check_quantized(torch, timer, results, gen):
                 table[i, :live] = torch.tensor(perm[i * mp: i * mp + live])
         return table.cuda()
 
-    def only(counts, key):
-        return counts[key] == 1 and sum(counts.values()) == 1
+    def only(counts, *keys):
+        return {k: n for k, n in counts.items() if n} == {k: 1 for k in keys}
 
     def check(label, ok_rows, e_r, e32, o, o_bf, bars):
         """``bars`` (rows,): each row's bar against the unquantized kernel."""
@@ -808,8 +820,10 @@ def check_quantized(torch, timer, results, gen):
         for label, mp, lens, frozen, splits, timed in (
                 ("B 8, table 4096", 4096 // PS, [4096, 0, 3001, 17, 2048, 4000, 1, 1500], (),
                  (1, 4), True),
-                ("serve decode shape, B 8 x 560, table 36, rows 6-7 frozen on the null page",
-                 36, [560] * 8, (6, 7), (1, 2), False)):
+                ("serve decode shape (a), B 8 x 560, table 36, rows 6-7 frozen on the null "
+                 "page", 36, [560] * 8, (6, 7), (1, 2), False),
+                ("serve decode shape (b), B 1 x 4096, table 260", 260, [4096], (),
+                 (1, 2, 4, 8), False)):
             b = len(lens)
             (xk, kc, ks), (xv, vc, vs) = pools(1 + b * mp, kv_dtype)
             table = table_of(lens, mp, frozen)
@@ -822,37 +836,54 @@ def check_quantized(torch, timer, results, gen):
             qb = bound(2 * HKV * D * sum(lens[i] for i in live) + 2 * HKV * pages * 4
                        + nbytes(q, q, table, lengths), 4.0 * HQ * D * sum(lens),
                        PEAK_BF16_FLOPS)
+            if b == 1:
+                chosen = plan.plan_attention((b, HQ, HKV, 1, mp * PS, D), phase=plan.DECODE,
+                                             kv_layout=plan.PAGED, page_size=PS,
+                                             kv_dtype=kv_dtype).num_splits
+                log(f"K4q {kv_dtype} {label}: the split estimator picks {chosen} splits "
+                    "(codes priced at 1 B)")
             for ns in splits:
                 key = "K3q" if ns == 1 else "K4q"
                 kw = dict(num_splits=ns, k_scales=ks, v_scales=vs)
                 run = lambda: pd.paged_flash_decode(q, kc, vc, table, lengths, **kw)
+                old = lambda: pd.paged_flash_decode_q_cuda_cores(q, kc, vc, table, lengths,
+                                                                 **kw)
                 kernels.reset_launch_counts()
                 o = run()
-                routed = only(kernels.launch_counts(), KERNELS[key]["counter"])
+                counter = KERNELS[key]["counter"]
+                routed = only(kernels.launch_counts(), counter, counter[:-len("_tc")])
                 o_ref = pd.paged_flash_decode_plain(q, kc, vc, table, lengths, **kw)
+                o_old = old()
                 o32 = pd.paged_flash_decode(q.float(), kc, vc, table, lengths, **kw)
                 o32_ref = pd.paged_flash_decode_plain(q.float(), kc, vc, table, lengths, **kw)
                 o_bf = pd.paged_flash_decode(q, kb, vb, table, lengths, num_splits=ns)
+                bits = o.view(torch.int16)
+                same = all(torch.equal(run().view(torch.int16), bits) for _ in range(10))
                 torch.cuda.synchronize()
-                ok = (routed and bool(torch.isfinite(o[live].float()).all())
+                ok = (routed and same and bool(torch.isfinite(o[live].float()).all())
                       and all(float(o[i].float().abs().max()) == 0.0 for i in zero))
                 e_r, e = row_err(o[live], o_ref[live]), err(o[live], o_ref[live])
                 e32 = err(o32[live], o32_ref[live])
                 name = f"{key} {kv_dtype} {label} num_splits {ns}"
+                e_old = row_err(o_old[live], o_ref[live])
+                log(f"{name}: routed to {counter} {routed}, 10 reruns bitwise equal {same}, "
+                    f"the CUDA-core walk's row-relative error {e_old:.3e}")
                 check(name, ok, e_r, e32, o[live], o_bf[live],
                       decode_bars(lens, live, table, vc, vs, vb, kv_dtype))
-                ms = timer.ms(run, primed=True)
+                turns = [timer.ms(fn, primed=True) for fn in (run, old, old, run)]
+                ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
                 plain_ms = (timer.ms(lambda: pd.paged_flash_decode_plain(
                     q, kc, vc, table, lengths, **kw)) if timed else float("nan"))
                 bf_ms = timer.ms(lambda: pd.paged_flash_decode(q, kb, vb, table, lengths,
                                                                num_splits=ns), primed=True)
-                log(f"{name}: {ms:.4f} ms (queue primed), plain {plain_ms:.3f} ms, the bf16 "
-                    f"tensor-core kernel on bf16 pools {bf_ms:.4f} ms, bound {qb[0]:.5f} ms "
-                    f"({qb[1]})")
+                log(f"{name}: {ms:.4f} ms (queue primed; turns {turns[0]:.4f}, {turns[3]:.4f}), "
+                    f"the CUDA-core walk it replaced {old_ms:.4f} ms (turns {turns[1]:.4f}, "
+                    f"{turns[2]:.4f}), plain {plain_ms:.3f} ms, the bf16 tensor-core kernel on "
+                    f"bf16 pools {bf_ms:.4f} ms, bound {qb[0]:.5f} ms ({qb[1]})")
                 if timed and kv_dtype == "int8":
                     results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                                         bound_ms=qb[0], bound_by=qb[1], library_ms=None)
-            del xk, xv, kc, vc, ks, vs, kb, vb, q, o, o_ref, o32, o32_ref, o_bf
+            del xk, xv, kc, vc, ks, vs, kb, vb, q, o, o_ref, o_old, o32, o32_ref, o_bf
 
         # K2q: B 2, prefix 1000 on a 64-page table (the last entry null), tail 256.
         b, plen, st, tlens = 2, 1000, 256, [256, 219]
@@ -1384,7 +1415,8 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
     extend wave, then K3q in the decode graph; (b) K1 and K4q (2 splits over
     260 pages). The launch counts are set to 0 just before each format's
     two runs and read just after: K2q, K3q and K4q must each have launched,
-    and no decode or extend launch may have gone to an unquantized kernel.
+    every K3q / K4q launch on the tensor-core kernel, and no decode or
+    extend launch may have gone to an unquantized kernel.
     Then one sync of each run, kernel path against the plain path on the
     same format (``compare_sync``, LOGIT_TOL), and, informative only, each
     run's logits against the bf16 pool's (``bf16_logits``, from ``serve``):
@@ -1431,6 +1463,12 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
         for key in ("K2q", "K3q", "K4q"):
             if counts[KERNELS[key]["counter"]] <= 0:
                 raise AssertionError(f"{key} was not launched on the {kv_dtype} serve path")
+        decode_q = counts["paged_flash_decode_q"] + counts["paged_flash_decode_split_q"]
+        decode_q_tc = counts["paged_flash_decode_q_tc"] + counts["paged_flash_decode_split_q_tc"]
+        log(f"{kv_dtype} serve: K3q / K4q launches {decode_q}, on the tensor cores {decode_q_tc}")
+        if decode_q_tc != decode_q:
+            raise AssertionError(f"{kv_dtype} serve: {decode_q - decode_q_tc} K3q / K4q launches "
+                                 "missed the tensor-core kernel")
         unquantized = sum(counts[c] for c in ("paged_flash_prefill", "paged_flash_decode",
                                               "paged_flash_decode_split"))
         if unquantized:

@@ -1,8 +1,9 @@
-// The tensor-core decode consumer, shared by the bf16 decode kernels: K7/K8
-// (dense_decode.cu, a stripe's rows by one 4-D tensor-map box per column
-// chunk) and K3/K4 (paged_decode.cu, one 3-D box per page). Each kernel
-// keeps its own producer; the ring, the barriers and everything the
-// consumer warps do live here once.
+// The tensor-core decode consumer, shared by the decode kernels on the
+// tensor cores: K7/K8 (dense_decode.cu, a stripe's rows by one 4-D
+// tensor-map box per column chunk), K3/K4 (paged_decode.cu, one 3-D box per
+// page) and K3q/K4q (paged_decode.cu, one box of 1-byte codes per page).
+// Each kernel keeps its own producer; the rings, the barriers and
+// everything the consumer warps do live here once.
 //
 // A block of THREADS threads serves one (b, kv head[, split]) cell with the
 // whole GQA group inside, so each K/V byte is read once for all G heads. A
@@ -18,8 +19,26 @@
 // 0, so stale or repeated rows never count), then O += P V with P rounded
 // to bf16 as the A fragment and V by ldmatrix.trans. A warp releases a
 // stage by one mbarrier arrival after a proxy fence. The warps' states merge
-// once, through shared memory; one pass writes the normalised bf16 row, a
+// once, through shared memory; one pass writes the normalised row, a
 // split writes float32 (acc, m ln 2, l) for decode_common.cuh's combine.
+//
+// A quantized pool's ring (QRing) holds 1-byte int8 or e4m3 codes, one row
+// of D bytes per key, swizzled by TMA over the row (128 bytes at D 128, 64
+// at D 64), and each stage's page scales. The warp that takes a tile widens
+// its K codes into a bf16 tile of its own, in the layout above, computes S
+// from it, then widens the V codes into the same tile and releases the
+// stage before P V. Widening is exact for both codes (an int8 code or an
+// e4m3 value is a bf16 value), and positions outside [lo, hi) are written
+// as 0 by select: a frozen row's null page may hold e4m3 NaN bits, and
+// 0 * NaN is NaN in an mma. The scales are folded, never applied to a stage: S's column j is
+// multiplied by the K scale of its page before the softmax (before the
+// softcap), and P's column j by the V scale of its page, by select, in
+// float32; the row sum takes P unscaled. The scaled P goes to P V as two
+// bf16 A fragments, its rounding and the remainder, each multiplied by the
+// same widened V: one bf16 rounding of the scale alone (2^-9 of it) put a
+// one-key row, whose output is its V row, 2 bf16 ulps off the unquantized
+// kernel, and the second product costs less than scaling each page's P V
+// after its mma did.
 #pragma once
 
 #include "common.cuh"
@@ -48,58 +67,226 @@ struct Ring {
   static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
 };
 
+// A quantized pool's ring: STAGES stages of K and V codes (BT rows of D
+// bytes each), each stage's K and V scales by 8-key group (BT / 8 floats
+// each), one bf16 tile (BT x D, the Ring's layout) for each consumer warp,
+// then the full and empty mbarriers. Twice the stages of the bf16 ring in
+// the same bytes.
+template <int D>
+struct QRing {
+  static constexpr int STAGES = 2 * Ring<D>::STAGES;
+  static constexpr int TILE = BT * D;
+  static constexpr int OWN_TILE = BT * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = STAGES * TILE;
+  static constexpr int OWN = 2 * STAGES * TILE;
+  static constexpr int SCALES = OWN + 4 * OWN_TILE;   // [STAGES][K, V][BT / 8]
+  static constexpr int BAR = SCALES + STAGES * 2 * (BT / 8) * 4;
+  static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
+};
+
 __device__ __forceinline__ uint8_t* ring_base(uint8_t* smem_raw) {
   return smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
 }
 
-template <int D>
+// The full and empty mbarriers of ring R (Ring<D> or QRing<D>).
+template <class R>
 __device__ __forceinline__ uint64_t* full_bars(uint8_t* smem) {
-  return reinterpret_cast<uint64_t*>(smem + Ring<D>::BAR);
+  return reinterpret_cast<uint64_t*>(smem + R::BAR);
+}
+
+template <class R>
+__device__ __forceinline__ uint64_t* empty_bars(uint8_t* smem) {
+  return full_bars<R>(smem) + R::STAGES;
 }
 
 template <int D>
-__device__ __forceinline__ uint64_t* empty_bars(uint8_t* smem) {
-  return full_bars<D>(smem) + Ring<D>::STAGES;
+__device__ __forceinline__ float* q_scales(uint8_t* smem) {
+  return reinterpret_cast<float*>(smem + QRing<D>::SCALES);
 }
 
-// Thread 0 sets up the ring's barriers: a stage is full after the
-// producer's one expect-tx arrival and its bytes, empty after one arrival
-// of a warp of each of the MT m16 tiles. Every thread of the block calls
-// this (it ends in a block-wide barrier).
-template <int D, int MT>
-__device__ __forceinline__ void ring_init(uint8_t* smem) {
+// Thread 0 sets up `stages` full and empty barriers: a stage is full after
+// `arrivals` arrivals (each with its expect-tx) and their bytes, empty
+// after one arrival of a warp of each of the MT m16 tiles. Every thread of
+// the block calls this (it ends in a block-wide barrier).
+__device__ __forceinline__ void bars_init(uint64_t* full, uint64_t* empty, int stages,
+                                          int arrivals, int mt) {
   if (threadIdx.x == 0) {
-#pragma unroll
-    for (int st = 0; st < Ring<D>::STAGES; ++st) {
-      hopper::mbar_init(&full_bars<D>(smem)[st], 1);
-      hopper::mbar_init(&empty_bars<D>(smem)[st], MT);
+    for (int st = 0; st < stages; ++st) {
+      hopper::mbar_init(&full[st], arrivals);
+      hopper::mbar_init(&empty[st], mt);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 }
 
+// The bf16 ring's barriers: a stage is full after the producer's one
+// expect-tx arrival and its bytes.
+template <int D, int MT>
+__device__ __forceinline__ void ring_init(uint8_t* smem) {
+  bars_init(full_bars<Ring<D>>(smem), empty_bars<Ring<D>>(smem), Ring<D>::STAGES, 1, MT);
+}
+
+// Byte offset of 16-byte chunk m (codes 16 m .. 16 m + 15) of row `row` in
+// a tile of D-byte code rows written by TMA with the row's swizzle (128
+// bytes at D 128, 64 at D 64: the chunk index XOR address bits 7 and up).
+template <int D>
+__device__ __forceinline__ uint32_t code_offset(int row, int m) {
+  return (uint32_t)(row * D + ((m ^ ((row * D >> 7) & (D / 16 - 1))) << 4));
+}
+
+// d = a * b + c on bf16 pairs, rounded to nearest.
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Four int8 codes (byte i of w) as bf16 pairs, exactly: lo holds codes 0
+// and 1, hi codes 2 and 3 (the lower code in the lower half). A code b in
+// the low byte of a half under 0x43 is bf16 0x43bb; with b's sign bit
+// cleared that is 128 + (b & 0x7f), with only its sign bit kept 128 or 256
+// (b < 0), and their difference is b, exact in bf16.
+struct Int8Codes {
+  __device__ static __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+    const uint32_t a = __byte_perm(w, 0x43434343u, 0x4140);   // halves 0x43b0, 0x43b1
+    const uint32_t c = __byte_perm(w, 0x43434343u, 0x4342);   // halves 0x43b2, 0x43b3
+    constexpr uint32_t MINUS_ONE = 0xbf80bf80u;
+    lo = bf16x2_fma(a & 0xff80ff80u, MINUS_ONE, a & 0xff7fff7fu);
+    hi = bf16x2_fma(c & 0xff80ff80u, MINUS_ONE, c & 0xff7fff7fu);
+  }
+};
+
+// Four float8_e4m3fn codes as bf16 pairs, exactly. The code's sign to bit
+// 15 and its exponent and mantissa bits to bits 10..4 make the bf16 of the
+// code's value times 2^-120 (a subnormal code a subnormal bf16), and one
+// multiply by 2^120 (bf16 0x7b80; bf16 arithmetic keeps subnormals) gives
+// the value. The NaN code widens to a finite value: only masked positions
+// hold it, and they are written as zeros.
+struct E4m3Codes {
+  __device__ static __forceinline__ uint32_t widen2(uint32_t a) {   // halves b << 8
+    return bf16x2_fma(((a >> 4) & 0x07f007f0u) | (a & 0x80008000u), 0x7b807b80u,
+                      0x80008000u);
+  }
+  __device__ static __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+    lo = widen2(__byte_perm(w, 0u, 0x1404));   // halves b0 << 8, b1 << 8
+    hi = widen2(__byte_perm(w, 0u, 0x3424));
+  }
+};
+
+// One stage's code tile (BT rows of D bytes, TMA-swizzled) widened by one
+// warp into the bf16 tile `own` (the Ring's layout); rows whose position,
+// less lo, is not below `live` (rel0: the tile's first row's) are zeros.
+template <int D, class Code>
+__device__ __forceinline__ void widen_tile(const uint8_t* codes, uint8_t* own, int rel0,
+                                           unsigned live, int lane) {
+  constexpr int CH = D / 16;   // 16-byte code chunks a row
+#pragma unroll
+  for (int j = 0; j < BT * CH / 32; ++j) {
+    const int u = j * 32 + lane;
+    const int row = u / CH;
+    const int m = u - row * CH;
+    const uint4 c = *reinterpret_cast<const uint4*>(codes + code_offset<D>(row, m));
+    uint4 lo, hi;
+    Code::widen4(c.x, lo.x, lo.y);
+    Code::widen4(c.y, lo.z, lo.w);
+    Code::widen4(c.z, hi.x, hi.y);
+    Code::widen4(c.w, hi.z, hi.w);
+    if ((unsigned)(rel0 + row) >= live) lo = hi = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * m, BT)) = lo;
+    *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * m + 1, BT)) = hi;
+  }
+}
+
+// Where a consumer warp finds tile t's bf16 K and V. The ring's tiles are
+// read in place, and the stage is released after P V.
+template <int D>
+struct RingTiles {
+  static constexpr bool SCALED = false;
+  static constexpr int STAGES = Ring<D>::STAGES;
+  uint8_t* smem;
+
+  __device__ __forceinline__ uint64_t* full() const { return full_bars<Ring<D>>(smem); }
+  __device__ __forceinline__ uint32_t k_tile(int t, int, unsigned, int) {
+    return hopper::smem_u32(smem + Ring<D>::K + (t % STAGES) * Ring<D>::TILE);
+  }
+  __device__ __forceinline__ uint32_t v_tile(int t, int, unsigned, int) {
+    return hopper::smem_u32(smem + Ring<D>::V + (t % STAGES) * Ring<D>::TILE);
+  }
+  // The warp read the stage through the generic proxy (ldmatrix); the next
+  // TMA load writes it through the async proxy. Without this fence a
+  // release can let that write land under the reads (measured: 14 of 100
+  // runs wrong at three blocks an SM).
+  __device__ __forceinline__ void done(int t, int lane) {
+    hopper::fence_async_smem();
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty_bars<Ring<D>>(smem)[t % STAGES]);
+  }
+};
+
+// A quantized ring's tiles: the warp widens the K codes into its own bf16
+// tile, with the stage's scales into registers (ks / vs by n8 tile of
+// keys), then the V codes into the same tile, and releases the stage
+// before P V.
+template <int D, class Code>
+struct CodeTiles {
+  static constexpr bool SCALED = true;
+  static constexpr int STAGES = QRing<D>::STAGES;
+  uint8_t* smem;
+  uint8_t* own;
+  float ks[BT / 8], vs[BT / 8];
+
+  __device__ __forceinline__ uint64_t* full() const { return full_bars<QRing<D>>(smem); }
+  __device__ __forceinline__ uint32_t k_tile(int t, int rel0, unsigned live, int lane) {
+    const int st = t % STAGES;
+    const float* sc = q_scales<D>(smem) + st * 2 * (BT / 8);
+#pragma unroll
+    for (int n = 0; n < BT / 8; ++n) {
+      ks[n] = sc[n];
+      vs[n] = sc[BT / 8 + n];
+    }
+    widen_tile<D, Code>(smem + QRing<D>::K + st * QRing<D>::TILE, own, rel0, live, lane);
+    __syncwarp();
+    return hopper::smem_u32(own);
+  }
+  __device__ __forceinline__ uint32_t v_tile(int t, int rel0, unsigned live, int lane) {
+    const int st = t % STAGES;
+    __syncwarp();   // every lane's ldmatrix of the K tile is done
+    widen_tile<D, Code>(smem + QRing<D>::V + st * QRing<D>::TILE, own, rel0, live, lane);
+    hopper::fence_async_smem();   // as RingTiles::done: TMA rewrites the codes next
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty_bars<QRing<D>>(smem)[st]);
+    return hopper::smem_u32(own);
+  }
+  __device__ __forceinline__ void done(int, int) {}
+};
+
 // The consumer warps' whole part for the cell (s, h, b) = blockIdx: walk
 // `ntiles` tiles whose first key is at position `first`, keeping positions
 // in [lo, hi), then merge and write. MT m16 tiles of group rows
 // (G <= 16 * MT). SPLIT = false writes the normalised row to `out`;
-// SPLIT = true writes (acc, m, l) of split s (of gridDim.x).
-template <int D, int MT, bool SPLIT>
-__device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __restrict__ q,
-                                        __nv_bfloat16* __restrict__ out,
-                                        float* __restrict__ acc_out, float* __restrict__ m_out,
-                                        float* __restrict__ l_out, int Hkv, int G, int first,
-                                        int lo, int hi, int ntiles, float scale,
-                                        float softcap) {
+// SPLIT = true writes (acc, m, l) of split s (of gridDim.x). `tiles`
+// (RingTiles or CodeTiles) gives each tile's bf16 K and V in shared memory
+// and, when SCALED, the K and V scales of its 8-key groups; `smem` is the
+// ring's base, which holds the warps' states for the merge after the walk.
+template <int D, int MT, bool SPLIT, class Tiles>
+__device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
+                                              const __nv_bfloat16* __restrict__ q,
+                                              __nv_bfloat16* __restrict__ out,
+                                              float* __restrict__ acc_out,
+                                              float* __restrict__ m_out,
+                                              float* __restrict__ l_out, int Hkv, int G,
+                                              int first, int lo, int hi, int ntiles,
+                                              float scale, float softcap) {
   using namespace hopper;
-  using R = Ring<D>;
+  constexpr int STAGES = Tiles::STAGES;
   constexpr int KS = CONSUMER_WARPS / MT;   // warps per m16 tile, taking tiles in turn
   constexpr int ROWS = 16 * MT;             // group rows, padded
   // Each stage then feeds one warp of each m16 tile, which waits on every
   // phase of it in turn: a parity wait never meets a phase two ahead.
-  static_assert(R::STAGES % KS == 0, "a stage must belong to one warp per m16 tile");
-  uint64_t* full = full_bars<D>(smem);
-  uint64_t* empty = empty_bars<D>(smem);
+  static_assert(STAGES % KS == 0, "a stage must belong to one warp per m16 tile");
+  uint64_t* full = tiles.full();
   const int s = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -138,11 +325,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
   const unsigned live = (unsigned)(hi - lo);
 
   for (int t = ks; t < ntiles; t += KS) {
-    const int st = t % R::STAGES;
-    const uint32_t kbase = smem_u32(smem + R::K + st * R::TILE);
-    const uint32_t vbase = smem_u32(smem + R::V + st * R::TILE);
     const int rel0 = first + t * BT - lo;   // the tile's first key, from lo
-    mbar_wait(&full[st], (t / R::STAGES) & 1);
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    const uint32_t kbase = tiles.k_tile(t, rel0, live, lane);
 
     // S = q K^T: n8 tile n holds keys lo + rel0 + 8 n ...; one ldmatrix.x4
     // gives the B fragments of two n8 tiles at one k16 step.
@@ -169,8 +354,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
     for (int n = 0; n < BT / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float x = softcap > 0.f ? softcap * tanhf(sc[n][i] * scale / softcap) * LOG2E
-                                : sc[n][i] * scale2;
+        float y = sc[n][i];
+        if constexpr (Tiles::SCALED) y *= tiles.ks[n];
+        float x = softcap > 0.f ? softcap * tanhf(y * scale / softcap) * LOG2E : y * scale2;
         x = (unsigned)(rel0 + 8 * n + c2 + (i & 1)) < live ? x : NEG_INF_F;
         sc[n][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
@@ -186,25 +372,39 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
     }
 
     // P in bf16 as the A fragments of P V: k16 step kk is n8 tiles 2 kk and
-    // 2 kk + 1 of S. The row sum takes P unrounded.
+    // 2 kk + 1 of S. The row sum takes P unrounded. SCALED: P times the V
+    // scales (0 where masked, by select), whose bf16 remainder goes to pl.
     uint32_t pa[BT / 16][4];
+    [[maybe_unused]] uint32_t pl[BT / 16][4];
     float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk) {
       float e[2][4];
+      [[maybe_unused]] float r[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float x = sc[2 * kk + u][i];
           const float pv = x == NEG_INF_F ? 0.f : fast_exp2(x - m[i >> 1]);
-          e[u][i] = pv;
           sum[i >> 1] += pv;
+          if constexpr (Tiles::SCALED) {
+            e[u][i] = x == NEG_INF_F ? 0.f : pv * tiles.vs[2 * kk + u];
+            r[u][i] = e[u][i] - __bfloat162float(__float2bfloat16(e[u][i]));
+          } else {
+            e[u][i] = pv;
+          }
         }
       pa[kk][0] = pack_bf16(e[0][0], e[0][1]);
       pa[kk][1] = pack_bf16(e[0][2], e[0][3]);
       pa[kk][2] = pack_bf16(e[1][0], e[1][1]);
       pa[kk][3] = pack_bf16(e[1][2], e[1][3]);
+      if constexpr (Tiles::SCALED) {
+        pl[kk][0] = pack_bf16(r[0][0], r[0][1]);
+        pl[kk][1] = pack_bf16(r[0][2], r[0][3]);
+        pl[kk][2] = pack_bf16(r[1][0], r[1][1]);
+        pl[kk][3] = pack_bf16(r[1][2], r[1][3]);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
@@ -215,6 +415,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
 
     // O += P V: one ldmatrix.x4.trans gives the B fragments of two n8
     // column tiles (16 columns) over 16 keys.
+    const uint32_t vbase = tiles.v_tile(t, rel0, live, lane);
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk)
 #pragma unroll
@@ -224,14 +425,12 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
         ldmatrix_x4_trans(vb, vbase + sw128_offset(row, 2 * dp + (lane >> 4), BT));
         mma_bf16_16816(o[2 * dp], pa[kk], vb[0], vb[1]);
         mma_bf16_16816(o[2 * dp + 1], pa[kk], vb[2], vb[3]);
+        if constexpr (Tiles::SCALED) {
+          mma_bf16_16816(o[2 * dp], pl[kk], vb[0], vb[1]);
+          mma_bf16_16816(o[2 * dp + 1], pl[kk], vb[2], vb[3]);
+        }
       }
-    // The warp read the stage through the generic proxy (ldmatrix); the
-    // next TMA load writes it through the async proxy. Without this fence a
-    // release can let that write land under the reads (measured: 14 of 100
-    // runs wrong at three blocks an SM).
-    fence_async_smem();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
+    tiles.done(t, lane);
   }
 
   // Merge the KS warps' states of each group row through shared memory (the
@@ -284,6 +483,19 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
           __float2bfloat16(a_star / (l_star == 0.f ? 1.f : l_star));
     }
   }
+}
+
+// The consumer over the bf16 ring (K7/K8, K3/K4).
+template <int D, int MT, bool SPLIT>
+__device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __restrict__ q,
+                                        __nv_bfloat16* __restrict__ out,
+                                        float* __restrict__ acc_out, float* __restrict__ m_out,
+                                        float* __restrict__ l_out, int Hkv, int G, int first,
+                                        int lo, int hi, int ntiles, float scale,
+                                        float softcap) {
+  RingTiles<D> tiles{smem};
+  consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G, first, lo,
+                              hi, ntiles, scale, softcap);
 }
 
 }  // namespace dtc

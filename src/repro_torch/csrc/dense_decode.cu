@@ -236,8 +236,8 @@ dense_decode_tc_kernel(const __grid_constant__ CUtensorMap tk,
   if (threadIdx.x >> 5 == CONSUMER_WARPS) {
     // Producer: one thread keeps the ring full.
     if ((threadIdx.x & 31) == 0) {
-      uint64_t* full = dtc::full_bars<D>(smem);
-      uint64_t* empty = dtc::empty_bars<D>(smem);
+      uint64_t* full = dtc::full_bars<R>(smem);
+      uint64_t* empty = dtc::empty_bars<R>(smem);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % R::STAGES;
         mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: TMA tensor
-// maps (contiguous, and strided views), tile loads and stores, mbarriers and
-// named barriers, wgmma shared-memory descriptors and instructions, the
-// warp-level mma.sync with ldmatrix from swizzled tiles, and register
-// reallocation between warpgroups.
+// maps (contiguous bf16 or 1-byte codes, and strided views), tile loads
+// and stores, mbarriers and named barriers, wgmma shared-memory
+// descriptors and instructions, the warp-level mma.sync with ldmatrix from
+// swizzled tiles, and register reallocation between warpgroups.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzling: a tile of
 // R rows by C bf16 columns is stored as C / 64 column chunks of R rows of
@@ -62,6 +62,26 @@ inline int make_map_3d(CUtensorMap* map, const void* base, int cols, int rows, i
                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
+}
+
+// A contiguous tensor of 1-byte elements (planes, rows, cols), cols 64 or
+// 128, as a 3-D map whose box is a whole row of `cols` bytes by box_rows
+// rows of one plane, swizzled over the row: 128-byte swizzle at 128
+// columns, 64-byte at 64 (the 16-byte chunk index XOR address bits 7 and
+// up, so a tile must start at a multiple of 8 rows).
+inline int make_map_3d_u8(CUtensorMap* map, const void* base, int cols, int rows, int planes,
+                          int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr || (cols != 64 && cols != 128)) return MAP_ENCODE_FAILED;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols, (cuuint64_t)cols * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
 }
 

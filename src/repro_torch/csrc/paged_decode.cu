@@ -8,7 +8,10 @@
 // kernels/decode_common.py:combine_split_states (:107). One query token per
 // sequence, q (B, Hq, D), over the head-major pool (Hkv, P, page_size, D)
 // through page_table (B, max_pages) and lengths (B,). Length-0 rows give
-// exact zeros. The quantized-scale branch of the TPU kernels is not ported.
+// exact zeros. Over a quantized pool (int8 or float8_e4m3fn codes with one
+// float32 scale per (kv head, physical page) for K and V) they compute the
+// scale branch of the TPU kernels (_paged_decode_kernel :122-134, the split
+// body :180-191, decode_common.py:80-83's k * k_scale and v * v_scale).
 //
 // What bounds it on an H100: decode reads every live K/V byte once and does
 // 2 * group operations per element, far below the card's balance point, so
@@ -20,33 +23,47 @@
 // a second small kernel (decode_common.cuh, shared with K8) rescales the
 // splits to the global max.
 //
-// Two kernels:
+// Three kernels:
 //
-// * paged_decode_tc_kernel, bf16 (every serve path). The consumer is
-//   decode_tc.cuh's, the one K7/K8 run: four warps on the tensor cores
-//   (mma.sync, q as A fragments, whole 64-row tiles in turn, P in bf16)
-//   over a 128 KB ring on mbarriers. Its producer fills a stage page by
-//   page: each pool (Hkv, P, ps, D) is one 3-D tensor map (Hkv, P * ps, D)
-//   whose box is 64 columns by one page, 128-byte swizzled, and a stage of
-//   64 rows takes 64 / ps pages. The swizzle repeats every 8 rows (1024
-//   bytes), so with ps a multiple of 8 a page's box lands its bytes where
-//   one 64-row box would put them, and the consumer addresses the stage as
-//   K7/K8's. The block reads the pages of the rows a valid position touches,
-//   [max(split start, length - window), min(split end, length)), from the
-//   first one's page start; positions before the range are masked. The
-//   producer warp's lanes each issue one box of a stage (ps 16, D 128: 16
-//   boxes, K and V), each reading its page id from the table one stage
+// * paged_decode_tc_kernel, bf16 (every serve path over a bf16 pool). The
+//   consumer is decode_tc.cuh's, the one K7/K8 run: four warps on the
+//   tensor cores (mma.sync, q as A fragments, whole 64-row tiles in turn, P
+//   in bf16) over a 128 KB ring on mbarriers. Its producer fills a stage
+//   page by page: each pool (Hkv, P, ps, D) is one 3-D tensor map (Hkv, P *
+//   ps, D) whose box is 64 columns by one page, 128-byte swizzled, and a
+//   stage of 64 rows takes 64 / ps pages. The swizzle repeats every 8 rows
+//   (1024 bytes), so with ps a multiple of 8 a page's box lands its bytes
+//   where one 64-row box would put them, and the consumer addresses the
+//   stage as K7/K8's. The block reads the pages of the rows a valid position
+//   touches, [max(split start, length - window), min(split end, length)),
+//   from the first one's page start; positions before the range are masked.
+//   The producer warp's lanes each issue one box of a stage (ps 16, D 128:
+//   16 boxes, K and V), each reading its page id from the table one stage
 //   ahead. Every slot of every stage is written on every phase: a last
 //   stage with fewer live pages loads the range's last live page again
 //   into its surplus slots, which the consumer masks to P = 0 (an unwritten
 //   slot could hold NaN bits, and 0 * NaN is NaN inside an mma; a page id
 //   past the row's live pages is zero only by convention).
+// * paged_decode_q_tc_kernel, bf16 q over a quantized pool (every serve
+//   path over an int8 or fp8 pool). The same walk and the same consumer,
+//   fed codes: each pool of codes is one 3-D uint8 map whose box is a page
+//   of whole D-byte rows, swizzled over the row (decode_tc.cuh's QRing:
+//   twice the bf16 ring's stages in the same bytes). The producer lane of a
+//   page also stores that page's scale into the stage's slots before its
+//   own expect-tx arrival, whose release orders the store before the
+//   consumers' wait. A consumer warp widens each code stage into a bf16
+//   tile of its own (exact; positions outside the range zeroed by select),
+//   folds the K scales into S's columns and the V scales into P's (P V
+//   then takes the scaled P as two bf16 fragments, its rounding and the
+//   remainder), and releases the stage before P V. What bounds it is no longer the float32
+//   work of the CUDA-core walk below but the bytes of the codes and, on
+//   the card, the widening's integer instructions (PERF.md).
 // * paged_decode_kernel, float32 arithmetic on the CUDA cores, for two
 //   inputs. A float32 pool: the tensor cores take float32 only as TF32
-//   (~3 decimal digits). A quantized pool, the scale branch of the TPU
-//   kernels (_paged_decode_kernel :122-134, the split body :180-191): int8
-//   or float8_e4m3fn codes with one float32 scale per (kv head, physical
-//   page) for K and V, q and out float32 or bf16. One block of DC_THREADS
+//   (~3 decimal digits). A quantized pool with float32 q (held at 2e-5),
+//   and with bf16 q only when a caller asks for it
+//   (paged_flash_decode_q_cuda_cores: the design the tensor-core kernel
+//   replaced, kept to time one against the other). One block of DC_THREADS
 //   stages DC_BT rows (whole pages), skips pages no position of the row can
 //   see (chunk_relevant), widens each code to float32 and multiplies it by
 //   its page's scale where it stages it (where the JAX kernel dequantizes,
@@ -54,9 +71,6 @@
 //   accumulate_kv_block (shared with the float32 K7 / K8). Positions no
 //   query may see are staged as zeros by select, never loaded: rows frozen
 //   on the null page write codes and scales there, which may be anything.
-//   The quantized walk reads a quarter of the float32 pool's bytes but does
-//   the same float32 work, and that work, not the bytes, bounds this kernel
-//   (PERF.md); a tensor-core design for codes is ROADMAP Queue B's.
 #include "decode_common.cuh"
 #include "decode_tc.cuh"
 
@@ -299,8 +313,8 @@ paged_decode_tc_kernel(const __grid_constant__ CUtensorMap tk,
     const int i = (lane >> 1) / (D / 64);
     const bool issues = i < per_stage;
     const int* table = page_table + (size_t)b * mp;
-    uint64_t* full = dtc::full_bars<D>(smem);
-    uint64_t* empty = dtc::empty_bars<D>(smem);
+    uint64_t* full = dtc::full_bars<R>(smem);
+    uint64_t* empty = dtc::empty_bars<R>(smem);
     uint8_t* dst = smem + (kv ? R::V : R::K) + c * BT * 128 + i * ps * 128;
     const CUtensorMap* map = kv ? &tv : &tk;
     // Page ids one stage ahead; a slot past the range's pages repeats its
@@ -366,16 +380,140 @@ int dispatch(const void* q, const void* kp, const void* vp, const int* pt,
   return -1;
 }
 
+// bf16 q over a quantized pool: the paged producer of decode_tc.cuh's
+// consumer over a QRing of codes. Each pool of codes (Hkv, P, ps, D) is one
+// 3-D uint8 map (Hkv, P * ps, D) whose box is one page of D-byte rows;
+// lane (page i, K or V) of the producer warp issues that page's box of
+// each stage with its own expect-tx arrival (the full barrier counts 2 * 64
+// / ps of them), after it stores the page's scale into the stage's slots of
+// the page's 8-key groups. Page ids come two stages ahead, scales one. Grid
+// and ranges as paged_decode_tc_kernel's.
+template <int D, int MT, bool SPLIT, class Code>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __nv_bfloat16* __restrict__ q, const float* __restrict__ ks_tab,
+                         const float* __restrict__ vs_tab, const int* __restrict__ page_table,
+                         const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ acc_out, float* __restrict__ m_out,
+                         float* __restrict__ l_out, int Hkv, int G, int P, int ps, int mp,
+                         int pps, float scale, int window, float softcap) {
+  using namespace hopper;
+  using R = dtc::QRing<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = dtc::ring_base(smem_raw);
+
+  const int s = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int length = lengths[b];
+  const int p_lo = SPLIT ? s * pps : 0;
+  const int p_hi = SPLIT ? min(p_lo + pps, mp) : mp;
+  int lo = p_lo * ps;
+  const int hi = min(p_hi * ps, length);
+  if (window > 0) lo = max(lo, length - window);
+  const int first_page = lo / ps;
+  const int last_page = hi > lo ? (hi - 1) / ps : first_page;
+  const int per_stage = BT / ps;
+  const int ntiles = hi > lo ? (last_page - first_page + per_stage) / per_stage : 0;
+  dtc::bars_init(dtc::full_bars<R>(smem), dtc::empty_bars<R>(smem), R::STAGES,
+                 2 * per_stage, MT);
+
+  if (threadIdx.x >> 5 == CONSUMER_WARPS) {
+    const int lane = threadIdx.x & 31;
+    const int kv = lane & 1;
+    const int i = lane >> 1;
+    if (i >= per_stage || ntiles == 0) return;
+    const int* table = page_table + (size_t)b * mp;
+    const float* tab = (kv ? vs_tab : ks_tab) + (size_t)h * P;
+    uint64_t* full = dtc::full_bars<R>(smem);
+    uint64_t* empty = dtc::empty_bars<R>(smem);
+    uint8_t* dst = smem + (kv ? R::V : R::K) + i * ps * D;
+    float* slots = dtc::q_scales<D>(smem) + kv * (BT / 8) + i * (ps / 8);
+    const CUtensorMap* map = kv ? &tv : &tk;
+    // This lane's page of stage t; a slot past the range's pages repeats
+    // its last live page.
+    auto page_of = [&](int t) { return table[min(first_page + t * per_stage + i, last_page)]; };
+    int page = page_of(0);
+    int next = ntiles > 1 ? page_of(1) : page;
+    float sc = tab[page];
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % R::STAGES;
+      mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
+      for (int r = 0; r < ps / 8; ++r) slots[st * 2 * (BT / 8) + r] = sc;
+      mbar_expect_tx(&full[st], ps * D);
+      tma_load_3d(dst + st * R::TILE, map, &full[st], 0, page * ps, h);
+      page = next;
+      if (t + 1 < ntiles) sc = tab[page];
+      if (t + 2 < ntiles) next = page_of(t + 2);
+    }
+    return;
+  }
+  dtc::CodeTiles<D, Code> tiles{smem, smem + R::OWN + (threadIdx.x >> 5) * R::OWN_TILE};
+  dtc::consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G,
+                                   first_page * ps, lo, hi, ntiles, scale, softcap);
+}
+
+template <int D, int MT, bool SPLIT, class Code>
+int launch_q(const void* q, const void* kc, const void* vc, const float* ks_tab,
+             const float* vs_tab, const int* pt, const int* lengths, void* out, float* acc,
+             float* m, float* l, int B, int Hkv, int G, int P, int ps, int mp, int S, int pps,
+             float scale, int window, float softcap, cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  int err = hopper::make_map_3d_u8(&tk, kc, D, P * ps, Hkv, ps);
+  if (err == 0) err = hopper::make_map_3d_u8(&tv, vc, D, P * ps, Hkv, ps);
+  if (err != 0) return err;
+  const size_t smem = dtc::QRing<D>::bytes;
+  const cudaError_t e = allow_smem(paged_decode_q_tc_kernel<D, MT, SPLIT, Code>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(S, Hkv, B);
+  paged_decode_q_tc_kernel<D, MT, SPLIT, Code><<<grid, THREADS, smem, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), ks_tab, vs_tab, pt, lengths,
+      static_cast<__nv_bfloat16*>(out), acc, m, l, Hkv, G, P, ps, mp, pps, scale, window,
+      softcap);
+  cudaError_t err2 = cudaGetLastError();
+  if (err2 != cudaSuccess || !SPLIT) return (int)err2;
+  combine_kernel<__nv_bfloat16, D><<<B * Hkv * G, DC_THREADS, 0, stream>>>(
+      acc, m, l, static_cast<__nv_bfloat16*>(out), G, S);
+  return (int)cudaGetLastError();
+}
+
+// codes int8 (fp8 0) or float8_e4m3fn (1).
+template <bool SPLIT>
+int dispatch_codes(const void* q, const void* kc, const void* vc, const float* ks_tab,
+                   const float* vs_tab, const int* pt, const int* lengths, void* out,
+                   float* acc, float* m, float* l, int B, int Hq, int Hkv, int P, int ps,
+                   int mp, int D, int S, int pps, int fp8, float scale, int window,
+                   float softcap, void* stream) {
+  if (B <= 0) return 0;
+  if (ps % 8 != 0 || BT % ps != 0) return -1;
+  const int G = Hq / Hkv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PDQ_TC_CASE(DIM, MTILES)                                                            \
+  return fp8 ? launch_q<DIM, MTILES, SPLIT, dtc::E4m3Codes>(                                \
+                   q, kc, vc, ks_tab, vs_tab, pt, lengths, out, acc, m, l, B, Hkv, G, P, ps, \
+                   mp, S, pps, scale, window, softcap, st)                                   \
+             : launch_q<DIM, MTILES, SPLIT, dtc::Int8Codes>(                                 \
+                   q, kc, vc, ks_tab, vs_tab, pt, lengths, out, acc, m, l, B, Hkv, G, P, ps, \
+                   mp, S, pps, scale, window, softcap, st)
+  if (D == 128 && G <= 16) PDQ_TC_CASE(128, 1);
+  if (D == 128 && G <= 32) PDQ_TC_CASE(128, 2);
+  if (D == 64 && G <= 16) PDQ_TC_CASE(64, 1);
+  if (D == 64 && G <= 32) PDQ_TC_CASE(64, 2);
+#undef PDQ_TC_CASE
+  return -1;
+}
+
 }  // namespace tc
 
 }  // namespace
 
 // Each entry returns a cudaError_t (0 = success), or -1 for a shape this
-// build does not instantiate; the bf16 entries -2 if a tensor map could not
-// be encoded. page_size must divide 64 (float32), and be a multiple of 8 that
-// divides 64 (bf16). Split scratch: acc (B, Hkv, S, G, D), m / l
-// (B, Hkv, S, G) float32; split s walks pages [s * pages_per_split,
-// min((s + 1) * pages_per_split, mp)).
+// build does not instantiate; the tensor-core entries -2 if a tensor map
+// could not be encoded. page_size must divide 64 (the CUDA-core entries),
+// and be a multiple of 8 that divides 64 (the tensor-core entries). Split
+// scratch: acc (B, Hkv, S, G, D), m / l (B, Hkv, S, G) float32; split s
+// walks pages [s * pages_per_split, min((s + 1) * pages_per_split, mp)).
 
 // float32 one pass (K3), on the CUDA cores.
 extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pages,
@@ -446,4 +584,32 @@ extern "C" int paged_decode_split_q(const void* q, const void* k_codes, const vo
   return dispatch_q<true>(q, k_codes, v_codes, k_scale_tab, v_scale_tab, page_table, lengths,
                           out, acc, m, l, B, Hq, Hkv, P, ps, mp, D, num_splits,
                           pages_per_split, q_bf16, fp8, scale, window, softcap, stream);
+}
+
+// bf16 q over a quantized pool (K3), on the tensor cores: int8 or
+// float8_e4m3fn codes (fp8) with (Hkv, P) float32 scale tables.
+extern "C" int paged_decode_q_tc(const void* q, const void* k_codes, const void* v_codes,
+                                 const float* k_scale_tab, const float* v_scale_tab,
+                                 const int* page_table, const int* lengths, void* out, int B,
+                                 int Hq, int Hkv, int P, int ps, int mp, int D, int fp8,
+                                 float scale, int window, float softcap, void* stream) {
+  return tc::dispatch_codes<false>(q, k_codes, v_codes, k_scale_tab, v_scale_tab,
+                                   page_table, lengths, out, nullptr, nullptr, nullptr, B, Hq,
+                                   Hkv, P, ps, mp, D, 1, mp, fp8, scale, window, softcap,
+                                   stream);
+}
+
+// bf16 q over a quantized pool, split-K (K4) and the combine, on the tensor
+// cores.
+extern "C" int paged_decode_split_q_tc(const void* q, const void* k_codes, const void* v_codes,
+                                       const float* k_scale_tab, const float* v_scale_tab,
+                                       const int* page_table, const int* lengths, void* out,
+                                       float* acc, float* m, float* l, int B, int Hq, int Hkv,
+                                       int P, int ps, int mp, int D, int num_splits,
+                                       int pages_per_split, int fp8, float scale, int window,
+                                       float softcap, void* stream) {
+  return tc::dispatch_codes<true>(q, k_codes, v_codes, k_scale_tab, v_scale_tab, page_table,
+                                  lengths, out, acc, m, l, B, Hq, Hkv, P, ps, mp, D,
+                                  num_splits, pages_per_split, fp8, scale, window, softcap,
+                                  stream);
 }

@@ -11,7 +11,9 @@ launches over a quantized pool, which the other two do not count), K3/K4
 ``paged_flash_decode_tc`` and ``paged_flash_decode_split_tc`` count the
 bf16 tensor-core launches alone; ``paged_flash_decode_q`` and
 ``paged_flash_decode_split_q`` the launches over a quantized pool, which
-the others do not count), K7/K8
+the others do not count, and ``paged_flash_decode_q_tc`` and
+``paged_flash_decode_split_q_tc`` those of them on the tensor cores, with
+bf16 q, alone), K7/K8
 ``decode_attention.flash_decode`` (dense one-pass / split-K;
 ``flash_decode_tc`` and ``flash_decode_split_tc`` count the bf16
 tensor-core launches alone) and K9
@@ -54,6 +56,8 @@ _COUNTERS = {
     "paged_flash_decode_split_tc": (paged_decode_attention, "launches", "split_tc"),
     "paged_flash_decode_q": (paged_decode_attention, "launches", "one_pass_q"),
     "paged_flash_decode_split_q": (paged_decode_attention, "launches", "split_q"),
+    "paged_flash_decode_q_tc": (paged_decode_attention, "launches", "one_pass_q_tc"),
+    "paged_flash_decode_split_q_tc": (paged_decode_attention, "launches", "split_q_tc"),
     "flash_decode": (decode_attention, "launches", "one_pass"),
     "flash_decode_split": (decode_attention, "launches", "split"),
     "flash_decode_tc": (decode_attention, "launches", "one_pass_tc"),

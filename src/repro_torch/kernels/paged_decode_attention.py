@@ -12,10 +12,17 @@ run (``csrc/decode_tc.cuh``); the page size must then be a multiple of 8
 that divides 64. float32 runs ``paged_decode`` / ``paged_decode_split`` on
 the CUDA cores (the tensor cores would round it to TF32). A quantized pool
 (int8 or float8_e4m3fn codes with ``(Hkv, P)`` float32 ``k_scales`` /
-``v_scales``, ``cache.quant``) runs ``paged_decode_q`` /
-``paged_decode_split_q``: the float32 CUDA-core walk with each code widened
-to float32 and multiplied by its page's scale where it is staged, q and the
-output in float32 or bf16 (the TPU kernels' scale branch).
+``v_scales``, ``cache.quant``) computes the TPU kernels' scale branch. With
+bf16 q it runs ``paged_decode_q_tc`` / ``paged_decode_split_q_tc`` on the
+tensor cores: the same walk and consumer, fed the 1-byte codes page by page
+by TMA, each consumer warp widening a stage of codes exactly into a bf16
+tile of its own, with K's page scales folded into S's columns and V's into
+P's; the page size must then be a multiple of 8 that divides 64, as for a
+bf16 pool. With float32 q it runs ``paged_decode_q`` /
+``paged_decode_split_q``: the float32 CUDA-core walk, each code widened to
+float32 and multiplied by its page's scale where it is staged
+(:func:`paged_flash_decode_q_cuda_cores` runs that walk for bf16 q too,
+the design the tensor-core kernel replaced, so one run can time both).
 :func:`paged_flash_decode` launches the one for its dtypes on CUDA tensors
 and runs :func:`paged_flash_decode_plain` — the same page walk, relevance
 gate and split combine, written with ``decode_common`` — for CPU tensors.
@@ -36,17 +43,19 @@ MAX_GROUP = 32
 #: Positions staged per step (DC_BT in csrc/decode_common.cuh, dtc::BT in
 #: csrc/decode_tc.cuh).
 STAGE = 64
-#: bf16 page sizes must be multiples of this: the 128-byte swizzle of a
-#: tensor-core stage repeats every 8 rows, so a page's box then lands where
-#: one 64-row box would put it.
+#: Page sizes of bf16 q (over a bf16 or a quantized pool) must be multiples
+#: of this: the swizzle of a tensor-core stage repeats every 8 rows, so a
+#: page's box then lands where one 64-row box would put it.
 TC_PAGE_MULTIPLE = 8
 
 #: Launches since the last reset: one-pass (K3) and split-K (K4; each
 #: launch is the split kernel followed by its combine) over an unquantized
 #: pool, of either dtype; the ``_tc`` keys count the bf16 tensor-core
-#: kernel's alone; the ``_q`` keys count the kernels over a quantized pool.
+#: kernel's alone; the ``_q`` keys count the kernels over a quantized pool,
+#: of either q dtype, and the ``_q_tc`` keys those of them on the tensor
+#: cores (bf16 q) alone.
 launches = {"one_pass": 0, "split": 0, "one_pass_tc": 0, "split_tc": 0,
-            "one_pass_q": 0, "split_q": 0}
+            "one_pass_q": 0, "split_q": 0, "one_pass_q_tc": 0, "split_q_tc": 0}
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
@@ -103,31 +112,33 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
 _DTYPES = (torch.float32, torch.bfloat16)
 #: Code dtypes of a quantized pool.
 _CODES = (torch.int8, torch.float8_e4m3fn)
-#: (dtype, split) -> the C entry point that takes it; dtype None is a
-#: quantized pool (q float32 or bf16, selected by an argument).
+#: (route, split) -> the C entry point that takes it: route a dtype for an
+#: unquantized pool; "q" a quantized pool on the CUDA cores (q float32 or
+#: bf16, selected by an argument), "q_tc" one on the tensor cores (bf16 q).
 _ENTRY = {(torch.float32, False): "paged_decode", (torch.float32, True): "paged_decode_split",
           (torch.bfloat16, False): "paged_decode_tc",
           (torch.bfloat16, True): "paged_decode_split_tc",
-          (None, False): "paged_decode_q", (None, True): "paged_decode_split_q"}
+          ("q", False): "paged_decode_q", ("q", True): "paged_decode_split_q",
+          ("q_tc", False): "paged_decode_q_tc", ("q_tc", True): "paged_decode_split_q_tc"}
+#: Integer arguments after the pointers (B .. D, then num_splits and
+#: pages_per_split for a split, then the quantized entries' dtype flags).
+_INTS = {"q": 2, "q_tc": 1}
 _fns = {}
 
 
-def _kernel(dtype, split: bool):
-    fn = _fns.get((dtype, split))
+def _kernel(route, split: bool):
+    fn = _fns.get((route, split))
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if dtype is None:
-            args = ([P] * 11 + [I] * 11 if split else [P] * 8 + [I] * 9) + [F, I, F, P]
-        elif split:
-            args = [P] * 9 + [I] * 9 + [F, I, F, P]
-        else:
-            args = [P] * 6 + [I] * 7 + [F, I, F, P]
-        fn = _fns[(dtype, split)] = build.bind("paged_decode", _ENTRY[(dtype, split)], args)
+        pointers = 6 + 2 * (route in _INTS) + 3 * split
+        ints = 7 + 2 * split + _INTS.get(route, 0)
+        args = [P] * pointers + [I] * ints + [F, I, F, P]
+        fn = _fns[(route, split)] = build.bind("paged_decode", _ENTRY[(route, split)], args)
     return fn
 
 
 def _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab=None,
-                  v_scale_tab=None):
+                  v_scale_tab=None, tensor_cores=False):
     dev = q.device
     tensors = (("k_pages", k_pages), ("v_pages", v_pages), ("page_table", page_table),
                ("lengths", lengths))
@@ -160,7 +171,7 @@ def _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab=None,
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if ps > STAGE or STAGE % ps:
         raise ValueError(f"page_size {ps} must divide {STAGE}")
-    if q.dtype == torch.bfloat16 and not quantized and ps % TC_PAGE_MULTIPLE:
+    if tensor_cores and ps % TC_PAGE_MULTIPLE:
         raise ValueError(f"bf16 page_size {ps} must be a multiple of {TC_PAGE_MULTIPLE} "
                          "(the tensor-core kernel's swizzled stages)")
     if page_table.shape[0] != b or lengths.shape != (b,):
@@ -185,9 +196,9 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
 
     ``num_splits > 1`` runs split-K over :func:`decode_split_ranges`
     (clamped to the table width). CUDA tensors launch the kernel of their
-    dtypes (bf16 on the tensor cores, float32 and quantized pools on the
-    CUDA cores), CPU tensors take the plain version; under grad mode it
-    raises: the kernels have no backward.
+    dtypes (bf16 q on the tensor cores, over a bf16 or a quantized pool;
+    float32 q on the CUDA cores), CPU tensors take the plain version; under
+    grad mode it raises: the kernels have no backward.
     """
     k_scale_tab, v_scale_tab = k_scales, v_scales
     quantized = quant.scale_pair(k_scale_tab, v_scale_tab)
@@ -196,7 +207,37 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
             q, k_pages, v_pages, page_table, lengths, softcap=softcap,
             scale=scale, window=window, num_splits=num_splits, k_scales=k_scale_tab,
             v_scales=v_scale_tab)
-    _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab, v_scale_tab)
+    route = q.dtype
+    if quantized:
+        route = "q_tc" if q.dtype == torch.bfloat16 else "q"
+    return _launch(route, q, k_pages, v_pages, page_table, lengths, softcap=softcap,
+                   scale=scale, window=window, num_splits=num_splits,
+                   k_scale_tab=k_scale_tab, v_scale_tab=v_scale_tab)
+
+
+def paged_flash_decode_q_cuda_cores(q, k_pages, v_pages, page_table, lengths, *,
+                                    softcap=None, scale=None, window=None,
+                                    num_splits: int = 1, k_scales=None, v_scales=None
+                                    ) -> torch.Tensor:
+    """:func:`paged_flash_decode` over a quantized pool (CUDA tensors only)
+    on the float32 CUDA-core walk for either q dtype: what bf16 q ran before
+    its tensor-core kernel, kept so that one run can time the two. Counted
+    under the ``_q`` keys alone."""
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    if not quant.scale_pair(k_scale_tab, v_scale_tab) or q.device.type != "cuda":
+        raise ValueError("paged_flash_decode_q_cuda_cores takes a quantized pool on the card")
+    return _launch("q", q, k_pages, v_pages, page_table, lengths, softcap=softcap,
+                   scale=scale, window=window, num_splits=num_splits,
+                   k_scale_tab=k_scale_tab, v_scale_tab=v_scale_tab)
+
+
+def _launch(route, q, k_pages, v_pages, page_table, lengths, *, softcap, scale, window,
+            num_splits, k_scale_tab, v_scale_tab):
+    """Check the inputs and launch the entry of ``route`` (see ``_ENTRY``),
+    counting it."""
+    quantized = route in _INTS
+    tc = route in (torch.bfloat16, "q_tc")
+    _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab, v_scale_tab, tc)
     build.refuse_grad("paged_flash_decode", q, k_pages, v_pages)
     b, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
@@ -206,20 +247,19 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     ranges = decode_split_ranges(mp, num_splits)
     out = torch.empty_like(q)
     common = (float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q))
-    tc = q.dtype == torch.bfloat16 and not quantized
-    key = None if quantized else q.dtype
     pointers = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     if quantized:
         pointers += (k_scale_tab.data_ptr(), v_scale_tab.data_ptr())
     pointers += (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr())
-    dtypes = ((int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.float8_e4m3fn))
-              if quantized else ())
+    fp8 = int(k_pages.dtype == torch.float8_e4m3fn)
+    flags = {"q": (int(q.dtype == torch.bfloat16), fp8), "q_tc": (fp8,)}.get(route, ())
+    suffix = "_q" if quantized else ""
     if len(ranges) == 1:
-        launches["one_pass_q" if quantized else "one_pass"] += 1
-        launches["one_pass_tc"] += int(tc)
-        status = _kernel(key, False)(*pointers, b, hq, hkv, num_pages, ps, mp, d, *dtypes,
-                                     *common)
-        build.check(status, _ENTRY[(key, False)])
+        launches["one_pass" + suffix] += 1
+        launches["one_pass" + suffix + "_tc"] += int(tc)
+        status = _kernel(route, False)(*pointers, b, hq, hkv, num_pages, ps, mp, d, *flags,
+                                       *common)
+        build.check(status, _ENTRY[(route, False)])
         return out
     s = len(ranges)
     pps = ranges[0][1] - ranges[0][0]
@@ -227,9 +267,9 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     acc = torch.empty((b, hkv, s, group, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, s, group), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    launches["split_q" if quantized else "split"] += 1
-    launches["split_tc"] += int(tc)
-    status = _kernel(key, True)(*pointers, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-                                b, hq, hkv, num_pages, ps, mp, d, s, pps, *dtypes, *common)
-    build.check(status, _ENTRY[(key, True)])
+    launches["split" + suffix] += 1
+    launches["split" + suffix + "_tc"] += int(tc)
+    status = _kernel(route, True)(*pointers, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                  b, hq, hkv, num_pages, ps, mp, d, s, pps, *flags, *common)
+    build.check(status, _ENTRY[(route, True)])
     return out

@@ -1,9 +1,11 @@
-"""The arithmetic of the bf16 tensor-core decode kernels, written out in
+"""The arithmetic of the tensor-core decode kernels, written out in
 float32 on the CPU: one walk, shared by K7/K8 (dense stripes,
-``dense_decode_tc_kernel``) and K3/K4 (paged pools,
-``paged_decode_tc_kernel``), which run one consumer
-(``src/repro_torch/csrc/decode_tc.cuh``) and differ only in where a tile's
-rows come from and where its first key sits.
+``dense_decode_tc_kernel``), K3/K4 (paged pools, ``paged_decode_tc_kernel``)
+and K3q/K4q (bf16 q over int8 or fp8 pools, ``paged_decode_q_tc_kernel``),
+which run one consumer (``src/repro_torch/csrc/decode_tc.cuh``) and differ
+only in where a tile's rows come from, where its first key sits, and, for
+a quantized pool, the codes widened exactly and the page scales folded into
+S's and P's columns.
 
 Not a test module: ``tests/test_torch_dense.py`` and
 ``tests/test_torch_paged_tc.py`` import it.
@@ -12,6 +14,7 @@ Not a test module: ``tests/test_torch_dense.py`` and
 import numpy as np
 import torch
 
+from repro_torch.cache import quant
 from repro_torch.cache.layout import decode_split_ranges
 
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
@@ -34,7 +37,8 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
     ``cells(b)`` gives one ``(first, lo, hi)`` per split of row b: the
     walk's first key and the positions it keeps; ``tile_kv(b, key0, hi)``
     gives the bf16 K and V rows (Hkv, n, D), n <= TILE, of the tile whose
-    first key is ``key0``.
+    first key is ``key0`` or, over a quantized pool, their int8 or e4m3
+    codes and the K and V scales of each row's page (Hkv, n).
 
     Tiles of 64 keys from ``first``, the four warps of a block (two for
     each m16 tile when the group exceeds 16) taking whole tiles in turn,
@@ -44,7 +48,15 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
     [lo, hi) masked, exp2, P rounded to bf16 before P V while the row sum
     takes P unrounded. The warps' states merge once (exp2 weights). One
     pass writes the normalised row; a split writes (acc, m ln 2, l), merged
-    by the combine kernel in natural units."""
+    by the combine kernel in natural units.
+
+    Over a quantized pool the codes widen exactly (every int8 and e4m3
+    value is a bf16 value), and positions outside [lo, hi) are zeros by
+    select (their page may be the null page, NaN codes and scale and all);
+    S = q codes^T is multiplied by each column's K scale before the
+    softcap and scale, and P's columns by their V scales in float32, by
+    select; P V takes that P as two bf16 parts, its rounding and the
+    remainder's; the row sum takes P unscaled."""
     b, hq, d = q.shape
     group = hq // hkv
     warps = 4 if group <= 16 else 2
@@ -61,21 +73,31 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
             acc = torch.zeros((warps, hkv, group, d))
             for t in range(ntiles):
                 w, t0 = t % warps, first + t * TILE
-                kt, vt = (x.float() for x in tile_kv(bi, t0, hi))
+                kt, vt, *scales = tile_kv(bi, t0, hi)
+                kt, vt = kt.float(), vt.float()
+                pos = torch.arange(t0, t0 + kt.shape[1])[None, None, :]
+                ok = (pos >= lo) & (pos < hi)
+                if scales:
+                    kt, vt = (torch.where(ok[0, 0, :, None], x, 0.0) for x in (kt, vt))
                 s = torch.einsum("hgd,htd->hgt", qf[bi], kt)
+                if scales:
+                    s = s * scales[0][:, None, :]
                 if softcap:
                     x = softcap * torch.tanh(s * scale / softcap) * LOG2E
                 else:
                     x = s * scale2
-                pos = torch.arange(t0, t0 + kt.shape[1])[None, None, :]
-                ok = (pos >= lo) & (pos < hi)
                 x = torch.where(ok, x, torch.tensor(-1e30))
                 m_new = torch.maximum(m[w], x.amax(-1))
                 alpha = torch.exp2(m[w] - m_new)
                 p = torch.where(ok, torch.exp2(x - m_new[..., None]), torch.tensor(0.0))
                 l[w] = l[w] * alpha + p.sum(-1)
-                acc[w] = acc[w] * alpha[..., None] + torch.einsum(
-                    "hgt,htd->hgd", p.to(torch.bfloat16).float(), vt)
+                if scales:
+                    p = torch.where(ok, p * scales[1][:, None, :], torch.tensor(0.0))
+                    p_hi = p.to(torch.bfloat16).float()
+                    p = p_hi + (p - p_hi).to(torch.bfloat16).float()
+                else:
+                    p = p.to(torch.bfloat16).float()
+                acc[w] = acc[w] * alpha[..., None] + torch.einsum("hgt,htd->hgd", p, vt)
                 m[w] = m_new
             m_star = m.amax(0)
             wt = torch.exp2(m - m_star)
@@ -126,13 +148,14 @@ def dense_k7_k8(q, k, v, lengths, *, window=None, softcap=None, chunk=64, num_sp
 
 
 def paged_k3_k4(q, k_pages, v_pages, page_table, lengths, *, window=None, softcap=None,
-                num_splits=1):
+                num_splits=1, k_scale_tab=None, v_scale_tab=None):
     """K3/K4 on head-major pools (Hkv, P, ps, D): each (b, split) cell keeps
     positions [max(start, length - window), min(end, length)) of its
     page-granular range and walks 64-row stages of 64 / ps pages from the
     page holding the first of them (the stage origin is page-aligned; the
     positions before it are masked). A stage's slots past the range's last
-    live page hold that page again (masked)."""
+    live page hold that page again (masked). With (Hkv, P) scale tables the
+    pools hold int8 or e4m3 codes: K3q/K4q, each row's scales its page's."""
     hkv, _, ps, d = k_pages.shape
     mp = page_table.shape[1]
 
@@ -147,6 +170,11 @@ def paged_k3_k4(q, k_pages, v_pages, page_table, lengths, *, window=None, softca
     def tile_kv(bi, t0, hi):
         last = (hi - 1) // ps
         ids = page_table[bi, [min(t0 // ps + i, last) for i in range(TILE // ps)]].long()
-        return k_pages[:, ids].reshape(hkv, TILE, d), v_pages[:, ids].reshape(hkv, TILE, d)
+        kt, vt = (quant.index_pages(x, (slice(None), ids)).reshape(hkv, TILE, d)
+                  for x in (k_pages, v_pages))
+        if k_scale_tab is None:
+            return kt, vt
+        return (kt, vt) + tuple(t[:, ids].repeat_interleave(ps, dim=1)
+                                for t in (k_scale_tab, v_scale_tab))
 
     return tensor_core_decode(q, hkv, cells, tile_kv, softcap=softcap)

@@ -17,8 +17,10 @@ lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
 cores and is held at 2e-5. K2, K3/K4 and K7/K8 likewise: bf16 on the
 tensor cores (P rounded to bf16), float32 on the CUDA cores. Over int8 and
-fp8 pools (codes and per-page scales) K2, K3 and K4 run their quantized
-entries on the CUDA cores, q in float32 or bf16, held at the bar of q's
+fp8 pools (codes and per-page scales) K2 runs its quantized entry on the
+CUDA cores, q in float32 or bf16, and K3 and K4 theirs on the tensor cores
+for bf16 q (the codes widened exactly to bf16, P scaled and rounded to
+bf16) and on the CUDA cores for float32 q; each is held at the bar of q's
 dtype. K9 (float32 in and out, its products on the tensor cores in 3xTF32, about
 22 bits each) is held per (b, chunk, head) slice: max |y - ref| within 1e-5
 of the slice's max |ref| (sums of at most q + N terms taken in another
@@ -1349,13 +1351,24 @@ def _serve_decode_inputs(rng, dev, dt, kv_dtype, mp=36, lengths=(560, 0, 300, 17
                                                                          v_scales=vs)
 
 
+def _quantized_routes(counts, num_splits, dtype) -> bool:
+    """The one launch went to the quantized entry of its split kind, on the
+    tensor cores for bf16 q (both its counters) and on the CUDA cores for
+    float32 q."""
+    key = "paged_flash_decode_q" if num_splits == 1 else "paged_flash_decode_split_q"
+    want = {key: 1, key + "_tc": 1} if dtype == torch.bfloat16 else {key: 1}
+    return {k: n for k, n in counts.items() if n} == want
+
+
 @pytest.mark.parametrize("kv_dtype", CODES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("num_splits", [1, 2, 4])
 def test_quantized_paged_decode_matches_plain(cuda, kv_dtype, dtype, num_splits):
-    """K3q / K4q at the serve shape over the full table: live rows within
-    the bar of q's dtype, the length-0 row exactly zero, and the garbage on
-    the null page (NaN codes and scales) in no live row."""
+    """K3q / K4q at the serve shape over the full table, as a fused graph
+    runs them: live rows within the bar of q's dtype, the length-0 row
+    exactly zero, and the garbage on the null page (NaN codes and scales)
+    in no live row. bf16 q runs on the tensor cores, where ten reruns give
+    the same bits."""
     dt = DTYPES[dtype]
     args, scales = _serve_decode_inputs(np.random.default_rng(80 + num_splits), cuda, dt,
                                         kv_dtype)
@@ -1364,12 +1377,141 @@ def test_quantized_paged_decode_matches_plain(cuda, kv_dtype, dtype, num_splits)
     counts = kernels.launch_counts()
     o_ref = pd.paged_flash_decode_plain(*args, num_splits=num_splits, **scales)
     torch.cuda.synchronize()
-    key = "paged_flash_decode_q" if num_splits == 1 else "paged_flash_decode_split_q"
-    assert counts[key] == 1 and sum(counts.values()) == 1
+    assert _quantized_routes(counts, num_splits, dt)
     live = [0, 2, 3, 4, 5]
     assert torch.isfinite(o[live].float()).all()
     assert _close(o[live], o_ref[live])
     assert float(o[1].float().abs().max()) == 0.0
+    if dt == torch.bfloat16:   # bit for bit, the frozen rows' NaNs too
+        bits = o.view(torch.int16)
+        assert all(torch.equal(pd.paged_flash_decode(*args, num_splits=num_splits, **scales)
+                               .view(torch.int16), bits) for _ in range(10))
+
+
+def _tc_quantized_inputs(rng, dev, hq, hkv, d, ps, kv_dtype, mp):
+    """bf16 q over a quantized pool (NaN garbage on the null page) through
+    scattered tables padded with the null page: rows of 0, 1, 50, 17 and
+    mp * ps tokens (the last stage of the 50- and 17-token rows has fewer
+    live pages than a stage holds at ps 8 and 16)."""
+    lengths = [0, 1, 50, 17, mp * ps]
+    b = len(lengths)
+    num_pages = 1 + b * mp
+    kc, ks, vc, vs = _quantized(rng, dev, hkv, num_pages, ps, d, kv_dtype)
+    table = np.zeros((b, mp), np.int32)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    for i, n in enumerate(lengths):
+        live = -(-n // ps)
+        table[i, :live] = [free.pop() for _ in range(live)]
+    q = _randn(rng, (b, hq, d), dev, torch.bfloat16)
+    return (q, kc, vc, torch.from_numpy(table).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev)), dict(k_scales=ks,
+                                                                         v_scales=vs)
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("num_splits", [1, 4, 7])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (25, 5, 64), (32, 1, 128)],
+                         ids=["llama", "hymba", "group32"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (75, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_quantized_paged_decode_tensor_cores_every_page_size(cuda, kv_dtype, ps, num_splits,
+                                                             hq, hkv, d, window, softcap):
+    """K3q / K4q on the tensor cores at every page size and head width:
+    each live row within ROW_TOL of the plain version, the length-0 row
+    exactly zero; window 75 starts mid-page on every row longer than it."""
+    args, scales = _tc_quantized_inputs(np.random.default_rng(170 + ps), cuda, hq, hkv, d, ps,
+                                        kv_dtype, mp=1280 // ps)
+    kw = dict(num_splits=num_splits, window=window, softcap=softcap, **scales)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(*args, **kw)
+    assert _quantized_routes(kernels.launch_counts(), num_splits, torch.bfloat16)
+    o_ref = pd.paged_flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    assert _close(o, o_ref)
+    assert float(o[0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+def test_quantized_tensor_cores_widen_every_code_exactly(cuda, kv_dtype):
+    """A row of one token outputs its V row times its page's V scale: with
+    scale 1 every code's bf16 widening shows in the output bit for bit.
+    Two rows of one token read pages whose first V row holds the codes 0 ..
+    127 and 128 .. 255 (e4m3's two NaN codes excepted); K too holds every
+    code."""
+    from repro_torch.cache import quant
+
+    d, ps = 128, 16
+    codes = torch.zeros((1, 3, ps, d), dtype=torch.uint8)
+    codes[0, 1:, :2] = torch.arange(256, dtype=torch.uint8).reshape(2, 1, d).expand(2, 2, d)
+    if kv_dtype == "fp8":
+        codes[(codes & 0x7F) == 0x7F] = 0
+    codes = codes.to(cuda).view(quant.storage_dtype(kv_dtype))
+    ones = torch.ones((1, 3), device=cuda)
+    q = _randn(np.random.default_rng(5), (2, 1, d), cuda, torch.bfloat16)
+    table = torch.tensor([[1, 0], [2, 0]], dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    for ns in (1, 2):
+        o = pd.paged_flash_decode(q, codes, codes, table, lengths, num_splits=ns,
+                                  k_scales=ones, v_scales=ones)
+        torch.cuda.synchronize()
+        assert torch.equal(o[:, 0].float(), codes[0, 1:, 0].float())
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("window", [None, 40])
+def test_quantized_paged_decode_ignores_rows_past_length(cuda, kv_dtype, ps, window):
+    """The tensor-core kernel loads whole pages of codes, so it reads the
+    rows past each length inside the row's last live page (and loads that
+    page again into a last stage's surplus slots): widened as zeros by
+    select, codes there that are NaN bits in e4m3 (127 in int8) give the
+    bits of zeros there. Ten reruns give the same bits."""
+    args, scales = _tc_quantized_inputs(np.random.default_rng(172), cuda, 8, 2, 128, ps,
+                                        kv_dtype, mp=1280 // ps)
+    q, kc, vc, table, lengths = args
+    for ns in (1, 3):
+        outs = []
+        for byte in (0, 0x7F):
+            k, v = kc.clone(), vc.clone()
+            for bi, length in enumerate(lengths.tolist()):
+                if length % ps:
+                    page = int(table[bi, length // ps])
+                    for codes in (k, v):
+                        codes.view(torch.uint8)[:, page, length % ps:] = byte
+            outs.append(pd.paged_flash_decode(q, k, v, table, lengths, window=window,
+                                              num_splits=ns, **scales))
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert bool(torch.isfinite(outs[1].float()).all())
+        assert all(torch.equal(pd.paged_flash_decode(q, k, v, table, lengths, window=window,
+                                                     num_splits=ns, **scales), outs[1])
+                   for _ in range(10))
+
+
+def test_quantized_tensor_cores_take_page_sizes_of_8(cuda):
+    """bf16 q over a quantized pool of pages of 4 rows raises (the
+    tensor-core stages need multiples of 8) and launches nothing; float32 q
+    over it, and the CUDA-core walk kept for bf16 q, take it."""
+    rng = np.random.default_rng(32)
+    args, scales = _serve_decode_inputs(rng, cuda, torch.bfloat16, "int8")
+    q, _, _, _, lengths = args
+    kc, ks, vc, vs = _quantized(rng, cuda, 8, 1 + 8 * 40, 4, 128, "int8")
+    table = torch.arange(1, 1 + 8 * 40, dtype=torch.int32, device=cuda).reshape(8, 40)
+    lengths = torch.full_like(lengths, 150)
+    kw = dict(k_scales=ks, v_scales=vs)
+    kernels.reset_launch_counts()
+    for ns in (1, 3):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pd.paged_flash_decode(q, kc, vc, table, lengths, num_splits=ns, **kw)
+    assert sum(kernels.launch_counts().values()) == 0
+    ref = pd.paged_flash_decode_plain(q, kc, vc, table, lengths, **kw)
+    assert _close(pd.paged_flash_decode_q_cuda_cores(q, kc, vc, table, lengths, **kw), ref)
+    o32 = pd.paged_flash_decode(q.float(), kc, vc, table, lengths, **kw)
+    assert _close(o32, pd.paged_flash_decode_plain(q.float(), kc, vc, table, lengths, **kw))
+    counts = kernels.launch_counts()
+    assert counts["paged_flash_decode_q"] == 2 and counts["paged_flash_decode_q_tc"] == 0
 
 
 @pytest.mark.parametrize("kv_dtype", CODES)

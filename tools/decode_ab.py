@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The bf16 decode kernels of two checkouts side by side on one card: K7/K8
-(dense flash-decode) and K3/K4 (paged flash-decode).
+"""The decode kernels of two checkouts side by side on one card: K7/K8
+(dense flash-decode), K3/K4 (paged flash-decode) and K3q/K4q (paged
+flash-decode of bf16 q over int8 and fp8 pools).
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
@@ -21,7 +22,13 @@ checkout's ``chip_smoke.Timer``, runs:
   16 on a scattered table: B 8 with ragged lengths up to 4096 at 1, 4 and 7
   splits; the paged serve run's decode shape, 8 rows of 560 tokens on a
   36-page table, at 1 and 2 splits), and the first of them again in pages
-  of 64.
+  of 64;
+* K3q/K4q over int8 and over fp8 pools (``cache.quant`` codes of normal
+  values and their per-page scales) at the paged serve run (a)'s decode
+  shape, 8 rows of 560 tokens on a 36-page table at 1 and 2 splits, and at
+  run (b)'s, one row of 4096 tokens on a 260-page table at 1, 2, 4 and 8
+  splits: whatever ``paged_flash_decode`` runs in that checkout for bf16 q
+  over a quantized pool.
 
 Per case it reports:
 
@@ -46,6 +53,7 @@ import sys
 
 RAGGED = [4096, 0, 3001, 17, 2048, 4000, 1, 1500]
 CASES = (   # label, page size (0: dense), Hq, Hkv, D, window, splits, live width, lengths
+    #           [, quantized pool's kv_dtype]
     ("llama3-8b", 0, 32, 8, 128, None, (1, 4, 7), 4096, "ragged"),
     ("hymba global", 0, 25, 5, 64, None, (1, 4), 4096, "ragged"),
     ("hymba window 1024", 0, 25, 5, 64, 1024, (1, 4), 4096, "ragged"),
@@ -58,7 +66,12 @@ CASES = (   # label, page size (0: dense), Hq, Hkv, D, window, splits, live widt
     # column chunk, as the dense kernel's.
     ("paged llama3-8b, table 4096, pages of 64", 64, 32, 8, 128, None, (1, 4), 4096,
      "ragged"),
-)
+) + tuple(
+    case for kv in ("int8", "fp8") for case in (
+        (f"paged {kv} serve decode (a), 8 x 560", 16, 32, 8, 128, None, (1, 2), 576,
+         "paged serve", kv),
+        (f"paged {kv} serve decode (b), 1 x 4096, table 260", 16, 32, 8, 128, None,
+         (1, 2, 4, 8), 4160, "lone", kv)))
 STRESS_RUNS = 100
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,6 +85,7 @@ def run_one(root: str, tag: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
+    from repro_torch.cache import quant
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dd
     from repro_torch.kernels import paged_decode_attention as pd
@@ -88,23 +102,30 @@ def run_one(root: str, tag: str) -> None:
         "ragged": RAGGED,
         "serve": [n + 32 for n in (100, 300, 600, 900, 1100, 1300, 1450, 1500)],
         "paged serve": [560] * 8,
+        "lone": [4096],
     }
     times = {}
-    for label, page, hq, hkv, d, window, splits, width, lens in CASES:
+    for label, page, hq, hkv, d, window, splits, width, lens, *kv in CASES:
         lens = torch.tensor(lengths[lens], dtype=torch.int32, device="cuda")
-        q = randn(8, hq, d)
+        b = len(lens)
+        q = randn(b, hq, d)
         if not page:
             kc, vc = (randn(8, hkv, 4096, d)[:, :, :width] for _ in range(2))
             plain, fn, names = dd.flash_decode_plain, dd.flash_decode, ("dense_decode",)
             args, extra = (q, kc, vc, lens), dict(window=window, chunk=64)
         else:
-            num_pages = 1 + 8 * (width // page)
+            num_pages = 1 + b * (width // page)
             kp, vp = randn(hkv, num_pages, page, d), randn(hkv, num_pages, page, d)
             perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
-            table = perm.reshape(8, width // page).to(torch.int32).contiguous()
+            table = perm.reshape(b, width // page).to(torch.int32).contiguous()
             plain, fn, names = pd.paged_flash_decode_plain, pd.paged_flash_decode, (
                 "paged_decode",)
-            args, extra = (q, kp, vp, table, lens), dict(window=window)
+            extra = dict(window=window)
+            if kv:
+                (kp, k_sc), (vp, v_sc) = (quant.quantize_pages(x.float(), kv[0])
+                                          for x in (kp, vp))
+                extra.update(k_scales=k_sc, v_scales=v_sc)
+            args = (q, kp, vp, table, lens)
         for ns in splits:
             kw = dict(extra, num_splits=ns)
             ref = plain(*args, **kw)
