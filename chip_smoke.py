@@ -32,14 +32,16 @@ and prints no result. Phases, in order (any failure exits non-zero):
      yardstick; K3 / K4 in float32 (the CUDA-core kernels) at B 8, lengths
      up to 4096, 1 and 4 splits, held at 2e-5 and timed. Then K3q / K4q and
      K2q, the same kernels over int8 and fp8 pools (codes and per-page
-     scales; K3q / K4q of bf16 q on the tensor cores, the codes widened to
-     bf16 and the scales folded into S and P, everything else on the CUDA
-     cores), at those shapes, the serve run (a)'s decode shape with rows
-     frozen on a null page of NaN scales and run (b)'s at 1, 2, 4 and 8
-     splits: bf16 q against the plain version per row, float32 q at 2e-5,
-     against the unquantized bf16 kernel within the JAX suite's budget
-     (int8 0.03, fp8 0.12), ten reruns bitwise equal, each timed beside the
-     CUDA-core walk it replaced. Then the split-K
+     scales; bf16 q on the tensor cores: K3q / K4q with the codes widened
+     to bf16 and the scales folded into S and P, K2q with each code times
+     its page's scale rounded to bf16 into K2's stages, bit for bit K2 over
+     the dequantized values; float32 q on the CUDA cores), at those shapes,
+     the serve run (a)'s decode and extend shapes with rows frozen on a
+     null page of NaN scales and run (b)'s at 1, 2, 4 and 8 splits: bf16 q
+     against the plain version per row, float32 q at 2e-5, against the
+     unquantized bf16 kernel within the JAX suite's budget (int8 0.03, fp8
+     0.12), ten reruns bitwise equal, each timed beside the CUDA-core walk
+     it replaced. Then the split-K
      estimator's modelled
      decode times beside the measured ones, and the fixed cost per call of
      the split path over the one-pass path; then K5
@@ -72,8 +74,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
      prefill logits and its decode tick's logits from the graph, and the
      greedy ids (``compare_sync``). Then (a) and (b) again over int8 and
      over fp8 pools (K2q on (a)'s extend wave, K3q and K4q in the decode
-     graphs, every launch counted, every K3q / K4q launch on the tensor
-     cores, none on an unquantized paged kernel),
+     graphs, every launch counted, every K2q / K3q / K4q launch on the
+     tensor cores, none on an unquantized paged kernel),
      each held to the plain path on the same format by ``compare_sync``, its
      logits against the bf16 pool's printed, and the pool's bytes; then the
      host tier: a 48-page pool with 1 GiB of host memory behind it, a
@@ -213,10 +215,11 @@ KERNELS = {
     "K9": dict(name="K9 ssd_intra_chunk (float32, tensor cores in 3xTF32)",
                source="src/repro_torch/csrc/ssd.cu",
                replaces="src/repro/kernels/ssd.py:83", counter="ssd_intra_chunk_tc"),
-    "K2q": dict(name="K2q paged_flash_prefill, quantized pool (int8 codes, bf16 q, CUDA cores)",
+    "K2q": dict(name="K2q paged_flash_prefill, quantized pool (int8 codes, bf16 q, tensor "
+                     "cores)",
                 source="src/repro_torch/csrc/paged_prefill.cu",
                 replaces="src/repro/kernels/paged_prefill_attention.py:277",
-                counter="paged_flash_prefill_q"),
+                counter="paged_flash_prefill_q_tc"),
     "K3q": dict(name="K3q paged_flash_decode, quantized pool (int8 codes, bf16 q, tensor cores)",
                 source="src/repro_torch/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/paged_decode_attention.py:262",
@@ -733,7 +736,9 @@ def check_quantized(torch, timer, results, gen):
     """K3q / K4q (paged decode of bf16 q over int8 and fp8 pools, one pass
     and split-K, on the tensor cores: the codes widened to bf16 in shared
     memory, the page scales folded into S's and P's columns) and K2q (paged
-    prefill over a quantized prefix, on the CUDA cores). Each pool is made
+    prefill of bf16 q over a quantized prefix, on the tensor cores: each
+    code times its page's scale rounded once to bf16 into K2's stages).
+    Each pool is made
     from float32 normal values; its null page (0) is then overwritten as
     rows frozen on it leave it: NaN scales, and codes that are NaN bits in
     e4m3 (0x7F). Tables pad with the null page past each row's live pages.
@@ -743,18 +748,22 @@ def check_quantized(torch, timer, results, gen):
     null page (one pass and 2 splits), then run (b)'s, one row of 4096
     tokens on a 260-page table at 1, 2, 4 and 8 splits beside the split
     estimator's choice for the format. Prefill: B 2, prefix 1000 (a
-    64-page table, the last null), tail 256, the second row live to 219.
+    64-page table, the last null), tail 256, the second row live to 219,
+    then the serve run (a)'s extend shape, 7 rows of prefix 256 on 16 pages
+    and tail 256; K2q's output must be bit for bit K2's over bf16 pools of
+    the dequantized values.
     Bars: bf16 q against the plain version per live row within ROW_TOL,
     float32 q (the CUDA-core kernels) within F32_TOL, each against the
     unquantized bf16 kernel on the same values within QTOL (an fp8 row of
     fewer keys than a page within QTOL plus the largest error of its own
     dequantized V codes against the bf16 values); live rows finite,
     length-0 rows and rows past tail_len exactly zero; every launch on its
-    entry (bf16 q's decode on the tensor cores); ten reruns of each decode
-    case bitwise equal, the frozen rows' NaNs too. Times: CUDA-event
-    medians, primed, L2 flushed; each decode case's tensor-core kernel and
-    the CUDA-core walk it replaced (``paged_flash_decode_q_cuda_cores``) in
-    turns, new, old, old, new. Bound: codes at 1 B for each live position,
+    entry (bf16 q on the tensor cores); ten reruns of each case bitwise
+    equal, the frozen rows' NaNs too. Times: CUDA-event medians, primed, L2
+    flushed; each case's tensor-core kernel and the CUDA-core walk it
+    replaced (``paged_flash_decode_q_cuda_cores``,
+    ``paged_flash_prefill_q_cuda_cores``) in turns, new, old, old, new,
+    K2q beside K2 on bf16 pools. Bound: codes at 1 B for each live position,
     the scales of the live pages, q, the tail, out and the table over 3.35
     TB/s, against the operations over the peak of q's type: int8 and e4m3
     codes are exact in bf16 and the scale factors out of each product, so
@@ -885,49 +894,76 @@ def check_quantized(torch, timer, results, gen):
                                         bound_ms=qb[0], bound_by=qb[1], library_ms=None)
             del xk, xv, kc, vc, ks, vs, kb, vb, q, o, o_ref, o_old, o32, o32_ref, o_bf
 
-        # K2q: B 2, prefix 1000 on a 64-page table (the last entry null), tail 256.
-        b, plen, st, tlens = 2, 1000, 256, [256, 219]
-        mp = -(-plen // PS) + 1
-        (xk, kc, ks), (xv, vc, vs) = pools(1 + b * mp, kv_dtype)
-        table = table_of([plen] * b, mp)
-        randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-        q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
-        plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
-        tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
-        kw = dict(k_scales=ks, v_scales=vs)
-        run = lambda: pp.paged_flash_prefill(q, kc, vc, table, kt, vt, plens, tl, **kw)
-        kernels.reset_launch_counts()
-        o = run()
-        routed = only(kernels.launch_counts(), KERNELS["K2q"]["counter"])
-        o_ref = pp.paged_flash_prefill_plain(q, kc, vc, table, kt, vt, plens, tl, **kw)
-        f32 = [t.float() for t in (q, kt, vt)]
-        o32 = pp.paged_flash_prefill(f32[0], kc, vc, table, f32[1], f32[2], plens, tl, **kw)
-        o32_ref = pp.paged_flash_prefill_plain(f32[0], kc, vc, table, f32[1], f32[2], plens,
-                                               tl, **kw)
-        kb, vb = xk.to(torch.bfloat16), xv.to(torch.bfloat16)
-        o_bf = pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens, tl)
-        torch.cuda.synchronize()
-        past = sum(float(o[i, :, t:].float().abs().sum()) for i, t in enumerate(tlens))
-        ok = routed and past == 0.0 and bool(torch.isfinite(o.float()).all())
-        name = f"K2q {kv_dtype} prefix 1000 (64-page table) tail 256"
-        check(name, ok, row_err(o, o_ref), err(o32, o32_ref), o, o_bf,
-              torch.full((b,), QTOL[kv_dtype], device="cuda"))
-        pairs = HQ * sum(t * plen + t * (t + 1) // 2 for t in tlens)
-        kq = bound(2 * HKV * D * plen * b + 2 * HKV * b * (mp - 1) * 4
-                   + nbytes(q, kt, vt, o, table, plens, tl), 4.0 * D * pairs, PEAK_BF16_FLOPS)
-        ms = timer.ms(run, primed=True)
-        plain_ms = timer.ms(lambda: pp.paged_flash_prefill_plain(q, kc, vc, table, kt, vt,
-                                                                 plens, tl, **kw))
-        bf_ms = timer.ms(lambda: pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens, tl),
-                         primed=True)
-        log(f"{name}: rows past tail_len sum |o| {past}; {ms:.4f} ms (queue primed), plain "
-            f"{plain_ms:.3f} ms, the bf16 tensor-core kernel on bf16 pools {bf_ms:.4f} ms, "
-            f"bound {kq[0]:.5f} ms ({kq[1]})")
-        if kv_dtype == "int8":
-            results["K2q"] = dict(max_abs_err=err(o, o_ref), ms=ms, plain_ms=plain_ms,
-                                  bound_ms=kq[0], bound_by=kq[1], library_ms=None)
-        del xk, xv, kc, vc, ks, vs, kb, vb, q, kt, vt, o, o_ref, o32, o32_ref, o_bf
+        # K2q, bf16 q on the tensor cores: B 2, prefix 1000 on a 64-page
+        # table (the last entry null), tail 256 (the JSON line takes int8
+        # here); then the serve extend shape, 7 rows of prefix 256 on 16
+        # pages and tail 256.
+        for label, b, plen, mp, tlens, timed in (
+                ("prefix 1000 (64-page table) tail 256", 2, 1000, 64, [256, 219], True),
+                ("serve extend shape, B 7 x prefix 256 (16 pages) tail 256", 7, 256, 16,
+                 [256] * 7, False)):
+            st = max(tlens)
+            (xk, kc, ks), (xv, vc, vs) = pools(1 + b * mp, kv_dtype)
+            table = table_of([plen] * b, mp)
+            randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
+            plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+            tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
+            kw = dict(k_scales=ks, v_scales=vs)
+            run = lambda: pp.paged_flash_prefill(q, kc, vc, table, kt, vt, plens, tl, **kw)
+            old = lambda: pp.paged_flash_prefill_q_cuda_cores(q, kc, vc, table, kt, vt, plens,
+                                                              tl, **kw)
+            kernels.reset_launch_counts()
+            o = run()
+            counter = KERNELS["K2q"]["counter"]
+            routed = only(kernels.launch_counts(), counter, counter[:-len("_tc")])
+            o_ref = pp.paged_flash_prefill_plain(q, kc, vc, table, kt, vt, plens, tl, **kw)
+            o_old = old()
+            f32 = [t.float() for t in (q, kt, vt)]
+            o32 = pp.paged_flash_prefill(f32[0], kc, vc, table, f32[1], f32[2], plens, tl, **kw)
+            o32_ref = pp.paged_flash_prefill_plain(f32[0], kc, vc, table, f32[1], f32[2], plens,
+                                                   tl, **kw)
+            kb, vb = xk.to(torch.bfloat16), xv.to(torch.bfloat16)
+            o_bf = pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens, tl)
+            # K2 over bf16 pools of the dequantized values: K2q's bits.
+            kd, vd = (quant.dequantize_pages(c, sc).to(torch.bfloat16) for c, sc in
+                      ((kc, ks), (vc, vs)))
+            o_deq = pp.paged_flash_prefill(q, kd, vd, table, kt, vt, plens, tl)
+            same = all(torch.equal(run(), o) for _ in range(10))
+            torch.cuda.synchronize()
+            bitwise = torch.equal(o, o_deq)
+            past = sum(float(o[i, :, t:].float().abs().sum()) for i, t in enumerate(tlens))
+            ok = (routed and past == 0.0 and bitwise and same
+                  and bool(torch.isfinite(o.float()).all()))
+            name = f"K2q {kv_dtype} {label}"
+            log(f"{name}: routed to {counter} {routed}, bitwise equal to K2 on bf16 pools of "
+                f"the dequantized values {bitwise}, rows past tail_len sum |o| {past}, 10 "
+                f"reruns bitwise equal {same}, the CUDA-core walk's row-relative error "
+                f"{row_err(o_old, o_ref):.3e}")
+            check(name, ok, row_err(o, o_ref), err(o32, o32_ref), o, o_bf,
+                  torch.full((b,), QTOL[kv_dtype], device="cuda"))
+            pairs = HQ * sum(t * plen + t * (t + 1) // 2 for t in tlens)
+            pages = b * -(-plen // PS)
+            kq = bound(2 * HKV * D * plen * b + 2 * HKV * pages * 4
+                       + nbytes(q, kt, vt, o, table, plens, tl), 4.0 * D * pairs,
+                       PEAK_BF16_FLOPS)
+            turns = [timer.ms(fn, primed=True) for fn in (run, old, old, run)]
+            ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            plain_ms = (timer.ms(lambda: pp.paged_flash_prefill_plain(
+                q, kc, vc, table, kt, vt, plens, tl, **kw)) if timed else float("nan"))
+            bf_ms = timer.ms(lambda: pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens,
+                                                            tl), primed=True)
+            log(f"{name}: {ms:.4f} ms (queue primed; turns {turns[0]:.4f}, {turns[3]:.4f}), "
+                f"the CUDA-core walk it replaced {old_ms:.4f} ms (turns {turns[1]:.4f}, "
+                f"{turns[2]:.4f}), plain {plain_ms:.3f} ms, the bf16 tensor-core kernel on "
+                f"bf16 pools {bf_ms:.4f} ms ({ms / bf_ms:.3f}x), bound {kq[0]:.5f} ms "
+                f"({kq[1]})")
+            if timed and kv_dtype == "int8":
+                results["K2q"] = dict(max_abs_err=err(o, o_ref), ms=ms, plain_ms=plain_ms,
+                                      bound_ms=kq[0], bound_by=kq[1], library_ms=None)
+            del xk, xv, kc, vc, ks, vs, kb, vb, kd, vd, q, kt, vt, o, o_ref, o_old, o32
+            del o32_ref, o_bf, o_deq, f32
 
 
 def check_backward(torch, timer, results):
@@ -1415,8 +1451,9 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
     extend wave, then K3q in the decode graph; (b) K1 and K4q (2 splits over
     260 pages). The launch counts are set to 0 just before each format's
     two runs and read just after: K2q, K3q and K4q must each have launched,
-    every K3q / K4q launch on the tensor-core kernel, and no decode or
-    extend launch may have gone to an unquantized kernel.
+    every one of their launches on a tensor-core kernel, and no decode or
+    extend launch may have gone to an unquantized kernel. Each run's TTFT
+    (host clock) is printed, informative only.
     Then one sync of each run, kernel path against the plain path on the
     same format (``compare_sync``, LOGIT_TOL), and, informative only, each
     run's logits against the bf16 pool's (``bf16_logits``, from ``serve``):
@@ -1446,8 +1483,10 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
             secs = time.perf_counter() - t
             st, b = engine.stats(), engine.backend
             bf16_bytes = 2 * cfg.n_layers * HKV * PS * D * 2 * b.pool.num_pages
+            ttft = sorted(engine.ttft[o.uid] * 1e3 for o in out)
             log(f"serve {kv_dtype} ({label}): {len(out)} requests, "
-                f"{sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; decode "
+                f"{sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; TTFT ms min "
+                f"{ttft[0]:.1f} median {statistics.median(ttft):.1f} max {ttft[-1]:.1f}; decode "
                 f"{st.decode_tok_s:.1f} tok/s (host clock, CUDA graphs); the last sync's graph "
                 f"replay {b.decode_tick_s * 1e3:.3f} ms a tick (CUDA events); prefix hit rate "
                 f"{st.prefix_hit_rate:.3f}; pool {b.kv_pool_bytes() / 2**20:.1f} MiB with its "
@@ -1463,6 +1502,12 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
         for key in ("K2q", "K3q", "K4q"):
             if counts[KERNELS[key]["counter"]] <= 0:
                 raise AssertionError(f"{key} was not launched on the {kv_dtype} serve path")
+        prefill_q = counts["paged_flash_prefill_q"]
+        prefill_q_tc = counts["paged_flash_prefill_q_tc"]
+        log(f"{kv_dtype} serve: K2q launches {prefill_q}, on the tensor cores {prefill_q_tc}")
+        if prefill_q_tc != prefill_q:
+            raise AssertionError(f"{kv_dtype} serve: {prefill_q - prefill_q_tc} K2q launches "
+                                 "missed the tensor-core kernel")
         decode_q = counts["paged_flash_decode_q"] + counts["paged_flash_decode_split_q"]
         decode_q_tc = counts["paged_flash_decode_q_tc"] + counts["paged_flash_decode_split_q_tc"]
         log(f"{kv_dtype} serve: K3q / K4q launches {decode_q}, on the tensor cores {decode_q_tc}")

@@ -128,14 +128,6 @@ __device__ __forceinline__ void ring_init(uint8_t* smem) {
   bars_init(full_bars<Ring<D>>(smem), empty_bars<Ring<D>>(smem), Ring<D>::STAGES, 1, MT);
 }
 
-// Byte offset of 16-byte chunk m (codes 16 m .. 16 m + 15) of row `row` in
-// a tile of D-byte code rows written by TMA with the row's swizzle (128
-// bytes at D 128, 64 at D 64: the chunk index XOR address bits 7 and up).
-template <int D>
-__device__ __forceinline__ uint32_t code_offset(int row, int m) {
-  return (uint32_t)(row * D + ((m ^ ((row * D >> 7) & (D / 16 - 1))) << 4));
-}
-
 // d = a * b + c on bf16 pairs, rounded to nearest.
 __device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t d;
@@ -187,7 +179,7 @@ __device__ __forceinline__ void widen_tile(const uint8_t* codes, uint8_t* own, i
     const int u = j * 32 + lane;
     const int row = u / CH;
     const int m = u - row * CH;
-    const uint4 c = *reinterpret_cast<const uint4*>(codes + code_offset<D>(row, m));
+    const uint4 c = *reinterpret_cast<const uint4*>(codes + hopper::code_offset<D>(row, m));
     uint4 lo, hi;
     Code::widen4(c.x, lo.x, lo.y);
     Code::widen4(c.y, lo.z, lo.w);

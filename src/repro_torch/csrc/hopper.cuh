@@ -337,6 +337,15 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int seg, int rows) {
   return (uint32_t)((seg >> 3) * rows * 128 + row * 128 + (((seg & 7) ^ (row & 7)) << 4));
 }
 
+// Byte offset of 16-byte chunk m (codes 16 m .. 16 m + 15) of row `row` in
+// a tile of D-byte code rows written by TMA with the row's swizzle
+// (make_map_3d_u8: 128 bytes at D 128, 64 at D 64, the chunk index XOR
+// address bits 7 and up).
+template <int D>
+__device__ __forceinline__ uint32_t code_offset(int row, int m) {
+  return (uint32_t)(row * D + ((m ^ ((row * D >> 7) & (D / 16 - 1))) << 4));
+}
+
 // Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
 // row l % 8 of matrix l / 8; register i holds this lane's pair of matrix i
 // (row lane / 4, columns 2 (lane % 4) and + 1), or with .trans of its

@@ -50,14 +50,25 @@
 //     before the release (without it 14-18 of 100 decode runs were wrong).
 //   - Hangs. mbar_wait traps after ~10 s, so a barrier fault fails the
 //     launch instead of hanging the card.
+// * paged_prefill_q_tc_kernel (K2q), bf16 q over a quantized pool, the
+//   scale branch of the TPU kernel (:134-141): int8 or float8_e4m3fn prefix
+//   codes with one float32 scale per (kv head, physical page) for K and V
+//   (every prefix-hit prefill over an int8 or fp8 pool). The kernel above,
+//   with the whole producer warpgroup widening each stage of codes,
+//   TMA-loaded a page per box, into a bf16 stage of K2's layout: each
+//   code times its page's scale, rounded once to bf16. The consumers are
+//   K2's, unchanged, so the output is bit for bit K2's over a bf16 pool of
+//   the dequantized values (dequantize_pages(...).to(bfloat16)); the
+//   widening runs under the consumers' wgmma. It takes 208 of the 3 x 168
+//   registers for each consumer thread and 88 for the producer warpgroup's.
 // * paged_prefill_kernel, float32 arithmetic on the CUDA cores over
 //   prefill_tile.cuh (shared with K1's float32 kernel), for two inputs. A
 //   float32 pool: the tensor cores take float32 only as TF32 (~3 decimal
-//   digits). A quantized pool, the scale branch of the TPU kernel
-//   (:134-141): int8 or float8_e4m3fn prefix codes with one float32 scale
-//   per (kv head, physical page) for K and V, widened and scaled where each
-//   prefix row is staged; q, the fresh tail and o in float32 or bf16. The
-//   bf16 tensor-core kernel above takes no codes (ROADMAP Queue B). The Pallas kernel
+//   digits). A quantized pool with float32 q (and with bf16 q only when a
+//   caller asks for it, paged_flash_prefill_q_cuda_cores: the design K2q
+//   replaced, kept to time one against the other): each code widened and
+//   scaled where its prefix row is staged; q, the fresh tail and o in
+//   float32 or bf16. The Pallas kernel
 //   folds the whole GQA group and padded tail into one q block of group *
 //   St rows; here the folded rows are tiled 64 at a time, position-major
 //   (row = i * group + g), so each prefix page is read once per (b, kv
@@ -277,6 +288,73 @@ struct PagedWalk {
 // column chunks x BN / ps pages over 32 lanes, at most 2 (ps 8, D 128).
 constexpr int MAX_BOXES = 2;
 
+// A block's place in the grid and its walk: blocks run head-first
+// (decode_block, order 0), so the q heads of a GQA group sit on consecutive
+// blocks. The prefix tiles hold pages first_page .. last_page, BN / ps of
+// them a stage (slots past last_page load it again).
+struct Block {
+  int b, h, hk, q0, first_page, last_page, ntiles;
+  PagedWalk walk;
+};
+
+__device__ __forceinline__ Block block_of(const int* __restrict__ prefix_len,
+                                          const int* __restrict__ tail_len, int Hq, int Hkv,
+                                          int St, int ps, int mp, int window) {
+  Block blk;
+  int mb;
+  decode_block((St + BM - 1) / BM, Hq, 0, blk.b, blk.h, mb);
+  blk.hk = blk.h / (Hq / Hkv);
+  blk.q0 = mb * BM;
+  const int plen = prefix_len[blk.b];
+  const int tlen = tail_len[blk.b];
+  const int live = min(plen, mp * ps);
+  // The rows q0 .. q_hi of this tile that attend anything; none if q0 is at
+  // or past the live tail.
+  const int q_hi = min(min(blk.q0 + BM, tlen), St) - 1;
+  int n_pref = 0, n_tail = 0, tail_lo = 0;
+  blk.first_page = blk.last_page = 0;
+  const int per_stage = BN / ps;
+  if (q_hi >= blk.q0) {
+    // Prefix: the pages from the one holding the first column row q0 sees.
+    const int lo = window > 0 ? max(0, plen + blk.q0 - window + 1) : 0;
+    if (lo < live) {
+      blk.first_page = lo / ps;
+      blk.last_page = (live - 1) / ps;
+      n_pref = (blk.last_page - blk.first_page + per_stage) / per_stage;
+    }
+    // Tail: 128-key tiles from the first one row q0 sees to row q_hi's.
+    tail_lo = window > 0 ? max(0, blk.q0 - window + 1) / BN : 0;
+    n_tail = q_hi / BN + 1 - tail_lo;
+  }
+  blk.walk = PagedWalk{n_pref, blk.first_page * ps, tail_lo * BN, live, plen, tlen, window};
+  blk.ntiles = n_pref + n_tail;
+  return blk;
+}
+
+// Lane 0 of the producer warp: the Q tile, and the K / V boxes of tail tile
+// t (one 128-row box per column chunk) into stage st.
+template <int D>
+__device__ __forceinline__ void load_tail(uint8_t* smem, uint64_t* bar, const CUtensorMap* ttk,
+                                          const CUtensorMap* ttv, int row, int plane, int st) {
+  using L = ptc::Smem<D>;
+  hopper::mbar_expect_tx(bar, 2 * L::TILE);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load_3d(smem + L::K + st * L::TILE + c * BN * 128, ttk, bar, c * 64, row, plane);
+    hopper::tma_load_3d(smem + L::V + st * L::TILE + c * BN * 128, ttv, bar, c * 64, row, plane);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void load_q(uint8_t* smem, const CUtensorMap* tq, int q0, int plane) {
+  using L = ptc::Smem<D>;
+  uint64_t* qbar = ptc::q_bar<D>(smem);
+  hopper::mbar_expect_tx(qbar, BM * D * 2);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    hopper::tma_load_3d(smem + L::Q + c * BM * 128, tq, qbar, c * 64, q0, plane);
+}
+
 template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
@@ -292,32 +370,9 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   using L = ptc::Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = ptc::setup<D>(smem_raw);
-
-  int b, h, mb;
-  decode_block((St + BM - 1) / BM, Hq, 0, b, h, mb);
-  const int hk = h / (Hq / Hkv);
-  const int q0 = mb * BM;
-  const int plen = prefix_len[b];
-  const int tlen = tail_len[b];
-  const int live = min(plen, mp * ps);
-  // The rows q0 .. q_hi of this tile that attend anything; none if q0 is at
-  // or past the live tail.
-  const int q_hi = min(min(q0 + BM, tlen), St) - 1;
-  int n_pref = 0, n_tail = 0, first_page = 0, last_page = 0, tail_lo = 0;
+  const Block blk = block_of(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
+  const int n_pref = blk.walk.n_pref;
   const int per_stage = BN / ps;
-  if (q_hi >= q0) {
-    // Prefix: the pages from the one holding the first column row q0 sees.
-    const int lo = window > 0 ? max(0, plen + q0 - window + 1) : 0;
-    if (lo < live) {
-      first_page = lo / ps;
-      last_page = (live - 1) / ps;
-      n_pref = (last_page - first_page + per_stage) / per_stage;
-    }
-    // Tail: 128-key tiles from the first one row q0 sees to row q_hi's.
-    tail_lo = window > 0 ? max(0, q0 - window + 1) / BN : 0;
-    n_tail = q_hi / BN + 1 - tail_lo;
-  }
-  const PagedWalk walk{n_pref, first_page * ps, tail_lo * BN, live, plen, tlen, window};
 
   if (threadIdx.x / 128 == 2) {
     // Producer: warp 8 keeps the ring full; its lanes issue a prefix
@@ -327,58 +382,264 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     uint64_t* full = ptc::full_bars<D>(smem);
     uint64_t* empty = ptc::empty_bars<D>(smem);
     const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      uint64_t* qbar = ptc::q_bar<D>(smem);
-      mbar_expect_tx(qbar, BM * D * 2);
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        tma_load_3d(smem + L::Q + c * BM * 128, &tq, qbar, c * 64, q0, b * Hq + h);
-    }
+    if (lane == 0) load_q<D>(smem, &tq, blk.q0, blk.b * Hq + blk.h);
     // Box j = lane + 32 r of a prefix stage: K or V (j % 2), column chunk
     // (j / 2) % (D / 64), page slot (j / 2) / (D / 64) of the stage.
     const int boxes = 2 * (D / 64) * per_stage;
-    const int* table = page_table + (size_t)b * mp;
+    const int* table = page_table + (size_t)blk.b * mp;
     int page[MAX_BOXES];
     auto page_of = [&](int t, int r) {
       const int slot = ((lane + 32 * r) >> 1) / (D / 64);
-      return table[min(first_page + t * per_stage + slot, last_page)];
+      return table[min(blk.first_page + t * per_stage + slot, blk.last_page)];
     };
 #pragma unroll
     for (int r = 0; r < MAX_BOXES; ++r)
       page[r] = n_pref > 0 && lane + 32 * r < boxes ? page_of(0, r) : 0;
-    for (int t = 0; t < n_pref + n_tail; ++t) {
+    for (int t = 0; t < blk.ntiles; ++t) {
       const int st = t % STAGES;
       mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
+      if (t >= n_pref) {
+        if (lane == 0) load_tail<D>(smem, &full[st], &ttk, &ttv, blk.walk.col0(t),
+                                    blk.b * Hkv + blk.hk, st);
+        continue;
+      }
       if (lane == 0) mbar_expect_tx(&full[st], 2 * L::TILE);
       __syncwarp();
-      if (t < n_pref) {
 #pragma unroll
-        for (int r = 0; r < MAX_BOXES; ++r) {
-          const int j = lane + 32 * r;
-          if (j >= boxes) continue;
-          const int kv = j & 1;
-          const int c = (j >> 1) % (D / 64);
-          const int slot = (j >> 1) / (D / 64);
-          tma_load_3d(smem + (kv ? L::V : L::K) + st * L::TILE + c * BN * 128 +
-                          slot * ps * 128,
-                      kv ? &tpv : &tpk, &full[st], c * 64, page[r] * ps, hk);
-          if (t + 1 < n_pref) page[r] = page_of(t + 1, r);
-        }
-      } else if (lane == 0) {
-        const int row = walk.col0(t);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_3d(smem + L::K + st * L::TILE + c * BN * 128, &ttk, &full[st], c * 64, row,
-                      b * Hkv + hk);
-          tma_load_3d(smem + L::V + st * L::TILE + c * BN * 128, &ttv, &full[st], c * 64, row,
-                      b * Hkv + hk);
-        }
+      for (int r = 0; r < MAX_BOXES; ++r) {
+        const int j = lane + 32 * r;
+        if (j >= boxes) continue;
+        const int kv = j & 1;
+        const int c = (j >> 1) % (D / 64);
+        const int slot = (j >> 1) / (D / 64);
+        tma_load_3d(smem + (kv ? L::V : L::K) + st * L::TILE + c * BN * 128 + slot * ps * 128,
+                    kv ? &tpv : &tpk, &full[st], c * 64, page[r] * ps, blk.hk);
+        if (t + 1 < n_pref) page[r] = page_of(t + 1, r);
       }
     }
     return;
   }
-  ptc::consume<D, SOFTCAP, false>(smem, walk, n_pref + n_tail, q0, b * Hq + h, &to, nullptr,
-                                  St, scale, softcap);
+  ptc::consume<D, SOFTCAP, false>(smem, blk.walk, blk.ntiles, blk.q0, blk.b * Hq + blk.h, &to,
+                                  nullptr, St, scale, softcap);
+}
+
+// -- K2q: quantized prefix codes on the tensor cores -----------------------------
+
+// The code ring of paged_prefill_q_tc_kernel, after K2's shared memory
+// (ptc::Smem<D>): CSTAGES stages of K and V codes (BN rows of D bytes each,
+// swizzled over the row by TMA), each stage's K and V scales by page slot,
+// then the ring's full barriers. At D 128 that is 226.3 KB.
+constexpr int CSTAGES = 2;
+constexpr int MAX_SLOTS = BN / 8;         // pages of a stage at ps 8
+constexpr int CONVERTERS = 128;           // the producer warpgroup
+constexpr int CONVERT_BAR = 3;            // named barrier (1, 2: the consumers' epilogue)
+constexpr int Q_CONSUMER_REGS = 208;      // 2 x 208 + 88 = 3 x 168
+constexpr int Q_PRODUCER_REGS = 88;
+
+template <int D>
+struct QSmem {
+  static constexpr int CTILE = BN * D;
+  static constexpr int K = (ptc::Smem<D>::BAR + 8 * (2 * STAGES + 1) + 1023) / 1024 * 1024;
+  static constexpr int V = K + CSTAGES * CTILE;
+  static constexpr int SCALES = V + CSTAGES * CTILE;   // float [CSTAGES][K, V][MAX_SLOTS]
+  static constexpr int BAR = SCALES + CSTAGES * 2 * MAX_SLOTS * 4;   // full[CSTAGES]
+  static constexpr size_t bytes = BAR + 8 * CSTAGES + 1024;          // + base alignment
+};
+static_assert(QSmem<128>::bytes <= 232448, "K2q's shared memory exceeds a block's 227 KB");
+
+// Sixteen codes (one 16-byte chunk, code i in byte i) times a float32
+// scale, each product rounded once to bf16, as pairs (codes 2i, 2i + 1 in
+// out[i], the lower in the lower half): bit for bit what
+// dequantize_pages(codes, scales).to(bfloat16) stores. The product is one
+// float32 multiply of two exact values, never fused.
+struct Int8Scaled {
+  // An int8 code b with its sign bit flipped is the low byte of the float
+  // 2^23 + b + 128; less 2^23 + 128 that is b, exactly.
+  __device__ static __forceinline__ void widen16(const uint4& c, float s, uint32_t (&out)[8]) {
+    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t x = w[i] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 + j)) - 8388736.f;
+      out[2 * i] = hopper::pack_bf16(f[0] * s, f[1] * s);
+      out[2 * i + 1] = hopper::pack_bf16(f[2] * s, f[3] * s);
+    }
+  }
+};
+
+struct E4m3Scaled {
+  // e4m3 -> f16 is exact (cvt.rn.f16x2.e4m3x2), and f16 -> f32 too.
+  __device__ static __forceinline__ void widen16(const uint4& c, float s, uint32_t (&out)[8]) {
+    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w[i / 2] >> (16 * (i % 2))), __NV_E4M3));
+      const float2 f = __half22float2(h);
+      out[i] = hopper::pack_bf16(f.x * s, f.y * s);
+    }
+  }
+};
+
+// K2q: bf16 q over int8 or float8_e4m3fn prefix codes. K2's walk and K2's
+// consumer warpgroups, fed bf16 stages laid out as K2's by the producer
+// warpgroup. Its first warp loads each prefix page's K and V codes as one
+// box of a uint8 map (D bytes by ps rows) into the code ring, a lane a box,
+// after that lane stores the page's scale into the stage's slot (its
+// expect-tx arrival orders the store before the wait), and the tail's bf16
+// boxes straight into the bf16 ring, as K2 does. Between those, all four
+// warps widen each prefix code stage into the bf16 stage: each code times
+// its page's scale rounded once to bf16, positions at or past the live
+// prefix written as 0 by select (a frozen row's null page holds NaN scales
+// and e4m3 NaN codes: 0 * NaN is NaN in an mma). Each thread then fences
+// the proxy (wgmma reads the bf16 stage next and TMA rewrites the code
+// stage, both in the async proxy), a named barrier joins the warpgroup,
+// one thread arrives on the bf16 stage's full barrier, and the first warp
+// refills the code stage two tiles ahead. A bf16 stage is so filled by the
+// warpgroup's stores for a prefix tile and by TMA for a tail tile, either
+// way completing on one arrival; the one warpgroup waits on every empty
+// barrier in tile order, so no parity can match a phase two behind.
+template <int D, bool SOFTCAP, class Code>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tck,
+                          const __grid_constant__ CUtensorMap tcv,
+                          const __grid_constant__ CUtensorMap ttk,
+                          const __grid_constant__ CUtensorMap ttv,
+                          const __grid_constant__ CUtensorMap to,
+                          const float* __restrict__ ks_tab, const float* __restrict__ vs_tab,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ prefix_len, const int* __restrict__ tail_len,
+                          int Hq, int Hkv, int St, int P, int ps, int mp, float scale,
+                          int window, float softcap) {
+  using namespace hopper;
+  using L = ptc::Smem<D>;
+  using QL = QSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = ptc::setup<D>(smem_raw);
+  const Block blk = block_of(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
+  const int n_pref = blk.walk.n_pref;
+  const int per_stage = BN / ps;
+  uint64_t* cfull = reinterpret_cast<uint64_t*>(smem + QL::BAR);
+  float* scales = reinterpret_cast<float*>(smem + QL::SCALES);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < CSTAGES; ++s) mbar_init(&cfull[s], 2 * per_stage);   // a box each
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 256) {
+    ptc::consume<D, SOFTCAP, false, Q_CONSUMER_REGS>(smem, blk.walk, blk.ntiles, blk.q0,
+                                                     blk.b * Hq + blk.h, &to, nullptr, St, scale,
+                                                     softcap);
+    return;
+  }
+  regs_dealloc<Q_PRODUCER_REGS>();
+  uint64_t* full = ptc::full_bars<D>(smem);
+  uint64_t* empty = ptc::empty_bars<D>(smem);
+  const int ct = threadIdx.x - 256;   // 0 .. 127
+  const int lane = ct & 31;
+  const bool loader = ct < 32;
+
+  // Lane j < 2 * per_stage of the first warp loads K (j even) or V codes of
+  // page slot j / 2 of each prefix stage, its page id and scale read one
+  // stage ahead.
+  const int kv_box = lane & 1;
+  const int slot = lane >> 1;
+  const bool mine = loader && slot < per_stage && n_pref > 0;
+  const int* table = page_table + (size_t)blk.b * mp;
+  const float* tab = (kv_box ? vs_tab : ks_tab) + (size_t)blk.hk * P;
+  auto page_of = [&](int t) {
+    return table[min(blk.first_page + t * per_stage + slot, blk.last_page)];
+  };
+  int page = mine ? page_of(0) : 0;
+  float page_scale = mine ? tab[page] : 0.f;
+  auto load_codes = [&](int t) {
+    const int cs = t % CSTAGES;
+    scales[(cs * 2 + kv_box) * MAX_SLOTS + slot] = page_scale;
+    mbar_expect_tx(&cfull[cs], ps * D);
+    tma_load_3d(smem + (kv_box ? QL::V : QL::K) + cs * QL::CTILE + slot * ps * D,
+                kv_box ? &tcv : &tck, &cfull[cs], 0, page * ps, blk.hk);
+    if (t + 1 < n_pref) {
+      page = page_of(t + 1);
+      page_scale = tab[page];
+    }
+  };
+  if (loader && lane == 0) load_q<D>(smem, &tq, blk.q0, blk.b * Hq + blk.h);
+  if (mine) {
+    for (int t = 0; t < min(n_pref, CSTAGES); ++t) load_codes(t);
+  }
+
+  // Thread ct widens units ct + 128 i of a stage (i < 2 CH): K for i < CH,
+  // then V; one unit is 16-byte code chunk m of row row0 + i' RSTEP (i' = i
+  // mod CH), m and row0 fixed by ct, so that eight consecutive threads take
+  // one chunk of eight consecutive rows (their code reads and both swizzled
+  // stores each hit eight distinct bank groups) and every offset is the
+  // thread's own plus a constant.
+  constexpr int CH = D / 16;             // 16-byte code chunks a row
+  constexpr int RSTEP = 128 / CH;        // rows between a thread's units
+  const int m = (ct >> 3) % CH;
+  const int row0 = (ct >> 3) / CH * 8 + (ct & 7);
+  const uint32_t code0 = code_offset<D>(row0, m);
+  const uint32_t lo0 = sw128_offset(row0, 2 * m, BN);
+  const uint32_t hi0 = sw128_offset(row0, 2 * m + 1, BN);
+  const int ps_shift = __ffs(ps) - 1;
+  for (int t = 0; t < n_pref; ++t) {
+    const int cs = t % CSTAGES;
+    const int st = t % STAGES;
+    mbar_wait(&cfull[cs], (t / CSTAGES) & 1);
+    mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
+    const int n_live = blk.walk.live - blk.walk.col0(t);   // rows of the stage inside the prefix
+    const float* sc = scales + cs * 2 * MAX_SLOTS;
+#pragma unroll
+    for (int i = 0; i < 2 * CH; ++i) {
+      const int kv = i / CH;
+      const int row = row0 + (i % CH) * RSTEP;
+      uint8_t* dst = smem + (kv ? L::V : L::K) + st * L::TILE + (i % CH) * RSTEP * 128;
+      uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+      if (row < n_live) {
+        const uint4 c = *reinterpret_cast<const uint4*>(
+            smem + (kv ? QL::V : QL::K) + cs * QL::CTILE + code0 + (i % CH) * RSTEP * D);
+        uint32_t o[8];
+        Code::widen16(c, sc[kv * MAX_SLOTS + (row >> ps_shift)], o);
+        lo = make_uint4(o[0], o[1], o[2], o[3]);
+        hi = make_uint4(o[4], o[5], o[6], o[7]);
+      }
+      *reinterpret_cast<uint4*>(dst + lo0) = lo;
+      *reinterpret_cast<uint4*>(dst + hi0) = hi;
+    }
+    // One fence orders this thread's stores (read next by wgmma) and its
+    // code reads (overwritten next by TMA) before the async proxy's accesses.
+    fence_async_smem();
+    named_barrier_sync(CONVERT_BAR, CONVERTERS);
+    if (ct == 0) mbar_arrive(&full[st]);
+    if (mine && t + CSTAGES < n_pref) load_codes(t + CSTAGES);
+  }
+
+  // The tail, by TMA into the bf16 ring, after the prefix stages in order.
+  if (!loader) return;
+  for (int t = n_pref; t < blk.ntiles; ++t) {
+    const int st = t % STAGES;
+    mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
+    if (lane == 0) load_tail<D>(smem, &full[st], &ttk, &ttv, blk.walk.col0(t), blk.b * Hkv + blk.hk,
+                                st);
+  }
+}
+
+// The tensor maps of q, the tail and o (bf16, contiguous); 0 or the
+// status of the first that could not be encoded.
+template <int D>
+int tail_maps(CUtensorMap* tq, CUtensorMap* ttk, CUtensorMap* ttv, CUtensorMap* to,
+              const void* q, const void* kt, const void* vt, void* o, int B, int Hq, int Hkv,
+              int St) {
+  int err = hopper::make_map_3d(tq, q, D, St, B * Hq, BM);
+  if (err == 0) err = hopper::make_map_3d(ttk, kt, D, St, B * Hkv, BN);
+  if (err == 0) err = hopper::make_map_3d(ttv, vt, D, St, B * Hkv, BN);
+  if (err == 0) err = hopper::make_map_3d(to, o, D, St, B * Hq, BM / 2);
+  return err;
 }
 
 template <int D, bool SOFTCAP>
@@ -389,12 +650,9 @@ int launch(const void* q, const void* kp, const void* vp, const int* pt, const v
   const long long blocks = (long long)B * Hq * ((St + BM - 1) / BM);
   if (blocks <= 0) return 0;
   CUtensorMap tq, tpk, tpv, ttk, ttv, to;
-  int err = hopper::make_map_3d(&tq, q, D, St, B * Hq, BM);
+  int err = tail_maps<D>(&tq, &ttk, &ttv, &to, q, kt, vt, o, B, Hq, Hkv, St);
   if (err == 0) err = hopper::make_map_3d(&tpk, kp, D, P * ps, Hkv, ps);
   if (err == 0) err = hopper::make_map_3d(&tpv, vp, D, P * ps, Hkv, ps);
-  if (err == 0) err = hopper::make_map_3d(&ttk, kt, D, St, B * Hkv, BN);
-  if (err == 0) err = hopper::make_map_3d(&ttv, vt, D, St, B * Hkv, BN);
-  if (err == 0) err = hopper::make_map_3d(&to, o, D, St, B * Hq, BM / 2);
   if (err != 0) return err;
   const size_t smem = ptc::Smem<D>::bytes;
   const cudaError_t e = allow_smem(paged_prefill_tc_kernel<D, SOFTCAP>, smem);
@@ -402,6 +660,35 @@ int launch(const void* q, const void* kp, const void* vp, const int* pt, const v
   paged_prefill_tc_kernel<D, SOFTCAP><<<(unsigned)blocks, THREADS, smem, stream>>>(
       tq, tpk, tpv, ttk, ttv, to, pt, plen, tlen, Hq, Hkv, St, ps, mp, scale, window,
       softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool SOFTCAP, class Code>
+int launch_q(const void* q, const void* kc, const void* vc, const float* ks_tab,
+             const float* vs_tab, const int* pt, const void* kt, const void* vt,
+             const int* plen, const int* tlen, void* o, int B, int Hq, int Hkv, int St, int P,
+             int ps, int mp, float scale, int window, float softcap, cudaStream_t stream) {
+  const long long blocks = (long long)B * Hq * ((St + BM - 1) / BM);
+  if (blocks <= 0) return 0;
+  CUtensorMap tq, tck, tcv, ttk, ttv, to;
+  int err = tail_maps<D>(&tq, &ttk, &ttv, &to, q, kt, vt, o, B, Hq, Hkv, St);
+  if (err == 0) err = hopper::make_map_3d_u8(&tck, kc, D, P * ps, Hkv, ps);
+  if (err == 0) err = hopper::make_map_3d_u8(&tcv, vc, D, P * ps, Hkv, ps);
+  if (err != 0) return err;
+  const auto kernel = paged_prefill_q_tc_kernel<D, SOFTCAP, Code>;
+  // setmaxnreg.inc waits until the registers it asks for are free: a launch
+  // share below the roles' sum would hang the consumers, so refuse it.
+  static const int regs = [&] {
+    cudaFuncAttributes a;
+    return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
+  }();
+  if (3 * regs < 2 * Q_CONSUMER_REGS + Q_PRODUCER_REGS) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = QSmem<D>::bytes;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      tq, tck, tcv, ttk, ttv, to, ks_tab, vs_tab, pt, plen, tlen, Hq, Hkv, St, P, ps, mp,
+      scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -470,5 +757,39 @@ extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* 
     PP_TC_CASE(64, false);
   }
 #undef PP_TC_CASE
+  return -1;
+}
+
+// bfloat16 q / tail / o over int8 (fp8 0) or float8_e4m3fn (1) prefix codes
+// with (Hkv, P) float32 scale tables, on the tensor cores. Requirements and
+// returns as paged_prefill_tc's.
+extern "C" int paged_prefill_q_tc(const void* q, const void* k_codes, const void* v_codes,
+                                  const float* k_scale_tab, const float* v_scale_tab,
+                                  const int* page_table, const void* k_tail,
+                                  const void* v_tail, const int* prefix_len,
+                                  const int* tail_len, void* o, int B, int Hq, int Hkv, int St,
+                                  int P, int ps, int mp, int D, int fp8, float scale,
+                                  int window, float softcap, void* stream) {
+  if (ps <= 0 || ps % 8 || tc::BN % ps) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PQ_TC_CASE(DIM, CAP, CODE)                                                          \
+  return tc::launch_q<DIM, CAP, tc::CODE>(q, k_codes, v_codes, k_scale_tab, v_scale_tab,    \
+                                          page_table, k_tail, v_tail, prefix_len, tail_len, \
+                                          o, B, Hq, Hkv, St, P, ps, mp, scale, window,      \
+                                          softcap, s)
+#define PQ_TC_CODES(DIM, CAP)                \
+  if (fp8) PQ_TC_CASE(DIM, CAP, E4m3Scaled); \
+  PQ_TC_CASE(DIM, CAP, Int8Scaled)
+  const bool cap = softcap > 0.f;
+  if (D == 128) {
+    if (cap) { PQ_TC_CODES(128, true); }
+    PQ_TC_CODES(128, false);
+  }
+  if (D == 64) {
+    if (cap) { PQ_TC_CODES(64, true); }
+    PQ_TC_CODES(64, false);
+  }
+#undef PQ_TC_CODES
+#undef PQ_TC_CASE
   return -1;
 }

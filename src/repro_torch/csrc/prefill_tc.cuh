@@ -1,6 +1,7 @@
 // The bf16 tensor-core prefill block, shared by K1 (fa2_fwd_tc,
-// flash_attention.cu: dense K / V) and K2 (paged_prefill_tc,
-// paged_prefill.cu: prefix pages, then the dense tail). Each kernel keeps
+// flash_attention.cu: dense K / V), K2 (paged_prefill_tc, paged_prefill.cu:
+// prefix pages, then the dense tail) and K2q (paged_prefill_q_tc: the same
+// walk over prefix codes widened into bf16 stages). Each kernel keeps
 // its own producer and its own walk over KV tiles; the shared-memory
 // layout, the barriers and everything the consumer warpgroups do live here
 // once.
@@ -17,9 +18,10 @@
 // with scale * log2(e) folded into one multiply, softcap first), P rounded
 // to bf16 in place as the A-register fragment of O += P V (wgmma with V
 // MN-major, the transpose bit set). Masks run only on tiles the walk calls
-// an edge. setmaxnreg gives the consumers 240 registers (the producer
-// takes 24). O leaves through shared memory by a TMA store that drops the
-// rows past the tensor map's extent.
+// an edge. setmaxnreg gives the consumers 240 registers and the producer
+// warpgroup 24 (K2q: 208 and 88, for its widening). O leaves
+// through shared memory by a TMA store that drops the rows past the tensor
+// map's extent.
 //
 // A Walk names the block's KV tiles in order:
 //   int col0(int t)                   the column of tile t's first key;
@@ -114,8 +116,10 @@ __device__ __forceinline__ void scores(float (&s)[BN / 2], float (&mx)[2], const
 // The consumer warpgroups (threads 0 .. 255): ntiles tiles of `walk`, then
 // O of rows q0 .. q0 + 127 of plane `plane` through the map `to` (boxes of
 // 64 rows). LSE: also lse[plane * Sq + row] = m ln 2 + log l (-1e30 for a
-// row with nothing live) for rows below Sq.
-template <int D, bool SOFTCAP, bool LSE, class Walk>
+// row with nothing live) for rows below Sq. REGS: the registers setmaxnreg
+// gives each consumer thread; with the producer warpgroup's count it may sum
+// to at most 3 x 168 (the launch's share of a thread at 384 threads).
+template <int D, bool SOFTCAP, bool LSE, int REGS = 240, class Walk>
 __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int ntiles, int q0,
                                         int plane, const CUtensorMap* to, float* lse,
                                         int Sq, float scale, float softcap) {
@@ -125,7 +129,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
   uint64_t* empty = empty_bars<D>(smem);
   // Warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows row0 and
   // row0 + 8, and of every 8 columns the two at 2 (lane % 4).
-  regs_alloc<240>();
+  regs_alloc<REGS>();
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
   const int row_lo = q0 + 64 * wg;

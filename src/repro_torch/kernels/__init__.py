@@ -6,7 +6,9 @@ counts its bf16 tensor-core launches alone), K5/K6
 counters likewise), K2
 ``paged_prefill_attention.paged_flash_prefill`` (``paged_flash_prefill_tc``
 counts its bf16 tensor-core launches alone, ``paged_flash_prefill_q`` its
-launches over a quantized pool, which the other two do not count), K3/K4
+launches over a quantized pool, which the other two do not count, and
+``paged_flash_prefill_q_tc`` those of them on the tensor cores, with bf16
+q, alone), K3/K4
 ``paged_decode_attention.paged_flash_decode`` (one-pass / split-K;
 ``paged_flash_decode_tc`` and ``paged_flash_decode_split_tc`` count the
 bf16 tensor-core launches alone; ``paged_flash_decode_q`` and
@@ -50,6 +52,7 @@ _COUNTERS = {
     "paged_flash_prefill": (paged_prefill_attention, "launches", None),
     "paged_flash_prefill_tc": (paged_prefill_attention, "launches_tc", None),
     "paged_flash_prefill_q": (paged_prefill_attention, "launches_q", None),
+    "paged_flash_prefill_q_tc": (paged_prefill_attention, "launches_q_tc", None),
     "paged_flash_decode": (paged_decode_attention, "launches", "one_pass"),
     "paged_flash_decode_split": (paged_decode_attention, "launches", "split"),
     "paged_flash_decode_tc": (paged_decode_attention, "launches", "one_pass_tc"),

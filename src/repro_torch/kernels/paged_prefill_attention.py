@@ -12,11 +12,18 @@ size must then be a multiple of 8 that divides 128) and the tail in
 128-row boxes. float32 runs ``paged_prefill`` on the CUDA cores (the tensor
 cores would round it to TF32): folded (position, head) rows tiled 64 at a
 time. A quantized pool (int8 or float8_e4m3fn prefix codes with ``(Hkv,
-P)`` float32 ``k_scales`` / ``v_scales``, ``cache.quant``) runs
-``paged_prefill_q``: the float32 CUDA-core kernel with each prefix code
-widened and multiplied by its page's scale where it is staged, q, the fresh
-tail and the output in float32 or bf16 (the TPU kernel's scale branch).
-:func:`paged_flash_prefill` launches the one for its dtypes on CUDA
+P)`` float32 ``k_scales`` / ``v_scales``, ``cache.quant``) computes the TPU
+kernel's scale branch. With bf16 q it runs ``paged_prefill_q_tc`` on the
+tensor cores: the same walk and consumers, each page of codes loaded as
+one TMA box and widened by the producer warpgroup into a bf16 stage, each
+code times its page's scale rounded once to bf16, so the output is bit for bit
+``paged_prefill_tc``'s over a bf16 pool of the dequantized values; the page
+size must be a multiple of 8 that divides 128, as for a bf16 pool. With
+float32 q it runs ``paged_prefill_q``: the float32 CUDA-core kernel with
+each prefix code widened and multiplied by its page's scale where it is
+staged (:func:`paged_flash_prefill_q_cuda_cores` runs that walk for bf16 q
+too, the design the tensor-core kernel replaced, so one run can time
+both). :func:`paged_flash_prefill` launches the one for its dtypes on CUDA
 tensors and runs :func:`paged_flash_prefill_plain` for CPU tensors.
 """
 
@@ -40,10 +47,12 @@ TC_PAGE_MULTIPLE = 8
 
 #: Launches over an unquantized pool since the last reset, of either CUDA
 #: kernel; ``launches_tc`` counts those of the bf16 tensor-core kernel
-#: alone, ``launches_q`` the launches over a quantized pool.
+#: alone, ``launches_q`` the launches over a quantized pool, of either q
+#: dtype, and ``launches_q_tc`` those of them on the tensor cores (bf16 q).
 launches = 0
 launches_tc = 0
 launches_q = 0
+launches_q_tc = 0
 
 
 def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
@@ -102,25 +111,30 @@ def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, k_tail, v_tail,
     return o.reshape(b, hq, st, d).to(q.dtype)
 
 
-#: dtype -> the C entry point of K2 that takes it; None is a quantized pool
-#: (q float32 or bf16, selected by an argument).
+#: route -> the C entry point of K2 that takes it: a dtype for an
+#: unquantized pool; "q" a quantized pool on the CUDA cores (q float32 or
+#: bf16, selected by an argument), "q_tc" one on the tensor cores (bf16 q).
 _ENTRY = {torch.float32: "paged_prefill", torch.bfloat16: "paged_prefill_tc",
-          None: "paged_prefill_q"}
+          "q": "paged_prefill_q", "q_tc": "paged_prefill_q_tc"}
+#: Integer dtype flags after D: q_bf16 and fp8 for "q", fp8 for "q_tc".
+_FLAGS = {"q": 2, "q_tc": 1}
 _CODES = (torch.int8, torch.float8_e4m3fn)
 _fns = {}
 
 
-def _kernel(dtype):
-    fn = _fns.get(dtype)
+def _kernel(route):
+    fn = _fns.get(route)
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        args = [P] * 11 + [I] * 10 if dtype is None else [P] * 9 + [I] * 8
-        fn = _fns[dtype] = build.bind("paged_prefill", _ENTRY[dtype], args + [F, I, F, P])
+        pointers = 11 if route in _FLAGS else 9
+        args = [P] * pointers + [I] * (8 + _FLAGS.get(route, 0))
+        fn = _fns[route] = build.bind("paged_prefill", _ENTRY[route], args + [F, I, F, P])
     return fn
 
 
 def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
-                  prefix_len, tail_len, k_scale_tab=None, v_scale_tab=None):
+                  prefix_len, tail_len, k_scale_tab=None, v_scale_tab=None,
+                  tensor_cores=False):
     dev = q.device
     quantized = k_scale_tab is not None
     tensors = (("k_pages", k_pages), ("v_pages", v_pages),
@@ -167,12 +181,12 @@ def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
     # aligned tensors.
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_tail, v_tail)):
         raise ValueError("q, the pools and the tail must start 16-byte aligned")
-    if q.dtype == torch.bfloat16 and not quantized:
+    if tensor_cores:
         ps = k_pages.shape[2]
         if ps % TC_PAGE_MULTIPLE or TC_STAGE % ps:
-            raise ValueError(f"bf16 page_size {ps} must be a multiple of {TC_PAGE_MULTIPLE} "
-                             f"that divides {TC_STAGE} (the tensor-core kernel's swizzled "
-                             "stages)")
+            raise ValueError(f"page_size {ps} of bf16 q must be a multiple of "
+                             f"{TC_PAGE_MULTIPLE} that divides {TC_STAGE} (the tensor-core "
+                             "kernels' swizzled stages)")
         if st == 0 or k_pages.shape[1] == 0:   # a tensor map has no empty dimension
             raise ValueError("bf16 paged_flash_prefill takes at least one tail row and "
                              "one page")
@@ -186,9 +200,9 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
     prefix; mp may be 0); k/v_tail (B, Hkv, St, D); prefix_len / tail_len
     (B,) int32. ``k_scales`` / ``v_scales`` (Hkv, P) float32, both or
     neither, mark the pools as int8 or float8_e4m3fn codes. Returns (B, Hq,
-    St, D). CUDA tensors launch the kernel of their dtypes (bf16 on the
-    tensor cores, float32 and quantized pools on the CUDA cores), CPU
-    tensors take the plain version."""
+    St, D). CUDA tensors launch the kernel of their dtypes (bf16 q on the
+    tensor cores, over a bf16 or a quantized pool; float32 q on the CUDA
+    cores), CPU tensors take the plain version."""
     k_scale_tab, v_scale_tab = k_scales, v_scales
     quantized = quant.scale_pair(k_scale_tab, v_scale_tab)
     if q.device.type == "cpu":
@@ -196,8 +210,38 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
             q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len,
             tail_len, softcap=softcap, scale=scale, window=window,
             k_scales=k_scale_tab, v_scales=v_scale_tab)
+    route = q.dtype
+    if quantized:
+        route = "q_tc" if q.dtype == torch.bfloat16 else "q"
+    return _launch(route, q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len,
+                   tail_len, softcap=softcap, scale=scale, window=window,
+                   k_scale_tab=k_scale_tab, v_scale_tab=v_scale_tab)
+
+
+def paged_flash_prefill_q_cuda_cores(q, k_pages, v_pages, page_table, k_tail, v_tail,
+                                     prefix_len, tail_len, *, softcap=None, scale=None,
+                                     window=None, k_scales=None, v_scales=None
+                                     ) -> torch.Tensor:
+    """:func:`paged_flash_prefill` over a quantized pool (CUDA tensors only)
+    on the float32 CUDA-core walk for either q dtype: what bf16 q ran before
+    its tensor-core kernel, kept so that one run can time the two. Counted
+    under ``launches_q`` alone."""
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    if not quant.scale_pair(k_scale_tab, v_scale_tab) or q.device.type != "cuda":
+        raise ValueError("paged_flash_prefill_q_cuda_cores takes a quantized pool on the card")
+    return _launch("q", q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len,
+                   tail_len, softcap=softcap, scale=scale, window=window,
+                   k_scale_tab=k_scale_tab, v_scale_tab=v_scale_tab)
+
+
+def _launch(route, q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, tail_len, *,
+            softcap, scale, window, k_scale_tab, v_scale_tab):
+    """Check the inputs and launch the entry of ``route`` (see ``_ENTRY``),
+    counting it."""
+    quantized = route in _FLAGS
+    tc = route in (torch.bfloat16, "q_tc")
     _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
-                  prefix_len, tail_len, k_scale_tab, v_scale_tab)
+                  prefix_len, tail_len, k_scale_tab, v_scale_tab, tc)
     build.refuse_grad("paged_flash_prefill", q, k_pages, v_pages, k_tail, v_tail)
     b, hq, st, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
@@ -205,22 +249,22 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, k_tail, v_tail,
     if scale is None:
         scale = 1.0 / d**0.5
     o = torch.empty_like(q)
-    global launches, launches_tc, launches_q
+    global launches, launches_tc, launches_q, launches_q_tc
     pointers = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     if quantized:
         launches_q += 1
+        launches_q_tc += int(tc)
         pointers += (k_scale_tab.data_ptr(), v_scale_tab.data_ptr())
-        dtypes = (int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.float8_e4m3fn))
     else:
         launches += 1
-        launches_tc += int(q.dtype == torch.bfloat16)
-        dtypes = ()
-    key = None if quantized else q.dtype
-    status = _kernel(key)(
+        launches_tc += int(tc)
+    fp8 = int(k_pages.dtype == torch.float8_e4m3fn)
+    flags = {"q": (int(q.dtype == torch.bfloat16), fp8), "q_tc": (fp8,)}.get(route, ())
+    status = _kernel(route)(
         *pointers, page_table.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
         prefix_len.data_ptr(), tail_len.data_ptr(), o.data_ptr(),
-        b, hq, hkv, st, num_pages, ps, mp, d, *dtypes,
+        b, hq, hkv, st, num_pages, ps, mp, d, *flags,
         float(scale), int(window or 0), float(softcap or 0.0), build.stream_of(q),
     )
-    build.check(status, _ENTRY[key])
+    build.check(status, _ENTRY[route])
     return o

@@ -17,9 +17,10 @@ lse within 1e-5, as ``chip_smoke.py`` holds them. K1 in bf16 runs on the
 tensor cores and rounds P to bf16 before P V; in float32 it runs on the CUDA
 cores and is held at 2e-5. K2, K3/K4 and K7/K8 likewise: bf16 on the
 tensor cores (P rounded to bf16), float32 on the CUDA cores. Over int8 and
-fp8 pools (codes and per-page scales) K2 runs its quantized entry on the
-CUDA cores, q in float32 or bf16, and K3 and K4 theirs on the tensor cores
-for bf16 q (the codes widened exactly to bf16, P scaled and rounded to
+fp8 pools (codes and per-page scales) K2, K3 and K4 run their quantized
+entries on the tensor cores for bf16 q (K2q: each code times its page's
+scale rounded once to bf16, bit for bit K2 over the dequantized values in
+bf16; K3q/K4q: the codes widened exactly to bf16, P scaled and rounded to
 bf16) and on the CUDA cores for float32 q; each is held at the bar of q's
 dtype. K9 (float32 in and out, its products on the tensor cores in 3xTF32, about
 22 bits each) is held per (b, chunk, head) slice: max |y - ref| within 1e-5
@@ -1530,12 +1531,120 @@ def test_quantized_paged_prefill_matches_plain(cuda, kv_dtype, dtype, window, so
     kw = dict(window=window, softcap=softcap, k_scales=ks, v_scales=vs)
     kernels.reset_launch_counts()
     o = pp.paged_flash_prefill(*args, **kw)
-    assert kernels.launch_counts()["paged_flash_prefill_q"] == 1
+    assert _prefill_q_routes(kernels.launch_counts(), dt)
     o_ref = pp.paged_flash_prefill_plain(*args, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all()
     assert _close(o, o_ref)
     assert float(o[1, :, 41:].float().abs().max()) == 0.0
+
+
+def _prefill_q_routes(counts, dtype, launched=1) -> bool:
+    """The launches went to K2's quantized entry, on the tensor cores for
+    bf16 q (both its counters) and on the CUDA cores for float32 q."""
+    want = {"paged_flash_prefill_q": launched}
+    if dtype == torch.bfloat16:
+        want["paged_flash_prefill_q_tc"] = launched
+    return {k: n for k, n in counts.items() if n} == want
+
+
+def _k2q_inputs(rng, dev, hq, hkv, d, ps, case, kv_dtype):
+    """``TC_PREFILL``'s shapes over a quantized pool whose null page (0)
+    holds NaN scales and e4m3 NaN codes, through scattered tables padded
+    with 3 null pages."""
+    q, _, _, table, kt, vt, plen, tlen = _tc_prefill_inputs(rng, dev, hq, hkv, d, ps, case)
+    kc, ks, vc, vs = _quantized(rng, dev, hkv, 1 + table.numel(), ps, d, kv_dtype)
+    table = torch.cat([table, torch.zeros((table.shape[0], 3), dtype=table.dtype, device=dev)],
+                      dim=1)
+    return (q, kc, vc, table, kt, vt, plen, tlen), dict(k_scales=ks, v_scales=vs)
+
+
+def _dequantized_bf16(codes, scales):
+    from repro_torch.cache import quant
+
+    return quant.dequantize_pages(codes, scales).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("case", sorted(TC_PREFILL))
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (25, 5, 64)], ids=["llama", "hymba"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (75, 30.0)],
+                         ids=["full", "window_softcap"])
+def test_quantized_paged_prefill_tensor_cores_equal_k2_on_dequantized_pools(
+        cuda, kv_dtype, ps, case, hq, hkv, d, window, softcap):
+    """K2q for bf16 q is bit for bit K2 (``paged_prefill_tc``) over bf16
+    pools of the dequantized values: its converters store
+    ``dequantize_pages(codes, scales).to(bfloat16)`` where K2's TMA would,
+    zeros past the live prefix (which K2 masks), and the consumers are K2's.
+    It holds ROW_TOL against the plain version; rows past tail_len are
+    exact zeros."""
+    args, scales = _k2q_inputs(np.random.default_rng(190 + ps), cuda, hq, hkv, d, ps, case,
+                               kv_dtype)
+    q, kc, vc, table, kt, vt, plen, tlen = args
+    kw = dict(window=window, softcap=softcap)
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, **kw, **scales)
+    assert _prefill_q_routes(kernels.launch_counts(), torch.bfloat16)
+    o_bf = pp.paged_flash_prefill(q, _dequantized_bf16(kc, scales["k_scales"]),
+                                  _dequantized_bf16(vc, scales["v_scales"]), table, kt, vt,
+                                  plen, tlen, **kw)
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_bf)
+    assert _row_err(o, o_ref) < ROW_TOL
+    for bi, t in enumerate(tlen.tolist()):
+        assert float(o[bi, :, t:].float().abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("window", [None, 40])
+def test_quantized_paged_prefill_tensor_cores_ignore_codes_past_prefix(cuda, kv_dtype, ps,
+                                                                      window):
+    """K2q loads whole pages of codes, so it reads the positions past
+    prefix_len inside the last live page (and that page again into a last
+    stage's surplus slots): written as 0 by select, codes 0x7F there (NaN
+    bits in e4m3, 127 in int8) give the bits of codes 0. 100 reruns give
+    the same bits."""
+    args, scales = _k2q_inputs(np.random.default_rng(193), cuda, 32, 8, 128, ps,
+                               "two_row_tiles", kv_dtype)
+    q, kc, vc, table, kt, vt, plen, tlen = args
+    outs = []
+    for byte in (0, 0x7F):
+        k, v = kc.clone(), vc.clone()
+        for bi, n in enumerate(plen.tolist()):
+            if n % ps:
+                page = int(table[bi, n // ps])
+                for codes in (k, v):
+                    codes.view(torch.uint8)[:, page, n % ps:] = byte
+        outs.append(pp.paged_flash_prefill(q, k, v, table, kt, vt, plen, tlen, window=window,
+                                           **scales))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert bool(torch.isfinite(outs[1].float()).all())
+    assert all(torch.equal(pp.paged_flash_prefill(q, k, v, table, kt, vt, plen, tlen,
+                                                  window=window, **scales), outs[1])
+               for _ in range(100))
+
+
+def test_quantized_paged_prefill_tensor_cores_take_page_sizes_of_8(cuda):
+    """bf16 q over a quantized pool of pages of 12 rows raises (the
+    tensor-core stages need a multiple of 8 that divides 128) and launches
+    nothing; float32 q over it, and the CUDA-core walk kept for bf16 q, take
+    it, within their bars."""
+    rng = np.random.default_rng(94)
+    args, scales = _k2q_inputs(rng, cuda, 8, 2, 64, 12, "ragged", "int8")
+    args32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="page_size"):
+        pp.paged_flash_prefill(*args, **scales)
+    assert sum(kernels.launch_counts().values()) == 0
+    ref = pp.paged_flash_prefill_plain(*args, **scales)
+    assert _close(pp.paged_flash_prefill_q_cuda_cores(*args, **scales), ref)
+    o32 = pp.paged_flash_prefill(*args32, **scales)
+    assert _close(o32, pp.paged_flash_prefill_plain(*args32, **scales))
+    assert _prefill_q_routes(kernels.launch_counts(), torch.float32, launched=2)
 
 
 def test_closed_graph_engines_hold_no_device_memory(cuda):

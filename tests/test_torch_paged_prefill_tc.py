@@ -14,6 +14,13 @@ against ``repro.kernels.paged_prefill_attention.paged_flash_prefill`` in
 interpret mode on scattered page tables: per row within 2^-6 of the row's
 max |o| (one bf16 ulp is 2^-7; the card's bar) and within the JAX suite's
 bf16 bar of 3e-2.
+
+K2q (``paged_prefill_q_tc_kernel``: bf16 q over int8 or fp8 prefix codes)
+feeds that same consumer bf16 stages in which each code is
+bf16(float32(code) x its page's scale) and every position at or past the
+live prefix is 0 by select; ``_tensor_core_k2q`` writes that out and runs
+``_tensor_core_k2`` on it, held at the same bars against the JAX kernel's
+scale branch on pools the JAX package quantized.
 """
 
 import jax.numpy as jnp
@@ -21,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.cache import quant as jax_quant
 from repro.kernels.paged_prefill_attention import paged_flash_prefill as jax_prefill
 
 ROW_TOL = 2.0**-6
@@ -176,3 +184,99 @@ def test_tensor_core_k2_empty_table_matches_jax(d):
     """A table of width 0: only the causal tail is walked."""
     jargs, targs = _inputs(8, 2, d, 16, seed=110 + d, empty_table=True)
     _check(jargs, targs)
+
+
+# -- K2q: quantized prefix codes -------------------------------------------------
+
+
+def _tensor_core_k2q(q, kc, vc, ks, vs, table, kt, vt, plen, tlen, **kw):
+    """The arithmetic of ``paged_prefill_q_tc``: each code widened and
+    multiplied by its page's scale in float32, rounded once to bf16, every
+    position at or past the row's live prefix 0 (by select: a row's last
+    live page is its own), then ``_tensor_core_k2`` as it stands."""
+    ps, mp = kc.shape[2], table.shape[1]
+    kd = (kc.float() * ks[..., None, None]).to(torch.bfloat16)
+    vd = (vc.float() * vs[..., None, None]).to(torch.bfloat16)
+    outs = []
+    for bi in range(q.shape[0]):
+        live = min(int(plen[bi]), mp * ps)
+        kp, vp = kd.clone(), vd.clone()
+        for j, pid in enumerate(table[bi].tolist()):
+            start = max(0, live - j * ps)
+            if start < ps:
+                kp[:, pid, start:] = 0
+                vp[:, pid, start:] = 0
+        row = slice(bi, bi + 1)
+        outs.append(_tensor_core_k2(q[row], kp, vp, table[row], kt[row], vt[row], plen[row],
+                                    tlen[row], **kw))
+    return torch.cat(outs)
+
+
+def _quantized_inputs(hq, hkv, d, ps, kv_dtype, seed):
+    """bf16 q and tail; K / V pools quantized by the JAX package (codes and
+    (Hkv, P) scales carried across as numpy); a scattered table. Row 0's
+    prefix is no page multiple; row 1's is 1 position on a table padded with
+    the null page 0, with a tail of 1 row. The null page holds what rows
+    frozen on it leave: codes 0x7F (NaN bits in e4m3) and NaN scales."""
+    rng = np.random.default_rng(seed)
+    b, mp = 2, TABLE[ps]
+    num_pages = 2 + mp
+    q = rng.standard_normal((b, hq, ST, d)).astype(np.float32)
+    kt, vt = (rng.standard_normal((b, hkv, ST, d)).astype(np.float32) for _ in range(2))
+    codes, scales = [], []
+    for _ in range(2):
+        c, sc = jax_quant.quantize_pages(
+            jnp.asarray(rng.standard_normal((hkv, num_pages, ps, d)).astype(np.float32)),
+            kv_dtype)
+        c, sc = np.array(c), np.array(sc)
+        c.view(np.uint8)[:, 0] = 0x7F
+        sc[:, 0] = np.nan
+        codes.append(c)
+        scales.append(sc)
+    perm = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((b, mp), np.int32)
+    table[0] = perm[:mp]
+    table[1, 0] = perm[mp]
+    plen = np.asarray([mp * ps - 5, 1], np.int32)
+    tlen = np.asarray([ST, 1], np.int32)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    jax_args = (bf(q), jnp.asarray(codes[0]), jnp.asarray(codes[1]), jnp.asarray(table), bf(kt),
+                bf(vt), jnp.asarray(plen), jnp.asarray(tlen))
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    tcodes = [torch.from_numpy(c.view(np.uint8)).view(torch.float8_e4m3fn)
+              if kv_dtype == "fp8" else torch.from_numpy(c) for c in codes]
+    torch_args = (tb(q), *tcodes, torch.from_numpy(scales[0]), torch.from_numpy(scales[1]),
+                  torch.from_numpy(table), tb(kt), tb(vt), torch.from_numpy(plen),
+                  torch.from_numpy(tlen))
+    return jax_args, (jnp.asarray(scales[0]), jnp.asarray(scales[1])), torch_args
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("d,ps,hq,hkv,window,softcap",
+                         [(64, 8, 8, 2, None, None), (128, 16, 10, 2, 50, 30.0)],
+                         ids=["d64_ps8_g4", "d128_ps16_g5_window_softcap"])
+def test_tensor_core_k2q_arithmetic_matches_jax(kv_dtype, d, ps, hq, hkv, window, softcap):
+    """K2q's arithmetic against the JAX kernel's scale branch (float32
+    dequantization) per row within 2^-6 and within 3e-2; rows past
+    tail_len exactly zero. Row 1 sees one prefix position and its one tail
+    row. Codes 0x7F past each prefix inside its last live page change no
+    bit: those positions are 0 by select, and the null page (NaN scales and
+    codes) is never read."""
+    jargs, (jks, jvs), targs = _quantized_inputs(hq, hkv, d, ps, kv_dtype, seed=120 + d + ps)
+    kw = dict(window=window, softcap=softcap)
+    oj = jax_prefill(*jargs, k_scales=jks, v_scales=jvs, interpret=True, **kw)
+    ot = _tensor_core_k2q(*targs, **kw)
+    assert _row_err(oj, ot) < ROW_TOL
+    assert float(np.abs(np.asarray(oj, np.float32) - ot.float().numpy()).max()) < BF16_TOL
+    q, kc, vc, ks, vs, table, kt, vt, plen, tlen = targs
+    for bi, t in enumerate(tlen.tolist()):
+        assert float(ot[bi, :, t:].float().abs().sum()) == 0.0
+    k2, v2 = kc.clone(), vc.clone()
+    ps = kc.shape[2]
+    for bi, n in enumerate(plen.tolist()):
+        page = int(table[bi, n // ps])
+        for codes in (k2, v2):
+            codes.view(torch.uint8)[:, page, n % ps:] = 0x7F
+    assert not torch.equal(kc.view(torch.uint8), k2.view(torch.uint8))
+    assert torch.equal(ot, _tensor_core_k2q(q, k2, v2, ks, vs, table, kt, vt, plen, tlen, **kw))
+

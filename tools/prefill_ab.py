@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The bf16 prefill kernels of two checkouts side by side on one card: K2
-(the paged prefix-extension prefill) and K1 (the FA2 forward).
+"""The bf16-q prefill kernels of two checkouts side by side on one card: K2
+(the paged prefix-extension prefill), K2q (the same over int8 and fp8
+prefix codes) and K1 (the FA2 forward).
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
-    python3 tools/prefill_ab.py [OTHER_ROOT ...]
+    python3 tools/prefill_ab.py [--serve] [OTHER_ROOT ...]
 
 Each root (this checkout, and every OTHER_ROOT, for example the parent
 commit unpacked with ``git archive``) runs in a process of its own, twice,
@@ -19,18 +20,30 @@ D 128, bf16, pages of 16 on a scattered table):
   live to 219;
 * K2 at the paged serve run's extend shape: the 7 requests that hit the
   256-token system prefix, each a full tail of 256 over a 16-page table;
+* K2q at both shapes, the same values quantized to int8 and to fp8 by the
+  root's ``cache.quant`` (what ``paged_flash_prefill`` launches for bf16 q
+  over codes in that root), and, in a root that has it, the CUDA-core walk
+  (``paged_flash_prefill_q_cuda_cores``) beside it and K2q's output
+  checked bit for bit against K2's over bf16 pools of the dequantized
+  values;
 * K1 at B 2, S 2048, causal, head-first, and at hymba-1.5b's prefill
   widths (B 1, Hq 25, Hkv 5, D 64, S 4096), global and window 1024, as
   ``chip_smoke.py`` times it.
+
+With ``--serve`` each run then serves ``chip_smoke.py``'s run (a) on
+full-width llama3-8b (random weights) over an int8 and then an fp8 pool,
+twice each on a fresh engine, and prints the TTFT of its 8 requests (host
+clock, informative only: it spreads by more than the kernels' difference)
+and the K2q launches, all of them and those on the tensor cores.
 
 Per case it reports the CUDA-event median of ``chip_smoke.Timer`` with the
 launch queue primed (the card's time alone), the sum of the device times of
 the case's kernel from ``torch.profiler``, the row-relative error against
 the root's plain version, and how many of 100 reruns (the L2 flushed before
-every third) differ bitwise from the first run. K1's o and lse are also
-compared bit for bit, case by case, with those of the first root run
-(saved under ``build/prefill_ab/``). The last line of each run is one JSON object of
-the times.
+every third) differ bitwise from the first run. K1's o and lse and K2's o
+are also compared bit for bit, case by case, with those of the first root
+run (saved under ``build/prefill_ab/``). The last line of each run is one
+JSON object of the times.
 """
 
 from __future__ import annotations
@@ -67,7 +80,37 @@ def k2_inputs(torch, gen, b, plen, st, tlens):
     return (q, kp, vp, table, kt, vt, plens, tl)
 
 
-def run_one(root: str, tag: str, first: bool) -> None:
+def serve_ttft(torch, cs, tag) -> dict:
+    """TTFT of run (a) over int8 and fp8 pools, two fresh engines each."""
+    from repro_torch import kernels
+    from repro_torch.configs import llama3_8b
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    cfg = llama3_8b.CONFIG
+    params = cs.init_params(torch, cfg)
+    prompts, _ = cs.serve_prompts(cfg)
+    ttfts = {}
+    for kv_dtype in ("int8", "fp8"):
+        for rep in range(2):
+            kernels.reset_launch_counts()
+            engine = LLMEngine(cfg, params, kv_dtype=kv_dtype,
+                               **dict(cs.SERVE_PAGED_KW, device="cuda"))
+            out = engine.generate([Request(uid=i, prompt=p, sampling=SamplingParams(max_tokens=32))
+                                   for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            ms = sorted(engine.ttft[o.uid] * 1e3 for o in out)
+            counts = kernels.launch_counts()
+            engine.close()
+            ttfts[f"{kv_dtype} {rep}"] = ms
+            print(f"[{tag}] serve (a) {kv_dtype}, engine {rep}: TTFT ms "
+                  f"{', '.join(f'{t:.1f}' for t in ms)}; K2q launches "
+                  f"{counts['paged_flash_prefill_q']}, on the tensor cores "
+                  f"{counts.get('paged_flash_prefill_q_tc', 0)}", flush=True)
+    del params
+    return ttfts
+
+
+def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
     # The port from `root`; the timer and the bars from this checkout's
     # chip_smoke.py, so both roots are measured alike.
     sys.path.insert(0, os.path.join(root, "src"))
@@ -76,6 +119,7 @@ def run_one(root: str, tag: str, first: bool) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
+    from repro_torch.cache import quant
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_prefill_attention as pp
@@ -120,15 +164,49 @@ def run_one(root: str, tag: str, first: bool) -> None:
               flush=True)
         return out
 
-    for label, b, plen, st, tlens in (
-            ("K2 smoke shape (B 2, prefix 1000, tail 256)", 2, 1000, 256, [256, 219]),
-            ("K2 serve extend shape (B 7, prefix 256, tail 256)", 7, 256, 256, [256] * 7)):
+    os.makedirs(SAVED, exist_ok=True)
+
+    def same_as_first_root(key, outs) -> bool:
+        """Whether ``outs`` equal, bit for bit, what the first root run
+        saved under ``key``."""
+        path = os.path.join(SAVED, f"{key}.pt")
+        outs = [t.cpu() for t in outs]
+        if first:
+            torch.save(outs, path)
+        return all(torch.equal(u, v) for u, v in zip(outs, torch.load(path)))
+
+    for i, (label, b, plen, st, tlens) in enumerate((
+            ("smoke shape (B 2, prefix 1000, tail 256)", 2, 1000, 256, [256, 219]),
+            ("serve extend shape (B 7, prefix 256, tail 256)", 7, 256, 256, [256] * 7))):
         args = k2_inputs(torch, gen, b, plen, st, tlens)
         ref = pp.paged_flash_prefill_plain(*args)
-        report(label, lambda: pp.paged_flash_prefill(*args), ref, "paged_prefill")
-        del args, ref
+        fn = lambda: pp.paged_flash_prefill(*args)
+        same = same_as_first_root(f"k2_{i}", [fn()])
+        report(f"K2 {label}", fn, ref, "paged_prefill",
+               note=f"; o bitwise equal to the first root's: {same}")
+        times[f"K2 {label}"]["bitwise_equal_first_root"] = same
+        q, kp, vp, table, kt, vt, plens, tl = args
+        for kv_dtype in ("int8", "fp8"):
+            (kc, ks), (vc, vs) = (quant.quantize_pages(p.float(), kv_dtype) for p in (kp, vp))
+            kw = dict(k_scales=ks, v_scales=vs)
+            qargs = (q, kc, vc, table, kt, vt, plens, tl)
+            ref = pp.paged_flash_prefill_plain(*qargs, **kw)
+            fn = lambda: pp.paged_flash_prefill(*qargs, **kw)
+            note = ""
+            if hasattr(pp, "paged_flash_prefill_q_cuda_cores"):
+                kd, vd = (quant.dequantize_pages(c, sc).to(torch.bfloat16)
+                          for c, sc in ((kc, ks), (vc, vs)))
+                deq = torch.equal(fn(), pp.paged_flash_prefill(q, kd, vd, table, kt, vt, plens,
+                                                               tl))
+                note = f"; bitwise equal to K2 over the dequantized values in bf16: {deq}"
+                report(f"K2q {kv_dtype} {label}, CUDA-core walk",
+                       lambda: pp.paged_flash_prefill_q_cuda_cores(*qargs, **kw), ref,
+                       "paged_prefill")
+                del kd, vd
+            report(f"K2q {kv_dtype} {label}", fn, ref, "paged_prefill", note=note)
+            del kc, vc, ks, vs, qargs, ref
+        del args, q, kp, vp, table, kt, vt, plens, tl
 
-    os.makedirs(SAVED, exist_ok=True)
     for i, (label, b, hq, hkv, d, s, window) in enumerate(K1_CASES):
         q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -137,29 +215,31 @@ def run_one(root: str, tag: str, first: bool) -> None:
         fn = lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=window)
         o, lse = fn()
         torch.cuda.synchronize()
-        path = os.path.join(SAVED, f"k1_{i}.pt")
-        if first:
-            torch.save({"o": o.cpu(), "lse": lse.cpu()}, path)
-        saved = torch.load(path)
-        same = torch.equal(o.cpu(), saved["o"]) and torch.equal(lse.cpu(), saved["lse"])
+        same = same_as_first_root(f"k1_{i}", [o, lse])
         report(label, fn, o_ref, "fa2_fwd",
                note=f"; o and lse bitwise equal to the first root's: {same}")
         times[label]["bitwise_equal_first_root"] = same
         del q, k, v, o, lse, o_ref
-    print(json.dumps({"root": root, "tag": tag, "card": cs.smi_line(), "times": times}),
-          flush=True)
+    line = {"root": root, "tag": tag, "card": cs.smi_line(), "times": times}
+    if serve:
+        line["serve_ttft_ms"] = serve_ttft(torch, cs, tag)
+    print(json.dumps(line), flush=True)
 
 
 def main() -> int:
-    if len(sys.argv) == 5 and sys.argv[1] == "--one":
-        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first")
+    if len(sys.argv) == 6 and sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first", sys.argv[5] == "serve")
         return 0
-    others = [(os.path.abspath(p), os.path.basename(os.path.abspath(p))) for p in sys.argv[1:]]
+    args = sys.argv[1:]
+    serve = "--serve" in args
+    others = [(os.path.abspath(p), os.path.basename(os.path.abspath(p)))
+              for p in args if p != "--serve"]
     order = others + [(HERE, "this")] * (2 if others else 1) + others[::-1]
     rc = 0
     for i, (root, tag) in enumerate(order):
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, tag,
-                              "first" if i == 0 else "later"], cwd=root).returncode
+                              "first" if i == 0 else "later", "serve" if serve else "-"],
+                             cwd=root).returncode
     return rc
 
 
