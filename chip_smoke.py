@@ -103,7 +103,23 @@ and prints no result. Phases, in order (any failure exits non-zero):
      ``attn_impl`` and ``ssm.impl`` "plain"; ``compare_sync`` as above);
      each dense path then runs the fused
      decode at ``steps_per_sync`` 1 and 8 (identical ids) and times its
-     eager and one-tick graph ticks;
+     eager and one-tick graph ticks. Then, before the llama weights leave
+     the card, the load phase: ``repro_torch.launch.loadgen.run_one`` with
+     telemetry on, full-width llama3-8b paged (8 rows, a 1024-page pool of
+     2 GiB, prompt buckets 256 / 512 / 1024), 32 requests of a Poisson trace
+     at 4 requests/s (prompt tails 128 / 384 / 768, a 256-token prefix on
+     half, 32 / 64 / 128 new tokens, greedy, seed 0), at ``steps_per_sync``
+     1 and 8, artifacts in a temporary directory: each run passes the
+     harness's smoke check, its streamed tokens equal those its requests
+     hold, every lifecycle runs arrival ... finish, the open-loop drive
+     launches K1, K2 and K3 (or K4, if the plan splits) on the tensor cores,
+     and N 1 captures no graph after warm-up; it prints TTFT (to the first
+     streamed token, and to the first sampled one), ITL and queue
+     p50/p90/p99, measured and modelled tok/s, host overhead per token, the
+     drift table, each beside the card's name and power limit; then one sync
+     of that engine against the plain path (``compare_sync``), and 8
+     closed-loop requests with the same greedy ids with telemetry on and
+     off, their decode tok/s side by side;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -1937,6 +1953,186 @@ def fused_phase(torch, timer, cfg, params, *, label, engine_kw, prompts, steps=(
     return rates, ticks
 
 
+# -- phase 4 (load): open-loop Poisson traffic with telemetry on ---------------
+
+#: The loadgen phase's engine: 8 rows, tables of up to 128 pages, a 1024-page
+#: pool (1024 x 16 x 32 layers x 8 x 128 x 2 x 2 B = 2 GiB).
+LOADGEN_KW = dict(kv_layout="paged", max_batch=8, page_size=PS, num_pages=1024,
+                  cache_len=2048, prompt_buckets=(256, 512, 1024))
+#: The trace: 32 requests at 4 requests/s; prompt tails 128 / 384 / 768, a
+#: 256-token shared prefix on half of them (prefix hits: K2); 32 / 64 / 128
+#: new tokens; greedy, seed 0.
+LOADGEN_TRACE = dict(requests=32, rate=4.0, shared_prefix=256, shared_fraction=0.5,
+                     prompt_mix=((128, 0.5), (384, 0.3), (768, 0.2)),
+                     output_mix=((32, 0.6), (64, 0.3), (128, 0.1)))
+
+
+def loadgen_phase(torch, cfg, params):
+    """``repro_torch.launch.loadgen.run_one`` on full-width llama3-8b paged
+    with telemetry on, at ``steps_per_sync`` 1 and 8 (an engine each), its
+    artifacts in a temporary directory. Each run must pass the harness's
+    ``_smoke_check``; ``serving_tokens_total`` must equal the tokens the
+    finished requests hold (the trace's ``finish`` events); every measured
+    uid's lifecycle must run arrival ... finish; the open-loop drive (counts
+    set to 0 at its start, read after it) must launch K1, K2 and the decode
+    kernel the engine's plan fixed (K3, or K4 if it splits), all on the
+    tensor cores; and N 1 must capture no graph after warm-up. One sync of
+    that engine is held against the plain path (``compare_sync``) on the
+    trace's first 8 prompts, and 8 closed-loop requests must give the same
+    greedy ids with telemetry on and off. Returns the drive's launch counts,
+    summed over both runs."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.launch import loadgen
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs.drift import DriftReport
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    trace = dict(LOADGEN_TRACE)
+    mixes = {k: trace.pop(k) for k in ("prompt_mix", "output_mix")}
+    drive = loadgen.drive
+    drive_counts = {}
+
+    def counted_drive(*a, **kw):
+        kernels.reset_launch_counts()
+        try:
+            return drive(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            drive_counts.update(kernels.launch_counts())
+
+    total, payloads = {}, {}
+    loadgen.drive = counted_drive
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            for n in (1, 8):
+                args = argparse.Namespace(
+                    arch="llama3-8b", smoke=False, max_batch=LOADGEN_KW["max_batch"],
+                    cache_len=LOADGEN_KW["cache_len"], num_pages=LOADGEN_KW["num_pages"],
+                    page_size=PS, temperature=0.0, seed=0, out_dir=out_dir, device="cuda",
+                    steps_per_sync=n, **trace)
+                drive_counts.clear()
+                p = loadgen.run_one(args, "paged", cfg=cfg, params=params,
+                                    prompt_buckets=LOADGEN_KW["prompt_buckets"], **mixes)
+                sys.stdout.flush()
+                loadgen._smoke_check(p)
+                counts = dict(drive_counts)
+                label = f"loadgen llama3-8b paged N={n}"
+                check_k1_route(label, counts)
+                check_k2_route(label, counts)
+                check_paged_route(label, counts)
+                k3, k4 = (counts[KERNELS[k]["counter"]] for k in ("K3", "K4"))
+                log(f"{label}: decode kernel {'K3 (one pass)' if k4 == 0 else 'K4 (split)'}: "
+                    f"K3 {k3} launches, K4 {k4}")
+                for key in ("K1", "K2"):
+                    if counts[KERNELS[key]["counter"]] <= 0:
+                        raise AssertionError(f"{label}: {key} was not launched under load")
+                if k3 + k4 <= 0:
+                    raise AssertionError(f"{label}: no decode kernel launched under load")
+                with open(p["_artifacts"]["json"]) as f:
+                    env = json.load(f)
+                with open(p["_artifacts"]["trace"]) as f:
+                    events = json.load(f)["traceEvents"]
+                life = {}
+                for e in events:
+                    if e.get("cat") == "lifecycle" and e["tid"] - 1 < loadgen.PILOT_UID:
+                        life.setdefault(e["tid"] - 1, []).append(e)
+                held = sum(ev[-1]["args"]["tokens"] for ev in life.values()
+                           if ev[-1]["name"] == "finish")
+                streamed = env["metrics"]["serving_tokens_total"]["value"]
+                if sorted(life) != list(range(args.requests)) or any(
+                        ev[0]["name"] != "arrival" or ev[-1]["name"] != "finish"
+                        for ev in life.values()):
+                    raise AssertionError(f"{label}: a measured lifecycle is not arrival ... "
+                                         "finish")
+                if streamed != held or held != p["tokens_generated"]:
+                    raise AssertionError(f"{label}: serving_tokens_total {streamed}, the "
+                                         f"finished requests hold {held}, the engine counted "
+                                         f"{p['tokens_generated']}")
+                if n == 1 and p["decode_retraces_after_warmup"] != 0:
+                    raise AssertionError(f"{label}: {p['decode_retraces_after_warmup']} graphs "
+                                         "captured after warm-up")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+                payloads[n] = p
+    finally:
+        loadgen.drive = drive
+
+    card = smi_line()
+
+    def ms(d):
+        return " / ".join(f"{d[f'p{q}'] * 1e3:.2f}" for q in (50, 90, 99))
+
+    for n, p in payloads.items():
+        log(f"loadgen N={n}: {p['finished']}/{p['requests']} requests at {p['rate_req_s']}/s in "
+            f"{p['wall_s']:.2f} s, {p['tokens_generated']} tokens; p50/p90/p99 ms: TTFT "
+            f"{ms(p['ttft_s'])} (arrival to first streamed token), TTFT to first sampled "
+            f"token {ms(p['ttft_sampled_s'])}, ITL {ms(p['itl_s'])}, queue {ms(p['queue_s'])}; "
+            f"card: {card}")
+        log(f"loadgen N={n}: measured {p['measured_tok_s']:.1f} tok/s over "
+            f"{p['decode_elapsed_s']:.3f} s of decode (host clock), modeled "
+            f"{p['modeled_tok_s']:.0f} tok/s (attention kernel only); host overhead "
+            f"{p['host_overhead_per_token_s'] * 1e6:.1f} us/token (modeled "
+            f"{p['modeled_host_overhead_s'] * 1e6:.1f}); graphs captured after warm-up "
+            f"{p['decode_retraces_after_warmup']}; prefix hit rate "
+            f"{p['prefix']['prefix_hit_rate']:.3f}, preemptions {p['preemptions']}; "
+            f"card: {card}")
+        log(f"loadgen N={n} drift (worst ratio {p['drift_worst_ratio']}; card: {card}):")
+        log("  " + DriftReport(rows=p["drift"]["rows"]).render().replace("\n", "\n  "))
+    log(f"loadgen host overhead per token: N=1 "
+        f"{payloads[1]['host_overhead_per_token_s'] * 1e6:.1f} us, N=8 "
+        f"{payloads[8]['host_overhead_per_token_s'] * 1e6:.1f} us; card: {card}")
+    log("loadgen summary: " + json.dumps({
+        f"n{n}": {k: p[k] for k in ("ttft_s", "ttft_sampled_s", "itl_s", "queue_s",
+                                    "measured_tok_s", "modeled_tok_s",
+                                    "host_overhead_per_token_s",
+                                    "decode_retraces_after_warmup", "drift_worst_ratio")}
+        for n, p in payloads.items()}))
+
+    # The loadgen engine against the plain path: one sync on the trace's
+    # first 8 prompts (prefix hits among them), at the engine's own sizes.
+    workload = loadgen.build_workload(
+        cfg, np.random.default_rng(0), trace["requests"], rate=trace["rate"],
+        shared_prefix_len=trace["shared_prefix"], shared_fraction=trace["shared_fraction"],
+        **mixes)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
+    compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (loadgen engine)",
+                 engine_kw=dict(LOADGEN_KW, device="cuda"),
+                 prompts=[r.prompt for _, r in workload[:8]])
+
+    # Telemetry changes no output: the same 8 closed-loop requests on an
+    # engine with telemetry off and on, each warmed up first.
+    prompts, _ = serve_prompts(cfg)
+    rng = np.random.default_rng(98)
+    warm = [rng.integers(1, cfg.vocab, size=(len(p),)) for p in prompts]
+    greedy = SamplingParams(max_tokens=32)
+    ids, rates = {}, {}
+    for name, tel in (("off", None), ("on", Telemetry.create())):
+        engine = LLMEngine(cfg, params, steps_per_sync=1, telemetry=tel,
+                           **dict(SERVE_PAGED_KW, device="cuda"))
+        engine.generate([Request(uid=1000 + i, prompt=p, sampling=greedy)
+                         for i, p in enumerate(warm)])
+        torch.cuda.synchronize()
+        engine.reset_metrics()
+        out = engine.generate([Request(uid=i, prompt=p, sampling=greedy)
+                               for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        ids[name] = {o.uid: [int(t) for t in o.tokens] for o in out}
+        rates[name] = engine.stats().decode_tok_s
+        engine.close()
+        del engine
+    if ids["on"] != ids["off"]:
+        raise AssertionError("telemetry changed the greedy ids of the closed-loop requests")
+    log(f"closed loop, 8 requests of 512 tokens, 32 new each, N 1: greedy ids identical with "
+        f"telemetry on and off; decode {rates['on']:.1f} tok/s on against {rates['off']:.1f} "
+        f"off (host clock, same call); card: {card}")
+    return total
+
+
 def dense_prompts(cfg, lens, seed=0):
     import numpy as np
 
@@ -2190,6 +2386,11 @@ def main() -> int:
         engine_kw=dict(kv_layout="dense", max_batch=4, cache_len=4096,
                        prompt_buckets=(512, 1024, 2048, 4096), device="cuda"),
         prompts=dense_prompts(llama3_8b.CONFIG, dense_lens))
+    log("== loadgen llama3-8b paged (telemetry on)")
+    t = time.perf_counter()
+    for key, n in loadgen_phase(torch, llama3_8b.CONFIG, params).items():
+        counts[key] = counts.get(key, 0) + n
+    log(f"loadgen phase {time.perf_counter() - t:.1f} s")
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -20,14 +20,31 @@ ranks dense against paged for the rest with ``plan.resolve_kv_layout``.
 ``kv_dtype`` "int8" / "fp8" (quantized pages; "fp32" is the unquantized
 pool in the compute dtype) and ``host_pool_bytes`` (a host KV tier) are
 paged features: with ``kv_layout="auto"`` they resolve to paged, with
-"dense" they raise ``ValueError``, as in the JAX package. Options of the
-JAX engine that the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item, never accepted and ignored: ``mesh`` and
-``telemetry``.
+"dense" they raise ``ValueError``, as in the JAX package.
+
+Observability is injected as in the JAX package
+(``telemetry=repro_torch.obs.Telemetry.create()``): ``step()`` runs under
+spans (``step`` holding ``schedule`` / ``flush`` / ``decode``), requests get
+lifecycle events (arrival -> admitted -> first_token -> tokens ... ->
+finish, with preempt / resume), each decode sync's wall time feeds the
+model-vs-measured drift collector, and every instrument is bound once, at
+construction. Spans close after a host read of the device work they time
+(the first tokens' ``.cpu()`` in ``_flush``, the fused decode's results in
+``backend.fused_decode``); nothing is recorded inside a CUDA graph. The
+default ``NULL_TELEMETRY`` shares no-op singletons, so telemetry off
+allocates nothing per step. Two TTFTs: the tracer's ``first_token``
+(``request_latencies()["ttft"]``) is recorded when a request's first token
+is streamed, after its first decode sync, as in the JAX engine; the
+engine's own ``ttft`` dict stops when the first token is sampled, at the
+prefill flush. ``stream()`` is the async push iterator over one request.
+
+The JAX engine's ``mesh`` raises ``NotImplementedError`` naming the ROADMAP
+item, never accepted and ignored.
 """
 
 from __future__ import annotations
 
+import asyncio
 import time
 import weakref
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
@@ -40,6 +57,7 @@ from repro_torch.cache.pool import OutOfPages
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import device as device_lib
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.backends import DenseBackend, PagedBackend
 from repro_torch.serving.request import (
@@ -49,7 +67,7 @@ from repro_torch.serving.request import (
     RequestOutput,
     SamplingParams,
 )
-from repro_torch.serving.scheduler import Scheduler, SchedulerStats
+from repro_torch.serving.scheduler import Scheduler, SchedulerStats, safe_rate
 
 __all__ = ["LLMEngine", "Request", "RequestOutput", "SamplingParams"]
 
@@ -81,7 +99,8 @@ class LLMEngine:
     ``prompt_buckets=None`` picks per-layout defaults. ``steps_per_sync``:
     decode ticks per host sync, an int >= 1 or ``"auto"``. ``kv_dtype``
     ("fp32", "int8", "fp8") and ``host_pool_bytes`` (0 / None: no host
-    tier) configure the paged pool."""
+    tier) configure the paged pool. ``telemetry``: a
+    :class:`repro_torch.obs.Telemetry` (default ``NULL_TELEMETRY``, off)."""
 
     def __init__(
         self,
@@ -100,7 +119,7 @@ class LLMEngine:
         batch_prefills: bool = True,
         mapping: Optional[str] = None,
         scheduler: Optional[Scheduler] = None,
-        telemetry=None,
+        telemetry: Optional[Telemetry] = None,
         steps_per_sync=1,
         mesh=None,
         kv_dtype: str = "fp32",
@@ -129,8 +148,6 @@ class LLMEngine:
             raise ValueError(
                 f"steps_per_sync must be a positive int or 'auto', got {steps_per_sync!r}")
         self.steps_per_sync = steps_per_sync
-        if telemetry is not None:
-            raise _not_ported("telemetry", "telemetry")
         self.device = device_lib.resolve(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine on {self.device}")
@@ -171,15 +188,59 @@ class LLMEngine:
         self._detokenizer = detokenizer
         self._pending: Dict[int, int] = {}      # row -> next token to feed
         self._streamed: Dict[int, int] = {}     # uid -> tokens emitted
+        #: uid -> buffered outputs of an open stream() consumer; only uids
+        #: with an open stream have an entry.
+        self._stream_q: Dict[int, List[RequestOutput]] = {}
+        self._first_emitted: set = set()        # uids past their first token
+        self._last_ticks = 0                    # live ticks of the last sync
         self._completed: List[RequestOutput] = []
         self._next_uid = 0
         self._tokens_generated = 0
         self._elapsed = 0.0
         self._decode_elapsed = 0.0
         self._decode_tokens = 0
-        #: uid -> seconds from add_request to its first sampled token.
+        #: uid -> seconds from add_request to its first sampled token (at
+        #: the prefill flush; the tracer's TTFT runs to the first streamed
+        #: token).
         self.ttft: Dict[int, float] = {}
         self._arrival: Dict[int, float] = {}
+
+        # Telemetry: every instrument is bound here, once; the per-tick
+        # functions only call .inc() / .observe() / .set() on them.
+        self.telemetry = telemetry or NULL_TELEMETRY
+        self._tr = self.telemetry.tracer
+        self._drift = self.telemetry.drift
+        m = self.telemetry.metrics
+        self._m_requests = m.counter(
+            "serving_requests_total", "requests accepted by add_request")
+        self._m_steps = m.counter("serving_steps_total", "engine ticks (step() calls)")
+        self._m_tokens = m.counter("serving_tokens_total", "tokens streamed to callers")
+        self._m_admitted = m.counter(
+            "serving_admissions_total", "admission records flushed")
+        self._m_preempt = m.counter(
+            "serving_preemptions_total", "rows evicted under page pressure")
+        self._m_finished = m.counter(
+            "serving_finished_total", "requests that reached finish")
+        self._h_step = m.histogram(
+            "serving_step_seconds", "one full step(): schedule+flush+decode")
+        self._h_schedule = m.histogram(
+            "serving_schedule_seconds", "admission-policy time per step")
+        self._h_flush = m.histogram("serving_flush_seconds", "prefill flush time per step")
+        self._h_decode = m.histogram(
+            "serving_decode_step_seconds", "fused decode + sample + bookkeeping per tick")
+        self._g_running = m.gauge("serving_running", "active decode rows")
+        self._g_waiting = m.gauge("serving_waiting", "queued + requeued requests")
+        self._m_demotions = m.counter(
+            "serving_kv_demotions_total", "KV pages demoted device -> host tier")
+        self._m_promotions = m.counter(
+            "serving_kv_promotions_total", "KV pages promoted host tier -> device")
+        self._g_device_kv = m.gauge(
+            "serving_kv_device_bytes_resident", "device KV pool bytes held by live pages")
+        self._g_host_kv = m.gauge(
+            "serving_kv_host_bytes_resident", "host-tier KV bytes held by demoted pages")
+        # The backend's tier counters are running totals; the engine exports
+        # deltas, so a telemetry reset does not count them twice.
+        self._tier_seen = {"demoted_pages": 0, "promoted_pages": 0}
 
     @property
     def kv_layout(self) -> str:
@@ -206,6 +267,9 @@ class LLMEngine:
         # A uid reused after its request finished gets a TTFT of its own.
         self.ttft.pop(request.uid, None)
         self._arrival[request.uid] = time.perf_counter()
+        self._m_requests.inc()
+        self._tr.request_event(request.uid, "arrival", prompt_len=len(request.prompt),
+                               priority=request.priority)
         return request.uid
 
     def step(self, max_steps: Optional[int] = None) -> List[RequestOutput]:
@@ -224,23 +288,88 @@ class LLMEngine:
             raise ValueError(f"max_steps must be >= 1, got {max_steps}")
         t0 = time.perf_counter()
         records: List = []
-        try:
-            self.scheduler.schedule(self.backend, records)
-        finally:
-            # Flush even when a late admission raises: admitted rows must
-            # never reach a decode tick unprefilled.
-            if records:
-                self._flush(records)
-        outputs: List[RequestOutput] = []
-        if self.backend.active.any():
-            td = time.perf_counter()
-            outputs = self._decode_tick(n_steps)
-            self._decode_elapsed += time.perf_counter() - td
-        if self._detokenizer is not None:
-            for o in outputs:
-                o.text = self._detokenizer(o.new_tokens)
-        self._elapsed += time.perf_counter() - t0
+        with self._tr.span("step"):
+            try:
+                with self._tr.span("schedule"):
+                    self.scheduler.schedule(self.backend, records)
+            finally:
+                self._h_schedule.observe(time.perf_counter() - t0)
+                # Flush even when a late admission raises: admitted rows must
+                # never reach a decode tick unprefilled.
+                for rec in records:
+                    self._m_admitted.inc()
+                    # A row admitted with replay tokens is a preemption resume.
+                    resumed = bool(self.backend.out[rec["row"]])
+                    self._tr.request_event(rec["req"].uid, "resume" if resumed else "admitted",
+                                           row=rec["row"])
+                if records:
+                    tf = time.perf_counter()
+                    with self._tr.span("flush", rows=len(records)):
+                        self._flush(records)
+                    self._h_flush.observe(time.perf_counter() - tf)
+            outputs: List[RequestOutput] = []
+            if self.backend.active.any():
+                nb = self.backend.num_active
+                live = self.backend.lengths[self.backend.active]
+                mean_len = float(live.mean()) if live.size else 0.0
+                td = time.perf_counter()
+                with self._tr.span("decode", batch=nb, steps=n_steps):
+                    outputs = self._decode_tick(n_steps)
+                dt = time.perf_counter() - td
+                self._h_decode.observe(dt)
+                self._decode_elapsed += dt
+                self._drift.record(nb, mean_len, dt, ticks=self._last_ticks)
+            self._emit_lifecycle(outputs)
+        self._m_steps.inc()
+        self._g_running.set(self.backend.num_active)
+        self._g_waiting.set(self.scheduler.num_waiting)
+        self._observe_tier()
+        dt_all = time.perf_counter() - t0
+        self._h_step.observe(dt_all)
+        self._elapsed += dt_all
         return outputs
+
+    def _emit_lifecycle(self, outputs: List[RequestOutput]) -> None:
+        """Per-request events of this sync's streamed increments:
+        ``first_token`` on a request's first emission, one ``tokens`` event
+        per emission, ``finish`` at termination; then a copy of each output
+        to its open stream() consumer, if any."""
+        detok = self._detokenizer
+        for o in outputs:
+            if detok is not None:
+                o.text = detok(o.new_tokens)
+            n = len(o.new_tokens)
+            if n:
+                self._m_tokens.inc(n)
+                if o.uid not in self._first_emitted:
+                    self._first_emitted.add(o.uid)
+                    self._tr.request_event(o.uid, "first_token")
+                self._tr.request_event(o.uid, "tokens", n=n)
+            if o.finished:
+                self._m_finished.inc()
+                self._first_emitted.discard(o.uid)
+                self._tr.request_event(o.uid, "finish", reason=o.finish_reason,
+                                       tokens=len(o.tokens))
+            buf = self._stream_q.get(o.uid)
+            if buf is not None:
+                buf.append(o)
+
+    def _observe_tier(self) -> None:
+        """Export the KV tier's residency once per step: demotion and
+        promotion deltas since the last step, and the bytes resident on
+        each side."""
+        b = self.backend
+        if "demoted_pages" not in b.stats:
+            return
+        for key, ctr in (("demoted_pages", self._m_demotions),
+                         ("promoted_pages", self._m_promotions)):
+            delta = b.stats[key] - self._tier_seen[key]
+            if delta:
+                ctr.inc(delta)
+                self._tier_seen[key] = b.stats[key]
+        page_bytes = b.kv_pool_bytes() // max(b.pool.num_pages, 1)
+        self._g_device_kv.set(b.pool.used_pages * page_bytes)
+        self._g_host_kv.set(b.host.bytes_resident if b.host is not None else 0)
 
     def generate(self, requests: Iterable = ()) -> List[RequestOutput]:
         """Queue ``requests`` and step until every queued request finishes;
@@ -259,6 +388,39 @@ class LLMEngine:
                 raise err
         return done
 
+    async def stream(self, request=None, *, prompt=None,
+                     sampling: Optional[SamplingParams] = None,
+                     priority: Optional[int] = None):
+        """Push-style consumption of one request::
+
+            async for out in engine.stream(prompt=toks, sampling=sp):
+                print(out.text or out.new_tokens, end="")
+
+        Queues the request and yields its :class:`RequestOutput` increments
+        as they are produced, ending after the finished one. The iterator
+        drives ``step()`` whenever it has nothing buffered; concurrent
+        consumers (several streams, or a stream beside ``generate()``)
+        cooperate, since every ``step()`` routes increments into each open
+        stream's buffer. Yields to the event loop between syncs. Raises
+        ``OutOfPages`` when the request can never be admitted."""
+        uid = self.add_request(request, prompt=prompt, sampling=sampling, priority=priority)
+        q = self._stream_q.setdefault(uid, [])
+        try:
+            while True:
+                while q:
+                    out = q.pop(0)
+                    yield out
+                    if out.finished:
+                        return
+                idle_before = not self.backend.active.any()
+                outs = self.step()
+                if idle_before and not outs and not self.backend.active.any() and not q:
+                    raise OutOfPages("pool too small for any queued request; grow "
+                                     "num_pages or shrink prompts")
+                await asyncio.sleep(0)
+        finally:
+            self._stream_q.pop(uid, None)
+
     def close(self) -> None:
         """Release every live row (and, paged, prove the pool is fully free)
         and free the decode graphs."""
@@ -267,6 +429,7 @@ class LLMEngine:
     def stats(self) -> SchedulerStats:
         b = self.backend
         pool = b.prefix_stats()
+        nb = max(b.num_active, 1)
         return SchedulerStats(
             kv_layout=b.kv_layout, running=b.num_active,
             waiting=self.scheduler.num_waiting, completed=len(self._completed),
@@ -275,6 +438,8 @@ class LLMEngine:
             decode_elapsed_s=self._decode_elapsed,
             decode_tok_s=(self._decode_tokens / self._decode_elapsed
                           if self._decode_elapsed else 0.0),
+            measured_tok_s=safe_rate(self._tokens_generated, self._decode_elapsed),
+            modeled_tok_s=safe_rate(nb, b.decode_time_model(nb)),
             prefix_hit_rate=b.prefix_hit_rate(), page_occupancy=b.page_occupancy,
             preemptions=b.stats["preemptions"], resumed_tokens=b.stats["resumed_tokens"],
             prefill_launches=b.stats["prefill_launches"],
@@ -285,11 +450,29 @@ class LLMEngine:
             host_bytes_resident=int(pool.get("host_bytes_resident", 0)),
         )
 
+    def drift_model_fn(self):
+        """``(batch, mean_len) -> modelled seconds`` for
+        :meth:`repro_torch.obs.DriftCollector.report`: the backend's decode
+        model (the attention kernel only) at the cell's live context."""
+        model = self.backend.decode_time_model
+        return lambda batch, mean_len: model(batch, mean_len=mean_len)
+
+    def reset_metrics(self) -> None:
+        """Zero telemetry and the engine's wall-clock totals (a load harness
+        calls this after warm-up, so no measured number holds a capture)."""
+        self.telemetry.reset()
+        self._elapsed = 0.0
+        self._decode_elapsed = 0.0
+        self._tokens_generated = 0
+        self._decode_tokens = 0
+
     # -- internals ---------------------------------------------------------
 
     def _on_preempt(self, row: int, req, generated: List) -> None:
         self._pending.pop(row, None)
         self.scheduler.requeue(req, generated)
+        self._m_preempt.inc()
+        self._tr.request_event(req.uid, "preempt", row=row, generated=len(generated))
 
     def _seed_for(self, req) -> int:
         seed = req.sampling.seed
@@ -358,6 +541,7 @@ class LLMEngine:
         b.reserve_rows(n_steps)
         rows = [r for r in range(b.rows) if b.active[r]]
         if not rows:
+            self._last_ticks = 0
             return []
         tok = np.zeros((b.rows,), np.int64)
         for r in rows:
@@ -382,6 +566,7 @@ class LLMEngine:
         tok_seq, nxt_seq, live, appended, fed_stop, hit_max = ys
         b.commit_scan(lengths)
         self._decode_tokens += int(live.sum())
+        self._last_ticks = int(live.any(axis=1).sum())
         outputs: List[RequestOutput] = []
         for r in range(b.rows):
             col = live[:, r]

@@ -29,6 +29,17 @@ from typing import List, Optional, Sequence, Tuple
 from repro_torch.core import perf_model
 
 
+#: Denominators below this are "not measured yet": a rate over them reports
+#: 0.0 rather than inf or a 10^15 tok/s artifact.
+MIN_RATE_DENOM_S = 1e-9
+
+
+def safe_rate(count: float, seconds: float) -> float:
+    """``count / seconds``, with a near-zero denominator reported as 0.0
+    (unknown) instead of inf."""
+    return count / seconds if seconds > MIN_RATE_DENOM_S else 0.0
+
+
 def default_choose_victim(candidates: Sequence[Tuple[int, int, int]],
                           protect: int = -1) -> Optional[int]:
     """Among active ``(priority, submit_order, row)`` rows, evict the lowest
@@ -42,7 +53,21 @@ def default_choose_victim(candidates: Sequence[Tuple[int, int, int]],
 @dataclasses.dataclass
 class SchedulerStats:
     """Serving counters surfaced by ``LLMEngine.stats()``. Rates are over
-    host wall-clock time; ``decode_tok_s`` counts only decode ticks."""
+    host wall-clock time, and never to be conflated:
+
+      * ``tokens_per_s``: tokens over the engine's whole wall time
+        (scheduling, prefill and host bookkeeping included);
+      * ``measured_tok_s``: every generated token (a sampled stop token
+        included) over the decode phase's wall time, as the JAX package
+        computes it;
+      * ``decode_tok_s``: the live row-ticks of the decode syncs over the
+        same decode wall time;
+      * ``modeled_tok_s``: ``core.perf_model``'s prediction at the current
+        batch, which prices the decode attention kernel only, not the whole
+        tick; a near-zero modelled tick reports 0.0 (:func:`safe_rate`).
+
+    The JAX package's ``occupancy_cap`` is left out: the scheduler's
+    occupancy cap is not ported (ROADMAP Queue A item 2)."""
 
     kv_layout: str = "paged"
     running: int = 0
@@ -53,6 +78,8 @@ class SchedulerStats:
     tokens_per_s: float = 0.0
     decode_elapsed_s: float = 0.0
     decode_tok_s: float = 0.0
+    measured_tok_s: float = 0.0    # tokens / measured decode wall time
+    modeled_tok_s: float = 0.0     # perf_model tokens/s at the current batch
     prefix_hit_rate: Optional[float] = 0.0   # None: no prefix cache (dense)
     page_occupancy: float = 0.0
     preemptions: int = 0
@@ -76,7 +103,8 @@ class SchedulerStats:
             f"[{self.kv_layout}{dtype}] {self.completed} done / {self.running} running / "
             f"{self.waiting} waiting | {self.tokens_generated} tokens in "
             f"{self.elapsed_s:.2f}s ({self.tokens_per_s:.1f} tok/s wall, decode "
-            f"{self.decode_tok_s:.1f} tok/s) | prefix hit {hit} | "
+            f"{self.decode_tok_s:.1f} tok/s, measured {self.measured_tok_s:.1f}, modeled "
+            f"{self.modeled_tok_s:.0f}) | prefix hit {hit} | "
             f"occupancy {self.page_occupancy:.2f} | {self.preemptions} preemptions "
             f"({self.resumed_tokens} tokens resumed) | {self.prefill_launches} "
             f"prefill launches ({self.batched_prefills} batched) | "

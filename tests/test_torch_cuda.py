@@ -1675,3 +1675,53 @@ def test_closed_graph_engines_hold_no_device_memory(cuda):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() - start <= 32 << 20
+
+
+# -- telemetry and the load harness on the card ----------------------------------
+
+
+@pytest.mark.parametrize("steps", [1, 8])
+def test_paged_engine_telemetry_keeps_greedy_ids(cuda, steps):
+    """A paged bf16 graph engine with telemetry on gives the ids of the same
+    engine with telemetry off; its spans, lifecycle events and drift cells
+    are recorded, outside the graphs (a replay adds its capture's launches,
+    nothing else)."""
+    from repro_torch.obs import Telemetry
+
+    cfg = _graph_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    ids, tels = {}, {}
+    for name, tel in (("off", None), ("on", Telemetry.create())):
+        eng = LLMEngine(cfg, params, steps_per_sync=steps, device=cuda, telemetry=tel,
+                        **_GRAPH_KW["paged"])
+        out = eng.generate(_graph_requests(cfg))
+        ids[name] = {o.uid: [int(t) for t in o.tokens] for o in out}
+        tels[name] = tel
+        eng.close()
+    assert ids["on"] == ids["off"]
+    tel = tels["on"]
+    snap = tel.metrics.snapshot()
+    assert snap["serving_tokens_total"]["value"] == sum(len(t) for t in ids["on"].values())
+    assert {"step", "schedule", "flush", "decode"} <= {s.name for s in tel.tracer.spans}
+    for uid in ids["on"]:
+        names = [e for e, _, _ in tel.tracer.request_lifecycle(uid)]
+        assert names[0] == "arrival" and names[-1] == "finish" and "first_token" in names
+    assert tel.drift.num_samples > 0
+
+
+def test_loadgen_run_one_on_the_card(cuda, tmp_path):
+    """``loadgen.run_one`` on llama3-8b SMOKE (widened to head_dim 64 in
+    bf16: the kernels take 64 and 128), paged, on the card: the harness's
+    smoke check passes and no graph is captured after warm-up."""
+    import argparse
+
+    from repro_torch.launch import loadgen
+
+    args = argparse.Namespace(
+        arch="llama3-8b", smoke=True, requests=8, rate=100.0, max_batch=4, cache_len=128,
+        num_pages=96, page_size=16, shared_prefix=16, shared_fraction=0.5, temperature=0.0,
+        seed=0, out_dir=str(tmp_path), device="cuda", steps_per_sync=1)
+    payload = loadgen.run_one(args, "paged", cfg=_graph_cfg())
+    loadgen._smoke_check(payload)
+    assert payload["decode_retraces_after_warmup"] == 0
+    assert payload["device"].startswith("cuda")

@@ -18,6 +18,7 @@ from repro.serving import SamplingParams as JaxSampling
 from repro_torch.cache.pool import SequenceReleasedError
 from repro_torch.configs import llama3_8b
 from repro_torch.models import transformer
+from repro_torch.obs import Telemetry
 from repro_torch.serving import LLMEngine, Request, SamplingParams
 
 
@@ -105,13 +106,18 @@ def test_stop_tokens_and_streaming_match_jax(models):
 
 
 def test_unported_options_raise(models):
-    """``mesh`` and ``telemetry`` are not ported and raise; ``kv_dtype`` and
-    ``host_pool_bytes`` are, and build a paged engine."""
+    """``mesh`` is not ported and raises; ``telemetry``, ``kv_dtype`` and
+    ``host_pool_bytes`` are: ``telemetry`` builds an engine that binds the
+    bundle's instruments, the other two a paged engine."""
     _, params = models
     cfg = llama3_8b.SMOKE
-    for kw in (dict(mesh=2), dict(telemetry=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LLMEngine(cfg, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LLMEngine(cfg, params, device="cpu", mesh=2)
+    tel = Telemetry.create()
+    eng = LLMEngine(cfg, params, device="cpu", telemetry=tel)
+    assert eng.telemetry is tel
+    assert eng._m_steps is tel.metrics.counter("serving_steps_total")
+    eng.close()
     for kw in (dict(kv_dtype="int8"), dict(host_pool_bytes=1 << 20)):
         eng = LLMEngine(cfg, params, device="cpu", **kw)
         assert eng.kv_layout == "paged"
