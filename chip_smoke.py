@@ -41,10 +41,7 @@ and prints no result. Phases, in order (any failure exits non-zero):
      against the plain version per row, float32 q at 2e-5, against the
      unquantized bf16 kernel within the JAX suite's budget (int8 0.03, fp8
      0.12), ten reruns bitwise equal, each timed beside the CUDA-core walk
-     it replaced. Then the split-K
-     estimator's modelled
-     decode times beside the measured ones, and the fixed cost per call of
-     the split path over the one-pass path; then K5
+     it replaced. Then K5
      (dQ) and K6 (dK/dV) in bf16, on the tensor cores, under both launch
      orders (bitwise equal), with window + softcap, and at S 1000 padded to
      1024 (kv_len masking), SDPA's backward as the library yardstick; K5 /
@@ -60,13 +57,34 @@ and prints no result. Phases, in order (any failure exits non-zero):
      it (B and C per group, G 1), held per slice at 1e-5, ten reruns
      bitwise equal, its bound at the TF32 peak beside the float32 one, and
      the whole SSD scan timed part by part;
+  3b. plan — the plan's models against the card: (a) bf16 K3 / K4 at
+     llama3-8b widths, every row full, B 1, 2, 4, 8 over tables of 128 and
+     256 pages (and the serve runs' 8 x 36 and 1 x 260) at 1, 2, 3, 4, 6,
+     8, 12 and 16 splits and the plan's pick, CUDA events with the queue
+     primed and one replay of a one-launch CUDA graph; per shape the
+     committed split model's time per split count, the measured times and
+     the plan's pick (it fails where the graph time at the pick exceeds
+     1.15x the fastest); a fit of the model's terms to the shapes not held
+     out, with its error per split at every shape, held-out ones included,
+     beside the committed model's and the model's before the fit; (b) bf16
+     K1 under the plan's three candidate launches (head-first linear,
+     head-first sawtooth, block-first) at llama3-8b's B 2, S 2048 and B 1,
+     S 8192 and hymba-1.5b's windowed B 1, S 4096, beside the mapping
+     model's times under three readings of an H100 domain (SM, L2 half,
+     whole L2) and the scorer's pick (it fails where K1 at the pick exceeds
+     1.10x the fastest launch), then K1 + K5 + K6 at the train shape under
+     both orders; (c) round trips of 1, 2, 4 and 8 llama3-8b page payloads
+     to pinned host and back, and the host-link fit.
+     ``python3 chip_smoke.py --phase plan`` runs the probe, the build and
+     this phase alone and prints no result line;
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
      each, each run on an engine sized for it (a decode sync runs every row
-     over the whole page table as one CUDA graph replay, so the table's
-     width sets the decode plan: one pass over (a)'s 36 pages, two splits
-     over (b)'s 260); every kernel's launch count over that run must be
+     over the whole page table as one CUDA graph replay, so the rows and the
+     table's width set the decode plan: one pass over (a)'s 8 rows of 36
+     pages, split-K over (b)'s one row of 260); every kernel's launch count
+     over that run must be
      above 0, and every K1, K2 and K3 / K4 launch on the tensor cores. Then
      each run once more for one sync at ``steps_per_sync=1`` through
      ``engine.step()``, at its own engine sizes, kernel path against the
@@ -116,7 +134,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
      and N 1 captures no graph after warm-up; it prints TTFT (to the first
      streamed token, and to the first sampled one), ITL and queue
      p50/p90/p99, measured and modelled tok/s, host overhead per token, the
-     drift table, each beside the card's name and power limit; then one sync
+     scheduler's occupancy cap (an integer in 1..8), the drift table, each
+     beside the card's name and power limit; then one sync
      of that engine against the plain path (``compare_sync``), and 8
      closed-loop requests with the same greedy ids with telemetry on and
      off, their decode tok/s side by side;
@@ -628,14 +647,12 @@ def check_paged_decode(torch, timer, results, gen):
     of the table's pages into dense stripes, then
     ``scaled_dot_product_attention`` with ``enable_gqa=True`` and the
     length mask. The bound counts each live key and value read once, q
-    read and o written once, the table and lengths. Then the split-K
-    estimator's modelled times beside the measured ones, and the split
-    path's fixed cost per call. Between them, the first case in float32 (the
-    CUDA-core kernels), one pass and 4 splits, held at F32_TOL and timed
-    against the float32 peak."""
+    read and o written once, the table and lengths. Then the first case in
+    float32 (the CUDA-core kernels), one pass and 4 splits, held at F32_TOL
+    and timed against the float32 peak. The split model against these
+    kernels is the plan phase's (a)."""
     import torch.nn.functional as F
     from repro_torch import kernels
-    from repro_torch.core import numa, perf_model
     from repro_torch.kernels import paged_decode_attention as pd
 
     def randn(*shape):
@@ -651,7 +668,6 @@ def check_paged_decode(torch, timer, results, gen):
                                               attn_mask=mask[:, None, None, :],
                                               enable_gqa=True)
 
-    measured = {}
     b = 8
     for label, mp, lens, splits in (
             ("B 8, table 4096", 4096 // PS, [4096, 0, 3001, 17, 2048, 4000, 1, 1500],
@@ -690,12 +706,10 @@ def check_paged_decode(torch, timer, results, gen):
             if e_r > ROW_TOL or zero_row != 0.0 or not same:
                 raise AssertionError(f"{key} {label} num_splits {ns} disagrees with its plain "
                                      "version")
-            if mp == 4096 // PS:
-                measured[ns] = ms
-                if key not in results:
-                    results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=dec_bound[0], bound_by=dec_bound[1],
-                                        library_ms=None)
+            if mp == 4096 // PS and key not in results:
+                results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=dec_bound[0], bound_by=dec_bound[1],
+                                    library_ms=None)
         del kp, vp, q, o, o_ref
 
     # float32 stays on the CUDA cores: the first case again in float32, one
@@ -735,17 +749,6 @@ def check_paged_decode(torch, timer, results, gen):
             raise AssertionError(f"{key} float32 num_splits {ns} disagrees with its plain "
                                  "version")
     del kp, vp, q, o, o_ref
-
-    # The split-K estimator's modelled times for the first case, beside the
-    # measured ones: the model is calibrated only where the two agree.
-    est = perf_model.estimate_decode_splits(
-        batch=b, num_q_heads=HQ, num_kv_heads=HKV, seq_kv=4096, granule=PS, head_dim=D,
-        dtype_bytes=2, topo=numa.H100)
-    model = dict(est.times)
-    log("split-K model vs measured (B 8, table 4096, queue primed): " + ", ".join(
-        f"num_splits {ns}: model {model[ns] * 1e3:.4f} ms, measured {measured[ns]:.4f} ms"
-        for ns in sorted(measured)) + f"; model picks {est.num_splits}")
-    split_path_cost(torch, pd, randn)
 
 
 def check_quantized(torch, timer, results, gen):
@@ -1325,43 +1328,353 @@ def check_ssd(torch, timer, results):
         del x, dt, bm, cm, xdt, bq, cq, acum, y, s, yk, sk
 
 
-def split_path_cost(torch, pd, randn, calls=200, rounds=5):
-    """Time per call of the decode wrapper, host clock over ``calls``
-    back-to-back calls ended by one sync (so whichever of host or card is
-    slower sets it), one-pass against two splits. At one row of two pages
-    the split saves nothing, so the difference is the split path's fixed
-    cost per call: what ``COMBINE_LAUNCH_OVERHEAD_S`` models. At the serve
-    run's decode shape (8 rows of ~560 tokens) it shows which choice wins."""
+# -- phase 3b: the plan's models against the card -----------------------------
+
+#: Split-K calibration grid (plan phase (a)): rows x table pages at page 16,
+#: and the split counts timed at each. The serve runs' tables (36 pages at 8
+#: rows, 260 at 1) are timed beside them. The fit uses every shape not held
+#: out; the held-out ones check it, the loadgen engine's (8 rows, 128 pages)
+#: among them.
+SPLIT_ROWS = (1, 2, 4, 8)
+SPLIT_TABLES = (128, 256)
+SPLIT_COUNTS = (1, 2, 3, 4, 6, 8, 12, 16)
+SPLIT_EXTRA = ((8, 36), (1, 260))
+SPLIT_HELD_OUT = ((8, 128), (2, 256), (1, 260))
+#: The plan's pick may take at most this much more than the fastest split
+#: count measured at its shape (plan phase (a)), and K1 under the scorer's
+#: launch at most this much more than the fastest of the three (b).
+SPLIT_PICK_TOL = 1.15
+MAPPING_PICK_TOL = 1.10
+
+
+def graph_ms(torch, timer, fn):
+    """CUDA-event median of one replay of ``fn`` captured as a CUDA graph,
+    the queue primed (as the engines' decode runs: one graph replay per
+    sync); the graph and its memory are freed after."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    ms = timer.ms(g.replay, primed=True)
+    del g
+    return ms
+
+
+def split_model_times(points, stream_bw, hbm_bw, wave_s):
+    """The split model's terms at each measured ``(rows, pages, splits)``
+    point, vectorised over candidate (stream_bw, hbm_bw, wave_s) rows: the
+    core time ``max(waves * (wave_s + bytes / s / stream_bw), cells * bytes
+    / hbm_bw)``; the state round trip; the 0/1 of a split; the split count.
+    The formula of ``perf_model.estimate_decode_splits``, whose flops term
+    (under 3% of the bytes term at these shapes) is left out; the launch,
+    combine and per-split costs add linearly."""
+    import numpy as np
+
+    from repro_torch.core import numa
+
+    topo = numa.H100
+    cells = np.array([b * HKV for b, _, _ in points], float)
+    s = np.array([ns for _, _, ns in points], float)
+    kv = np.array([2.0 * pages * PS * D * 2 for _, pages, _ in points])
+    waves = np.ceil(cells * s / topo.num_domains)
+    rows, group = topo.state_rows, HQ // HKV
+    gp = max(rows, -(-group // rows) * rows)
+    state = np.where(s > 1, cells * s * 2 * 4.0 * gp * (D + 2) / topo.hbm_bw, 0.0)
+    core = np.maximum(waves * (np.asarray(wave_s, float)[:, None] + kv / s
+                               / np.asarray(stream_bw, float)[:, None]),
+                      cells * kv / np.asarray(hbm_bw, float)[:, None])
+    return core, state, (s > 1).astype(float), s
+
+
+def fit_split_model(points, measured):
+    """Least squares in relative error over the fit points: a grid over the
+    per-cell stream rate, the aggregate rate and the wave cost; for each, the
+    launch cost, the combine's fixed cost and its cost per split solved in
+    closed form (the model is linear in them), clamped at 0. Returns
+    (stream_bw, hbm_bw, wave_s, launch_s, combine_s, split_s, rms relative
+    error)."""
+    import itertools
+
+    import numpy as np
+
+    t = np.array(measured)
+    grid = np.array(list(itertools.product(
+        np.geomspace(10e9, 200e9, 60), np.geomspace(1.5e12, 3.35e12, 40),
+        np.linspace(0.0, 12e-6, 49))))
+    core, state, split, s = split_model_times(points, grid[:, 0], grid[:, 1], grid[:, 2])
+    y = (t - core - state) / t                      # one row per candidate
+    a = np.stack([1.0 / t, split / t, split * s / t], 1)
+    sol = np.maximum(y @ np.linalg.pinv(a).T, 0.0)
+    rms = np.sqrt(np.mean((y - sol @ a.T) ** 2, axis=1))
+    i = int(np.argmin(rms))
+    return (*grid[i], *sol[i], float(rms[i]))
+
+
+def split_calibration(torch, timer, gen):
+    """Plan phase (a): bf16 K3 (one split) and K4 (split-K + combine) on
+    llama3-8b widths, every row full (the table's width, as the plan prices
+    it), at each shape of the grid and each split count of SPLIT_COUNTS
+    (and the plan's pick, if another): CUDA events with the queue primed,
+    and one replay of a one-launch CUDA graph, the L2 flushed before each.
+    Prints per shape the committed model's time at each split count, the
+    measured times and the plan's pick; fits the model's terms to the graph
+    replays of the shapes not held out and prints the fit, its error at
+    every shape and its own picks. Returns the failures: a shape where the
+    graph time at the plan's pick exceeds SPLIT_PICK_TOL times the
+    fastest."""
+    import numpy as np
+
     from repro_torch.core import numa, perf_model
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import plan
 
-    def per_call(args, ns):
-        for _ in range(10):
-            pd.paged_flash_decode(*args, num_splits=ns)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(calls):
-            pd.paged_flash_decode(*args, num_splits=ns)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / calls * 1e6
-
-    for b, width, length in ((1, 2, 32), (8, 36, 560)):
-        num_pages = 1 + b * width
-        kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
-        table = (torch.arange(b * width, device="cuda", dtype=torch.int32) + 1).reshape(b, width)
-        lengths = torch.full((b,), length, dtype=torch.int32, device="cuda")
-        args = (randn(b, HQ, D), kp, vp, table, lengths)
-        us = {1: [], 2: []}
-        for _ in range(rounds):
-            for ns in (1, 2, 2, 1):
-                us[ns].append(per_call(args, ns))
-        one, two = statistics.median(us[1]), statistics.median(us[2])
+    card = smi_line()
+    shapes = [(b, t) for t in SPLIT_TABLES for b in SPLIT_ROWS] + list(SPLIT_EXTRA)
+    table_rows, failures = [], []
+    for b, pages in shapes:
+        num_pages = 1 + b * pages
+        kp = torch.randn((HKV, num_pages, PS, D), generator=gen, device="cuda").to(torch.bfloat16)
+        vp = torch.randn((HKV, num_pages, PS, D), generator=gen, device="cuda").to(torch.bfloat16)
+        perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+        table = perm.reshape(b, pages).to(torch.int32).contiguous()
+        lengths = torch.full((b,), pages * PS, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+        pick = plan.plan_attention((b, HQ, HKV, 1, pages * PS, D), phase=plan.DECODE,
+                                   kv_layout=plan.PAGED, page_size=PS,
+                                   device_type="cuda").num_splits
         est = perf_model.estimate_decode_splits(
-            batch=b, num_q_heads=HQ, num_kv_heads=HKV, seq_kv=width * PS, granule=PS,
+            batch=b, num_q_heads=HQ, num_kv_heads=HKV, seq_kv=pages * PS, granule=PS,
             head_dim=D, dtype_bytes=2, topo=numa.H100)
-        log(f"decode per call, B {b} x {length} tokens (table {width} pages), host clock over "
-            f"{calls} calls: num_splits 1 {one:.2f} us, 2 {two:.2f} us, split path costs "
-            f"{two - one:+.2f} us; model picks {est.num_splits} (combine overhead "
-            f"{perf_model.COMBINE_LAUNCH_OVERHEAD_S * 1e6:.1f} us)")
+        model = dict(est.times)
+        graph, primed = {}, {}
+        for ns in sorted(set(SPLIT_COUNTS) | {pick}):
+            run = lambda: pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns)
+            primed[ns] = timer.ms(run, primed=True)
+            graph[ns] = graph_ms(torch, timer, run)
+        best = min(graph, key=graph.get)
+        ratio = graph[pick] / graph[best]
+        held = (b, pages) in SPLIT_HELD_OUT
+        log(f"split-K B {b}, table {pages} pages ({'held out' if held else 'fit'}): "
+            + ", ".join(f"{ns}: model {model[ns] * 1e3:.4f} graph {graph[ns]:.4f} primed "
+                        f"{primed[ns]:.4f}" for ns in sorted(graph))
+            + f" ms; plan picks {pick} ({graph[pick]:.4f} ms), fastest {best} "
+            f"({graph[best]:.4f} ms), ratio {ratio:.3f} (tol {SPLIT_PICK_TOL}); card: {card}")
+        if ratio > SPLIT_PICK_TOL:
+            failures.append(f"split-K B {b}, table {pages}: the plan's pick {pick} takes "
+                            f"{ratio:.3f}x the fastest ({best})")
+        table_rows.append(dict(b=b, pages=pages, held_out=held, pick=pick, fastest=best,
+                               model_ms={ns: model[ns] * 1e3 for ns in graph},
+                               graph_ms=graph, primed_ms=primed))
+        del kp, vp, q, table, lengths
+
+    points = [(r["b"], r["pages"], ns) for r in table_rows if not r["held_out"]
+              for ns in sorted(r["graph_ms"])]
+    measured = [r["graph_ms"][ns] * 1e-3 for r in table_rows if not r["held_out"]
+                for ns in sorted(r["graph_ms"])]
+    stream_bw, hbm_bw, wave_s, launch_s, combine_s, split_s, rms = fit_split_model(
+        points, measured)
+    h = numa.H100
+    log(f"split-K fit over {len(points)} graph replays ({card}): decode_stream_bw "
+        f"{stream_bw:.4g} B/s, decode_hbm_bw {hbm_bw:.4g} B/s, decode_wave_s {wave_s:.4g} s, "
+        f"decode_launch_s {launch_s:.4g} s, COMBINE_LAUNCH_OVERHEAD_S {combine_s:.4g} s, "
+        f"decode_split_s {split_s:.4g} s; rms relative error {rms:.4f}; committed "
+        f"{h.decode_stream_bw:.4g}, {h.decode_hbm_bw:.4g}, {h.decode_wave_s:.4g}, "
+        f"{h.decode_launch_s:.4g}, {perf_model.COMBINE_LAUNCH_OVERHEAD_S:.4g}, "
+        f"{h.decode_split_s:.4g}")
+
+    def rel(model_ms, r, splits):
+        return ", ".join(f"{ns}: {m / r['graph_ms'][ns] - 1:+.3f}"
+                         for ns, m in zip(splits, model_ms))
+
+    for r in table_rows:
+        splits = sorted(r["graph_ms"])
+        pts = [(r["b"], r["pages"], ns) for ns in splits]
+        core, state, split, s = split_model_times(pts, [stream_bw], [hbm_bw], [wave_s])
+        fit = (core[0] + state + launch_s + split * (combine_s + s * split_s)) * 1e3
+        # Before this PR: the data-sheet terms, no wave or launch cost, and
+        # the 17 us eager combine.
+        core, state, split, _ = split_model_times(pts, [h.hbm_bw / h.num_domains], [h.hbm_bw],
+                                                  [0.0])
+        old = (core[0] + state + split * 17e-6) * 1e3
+        fit_pick = splits[int(np.argmin(fit))]
+        log(f"  B {r['b']}, table {r['pages']} ({'held out' if r['held_out'] else 'fit'}), "
+            f"model error per split: this call's fit {rel(fit, r, splits)}; committed "
+            f"{rel([r['model_ms'][ns] for ns in splits], r, splits)}; before this PR "
+            f"(data sheet, 17 us combine) {rel(old, r, splits)}; this call's fit picks "
+            f"{fit_pick} ({r['graph_ms'][fit_pick] / r['graph_ms'][r['fastest']]:.3f}x the "
+            f"fastest)")
+    return failures
+
+
+#: Plan phase (b): K1 shapes (label, B, Hq, Hkv, S, D, window): llama3-8b's
+#: two prefill shapes and hymba-1.5b's windowed one.
+MAPPING_SHAPES = (("llama3-8b B 2, S 2048", 2, 32, 8, 2048, 128, None),
+                  ("llama3-8b B 1, S 8192", 1, 32, 8, 8192, 128, None),
+                  ("hymba-1.5b B 1, S 4096, window 1024", 1, 25, 5, 4096, 64, 1024))
+
+
+def mapping_views():
+    """The three readings of an H100 domain the mapping model could take:
+    an SM with its 256 KiB, an L2 half (25 MiB, 66 SMs), the whole L2."""
+    import dataclasses as dc
+
+    from repro_torch.core import numa
+
+    base = numa.H100_L2
+    return {"SM": dc.replace(base, name="sm", num_domains=132, slots_per_domain=1,
+                             cache_bytes=256 * 1024),
+            "L2 half": dc.replace(base, name="l2_half", num_domains=2, slots_per_domain=66,
+                                  cache_bytes=25 * 1024 * 1024),
+            "whole L2": base}
+
+
+def mapping_check(torch, timer, gen):
+    """Plan phase (b): bf16 K1 under each of the plan's three candidate
+    launches at MAPPING_SHAPES, CUDA events with the queue primed, beside
+    ``perf_model.estimate`` of each under the three cache views, and the
+    scorer's pick (``plan.plan_attention``, mapping "auto"); then K1 + K5 +
+    K6 at the train shape (B 2, S 4096) under both orders. Returns the
+    failures: a shape where K1 at the pick takes more than MAPPING_PICK_TOL
+    times the fastest candidate."""
+    from repro_torch.core import perf_model, swizzle
+    from repro_torch.core.cache_sim import AttentionWorkload
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import plan
+
+    card = smi_line()
+    views = mapping_views()
+    failures = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def name(m):
+        return m.order + ("+sawtooth" if m.traversal == swizzle.SAWTOOTH else "")
+
+    for label, b, hq, hkv, s, d, window in MAPPING_SHAPES:
+        q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+        pick = plan.plan_attention((b, hq, hkv, s, s, d), device_type="cuda",
+                                   window=window).mapping
+        times = {}
+        for m in plan.CANDIDATES:
+            times[name(m)] = timer.ms(lambda: fa.flash_attention_fwd(
+                q, k, v, mapping=m, causal=True, window=window), primed=True)
+        wl = AttentionWorkload(
+            grid=swizzle.AttentionGrid(batch=b, num_q_heads=hq, blocks_per_head=-(-s // 128),
+                                       group_size=hq // hkv),
+            seq_len=s, head_dim=d, block_m=128, block_n=128, causal=True, dtype_bytes=2)
+        model = {view: {o: perf_model.estimate(plan.PAPER_NAME[o], wl, topo)
+                        for o in (fa.HEAD_FIRST, fa.BLOCK_FIRST)}
+                 for view, topo in views.items()}
+        best = min(times, key=times.get)
+        ratio = times[name(pick)] / times[best]
+        log(f"mapping {label}: K1 " + ", ".join(f"{n} {t:.4f}" for n, t in times.items())
+            + f" ms (primed); scorer picks {name(pick)}, fastest {best}, ratio {ratio:.3f} "
+            f"(tol {MAPPING_PICK_TOL}); model ms (hit rate) head-first / block-first: "
+            + "; ".join(f"{view} " + " / ".join(
+                f"{e.time * 1e3:.4f} ({e.hit_rate:.2f})" for e in ests.values())
+                for view, ests in model.items())
+            + f"; card: {card}")
+        if ratio > MAPPING_PICK_TOL:
+            failures.append(f"mapping {label}: K1 at the pick {name(pick)} takes {ratio:.3f}x "
+                            f"the fastest ({best})")
+        del q, k, v
+
+    # The train shape: the plan takes one order for the forward and the
+    # backward (the JAX package has no separate backward mapping).
+    b, s = 2, 4096
+    q, k, v, do = randn(b, HQ, s, D), randn(b, HKV, s, D), randn(b, HKV, s, D), randn(b, HQ, s, D)
+    sums = {}
+    for order in (fa.HEAD_FIRST, fa.BLOCK_FIRST):
+        m = fa.MappingConfig(order=order)
+        o, lse = fa.flash_attention_fwd(q, k, v, mapping=m, causal=True)
+        delta = (do.float() * o.float()).sum(-1)
+        fwd = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, mapping=m, causal=True),
+                       primed=True)
+        dq = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, mapping=m),
+                      primed=True)
+        dkv = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, mapping=m),
+                       primed=True)
+        sums[order] = fwd + dq + dkv
+        log(f"mapping train shape (B 2, S 4096) {order}: K1 {fwd:.4f} + K5 {dq:.4f} + K6 "
+            f"{dkv:.4f} = {sums[order]:.4f} ms (primed); card: {card}")
+    pick = plan.plan_attention((b, HQ, HKV, s, s, D), device_type="cuda").mapping
+    log(f"mapping train shape: scorer picks {name(pick)} for the forward and the backward; "
+        f"block-first takes {sums[fa.BLOCK_FIRST] / sums[fa.HEAD_FIRST]:.3f}x head-first's "
+        f"K1 + K5 + K6 (not a check: the plan has one mapping for both passes)")
+    return failures
+
+
+def host_link_fit(torch):
+    """Plan phase (c): round trips of llama3-8b page payloads (every
+    layer's K and V, 2 MiB) through a weightless paged backend's own tier
+    path: ``_page_payload`` (packed on the card, copied to pinned host) then
+    ``_restore_page`` back, for 1, 2, 4 and 8 pages, host clock around a
+    synchronize, median of 10 each way. Half a round trip is one transfer;
+    a least-squares line through the four sizes fits
+    ``perf_model.HOST_LINK_BW`` and ``TIER_TRANSFER_FIXED_S`` (through the
+    origin where the free line's intercept falls below 0)."""
+    import numpy as np
+
+    from repro_torch.configs import llama3_8b
+    from repro_torch.core import perf_model
+    from repro_torch.serving.backends import PagedBackend
+
+    sizes = (1, 2, 4, 8)
+    backend = PagedBackend(llama3_8b.CONFIG, None, device=torch.device("cuda"),
+                           num_pages=1 + 2 * max(sizes), page_size=PS, rows=1,
+                           max_pages_per_seq=2 * max(sizes), prompt_buckets=(PS,))
+    page = backend.page_nbytes()
+    backend._restore_page(backend._page_payload(1), 9)      # pinned buffers, kernels warm
+    down, up = {}, {}
+    for n in sizes:
+        d_s, u_s = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            payloads = [backend._page_payload(1 + i) for i in range(n)]
+            d_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            for i, p in enumerate(payloads):
+                backend._restore_page(p, 1 + max(sizes) + i)
+            torch.cuda.synchronize()
+            u_s.append(time.perf_counter() - t)
+        down[n], up[n] = statistics.median(d_s), statistics.median(u_s)
+    x = np.array([n * page for n in sizes], float)
+    y = np.array([(down[n] + up[n]) / 2 for n in sizes])
+    slope, fixed = np.polyfit(x, y, 1)
+    if fixed < 0:
+        slope, fixed = float(x @ y / (x @ x)), 0.0
+    bw = 1.0 / slope
+    log(f"host link, llama3-8b page payloads of {page / 2**20:.2f} MiB (host clock, median of "
+        f"10), {' / '.join(map(str, sizes))} pages: device -> pinned host "
+        + " / ".join(f"{down[n] * 1e3:.4f}" for n in sizes) + " ms, back "
+        + " / ".join(f"{up[n] * 1e3:.4f}" for n in sizes) + " ms; fit HOST_LINK_BW "
+        f"{bw:.4g} B/s, TIER_TRANSFER_FIXED_S {fixed:.4g} s; committed "
+        f"{perf_model.HOST_LINK_BW:.4g} B/s, {perf_model.TIER_TRANSFER_FIXED_S:.4g} s, which "
+        f"price one transfer of " + " / ".join(
+            f"{perf_model.estimate_tier_transfer(n * page) * 1e3:.4f}" for n in sizes)
+        + f" ms against half a round trip's " + " / ".join(f"{v * 1e3:.4f}" for v in y)
+        + f" ms; card: {smi_line()}")
+    backend.shutdown()
+    del backend
+
+
+def plan_phase(torch, timer):
+    """Plan phase: (a) the split-K model against K3 / K4, (b) the mapping
+    scorer against K1, (c) the host link. Every table is printed before any
+    failure is raised."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    t = time.perf_counter()
+    failures = split_calibration(torch, timer, gen)
+    failures += mapping_check(torch, timer, gen)
+    host_link_fit(torch)
+    log(f"plan phase {time.perf_counter() - t:.1f} s")
+    if failures:
+        raise AssertionError("plan phase: " + "; ".join(failures))
 
 
 # -- phase 4: serve llama3-8b ------------------------------------------------
@@ -1381,6 +1694,9 @@ def init_params(torch, cfg, seed=0, device="cuda"):
 #: tables of 36 pages (576 tokens: a 512-token prompt and 32 new tokens).
 SERVE_PAGED_KW = dict(kv_layout="paged", max_batch=8, num_pages=1024, page_size=PS,
                       max_pages_per_seq=36, prompt_buckets=(256, 512))
+#: Run (b)'s engine on top of it: one row (one request) over 260-page
+#: tables, which the plan splits (K4).
+SERVE_B_KW = dict(max_batch=1, max_pages_per_seq=260, prompt_buckets=(256, 512, 4096))
 
 
 def serve_prompts(cfg, seed=0):
@@ -1408,14 +1724,12 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
 
     # Each run on an engine sized for it: a sync decodes every row over the
     # whole page table (one CUDA graph per (steps, stop width)), so the
-    # table width sets the decode plan: one pass (K3) over (a)'s 36 pages,
-    # two splits (K4) over (b)'s 260.
+    # table width sets the decode plan: one pass (K3) over (a)'s 8 rows of
+    # 36 pages, split-K (K4) over (b)'s one row of 260.
     kernels.reset_launch_counts()
     runs, stats = {}, {}
     for label, prompts, uid0, kw in (("a", prompts_a, 0, engine_kw),
-                                     ("b", [prompt_b], 100,
-                                      dict(engine_kw, max_pages_per_seq=260,
-                                           prompt_buckets=(256, 512, 4096)))):
+                                     ("b", [prompt_b], 100, dict(engine_kw, **SERVE_B_KW))):
         engine = LLMEngine(cfg, params, **kw)
         t = time.perf_counter()
         out = engine.generate([Request(uid=uid0 + i, prompt=p, sampling=greedy)
@@ -1455,17 +1769,15 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     logits = {"a": compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (a)",
                                 engine_kw=engine_kw, prompts=prompts_a),
               "b": compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (b)",
-                                engine_kw=dict(engine_kw, max_pages_per_seq=260,
-                                               prompt_buckets=(256, 512, 4096)),
-                                prompts=[prompt_b])}
+                                engine_kw=dict(engine_kw, **SERVE_B_KW), prompts=[prompt_b])}
     return counts, logits
 
 
 def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
     """Run (a)'s and run (b)'s workloads on llama3-8b paged with the pool
     stored as int8 and then as fp8 codes: (a) runs K1, then K2q on its
-    extend wave, then K3q in the decode graph; (b) K1 and K4q (2 splits over
-    260 pages). The launch counts are set to 0 just before each format's
+    extend wave, then K3q in the decode graph; (b) K1 and K4q (the plan's
+    split count over one row of 260 pages). The launch counts are set to 0 just before each format's
     two runs and read just after: K2q, K3q and K4q must each have launched,
     every one of their launches on a tensor-core kernel, and no decode or
     extend launch may have gone to an unquantized kernel. Each run's TTFT
@@ -1483,7 +1795,7 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     prompts_a, rng = serve_prompts(cfg, seed)
     prompt_b = rng.integers(1, cfg.vocab, size=(4096,))
-    kw_b = dict(engine_kw, max_pages_per_seq=260, prompt_buckets=(256, 512, 4096))
+    kw_b = dict(engine_kw, **SERVE_B_KW)
     greedy = SamplingParams(max_tokens=32)
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
     total = {}
@@ -2079,8 +2391,12 @@ def loadgen_phase(torch, cfg, params):
             f"{p['host_overhead_per_token_s'] * 1e6:.1f} us/token (modeled "
             f"{p['modeled_host_overhead_s'] * 1e6:.1f}); graphs captured after warm-up "
             f"{p['decode_retraces_after_warmup']}; prefix hit rate "
-            f"{p['prefix']['prefix_hit_rate']:.3f}, preemptions {p['preemptions']}; "
-            f"card: {card}")
+            f"{p['prefix']['prefix_hit_rate']:.3f}, preemptions {p['preemptions']}, "
+            f"occupancy cap {p['occupancy_cap']}; card: {card}")
+        cap = p["occupancy_cap"]
+        if not isinstance(cap, int) or not 1 <= cap <= LOADGEN_KW["max_batch"]:
+            raise AssertionError(f"loadgen N={n}: occupancy_cap {cap!r} is not an integer "
+                                 f"in 1..{LOADGEN_KW['max_batch']}")
         log(f"loadgen N={n} drift (worst ratio {p['drift_worst_ratio']}; card: {card}):")
         log("  " + DriftReport(rows=p["drift"]["rows"]).render().replace("\n", "\n  "))
     log(f"loadgen host overhead per token: N=1 "
@@ -2090,7 +2406,8 @@ def loadgen_phase(torch, cfg, params):
         f"n{n}": {k: p[k] for k in ("ttft_s", "ttft_sampled_s", "itl_s", "queue_s",
                                     "measured_tok_s", "modeled_tok_s",
                                     "host_overhead_per_token_s",
-                                    "decode_retraces_after_warmup", "drift_worst_ratio")}
+                                    "decode_retraces_after_warmup", "drift_worst_ratio",
+                                    "occupancy_cap")}
         for n, p in payloads.items()}))
 
     # The loadgen engine against the plain path: one sync on the trace's
@@ -2315,6 +2632,12 @@ def train_breakdown(torch, cfg, step_s):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", choices=("all", "plan"), default="all",
+                        help="'plan' stops after the plan phase and prints no result line")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -2346,14 +2669,21 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    timer = Timer(torch)
+    if args.phase == "plan":
+        log("== plan: split-K, mapping and host-link models against the card")
+        plan_phase(torch, timer)
+        log(f"total {time.perf_counter() - t_start:.1f} s (plan phase only: no result line)")
+        return 0
     log("== kernels (bf16, Hq 32, Hkv 8, D 128, page 16)")
     results = {}
-    timer = Timer(torch)
     check_kernels(torch, timer, results)
     check_backward(torch, timer, results)
     log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32 in 3xTF32)")
     check_dense_decode(torch, timer, results)
     check_ssd(torch, timer, results)
+    log("== plan: split-K, mapping and host-link models against the card")
+    plan_phase(torch, timer)
     del timer
     log("== serve llama3-8b (paged, bf16, random weights)")
     params = init_params(torch, llama3_8b.CONFIG)

@@ -4,7 +4,10 @@ The port's copy of what the paged kernels need from ``repro.cache.layout``:
 the head-major pool (``HEAD_ALIGNED``: all pages of one KV head contiguous,
 ``(Hkv, num_pages, page_size, D)``) and :func:`decode_split_ranges`, the one
 source of truth for split-K boundaries that the plain path, the CUDA
-wrapper and the tests all replay.
+wrapper and the tests all replay; and the domain arithmetic the cache
+simulator replays page reads with (:func:`domain_of_head`,
+:func:`domain_of_page`; ``INTERLEAVED`` exists there only, as the naive
+placement the simulator compares against).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 HEAD_ALIGNED = "head_aligned"
+INTERLEAVED = "interleaved"
 
 
 def decode_split_ranges(
@@ -35,3 +39,21 @@ def decode_split_ranges(
         (i * per, min((i + 1) * per, num_units))
         for i in range(s)
     )
+
+
+def domain_of_head(head: int, num_kv_heads: int, num_domains: int) -> int:
+    """Domain owning a KV head: contiguous head blocks (the head-first
+    grid's split of heads over domains)."""
+    if num_kv_heads >= num_domains:
+        return head * num_domains // num_kv_heads
+    return head % num_domains
+
+
+def domain_of_page(pid: int, head: int, policy: str, num_kv_heads: int,
+                   num_domains: int) -> int:
+    """Memory domain holding physical page ``pid`` of head ``head``."""
+    if policy == HEAD_ALIGNED:
+        return domain_of_head(head, num_kv_heads, num_domains)
+    if policy == INTERLEAVED:
+        return pid % num_domains
+    raise ValueError(f"unknown page placement policy {policy!r}")

@@ -19,6 +19,10 @@ K/V; every block already runs in parallel). So ``PAPER_MAPPINGS`` keeps the
 four names as aliases of the two Hopper orders: ``naive_head_first`` and
 ``swizzled_head_first`` are one launch, as are the two block-first names.
 No mapping changes an output.
+
+:func:`hbm_block_fetches` counts the bytes a K1 launch loads from memory
+under a mapping (the plan's tie-break between launches its analytic model
+prices alike).
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ BLOCK_FIRST = "block_first"
 BLOCK_M = 64
 BLOCK_N = 64
 HEAD_DIMS = (64, 128)
+#: Tile sizes of the bf16 tensor-core kernel (ptc::BM / ptc::BN).
+TC_BLOCK_M = 128
+TC_BLOCK_N = 128
 
 #: Launches of either CUDA kernel since the last reset; ``launches_tc``
 #: counts those of the bf16 tensor-core kernel alone.
@@ -65,6 +72,53 @@ PAPER_MAPPINGS = {
     "swizzled_block_first": MappingConfig(order=BLOCK_FIRST),
     "naive_block_first": MappingConfig(order=BLOCK_FIRST),
 }
+
+
+def tiles(dtype_bytes: int) -> Tuple[int, int]:
+    """K1's fixed (block_m, block_n) for an element size: 128 x 128 for
+    bf16 (the tensor-core kernel), 64 x 64 for float32."""
+    return (TC_BLOCK_M, TC_BLOCK_N) if dtype_bytes == 2 else (BLOCK_M, BLOCK_N)
+
+
+def hbm_block_fetches(*, batch: int, num_q_heads: int, num_kv_heads: int,
+                      seq_q: int, seq_kv: int, head_dim: int, dtype_bytes: int = 2,
+                      mapping: MappingConfig = MappingConfig(), causal: bool = True,
+                      window: Optional[int] = None) -> dict:
+    """Bytes a K1 launch loads from memory under ``mapping``: each q block's
+    Q rows once, then each (q block, live KV tile)'s K and V rows, at the
+    kernel's fixed tiles (:func:`tiles`); the rows past a sequence's end
+    that TMA fills with zeros are not read. The Hopper form of the JAX
+    package's count, which differs in one point: a Pallas pipeline skips
+    the copy of a block revisited at consecutive grid steps (so there the
+    sawtooth traversal and a resident K/V save copies), while a TMA
+    pipeline loads every tile it walks. The count is therefore the same for
+    every order and traversal: what an order changes is which loads the L2
+    serves, which the analytic model (``core.perf_model.estimate``) prices."""
+    if mapping.order not in (HEAD_FIRST, BLOCK_FIRST):
+        raise ValueError(f"unknown order {mapping.order!r}")
+    if mapping.traversal not in swizzle.TRAVERSALS:
+        raise ValueError(f"unknown traversal {mapping.traversal!r}")
+    bm, bn = tiles(dtype_bytes)
+    row = head_dim * dtype_bytes
+    kv_rows = 0
+    for q0 in range(0, seq_q, bm):
+        # [n_lo, n_hi): the q block's KV tiles (kv_tile_range, csrc/common.cuh).
+        n_hi = -(-seq_kv // bn)
+        if causal:
+            n_hi = min(n_hi, (q0 + bm + bn - 1) // bn)
+        n_lo = max(q0 - window + 1, 0) // bn if window else 0
+        kv_rows += max(0, min(n_hi * bn, seq_kv) - n_lo * bn)
+    q_traffic = batch * num_q_heads * seq_q * row
+    kv_traffic = 2 * batch * num_q_heads * kv_rows * row
+    ideal = batch * (2 * num_kv_heads * seq_kv + num_q_heads * seq_q) * row
+    total = kv_traffic + q_traffic
+    return {
+        "kv_bytes": kv_traffic,
+        "q_bytes": q_traffic,
+        "total_bytes": total,
+        "ideal_bytes": ideal,
+        "reuse_efficiency": ideal / total if total else 0.0,
+    }
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal=True, window=None,

@@ -3,7 +3,9 @@
 Port of ``repro.kernels.plan``. An :class:`AttentionPlan` carries the phase
 (prefill | extend | decode), the KV layout, the resolved ``MappingConfig``,
 the concrete implementation and, for decode, the split-K ``num_splits``
-chosen by ``core.perf_model.estimate_decode_splits`` on the H100 topology;
+chosen by ``core.perf_model.estimate_decode_splits`` on the H100 topology
+(``core.numa.H100``, fitted to the paged kernels K3/K4 on the card; dense
+stripes on ``H100_DENSE_DECODE``, whose terms are not fitted);
 dense decode also carries its KV ``chunk`` (:func:`decode_chunk`).
 :func:`resolve_kv_layout` ranks the dense and paged layouts for a decode
 mix with the decode models of ``core.perf_model``.
@@ -12,9 +14,14 @@ Implementations: ``"cuda"`` (the hand-written kernels), ``"plain"`` (their
 plain PyTorch versions, on any device). ``"auto"`` resolves by the device of
 the tensors: the kernels on CUDA, the plain versions on the CPU.
 
-Mapping ``"auto"`` resolves to ``PAPER_MAPPINGS["swizzled_head_first"]`` in
-this slice; the scored mapping resolver and the extend-route scorer of the
-JAX package are listed in ROADMAP.md. No mapping changes an output.
+Mapping ``"auto"`` is scored, as in the JAX package, for PREFILL and
+DECODE (:func:`_score_mapping`): the three launches Hopper has
+(:data:`CANDIDATES`) are priced by ``core.perf_model.estimate`` on the
+H100's cache view (``core.numa.H100_L2``), ties broken by the bytes K1
+loads (``kernels.flash_attention.hbm_block_fetches``), then by rank. Paged
+EXTEND carries the default. A pinned name fails fast when unknown. The JAX
+package's extend-route scorer (paged kernel against a gather route) waits
+for a gather route (ROADMAP.md). No mapping changes an output.
 """
 
 from __future__ import annotations
@@ -27,7 +34,15 @@ from repro_torch.cache import layout as layout_lib
 from repro_torch.cache import quant as quant_lib
 from repro_torch.core import numa, perf_model
 from repro_torch.kernels.decode_attention import STAGE as DECODE_BLOCK
-from repro_torch.kernels.flash_attention import PAPER_MAPPINGS, MappingConfig
+from repro_torch.core import swizzle
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.flash_attention import (
+    BLOCK_FIRST,
+    HEAD_FIRST,
+    PAPER_MAPPINGS,
+    MappingConfig,
+    hbm_block_fetches,
+)
 
 PREFILL = "prefill"
 EXTEND = "extend"
@@ -38,8 +53,6 @@ DENSE = "dense"
 PAGED = "paged"
 
 IMPLS = ("auto", "cuda", "plain")
-
-DEFAULT_MAPPING = "swizzled_head_first"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +72,29 @@ class AttentionPlan:
 
 #: The machine plans are scored for. The port targets one H100; CPU runs
 #: plan for it too, so a CPU test takes the same decisions as the card.
+#: Occupancy models (split-K, layouts, extend) read the SM view, the
+#: mapping model the cache view (``core.numa``).
 TOPOLOGY = numa.H100
+CACHE_TOPOLOGY = numa.H100_L2
+#: The dense decode kernels' split choice keeps the unfitted terms.
+DENSE_DECODE_TOPOLOGY = numa.H100_DENSE_DECODE
+
+#: The launches Hopper has, in rank order (the last key of the score): a
+#: CTA's ``blockIdx`` decodes head-first or block-first, and walks its KV
+#: tiles linearly or, head-first, in sawtooth (the JAX package's streaming
+#: candidates; its resident and block-size variants have no launch here).
+CANDIDATES = (
+    MappingConfig(order=HEAD_FIRST, traversal=swizzle.LINEAR),
+    MappingConfig(order=HEAD_FIRST, traversal=swizzle.SAWTOOTH),
+    MappingConfig(order=BLOCK_FIRST, traversal=swizzle.LINEAR),
+)
+
+#: Launch order -> the paper's mapping name it is priced as. ``blockIdx``
+#: decodes straight into (b, h, m) with no swizzle, so the naive names.
+PAPER_NAME = {
+    HEAD_FIRST: swizzle.NAIVE_HEAD_FIRST,
+    BLOCK_FIRST: swizzle.NAIVE_BLOCK_FIRST,
+}
 
 
 def resolve_impl(impl: str, device_type: str) -> str:
@@ -93,12 +128,55 @@ def decode_chunk(capacity: int) -> int:
     return chunk
 
 
+@functools.lru_cache(maxsize=1024)
+def _score_mapping(batch: int, num_q_heads: int, num_kv_heads: int, seq_q: int,
+                   seq_kv: int, head_dim: int, dtype_bytes: int, decode: bool,
+                   window: Optional[int]) -> MappingConfig:
+    """The :data:`CANDIDATES` argmin of ``(time, bytes, rank)``: the
+    analytic model's time on :data:`CACHE_TOPOLOGY`, the bytes K1 loads,
+    the candidate's rank. As in the JAX package, a sliding window bounds
+    the KV scored to the live span rounded up to a whole 128-key tile, and
+    decode shapes score non-causal (they attend every prior position)."""
+    from repro_torch.core import perf_model
+    from repro_torch.core.cache_sim import AttentionWorkload
+
+    group = max(1, num_q_heads // max(num_kv_heads, 1))
+    causal = not decode
+    if window is not None and window > 0:
+        seq_kv = min(seq_kv, -(-(window + (0 if decode else seq_q)) // 128) * 128)
+    block_m, block_n = fa.tiles(dtype_bytes)
+    # perf_model.estimate models a square (seq_kv x seq_kv) launch, as in
+    # the JAX package; the exact rectangular traffic enters the tie-break.
+    grid = swizzle.AttentionGrid(batch=batch, num_q_heads=num_q_heads,
+                                 blocks_per_head=-(-seq_kv // block_m), group_size=group)
+    wl = AttentionWorkload(grid=grid, seq_len=seq_kv, head_dim=head_dim, block_m=block_m,
+                           block_n=block_n, causal=causal, dtype_bytes=dtype_bytes)
+    best = None  # ((time, traffic, rank), config)
+    for rank, cand in enumerate(CANDIDATES):
+        est = perf_model.estimate(PAPER_NAME[cand.order], wl, CACHE_TOPOLOGY)
+        traffic = hbm_block_fetches(
+            batch=batch, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+            seq_q=seq_q, seq_kv=seq_kv, head_dim=head_dim, dtype_bytes=dtype_bytes,
+            mapping=cand, causal=causal, window=window)["total_bytes"]
+        key = (est.time, traffic, rank)
+        if best is None or key < best[0]:
+            best = (key, cand)
+    return best[1]
+
+
 @functools.lru_cache(maxsize=2048)
 def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
-                 phase, kv_layout, device_type, dtype_bytes, window, page_size,
-                 mapping_name, impl) -> AttentionPlan:
-    name = DEFAULT_MAPPING if mapping_name == "auto" else mapping_name
-    mapping = PAPER_MAPPINGS[name]  # KeyError = fail fast
+                 phase, kv_layout, device_type, dtype_bytes, split_dtype_bytes, window,
+                 page_size, mapping_name, impl) -> AttentionPlan:
+    if mapping_name != "auto":
+        mapping = PAPER_MAPPINGS[mapping_name]  # KeyError = fail fast
+    elif phase == EXTEND and kv_layout == PAGED:
+        # The paged prefill kernel takes no MappingConfig (its schedule is
+        # the fixed head-first page walk): carry the default.
+        mapping = MappingConfig()
+    else:
+        mapping = _score_mapping(batch, num_q_heads, num_kv_heads, seq_q, seq_kv,
+                                 head_dim, dtype_bytes, phase == DECODE, window)
     num_splits = 1
     chunk = None
     if phase == DECODE:
@@ -109,7 +187,8 @@ def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
         num_splits = perf_model.estimate_decode_splits(
             batch=batch, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
             seq_kv=seq_kv, granule=chunk if kv_layout == DENSE else page_size,
-            head_dim=head_dim, dtype_bytes=dtype_bytes, topo=TOPOLOGY,
+            head_dim=head_dim, dtype_bytes=split_dtype_bytes,
+            topo=DENSE_DECODE_TOPOLOGY if kv_layout == DENSE else TOPOLOGY,
             window=window,
         ).num_splits
     return AttentionPlan(
@@ -132,7 +211,10 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
     decode, ``seq_kv`` is the page-table width times the page size; for
     dense decode, the stripe's capacity. A quantized ``kv_dtype`` (paged
     only) scores the bytes its codes move: ``dtype_bytes`` becomes
-    ``cache.quant.kv_itemsize``, as in the JAX package."""
+    ``cache.quant.kv_itemsize``, as in the JAX package; except the split
+    count, which keeps ``dtype_bytes``: the split terms are fitted to the
+    bf16 kernels, and the quantized ones, which widen their codes to bf16
+    stages, take a bf16 cell's time or more, not half of it (PERF.md §6)."""
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}; expected one of {PHASES}")
     if kv_layout not in (DENSE, PAGED):
@@ -140,6 +222,7 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
     if kv_layout == PAGED and page_size is None:
         raise ValueError("paged plans require page_size")
     quant_lib.validate_kv_dtype(kv_dtype)
+    split_dtype_bytes = dtype_bytes
     if kv_dtype != "fp32":
         if kv_layout != PAGED:
             raise ValueError(f"kv_dtype={kv_dtype!r} requires the paged KV layout")
@@ -147,7 +230,7 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
     b, hq, hkv, sq, skv, d = (int(x) for x in shape)
     return _plan_cached(
         b, hq, hkv, sq, skv, d, phase, kv_layout, device_type,
-        int(dtype_bytes), int(window) if window else None,
+        int(dtype_bytes), int(split_dtype_bytes), int(window) if window else None,
         int(page_size) if page_size else None,
         mapping_name, impl,
     )

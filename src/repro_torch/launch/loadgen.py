@@ -32,8 +32,7 @@ with the telemetry of ``repro_torch.obs`` attached:
     (https://ui.perfetto.dev), in ``--out-dir`` (default ``artifacts/torch``).
 
 Not ported: the serving mesh (``--mesh N`` > 1 and ``--mesh-sweep`` raise
-``NotImplementedError``, ROADMAP Queue A item 6) and the scheduler's
-occupancy cap (``occupancy_cap`` is reported as None, Queue A item 2).
+``NotImplementedError``, ROADMAP Queue A item 6).
 
 Run:
   python -m repro_torch.launch.loadgen --smoke --device cpu
@@ -285,7 +284,7 @@ def run_one(args, kv_layout: str, *, cfg=None, params=None, prompt_mix=PROMPT_MI
         "preemptions": stats.preemptions,
         "resumed_tokens": stats.resumed_tokens,
         "prefix": prefix,
-        "occupancy_cap": None,
+        "occupancy_cap": stats.occupancy_cap,
         "drift": drift.to_dict(),
         "drift_worst_ratio": drift.worst_ratio(),
         "mesh_devices": 1,

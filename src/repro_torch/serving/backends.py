@@ -582,20 +582,62 @@ class PagedBackend(_Backend):
         """Device bytes of the page pools, scale tables included."""
         return self.page_nbytes() * self.pool.num_pages
 
+    @property
+    def _kv_dtype_bytes(self) -> int:
+        """Bytes per pooled element: 1 for int8 / fp8 codes, else the
+        compute dtype's."""
+        if self.kv_dtype in quant.QMAX:
+            return quant.kv_itemsize(self.kv_dtype)
+        return device_lib.dtype_of(self.cfg.compute_dtype).itemsize
+
     def decode_time_model(self, batch: int, mean_len: Optional[float] = None) -> float:
         """Modelled seconds of one decode tick's attention
         (``perf_model.estimate_paged_decode`` on the H100): the kernel only,
         not the whole tick, as in the JAX package. Priced at the pool's
         byte width (1 for int8 / fp8 codes) and at half-full sequences,
-        unless ``mean_len`` gives the live mean context (drift cells)."""
-        itemsize = (quant.kv_itemsize(self.kv_dtype) if self.kv_dtype in quant.QMAX
-                    else device_lib.dtype_of(self.cfg.compute_dtype).itemsize)
+        unless ``mean_len`` gives the live mean context (drift cells, the
+        occupancy cap)."""
         return perf_model.estimate_paged_decode(
             batch=batch, num_q_heads=self.cfg.n_heads, num_kv_heads=self.cfg.n_kv_heads,
             mean_len=(max(int(mean_len), self.page_size) if mean_len
                       else max(self.cache_len // 2, self.page_size)),
-            page_size=self.page_size, head_dim=self.cfg.head_dim, dtype_bytes=itemsize,
-            topo=plan_lib.TOPOLOGY).time
+            page_size=self.page_size, head_dim=self.cfg.head_dim,
+            dtype_bytes=self._kv_dtype_bytes, topo=plan_lib.TOPOLOGY).time
+
+    def prefill_time_saved(self, req) -> float:
+        """Modelled prefill seconds that cache reuse would save ``req`` if
+        admitted now: the scheduler's tie-break within a priority class.
+        The full prefill minus the extend over the matched prefix, both
+        ``perf_model.estimate_extend_prefill`` on the plan's topology; a
+        host-tier continuation of the match adds the recompute it saves
+        minus its transfer (``perf_model.estimate_tier_transfer``), credited
+        only where the link beats the FLOPs. Zero when nothing matches."""
+        _, matched = self.quote(req)
+        n = len(req.prompt)
+        limit = (n - 1) // self.page_size
+        host_run = 0
+        if self.host is not None and matched < limit:
+            for h in req.page_hashes(self.page_size)[matched:limit]:
+                if h not in self.host:
+                    break
+                host_run += 1
+        if matched <= 0 and host_run <= 0:
+            return 0.0
+        prefix = min(matched * self.page_size, n - 1)
+        both = min((matched + host_run) * self.page_size, n - 1)
+
+        def _t(prefix_len: int) -> float:
+            return perf_model.estimate_extend_prefill(
+                batch=1, num_q_heads=self.cfg.n_heads, num_kv_heads=self.cfg.n_kv_heads,
+                prefix_len=prefix_len, tail_len=n - prefix_len, page_size=self.page_size,
+                head_dim=self.cfg.head_dim, dtype_bytes=self._kv_dtype_bytes,
+                topo=plan_lib.TOPOLOGY).time
+
+        saved = max(_t(0) - _t(prefix), 0.0)
+        if host_run > 0:
+            transfer = perf_model.estimate_tier_transfer(host_run * self.host.page_nbytes)
+            saved += max(_t(prefix) - _t(both) - transfer, 0.0)
+        return saved
 
     def validate(self, req) -> None:
         tok = np.asarray(req.prompt)

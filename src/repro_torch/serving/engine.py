@@ -444,6 +444,7 @@ class LLMEngine:
             preemptions=b.stats["preemptions"], resumed_tokens=b.stats["resumed_tokens"],
             prefill_launches=b.stats["prefill_launches"],
             batched_prefills=b.stats["batched_prefills"],
+            occupancy_cap=self.scheduler.occupancy_cap(b),
             steps_per_sync=self.steps_per_sync, kv_dtype=str(pool["kv_dtype"]),
             demoted_pages=int(pool.get("demoted_pages", 0)),
             promoted_pages=int(pool.get("promoted_pages", 0)),

@@ -1,11 +1,14 @@
 """Serving scheduler: admission, fairness and preemption policy.
 
-Port of ``repro.serving.scheduler`` without the model-driven parts
-(the occupancy cap and the prefill-savings tie-break, which need the
-JAX package's decode and extend time models; see ROADMAP.md):
+Port of ``repro.serving.scheduler``:
 
-  * admission walks the ready queue in (effective priority, arrival) order
-    with head-of-line blocking; preempted requests re-enter first;
+  * admission walks the ready queue in (effective priority, modelled
+    prefill savings, arrival) order with head-of-line blocking; preempted
+    requests re-enter first. Within a priority class the request whose
+    admission saves the most modelled prefill time (the longest live
+    prefix-cache hit, and a host-tier continuation where the link beats
+    recomputing it: ``backend.prefill_time_saved``) goes first; backends
+    without the hook keep FCFS;
   * fairness is priority + FCFS with aging: effective priority grows by one
     every ``aging_rounds`` rounds a request waits;
   * the page budget prices a request (pages needed minus prefix matches,
@@ -13,6 +16,10 @@ JAX package's decode and extend time models; see ROADMAP.md):
     fused decode's ticks per sync) against free + evictable pages before
     the backend's allocator is touched; a backend without a page pool
     (dense slots) always passes it, its row check is in ``try_admit``;
+  * the occupancy cap: admission stops at the smallest batch past which
+    the decode time model (``decode_time_model``, injectable, else the
+    backend's) says aggregate tokens/s declines, re-priced per live
+    mean-context bucket (``obs.drift.context_bucket``);
   * ``choose_victim`` evicts the lowest-priority, newest active row;
   * ``choose_steps_per_sync`` picks the fused decode's ticks per sync for
     ``steps_per_sync="auto"`` from the backend's measured tick (the JAX
@@ -27,6 +34,7 @@ from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core import perf_model
+from repro_torch.obs.drift import context_bucket
 
 
 #: Denominators below this are "not measured yet": a rate over them reports
@@ -66,8 +74,8 @@ class SchedulerStats:
         batch, which prices the decode attention kernel only, not the whole
         tick; a near-zero modelled tick reports 0.0 (:func:`safe_rate`).
 
-    The JAX package's ``occupancy_cap`` is left out: the scheduler's
-    occupancy cap is not ported (ROADMAP Queue A item 2)."""
+    ``occupancy_cap`` is the scheduler's modelled largest useful batch
+    (:meth:`Scheduler.occupancy_cap`)."""
 
     kv_layout: str = "paged"
     running: int = 0
@@ -86,6 +94,7 @@ class SchedulerStats:
     resumed_tokens: int = 0
     prefill_launches: int = 0
     batched_prefills: int = 0
+    occupancy_cap: int = 0         # scheduler's modelled max useful batch
     steps_per_sync: int = 1
     kv_dtype: str = "fp32"         # pool storage (fp32 = the compute dtype, int8, fp8)
     demoted_pages: int = 0         # pages demoted device -> host tier
@@ -105,7 +114,8 @@ class SchedulerStats:
             f"{self.elapsed_s:.2f}s ({self.tokens_per_s:.1f} tok/s wall, decode "
             f"{self.decode_tok_s:.1f} tok/s, measured {self.measured_tok_s:.1f}, modeled "
             f"{self.modeled_tok_s:.0f}) | prefix hit {hit} | "
-            f"occupancy {self.page_occupancy:.2f} | {self.preemptions} preemptions "
+            f"occupancy {self.page_occupancy:.2f} (cap {self.occupancy_cap}) | "
+            f"{self.preemptions} preemptions "
             f"({self.resumed_tokens} tokens resumed) | {self.prefill_launches} "
             f"prefill launches ({self.batched_prefills} batched) | "
             f"{self.steps_per_sync} steps per sync{tier}"
@@ -120,15 +130,28 @@ class _Waiting:
 
 
 class Scheduler:
-    """Admission / fairness / preemption policy over a serving backend."""
+    """Admission / fairness / preemption policy over a serving backend.
 
-    def __init__(self, *, aging_rounds: int = 4):
+    The backend protocol: ``rows``, ``num_active``, ``try_admit(req,
+    resume_tokens) -> record | None``, optional ``quote(req) ->
+    (total_pages, matched_pages)`` + ``free_pages`` / ``evictable_pages`` /
+    ``reserve_pages`` / ``sync_reserve_pages`` for the page budget,
+    optional ``decode_time_model(batch, mean_len=...) -> seconds`` and
+    ``lengths`` / ``active`` for the occupancy cap (batch-only models also
+    accepted), optional ``prefill_time_saved(req) -> seconds`` for the
+    admission tie-break."""
+
+    def __init__(self, *, aging_rounds: int = 4, decode_time_model=None):
         if aging_rounds < 1:
             raise ValueError("aging_rounds must be >= 1")
         self.aging_rounds = aging_rounds
+        self._decode_time_model = decode_time_model
         self._waiting: List[_Waiting] = []
         self._requeue: "deque[Tuple[object, List]]" = deque()
         self._arrival = 0
+        # Occupancy cap memo, keyed by the live-mean-context bucket the
+        # batch is in (None = the backend exposes no live lengths).
+        self._occupancy_cap: dict = {}
 
     def add(self, req) -> None:
         self._waiting.append(_Waiting(req, self._arrival))
@@ -149,6 +172,23 @@ class Scheduler:
     def _effective_priority(self, w: _Waiting) -> int:
         return w.req.priority + w.rounds_waited // self.aging_rounds
 
+    def _prefill_savings(self, backend, req) -> float:
+        """Modelled prefill seconds saved by admitting ``req`` now; zero for
+        backends without the hook (dense slots), so FCFS holds there."""
+        saved = getattr(backend, "prefill_time_saved", None)
+        return float(saved(req)) if saved is not None else 0.0
+
+    def _ranked(self, backend=None) -> List[_Waiting]:
+        """(effective priority, modelled prefill savings, arrival) order."""
+        return sorted(
+            self._waiting,
+            key=lambda w: (
+                -self._effective_priority(w),
+                -(self._prefill_savings(backend, w.req) if backend is not None else 0.0),
+                w.arrival,
+            ),
+        )
+
     def page_budget_ok(self, backend, req) -> bool:
         if not hasattr(backend, "quote"):
             return True
@@ -156,13 +196,63 @@ class Scheduler:
         reserve = getattr(backend, "sync_reserve_pages", backend.reserve_pages)
         return total - matched + reserve <= backend.free_pages + backend.evictable_pages
 
+    @staticmethod
+    def _live_mean_len(backend) -> Optional[float]:
+        """Mean context length over the backend's live rows, or None when
+        the backend exposes no live lengths or no row is live."""
+        lengths = getattr(backend, "lengths", None)
+        active = getattr(backend, "active", None)
+        if lengths is None or active is None:
+            return None
+        live = lengths[active]
+        if getattr(live, "size", 0) == 0:
+            return None
+        return float(live.mean())
+
+    def occupancy_cap(self, backend) -> int:
+        """Largest decode batch before modelled aggregate tokens/s starts
+        *declining*: the sweep over 1..``rows`` stops at the first batch
+        whose ``b / model(b)`` falls below the best so far. A model linear
+        in the batch keeps tokens/s flat and the cap at ``rows``. The sweep
+        runs at the live mean context, bucketed to a power of two and
+        memoised per bucket; without live lengths (or with a batch-only
+        model) at the model's own default shape; without a model the cap
+        is the row count."""
+        mean_len = self._live_mean_len(backend)
+        bucket = None if mean_len is None else context_bucket(mean_len)
+        cached = self._occupancy_cap.get(bucket)
+        if cached is not None:
+            return cached
+        model = self._decode_time_model or getattr(backend, "decode_time_model", None)
+        cap = backend.rows
+        if model is not None:
+            best = 0.0
+            for b in range(1, backend.rows + 1):
+                if bucket is None:
+                    t = model(b)
+                else:
+                    try:
+                        t = model(b, mean_len=float(bucket))
+                    except TypeError:  # injected batch-only models
+                        t = model(b)
+                tok_s = b / t if t > 0 else float("inf")
+                if tok_s < best * (1.0 - 1e-9):
+                    cap = b - 1
+                    break
+                best = max(best, tok_s)
+        self._occupancy_cap[bucket] = max(cap, 1)
+        return self._occupancy_cap[bucket]
+
     def _admission_ok(self, backend, req) -> bool:
-        return backend.num_active < backend.rows and self.page_budget_ok(backend, req)
+        if backend.num_active >= self.occupancy_cap(backend):
+            return False
+        return self.page_budget_ok(backend, req)
 
     def schedule(self, backend, records: List) -> List:
-        """One admission round: preempted work first, then the ready queue,
-        head-of-line blocking. Records are appended to the caller's list
-        and must be flushed before the next decode tick."""
+        """One admission round: preempted work first, then the ready queue
+        in ranked order, head-of-line blocking, stopping at the occupancy
+        cap. Records are appended to the caller's list and must be flushed
+        before the next decode tick."""
         while self._requeue:
             req, toks = self._requeue[0]
             if not self._admission_ok(backend, req):
@@ -177,9 +267,7 @@ class Scheduler:
             self._requeue.popleft()
             records.append(rec)
         if not self._requeue:
-            ranked = sorted(self._waiting,
-                            key=lambda w: (-self._effective_priority(w), w.arrival))
-            for w in ranked:
+            for w in self._ranked(backend):
                 if not self._admission_ok(backend, w.req):
                     break
                 try:

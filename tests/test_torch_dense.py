@@ -215,7 +215,9 @@ def test_dense_decode_chunk_rule(capacity, chunk):
 
 def test_dense_decode_splits_follow_the_occupancy_model():
     """One long row of hymba (5 cells on 132 SMs) splits; eight rows of a
-    1536-token live width do not."""
+    1536-token live width do not. Dense stripes are planned on
+    ``plan.DENSE_DECODE_TOPOLOGY`` (K7/K8's split terms are not fitted to
+    the card; the paged kernels' are)."""
     def splits(b, width):
         return plan_lib.plan_attention((b, 25, 5, 1, width, 64), phase=plan_lib.DECODE,
                                        device_type="cpu").num_splits
@@ -224,7 +226,8 @@ def test_dense_decode_splits_follow_the_occupancy_model():
     assert splits(8, 1536) == 1
     est = perf_model.estimate_decode_splits(batch=1, num_q_heads=25, num_kv_heads=5,
                                             seq_kv=4096, granule=64, head_dim=64,
-                                            dtype_bytes=2, topo=numa.H100)
+                                            dtype_bytes=2,
+                                            topo=plan_lib.DENSE_DECODE_TOPOLOGY)
     assert splits(1, 4096) == est.num_splits
 
 

@@ -73,7 +73,9 @@ def test_run_one_end_to_end(tmp_path, layout):
     assert payload["ttft_s"]["p99"] >= payload["ttft_s"]["p50"] > 0
     assert payload["ttft_sampled_s"]["p50"] > 0
     assert payload["decode_retraces_after_warmup"] == 0
-    assert payload["occupancy_cap"] is None and payload["per_device"] is None
+    assert isinstance(payload["occupancy_cap"], int)
+    assert 1 <= payload["occupancy_cap"] <= _args(tmp_path).max_batch
+    assert payload["per_device"] is None
     if layout == "dense":
         assert payload["prefix"]["prefix_hit_rate"] is None
     for row in payload["drift"]["rows"]:

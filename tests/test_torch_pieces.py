@@ -120,11 +120,18 @@ def _splits(batch, seq_kv):
 
 
 def test_h100_split_choice_on_the_serving_shapes():
-    """One 4096-token llama3-8b sequence is 8 cells on 132 SMs: split.
-    Eight 544-token rows are 64 cells with short walks: one pass."""
+    """The calibrated estimator at the serving shapes. One 4096-token
+    llama3-8b sequence is 8 cells on 132 SMs: split (the exact count is not
+    pinned: the card measured 8 splits fastest at one row of 260 pages,
+    the estimator picks 9, 1.02x that). Pinned where chip_smoke.py's plan
+    phase (a) measured the pick fastest on the card: one pass for eight
+    rows of 36 pages (the serve engine's 544-token rows) and of 128 pages
+    (the loadgen engine's tables)."""
     long_ctx = _splits(1, 4128)
     assert long_ctx.num_splits > 1 and long_ctx.time < long_ctx.base_time
     assert _splits(8, 544).num_splits == 1
+    assert _splits(8, 36 * 16).num_splits == 1
+    assert _splits(8, 128 * 16).num_splits == 1
     assert _splits(1, 16).num_splits == 1          # one page: nothing to split
 
 
