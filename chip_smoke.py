@@ -18,9 +18,14 @@ and prints no result. Phases, in order (any failure exits non-zero):
      tensor-core kernel: every launch order (head-first and block-first
      bitwise equal), window + softcap, hymba-1.5b's widths (timed with SDPA
      beside it); K1 in float32 (the CUDA-core kernel) held at 2e-5 and
-     timed at the same B 2, S 2048; then K2 (paged prefix prefill; bf16 on
-     the tensor cores) at B 2, prefix 1000, tail 256 and at the paged serve
-     run's extend shape, every launch on the tensor cores, rows past
+     timed at the same B 2, S 2048; K1 with per-row query offsets and
+     kv_len (three rows at 0, 700 and 1536 over 2048 keys, causal and
+     window 300) in bf16 and float32 against the plain version, offset 0
+     as arrays bit for bit the null pointers', 100 reruns bitwise equal,
+     and K1 at the gather route's shape (8 rows, queries 1024 .. 1279)
+     timed beside its bound and SDPA under an explicit mask; then K2
+     (paged prefix prefill; bf16 on the tensor cores) at B 2, prefix 1000,
+     tail 256 and at the paged serve run's extend shape, every launch on the tensor cores, rows past
      tail_len exactly zero, ten reruns bitwise equal, timed with the launch
      queue primed and without, gather + SDPA beside it as a two-call
      yardstick; K2 in float32 (the CUDA-core kernel) held at 2e-5 and timed;
@@ -74,9 +79,15 @@ and prints no result. Phases, in order (any failure exits non-zero):
      whole L2) and the scorer's pick (it fails where K1 at the pick exceeds
      1.10x the fastest launch), then K1 + K5 + K6 at the train shape under
      both orders; (c) round trips of 1, 2, 4 and 8 llama3-8b page payloads
-     to pinned host and back, and the host-link fit.
+     to pinned host and back, and the host-link fit; (d) the paged extend's
+     two routes, K2 against the gather route (``tools/prefill_ab.extend_ab``:
+     K2, the whole route, its copies and K1 alone) at 11 llama3-8b (rows,
+     prefix, tail) shapes, a fit of the H100's extend terms to 8 of them,
+     the committed model's and the fit's times at all 11, and the plan's
+     route (it fails where the route takes more than 1.10x the faster).
      ``python3 chip_smoke.py --phase plan`` runs the probe, the build and
-     this phase alone and prints no result line;
+     this phase alone and prints no result line; ``--phase extend`` runs
+     K1's offset checks and part (d) alone;
   4. serve  — ``LLMEngine(kv_layout="paged")`` on full-width llama3-8b with
      random bf16 weights: (a) 8 greedy requests of 512 tokens sharing a
      256-token system prefix, (b) one 4096-token request, 32 new tokens
@@ -95,9 +106,13 @@ and prints no result. Phases, in order (any failure exits non-zero):
      graphs, every launch counted, every K2q / K3q / K4q launch on the
      tensor cores, none on an unquantized paged kernel),
      each held to the plain path on the same format by ``compare_sync``, its
-     logits against the bf16 pool's printed, and the pool's bytes; then the
-     host tier: a 48-page pool with 1 GiB of host memory behind it, a
-     prompt served, pushed host-side by three others and served again, its
+     logits against the bf16 pool's printed, and the pool's bytes; then
+     run (a) with the paged extend's gather route pinned
+     (``attn_impl="gather"``) over a bf16 and an int8 pool: K1 launched (on
+     the tensor cores) and K2 / K2q not, and one sync held to the K2
+     route's by ``compare_sync``; then the host tier: a 48-page pool with
+     1 GiB of host memory behind it, a prompt served, pushed host-side by
+     three others and served again, its
      ids equal to an untiered engine's, pages demoted and promoted, and one
      page's payload timed both ways over the host link. Then the fused decode on (a)'s
      engine: ``steps_per_sync`` 1, 8 and "auto" on the same weights must
@@ -503,9 +518,105 @@ def check_kernels(torch, timer, results):
         f"library sdpa {lib_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}, float32 peak)")
     del q, k, v, o, lse, o_ref, lse_ref
 
+    check_k1_offsets(torch, timer, gen)
     check_paged_prefill(torch, timer, results, gen)
     check_paged_decode(torch, timer, results, gen)
     check_quantized(torch, timer, results, gen)
+
+
+def check_k1_offsets(torch, timer, gen):
+    """K1 with per-row query offsets against its plain version: three rows of
+    512 queries at offsets 0, 700 and 1536 over 2048 keys, each its own
+    kv_len (the second 12 keys short of its last query), causal and with
+    window 300, bf16 on the tensor cores per row within ROW_TOL and lse
+    within LSE_TOL, float32 on the CUDA cores within F32_TOL; an explicit
+    offset of 0 (the kernel's arrays, not its null pointers) bit for bit
+    the null pointers' output; 100 reruns bitwise equal. Then K1 at the
+    gather route's shape (8 rows, a 1024-token prefix, a 256-token tail)
+    timed beside its bound and SDPA under the same mask as an explicit
+    one. Every launch counts under K1."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+
+    def inputs(dtype, b, sq, skv):
+        randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return randn(b, HQ, sq, D), randn(b, HKV, skv, D), randn(b, HKV, skv, D)
+
+    off = torch.tensor([0, 700, 1536], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([512, 1200, 2048], dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(dtype, 3, 512, 2048)
+        for window in (None, 300):
+            kw = dict(causal=True, window=window, q_offset=off, kv_len=kv_len)
+            kernels.reset_launch_counts()
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            counts = kernels.launch_counts()
+            o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tc = counts["flash_attention_fwd_tc"] == (dtype == torch.bfloat16)
+            if dtype == torch.bfloat16:
+                e_o, e_l = row_err(o, o_ref), err(lse, lse_ref)
+                ok = e_o <= ROW_TOL and e_l <= LSE_TOL
+                bars = (f"o row-relative {e_o:.3e} (tol {ROW_TOL:.3e}) lse {e_l:.3e} "
+                        f"(tol {LSE_TOL})")
+            else:
+                e_o, e_l = err(o, o_ref), err(lse, lse_ref)
+                ok = e_o <= F32_TOL and e_l <= F32_TOL
+                bars = f"o {e_o:.3e} lse {e_l:.3e} (tol {F32_TOL})"
+            log(f"K1 offsets {dtype}, rows at 0 / 700 / 1536, kv_len 512 / 1200 / 2048, "
+                f"window {window}: {bars}; launches {counts['flash_attention_fwd']}, on the "
+                f"tensor cores {counts['flash_attention_fwd_tc']}")
+            if not ok or counts["flash_attention_fwd"] != 1 or not tc:
+                raise AssertionError(f"K1 offsets {dtype} window {window} disagree with the "
+                                     "plain version")
+        del q, k, v, o, lse, o_ref, lse_ref
+
+    # Offset 0 through the kernel's arrays against its null pointers, and
+    # 100 reruns of the ragged case, bit for bit.
+    q, k, v = inputs(torch.bfloat16, 2, 2048, 2048)
+    zero = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    full = torch.full((2,), 2048, dtype=torch.int32, device="cuda")
+    for window in (None, 300):
+        null = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+        arrays = fa.flash_attention_fwd(q, k, v, causal=True, window=window, q_offset=zero,
+                                        kv_len=full)
+        same = all(torch.equal(a, b_) for a, b_ in zip(null, arrays))
+        log(f"K1 offset 0 as (B,) arrays, B 2, S 2048, window {window}: o and lse bitwise "
+            f"equal to the null pointers' {same}")
+        if not same:
+            raise AssertionError("K1 with offset 0 as arrays changed its output")
+    q, k, v = inputs(torch.bfloat16, 3, 512, 2048)
+    run = lambda: fa.flash_attention_fwd(q, k, v, causal=True, q_offset=off, kv_len=kv_len)
+    first = run()
+    differ = sum(not all(torch.equal(a, b_) for a, b_ in zip(run(), first)) for _ in range(100))
+    log(f"K1 offsets, 100 reruns: {differ} differ bitwise")
+    if differ:
+        raise AssertionError("K1 with offsets is not deterministic")
+
+    # The gather route's shape: 8 rows, queries 1024 .. 1279 over 1280 keys.
+    b, plen, st = 8, 1024, 256
+    q, k, v = inputs(torch.bfloat16, b, st, plen + st)
+    offs = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+    lens = offs + st
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=offs, kv_len=lens)
+    o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True, q_offset=offs, kv_len=lens)
+    e_r = row_err(o, o_ref)
+    pairs = b * HQ * sum(plen + i + 1 for i in range(st))
+    kb = bound(nbytes(q, k, v, o, lse, offs, lens), 4.0 * D * pairs)
+    pos = torch.arange(plen + st, device="cuda")
+    mask = pos[None, :] <= plen + torch.arange(st, device="cuda")[:, None]
+    ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True, q_offset=offs,
+                                                 kv_len=lens), primed=True)
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          enable_gqa=True), primed=True)
+    log(f"K1 at the gather route's shape (B {b}, queries {plen} .. {plen + st - 1} over "
+        f"{plen + st} keys): row-relative {e_r:.3e} (tol {ROW_TOL:.3e}); {ms:.4f} ms (queue "
+        f"primed), library sdpa (explicit mask) {lib:.4f} ms, bound {kb[0]:.5f} ms ({kb[1]}); "
+        f"card: {smi_line()}")
+    if e_r > ROW_TOL:
+        raise AssertionError("K1 at the gather route's shape disagrees with its plain version")
+    del q, k, v, o, lse, o_ref, mask
 
 
 def check_k2_route(label, counts, tensor_cores=True):
@@ -1345,6 +1456,9 @@ SPLIT_HELD_OUT = ((8, 128), (2, 256), (1, 260))
 #: launch at most this much more than the fastest of the three (b).
 SPLIT_PICK_TOL = 1.15
 MAPPING_PICK_TOL = 1.10
+#: Plan part (d): the route the plan picks for a paged extend may take at
+#: most this much more than the faster of K2 and the gather route.
+EXTEND_PICK_TOL = 1.10
 
 
 def graph_ms(torch, timer, fn):
@@ -1662,16 +1776,112 @@ def host_link_fit(torch):
     del backend
 
 
+def _fit_line(x, t):
+    """(intercept, slope) of ``t = a + c x`` by least squares in relative
+    error, the intercept clamped at 0 (then through the origin)."""
+    import numpy as np
+
+    x, t = np.asarray(x, float), np.asarray(t, float)
+    a, c = np.linalg.lstsq(np.stack([1.0 / t, x / t], 1), np.ones_like(t), rcond=None)[0]
+    if a < 0:
+        a, c = 0.0, float((x / t).sum() / (x * x / t / t).sum())
+    return float(a), float(c)
+
+
+def extend_fit(torch, timer, gen):
+    """Plan part (d): the paged extend's two routes against the plan's
+    route model. ``tools/prefill_ab.extend_ab`` times K2, the gather route,
+    its copies and K1 over the stripes at ``EXTEND_SHAPES`` (llama3-8b
+    widths, bf16, pages of 16, L2 flushed, queue primed). Fits the H100's
+    extend terms (``core.numa.ExtendTerms``) to the shapes not held out: K2
+    and K1 each a launch cost plus their operations over a block's rate
+    times the blocks in flight, the copies a fixed cost plus twice the
+    prefix pages' bytes over a rate. Prints per shape the measured times,
+    the committed model's, this call's fit's, and the plan's pick. Returns
+    the failures: a shape where the plan's route takes more than
+    EXTEND_PICK_TOL times the faster one, or the routes' outputs differ
+    beyond ROW_TOL."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import prefill_ab
+    from repro_torch.core import numa, perf_model
+    from repro_torch.kernels import plan
+
+    card = smi_line()
+    rows = prefill_ab.extend_ab(torch, timer, gen, log=log)
+    h = numa.H100
+    terms = h.extend
+
+    def per_block(r):
+        blocks, flops = perf_model.extend_blocks(
+            batch=r["rows"], num_q_heads=HQ, prefix_len=r["prefix"], tail_len=r["tail"],
+            head_dim=D, tile_rows=terms.tile_rows)
+        return flops / min(blocks, h.num_domains)
+
+    def prefix_bytes(r):
+        return r["rows"] * HKV * -(-r["prefix"] // PS) * 2.0 * PS * D * 2
+
+    fit_rows = [r for r in rows if (r["rows"], r["prefix"], r["tail"])
+                not in prefill_ab.EXTEND_HELD_OUT]
+    x = [per_block(r) for r in fit_rows]
+    a_k2, c_k2 = _fit_line(x, [r["k2_ms"] * 1e-3 for r in fit_rows])
+    a_k1, c_k1 = _fit_line(x, [r["k1_ms"] * 1e-3 for r in fit_rows])
+    a_cp, c_cp = _fit_line([2 * prefix_bytes(r) for r in fit_rows],
+                           [r["copy_ms"] * 1e-3 for r in fit_rows])
+    fit = numa.ExtendTerms(tile_rows=terms.tile_rows, paged_cell_flops=1.0 / c_k2,
+                           paged_launch_s=a_k2, gather_cell_flops=1.0 / c_k1,
+                           gather_bw=1.0 / c_cp, gather_s=a_k1 + a_cp)
+    log(f"extend fit over {len(fit_rows)} shapes ({card}): {fit}; committed {terms}")
+    failures, errs = [], {"committed": [], "fit": []}
+    for r in rows:
+        b, plen, st = r["rows"], r["prefix"], r["tail"]
+        mp = -(-plen // PS)
+        kw = dict(batch=b, num_q_heads=HQ, num_kv_heads=HKV, prefix_len=mp * PS, tail_len=st,
+                  page_size=PS, head_dim=D, dtype_bytes=2)
+        model = {}
+        for name, topo in (("committed", h), ("fit", dc.replace(h, extend=fit))):
+            model[name] = [perf_model.estimate_extend_prefill(topo=topo, gather=g, **kw).time
+                           * 1e3 for g in (False, True)]
+            errs[name] += [m / t - 1 for m, t in zip(model[name], (r["k2_ms"], r["gather_ms"]))]
+        pick = plan.plan_attention((b, HQ, HKV, st, mp * PS + st, D), phase=plan.EXTEND,
+                                   kv_layout=plan.PAGED, page_size=PS, prefix_pages=mp,
+                                   device_type="cuda").impl
+        measured = {"cuda": r["k2_ms"], plan.GATHER: r["gather_ms"]}
+        ratio = measured[pick] / min(measured.values())
+        held = (b, plen, st) in prefill_ab.EXTEND_HELD_OUT
+        log(f"extend B {b}, prefix {plen}, tail {st} ({'held out' if held else 'fit'}): K2 "
+            f"{r['k2_ms']:.4f} / gather {r['gather_ms']:.4f} ms measured; committed model "
+            f"{model['committed'][0]:.4f} / {model['committed'][1]:.4f}, this call's fit "
+            f"{model['fit'][0]:.4f} / {model['fit'][1]:.4f}; the plan picks "
+            f"{'K2' if pick == 'cuda' else 'gather'}, {ratio:.3f}x the faster route (tol "
+            f"{EXTEND_PICK_TOL}); card: {card}")
+        if ratio > EXTEND_PICK_TOL:
+            failures.append(f"extend B {b}, prefix {plen}, tail {st}: the plan's route takes "
+                            f"{ratio:.3f}x the faster")
+        if r["row_err"] > ROW_TOL:
+            failures.append(f"extend B {b}, prefix {plen}, tail {st}: the gather route's "
+                            f"output differs from K2's by {r['row_err']:.3e}")
+    log("extend model rms relative error over both routes: " + ", ".join(
+        f"{name} {float(np.sqrt(np.mean(np.square(e)))):.4f} (max "
+        f"{float(np.max(np.abs(e))):.4f})" for name, e in errs.items()))
+    return failures
+
+
 def plan_phase(torch, timer):
     """Plan phase: (a) the split-K model against K3 / K4, (b) the mapping
-    scorer against K1, (c) the host link. Every table is printed before any
-    failure is raised."""
+    scorer against K1, (c) the host link, (d) the paged extend's route
+    model against K2 and the gather route. Every table is printed before
+    any failure is raised."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     t = time.perf_counter()
     failures = split_calibration(torch, timer, gen)
     failures += mapping_check(torch, timer, gen)
     host_link_fit(torch)
+    failures += extend_fit(torch, timer, gen)
     log(f"plan phase {time.perf_counter() - t:.1f} s")
     if failures:
         raise AssertionError("plan phase: " + "; ".join(failures))
@@ -1859,6 +2069,56 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
             log(f"  {kv_dtype} ({label}) against the bf16 pool, informative: prefill logits "
                 f"max |{kv_dtype} - bf16| / max |bf16| = {dist['first']:.3e}, decode tick "
                 f"{dist['last']:.3e}")
+    return total
+
+
+def serve_gather(torch, cfg, params, seed=0, device="cuda"):
+    """Run (a) with the paged extend's gather route pinned
+    (``attn_impl="gather"``: the prefix gathered into dense stripes, then K1
+    with per-row query offsets), over a bf16 and an int8 pool. Each format's
+    launch counts are set to 0 just before its run and read just after: K1
+    must have launched, every launch on the tensor cores, and K2 / K2q not
+    at all. Then one sync (``compare_sync``) of the gather route against
+    run (a)'s K2 route on the same format: prefill and decode logits within
+    LOGIT_TOL, greedy ids equal but for near-ties; the whole run's ids
+    against a K2 engine's, informative. Returns the summed launch counts."""
+    from repro_torch import kernels
+    from repro_torch.kernels import plan
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    engine_kw = dict(SERVE_PAGED_KW, device=device)
+    prompts, _ = serve_prompts(cfg, seed)
+    gather_cfg = dataclasses.replace(cfg, attn_impl=plan.GATHER)
+    greedy = SamplingParams(max_tokens=32)
+    total = {}
+    for kv_dtype in ("fp32", "int8"):
+        ids = {}
+        for name, c in (("K2", cfg), ("gather", gather_cfg)):
+            kernels.reset_launch_counts()
+            engine = LLMEngine(c, params, kv_dtype=kv_dtype, **engine_kw)
+            out = engine.generate([Request(uid=i, prompt=p, sampling=greedy)
+                                   for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            ids[name] = {o.uid: [int(t) for t in o.tokens] for o in out}
+            extends = engine.backend.stats["extend_prefills"]
+            engine.close()
+            del engine
+            counts = kernels.launch_counts()
+        k2 = sum(counts[c] for c in ("paged_flash_prefill", "paged_flash_prefill_q"))
+        label = f"serve (a) {'bf16' if kv_dtype == 'fp32' else kv_dtype}, gather route pinned"
+        log(f"{label}: {extends} extend prefills; K1 launches {counts['flash_attention_fwd']}, "
+            f"on the tensor cores {counts['flash_attention_fwd_tc']}; K2 / K2q launches {k2}; "
+            f"greedy ids equal to the K2 route's on "
+            f"{sum(ids['gather'][u] == t for u, t in ids['K2'].items())}/{len(prompts)} "
+            "requests (informative)")
+        check_k1_route(label, counts)
+        if counts["flash_attention_fwd"] <= 0 or k2 or extends <= 0:
+            raise AssertionError(f"{label}: the extends did not run the gather route")
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        compare_sync(torch, gather_cfg, cfg, params,
+                     label=f"llama3-8b paged {kv_dtype}, gather route against K2 (a)",
+                     engine_kw=dict(engine_kw, kv_dtype=kv_dtype), prompts=prompts)
     return total
 
 
@@ -2635,8 +2895,9 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "plan"), default="all",
-                        help="'plan' stops after the plan phase and prints no result line")
+    parser.add_argument("--phase", choices=("all", "plan", "extend"), default="all",
+                        help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
+                             "and plan part (d) alone; neither prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -2671,9 +2932,19 @@ def main() -> int:
 
     timer = Timer(torch)
     if args.phase == "plan":
-        log("== plan: split-K, mapping and host-link models against the card")
+        log("== plan: split-K, mapping, host-link and extend-route models against the card")
         plan_phase(torch, timer)
         log(f"total {time.perf_counter() - t_start:.1f} s (plan phase only: no result line)")
+        return 0
+    if args.phase == "extend":
+        log("== K1 with per-row query offsets; plan part (d): the extend routes")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        check_k1_offsets(torch, timer, gen)
+        failures = extend_fit(torch, timer, gen)
+        log(f"total {time.perf_counter() - t_start:.1f} s (extend checks only: no result line)")
+        if failures:
+            raise AssertionError("plan part (d): " + "; ".join(failures))
         return 0
     log("== kernels (bf16, Hq 32, Hkv 8, D 128, page 16)")
     results = {}
@@ -2682,7 +2953,7 @@ def main() -> int:
     log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32 in 3xTF32)")
     check_dense_decode(torch, timer, results)
     check_ssd(torch, timer, results)
-    log("== plan: split-K, mapping and host-link models against the card")
+    log("== plan: split-K, mapping, host-link and extend-route models against the card")
     plan_phase(torch, timer)
     del timer
     log("== serve llama3-8b (paged, bf16, random weights)")
@@ -2692,6 +2963,9 @@ def main() -> int:
     quantized = serve_quantized(torch, llama3_8b.CONFIG, params, bf16_logits)
     for key in ("K2q", "K3q", "K4q"):
         counts[KERNELS[key]["counter"]] += quantized[KERNELS[key]["counter"]]
+    log("== serve llama3-8b paged (a) with the gather route pinned (bf16 and int8 pools)")
+    counts[KERNELS["K1"]["counter"]] += serve_gather(
+        torch, llama3_8b.CONFIG, params)[KERNELS["K1"]["counter"]]
     serve_tiered(torch, llama3_8b.CONFIG, params)
     timer = Timer(torch)
     fused = {}

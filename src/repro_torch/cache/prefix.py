@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +63,9 @@ class PrefixCache:
     def __init__(self, pool: PagePool):
         self.pool = pool
         self._entries: "OrderedDict[bytes, int]" = OrderedDict()
+        self.hits = 0
+        self.queries = 0
+        self.evictions = 0
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -72,10 +75,11 @@ class PrefixCache:
 
         Does NOT take references — callers incref via
         ``pool.allocate_sequence(shared_prefix=...)`` while the entries are
-        still cache-pinned. Matched entries are refreshed to MRU;
-        ``touch=False`` is a pure peek (for admission *pricing*, which may
-        probe the same request every scheduling round without distorting
-        LRU order).
+        still cache-pinned. Matched entries are refreshed to MRU and the
+        page-level hit / query counters advance; ``touch=False`` is a pure
+        peek (for admission *pricing*, which may probe the same request
+        every scheduling round without distorting LRU order or the hit
+        rate).
         """
         pages: List[int] = []
         for h in hashes:
@@ -85,6 +89,9 @@ class PrefixCache:
             if touch:
                 self._entries.move_to_end(h)
             pages.append(pid)
+        if touch:
+            self.queries += len(hashes)
+            self.hits += len(pages)
         return pages
 
     def insert(self, hashes: Sequence[bytes], pages: Sequence[int]) -> int:
@@ -122,6 +129,7 @@ class PrefixCache:
             if on_evict is not None:
                 on_evict(h, pid)
             del self._entries[h]
+            self.evictions += 1
             freed += bool(self.pool.decref(pid))
             if freed >= max_pages:
                 break
@@ -143,3 +151,23 @@ class PrefixCache:
             pid = self._entries.pop(h)
             freed += bool(self.pool.decref(pid))
         return freed
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.queries if self.queries else 0.0
+
+    def stats(self) -> Tuple[int, int, int]:
+        """(entries, hits, queries)."""
+        return len(self._entries), self.hits, self.queries
+
+    def counters(self) -> dict:
+        """Everything :meth:`stats` reports plus evictions and the
+        page-level lookup hit rate: what ``PagedBackend.prefix_stats()``
+        surfaces."""
+        return {
+            "entries": len(self._entries),
+            "hits": self.hits,
+            "queries": self.queries,
+            "evictions": self.evictions,
+            "hit_rate": self.hit_rate,
+        }

@@ -64,7 +64,7 @@ class ModelConfig:
     # runtime
     max_seq_len: int = 131072
     compute_dtype: str = "bfloat16"
-    attn_impl: str = "auto"       # kernels/plan.py: "auto" | "cuda" | "plain"
+    attn_impl: str = "auto"       # kernels/plan.py: "auto" | "cuda" | "plain" | "gather"
     mapping_name: str = "auto"    # "auto" or a PAPER_MAPPINGS name
     # training
     z_loss: float = 1e-4

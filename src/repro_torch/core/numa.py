@@ -36,6 +36,36 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class ExtendTerms:
+    """The extend estimator's terms for the port's kernels
+    (``perf_model.estimate_extend_prefill``), fitted on the card. Both
+    routes' attention runs one block per ``tile_rows`` query rows of one
+    (b, q head), walking the prefix and the causal tail in tiles of
+    ``tile_rows`` keys (K2's grid and K1's are the same: B x Hq x tail
+    tiles), so a block's work counts its padded rows and keys.
+
+    Attributes:
+      tile_rows: query rows, and keys, of a block's tile (128: ``ptc::BM``
+        and ``ptc::BN`` of ``csrc/prefill_tc.cuh``).
+      paged_cell_flops: FLOP/s one K2 block sustains.
+      paged_launch_s: fixed seconds of a K2 launch.
+      gather_cell_flops: FLOP/s one K1 block sustains over the gather
+        route's stripe.
+      gather_bw: bytes/s of the gather route's copies, charged twice the
+        prefix pages' bytes, as the JAX formula charges them.
+      gather_s: fixed seconds of the gather route: its copies' launches and
+        K1's.
+    """
+
+    tile_rows: int
+    paged_cell_flops: float
+    paged_launch_s: float
+    gather_cell_flops: float
+    gather_bw: float
+    gather_s: float
+
+
+@dataclasses.dataclass(frozen=True)
 class Topology:
     """A NUMA-ish accelerator: ``num_domains`` domains, private caches.
 
@@ -61,6 +91,8 @@ class Topology:
         partial states; 0 in the JAX package.
       state_rows: rows a GQA group's partial state is padded to (the TPU
         kernels' 8 sublanes; 1 where the kernels do not pad).
+      extend: the extend routes' fitted terms (:class:`ExtendTerms`); None
+        = the JAX package's formula.
     """
 
     name: str
@@ -77,6 +109,7 @@ class Topology:
     decode_combine_s: Optional[float] = None
     decode_split_s: float = 0.0
     state_rows: int = 8
+    extend: Optional[ExtendTerms] = None
 
     @property
     def total_slots(self) -> int:
@@ -118,7 +151,12 @@ MI300X = Topology(
 #: at 256 and B 8 at 36, split counts 1, 2, 3, 4, 6, 8, 12, 16 and the
 #: plan's pick; rms error 7.1%, on an NVIDIA H100 80GB HBM3 at a 700 W
 #: power limit. A decode CTA streams ~46 GB/s; a launch tops out at ~2.1
-#: TB/s.
+#: TB/s. The extend terms are fitted by ``chip_smoke.py``'s plan part (d) to
+#: K2, and to the gather route's copies and K1, at 8 llama3-8b (rows,
+#: prefix, tail) shapes (bf16, page 16, L2 flushed, queue primed; 3 more
+#: held out), on the same card: a K2 block sustains ~3.1 TFLOP/s and a K1
+#: block ~3.6 over their padded 128-row tiles; the gather's copies move
+#: ~0.15 TB/s of prefix pages.
 H100 = Topology(
     name="h100_sxm",
     num_domains=132,
@@ -133,6 +171,8 @@ H100 = Topology(
     decode_launch_s=8.9e-6,
     decode_split_s=0.4005e-6,
     state_rows=1,
+    extend=ExtendTerms(tile_rows=128, paged_cell_flops=3.055e12, paged_launch_s=13.16e-6,
+                       gather_cell_flops=3.634e12, gather_bw=0.2976e12, gather_s=50.87e-6),
 )
 
 #: NVIDIA H100 SXM for the dense decode kernels (K7/K8), whose split terms

@@ -16,7 +16,9 @@
     combine cost :data:`COMBINE_LAUNCH_OVERHEAD_S`, fitted on the card
     (``core.numa.H100``); left at their defaults they give the JAX
     package's formula.
-  * :func:`estimate_extend_prefill` (paged kernel or gather route),
+  * :func:`estimate_extend_prefill` (paged kernel or gather route; on the
+    H100 fitted to both routes on the card, ``core.numa.ExtendTerms``),
+    which the plan's extend-route scorer reads, and
     :func:`estimate_tier_transfer` and :func:`tier_transfer_beats_recompute`
     — what the scheduler's admission tie-break prices
     (``PagedBackend.prefill_time_saved``), the host link measured on the
@@ -346,9 +348,12 @@ def estimate_extend_prefill(
     occupied share ``min(1, cells / num_domains)`` of the chip.
     ``gather=True`` models the route that copies the prefix to a dense
     stripe and runs the dense flash kernel: ~3x the prefix bytes, at the
-    dense grid's occupancy (the port has no such route; the plan does not
-    score it yet). The pool is head-major (``HEAD_ALIGNED``) only, as in
-    :func:`estimate_paged_decode`; the gather copy is charged the link."""
+    dense grid's occupancy. The pool is head-major (``HEAD_ALIGNED``) only,
+    as in :func:`estimate_paged_decode`; the gather copy is charged the
+    link. That is the JAX package's formula. Where ``topo.extend`` holds
+    fitted terms (``core.numa.ExtendTerms``), the time is the port's
+    kernels' instead (:func:`_extend_time_fitted`); the other fields stay
+    the JAX formula's."""
     if policy != layout_lib.HEAD_ALIGNED:
         raise ValueError(f"unknown page placement policy {policy!r}")
     d = max(topo.num_domains, 1)
@@ -380,6 +385,10 @@ def estimate_extend_prefill(
         occ = min(1.0, (batch * num_kv_heads) / d)
         t_mem = hbm_bytes / (topo.hbm_bw * occ) + t_link
         t = max(flops / (topo.peak_flops * occ), t_mem)
+    if topo.extend is not None:
+        t = _extend_time_fitted(topo, batch=batch, num_q_heads=num_q_heads,
+                                prefix_len=prefix_len, tail_len=tail_len, head_dim=head_dim,
+                                prefix_bytes=prefix_bytes, gather=gather)
     # Reuse = fraction of logical prefix reads (one per q head) served
     # without a physical fetch; the gather route's 3x eats into it.
     group = max(1, num_q_heads // max(num_kv_heads, 1))
@@ -392,13 +401,48 @@ def estimate_extend_prefill(
     )
 
 
+def extend_blocks(*, batch: int, num_q_heads: int, prefix_len: int, tail_len: int,
+                  head_dim: int, tile_rows: int) -> Tuple[int, float]:
+    """(blocks, operations) of one K2 launch over an extend, or of K1 over
+    the gather route's stripe: ``batch x num_q_heads x ceil(tail_len /
+    tile_rows)`` blocks of ``tile_rows`` rows, each over ``ceil(prefix_len
+    / tile_rows)`` prefix tiles and, on average over the blocks of a head,
+    ``(T + 1) / 2`` tail tiles of ``tile_rows`` keys (T the tail's tiles):
+    the rows and keys the tensor cores compute, padding included."""
+    tiles = max(1, -(-tail_len // tile_rows))
+    blocks = batch * num_q_heads * tiles
+    keys = tile_rows * (-(-prefix_len // tile_rows) + (tiles + 1) / 2.0)
+    return blocks, 4.0 * blocks * tile_rows * keys * head_dim
+
+
+def _extend_time_fitted(topo: Topology, *, batch: int, num_q_heads: int, prefix_len: int,
+                        tail_len: int, head_dim: int, prefix_bytes: float,
+                        gather: bool) -> float:
+    """Seconds of a paged extend on the port's kernels, priced with
+    ``topo.extend``: the launch's fixed cost plus its operations
+    (:func:`extend_blocks`) over the rate of the blocks in flight, at most
+    one per domain (an SM holds one such block). The gather route adds its
+    copies, ``2 x prefix_bytes`` over their rate, and K1 runs the same
+    blocks at K1's rate."""
+    x = topo.extend
+    blocks, flops = extend_blocks(batch=batch, num_q_heads=num_q_heads,
+                                  prefix_len=prefix_len, tail_len=tail_len,
+                                  head_dim=head_dim, tile_rows=x.tile_rows)
+    in_flight = min(blocks, max(topo.num_domains, 1))
+    if gather:
+        return (x.gather_s + 2.0 * prefix_bytes / x.gather_bw
+                + flops / (x.gather_cell_flops * in_flight))
+    return x.paged_launch_s + flops / (x.paged_cell_flops * in_flight)
+
+
 def estimate_attention_plan(plan, shape, *, topo: Topology, dtype_bytes: int = 2):
     """Score a ``kernels.plan.AttentionPlan`` for ``shape`` = ``(batch,
     num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim)``: decode ->
     :func:`estimate_paged_decode` / :func:`estimate_dense_decode`; paged
-    extend -> :func:`estimate_extend_prefill` (the kernel route, the port's
-    only one); prefill -> :func:`estimate` of the plan's launch order at
-    K1's tiles for ``dtype_bytes``."""
+    extend -> :func:`estimate_extend_prefill` of the plan's route (K2, or
+    the gather route where the plan's impl is ``"gather"``); prefill ->
+    :func:`estimate` of the plan's launch order at K1's tiles for
+    ``dtype_bytes``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import plan as plan_lib
 
@@ -415,7 +459,7 @@ def estimate_attention_plan(plan, shape, *, topo: Topology, dtype_bytes: int = 2
         return estimate_extend_prefill(
             batch=b, num_q_heads=hq, num_kv_heads=hkv, prefix_len=skv - sq,
             tail_len=sq, page_size=plan.page_size, head_dim=hd,
-            dtype_bytes=dtype_bytes, topo=topo)
+            dtype_bytes=dtype_bytes, topo=topo, gather=plan.impl == plan_lib.GATHER)
     block_m, block_n = fa.tiles(dtype_bytes)
     grid = swizzle.AttentionGrid(batch=b, num_q_heads=hq,
                                  blocks_per_head=-(-skv // block_m),

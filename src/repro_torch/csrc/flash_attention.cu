@@ -7,6 +7,15 @@
 // sliding-window, softcap and kv_len masks; GQA by h / (Hq / Hkv). A fully
 // masked row gets o = 0 and lse = -1e30.
 //
+// Per-row query offsets (the dense extend and the paged extend's gather
+// route; the JAX package runs these through XLA with ref.attention's
+// q_offset): two optional (B,) int32 device arrays. Query row i of batch
+// row b sits at position q_off[b] + i, and key j is live iff j < kv_lens[b],
+// j <= q_off[b] + i (causal) and j > q_off[b] + i - window. A null q_off
+// means offset 0, a null kv_lens the scalar kv_len. The offset moves only
+// the block's KV tile range and the masks' row index: the unmasked score
+// loop stays free of predicates.
+//
 // What bounds it on an H100: at the prefill shapes of the serving and
 // training paths (S >= 512, D 64 or 128) attention does ~S/2 operations per
 // byte, far above the card's balance point, so it is bound by arithmetic,
@@ -55,7 +64,8 @@ template <int D>
 __global__ void __launch_bounds__(PF_THREADS)
 fa2_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+               float* __restrict__ lse, const int* __restrict__ q_off,
+               const int* __restrict__ kv_lens, int Hq, int Hkv, int Sq, int Skv,
                int kv_len, float scale, int causal, int window, float softcap,
                int order, int sawtooth) {
   extern __shared__ float smem[];
@@ -72,6 +82,8 @@ fa2_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kh = k + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
   const float* vh = v + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
   const int q0 = mb * PF_BM;
+  const int off = q_off ? q_off[b] : 0;
+  const int kvl = kv_lens ? kv_lens[b] : kv_len;
 
   stage_rows<D, DP, float>(Qs, [&](int rr) -> const float* {
     return q0 + rr < Sq ? qh + (size_t)(q0 + rr) * D : nullptr;
@@ -80,7 +92,7 @@ fa2_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   RowState<D> st;
   st.init();
   int n_lo, n_hi;
-  kv_tile_range(q0, PF_BM, PF_BN, min(Skv, kv_len), causal, window, n_lo, n_hi);
+  kv_tile_range(q0 + off, PF_BM, PF_BN, min(Skv, kvl), causal, window, n_lo, n_hi);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const bool reverse = sawtooth && (mb & 1);
@@ -96,9 +108,9 @@ fa2_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     });
     __syncthreads();
     tile_step<D>(Qs, Ks, Vs, Ps, st, scale, softcap, [&](int i, int j) {
-      const int row = q0 + ty + 16 * i;
+      const int row = q0 + off + ty + 16 * i;
       const int col = c0 + tx + 16 * j;
-      bool ok = col < kv_len;
+      bool ok = col < kvl;
       if (causal) ok = ok && col <= row;
       if (window > 0) ok = ok && col > row - window;
       return ok;
@@ -121,9 +133,10 @@ fa2_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-               int Hq, int Hkv, int Sq, int Skv, int kv_len, float scale, int causal,
-               int window, float softcap, int order, int sawtooth, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+               const int* q_off, const int* kv_lens, int B, int Hq, int Hkv, int Sq,
+               int Skv, int kv_len, float scale, int causal, int window, float softcap,
+               int order, int sawtooth, cudaStream_t stream) {
   const size_t smem = PrefillSmem<D>::bytes;
   cudaError_t err = allow_smem(fa2_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -131,8 +144,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   if (blocks <= 0) return 0;
   fa2_fwd_kernel<D><<<(unsigned)blocks, PF_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq, Skv, kv_len,
-      scale, causal, window, softcap, order, sawtooth);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, q_off, kv_lens, Hq, Hkv,
+      Sq, Skv, kv_len, scale, causal, window, softcap, order, sawtooth);
   return (int)cudaGetLastError();
 }
 
@@ -147,22 +160,25 @@ using ptc::THREADS;
 
 // K1's KV tiles: [n_lo, n_hi) of the dense K / V, walked backwards on odd q
 // blocks under sawtooth; masks past kv_len, above the diagonal and before
-// the window.
+// the window. Rows come in as the block's own (q0 + i) and sit at
+// position off + q0 + i.
 struct DenseWalk {
-  int n_lo, n_hi, live, causal, window;
+  int n_lo, n_hi, live, causal, window, off;
   bool reverse;
 
   __device__ __forceinline__ int col0(int t) const {
     return (reverse ? n_hi - 1 - t : n_lo + t) * BN;
   }
   __device__ __forceinline__ bool edge(int, int c0, int row_lo) const {
-    return c0 + BN > live || (causal && c0 + BN - 1 > row_lo) ||
-           (window > 0 && c0 <= row_lo + 63 - window);
+    const int pos = row_lo + off;
+    return c0 + BN > live || (causal && c0 + BN - 1 > pos) ||
+           (window > 0 && c0 <= pos + 63 - window);
   }
   __device__ __forceinline__ bool ok(int, int row, int col) const {
+    const int pos = row + off;
     bool ok = col < live;
-    if (causal) ok = ok && col <= row;
-    if (window > 0) ok = ok && col > row - window;
+    if (causal) ok = ok && col <= pos;
+    if (window > 0) ok = ok && col > pos - window;
     return ok;
   }
 };
@@ -172,7 +188,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  const __grid_constant__ CUtensorMap to, float* __restrict__ lse, int Hq,
+                  const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+                  const int* __restrict__ q_off, const int* __restrict__ kv_lens, int Hq,
                   int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
                   float softcap, int order, int sawtooth) {
   using namespace hopper;
@@ -184,11 +201,12 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   decode_block((Sq + BM - 1) / BM, Hq, order, b, h, mb);
   const int hk = h / (Hq / Hkv);
   const int q0 = mb * BM;
-  const int live = min(Skv, kv_len);
+  const int off = q_off ? q_off[b] : 0;
+  const int live = min(Skv, kv_lens ? kv_lens[b] : kv_len);
   int n_lo, n_hi;
-  kv_tile_range(q0, BM, BN, live, causal, window, n_lo, n_hi);
+  kv_tile_range(q0 + off, BM, BN, live, causal, window, n_lo, n_hi);
   const int ntiles = max(0, n_hi - n_lo);
-  const DenseWalk walk{n_lo, n_hi, live, causal, window, sawtooth && (mb & 1)};
+  const DenseWalk walk{n_lo, n_hi, live, causal, window, off, sawtooth && (mb & 1)};
 
   if (threadIdx.x / 128 == 2) {
     // Producer: one thread keeps the ring full.
@@ -222,9 +240,10 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int D, bool SOFTCAP>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
-           int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
-           float softcap, int order, int sawtooth, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           const int* q_off, const int* kv_lens, int B, int Hq, int Hkv, int Sq, int Skv,
+           int kv_len, float scale, int causal, int window, float softcap, int order,
+           int sawtooth, cudaStream_t stream) {
   const long long blocks = (long long)B * Hq * ((Sq + BM - 1) / BM);
   if (blocks <= 0) return 0;
   CUtensorMap tq, tk, tv, to;
@@ -237,8 +256,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const cudaError_t e = allow_smem(fa2_fwd_tc_kernel<D, SOFTCAP>, smem);
   if (e != cudaSuccess) return (int)e;
   fa2_fwd_tc_kernel<D, SOFTCAP><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      tq, tk, tv, to, lse, Hq, Hkv, Sq, Skv, kv_len, scale, causal, window, softcap, order,
-      sawtooth);
+      tq, tk, tv, to, lse, q_off, kv_lens, Hq, Hkv, Sq, Skv, kv_len, scale, causal, window,
+      softcap, order, sawtooth);
   return (int)cudaGetLastError();
 }
 
@@ -246,16 +265,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace
 
-// float32 q / k / v. Returns a cudaError_t (0 = success), or -1 for a
-// head_dim this build does not instantiate.
+// float32 q / k / v. q_off and kv_lens: (B,) int32 device arrays, or null
+// (offset 0, the scalar kv_len). Returns a cudaError_t (0 = success), or -1
+// for a head_dim this build does not instantiate.
 extern "C" int fa2_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-                       int kv_len, int D, float scale, int causal, int window,
-                       float softcap, int order, int sawtooth, void* stream) {
+                       float* lse, const int* q_off, const int* kv_lens, int B, int Hq,
+                       int Hkv, int Sq, int Skv, int kv_len, int D, float scale, int causal,
+                       int window, float softcap, int order, int sawtooth, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA2_CASE(DIM)                                                                 \
-  return launch_f32<DIM>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, kv_len, scale, causal, \
-                         window, softcap, order, sawtooth, s)
+#define FA2_CASE(DIM)                                                                  \
+  return launch_f32<DIM>(q, k, v, o, lse, q_off, kv_lens, B, Hq, Hkv, Sq, Skv, kv_len, \
+                         scale, causal, window, softcap, order, sawtooth, s)
   if (D == 128) FA2_CASE(128);
   if (D == 64) FA2_CASE(64);
 #undef FA2_CASE
@@ -263,17 +283,18 @@ extern "C" int fa2_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // bfloat16 q / k / v on the tensor cores; 16-byte aligned contiguous rows
-// (the tensor maps' requirement). Returns a cudaError_t (0 = success), -1
-// for a head_dim this build does not instantiate, -2 if a tensor map could
-// not be encoded.
+// (the tensor maps' requirement); q_off and kv_lens as for fa2_fwd. Returns
+// a cudaError_t (0 = success), -1 for a head_dim this build does not
+// instantiate, -2 if a tensor map could not be encoded.
 extern "C" int fa2_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                          float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-                          int kv_len, int D, float scale, int causal, int window,
-                          float softcap, int order, int sawtooth, void* stream) {
+                          float* lse, const int* q_off, const int* kv_lens, int B, int Hq,
+                          int Hkv, int Sq, int Skv, int kv_len, int D, float scale,
+                          int causal, int window, float softcap, int order, int sawtooth,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA2_TC_CASE(DIM, CAP)                                                          \
-  return tc::launch<DIM, CAP>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, kv_len, scale,     \
-                              causal, window, softcap, order, sawtooth, s)
+#define FA2_TC_CASE(DIM, CAP)                                                            \
+  return tc::launch<DIM, CAP>(q, k, v, o, lse, q_off, kv_lens, B, Hq, Hkv, Sq, Skv,      \
+                              kv_len, scale, causal, window, softcap, order, sawtooth, s)
   const bool cap = softcap > 0.f;
   if (D == 128) {
     if (cap) FA2_TC_CASE(128, true);

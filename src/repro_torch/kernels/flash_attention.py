@@ -9,6 +9,13 @@ in float32 (the tensor cores would round it to TF32).
 :func:`flash_attention_fwd` launches the one for its dtype on CUDA tensors
 and runs :func:`flash_attention_fwd_plain` for CPU tensors.
 
+Both take per-row query offsets: ``q_offset`` places query row ``i`` of
+batch row ``b`` at position ``q_offset[b] + i`` against a longer K/V, and
+``kv_len`` masks keys at or past ``kv_len[b]`` (each an int or a ``(B,)``
+tensor). That is the dense extend (``ops.flash_attention(q_offset=)``, the
+JAX package's ``ref.attention(q_offset=)``) and the paged extend's gather
+route (``ops.paged_prefill_attention`` under ``impl="gather"``).
+
 ``MappingConfig`` holds the two fields of the paper's schedule that have a
 launch form on Hopper: ``order`` (how ``blockIdx`` decodes into
 (b, h, q block): head-first keeps one KV head's blocks consecutive, the
@@ -121,25 +128,38 @@ def hbm_block_fetches(*, batch: int, num_q_heads: int, num_kv_heads: int,
     }
 
 
+def _per_row(x, batch: int, default: int, device, dtype=torch.long) -> torch.Tensor:
+    """An int, a ``(B,)`` tensor or None (``default``) as a contiguous (B,)
+    tensor of ``dtype`` on ``device``."""
+    if x is None:
+        x = default
+    if isinstance(x, torch.Tensor):
+        if x.shape != (batch,):
+            raise ValueError(f"per-row argument of shape {tuple(x.shape)}, expected ({batch},)")
+        return x.to(device=device, dtype=dtype).contiguous()
+    return torch.full((batch,), int(x), dtype=dtype, device=device)
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal=True, window=None,
-                              softcap=None, scale=None,
-                              kv_len: Optional[int] = None
+                              softcap=None, scale=None, kv_len=None, q_offset=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The function K1 computes, in plain PyTorch: ``(o, lse)`` with keys at
-    or past ``kv_len`` masked. A fully masked row gives o = 0 and
+    """The function K1 computes, in plain PyTorch: ``(o, lse)``. Query row
+    ``i`` of batch row ``b`` sits at position ``q_offset[b] + i``; keys at
+    or past ``kv_len[b]`` are masked (each an int, a ``(B,)`` tensor or
+    None: offset 0, every key). A fully masked row gives o = 0 and
     lse = -1e30, as the kernel does."""
     b, hq, sq, d = q.shape
     skv = k.shape[2]
-    if kv_len is None:
-        kv_len = skv
     if scale is None:
         scale = 1.0 / d**0.5
     kk = _expand_kv(k, hq // k.shape[1]).float()
     vv = _expand_kv(v, hq // v.shape[1]).float()
     s = _softcap(torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale, softcap)
-    rows = torch.arange(sq, device=q.device)[:, None]
+    off = _per_row(q_offset, b, 0, q.device)[:, None, None, None]
+    live = _per_row(kv_len, b, skv, q.device)[:, None, None, None]
+    rows = off + torch.arange(sq, device=q.device)[:, None]          # (B, 1, Sq, 1)
     cols = torch.arange(skv, device=q.device)[None, :]
-    mask = cols < kv_len
+    mask = cols < live
     if causal:
         mask = mask & (cols <= rows)
     if window is not None and window > 0:
@@ -165,7 +185,7 @@ def _kernel(dtype):
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = _fns[dtype] = build.bind("flash_attention", _ENTRY[dtype],
-                                      [P, P, P, P, P] + [I] * 7 + [F, I, I, F, I, I, P])
+                                      [P] * 7 + [I] * 7 + [F, I, I, F, I, I, P])
     return fn
 
 
@@ -187,18 +207,21 @@ def _check_inputs(q, k, v):
 
 def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
                         causal=True, window=None, softcap=None, scale=None,
-                        kv_len: Optional[int] = None
+                        kv_len=None, q_offset=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FA2 forward. q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (o, lse).
 
     CUDA tensors launch the K1 kernel of their dtype (bf16 on the tensor
     cores, float32 on the CUDA cores); CPU tensors take the plain version.
-    ``kv_len`` masks padding keys. On CUDA tensors that need a gradient it
-    raises: the differentiable route is ``ops.flash_attention``.
+    ``kv_len`` masks padding keys and ``q_offset`` places the queries
+    after a prefix, each an int or a ``(B,)`` tensor (see
+    :func:`flash_attention_fwd_plain`). On CUDA tensors that need a
+    gradient it raises: the differentiable route is ``ops.flash_attention``.
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
-                                         softcap=softcap, scale=scale, kv_len=kv_len)
+                                         softcap=softcap, scale=scale, kv_len=kv_len,
+                                         q_offset=q_offset)
     _check_inputs(q, k, v)
     # Both kernels read rows 16 bytes at a time, and TMA needs 16-byte
     # aligned tensors; a tensor map has no empty dimension.
@@ -215,7 +238,13 @@ def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
     hkv, skv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / d**0.5
-    kv_len = skv if kv_len is None else int(kv_len)
+    # An int kv_len rides the scalar argument, a per-row one the kernel's
+    # (B,) array; offset 0 is a null array.
+    per_row_len = isinstance(kv_len, torch.Tensor)
+    kv_lens = _per_row(kv_len, b, skv, q.device, torch.int32) if per_row_len else None
+    kv_len = skv if kv_len is None or per_row_len else int(kv_len)
+    q_off = _per_row(q_offset, b, 0, q.device, torch.int32) if (
+        isinstance(q_offset, torch.Tensor) or q_offset) else None
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     global launches, launches_tc
@@ -224,6 +253,8 @@ def flash_attention_fwd(q, k, v, *, mapping: MappingConfig = MappingConfig(),
         launches_tc += 1
     status = _kernel(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        0 if q_off is None else q_off.data_ptr(),
+        0 if kv_lens is None else kv_lens.data_ptr(),
         b, hq, hkv, sq, skv, kv_len, d, float(scale), int(bool(causal)),
         int(window or 0), float(softcap or 0.0),
         0 if mapping.order == HEAD_FIRST else 1,

@@ -7,7 +7,11 @@ Port of ``repro.kernels.ops``. Every op takes an :class:`AttentionPlan`
     ``paged_flash_prefill``, ``paged_flash_decode``, ``flash_decode``),
     which launch the hand-written kernels on CUDA tensors;
   * ``"plain"`` — the plain PyTorch version beside each kernel, on any
-    device (the CPU path, and the reference the card compares against).
+    device (the CPU path, and the reference the card compares against);
+  * ``"gather"`` (paged extend only) — the prefix gathered to dense
+    stripes, then K1 with per-row query offsets
+    (``paged_prefill_attention.paged_prefill_gather``; K1's plain version
+    on CPU tensors).
 
 ``flash_attention`` is differentiable: when grad mode is on and an input
 needs a gradient it runs :class:`_FlashAttention`, the counterpart of the
@@ -42,6 +46,7 @@ from repro_torch.kernels.paged_decode_attention import (
 from repro_torch.kernels.paged_prefill_attention import (
     paged_flash_prefill,
     paged_flash_prefill_plain,
+    paged_prefill_gather,
 )
 from repro_torch.kernels.plan import AttentionPlan, plan_attention
 
@@ -86,8 +91,15 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    scale=None, plan: Optional[AttentionPlan] = None) -> torch.Tensor:
+                    scale=None, q_offset: int = 0,
+                    plan: Optional[AttentionPlan] = None) -> torch.Tensor:
     """GQA attention. q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D).
+
+    ``q_offset`` places the queries at positions ``[q_offset, q_offset +
+    Sq)`` against a longer K/V: the dense extend (phase ``EXTEND``), K1
+    with the offset on the card. It has no gradient yet: K5 / K6 take no
+    offset, so with grad mode on and an input that needs a gradient a
+    nonzero offset raises.
 
     The kernel path pads Sq and Skv to the block sizes and masks the padded
     keys with ``kv_len``, as ``repro.kernels.ops`` does for Pallas. With
@@ -99,14 +111,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     skv = k.shape[2]
     if plan is None:
         plan = plan_attention((b, hq, k.shape[1], sq, skv, d),
-                              phase=plan_lib.PREFILL, window=window,
-                              device_type=q.device.type,
+                              phase=plan_lib.EXTEND if q_offset else plan_lib.PREFILL,
+                              window=window, device_type=q.device.type,
                               dtype_bytes=q.element_size())
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
+    if grad and q_offset:
+        raise NotImplementedError(
+            "flash_attention(q_offset=) has no backward yet: K5 / K6 take no query "
+            "offset (ROADMAP.md, Queue A)")
     if plan.impl == "plain" and not grad:
         return flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
-                                         softcap=softcap, scale=scale)[0]
+                                         softcap=softcap, scale=scale,
+                                         q_offset=q_offset)[0]
     qp = _pad_to(q, 2, BLOCK_M).contiguous()
     kp = _pad_to(k, 2, BLOCK_N).contiguous()
     vp = _pad_to(v, 2, BLOCK_N).contiguous()
@@ -116,7 +133,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     else:
         o, _ = flash_attention_fwd(qp, kp, vp, mapping=plan.mapping, causal=causal,
                                    window=window, softcap=softcap, scale=scale,
-                                   kv_len=skv)
+                                   kv_len=skv, q_offset=q_offset)
     return o[:, :, :sq]
 
 
@@ -172,15 +189,19 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, k_tail, v_tail,
     """Prefix-extension prefill over paged prefix K/V. q (B, Hq, St, D);
     page_table (B, prefix_pages) int32; k/v_tail (B, Hkv, St, D);
     prefix_len / tail_len (B,) int32; ``k_scales`` / ``v_scales`` (Hkv, P)
-    float32 for a quantized pool."""
+    float32 for a quantized pool. The plan's impl picks the route: K2
+    (``"cuda"``), its plain version (``"plain"``) or the gather route
+    (``"gather"``)."""
     b, hq, st, d = q.shape
     hkv, _, ps, _ = k_pages.shape
     if plan is None:
         plan = plan_attention(
             (b, hq, hkv, st, page_table.shape[1] * ps + st, d),
             phase=plan_lib.EXTEND, kv_layout=plan_lib.PAGED, page_size=ps,
-            window=window, device_type=q.device.type, dtype_bytes=q.element_size())
-    fn = paged_flash_prefill_plain if plan.impl == "plain" else paged_flash_prefill
+            prefix_pages=page_table.shape[1], window=window,
+            device_type=q.device.type, dtype_bytes=q.element_size())
+    fn = {"plain": paged_flash_prefill_plain,
+          plan_lib.GATHER: paged_prefill_gather}.get(plan.impl, paged_flash_prefill)
     return fn(q.contiguous(), k_pages, v_pages, page_table, k_tail.contiguous(),
               v_tail.contiguous(), prefix_len, tail_len, softcap=softcap,
               scale=scale, window=window, k_scales=k_scales, v_scales=v_scales)

@@ -25,6 +25,13 @@ staged (:func:`paged_flash_prefill_q_cuda_cores` runs that walk for bf16 q
 too, the design the tensor-core kernel replaced, so one run can time
 both). :func:`paged_flash_prefill` launches the one for its dtypes on CUDA
 tensors and runs :func:`paged_flash_prefill_plain` for CPU tensors.
+
+:func:`paged_prefill_gather` is the other route the plan may take for a
+paged extend (the JAX package's gather oracle, ``ref.paged_prefill_attention``,
+run as ``impl="xla"``): each row's live prefix gathered out of the pool
+(dequantized on the way) and packed with its tail into a dense stripe, in
+plain PyTorch indexing outside any kernel, then K1 with per-row query
+offsets (``flash_attention.flash_attention_fwd``) over the stripe.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch.cache import quant
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
 HEAD_DIMS = (64, 128)
@@ -268,3 +276,51 @@ def _launch(route, q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, 
     )
     build.check(status, _ENTRY[route])
     return o
+
+
+def gather_stripes(k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, *,
+                   k_scales=None, v_scales=None):
+    """The gather route's dense K and V, each ``(B, Hkv, mp * ps + St, D)``
+    in the tail's dtype: position ``j`` of row ``b`` holds the prefix's
+    key ``j`` for ``j < prefix_len[b]`` (read through the table; a
+    quantized pool's codes times their page's scale, in float32, then
+    rounded to the tail's dtype once) and the tail's row ``j -
+    prefix_len[b]`` after it; positions past the tail repeat its last row.
+    ``prefix_len[b]`` is at most ``mp * ps``."""
+    b, hkv, st, d = k_tail.shape
+    ps = k_pages.shape[2]
+    sp = page_table.shape[1] * ps
+    flat = page_table.reshape(-1).long()
+    pos = torch.arange(sp + st, device=k_tail.device)
+    plen = prefix_len.to(k_tail.device).long()[:, None]
+    src = torch.where(pos < plen, pos, sp + (pos - plen).clamp(max=st - 1))      # (B, K)
+    src = src[:, None, :, None].expand(b, hkv, sp + st, d)
+    out = []
+    for pages, scale_tab, tail in ((k_pages, k_scales, k_tail), (v_pages, v_scales, v_tail)):
+        g = quant.index_pages(pages, (slice(None), flat))          # (Hkv, B * mp, ps, D)
+        if scale_tab is not None:
+            g = g.float() * scale_tab[:, flat][..., None, None]
+        g = g.to(tail.dtype).reshape(hkv, b, sp, d).transpose(0, 1)
+        out.append(torch.gather(torch.cat([g, tail], dim=2), 2, src))
+    return out
+
+
+def paged_prefill_gather(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len,
+                         tail_len, *, softcap=None, scale=None, window=None, k_scales=None,
+                         v_scales=None) -> torch.Tensor:
+    """:func:`paged_flash_prefill`'s function by the gather route: the
+    prefix and the tail packed into dense stripes (:func:`gather_stripes`),
+    then K1 with ``q_offset = prefix_len`` and ``kv_len = prefix_len +
+    tail_len``; rows at or past ``tail_len`` give exact zeros. On CUDA
+    tensors the attention is K1's kernel (counted as K1's launches), on CPU
+    tensors its plain version."""
+    k_scale_tab, v_scale_tab = k_scales, v_scales
+    quant.scale_pair(k_scale_tab, v_scale_tab)
+    k, v = gather_stripes(k_pages, v_pages, page_table, k_tail, v_tail, prefix_len,
+                          k_scales=k_scale_tab, v_scales=v_scale_tab)
+    o, _ = flash_attention_fwd(q.contiguous(), k, v, causal=True, window=window,
+                               softcap=softcap, scale=scale, q_offset=prefix_len,
+                               kv_len=prefix_len + tail_len)
+    rows = torch.arange(q.shape[2], device=q.device)
+    live = rows[None, :] < tail_len.to(q.device)[:, None]
+    return torch.where(live[:, None, :, None], o, torch.zeros_like(o))

@@ -12,16 +12,21 @@ mix with the decode models of ``core.perf_model``.
 
 Implementations: ``"cuda"`` (the hand-written kernels), ``"plain"`` (their
 plain PyTorch versions, on any device). ``"auto"`` resolves by the device of
-the tensors: the kernels on CUDA, the plain versions on the CPU.
+the tensors: the kernels on CUDA, the plain versions on the CPU. A paged
+EXTEND has a third, ``"gather"``: the prefix gathered to dense stripes, then
+K1 with per-row query offsets (its plain version on the CPU). Under
+``"auto"`` with prefix pages the plan scores it against the paged kernel K2
+(:func:`_score_extend_route`, ``perf_model.estimate_extend_prefill`` on
+:data:`TOPOLOGY`, whose extend terms are fitted to both routes on the card);
+``impl="gather"`` pins it.
 
 Mapping ``"auto"`` is scored, as in the JAX package, for PREFILL and
 DECODE (:func:`_score_mapping`): the three launches Hopper has
 (:data:`CANDIDATES`) are priced by ``core.perf_model.estimate`` on the
 H100's cache view (``core.numa.H100_L2``), ties broken by the bytes K1
 loads (``kernels.flash_attention.hbm_block_fetches``), then by rank. Paged
-EXTEND carries the default. A pinned name fails fast when unknown. The JAX
-package's extend-route scorer (paged kernel against a gather route) waits
-for a gather route (ROADMAP.md). No mapping changes an output.
+EXTEND carries the default. A pinned name fails fast when unknown. No
+mapping changes an output.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ DENSE = "dense"
 PAGED = "paged"
 
 IMPLS = ("auto", "cuda", "plain")
+#: The paged extend's gather route (see the module docstring).
+GATHER = "gather"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +68,14 @@ class AttentionPlan:
 
     phase: str
     kv_layout: str
-    impl: str                      # "cuda" | "plain"
+    impl: str                      # "cuda" | "plain" | "gather" (paged extend)
     mapping: MappingConfig
     device_type: str               # "cuda" | "cpu"
     page_size: Optional[int] = None
     window: Optional[int] = None
     num_splits: int = 1
     chunk: Optional[int] = None    # dense decode: the KV chunk of the walk
+    prefix_pages: int = 0          # paged extend: the page table's width
 
 
 #: The machine plans are scored for. The port targets one H100; CPU runs
@@ -164,10 +172,26 @@ def _score_mapping(batch: int, num_q_heads: int, num_kv_heads: int, seq_q: int,
     return best[1]
 
 
+@functools.lru_cache(maxsize=512)
+def _score_extend_route(batch: int, num_q_heads: int, num_kv_heads: int, tail_len: int,
+                        prefix_len: int, page_size: int, head_dim: int, dtype_bytes: int,
+                        topo: numa.Topology = None) -> str:
+    """The paged extend's route for one shape, as in the JAX package:
+    ``"paged"`` (K2, the prefix read through the table) or :data:`GATHER`,
+    whichever ``perf_model.estimate_extend_prefill`` prices lower on
+    ``topo`` (:data:`TOPOLOGY` by default); a tie keeps K2."""
+    kw = dict(batch=batch, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+              prefix_len=prefix_len, tail_len=tail_len, page_size=page_size,
+              head_dim=head_dim, dtype_bytes=dtype_bytes, topo=topo or TOPOLOGY)
+    paged = perf_model.estimate_extend_prefill(gather=False, **kw)
+    gather = perf_model.estimate_extend_prefill(gather=True, **kw)
+    return "paged" if paged.time <= gather.time else GATHER
+
+
 @functools.lru_cache(maxsize=2048)
 def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
                  phase, kv_layout, device_type, dtype_bytes, split_dtype_bytes, window,
-                 page_size, mapping_name, impl) -> AttentionPlan:
+                 page_size, prefix_pages, mapping_name, impl) -> AttentionPlan:
     if mapping_name != "auto":
         mapping = PAPER_MAPPINGS[mapping_name]  # KeyError = fail fast
     elif phase == EXTEND and kv_layout == PAGED:
@@ -191,11 +215,22 @@ def _plan_cached(batch, num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim,
             topo=DENSE_DECODE_TOPOLOGY if kv_layout == DENSE else TOPOLOGY,
             window=window,
         ).num_splits
+    paged_extend = phase == EXTEND and kv_layout == PAGED
+    if impl == GATHER:
+        if not paged_extend:
+            raise ValueError(f"impl={GATHER!r} is the paged extend's route; the plan is "
+                             f"for {phase} over {kv_layout}")
+        resolved = GATHER
+    else:
+        resolved = resolve_impl(impl, device_type)
+        if paged_extend and impl == "auto" and prefix_pages > 0 and _score_extend_route(
+                batch, num_q_heads, num_kv_heads, seq_q, prefix_pages * page_size,
+                page_size, head_dim, dtype_bytes) == GATHER:
+            resolved = GATHER
     return AttentionPlan(
-        phase=phase, kv_layout=kv_layout,
-        impl=resolve_impl(impl, device_type), mapping=mapping,
+        phase=phase, kv_layout=kv_layout, impl=resolved, mapping=mapping,
         device_type=device_type, page_size=page_size, window=window,
-        num_splits=num_splits, chunk=chunk,
+        num_splits=num_splits, chunk=chunk, prefix_pages=prefix_pages,
     )
 
 
@@ -203,13 +238,17 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
                    phase: str = PREFILL, kv_layout: str = DENSE,
                    device_type: str = "cuda", dtype_bytes: int = 2,
                    window: Optional[int] = None,
-                   page_size: Optional[int] = None,
+                   page_size: Optional[int] = None, prefix_pages: int = 0,
                    mapping_name: str = "auto", impl: str = "auto",
                    kv_dtype: str = "fp32") -> AttentionPlan:
     """Resolve the :class:`AttentionPlan` for ``shape`` = ``(batch,
     num_q_heads, num_kv_heads, seq_q, seq_kv, head_dim)``. For paged
     decode, ``seq_kv`` is the page-table width times the page size; for
-    dense decode, the stripe's capacity. A quantized ``kv_dtype`` (paged
+    dense decode, the stripe's capacity; for an extend, ``seq_q`` is the
+    tail and ``seq_kv`` prefix plus tail, and a paged extend passes its
+    table's width as ``prefix_pages`` (the extend route is scored only
+    where it is above 0). ``impl`` is ``"auto"``, ``"cuda"``, ``"plain"``
+    or, for a paged extend only, ``"gather"``. A quantized ``kv_dtype`` (paged
     only) scores the bytes its codes move: ``dtype_bytes`` becomes
     ``cache.quant.kv_itemsize``, as in the JAX package; except the split
     count, which keeps ``dtype_bytes``: the split terms are fitted to the
@@ -231,7 +270,7 @@ def plan_attention(shape: Tuple[int, int, int, int, int, int], *,
     return _plan_cached(
         b, hq, hkv, sq, skv, d, phase, kv_layout, device_type,
         int(dtype_bytes), int(split_dtype_bytes), int(window) if window else None,
-        int(page_size) if page_size else None,
+        int(page_size) if page_size else None, int(prefix_pages),
         mapping_name, impl,
     )
 
@@ -273,10 +312,14 @@ def resolve_kv_layout(shape: Tuple[int, int, int, int, int], *, capacity: int,
 def plan_for_config(cfg, shape, *, device_type: str, **kw) -> AttentionPlan:
     """:func:`plan_attention` with the schedule/impl policy read from a
     ``ModelConfig`` (the only reader of ``cfg.mapping_name`` /
-    ``cfg.attn_impl``)."""
+    ``cfg.attn_impl``). ``attn_impl="gather"`` pins the paged extend's
+    gather route and leaves every other phase and layout at ``"auto"``, as
+    the JAX package coerces a pinned impl per phase."""
+    impl = cfg.attn_impl
+    if impl == GATHER and not (kw.get("phase") == EXTEND and kw.get("kv_layout") == PAGED):
+        impl = "auto"
     return plan_attention(shape, device_type=device_type,
-                          mapping_name=cfg.mapping_name, impl=cfg.attn_impl,
-                          **kw)
+                          mapping_name=cfg.mapping_name, impl=impl, **kw)
 
 
 def with_mapping(cfg, mapping: Optional[str]):

@@ -90,7 +90,8 @@ def attention_prefill_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict
     """Prefix-extension prefill: the first ``prefix_len[b]`` positions are
     already in the pool; the tail attends to them in place through
     ``page_table`` (the K2 kernel, no gather; a quantized pool's scales ride
-    along). Returns the tail's K/V padded to ``cache_len``."""
+    along), or by the gather route where the plan's impl says so. Returns
+    the tail's K/V padded to ``cache_len``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, spec.rope_theta)
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]

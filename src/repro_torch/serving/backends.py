@@ -32,6 +32,7 @@ live caches.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -389,6 +390,16 @@ class DenseBackend(_Backend):
     def page_occupancy(self) -> float:
         return self.num_active / self.rows if self.rows else 0.0
 
+    @property
+    def mapping(self):
+        """The plan's launch order for the steady-state prefill (every row,
+        a full stripe); a pinned paper schedule passes through unchanged."""
+        return plan_lib.plan_for_config(
+            self.cfg, (self.rows, self.cfg.n_heads, self.cfg.n_kv_heads,
+                       self.cache_len, self.cache_len, self.cfg.head_dim),
+            device_type=self.device.type, phase=plan_lib.PREFILL,
+            dtype_bytes=device_lib.dtype_of(self.cfg.compute_dtype).itemsize).mapping
+
     def prefix_hit_rate(self) -> None:
         """Dense stripes have no prefix cache: None, not a cache that never hit."""
         return None
@@ -583,6 +594,36 @@ class PagedBackend(_Backend):
         return self.page_nbytes() * self.pool.num_pages
 
     @property
+    def mapping(self):
+        """The launch order of the steady-state decode plan (decode is part
+        of the plan's key, so it may differ from the prefill's)."""
+        return self.decode_plan().mapping
+
+    def decode_plan(self) -> plan_lib.AttentionPlan:
+        """The plan every decode tick runs: all rows over the full table
+        (the fused decode's width), in the compute dtype over the pool's
+        format; ``num_splits`` is the split count the ticks launch."""
+        return plan_lib.plan_for_config(
+            self.cfg, (self.rows, self.cfg.n_heads, self.cfg.n_kv_heads, 1,
+                       self.cache_len, self.cfg.head_dim),
+            device_type=self.device.type, phase=plan_lib.DECODE,
+            kv_layout=plan_lib.PAGED, page_size=self.page_size,
+            dtype_bytes=device_lib.dtype_of(self.cfg.compute_dtype).itemsize,
+            kv_dtype=self.kv_dtype)
+
+    def modeled_kv_layout(self) -> str:
+        """What the layout model picks for this backend's steady state
+        (``plan.resolve_kv_layout``: paged head-aligned or dense stripes)
+        at the live rows' mean length, or half the table when none is live."""
+        live = self.lengths[self.active]
+        mean_len = int(live.mean()) if live.size else self.cache_len // 2
+        return plan_lib.resolve_kv_layout(
+            (self.rows, self.cfg.n_heads, self.cfg.n_kv_heads, max(mean_len, 1),
+             self.cfg.head_dim),
+            capacity=self.cache_len, page_size=self.page_size,
+            dtype_bytes=self._kv_dtype_bytes)
+
+    @property
     def _kv_dtype_bytes(self) -> int:
         """Bytes per pooled element: 1 for int8 / fp8 codes, else the
         compute dtype's."""
@@ -608,7 +649,10 @@ class PagedBackend(_Backend):
         """Modelled prefill seconds that cache reuse would save ``req`` if
         admitted now: the scheduler's tie-break within a priority class.
         The full prefill minus the extend over the matched prefix, both
-        ``perf_model.estimate_extend_prefill`` on the plan's topology; a
+        ``perf_model.estimate_extend_prefill`` on the plan's topology under
+        the JAX package's formula (its fitted extend terms price K2 against
+        the gather route at one shape, in padded tiles, and would read a
+        short prefix as no saving, where the whole model's rows are); a
         host-tier continuation of the match adds the recompute it saves
         minus its transfer (``perf_model.estimate_tier_transfer``), credited
         only where the link beats the FLOPs. Zero when nothing matches."""
@@ -626,12 +670,14 @@ class PagedBackend(_Backend):
         prefix = min(matched * self.page_size, n - 1)
         both = min((matched + host_run) * self.page_size, n - 1)
 
+        topo = dataclasses.replace(plan_lib.TOPOLOGY, extend=None)
+
         def _t(prefix_len: int) -> float:
             return perf_model.estimate_extend_prefill(
                 batch=1, num_q_heads=self.cfg.n_heads, num_kv_heads=self.cfg.n_kv_heads,
                 prefix_len=prefix_len, tail_len=n - prefix_len, page_size=self.page_size,
                 head_dim=self.cfg.head_dim, dtype_bytes=self._kv_dtype_bytes,
-                topo=plan_lib.TOPOLOGY).time
+                topo=topo).time
 
         saved = max(_t(0) - _t(prefix), 0.0)
         if host_run > 0:
@@ -958,7 +1004,8 @@ class PagedBackend(_Backend):
                     (rows, self.cfg.n_heads, self.cfg.n_kv_heads, bucket,
                      mb * ps + bucket, self.cfg.head_dim),
                     device_type=dev.type, phase=plan_lib.EXTEND,
-                    kv_layout=plan_lib.PAGED, page_size=ps, kv_dtype=self.kv_dtype)
+                    kv_layout=plan_lib.PAGED, page_size=ps, prefix_pages=mb,
+                    kv_dtype=self.kv_dtype)
                 logits, tail_caches = transformer.prefill(
                     self.params, self.cfg, tokens, cache_len=bucket, last_positions=last,
                     prefix_caches=self.caches, page_table=torch.from_numpy(pt).to(dev),
@@ -1117,12 +1164,19 @@ class PagedBackend(_Backend):
 
     def prefix_stats(self) -> Dict[str, object]:
         """The sharing and tier counters, the pool's storage format and its
-        device bytes, and what the host tier holds."""
+        device bytes, and what the host tier holds. The prefix cache's own
+        counters give the page-level lookup hits and queries and
+        ``prefix_evictions``, the entries it dropped, as in the JAX package
+        (``stats["prefix_evictions"]`` counts the pages those drops freed)."""
         host = self.host
+        pc = self.prefix.counters()
         return {
             "prefix_entries": float(len(self.prefix)),
             "prefix_hit_rate": self.prefix_hit_rate(),
             **{k: float(v) for k, v in self.stats.items()},
+            "prefix_lookup_hits": float(pc["hits"]),
+            "prefix_lookup_queries": float(pc["queries"]),
+            "prefix_evictions": float(pc["evictions"]),
             "free_pages": float(self.pool.free_pages),
             "kv_dtype": self.kv_dtype,
             "kv_pool_bytes": float(self.kv_pool_bytes()),

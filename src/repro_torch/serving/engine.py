@@ -246,6 +246,12 @@ class LLMEngine:
     def kv_layout(self) -> str:
         return self.backend.kv_layout
 
+    @property
+    def mapping(self):
+        """The plan's launch order for the backend's steady state (a pinned
+        paper schedule passes through unchanged)."""
+        return self.backend.mapping
+
     def add_request(self, request=None, *, prompt=None,
                     sampling: Optional[SamplingParams] = None,
                     uid: Optional[int] = None, priority: Optional[int] = None) -> int:

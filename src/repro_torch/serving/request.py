@@ -117,6 +117,21 @@ class Request:
         """The token budget (the backend's admission math reads it)."""
         return self.sampling.max_tokens
 
+    @property
+    def eos_id(self) -> Optional[int]:
+        """The first stop token, or None (the legacy keyword's reading)."""
+        ids = self.sampling.stop_token_ids
+        return ids[0] if ids else None
+
+    @property
+    def temperature(self) -> float:
+        return self.sampling.temperature
+
+    def clone(self) -> "Request":
+        """A fresh request with the same uid, a copy of the prompt, the
+        same sampling and priority: a request set can be run again."""
+        return Request(self.uid, self.prompt.copy(), self.sampling, self.priority)
+
     def __repr__(self):
         return (f"Request(uid={self.uid}, prompt_len={len(self.prompt)}, "
                 f"sampling={self.sampling}, priority={self.priority})")

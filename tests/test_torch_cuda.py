@@ -226,6 +226,79 @@ def test_flash_fwd_tensor_cores_orders_agree_exactly(cuda):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [None, 90])
+def test_flash_fwd_per_row_offsets_match_plain(cuda, dtype, d, window):
+    """K1 with per-row query offsets and kv_len: three rows of 150 queries
+    at 0, 37 and 300 over 500 keys, the second's kv_len 5 short of its last
+    query; an int offset equals the same offset per row, and offset 0 as
+    arrays gives the null pointers' bits."""
+    rng = np.random.default_rng(73)
+    q = _randn(rng, (3, 8, 150, d), cuda, DTYPES[dtype])
+    k, v = (_randn(rng, (3, 2, 500, d), cuda, DTYPES[dtype]) for _ in range(2))
+    kw = dict(causal=True, window=window,
+              q_offset=torch.tensor([0, 37, 300], dtype=torch.int32, device=cuda),
+              kv_len=torch.tensor([150, 182, 450], dtype=torch.int32, device=cuda))
+    kernels.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    same_int = fa.flash_attention_fwd(q, k, v, causal=True, window=window, q_offset=120)
+    per_row = fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                     q_offset=torch.full((3,), 120, device=cuda))
+    zero = fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                  q_offset=torch.zeros((3,), device=cuda),
+                                  kv_len=torch.full((3,), 500, device=cuda))
+    null = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_fwd"] == 5
+    assert _close(o, o_ref) and _err(lse, lse_ref) < (LSE_TOL if dtype == "bf16" else F32_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(same_int, per_row))
+    assert all(torch.equal(a, b) for a, b in zip(zero, null))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+def test_gather_route_matches_k2_on_the_card(cuda, kv_dtype):
+    """The paged extend's gather route (the prefix gathered into stripes,
+    then K1 with offsets) against K2 over the same bf16 (or int8 / fp8)
+    pool: within the bf16 bars of each other, rows past tail_len zero, and
+    the route launches K1, never K2."""
+    from repro_torch.cache import quant
+    from repro_torch.kernels import plan as plan_lib
+
+    rng = np.random.default_rng(74)
+    b, st, ps, mp = 3, 140, 16, 20
+    kp, vp = (_randn(rng, (8, 1 + b * mp, ps, 128), cuda) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, 1 + b * mp)).reshape(b, mp)
+                             .astype(np.int32)).to(cuda)
+    q = _randn(rng, (b, 32, st, 128), cuda, torch.bfloat16)
+    kt, vt = (_randn(rng, (b, 8, st, 128), cuda, torch.bfloat16) for _ in range(2))
+    plen = torch.tensor([300, 0, mp * ps], dtype=torch.int32, device=cuda)
+    tlen = torch.tensor([st, 9, 1], dtype=torch.int32, device=cuda)
+    scales = {}
+    if kv_dtype == "fp32":
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    else:
+        (kp, ks), (vp, vs) = (quant.quantize_pages(p, kv_dtype) for p in (kp, vp))
+        scales = dict(k_scales=ks, v_scales=vs)
+    args = (q, kp, vp, table, kt, vt, plen, tlen)
+    shape = (b, 32, 8, st, mp * ps + st, 128)
+    outs = {}
+    for impl in ("cuda", plan_lib.GATHER):
+        plan = plan_lib.plan_attention(shape, phase=plan_lib.EXTEND, kv_layout=plan_lib.PAGED,
+                                       page_size=ps, prefix_pages=mp, device_type="cuda",
+                                       impl=impl)
+        kernels.reset_launch_counts()
+        outs[impl] = ops.paged_prefill_attention(*args, plan=plan, **scales)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        k2 = counts["paged_flash_prefill"] + counts["paged_flash_prefill_q"]
+        assert (counts["flash_attention_fwd_tc"], k2) == ((0, 1) if impl == "cuda" else (1, 0))
+    assert _row_err(outs[plan_lib.GATHER], outs["cuda"]) < ROW_TOL
+    for i, t in enumerate(tlen.tolist()):
+        assert not outs[plan_lib.GATHER][i, :, t:].any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_flash_fwd_refuses_misaligned_or_strided_inputs(cuda, dtype):
     """Both K1 kernels read 16-byte rows (the bf16 one through TMA maps):
     an input that starts off a 16-byte boundary, or is not contiguous,

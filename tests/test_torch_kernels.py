@@ -94,27 +94,41 @@ LSE_TOL = 1e-5
 
 
 def _tensor_core_k1(q, k, v, *, causal, window=None, softcap=None, kv_len=None,
-                    block_n=128):
+                    q_offset=None, block_n=128):
     """The arithmetic of K1's bf16 tensor-core kernel (``fa2_fwd_tc`` in
     csrc/flash_attention.cu), written out in float32: products of bf16
     inputs summed in float32; scores in log2 units with scale * log2(e)
     folded into one multiply (softcap first, in natural units); an online
     softmax over 128-key tiles with exp2; P rounded to bf16 before P V while
     the row sum takes P unrounded; float32 accumulation; o rounded to bf16,
-    lse = m ln 2 + log l."""
+    lse = m ln 2 + log l. ``q_offset`` / ``kv_len`` (ints or (B,) tensors)
+    walk as the kernel's per-row arrays: query row i of batch row b at
+    position q_offset[b] + i, keys at or past kv_len[b] masked; each block
+    walks only the 128-key tiles its rows can see (``kv_tile_range`` of
+    csrc/common.cuh at the shifted rows), 128 query rows a block."""
     log2e, ln2 = 1.4426950408889634, 0.6931471805599453
     b, hq, sq, d = q.shape
     skv = k.shape[2]
-    live = skv if kv_len is None else min(skv, kv_len)
+    per_row = lambda x, default: (x.long() if isinstance(x, torch.Tensor)
+                                  else torch.full((b,), default if x is None else x))
+    live = torch.clamp(per_row(kv_len, skv), max=skv)[:, None, None, None]
+    off = per_row(q_offset, 0)[:, None, None, None]
     group = hq // k.shape[1]
     qf = q.float()
     kf, vf = k.float().repeat_interleave(group, 1), v.float().repeat_interleave(group, 1)
     scale = 1.0 / d**0.5
-    rows = torch.arange(sq)[:, None]
+    rows = off + torch.arange(sq)[:, None]                       # (B, 1, Sq, 1)
+    # The tiles [n_lo, n_hi) each 128-row block walks, per (b, row).
+    q0 = off + torch.arange(sq)[:, None] // 128 * 128
+    n_hi = -(-live // block_n)
+    if causal:
+        n_hi = torch.minimum(n_hi, (q0 + 128 + block_n - 1) // block_n)
+    n_lo = torch.clamp(q0 - window + 1, min=0) // block_n if window else torch.zeros_like(q0)
     m = torch.full((b, hq, sq), -1e30)
     l = torch.zeros((b, hq, sq))
     acc = torch.zeros((b, hq, sq, d))
     for c0 in range(0, skv, block_n):
+        walked = ((c0 // block_n >= n_lo) & (c0 // block_n < n_hi))[..., 0]   # (B, 1, Sq)
         s = qf @ kf[:, :, c0:c0 + block_n].transpose(-1, -2)
         if softcap:
             x = softcap * torch.tanh(s * scale / softcap) * log2e
@@ -127,9 +141,10 @@ def _tensor_core_k1(q, k, v, *, causal, window=None, softcap=None, kv_len=None,
         if window:
             ok = ok & (cols > rows - window)
         x = torch.where(ok, x, torch.tensor(-1e30))
-        m_new = torch.maximum(m, x.amax(-1))
+        m_new = torch.where(walked, torch.maximum(m, x.amax(-1)), m)
         alpha = torch.exp2(m - m_new)
-        p = torch.where(ok, torch.exp2(x - m_new[..., None]), torch.tensor(0.0))
+        p = torch.where(ok & walked[..., None], torch.exp2(x - m_new[..., None]),
+                        torch.tensor(0.0))
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, c0:c0 + block_n]
         m = m_new
@@ -169,6 +184,29 @@ def test_tensor_core_k1_arithmetic_matches_jax(d, kw):
         ot2, _ = _tensor_core_k1(qt, kt, torch.where(torch.arange(130)[:, None] < 101, vt,
                                                      torch.tensor(7.0, dtype=vt.dtype)), **kw)
         assert torch.equal(ot, ot2)
+
+
+@pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
+@pytest.mark.parametrize("window,softcap", [(None, None), (90, 30.0)],
+                         ids=["causal", "window_softcap"])
+def test_tensor_core_k1_offset_walk_matches_jax(hq, hkv, window, softcap):
+    """The tensor-core K1's walk under per-row query offsets, written out in
+    float32, against JAX's ``ref.attention(q_offset=)`` row by row: three
+    rows of 140 queries at offsets 0, 37 and 250 over 400 keys, each with
+    its own kv_len (the second stops 5 keys short of its last query). Rows
+    within 2^-6 of their max, lse within 1e-5."""
+    rng = np.random.default_rng(70 + hq + hkv)
+    d, sq, skv = 64, 140, 400
+    q, k, v = (_normal(rng, 3, h, n, d) for h, n in ((hq, sq), (hkv, skv), (hkv, skv)))
+    off, kv_len = [0, 37, 250], [sq, 37 + sq - 5, 250 + sq]
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (q, k, v))
+    ot, lt = _tensor_core_k1(qt, kt, vt, causal=True, window=window, softcap=softcap,
+                             q_offset=torch.tensor(off), kv_len=torch.tensor(kv_len))
+    for i, (o_i, n) in enumerate(zip(off, kv_len)):
+        args = (qj[i:i + 1], kj[i:i + 1, :, :n], vj[i:i + 1, :, :n])
+        kw = dict(causal=True, window=window, softcap=softcap, q_offset=o_i)
+        assert _row_err(jax_ref.attention(*args, **kw), ot[i:i + 1]) < ROW_TOL
+        assert _diff(jax_ref.attention_lse(*args, **kw), lt[i:i + 1]) < LSE_TOL
 
 
 def test_ops_flash_attention_pads_and_matches_ref():

@@ -28,7 +28,15 @@ D 128, bf16, pages of 16 on a scattered table):
   values;
 * K1 at B 2, S 2048, causal, head-first, and at hymba-1.5b's prefill
   widths (B 1, Hq 25, Hkv 5, D 64, S 4096), global and window 1024, as
-  ``chip_smoke.py`` times it.
+  ``chip_smoke.py`` times it; in a root whose K1 takes per-row query
+  offsets, each case again with an explicit offset of 0 (the kernel's
+  offset array, not its null pointer), its o and lse checked bit for bit
+  against the first root's;
+* in a root that has the paged extend's gather route, the extend A/B
+  (:func:`extend_ab`, which ``chip_smoke.py``'s plan part (d) runs too):
+  K2 against the gather route (the prefix gathered and packed into dense
+  stripes, then K1 with per-row offsets), and the route's two parts alone,
+  at ``EXTEND_SHAPES``.
 
 With ``--serve`` each run then serves ``chip_smoke.py``'s run (a) on
 full-width llama3-8b (random weights) over an int8 and then an fp8 pool,
@@ -48,6 +56,7 @@ JSON object of the times.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -59,6 +68,13 @@ RERUNS = 100
 K1_CASES = (("K1 (B 2, S 2048, causal, head-first)", 2, HQ, HKV, D, 2048, None),
             ("K1 hymba-1.5b widths (S 4096, global)", 1, 25, 5, 64, 4096, None),
             ("K1 hymba-1.5b widths (S 4096, window 1024)", 1, 25, 5, 64, 4096, 1024))
+#: The extend A/B's llama3-8b shapes (rows, prefix, tail): one request and
+#: eight, prefixes of 256 to 4096 positions, tails of 16 to 512. The plan's
+#: fit reads the first eight and holds the last three out.
+EXTEND_SHAPES = ((1, 256, 16), (1, 1024, 256), (1, 4096, 64), (1, 2048, 512),
+                 (8, 256, 256), (8, 1024, 16), (8, 2048, 128), (8, 4096, 512),
+                 (8, 1024, 256), (1, 512, 128), (4, 4096, 256))
+EXTEND_HELD_OUT = EXTEND_SHAPES[8:]
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAVED = os.path.join(HERE, "build", "prefill_ab")
 
@@ -78,6 +94,50 @@ def k2_inputs(torch, gen, b, plen, st, tlens):
     plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
     tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
     return (q, kp, vp, table, kt, vt, plens, tl)
+
+
+def extend_ab(torch, timer, gen, shapes=EXTEND_SHAPES, log=print) -> list:
+    """K2 against the gather route at llama3-8b widths (bf16, pages of 16 on
+    a scattered table, every tail full): per ``(rows, prefix, tail)`` the
+    CUDA-event medians of ``timer`` with the queue primed of K2
+    (``paged_flash_prefill``), the whole gather route
+    (``paged_prefill_gather``), its copies alone (``gather_stripes``) and K1
+    alone over the packed stripes; the gather route's output against K2's
+    (row-relative). Returns one dict a shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_prefill_attention as pp
+
+    rows = []
+    for b, plen, st in shapes:
+        args = k2_inputs(torch, gen, b, plen, st, [st] * b)
+        q, kp, vp, table, kt, vt, plens, tl = args
+        o_k2 = pp.paged_flash_prefill(*args)
+        o_g = pp.paged_prefill_gather(*args)
+        k, v = pp.gather_stripes(kp, vp, table, kt, vt, plens)
+        kv_len = plens + tl
+        torch.cuda.synchronize()
+        row = dict(rows=b, prefix=plen, tail=st, row_err=float(_row_err(o_g, o_k2)),
+                   k2_ms=timer.ms(lambda: pp.paged_flash_prefill(*args), primed=True),
+                   gather_ms=timer.ms(lambda: pp.paged_prefill_gather(*args), primed=True),
+                   copy_ms=timer.ms(lambda: pp.gather_stripes(kp, vp, table, kt, vt, plens),
+                                    primed=True),
+                   k1_ms=timer.ms(lambda: fa.flash_attention_fwd(
+                       q, k, v, causal=True, q_offset=plens, kv_len=kv_len), primed=True))
+        log(f"extend B {b}, prefix {plen}, tail {st}: K2 {row['k2_ms']:.4f} ms, gather route "
+            f"{row['gather_ms']:.4f} ms (copies {row['copy_ms']:.4f} + K1 {row['k1_ms']:.4f}), "
+            f"gather against K2 row-relative {row['row_err']:.3e}")
+        rows.append(row)
+        del args, q, kp, vp, table, kt, vt, plens, tl, o_k2, o_g, k, v
+    return rows
+
+
+def _row_err(a, ref) -> float:
+    import torch
+
+    diff = (a.float() - ref.float()).abs().amax(-1)
+    den = ref.float().abs().amax(-1)
+    zero_ok = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
 
 
 def serve_ttft(torch, cs, tag) -> dict:
@@ -166,12 +226,13 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
 
     os.makedirs(SAVED, exist_ok=True)
 
-    def same_as_first_root(key, outs) -> bool:
+    def same_as_first_root(key, outs, save=True) -> bool:
         """Whether ``outs`` equal, bit for bit, what the first root run
-        saved under ``key``."""
+        saved under ``key`` (which the first run saves, unless ``save`` is
+        False)."""
         path = os.path.join(SAVED, f"{key}.pt")
         outs = [t.cpu() for t in outs]
-        if first:
+        if first and save:
             torch.save(outs, path)
         return all(torch.equal(u, v) for u, v in zip(outs, torch.load(path)))
 
@@ -207,6 +268,7 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
             del kc, vc, ks, vs, qargs, ref
         del args, q, kp, vp, table, kt, vt, plens, tl
 
+    offsets = "q_offset" in inspect.signature(fa.flash_attention_fwd).parameters
     for i, (label, b, hq, hkv, d, s, window) in enumerate(K1_CASES):
         q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -219,7 +281,18 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
         report(label, fn, o_ref, "fa2_fwd",
                note=f"; o and lse bitwise equal to the first root's: {same}")
         times[label]["bitwise_equal_first_root"] = same
+        if offsets:
+            zero = torch.zeros((b,), dtype=torch.int32, device="cuda")
+            fn0 = lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                                 q_offset=zero)
+            same0 = same_as_first_root(f"k1_{i}", list(fn0()), save=False)
+            report(f"{label}, offset 0 as an array", fn0, o_ref, "fa2_fwd",
+                   note=f"; o and lse bitwise equal to the first root's: {same0}")
+            times[f"{label}, offset 0 as an array"]["bitwise_equal_first_root"] = same0
         del q, k, v, o, lse, o_ref
+    if hasattr(pp, "paged_prefill_gather"):
+        times["extend A/B"] = extend_ab(torch, timer, gen,
+                                        log=lambda m: print(f"[{tag}] {m}", flush=True))
     line = {"root": root, "tag": tag, "card": cs.smi_line(), "times": times}
     if serve:
         line["serve_ttft_ms"] = serve_ttft(torch, cs, tag)
