@@ -61,7 +61,13 @@ and prints no result. Phases, in order (any failure exits non-zero):
      mamba2-1.3b's prefill shapes, in the layout ``ssd_chunked_cuda`` gives
      it (B and C per group, G 1), held per slice at 1e-5, ten reruns
      bitwise equal, its bound at the TF32 peak beside the float32 one, and
-     the whole SSD scan timed part by part;
+     the whole SSD scan timed part by part; then K1, K2, K3, K4, K7 and K8
+     at head_dim 256 (``check_gemma_kernels``), at gemma2-2b's widths (Hq
+     8, Hkv 4, softcap 50, window 4096) and gemma3-1b's (Hq 4, Hkv 1,
+     window 512), each against its plain version per row, 100 reruns
+     bitwise equal, CUDA-event times, the bound and SDPA where one call
+     computes the same function, and K1 at gemma2-2b's widths once more
+     without the softcap (its share of K1's time);
   3b. plan — the plan's models against the card: (a) bf16 K3 / K4 at
      llama3-8b widths, every row full, B 1, 2, 4, 8 over tables of 128 and
      256 pages (and the serve runs' 8 x 36 and 1 x 260) at 1, 2, 3, 4, 6,
@@ -153,7 +159,16 @@ and prints no result. Phases, in order (any failure exits non-zero):
      beside the card's name and power limit; then one sync
      of that engine against the plain path (``compare_sync``), and 8
      closed-loop requests with the same greedy ids with telemetry on and
-     off, their decode tok/s side by side;
+     off, their decode tok/s side by side. Then the gemma family at full
+     width, head_dim 256 (``serve_gemma``): gemma2-2b and gemma3-1b paged
+     ((a) 8 requests sharing a 256-token prefix on an engine of 16 or 64
+     rows, so the plan decodes in one pass: K1, K2, K3; (b) one row of
+     4200 tokens, past gemma2's window of 4096: K4), dense (32 rows of 2048
+     or 128 of 1024: K1, K7; one row of 4400 alone: K8), every run held to
+     the plain path by ``compare_sync``, and the fused decode on (a)'s
+     engine at ``steps_per_sync`` 1 and 8. ``python3 chip_smoke.py --phase
+     gemma`` runs the head_dim 256 kernels and these runs alone, with no
+     result line;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -1357,6 +1372,173 @@ def check_dense_decode(torch, timer, results):
     del q, kc, vc
 
 
+# -- phase 3 (head_dim 256): the gemma family's widths -------------------------
+
+#: The head_dim 256 kernel phase's widths: (model, Hq, Hkv, its local window,
+#: its attention softcap). gemma2-2b's group of 2 (softcap 50, window 4096),
+#: gemma3-1b's group of 4 over one kv head (no softcap, window 512).
+GEMMA_WIDTHS = (("gemma2-2b", 8, 4, 4096, 50.0), ("gemma3-1b", 4, 1, 512, None))
+D256 = 256
+#: Reruns of each head_dim 256 case that must give the same bits.
+RERUNS = 100
+
+
+def check_gemma_kernels(torch, timer):
+    """K1, K2, K3, K4, K7 and K8 at head_dim 256, in bf16 on the tensor
+    cores, at gemma2-2b's and gemma3-1b's widths, each with its model's
+    softcap and local window: against the plain version per row within
+    ROW_TOL, 100 reruns bitwise equal, every launch on the tensor-core
+    kernel, CUDA-event medians (decode kernels and K2 with the queue
+    primed), the bound (bytes over 3.35 TB/s against operations over 989
+    TFLOP/s), and SDPA where one call computes the same function: K1 and
+    K7/K8 without a softcap (gemma3-1b; at gemma2-2b's widths SDPA, which
+    has no softcap, is timed on the same shapes without it and said so).
+    K1: B 1, S 8192, global and the local window; K2: B 2, prefix 1000,
+    tail 256 (the second row's live to 219), pages of 16; K3 / K4 (4
+    splits): B 8, lengths up to 4096 and a length-0 row, pages of 16; K7 /
+    K8 (4 splits) the same rows on 4096-row stripes. Returns one row per
+    (kernel, width) for the summary line."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import paged_prefill_attention as pp
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    d = D256
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = []
+
+    def report(key, label, run, plain, o, o_ref, kb, lib_ms, counter, primed, extra=""):
+        torch.cuda.synchronize()
+        e_r = row_err(o, o_ref)
+        same = sum(not torch.equal(run(), o) for _ in range(RERUNS))
+        kernels.reset_launch_counts()
+        run()
+        launched = kernels.launch_counts()
+        ms = timer.ms(run, primed=primed)
+        plain_ms = timer.ms(plain)
+        log(f"{key} D 256 {label}: row-relative {e_r:.3e} (tol {ROW_TOL:.3e}), {same} of "
+            f"{RERUNS} reruns differ, {ms:.4f} ms{' (queue primed)' if primed else ''}, plain "
+            f"{plain_ms:.3f} ms, library sdpa "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}{extra}, bound {kb[0]:.5f} ms "
+            f"({kb[1]})")
+        if e_r > ROW_TOL or same or launched[counter] != 1:
+            raise AssertionError(f"{key} D 256 {label}: disagrees with its plain version, "
+                                 "changes between reruns or missed the tensor-core kernel")
+        rows.append(dict(kernel=key, widths=label, ms=ms, plain_ms=plain_ms, bound_ms=kb[0],
+                         bound_by=kb[1], library_ms=lib_ms, row_err=e_r))
+
+    lens8 = [4096, 0, 3001, 17, 2048, 4000, 1, 1500]
+    for model, hq, hkv, local, cap in GEMMA_WIDTHS:
+        no_cap = "" if cap is None else " (sdpa without the softcap: it has none)"
+        # K1: B 1, S 8192, global and the local window.
+        s = 8192
+        q, k, v = randn(1, hq, s, d), randn(1, hkv, s, d), randn(1, hkv, s, d)
+        pos = torch.arange(s, device="cuda")
+        for window in (None, local):
+            kw = dict(causal=True, window=window, softcap=cap)
+            run = lambda: fa.flash_attention_fwd(q, k, v, **kw)[0]
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            kb = k1_bound_of(q, k, v, o, lse, causal=True, window=window)
+            if window is None:
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True)
+            else:
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              enable_gqa=True)
+            report("K1", f"{model} (Hq {hq}, Hkv {hkv}) B 1 S {s} window {window}", run,
+                   lambda: fa.flash_attention_fwd_plain(q, k, v, **kw), o, o_ref, kb,
+                   timer.ms(sdpa), "flash_attention_fwd_tc", False, no_cap)
+            del o, lse, o_ref
+        if cap is not None:
+            # The softcap's share of K1: the global case again without it.
+            ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+            log(f"K1 D 256 {model} (Hq {hq}, Hkv {hkv}) B 1 S {s} window None without the "
+                f"softcap: {ms:.4f} ms")
+        del q, k, v
+
+        # K2: B 2, prefix 1000, tail 256, pages of 16, the local window.
+        b, plen, st, tlens = 2, 1000, 256, [256, 219]
+        mp = -(-plen // PS)
+        num_pages = 1 + b * mp
+        kp, vp = randn(hkv, num_pages, PS, d), randn(hkv, num_pages, PS, d)
+        perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+        table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
+        q, kt, vt = randn(b, hq, st, d), randn(b, hkv, st, d), randn(b, hkv, st, d)
+        plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+        tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
+        args = (q, kp, vp, table, kt, vt, plens, tl)
+        kw = dict(window=local, softcap=cap)
+        run = lambda: pp.paged_flash_prefill(*args, **kw)
+        o = run()
+        o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+        # Tail row i sits at plen + i and sees min(plen + i + 1, local) keys;
+        # the prefix keys any row needs are its last local - 1.
+        seen = sum(min(plen + i + 1, local) for t in tlens for i in range(t))
+        kb = bound(2 * hkv * b * min(plen, local - 1) * d * 2
+                   + nbytes(q, kt, vt, o, table, plens, tl), 4.0 * d * hq * seen)
+        report("K2", f"{model} (Hq {hq}, Hkv {hkv}) prefix {plen} tail {st} window {local}",
+               run, lambda: pp.paged_flash_prefill_plain(*args, **kw), o, o_ref, kb, None,
+               "paged_flash_prefill_tc", True)
+        del kp, vp, q, kt, vt, o, o_ref, args
+
+        # K3 / K4: B 8, lengths up to 4096 over 256-page tables, pages of 16.
+        b, mp = 8, 4096 // PS
+        num_pages = 1 + b * mp
+        kp, vp = randn(hkv, num_pages, PS, d), randn(hkv, num_pages, PS, d)
+        perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+        table = perm.reshape(b, mp).to(torch.int32).contiguous()
+        lengths = torch.tensor(lens8, dtype=torch.int32, device="cuda")
+        q = randn(b, hq, d)
+        live = sum(min(n, local) for n in lens8)
+        kb = bound(2 * hkv * live * d * 2 + nbytes(q, q, table, lengths), 4.0 * hq * d * live)
+        for ns, key, counter in ((1, "K3", "paged_flash_decode_tc"),
+                                 (4, "K4", "paged_flash_decode_split_tc")):
+            kw = dict(window=local, softcap=cap, num_splits=ns)
+            run = lambda: pd.paged_flash_decode(q, kp, vp, table, lengths, **kw)
+            o = run()
+            o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **kw)
+            report(key, f"{model} (Hq {hq}, Hkv {hkv}) B 8 table 4096 window {local} "
+                        f"num_splits {ns}", run,
+                   lambda: pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **kw), o,
+                   o_ref, kb, None, counter, True)
+        del kp, vp, q, o, o_ref
+
+        # K7 / K8: the same rows on 4096-row stripes; SDPA on the stripes
+        # expanded to Hq under the length and window mask.
+        smax = 4096
+        q, kc, vc = randn(b, hq, d), randn(b, hkv, smax, d), randn(b, hkv, smax, d)
+        p = torch.arange(smax, device="cuda")[None, :]
+        mask = (p < lengths[:, None].long()) & (p > lengths[:, None].long() - 1 - local)
+        kx, vx = kc.repeat_interleave(hq // hkv, 1), vc.repeat_interleave(hq // hkv, 1)
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kx, vx, attn_mask=mask[:, None, None, :]), primed=True)
+        kb = bound(2 * hkv * live * d * 2 + 2 * nbytes(q) + nbytes(lengths),
+                   4.0 * hq * d * live)
+        for ns, key, counter in ((1, "K7", "flash_decode_tc"),
+                                 (4, "K8", "flash_decode_split_tc")):
+            kw = dict(window=local, softcap=cap, chunk=plan_lib.decode_chunk(smax),
+                      num_splits=ns)
+            run = lambda: dd.flash_decode(q, kc, vc, lengths, **kw)
+            o = run()
+            o_ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+            report(key, f"{model} (Hq {hq}, Hkv {hkv}) B 8 stripes 4096 window {local} "
+                        f"num_splits {ns}", run,
+                   lambda: dd.flash_decode_plain(q, kc, vc, lengths, **kw), o, o_ref, kb,
+                   lib_ms, counter, True, no_cap)
+        del q, kc, vc, kx, vx, o, o_ref
+    return rows
+
+
 def check_ssd(torch, timer, results):
     """K9 against its plain version at the prefill shapes of the serve path
     (B 1, L 4096, chunk 256): hymba-1.5b (H 50, P 64, N 16) and mamba2-1.3b
@@ -1920,16 +2102,18 @@ def serve_prompts(cfg, seed=0):
             for _ in range(8)], rng
 
 
-def serve(torch, cfg, params, seed=0, device="cuda"):
+def serve(torch, cfg, params, seed=0, device="cuda", rows=8, b_len=4096, b_kw=SERVE_B_KW):
+    """Runs (a) and (b) on ``cfg``: (a)'s 8 requests on an engine of ``rows``
+    rows, (b)'s one request of ``b_len`` tokens on ``b_kw``'s engine."""
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.serving import LLMEngine, Request, SamplingParams
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    engine_kw = dict(SERVE_PAGED_KW, device=device)
+    engine_kw = dict(SERVE_PAGED_KW, max_batch=rows, device=device)
     prompts_a, rng = serve_prompts(cfg, seed)
-    prompt_b = rng.integers(1, cfg.vocab, size=(4096,))
+    prompt_b = rng.integers(1, cfg.vocab, size=(b_len,))
     greedy = SamplingParams(max_tokens=32)
 
     # Each run on an engine sized for it: a sync decodes every row over the
@@ -1939,7 +2123,7 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     kernels.reset_launch_counts()
     runs, stats = {}, {}
     for label, prompts, uid0, kw in (("a", prompts_a, 0, engine_kw),
-                                     ("b", [prompt_b], 100, dict(engine_kw, **SERVE_B_KW))):
+                                     ("b", [prompt_b], 100, dict(engine_kw, **b_kw))):
         engine = LLMEngine(cfg, params, **kw)
         t = time.perf_counter()
         out = engine.generate([Request(uid=uid0 + i, prompt=p, sampling=greedy)
@@ -1963,9 +2147,9 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     for o in sorted(runs["a"][0], key=lambda o: o.uid)[:1] + runs["b"][0][:1]:
         log(f"  uid={o.uid} tokens={[int(t) for t in o.tokens]}")
     log(f"launch counts over the serve run: {json.dumps(counts)}")
-    check_k1_route("serve llama3-8b paged", counts)
-    check_k2_route("serve llama3-8b paged", counts)
-    check_paged_route("serve llama3-8b paged", counts)
+    check_k1_route(f"serve {cfg.name} paged", counts)
+    check_k2_route(f"serve {cfg.name} paged", counts)
+    check_paged_route(f"serve {cfg.name} paged", counts)
     for key in ("K1", "K2", "K3", "K4"):
         if counts[KERNELS[key]["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on the main path")
@@ -1976,10 +2160,10 @@ def serve(torch, cfg, params, seed=0, device="cuda"):
     # Kernel path against the plain path, same weights, on the card: one
     # sync of each run at its own engine sizes.
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
-    logits = {"a": compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (a)",
+    logits = {"a": compare_sync(torch, cfg, plain_cfg, params, label=f"{cfg.name} paged (a)",
                                 engine_kw=engine_kw, prompts=prompts_a),
-              "b": compare_sync(torch, cfg, plain_cfg, params, label="llama3-8b paged (b)",
-                                engine_kw=dict(engine_kw, **SERVE_B_KW), prompts=[prompt_b])}
+              "b": compare_sync(torch, cfg, plain_cfg, params, label=f"{cfg.name} paged (b)",
+                                engine_kw=dict(engine_kw, **b_kw), prompts=[prompt_b])}
     return counts, logits
 
 
@@ -2194,13 +2378,14 @@ def serve_tiered(torch, cfg, params, seed=0, device="cuda"):
 
 
 def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_len=None,
-                want, kv_layout=None, rows=8, cache_len=4096,
+                lone_rows=None, want, kv_layout=None, rows=8, cache_len=4096,
                 buckets=(512, 1024, 2048, 4096), seed=0, device="cuda"):
     """Dense serving through ``LLMEngine``: greedy requests of
     ``prompt_lens`` tokens (none a bucket size, so each prefill is
     right-padded), then one of ``lone_len`` alone on an engine of
-    ``lone_cache_len`` stripes (a sync decodes every row over the whole
-    stripe, so the stripe sets the decode plan), 32 new tokens each, with
+    ``lone_cache_len`` stripes and ``lone_rows`` rows (default ``rows``; a
+    sync decodes every row over the whole stripe, so the rows and the
+    stripe set the decode plan), 32 new tokens each, with
     the launch counts set to 0 just before and read just after; every
     kernel of ``want`` must have launched. ``kv_layout=None`` takes the
     engine's default ("auto"), which must resolve to dense. Then each run
@@ -2223,7 +2408,8 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_le
     # Each group its own uids, as serve() does: the lone request's TTFT is
     # then its own, not the batch's uid 0.
     batches = [("batch", list(prompt_lens), 0, kw)] + (
-        [("alone", [lone_len], 100, dict(kw, cache_len=lone_cache_len or cache_len))]
+        [("alone", [lone_len], 100, dict(kw, cache_len=lone_cache_len or cache_len,
+                                         max_batch=lone_rows or rows))]
         if lone_len else [])
     kernels.reset_launch_counts()
     runs, prefills = {}, 0
@@ -2717,6 +2903,55 @@ def dense_prompts(cfg, lens, seed=0):
     return [rng.integers(1, cfg.vocab, size=(n,)) for n in lens]
 
 
+# -- phase 4 (gemma): head_dim 256 on the serve paths --------------------------
+
+#: The gemma serve runs, per model. The plan sets one pass or split-K from
+#: the engine's rows and its table or stripe width (a sync decodes every row
+#: at the full width), and at head_dim 256 it splits more than at 128: an
+#: engine of 16 rows (gemma2-2b's 4 kv heads) or 64 (gemma3-1b's one) over
+#: (a)'s 36-page tables decodes in one pass (K3), the free rows frozen on
+#: the null page; one row of 4200 tokens (past gemma2-2b's window of 4096)
+#: over 268 pages splits (K4). Dense: 32 rows of 2048-token stripes
+#: (gemma2-2b) or 128 of 1024 (gemma3-1b) in one pass (K7), one row of
+#: 4400 tokens alone on a one-row engine of 4608 splits (K8).
+GEMMA_SERVE = {
+    "gemma2-2b": dict(paged_rows=16, dense_rows=32, dense_cache=2048,
+                      dense_lens=(300, 900, 1500, 1900)),
+    "gemma3-1b": dict(paged_rows=64, dense_rows=128, dense_cache=1024,
+                      dense_lens=(300, 600, 900, 950)),
+}
+GEMMA_B_LEN = 4200
+GEMMA_B_KW = dict(max_batch=1, max_pages_per_seq=268, prompt_buckets=(256, 512, 4224))
+
+
+def serve_gemma(torch, timer, cfg, params):
+    """Full-width ``cfg`` (gemma2-2b or gemma3-1b, head_dim 256) on random
+    seeded bf16 weights: paged runs (a) and (b) (``serve``: K1, K2 on (a)'s
+    extend wave, K3, then K4 over (b)'s one long row, each run's launch
+    counts set to 0 just before and read just after, and one sync of each
+    held to the plain path by ``compare_sync``), then dense
+    (``serve_dense``: K1, K7 over the batch, K8 over the lone row, each held
+    to the plain path), then the fused decode on (a)'s engine at
+    ``steps_per_sync`` 1 and 8 (identical ids, eager and graph tick times,
+    a profiler summary of an eager tick and of an 8-tick replay).
+    Returns the launch counts of the paged and dense runs together and the
+    fused decode's (rates, ticks)."""
+    run = GEMMA_SERVE[cfg.name]
+    counts, _ = serve(torch, cfg, params, rows=run["paged_rows"], b_len=GEMMA_B_LEN,
+                      b_kw=GEMMA_B_KW)
+    dense = serve_dense(torch, cfg, params, kv_layout="dense", rows=run["dense_rows"],
+                        cache_len=run["dense_cache"], prompt_lens=run["dense_lens"],
+                        buckets=(512, 1024, 2048, 4608), lone_len=4400,
+                        lone_cache_len=4608, lone_rows=1, want=("K1", "K7", "K8"))
+    for key, n in dense.items():
+        counts[key] += n
+    prompts, _ = serve_prompts(cfg)
+    fused = fused_phase(torch, timer, cfg, params, label=f"{cfg.name} paged",
+                        engine_kw=dict(SERVE_PAGED_KW, max_batch=run["paged_rows"],
+                                       device="cuda"), prompts=prompts, profile=True)
+    return counts, fused
+
+
 # -- phase 5: train llama3-8b widths ------------------------------------------
 
 def train(torch, cfg_full, seed=0):
@@ -2895,9 +3130,10 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "plan", "extend"), default="all",
+    parser.add_argument("--phase", choices=("all", "plan", "extend", "gemma"), default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
-                             "and plan part (d) alone; neither prints a result line")
+                             "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
+                             "the gemma serve runs alone; none prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -2911,7 +3147,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import hymba_1_5b, llama3_8b, mamba2_1_3b
+    from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -2946,6 +3182,21 @@ def main() -> int:
         if failures:
             raise AssertionError("plan part (d): " + "; ".join(failures))
         return 0
+    gemma = (gemma2_2b.CONFIG, gemma3_1b.CONFIG)
+    if args.phase == "gemma":
+        log("== kernels at head_dim 256 (gemma2-2b and gemma3-1b widths, bf16)")
+        log("head_dim 256 kernels: " + json.dumps(check_gemma_kernels(torch, timer)))
+        for cfg in gemma:
+            log(f"== serve {cfg.name} (head_dim 256: paged, dense, fused decode; bf16, "
+                "random weights)")
+            params = init_params(torch, cfg)
+            counts, _ = serve_gemma(torch, timer, cfg, params)
+            log(f"serve {cfg.name}: launch counts {json.dumps(counts)}")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"total {time.perf_counter() - t_start:.1f} s (gemma phase only: no result line)")
+        return 0
     log("== kernels (bf16, Hq 32, Hkv 8, D 128, page 16)")
     results = {}
     check_kernels(torch, timer, results)
@@ -2953,6 +3204,8 @@ def main() -> int:
     log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32 in 3xTF32)")
     check_dense_decode(torch, timer, results)
     check_ssd(torch, timer, results)
+    log("== kernels at head_dim 256 (gemma2-2b and gemma3-1b widths, bf16)")
+    d256 = check_gemma_kernels(torch, timer)
     log("== plan: split-K, mapping, host-link and extend-route models against the card")
     plan_phase(torch, timer)
     del timer
@@ -3022,7 +3275,19 @@ def main() -> int:
         engine_kw=dict(max_batch=4, cache_len=4096, prompt_buckets=(512, 1024, 2048, 4096),
                        device="cuda"),
         prompts=dense_prompts(mamba2_1_3b.CONFIG, mamba_lens))
-    del params, timer
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cfg in gemma:
+        log(f"== serve {cfg.name} (head_dim 256: paged, dense, fused decode; bf16, random "
+            "weights)")
+        params = init_params(torch, cfg)
+        gemma_counts, fused[f"{cfg.name} paged"] = serve_gemma(torch, timer, cfg, params)
+        paths.append(gemma_counts)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    del timer
     log("fused decode summary (decode tok/s; host clock for the engine runs, CUDA events "
         f"for the ticks; card: {smi_line()}): " + json.dumps({
             path: {"graphs_tok_s": {str(n): round(r, 1) for n, r in rates.items()},
@@ -3047,6 +3312,7 @@ def main() -> int:
              replaces=spec["replaces"], launches=counts[spec["counter"]], **results[key])
         for key, spec in KERNELS.items()
     ]}
+    log(f"head_dim 256 kernels (card: {smi_line()}): {json.dumps(d256)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi_line()}")
     log(json.dumps(line))

@@ -460,7 +460,7 @@ def estimate_attention_plan(plan, shape, *, topo: Topology, dtype_bytes: int = 2
             batch=b, num_q_heads=hq, num_kv_heads=hkv, prefix_len=skv - sq,
             tail_len=sq, page_size=plan.page_size, head_dim=hd,
             dtype_bytes=dtype_bytes, topo=topo, gather=plan.impl == plan_lib.GATHER)
-    block_m, block_n = fa.tiles(dtype_bytes)
+    block_m, block_n = fa.tiles(dtype_bytes, hd)
     grid = swizzle.AttentionGrid(batch=b, num_q_heads=hq,
                                  blocks_per_head=-(-skv // block_m),
                                  group_size=max(1, hq // max(hkv, 1)))

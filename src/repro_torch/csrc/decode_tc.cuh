@@ -13,7 +13,13 @@
 // first key at position first + t * BT. Four consumer warps hold q's G
 // rows, zero-padded to 16 (two m16 tiles for G > 16, each taken by two of
 // the warps), as mma.sync m16n8k16 A fragments for the whole walk. The
-// warps of one m16 tile take whole tiles in turn. Per tile: S = q K^T with K
+// warps of one m16 tile take whole tiles in turn. At head_dim 256 the warps
+// of one m16 tile pair up on each tile instead, each pair's two warps
+// computing the same S and softmax and each keeping half of O's columns:
+// q's fragments (64 registers), O (128 for all 256 columns) and S (32) would
+// pass the 255 a thread may have, and the ring's 128 KB holds only two
+// stages of 64 KB there, so two tiles are in the products at once, not
+// four. Per tile: S = q K^T with K
 // fed by ldmatrix, an online softmax in S's registers (exp2, scale * log2(e)
 // folded into one multiply; positions outside [lo, hi) masked to P exactly
 // 0, so stale or repeated rows never count), then O += P V with P rounded
@@ -49,6 +55,14 @@ namespace dtc {
 
 constexpr int BT = 64;               // rows (keys) of a K / V tile
 constexpr int CONSUMER_WARPS = 4;
+
+// Warps that split O's columns on one tile at head_dim D (the header
+// comment says why 256 needs two).
+template <int D>
+__host__ __device__ constexpr int col_splits() {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  return D == 256 ? 2 : 1;
+}
 constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);   // + one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -59,7 +73,7 @@ constexpr float LN2 = 0.6931471805599453f;
 // states for the merge.
 template <int D>
 struct Ring {
-  static constexpr int STAGES = D == 64 ? 8 : 4;   // 128 KB in flight either way
+  static constexpr int STAGES = 8 * 64 / D;   // 128 KB in flight at every D
   static constexpr int TILE = BT * D * 2;
   static constexpr int K = 0;
   static constexpr int V = STAGES * TILE;
@@ -107,14 +121,14 @@ __device__ __forceinline__ float* q_scales(uint8_t* smem) {
 
 // Thread 0 sets up `stages` full and empty barriers: a stage is full after
 // `arrivals` arrivals (each with its expect-tx) and their bytes, empty
-// after one arrival of a warp of each of the MT m16 tiles. Every thread of
-// the block calls this (it ends in a block-wide barrier).
+// after `readers` arrivals (one from each warp that reads the stage). Every
+// thread of the block calls this (it ends in a block-wide barrier).
 __device__ __forceinline__ void bars_init(uint64_t* full, uint64_t* empty, int stages,
-                                          int arrivals, int mt) {
+                                          int arrivals, int readers) {
   if (threadIdx.x == 0) {
     for (int st = 0; st < stages; ++st) {
       hopper::mbar_init(&full[st], arrivals);
-      hopper::mbar_init(&empty[st], mt);
+      hopper::mbar_init(&empty[st], readers);
     }
     hopper::fence_barrier_init();
   }
@@ -122,10 +136,12 @@ __device__ __forceinline__ void bars_init(uint64_t* full, uint64_t* empty, int s
 }
 
 // The bf16 ring's barriers: a stage is full after the producer's one
-// expect-tx arrival and its bytes.
+// expect-tx arrival and its bytes, empty after the arrivals of the warps
+// that read it, col_splits of each of the MT m16 tiles.
 template <int D, int MT>
 __device__ __forceinline__ void ring_init(uint8_t* smem) {
-  bars_init(full_bars<Ring<D>>(smem), empty_bars<Ring<D>>(smem), Ring<D>::STAGES, 1, MT);
+  bars_init(full_bars<Ring<D>>(smem), empty_bars<Ring<D>>(smem), Ring<D>::STAGES, 1,
+            MT * col_splits<D>());
 }
 
 // d = a * b + c on bf16 pairs, rounded to nearest.
@@ -257,7 +273,8 @@ struct CodeTiles {
 // The consumer warps' whole part for the cell (s, h, b) = blockIdx: walk
 // `ntiles` tiles whose first key is at position `first`, keeping positions
 // in [lo, hi), then merge and write. MT m16 tiles of group rows
-// (G <= 16 * MT). SPLIT = false writes the normalised row to `out`;
+// (G <= 16 * MT), CS warps on each tile of an m16 tile (col_splits<D>),
+// each keeping D / CS of O's columns. SPLIT = false writes the normalised row to `out`;
 // SPLIT = true writes (acc, m, l) of split s (of gridDim.x). `tiles`
 // (RingTiles or CodeTiles) gives each tile's bf16 K and V in shared memory
 // and, when SCALED, the K and V scales of its 8-key groups; `smem` is the
@@ -273,8 +290,11 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
                                               float scale, float softcap) {
   using namespace hopper;
   constexpr int STAGES = Tiles::STAGES;
-  constexpr int KS = CONSUMER_WARPS / MT;   // warps per m16 tile, taking tiles in turn
+  constexpr int CS = col_splits<D>();       // warps on one tile, by O's columns
+  constexpr int DC = D / CS;                // O's columns a warp keeps
+  constexpr int KS = CONSUMER_WARPS / (MT * CS);   // tiles in the products at once
   constexpr int ROWS = 16 * MT;             // group rows, padded
+  static_assert(!Tiles::SCALED || CS == 1, "a quantized ring is read by one warp a tile");
   // Each stage then feeds one warp of each m16 tile, which waits on every
   // phase of it in turn: a parity wait never meets a phase two ahead.
   static_assert(STAGES % KS == 0, "a stage must belong to one warp per m16 tile");
@@ -285,12 +305,13 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // Consumer warp (mt, ks): group rows 16 mt .. + 15 over tiles ks, ks + KS,
-  // ks + 2 KS, ...: KS tiles are in the products at once. This thread holds
-  // rows r0 = 16 mt + lane / 4 and r0 + 8, and of every 8 keys (or columns)
-  // the two at 2 (lane % 4).
+  // Consumer warp (mt, cs, ks): group rows 16 mt .. + 15 and O's columns
+  // cs DC .. + DC - 1 over tiles ks, ks + KS, ks + 2 KS, ...: KS tiles are
+  // in the products at once. This thread holds rows r0 = 16 mt + lane / 4
+  // and r0 + 8, and of every 8 keys (or columns) the two at 2 (lane % 4).
   const int mt = warp % MT;
-  const int ks = warp / MT;
+  const int cs = (warp / MT) % CS;
+  const int ks = warp / (MT * CS);
   const int Hq = Hkv * G;
   const int r0 = 16 * mt + (lane >> 2);
   const int c2 = 2 * (lane & 3);
@@ -304,9 +325,9 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
       const int col = kc * 16 + c2 + 8 * (i >> 1);
       qa[kc][i] = row < G ? *reinterpret_cast<const uint32_t*>(qh + (size_t)row * D + col) : 0u;
     }
-  float o[D / 8][4];
+  float o[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   float m[2] = {NEG_INF_F, NEG_INF_F};
@@ -401,20 +422,21 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
 
-    // O += P V: one ldmatrix.x4.trans gives the B fragments of two n8
-    // column tiles (16 columns) over 16 keys.
+    // O += P V over this warp's columns: one ldmatrix.x4.trans gives the B
+    // fragments of two n8 column tiles (16 columns) over 16 keys.
     const uint32_t vbase = tiles.v_tile(t, rel0, live, lane);
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DC / 16; ++dp) {
         const int row = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int seg = 2 * (cs * (DC / 16) + dp) + (lane >> 4);
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vbase + sw128_offset(row, 2 * dp + (lane >> 4), BT));
+        ldmatrix_x4_trans(vb, vbase + sw128_offset(row, seg, BT));
         mma_bf16_16816(o[2 * dp], pa[kk], vb[0], vb[1]);
         mma_bf16_16816(o[2 * dp + 1], pa[kk], vb[2], vb[3]);
         if constexpr (Tiles::SCALED) {
@@ -437,12 +459,13 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
   float* pl = pm + KS * ROWS;
   named_barrier_sync(1, 32 * CONSUMER_WARPS);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(part + ((size_t)ks * ROWS + r0 + 8 * r) * D + 8 * n + c2) =
-          make_float2(o[n][2 * r], o[n][2 * r + 1]);
-  if ((lane & 3) == 0) {
+      *reinterpret_cast<float2*>(part + ((size_t)ks * ROWS + r0 + 8 * r) * D + cs * DC +
+                                 8 * n + c2) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+  // The CS warps of a tile hold the same m and l.
+  if ((lane & 3) == 0 && cs == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       pm[ks * ROWS + r0 + 8 * r] = m[r];

@@ -26,7 +26,8 @@
 //   for all G heads (the paper's head-first co-location, applied to
 //   decode). A producer warp's one thread issues TMA loads of 64-row bf16 K
 //   and V tiles (a 4-D tensor map that takes the view's strides, 128-byte
-//   swizzled) into a ring of 128 KB (8 stages at D 64, 4 at D 128) on
+//   swizzled) into a ring of 128 KB (8 stages at D 64, 4 at D 128, 2 at D
+//   256, where two warps share each tile by O's columns) on
 //   mbarriers, as far ahead as the ring allows. The block reads only the
 //   rows a valid position touches: [max(split start, length - window),
 //   min(split end, length)), in 64-row tiles from its first row, so a
@@ -299,6 +300,8 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths, vo
   if (D == 128 && G <= 32) DD_TC_CASE(128, 2);
   if (D == 64 && G <= 16) DD_TC_CASE(64, 1);
   if (D == 64 && G <= 32) DD_TC_CASE(64, 2);
+  if (D == 256 && G <= 16) DD_TC_CASE(256, 1);
+  if (D == 256 && G <= 32) DD_TC_CASE(256, 2);
 #undef DD_TC_CASE
   return -1;
 }

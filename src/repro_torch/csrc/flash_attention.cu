@@ -25,10 +25,12 @@
 // * fa2_fwd_tc_kernel, bf16 (every main path): warp-specialised. A block
 //   owns 128 query rows of one (b, q head): warpgroups 0 and 1 consume 64
 //   rows each, warpgroup 2 loads. One producer thread issues TMA loads of
-//   the Q tile (once) and of 128-key K and V tiles through a two-stage ring
-//   in shared memory, so the next tile's copy overlaps this tile's
-//   products. The consumers are prefill_tc.cuh's, shared with K2: S = Q K^T
-//   and O += P V as wgmma m64n128k16 from 128-byte-swizzled shared memory,
+//   the Q tile (once) and of 128-key K and V tiles (64-key at head_dim 256,
+//   where shared memory and the consumers' registers run out) through a
+//   two-stage ring in shared memory, so the next tile's copy overlaps this
+//   tile's products. The consumers are prefill_tc.cuh's, shared with K2:
+//   S = Q K^T and O += P V as wgmma (m64n128k16; at head_dim 256 m64n64k16
+//   and m64n256k16) from 128-byte-swizzled shared memory,
 //   the online softmax on S's registers (masks only on tiles that straddle
 //   a boundary), P rounded to bf16 as the A-register fragment of P V,
 //   setmaxnreg 240 / 24. Tensor maps are 3-D (D, S, B * H): a tile past S
@@ -154,14 +156,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 namespace tc {
 
 using ptc::BM;
-using ptc::BN;
 using ptc::STAGES;
 using ptc::THREADS;
 
-// K1's KV tiles: [n_lo, n_hi) of the dense K / V, walked backwards on odd q
-// blocks under sawtooth; masks past kv_len, above the diagonal and before
-// the window. Rows come in as the block's own (q0 + i) and sit at
-// position off + q0 + i.
+// K1's KV tiles of BN keys: [n_lo, n_hi) of the dense K / V, walked
+// backwards on odd q blocks under sawtooth; masks past kv_len, above the
+// diagonal and before the window. Rows come in as the block's own (q0 + i)
+// and sit at position off + q0 + i.
+template <int BN>
 struct DenseWalk {
   int n_lo, n_hi, live, causal, window, off;
   bool reverse;
@@ -194,6 +196,7 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   float softcap, int order, int sawtooth) {
   using namespace hopper;
   using L = ptc::Smem<D>;
+  constexpr int BN = L::BN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = ptc::setup<D>(smem_raw);
 
@@ -206,7 +209,7 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   int n_lo, n_hi;
   kv_tile_range(q0 + off, BM, BN, live, causal, window, n_lo, n_hi);
   const int ntiles = max(0, n_hi - n_lo);
-  const DenseWalk walk{n_lo, n_hi, live, causal, window, off, sawtooth && (mb & 1)};
+  const DenseWalk<BN> walk{n_lo, n_hi, live, causal, window, off, sawtooth && (mb & 1)};
 
   if (threadIdx.x / 128 == 2) {
     // Producer: one thread keeps the ring full.
@@ -248,8 +251,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (blocks <= 0) return 0;
   CUtensorMap tq, tk, tv, to;
   int err = hopper::make_map_3d(&tq, q, D, Sq, B * Hq, BM);
-  if (err == 0) err = hopper::make_map_3d(&tk, k, D, Skv, B * Hkv, BN);
-  if (err == 0) err = hopper::make_map_3d(&tv, v, D, Skv, B * Hkv, BN);
+  if (err == 0) err = hopper::make_map_3d(&tk, k, D, Skv, B * Hkv, ptc::Smem<D>::BN);
+  if (err == 0) err = hopper::make_map_3d(&tv, v, D, Skv, B * Hkv, ptc::Smem<D>::BN);
   if (err == 0) err = hopper::make_map_3d(&to, o, D, Sq, B * Hq, BM / 2);
   if (err != 0) return err;
   const size_t smem = ptc::Smem<D>::bytes;
@@ -282,8 +285,9 @@ extern "C" int fa2_fwd(const void* q, const void* k, const void* v, void* o,
   return -1;
 }
 
-// bfloat16 q / k / v on the tensor cores; 16-byte aligned contiguous rows
-// (the tensor maps' requirement); q_off and kv_lens as for fa2_fwd. Returns
+// bfloat16 q / k / v on the tensor cores, head_dim 64, 128 or 256; 16-byte
+// aligned contiguous rows (the tensor maps' requirement); q_off and kv_lens
+// as for fa2_fwd. Returns
 // a cudaError_t (0 = success), -1 for a head_dim this build does not
 // instantiate, -2 if a tensor map could not be encoded.
 extern "C" int fa2_fwd_tc(const void* q, const void* k, const void* v, void* o,
@@ -303,6 +307,10 @@ extern "C" int fa2_fwd_tc(const void* q, const void* k, const void* v, void* o,
   if (D == 64) {
     if (cap) FA2_TC_CASE(64, true);
     FA2_TC_CASE(64, false);
+  }
+  if (D == 256) {
+    if (cap) FA2_TC_CASE(256, true);
+    FA2_TC_CASE(256, false);
   }
 #undef FA2_TC_CASE
   return -1;

@@ -314,9 +314,44 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+#define RT_D128                                                                        \
+  RT_D64, RT_D8(64), RT_D8(72), RT_D8(80), RT_D8(88), RT_D8(96), RT_D8(104), RT_D8(112),  \
+      RT_D8(120)
+
+// d (64 x 256, f32) += A (64 x 16, bf16, four registers a thread) . B (16 x
+// 256, bf16, MN-major in shared memory: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : RT_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+#undef RT_D128
 #undef RT_D64
 #undef RT_D32
 #undef RT_D8
+
+// The register-A wgmma of P V over a D-column accumulator (D / 2 floats a
+// thread): m64nDk16.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  wgmma_rs_n256_tb(d, a, db);
+}
 
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -326,6 +361,18 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t db) {
   wgmma_rs_n64_tb(d, a, db);
+}
+
+// The shared-memory wgmma of S = Q K^T over a BN-key tile (BN / 2 floats a
+// thread): m64nBNk16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  wgmma_ss_n128(d, da, db, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // -- device: warp-level mma ----------------------------------------------------------

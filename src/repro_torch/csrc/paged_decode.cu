@@ -38,8 +38,9 @@
 //   touches, [max(split start, length - window), min(split end, length)),
 //   from the first one's page start; positions before the range are masked.
 //   The producer warp's lanes each issue one box of a stage (ps 16, D 128:
-//   16 boxes, K and V), each reading its page id from the table one stage
-//   ahead. Every slot of every stage is written on every phase: a last
+//   16 boxes, K and V; two at ps 8, D 256), each reading its page id from
+//   the table one stage ahead. At head_dim 256 the ring holds two stages
+//   and two warps share each tile, by O's columns (decode_tc.cuh). Every slot of every stage is written on every phase: a last
 //   stage with fewer live pages loads the range's last live page again
 //   into its surplus slots, which the consumer masks to P = 0 (an unwritten
 //   slot could hold NaN bits, and 0 * NaN is NaN inside an mma; a page id
@@ -306,28 +307,37 @@ paged_decode_tc_kernel(const __grid_constant__ CUtensorMap tk,
 
   const int lane = threadIdx.x & 31;
   if (threadIdx.x >> 5 == CONSUMER_WARPS) {
-    // Producer: lane (page i, column chunk c, K or V) issues one box of each
-    // stage; lanes past 2 * (D / 64) * per_stage boxes issue none.
-    const int kv = lane & 1;
-    const int c = (lane >> 1) % (D / 64);
-    const int i = (lane >> 1) / (D / 64);
-    const bool issues = i < per_stage;
+    // Producer: box j = lane + 32 r of each stage (r < LANE_BOXES: two at
+    // ps 8, D 256) is (page i, column chunk c, K or V); boxes past
+    // 2 * (D / 64) * per_stage are not issued.
+    constexpr int LANE_BOXES = (2 * (D / 64) * (BT / 8) + 31) / 32;
     const int* table = page_table + (size_t)b * mp;
     uint64_t* full = dtc::full_bars<R>(smem);
     uint64_t* empty = dtc::empty_bars<R>(smem);
-    uint8_t* dst = smem + (kv ? R::V : R::K) + c * BT * 128 + i * ps * 128;
-    const CUtensorMap* map = kv ? &tv : &tk;
     // Page ids one stage ahead; a slot past the range's pages repeats its
     // last live page.
-    int page = issues && ntiles > 0 ? table[min(first_page + i, last_page)] : 0;
+    int page[LANE_BOXES];
+#pragma unroll
+    for (int r = 0; r < LANE_BOXES; ++r) {
+      const int i = ((lane + 32 * r) >> 1) / (D / 64);
+      page[r] = i < per_stage && ntiles > 0 ? table[min(first_page + i, last_page)] : 0;
+    }
     for (int t = 0; t < ntiles; ++t) {
       const int st = t % R::STAGES;
       mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
       if (lane == 0) mbar_expect_tx(&full[st], 2 * R::TILE);
       __syncwarp();
-      if (issues) {
-        tma_load_3d(dst + st * R::TILE, map, &full[st], c * 64, page * ps, h);
-        if (t + 1 < ntiles) page = table[min(first_page + (t + 1) * per_stage + i, last_page)];
+#pragma unroll
+      for (int r = 0; r < LANE_BOXES; ++r) {
+        const int j = lane + 32 * r;
+        const int kv = j & 1;
+        const int c = (j >> 1) % (D / 64);
+        const int i = (j >> 1) / (D / 64);
+        if (i >= per_stage) continue;
+        tma_load_3d(smem + (kv ? R::V : R::K) + c * BT * 128 + i * ps * 128 + st * R::TILE,
+                    kv ? &tv : &tk, &full[st], c * 64, page[r] * ps, h);
+        if (t + 1 < ntiles)
+          page[r] = table[min(first_page + (t + 1) * per_stage + i, last_page)];
       }
     }
     return;
@@ -376,6 +386,8 @@ int dispatch(const void* q, const void* kp, const void* vp, const int* pt,
   if (D == 128 && G <= 32) PD_TC_CASE(128, 2);
   if (D == 64 && G <= 16) PD_TC_CASE(64, 1);
   if (D == 64 && G <= 32) PD_TC_CASE(64, 2);
+  if (D == 256 && G <= 16) PD_TC_CASE(256, 1);
+  if (D == 256 && G <= 32) PD_TC_CASE(256, 2);
 #undef PD_TC_CASE
   return -1;
 }

@@ -23,18 +23,19 @@
 //   the q heads of one GQA group sit on consecutive blocks and stream the
 //   same prefix pages through L2 at the same time, and Q is one 3-D TMA
 //   box (D, St, B * Hq) of 128 rows. The walk is the live prefix in
-//   128-key tiles from the page holding the row tile's first visible
-//   position, then the tail's 128-key tiles up to the last live row;
+//   128-key tiles (64-key at head_dim 256, as K1's, so a 128-row page is
+//   refused there) from the page holding the row tile's first visible
+//   position, then the tail's tiles up to the last live row;
 //   prefix pages wholly before the earliest row's window are skipped, and a
 //   row tile whose rows all lie at or past tail_len walks nothing and
 //   stores zeros. The producer fills a prefix stage page by page: each pool
 //   is one 3-D tensor map (D, P * ps, Hkv) whose box is 64 columns by one
-//   page, 128-byte swizzled; with ps a multiple of 8 that divides 128 a
-//   page's box lands where one 128-row box would put it, so the consumer
-//   reads the stage as K1's. The producer warp's lanes each issue one box
-//   (two at ps 8, D 128), each reading its page id from the table one
-//   stage ahead: one lane issuing every box of a stage made K3 2.15x
-//   slower. A tail stage is one 128-row box per column chunk of the tail
+//   page, 128-byte swizzled; with ps a multiple of 8 that divides the
+//   tile a page's box lands where one tile-high box would put it, so the
+//   consumer reads the stage as K1's. The producer warp's lanes each issue
+//   one box (two at ps 8, D 128 or 256), each reading its page id from the
+//   table one stage ahead: one lane issuing every box of a stage made K3
+//   2.15x slower. A tail stage is one tile-high box per column chunk of the tail
 //   map (D, St, B * Hkv), as K1's K / V.
 //   Traps this design keeps clear of:
 //   - Unfilled stage slots. A slot the producer does not write holds stale
@@ -249,14 +250,14 @@ int dispatch_cc(const void* q, const void* kp, const void* vp, const float* ks_t
 namespace tc {
 
 using ptc::BM;
-using ptc::BN;
 using ptc::STAGES;
 using ptc::THREADS;
 
-// The block's KV tiles: n_pref prefix tiles from column pref0 (a page
-// start), then tail tiles from column tail0. Prefix columns are absolute
-// positions (row i of the tail sits at plen + i); tail columns are
+// The block's KV tiles of BN keys: n_pref prefix tiles from column pref0 (a
+// page start), then tail tiles from column tail0. Prefix columns are
+// absolute positions (row i of the tail sits at plen + i); tail columns are
 // tail-local.
+template <int BN>
 struct PagedWalk {
   int n_pref, pref0, tail0;
   int live;     // live prefix columns: min(prefix_len, mp * ps)
@@ -285,22 +286,25 @@ struct PagedWalk {
 };
 
 // Boxes a producer lane issues for one prefix stage: 2 (K, V) x D / 64
-// column chunks x BN / ps pages over 32 lanes, at most 2 (ps 8, D 128).
+// column chunks x BN / ps pages over 32 lanes, at most 2 (ps 8: D 128 at BN
+// 128, D 256 at BN 64).
 constexpr int MAX_BOXES = 2;
 
 // A block's place in the grid and its walk: blocks run head-first
 // (decode_block, order 0), so the q heads of a GQA group sit on consecutive
 // blocks. The prefix tiles hold pages first_page .. last_page, BN / ps of
 // them a stage (slots past last_page load it again).
+template <int BN>
 struct Block {
   int b, h, hk, q0, first_page, last_page, ntiles;
-  PagedWalk walk;
+  PagedWalk<BN> walk;
 };
 
-__device__ __forceinline__ Block block_of(const int* __restrict__ prefix_len,
+template <int BN>
+__device__ __forceinline__ Block<BN> block_of(const int* __restrict__ prefix_len,
                                           const int* __restrict__ tail_len, int Hq, int Hkv,
                                           int St, int ps, int mp, int window) {
-  Block blk;
+  Block<BN> blk;
   int mb;
   decode_block((St + BM - 1) / BM, Hq, 0, blk.b, blk.h, mb);
   blk.hk = blk.h / (Hq / Hkv);
@@ -322,17 +326,17 @@ __device__ __forceinline__ Block block_of(const int* __restrict__ prefix_len,
       blk.last_page = (live - 1) / ps;
       n_pref = (blk.last_page - blk.first_page + per_stage) / per_stage;
     }
-    // Tail: 128-key tiles from the first one row q0 sees to row q_hi's.
+    // Tail: BN-key tiles from the first one row q0 sees to row q_hi's.
     tail_lo = window > 0 ? max(0, blk.q0 - window + 1) / BN : 0;
     n_tail = q_hi / BN + 1 - tail_lo;
   }
-  blk.walk = PagedWalk{n_pref, blk.first_page * ps, tail_lo * BN, live, plen, tlen, window};
+  blk.walk = PagedWalk<BN>{n_pref, blk.first_page * ps, tail_lo * BN, live, plen, tlen, window};
   blk.ntiles = n_pref + n_tail;
   return blk;
 }
 
 // Lane 0 of the producer warp: the Q tile, and the K / V boxes of tail tile
-// t (one 128-row box per column chunk) into stage st.
+// t (one BN-row box per column chunk) into stage st.
 template <int D>
 __device__ __forceinline__ void load_tail(uint8_t* smem, uint64_t* bar, const CUtensorMap* ttk,
                                           const CUtensorMap* ttv, int row, int plane, int st) {
@@ -340,8 +344,10 @@ __device__ __forceinline__ void load_tail(uint8_t* smem, uint64_t* bar, const CU
   hopper::mbar_expect_tx(bar, 2 * L::TILE);
 #pragma unroll
   for (int c = 0; c < D / 64; ++c) {
-    hopper::tma_load_3d(smem + L::K + st * L::TILE + c * BN * 128, ttk, bar, c * 64, row, plane);
-    hopper::tma_load_3d(smem + L::V + st * L::TILE + c * BN * 128, ttv, bar, c * 64, row, plane);
+    hopper::tma_load_3d(smem + L::K + st * L::TILE + c * L::BN * 128, ttk, bar, c * 64, row,
+                        plane);
+    hopper::tma_load_3d(smem + L::V + st * L::TILE + c * L::BN * 128, ttv, bar, c * 64, row,
+                        plane);
   }
 }
 
@@ -368,9 +374,10 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         int mp, float scale, int window, float softcap) {
   using namespace hopper;
   using L = ptc::Smem<D>;
+  constexpr int BN = L::BN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = ptc::setup<D>(smem_raw);
-  const Block blk = block_of(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
+  const Block<BN> blk = block_of<BN>(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
   const int n_pref = blk.walk.n_pref;
   const int per_stage = BN / ps;
 
@@ -426,11 +433,13 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // -- K2q: quantized prefix codes on the tensor cores -----------------------------
 
 // The code ring of paged_prefill_q_tc_kernel, after K2's shared memory
-// (ptc::Smem<D>): CSTAGES stages of K and V codes (BN rows of D bytes each,
+// (ptc::Smem<D>): CSTAGES stages of K and V codes (QBN rows of D bytes each,
 // swizzled over the row by TMA), each stage's K and V scales by page slot,
-// then the ring's full barriers. At D 128 that is 226.3 KB.
+// then the ring's full barriers. At D 128 that is 226.3 KB; K2q takes D 64
+// and 128 only, where K2's tile is QBN keys.
+constexpr int QBN = 128;
 constexpr int CSTAGES = 2;
-constexpr int MAX_SLOTS = BN / 8;         // pages of a stage at ps 8
+constexpr int MAX_SLOTS = QBN / 8;        // pages of a stage at ps 8
 constexpr int CONVERTERS = 128;           // the producer warpgroup
 constexpr int CONVERT_BAR = 3;            // named barrier (1, 2: the consumers' epilogue)
 constexpr int Q_CONSUMER_REGS = 208;      // 2 x 208 + 88 = 3 x 168
@@ -438,7 +447,8 @@ constexpr int Q_PRODUCER_REGS = 88;
 
 template <int D>
 struct QSmem {
-  static constexpr int CTILE = BN * D;
+  static_assert(ptc::Smem<D>::BN == QBN, "K2q takes head_dim 64 and 128");
+  static constexpr int CTILE = QBN * D;
   static constexpr int K = (ptc::Smem<D>::BAR + 8 * (2 * STAGES + 1) + 1023) / 1024 * 1024;
   static constexpr int V = K + CSTAGES * CTILE;
   static constexpr int SCALES = V + CSTAGES * CTILE;   // float [CSTAGES][K, V][MAX_SLOTS]
@@ -520,9 +530,9 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   using QL = QSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = ptc::setup<D>(smem_raw);
-  const Block blk = block_of(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
+  const Block<QBN> blk = block_of<QBN>(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
   const int n_pref = blk.walk.n_pref;
-  const int per_stage = BN / ps;
+  const int per_stage = QBN / ps;
   uint64_t* cfull = reinterpret_cast<uint64_t*>(smem + QL::BAR);
   float* scales = reinterpret_cast<float*>(smem + QL::SCALES);
   if (threadIdx.x == 0) {
@@ -584,8 +594,8 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int m = (ct >> 3) % CH;
   const int row0 = (ct >> 3) / CH * 8 + (ct & 7);
   const uint32_t code0 = code_offset<D>(row0, m);
-  const uint32_t lo0 = sw128_offset(row0, 2 * m, BN);
-  const uint32_t hi0 = sw128_offset(row0, 2 * m + 1, BN);
+  const uint32_t lo0 = sw128_offset(row0, 2 * m, QBN);
+  const uint32_t hi0 = sw128_offset(row0, 2 * m + 1, QBN);
   const int ps_shift = __ffs(ps) - 1;
   for (int t = 0; t < n_pref; ++t) {
     const int cs = t % CSTAGES;
@@ -636,8 +646,8 @@ int tail_maps(CUtensorMap* tq, CUtensorMap* ttk, CUtensorMap* ttv, CUtensorMap* 
               const void* q, const void* kt, const void* vt, void* o, int B, int Hq, int Hkv,
               int St) {
   int err = hopper::make_map_3d(tq, q, D, St, B * Hq, BM);
-  if (err == 0) err = hopper::make_map_3d(ttk, kt, D, St, B * Hkv, BN);
-  if (err == 0) err = hopper::make_map_3d(ttv, vt, D, St, B * Hkv, BN);
+  if (err == 0) err = hopper::make_map_3d(ttk, kt, D, St, B * Hkv, ptc::Smem<D>::BN);
+  if (err == 0) err = hopper::make_map_3d(ttv, vt, D, St, B * Hkv, ptc::Smem<D>::BN);
   if (err == 0) err = hopper::make_map_3d(to, o, D, St, B * Hq, BM / 2);
   return err;
 }
@@ -730,10 +740,11 @@ extern "C" int paged_prefill_q(const void* q, const void* k_codes, const void* v
 #undef PQ_CASE
 }
 
-// bfloat16 q / pools / tail on the tensor cores; contiguous, 16-byte aligned
-// tensors (the tensor maps' requirement) and a page size that is a multiple
-// of 8 dividing 128. Returns a cudaError_t (0 = success), -1 for a head_dim
-// or page size this build does not take, -2 if a tensor map could not be
+// bfloat16 q / pools / tail on the tensor cores, head_dim 64, 128 or 256;
+// contiguous, 16-byte aligned tensors (the tensor maps' requirement) and a
+// page size that is a multiple of 8 dividing the stage's keys (128; 64 at
+// head_dim 256). Returns a cudaError_t (0 = success), -1 for a head_dim or
+// page size this build does not take, -2 if a tensor map could not be
 // encoded.
 extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* v_pages,
                                 const int* page_table, const void* k_tail,
@@ -741,7 +752,7 @@ extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* 
                                 const int* tail_len, void* o, int B, int Hq, int Hkv,
                                 int St, int P, int ps, int mp, int D, float scale,
                                 int window, float softcap, void* stream) {
-  if (ps <= 0 || ps % 8 || tc::BN % ps) return -1;
+  if (ps <= 0 || ps % 8 || (D == 256 ? ptc::Smem<256>::BN : tc::QBN) % ps) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PP_TC_CASE(DIM, CAP)                                                               \
   return tc::launch<DIM, CAP>(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, \
@@ -755,6 +766,10 @@ extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* 
   if (D == 64) {
     if (cap) PP_TC_CASE(64, true);
     PP_TC_CASE(64, false);
+  }
+  if (D == 256) {
+    if (cap) PP_TC_CASE(256, true);
+    PP_TC_CASE(256, false);
   }
 #undef PP_TC_CASE
   return -1;
@@ -770,7 +785,7 @@ extern "C" int paged_prefill_q_tc(const void* q, const void* k_codes, const void
                                   const int* tail_len, void* o, int B, int Hq, int Hkv, int St,
                                   int P, int ps, int mp, int D, int fp8, float scale,
                                   int window, float softcap, void* stream) {
-  if (ps <= 0 || ps % 8 || tc::BN % ps) return -1;
+  if (ps <= 0 || ps % 8 || tc::QBN % ps) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PQ_TC_CASE(DIM, CAP, CODE)                                                          \
   return tc::launch_q<DIM, CAP, tc::CODE>(q, k_codes, v_codes, k_scale_tab, v_scale_tab,    \

@@ -8,22 +8,30 @@
 //
 // A block of THREADS threads owns BM = 128 query rows of one (b, q head):
 // warpgroups 0 and 1 consume 64 rows each, warpgroup 2 loads. The producer
-// fills the Q tile once (qbar) and 128-key K and V tiles through a
+// fills the Q tile once (qbar) and BN-key K and V tiles through a
 // two-stage ring (each stage a "full" mbarrier armed with 2 * TILE bytes
 // and an "empty" one the eight consumer warps arrive on). Tiles are
-// 128-byte swizzled: D / 64 column chunks of 128 rows of 128 bytes, each
+// 128-byte swizzled: D / 64 column chunks of rows of 128 bytes, each
 // chunk 1024-byte aligned. Per tile the consumers run S = Q K^T as wgmma
-// m64n128k16 (both operands K-major in shared memory), the online softmax
+// m64nBNk16 (both operands K-major in shared memory), the online softmax
 // in S's registers (each row over the four threads of a quad, ex2.approx
 // with scale * log2(e) folded into one multiply, softcap first), P rounded
-// to bf16 in place as the A-register fragment of O += P V (wgmma with V
-// MN-major, the transpose bit set). Masks run only on tiles the walk calls
-// an edge. setmaxnreg gives the consumers 240 registers and the producer
-// warpgroup 24 (K2q: 208 and 88, for its widening). O leaves
+// to bf16 in place as the A-register fragment of O += P V (wgmma m64nDk16
+// with V MN-major, the transpose bit set). Masks run only on tiles the walk
+// calls an edge. setmaxnreg gives the consumers 240 registers and the
+// producer warpgroup 24 (K2q: 208 and 88, for its widening). O leaves
 // through shared memory by a TMA store that drops the rows past the tensor
 // map's extent.
 //
-// A Walk names the block's KV tiles in order:
+// BN is 128 keys at D 64 and 128, and 64 at D 256, where two limits meet.
+// Shared memory: Q (64 KB at D 256) and two stages of K and V at BN 128
+// (4 x 64 KB) would need 320 KB of the 227 KB a block may have; at BN 64
+// they take 192 KB. Registers: a consumer thread's O is D / 2 floats (128 at
+// D 256), S BN / 2 and P BN / 4: at BN 128 the three take 224 of the 240
+// that setmaxnreg gives before any address, row state or mask, at BN 64
+// they take 176.
+//
+// A Walk (templated on BN) names the block's KV tiles in order:
 //   int col0(int t)                   the column of tile t's first key;
 //   bool edge(int t, int c0, int lo)  whether any (row, key) pair of tile t
 //                                     and rows lo .. lo + 63 is masked
@@ -40,17 +48,26 @@ namespace rt {
 namespace ptc {
 
 constexpr int BM = 128;        // q rows of a block: two consumer warpgroups of 64
-constexpr int BN = 128;        // keys of a K / V tile
 constexpr int STAGES = 2;      // K / V tiles in flight
 constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, warpgroup 2 loads
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Keys of a K / V tile at head dim D (the header comment says why 256
+// differs).
+template <int D>
+__host__ __device__ constexpr int kv_tile() {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  return D == 256 ? 64 : 128;
+}
+
 // Dynamic shared memory, in bytes from a 1024-byte aligned base: Q, then
-// the K and V stages, each a tile of D / 64 swizzled column chunks.
+// the K and V stages, each a tile of D / 64 swizzled column chunks of BN
+// rows.
 template <int D>
 struct Smem {
+  static constexpr int BN = kv_tile<D>();
   static constexpr int TILE = BN * D * 2;
   static constexpr int Q = 0;
   static constexpr int K = Q + BM * D * 2;
@@ -95,7 +112,7 @@ __device__ __forceinline__ uint8_t* setup(uint8_t* smem_raw) {
 
 // S's registers scaled to log2 units in place (softcap first), masked to
 // exactly NEG_INF_F where walk.ok says no under MASK, each row's max into mx.
-template <bool SOFTCAP, bool MASK, class Walk>
+template <bool SOFTCAP, bool MASK, int BN, class Walk>
 __device__ __forceinline__ void scores(float (&s)[BN / 2], float (&mx)[2], const Walk& walk,
                                        int t, int c0, int row0, int lane, float scale,
                                        float softcap) {
@@ -125,6 +142,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
                                         int Sq, float scale, float softcap) {
   using namespace hopper;
   using L = Smem<D>;
+  constexpr int BN = L::BN;
   uint64_t* full = full_bars<D>(smem);
   uint64_t* empty = empty_bars<D>(smem);
   // Warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows row0 and
@@ -159,8 +177,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
       const uint32_t col = (kc % 4) * 32;
-      wgmma_ss_n128(s, desc_sw128(qaddr + (kc / 4) * BM * 128 + col, 16, 1024),
-                    desc_sw128(kaddr + (kc / 4) * BN * 128 + col, 16, 1024), kc > 0);
+      wgmma_ss(s, desc_sw128(qaddr + (kc / 4) * BM * 128 + col, 16, 1024),
+               desc_sw128(kaddr + (kc / 4) * BN * 128 + col, 16, 1024), kc > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -173,9 +191,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
     const bool edge = walk.edge(t, c0, row_lo);
     float mx[2] = {NEG_INF_F, NEG_INF_F};
     if (edge)
-      scores<SOFTCAP, true>(s, mx, walk, t, c0, row0, lane, scale, softcap);
+      scores<SOFTCAP, true, BN>(s, mx, walk, t, c0, row0, lane, scale, softcap);
     else
-      scores<SOFTCAP, false>(s, mx, walk, t, c0, row0, lane, scale, softcap);
+      scores<SOFTCAP, false, BN>(s, mx, walk, t, c0, row0, lane, scale, softcap);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -211,7 +229,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: BN / 16 steps of 16 keys (16 rows of 128 bytes each).
+    // O += P V: BN / 16 steps of 16 keys (16 rows of 128 bytes each), each
+    // one wgmma over all D columns.
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll

@@ -36,7 +36,10 @@ import torch
 from repro_torch.cache.layout import decode_split_ranges
 from repro_torch.kernels import build, decode_common
 
+#: Head dims of the float32 kernels.
 HEAD_DIMS = (64, 128)
+#: Head dims of the bf16 tensor-core kernels: 256 too (the gemma family).
+TC_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 32
 #: Stripe rows staged per step (DC_BT in csrc/decode_common.cuh, tc::BT in
 #: csrc/dense_decode.cu): the block the plan's chunk rule tiles by.
@@ -126,8 +129,9 @@ def _check_inputs(q, k_cache, v_cache, lengths, chunk):
         raise ValueError("cache / lengths shapes do not match q")
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"GQA group Hq/Hkv={hq}/{hkv} unsupported")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    head_dims = TC_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in {head_dims} for {q.dtype} on the card")
     if smax % chunk:
         raise ValueError(f"cache length {smax} is not a multiple of chunk {chunk} (ops pads)")
     if not q.is_contiguous():

@@ -49,14 +49,19 @@ BLOCK_FIRST = "block_first"
 
 #: Tile sizes of the float32 kernel (PF_BM / PF_BN in csrc/prefill_tile.cuh);
 #: ``ops.flash_attention`` pads sequences to them. The bf16 kernel tiles by
-#: 128 (ptc::BM / ptc::BN in csrc/prefill_tc.cuh) and takes ragged lengths as
-#: they are.
+#: 128 (ptc::BM / ptc::Smem<D>::BN in csrc/prefill_tc.cuh; 64 keys at head
+#: dim 256) and takes ragged lengths as they are.
 BLOCK_M = 64
 BLOCK_N = 64
+#: Head dims of the float32 kernel (and of K5 / K6, which share the check).
 HEAD_DIMS = (64, 128)
-#: Tile sizes of the bf16 tensor-core kernel (ptc::BM / ptc::BN).
+#: Head dims of the bf16 tensor-core kernel: 256 too (the gemma family).
+TC_HEAD_DIMS = (64, 128, 256)
+#: Tile sizes of the bf16 tensor-core kernel (ptc::BM / ptc::Smem<D>::BN);
+#: the key tile at head dim 256.
 TC_BLOCK_M = 128
 TC_BLOCK_N = 128
+TC_BLOCK_N_D256 = 64
 
 #: Launches of either CUDA kernel since the last reset; ``launches_tc``
 #: counts those of the bf16 tensor-core kernel alone.
@@ -81,10 +86,13 @@ PAPER_MAPPINGS = {
 }
 
 
-def tiles(dtype_bytes: int) -> Tuple[int, int]:
-    """K1's fixed (block_m, block_n) for an element size: 128 x 128 for
-    bf16 (the tensor-core kernel), 64 x 64 for float32."""
-    return (TC_BLOCK_M, TC_BLOCK_N) if dtype_bytes == 2 else (BLOCK_M, BLOCK_N)
+def tiles(dtype_bytes: int, head_dim: int = 128) -> Tuple[int, int]:
+    """K1's fixed (block_m, block_n) for an element size and head dim: 128
+    x 128 for bf16 (the tensor-core kernel; 128 x 64 at head dim 256), 64 x
+    64 for float32."""
+    if dtype_bytes != 2:
+        return BLOCK_M, BLOCK_N
+    return TC_BLOCK_M, TC_BLOCK_N_D256 if head_dim == 256 else TC_BLOCK_N
 
 
 def hbm_block_fetches(*, batch: int, num_q_heads: int, num_kv_heads: int,
@@ -105,7 +113,7 @@ def hbm_block_fetches(*, batch: int, num_q_heads: int, num_kv_heads: int,
         raise ValueError(f"unknown order {mapping.order!r}")
     if mapping.traversal not in swizzle.TRAVERSALS:
         raise ValueError(f"unknown traversal {mapping.traversal!r}")
-    bm, bn = tiles(dtype_bytes)
+    bm, bn = tiles(dtype_bytes, head_dim)
     row = head_dim * dtype_bytes
     kv_rows = 0
     for q0 in range(0, seq_q, bm):
@@ -189,7 +197,9 @@ def _kernel(dtype):
     return fn
 
 
-def _check_inputs(q, k, v):
+def _check_inputs(q, k, v, head_dims=None):
+    """Shapes, types and layout a K1 / K5 / K6 launch takes; ``head_dims``
+    (default: K1's for q's dtype) the head dims its kernel is built for."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -199,8 +209,10 @@ def _check_inputs(q, k, v):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if hq % k.shape[1]:
         raise ValueError(f"Hq={hq} not divisible by Hkv={k.shape[1]}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if head_dims is None:
+        head_dims = TC_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in {head_dims} for {q.dtype} on the card")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
 

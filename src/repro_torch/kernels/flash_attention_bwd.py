@@ -29,6 +29,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     BLOCK_FIRST,
+    HEAD_DIMS,
     HEAD_FIRST,
     MappingConfig,
     _check_inputs,
@@ -100,7 +101,8 @@ def _kernel(which: str, dtype):
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta, mapping):
-    _check_inputs(q, k, v)
+    # Head dim 256 (gemma training) waits for K5 / K6 there (ROADMAP.md).
+    _check_inputs(q, k, v, HEAD_DIMS)
     # Both routes read rows 16 bytes at a time, and TMA needs 16-byte
     # aligned tensors; a tensor map has no empty dimension.
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):

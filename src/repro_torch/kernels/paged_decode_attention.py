@@ -38,7 +38,10 @@ from repro_torch.cache import quant
 from repro_torch.cache.layout import decode_split_ranges
 from repro_torch.kernels import build, decode_common
 
+#: Head dims of the float32 kernels and of the quantized pools' kernels.
 HEAD_DIMS = (64, 128)
+#: Head dims of the bf16 tensor-core kernels over a bf16 pool: 256 too.
+TC_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 32
 #: Positions staged per step (DC_BT in csrc/decode_common.cuh, dtc::BT in
 #: csrc/decode_tc.cuh).
@@ -138,7 +141,7 @@ def _kernel(route, split: bool):
 
 
 def _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab=None,
-                  v_scale_tab=None, tensor_cores=False):
+                  v_scale_tab=None, tensor_cores=False, head_dims=HEAD_DIMS):
     dev = q.device
     tensors = (("k_pages", k_pages), ("v_pages", v_pages), ("page_table", page_table),
                ("lengths", lengths))
@@ -167,8 +170,9 @@ def _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab=None,
         raise ValueError("pool shapes do not match q")
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"GQA group Hq/Hkv={hq}/{hkv} unsupported")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in {head_dims} for this pool and q dtype on "
+                         "the card")
     if ps > STAGE or STAGE % ps:
         raise ValueError(f"page_size {ps} must divide {STAGE}")
     if tensor_cores and ps % TC_PAGE_MULTIPLE:
@@ -237,7 +241,8 @@ def _launch(route, q, k_pages, v_pages, page_table, lengths, *, softcap, scale, 
     counting it."""
     quantized = route in _INTS
     tc = route in (torch.bfloat16, "q_tc")
-    _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab, v_scale_tab, tc)
+    _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab, v_scale_tab, tc,
+                  TC_HEAD_DIMS if route == torch.bfloat16 else HEAD_DIMS)
     build.refuse_grad("paged_flash_decode", q, k_pages, v_pages)
     b, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape

@@ -45,12 +45,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
+#: Head dims of the float32 kernel and of the quantized pools' kernels.
 HEAD_DIMS = (64, 128)
-#: Keys of a tensor-core stage (ptc::BN in csrc/prefill_tc.cuh): a bf16 page
-#: size must divide it and be a multiple of TC_PAGE_MULTIPLE, the rows of
-#: one 128-byte swizzle period, so a page's box lands where one 128-row box
-#: would put it.
+#: Head dims of the bf16 tensor-core kernel over a bf16 pool: 256 too.
+TC_HEAD_DIMS = (64, 128, 256)
+#: Keys of a tensor-core stage (ptc::Smem<D>::BN in csrc/prefill_tc.cuh; 64
+#: at head dim 256): a bf16 page size must divide it and be a multiple of
+#: TC_PAGE_MULTIPLE, the rows of one 128-byte swizzle period, so a page's
+#: box lands where one stage-high box would put it.
 TC_STAGE = 128
+TC_STAGE_D256 = 64
 TC_PAGE_MULTIPLE = 8
 
 #: Launches over an unquantized pool since the last reset, of either CUDA
@@ -142,7 +146,7 @@ def _kernel(route):
 
 def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
                   prefix_len, tail_len, k_scale_tab=None, v_scale_tab=None,
-                  tensor_cores=False):
+                  tensor_cores=False, head_dims=HEAD_DIMS):
     dev = q.device
     quantized = k_scale_tab is not None
     tensors = (("k_pages", k_pages), ("v_pages", v_pages),
@@ -178,8 +182,9 @@ def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
         raise ValueError("pool shapes do not match q")
     if hq % hkv:
         raise ValueError(f"Hq={hq} not divisible by Hkv={hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in {head_dims} for this pool and q dtype on "
+                         "the card")
     if page_table.shape[0] != b or prefix_len.shape != (b,) or tail_len.shape != (b,):
         raise ValueError("page_table / prefix_len / tail_len batch does not match q")
     for name, t in (("q", q),) + tensors:
@@ -191,10 +196,11 @@ def _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
         raise ValueError("q, the pools and the tail must start 16-byte aligned")
     if tensor_cores:
         ps = k_pages.shape[2]
-        if ps % TC_PAGE_MULTIPLE or TC_STAGE % ps:
+        stage = TC_STAGE_D256 if d == 256 else TC_STAGE
+        if ps % TC_PAGE_MULTIPLE or stage % ps:
             raise ValueError(f"page_size {ps} of bf16 q must be a multiple of "
-                             f"{TC_PAGE_MULTIPLE} that divides {TC_STAGE} (the tensor-core "
-                             "kernels' swizzled stages)")
+                             f"{TC_PAGE_MULTIPLE} that divides {stage} (the tensor-core "
+                             f"kernels' swizzled stages at head_dim {d})")
         if st == 0 or k_pages.shape[1] == 0:   # a tensor map has no empty dimension
             raise ValueError("bf16 paged_flash_prefill takes at least one tail row and "
                              "one page")
@@ -249,7 +255,8 @@ def _launch(route, q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, 
     quantized = route in _FLAGS
     tc = route in (torch.bfloat16, "q_tc")
     _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
-                  prefix_len, tail_len, k_scale_tab, v_scale_tab, tc)
+                  prefix_len, tail_len, k_scale_tab, v_scale_tab, tc,
+                  TC_HEAD_DIMS if route == torch.bfloat16 else HEAD_DIMS)
     build.refuse_grad("paged_flash_prefill", q, k_pages, v_pages, k_tail, v_tail)
     b, hq, st, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape

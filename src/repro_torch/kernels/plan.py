@@ -152,7 +152,7 @@ def _score_mapping(batch: int, num_q_heads: int, num_kv_heads: int, seq_q: int,
     causal = not decode
     if window is not None and window > 0:
         seq_kv = min(seq_kv, -(-(window + (0 if decode else seq_q)) // 128) * 128)
-    block_m, block_n = fa.tiles(dtype_bytes)
+    block_m, block_n = fa.tiles(dtype_bytes, head_dim)
     # perf_model.estimate models a square (seq_kv x seq_kv) launch, as in
     # the JAX package; the exact rectangular traffic enters the tie-break.
     grid = swizzle.AttentionGrid(batch=batch, num_q_heads=num_q_heads,

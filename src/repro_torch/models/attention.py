@@ -8,7 +8,8 @@ quantized page pools (int8 / fp8 codes and per-(kv head, page) scales,
 ``cache.quant``); cross-attention decode (``is_cross``) waits for the VLM
 slice. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
 laid out ``(d_in, d_out)`` as in the JAX package, in any dtype: each is
-cast to the activations' dtype at its product. The page pools and the
+cast to the activations' dtype at its product; a qk-norm model (gemma3)
+adds float32 ``"q_norm"`` / ``"k_norm"`` gains of width ``head_dim``. The page pools and the
 dense stripes are updated in place (JAX returns new arrays); the functions
 still return the cache dict so call sites read the same in both packages.
 """
@@ -33,12 +34,17 @@ def _plan(cfg: ModelConfig, shape, x: torch.Tensor, **kw) -> plan_lib.AttentionP
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions, rope_theta):
-    """x: (B, S, D) -> q (B, H, S, hd), k / v (B, Hkv, S, hd)."""
+    """x: (B, S, D) -> q (B, H, S, hd), k / v (B, Hkv, S, hd). Under qk-norm
+    q and k are RMS-normed over ``hd`` (``(1 + scale)`` gains) before
+    rotary, as the JAX package does, on every path."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd).transpose(1, 2)
     k = (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
     v = (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(p["q_norm"], q)
+        k = layers.rmsnorm(p["k_norm"], k)
     q = layers.apply_rotary(q, positions, rope_theta)
     k = layers.apply_rotary(k, positions, rope_theta)
     return q, k, v

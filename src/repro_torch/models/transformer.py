@@ -3,7 +3,7 @@ final norm, LM head.
 
 Port of ``repro.models.transformer`` for the ``attn``, ``mamba`` and
 ``hybrid`` layer kinds with ``ffn="mlp"`` or ``"none"`` (llama, mamba2,
-hymba): ``forward`` (training, attention stacks only), ``prefill`` and
+hymba, gemma): ``forward`` (training, attention stacks only), ``prefill`` and
 ``decode_step`` over paged pools or dense stripes. A Python loop over
 layers takes the place of the JAX package's scan over periods. Parameters
 are a dict::
@@ -11,6 +11,7 @@ are a dict::
     {"embed": (V, D), "ln_f": (D,), "head": (D, V) unless tied,
      "layers": [{"ln1",
                  "wq", "wk", "wv", "wo"              (attn, hybrid),
+                 "q_norm", "k_norm"                   (qk-norm models: gemma3),
                  "mamba": {...}                       (mamba, hybrid; models/ssm.py),
                  "ln_attn_out", "ln_mamba_out"        (hybrid),
                  "ln2", "w_gate", "w_up", "w_down"    (ffn "mlp")}, ...]}
@@ -69,10 +70,10 @@ def _check_supported(cfg: ModelConfig) -> None:
                 "model families)")
         if spec.kind in _SSM_KINDS and cfg.ssm is None:
             raise ValueError(f"layer kind={spec.kind!r} needs cfg.ssm")
-    if cfg.qk_norm or cfg.num_codebooks != 1:
+    if cfg.num_codebooks != 1:
         raise NotImplementedError(
-            "qk-norm and multi-codebook models are not ported yet (ROADMAP "
-            "Queue A, other model families)")
+            "multi-codebook models are not ported yet (ROADMAP Queue A, other "
+            "model families)")
 
 
 def _param_dtype(cfg: ModelConfig, param_dtype) -> torch.dtype:
@@ -108,6 +109,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
                       wk=normal((d, hkv * hd), 1 / math.sqrt(d)),
                       wv=normal((d, hkv * hd), 1 / math.sqrt(d)),
                       wo=normal((h * hd, d), 1 / math.sqrt(h * hd)))
+            if cfg.qk_norm:
+                lp.update(q_norm=zeros(hd), k_norm=zeros(hd))
         if spec.kind in _SSM_KINDS:
             lp["mamba"] = ssm_lib.init_mamba(gen, d, cfg.ssm, dtype=dt, device=dev)
         if spec.kind == "hybrid":
@@ -173,6 +176,8 @@ def _jax_layer(tree, period: Optional[int]) -> dict:
         a = tree["attn"]
         out.update(wq=pick(a["wq_dm"]), wk=pick(a["wk_dm"]), wv=pick(a["wv_dm"]),
                    wo=pick(a["wo_md"]))
+        if "q_norm" in a:
+            out.update(q_norm=pick(a["q_norm"]["scale_r"]), k_norm=pick(a["k_norm"]["scale_r"]))
     if "mamba" in tree:
         m = tree["mamba"]
         out["mamba"] = {

@@ -42,7 +42,9 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
 
     Tiles of 64 keys from ``first``, the four warps of a block (two for
     each m16 tile when the group exceeds 16) taking whole tiles in turn,
-    each keeping its own online softmax: products of bf16 inputs summed in
+    each keeping its own online softmax (at head_dim 256 two warps share
+    each tile, by O's columns, so half as many states walk in turn; a
+    column's arithmetic does not change): products of bf16 inputs summed in
     float32, scores in log2 units with scale * log2(e) folded into one
     multiply (softcap first, in natural units), positions outside
     [lo, hi) masked, exp2, P rounded to bf16 before P V while the row sum
@@ -59,7 +61,8 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
     remainder's; the row sum takes P unscaled."""
     b, hq, d = q.shape
     group = hq // hkv
-    warps = 4 if group <= 16 else 2
+    col_splits = 2 if d == 256 else 1
+    warps = (4 if group <= 16 else 2) // col_splits   # states taking tiles in turn
     scale = 1.0 / d**0.5
     scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
     qf = q.float().reshape(b, hkv, group, d)

@@ -1798,3 +1798,163 @@ def test_loadgen_run_one_on_the_card(cuda, tmp_path):
     loadgen._smoke_check(payload)
     assert payload["decode_retraces_after_warmup"] == 0
     assert payload["device"].startswith("cuda")
+
+
+# -- head_dim 256 (the gemma family): K1, K2, K3/K4, K7/K8 in bf16 ------------
+
+# (Hq, Hkv): gemma2-2b's groups of 2, gemma3-1b's group of 4 over one kv head.
+GEMMA_HEADS = [(8, 4), (4, 1)]
+GEMMA_IDS = ["gemma2", "gemma3"]
+# Softcap 50 everywhere (gemma2's), with gemma2's local window 4096 and
+# gemma3's 512 beside the global layers' none.
+GEMMA_WINDOWS = [None, 512, 4096]
+
+
+@pytest.mark.parametrize("mapping", sorted(MAPPINGS))
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("window", GEMMA_WINDOWS)
+def test_d256_flash_fwd_matches_plain(cuda, mapping, hq, hkv, window):
+    """K1 at head_dim 256 walks 64-key tiles: B 2 of 700 queries, and one
+    row of 4200 where window 4096 bites, under each launch; on the tensor
+    cores (its own count moves), per row within 2^-6, lse within 1e-5."""
+    rng = np.random.default_rng(80)
+    for b, s in ((2, 700), (1, 4200)):
+        q = _randn(rng, (b, hq, s, 256), cuda, torch.bfloat16)
+        k, v = (_randn(rng, (b, hkv, s, 256), cuda, torch.bfloat16) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=50.0)
+        kernels.reset_launch_counts()
+        o, lse = fa.flash_attention_fwd(q, k, v, mapping=MAPPINGS[mapping], **kw)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["flash_attention_fwd_tc"] == 1
+        assert _row_err(o, o_ref) < ROW_TOL and _err(lse, lse_ref) < LSE_TOL
+
+
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("window", [None, 90])
+def test_d256_flash_fwd_per_row_offsets_match_plain(cuda, hq, hkv, window):
+    """K1 at head_dim 256 with per-row query offsets and kv_len (three rows
+    of 150 queries at 0, 37 and 300 over 500 keys), softcap 50; offset 0
+    as arrays gives the null pointers' bits."""
+    rng = np.random.default_rng(81)
+    q = _randn(rng, (3, hq, 150, 256), cuda, torch.bfloat16)
+    k, v = (_randn(rng, (3, hkv, 500, 256), cuda, torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=50.0,
+              q_offset=torch.tensor([0, 37, 300], dtype=torch.int32, device=cuda),
+              kv_len=torch.tensor([150, 182, 450], dtype=torch.int32, device=cuda))
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    zero = fa.flash_attention_fwd(q, k, v, causal=True, window=window, softcap=50.0,
+                                  q_offset=torch.zeros((3,), device=cuda),
+                                  kv_len=torch.full((3,), 500, device=cuda))
+    null = fa.flash_attention_fwd(q, k, v, causal=True, window=window, softcap=50.0)
+    torch.cuda.synchronize()
+    assert _row_err(o, o_ref) < ROW_TOL and _err(lse, lse_ref) < LSE_TOL
+    assert all(torch.equal(a, b) for a, b in zip(zero, null))
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("case", sorted(TC_PREFILL))
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("window", [None, 75])
+def test_d256_paged_prefill_matches_plain(cuda, ps, case, hq, hkv, window):
+    """K2 at head_dim 256: a 64-key stage holds 64 / ps pages."""
+    args = _tc_prefill_inputs(np.random.default_rng(82 + ps), cuda, hq, hkv, 256, ps, case)
+    kw = dict(window=window, softcap=50.0)
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, **kw)
+    counts = kernels.launch_counts()
+    assert counts["paged_flash_prefill"] == counts["paged_flash_prefill_tc"] == 1
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _row_err(o, o_ref) < ROW_TOL
+    tlen = args[-1].tolist()
+    assert all(float(o[bi, :, n:].float().abs().sum()) == 0.0 for bi, n in enumerate(tlen))
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("num_splits", [1, 3, 8])
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("window", [None, 75])
+def test_d256_paged_decode_matches_plain(cuda, ps, num_splits, hq, hkv, window):
+    """K3 / K4 at head_dim 256 (two warps share each 64-row tile by O's
+    columns): rows of 0, 1, 50, 17 and 1280 tokens, then three rows frozen
+    on the null page at the full table width (table all 0, lengths 0 and
+    1), as a graph runs a free row; the null page holds random rows."""
+    rng = np.random.default_rng(84 + ps)
+    q, kp, vp, table, lengths = _decode_inputs(rng, cuda, torch.bfloat16, hq, hkv, d=256,
+                                               ps=ps, mp=1280 // ps)
+    q = torch.cat([q, _randn(rng, (3, hq, 256), cuda, torch.bfloat16)])
+    table = torch.cat([table, torch.zeros((3, table.shape[1]), dtype=torch.int32,
+                                          device=cuda)])
+    lengths = torch.cat([lengths, torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)])
+    kw = dict(num_splits=num_splits, window=window, softcap=50.0)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(q, kp, vp, table, lengths, **kw)
+    assert _paged_routes(kernels.launch_counts(), torch.bfloat16)
+    o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _row_err(o, o_ref) < ROW_TOL
+    assert float(o[[0, 5, 7]].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("num_splits", [1, 3, 8])
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("smax,window", [(1024, None), (1024, 512), (4352, 4096)])
+def test_d256_dense_decode_matches_plain(cuda, num_splits, hq, hkv, smax, window):
+    """K7 / K8 at head_dim 256, softcap 50, on the tensor cores."""
+    rng = np.random.default_rng(86)
+    q, kc, vc, lengths = _dense_inputs(rng, cuda, torch.bfloat16, hq, hkv, 256, smax)
+    kw = dict(window=window, softcap=50.0, num_splits=num_splits)
+    kernels.reset_launch_counts()
+    o = dd.flash_decode(q, kc, vc, lengths, **kw)
+    assert _dense_routes(kernels.launch_counts(), torch.bfloat16)
+    ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _row_err(o, ref) < ROW_TOL
+    assert float(o[0].float().abs().max()) == 0.0
+
+
+def test_d256_refuses_what_no_kernel_takes(cuda):
+    """At head_dim 256 the float32 kernels (K1, K2, K3/K4, K7/K8), the
+    quantized pools' (K2q, K3q/K4q), K5 / K6 and a bf16 page of 128 rows
+    (K2's 64-key stage) each raise ValueError on the card and launch
+    nothing."""
+    from repro_torch.cache import quant
+
+    rng = np.random.default_rng(88)
+    kernels.reset_launch_counts()
+    x32 = _randn(rng, (1, 4, 130, 256), cuda)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        fa.flash_attention_fwd(x32, x32, x32)
+    xb = x32.to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(xb, xb, xb)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim 256"):
+        fb.flash_attention_bwd(xb, xb, xb, o, lse, o)
+    q, kp, vp, table, kt, vt, plen, tlen = _prefill_inputs(rng, cuda, torch.float32, 8, 4,
+                                                           d=256)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        pp.paged_flash_prefill(q, kp, vp, table, kt, vt, plen, tlen)
+    (kc, ks), (vc, vs) = (quant.quantize_pages(p, "int8") for p in (kp, vp))
+    qb, ktb, vtb = (t.to(torch.bfloat16) for t in (q, kt, vt))
+    with pytest.raises(ValueError, match="head_dim 256"):
+        pp.paged_flash_prefill(qb, kc, vc, table, ktb, vtb, plen, tlen, k_scales=ks,
+                               v_scales=vs)
+    big = _tc_prefill_inputs(rng, cuda, 8, 4, 256, 128, "ragged")
+    with pytest.raises(ValueError, match="divides 64"):
+        pp.paged_flash_prefill(*big)
+    dq, dkp, dvp, dtable, dlen = _decode_inputs(rng, cuda, torch.float32, 8, 4, d=256)
+    (dkc, dks), (dvc, dvs) = (quant.quantize_pages(p, "fp8") for p in (dkp, dvp))
+    for ns in (1, 3):
+        with pytest.raises(ValueError, match="head_dim 256"):
+            pd.paged_flash_decode(dq, dkp, dvp, dtable, dlen, num_splits=ns)
+        with pytest.raises(ValueError, match="head_dim 256"):
+            pd.paged_flash_decode(dq.to(torch.bfloat16), dkc, dvc, dtable, dlen,
+                                  num_splits=ns, k_scales=dks, v_scales=dvs)
+    sq, skc, svc, slen = _dense_inputs(rng, cuda, torch.float32, 8, 4, 256, 512)
+    for ns in (1, 3):
+        with pytest.raises(ValueError, match="head_dim 256"):
+            dd.flash_decode(sq, skc, svc, slen, num_splits=ns)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 0

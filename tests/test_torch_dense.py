@@ -193,6 +193,23 @@ def test_tensor_core_k7_k8_arithmetic_matches_jax(d, hq, hkv, num_splits, window
     assert torch.equal(ot, ot2)
 
 
+@pytest.mark.parametrize("hq,hkv", [(8, 4), (4, 1)], ids=["gemma2", "gemma3"])
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("window", [None, 100])
+def test_tensor_core_k7_k8_d256_arithmetic_matches_jax(hq, hkv, num_splits, window):
+    """At head_dim 256 two warps share each tile by O's columns, so two
+    states walk the tiles in turn, not four: the lengths of the test above,
+    gemma's groups of 2 and 4, softcap 50."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(4, hq, hkv, 320, 256, seed=75, dtype="bfloat16")
+    lj, lt = _lengths([0, 1, 203, 320])
+    kw = dict(window=window, softcap=50.0, chunk=64, num_splits=num_splits)
+    oj = jax_decode(qj, kj, vj, lj, interpret=True, **kw)
+    ot = dense_k7_k8(qt, kt, vt, lt, **kw)
+    assert row_err(oj, ot) < ROW_TOL
+    assert _diff(oj, ot) < BF16_TOL
+    assert float(ot[0].float().abs().max()) == 0.0
+
+
 def test_plain_version_refuses_a_capacity_the_chunk_does_not_divide():
     _, (qt, kt, vt) = _inputs(1, 4, 2, 100, 64)
     with pytest.raises(ValueError, match="multiple of chunk"):

@@ -104,8 +104,9 @@ def _tensor_core_k1(q, k, v, *, causal, window=None, softcap=None, kv_len=None,
     lse = m ln 2 + log l. ``q_offset`` / ``kv_len`` (ints or (B,) tensors)
     walk as the kernel's per-row arrays: query row i of batch row b at
     position q_offset[b] + i, keys at or past kv_len[b] masked; each block
-    walks only the 128-key tiles its rows can see (``kv_tile_range`` of
-    csrc/common.cuh at the shifted rows), 128 query rows a block."""
+    walks only the ``block_n``-key tiles its rows can see (``kv_tile_range``
+    of csrc/common.cuh at the shifted rows), 128 query rows a block. The
+    kernel's key tile is 128, and 64 at head_dim 256."""
     log2e, ln2 = 1.4426950408889634, 0.6931471805599453
     b, hq, sq, d = q.shape
     skv = k.shape[2]
@@ -163,7 +164,7 @@ def _row_err(j, t) -> float:
     return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=50, softcap=30.0),
                                 dict(causal=False, kv_len=101)],
                          ids=["causal", "window_softcap", "noncausal_kvlen"])
@@ -171,18 +172,21 @@ def test_tensor_core_k1_arithmetic_matches_jax(d, kw):
     """Rounding P to bf16 before P V, the tensor-core K1's one numerical
     departure from the JAX kernel (which keeps P in float32), stays within
     the card's bars: o per row within 2^-6, lse within 1e-5. Hq 8 over Hkv 2,
-    S 130 (one full 128-key tile and a ragged one)."""
+    S 130 (one full 128-key tile and a ragged one; at head_dim 256 two full
+    64-key tiles and a ragged one)."""
     rng = np.random.default_rng(60 + d)
     q, k, v = _normal(rng, 1, 8, 130, d), _normal(rng, 1, 2, 130, d), _normal(rng, 1, 2, 130, d)
     (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (q, k, v))
     oj, lj = jax_fa(qj, kj, vj, mapping=JaxMapping(block_m=256, block_n=256),
                     interpret=True, **kw)
-    ot, lt = _tensor_core_k1(qt, kt, vt, **kw)
+    block_n = 64 if d == 256 else 128
+    ot, lt = _tensor_core_k1(qt, kt, vt, block_n=block_n, **kw)
     assert _row_err(oj, ot) < ROW_TOL
     assert _diff(lj, lt) < LSE_TOL
     if kw.get("kv_len"):            # keys past kv_len change nothing
         ot2, _ = _tensor_core_k1(qt, kt, torch.where(torch.arange(130)[:, None] < 101, vt,
-                                                     torch.tensor(7.0, dtype=vt.dtype)), **kw)
+                                                     torch.tensor(7.0, dtype=vt.dtype)),
+                                 block_n=block_n, **kw)
         assert torch.equal(ot, ot2)
 
 

@@ -5,7 +5,8 @@ csrc/prefill_tc.cuh) runs no CPU mode, so its arithmetic is written out
 here in float32 (``_tensor_core_k2``): per 128-row tile of one (b, q head),
 products of bf16 inputs summed in float32; scores in log2 units with
 scale * log2(e) folded into one multiply (softcap first, in natural units);
-an online softmax with exp2 over 128-key tiles, the prefix's first, page by
+an online softmax with exp2 over 128-key tiles (64-key at head_dim 256),
+the prefix's first, page by
 page from the page holding the tile's first visible position (a stage's
 slots past the last live page repeat it, masked), then the tail's; P
 rounded to bf16 before P V while the row sum takes P unrounded; rows at or
@@ -33,7 +34,7 @@ from repro.kernels.paged_prefill_attention import paged_flash_prefill as jax_pre
 
 ROW_TOL = 2.0**-6
 BF16_TOL = 3e-2
-BLOCK = 128                     # query rows and keys of a tile
+BLOCK = 128                     # query rows of a tile, and its keys below head_dim 256
 ST = 150                        # two row tiles, the second of 22 rows
 TLEN = [ST, 100]                # the second row's tail padded past 100
 TABLE = {8: 25, 16: 13, 32: 7}  # pages a row: ~200 positions, no multiple of 128 / ps
@@ -56,7 +57,8 @@ def _tensor_core_k2(q, kp, vp, table, kt, vt, plen, tlen, *, window=None, softca
     b, hq, st, d = q.shape
     hkv, _, ps, _ = kp.shape
     group, mp = hq // hkv, table.shape[1]
-    per_stage = BLOCK // ps
+    bn = 64 if d == 256 else BLOCK          # keys of a stage
+    per_stage = bn // ps
     scale2 = torch.tensor(LOG2E / d**0.5, dtype=torch.float32)
     expand = lambda x: x.float().repeat_interleave(group, 0)      # (Hkv, n, D) -> (Hq, n, D)
     o = torch.zeros((b, hq, st, d))
@@ -76,18 +78,18 @@ def _tensor_core_k2(q, kp, vp, table, kt, vt, plen, tlen, *, window=None, softca
                 for t in range((last - first + per_stage) // per_stage):
                     pages = [int(table[bi, min(first + t * per_stage + i, last)])
                              for i in range(per_stage)]
-                    cols = first * ps + t * BLOCK + torch.arange(BLOCK)[None, :]
+                    cols = first * ps + t * bn + torch.arange(bn)[None, :]
                     ok = (rows < tl) & (cols < live)
                     if window:
                         ok = ok & (cols > pl + rows - window)
-                    tiles.append((kp[:, pages].reshape(hkv, BLOCK, d),
-                                  vp[:, pages].reshape(hkv, BLOCK, d), ok))
-            tail_lo = max(0, q0 - window + 1) // BLOCK if window else 0
-            for n in range(tail_lo, q_hi // BLOCK + 1):
-                c0 = n * BLOCK
-                pad = lambda x: torch.nn.functional.pad(x[bi, :, c0:c0 + BLOCK],
-                                                        (0, 0, 0, BLOCK - min(BLOCK, st - c0)))
-                cols = c0 + torch.arange(BLOCK)[None, :]
+                    tiles.append((kp[:, pages].reshape(hkv, bn, d),
+                                  vp[:, pages].reshape(hkv, bn, d), ok))
+            tail_lo = max(0, q0 - window + 1) // bn if window else 0
+            for n in range(tail_lo, q_hi // bn + 1):
+                c0 = n * bn
+                pad = lambda x: torch.nn.functional.pad(x[bi, :, c0:c0 + bn],
+                                                        (0, 0, 0, bn - min(bn, st - c0)))
+                cols = c0 + torch.arange(bn)[None, :]
                 ok = (rows < tl) & (cols <= rows)
                 if window:
                     ok = ok & (cols > rows - window)
@@ -153,7 +155,7 @@ def _check(jargs, targs, **kw):
     return ot
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("ps", [8, 16, 32])
 @pytest.mark.parametrize("hq,hkv,window,softcap", [(8, 2, None, None), (2, 2, 70, 30.0)],
                          ids=["g4", "g1_window_softcap"])
@@ -179,7 +181,7 @@ def test_tensor_core_k2_arithmetic_matches_jax(d, ps, hq, hkv, window, softcap):
     assert torch.equal(ot, _tensor_core_k2(q, kp2, vp2, table, kt, vt, plen, tlen, **kw))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tensor_core_k2_empty_table_matches_jax(d):
     """A table of width 0: only the causal tail is walked."""
     jargs, targs = _inputs(8, 2, d, 16, seed=110 + d, empty_table=True)

@@ -97,6 +97,22 @@ def test_tensor_core_k3_k4_arithmetic_matches_jax(d, hq, hkv, ps, num_splits, wi
     assert torch.equal(ot, paged_k3_k4(q, kp2, vp2, table, lengths, **kw))
 
 
+@pytest.mark.parametrize("hq,hkv", [(8, 4), (4, 1)], ids=["gemma2", "gemma3"])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_tensor_core_k3_k4_d256_arithmetic_matches_jax(hq, hkv, ps, num_splits):
+    """At head_dim 256 two warps share each tile by O's columns, so two
+    states walk the tiles in turn, not four; the rows and splits of the
+    test above, gemma's groups of 2 and 4, window 50 and softcap 50."""
+    jargs, targs = _inputs(hq, hkv, 256, ps, seed=90 + ps)
+    kw = dict(window=50, softcap=50.0, num_splits=num_splits)
+    oj = jax_decode(*jargs, interpret=True, **kw)
+    ot = paged_k3_k4(*targs, **kw)
+    assert row_err(oj, ot) < ROW_TOL
+    assert float(np.abs(np.asarray(oj, np.float32) - ot.float().numpy()).max()) < BF16_TOL
+    assert float(ot[0].float().abs().max()) == 0.0
+
+
 def _quant_inputs(hq, hkv, d, ps, seed, kv_dtype, nan_null):
     """bf16 q and int8 or fp8 pools (Hkv, P, ps, D) quantized by
     ``repro.cache.quant`` from seeded float32 values of a different
