@@ -9,7 +9,9 @@ and prints no result. Phases, in order (any failure exits non-zero):
   2. build  — compiles the kernels from ``src/repro_torch/csrc`` with
      nvcc for sm_90a, one nvcc per source in parallel; prints the build
      time and ptxas' register and spill lines of every kernel (K9's four
-     instantiations among them);
+     instantiations among them), then one line per head_dim 256 kernel:
+     its registers, spill stores and loads, and whether ptxas serialised
+     its wgmma (C7512);
   3. kernels — each kernel against its plain PyTorch version on the card,
      at llama3-8b widths in bf16 (Hq 32, Hkv 8, D 128, page size 16):
      max error at a stated tolerance, CUDA-event median times of kernel and
@@ -66,8 +68,9 @@ and prints no result. Phases, in order (any failure exits non-zero):
      8, Hkv 4, softcap 50, window 4096) and gemma3-1b's (Hq 4, Hkv 1,
      window 512), each against its plain version per row, 100 reruns
      bitwise equal, CUDA-event times, the bound and SDPA where one call
-     computes the same function, and K1 at gemma2-2b's widths once more
-     without the softcap (its share of K1's time);
+     computes the same function, and K1 (global and window 4096) and K7 /
+     K8 at gemma2-2b's widths once more without the softcap, beside SDPA,
+     which has none (the like-for-like library row);
   3b. plan — the plan's models against the card: (a) bf16 K3 / K4 at
      llama3-8b widths, every row full, B 1, 2, 4, 8 over tables of 128 and
      256 pages (and the serve runs' 8 x 36 and 1 x 260) at 1, 2, 3, 4, 6,
@@ -192,6 +195,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -306,6 +310,34 @@ QTOL = {"int8": 0.03, "fp8": 0.12}
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def ptxas_d256(log_text: str) -> list:
+    """(kernel, registers, spill stores, spill loads, wgmma serialised) of
+    each head_dim 256 tensor-core kernel in one library's ptxas log."""
+    rows, cur, serialised = [], None, set()
+    for line in log_text.splitlines():
+        if "C7512" in line:
+            serialised.add(line.rsplit("'", 2)[-2] if "'" in line else "")
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+            rows.append([cur, None, None, None])
+        elif cur and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            rows[-1][2:4] = nums[1:3]
+        elif cur and "Used" in line and "registers" in line:
+            rows[-1][1] = int(line.split("Used")[1].split()[0])
+    out = []
+    for name, regs, st, ld in rows:
+        m = re.search(r"(\w+_tc_kernel)I((?:L[ib]\d+E)+)", name)
+        if m is None or "Li256E" not in m.group(2):
+            continue
+        ident = m.group(1)   # ...<length><kernel name>, the Itanium mangling
+        kernel = next((ident[n.end():] for n in re.finditer(r"\d+", ident)
+                       if len(ident) - n.end() == int(n.group())), ident)
+        args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+        out.append((f"{kernel}<{args}>", regs, st, ld, name in serialised))
+    return out
 
 
 def smi_line() -> str:
@@ -1395,11 +1427,13 @@ def check_gemma_kernels(torch, timer):
     has no softcap, is timed on the same shapes without it and said so).
     K1: B 1, S 8192, global and the local window; K2: B 2, prefix 1000,
     tail 256 (the second row's live to 219), pages of 16; K3 / K4 (4
-    splits): B 8, lengths up to 4096 and a length-0 row, pages of 16; K7 /
-    K8 (4 splits) the same rows on 4096-row stripes. Returns one row per
-    (kernel, width) for the summary line."""
+    splits): B 8, lengths up to 4096 and a length-0 row, pages of 16, with
+    the plan's split model beside them; K7 / K8 (4 splits) the same rows on
+    4096-row stripes; at gemma2-2b's widths K1 and K7 / K8 again without
+    the softcap. Returns one row per (kernel, width) for the summary line."""
     import torch.nn.functional as F
     from repro_torch import kernels
+    from repro_torch.core import numa, perf_model
     from repro_torch.kernels import decode_attention as dd
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pd
@@ -1436,6 +1470,7 @@ def check_gemma_kernels(torch, timer):
                          bound_by=kb[1], library_ms=lib_ms, row_err=e_r))
 
     lens8 = [4096, 0, 3001, 17, 2048, 4000, 1, 1500]
+    no_cap_ms = {}   # (kernel, window) -> ms at gemma2-2b's widths without the softcap
     for model, hq, hkv, local, cap in GEMMA_WIDTHS:
         no_cap = "" if cap is None else " (sdpa without the softcap: it has none)"
         # K1: B 1, S 8192, global and the local window.
@@ -1460,10 +1495,14 @@ def check_gemma_kernels(torch, timer):
                    timer.ms(sdpa), "flash_attention_fwd_tc", False, no_cap)
             del o, lse, o_ref
         if cap is not None:
-            # The softcap's share of K1: the global case again without it.
-            ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-            log(f"K1 D 256 {model} (Hq {hq}, Hkv {hkv}) B 1 S {s} window None without the "
-                f"softcap: {ms:.4f} ms")
+            # Like for like with SDPA, which has no softcap: both cases again
+            # without it.
+            for window in (None, local):
+                ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True,
+                                                             window=window))
+                log(f"K1 D 256 {model} (Hq {hq}, Hkv {hkv}) B 1 S {s} window {window} without "
+                    f"the softcap: {ms:.4f} ms")
+                no_cap_ms[("K1", window)] = ms
         del q, k, v
 
         # K2: B 2, prefix 1000, tail 256, pages of 16, the local window.
@@ -1501,6 +1540,11 @@ def check_gemma_kernels(torch, timer):
         q = randn(b, hq, d)
         live = sum(min(n, local) for n in lens8)
         kb = bound(2 * hkv * live * d * 2 + nbytes(q, q, table, lengths), 4.0 * hq * d * live)
+        # The plan's split model at these widths, every row at the table's
+        # 4096 positions (its reading of a tick), beside the times.
+        est = dict(perf_model.estimate_decode_splits(
+            batch=b, num_q_heads=hq, num_kv_heads=hkv, seq_kv=4096, granule=PS, head_dim=d,
+            dtype_bytes=2, topo=numa.H100, window=local).times)
         for ns, key, counter in ((1, "K3", "paged_flash_decode_tc"),
                                  (4, "K4", "paged_flash_decode_split_tc")):
             kw = dict(window=local, softcap=cap, num_splits=ns)
@@ -1510,7 +1554,9 @@ def check_gemma_kernels(torch, timer):
             report(key, f"{model} (Hq {hq}, Hkv {hkv}) B 8 table 4096 window {local} "
                         f"num_splits {ns}", run,
                    lambda: pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **kw), o,
-                   o_ref, kb, None, counter, True)
+                   o_ref, kb, None, counter, True,
+                   f", split model {est[ns] * 1e3:.4f} ms")
+            rows[-1]["split_model_ms"] = est[ns] * 1e3
         del kp, vp, q, o, o_ref
 
         # K7 / K8: the same rows on 4096-row stripes; SDPA on the stripes
@@ -1535,7 +1581,19 @@ def check_gemma_kernels(torch, timer):
                         f"num_splits {ns}", run,
                    lambda: dd.flash_decode_plain(q, kc, vc, lengths, **kw), o, o_ref, kb,
                    lib_ms, counter, True, no_cap)
+            if cap is not None:
+                kw.pop("softcap")
+                ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lengths, **kw), primed=True)
+                log(f"{key} D 256 {model} (Hq {hq}, Hkv {hkv}) B 8 stripes 4096 window "
+                    f"{local} num_splits {ns} without the softcap: {ms:.4f} ms (queue primed; "
+                    f"sdpa {lib_ms:.4f} ms)")
+                no_cap_ms[(key, local)] = ms
         del q, kc, vc, kx, vx, o, o_ref
+    for row in rows:
+        window = int(row["widths"].split("window ")[1].split()[0].replace("None", "-1"))
+        ms = no_cap_ms.get((row["kernel"], None if window < 0 else window))
+        if ms is not None and row["widths"].startswith("gemma2-2b"):
+            row["ms_without_softcap"] = ms
     return rows
 
 
@@ -3165,6 +3223,10 @@ def main() -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for name, rec in info.items():
+        for kernel, regs, st, ld, ser in ptxas_d256(rec["log"]):
+            log(f"head_dim 256 ptxas {name} {kernel}: {regs} registers, spill stores {st} B, "
+                f"loads {ld} B, wgmma serialised {ser}")
 
     timer = Timer(torch)
     if args.phase == "plan":

@@ -13,20 +13,36 @@
 // first key at position first + t * BT. Four consumer warps hold q's G
 // rows, zero-padded to 16 (two m16 tiles for G > 16, each taken by two of
 // the warps), as mma.sync m16n8k16 A fragments for the whole walk. The
-// warps of one m16 tile take whole tiles in turn. At head_dim 256 the warps
-// of one m16 tile pair up on each tile instead, each pair's two warps
-// computing the same S and softmax and each keeping half of O's columns:
-// q's fragments (64 registers), O (128 for all 256 columns) and S (32) would
-// pass the 255 a thread may have, and the ring's 128 KB holds only two
-// stages of 64 KB there, so two tiles are in the products at once, not
-// four. Per tile: S = q K^T with K
-// fed by ldmatrix, an online softmax in S's registers (exp2, scale * log2(e)
-// folded into one multiply; positions outside [lo, hi) masked to P exactly
+// warps of one m16 tile take whole tiles in turn. Per tile: S = q K^T with
+// K fed by ldmatrix, an online softmax in S's registers (exp2, scale *
+// log2(e) folded into one multiply, a softcap first; positions outside
+// [lo, hi) masked to P exactly
 // 0, so stale or repeated rows never count), then O += P V with P rounded
 // to bf16 as the A fragment and V by ldmatrix.trans. A warp releases a
 // stage by one mbarrier arrival after a proxy fence. The warps' states merge
 // once, through shared memory; one pass writes the normalised row, a
 // split writes float32 (acc, m ln 2, l) for decode_common.cuh's combine.
+// At head_dim 64 and 128 (consume_tiles) a softcap is softcap * tanhf(y *
+// scale / softcap): with hopper.cuh's ex2 + rcp form instead, ptxas laid
+// the loop out so that a group of 32 at D 128 ran 7% slower with no softcap
+// at all (tools/decode_ab.py against tanhf on an H100; no served config has
+// a softcap at these widths). consume_d256 takes the ex2 + rcp form.
+//
+// At head_dim 256 q's fragments (64 registers), O (128) and S (32) pass the
+// 255 a thread may have, so one warp cannot take a whole tile. There
+// (consume_d256) all four warps take every tile, each on one 64-column
+// chunk of D: warp w holds q's columns 64 w .. + 63 (16 registers an m16
+// tile), computes S's partial sum over them for all 64 keys, and keeps O's
+// columns 64 w .. + 63 (32 registers). The partial S's meet in shared
+// memory (Xchg); warp w sums keys 16 w .. + 15 of the four, in warp order,
+// and applies the scale, softcap and mask: each score is computed once. The
+// row maxima of the four key slices meet in shared memory, each warp turns
+// its slice into P (the A fragment of P V's k16 step w) and publishes it,
+// and every warp runs P V over all 64 keys for its columns. Three named
+// barriers a tile (an m16 tile beyond the first adds one); one online
+// softmax state per row, its sums kept per key slice and added in warp
+// order at the end. With 16 registers of q a warp, the ring holds three
+// 64 KB stages (192 KB, plus 23 KB for the exchange), not two.
 //
 // A quantized pool's ring (QRing) holds 1-byte int8 or e4m3 codes, one row
 // of D bytes per key, swizzled by TMA over the row (128 bytes at D 128, 64
@@ -47,6 +63,8 @@
 // after its mma did.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -56,30 +74,42 @@ namespace dtc {
 constexpr int BT = 64;               // rows (keys) of a K / V tile
 constexpr int CONSUMER_WARPS = 4;
 
-// Warps that split O's columns on one tile at head_dim D (the header
-// comment says why 256 needs two).
-template <int D>
-__host__ __device__ constexpr int col_splits() {
-  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
-  return D == 256 ? 2 : 1;
-}
 constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);   // + one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// The head_dim 256 consumer's exchange (the header comment): each warp's
+// partial S of an m16 tile (rows of 72 floats: the four row groups of a
+// float2 store fall on distinct banks), P's A fragments (one uint4 a lane,
+// k16 step, m16 tile), the row maxima and the row sums of each key slice.
+struct Xchg {
+  static constexpr int SROW = 72;
+  static constexpr int MAX_MT = 2;
+  static constexpr int S = 0;                                    // float [4][16][SROW]
+  static constexpr int P = S + CONSUMER_WARPS * 16 * SROW * 4;   // uint4 [MAX_MT][4][32]
+  static constexpr int MX = P + MAX_MT * 4 * 32 * 16;           // float [4][MAX_MT][16]
+  static constexpr int L = MX + CONSUMER_WARPS * MAX_MT * 16 * 4;
+  static constexpr int BYTES = L + CONSUMER_WARPS * MAX_MT * 16 * 4;
+};
+
 // Dynamic shared memory, in bytes from a 1024-byte aligned base: the ring's
 // K and V stages (each tile D / 64 swizzled column chunks of BT rows), then
-// its full and empty mbarriers. After the walk the ring holds the warps'
-// states for the merge.
+// its full and empty mbarriers, then at head_dim 256 the exchange. After
+// the walk the ring holds the warps' states for the merge (D 64, 128).
 template <int D>
 struct Ring {
-  static constexpr int STAGES = 8 * 64 / D;   // 128 KB in flight at every D
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  // 128 KB in flight at D 64 and 128; 192 KB at 256 (the header comment).
+  static constexpr int STAGES = D == 256 ? 3 : 8 * 64 / D;
   static constexpr int TILE = BT * D * 2;
   static constexpr int K = 0;
   static constexpr int V = STAGES * TILE;
   static constexpr int BAR = 2 * STAGES * TILE;
-  static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
+  static constexpr int XCHG = BAR + 8 * 2 * STAGES;
+  static constexpr size_t bytes = XCHG + (D == 256 ? Xchg::BYTES : 0) + 1024;   // + alignment
 };
+static_assert(Ring<256>::bytes <= 232448, "the head_dim 256 ring exceeds a block's 227 KB");
+static_assert(Ring<256>::XCHG % 16 == 0, "the exchange takes 16-byte accesses");
 
 // A quantized pool's ring: STAGES stages of K and V codes (BT rows of D
 // bytes each), each stage's K and V scales by 8-key group (BT / 8 floats
@@ -137,11 +167,12 @@ __device__ __forceinline__ void bars_init(uint64_t* full, uint64_t* empty, int s
 
 // The bf16 ring's barriers: a stage is full after the producer's one
 // expect-tx arrival and its bytes, empty after the arrivals of the warps
-// that read it, col_splits of each of the MT m16 tiles.
+// that read it: one of each of the MT m16 tiles, or at head_dim 256 all
+// four.
 template <int D, int MT>
 __device__ __forceinline__ void ring_init(uint8_t* smem) {
   bars_init(full_bars<Ring<D>>(smem), empty_bars<Ring<D>>(smem), Ring<D>::STAGES, 1,
-            MT * col_splits<D>());
+            D == 256 ? CONSUMER_WARPS : MT);
 }
 
 // d = a * b + c on bf16 pairs, rounded to nearest.
@@ -270,11 +301,10 @@ struct CodeTiles {
   __device__ __forceinline__ void done(int, int) {}
 };
 
-// The consumer warps' whole part for the cell (s, h, b) = blockIdx: walk
-// `ntiles` tiles whose first key is at position `first`, keeping positions
-// in [lo, hi), then merge and write. MT m16 tiles of group rows
-// (G <= 16 * MT), CS warps on each tile of an m16 tile (col_splits<D>),
-// each keeping D / CS of O's columns. SPLIT = false writes the normalised row to `out`;
+// The consumer warps' whole part for the cell (s, h, b) = blockIdx at head
+// dim 64 or 128: walk `ntiles` tiles whose first key is at position
+// `first`, keeping positions in [lo, hi), then merge and write. MT m16
+// tiles of group rows (G <= 16 * MT). SPLIT = false writes the normalised row to `out`;
 // SPLIT = true writes (acc, m, l) of split s (of gridDim.x). `tiles`
 // (RingTiles or CodeTiles) gives each tile's bf16 K and V in shared memory
 // and, when SCALED, the K and V scales of its 8-key groups; `smem` is the
@@ -289,12 +319,10 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
                                               int first, int lo, int hi, int ntiles,
                                               float scale, float softcap) {
   using namespace hopper;
+  static_assert(D == 64 || D == 128, "consume_d256 takes head_dim 256");
   constexpr int STAGES = Tiles::STAGES;
-  constexpr int CS = col_splits<D>();       // warps on one tile, by O's columns
-  constexpr int DC = D / CS;                // O's columns a warp keeps
-  constexpr int KS = CONSUMER_WARPS / (MT * CS);   // tiles in the products at once
+  constexpr int KS = CONSUMER_WARPS / MT;   // tiles in the products at once
   constexpr int ROWS = 16 * MT;             // group rows, padded
-  static_assert(!Tiles::SCALED || CS == 1, "a quantized ring is read by one warp a tile");
   // Each stage then feeds one warp of each m16 tile, which waits on every
   // phase of it in turn: a parity wait never meets a phase two ahead.
   static_assert(STAGES % KS == 0, "a stage must belong to one warp per m16 tile");
@@ -305,13 +333,12 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // Consumer warp (mt, cs, ks): group rows 16 mt .. + 15 and O's columns
-  // cs DC .. + DC - 1 over tiles ks, ks + KS, ks + 2 KS, ...: KS tiles are
-  // in the products at once. This thread holds rows r0 = 16 mt + lane / 4
-  // and r0 + 8, and of every 8 keys (or columns) the two at 2 (lane % 4).
+  // Consumer warp (mt, ks): group rows 16 mt .. + 15 over tiles ks, ks +
+  // KS, ks + 2 KS, ...: KS tiles are in the products at once. This thread
+  // holds rows r0 = 16 mt + lane / 4 and r0 + 8, and of every 8 keys (or
+  // columns) the two at 2 (lane % 4).
   const int mt = warp % MT;
-  const int cs = (warp / MT) % CS;
-  const int ks = warp / (MT * CS);
+  const int ks = warp / MT;
   const int Hq = Hkv * G;
   const int r0 = 16 * mt + (lane >> 2);
   const int c2 = 2 * (lane & 3);
@@ -325,9 +352,9 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
       const int col = kc * 16 + c2 + 8 * (i >> 1);
       qa[kc][i] = row < G ? *reinterpret_cast<const uint32_t*>(qh + (size_t)row * D + col) : 0u;
     }
-  float o[DC / 8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   float m[2] = {NEG_INF_F, NEG_INF_F};
@@ -361,7 +388,8 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
       }
 
     // Scores in log2 units; a position outside [lo, hi) is masked to
-    // exactly NEG_INF_F (no live score comes near it) and gets p = 0.
+    // exactly NEG_INF_F (no live score comes near it) and gets p = 0. The
+    // softcap stays tanhf here (the header comment says why).
     float mx[2] = {NEG_INF_F, NEG_INF_F};
 #pragma unroll
     for (int n = 0; n < BT / 8; ++n)
@@ -422,19 +450,19 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int n = 0; n < DC / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
 
-    // O += P V over this warp's columns: one ldmatrix.x4.trans gives the B
-    // fragments of two n8 column tiles (16 columns) over 16 keys.
+    // O += P V: one ldmatrix.x4.trans gives the B fragments of two n8
+    // column tiles (16 columns) over 16 keys.
     const uint32_t vbase = tiles.v_tile(t, rel0, live, lane);
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < DC / 16; ++dp) {
+      for (int dp = 0; dp < D / 16; ++dp) {
         const int row = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int seg = 2 * (cs * (DC / 16) + dp) + (lane >> 4);
+        const int seg = 2 * dp + (lane >> 4);
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, vbase + sw128_offset(row, seg, BT));
         mma_bf16_16816(o[2 * dp], pa[kk], vb[0], vb[1]);
@@ -459,13 +487,12 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
   float* pl = pm + KS * ROWS;
   named_barrier_sync(1, 32 * CONSUMER_WARPS);
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(part + ((size_t)ks * ROWS + r0 + 8 * r) * D + cs * DC +
-                                 8 * n + c2) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
-  // The CS warps of a tile hold the same m and l.
-  if ((lane & 3) == 0 && cs == 0) {
+      *reinterpret_cast<float2*>(part + ((size_t)ks * ROWS + r0 + 8 * r) * D + 8 * n + c2) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+  if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       pm[ks * ROWS + r0 + 8 * r] = m[r];
@@ -500,6 +527,266 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
   }
 }
 
+// The head_dim 256 consumer over the bf16 ring (the header comment): the
+// cell (s, h, b) = blockIdx, `ntiles` tiles from position `first`,
+// positions in [lo, hi) kept, MT m16 tiles of group rows; writes as
+// consume_tiles does.
+template <int MT, bool SPLIT>
+__device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16* __restrict__ q,
+                                             __nv_bfloat16* __restrict__ out,
+                                             float* __restrict__ acc_out,
+                                             float* __restrict__ m_out,
+                                             float* __restrict__ l_out, int Hkv, int G,
+                                             int first, int lo, int hi, int ntiles,
+                                             float scale, float softcap) {
+  using namespace hopper;
+  constexpr int D = 256;
+  constexpr int DW = D / CONSUMER_WARPS;   // D's columns of a warp: 64, one chunk
+  using R = Ring<D>;
+  static_assert(MT <= Xchg::MAX_MT, "the exchange holds two m16 tiles");
+  uint64_t* full = full_bars<R>(smem);
+  uint64_t* empty = empty_bars<R>(smem);
+  uint8_t* xchg = smem + R::XCHG;
+  float* xs = reinterpret_cast<float*>(xchg + Xchg::S);     // [warp][row][key]
+  uint4* xp = reinterpret_cast<uint4*>(xchg + Xchg::P);     // [mt][kk][lane]
+  float* xm = reinterpret_cast<float*>(xchg + Xchg::MX);    // [warp][mt][row]
+  float* xl = reinterpret_cast<float*>(xchg + Xchg::L);     // [warp][mt][row]
+  const int s = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = lane >> 2;        // this thread's rows r0 and r0 + 8 of each m16 tile
+  const int c2 = 2 * (lane & 3);   // and of every 8 keys (or columns) the two at c2
+  const int Hq = Hkv * G;
+  const __nv_bfloat16* qh = q + ((size_t)b * Hq + (size_t)h * G) * D;
+
+  uint32_t qa[MT][DW / 16][4];   // A fragments of q's columns 64 w .. + 63
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kc = 0; kc < DW / 16; ++kc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 16 * mt + r0 + 8 * (i & 1);
+        const int col = DW * w + kc * 16 + c2 + 8 * (i >> 1);
+        qa[mt][kc][i] =
+            row < G ? *reinterpret_cast<const uint32_t*>(qh + (size_t)row * D + col) : 0u;
+      }
+  float o[MT][DW / 8][4];   // O's columns 64 w .. + 63
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[mt][n][i] = 0.f;
+  float m[MT][2], l[MT][2];   // l: this thread's part of its key slice's row sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      m[mt][k] = NEG_INF_F;
+      l[mt][k] = 0.f;
+    }
+  const float scale2 = scale * LOG2E;
+  const Softcap cap(scale, softcap);
+  const unsigned live = (unsigned)(hi - lo);   // as consume_tiles
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % R::STAGES;
+    const int rel0 = first + t * BT - lo;   // the tile's first key, from lo
+    mbar_wait(&full[st], (t / R::STAGES) & 1);
+    const uint32_t kbase = smem_u32(smem + R::K + st * R::TILE);
+    const uint32_t vbase = smem_u32(smem + R::V + st * R::TILE);
+
+    // x: this warp's key slice 16 w .. + 15 of S (n8 tiles u = 0, 1), in
+    // log2 units and masked; mx its row maxima.
+    float x[MT][2][4], mx[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (mt > 0) named_barrier_sync(1, 32 * CONSUMER_WARPS);   // the last sums are read
+      // The partial S over q's columns 64 w .. + 63 for all 64 keys: n8
+      // tile n holds keys 8 n ..; one ldmatrix.x4 gives the B fragments of
+      // two n8 tiles at one k16 step of column chunk w.
+      float sc[BT / 8][4];
+#pragma unroll
+      for (int n = 0; n < BT / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < DW / 16; ++kc)
+#pragma unroll
+        for (int np = 0; np < BT / 16; ++np) {
+          const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kbase + sw128_offset(row, 2 * (w * (DW / 16) + kc) + ((lane >> 3) & 1),
+                                               BT));
+          mma_bf16_16816(sc[2 * np], qa[mt][kc], kb[0], kb[1]);
+          mma_bf16_16816(sc[2 * np + 1], qa[mt][kc], kb[2], kb[3]);
+        }
+#pragma unroll
+      for (int n = 0; n < BT / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(xs + (w * 16 + r0 + 8 * r) * Xchg::SROW + 8 * n + c2) =
+              make_float2(sc[n][2 * r], sc[n][2 * r + 1]);
+      named_barrier_sync(1, 32 * CONSUMER_WARPS);
+      // This warp's keys: the four partial sums added in warp order, then
+      // in log2 units and masked, the loop with a softcap written apart (as
+      // K1's SOFTCAP is) so that rows without one run none of it.
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int at = (r0 + 8 * r) * Xchg::SROW + 16 * w + 8 * u + c2;
+          float2 v = *reinterpret_cast<const float2*>(xs + at);
+#pragma unroll
+          for (int j = 1; j < CONSUMER_WARPS; ++j) {
+            const float2 pj = *reinterpret_cast<const float2*>(xs + j * 16 * Xchg::SROW + at);
+            v.x += pj.x;
+            v.y += pj.y;
+          }
+          x[mt][u][2 * r] = v.x;
+          x[mt][u][2 * r + 1] = v.y;
+        }
+      mx[mt][0] = mx[mt][1] = NEG_INF_F;
+      auto scores = [&](auto capped) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float sx = log2_score<decltype(capped)::value>(x[mt][u][i], scale2, cap);
+            sx = (unsigned)(rel0 + 16 * w + 8 * u + c2 + (i & 1)) < live ? sx : NEG_INF_F;
+            x[mt][u][i] = sx;
+            mx[mt][i >> 1] = fmaxf(mx[mt][i >> 1], sx);
+          }
+      };
+      if (softcap > 0.f)
+        scores(std::true_type{});
+      else
+        scores(std::false_type{});
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[mt][r] = fmaxf(mx[mt][r], __shfl_xor_sync(0xffffffffu, mx[mt][r], 1));
+        mx[mt][r] = fmaxf(mx[mt][r], __shfl_xor_sync(0xffffffffu, mx[mt][r], 2));
+        if ((lane & 3) == 0) xm[(w * Xchg::MAX_MT + mt) * 16 + r0 + 8 * r] = mx[mt][r];
+      }
+    }
+    named_barrier_sync(1, 32 * CONSUMER_WARPS);
+
+    // The tile's row maxima, the new m, and this warp's slice of P (the A
+    // fragment of P V's k16 step w; the row sums take P unrounded).
+    float alpha[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float e[2][4], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tm = m[mt][r];
+#pragma unroll
+        for (int j = 0; j < CONSUMER_WARPS; ++j)
+          tm = fmaxf(tm, xm[(j * Xchg::MAX_MT + mt) * 16 + r0 + 8 * r]);
+        alpha[mt][r] = fast_exp2(m[mt][r] - tm);
+        m[mt][r] = tm;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xi = x[mt][u][i];
+          const float pv = xi == NEG_INF_F ? 0.f : fast_exp2(xi - m[mt][i >> 1]);
+          e[u][i] = pv;
+          sum[i >> 1] += pv;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[mt][r] + sum[r];
+      xp[(mt * 4 + w) * 32 + lane] =
+          make_uint4(pack_bf16(e[0][0], e[0][1]), pack_bf16(e[0][2], e[0][3]),
+                     pack_bf16(e[1][0], e[1][1]), pack_bf16(e[1][2], e[1][3]));
+    }
+    named_barrier_sync(1, 32 * CONSUMER_WARPS);
+
+    // O = alpha O + P V over this warp's columns: one ldmatrix.x4.trans
+    // gives the B fragments of two n8 column tiles (16 columns) over 16
+    // keys.
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[mt][n][i] *= alpha[mt][i >> 1];
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 pk = xp[(mt * 4 + kk) * 32 + lane];
+        pa[mt][0] = pk.x;
+        pa[mt][1] = pk.y;
+        pa[mt][2] = pk.z;
+        pa[mt][3] = pk.w;
+      }
+#pragma unroll
+      for (int dp = 0; dp < DW / 16; ++dp) {
+        const int row = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int seg = 2 * (w * (DW / 16) + dp) + (lane >> 4);
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vbase + sw128_offset(row, seg, BT));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16_16816(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
+          mma_bf16_16816(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+    // As RingTiles::done: the proxy fence before the release.
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // Each warp's key slices' row sums, added in warp order.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      if ((lane & 3) == 0) xl[(w * Xchg::MAX_MT + mt) * 16 + r0 + 8 * r] = lr;
+    }
+  named_barrier_sync(1, 32 * CONSUMER_WARPS);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int g = 16 * mt + r0 + 8 * r;
+      float l_star = xl[mt * 16 + r0 + 8 * r];
+#pragma unroll
+      for (int j = 1; j < CONSUMER_WARPS; ++j)
+        l_star += xl[(j * Xchg::MAX_MT + mt) * 16 + r0 + 8 * r];
+      if (g >= G) continue;
+      if (SPLIT) {
+        const size_t cell = (((size_t)b * Hkv + h) * gridDim.x + s) * G + g;
+#pragma unroll
+        for (int n = 0; n < DW / 8; ++n)
+          *reinterpret_cast<float2*>(acc_out + cell * D + DW * w + 8 * n + c2) =
+              make_float2(o[mt][n][2 * r], o[mt][n][2 * r + 1]);
+        if (w == 0 && (lane & 3) == 0) {
+          m_out[cell] = l_star == 0.f ? NEG_INF_F : m[mt][r] * LN2;
+          l_out[cell] = l_star;
+        }
+      } else {
+        const float den = l_star == 0.f ? 1.f : l_star;
+        __nv_bfloat16* orow = out + ((size_t)b * Hq + (size_t)h * G + g) * D + DW * w + c2;
+#pragma unroll
+        for (int n = 0; n < DW / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+              __floats2bfloat162_rn(o[mt][n][2 * r] / den, o[mt][n][2 * r + 1] / den);
+      }
+    }
+}
+
 // The consumer over the bf16 ring (K7/K8, K3/K4).
 template <int D, int MT, bool SPLIT>
 __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __restrict__ q,
@@ -508,9 +795,14 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
                                         float* __restrict__ l_out, int Hkv, int G, int first,
                                         int lo, int hi, int ntiles, float scale,
                                         float softcap) {
-  RingTiles<D> tiles{smem};
-  consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G, first, lo,
-                              hi, ntiles, scale, softcap);
+  if constexpr (D == 256) {
+    consume_d256<MT, SPLIT>(smem, q, out, acc_out, m_out, l_out, Hkv, G, first, lo, hi, ntiles,
+                            scale, softcap);
+  } else {
+    RingTiles<D> tiles{smem};
+    consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G, first, lo,
+                                hi, ntiles, scale, softcap);
+  }
 }
 
 }  // namespace dtc

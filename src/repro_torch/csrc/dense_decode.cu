@@ -26,9 +26,9 @@
 //   for all G heads (the paper's head-first co-location, applied to
 //   decode). A producer warp's one thread issues TMA loads of 64-row bf16 K
 //   and V tiles (a 4-D tensor map that takes the view's strides, 128-byte
-//   swizzled) into a ring of 128 KB (8 stages at D 64, 4 at D 128, 2 at D
-//   256, where two warps share each tile by O's columns) on
-//   mbarriers, as far ahead as the ring allows. The block reads only the
+//   swizzled) into a ring of 128 KB (8 stages at D 64, 4 at D 128; at D
+//   256 3 stages, 192 KB, where the four warps share each tile by 64-column
+//   chunks of D) on mbarriers, as far ahead as the ring allows. The block reads only the
 //   rows a valid position touches: [max(split start, length - window),
 //   min(split end, length)), in 64-row tiles from its first row, so a
 //   window-1024 layer reads ~1024 rows, not the stripe. The four consumer

@@ -211,8 +211,8 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int ntiles = max(0, n_hi - n_lo);
   const DenseWalk<BN> walk{n_lo, n_hi, live, causal, window, off, sawtooth && (mb & 1)};
 
-  if (threadIdx.x / 128 == 2) {
-    // Producer: one thread keeps the ring full.
+  // Producer: one thread keeps the ring full.
+  auto produce = [&] {
     regs_dealloc<24>();
     if (threadIdx.x == 256) {
       uint64_t* full = ptc::full_bars<D>(smem);
@@ -236,9 +236,22 @@ fa2_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
-  } else {
+  };
+  auto consume = [&] {
     ptc::consume<D, SOFTCAP, true>(smem, walk, ntiles, q0, b * Hq + h, &to, lse, Sq, scale,
                                    softcap);
+  };
+  if constexpr (ptc::consumers_first<D>()) {
+    if (threadIdx.x / 128 < 2) {
+      consume();
+      return;
+    }
+    produce();
+  } else {
+    if (threadIdx.x / 128 == 2)
+      produce();
+    else
+      consume();
   }
 }
 

@@ -436,6 +436,39 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// 1 / x on the special-function unit: rcp.approx.ftz (about 1 ulp, 1 / inf
+// = 0).
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The two constants of softcap_log2, once per launch: k = 2 log2(e) scale /
+// softcap and c = softcap log2(e). The quotient is a multiply by rcp.approx,
+// so no kernel carries an IEEE division's slow path for it.
+struct Softcap {
+  float k, c;
+  __device__ __forceinline__ Softcap(float scale, float softcap)
+      : k(softcap > 0.f ? 2.f * 1.4426950408889634f * scale * fast_rcp(softcap) : 0.f),
+        c(softcap * 1.4426950408889634f) {}
+};
+
+// softcap * tanh(s * scale / softcap) in log2 units, from one ex2 and one
+// rcp: tanh(y) = 1 - 2 / (2^(2 y log2 e) + 1), within a few float32 ulps
+// of 1 of tanh. Past |y| ~ 44 the power is inf (or flushed to 0), which
+// gives exactly +-1 and no NaN. (tanh.approx.f32's 2^-11 absolute error,
+// times a cap of 50, would move a score by ~0.025.)
+__device__ __forceinline__ float softcap_log2(float s, const Softcap& cap) {
+  return cap.c * (1.f - 2.f * fast_rcp(fast_exp2(s * cap.k) + 1.f));
+}
+
+// A score s in log2 units: softcapped (CAP) or times scale2 = scale log2(e).
+template <bool CAP>
+__device__ __forceinline__ float log2_score(float s, float scale2, const Softcap& cap) {
+  return CAP ? softcap_log2(s, cap) : s * scale2;
+}
+
 // This thread's part of a warpgroup's 64 x D float32 accumulator (rows
 // tile_row and tile_row + 8 of the warpgroup's 64, scaled by mul[0] and
 // mul[1]) rounded to bf16 into a 128-byte-swizzled tile at `tile` (the

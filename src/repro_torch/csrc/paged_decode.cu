@@ -39,8 +39,9 @@
 //   from the first one's page start; positions before the range are masked.
 //   The producer warp's lanes each issue one box of a stage (ps 16, D 128:
 //   16 boxes, K and V; two at ps 8, D 256), each reading its page id from
-//   the table one stage ahead. At head_dim 256 the ring holds two stages
-//   and two warps share each tile, by O's columns (decode_tc.cuh). Every slot of every stage is written on every phase: a last
+//   the table one stage ahead. At head_dim 256 the ring holds three
+//   stages and the four warps share each tile, by 64-column chunks of D
+//   (decode_tc.cuh's consume_d256). Every slot of every stage is written on every phase: a last
 //   stage with fewer live pages loads the range's last live page again
 //   into its surplus slots, which the consumer masks to P = 0 (an unwritten
 //   slot could hold NaN bits, and 0 * NaN is NaN inside an mma; a page id

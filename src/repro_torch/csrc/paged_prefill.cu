@@ -381,9 +381,9 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_pref = blk.walk.n_pref;
   const int per_stage = BN / ps;
 
-  if (threadIdx.x / 128 == 2) {
-    // Producer: warp 8 keeps the ring full; its lanes issue a prefix
-    // stage's page boxes side by side, lane 0 the Q and tail boxes.
+  // Producer: warp 8 keeps the ring full; its lanes issue a prefix
+  // stage's page boxes side by side, lane 0 the Q and tail boxes.
+  auto produce = [&] {
     regs_dealloc<24>();
     if (threadIdx.x >= 256 + 32) return;
     uint64_t* full = ptc::full_bars<D>(smem);
@@ -424,10 +424,23 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         if (t + 1 < n_pref) page[r] = page_of(t + 1, r);
       }
     }
-    return;
+  };
+  auto consume = [&] {
+    ptc::consume<D, SOFTCAP, false>(smem, blk.walk, blk.ntiles, blk.q0, blk.b * Hq + blk.h,
+                                    &to, nullptr, St, scale, softcap);
+  };
+  if constexpr (ptc::consumers_first<D>()) {
+    if (threadIdx.x / 128 < 2) {
+      consume();
+      return;
+    }
+    produce();
+  } else {
+    if (threadIdx.x / 128 == 2)
+      produce();
+    else
+      consume();
   }
-  ptc::consume<D, SOFTCAP, false>(smem, blk.walk, blk.ntiles, blk.q0, blk.b * Hq + blk.h, &to,
-                                  nullptr, St, scale, softcap);
 }
 
 // -- K2q: quantized prefix codes on the tensor cores -----------------------------

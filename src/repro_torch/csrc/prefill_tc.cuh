@@ -15,13 +15,23 @@
 // chunk 1024-byte aligned. Per tile the consumers run S = Q K^T as wgmma
 // m64nBNk16 (both operands K-major in shared memory), the online softmax
 // in S's registers (each row over the four threads of a quad, ex2.approx
-// with scale * log2(e) folded into one multiply, softcap first), P rounded
-// to bf16 in place as the A-register fragment of O += P V (wgmma m64nDk16
-// with V MN-major, the transpose bit set). Masks run only on tiles the walk
-// calls an edge. setmaxnreg gives the consumers 240 registers and the
-// producer warpgroup 24 (K2q: 208 and 88, for its widening). O leaves
-// through shared memory by a TMA store that drops the rows past the tensor
-// map's extent.
+// with scale * log2(e) folded into one multiply; a softcap first, as one
+// ex2 and one rcp: hopper.cuh's softcap_log2), P rounded to bf16 in place
+// as the A-register fragment of O += P V (wgmma m64nDk16 with V MN-major,
+// the transpose bit set). Masks run only on tiles the walk calls an edge.
+// setmaxnreg gives the consumers 240 registers and the producer warpgroup
+// 24 (K2q: 208 and 88, for its widening). O leaves through shared memory by
+// a TMA store that drops the rows past the tensor map's extent.
+//
+// At head_dim 256 the kernels branch to the consumers first and return from
+// them (consumers_first). With the producer's branch first and the
+// consumers' code joining it at the kernel's end, ptxas allocated the
+// consumers the launch's 168 registers, not setmaxnreg's 240: K1 and K2
+// spilled 548-964 B (the SASS stored 32 live registers to the stack around
+// every S = Q K^T, to make room for S's accumulator, and S around the
+// softmax) and ptxas serialised every wgmma (C7512). Consumers first, they
+// take up to ~200 registers and spill nothing. D 64 and 128 fit 168 and
+// keep the producer first.
 //
 // BN is 128 keys at D 64 and 128, and 64 at D 256, where two limits meet.
 // Shared memory: Q (64 KB at D 256) and two stages of K and V at BN 128
@@ -60,6 +70,13 @@ template <int D>
 __host__ __device__ constexpr int kv_tile() {
   static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
   return D == 256 ? 64 : 128;
+}
+
+// Whether a kernel branches to its consumer warpgroups before its producer
+// (the header comment).
+template <int D>
+__host__ __device__ constexpr bool consumers_first() {
+  return D == 256;
 }
 
 // Dynamic shared memory, in bytes from a 1024-byte aligned base: Q, then
@@ -115,11 +132,11 @@ __device__ __forceinline__ uint8_t* setup(uint8_t* smem_raw) {
 template <bool SOFTCAP, bool MASK, int BN, class Walk>
 __device__ __forceinline__ void scores(float (&s)[BN / 2], float (&mx)[2], const Walk& walk,
                                        int t, int c0, int row0, int lane, float scale,
-                                       float softcap) {
+                                       const hopper::Softcap& cap) {
   const float scale2 = scale * LOG2E;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) {
-    float x = SOFTCAP ? softcap * tanhf(s[i] * scale / softcap) * LOG2E : s[i] * scale2;
+    float x = hopper::log2_score<SOFTCAP>(s[i], scale2, cap);
     if (MASK) {
       const int row = row0 + 8 * ((i >> 1) & 1);
       const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -161,6 +178,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF_F, NEG_INF_F};
   float l[2] = {0.f, 0.f};   // this thread's part of each row's sum
+  const Softcap cap(scale, softcap);
 
   mbar_wait(q_bar<D>(smem), 0);
   for (int t = 0; t < ntiles; ++t) {
@@ -191,9 +209,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
     const bool edge = walk.edge(t, c0, row_lo);
     float mx[2] = {NEG_INF_F, NEG_INF_F};
     if (edge)
-      scores<SOFTCAP, true, BN>(s, mx, walk, t, c0, row0, lane, scale, softcap);
+      scores<SOFTCAP, true, BN>(s, mx, walk, t, c0, row0, lane, scale, cap);
     else
-      scores<SOFTCAP, false, BN>(s, mx, walk, t, c0, row0, lane, scale, softcap);
+      scores<SOFTCAP, false, BN>(s, mx, walk, t, c0, row0, lane, scale, cap);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {

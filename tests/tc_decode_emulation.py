@@ -5,10 +5,12 @@ and K3q/K4q (bf16 q over int8 or fp8 pools, ``paged_decode_q_tc_kernel``),
 which run one consumer (``src/repro_torch/csrc/decode_tc.cuh``) and differ
 only in where a tile's rows come from, where its first key sits, and, for
 a quantized pool, the codes widened exactly and the page scales folded into
-S's and P's columns.
+S's and P's columns. Beside it, the softcap of K1's, K2's and the head_dim
+256 decode consumer (``softcap_log2``).
 
-Not a test module: ``tests/test_torch_dense.py`` and
-``tests/test_torch_paged_tc.py`` import it.
+Not a test module: ``tests/test_torch_dense.py``,
+``tests/test_torch_paged_tc.py``, ``tests/test_torch_kernels.py`` and
+``tests/test_torch_paged_prefill_tc.py`` import it.
 """
 
 import numpy as np
@@ -20,6 +22,17 @@ from repro_torch.cache.layout import decode_split_ranges
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 TILE = 64   # rows of a K / V tile (dtc::BT)
 ROW_TOL = 2.0**-6   # per row, against the row's max |o|: one bf16 ulp is 2^-7
+
+
+def softcap_log2(s, scale, softcap):
+    """hopper.cuh's softcap_log2 in float32: softcap * tanh(s * scale /
+    softcap) * log2(e) as c * (1 - 2 / (2^(s k) + 1)), k = 2 log2(e) scale
+    (1 / softcap) and c = softcap log2(e) rounded as the kernel rounds them
+    (the power is inf past |y| ~ 44, and the result exactly +-c)."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    k = f32(2.0) * f32(LOG2E) * f32(scale) * (1.0 / f32(softcap))
+    c = f32(softcap) * f32(LOG2E)
+    return c * (1.0 - 2.0 / (torch.exp2(s * k) + 1.0))
 
 
 def row_err(j, t) -> float:
@@ -42,15 +55,18 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
 
     Tiles of 64 keys from ``first``, the four warps of a block (two for
     each m16 tile when the group exceeds 16) taking whole tiles in turn,
-    each keeping its own online softmax (at head_dim 256 two warps share
-    each tile, by O's columns, so half as many states walk in turn; a
-    column's arithmetic does not change): products of bf16 inputs summed in
+    each keeping its own online softmax: products of bf16 inputs summed in
     float32, scores in log2 units with scale * log2(e) folded into one
-    multiply (softcap first, in natural units), positions outside
+    multiply (a softcap first, in natural units), positions outside
     [lo, hi) masked, exp2, P rounded to bf16 before P V while the row sum
     takes P unrounded. The warps' states merge once (exp2 weights). One
     pass writes the normalised row; a split writes (acc, m ln 2, l), merged
-    by the combine kernel in natural units.
+    by the combine kernel in natural units. A softcap is tanh below head_dim
+    256 and ``softcap_log2`` at 256, as the kernels compute it. At head_dim 256 all four warps
+    take every tile (one state per cell): S is the sum, in warp order, of
+    four partial products over 64-column chunks of D, and the row sum is
+    kept per 16-key slice of a tile (a warp's) and the four slices' sums
+    added in warp order at the end.
 
     Over a quantized pool the codes widen exactly (every int8 and e4m3
     value is a bf16 value), and positions outside [lo, hi) are zeros by
@@ -61,8 +77,9 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
     remainder's; the row sum takes P unscaled."""
     b, hq, d = q.shape
     group = hq // hkv
-    col_splits = 2 if d == 256 else 1
-    warps = (4 if group <= 16 else 2) // col_splits   # states taking tiles in turn
+    chunks = 4 if d == 256 else 1   # partial products of S, summed in order
+    warps = 1 if d == 256 else (4 if group <= 16 else 2)   # states taking tiles in turn
+    slices = 4 if d == 256 else 1   # row sums kept per key slice
     scale = 1.0 / d**0.5
     scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
     qf = q.float().reshape(b, hkv, group, d)
@@ -72,7 +89,7 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
         for first, lo, hi in cells(bi):
             ntiles = -(-(hi - first) // TILE) if hi > lo else 0
             m = torch.full((warps, hkv, group), -1e30)
-            l = torch.zeros((warps, hkv, group))
+            l = torch.zeros((warps, slices, hkv, group))
             acc = torch.zeros((warps, hkv, group, d))
             for t in range(ntiles):
                 w, t0 = t % warps, first + t * TILE
@@ -82,18 +99,27 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
                 ok = (pos >= lo) & (pos < hi)
                 if scales:
                     kt, vt = (torch.where(ok[0, 0, :, None], x, 0.0) for x in (kt, vt))
-                s = torch.einsum("hgd,htd->hgt", qf[bi], kt)
+                dc = d // chunks
+                s = None
+                for c in range(chunks):
+                    part = torch.einsum("hgd,htd->hgt", qf[bi][..., c * dc:(c + 1) * dc],
+                                        kt[..., c * dc:(c + 1) * dc])
+                    s = part if s is None else s + part
                 if scales:
                     s = s * scales[0][:, None, :]
-                if softcap:
-                    x = softcap * torch.tanh(s * scale / softcap) * LOG2E
-                else:
+                if not softcap:
                     x = s * scale2
+                elif d == 256:
+                    x = softcap_log2(s, scale, softcap)
+                else:
+                    x = softcap * torch.tanh(s * scale / softcap) * LOG2E
                 x = torch.where(ok, x, torch.tensor(-1e30))
                 m_new = torch.maximum(m[w], x.amax(-1))
                 alpha = torch.exp2(m[w] - m_new)
                 p = torch.where(ok, torch.exp2(x - m_new[..., None]), torch.tensor(0.0))
-                l[w] = l[w] * alpha + p.sum(-1)
+                width = TILE // slices
+                l[w] = l[w] * alpha[None] + torch.stack(
+                    [p[..., j * width:(j + 1) * width].sum(-1) for j in range(slices)])
                 if scales:
                     p = torch.where(ok, p * scales[1][:, None, :], torch.tensor(0.0))
                     p_hi = p.to(torch.bfloat16).float()
@@ -104,7 +130,10 @@ def tensor_core_decode(q, hkv, cells, tile_kv, *, softcap=None):
                 m[w] = m_new
             m_star = m.amax(0)
             wt = torch.exp2(m - m_star)
-            l_star = (l * wt).sum(0)
+            l_sum = l[:, 0]
+            for j in range(1, slices):
+                l_sum = l_sum + l[:, j]
+            l_star = (l_sum * wt).sum(0)
             acc_star = (acc * wt[..., None]).sum(0)
             states.append((acc_star, torch.where(l_star == 0, torch.tensor(-1e30),
                                                  m_star * LN2), l_star))

@@ -1877,8 +1877,8 @@ def test_d256_paged_prefill_matches_plain(cuda, ps, case, hq, hkv, window):
 @pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
 @pytest.mark.parametrize("window", [None, 75])
 def test_d256_paged_decode_matches_plain(cuda, ps, num_splits, hq, hkv, window):
-    """K3 / K4 at head_dim 256 (two warps share each 64-row tile by O's
-    columns): rows of 0, 1, 50, 17 and 1280 tokens, then three rows frozen
+    """K3 / K4 at head_dim 256 (the four warps share each 64-row tile by
+    64-column chunks of D): rows of 0, 1, 50, 17 and 1280 tokens, then three rows frozen
     on the null page at the full table width (table all 0, lengths 0 and
     1), as a graph runs a free row; the null page holds random rows."""
     rng = np.random.default_rng(84 + ps)
@@ -1913,6 +1913,30 @@ def test_d256_dense_decode_matches_plain(cuda, num_splits, hq, hkv, smax, window
     torch.cuda.synchronize()
     assert _row_err(o, ref) < ROW_TOL
     assert float(o[0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_d256_decode_group_32_matches_plain(cuda, layout, num_splits):
+    """K3 / K4 and K7 / K8 at head_dim 256 with a group of 32 (two m16
+    tiles, which take the partial-S exchange in turn), window 75, softcap
+    50: paged rows of 0, 1, 50, 17 and 1280 tokens, dense rows of 0, 1,
+    37, 643, 1275 and 1280."""
+    rng = np.random.default_rng(87)
+    kw = dict(num_splits=num_splits, window=75, softcap=50.0)
+    kernels.reset_launch_counts()
+    if layout == "paged":
+        args = _decode_inputs(rng, cuda, torch.bfloat16, 32, 1, d=256, ps=16, mp=80)
+        o = pd.paged_flash_decode(*args, **kw)
+        assert _paged_routes(kernels.launch_counts(), torch.bfloat16)
+        ref = pd.paged_flash_decode_plain(*args, **kw)
+    else:
+        args = _dense_inputs(rng, cuda, torch.bfloat16, 32, 1, 256, 1280)
+        o = dd.flash_decode(*args, **kw)
+        assert _dense_routes(kernels.launch_counts(), torch.bfloat16)
+        ref = dd.flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _row_err(o, ref) < ROW_TOL
 
 
 def test_d256_refuses_what_no_kernel_takes(cuda):

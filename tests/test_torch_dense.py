@@ -193,13 +193,16 @@ def test_tensor_core_k7_k8_arithmetic_matches_jax(d, hq, hkv, num_splits, window
     assert torch.equal(ot, ot2)
 
 
-@pytest.mark.parametrize("hq,hkv", [(8, 4), (4, 1)], ids=["gemma2", "gemma3"])
+@pytest.mark.parametrize("hq,hkv", [(8, 4), (4, 1), (32, 1)], ids=["gemma2", "gemma3", "g32"])
 @pytest.mark.parametrize("num_splits", [1, 3])
-@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("window", [None, 100, 40])
 def test_tensor_core_k7_k8_d256_arithmetic_matches_jax(hq, hkv, num_splits, window):
-    """At head_dim 256 two warps share each tile by O's columns, so two
-    states walk the tiles in turn, not four: the lengths of the test above,
-    gemma's groups of 2 and 4, softcap 50."""
+    """At head_dim 256 the four warps take every tile, one state a cell,
+    S summed from four partial products over 64-column chunks of D and the
+    row sums kept per 16-key slice: the lengths of the test above, gemma's
+    groups of 2 and 4 and a group of 32 (two m16 tiles), softcap 50; window
+    40 masks all but the end of a tile, so the exchanged partial sums of a
+    tile are mostly masked."""
     (qj, kj, vj), (qt, kt, vt) = _inputs(4, hq, hkv, 320, 256, seed=75, dtype="bfloat16")
     lj, lt = _lengths([0, 1, 203, 320])
     kw = dict(window=window, softcap=50.0, chunk=64, num_splits=num_splits)

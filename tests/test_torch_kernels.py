@@ -18,6 +18,7 @@ from repro.kernels.flash_attention import MappingConfig as JaxMapping
 from repro.kernels.flash_attention import flash_attention_fwd as jax_fa
 from repro.kernels.paged_decode_attention import paged_flash_decode as jax_decode
 from repro.kernels.paged_prefill_attention import paged_flash_prefill as jax_prefill
+from tc_decode_emulation import softcap_log2
 
 from repro_torch.kernels import decode_common, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -98,7 +99,7 @@ def _tensor_core_k1(q, k, v, *, causal, window=None, softcap=None, kv_len=None,
     """The arithmetic of K1's bf16 tensor-core kernel (``fa2_fwd_tc`` in
     csrc/flash_attention.cu), written out in float32: products of bf16
     inputs summed in float32; scores in log2 units with scale * log2(e)
-    folded into one multiply (softcap first, in natural units); an online
+    folded into one multiply (a softcap first: ``softcap_log2``); an online
     softmax over 128-key tiles with exp2; P rounded to bf16 before P V while
     the row sum takes P unrounded; float32 accumulation; o rounded to bf16,
     lse = m ln 2 + log l. ``q_offset`` / ``kv_len`` (ints or (B,) tensors)
@@ -132,7 +133,7 @@ def _tensor_core_k1(q, k, v, *, causal, window=None, softcap=None, kv_len=None,
         walked = ((c0 // block_n >= n_lo) & (c0 // block_n < n_hi))[..., 0]   # (B, 1, Sq)
         s = qf @ kf[:, :, c0:c0 + block_n].transpose(-1, -2)
         if softcap:
-            x = softcap * torch.tanh(s * scale / softcap) * log2e
+            x = softcap_log2(s, scale, softcap)
         else:
             x = s * torch.tensor(scale * log2e, dtype=torch.float32)
         cols = torch.arange(c0, c0 + s.shape[-1])[None, :]
@@ -188,6 +189,40 @@ def test_tensor_core_k1_arithmetic_matches_jax(d, kw):
                                                      torch.tensor(7.0, dtype=vt.dtype)),
                                  block_n=block_n, **kw)
         assert torch.equal(ot, ot2)
+
+
+def test_softcap_log2_matches_tanh_and_saturates():
+    """The consumers' softcap (one ex2, one rcp) against softcap * tanh *
+    log2(e): within 2e-6 of the cap over |y| <= 8, and exactly +-cap * log2(e)
+    past |y| 44, where the power is inf or 0 (no NaN)."""
+    scale, cap = 0.0625, 30.0
+    y = torch.cat([torch.linspace(-8.0, 8.0, 4001), torch.tensor([-1e4, -90.0, -45.0, 45.0,
+                                                                  90.0, 1e4])])
+    s = (y * cap / scale).float()
+    got = softcap_log2(s, scale, cap)
+    want = cap * torch.tanh(y.double()) * 1.4426950408889634
+    assert torch.isfinite(got).all()
+    assert float((got.double() - want).abs().max()) < 2e-6 * cap
+    c = torch.tensor(cap, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                               dtype=torch.float32)
+    assert torch.equal(got[-6:], torch.stack([-c, -c, -c, c, c, c]))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_tensor_core_k1_saturated_softcap_matches_jax(d):
+    """Scores far past the softcap (q x 100, k x 20, softcap 5: |s scale /
+    cap| mostly beyond 44, where the kernel's power overflows to inf or
+    flushes to 0) give the JAX kernel's tanh, causal, window 50: o per row
+    within 2^-6, lse within 1e-5."""
+    rng = np.random.default_rng(64 + d)
+    q, k, v = (_normal(rng, 1, h, 130, d) for h in (4, 2, 2))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (100 * q, 20 * k, v))
+    kw = dict(causal=True, window=50, softcap=5.0)
+    oj, lj = jax_fa(qj, kj, vj, mapping=JaxMapping(block_m=256, block_n=256),
+                    interpret=True, **kw)
+    ot, lt = _tensor_core_k1(qt, kt, vt, block_n=64 if d == 256 else 128, **kw)
+    assert _row_err(oj, ot) < ROW_TOL
+    assert _diff(lj, lt) < LSE_TOL
 
 
 @pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)

@@ -4,7 +4,8 @@
 csrc/prefill_tc.cuh) runs no CPU mode, so its arithmetic is written out
 here in float32 (``_tensor_core_k2``): per 128-row tile of one (b, q head),
 products of bf16 inputs summed in float32; scores in log2 units with
-scale * log2(e) folded into one multiply (softcap first, in natural units);
+scale * log2(e) folded into one multiply (a softcap first, as the kernel's
+one ex2 and one rcp: ``tc_decode_emulation.softcap_log2``);
 an online softmax with exp2 over 128-key tiles (64-key at head_dim 256),
 the prefix's first, page by
 page from the page holding the tile's first visible position (a stage's
@@ -31,6 +32,7 @@ import torch
 
 from repro.cache import quant as jax_quant
 from repro.kernels.paged_prefill_attention import paged_flash_prefill as jax_prefill
+from tc_decode_emulation import softcap_log2
 
 ROW_TOL = 2.0**-6
 BF16_TOL = 3e-2
@@ -99,10 +101,7 @@ def _tensor_core_k2(q, kp, vp, table, kt, vt, plen, tlen, *, window=None, softca
             acc = torch.zeros((hq, qf.shape[1], d))
             for k, v, ok in tiles:
                 s = qf @ expand(k).transpose(-1, -2)
-                if softcap:
-                    x = softcap * torch.tanh(s / d**0.5 / softcap) * LOG2E
-                else:
-                    x = s * scale2
+                x = softcap_log2(s, 1.0 / d**0.5, softcap) if softcap else s * scale2
                 x = torch.where(ok, x, torch.tensor(NEG_INF))
                 m_new = torch.maximum(m, x.amax(-1))
                 alpha = torch.exp2(m - m_new)

@@ -101,9 +101,10 @@ def test_tensor_core_k3_k4_arithmetic_matches_jax(d, hq, hkv, ps, num_splits, wi
 @pytest.mark.parametrize("ps", [8, 16])
 @pytest.mark.parametrize("num_splits", [1, 3])
 def test_tensor_core_k3_k4_d256_arithmetic_matches_jax(hq, hkv, ps, num_splits):
-    """At head_dim 256 two warps share each tile by O's columns, so two
-    states walk the tiles in turn, not four; the rows and splits of the
-    test above, gemma's groups of 2 and 4, window 50 and softcap 50."""
+    """At head_dim 256 the four warps take every tile, one state a cell,
+    S summed from four partial products over 64-column chunks of D; the
+    rows and splits of the test above, gemma's groups of 2 and 4, window 50
+    and softcap 50."""
     jargs, targs = _inputs(hq, hkv, 256, ps, seed=90 + ps)
     kw = dict(window=50, softcap=50.0, num_splits=num_splits)
     oj = jax_decode(*jargs, interpret=True, **kw)

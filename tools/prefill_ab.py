@@ -5,7 +5,7 @@ prefix codes) and K1 (the FA2 forward).
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
-    python3 tools/prefill_ab.py [--serve] [OTHER_ROOT ...]
+    python3 tools/prefill_ab.py [--serve] [--d256] [OTHER_ROOT ...]
 
 Each root (this checkout, and every OTHER_ROOT, for example the parent
 commit unpacked with ``git archive``) runs in a process of its own, twice,
@@ -32,13 +32,21 @@ D 128, bf16, pages of 16 on a scattered table):
   offsets, each case again with an explicit offset of 0 (the kernel's
   offset array, not its null pointer), its o and lse checked bit for bit
   against the first root's;
+* head_dim 256 at the shapes of ``chip_smoke.py``'s ``check_gemma_kernels``
+  (``GEMMA_K1`` and ``GEMMA_K2``): K1 at B 1, S 8192, causal, global and
+  the model's window, and K2 at B 2, a prefix of 1000, a tail of 256 (the
+  second row's live to 219), pages of 16, with the model's window, at
+  gemma2-2b's widths (Hq 8, Hkv 4, softcap 50; K1 also without it) and
+  gemma3-1b's (Hq 4, Hkv 1, no softcap), K1's o and lse and K2's o
+  compared bit for bit with the first root's;
 * in a root that has the paged extend's gather route, the extend A/B
   (:func:`extend_ab`, which ``chip_smoke.py``'s plan part (d) runs too):
   K2 against the gather route (the prefix gathered and packed into dense
   stripes, then K1 with per-row offsets), and the route's two parts alone,
   at ``EXTEND_SHAPES``.
 
-With ``--serve`` each run then serves ``chip_smoke.py``'s run (a) on
+``--d256`` runs the head_dim 256 cases and the first K1 case (D 128)
+alone. With ``--serve`` each run then serves ``chip_smoke.py``'s run (a) on
 full-width llama3-8b (random weights) over an int8 and then an fp8 pool,
 twice each on a fresh engine, and prints the TTFT of its 8 requests (host
 clock, informative only: it spreads by more than the kernels' difference)
@@ -75,11 +83,22 @@ EXTEND_SHAPES = ((1, 256, 16), (1, 1024, 256), (1, 4096, 64), (1, 2048, 512),
                  (8, 256, 256), (8, 1024, 16), (8, 2048, 128), (8, 4096, 512),
                  (8, 1024, 256), (1, 512, 128), (4, 4096, 256))
 EXTEND_HELD_OUT = EXTEND_SHAPES[8:]
+#: head_dim 256 (chip_smoke.py's check_gemma_kernels): K1's cases (label,
+#: Hq, Hkv, window, softcap) at B 1, S 8192, causal; K2's (label, Hq, Hkv,
+#: window, softcap) at B 2, prefix 1000, tail 256.
+GEMMA_K1 = (("K1 D 256 gemma2-2b (S 8192, global, softcap 50)", 8, 4, None, 50.0),
+            ("K1 D 256 gemma2-2b (S 8192, window 4096, softcap 50)", 8, 4, 4096, 50.0),
+            ("K1 D 256 gemma2-2b widths (S 8192, global, no softcap)", 8, 4, None, None),
+            ("K1 D 256 gemma3-1b (S 8192, global)", 4, 1, None, None),
+            ("K1 D 256 gemma3-1b (S 8192, window 512)", 4, 1, 512, None))
+GEMMA_K2 = (("K2 D 256 gemma2-2b (prefix 1000, tail 256, window 4096, softcap 50)", 8, 4,
+             4096, 50.0),
+            ("K2 D 256 gemma3-1b (prefix 1000, tail 256, window 512)", 4, 1, 512, None))
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAVED = os.path.join(HERE, "build", "prefill_ab")
 
 
-def k2_inputs(torch, gen, b, plen, st, tlens):
+def k2_inputs(torch, gen, b, plen, st, tlens, hq=HQ, hkv=HKV, d=D):
     """bf16 q, pools, a scattered table (page 0 the null page), tail K/V and
     the lengths of one K2 case."""
     def randn(*shape):
@@ -87,10 +106,10 @@ def k2_inputs(torch, gen, b, plen, st, tlens):
 
     mp = -(-plen // PS)
     num_pages = 1 + b * mp
-    kp, vp = randn(HKV, num_pages, PS, D), randn(HKV, num_pages, PS, D)
+    kp, vp = randn(hkv, num_pages, PS, d), randn(hkv, num_pages, PS, d)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
-    q, kt, vt = randn(b, HQ, st, D), randn(b, HKV, st, D), randn(b, HKV, st, D)
+    q, kt, vt = randn(b, hq, st, d), randn(b, hkv, st, d), randn(b, hkv, st, d)
     plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
     tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
     return (q, kp, vp, table, kt, vt, plens, tl)
@@ -170,7 +189,7 @@ def serve_ttft(torch, cs, tag) -> dict:
     return ttfts
 
 
-def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
+def run_one(root: str, tag: str, first: bool, serve: bool, d256: bool = False) -> None:
     # The port from `root`; the timer and the bars from this checkout's
     # chip_smoke.py, so both roots are measured alike.
     sys.path.insert(0, os.path.join(root, "src"))
@@ -236,7 +255,7 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
             torch.save(outs, path)
         return all(torch.equal(u, v) for u, v in zip(outs, torch.load(path)))
 
-    for i, (label, b, plen, st, tlens) in enumerate((
+    for i, (label, b, plen, st, tlens) in enumerate(() if d256 else (
             ("smoke shape (B 2, prefix 1000, tail 256)", 2, 1000, 256, [256, 219]),
             ("serve extend shape (B 7, prefix 256, tail 256)", 7, 256, 256, [256] * 7))):
         args = k2_inputs(torch, gen, b, plen, st, tlens)
@@ -269,7 +288,7 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
         del args, q, kp, vp, table, kt, vt, plens, tl
 
     offsets = "q_offset" in inspect.signature(fa.flash_attention_fwd).parameters
-    for i, (label, b, hq, hkv, d, s, window) in enumerate(K1_CASES):
+    for i, (label, b, hq, hkv, d, s, window) in enumerate(K1_CASES[:1] if d256 else K1_CASES):
         q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(2))
@@ -290,7 +309,31 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
                    note=f"; o and lse bitwise equal to the first root's: {same0}")
             times[f"{label}, offset 0 as an array"]["bitwise_equal_first_root"] = same0
         del q, k, v, o, lse, o_ref
-    if hasattr(pp, "paged_prefill_gather"):
+    for i, (label, hq, hkv, window, cap) in enumerate(GEMMA_K1):
+        q = torch.randn((1, hq, 8192, 256), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((1, hkv, 8192, 256), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=cap)
+        o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        fn = lambda: fa.flash_attention_fwd(q, k, v, **kw)
+        o, lse = fn()
+        torch.cuda.synchronize()
+        same = same_as_first_root(f"k1_d256_{i}", [o, lse])
+        report(label, fn, o_ref, "fa2_fwd",
+               note=f"; o and lse bitwise equal to the first root's: {same}")
+        times[label]["bitwise_equal_first_root"] = same
+        del q, k, v, o, lse, o_ref
+    for i, (label, hq, hkv, window, cap) in enumerate(GEMMA_K2):
+        args = k2_inputs(torch, gen, 2, 1000, 256, [256, 219], hq=hq, hkv=hkv, d=256)
+        kw = dict(window=window, softcap=cap)
+        ref = pp.paged_flash_prefill_plain(*args, **kw)
+        fn = lambda: pp.paged_flash_prefill(*args, **kw)
+        same = same_as_first_root(f"k2_d256_{i}", [fn()])
+        report(label, fn, ref, "paged_prefill",
+               note=f"; o bitwise equal to the first root's: {same}")
+        times[label]["bitwise_equal_first_root"] = same
+        del args, ref
+    if hasattr(pp, "paged_prefill_gather") and not d256:
         times["extend A/B"] = extend_ab(torch, timer, gen,
                                         log=lambda m: print(f"[{tag}] {m}", flush=True))
     line = {"root": root, "tag": tag, "card": cs.smi_line(), "times": times}
@@ -300,19 +343,21 @@ def run_one(root: str, tag: str, first: bool, serve: bool) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) == 6 and sys.argv[1] == "--one":
-        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first", sys.argv[5] == "serve")
+    if len(sys.argv) == 7 and sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first", sys.argv[5] == "serve",
+                sys.argv[6] == "d256")
         return 0
     args = sys.argv[1:]
     serve = "--serve" in args
+    d256 = "--d256" in args
     others = [(os.path.abspath(p), os.path.basename(os.path.abspath(p)))
-              for p in args if p != "--serve"]
+              for p in args if p not in ("--serve", "--d256")]
     order = others + [(HERE, "this")] * (2 if others else 1) + others[::-1]
     rc = 0
     for i, (root, tag) in enumerate(order):
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, tag,
-                              "first" if i == 0 else "later", "serve" if serve else "-"],
-                             cwd=root).returncode
+                              "first" if i == 0 else "later", "serve" if serve else "-",
+                              "d256" if d256 else "-"], cwd=root).returncode
     return rc
 
 
