@@ -70,7 +70,14 @@ and prints no result. Phases, in order (any failure exits non-zero):
      bitwise equal, CUDA-event times, the bound and SDPA where one call
      computes the same function, and K1 (global and window 4096) and K7 /
      K8 at gemma2-2b's widths once more without the softcap, beside SDPA,
-     which has none (the like-for-like library row);
+     which has none (the like-for-like library row); then K5 / K6 at
+     head_dim 256 (``check_gemma_backward``) at each model's train shape
+     (gemma2-2b B 1, S 8192; gemma3-1b B 2, S 4096), global and the local
+     window, with the softcap: per (b, head) slice within 2^-6 of the plain
+     backward, 100 reruns and the block-first order bitwise equal, every
+     launch on the tensor cores, times, bounds and SDPA's backward like for
+     like (no softcap, the window as a mask; its refusal printed if it
+     refuses);
   3b. plan — the plan's models against the card: (a) bf16 K3 / K4 at
      llama3-8b widths, every row full, B 1, 2, 4, 8 over tables of 128 and
      256 pages (and the serve runs' 8 x 36 and 1 x 260) at 1, 2, 3, 4, 6,
@@ -170,8 +177,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
      or 128 of 1024: K1, K7; one row of 4400 alone: K8), every run held to
      the plain path by ``compare_sync``, and the fused decode on (a)'s
      engine at ``steps_per_sync`` 1 and 8. ``python3 chip_smoke.py --phase
-     gemma`` runs the head_dim 256 kernels and these runs alone, with no
-     result line;
+     gemma`` runs the head_dim 256 kernels, these runs and the gemma train
+     phases alone, with no result line;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -182,7 +189,12 @@ and prints no result. Phases, in order (any failure exits non-zero):
      float32 LM head, timed alone there (K1 with SDPA beside it, K5 + K6
      with SDPA's backward), beside the step time; then one step's
      gradients at 2 layers, sequence 1024, kernel path against the plain
-     path.
+     path. Then the same for gemma2-2b (4 layers: 2 local with window 4096,
+     2 global; sequence 8192, batch 2 in 2 microbatches) and gemma3-1b (6
+     layers: 5 local with window 512, 1 global; sequence 4096, batch 4 in 2
+     microbatches) at full width, head_dim 256: K5 and K6 on the tensor
+     cores at D 256, the float32 LM head over 256000 / 262144 words, the
+     breakdown per distinct window of the layers.
 
 It ends with one JSON line of per-kernel numbers and, last, the line
 ``{"ok": true, "device": {...}}``.
@@ -329,8 +341,10 @@ def ptxas_d256(log_text: str) -> list:
             rows[-1][1] = int(line.split("Used")[1].split()[0])
     out = []
     for name, regs, st, ld in rows:
-        m = re.search(r"(\w+_tc_kernel)I((?:L[ib]\d+E)+)", name)
-        if m is None or "Li256E" not in m.group(2):
+        # A kernel templated on head_dim 256, or one written for it alone
+        # (K5 / K6's ``*_tc256_kernel``).
+        m = re.search(r"(\w+_tc(?:256)?_kernel)I((?:L[ib]\d+E)+)", name)
+        if m is None or ("Li256E" not in m.group(2) and "tc256_kernel" not in m.group(1)):
             continue
         ident = m.group(1)   # ...<length><kernel name>, the Itanium mangling
         kernel = next((ident[n.end():] for n in re.finditer(r"\d+", ident)
@@ -1410,6 +1424,12 @@ def check_dense_decode(torch, timer, results):
 #: its attention softcap). gemma2-2b's group of 2 (softcap 50, window 4096),
 #: gemma3-1b's group of 4 over one kv head (no softcap, window 512).
 GEMMA_WIDTHS = (("gemma2-2b", 8, 4, 4096, 50.0), ("gemma3-1b", 4, 1, 512, None))
+#: The gemma train phases (``train``): layers kept, sequence, global batch
+#: and microbatches. gemma2-2b: 2 local layers (window 4096) and 2 global,
+#: sequence 8192 so that the window bites; gemma3-1b: 5 local (window 512)
+#: and 1 global.
+GEMMA_TRAIN = {"gemma2-2b": dict(layers=4, seq=8192, batch=2, micro=2),
+               "gemma3-1b": dict(layers=6, seq=4096, batch=4, micro=2)}
 D256 = 256
 #: Reruns of each head_dim 256 case that must give the same bits.
 RERUNS = 100
@@ -1504,6 +1524,7 @@ def check_gemma_kernels(torch, timer):
                     f"the softcap: {ms:.4f} ms")
                 no_cap_ms[("K1", window)] = ms
         del q, k, v
+        rows.extend(check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap))
 
         # K2: B 2, prefix 1000, tail 256, pages of 16, the local window.
         b, plen, st, tlens = 2, 1000, 256, [256, 219]
@@ -1594,6 +1615,107 @@ def check_gemma_kernels(torch, timer):
         ms = no_cap_ms.get((row["kernel"], None if window < 0 else window))
         if ms is not None and row["widths"].startswith("gemma2-2b"):
             row["ms_without_softcap"] = ms
+    return rows
+
+
+def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
+    """K5 and K6 at head_dim 256 (bf16, tensor cores) at ``model``'s train
+    shape (``GEMMA_TRAIN``: one microbatch), causal, global and its local
+    window, with its softcap: each gradient per (b, head) slice within
+    ROW_TOL of the plain backward, 100 reruns of each kernel and the
+    block-first order bitwise equal to the first run, one launch each on the
+    tensor cores, CUDA-event medians, the bound (bytes over 3.35 TB/s
+    against K5's three and K6's four products over the live (row, key)
+    pairs at 989 TFLOP/s) and SDPA's backward like for like: no softcap
+    (K5 / K6 timed again without it), the window as an explicit mask, K / V
+    expanded to Hq. Returns one row per (kernel, window)."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    d = D256
+    run_cfg = GEMMA_TRAIN[model]
+    b, s = run_cfg["batch"] // run_cfg["micro"], run_cfg["seq"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
+    pos = torch.arange(s, device="cuda")
+    group = hq // hkv
+    rows = []
+    for window in (None, local):
+        label = f"{model} (Hq {hq}, Hkv {hkv}) B {b} S {s} window {window}"
+        kw = dict(causal=True, window=window, softcap=cap)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+
+        def run(order=fa.HEAD_FIRST, kw=kw):
+            mapping = fa.MappingConfig(order=order)
+            dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, mapping=mapping, **kw)
+            return (dq, *fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, mapping=mapping,
+                                                    **kw))
+
+        kernels.reset_launch_counts()
+        got = run()
+        launched = bwd_launches({key: 0 for key in kernels.launch_counts()},
+                                kernels.launch_counts())
+        ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        rel = [slice_err(g, r) for g, r in zip(got, ref)]
+        ab = [err(g, r) for g, r in zip(got, ref)]
+        del ref
+        differ = sum(not all(torch.equal(x, y) for x, y in zip(run(), got))
+                     for _ in range(RERUNS))
+        orders = all(torch.equal(x, y) for x, y in zip(run(fa.BLOCK_FIRST), got))
+        del got
+        ms5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+        ms6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw))
+        no_cap = ""
+        if cap is not None:
+            nc = dict(kw, softcap=None)
+            nc5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **nc))
+            nc6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **nc))
+            no_cap = f"; without the softcap K5 {nc5:.4f} ms, K6 {nc6:.4f} ms"
+        # SDPA's backward on the same shapes (no softcap; the window as a mask).
+        leaves = [t.detach().requires_grad_(True) for t in
+                  (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+        try:
+            if window is None:
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            else:
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lib_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+            lib = f"{lib_ms:.4f} ms"
+            del out
+        except RuntimeError as e:   # no SDPA backend takes these shapes
+            lib_ms, lib = None, f"refused ({str(e).splitlines()[0][:160]})"
+        del leaves
+        torch.cuda.empty_cache()
+        pairs = b * hq * sum(min(r + 1, window or s) for r in range(s))
+        b5 = bound(nbytes(q, k, v, do, lse, delta, q), 6.0 * d * pairs)
+        b6 = bound(nbytes(q, k, v, do, lse, delta, k, v), 8.0 * d * pairs)
+        log(f"K5/K6 D 256 {label} softcap {cap}: per-slice relative dq {rel[0]:.3e} dk "
+            f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {ROW_TOL:.3e}), max abs {ab[0]:.3e} "
+            f"{ab[1]:.3e} {ab[2]:.3e}; {differ} of {RERUNS} reruns differ, block-first "
+            f"bitwise equal {orders}; launches (all, on the tensor cores) {launched}; K5 "
+            f"{ms5:.4f} ms bound {b5[0]:.4f} ({b5[1]}), K6 {ms6:.4f} ms bound {b6[0]:.4f} "
+            f"({b6[1]}), pair {ms5 + ms6:.4f} ms; plain (pair) {plain_ms:.3f} ms; library sdpa "
+            f"backward {lib}{no_cap}")
+        if max(rel) > ROW_TOL or differ or not orders or launched != {"dq": (1, 1),
+                                                                         "dkv": (1, 1)}:
+            raise AssertionError(f"K5/K6 D 256 {label}: disagree with the plain backward, "
+                                 "change between reruns or orders, or missed the tensor cores")
+        for key, ms, kb, e in (("K5", ms5, b5, ab[0]), ("K6", ms6, b6, max(ab[1:]))):
+            rows.append(dict(kernel=key, widths=label, ms=ms, plain_ms=plain_ms,
+                             bound_ms=kb[0], bound_by=kb[1], library_ms=lib_ms,
+                             slice_err=max(rel), max_abs_err=e))
+            if cap is not None:
+                rows[-1]["ms_without_softcap"] = nc5 if key == "K5" else nc6
+        del o, lse, delta
     return rows
 
 
@@ -3010,9 +3132,17 @@ def serve_gemma(torch, timer, cfg, params):
     return counts, fused
 
 
-# -- phase 5: train llama3-8b widths ------------------------------------------
+# -- phase 5: train at full width ----------------------------------------------
 
-def train(torch, cfg_full, seed=0):
+def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+          micro=TRAIN_MICRO):
+    """``Trainer`` + ``make_train_step`` on ``cfg_full`` cut to ``layers``
+    layers, ``TRAIN_STEPS`` steps of ``batch`` rows of ``seq`` tokens in
+    ``micro`` microbatches: each step's loss, grad norm, time and launches
+    (K1 twice per layer per microbatch, K5 and K6 once, all on the tensor
+    cores), the peak memory; then ``train_breakdown``; then one step's
+    gradients at 2 layers, sequence 1024, kernel path against plain path.
+    Returns the launch counts of the train run."""
     from repro_torch import kernels
     from repro_torch.core import tree as tree_lib
     from repro_torch.data.pipeline import DataConfig, make_pipeline
@@ -3021,10 +3151,10 @@ def train(torch, cfg_full, seed=0):
     from repro_torch.training import train_step as ts
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
-    cfg = dataclasses.replace(cfg_full, n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg_full, n_layers=layers)
     tcfg = ts.TrainConfig(optimizer=AdamWConfig(lr=3e-4, warmup_steps=1,
                                                 total_steps=TRAIN_STEPS),
-                          microbatches=TRAIN_MICRO)
+                          microbatches=micro)
     gc.collect()                 # the serve phase's engines sit in reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3032,10 +3162,11 @@ def train(torch, cfg_full, seed=0):
     state = ts.init_train_state(seed, cfg, tcfg, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_lib.leaves(state["params"]))
-    log(f"init_train_state {cfg.name} x {TRAIN_LAYERS} layers: {n_params / 1e9:.3f} B "
-        f"float32 parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB with AdamW "
-        f"state, {time.perf_counter() - t0:.1f} s")
-    pipe = make_pipeline(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed,
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"init_train_state {cfg.name} x {layers} layers: {n_params / 1e9:.3f} B "
+        f"float32 parameters, {state_gib:.2f} GiB with AdamW state, "
+        f"{time.perf_counter() - t0:.1f} s")
+    pipe = make_pipeline(DataConfig(seq_len=seq, global_batch=batch, seed=seed,
                                     vocab=cfg.vocab))
     step_fn = ts.make_train_step(cfg, tcfg)
     per_step = []
@@ -3051,7 +3182,7 @@ def train(torch, cfg_full, seed=0):
     kernels.reset_launch_counts()
     trainer.run()
     counts = kernels.launch_counts()
-    tokens = TRAIN_SEQ * TRAIN_BATCH
+    tokens = seq * batch
     prev = {key: 0 for key in counts}
     for rec, cum in zip(trainer.history, per_step):
         step_counts = {KERNELS[k]["counter"]: cum[KERNELS[k]["counter"]]
@@ -3061,26 +3192,28 @@ def train(torch, cfg_full, seed=0):
             f"{rec['grad_norm']:.4f} step {rec['step_time_s']:.3f} s, "
             f"{tokens / rec['step_time_s']:.0f} tok/s (host clock, synced); launches "
             f"{json.dumps(step_counts)}")
-        want = {KERNELS["K1"]["counter"]: 2 * TRAIN_LAYERS * TRAIN_MICRO,
-                KERNELS["K5"]["counter"]: TRAIN_LAYERS * TRAIN_MICRO,
-                KERNELS["K6"]["counter"]: TRAIN_LAYERS * TRAIN_MICRO}
+        want = {KERNELS["K1"]["counter"]: 2 * layers * micro,
+                KERNELS["K5"]["counter"]: layers * micro,
+                KERNELS["K6"]["counter"]: layers * micro}
         if step_counts != want:
             raise AssertionError(f"train launches {step_counts}, expected {want} "
                                  "(remat: K1 twice per layer per microbatch)")
         if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
             raise AssertionError(f"train step {rec['step']}: non-finite loss or grad norm")
-    log(f"train peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"(max_memory_allocated); retries {trainer.retries}; launch counts over the "
-        f"train run: {json.dumps(counts)}")
+    log(f"train {cfg.name} peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(max_memory_allocated; parameters, gradients and AdamW state {state_gib:.2f} + "
+        f"{n_params * 4 / 2**30:.2f} GiB; float32 logits of one microbatch "
+        f"{batch // micro * seq * cfg.vocab * 4 / 2**30:.2f} GiB); retries {trainer.retries}; "
+        f"launch counts over the train run: {json.dumps(counts)}")
     if trainer.retries or trainer.step != TRAIN_STEPS:
         raise AssertionError(f"trainer made {trainer.retries} retries")
-    check_k1_route("train", counts)
-    check_bwd_route("train", bwd_launches({key: 0 for key in counts}, counts))
+    check_k1_route(f"train {cfg.name}", counts)
+    check_bwd_route(f"train {cfg.name}", bwd_launches({key: 0 for key in counts}, counts))
     step_s = trainer.history[-1]["step_time_s"]
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
-    train_breakdown(torch, cfg, step_s)
+    train_breakdown(torch, cfg, step_s, batch // micro, seq, micro)
 
     # Kernel path against plain path: one step's gradients, same weights
     # and batch, 2 layers at full width, sequence 1024, batch 1.
@@ -3099,7 +3232,7 @@ def train(torch, cfg_full, seed=0):
             for (path, a), b in zip(tree_lib.leaves_with_paths(grads["cuda"]),
                                     tree_lib.leaves(grads["plain"]))}
     worst = max(rels, key=rels.get)
-    log(f"train step-1 kernel path vs plain path: loss {losses['cuda']:.6f} vs "
+    log(f"train {cfg.name} step-1 kernel path vs plain path: loss {losses['cuda']:.6f} vs "
         f"{losses['plain']:.6f} (relative {rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); gradient "
         f"||g_cuda - g_plain|| / ||g_plain|| max {rels[worst]:.3e} at {worst} (tol "
         f"{TRAIN_GRAD_TOL}), median {statistics.median(rels.values()):.3e}")
@@ -3109,15 +3242,17 @@ def train(torch, cfg_full, seed=0):
     return counts
 
 
-def train_breakdown(torch, cfg, step_s):
-    """K1, K5 and K6 at the train step's shapes and with the plan its
-    attention layers build (B 2 per microbatch, S 4096, causal), each held
+def train_breakdown(torch, cfg, step_s, b, s, micro):
+    """K1, K5 and K6 at the train step's shapes (``b`` rows of ``s`` tokens
+    per microbatch, causal) and with the plan its attention layers build,
+    once per distinct window of ``cfg``'s layers, with its softcap: each held
     against its plain version on the same inputs (K1 per row, K5 / K6 per
     (b, head) slice, ROW_TOL); then each timed alone (CUDA-event medians, L2
     flushed) beside the float32 LM head, times its count per step, against
     the measured step time: a breakdown by parts, not a profile. SDPA's
-    forward and backward are timed beside K1 and K5 + K6. These
-    launches come after the train run's counts were read."""
+    forward and backward are timed beside K1 and K5 + K6 where no softcap
+    or window keeps it from computing the same function. These launches
+    come after the train run's counts were read."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import plan as plan_lib
@@ -3129,59 +3264,86 @@ def train_breakdown(torch, cfg, step_s):
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    b, s = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
-    plan = plan_lib.plan_for_config(cfg, (b, HQ, HKV, s, s, D), device_type="cuda",
-                                    dtype_bytes=2, phase=plan_lib.PREFILL)
-    kw = dict(mapping=plan.mapping, causal=True)
-    q, k, v, do = randn(b, HQ, s, D), randn(b, HKV, s, D), randn(b, HKV, s, D), randn(b, HQ, s, D)
-    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    delta = (do.float() * o.float()).sum(-1)
-    dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    torch.cuda.synchronize()
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    windows = [spec.window for spec in cfg.layer_specs()]
+    cap = cfg.attn_softcap
+    q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
+    attn = k1_ms = 0.0
     torch.cuda.reset_peak_memory_stats()     # the train run's peak was read already
-    log(f"train parts: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
-        "the plain versions")
-    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
-    e_o, e_l = row_err(o, o_ref), err(lse, lse_ref)
-    del o_ref, lse_ref
-    ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
-    rel = [slice_err(g, r) for g, r in zip((dq, dk, dv), ref)]
-    del ref, dq, dk, dv
-    log(f"train shape B {b} S {s} causal, {plan.mapping}: K1 o row-relative {e_o:.3e} "
-        f"lse {e_l:.3e}; K5/K6 per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
-        f"{rel[2]:.3e} (tol {ROW_TOL:.3e}, lse {LSE_TOL}); peak of the check "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if e_o > ROW_TOL or e_l > LSE_TOL or max(rel) > ROW_TOL:
-        raise AssertionError("K1/K5/K6 at the train shape disagree with their plain versions")
-    t_k1 = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
-    t_sdpa = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    k1_bound = k1_bound_of(q, k, v, o, lse, causal=True)
-    t_k5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
-    t_k6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    group = HQ // HKV
-    leaves = [t.detach().requires_grad_(True)
-              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
-    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
-    t_sdpa_bwd = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-    del leaves, out, q, k, v, do, o, lse, delta
+    log(f"train {cfg.name} parts: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        "before the plain versions")
+    for window in sorted(set(windows), key=lambda w: -1 if w is None else w):
+        n = windows.count(window)
+        plan = plan_lib.plan_for_config(cfg, (b, hq, hkv, s, s, d), device_type="cuda",
+                                        dtype_bytes=2, phase=plan_lib.PREFILL, window=window)
+        kw = dict(mapping=plan.mapping, causal=True, window=window, softcap=cap)
+        plain_kw = dict(causal=True, window=window, softcap=cap)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **plain_kw)
+        e_o, e_l = row_err(o, o_ref), err(lse, lse_ref)
+        del o_ref, lse_ref
+        ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **plain_kw)
+        rel = [slice_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+        del ref, dq, dk, dv
+        label = f"B {b} S {s} causal window {window} softcap {cap} ({n} of {len(windows)} layers)"
+        log(f"train {cfg.name} shape {label}, {plan.mapping}: K1 o row-relative {e_o:.3e} lse "
+            f"{e_l:.3e}; K5/K6 per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
+            f"{rel[2]:.3e} (tol {ROW_TOL:.3e}, lse {LSE_TOL}); peak of the check "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if e_o > ROW_TOL or e_l > LSE_TOL or max(rel) > ROW_TOL:
+            raise AssertionError("K1/K5/K6 at the train shape disagree with their plain "
+                                 "versions")
+        t_k1 = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        k1_bound = k1_bound_of(q, k, v, o, lse, causal=True, window=window)
+        t_k5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+        t_k6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        lib = ""
+        if cap is None and window is None:
+            t_sdpa = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            group = hq // hkv
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+            out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+            t_sdpa_bwd = timer.ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                              retain_graph=True))
+            del leaves, out
+            lib = f"; library sdpa {t_sdpa:.4f} ms, sdpa backward {t_sdpa_bwd:.4f} ms"
+        log(f"train {cfg.name} parts at {label} per microbatch: K1 {t_k1:.4f} ms (bound "
+            f"{k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.4f} ms, K6 {t_k6:.4f} ms (pair "
+            f"{t_k5 + t_k6:.4f} ms){lib}")
+        attn += micro * n * (2 * t_k1 + t_k5 + t_k6)
+        k1_ms += micro * n * 2 * t_k1
+        del o, lse, delta
+    del q, k, v, do
     x = randn(b * s, cfg.d_model, dtype=torch.float32)
     head = randn(cfg.d_model, cfg.vocab, dtype=torch.float32)
     g = randn(b * s, cfg.vocab, dtype=torch.float32)
     # The head's forward product and the two of its backward, float32.
     t_head = timer.ms(lambda: (x @ head, g @ head.T, x.T @ g))
     del x, head, g, timer
-    attn = TRAIN_MICRO * TRAIN_LAYERS * (2 * t_k1 + t_k5 + t_k6)
-    head_ms = TRAIN_MICRO * t_head
-    k1_ms = TRAIN_MICRO * TRAIN_LAYERS * 2 * t_k1
-    log(f"train step parts at B {b} S {s} per microbatch: K1 {t_k1:.4f} ms (library sdpa "
-        f"{t_sdpa:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.4f} ms, K6 "
-        f"{t_k6:.4f} ms (pair {t_k5 + t_k6:.4f} ms, library sdpa backward {t_sdpa_bwd:.4f} "
-        f"ms), float32 LM head (3 products) {t_head:.3f} ms; per step: attention "
-        f"kernels {attn:.1f} ms ({attn / (step_s * 1e3):.1%} of the {step_s * 1e3:.1f} ms "
-        f"step; K1 x 2 {k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}), LM head "
-        f"{head_ms:.1f} ms ({head_ms / (step_s * 1e3):.1%})")
+    head_ms = micro * t_head
+    log(f"train {cfg.name} step parts: float32 LM head (3 products) {t_head:.3f} ms a "
+        f"microbatch; per step: attention kernels {attn:.1f} ms "
+        f"({attn / (step_s * 1e3):.1%} of the {step_s * 1e3:.1f} ms step; K1 x 2 "
+        f"{k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}), LM head {head_ms:.1f} ms "
+        f"({head_ms / (step_s * 1e3):.1%})")
+
+
+def train_gemma(torch, cfg):
+    """The train phase on full-width ``cfg`` (gemma2-2b or gemma3-1b) at
+    ``GEMMA_TRAIN``'s depth, sequence and batch: K5 / K6 at head_dim 256."""
+    run = GEMMA_TRAIN[cfg.name]
+    log(f"== train {cfg.name} ({run['layers']} layers, seq {run['seq']}, batch "
+        f"{run['batch']} in {run['micro']} microbatches, head_dim 256, bf16 compute, random "
+        "weights)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train(torch, cfg, **run)
 
 
 def main() -> int:
@@ -3224,6 +3386,10 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     for name, rec in info.items():
+        for line in rec["log"].splitlines():
+            if "wgmma" in line:   # ptxas' serialisation warnings (C7510 .. C7515)
+                log(f"  {name}: {line.strip()}")
+    for name, rec in info.items():
         for kernel, regs, st, ld, ser in ptxas_d256(rec["log"]):
             log(f"head_dim 256 ptxas {name} {kernel}: {regs} registers, spill stores {st} B, "
                 f"loads {ld} B, wgmma serialised {ser}")
@@ -3257,6 +3423,8 @@ def main() -> int:
             del params
             gc.collect()
             torch.cuda.empty_cache()
+        for cfg in gemma:
+            train_gemma(torch, cfg)
         log(f"total {time.perf_counter() - t_start:.1f} s (gemma phase only: no result line)")
         return 0
     log("== kernels (bf16, Hq 32, Hkv 8, D 128, page 16)")
@@ -3364,6 +3532,9 @@ def main() -> int:
     train_counts = train(torch, llama3_8b.CONFIG)
     for key, n in train_counts.items():
         counts[key] += n
+    for cfg in gemma:
+        for key, n in train_gemma(torch, cfg).items():
+            counts[key] += n
     for key, spec in KERNELS.items():
         if counts[spec["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on a main path")

@@ -36,7 +36,11 @@
 //   only on tiles that straddle kv_len, the diagonal or the window edge; a
 //   warpgroup skips the products of a tile its rows cannot see. The
 //   results leave through the warpgroup's own rows of its fixed tiles by a
-//   TMA store, which drops rows past Sq / Skv.
+//   TMA store, which drops rows past Sq / Skv. At head_dim 256 (the gemma
+//   family) fa2_dq_tc256_kernel and fa2_dkv_tc256_kernel keep that walk on
+//   64-row blocks, both warpgroups on the same rows, one computing S and P,
+//   the other dP and dS, each accumulating half of D's columns (the
+//   comment above Smem256 says why and how).
 // * float32: fa2_dq_kernel and fa2_dkv_kernel on the CUDA cores in float32
 //   (TF32 tensor cores would keep ~3 decimal digits), 4 x 4 register tiles
 //   fed from shared memory in the layout of csrc/prefill_tile.cuh.
@@ -406,6 +410,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 // tile's BT values of -lse * log2(e) and BT of delta; then the barriers.
 template <int D>
 struct Smem {
+  static constexpr int HD = D;
+  static constexpr int ROWS = BM;   // own rows
   static constexpr int OWN = BM * D * 2;
   static constexpr int TILE = BT * D * 2;
   static constexpr int A = 0;
@@ -418,29 +424,28 @@ struct Smem {
 };
 
 // Thread 0: the own pair of tiles (rows `row` of plane `plane`) on `own`.
-template <int D>
+// L is the shared-memory layout (Smem<D>, or Smem256 at head_dim 256).
+template <class L>
 __device__ __forceinline__ void load_own(uint8_t* smem, uint64_t* own, const CUtensorMap* ta,
                                          const CUtensorMap* tb, int row, int plane) {
   using namespace hopper;
-  using L = Smem<D>;
   mbar_expect_tx(own, 2 * L::OWN);
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
-    tma_load_3d(smem + L::A + c * BM * 128, ta, own, c * 64, row, plane);
-    tma_load_3d(smem + L::B + c * BM * 128, tb, own, c * 64, row, plane);
+  for (int c = 0; c < L::HD / 64; ++c) {
+    tma_load_3d(smem + L::A + c * L::ROWS * 128, ta, own, c * 64, row, plane);
+    tma_load_3d(smem + L::B + c * L::ROWS * 128, tb, own, c * 64, row, plane);
   }
 }
 
 // Thread 0: ring tile t (rows `row` of plane `plane`) into stage t % STAGES.
-template <int D>
+template <class L>
 __device__ __forceinline__ void load_ring(uint8_t* smem, uint64_t* full, const CUtensorMap* ta,
                                           const CUtensorMap* tb, int t, int row, int plane) {
   using namespace hopper;
-  using L = Smem<D>;
   const int s = t % STAGES;
   mbar_expect_tx(&full[s], 2 * L::TILE);
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
+  for (int c = 0; c < L::HD / 64; ++c) {
     tma_load_3d(smem + L::RA + s * L::TILE + c * BT * 128, ta, &full[s], c * 64, row, plane);
     tma_load_3d(smem + L::RB + s * L::TILE + c * BT * 128, tb, &full[s], c * 64, row, plane);
   }
@@ -448,7 +453,7 @@ __device__ __forceinline__ void load_ring(uint8_t* smem, uint64_t* full, const C
 
 // Barriers, then thread 0 issues the own tiles and the first STAGES ring
 // tiles; ring(t) gives ring tile t's (row, plane).
-template <int D, typename Ring>
+template <class L, typename Ring>
 __device__ __forceinline__ void start_loads(uint8_t* smem, uint64_t* full, uint64_t* empty,
                                             uint64_t* own, const CUtensorMap* ta,
                                             const CUtensorMap* tb, const CUtensorMap* ra,
@@ -466,11 +471,11 @@ __device__ __forceinline__ void start_loads(uint8_t* smem, uint64_t* full, uint6
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    load_own<D>(smem, own, ta, tb, row, plane);
+    load_own<L>(smem, own, ta, tb, row, plane);
     for (int t = 0; t < min(STAGES, ntiles); ++t) {
       int r, p;
       ring(t, r, p);
-      load_ring<D>(smem, full, ra, rb, t, r, p);
+      load_ring<L>(smem, full, ra, rb, t, r, p);
     }
   }
 }
@@ -478,7 +483,7 @@ __device__ __forceinline__ void start_loads(uint8_t* smem, uint64_t* full, uint6
 // At the top of iteration t: thread 0 refills the stage of tile t - 1 with
 // tile t + STAGES - 1 once all eight warps have released it; then every
 // thread waits for tile t.
-template <int D, typename Ring>
+template <class L, typename Ring>
 __device__ __forceinline__ void next_tile(uint8_t* smem, uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* ra, const CUtensorMap* rb, int t,
                                           int ntiles, Ring ring) {
@@ -487,23 +492,23 @@ __device__ __forceinline__ void next_tile(uint8_t* smem, uint64_t* full, uint64_
     mbar_wait(&empty[(t - 1) % STAGES], ((t - 1) / STAGES) & 1);
     int r, p;
     ring(t + STAGES - 1, r, p);
-    load_ring<D>(smem, full, ra, rb, t + STAGES - 1, r, p);
+    load_ring<L>(smem, full, ra, rb, t + STAGES - 1, r, p);
   }
   mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
   __syncwarp();
 }
 
 // s (64 x BT) = X R^T over D, both K-major: X this warpgroup's 64 own rows
-// (column chunks BM * 128 bytes apart), R a ring tile (chunks BT * 128
-// apart). One commit group.
-template <int D>
+// (column chunks XROWS * 128 bytes apart: the own tile's rows), R a ring
+// tile (chunks BT * 128 apart). One commit group.
+template <int D, int XROWS = BM>
 __device__ __forceinline__ void scores(float (&s)[BT / 2], uint32_t x, uint32_t r) {
   using namespace hopper;
   wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
     const uint32_t col = (kc % 4) * 32;
-    wgmma_ss_n64(s, desc_sw128(x + (kc / 4) * BM * 128 + col, 16, 1024),
+    wgmma_ss_n64(s, desc_sw128(x + (kc / 4) * XROWS * 128 + col, 16, 1024),
                  desc_sw128(r + (kc / 4) * BT * 128 + col, 16, 1024), kc > 0);
   }
   wgmma_commit();
@@ -575,7 +580,7 @@ fa2_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     row = (n_lo + t) * BT;
     p = kv_plane;
   };
-  start_loads<D>(smem, full, empty, own, &tq, &tdo, &tk, &tv, q0, plane, ntiles, ring);
+  start_loads<L>(smem, full, empty, own, &tq, &tdo, &tk, &tv, q0, plane, ntiles, ring);
 
   // Warpgroup wg owns q rows row_lo .. row_lo + 63; this thread rows row0
   // and row0 + 8, and of every 8 keys the two at 2 (lane % 4).
@@ -602,7 +607,7 @@ fa2_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   mbar_wait(own, 0);
   for (int t = 0; t < ntiles; ++t) {
-    next_tile<D>(smem, full, empty, &tk, &tv, t, ntiles, ring);
+    next_tile<L>(smem, full, empty, &tk, &tv, t, ntiles, ring);
     const int st = t % STAGES;
     const int c0 = (n_lo + t) * BT;
     // Uniform over the warpgroup: a tile wholly above its rows' diagonal or
@@ -699,7 +704,7 @@ fa2_dkv_tc_kernel(const __grid_constant__ CUtensorMap tk,
     row = (m_lo + t % nq) * BT;
     p = b * Hq + hk * group + t / nq;
   };
-  start_loads<D>(smem, full, empty, own, &tk, &tv, &tq, &tdo, c0, kv_plane, ntiles, ring);
+  start_loads<L>(smem, full, empty, own, &tk, &tv, &tq, &tdo, c0, kv_plane, ntiles, ring);
 
   // Warpgroup wg owns kv rows r_lo .. r_lo + 63; this thread rows row0 and
   // row0 + 8, and of every 8 q columns the two at 2 (lane % 4).
@@ -739,7 +744,7 @@ fa2_dkv_tc_kernel(const __grid_constant__ CUtensorMap tk,
     cur[tid] = ahead;
     if (t + 1 < ntiles) ahead = fetch(t + 1);
     named_barrier_sync(1 + wg, 128);
-    next_tile<D>(smem, full, empty, &tq, &tdo, t, ntiles, ring);
+    next_tile<L>(smem, full, empty, &tq, &tdo, t, ntiles, ring);
     const int st = t % STAGES;
     const int q0 = (m_lo + t % nq) * BT;
     const bool dead = r_lo >= live || (causal && q0 + BT - 1 < r_lo) ||
@@ -865,6 +870,431 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// -- head_dim 256 (the gemma family): two warpgroups on one 64-row block --------
+//
+// The D 64/128 layout does not fit D 256 twice over. Shared memory: two
+// 128-row own tiles and two stages of two 64-row ring tiles would take 256
+// KB of the 227 KB a block may have. Registers: a K6 warpgroup would hold
+// dK and dV of its 64 rows at D floats a thread (256). So here a block owns
+// 64 rows (K5 q rows of one (b, q head), K6 kv rows of one (b, kv head)) and
+// both warpgroups work on them, warpgroup w accumulating D's columns 128 w
+// .. 128 w + 127 (K5 dQ: 64 floats a thread; K6 dK and dV: 128). The
+// score-sized products are not split over D: warpgroup 0 computes S (K5 S =
+// Q K^T, K6 S^T = K Q^T) over all 256 columns while warpgroup 1 computes dP
+// (dO V^T, V dO^T), each 16 wgmma m64n64k16 on its own tile. Warpgroup 0
+// recomputes P (with a softcap in one ex2 and one rcp, hopper.cuh's form,
+// and the factor 1 - tanh^2 from the same tanh) and hands P times the
+// factor, and for K6 P's bf16 A fragments, to warpgroup 1 through shared
+// memory (barrier P_READY); warpgroup 1 forms dS = (P f) (dP - delta) in
+// bf16 and hands its fragments back (DS_READY). The two warpgroups hold
+// the same accumulator layout, so thread t of one exchanges with thread t
+// of the other, word w of the exchange at [w][t] (no bank conflicts). Then
+// each runs the D-wide products on its half (wgmma m64n128k16, the ring
+// tile MN-major): K5 dQ += dS K; K6 dV += P^T dO (issued as soon as P's
+// fragments are there) and dK += dS^T Q. Shared memory: the own pair 64
+// KB, two ring stages 128 KB, the exchange 32 KB, K6's staged lse and delta
+// 1 KB: 226 KB. No tile of a block's walk is dead for all its rows, so
+// there is no per-warpgroup skip. Thread 0 issues the loads as above.
+struct Smem256 {
+  static constexpr int HD = 256;
+  static constexpr int ROWS = 64;   // own rows
+  static constexpr int OWN = ROWS * HD * 2;
+  static constexpr int TILE = BT * HD * 2;
+  static constexpr int A = 0;
+  static constexpr int B = A + OWN;
+  static constexpr int RA = B + OWN;
+  static constexpr int RB = RA + STAGES * TILE;
+  // Exchange, 64 words a thread: 0-31 P times the softcap factor (float),
+  // 32-47 P's bf16 A fragments (K6), 48-63 dS's.
+  static constexpr int XCH = RB + STAGES * TILE;
+  static constexpr int XP = 0, XPT = 32, XDS = 48;
+  // K6: per warpgroup and tile parity, the ring tile's BT values of -lse *
+  // log2(e) (warpgroup 0) or delta (warpgroup 1).
+  static constexpr int COLS = XCH + 64 * 128 * 4;
+  static constexpr int BAR = COLS + 2 * 2 * BT * 4;   // full[STAGES], empty[STAGES], own
+  static constexpr size_t bytes = BAR + 8 * (2 * STAGES + 1) + 1024;   // + base alignment
+  static_assert(bytes <= 232448, "above the 227 KB of shared memory a block may use");
+};
+
+constexpr int P_READY = 3;    // named barriers over both warpgroups
+constexpr int DS_READY = 4;
+
+// p = exp(s_capped - lse) of one score from its raw product s, with nl =
+// -lse * log2(e) (-inf for a dead row: p = 0), the softcap as hopper.cuh's
+// softcap_log2 computes it: tanh(y) = 1 - 2 / (2^(2 y log2 e) + 1), one ex2
+// and one rcp; *f gets the chain-rule factor 1 - tanh^2.
+template <bool SOFTCAP>
+__device__ __forceinline__ float recompute_p256(float s, float nl, float scale2,
+                                                const hopper::Softcap& cap, float* f) {
+  if (SOFTCAP) {
+    const float th = 1.f - 2.f * hopper::fast_rcp(hopper::fast_exp2(s * cap.k) + 1.f);
+    *f = 1.f - th * th;
+    return hopper::fast_exp2(fmaf(cap.c, th, nl));
+  }
+  *f = 1.f;
+  return hopper::fast_exp2(fmaf(s, scale2, nl));
+}
+
+// This thread's word w of the exchange (thread index tid of its warpgroup).
+__device__ __forceinline__ float* xch_word(uint8_t* smem, int w, int tid) {
+  return reinterpret_cast<float*>(smem + Smem256::XCH) + w * 128 + tid;
+}
+
+__device__ __forceinline__ void put_frags(uint8_t* smem, int w0, int tid,
+                                          const uint32_t (&f)[BT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      *reinterpret_cast<uint32_t*>(xch_word(smem, w0 + 4 * kk + w, tid)) = f[kk][w];
+}
+
+__device__ __forceinline__ void get_frags(uint8_t* smem, int w0, int tid,
+                                          uint32_t (&f)[BT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      f[kk][w] = *reinterpret_cast<const uint32_t*>(xch_word(smem, w0 + 4 * kk + w, tid));
+}
+
+// Warpgroup 1: dS = (P f) (dP - delta) in bf16 as the A fragments of the
+// dS products, from the exchange's P f and this thread's dP; delta(i)
+// gives accumulator register i's delta.
+template <typename Delta>
+__device__ __forceinline__ void form_ds(uint8_t* smem, int tid, const float (&dp)[BT / 2],
+                                        Delta delta, uint32_t (&ds)[BT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    float e[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = 8 * kk + u;
+      e[u] = *xch_word(smem, Smem256::XP + i, tid) * (dp[i] - delta(i));
+    }
+#pragma unroll
+    for (int w = 0; w < 4; ++w) ds[kk][w] = hopper::pack_bf16(e[2 * w], e[2 * w + 1]);
+  }
+}
+
+// The block's output: this warpgroup's 128 columns of acc * mul, through
+// its two column chunks of the own tile at `tile`, stored by TMA to rows
+// row_lo .. row_lo + 63 of `plane` (rows past the map's extent dropped).
+__device__ __forceinline__ void store_half(uint8_t* tile, const CUtensorMap* map,
+                                           const float (&acc)[64], float mul, int wg,
+                                           int tile_row, int lane, int row_lo, int plane) {
+  using namespace hopper;
+  using L = Smem256;
+  uint8_t* half = tile + wg * 2 * L::ROWS * 128;
+  const float m[2] = {mul, mul};
+  stage_tile_bf16<128>(half, L::ROWS * 128, acc, m, tile_row, lane);
+  fence_async_smem();
+  named_barrier_sync(1 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      tma_store_3d(map, half + c * L::ROWS * 128, 128 * wg + 64 * c, row_lo, plane);
+    tma_store_wait();
+  }
+}
+
+// -- K5 at head_dim 256: own tiles Q and dO (64 q rows); ring K, V.
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+fa2_dq_tc256_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int Hq, int Hkv, int Sq, int Skv,
+                    int kv_len, float scale, int causal, int window, float softcap,
+                    int order) {
+  using namespace hopper;
+  using L = Smem256;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
+
+  int b, h, mb;
+  decode_block((Sq + L::ROWS - 1) / L::ROWS, Hq, order, b, h, mb);
+  const int plane = b * Hq + h;
+  const int kv_plane = b * Hkv + h / (Hq / Hkv);
+  const int q0 = mb * L::ROWS;
+  const int live = min(Skv, kv_len);
+  int n_lo, n_hi;
+  kv_tile_range(q0, L::ROWS, BT, live, causal, window, n_lo, n_hi);
+  const int ntiles = max(0, n_hi - n_lo);
+  auto ring = [&](int t, int& row, int& p) {
+    row = (n_lo + t) * BT;
+    p = kv_plane;
+  };
+  start_loads<L>(smem, full, empty, own, &tq, &tdo, &tk, &tv, q0, plane, ntiles, ring);
+
+  // Both warpgroups hold rows q0 .. q0 + 63; this thread rows row0 and
+  // row0 + 8, and of every 8 keys the two at 2 (lane % 4). Warpgroup 0
+  // keeps -lse * log2(e) of its two rows, warpgroup 1 their delta.
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int row0 = q0 + 16 * (tid >> 5) + (lane >> 2);
+  const float dead_row = __uint_as_float(0xff800000u);   // -inf: 2^(x - inf) = 0
+  float rv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (wg == 0) {
+      const float l = row < Sq ? lse[(size_t)plane * Sq + row] : NEG_INF_F;
+      rv[r] = l > ROW_DEAD ? -l * LOG2E : dead_row;
+    } else {
+      rv[r] = row < Sq ? delta[(size_t)plane * Sq + row] : 0.f;
+    }
+  }
+  const float scale2 = scale * LOG2E;
+  const Softcap cap(scale, softcap);
+  const uint32_t xaddr = smem_u32(smem + (wg == 0 ? L::A : L::B));   // Q or dO
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  mbar_wait(own, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    next_tile<L>(smem, full, empty, &tk, &tv, t, ntiles, ring);
+    const int st = t % STAGES;
+    const int c0 = (n_lo + t) * BT;
+    const uint32_t kaddr = smem_u32(smem + L::RA + st * L::TILE);
+    const uint32_t vaddr = smem_u32(smem + L::RB + st * L::TILE);
+    float s[BT / 2];   // warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T
+    scores<256, L::ROWS>(s, xaddr, wg == 0 ? kaddr : vaddr);
+    wgmma_wait<0>();
+    fence_regs(s);
+    uint32_t ds[BT / 16][4];
+    if (wg == 0) {
+      const bool edge = c0 + BT > live || (causal && c0 + BT - 1 > q0) ||
+                        (window > 0 && c0 <= q0 + 63 - window);
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float f;
+        float p = recompute_p256<SOFTCAP>(s[i], rv[r], scale2, cap, &f);
+        if (edge && !visible(c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1), row0 + 8 * r, live,
+                             causal, window))
+          p = 0.f;
+        *xch_word(smem, L::XP + i, tid) = p * f;
+      }
+      named_barrier_arrive(P_READY, THREADS);
+      named_barrier_sync(DS_READY, THREADS);
+      get_frags(smem, L::XDS, tid, ds);
+    } else {
+      named_barrier_sync(P_READY, THREADS);
+      form_ds(smem, tid, s, [&](int i) { return rv[(i >> 1) & 1]; }, ds);
+      put_frags(smem, L::XDS, tid, ds);
+      named_barrier_arrive(DS_READY, THREADS);
+    }
+    fence_regs(acc);
+    accumulate<128>(acc, ds, kaddr + wg * 2 * BT * 128);   // dQ[:, 128 wg ..] += dS K
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(ds);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // dQ = scale * acc through this warpgroup's half of the Q tile: no wgmma
+  // reads the Q tile once the last S is done (warpgroup 1 is past that
+  // tile's P_READY).
+  store_half(smem + L::A, &tdq, acc, scale, wg, row0 - q0, lane, q0, plane);
+}
+
+// -- K6 at head_dim 256: own tiles K and V (64 kv rows); ring Q and dO over
+// the GQA group's q heads and each head's live q tiles.
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+fa2_dkv_tc256_kernel(const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdk,
+                     const __grid_constant__ CUtensorMap tdv, const float* __restrict__ lse,
+                     const float* __restrict__ delta, int Hq, int Hkv, int Sq, int Skv,
+                     int kv_len, float scale, int causal, int window, float softcap,
+                     int order) {
+  using namespace hopper;
+  using L = Smem256;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
+
+  int b, hk, nb;
+  decode_block((Skv + L::ROWS - 1) / L::ROWS, Hkv, order, b, hk, nb);
+  const int group = Hq / Hkv;
+  const int kv_plane = b * Hkv + hk;
+  const int c0 = nb * L::ROWS;
+  const int live = min(Skv, kv_len);
+  // Live q tiles of these keys: none if all are past kv_len; causal rows
+  // >= c0; window rows <= c0 + 63 + window - 1.
+  const int nm = (Sq + BT - 1) / BT;
+  const int m_lo = causal ? c0 / BT : 0;
+  int m_hi = c0 < live ? nm : 0;
+  if (window > 0) m_hi = min(m_hi, (c0 + L::ROWS - 1 + window - 1) / BT + 1);
+  const int nq = max(0, m_hi - m_lo);
+  const int ntiles = group * nq;
+  auto ring = [&](int t, int& row, int& p) {   // q head hk * group + t / nq
+    row = (m_lo + t % nq) * BT;
+    p = b * Hq + hk * group + t / nq;
+  };
+  start_loads<L>(smem, full, empty, own, &tk, &tv, &tq, &tdo, c0, kv_plane, ntiles, ring);
+
+  // Both warpgroups hold kv rows c0 .. c0 + 63; this thread rows row0 and
+  // row0 + 8, and of every 8 q columns the two at 2 (lane % 4).
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int row0 = c0 + 16 * (tid >> 5) + (lane >> 2);
+  const float dead_row = __uint_as_float(0xff800000u);   // -inf: 2^(x - inf) = 0
+  // Thread tid < BT stages value tid of tile t's columns, one tile ahead:
+  // warpgroup 0 -lse * log2(e) (-inf past Sq or for a fully masked row),
+  // warpgroup 1 delta.
+  float* cols = reinterpret_cast<float*>(smem + L::COLS) + wg * 2 * BT;
+  auto fetch = [&](int t) -> float {
+    int row, p;
+    ring(t, row, p);
+    const int qi = row + tid;
+    const size_t at = (size_t)p * Sq + qi;
+    if (wg == 0) {
+      const float l = qi < Sq ? lse[at] : NEG_INF_F;
+      return l > ROW_DEAD ? -l * LOG2E : dead_row;
+    }
+    return qi < Sq ? delta[at] : 0.f;
+  };
+  float ahead = ntiles > 0 && tid < BT ? fetch(0) : 0.f;
+  const float scale2 = scale * LOG2E;
+  const Softcap cap(scale, softcap);
+  const uint32_t xaddr = smem_u32(smem + (wg == 0 ? L::A : L::B));   // K or V
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(own, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    float* cur = cols + (t & 1) * BT;
+    if (tid < BT) {
+      cur[tid] = ahead;
+      if (t + 1 < ntiles) ahead = fetch(t + 1);
+    }
+    named_barrier_sync(1 + wg, 128);
+    next_tile<L>(smem, full, empty, &tq, &tdo, t, ntiles, ring);
+    const int st = t % STAGES;
+    const int q0 = (m_lo + t % nq) * BT;
+    const uint32_t qaddr = smem_u32(smem + L::RA + st * L::TILE);
+    const uint32_t doaddr = smem_u32(smem + L::RB + st * L::TILE);
+    float s[BT / 2];   // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
+    scores<256, L::ROWS>(s, xaddr, wg == 0 ? qaddr : doaddr);
+    wgmma_wait<0>();
+    fence_regs(s);
+    uint32_t pt[BT / 16][4], dst[BT / 16][4];
+    if (wg == 0) {
+      const bool edge = c0 + 63 >= live || (causal && c0 + 63 > q0) ||
+                        (window > 0 && c0 <= q0 + BT - 1 - window);
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        float e[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = 8 * kk + u;
+          const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          float f;
+          float p = recompute_p256<SOFTCAP>(s[i], cur[c], scale2, cap, &f);
+          if (edge && !visible(row0 + 8 * ((i >> 1) & 1), q0 + c, live, causal, window))
+            p = 0.f;
+          e[u] = p;
+          *xch_word(smem, L::XP + i, tid) = p * f;
+        }
+#pragma unroll
+        for (int w = 0; w < 4; ++w) pt[kk][w] = pack_bf16(e[2 * w], e[2 * w + 1]);
+      }
+      put_frags(smem, L::XPT, tid, pt);
+      named_barrier_arrive(P_READY, THREADS);
+      fence_regs(dv);
+      accumulate<128>(dv, pt, doaddr);   // dV[:, 0 .. 127] += P^T dO
+      named_barrier_sync(DS_READY, THREADS);
+      get_frags(smem, L::XDS, tid, dst);
+    } else {
+      named_barrier_sync(P_READY, THREADS);
+      get_frags(smem, L::XPT, tid, pt);
+      fence_regs(dv);
+      accumulate<128>(dv, pt, doaddr + 2 * BT * 128);   // dV[:, 128 ..] += P^T dO
+      form_ds(smem, tid, s,
+              [&](int i) { return cur[8 * (i >> 2) + 2 * (lane & 3) + (i & 1)]; }, dst);
+      put_frags(smem, L::XDS, tid, dst);
+      named_barrier_arrive(DS_READY, THREADS);
+    }
+    fence_regs(dk);
+    accumulate<128>(dk, dst, qaddr + wg * 2 * BT * 128);   // dK[:, 128 wg ..] += dS^T Q
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_frags(pt);
+    fence_frags(dst);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // dK = scale * dk and dV through this warpgroup's halves of the K and V
+  // tiles: no wgmma reads them once both warpgroups are past the last
+  // tile's DS_READY.
+  store_half(smem + L::A, &tdk, dk, scale, wg, row0 - c0, lane, c0, kv_plane);
+  store_half(smem + L::B, &tdv, dv, 1.f, wg, row0 - c0, lane, c0, kv_plane);
+}
+
+template <bool SOFTCAP>
+int launch_dq256(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq, int B, int Hq, int Hkv,
+                 int Sq, int Skv, int kv_len, float scale, int causal, int window,
+                 float softcap, int order, cudaStream_t stream) {
+  using L = Smem256;
+  const long long blocks = (long long)B * Hq * ((Sq + L::ROWS - 1) / L::ROWS);
+  if (blocks <= 0) return 0;
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  int err = hopper::make_map_3d(&tq, q, L::HD, Sq, B * Hq, L::ROWS);
+  if (err == 0) err = hopper::make_map_3d(&tdo, dout, L::HD, Sq, B * Hq, L::ROWS);
+  if (err == 0) err = hopper::make_map_3d(&tk, k, L::HD, Skv, B * Hkv, BT);
+  if (err == 0) err = hopper::make_map_3d(&tv, v, L::HD, Skv, B * Hkv, BT);
+  if (err == 0) err = hopper::make_map_3d(&tdq, dq, L::HD, Sq, B * Hq, L::ROWS);
+  if (err != 0) return err;
+  const cudaError_t e = allow_smem(fa2_dq_tc256_kernel<SOFTCAP>, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  fa2_dq_tc256_kernel<SOFTCAP><<<(unsigned)blocks, THREADS, L::bytes, stream>>>(
+      tq, tdo, tk, tv, tdq, lse, delta, Hq, Hkv, Sq, Skv, kv_len, scale, causal, window,
+      softcap, order);
+  return (int)cudaGetLastError();
+}
+
+template <bool SOFTCAP>
+int launch_dkv256(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dk, void* dv, int B, int Hq,
+                  int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
+                  float softcap, int order, cudaStream_t stream) {
+  using L = Smem256;
+  const long long blocks = (long long)B * Hkv * ((Skv + L::ROWS - 1) / L::ROWS);
+  if (blocks <= 0) return 0;
+  CUtensorMap tk, tv, tq, tdo, tdk, tdv;
+  int err = hopper::make_map_3d(&tk, k, L::HD, Skv, B * Hkv, L::ROWS);
+  if (err == 0) err = hopper::make_map_3d(&tv, v, L::HD, Skv, B * Hkv, L::ROWS);
+  if (err == 0) err = hopper::make_map_3d(&tq, q, L::HD, Sq, B * Hq, BT);
+  if (err == 0) err = hopper::make_map_3d(&tdo, dout, L::HD, Sq, B * Hq, BT);
+  if (err == 0) err = hopper::make_map_3d(&tdk, dk, L::HD, Skv, B * Hkv, L::ROWS);
+  if (err == 0) err = hopper::make_map_3d(&tdv, dv, L::HD, Skv, B * Hkv, L::ROWS);
+  if (err != 0) return err;
+  const cudaError_t e = allow_smem(fa2_dkv_tc256_kernel<SOFTCAP>, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  fa2_dkv_tc256_kernel<SOFTCAP><<<(unsigned)blocks, THREADS, L::bytes, stream>>>(
+      tk, tv, tq, tdo, tdk, tdv, lse, delta, Hq, Hkv, Sq, Skv, kv_len, scale, causal, window,
+      softcap, order);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 template <int D>
@@ -937,10 +1367,14 @@ extern "C" int fa2_bwd_dkv(BWD_DKV_ARGS) {
   return -1;
 }
 
-// bfloat16 on the tensor cores; 16-byte aligned contiguous rows (the tensor
-// maps' requirement).
+// bfloat16 on the tensor cores, head_dim 64, 128 or 256; 16-byte aligned
+// contiguous rows (the tensor maps' requirement).
 extern "C" int fa2_bwd_dq_tc(BWD_DQ_ARGS) {
   const bool cap = softcap > 0.f;
+  if (D == 256) {
+    if (cap) DQ_PASS((tc::launch_dq256<true>));
+    DQ_PASS((tc::launch_dq256<false>));
+  }
   if (D == 128) {
     if (cap) DQ_PASS((tc::launch_dq<128, true>));
     DQ_PASS((tc::launch_dq<128, false>));
@@ -954,6 +1388,10 @@ extern "C" int fa2_bwd_dq_tc(BWD_DQ_ARGS) {
 
 extern "C" int fa2_bwd_dkv_tc(BWD_DKV_ARGS) {
   const bool cap = softcap > 0.f;
+  if (D == 256) {
+    if (cap) DKV_PASS((tc::launch_dkv256<true>));
+    DKV_PASS((tc::launch_dkv256<false>));
+  }
   if (D == 128) {
     if (cap) DKV_PASS((tc::launch_dkv<128, true>));
     DKV_PASS((tc::launch_dkv<128, false>));

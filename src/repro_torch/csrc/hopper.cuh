@@ -189,6 +189,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives at barrier `id` over `threads` threads without waiting: this
+// thread's earlier shared-memory writes are visible to the threads that
+// wait there (bar.sync) once the barrier completes.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // One box of shared memory out to a 3-D map; rows past the map's extent
 // are not written.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
@@ -248,6 +255,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for the bf16 A fragments of a register-A wgmma: kept intact in
+// their registers until the wgmma_wait that follows the fence.
+template <int M, int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 #define RT_D8(i)                                                                       \

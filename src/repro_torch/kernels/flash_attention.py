@@ -53,9 +53,10 @@ BLOCK_FIRST = "block_first"
 #: dim 256) and takes ragged lengths as they are.
 BLOCK_M = 64
 BLOCK_N = 64
-#: Head dims of the float32 kernel (and of K5 / K6, which share the check).
+#: Head dims of the float32 kernels (K1, and K5 / K6, which share the check).
 HEAD_DIMS = (64, 128)
-#: Head dims of the bf16 tensor-core kernel: 256 too (the gemma family).
+#: Head dims of the bf16 tensor-core kernels (K1, K5 and K6): 256 too (the
+#: gemma family).
 TC_HEAD_DIMS = (64, 128, 256)
 #: Tile sizes of the bf16 tensor-core kernel (ptc::BM / ptc::Smem<D>::BN);
 #: the key tile at head dim 256.

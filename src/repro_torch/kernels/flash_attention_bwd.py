@@ -5,8 +5,10 @@ Port of ``repro.kernels.flash_attention_bwd.flash_attention_bwd`` (the
 Pallas kernels ``_dq_kernel`` and ``_dkv_kernel``). The kernels are
 ``csrc/flash_attention_bwd.cu``: bf16 runs ``fa2_bwd_dq_tc`` /
 ``fa2_bwd_dkv_tc`` on the tensor cores (``wgmma`` fed by TMA; P and dS
-rounded to bf16 before their products), float32 ``fa2_bwd_dq`` /
-``fa2_bwd_dkv`` on the CUDA cores in float32. Each pair is launched by its
+rounded to bf16 before their products) at head_dim 64, 128 and 256 (the
+gemma family: both warpgroups of a block on 64 shared rows, each
+accumulating half of D's columns), float32 ``fa2_bwd_dq`` /
+``fa2_bwd_dkv`` on the CUDA cores in float32 at head_dim 64 and 128. Each pair is launched by its
 own wrapper (:func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`);
 :func:`flash_attention_bwd` launches both for CUDA tensors and runs
 :func:`flash_attention_bwd_plain` for CPU tensors. ``delta = rowsum(dO * O)``
@@ -29,7 +31,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     BLOCK_FIRST,
-    HEAD_DIMS,
     HEAD_FIRST,
     MappingConfig,
     _check_inputs,
@@ -101,8 +102,8 @@ def _kernel(which: str, dtype):
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta, mapping):
-    # Head dim 256 (gemma training) waits for K5 / K6 there (ROADMAP.md).
-    _check_inputs(q, k, v, HEAD_DIMS)
+    # K1's head dims: 64, 128 and 256 in bf16, 64 and 128 in float32.
+    _check_inputs(q, k, v)
     # Both routes read rows 16 bytes at a time, and TMA needs 16-byte
     # aligned tensors; a tensor map has no empty dimension.
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
@@ -142,8 +143,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """K5 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype, from the forward's
     ``lse`` and ``delta = rowsum(dO * O)`` (both (B, Hq, Sq) float32). bf16
-    runs on the tensor cores, float32 on the CUDA cores; inputs must be
-    contiguous and 16-byte aligned."""
+    runs on the tensor cores (D 64, 128 or 256), float32 on the CUDA cores
+    (D 64 or 128); inputs must be contiguous and 16-byte aligned."""
     _check_bwd_inputs(q, k, v, do, lse, delta, mapping)
     build.refuse_grad("flash_attention_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)

@@ -24,15 +24,22 @@ TILE = 64   # rows of a K / V tile (dtc::BT)
 ROW_TOL = 2.0**-6   # per row, against the row's max |o|: one bf16 ulp is 2^-7
 
 
-def softcap_log2(s, scale, softcap):
-    """hopper.cuh's softcap_log2 in float32: softcap * tanh(s * scale /
-    softcap) * log2(e) as c * (1 - 2 / (2^(s k) + 1)), k = 2 log2(e) scale
-    (1 / softcap) and c = softcap log2(e) rounded as the kernel rounds them
-    (the power is inf past |y| ~ 44, and the result exactly +-c)."""
+def softcap_tanh(s, scale, softcap):
+    """tanh(s * scale / softcap) as hopper.cuh's softcap_log2 computes it
+    in float32: 1 - 2 / (2^(s k) + 1), k = 2 log2(e) scale (1 / softcap)
+    rounded as the kernel rounds it (the power is inf past |y| ~ 44, and
+    the result exactly +-1)."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)
     k = f32(2.0) * f32(LOG2E) * f32(scale) * (1.0 / f32(softcap))
-    c = f32(softcap) * f32(LOG2E)
-    return c * (1.0 - 2.0 / (torch.exp2(s * k) + 1.0))
+    return 1.0 - 2.0 / (torch.exp2(s * k) + 1.0)
+
+
+def softcap_log2(s, scale, softcap):
+    """hopper.cuh's softcap_log2 in float32: softcap * tanh(s * scale /
+    softcap) * log2(e) as c * softcap_tanh(s, scale, softcap), c = softcap
+    log2(e) rounded as the kernel rounds it."""
+    c = torch.tensor(softcap, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+    return c * softcap_tanh(s, scale, softcap)
 
 
 def row_err(j, t) -> float:

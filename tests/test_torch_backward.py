@@ -25,6 +25,8 @@ from repro.kernels.flash_attention import MappingConfig as JaxMapping
 from repro.kernels.flash_attention import flash_attention_fwd as jax_fwd
 from repro.kernels.flash_attention_bwd import flash_attention_bwd as jax_bwd
 
+from tc_decode_emulation import softcap_tanh
+
 from repro_torch import kernels
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
@@ -129,11 +131,16 @@ def _tensor_core_bwd(q, k, v, o, lse, do, *, causal, window=None, softcap=None,
     float32: products of bf16 inputs summed in float32; p recomputed as
     2^(s scale log2(e) - lse log2(e)) (with a softcap 2^(cap tanh(s scale /
     cap) log2(e) - lse log2(e))), 0 where masked or the row is fully masked;
-    dS = P (dP - delta) from P unrounded, times 1 - tanh^2 with a softcap;
-    P and dS rounded to bf16 before dS K, P^T dO and dS^T Q; dQ summed over
-    64-key tiles, dK / dV over each q head's 64-row q tiles and the GQA
-    group, in float32; each output rounded to bf16 once (dQ and dK after
-    the scale), or left in float32 with ``round_out=False``."""
+    dS = (P f) (dP - delta) from P unrounded, f = 1 - tanh^2 with a softcap
+    (1 without); P and dS rounded to bf16 before dS K, P^T dO and dS^T Q; dQ
+    summed over 64-key tiles, dK / dV over each q head's 64-row q tiles and
+    the GQA group, in float32; each output rounded to bf16 once (dQ and dK
+    after the scale), or left in float32 with ``round_out=False``. At head
+    dim 64 and 128 tanh is ``tanhf``; at 256 it is hopper.cuh's one ex2 and
+    one rcp (``softcap_tanh``), and one warpgroup forms S and P, the other
+    dP and dS, each summing its half of D's output columns: a split of
+    independent columns, which changes no sum, so S, dP and the products
+    over the 64-row tiles are the same as at the other head dims."""
     log2e = 1.4426950408889634
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -147,7 +154,10 @@ def _tensor_core_bwd(q, k, v, o, lse, do, *, causal, window=None, softcap=None,
     dp = dof @ vf.transpose(-1, -2)
     nl = torch.where(lse > -1e30 / 2, -lse * log2e, torch.tensor(-float("inf")))[..., None]
     if softcap:
-        th = torch.tanh(s * torch.tensor(scale / softcap, dtype=torch.float32))
+        if d == 256:
+            th = softcap_tanh(s, scale, softcap)
+        else:
+            th = torch.tanh(s * torch.tensor(scale / softcap, dtype=torch.float32))
         p = torch.exp2(softcap * th * log2e + nl)
         factor = 1.0 - th * th
     else:
@@ -188,15 +198,24 @@ def _slice_err(j, t) -> float:
     return float(torch.where(den > 0, diff / den.clamp_min(1e-30), zero_ok).max())
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=50, softcap=30.0),
-                                dict(causal=False, kv_len=101)],
-                         ids=["causal", "window_softcap", "noncausal_kvlen"])
-def test_tensor_core_k5_k6_arithmetic_matches_jax(d, kw):
+TC_FLAGS = {"causal": dict(causal=True),
+            "window_softcap": dict(causal=True, window=50, softcap=30.0),
+            "noncausal_kvlen": dict(causal=False, kv_len=101)}
+#: (head dim, (Hq, Hkv), flags): every flag set at Hq 8 over Hkv 2, and
+#: gemma3-1b's group of 4 over one kv head at head dim 256.
+TC_CASES = [(d, (8, 2), f) for d in (64, 128, 256) for f in TC_FLAGS] + [
+    (256, (4, 1), "window_softcap")]
+
+
+@pytest.mark.parametrize("d,heads,flags", TC_CASES,
+                         ids=[f"{f}-{d}" + ("-group4-kv1" if h == (4, 1) else "")
+                              for d, h, f in TC_CASES])
+def test_tensor_core_k5_k6_arithmetic_matches_jax(d, heads, flags):
     """Rounding P and dS to bf16 before their products, the tensor-core
     K5 / K6's one numerical departure from the JAX kernels (which keep both
-    in float32), against the JAX Pallas backward. Hq 8 over Hkv 2, S 130
-    (two full 64-row tiles and a ragged one).
+    in float32), against the JAX Pallas backward. Hq 8 over Hkv 2, and at
+    head dim 256 also gemma3-1b's group of 4 over one kv head; S 130 (two
+    full 64-row tiles and a ragged one).
 
     * In bf16, as in training (the JAX forward's bf16 o and its lse, every
       output rounded to bf16 once): each (b, head) slice within 2^-6 of its
@@ -208,7 +227,8 @@ def test_tensor_core_k5_k6_arithmetic_matches_jax(d, kw):
       0.0625: here dv reaches 9.4, and a difference of one rounding step
       there is not the departure under test.
     """
-    q, k, v, do = _inputs(80 + d, 8, 2, s=130, d=d, b=1)
+    kw = TC_FLAGS[flags]
+    q, k, v, do = _inputs(80 + d + (heads != (8, 2)), *heads, s=130, d=d, b=1)
     bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
     for dtype, round_out in ((jnp.bfloat16, True), (jnp.float32, False)):
         vals = [x.float().numpy() for x in bf]

@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import hymba_1_5b, llama3_8b
+from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b
 from repro_torch.kernels import decode_attention as dd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
@@ -1940,10 +1940,9 @@ def test_d256_decode_group_32_matches_plain(cuda, layout, num_splits):
 
 
 def test_d256_refuses_what_no_kernel_takes(cuda):
-    """At head_dim 256 the float32 kernels (K1, K2, K3/K4, K7/K8), the
-    quantized pools' (K2q, K3q/K4q), K5 / K6 and a bf16 page of 128 rows
-    (K2's 64-key stage) each raise ValueError on the card and launch
-    nothing."""
+    """At head_dim 256 the float32 kernels (K1, K2, K3/K4, K5/K6, K7/K8),
+    the quantized pools' (K2q, K3q/K4q) and a bf16 page of 128 rows (K2's
+    64-key stage) each raise ValueError on the card and launch nothing."""
     from repro_torch.cache import quant
 
     rng = np.random.default_rng(88)
@@ -1951,11 +1950,8 @@ def test_d256_refuses_what_no_kernel_takes(cuda):
     x32 = _randn(rng, (1, 4, 130, 256), cuda)
     with pytest.raises(ValueError, match="head_dim 256"):
         fa.flash_attention_fwd(x32, x32, x32)
-    xb = x32.to(torch.bfloat16)
-    o, lse = fa.flash_attention_fwd(xb, xb, xb)
-    kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="head_dim 256"):
-        fb.flash_attention_bwd(xb, xb, xb, o, lse, o)
+        fb.flash_attention_bwd(x32, x32, x32, x32, torch.zeros((1, 4, 130), device=cuda), x32)
     q, kp, vp, table, kt, vt, plen, tlen = _prefill_inputs(rng, cuda, torch.float32, 8, 4,
                                                            d=256)
     with pytest.raises(ValueError, match="head_dim 256"):
@@ -1982,3 +1978,114 @@ def test_d256_refuses_what_no_kernel_takes(cuda):
             dd.flash_decode(sq, skc, svc, slen, num_splits=ns)
     torch.cuda.synchronize()
     assert sum(kernels.launch_counts().values()) == 0
+
+
+# -- head_dim 256: K5 / K6 in bf16 and gemma training ---------------------------
+
+#: (B, Sq, Skv, kw) of the head_dim 256 backward cases: a ragged causal S
+#: (700 = 10 x 64 + 60), window 100, window 4096 over 4200 positions (the
+#: window bites), and non-causal keys masked past kv_len; softcap 50 on all
+#: but the last.
+D256_BWD = {
+    "causal_ragged": (2, 700, 700, dict(causal=True, softcap=50.0)),
+    "window100": (2, 700, 700, dict(causal=True, window=100, softcap=50.0)),
+    "window4096_s4200": (1, 4200, 4200, dict(causal=True, window=4096, softcap=50.0)),
+    "noncausal_kvlen": (2, 130, 170, dict(causal=False, kv_len=150)),
+}
+
+
+def _d256_bwd_case(rng, dev, hq, hkv, b, sq, skv, **kw):
+    q = _randn(rng, (b, hq, sq, 256), dev, torch.bfloat16)
+    k, v = (_randn(rng, (b, hkv, skv, 256), dev, torch.bfloat16) for _ in range(2))
+    do = _randn(rng, (b, hq, sq, 256), dev, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("case", sorted(D256_BWD))
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+def test_d256_flash_bwd_matches_plain(cuda, case, hq, hkv):
+    """K5 / K6 at head_dim 256 on the tensor cores (both warpgroups of a
+    block on 64 shared rows), at gemma2-2b's and gemma3-1b's groups: each
+    gradient per (b, head) slice within 2^-6 of the plain backward, one
+    launch each, both on the tensor cores."""
+    b, sq, skv, kw = D256_BWD[case]
+    args = _d256_bwd_case(np.random.default_rng(90), cuda, hq, hkv, b, sq, skv, **kw)
+    kernels.reset_launch_counts()
+    got = fb.flash_attention_bwd(*args, **kw)
+    counts = kernels.launch_counts()
+    want = fb.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bwd_routes(counts, torch.bfloat16), counts
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert _slice_err(g, w) <= ROW_TOL, name
+    if kw.get("kv_len") is not None:   # keys past kv_len get no gradient
+        assert float(got[1][:, :, 150:].abs().max()) == float(got[2][:, :, 150:].abs().max()) == 0
+
+
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+def test_d256_flash_bwd_fully_masked_rows(cuda, hq, hkv):
+    """kv_len 0 masks every row (lse -1e30): at head_dim 256 every gradient
+    is exactly 0, no NaN."""
+    kw = dict(causal=False, kv_len=0, softcap=50.0)
+    q, k, v, o, lse, do = _d256_bwd_case(np.random.default_rng(91), cuda, hq, hkv, 2, 130,
+                                         130, **kw)
+    kernels.reset_launch_counts()
+    dq, dk, dv = fb.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert _bwd_routes(kernels.launch_counts(), torch.bfloat16)
+    assert float(dq.abs().max()) == float(dk.abs().max()) == float(dv.abs().max()) == 0.0
+
+
+def test_d256_flash_bwd_orders_agree_exactly(cuda):
+    """Head-first and block-first give the same bits at head_dim 256, and
+    so do reruns."""
+    kw = dict(causal=True, window=100, softcap=50.0)
+    args = _d256_bwd_case(np.random.default_rng(92), cuda, 8, 4, 2, 700, 700, **kw)
+    runs = [fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=order), **kw)
+            for order in (fa.HEAD_FIRST, fa.BLOCK_FIRST, fa.HEAD_FIRST)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "gemma3-1b"])
+def test_d256_gemma_train_grads_on_kernels_match_plain(cuda, arch):
+    """gemma SMOKE widened to head_dim 256 in bf16 (window 64, seq 100: the
+    window bites; gemma2's softcap 50, gemma3's qk-norm): one step's
+    gradients through K1 / K5 / K6 against the same step on the plain
+    versions, from the same weights and batch. The loss within 1e-2
+    relative; each leaf within 3e-2 by its relative norm. At this width
+    (d_model 64) bf16 compute alone moves a leaf that far: the plain path in
+    bf16 against itself in float32 differed by up to 1.9e-2 (median 1.3e-2)
+    on an NVIDIA H100, the kernel path against the plain path by up to
+    1.2e-2 (median 0.8e-2); dropping the window moves leaves by 4-17% (the
+    plain path on the CPU). The kernels themselves are held per slice at
+    2^-6 above."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    smoke = {"gemma2-2b": gemma2_2b.SMOKE, "gemma3-1b": gemma3_1b.SMOKE}[arch]
+    cfg = dataclasses.replace(smoke, head_dim=256, compute_dtype="bfloat16")
+    batch = ts.to_device(make_pipeline(DataConfig(seq_len=100, global_batch=2,
+                                                  vocab=cfg.vocab)).batch_at(0), cuda)
+    params = transformer.init_model(cfg, seed=0, device=cuda, param_dtype=torch.float32)
+    grads, losses = {}, {}
+    for impl in ("auto", "plain"):
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, dataclasses.replace(cfg, attn_impl=impl),
+                                          batch, ts.TrainConfig())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        grads[impl], losses[impl] = g, float(loss)
+        if impl == "auto":   # remat: K1 twice per layer; K5 / K6 once, on the tensor cores
+            assert counts["flash_attention_fwd_tc"] == 2 * cfg.n_layers
+            assert counts["flash_attention_bwd_dq_tc"] == cfg.n_layers
+            assert counts["flash_attention_bwd_dkv_tc"] == cfg.n_layers
+        else:
+            assert sum(counts.values()) == 0
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-2 * abs(losses["plain"])
+    for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
+                            tree_lib.leaves(grads["plain"])):
+        assert float((a - b).float().norm() / b.float().norm()) <= 3e-2, path

@@ -1,10 +1,11 @@
 """The training slice of the PyTorch port against the JAX package, on the CPU.
 
 ``repro.training.train_step`` (the JAX package's own CPU route, jitted) and
-the port's ``make_train_step`` start from the same ``llama3_8b.SMOKE``
-weights (carried across by ``from_jax_params(..., param_dtype=float32)``)
-and take the same batches (``data.pipeline``, byte-identical in both
-packages). Bars, float32 end to end in both:
+the port's ``make_train_step`` start from the same SMOKE weights
+(``llama3_8b``, and the gemma family's ``gemma2_2b`` with its softcaps and
+``gemma3_1b`` with its qk-norm; carried across by ``from_jax_params(...,
+param_dtype=float32)``) and take the same batches (``data.pipeline``,
+byte-identical in both packages). Bars, float32 end to end in both:
 
 * every metric of 3 steps within 1e-5 relative: the two differ only in the
   order of float32 sums (about 1e-7 relative per operation over two
@@ -33,13 +34,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma2_2b as jax_gemma2
+from repro.configs import gemma3_1b as jax_gemma3
 from repro.configs import llama3_8b as jax_llama
 from repro.data.pipeline import DataConfig as JaxDataConfig
 from repro.data.pipeline import make_pipeline as jax_make_pipeline
 from repro.optim.adamw import AdamWConfig as JaxAdamW
 from repro.training import train_step as jax_ts
 
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import gemma2_2b, gemma3_1b, llama3_8b
 from repro_torch.core import tree as tree_lib
 from repro_torch.models import transformer
 from repro_torch.optim import adamw, grad_compress
@@ -66,22 +69,30 @@ def _adam_ratio_bound(t, b1, b2) -> float:
     return math.sqrt(sum(wi * wi / ui for wi, ui in zip(w, u)))
 
 
-def _port_params(tree):
-    return transformer.from_jax_params(jax.tree.map(np.asarray, tree), llama3_8b.SMOKE,
+def _port_params(tree, cfg=llama3_8b.SMOKE):
+    return transformer.from_jax_params(jax.tree.map(np.asarray, tree), cfg,
                                        device="cpu", param_dtype=torch.float32)
 
 
-@pytest.mark.parametrize("microbatches,compression",
-                         [(1, "none"), (2, "none"), (1, "int8_ef")],
-                         ids=["plain", "microbatches2", "int8_ef"])
-def test_train_steps_match_jax(microbatches, compression):
-    cfg_j, cfg = jax_llama.SMOKE, llama3_8b.SMOKE
+#: arch -> (the JAX package's SMOKE config, the port's).
+ARCHS = {"llama3-8b": (jax_llama.SMOKE, llama3_8b.SMOKE),
+         "gemma2-2b": (jax_gemma2.SMOKE, gemma2_2b.SMOKE),
+         "gemma3-1b": (jax_gemma3.SMOKE, gemma3_1b.SMOKE)}
+
+
+@pytest.mark.parametrize("arch,microbatches,compression",
+                         [("llama3-8b", 1, "none"), ("llama3-8b", 2, "none"),
+                          ("llama3-8b", 1, "int8_ef"), ("gemma2-2b", 1, "none"),
+                          ("gemma3-1b", 1, "none")],
+                         ids=["plain", "microbatches2", "int8_ef", "gemma2-2b", "gemma3-1b"])
+def test_train_steps_match_jax(arch, microbatches, compression):
+    cfg_j, cfg = ARCHS[arch]
     jt = jax_ts.TrainConfig(optimizer=JaxAdamW(lr=LR, warmup_steps=WARMUP, total_steps=TOTAL),
                             microbatches=microbatches, grad_compression=compression)
     tt = ts.TrainConfig(optimizer=AdamWConfig(lr=LR, warmup_steps=WARMUP, total_steps=TOTAL),
                         microbatches=microbatches, grad_compression=compression)
     jstate = jax_ts.init_train_state(jax.random.PRNGKey(0), cfg_j, jt)
-    params = _port_params(jstate["params"])
+    params = _port_params(jstate["params"], cfg)
     state = {"params": params, "opt": adamw.init(params, tt.optimizer)}
     if compression == "int8_ef":
         state["ef"] = grad_compress.init_error_feedback(params)
@@ -95,7 +106,7 @@ def test_train_steps_match_jax(microbatches, compression):
             jstate["params"], {k: jnp.asarray(v) for k, v in b0.items()})
         gt, _, _ = ts._accumulate_grads(state["params"], cfg, ts.to_device(b0, "cpu"), tt)
         for (path, got), want in zip(tree_lib.leaves_with_paths(gt),
-                                     tree_lib.leaves(_port_params(gj))):
+                                     tree_lib.leaves(_port_params(gj, cfg))):
             assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max()), path
 
     jstep = jax.jit(jax_ts.make_train_step(cfg_j, jt))
@@ -116,7 +127,7 @@ def test_train_steps_match_jax(microbatches, compression):
     bar = 2 * sum(lr * _adam_ratio_bound(t, b1, b2) for t, lr in enumerate(lrs, 1)) + 1e-5
     diffs = torch.cat([(got.detach() - want).abs().reshape(-1) for got, want in
                        zip(tree_lib.leaves(state["params"]),
-                           tree_lib.leaves(_port_params(jstate["params"])))])
+                           tree_lib.leaves(_port_params(jstate["params"], cfg)))])
     assert float(diffs.max()) <= bar
     share = 1e-2 if compression == "int8_ef" else 1e-3
     assert float((diffs > 1e-5).float().mean()) <= share
