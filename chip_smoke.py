@@ -70,7 +70,15 @@ and prints no result. Phases, in order (any failure exits non-zero):
      bitwise equal, CUDA-event times, the bound and SDPA where one call
      computes the same function, and K1 (global and window 4096) and K7 /
      K8 at gemma2-2b's widths once more without the softcap, beside SDPA,
-     which has none (the like-for-like library row); then K5 / K6 at
+     which has none (the like-for-like library row), and K3q / K4q and K2q
+     at head_dim 256 over int8 and fp8 pools with a NaN null page
+     (``check_gemma_quantized``: B 8 global and windowed, the serve runs'
+     decode shapes with rows frozen on the null page, run (b)'s one row of
+     4200 at 1, 2, 4 and 8 splits beside the split estimator's pick, K2q at
+     prefix 1000 / tail 256 and the serve extend shape; per row against the
+     plain version, against the unquantized kernel within QTOL, ten reruns
+     bitwise equal, K2q bit for bit K2 over the dequantized pools, each
+     timed beside the bf16 kernel on bf16 pools); then K5 / K6 at
      head_dim 256 (``check_gemma_backward``) at each model's train shape
      (gemma2-2b B 1, S 8192; gemma3-1b B 2, S 4096), global and the local
      window, with the softcap: per (b, head) slice within 2^-6 of the plain
@@ -140,12 +148,14 @@ and prints no result. Phases, in order (any failure exits non-zero):
      ``perf_model.HOST_SYNC_OVERHEAD_S``); and a torch.profiler summary of
      an eager tick and of an 8-tick replay (device-busy share, top device
      ops). Then the same weights served from dense stripes
-     (``kv_layout="dense"``), then full-width hymba-1.5b through
+     (``kv_layout="dense"``), then hymba-1.5b at full width and 16 of its
+     32 layers (two periods of one global and seven window-1024 layers) through
      ``LLMEngine(cfg, params)`` (``kv_layout`` resolves to dense): 8 greedy
      requests off the prompt buckets, several past the 1024 window, on
      2048-token stripes (one pass, K7), then one of 4000 tokens alone on
      4096-token stripes, whose decode the plan splits (K8); then
-     full-width mamba2-1.3b. Each dense run must launch its kernels (every
+     mamba2-1.3b at full width and 24 of its 48 layers (both cuts keep the
+     whole smoke near half its time limit). Each dense run must launch its kernels (every
      K7 / K8 launch of the llama and hymba runs on the tensor cores; one K9
      launch, on the tensor cores, per SSM layer per prefill) and
      hold one sync of each run to the plain path's (every kernel off:
@@ -175,8 +185,12 @@ and prints no result. Phases, in order (any failure exits non-zero):
      rows, so the plan decodes in one pass: K1, K2, K3; (b) one row of
      4200 tokens, past gemma2's window of 4096: K4), dense (32 rows of 2048
      or 128 of 1024: K1, K7; one row of 4400 alone: K8), every run held to
-     the plain path by ``compare_sync``, and the fused decode on (a)'s
-     engine at ``steps_per_sync`` 1 and 8. ``python3 chip_smoke.py --phase
+     the plain path by ``compare_sync``, paged (a) and (b) again over int8
+     and over fp8 pools (``serve_quantized``: K2q, K3q and K4q at head_dim
+     256, every launch on the tensor cores, none on an unquantized kernel,
+     one sync of each run held to the plain path on the same format), and
+     the fused decode on (a)'s engine at ``steps_per_sync`` 1 and 8.
+     ``python3 chip_smoke.py --phase
      gemma`` runs the head_dim 256 kernels, these runs and the gemma train
      phases alone, with no result line;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
@@ -256,6 +270,7 @@ TRAIN_LOSS_TOL = 1e-2
 # kernel is also held per slice in phase 3.
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
+HYMBA_LAYERS, MAMBA_LAYERS = 16, 24   # the serve phase's depth cuts (``main``)
 REPS = 20                  # timed runs per case; the median is reported
 PRIME_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any wrapper's host time
 HQ, HKV, D, PS = 32, 8, 128, 16
@@ -320,7 +335,18 @@ KERNELS = {
 QTOL = {"int8": 0.03, "fp8": 0.12}
 
 
+#: The phase under way (the last "== " line logged) and when it began.
+_phase = {"name": None, "t": 0.0}
+
+
 def log(msg=""):
+    """Print ``msg``; a line that opens a phase ("== ...") first prints how
+    long the last phase took (host clock), for the time budget."""
+    if msg.startswith("== "):
+        now = time.perf_counter()
+        if _phase["name"]:
+            print(f"(phase {_phase['name']!r}: {now - _phase['t']:.1f} s)", flush=True)
+        _phase.update(name=msg[3:].split("\n")[0][:60], t=now)
     print(msg, flush=True)
 
 
@@ -923,6 +949,80 @@ def check_paged_decode(torch, timer, results, gen):
     del kp, vp, q, o, o_ref
 
 
+def quant_pools(torch, gen, hkv, num_pages, d, kv_dtype):
+    """(float32 values, codes, scales) for K and for V: pools of pages of
+    PS rows made from normal values, whose null page (0) is then
+    overwritten as rows frozen on it leave it: NaN scales, and codes that
+    are NaN bits in e4m3 (0x7F)."""
+    from repro_torch.cache import quant
+
+    out = []
+    for _ in range(2):
+        x = torch.randn((hkv, num_pages, PS, d), generator=gen, device="cuda")
+        codes, scales = quant.quantize_pages(x, kv_dtype)
+        codes.view(torch.uint8)[:, 0] = 0x7F
+        scales[:, 0] = float("nan")
+        out.append((x, codes, scales))
+    return out
+
+
+def quant_table(torch, gen, lengths, mp, frozen=()):
+    """Scattered live pages per row, the null page past them; frozen rows'
+    tables are all null."""
+    perm = (torch.randperm(len(lengths) * mp, generator=gen, device="cuda") + 1).tolist()
+    table = torch.zeros((len(lengths), mp), dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        if i not in frozen:
+            live = -(-n // PS)
+            table[i, :live] = torch.tensor(perm[i * mp: i * mp + live])
+    return table.cuda()
+
+
+def only_launched(counts, *keys) -> bool:
+    """One launch of each of ``keys`` and of nothing else."""
+    return {k: n for k, n in counts.items() if n} == {k: 1 for k in keys}
+
+
+def check_quant_rows(label, ok_rows, e_r, e32, o, o_bf, bars):
+    """A quantized case's bars: ``ok_rows`` (routing, reruns, finite and
+    zero rows), the row-relative error ``e_r`` against the plain version,
+    float32 q's error ``e32`` (None where float32 q is not run: head_dim
+    256 refuses it), and ``o`` against the unquantized kernel's ``o_bf``
+    within ``bars`` (rows,), each row's own."""
+    e_bf = (o.float() - o_bf.float()).abs().flatten(1).amax(1)
+    worst = int((e_bf / bars).argmax())
+    f32 = "not run" if e32 is None else f"max_err {e32:.3e} (tol {F32_TOL})"
+    log(f"{label}: row-relative {e_r:.3e} (tol {ROW_TOL:.3e}); float32 q {f32}; "
+        f"against the unquantized bf16 kernel max {float(e_bf.max()):.3e}, "
+        f"nearest its bar at row {worst}: {float(e_bf[worst]):.3e} (tol "
+        f"{float(bars[worst]):.3e})")
+    for r in (bars > bars.min()).nonzero().flatten().tolist():
+        log(f"  row {r}, fewer keys than a page: {float(e_bf[r]):.3e} against its bar "
+            f"{float(bars[r]):.3e} (QTOL plus its own V codes' measured error)")
+    if not ok_rows or e_r > ROW_TOL or (e32 or 0.0) > F32_TOL or bool((e_bf > bars).any()):
+        raise AssertionError(f"{label} disagrees")
+
+
+def quant_decode_bars(lens, rows, table, vc, vs, vb, kv_dtype):
+    """Each row's bar against the unquantized kernel: QTOL, and for an fp8
+    row of fewer keys than a page QTOL plus its own V codes' largest error
+    against the bf16 values."""
+    import torch
+
+    from repro_torch.cache import quant
+
+    bars = []
+    for i in rows:
+        bar = QTOL[kv_dtype]
+        if kv_dtype == "fp8" and 0 < lens[i] < PS:
+            pages = table[i, : -(-lens[i] // PS)].long()
+            deq = quant.dequantize_pages(vc[:, pages], vs[:, pages])
+            own = (deq - vb[:, pages].float()).flatten(1, 2)[:, : lens[i]]
+            bar += float(own.abs().max())
+        bars.append(bar)
+    return torch.tensor(bars, device="cuda")
+
+
 def check_quantized(torch, timer, results, gen):
     """K3q / K4q (paged decode of bf16 q over int8 and fp8 pools, one pass
     and split-K, on the tensor cores: the codes widened to bf16 in shared
@@ -965,56 +1065,9 @@ def check_quantized(torch, timer, results, gen):
     from repro_torch.kernels import paged_prefill_attention as pp
     from repro_torch.kernels import plan
 
-    def pools(num_pages, kv_dtype):
-        """(float32 values, codes, scales) for K and for V."""
-        out = []
-        for _ in range(2):
-            x = torch.randn((HKV, num_pages, PS, D), generator=gen, device="cuda")
-            codes, scales = quant.quantize_pages(x, kv_dtype)
-            codes.view(torch.uint8)[:, 0] = 0x7F
-            scales[:, 0] = float("nan")
-            out.append((x, codes, scales))
-        return out
-
-    def table_of(lengths, mp, frozen=()):
-        """Scattered live pages per row, the null page past them; frozen
-        rows' tables are all null."""
-        perm = (torch.randperm(len(lengths) * mp, generator=gen, device="cuda") + 1).tolist()
-        table = torch.zeros((len(lengths), mp), dtype=torch.int32)
-        for i, n in enumerate(lengths):
-            if i not in frozen:
-                live = -(-n // PS)
-                table[i, :live] = torch.tensor(perm[i * mp: i * mp + live])
-        return table.cuda()
-
-    def only(counts, *keys):
-        return {k: n for k, n in counts.items() if n} == {k: 1 for k in keys}
-
-    def check(label, ok_rows, e_r, e32, o, o_bf, bars):
-        """``bars`` (rows,): each row's bar against the unquantized kernel."""
-        e_bf = (o.float() - o_bf.float()).abs().flatten(1).amax(1)
-        worst = int((e_bf / bars).argmax())
-        log(f"{label}: row-relative {e_r:.3e} (tol {ROW_TOL:.3e}); float32 q max_err {e32:.3e} "
-            f"(tol {F32_TOL}); against the unquantized bf16 kernel max {float(e_bf.max()):.3e}, "
-            f"nearest its bar at row {worst}: {float(e_bf[worst]):.3e} (tol "
-            f"{float(bars[worst]):.3e})")
-        for r in (bars > bars.min()).nonzero().flatten().tolist():
-            log(f"  row {r}, fewer keys than a page: {float(e_bf[r]):.3e} against its bar "
-                f"{float(bars[r]):.3e} (QTOL plus its own V codes' measured error)")
-        if not ok_rows or e_r > ROW_TOL or e32 > F32_TOL or bool((e_bf > bars).any()):
-            raise AssertionError(f"{label} disagrees")
-
-    def decode_bars(lens, rows, table, vc, vs, vb, kv_dtype):
-        bars = []
-        for i in rows:
-            bar = QTOL[kv_dtype]
-            if kv_dtype == "fp8" and 0 < lens[i] < PS:
-                pages = table[i, : -(-lens[i] // PS)].long()
-                deq = quant.dequantize_pages(vc[:, pages], vs[:, pages])
-                own = (deq - vb[:, pages].float()).flatten(1, 2)[:, : lens[i]]
-                bar += float(own.abs().max())
-            bars.append(bar)
-        return torch.tensor(bars, device="cuda")
+    pools = lambda num_pages, kv_dtype: quant_pools(torch, gen, HKV, num_pages, D, kv_dtype)
+    table_of = lambda lengths, mp, frozen=(): quant_table(torch, gen, lengths, mp, frozen)
+    only, check, decode_bars = only_launched, check_quant_rows, quant_decode_bars
 
     for kv_dtype in ("int8", "fp8"):
         for label, mp, lens, frozen, splits, timed in (
@@ -1579,6 +1632,9 @@ def check_gemma_kernels(torch, timer):
                    f", split model {est[ns] * 1e3:.4f} ms")
             rows[-1]["split_model_ms"] = est[ns] * 1e3
         del kp, vp, q, o, o_ref
+        t = time.perf_counter()
+        rows.extend(check_gemma_quantized(torch, timer, gen, model, hq, hkv, local, cap))
+        log(f"K2q, K3q / K4q at D 256, {model}: {time.perf_counter() - t:.1f} s")
 
         # K7 / K8: the same rows on 4096-row stripes; SDPA on the stripes
         # expanded to Hq under the length and window mask.
@@ -1615,6 +1671,170 @@ def check_gemma_kernels(torch, timer):
         ms = no_cap_ms.get((row["kernel"], None if window < 0 else window))
         if ms is not None and row["widths"].startswith("gemma2-2b"):
             row["ms_without_softcap"] = ms
+    return rows
+
+
+def check_gemma_quantized(torch, timer, gen, model, hq, hkv, local, cap):
+    """K3q / K4q and K2q at head_dim 256 (bf16 q over int8 and fp8 pools,
+    on the tensor cores) at ``model``'s widths, with its softcap, over
+    pools whose null page holds NaN scales and e4m3 NaN codes (``quant_pools``,
+    pages of PS). Decode: B 8 with lengths up to 4096 and a length-0 row,
+    global and the local window, at 1 and 4 splits; the serve run (a)'s
+    decode shape, 8 rows of 560 tokens on 36-page tables, 2 of them frozen
+    on the null page, at 1 and 2 splits; run (b)'s, one row of 4200 tokens
+    on a 268-page table, at 1, 2, 4 and 8 splits beside the split
+    estimator's pick for the format (both with the local window). Prefill:
+    B 2, prefix 1000 on a 63-page table, tail 256, the second row live to
+    219, global and the local window; the serve run (a)'s extend shape, 7
+    rows of prefix 256 on 16 pages and tail 256. Bars as ``check_quantized``:
+    each live row within ROW_TOL of the plain version, within QTOL of the
+    unquantized bf16 kernel on the same values (``quant_decode_bars``),
+    finite; length-0 rows and rows past tail_len exactly zero; every launch
+    on the tensor-core entry; ten reruns bitwise equal, the frozen rows'
+    NaNs too; K2q bit for bit K2 over bf16 pools of the dequantized values.
+    Times: CUDA-event medians, primed, L2 flushed, beside the bf16 kernel on
+    bf16 pools (K3 / K4 / K2 at D 256) in the same call; the plain version
+    timed for the B 8 case (int8, the local window) and the B 2 ones. Bound:
+    codes at 1 B a live position,
+    the live pages' scales, q, the tail, out and the table over 3.35 TB/s
+    against the operations at the bf16 peak. Returns one row per case."""
+    from repro_torch import kernels
+    from repro_torch.cache import quant
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import paged_prefill_attention as pp
+    from repro_torch.kernels import plan
+
+    d, rows = D256, []
+    widths = f"{model} (Hq {hq}, Hkv {hkv})"
+    for kv_dtype in ("int8", "fp8"):
+        for label, mp, lens, frozen, windows, splits, timed in (
+                ("B 8 table 4096", 4096 // PS, [4096, 0, 3001, 17, 2048, 4000, 1, 1500], (),
+                 (None, local), (1, 4), True),
+                ("serve decode shape (a) B 8 x 560 table 36 rows 6-7 frozen", 36, [560] * 8,
+                 (6, 7), (local,), (1, 2), False),
+                (f"serve decode shape (b) B 1 x {GEMMA_B_LEN} table 268", 268, [GEMMA_B_LEN],
+                 (), (local,), (1, 2, 4, 8), False)):
+            b = len(lens)
+            (xk, kc, ks), (xv, vc, vs) = quant_pools(torch, gen, hkv, 1 + b * mp, d, kv_dtype)
+            table = quant_table(torch, gen, lens, mp, frozen)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+            kb, vb = xk.to(torch.bfloat16), xv.to(torch.bfloat16)
+            live = [i for i in range(b) if i not in frozen]
+            zero = [i for i in live if lens[i] == 0]
+            for window in windows:
+                seen = [min(lens[i], window or lens[i]) for i in live]
+                pages = sum(-(-lens[i] // PS) - (lens[i] - n) // PS for i, n in zip(live, seen))
+                qb = bound(2 * hkv * d * sum(seen) + 2 * hkv * pages * 4
+                           + nbytes(q, q, table, lengths), 4.0 * hq * d * sum(seen))
+                if b == 1:
+                    chosen = plan.plan_attention((b, hq, hkv, 1, mp * PS, d), phase=plan.DECODE,
+                                                 kv_layout=plan.PAGED, page_size=PS,
+                                                 window=window, kv_dtype=kv_dtype).num_splits
+                    log(f"K4q D 256 {widths} {kv_dtype} {label}: the split estimator picks "
+                        f"{chosen} splits")
+                for ns in splits:
+                    key = "K3q" if ns == 1 else "K4q"
+                    kw = dict(num_splits=ns, window=window, softcap=cap)
+                    run = lambda: pd.paged_flash_decode(q, kc, vc, table, lengths, k_scales=ks,
+                                                        v_scales=vs, **kw)
+                    kernels.reset_launch_counts()
+                    o = run()
+                    counter = KERNELS[key]["counter"]
+                    routed = only_launched(kernels.launch_counts(), counter,
+                                           counter[:-len("_tc")])
+                    o_ref = pd.paged_flash_decode_plain(q, kc, vc, table, lengths, k_scales=ks,
+                                                        v_scales=vs, **kw)
+                    o_bf = pd.paged_flash_decode(q, kb, vb, table, lengths, **kw)
+                    bits = o.view(torch.int16)
+                    same = all(torch.equal(run().view(torch.int16), bits) for _ in range(10))
+                    torch.cuda.synchronize()
+                    ok = (routed and same and bool(torch.isfinite(o[live].float()).all())
+                          and all(float(o[i].float().abs().max()) == 0.0 for i in zero))
+                    e_r = row_err(o[live], o_ref[live])
+                    name = (f"{key} D 256 {widths} {kv_dtype} {label} window {window} "
+                            f"num_splits {ns}")
+                    log(f"{name}: routed to {counter} {routed}, 10 reruns bitwise equal {same}")
+                    check_quant_rows(name, ok, e_r, None, o[live], o_bf[live],
+                                     quant_decode_bars(lens, live, table, vc, vs, vb, kv_dtype))
+                    ms = timer.ms(run, primed=True)
+                    bf_ms = timer.ms(lambda: pd.paged_flash_decode(q, kb, vb, table, lengths,
+                                                                   **kw), primed=True)
+                    # The plain walk takes ~0.2 s a call here: timed once a
+                    # model and split kind (int8, the local window).
+                    plain_ms = (timer.ms(lambda: pd.paged_flash_decode_plain(
+                        q, kc, vc, table, lengths, k_scales=ks, v_scales=vs, **kw))
+                        if timed and kv_dtype == "int8" and window == local else float("nan"))
+                    log(f"{name}: {ms:.4f} ms (queue primed), the bf16 tensor-core kernel on "
+                        f"bf16 pools {bf_ms:.4f} ms ({ms / bf_ms:.3f}x), plain {plain_ms:.3f} ms, "
+                        f"bound {qb[0]:.5f} ms ({qb[1]})")
+                    rows.append(dict(kernel=key, widths=f"{widths} {kv_dtype} {label} window "
+                                     f"{window} num_splits {ns}", ms=ms, bf16_ms=bf_ms,
+                                     plain_ms=plain_ms, bound_ms=qb[0], bound_by=qb[1],
+                                     library_ms=None, row_err=e_r))
+            del xk, xv, kc, vc, ks, vs, kb, vb, q, o, o_ref, o_bf
+
+        for label, b, plen, mp, tlens, windows, timed in (
+                ("prefix 1000 (63-page table) tail 256", 2, 1000, 63, [256, 219],
+                 (None, local), True),
+                ("serve extend shape B 7 x prefix 256 (16 pages) tail 256", 7, 256, 16,
+                 [256] * 7, (local,), False)):
+            st = max(tlens)
+            (xk, kc, ks), (xv, vc, vs) = quant_pools(torch, gen, hkv, 1 + b * mp, d, kv_dtype)
+            table = quant_table(torch, gen, [plen] * b, mp)
+            randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            q, kt, vt = randn(b, hq, st, d), randn(b, hkv, st, d), randn(b, hkv, st, d)
+            plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+            tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
+            kb, vb = xk.to(torch.bfloat16), xv.to(torch.bfloat16)
+            kd, vd = (quant.dequantize_pages(c, sc).to(torch.bfloat16) for c, sc in
+                      ((kc, ks), (vc, vs)))
+            for window in windows:
+                kw = dict(window=window, softcap=cap)
+                run = lambda: pp.paged_flash_prefill(q, kc, vc, table, kt, vt, plens, tl,
+                                                     k_scales=ks, v_scales=vs, **kw)
+                kernels.reset_launch_counts()
+                o = run()
+                counter = KERNELS["K2q"]["counter"]
+                routed = only_launched(kernels.launch_counts(), counter, counter[:-len("_tc")])
+                o_ref = pp.paged_flash_prefill_plain(q, kc, vc, table, kt, vt, plens, tl,
+                                                     k_scales=ks, v_scales=vs, **kw)
+                o_bf = pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens, tl, **kw)
+                o_deq = pp.paged_flash_prefill(q, kd, vd, table, kt, vt, plens, tl, **kw)
+                same = all(torch.equal(run(), o) for _ in range(10))
+                torch.cuda.synchronize()
+                bitwise = torch.equal(o, o_deq)
+                past = sum(float(o[i, :, t:].float().abs().sum()) for i, t in enumerate(tlens))
+                ok = (routed and past == 0.0 and bitwise and same
+                      and bool(torch.isfinite(o.float()).all()))
+                name = f"K2q D 256 {widths} {kv_dtype} {label} window {window}"
+                e_r = row_err(o, o_ref)
+                log(f"{name}: routed to {counter} {routed}, bitwise equal to K2 on bf16 pools of "
+                    f"the dequantized values {bitwise}, rows past tail_len sum |o| {past}, 10 "
+                    f"reruns bitwise equal {same}")
+                check_quant_rows(name, ok, e_r, None, o, o_bf,
+                                 torch.full((b,), QTOL[kv_dtype], device="cuda"))
+                # Tail row i sits at plen + i and sees min(plen + i + 1, window)
+                # keys; the prefix positions any row needs are its last window - 1.
+                pairs = hq * sum(min(plen + i + 1, window or plen + i + 1)
+                                 for t in tlens for i in range(t))
+                pref = min(plen, window - 1) if window else plen
+                kq = bound(2 * hkv * d * pref * b + 2 * hkv * b * -(-pref // PS) * 4
+                           + nbytes(q, kt, vt, o, table, plens, tl), 4.0 * d * pairs)
+                ms = timer.ms(run, primed=True)
+                bf_ms = timer.ms(lambda: pp.paged_flash_prefill(q, kb, vb, table, kt, vt, plens,
+                                                                tl, **kw), primed=True)
+                plain_ms = (timer.ms(lambda: pp.paged_flash_prefill_plain(
+                    q, kc, vc, table, kt, vt, plens, tl, k_scales=ks, v_scales=vs, **kw))
+                    if timed else float("nan"))
+                log(f"{name}: {ms:.4f} ms (queue primed), the bf16 tensor-core kernel on bf16 "
+                    f"pools {bf_ms:.4f} ms ({ms / bf_ms:.3f}x), plain {plain_ms:.3f} ms, bound "
+                    f"{kq[0]:.5f} ms ({kq[1]})")
+                rows.append(dict(kernel="K2q", widths=f"{widths} {kv_dtype} {label} window "
+                                 f"{window}", ms=ms, bf16_ms=bf_ms, plain_ms=plain_ms,
+                                 bound_ms=kq[0], bound_by=kq[1], library_ms=None, row_err=e_r))
+            del xk, xv, kc, vc, ks, vs, kb, vb, kd, vd, q, kt, vt, o, o_ref, o_bf, o_deq
     return rows
 
 
@@ -2347,11 +2567,14 @@ def serve(torch, cfg, params, seed=0, device="cuda", rows=8, b_len=4096, b_kw=SE
     return counts, logits
 
 
-def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
-    """Run (a)'s and run (b)'s workloads on llama3-8b paged with the pool
-    stored as int8 and then as fp8 codes: (a) runs K1, then K2q on its
-    extend wave, then K3q in the decode graph; (b) K1 and K4q (the plan's
-    split count over one row of 260 pages). The launch counts are set to 0 just before each format's
+def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda", rows=8,
+                    b_len=4096, b_kw=SERVE_B_KW):
+    """Run (a)'s and run (b)'s workloads (``serve``'s, with its ``rows``,
+    ``b_len`` and ``b_kw``) on ``cfg`` paged with the pool stored as int8
+    and then as fp8 codes: (a) runs K1, then K2q on its extend wave, then
+    K3q in the decode graph; (b) K1 and K4q (the plan's split count over
+    one row of 260 pages at llama3-8b, 268 at gemma's 4200 tokens). The
+    launch counts are set to 0 just before each format's
     two runs and read just after: K2q, K3q and K4q must each have launched,
     every one of their launches on a tensor-core kernel, and no decode or
     extend launch may have gone to an unquantized kernel. Each run's TTFT
@@ -2365,11 +2588,11 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
     from repro_torch import kernels
     from repro_torch.serving import LLMEngine, Request, SamplingParams
 
-    engine_kw = dict(SERVE_PAGED_KW, device=device)
+    engine_kw = dict(SERVE_PAGED_KW, max_batch=rows, device=device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     prompts_a, rng = serve_prompts(cfg, seed)
-    prompt_b = rng.integers(1, cfg.vocab, size=(4096,))
-    kw_b = dict(engine_kw, **SERVE_B_KW)
+    prompt_b = rng.integers(1, cfg.vocab, size=(b_len,))
+    kw_b = dict(engine_kw, **b_kw)
     greedy = SamplingParams(max_tokens=32)
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
     total = {}
@@ -2384,9 +2607,10 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
             sync()
             secs = time.perf_counter() - t
             st, b = engine.stats(), engine.backend
-            bf16_bytes = 2 * cfg.n_layers * HKV * PS * D * 2 * b.pool.num_pages
+            bf16_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * PS * cfg.head_dim * 2
+                          * b.pool.num_pages)
             ttft = sorted(engine.ttft[o.uid] * 1e3 for o in out)
-            log(f"serve {kv_dtype} ({label}): {len(out)} requests, "
+            log(f"serve {cfg.name} {kv_dtype} ({label}): {len(out)} requests, "
                 f"{sum(len(o.tokens) for o in out)} tokens in {secs:.2f} s; TTFT ms min "
                 f"{ttft[0]:.1f} median {statistics.median(ttft):.1f} max {ttft[-1]:.1f}; decode "
                 f"{st.decode_tok_s:.1f} tok/s (host clock, CUDA graphs); the last sync's graph "
@@ -2425,7 +2649,7 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda"):
             total[key] = total.get(key, 0) + n
         for label, kw, prompts in (("a", engine_kw, prompts_a), ("b", kw_b, [prompt_b])):
             got = compare_sync(torch, cfg, plain_cfg, params,
-                               label=f"llama3-8b paged {kv_dtype} ({label})",
+                               label=f"{cfg.name} paged {kv_dtype} ({label})",
                                engine_kw=dict(kw, kv_dtype=kv_dtype), prompts=prompts)
             dist = {stage: max(float((got[stage][u] - ref).abs().max() / ref.abs().max())
                                for u, ref in bf16_logits[label][stage].items())
@@ -2864,19 +3088,29 @@ def tick_times(torch, timer, cfg, params, *, label, engine_kw, prompts, host_syn
     engine.close()
     del engine
     if profile:
-        engine = LLMEngine(cfg, params, steps_per_sync=8, **engine_kw)
-        for i, p in enumerate(prompts):
-            engine.add_request(Request(uid=i, prompt=p, sampling=greedy))
-        engine.step()
-        replay = engine.backend._programs[(8, 0)].graph.replay
-        ms8 = timer.ms(replay, primed=True)
-        log(f"tick {label}: 8-tick graph replay {ms8:.3f} ms (queue primed), "
-            f"{ms8 / 8:.3f} ms a tick")
-        out["graph8_ms"] = ms8
-        out["graph8_profile"] = profile_summary(torch, replay, f"{label} 8-tick graph replay")
-        engine.close()
-        del engine
+        out["graph8_ms"], out["graph8_profile"] = graph8(torch, timer, cfg, params, label=label,
+                                                         engine_kw=engine_kw, prompts=prompts)
     return out
+
+
+def graph8(torch, timer, cfg, params, *, label, engine_kw, prompts):
+    """One replay of the 8-tick decode graph of an engine at steps_per_sync=8
+    serving ``prompts`` (CUDA events, the queue primed), and a
+    torch.profiler summary of it: (ms, summary)."""
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    engine = LLMEngine(cfg, params, steps_per_sync=8, **engine_kw)
+    for i, p in enumerate(prompts):
+        engine.add_request(Request(uid=i, prompt=p, sampling=SamplingParams(max_tokens=32)))
+    engine.step()
+    replay = engine.backend._programs[(8, 0)].graph.replay
+    ms8 = timer.ms(replay, primed=True)
+    log(f"tick {label}: 8-tick graph replay {ms8:.3f} ms (queue primed), {ms8 / 8:.3f} ms a "
+        "tick")
+    summary = profile_summary(torch, replay, f"{label} 8-tick graph replay")
+    engine.close()
+    del engine
+    return ms8, summary
 
 
 def fused_phase(torch, timer, cfg, params, *, label, engine_kw, prompts, steps=(1, 8),
@@ -3109,7 +3343,10 @@ def serve_gemma(torch, timer, cfg, params):
     seeded bf16 weights: paged runs (a) and (b) (``serve``: K1, K2 on (a)'s
     extend wave, K3, then K4 over (b)'s one long row, each run's launch
     counts set to 0 just before and read just after, and one sync of each
-    held to the plain path by ``compare_sync``), then dense
+    held to the plain path by ``compare_sync``), the same runs over int8
+    and fp8 pools (``serve_quantized``: K2q, K3q, K4q, every launch on the
+    tensor cores and none on an unquantized kernel, one sync of each held
+    to the plain path on the same format), then dense
     (``serve_dense``: K1, K7 over the batch, K8 over the lone row, each held
     to the plain path), then the fused decode on (a)'s engine at
     ``steps_per_sync`` 1 and 8 (identical ids, eager and graph tick times,
@@ -3117,8 +3354,15 @@ def serve_gemma(torch, timer, cfg, params):
     Returns the launch counts of the paged and dense runs together and the
     fused decode's (rates, ticks)."""
     run = GEMMA_SERVE[cfg.name]
-    counts, _ = serve(torch, cfg, params, rows=run["paged_rows"], b_len=GEMMA_B_LEN,
-                      b_kw=GEMMA_B_KW)
+    counts, bf16_logits = serve(torch, cfg, params, rows=run["paged_rows"], b_len=GEMMA_B_LEN,
+                                b_kw=GEMMA_B_KW)
+    log(f"== serve {cfg.name} paged over quantized pools (int8, fp8)")
+    t = time.perf_counter()
+    quantized = serve_quantized(torch, cfg, params, bf16_logits, rows=run["paged_rows"],
+                                b_len=GEMMA_B_LEN, b_kw=GEMMA_B_KW)
+    for key in ("K2q", "K3q", "K4q"):
+        counts[KERNELS[key]["counter"]] += quantized[KERNELS[key]["counter"]]
+    log(f"serve {cfg.name} over quantized pools: {time.perf_counter() - t:.1f} s")
     dense = serve_dense(torch, cfg, params, kv_layout="dense", rows=run["dense_rows"],
                         cache_len=run["dense_cache"], prompt_lens=run["dense_lens"],
                         buckets=(512, 1024, 2048, 4608), lone_len=4400,
@@ -3126,9 +3370,17 @@ def serve_gemma(torch, timer, cfg, params):
     for key, n in dense.items():
         counts[key] += n
     prompts, _ = serve_prompts(cfg)
+    engine_kw = dict(SERVE_PAGED_KW, max_batch=run["paged_rows"], device="cuda")
     fused = fused_phase(torch, timer, cfg, params, label=f"{cfg.name} paged",
-                        engine_kw=dict(SERVE_PAGED_KW, max_batch=run["paged_rows"],
-                                       device="cuda"), prompts=prompts, profile=True)
+                        engine_kw=engine_kw, prompts=prompts, profile=True)
+    # The same 8-tick graph over an int8 pool: K3q in place of K3, and the
+    # codes' writes (quant.append_rows) in every layer's tick.
+    ms8, _ = graph8(torch, timer, cfg, params, label=f"{cfg.name} paged int8",
+                    engine_kw=dict(engine_kw, kv_dtype="int8"), prompts=prompts)
+    log(f"decode tick {cfg.name} paged, {len(prompts)} rows of an engine of "
+        f"{run['paged_rows']}: 8-tick graph replay over an int8 pool {ms8 / 8:.3f} ms a tick "
+        f"against bf16's {fused[1]['graph8_ms'] / 8:.3f} ({ms8 / fused[1]['graph8_ms']:.3f}x); "
+        f"card: {smi_line()}")
     return counts, fused
 
 
@@ -3481,30 +3733,37 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    log("== serve hymba-1.5b (kv_layout auto -> dense, bf16, random weights)")
-    params = init_params(torch, hymba_1_5b.CONFIG)
+    # hymba-1.5b and mamba2-1.3b at full width and half their depth (16 of
+    # 32 layers: two periods of one global and seven window-1024 layers; 24
+    # of 48 SSM layers), so that the whole run stays near half its time limit.
+    hymba = dataclasses.replace(hymba_1_5b.CONFIG, n_layers=HYMBA_LAYERS)
+    log(f"== serve hymba-1.5b ({hymba.n_layers} of {hymba_1_5b.CONFIG.n_layers} layers; "
+        "kv_layout auto -> dense, bf16, random weights)")
+    params = init_params(torch, hymba)
     hymba_lens = (100, 300, 600, 900, 1100, 1300, 1450, 1500)
-    paths.append(serve_dense(torch, hymba_1_5b.CONFIG, params, prompt_lens=hymba_lens,
+    paths.append(serve_dense(torch, hymba, params, prompt_lens=hymba_lens,
                              cache_len=2048, lone_len=4000, lone_cache_len=4096,
                              want=("K1", "K7", "K8", "K9")))
     fused["hymba-1.5b dense"] = fused_phase(
-        torch, timer, hymba_1_5b.CONFIG, params, label="hymba-1.5b dense",
+        torch, timer, hymba, params, label="hymba-1.5b dense",
         engine_kw=dict(max_batch=8, cache_len=2048, prompt_buckets=(512, 1024, 2048),
                        device="cuda"),
-        prompts=dense_prompts(hymba_1_5b.CONFIG, hymba_lens))
+        prompts=dense_prompts(hymba, hymba_lens))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    log("== serve mamba2-1.3b (kv_layout auto -> dense, bf16, random weights)")
-    params = init_params(torch, mamba2_1_3b.CONFIG)
+    mamba = dataclasses.replace(mamba2_1_3b.CONFIG, n_layers=MAMBA_LAYERS)
+    log(f"== serve mamba2-1.3b ({mamba.n_layers} of {mamba2_1_3b.CONFIG.n_layers} layers; "
+        "kv_layout auto -> dense, bf16, random weights)")
+    params = init_params(torch, mamba)
     mamba_lens = (200, 700, 1300, 2000)
-    paths.append(serve_dense(torch, mamba2_1_3b.CONFIG, params, rows=4,
+    paths.append(serve_dense(torch, mamba, params, rows=4,
                              prompt_lens=mamba_lens, want=("K9",)))
     fused["mamba2-1.3b dense"] = fused_phase(
-        torch, timer, mamba2_1_3b.CONFIG, params, label="mamba2-1.3b dense",
+        torch, timer, mamba, params, label="mamba2-1.3b dense",
         engine_kw=dict(max_batch=4, cache_len=4096, prompt_buckets=(512, 1024, 2048, 4096),
                        device="cuda"),
-        prompts=dense_prompts(mamba2_1_3b.CONFIG, mamba_lens))
+        prompts=dense_prompts(mamba, mamba_lens))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3546,6 +3805,7 @@ def main() -> int:
         for key, spec in KERNELS.items()
     ]}
     log(f"head_dim 256 kernels (card: {smi_line()}): {json.dumps(d256)}")
+    log("== summary")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi_line()}")
     log(json.dumps(line))

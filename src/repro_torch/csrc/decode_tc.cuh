@@ -61,6 +61,20 @@
 // one-key row, whose output is its V row, 2 bf16 ulps off the unquantized
 // kernel, and the second product costs less than scaling each page's P V
 // after its mma did.
+//
+// At head_dim 256 a quantized ring (QRing<256>) holds five stages of codes:
+// a code row of 256 bytes is two TMA boxes of 128 columns, each 128-byte
+// swizzled, so a stage is two halves of BT rows of 128 bytes. consume_d256
+// runs its walk over them (CodeChunks): warp w reads only its 64 columns of
+// K and of V, so it widens only those (bytes 64 w .. + 63 of each row, in
+// half w / 2) into an 8 KB bf16 slice of its own, one swizzled column chunk
+// of the bf16 ring's layout, computes its partial S from it, then widens its
+// V columns into the same slice and releases the stage before P V. The K
+// scales fold into S's columns where warp w sums its 16 keys (before the
+// softcap), the V scales into its slice of P in float32, which it publishes
+// as two bf16 fragments, the rounding and the remainder (QXchg), and every
+// warp's P V takes both; the row sums take P unscaled. Five stages: 160 KB
+// of codes in flight, beside 32 KB of slices and 27 KB of exchange (QRing<256>).
 #pragma once
 
 #include <type_traits>
@@ -90,6 +104,14 @@ struct Xchg {
   static constexpr int MX = P + MAX_MT * 4 * 32 * 16;           // float [4][MAX_MT][16]
   static constexpr int L = MX + CONSUMER_WARPS * MAX_MT * 16 * 4;
   static constexpr int BYTES = L + CONSUMER_WARPS * MAX_MT * 16 * 4;
+};
+
+// The exchange of consume_d256 over a quantized ring: Xchg, then the
+// remainder fragments of the scaled P (uint4 [MAX_MT][4][32], as Xchg::P),
+// P V's second A operand.
+struct QXchg {
+  static constexpr int PL = Xchg::BYTES;
+  static constexpr int BYTES = PL + Xchg::MAX_MT * 4 * 32 * 16;
 };
 
 // Dynamic shared memory, in bytes from a 1024-byte aligned base: the ring's
@@ -128,6 +150,27 @@ struct QRing {
   static constexpr int BAR = SCALES + STAGES * 2 * (BT / 8) * 4;
   static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
 };
+
+// At head_dim 256 (the header comment): STAGES stages of K and V codes, each
+// two halves of BT rows of 128 bytes (half c at c * BT * 128), a bf16 slice
+// of BT rows by 64 columns for each consumer warp, the exchange (QXchg), each
+// stage's K and V scales by 8-key group, then the full and empty mbarriers.
+// Five stages fill the 227 KB a block may have (220.4 KB); six would not.
+template <>
+struct QRing<256> {
+  static constexpr int STAGES = 5;
+  static constexpr int TILE = BT * 256;
+  static constexpr int OWN_TILE = BT * 64 * 2;
+  static constexpr int K = 0;
+  static constexpr int V = STAGES * TILE;
+  static constexpr int OWN = 2 * STAGES * TILE;
+  static constexpr int XCHG = OWN + CONSUMER_WARPS * OWN_TILE;
+  static constexpr int SCALES = XCHG + QXchg::BYTES;   // [STAGES][K, V][BT / 8]
+  static constexpr int BAR = SCALES + STAGES * 2 * (BT / 8) * 4;
+  static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
+};
+static_assert(QRing<256>::bytes <= 232448, "the head_dim 256 code ring exceeds a block's 227 KB");
+static_assert(QRing<256>::XCHG % 16 == 0, "the exchange takes 16-byte accesses");
 
 __device__ __forceinline__ uint8_t* ring_base(uint8_t* smem_raw) {
   return smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -238,6 +281,32 @@ __device__ __forceinline__ void widen_tile(const uint8_t* codes, uint8_t* own, i
   }
 }
 
+// Warp w's 64 columns of one head_dim 256 code stage (QRing<256>: bytes
+// 64 w .. + 63 of each row, in half w / 2) widened into the bf16 slice `own`
+// (BT rows of 128 bytes, 128-byte swizzled: one column chunk of the Ring's
+// tiles); rows whose position, less lo, is not below `live` are zeros. Lane
+// l takes 16-byte chunk l / 8 of the warp's four in rows l % 8 + 8 j, so
+// eight consecutive lanes read, and write, eight distinct bank groups.
+template <class Code>
+__device__ __forceinline__ void widen_chunk(const uint8_t* codes, uint8_t* own, int w, int rel0,
+                                            unsigned live, int lane) {
+  const int mm = lane >> 3;   // the chunk of the warp's four
+  const int m = 4 * w + mm;   // of the row's sixteen
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+    const int row = (lane & 7) + 8 * j;
+    const uint4 c = *reinterpret_cast<const uint4*>(codes + hopper::sw128_offset(row, m, BT));
+    uint4 lo, hi;
+    Code::widen4(c.x, lo.x, lo.y);
+    Code::widen4(c.y, lo.z, lo.w);
+    Code::widen4(c.z, hi.x, hi.y);
+    Code::widen4(c.w, hi.z, hi.w);
+    if ((unsigned)(rel0 + row) >= live) lo = hi = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * mm, BT)) = lo;
+    *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * mm + 1, BT)) = hi;
+  }
+}
+
 // Where a consumer warp finds tile t's bf16 K and V. The ring's tiles are
 // read in place, and the stage is released after P V.
 template <int D>
@@ -296,6 +365,71 @@ struct CodeTiles {
     hopper::fence_async_smem();   // as RingTiles::done: TMA rewrites the codes next
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty_bars<QRing<D>>(smem)[st]);
+    return hopper::smem_u32(own);
+  }
+  __device__ __forceinline__ void done(int, int) {}
+};
+
+// Where consume_d256's warp w finds its 64-column chunk of tile t's K and V
+// in the bf16 ring: read in place, and the stage released after P V.
+struct RingChunks {
+  using R = Ring<256>;
+  static constexpr bool SCALED = false;
+  static constexpr int STAGES = R::STAGES;
+  uint8_t* smem;
+  float ks[2], vs[2];   // unused: no scales
+
+  __device__ __forceinline__ uint64_t* full() const { return full_bars<R>(smem); }
+  __device__ __forceinline__ uint8_t* xchg() const { return smem + R::XCHG; }
+  __device__ __forceinline__ uint32_t k_chunk(int t, int w, int, unsigned, int) {
+    return hopper::smem_u32(smem + R::K + (t % STAGES) * R::TILE + w * BT * 128);
+  }
+  __device__ __forceinline__ uint32_t v_chunk(int t, int w, int, unsigned, int) {
+    return hopper::smem_u32(smem + R::V + (t % STAGES) * R::TILE + w * BT * 128);
+  }
+  // As RingTiles::done: the proxy fence before the release.
+  __device__ __forceinline__ void done(int t, int lane) {
+    hopper::fence_async_smem();
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty_bars<R>(smem)[t % STAGES]);
+  }
+};
+
+// The same over a head_dim 256 code ring: warp w widens its K columns into
+// its own slice, with the K and V scales of its two 8-key groups (keys 16 w
+// .. + 15, the slice of S it sums and of P it forms) into registers, then
+// its V columns into the same slice, and releases the stage before P V.
+template <class Code>
+struct CodeChunks {
+  using R = QRing<256>;
+  static constexpr bool SCALED = true;
+  static constexpr int STAGES = R::STAGES;
+  uint8_t* smem;
+  uint8_t* own;
+  float ks[2], vs[2];
+
+  __device__ __forceinline__ uint64_t* full() const { return full_bars<R>(smem); }
+  __device__ __forceinline__ uint8_t* xchg() const { return smem + R::XCHG; }
+  __device__ __forceinline__ uint32_t k_chunk(int t, int w, int rel0, unsigned live, int lane) {
+    const int st = t % STAGES;
+    const float* sc = q_scales<256>(smem) + st * 2 * (BT / 8);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      ks[u] = sc[2 * w + u];
+      vs[u] = sc[BT / 8 + 2 * w + u];
+    }
+    __syncwarp();   // every lane's ldmatrix of the last tile's V is done
+    widen_chunk<Code>(smem + R::K + st * R::TILE, own, w, rel0, live, lane);
+    __syncwarp();
+    return hopper::smem_u32(own);
+  }
+  __device__ __forceinline__ uint32_t v_chunk(int t, int w, int rel0, unsigned live, int lane) {
+    const int st = t % STAGES;
+    __syncwarp();   // every lane's ldmatrix of the K chunk is done
+    widen_chunk<Code>(smem + R::V + st * R::TILE, own, w, rel0, live, lane);
+    hopper::fence_async_smem();   // as RingTiles::done: TMA rewrites the codes next
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty_bars<R>(smem)[st]);
     return hopper::smem_u32(own);
   }
   __device__ __forceinline__ void done(int, int) {}
@@ -527,12 +661,14 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
   }
 }
 
-// The head_dim 256 consumer over the bf16 ring (the header comment): the
-// cell (s, h, b) = blockIdx, `ntiles` tiles from position `first`,
-// positions in [lo, hi) kept, MT m16 tiles of group rows; writes as
-// consume_tiles does.
-template <int MT, bool SPLIT>
-__device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16* __restrict__ q,
+// The head_dim 256 consumer (the header comment): the cell (s, h, b) =
+// blockIdx, `ntiles` tiles from position `first`, positions in [lo, hi)
+// kept, MT m16 tiles of group rows; writes as consume_tiles does. `tiles`
+// (RingChunks or CodeChunks) gives each warp its 64-column chunk of each
+// tile's bf16 K and V in shared memory and, when SCALED, the K and V scales
+// of its 16 keys' two 8-key groups.
+template <int MT, bool SPLIT, class Chunks>
+__device__ __forceinline__ void consume_d256(Chunks& tiles, const __nv_bfloat16* __restrict__ q,
                                              __nv_bfloat16* __restrict__ out,
                                              float* __restrict__ acc_out,
                                              float* __restrict__ m_out,
@@ -542,15 +678,15 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
   using namespace hopper;
   constexpr int D = 256;
   constexpr int DW = D / CONSUMER_WARPS;   // D's columns of a warp: 64, one chunk
-  using R = Ring<D>;
+  constexpr int STAGES = Chunks::STAGES;
   static_assert(MT <= Xchg::MAX_MT, "the exchange holds two m16 tiles");
-  uint64_t* full = full_bars<R>(smem);
-  uint64_t* empty = empty_bars<R>(smem);
-  uint8_t* xchg = smem + R::XCHG;
+  uint64_t* full = tiles.full();
+  uint8_t* xchg = tiles.xchg();
   float* xs = reinterpret_cast<float*>(xchg + Xchg::S);     // [warp][row][key]
   uint4* xp = reinterpret_cast<uint4*>(xchg + Xchg::P);     // [mt][kk][lane]
   float* xm = reinterpret_cast<float*>(xchg + Xchg::MX);    // [warp][mt][row]
   float* xl = reinterpret_cast<float*>(xchg + Xchg::L);     // [warp][mt][row]
+  [[maybe_unused]] uint4* xpl = reinterpret_cast<uint4*>(xchg + QXchg::PL);   // as xp
   const int s = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -593,11 +729,9 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
   const unsigned live = (unsigned)(hi - lo);   // as consume_tiles
 
   for (int t = 0; t < ntiles; ++t) {
-    const int st = t % R::STAGES;
     const int rel0 = first + t * BT - lo;   // the tile's first key, from lo
-    mbar_wait(&full[st], (t / R::STAGES) & 1);
-    const uint32_t kbase = smem_u32(smem + R::K + st * R::TILE);
-    const uint32_t vbase = smem_u32(smem + R::V + st * R::TILE);
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    const uint32_t kbase = tiles.k_chunk(t, w, rel0, live, lane);   // column chunk w
 
     // x: this warp's key slice 16 w .. + 15 of S (n8 tiles u = 0, 1), in
     // log2 units and masked; mx its row maxima.
@@ -619,8 +753,7 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
         for (int np = 0; np < BT / 16; ++np) {
           const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
           uint32_t kb[4];
-          ldmatrix_x4(kb, kbase + sw128_offset(row, 2 * (w * (DW / 16) + kc) + ((lane >> 3) & 1),
-                                               BT));
+          ldmatrix_x4(kb, kbase + sw128_offset(row, 2 * kc + ((lane >> 3) & 1), BT));
           mma_bf16_16816(sc[2 * np], qa[mt][kc], kb[0], kb[1]);
           mma_bf16_16816(sc[2 * np + 1], qa[mt][kc], kb[2], kb[3]);
         }
@@ -632,8 +765,9 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
               make_float2(sc[n][2 * r], sc[n][2 * r + 1]);
       named_barrier_sync(1, 32 * CONSUMER_WARPS);
       // This warp's keys: the four partial sums added in warp order, then
-      // in log2 units and masked, the loop with a softcap written apart (as
-      // K1's SOFTCAP is) so that rows without one run none of it.
+      // (SCALED) times their pages' K scales, in log2 units and masked, the
+      // loop with a softcap written apart (as K1's SOFTCAP is) so that rows
+      // without one run none of it.
 #pragma unroll
       for (int u = 0; u < 2; ++u)
 #pragma unroll
@@ -655,7 +789,9 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
         for (int u = 0; u < 2; ++u)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            float sx = log2_score<decltype(capped)::value>(x[mt][u][i], scale2, cap);
+            float y = x[mt][u][i];
+            if constexpr (Chunks::SCALED) y *= tiles.ks[u];
+            float sx = log2_score<decltype(capped)::value>(y, scale2, cap);
             sx = (unsigned)(rel0 + 16 * w + 8 * u + c2 + (i & 1)) < live ? sx : NEG_INF_F;
             x[mt][u][i] = sx;
             mx[mt][i >> 1] = fmaxf(mx[mt][i >> 1], sx);
@@ -672,14 +808,18 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
         if ((lane & 3) == 0) xm[(w * Xchg::MAX_MT + mt) * 16 + r0 + 8 * r] = mx[mt][r];
       }
     }
+    const uint32_t vbase = tiles.v_chunk(t, w, rel0, live, lane);   // column chunk w
     named_barrier_sync(1, 32 * CONSUMER_WARPS);
 
     // The tile's row maxima, the new m, and this warp's slice of P (the A
-    // fragment of P V's k16 step w; the row sums take P unrounded).
+    // fragment of P V's k16 step w; the row sums take P unrounded and, when
+    // SCALED, unscaled: P V takes P times the V scales, by select, as its
+    // bf16 rounding and the remainder's).
     float alpha[MT][2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float e[2][4], sum[2] = {0.f, 0.f};
+      [[maybe_unused]] float rem[2][4];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float tm = m[mt][r];
@@ -695,14 +835,23 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
         for (int i = 0; i < 4; ++i) {
           const float xi = x[mt][u][i];
           const float pv = xi == NEG_INF_F ? 0.f : fast_exp2(xi - m[mt][i >> 1]);
-          e[u][i] = pv;
           sum[i >> 1] += pv;
+          if constexpr (Chunks::SCALED) {
+            e[u][i] = xi == NEG_INF_F ? 0.f : pv * tiles.vs[u];
+            rem[u][i] = e[u][i] - __bfloat162float(__float2bfloat16(e[u][i]));
+          } else {
+            e[u][i] = pv;
+          }
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[mt][r] + sum[r];
       xp[(mt * 4 + w) * 32 + lane] =
           make_uint4(pack_bf16(e[0][0], e[0][1]), pack_bf16(e[0][2], e[0][3]),
                      pack_bf16(e[1][0], e[1][1]), pack_bf16(e[1][2], e[1][3]));
+      if constexpr (Chunks::SCALED)
+        xpl[(mt * 4 + w) * 32 + lane] =
+            make_uint4(pack_bf16(rem[0][0], rem[0][1]), pack_bf16(rem[0][2], rem[0][3]),
+                       pack_bf16(rem[1][0], rem[1][1]), pack_bf16(rem[1][2], rem[1][3]));
     }
     named_barrier_sync(1, 32 * CONSUMER_WARPS);
 
@@ -718,6 +867,7 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk) {
       uint32_t pa[MT][4];
+      [[maybe_unused]] uint32_t pl[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const uint4 pk = xp[(mt * 4 + kk) * 32 + lane];
@@ -725,24 +875,32 @@ __device__ __forceinline__ void consume_d256(uint8_t* smem, const __nv_bfloat16*
         pa[mt][1] = pk.y;
         pa[mt][2] = pk.z;
         pa[mt][3] = pk.w;
+        if constexpr (Chunks::SCALED) {
+          const uint4 pr = xpl[(mt * 4 + kk) * 32 + lane];
+          pl[mt][0] = pr.x;
+          pl[mt][1] = pr.y;
+          pl[mt][2] = pr.z;
+          pl[mt][3] = pr.w;
+        }
       }
 #pragma unroll
       for (int dp = 0; dp < DW / 16; ++dp) {
         const int row = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int seg = 2 * (w * (DW / 16) + dp) + (lane >> 4);
+        const int seg = 2 * dp + (lane >> 4);
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, vbase + sw128_offset(row, seg, BT));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16_16816(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
           mma_bf16_16816(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+          if constexpr (Chunks::SCALED) {
+            mma_bf16_16816(o[mt][2 * dp], pl[mt], vb[0], vb[1]);
+            mma_bf16_16816(o[mt][2 * dp + 1], pl[mt], vb[2], vb[3]);
+          }
         }
       }
     }
-    // As RingTiles::done: the proxy fence before the release.
-    fence_async_smem();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
+    tiles.done(t, lane);
   }
 
   // Each warp's key slices' row sums, added in warp order.
@@ -796,7 +954,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, const __nv_bfloat16* __re
                                         int lo, int hi, int ntiles, float scale,
                                         float softcap) {
   if constexpr (D == 256) {
-    consume_d256<MT, SPLIT>(smem, q, out, acc_out, m_out, l_out, Hkv, G, first, lo, hi, ntiles,
+    RingChunks tiles{smem};
+    consume_d256<MT, SPLIT>(tiles, q, out, acc_out, m_out, l_out, Hkv, G, first, lo, hi, ntiles,
                             scale, softcap);
   } else {
     RingTiles<D> tiles{smem};

@@ -65,22 +65,23 @@ inline int make_map_3d(CUtensorMap* map, const void* base, int cols, int rows, i
   return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
 }
 
-// A contiguous tensor of 1-byte elements (planes, rows, cols), cols 64 or
-// 128, as a 3-D map whose box is a whole row of `cols` bytes by box_rows
-// rows of one plane, swizzled over the row: 128-byte swizzle at 128
-// columns, 64-byte at 64 (the 16-byte chunk index XOR address bits 7 and
-// up, so a tile must start at a multiple of 8 rows).
+// A contiguous tensor of 1-byte elements (planes, rows, cols), cols 64, 128
+// or 256, as a 3-D map whose box is a whole row of `cols` bytes (at 256 a
+// half row of 128: the 128-byte swizzle takes a box at most 128 bytes wide)
+// by box_rows rows of one plane, swizzled over the box's row: 128-byte
+// swizzle at 128 and 256 columns, 64-byte at 64 (the 16-byte chunk index
+// XOR address bits 7 and up, so a tile must start at a multiple of 8 rows).
 inline int make_map_3d_u8(CUtensorMap* map, const void* base, int cols, int rows, int planes,
                           int box_rows) {
   const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr || (cols != 64 && cols != 128)) return MAP_ENCODE_FAILED;
+  if (enc == nullptr || (cols != 64 && cols != 128 && cols != 256)) return MAP_ENCODE_FAILED;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)cols, (cuuint64_t)cols * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)(cols > 128 ? 128 : cols), (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         cols >= 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
 }
@@ -404,9 +405,12 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int seg, int rows) {
 // Byte offset of 16-byte chunk m (codes 16 m .. 16 m + 15) of row `row` in
 // a tile of D-byte code rows written by TMA with the row's swizzle
 // (make_map_3d_u8: 128 bytes at D 128, 64 at D 64, the chunk index XOR
-// address bits 7 and up).
+// address bits 7 and up). At D 256 the tile is two halves of `rows` rows
+// of 128 bytes (one box each), half m / 8 at (m / 8) * rows * 128, laid
+// out as sw128_offset's column chunks.
 template <int D>
-__device__ __forceinline__ uint32_t code_offset(int row, int m) {
+__device__ __forceinline__ uint32_t code_offset(int row, int m, int rows = 64) {
+  if constexpr (D == 256) return sw128_offset(row, m, rows);
   return (uint32_t)(row * D + ((m ^ ((row * D >> 7) & (D / 16 - 1))) << 4));
 }
 

@@ -50,8 +50,10 @@
 //   path over an int8 or fp8 pool). The same walk and the same consumer,
 //   fed codes: each pool of codes is one 3-D uint8 map whose box is a page
 //   of whole D-byte rows, swizzled over the row (decode_tc.cuh's QRing:
-//   twice the bf16 ring's stages in the same bytes). The producer lane of a
-//   page also stores that page's scale into the stage's slots before its
+//   twice the bf16 ring's stages in the same bytes; at head_dim 256 two
+//   boxes a page, one a 128-byte half row, five 32 KB stages, and
+//   consume_d256's warps each widen only their 64 columns). The producer
+//   lane of a page also stores that page's scale into the stage's slots before its
 //   own expect-tx arrival, whose release orders the store before the
 //   consumers' wait. A consumer warp widens each code stage into a bf16
 //   tile of its own (exact; positions outside the range zeroed by select),
@@ -395,12 +397,16 @@ int dispatch(const void* q, const void* kp, const void* vp, const int* pt,
 
 // bf16 q over a quantized pool: the paged producer of decode_tc.cuh's
 // consumer over a QRing of codes. Each pool of codes (Hkv, P, ps, D) is one
-// 3-D uint8 map (Hkv, P * ps, D) whose box is one page of D-byte rows;
-// lane (page i, K or V) of the producer warp issues that page's box of
-// each stage with its own expect-tx arrival (the full barrier counts 2 * 64
-// / ps of them), after it stores the page's scale into the stage's slots of
-// the page's 8-key groups. Page ids come two stages ahead, scales one. Grid
-// and ranges as paged_decode_tc_kernel's.
+// 3-D uint8 map (Hkv, P * ps, D) whose box is one page of D-byte rows (at
+// head_dim 256 of 128-byte half rows: TMA's 128-byte swizzle takes a box
+// at most 128 bytes wide); lane (page i, K or V[, half]) of the producer
+// warp issues that page's box of each stage with its own expect-tx arrival
+// (the full barrier counts 2 * 64 / ps of them, twice that at head_dim
+// 256: 32 lanes at ps 8), after it stores the page's scale into the
+// stage's slots of the page's 8-key groups (the lane of the first half at
+// head_dim 256). Page ids come two stages ahead, scales one. Grid and
+// ranges as paged_decode_tc_kernel's. At head_dim 256 the consumer is
+// consume_d256 over CodeChunks, whose four warps read every stage.
 template <int D, int MT, bool SPLIT, class Code>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
@@ -429,19 +435,22 @@ paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
   const int last_page = hi > lo ? (hi - 1) / ps : first_page;
   const int per_stage = BT / ps;
   const int ntiles = hi > lo ? (last_page - first_page + per_stage) / per_stage : 0;
+  constexpr int HALVES = D == 256 ? 2 : 1;   // TMA boxes of a code row
+  constexpr int ROW = D / HALVES;            // a box's bytes a row
   dtc::bars_init(dtc::full_bars<R>(smem), dtc::empty_bars<R>(smem), R::STAGES,
-                 2 * per_stage, MT);
+                 2 * HALVES * per_stage, D == 256 ? CONSUMER_WARPS : MT);
 
   if (threadIdx.x >> 5 == CONSUMER_WARPS) {
     const int lane = threadIdx.x & 31;
     const int kv = lane & 1;
-    const int i = lane >> 1;
+    const int half = (lane >> 1) % HALVES;
+    const int i = (lane >> 1) / HALVES;
     if (i >= per_stage || ntiles == 0) return;
     const int* table = page_table + (size_t)b * mp;
     const float* tab = (kv ? vs_tab : ks_tab) + (size_t)h * P;
     uint64_t* full = dtc::full_bars<R>(smem);
     uint64_t* empty = dtc::empty_bars<R>(smem);
-    uint8_t* dst = smem + (kv ? R::V : R::K) + i * ps * D;
+    uint8_t* dst = smem + (kv ? R::V : R::K) + half * BT * ROW + i * ps * ROW;
     float* slots = dtc::q_scales<D>(smem) + kv * (BT / 8) + i * (ps / 8);
     const CUtensorMap* map = kv ? &tv : &tk;
     // This lane's page of stage t; a slot past the range's pages repeats
@@ -453,18 +462,26 @@ paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
     for (int t = 0; t < ntiles; ++t) {
       const int st = t % R::STAGES;
       mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
-      for (int r = 0; r < ps / 8; ++r) slots[st * 2 * (BT / 8) + r] = sc;
-      mbar_expect_tx(&full[st], ps * D);
-      tma_load_3d(dst + st * R::TILE, map, &full[st], 0, page * ps, h);
+      if (half == 0)
+        for (int r = 0; r < ps / 8; ++r) slots[st * 2 * (BT / 8) + r] = sc;
+      mbar_expect_tx(&full[st], ps * ROW);
+      tma_load_3d(dst + st * R::TILE, map, &full[st], half * ROW, page * ps, h);
       page = next;
       if (t + 1 < ntiles) sc = tab[page];
       if (t + 2 < ntiles) next = page_of(t + 2);
     }
     return;
   }
-  dtc::CodeTiles<D, Code> tiles{smem, smem + R::OWN + (threadIdx.x >> 5) * R::OWN_TILE};
-  dtc::consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G,
-                                   first_page * ps, lo, hi, ntiles, scale, softcap);
+  uint8_t* own = smem + R::OWN + (threadIdx.x >> 5) * R::OWN_TILE;
+  if constexpr (D == 256) {
+    dtc::CodeChunks<Code> tiles{smem, own};
+    dtc::consume_d256<MT, SPLIT>(tiles, q, out, acc_out, m_out, l_out, Hkv, G, first_page * ps,
+                                 lo, hi, ntiles, scale, softcap);
+  } else {
+    dtc::CodeTiles<D, Code> tiles{smem, own};
+    dtc::consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G,
+                                     first_page * ps, lo, hi, ntiles, scale, softcap);
+  }
 }
 
 template <int D, int MT, bool SPLIT, class Code>
@@ -513,6 +530,8 @@ int dispatch_codes(const void* q, const void* kc, const void* vc, const float* k
   if (D == 128 && G <= 32) PDQ_TC_CASE(128, 2);
   if (D == 64 && G <= 16) PDQ_TC_CASE(64, 1);
   if (D == 64 && G <= 32) PDQ_TC_CASE(64, 2);
+  if (D == 256 && G <= 16) PDQ_TC_CASE(256, 1);
+  if (D == 256 && G <= 32) PDQ_TC_CASE(256, 2);
 #undef PDQ_TC_CASE
   return -1;
 }

@@ -61,7 +61,9 @@
 //   K2's, unchanged, so the output is bit for bit K2's over a bf16 pool of
 //   the dequantized values (dequantize_pages(...).to(bfloat16)); the
 //   widening runs under the consumers' wgmma. It takes 208 of the 3 x 168
-//   registers for each consumer thread and 88 for the producer warpgroup's.
+//   registers for each consumer thread and 88 for the producer warpgroup's
+//   (224 and 56 at head_dim 256, where K2's 64-key stages and one 32 KB
+//   code stage fill shared memory: QSmem).
 // * paged_prefill_kernel, float32 arithmetic on the CUDA cores over
 //   prefill_tile.cuh (shared with K1's float32 kernel), for two inputs. A
 //   float32 pool: the tensor cores take float32 only as TF32 (~3 decimal
@@ -446,29 +448,41 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // -- K2q: quantized prefix codes on the tensor cores -----------------------------
 
 // The code ring of paged_prefill_q_tc_kernel, after K2's shared memory
-// (ptc::Smem<D>): CSTAGES stages of K and V codes (QBN rows of D bytes each,
-// swizzled over the row by TMA), each stage's K and V scales by page slot,
-// then the ring's full barriers. At D 128 that is 226.3 KB; K2q takes D 64
-// and 128 only, where K2's tile is QBN keys.
-constexpr int QBN = 128;
-constexpr int CSTAGES = 2;
-constexpr int MAX_SLOTS = QBN / 8;        // pages of a stage at ps 8
+// (ptc::Smem<D>): CSTAGES stages of K and V codes (BN rows of D bytes each,
+// the stage keys of K2's tile, swizzled over the row by TMA; at D 256 two
+// halves of BN rows of 128 bytes, one box each, as TMA's 128-byte swizzle
+// takes a box at most 128 bytes wide), each stage's K and V scales by page
+// slot, then the ring's full barriers. At D 128 that is 226.3 KB over two
+// code stages of 128 keys. At D 256 K2's Q tile and two bf16 stages of 64
+// keys take 192 KB, and one code stage of 64 keys (32 KB) fits beside them
+// (226.1 KB): a second would not.
+constexpr int MAX_SLOTS = 128 / 8;        // pages of a stage at ps 8
 constexpr int CONVERTERS = 128;           // the producer warpgroup
 constexpr int CONVERT_BAR = 3;            // named barrier (1, 2: the consumers' epilogue)
-constexpr int Q_CONSUMER_REGS = 208;      // 2 x 208 + 88 = 3 x 168
-constexpr int Q_PRODUCER_REGS = 88;
 
 template <int D>
 struct QSmem {
-  static_assert(ptc::Smem<D>::BN == QBN, "K2q takes head_dim 64 and 128");
-  static constexpr int CTILE = QBN * D;
+  static constexpr int BN = ptc::Smem<D>::BN;
+  static constexpr int CSTAGES = D == 256 ? 1 : 2;
+  static constexpr int HALVES = D == 256 ? 2 : 1;   // TMA boxes of a code row
+  static constexpr int ROW = D / HALVES;            // a box's bytes a row
+  static constexpr int CTILE = BN * D;
   static constexpr int K = (ptc::Smem<D>::BAR + 8 * (2 * STAGES + 1) + 1023) / 1024 * 1024;
   static constexpr int V = K + CSTAGES * CTILE;
   static constexpr int SCALES = V + CSTAGES * CTILE;   // float [CSTAGES][K, V][MAX_SLOTS]
   static constexpr int BAR = SCALES + CSTAGES * 2 * MAX_SLOTS * 4;   // full[CSTAGES]
   static constexpr size_t bytes = BAR + 8 * CSTAGES + 1024;          // + base alignment
+  // setmaxnreg's registers for each consumer thread and each converter
+  // thread: 2 x 208 + 88 = 3 x 168 at D 64 and 128; at D 256 K2's
+  // consumers hold O's 128 floats a thread and take ~200 (PERF.md), so
+  // 2 x 224 + 56.
+  static constexpr int CONSUMER_REGS = D == 256 ? 224 : 208;
+  static constexpr int PRODUCER_REGS = D == 256 ? 56 : 88;
 };
 static_assert(QSmem<128>::bytes <= 232448, "K2q's shared memory exceeds a block's 227 KB");
+static_assert(QSmem<256>::bytes <= 232448, "K2q's shared memory exceeds a block's 227 KB");
+static_assert(2 * QSmem<256>::CONSUMER_REGS + QSmem<256>::PRODUCER_REGS == 3 * 168,
+              "setmaxnreg's roles must sum to the launch's registers");
 
 // Sixteen codes (one 16-byte chunk, code i in byte i) times a float32
 // scale, each product rounded once to bf16, as pairs (codes 2i, 2i + 1 in
@@ -510,8 +524,9 @@ struct E4m3Scaled {
 // K2q: bf16 q over int8 or float8_e4m3fn prefix codes. K2's walk and K2's
 // consumer warpgroups, fed bf16 stages laid out as K2's by the producer
 // warpgroup. Its first warp loads each prefix page's K and V codes as one
-// box of a uint8 map (D bytes by ps rows) into the code ring, a lane a box,
-// after that lane stores the page's scale into the stage's slot (its
+// box of a uint8 map (D bytes by ps rows; at D 256 two, a half row each)
+// into the code ring, a lane a box, after that lane (of the first half)
+// stores the page's scale into the stage's slot (its
 // expect-tx arrival orders the store before the wait), and the tail's bf16
 // boxes straight into the bf16 ring, as K2 does. Between those, all four
 // warps widen each prefix code stage into the bf16 stage: each code times
@@ -521,7 +536,9 @@ struct E4m3Scaled {
 // the proxy (wgmma reads the bf16 stage next and TMA rewrites the code
 // stage, both in the async proxy), a named barrier joins the warpgroup,
 // one thread arrives on the bf16 stage's full barrier, and the first warp
-// refills the code stage two tiles ahead. A bf16 stage is so filled by the
+// refills the code stage CSTAGES tiles ahead (two at D 64 and 128; one at
+// D 256, whose loads then wait on the widening of the tile before). A bf16
+// stage is so filled by the
 // warpgroup's stores for a prefix tile and by TMA for a tail tile, either
 // way completing on one arrival; the one warpgroup waits on every empty
 // barrier in tile order, so no parity can match a phase two behind.
@@ -541,37 +558,42 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   using namespace hopper;
   using L = ptc::Smem<D>;
   using QL = QSmem<D>;
+  constexpr int BN = QL::BN;
+  constexpr int CSTAGES = QL::CSTAGES;
+  constexpr int HALVES = QL::HALVES;
+  constexpr int ROW = QL::ROW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = ptc::setup<D>(smem_raw);
-  const Block<QBN> blk = block_of<QBN>(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
+  const Block<BN> blk = block_of<BN>(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
   const int n_pref = blk.walk.n_pref;
-  const int per_stage = QBN / ps;
+  const int per_stage = BN / ps;
   uint64_t* cfull = reinterpret_cast<uint64_t*>(smem + QL::BAR);
   float* scales = reinterpret_cast<float*>(smem + QL::SCALES);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < CSTAGES; ++s) mbar_init(&cfull[s], 2 * per_stage);   // a box each
+    for (int s = 0; s < CSTAGES; ++s) mbar_init(&cfull[s], 2 * HALVES * per_stage);   // a box each
     fence_barrier_init();
   }
   __syncthreads();
   if (threadIdx.x < 256) {
-    ptc::consume<D, SOFTCAP, false, Q_CONSUMER_REGS>(smem, blk.walk, blk.ntiles, blk.q0,
-                                                     blk.b * Hq + blk.h, &to, nullptr, St, scale,
-                                                     softcap);
+    ptc::consume<D, SOFTCAP, false, QL::CONSUMER_REGS>(smem, blk.walk, blk.ntiles, blk.q0,
+                                                       blk.b * Hq + blk.h, &to, nullptr, St,
+                                                       scale, softcap);
     return;
   }
-  regs_dealloc<Q_PRODUCER_REGS>();
+  regs_dealloc<QL::PRODUCER_REGS>();
   uint64_t* full = ptc::full_bars<D>(smem);
   uint64_t* empty = ptc::empty_bars<D>(smem);
   const int ct = threadIdx.x - 256;   // 0 .. 127
   const int lane = ct & 31;
   const bool loader = ct < 32;
 
-  // Lane j < 2 * per_stage of the first warp loads K (j even) or V codes of
-  // page slot j / 2 of each prefix stage, its page id and scale read one
-  // stage ahead.
+  // Lane j < 2 * HALVES * per_stage of the first warp loads K (j even) or V
+  // codes of page slot j / (2 HALVES) of each prefix stage (half (j / 2) %
+  // HALVES of its rows), its page id and scale read one stage ahead.
   const int kv_box = lane & 1;
-  const int slot = lane >> 1;
+  const int half = (lane >> 1) % HALVES;
+  const int slot = (lane >> 1) / HALVES;
   const bool mine = loader && slot < per_stage && n_pref > 0;
   const int* table = page_table + (size_t)blk.b * mp;
   const float* tab = (kv_box ? vs_tab : ks_tab) + (size_t)blk.hk * P;
@@ -582,10 +604,11 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   float page_scale = mine ? tab[page] : 0.f;
   auto load_codes = [&](int t) {
     const int cs = t % CSTAGES;
-    scales[(cs * 2 + kv_box) * MAX_SLOTS + slot] = page_scale;
-    mbar_expect_tx(&cfull[cs], ps * D);
-    tma_load_3d(smem + (kv_box ? QL::V : QL::K) + cs * QL::CTILE + slot * ps * D,
-                kv_box ? &tcv : &tck, &cfull[cs], 0, page * ps, blk.hk);
+    if (half == 0) scales[(cs * 2 + kv_box) * MAX_SLOTS + slot] = page_scale;
+    mbar_expect_tx(&cfull[cs], ps * ROW);
+    tma_load_3d(smem + (kv_box ? QL::V : QL::K) + cs * QL::CTILE + half * BN * ROW +
+                    slot * ps * ROW,
+                kv_box ? &tcv : &tck, &cfull[cs], half * ROW, page * ps, blk.hk);
     if (t + 1 < n_pref) {
       page = page_of(t + 1);
       page_scale = tab[page];
@@ -596,19 +619,20 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = 0; t < min(n_pref, CSTAGES); ++t) load_codes(t);
   }
 
-  // Thread ct widens units ct + 128 i of a stage (i < 2 CH): K for i < CH,
+  // Thread ct widens units ct + 128 i of a stage (i < 2 U): K for i < U,
   // then V; one unit is 16-byte code chunk m of row row0 + i' RSTEP (i' = i
-  // mod CH), m and row0 fixed by ct, so that eight consecutive threads take
+  // mod U), m and row0 fixed by ct, so that eight consecutive threads take
   // one chunk of eight consecutive rows (their code reads and both swizzled
   // stores each hit eight distinct bank groups) and every offset is the
   // thread's own plus a constant.
   constexpr int CH = D / 16;             // 16-byte code chunks a row
   constexpr int RSTEP = 128 / CH;        // rows between a thread's units
+  constexpr int U = BN / RSTEP;          // a thread's units of K (and of V)
   const int m = (ct >> 3) % CH;
   const int row0 = (ct >> 3) / CH * 8 + (ct & 7);
-  const uint32_t code0 = code_offset<D>(row0, m);
-  const uint32_t lo0 = sw128_offset(row0, 2 * m, QBN);
-  const uint32_t hi0 = sw128_offset(row0, 2 * m + 1, QBN);
+  const uint32_t code0 = code_offset<D>(row0, m, BN);
+  const uint32_t lo0 = sw128_offset(row0, 2 * m, BN);
+  const uint32_t hi0 = sw128_offset(row0, 2 * m + 1, BN);
   const int ps_shift = __ffs(ps) - 1;
   for (int t = 0; t < n_pref; ++t) {
     const int cs = t % CSTAGES;
@@ -618,14 +642,14 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int n_live = blk.walk.live - blk.walk.col0(t);   // rows of the stage inside the prefix
     const float* sc = scales + cs * 2 * MAX_SLOTS;
 #pragma unroll
-    for (int i = 0; i < 2 * CH; ++i) {
-      const int kv = i / CH;
-      const int row = row0 + (i % CH) * RSTEP;
-      uint8_t* dst = smem + (kv ? L::V : L::K) + st * L::TILE + (i % CH) * RSTEP * 128;
+    for (int i = 0; i < 2 * U; ++i) {
+      const int kv = i / U;
+      const int row = row0 + (i % U) * RSTEP;
+      uint8_t* dst = smem + (kv ? L::V : L::K) + st * L::TILE + (i % U) * RSTEP * 128;
       uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
       if (row < n_live) {
         const uint4 c = *reinterpret_cast<const uint4*>(
-            smem + (kv ? QL::V : QL::K) + cs * QL::CTILE + code0 + (i % CH) * RSTEP * D);
+            smem + (kv ? QL::V : QL::K) + cs * QL::CTILE + code0 + (i % U) * RSTEP * ROW);
         uint32_t o[8];
         Code::widen16(c, sc[kv * MAX_SLOTS + (row >> ps_shift)], o);
         lo = make_uint4(o[0], o[1], o[2], o[3]);
@@ -705,7 +729,8 @@ int launch_q(const void* q, const void* kc, const void* vc, const float* ks_tab,
     cudaFuncAttributes a;
     return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
   }();
-  if (3 * regs < 2 * Q_CONSUMER_REGS + Q_PRODUCER_REGS) return (int)cudaErrorInvalidConfiguration;
+  if (3 * regs < 2 * QSmem<D>::CONSUMER_REGS + QSmem<D>::PRODUCER_REGS)
+    return (int)cudaErrorInvalidConfiguration;
   const size_t smem = QSmem<D>::bytes;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -765,7 +790,8 @@ extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* 
                                 const int* tail_len, void* o, int B, int Hq, int Hkv,
                                 int St, int P, int ps, int mp, int D, float scale,
                                 int window, float softcap, void* stream) {
-  if (ps <= 0 || ps % 8 || (D == 256 ? ptc::Smem<256>::BN : tc::QBN) % ps) return -1;
+  if (ps <= 0 || ps % 8 || (D == 256 ? ptc::kv_tile<256>() : ptc::kv_tile<128>()) % ps)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PP_TC_CASE(DIM, CAP)                                                               \
   return tc::launch<DIM, CAP>(q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, \
@@ -789,8 +815,8 @@ extern "C" int paged_prefill_tc(const void* q, const void* k_pages, const void* 
 }
 
 // bfloat16 q / tail / o over int8 (fp8 0) or float8_e4m3fn (1) prefix codes
-// with (Hkv, P) float32 scale tables, on the tensor cores. Requirements and
-// returns as paged_prefill_tc's.
+// with (Hkv, P) float32 scale tables, on the tensor cores, head_dim 64, 128
+// or 256. Requirements and returns as paged_prefill_tc's.
 extern "C" int paged_prefill_q_tc(const void* q, const void* k_codes, const void* v_codes,
                                   const float* k_scale_tab, const float* v_scale_tab,
                                   const int* page_table, const void* k_tail,
@@ -798,7 +824,8 @@ extern "C" int paged_prefill_q_tc(const void* q, const void* k_codes, const void
                                   const int* tail_len, void* o, int B, int Hq, int Hkv, int St,
                                   int P, int ps, int mp, int D, int fp8, float scale,
                                   int window, float softcap, void* stream) {
-  if (ps <= 0 || ps % 8 || tc::QBN % ps) return -1;
+  if (ps <= 0 || ps % 8 || (D == 256 ? ptc::kv_tile<256>() : ptc::kv_tile<128>()) % ps)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PQ_TC_CASE(DIM, CAP, CODE)                                                          \
   return tc::launch_q<DIM, CAP, tc::CODE>(q, k_codes, v_codes, k_scale_tab, v_scale_tab,    \
@@ -816,6 +843,10 @@ extern "C" int paged_prefill_q_tc(const void* q, const void* k_codes, const void
   if (D == 64) {
     if (cap) { PQ_TC_CODES(64, true); }
     PQ_TC_CODES(64, false);
+  }
+  if (D == 256) {
+    if (cap) { PQ_TC_CODES(256, true); }
+    PQ_TC_CODES(256, false);
   }
 #undef PQ_TC_CODES
 #undef PQ_TC_CASE

@@ -16,9 +16,10 @@ the CUDA cores (the tensor cores would round it to TF32). A quantized pool
 bf16 q it runs ``paged_decode_q_tc`` / ``paged_decode_split_q_tc`` on the
 tensor cores: the same walk and consumer, fed the 1-byte codes page by page
 by TMA, each consumer warp widening a stage of codes exactly into a bf16
-tile of its own, with K's page scales folded into S's columns and V's into
-P's; the page size must then be a multiple of 8 that divides 64, as for a
-bf16 pool. With float32 q it runs ``paged_decode_q`` /
+tile of its own (at head_dim 256 its 64-column chunk of each tile), with
+K's page scales folded into S's columns and V's into P's; the page size
+must then be a multiple of 8 that divides 64, as for a bf16 pool. With
+float32 q it runs ``paged_decode_q`` /
 ``paged_decode_split_q``: the float32 CUDA-core walk, each code widened to
 float32 and multiplied by its page's scale where it is staged
 (:func:`paged_flash_decode_q_cuda_cores` runs that walk for bf16 q too,
@@ -38,9 +39,10 @@ from repro_torch.cache import quant
 from repro_torch.cache.layout import decode_split_ranges
 from repro_torch.kernels import build, decode_common
 
-#: Head dims of the float32 kernels and of the quantized pools' kernels.
+#: Head dims of the float32 kernels (over a float32 or a quantized pool).
 HEAD_DIMS = (64, 128)
-#: Head dims of the bf16 tensor-core kernels over a bf16 pool: 256 too.
+#: Head dims of the bf16 tensor-core kernels, over a bf16 or a quantized
+#: pool: 256 too.
 TC_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 32
 #: Positions staged per step (DC_BT in csrc/decode_common.cuh, dtc::BT in
@@ -242,7 +244,7 @@ def _launch(route, q, k_pages, v_pages, page_table, lengths, *, softcap, scale, 
     quantized = route in _INTS
     tc = route in (torch.bfloat16, "q_tc")
     _check_inputs(q, k_pages, v_pages, page_table, lengths, k_scale_tab, v_scale_tab, tc,
-                  TC_HEAD_DIMS if route == torch.bfloat16 else HEAD_DIMS)
+                  TC_HEAD_DIMS if tc else HEAD_DIMS)
     build.refuse_grad("paged_flash_decode", q, k_pages, v_pages)
     b, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape

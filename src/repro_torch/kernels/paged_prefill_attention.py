@@ -18,7 +18,8 @@ tensor cores: the same walk and consumers, each page of codes loaded as
 one TMA box and widened by the producer warpgroup into a bf16 stage, each
 code times its page's scale rounded once to bf16, so the output is bit for bit
 ``paged_prefill_tc``'s over a bf16 pool of the dequantized values; the page
-size must be a multiple of 8 that divides 128, as for a bf16 pool. With
+size must be a multiple of 8 that divides 128 (64 at head_dim 256), as for
+a bf16 pool. With
 float32 q it runs ``paged_prefill_q``: the float32 CUDA-core kernel with
 each prefix code widened and multiplied by its page's scale where it is
 staged (:func:`paged_flash_prefill_q_cuda_cores` runs that walk for bf16 q
@@ -45,9 +46,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
-#: Head dims of the float32 kernel and of the quantized pools' kernels.
+#: Head dims of the float32 kernels (over a float32 or a quantized pool).
 HEAD_DIMS = (64, 128)
-#: Head dims of the bf16 tensor-core kernel over a bf16 pool: 256 too.
+#: Head dims of the bf16 tensor-core kernels, over a bf16 or a quantized
+#: pool: 256 too.
 TC_HEAD_DIMS = (64, 128, 256)
 #: Keys of a tensor-core stage (ptc::Smem<D>::BN in csrc/prefill_tc.cuh; 64
 #: at head dim 256): a bf16 page size must divide it and be a multiple of
@@ -256,7 +258,7 @@ def _launch(route, q, k_pages, v_pages, page_table, k_tail, v_tail, prefix_len, 
     tc = route in (torch.bfloat16, "q_tc")
     _check_inputs(q, k_pages, v_pages, page_table, k_tail, v_tail,
                   prefix_len, tail_len, k_scale_tab, v_scale_tab, tc,
-                  TC_HEAD_DIMS if route == torch.bfloat16 else HEAD_DIMS)
+                  TC_HEAD_DIMS if tc else HEAD_DIMS)
     build.refuse_grad("paged_flash_prefill", q, k_pages, v_pages, k_tail, v_tail)
     b, hq, st, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape

@@ -1939,10 +1939,163 @@ def test_d256_decode_group_32_matches_plain(cuda, layout, num_splits):
     assert _row_err(o, ref) < ROW_TOL
 
 
+# -- head_dim 256 over int8 and fp8 pools: K2q, K3q / K4q in bf16 --------------
+
+#: Windows of the quantized head_dim 256 cases: none, 100 (starts mid-page)
+#: and gemma2's 4096, which bites on the rows of 4352 positions.
+D256_Q_WINDOWS = [None, 100, 4096]
+
+
+def _d256_quantized_decode_inputs(rng, dev, hq, hkv, ps, kv_dtype):
+    """bf16 q over a quantized pool at head_dim 256 (NaN codes and scales
+    on the null page): rows of 0, 1, 50, 17 and 4352 tokens over scattered
+    tables padded with the null page, then three rows frozen on the null
+    page (table all 0, lengths 0, 1 and 0), as a graph runs a free row."""
+    args, scales = _tc_quantized_inputs(rng, dev, hq, hkv, 256, ps, kv_dtype, mp=4352 // ps)
+    q, kc, vc, table, lengths = args
+    q = torch.cat([q, _randn(rng, (3, hq, 256), dev, torch.bfloat16)])
+    table = torch.cat([table, torch.zeros((3, table.shape[1]), dtype=torch.int32, device=dev)])
+    lengths = torch.cat([lengths, torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)])
+    return (q, kc, vc, table, lengths), scales
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("num_splits", [1, 4])
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS + [(32, 1)], ids=GEMMA_IDS + ["group32"])
+@pytest.mark.parametrize("window", D256_Q_WINDOWS)
+def test_d256_quantized_paged_decode_matches_plain(cuda, kv_dtype, ps, num_splits, hq, hkv,
+                                                    window):
+    """K3q / K4q at head_dim 256 (the four warps each widen their 64
+    columns of a code stage): softcap 50, live rows within ROW_TOL of the
+    plain version and finite, the length-0 and frozen length-0 rows exactly
+    zero, every launch on the tensor cores, ten reruns bitwise equal (the
+    frozen rows' bits too)."""
+    args, scales = _d256_quantized_decode_inputs(np.random.default_rng(200 + ps), cuda, hq,
+                                                 hkv, ps, kv_dtype)
+    kw = dict(num_splits=num_splits, window=window, softcap=50.0, **scales)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(*args, **kw)
+    assert _quantized_routes(kernels.launch_counts(), num_splits, torch.bfloat16)
+    o_ref = pd.paged_flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    live = [0, 1, 2, 3, 4]   # row 6 reads the null page's NaNs, as the plain version does
+    assert torch.isfinite(o[live].float()).all()
+    assert _row_err(o[live], o_ref[live]) < ROW_TOL
+    assert float(o[[0, 5, 7]].float().abs().max()) == 0.0
+    bits = o.view(torch.int16)
+    assert all(torch.equal(pd.paged_flash_decode(*args, **kw).view(torch.int16), bits)
+               for _ in range(10))
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_d256_quantized_paged_decode_ignores_rows_past_length(cuda, kv_dtype, num_splits):
+    """At head_dim 256 too, codes that are NaN bits in e4m3 (127 in int8)
+    in the rows past each length inside its last live page give the bits
+    of zeros there."""
+    args, scales = _tc_quantized_inputs(np.random.default_rng(205), cuda, 8, 4, 256, 16,
+                                        kv_dtype, mp=80)
+    q, kc, vc, table, lengths = args
+    outs = []
+    for byte in (0, 0x7F):
+        k, v = kc.clone(), vc.clone()
+        for bi, length in enumerate(lengths.tolist()):
+            if length % 16:
+                page = int(table[bi, length // 16])
+                for codes in (k, v):
+                    codes.view(torch.uint8)[:, page, length % 16:] = byte
+        outs.append(pd.paged_flash_decode(q, k, v, table, lengths, num_splits=num_splits,
+                                          softcap=50.0, **scales))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert bool(torch.isfinite(outs[1].float()).all())
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("case", sorted(TC_PREFILL))
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("window", [None, 100])
+def test_d256_quantized_paged_prefill_equals_k2_on_dequantized_pools(cuda, kv_dtype, ps, case,
+                                                                     hq, hkv, window):
+    """K2q at head_dim 256 (64-key stages, one code stage of two 128-byte
+    boxes a page) is bit for bit K2 over bf16 pools of the dequantized
+    values, softcap 50, within ROW_TOL of the plain version, rows past
+    tail_len exact zeros, ten reruns bitwise equal; the null page holds NaN
+    scales and codes."""
+    args, scales = _k2q_inputs(np.random.default_rng(210 + ps), cuda, hq, hkv, 256, ps, case,
+                               kv_dtype)
+    q, kc, vc, table, kt, vt, plen, tlen = args
+    kw = dict(window=window, softcap=50.0)
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, **kw, **scales)
+    assert _prefill_q_routes(kernels.launch_counts(), torch.bfloat16)
+    o_bf = pp.paged_flash_prefill(q, _dequantized_bf16(kc, scales["k_scales"]),
+                                  _dequantized_bf16(vc, scales["v_scales"]), table, kt, vt,
+                                  plen, tlen, **kw)
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_bf)
+    assert _row_err(o, o_ref) < ROW_TOL
+    for bi, t in enumerate(tlen.tolist()):
+        assert float(o[bi, :, t:].float().abs().sum()) == 0.0
+    assert all(torch.equal(pp.paged_flash_prefill(*args, **kw, **scales), o) for _ in range(10))
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
+@pytest.mark.parametrize("window", D256_Q_WINDOWS)
+def test_d256_quantized_paged_prefill_long_prefix(cuda, kv_dtype, hq, hkv, window):
+    """K2q at head_dim 256 over a prefix of 4300 positions (a ragged last
+    page of 16) and a tail of 130, the second row live to 77: window 4096
+    bites, and the walk starts at the page of each row tile's first
+    visible position. Bit for bit K2 over the dequantized pools, within
+    ROW_TOL of the plain version."""
+    rng = np.random.default_rng(215)
+    b, ps, st, plen = 2, 16, 130, 4300
+    mp = -(-plen // ps)
+    kc, ks, vc, vs = _quantized(rng, cuda, hkv, 1 + b * mp, ps, 256, kv_dtype)
+    table = torch.from_numpy(rng.permutation(np.arange(1, 1 + b * mp)).reshape(b, mp)
+                             .astype(np.int32)).to(cuda)
+    q = _randn(rng, (b, hq, st, 256), cuda, torch.bfloat16)
+    kt, vt = (_randn(rng, (b, hkv, st, 256), cuda, torch.bfloat16) for _ in range(2))
+    plens = torch.full((b,), plen, dtype=torch.int32, device=cuda)
+    tl = torch.tensor([st, 77], dtype=torch.int32, device=cuda)
+    args = (q, kc, vc, table, kt, vt, plens, tl)
+    kw = dict(window=window, softcap=50.0, k_scales=ks, v_scales=vs)
+    o = pp.paged_flash_prefill(*args, **kw)
+    o_bf = pp.paged_flash_prefill(q, _dequantized_bf16(kc, ks), _dequantized_bf16(vc, vs),
+                                  table, kt, vt, plens, tl, window=window, softcap=50.0)
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_bf)
+    assert _row_err(o, o_ref) < ROW_TOL
+    assert float(o[1, :, 77:].float().abs().sum()) == 0.0
+    assert all(torch.equal(pp.paged_flash_prefill(*args, **kw), o) for _ in range(10))
+
+
+def test_d256_quantized_refuses_pages_of_128(cuda):
+    """A quantized pool of 128-row pages at head_dim 256 is refused for
+    bf16 q (K2q's and K3q's 64-key stages) and launches nothing."""
+    rng = np.random.default_rng(217)
+    args, scales = _k2q_inputs(rng, cuda, 8, 4, 256, 128, "ragged", "int8")
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="divides 64"):
+        pp.paged_flash_prefill(*args, **scales)
+    dargs, dscales = _tc_quantized_inputs(rng, cuda, 8, 4, 256, 128, "fp8", mp=3)
+    for ns in (1, 2):
+        with pytest.raises(ValueError, match="divide 64"):
+            pd.paged_flash_decode(*dargs, num_splits=ns, **dscales)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 0
+
+
 def test_d256_refuses_what_no_kernel_takes(cuda):
     """At head_dim 256 the float32 kernels (K1, K2, K3/K4, K5/K6, K7/K8),
-    the quantized pools' (K2q, K3q/K4q) and a bf16 page of 128 rows (K2's
-    64-key stage) each raise ValueError on the card and launch nothing."""
+    float32 q over a quantized pool (K2q, K3q/K4q on the CUDA cores) and a
+    bf16 page of 128 rows (K2's 64-key stage) each raise ValueError on the
+    card and launch nothing."""
     from repro_torch.cache import quant
 
     rng = np.random.default_rng(88)
@@ -1957,10 +2110,8 @@ def test_d256_refuses_what_no_kernel_takes(cuda):
     with pytest.raises(ValueError, match="head_dim 256"):
         pp.paged_flash_prefill(q, kp, vp, table, kt, vt, plen, tlen)
     (kc, ks), (vc, vs) = (quant.quantize_pages(p, "int8") for p in (kp, vp))
-    qb, ktb, vtb = (t.to(torch.bfloat16) for t in (q, kt, vt))
     with pytest.raises(ValueError, match="head_dim 256"):
-        pp.paged_flash_prefill(qb, kc, vc, table, ktb, vtb, plen, tlen, k_scales=ks,
-                               v_scales=vs)
+        pp.paged_flash_prefill(q, kc, vc, table, kt, vt, plen, tlen, k_scales=ks, v_scales=vs)
     big = _tc_prefill_inputs(rng, cuda, 8, 4, 256, 128, "ragged")
     with pytest.raises(ValueError, match="divides 64"):
         pp.paged_flash_prefill(*big)
@@ -1970,8 +2121,8 @@ def test_d256_refuses_what_no_kernel_takes(cuda):
         with pytest.raises(ValueError, match="head_dim 256"):
             pd.paged_flash_decode(dq, dkp, dvp, dtable, dlen, num_splits=ns)
         with pytest.raises(ValueError, match="head_dim 256"):
-            pd.paged_flash_decode(dq.to(torch.bfloat16), dkc, dvc, dtable, dlen,
-                                  num_splits=ns, k_scales=dks, v_scales=dvs)
+            pd.paged_flash_decode(dq, dkc, dvc, dtable, dlen, num_splits=ns, k_scales=dks,
+                                  v_scales=dvs)
     sq, skc, svc, slen = _dense_inputs(rng, cuda, torch.float32, 8, 4, 256, 512)
     for ns in (1, 3):
         with pytest.raises(ValueError, match="head_dim 256"):

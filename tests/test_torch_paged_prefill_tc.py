@@ -22,7 +22,8 @@ feeds that same consumer bf16 stages in which each code is
 bf16(float32(code) x its page's scale) and every position at or past the
 live prefix is 0 by select; ``_tensor_core_k2q`` writes that out and runs
 ``_tensor_core_k2`` on it, held at the same bars against the JAX kernel's
-scale branch on pools the JAX package quantized.
+scale branch on pools the JAX package quantized, at head_dim 256 (gemma2's
+group of 2, softcap 50) too, where the stages hold 64 keys.
 """
 
 import jax.numpy as jnp
@@ -254,8 +255,10 @@ def _quantized_inputs(hq, hkv, d, ps, kv_dtype, seed):
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("d,ps,hq,hkv,window,softcap",
-                         [(64, 8, 8, 2, None, None), (128, 16, 10, 2, 50, 30.0)],
-                         ids=["d64_ps8_g4", "d128_ps16_g5_window_softcap"])
+                         [(64, 8, 8, 2, None, None), (128, 16, 10, 2, 50, 30.0),
+                          (256, 16, 8, 4, 50, 50.0)],
+                         ids=["d64_ps8_g4", "d128_ps16_g5_window_softcap",
+                              "d256_ps16_gemma2_window_softcap"])
 def test_tensor_core_k2q_arithmetic_matches_jax(kv_dtype, d, ps, hq, hkv, window, softcap):
     """K2q's arithmetic against the JAX kernel's scale branch (float32
     dequantization) per row within 2^-6 and within 3e-2; rows past

@@ -17,7 +17,11 @@ code widened exactly, S's columns times their page's K scale, P's columns
 times their page's V scale in float32 and then split into two bf16 parts
 for P V, masked positions zeroed by select; held to the JAX kernel's scale
 branch at the same bars, also with NaN codes and NaN scales on the null
-page that pads each live row's table.
+page that pads each live row's table. At head_dim 256 (gemma) the four
+warps take every tile, S the sum in warp order of four partial products
+over 64-column chunks of the widened codes, then times its K scales before
+the softcap; each warp's slice of P times its V scales goes to P V as two
+bf16 parts.
 """
 
 import jax.numpy as jnp
@@ -176,6 +180,28 @@ def test_tensor_core_k3q_k4q_arithmetic_matches_jax(kv_dtype, d, hq, hkv, ps, nu
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("hq,hkv,window,softcap", [(8, 4, 50, 50.0), (4, 1, 70, None)],
+                         ids=["gemma2", "gemma3"])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_tensor_core_k3q_k4q_d256_arithmetic_matches_jax(kv_dtype, hq, hkv, window, softcap,
+                                                          num_splits):
+    """K3q / K4q at head_dim 256 over int8 and fp8 pools, pages of 16: S
+    summed in warp order from four partial products over 64-column chunks
+    of widened codes, times each column's K scale before the softcap
+    (``softcap_log2``), P times its V scales split into two bf16 parts,
+    the row sums kept per key slice; gemma2's groups of 2 with window 50
+    and softcap 50, gemma3's group of 4 over one kv head with window 70."""
+    (jargs, jkw), (targs, tkw) = _quant_inputs(hq, hkv, 256, 16, 280 + hq, kv_dtype,
+                                               nan_null=False)
+    kw = dict(window=window, softcap=softcap, num_splits=num_splits)
+    oj = jax_decode(*jargs, interpret=True, **jkw, **kw)
+    ot = paged_k3_k4(*targs, **tkw, **kw)
+    assert row_err(oj, ot) < ROW_TOL
+    assert float(np.abs(np.asarray(oj, np.float32) - ot.float().numpy()).max()) < BF16_TOL
+    assert float(ot[0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("num_splits", [1, 3])
 def test_tensor_core_k3q_k4q_ignore_nan_garbage(kv_dtype, num_splits):
     """Live rows' tables padded with the null page, its codes NaN bits and
@@ -185,8 +211,18 @@ def test_tensor_core_k3q_k4q_ignore_nan_garbage(kv_dtype, num_splits):
     bits (127 in int8) in the rows past each length inside its last live
     page, which the walk loads and masks: zeroed by select, they change no
     bit of the output."""
-    (jargs, jkw), (targs, tkw) = _quant_inputs(32, 8, 128, 16, 190, kv_dtype, nan_null=True)
-    kw = dict(window=None, softcap=None, num_splits=num_splits)
+    _check_nan_garbage(kv_dtype, 32, 8, 128, num_splits, None)
+
+
+def test_tensor_core_k3q_k4q_d256_ignore_nan_garbage():
+    """The test above at head_dim 256 over fp8 codes, gemma2's group of 2
+    and softcap 50, one pass."""
+    _check_nan_garbage("fp8", 8, 4, 256, 1, 50.0)
+
+
+def _check_nan_garbage(kv_dtype, hq, hkv, d, num_splits, softcap):
+    (jargs, jkw), (targs, tkw) = _quant_inputs(hq, hkv, d, 16, 190, kv_dtype, nan_null=True)
+    kw = dict(window=None, softcap=softcap, num_splits=num_splits)
     oj = jax_decode(*jargs, interpret=True, **jkw, **kw)
     ot = paged_k3_k4(*targs, **tkw, **kw)
     assert bool(torch.isfinite(ot.float()).all())

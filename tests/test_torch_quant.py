@@ -7,7 +7,7 @@ JAX Pallas kernels in interpret mode (2e-5, the JAX suite's bar in
 ``tests/test_tiering.py``) and against the unquantized oracle within the
 format's budget (``QTOL``, the same file's), and the port's engine with
 ``kv_dtype`` "int8" / "fp8" against the JAX engine's greedy ids on the llama
-SMOKE config.
+SMOKE config, gemma2-2b's over int8 and gemma3-1b's over fp8.
 """
 
 import dataclasses
@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from repro.cache import quant as jax_quant
+from repro.configs import gemma2_2b as jax_gemma2
+from repro.configs import gemma3_1b as jax_gemma3
 from repro.configs import llama3_8b as jax_llama
 from repro.kernels.paged_decode_attention import paged_flash_decode as jax_decode
 from repro.kernels.paged_prefill_attention import paged_flash_prefill as jax_prefill
@@ -28,7 +30,7 @@ from repro.serving import Request as JaxRequest
 from repro.serving import SamplingParams as JaxSampling
 
 from repro_torch.cache import quant
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import gemma2_2b, gemma3_1b, llama3_8b
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_decode_attention import (
     paged_flash_decode,
@@ -313,8 +315,8 @@ def _prompts():
     return [rng.integers(1, 400, size=n) for n in (8, 17, 25, 33)]
 
 
-def _port_ids(params, prompts, n_new=8, **kw):
-    eng = LLMEngine(llama3_8b.SMOKE, params, kv_layout="paged", num_pages=64, page_size=8,
+def _port_ids(params, prompts, n_new=8, cfg=llama3_8b.SMOKE, **kw):
+    eng = LLMEngine(cfg, params, kv_layout="paged", num_pages=64, page_size=8,
                     device="cpu", **kw)
     out = eng.generate([Request(uid=i, prompt=p, sampling=SamplingParams(max_tokens=n_new))
                         for i, p in enumerate(prompts)])
@@ -323,20 +325,42 @@ def _port_ids(params, prompts, n_new=8, **kw):
     return {o.uid: [int(t) for t in o.tokens] for o in out}, stats
 
 
-@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
-def test_quantized_engine_matches_jax_engine(models, kv_dtype):
-    jparams, params = models
-    prompts = _prompts()
-    jeng = JaxEngine(jax_llama.SMOKE, jparams, kv_layout="paged", num_pages=64, page_size=8,
+def _gemma_models(arch):
+    """The JAX SMOKE weights of ``arch`` (seeded as tests/test_torch_gemma.py
+    seeds them) and the port's copy of them."""
+    jmod, tmod = {"gemma2-2b": (jax_gemma2, gemma2_2b), "gemma3-1b": (jax_gemma3, gemma3_1b)}[arch]
+    tree = jax.tree.map(np.asarray, jax_tf.init_model(jax.random.PRNGKey(3), jmod.SMOKE))
+    return (jmod.SMOKE, jax.tree.map(jnp.asarray, tree), tmod.SMOKE,
+            transformer.from_jax_params(tree, tmod.SMOKE, device="cpu"))
+
+
+@pytest.mark.parametrize("arch,kv_dtype", [
+    pytest.param("llama3-8b", "int8", id="int8"), pytest.param("llama3-8b", "fp8", id="fp8"),
+    pytest.param("gemma2-2b", "int8", id="gemma2-2b-int8"),
+    pytest.param("gemma3-1b", "fp8", id="gemma3-1b-fp8")])
+def test_quantized_engine_matches_jax_engine(models, arch, kv_dtype):
+    """The port's CPU engine over a quantized pool against the JAX engine,
+    greedy ids token for token: llama3-8b SMOKE in both formats, gemma2-2b
+    SMOKE (softcaps, alternating local and global layers) over int8 and
+    gemma3-1b SMOKE (qk-norm, one kv head) over fp8, 4 new tokens on the
+    first two prompts (the JAX engine's compiles take most of a case's
+    time)."""
+    prompts, n_new = _prompts(), 8
+    if arch == "llama3-8b":
+        (jparams, params), jcfg, cfg = models, jax_llama.SMOKE, llama3_8b.SMOKE
+    else:
+        jcfg, jparams, cfg, params = _gemma_models(arch)
+        prompts, n_new = prompts[:2], 4
+    jeng = JaxEngine(jcfg, jparams, kv_layout="paged", num_pages=64, page_size=8,
                      kv_dtype=kv_dtype)
-    jout = jeng.generate([JaxRequest(uid=i, prompt=p, sampling=JaxSampling(max_tokens=8))
+    jout = jeng.generate([JaxRequest(uid=i, prompt=p, sampling=JaxSampling(max_tokens=n_new))
                           for i, p in enumerate(prompts)])
     jeng.close()
     want = {o.uid: [int(t) for t in o.tokens] for o in jout}
-    got, stats = _port_ids(params, prompts, kv_dtype=kv_dtype)
+    got, stats = _port_ids(params, prompts, n_new=n_new, kv_dtype=kv_dtype, cfg=cfg)
     assert got == want
     assert stats["kv_dtype"] == kv_dtype
-    if kv_dtype == "int8":
+    if arch == "llama3-8b" and kv_dtype == "int8":
         # tests/test_tiering.py's acceptance: int8 noise flips no greedy
         # argmax on these prompts.
         assert _port_ids(params, prompts)[0] == got

@@ -5,7 +5,7 @@ side on one card, and the softcap forms of the head_dim 256 kernels.
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
     python3 tools/bwd_ab.py [OTHER_ROOT ...]
-    python3 tools/bwd_ab.py --sass OTHER_ROOT
+    python3 tools/bwd_ab.py --sass OTHER_ROOT [SOURCE ...]
     python3 tools/bwd_ab.py --variants
 
 With roots, each (this checkout, and every OTHER_ROOT, for example the
@@ -27,7 +27,8 @@ Every case's dQ, dK and dV are compared bit for bit with those of the
 first root that ran it (saved under ``build/bwd_ab/``); the head_dim 256 ones are
 also held per (b, head) slice against the root's plain backward.
 
-``--sass OTHER_ROOT`` compiles ``flash_attention_bwd.cu`` of this checkout
+``--sass OTHER_ROOT [SOURCE ...]`` compiles ``flash_attention_bwd.cu`` (or
+each SOURCE of ``csrc/``, for example ``paged_decode.cu``) of this checkout
 and of OTHER_ROOT for sm_90a and compares the SASS (``cuobjdump -sass``) of
 every kernel the two have in common, names taken without the anonymous
 namespace's per-file hash: identical machine code runs in the same time.
@@ -220,9 +221,9 @@ def variants() -> int:
     return 0
 
 
-def sass(other: str) -> int:
-    """Kernel by kernel, whether two roots' flash_attention_bwd.cu compile to
-    the same SASS."""
+def sass(other: str, source: str = "flash_attention_bwd.cu") -> int:
+    """Kernel by kernel, whether two roots' ``source`` compiles to the same
+    SASS."""
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import build
 
@@ -234,14 +235,15 @@ def sass(other: str) -> int:
         csrc = os.path.join(root, "src", "repro_torch", "csrc")
         cubin = os.path.join(out, f"root{i}.cubin")
         subprocess.run([build.nvcc_path(), *flags, "-cubin", "-I", csrc, "-o", cubin,
-                        os.path.join(csrc, "flash_attention_bwd.cu")], check=True,
-                       capture_output=True)
+                        os.path.join(csrc, source)], check=True, capture_output=True)
         dump = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
                                "-sass", cubin], check=True, capture_output=True,
                               text=True).stdout
         parts = re.split(r"\n\s*Function : (\S+)\n", dump)[1:]
-        funcs.append({re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", name): body
-                      for name, body in zip(parts[::2], parts[1::2])})
+        # cuobjdump pads each line to the width of the file's longest name.
+        strip = lambda text: re.sub(r"[ \t]+", " ",
+                                    re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", text))
+        funcs.append({strip(name): strip(body) for name, body in zip(parts[::2], parts[1::2])})
     rc = 0
     for name in sorted(set(funcs[0]) | set(funcs[1])):
         if name not in funcs[0] or name not in funcs[1]:
@@ -251,6 +253,10 @@ def sass(other: str) -> int:
         rc |= not same
         print(f"{name}: SASS {'identical' if same else 'DIFFERS'} "
               f"({funcs[1][name].count(chr(10))} lines)", flush=True)
+        if not same:   # the first differing lines, OTHER_ROOT's then this checkout's
+            pairs = [(a, b) for a, b in zip(*(f[name].splitlines() for f in funcs)) if a != b]
+            for a, b in pairs[:2]:
+                print(f"    {a.strip()}\n    {b.strip()}", flush=True)
     return rc
 
 
@@ -261,8 +267,12 @@ def main() -> int:
     args = sys.argv[1:]
     if args == ["--variants"]:
         return variants()
-    if len(args) == 2 and args[0] == "--sass":
-        return sass(os.path.abspath(args[1]))
+    if len(args) >= 2 and args[0] == "--sass":
+        rc = 0
+        for source in args[2:] or ["flash_attention_bwd.cu"]:
+            print(f"-- {source}", flush=True)
+            rc |= sass(os.path.abspath(args[1]), source)
+        return rc
     others = [(os.path.abspath(p), os.path.basename(os.path.abspath(p))) for p in args]
     order = others + [(HERE, "this")] * (2 if others else 1) + others[::-1]
     rc = 0

@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
 ``paged_prefill_q_tc_kernel`` (``csrc/paged_prefill.cu``) splits the
 registers of its 384 threads between the two consumer warpgroups and the
-producer warpgroup, which widens the codes (``Q_CONSUMER_REGS`` /
-``Q_PRODUCER_REGS``, 2 x consumer + producer = 3 x 168). This builds
+producer warpgroup, which widens the codes (``QSmem``'s ``CONSUMER_REGS`` /
+``PRODUCER_REGS`` at head_dim 64 and 128, 2 x consumer + producer = 3 x
+168). This builds
 variants of the committed source under ``build/k2q_variants/``, each one
 text substitution, one ``nvcc`` each in parallel:
 
@@ -48,8 +49,10 @@ COPY = ("        o[0] = c.x; o[1] = c.y; o[2] = c.z; o[3] = c.w;\n"
 
 
 def regs(consumer: int, producer: int):
-    return [(re.compile(r"Q_CONSUMER_REGS = \d+"), f"Q_CONSUMER_REGS = {consumer}"),
-            (re.compile(r"Q_PRODUCER_REGS = \d+"), f"Q_PRODUCER_REGS = {producer}")]
+    """QSmem's split at head_dim 64 and 128 (the head_dim 256 one kept)."""
+    return [(re.compile(rf"({role}_REGS = D == 256 \? \d+ : )\d+"),
+             lambda m, n=n: m.group(1) + str(n))
+            for role, n in (("CONSUMER", consumer), ("PRODUCER", producer))]
 
 
 VARIANTS = {
@@ -73,7 +76,7 @@ def build_variants(build) -> dict:
         src = d / "paged_prefill.cu"
         text = src.read_text()
         for pattern, repl in subs:
-            text, n = pattern.subn(lambda _: repl, text)
+            text, n = pattern.subn(repl if callable(repl) else lambda _: repl, text)
             if n != 1:
                 raise RuntimeError(f"{name}: {pattern.pattern!r} matched {n} times")
         src.write_text(text)
