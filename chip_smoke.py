@@ -83,9 +83,11 @@ and prints no result. Phases, in order (any failure exits non-zero):
      (gemma2-2b B 1, S 8192; gemma3-1b B 2, S 4096), global and the local
      window, with the softcap: per (b, head) slice within 2^-6 of the plain
      backward, 100 reruns and the block-first order bitwise equal, every
-     launch on the tensor cores, times, bounds and SDPA's backward like for
-     like (no softcap, the window as a mask; its refusal printed if it
-     refuses);
+     launch on the tensor cores, times (queue primed and without: the
+     wrappers' host time shows in the second), bounds and SDPA's
+     backward like for like (no softcap, the window as a mask; its refusal
+     printed if it refuses), K6's part count and its longest block's walk
+     against the mean;
   3b. plan — the plan's models against the card: (a) bf16 K3 / K4 at
      llama3-8b widths, every row full, B 1, 2, 4, 8 over tables of 128 and
      256 pages (and the serve runs' 8 x 36 and 1 x 260) at 1, 2, 3, 4, 6,
@@ -1844,11 +1846,15 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
     window, with its softcap: each gradient per (b, head) slice within
     ROW_TOL of the plain backward, 100 reruns of each kernel and the
     block-first order bitwise equal to the first run, one launch each on the
-    tensor cores, CUDA-event medians, the bound (bytes over 3.35 TB/s
+    tensor cores, CUDA-event medians with the queue primed (the card's time)
+    and without (the wrappers' host time included), the bound (bytes over
+    3.35 TB/s
     against K5's three and K6's four products over the live (row, key)
     pairs at 989 TFLOP/s) and SDPA's backward like for like: no softcap
     (K5 / K6 timed again without it), the window as an explicit mask, K / V
-    expanded to Hq. Returns one row per (kernel, window)."""
+    expanded to Hq; also K6's part count (``dkv_parts``, the wrapper's pick)
+    and its longest block's walk against the mean. Returns one row per
+    (kernel, window)."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as fa
@@ -1864,10 +1870,15 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
     q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
     pos = torch.arange(s, device="cuda")
     group = hq // hkv
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for window in (None, local):
         label = f"{model} (Hq {hq}, Hkv {hkv}) B {b} S {s} window {window}"
         kw = dict(causal=True, window=window, softcap=cap)
+        # K6's part count (the wrapper's own pick) and its blocks' walks.
+        parts = fb.dkv_parts(b, hq, hkv, s, s, causal=True, window=window, sms=sms)
+        walks = fb.dkv_part_walks(fb.dkv_walks(s, s, group, causal=True, window=window), parts)
+        longest, mean_walk = max(walks), sum(walks) / len(walks)
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         delta = (do.float() * o.float()).sum(-1)
 
@@ -1890,15 +1901,22 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
                      for _ in range(RERUNS))
         orders = all(torch.equal(x, y) for x, y in zip(run(fa.BLOCK_FIRST), got))
         del got
-        ms5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
-        ms6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+        def both(fn):   # (queue primed, with the host time)
+            return timer.ms(fn, primed=True), timer.ms(fn)
+
+        (ms5, host5), (ms6, host6) = (
+            both(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)),
+            both(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)))
         plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw))
         no_cap = ""
         if cap is not None:
             nc = dict(kw, softcap=None)
-            nc5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **nc))
-            nc6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **nc))
-            no_cap = f"; without the softcap K5 {nc5:.4f} ms, K6 {nc6:.4f} ms"
+            (nc5, nch5), (nc6, nch6) = (
+                both(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **nc)),
+                both(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **nc)))
+            no_cap = (f"; without the softcap K5 {nc5:.4f} ms ({nch5:.4f}), K6 {nc6:.4f} ms "
+                      f"({nch6:.4f})")
         # SDPA's backward on the same shapes (no softcap; the window as a mask).
         leaves = [t.detach().requires_grad_(True) for t in
                   (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
@@ -1908,8 +1926,9 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
             else:
                 mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
                 out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-            lib_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-            lib = f"{lib_ms:.4f} ms"
+            lib_ms, lib_host = both(lambda: torch.autograd.grad(out, leaves, do,
+                                                                retain_graph=True))
+            lib = f"{lib_ms:.4f} ms ({lib_host:.4f})"
             del out
         except RuntimeError as e:   # no SDPA backend takes these shapes
             lib_ms, lib = None, f"refused ({str(e).splitlines()[0][:160]})"
@@ -1921,20 +1940,27 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
         log(f"K5/K6 D 256 {label} softcap {cap}: per-slice relative dq {rel[0]:.3e} dk "
             f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {ROW_TOL:.3e}), max abs {ab[0]:.3e} "
             f"{ab[1]:.3e} {ab[2]:.3e}; {differ} of {RERUNS} reruns differ, block-first "
-            f"bitwise equal {orders}; launches (all, on the tensor cores) {launched}; K5 "
-            f"{ms5:.4f} ms bound {b5[0]:.4f} ({b5[1]}), K6 {ms6:.4f} ms bound {b6[0]:.4f} "
-            f"({b6[1]}), pair {ms5 + ms6:.4f} ms; plain (pair) {plain_ms:.3f} ms; library sdpa "
-            f"backward {lib}{no_cap}")
+            f"bitwise equal {orders}; launches (all, on the tensor cores) {launched}; times "
+            f"with the queue primed (in parentheses with the wrappers' host time): K5 "
+            f"{ms5:.4f} ms ({host5:.4f}) bound {b5[0]:.4f} ({b5[1]}), K6 {ms6:.4f} ms "
+            f"({host6:.4f}) bound {b6[0]:.4f} ({b6[1]}), pair {ms5 + ms6:.4f} ms "
+            f"({host5 + host6:.4f}); plain (pair) {plain_ms:.3f} ms; library sdpa backward "
+            f"{lib}{no_cap}; K6 in {parts} part(s) of {b * hkv * len(walks)} blocks on {sms} "
+            f"SMs, longest block {longest} tiles against a mean of {mean_walk:.2f} "
+            f"({longest / mean_walk:.3f}x)")
         if max(rel) > ROW_TOL or differ or not orders or launched != {"dq": (1, 1),
                                                                          "dkv": (1, 1)}:
             raise AssertionError(f"K5/K6 D 256 {label}: disagree with the plain backward, "
                                  "change between reruns or orders, or missed the tensor cores")
-        for key, ms, kb, e in (("K5", ms5, b5, ab[0]), ("K6", ms6, b6, max(ab[1:]))):
-            rows.append(dict(kernel=key, widths=label, ms=ms, plain_ms=plain_ms,
+        for key, ms, host, kb, e in (("K5", ms5, host5, b5, ab[0]),
+                                     ("K6", ms6, host6, b6, max(ab[1:]))):
+            rows.append(dict(kernel=key, widths=label, ms=ms, host_ms=host, plain_ms=plain_ms,
                              bound_ms=kb[0], bound_by=kb[1], library_ms=lib_ms,
                              slice_err=max(rel), max_abs_err=e))
             if cap is not None:
                 rows[-1]["ms_without_softcap"] = nc5 if key == "K5" else nc6
+            if key == "K6":
+                rows[-1].update(parts=parts, longest_walk=longest, mean_walk=mean_walk)
         del o, lse, delta
     return rows
 

@@ -50,7 +50,9 @@
 // axis is a loop inside the block, so nothing crosses blocks. K6 sums the
 // GQA group inside the block (one block per (b, kv head, kv tile) loops over
 // the group's q heads), so no (B, Hq, Skv, D) partials are written and no
-// atomics are used: gradients are the same from run to run. One fused
+// atomics are used: gradients are the same from run to run (at head_dim 256
+// a walk too long for the card's blocks is split into parts whose float32
+// sums a second kernel adds in a fixed order; see Smem256). One fused
 // kernel with an atomic dQ would do 5 products a tile pair against these 7
 // (3 + 4), at the price of that determinism. The MappingConfig order
 // decodes blockIdx head-first (the tiles of one head consecutive, so blocks
@@ -895,6 +897,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // KB, two ring stages 128 KB, the exchange 32 KB, K6's staged lse and delta
 // 1 KB: 226 KB. No tile of a block's walk is dead for all its rows, so
 // there is no per-warpgroup skip. Thread 0 issues the loads as above.
+//
+// The walk. Blocks are issued longest walk first: causal K5 reverses the
+// tile index that decode_block gives (block mb walks mb + 1 key tiles); K6's
+// kv block nb walks fewer q tiles the larger nb is, so its order stays.
+// Where K6's (b, kv head, kv tile) blocks cannot fill the card, the wrapper
+// splits each block's walk over the GQA group's q heads and their q tiles
+// (flattened head-major) into `parts` ranges of `chunk` tiles, chunk the
+// longest walk over parts (launch_dkv256 takes it from dkv_tiles256), one
+// block each: every part writes its float32 dK and dV to a scratch slot of its
+// own, and fa2_dkv_reduce256_kernel adds a kv tile's parts in part order,
+// scales dK and rounds both to bf16 once. No atomics: the same bits from
+// run to run and under either order. With one part K6 writes bf16 itself,
+// as without the split. Each tile still waits for the last one's D-wide
+// products before its S / dP: issuing them behind those products
+// (wgmma_wait<1>), or S as soon as warpgroup 0 has handed P over, ran 1-12%
+// slower on an H100 (0 B spill either way).
 struct Smem256 {
   static constexpr int HD = 256;
   static constexpr int ROWS = 64;   // own rows
@@ -913,11 +931,28 @@ struct Smem256 {
   static constexpr int COLS = XCH + 64 * 128 * 4;
   static constexpr int BAR = COLS + 2 * 2 * BT * 4;   // full[STAGES], empty[STAGES], own
   static constexpr size_t bytes = BAR + 8 * (2 * STAGES + 1) + 1024;   // + base alignment
+  // K6's scratch slot of one part: dK then dV, 64 rows of 256 floats each.
+  static constexpr int PART = 2 * ROWS * HD;
   static_assert(bytes <= 232448, "above the 227 KB of shared memory a block may use");
 };
 
 constexpr int P_READY = 3;    // named barriers over both warpgroups
 constexpr int DS_READY = 4;
+
+// The q tiles [m_lo, m_lo + nq) of each GQA head that K6's 64 kv rows from
+// c0 see: none if all are past `live`; causal rows >= c0; window rows <=
+// c0 + 63 + window - 1.
+__host__ __device__ __forceinline__ void dkv_tiles256(int c0, int Sq, int live, int causal,
+                                                      int window, int& m_lo, int& nq) {
+  const int nm = (Sq + BT - 1) / BT;
+  m_lo = causal ? c0 / BT : 0;
+  int m_hi = c0 < live ? nm : 0;
+  if (window > 0) {
+    const int reach = (c0 + Smem256::ROWS - 1 + window - 1) / BT + 1;
+    m_hi = reach < m_hi ? reach : m_hi;
+  }
+  nq = m_hi > m_lo ? m_hi - m_lo : 0;
+}
 
 // p = exp(s_capped - lse) of one score from its raw product s, with nl =
 // -lse * log2(e) (-inf for a dead row: p = 0), the softcap as hopper.cuh's
@@ -998,6 +1033,20 @@ __device__ __forceinline__ void store_half(uint8_t* tile, const CUtensorMap* map
   }
 }
 
+// A part's float32 output: this warpgroup's 128 columns of acc (rows
+// tile_row and tile_row + 8 of the block's 64) into a 64 x 256 plane of its
+// scratch slot.
+__device__ __forceinline__ void store_part(float* out, const float (&acc)[64], int wg,
+                                           int tile_row, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(out + (tile_row + 8 * r) * Smem256::HD + 128 * wg + 8 * j +
+                                 2 * (lane & 3)) = make_float2(acc[4 * j + 2 * r],
+                                                               acc[4 * j + 2 * r + 1]);
+}
+
 // -- K5 at head_dim 256: own tiles Q and dO (64 q rows); ring K, V.
 template <bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -1017,8 +1066,10 @@ fa2_dq_tc256_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + STAGES;
   uint64_t* own = empty + STAGES;
 
+  const int nm = (Sq + L::ROWS - 1) / L::ROWS;
   int b, h, mb;
-  decode_block((Sq + L::ROWS - 1) / L::ROWS, Hq, order, b, h, mb);
+  decode_block(nm, Hq, order, b, h, mb);
+  if (causal) mb = nm - 1 - mb;   // the longest walks (mb + 1 key tiles) first
   const int plane = b * Hq + h;
   const int kv_plane = b * Hkv + h / (Hq / Hkv);
   const int q0 = mb * L::ROWS;
@@ -1107,7 +1158,8 @@ fa2_dq_tc256_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // -- K6 at head_dim 256: own tiles K and V (64 kv rows); ring Q and dO over
-// the GQA group's q heads and each head's live q tiles.
+// the GQA group's q heads and each head's live q tiles, or over one part of
+// that walk.
 template <bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa2_dkv_tc256_kernel(const __grid_constant__ CUtensorMap tk,
@@ -1116,9 +1168,9 @@ fa2_dkv_tc256_kernel(const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tdk,
                      const __grid_constant__ CUtensorMap tdv, const float* __restrict__ lse,
-                     const float* __restrict__ delta, int Hq, int Hkv, int Sq, int Skv,
-                     int kv_len, float scale, int causal, int window, float softcap,
-                     int order) {
+                     const float* __restrict__ delta, float* __restrict__ scratch, int Hq,
+                     int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
+                     float softcap, int order, int parts, int chunk) {
   using namespace hopper;
   using L = Smem256;
   extern __shared__ uint8_t smem_raw[];
@@ -1127,23 +1179,26 @@ fa2_dkv_tc256_kernel(const __grid_constant__ CUtensorMap tk,
   uint64_t* empty = full + STAGES;
   uint64_t* own = empty + STAGES;
 
-  int b, hk, nb;
-  decode_block((Skv + L::ROWS - 1) / L::ROWS, Hkv, order, b, hk, nb);
+  const int nkv = (Skv + L::ROWS - 1) / L::ROWS;
+  int b, hk, unit;
+  decode_block(nkv * parts, Hkv, order, b, hk, unit);
+  const int nb = unit / parts;
+  const int part = unit - nb * parts;
   const int group = Hq / Hkv;
   const int kv_plane = b * Hkv + hk;
   const int c0 = nb * L::ROWS;
   const int live = min(Skv, kv_len);
-  // Live q tiles of these keys: none if all are past kv_len; causal rows
-  // >= c0; window rows <= c0 + 63 + window - 1.
-  const int nm = (Sq + BT - 1) / BT;
-  const int m_lo = causal ? c0 / BT : 0;
-  int m_hi = c0 < live ? nm : 0;
-  if (window > 0) m_hi = min(m_hi, (c0 + L::ROWS - 1 + window - 1) / BT + 1);
-  const int nq = max(0, m_hi - m_lo);
-  const int ntiles = group * nq;
-  auto ring = [&](int t, int& row, int& p) {   // q head hk * group + t / nq
-    row = (m_lo + t % nq) * BT;
-    p = b * Hq + hk * group + t / nq;
+  int m_lo, nq;
+  dkv_tiles256(c0, Sq, live, causal, window, m_lo, nq);
+  // This part's tiles [t_lo, t_lo + ntiles) of the walk; part 0 always runs
+  // (a kv tile that sees no q row writes zeros).
+  const int walk = group * nq;
+  const int t_lo = part * chunk;
+  if (part > 0 && t_lo >= walk) return;
+  const int ntiles = parts == 1 ? walk : min(walk - t_lo, chunk);
+  auto ring = [&](int t, int& row, int& p) {   // q head hk * group + (t_lo + t) / nq
+    row = (m_lo + (t_lo + t) % nq) * BT;
+    p = b * Hq + hk * group + (t_lo + t) / nq;
   };
   start_loads<L>(smem, full, empty, own, &tk, &tv, &tq, &tdo, c0, kv_plane, ntiles, ring);
 
@@ -1187,7 +1242,7 @@ fa2_dkv_tc256_kernel(const __grid_constant__ CUtensorMap tk,
     named_barrier_sync(1 + wg, 128);
     next_tile<L>(smem, full, empty, &tq, &tdo, t, ntiles, ring);
     const int st = t % STAGES;
-    const int q0 = (m_lo + t % nq) * BT;
+    const int q0 = (m_lo + (t_lo + t) % nq) * BT;
     const uint32_t qaddr = smem_u32(smem + L::RA + st * L::TILE);
     const uint32_t doaddr = smem_u32(smem + L::RB + st * L::TILE);
     float s[BT / 2];   // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
@@ -1241,11 +1296,55 @@ fa2_dkv_tc256_kernel(const __grid_constant__ CUtensorMap tk,
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  // dK = scale * dk and dV through this warpgroup's halves of the K and V
-  // tiles: no wgmma reads them once both warpgroups are past the last
-  // tile's DS_READY.
-  store_half(smem + L::A, &tdk, dk, scale, wg, row0 - c0, lane, c0, kv_plane);
-  store_half(smem + L::B, &tdv, dv, 1.f, wg, row0 - c0, lane, c0, kv_plane);
+  if (parts == 1) {
+    // dK = scale * dk and dV through this warpgroup's halves of the K and V
+    // tiles: no wgmma reads them once both warpgroups are past the last
+    // tile's DS_READY.
+    store_half(smem + L::A, &tdk, dk, scale, wg, row0 - c0, lane, c0, kv_plane);
+    store_half(smem + L::B, &tdv, dv, 1.f, wg, row0 - c0, lane, c0, kv_plane);
+  } else {   // this part's unscaled dk and dv, summed by fa2_dkv_reduce256_kernel
+    float* slot = scratch + ((size_t)(kv_plane * nkv + nb) * parts + part) * L::PART;
+    store_part(slot, dk, wg, row0 - c0, lane);
+    store_part(slot + L::PART / 2, dv, wg, row0 - c0, lane);
+  }
+}
+
+// K6's sum over parts at head_dim 256: thread i adds four consecutive
+// floats of one (kv plane, kv tile, output, row) over that kv tile's parts,
+// in part order, and writes them to dK (times scale) or dV in bf16. The
+// parts of kv tile nb are those fa2_dkv_tc256_kernel ran for it.
+__global__ void __launch_bounds__(256)
+fa2_dkv_reduce256_kernel(const float* __restrict__ scratch, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, long long n4, int group, int Sq,
+                         int Skv, int kv_len, float scale, int causal, int window, int parts,
+                         int chunk) {
+  using L = Smem256;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int e = (int)(i % (L::PART / 4)) * 4;   // element of the slot
+  const long long slab = i / (L::PART / 4);      // kv plane * nkv + nb
+  const int nkv = (Skv + L::ROWS - 1) / L::ROWS;
+  const int nb = (int)(slab % nkv);
+  const int out = e / (L::PART / 2);             // 0 dK, 1 dV
+  const int row = nb * L::ROWS + (e / L::HD) % L::ROWS;
+  if (row >= Skv) return;
+  int m_lo, nq;
+  dkv_tiles256(nb * L::ROWS, Sq, min(Skv, kv_len), causal, window, m_lo, nq);
+  const int n = max(1, min(parts, (group * nq + chunk - 1) / chunk));
+  const float* src = scratch + slab * parts * L::PART + e;
+  float4 sum = *reinterpret_cast<const float4*>(src);
+  for (int p = 1; p < n; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (size_t)p * L::PART);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
+  }
+  const float mul = out == 0 ? scale : 1.f;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+      (out == 0 ? dk : dv) + ((slab / nkv) * Skv + row) * (size_t)L::HD + e % L::HD);
+  dst[0] = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+  dst[1] = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
 }
 
 template <bool SOFTCAP>
@@ -1271,14 +1370,27 @@ int launch_dq256(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// K6 at head_dim 256 over `parts` parts of a walk each (parts 1: the
+// whole walk, bf16 written directly), then, with more than one part, the
+// sum over the float32 scratch (B * Hkv, nkv, parts, 2, 64, 256). A part
+// walks `chunk` tiles: the longest block's walk over parts, rounded up.
 template <bool SOFTCAP>
 int launch_dkv256(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int B, int Hq,
                   int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
-                  float softcap, int order, cudaStream_t stream) {
+                  float softcap, int order, int parts, float* scratch, cudaStream_t stream) {
   using L = Smem256;
-  const long long blocks = (long long)B * Hkv * ((Skv + L::ROWS - 1) / L::ROWS);
+  if (parts < 1 || (parts > 1 && scratch == nullptr)) return -1;
+  const int nkv = (Skv + L::ROWS - 1) / L::ROWS;
+  const long long blocks = (long long)B * Hkv * nkv * parts;
   if (blocks <= 0) return 0;
+  int longest = 0;
+  for (int nb = 0; nb < nkv; ++nb) {
+    int m_lo, nq;
+    dkv_tiles256(nb * L::ROWS, Sq, min(Skv, kv_len), causal, window, m_lo, nq);
+    longest = max(longest, (Hq / Hkv) * nq);
+  }
+  const int chunk = max(1, (longest + parts - 1) / parts);
   CUtensorMap tk, tv, tq, tdo, tdk, tdv;
   int err = hopper::make_map_3d(&tk, k, L::HD, Skv, B * Hkv, L::ROWS);
   if (err == 0) err = hopper::make_map_3d(&tv, v, L::HD, Skv, B * Hkv, L::ROWS);
@@ -1290,8 +1402,14 @@ int launch_dkv256(const void* q, const void* k, const void* v, const void* dout,
   const cudaError_t e = allow_smem(fa2_dkv_tc256_kernel<SOFTCAP>, L::bytes);
   if (e != cudaSuccess) return (int)e;
   fa2_dkv_tc256_kernel<SOFTCAP><<<(unsigned)blocks, THREADS, L::bytes, stream>>>(
-      tk, tv, tq, tdo, tdk, tdv, lse, delta, Hq, Hkv, Sq, Skv, kv_len, scale, causal, window,
-      softcap, order);
+      tk, tv, tq, tdo, tdk, tdv, lse, delta, scratch, Hq, Hkv, Sq, Skv, kv_len, scale, causal,
+      window, softcap, order, parts, chunk);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || parts == 1) return (int)launched;
+  const long long n4 = (long long)B * Hkv * nkv * (L::PART / 4);
+  fa2_dkv_reduce256_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+      scratch, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n4, Hq / Hkv,
+      Sq, Skv, kv_len, scale, causal, window, parts, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1353,6 +1471,9 @@ int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout
 #define DKV_PASS(FN)                                                                       \
   return FN(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Skv, kv_len, scale, causal, \
             window, softcap, order, static_cast<cudaStream_t>(stream))
+#define DKV256_PASS(FN)                                                                    \
+  return FN(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Skv, kv_len, scale, causal, \
+            window, softcap, order, parts, scratch, static_cast<cudaStream_t>(stream))
 
 // float32 on the CUDA cores.
 extern "C" int fa2_bwd_dq(BWD_DQ_ARGS) {
@@ -1386,12 +1507,16 @@ extern "C" int fa2_bwd_dq_tc(BWD_DQ_ARGS) {
   return -1;
 }
 
-extern "C" int fa2_bwd_dkv_tc(BWD_DKV_ARGS) {
+// K6 also takes the split of its walk at head_dim 256: `parts` parts over
+// a float32 `scratch` of (B * Hkv, ceil(Skv / 64), parts, 2, 64, 256);
+// parts 1 (no scratch) below head_dim 256.
+extern "C" int fa2_bwd_dkv_tc(BWD_DKV_ARGS, int parts, float *scratch) {
   const bool cap = softcap > 0.f;
   if (D == 256) {
-    if (cap) DKV_PASS((tc::launch_dkv256<true>));
-    DKV_PASS((tc::launch_dkv256<false>));
+    if (cap) DKV256_PASS((tc::launch_dkv256<true>));
+    DKV256_PASS((tc::launch_dkv256<false>));
   }
+  if (parts != 1) return -1;
   if (D == 128) {
     if (cap) DKV_PASS((tc::launch_dkv<128, true>));
     DKV_PASS((tc::launch_dkv<128, false>));

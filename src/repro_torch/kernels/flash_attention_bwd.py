@@ -7,7 +7,9 @@ Pallas kernels ``_dq_kernel`` and ``_dkv_kernel``). The kernels are
 ``fa2_bwd_dkv_tc`` on the tensor cores (``wgmma`` fed by TMA; P and dS
 rounded to bf16 before their products) at head_dim 64, 128 and 256 (the
 gemma family: both warpgroups of a block on 64 shared rows, each
-accumulating half of D's columns), float32 ``fa2_bwd_dq`` /
+accumulating half of D's columns; causal K5 issues its longest walks first,
+and K6 splits walks too long for the card's blocks into parts summed in a
+fixed order, :func:`dkv_parts`), float32 ``fa2_bwd_dq`` /
 ``fa2_bwd_dkv`` on the CUDA cores in float32 at head_dim 64 and 128. Each pair is launched by its
 own wrapper (:func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`);
 :func:`flash_attention_bwd` launches both for CUDA tensors and runs
@@ -24,7 +26,8 @@ JAX package. No order changes an output.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -96,9 +99,70 @@ def _kernel(which: str, dtype):
     if name not in _fns:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         outs = [P] if which == "dq" else [P, P]
+        split = [I, P] if name == "fa2_bwd_dkv_tc" else []   # parts, scratch
         _fns[name] = build.bind("flash_attention_bwd", name,
-                                [P] * 6 + outs + [I] * 7 + [F, I, I, F, I, P])
+                                [P] * 6 + outs + [I] * 7 + [F, I, I, F, I, P] + split)
     return _fns[name]
+
+
+# -- K6's split at head_dim 256 ------------------------------------------------
+
+#: Rows of a K6 block and of a q tile of its walk at head_dim 256.
+D256_ROWS = 64
+#: K6's part counts at head_dim 256, fewest first, and the longest part
+#: :func:`dkv_parts` accepts against the mean part.
+DKV_PARTS = (1, 2, 4, 8)
+DKV_BALANCE = 1.15
+
+
+def dkv_walks(sq: int, skv: int, group: int, *, causal=True, window=None,
+              kv_len: Optional[int] = None) -> List[int]:
+    """Tiles each 64-row kv block of K6 walks at head_dim 256, in block
+    order: the GQA group's q heads times the 64-row q tiles its keys see
+    (``dkv_tiles256`` in csrc/flash_attention_bwd.cu)."""
+    live = skv if kv_len is None else min(skv, int(kv_len))
+    nm = -(-sq // D256_ROWS)
+    out = []
+    for nb in range(-(-skv // D256_ROWS)):
+        c0 = nb * D256_ROWS
+        m_lo = c0 // D256_ROWS if causal else 0
+        m_hi = nm if c0 < live else 0
+        if window is not None and window > 0:
+            m_hi = min(m_hi, (c0 + D256_ROWS - 1 + window - 1) // D256_ROWS + 1)
+        out.append(group * max(0, m_hi - m_lo))
+    return out
+
+
+def dkv_part_walks(walks: List[int], parts: int) -> List[int]:
+    """The tiles each part walks, in launch order within one (b, kv head):
+    block nb's walk cut into ranges of ceil(longest walk / parts) tiles, as
+    the kernel cuts it (at least one part a block, as the kernel runs)."""
+    chunk = max(1, -(-max(walks, default=0) // parts))
+    return [min(chunk, n - p * chunk) if n else 0
+            for n in walks for p in range(max(1, -(-n // chunk)))]
+
+
+@functools.lru_cache(maxsize=256)
+def dkv_parts(b: int, hq: int, hkv: int, sq: int, skv: int, *, causal=True, window=None,
+              kv_len: Optional[int] = None, sms: int = 132) -> int:
+    """K6's part count at head_dim 256: one where its b * hkv * ceil(skv /
+    64) blocks fill the ``sms`` SMs (one block an SM: a block takes 226 KB
+    of shared memory; gemma2-2b's train shape has 512); else the fewest of
+    :data:`DKV_PARTS` whose longest part walks at most :data:`DKV_BALANCE`
+    times the mean part, the most if none does."""
+    walks = dkv_walks(sq, skv, hq // hkv, causal=causal, window=window, kv_len=kv_len)
+    if b * hkv * len(walks) >= sms:
+        return 1
+    for parts in DKV_PARTS:
+        lengths = dkv_part_walks(walks, parts)
+        if max(lengths) <= DKV_BALANCE * sum(lengths) / len(lengths):
+            return parts
+    return DKV_PARTS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta, mapping):
@@ -160,18 +224,42 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
                             mapping: MappingConfig = MappingConfig(), causal=True,
                             window=None, softcap=None, scale=None,
-                            kv_len: Optional[int] = None
+                            kv_len: Optional[int] = None, parts: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 on CUDA tensors: (dK, dV), each (B, Hkv, Skv, D) in k's dtype and
-    summed over the GQA group inside the kernel."""
+    summed over the GQA group inside the kernel.
+
+    bf16 at head_dim 256 splits each kv block's walk into ``parts`` (default
+    :func:`dkv_parts` of the shapes and the card's SM count): the parts
+    write float32 sums to a scratch tensor, freed on return, which a second
+    kernel of the same call adds in part order. Every other route takes one
+    part."""
     _check_bwd_inputs(q, k, v, do, lse, delta, mapping)
     build.refuse_grad("flash_attention_bwd_dkv", q, k, v, do)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    split = q.dtype == torch.bfloat16 and d == 256
+    if parts is not None and (parts < 1 or (parts > 1 and not split)):
+        raise ValueError(f"K6 splits its walk only in bf16 at head_dim 256; got {parts} parts "
+                         f"at {q.dtype} head_dim {d}")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    extra = ()
+    scratch = None
+    if split:
+        if parts is None:
+            parts = dkv_parts(b, hq, hkv, sq, skv, causal=bool(causal), window=window,
+                              kv_len=kv_len, sms=_sm_count(q.device.index))
+        if parts > 1:
+            scratch = torch.empty((b * hkv, -(-skv // D256_ROWS), parts, 2, D256_ROWS, d),
+                                  dtype=torch.float32, device=q.device)
+        extra = (parts, 0 if scratch is None else scratch.data_ptr())
+    elif q.dtype == torch.bfloat16:
+        extra = (1, 0)
     _count("dkv", q.dtype)
     build.check(_kernel("dkv", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_args(q, k, mapping, causal, window, softcap, scale, kv_len)),
+        *_args(q, k, mapping, causal, window, softcap, scale, kv_len), *extra),
         _ENTRY["dkv", q.dtype])
     return dk, dv
 

@@ -124,8 +124,20 @@ def test_bwd_matches_jax_pallas_bf16():
 SLICE_TOL = 2.0**-6   # per (b, head) slice, against its max |g|: one bf16 ulp is 2^-7
 
 
+def _k6_walk(nb, sq, group, causal, window, live, tile=64):
+    """The (q head of the group, q tile) pairs K6's kv block nb walks at
+    head dim 256, in its order: head by head, each head's q tiles upward
+    from the diagonal's (causal), none for keys all past ``live``, none
+    below the window's reach."""
+    m_lo = nb if causal else 0
+    m_hi = -(-sq // tile) if nb * tile < live else 0
+    if window:
+        m_hi = min(m_hi, (nb * tile + tile - 1 + window - 1) // tile + 1)
+    return [(g, m) for g in range(group) for m in range(m_lo, m_hi)]
+
+
 def _tensor_core_bwd(q, k, v, o, lse, do, *, causal, window=None, softcap=None,
-                     kv_len=None, tile=64, round_out=True):
+                     kv_len=None, tile=64, round_out=True, parts=None):
     """The arithmetic of the bf16 tensor-core K5 / K6 (``fa2_bwd_dq_tc`` /
     ``fa2_bwd_dkv_tc`` in csrc/flash_attention_bwd.cu), written out in
     float32: products of bf16 inputs summed in float32; p recomputed as
@@ -140,7 +152,11 @@ def _tensor_core_bwd(q, k, v, o, lse, do, *, causal, window=None, softcap=None,
     one rcp (``softcap_tanh``), and one warpgroup forms S and P, the other
     dP and dS, each summing its half of D's output columns: a split of
     independent columns, which changes no sum, so S, dP and the products
-    over the 64-row tiles are the same as at the other head dims."""
+    over the 64-row tiles are the same as at the other head dims. With
+    ``parts`` (head dim 256), each 64-row kv block's walk (``_k6_walk``) is
+    cut into ranges of ceil(longest walk / parts) tiles: dK and dV summed in
+    float32 over each range, the ranges then added in order, then one
+    rounding."""
     log2e = 1.4426950408889634
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -179,11 +195,27 @@ def _tensor_core_bwd(q, k, v, o, lse, do, *, causal, window=None, softcap=None,
     qg, dog = (x.reshape(b, hkv, group, sq, d) for x in (qf, dof))
     dk = torch.zeros((b, hkv, skv, d))
     dv = torch.zeros((b, hkv, skv, d))
-    for g in range(group):
-        for m0 in range(0, sq, tile):
-            rows_ = slice(m0, m0 + tile)
-            dv += pg[:, :, g, rows_].transpose(-1, -2) @ dog[:, :, g, rows_]
-            dk += dsg[:, :, g, rows_].transpose(-1, -2) @ qg[:, :, g, rows_]
+    if parts is None:
+        for g in range(group):
+            for m0 in range(0, sq, tile):
+                rows_ = slice(m0, m0 + tile)
+                dv += pg[:, :, g, rows_].transpose(-1, -2) @ dog[:, :, g, rows_]
+                dk += dsg[:, :, g, rows_].transpose(-1, -2) @ qg[:, :, g, rows_]
+    else:
+        walks = [_k6_walk(nb, sq, group, causal, window, live, tile)
+                 for nb in range(-(-skv // tile))]
+        chunk = max(1, -(-max(len(w) for w in walks) // parts))
+        for nb, walk in enumerate(walks):
+            cols_ = slice(nb * tile, nb * tile + tile)
+            for p in range(max(1, -(-len(walk) // chunk))):
+                part_k = torch.zeros_like(dk[:, :, cols_])
+                part_v = torch.zeros_like(dv[:, :, cols_])
+                for g, m in walk[p * chunk:(p + 1) * chunk]:
+                    rows_ = slice(m * tile, m * tile + tile)
+                    part_v += pg[:, :, g, rows_, cols_].transpose(-1, -2) @ dog[:, :, g, rows_]
+                    part_k += dsg[:, :, g, rows_, cols_].transpose(-1, -2) @ qg[:, :, g, rows_]
+                dk[:, :, cols_] += part_k
+                dv[:, :, cols_] += part_v
     out = (scale * dq, scale * dk, dv)
     return tuple(x.to(torch.bfloat16) for x in out) if round_out else out
 
@@ -201,21 +233,24 @@ def _slice_err(j, t) -> float:
 TC_FLAGS = {"causal": dict(causal=True),
             "window_softcap": dict(causal=True, window=50, softcap=30.0),
             "noncausal_kvlen": dict(causal=False, kv_len=101)}
-#: (head dim, (Hq, Hkv), flags): every flag set at Hq 8 over Hkv 2, and
-#: gemma3-1b's group of 4 over one kv head at head dim 256.
-TC_CASES = [(d, (8, 2), f) for d in (64, 128, 256) for f in TC_FLAGS] + [
-    (256, (4, 1), "window_softcap")]
+#: (head dim, (Hq, Hkv), flags, K6's parts): every flag set at Hq 8 over
+#: Hkv 2, and gemma3-1b's group of 4 over one kv head at head dim 256, in
+#: one part and with K6's walk in 2 and in 4 parts.
+TC_CASES = [(d, (8, 2), f, None) for d in (64, 128, 256) for f in TC_FLAGS] + [
+    (256, (4, 1), "window_softcap", None)] + [
+    (256, (4, 1), f, parts) for f in ("causal", "window_softcap") for parts in (2, 4)]
 
 
-@pytest.mark.parametrize("d,heads,flags", TC_CASES,
+@pytest.mark.parametrize("d,heads,flags,parts", TC_CASES,
                          ids=[f"{f}-{d}" + ("-group4-kv1" if h == (4, 1) else "")
-                              for d, h, f in TC_CASES])
-def test_tensor_core_k5_k6_arithmetic_matches_jax(d, heads, flags):
+                              + (f"-parts{n}" if n else "") for d, h, f, n in TC_CASES])
+def test_tensor_core_k5_k6_arithmetic_matches_jax(d, heads, flags, parts):
     """Rounding P and dS to bf16 before their products, the tensor-core
     K5 / K6's one numerical departure from the JAX kernels (which keep both
     in float32), against the JAX Pallas backward. Hq 8 over Hkv 2, and at
-    head dim 256 also gemma3-1b's group of 4 over one kv head; S 130 (two
-    full 64-row tiles and a ragged one).
+    head dim 256 also gemma3-1b's group of 4 over one kv head, with K6's
+    walk whole and cut into 2 and 4 parts (ranges that cross heads and
+    split a head's q tiles); S 130 (two full 64-row tiles and a ragged one).
 
     * In bf16, as in training (the JAX forward's bf16 o and its lse, every
       output rounded to bf16 once): each (b, head) slice within 2^-6 of its
@@ -237,7 +272,8 @@ def test_tensor_core_k5_k6_arithmetic_matches_jax(d, heads, flags):
         lt = torch.from_numpy(np.array(lse, np.float32))
         if round_out:
             ot = ot.to(torch.bfloat16)
-        got = _tensor_core_bwd(bf[0], bf[1], bf[2], ot, lt, bf[3], round_out=round_out, **kw)
+        got = _tensor_core_bwd(bf[0], bf[1], bf[2], ot, lt, bf[3], round_out=round_out,
+                               parts=parts, **kw)
         for name, w, g in zip(("dq", "dk", "dv"), want, got):
             assert g.shape == w.shape, name
             assert _slice_err(w, g) < SLICE_TOL, (name, dtype)
@@ -246,6 +282,48 @@ def test_tensor_core_k5_k6_arithmetic_matches_jax(d, heads, flags):
         if kw.get("kv_len"):            # keys past kv_len get no gradient
             assert float(got[1][:, :, 101:].abs().max()) == 0.0
             assert float(got[2][:, :, 101:].abs().max()) == 0.0
+
+
+#: (Sq, Skv, group, kw) of K6's walks: causal and ragged, a window, keys
+#: past kv_len without causality, more keys than queries.
+K6_WALKS = [(130, 130, 4, dict(causal=True)), (700, 700, 4, dict(causal=True, window=100)),
+            (130, 170, 2, dict(causal=False, kv_len=150)),
+            (200, 330, 1, dict(causal=True, window=70))]
+
+
+@pytest.mark.parametrize("sq,skv,group,kw", K6_WALKS)
+@pytest.mark.parametrize("parts", [1, 2, 3, 4, 8])
+def test_k6_parts_cover_each_walk_once(sq, skv, group, kw, parts):
+    """The wrapper's walks (``dkv_walks``) are the written-out ones
+    (``_k6_walk``), and its parts cut each block's walk into at most
+    ``parts`` consecutive ranges that cover it once."""
+    window, kv_len = kw.get("window"), kw.get("kv_len")
+    live = skv if kv_len is None else min(skv, kv_len)
+    walks = fb.dkv_walks(sq, skv, group, causal=kw["causal"], window=window, kv_len=kv_len)
+    assert walks == [len(_k6_walk(nb, sq, group, kw["causal"], window, live))
+                     for nb in range(-(-skv // 64))]
+    lengths = fb.dkv_part_walks(walks, parts)
+    chunk = max(1, -(-max(walks) // parts))   # the kernel's: the longest walk over parts
+    at = 0
+    for n in walks:   # each block's parts are consecutive in launch order
+        mine = lengths[at:at + max(1, -(-n // chunk))]
+        at += len(mine)
+        assert len(mine) <= parts and sum(mine) == n and all(0 <= m <= chunk for m in mine)
+    assert at == len(lengths)
+
+
+def test_k6_part_count_fills_the_card_only_where_one_does_not():
+    """``dkv_parts`` on 132 SMs: one part at gemma2-2b's train microbatch
+    (global and window 4096: 512 blocks) and gemma3-1b's window 512; at
+    gemma3-1b's global layer (128 blocks, the longest walking 256 tiles
+    against a mean of 130) more, so that the longest part walks at most
+    1.3x the mean."""
+    for b, hq, hkv, s, window in ((1, 8, 4, 8192, None), (1, 8, 4, 8192, 4096),
+                                  (2, 4, 1, 4096, 512)):
+        assert fb.dkv_parts(b, hq, hkv, s, s, window=window, sms=132) == 1
+    parts = fb.dkv_parts(2, 4, 1, 4096, 4096, sms=132)
+    lengths = fb.dkv_part_walks(fb.dkv_walks(4096, 4096, 4), parts)
+    assert parts > 1 and max(lengths) <= 1.3 * sum(lengths) / len(lengths)
 
 
 @pytest.mark.parametrize("flags", sorted(FLAGS))

@@ -2201,6 +2201,61 @@ def test_d256_flash_bwd_orders_agree_exactly(cuda):
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
 
 
+#: K6's walk forced into these parts at gemma3-1b's heads (group 4 over one
+#: kv head), on the ragged causal S and window 100 of D256_BWD.
+D256_PARTS = (1, 2, 4)
+
+
+@pytest.mark.parametrize("parts", D256_PARTS)
+@pytest.mark.parametrize("case", ["causal_ragged", "window100"])
+def test_d256_flash_bwd_parts_match_plain(cuda, case, parts):
+    """K6 at head_dim 256 with its walk in 1, 2 and 4 parts (float32 sums
+    of each part added in part order by the second kernel): dK and dV per
+    (b, head) slice within 2^-6 of the plain backward; ten reruns, the last
+    block-first, bitwise equal to the first; one launch counted; the
+    scratch held during the call (more than one part) and freed after it."""
+    b, sq, skv, kw = D256_BWD[case]
+    q, k, v, o, lse, do = _d256_bwd_case(np.random.default_rng(93), cuda, 4, 1, b, sq, skv,
+                                         **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, parts=parts, **kw)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    assert counts["flash_attention_bwd_dkv_tc"] == counts["flash_attention_bwd_dkv"] == 1, counts
+    scratch = b * -(-skv // 64) * parts * 2 * 64 * 256 * 4   # float32 (B Hkv, nkv, parts, 2, 64, D)
+    held = torch.cuda.max_memory_allocated() - before
+    outs = sum(g.nbytes for g in got)
+    assert held >= outs + scratch if parts > 1 else held == outs, held
+    want = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)[1:]
+    assert all(g.dtype == torch.bfloat16 and g.shape == w.shape for g, w in zip(got, want))
+    assert max(_slice_err(g, w) for g, w in zip(got, want)) <= ROW_TOL
+    for order in [fa.HEAD_FIRST] * 9 + [fa.BLOCK_FIRST]:
+        again = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, parts=parts,
+                                           mapping=fa.MappingConfig(order=order), **kw)
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), order
+    del got, want, again
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_d256_flash_bwd_parts_refused_off_the_split(cuda):
+    """Only bf16 K6 at head_dim 256 splits its walk: more than one part at
+    head_dim 128, or in float32, or fewer than one, raises before a launch."""
+    rng = np.random.default_rng(94)
+    kernels.reset_launch_counts()
+    for dtype, d, parts in ((torch.bfloat16, 128, 2), (torch.float32, 128, 2),
+                            (torch.bfloat16, 256, 0)):
+        q, k, v, do = (_randn(rng, (1, 4, 130, d), cuda, dtype) for _ in range(4))
+        lse = torch.zeros((1, 4, 130), device=cuda)
+        with pytest.raises(ValueError, match="parts"):
+            fb.flash_attention_bwd_dkv(q, k, v, do, lse, lse, parts=parts)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "gemma3-1b"])
 def test_d256_gemma_train_grads_on_kernels_match_plain(cuda, arch):
     """gemma SMOKE widened to head_dim 256 in bf16 (window 64, seq 100: the

@@ -4,7 +4,7 @@ side on one card, and the softcap forms of the head_dim 256 kernels.
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
-    python3 tools/bwd_ab.py [OTHER_ROOT ...]
+    python3 tools/bwd_ab.py [--d256] [OTHER_ROOT ...]
     python3 tools/bwd_ab.py --sass OTHER_ROOT [SOURCE ...]
     python3 tools/bwd_ab.py --variants
 
@@ -14,18 +14,24 @@ in the order others, this, this, others reversed, so that drift of the card
 over the call falls on all alike. Each run builds that root's
 ``flash_attention`` and ``flash_attention_bwd`` libraries and, timed by
 this checkout's ``chip_smoke.Timer`` (CUDA-event medians of 20 runs, the L2
-flushed), runs K5 and K6 (``flash_attention_bwd_dq`` / ``_dkv``) at:
+flushed; each time read twice: with the queue primed, the card's time alone,
+and without, the wrapper's host time included), runs K5 and K6
+(``flash_attention_bwd_dq`` / ``_dkv``) at:
 
 * head_dim 128, ``chip_smoke.py``'s K5 / K6 case: B 2, S 2048, Hq 32, Hkv
   8, causal; and the same with window 512 and softcap 50;
 * head_dim 256, ``chip_smoke.py``'s ``check_gemma_backward`` shapes, in a
   root whose K5 / K6 take it: gemma2-2b's train microbatch (B 1, S 8192, Hq
   8, Hkv 4, softcap 50, global and window 4096) and gemma3-1b's (B 2, S
-  4096, Hq 4, Hkv 1, global and window 512).
+  4096, Hq 4, Hkv 1, global and window 512). In a root whose K6 takes
+  ``parts`` (its walk split over blocks, summed in a fixed order), K6 is
+  also timed with the walk forced into 1, 2, 4, 8 and 16 parts.
 
-Every case's dQ, dK and dV are compared bit for bit with those of the
-first root that ran it (saved under ``build/bwd_ab/``); the head_dim 256 ones are
-also held per (b, head) slice against the root's plain backward.
+``--d256`` runs the head_dim 256 cases alone. Every case's dQ, dK and dV
+are compared bit for bit with those of the first root that ran it (saved
+under ``build/bwd_ab/``), and K6 forced into one part with the first root's
+default; the head_dim 256 ones are also held per (b, head) slice against
+the root's plain backward.
 
 ``--sass OTHER_ROOT [SOURCE ...]`` compiles ``flash_attention_bwd.cu`` (or
 each SOURCE of ``csrc/``, for example ``paged_decode.cu``) of this checkout
@@ -34,17 +40,20 @@ every kernel the two have in common, names taken without the anonymous
 namespace's per-file hash: identical machine code runs in the same time.
 
 ``--variants`` instead builds this checkout's ``flash_attention_bwd.cu``
-twice under ``build/bwd_variants/``: as committed (the softcap of the head
-dim 256 kernels as one ex2 and one rcp, ``recompute_p256``) and with that
-tanh taken from ``tanhf``, as the head dim 64 / 128 kernels take it; then
-times both at the gemma2-2b cases, in turns (committed, tanhf, tanhf,
-committed), each held against the plain backward. The last line of each
-run is one JSON object of the times.
+once as committed and once per entry of ``VARIANTS`` under
+``build/bwd_variants/``, each a substitution in the source:
+``ascending`` issues causal K5's blocks at head dim 256 in ascending tile
+order (shortest walks first); then times all at the head_dim 256 cases, in
+turns
+(committed, each variant, the variants reversed, committed), each held
+against the plain backward. The last line of each run is one JSON object
+of the times.
 """
 
 from __future__ import annotations
 
 import ctypes
+import inspect
 import json
 import os
 import re
@@ -65,10 +74,12 @@ D256_CASES = (("K5/K6 D 256 gemma2-2b (B 1, S 8192, global, softcap 50)", 1, 8, 
               ("K5/K6 D 256 gemma3-1b (B 2, S 4096, global)", 2, 4, 1, 256, 4096, None, None),
               ("K5/K6 D 256 gemma3-1b (B 2, S 4096, window 512)", 2, 4, 1, 256, 4096, 512,
                None))
-#: The --variants substitution: the tanh of recompute_p256 from tanhf
-#: (tanh(y), y = s * scale / softcap = s * k / (2 log2 e)).
-TANH_FORM = ("const float th = 1.f - 2.f * hopper::fast_rcp(hopper::fast_exp2(s * cap.k) "
-             "+ 1.f);", "const float th = tanhf(s * cap.k * 0.34657359027997264f);")
+#: K6's part counts forced in a root that takes them.
+FORCED_PARTS = (1, 2, 4, 8, 16)
+#: --variants: name -> substitutions (old, new) in flash_attention_bwd.cu.
+VARIANTS = {
+    "ascending": [("  if (causal) mb = nm - 1 - mb;", "")],
+}
 
 
 def cases_inputs(torch, gen, cases):
@@ -89,16 +100,29 @@ def cases_inputs(torch, gen, cases):
     return out
 
 
-def time_case(torch, cs, timer, args):
-    """(K5 ms, K6 ms, (dq, dk, dv)) of one case."""
+def time_case(torch, cs, timer, args, parts=None, keys=("k5", "k6")):
+    """(times, (dq, dk, dv)) of one case; ``parts`` forces K6's. ``times``
+    holds, for each kernel of ``keys``, k5_ms / k6_ms (queue primed) and
+    k5_host_ms / k6_host_ms (not primed: the wrapper's host time included)."""
     from repro_torch.kernels import flash_attention_bwd as fb
 
     q, k, v, do, o, lse, delta, kw = args
-    grads = (fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
-             *fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    ms5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
-    ms6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    return ms5, ms6, grads
+    kw6 = kw if parts is None else dict(kw, parts=parts)
+    run = {"k5": lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+           "k6": lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw6)}
+    grads = (run["k5"](), *run["k6"]())
+    times = {}
+    for key in keys:
+        fn = run[key]
+        times[f"{key}_ms"] = timer.ms(fn, primed=True)
+        times[f"{key}_host_ms"] = timer.ms(fn)
+    return times, grads
+
+
+def show(t) -> str:
+    return (f"K5 {t['k5_ms']:.4f} ms, K6 {t['k6_ms']:.4f} ms, pair "
+            f"{t['k5_ms'] + t['k6_ms']:.4f} ms (queue primed; with the wrappers' host time "
+            f"K5 {t['k5_host_ms']:.4f}, K6 {t['k6_host_ms']:.4f})")
 
 
 def slice_err_to_plain(cs, args, grads) -> float:
@@ -109,7 +133,13 @@ def slice_err_to_plain(cs, args, grads) -> float:
     return max(cs.slice_err(g, r) for g, r in zip(grads, ref))
 
 
-def run_one(root: str, tag: str, first: bool) -> None:
+def takes_parts() -> bool:
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    return "parts" in inspect.signature(fb.flash_attention_bwd_dkv).parameters
+
+
+def run_one(root: str, tag: str, first: bool, d256_only: bool) -> None:
     # The port from `root`; the timer and the bars from this checkout's
     # chip_smoke.py, so every root is measured alike.
     sys.path.insert(0, os.path.join(root, "src"))
@@ -126,27 +156,54 @@ def run_one(root: str, tag: str, first: bool) -> None:
     os.makedirs(SAVED, exist_ok=True)
     times = {}
     for i, cases in enumerate((D128_CASES, D256_CASES)):
+        if d256_only and i == 0:
+            continue
         for j, (label, args) in enumerate(cases_inputs(torch, gen, cases).items()):
             try:
-                ms5, ms6, grads = time_case(torch, cs, timer, args)
+                row, grads = time_case(torch, cs, timer, args)
             except ValueError as e:   # a root whose K5 / K6 refuse head_dim 256
                 print(f"[{tag}] {label}: refused ({e})", flush=True)
                 continue
             path = os.path.join(SAVED, f"case_{i}_{j}.pt")
             if first or not os.path.exists(path):   # the first root that runs the case
                 torch.save([g.cpu() for g in grads], path)
-                same = True
-            else:
-                same = all(torch.equal(g.cpu(), s) for g, s in zip(grads, torch.load(path)))
-            row = dict(k5_ms=ms5, k6_ms=ms6, bitwise_equal_first_root=same)
-            if args[0].shape[-1] == 256:
+            saved = torch.load(path)
+            same = [torch.equal(g.cpu(), x) for g, x in zip(grads, saved)]
+            row["bitwise_equal_first_root"] = dict(zip("q k v".split(), same))
+            d256 = args[0].shape[-1] == 256
+            if d256:
                 row["slice_err"] = slice_err_to_plain(cs, args, grads)
+            print(f"[{tag}] {label}: {show(row)}; bitwise equal to the first root's dq/dk/dv "
+                  f"{same}"
+                  + (f"; per-slice error to plain {row['slice_err']:.3e}" if d256 else ""),
+                  flush=True)
+            del grads
+            if d256 and takes_parts():
+                from repro_torch.kernels import flash_attention_bwd as fb
+
+                q, k = args[0], args[1]
+                auto = fb.dkv_parts(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                                    causal=True, window=args[-1]["window"],
+                                    sms=torch.cuda.get_device_properties(0).multi_processor_count)
+                row["k6_parts"] = auto
+                print(f"[{tag}] {label}: K6's own pick {auto} part(s)", flush=True)
+                for parts in FORCED_PARTS:
+                    tp, grads = time_case(torch, cs, timer, args, parts=parts, keys=("k6",))
+                    e = slice_err_to_plain(cs, args, grads)
+                    one = parts == 1 and all(torch.equal(g.cpu(), x)
+                                             for g, x in zip(grads[1:], saved[1:]))
+                    row[f"k6_ms_parts_{parts}"] = tp["k6_ms"]
+                    row[f"k6_host_ms_parts_{parts}"] = tp["k6_host_ms"]
+                    print(f"[{tag}] {label}: K6 in {parts} parts {tp['k6_ms']:.4f} ms (queue "
+                          f"primed; {tp['k6_host_ms']:.4f} ms with the wrapper's host time); "
+                          f"per-slice error to plain {e:.3e}"
+                          + (f"; dk/dv bitwise equal to the first root's {one}" if parts == 1
+                             else ""), flush=True)
+                    if e > cs.ROW_TOL:
+                        raise AssertionError(f"{label}: K6 in {parts} parts disagrees")
+                    del grads
             times[label] = row
-            print(f"[{tag}] {label}: K5 {ms5:.4f} ms, K6 {ms6:.4f} ms, pair {ms5 + ms6:.4f} ms; "
-                  f"bitwise equal to the first root's {same}"
-                  + (f"; per-slice error to plain {row['slice_err']:.3e}" if "slice_err" in row
-                     else ""), flush=True)
-            del args, grads
+            del args, saved
     print(json.dumps({"root": root, "tag": tag, "card": cs.smi_line(), "times": times}),
           flush=True)
 
@@ -156,7 +213,7 @@ def build_variants(build) -> dict:
     with ptxas' registers and spills of its head_dim 256 kernels printed."""
     out_root = os.path.join(HERE, "build", "bwd_variants")
     procs = {}
-    for name, subs in (("committed", []), ("tanhf", [TANH_FORM])):
+    for name, subs in [("committed", [])] + list(VARIANTS.items()):
         d = os.path.join(out_root, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build.CSRC, d)
@@ -204,17 +261,18 @@ def variants() -> int:
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(29)
-    inputs = cases_inputs(torch, gen, [c for c in D256_CASES if c[-1] is not None])
+    inputs = cases_inputs(torch, gen, D256_CASES)
     times = {}
-    for name in ("committed", "tanhf", "tanhf", "committed"):
+    names = list(VARIANTS)
+    for name in ["committed"] + names + names[::-1] + ["committed"]:
         build._libs["flash_attention_bwd"] = libs[name]
         fb._fns.clear()
         for label, args in inputs.items():
-            ms5, ms6, grads = time_case(torch, cs, timer, args)
+            tv, grads = time_case(torch, cs, timer, args)
             e = slice_err_to_plain(cs, args, grads)
-            times.setdefault(name, {}).setdefault(label, []).append((ms5, ms6))
-            print(f"{name:9s} {label}: K5 {ms5:.4f} ms, K6 {ms6:.4f} ms, pair {ms5 + ms6:.4f} "
-                  f"ms; per-slice error to plain {e:.3e}", flush=True)
+            times.setdefault(name, {}).setdefault(label, []).append(tv)
+            print(f"{name:9s} {label}: {show(tv)}; per-slice error to plain {e:.3e}",
+                  flush=True)
             if e > cs.ROW_TOL:
                 raise AssertionError(f"{name} {label}: disagrees with the plain backward")
     print(json.dumps({"card": cs.smi_line(), "times": times}), flush=True)
@@ -261,10 +319,12 @@ def sass(other: str, source: str = "flash_attention_bwd.cu") -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 5 and sys.argv[1] == "--one":
-        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first")
+    if len(sys.argv) == 6 and sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first", sys.argv[5] == "d256")
         return 0
     args = sys.argv[1:]
+    d256 = "--d256" in args
+    args = [a for a in args if a != "--d256"]
     if args == ["--variants"]:
         return variants()
     if len(args) >= 2 and args[0] == "--sass":
@@ -278,7 +338,8 @@ def main() -> int:
     rc = 0
     for i, (root, tag) in enumerate(order):
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, tag,
-                              "first" if i == 0 else "later"], cwd=root).returncode
+                              "first" if i == 0 else "later", "d256" if d256 else "all"],
+                             cwd=root).returncode
     return rc
 
 
