@@ -46,7 +46,8 @@
 //
 // A quantized pool's ring (QRing) holds 1-byte int8 or e4m3 codes, one row
 // of D bytes per key, swizzled by TMA over the row (128 bytes at D 128, 64
-// at D 64), and each stage's page scales. The warp that takes a tile widens
+// at D 64), and each stage's page scales. At head_dim 64 and 128 (CodeTiles)
+// the warp that takes a tile widens
 // its K codes into a bf16 tile of its own, in the layout above, computes S
 // from it, then widens the V codes into the same tile and releases the
 // stage before P V. Widening is exact for both codes (an int8 code or an
@@ -62,19 +63,52 @@
 // kernel, and the second product costs less than scaling each page's P V
 // after its mma did.
 //
-// At head_dim 256 a quantized ring (QRing<256>) holds five stages of codes:
-// a code row of 256 bytes is two TMA boxes of 128 columns, each 128-byte
-// swizzled, so a stage is two halves of BT rows of 128 bytes. consume_d256
-// runs its walk over them (CodeChunks): warp w reads only its 64 columns of
-// K and of V, so it widens only those (bytes 64 w .. + 63 of each row, in
-// half w / 2) into an 8 KB bf16 slice of its own, one swizzled column chunk
-// of the bf16 ring's layout, computes its partial S from it, then widens its
-// V columns into the same slice and releases the stage before P V. The K
-// scales fold into S's columns where warp w sums its 16 keys (before the
-// softcap), the V scales into its slice of P in float32, which it publishes
-// as two bf16 fragments, the rounding and the remainder (QXchg), and every
-// warp's P V takes both; the row sums take P unscaled. Five stages: 160 KB
-// of codes in flight, beside 32 KB of slices and 27 KB of exchange (QRing<256>).
+// At head_dim 256 the code kernel (paged_decode.cu's
+// paged_decode_q_tc256_kernel) has a block of 384 threads: warps 0-3 run
+// consume_d256 as over the bf16 ring, warps 4-7, the widening warpgroup,
+// take the codes off their walk, and warp 8 loads the codes (warps 9-11
+// only fill its warpgroup, whose registers setmaxnreg gives the consumers:
+// at 288 threads ptxas held every thread to 168 and two m16 tiles spilled). A code row of
+// 256 bytes is two TMA boxes of 128 columns, each 128-byte swizzled, so a
+// code stage is two halves of BT rows of 128 bytes. The producer warp
+// loads each code stage (a box a lane, with its page's scale, as at
+// head_dim 64 and 128); the four widening warps widen it, K and V, into
+// bf16 K and V stages in the bf16 ring's tile layout (widening warp v:
+// column chunk v, bytes 64 v .. + 63 of each row, in half v / 2), rows
+// outside [lo, hi) zeroed by select, and copy the stage's scales into the K
+// stage's slots. The consumers read those stages as they read the bf16 ring
+// (WideChunks) and fold the scales as above: the K scales into S's columns
+// where warp w sums its 16 keys (before the softcap), the V scales into its
+// slice of P in float32, published as two bf16 fragments, the rounding and
+// the remainder (QXchg), both taken by every warp's P V; the row sums take
+// P unscaled. The consumers so see the same bf16 values, scales and
+// fragments in the same order as when each widened its own chunk: the same
+// bits. (The producer has a warp of its own because its reads of the page
+// table and the scales wait on device memory: on a widening warp they held
+// the other three at each meeting, and the consumers waited for V.)
+//
+// The rings of QRing<256> and their barriers (220.3 KB of the 227 KB a
+// block may have). Three code stages (96 KB): a code stage is full after one
+// expect-tx arrival a box and the boxes' bytes. Each widening thread reads
+// its share of a code stage, K and V, into registers (so that no read waits
+// behind a store), fences the proxy (it read TMA-written bytes with
+// ordinary loads, and TMA rewrites the stage next) and arrives on the
+// stage's empty barrier (128 arrivals) before it widens; the producer waits
+// there before it loads the stage STAGES tiles ahead. Two bf16 K stages (64
+// KB): the consumers read K only for the scores, and release it (an arrival
+// of each consumer warp) before they wait on V; so the K of tile t + 1 is
+// widened while they still score tile t. One bf16 V stage (32 KB), released
+// after P V: the V of tile t + 1 is widened while they score tile t + 1,
+// before which they do not wait for it. (Measured against one K stage and
+// two V stages with the same bits: 7% faster at gemma2-2b; tools/decode_ab.py
+// --variants.) A bf16 stage is full after each
+// widening thread's arrival, after its own stores: the four warps never
+// wait for one another. The stores and the consumers' ldmatrix are
+// ordinary accesses on both sides, so no bf16 release needs a proxy fence.
+// Each side waits on every barrier in tile order: tile t waits on phase t
+// / 3 of its code stage, t / 2 of its K stage and t / 1 of the V stage,
+// each ring's parity from its own depth, and no parity can match a phase
+// two behind.
 #pragma once
 
 #include <type_traits>
@@ -151,26 +185,42 @@ struct QRing {
   static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
 };
 
+// The head_dim 256 code kernel's block: the consumer warps, the widening
+// warpgroup and the producer's warpgroup (the header comment).
+constexpr int WIDE_THREADS = 3 * 32 * CONSUMER_WARPS;
+
 // At head_dim 256 (the header comment): STAGES stages of K and V codes, each
-// two halves of BT rows of 128 bytes (half c at c * BT * 128), a bf16 slice
-// of BT rows by 64 columns for each consumer warp, the exchange (QXchg), each
-// stage's K and V scales by 8-key group, then the full and empty mbarriers.
-// Five stages fill the 227 KB a block may have (220.4 KB); six would not.
+// two halves of BT rows of 128 bytes (half c at c * BT * 128), KSTAGES bf16
+// stages of K and VSTAGES of V (Ring<256>'s tiles: four column chunks of BT
+// rows of 128 bytes), the exchange (QXchg), each code stage's and each bf16
+// K stage's K and V scales by 8-key group, then the code stages' full and
+// empty barriers and the bf16 stages' full and empty barriers (wide_bars).
+// 220.3 KB (225,632 bytes) of the 227 KB a block may have.
 template <>
 struct QRing<256> {
-  static constexpr int STAGES = 5;
-  static constexpr int TILE = BT * 256;
-  static constexpr int OWN_TILE = BT * 64 * 2;
+  static constexpr int STAGES = 3;                 // code stages
+  static constexpr int KSTAGES = 2;                // bf16 K stages
+  static constexpr int VSTAGES = 1;                // bf16 V stages
+  // setmaxnreg's registers for each consumer thread and each thread of the
+  // producer's warpgroup (the wideners keep the launch's share).
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int TILE = BT * 256;            // a code stage's K (or V)
+  static constexpr int WTILE = Ring<256>::TILE;    // a bf16 stage's K (or V)
   static constexpr int K = 0;
   static constexpr int V = STAGES * TILE;
-  static constexpr int OWN = 2 * STAGES * TILE;
-  static constexpr int XCHG = OWN + CONSUMER_WARPS * OWN_TILE;
-  static constexpr int SCALES = XCHG + QXchg::BYTES;   // [STAGES][K, V][BT / 8]
-  static constexpr int BAR = SCALES + STAGES * 2 * (BT / 8) * 4;
-  static constexpr size_t bytes = BAR + 8 * 2 * STAGES + 1024;   // + base alignment
+  static constexpr int WK = 2 * STAGES * TILE;
+  static constexpr int WV = WK + KSTAGES * WTILE;
+  static constexpr int XCHG = WV + VSTAGES * WTILE;
+  static constexpr int SCALES = XCHG + QXchg::BYTES;                  // [STAGES][K, V][BT / 8]
+  static constexpr int WSCALES = SCALES + STAGES * 2 * (BT / 8) * 4;  // [KSTAGES][K, V][BT / 8]
+  static constexpr int BAR = WSCALES + KSTAGES * 2 * (BT / 8) * 4;
+  static constexpr size_t bytes =
+      BAR + 8 * 2 * (STAGES + KSTAGES + VSTAGES) + 1024;   // + base alignment
 };
 static_assert(QRing<256>::bytes <= 232448, "the head_dim 256 code ring exceeds a block's 227 KB");
 static_assert(QRing<256>::XCHG % 16 == 0, "the exchange takes 16-byte accesses");
+static_assert(QRing<256>::WK % 1024 == 0, "bf16 stages sit on the swizzle's 1024-byte period");
 
 __device__ __forceinline__ uint8_t* ring_base(uint8_t* smem_raw) {
   return smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -190,6 +240,27 @@ __device__ __forceinline__ uint64_t* empty_bars(uint8_t* smem) {
 template <int D>
 __device__ __forceinline__ float* q_scales(uint8_t* smem) {
   return reinterpret_cast<float*>(smem + QRing<D>::SCALES);
+}
+
+// QRing<256>'s bf16 stages' barriers, after the code stages' full and
+// empty barriers: K full, K empty, V full, V empty.
+struct WideBars {
+  uint64_t* kfull;
+  uint64_t* kempty;
+  uint64_t* vfull;
+  uint64_t* vempty;
+};
+
+__device__ __forceinline__ WideBars wide_bars(uint8_t* smem) {
+  using R = QRing<256>;
+  uint64_t* k = empty_bars<R>(smem) + R::STAGES;
+  uint64_t* v = k + 2 * R::KSTAGES;
+  return {k, k + R::KSTAGES, v, v + R::VSTAGES};
+}
+
+// The K and V scales of QRing<256>'s bf16 K stages.
+__device__ __forceinline__ float* wide_scales(uint8_t* smem) {
+  return reinterpret_cast<float*>(smem + QRing<256>::WSCALES);
 }
 
 // Thread 0 sets up `stages` full and empty barriers: a stage is full after
@@ -281,31 +352,42 @@ __device__ __forceinline__ void widen_tile(const uint8_t* codes, uint8_t* own, i
   }
 }
 
-// Warp w's 64 columns of one head_dim 256 code stage (QRing<256>: bytes
-// 64 w .. + 63 of each row, in half w / 2) widened into the bf16 slice `own`
-// (BT rows of 128 bytes, 128-byte swizzled: one column chunk of the Ring's
-// tiles); rows whose position, less lo, is not below `live` are zeros. Lane
-// l takes 16-byte chunk l / 8 of the warp's four in rows l % 8 + 8 j, so
-// eight consecutive lanes read, and write, eight distinct bank groups.
-template <class Code>
-__device__ __forceinline__ void widen_chunk(const uint8_t* codes, uint8_t* own, int w, int rel0,
-                                            unsigned live, int lane) {
-  const int mm = lane >> 3;   // the chunk of the warp's four
-  const int m = 4 * w + mm;   // of the row's sixteen
+// One widening warp's share of a head_dim 256 code stage's K (or V):
+// column chunk w, bytes 64 w .. + 63 of each row (QRing<256>: in half w /
+// 2). Lane l holds 16-byte chunk l / 8 of the chunk's four in rows l % 8 +
+// 8 j, so eight consecutive lanes read, and write, eight distinct bank
+// groups. load() reads all eight units into registers first, so that no
+// load waits behind a store the compiler cannot tell apart from it; widen()
+// writes them as bf16 into column chunk w of a bf16 stage (BT rows of 128
+// bytes, 128-byte swizzled, as the Ring's tiles), rows whose position, less
+// lo, is not below `live` as zeros, unless WHOLE says that every row is
+// inside.
+struct CodeChunk {
+  uint4 c[BT / 8];
+
+  __device__ __forceinline__ void load(const uint8_t* codes, int w, int lane) {
 #pragma unroll
-  for (int j = 0; j < BT / 8; ++j) {
-    const int row = (lane & 7) + 8 * j;
-    const uint4 c = *reinterpret_cast<const uint4*>(codes + hopper::sw128_offset(row, m, BT));
-    uint4 lo, hi;
-    Code::widen4(c.x, lo.x, lo.y);
-    Code::widen4(c.y, lo.z, lo.w);
-    Code::widen4(c.z, hi.x, hi.y);
-    Code::widen4(c.w, hi.z, hi.w);
-    if ((unsigned)(rel0 + row) >= live) lo = hi = make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * mm, BT)) = lo;
-    *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * mm + 1, BT)) = hi;
+    for (int j = 0; j < BT / 8; ++j)
+      c[j] = *reinterpret_cast<const uint4*>(
+          codes + hopper::sw128_offset((lane & 7) + 8 * j, 4 * w + (lane >> 3), BT));
   }
-}
+  template <class Code, bool WHOLE>
+  __device__ __forceinline__ void widen(uint8_t* own, int rel0, unsigned live, int lane) const {
+    const int mm = lane >> 3;
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+      const int row = (lane & 7) + 8 * j;
+      uint4 lo, hi;
+      Code::widen4(c[j].x, lo.x, lo.y);
+      Code::widen4(c[j].y, lo.z, lo.w);
+      Code::widen4(c[j].z, hi.x, hi.y);
+      Code::widen4(c[j].w, hi.z, hi.w);
+      if (!WHOLE && (unsigned)(rel0 + row) >= live) lo = hi = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * mm, BT)) = lo;
+      *reinterpret_cast<uint4*>(own + hopper::sw128_offset(row, 2 * mm + 1, BT)) = hi;
+    }
+  }
+};
 
 // Where a consumer warp finds tile t's bf16 K and V. The ring's tiles are
 // read in place, and the stage is released after P V.
@@ -395,44 +477,44 @@ struct RingChunks {
   }
 };
 
-// The same over a head_dim 256 code ring: warp w widens its K columns into
-// its own slice, with the K and V scales of its two 8-key groups (keys 16 w
-// .. + 15, the slice of S it sums and of P it forms) into registers, then
-// its V columns into the same slice, and releases the stage before P V.
-template <class Code>
-struct CodeChunks {
+// The same over a head_dim 256 code ring: warp w's chunk of the bf16 K and
+// V stages that the widening warpgroup filled for tile t, with the K and V
+// scales of its two 8-key groups (keys 16 w .. + 15, the slice of S it sums
+// and of P it forms) from the K stage's slots into registers. The K stage
+// goes back to the wideners once the scores are read (v_chunk), where the
+// warp then waits for the V stage; the V stage goes back after P V. The
+// wideners write both with ordinary stores, so a release needs no proxy
+// fence.
+struct WideChunks {
   using R = QRing<256>;
   static constexpr bool SCALED = true;
-  static constexpr int STAGES = R::STAGES;
+  static constexpr int STAGES = R::KSTAGES;   // the walk's full barriers: K's
   uint8_t* smem;
-  uint8_t* own;
+  WideBars bars;
   float ks[2], vs[2];
 
-  __device__ __forceinline__ uint64_t* full() const { return full_bars<R>(smem); }
+  __device__ __forceinline__ uint64_t* full() const { return bars.kfull; }
   __device__ __forceinline__ uint8_t* xchg() const { return smem + R::XCHG; }
-  __device__ __forceinline__ uint32_t k_chunk(int t, int w, int rel0, unsigned live, int lane) {
-    const int st = t % STAGES;
-    const float* sc = q_scales<256>(smem) + st * 2 * (BT / 8);
+  __device__ __forceinline__ uint32_t k_chunk(int t, int w, int, unsigned, int) {
+    const int st = t % R::KSTAGES;
+    const float* sc = wide_scales(smem) + st * 2 * (BT / 8);
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       ks[u] = sc[2 * w + u];
       vs[u] = sc[BT / 8 + 2 * w + u];
     }
-    __syncwarp();   // every lane's ldmatrix of the last tile's V is done
-    widen_chunk<Code>(smem + R::K + st * R::TILE, own, w, rel0, live, lane);
-    __syncwarp();
-    return hopper::smem_u32(own);
+    return hopper::smem_u32(smem + R::WK + st * R::WTILE + w * BT * 128);
   }
-  __device__ __forceinline__ uint32_t v_chunk(int t, int w, int rel0, unsigned live, int lane) {
-    const int st = t % STAGES;
-    __syncwarp();   // every lane's ldmatrix of the K chunk is done
-    widen_chunk<Code>(smem + R::V + st * R::TILE, own, w, rel0, live, lane);
-    hopper::fence_async_smem();   // as RingTiles::done: TMA rewrites the codes next
+  __device__ __forceinline__ uint32_t v_chunk(int t, int w, int, unsigned, int lane) {
     __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&empty_bars<R>(smem)[st]);
-    return hopper::smem_u32(own);
+    if (lane == 0) hopper::mbar_arrive(&bars.kempty[t % R::KSTAGES]);
+    hopper::mbar_wait(&bars.vfull[t % R::VSTAGES], (t / R::VSTAGES) & 1);
+    return hopper::smem_u32(smem + R::WV + (t % R::VSTAGES) * R::WTILE + w * BT * 128);
   }
-  __device__ __forceinline__ void done(int, int) {}
+  __device__ __forceinline__ void done(int t, int lane) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&bars.vempty[t % R::VSTAGES]);
+  }
 };
 
 // The consumer warps' whole part for the cell (s, h, b) = blockIdx at head
@@ -664,7 +746,7 @@ __device__ __forceinline__ void consume_tiles(Tiles& tiles, uint8_t* smem,
 // The head_dim 256 consumer (the header comment): the cell (s, h, b) =
 // blockIdx, `ntiles` tiles from position `first`, positions in [lo, hi)
 // kept, MT m16 tiles of group rows; writes as consume_tiles does. `tiles`
-// (RingChunks or CodeChunks) gives each warp its 64-column chunk of each
+// (RingChunks or WideChunks) gives each warp its 64-column chunk of each
 // tile's bf16 K and V in shared memory and, when SCALED, the K and V scales
 // of its 16 keys' two 8-key groups.
 template <int MT, bool SPLIT, class Chunks>

@@ -46,22 +46,29 @@
 //   into its surplus slots, which the consumer masks to P = 0 (an unwritten
 //   slot could hold NaN bits, and 0 * NaN is NaN inside an mma; a page id
 //   past the row's live pages is zero only by convention).
-// * paged_decode_q_tc_kernel, bf16 q over a quantized pool (every serve
+// * paged_decode_q_tc_kernel (head_dim 64 and 128) and
+//   paged_decode_q_tc256_kernel, bf16 q over a quantized pool (every serve
 //   path over an int8 or fp8 pool). The same walk and the same consumer,
 //   fed codes: each pool of codes is one 3-D uint8 map whose box is a page
 //   of whole D-byte rows, swizzled over the row (decode_tc.cuh's QRing:
 //   twice the bf16 ring's stages in the same bytes; at head_dim 256 two
-//   boxes a page, one a 128-byte half row, five 32 KB stages, and
-//   consume_d256's warps each widen only their 64 columns). The producer
-//   lane of a page also stores that page's scale into the stage's slots before its
-//   own expect-tx arrival, whose release orders the store before the
-//   consumers' wait. A consumer warp widens each code stage into a bf16
-//   tile of its own (exact; positions outside the range zeroed by select),
-//   folds the K scales into S's columns and the V scales into P's (P V
-//   then takes the scaled P as two bf16 fragments, its rounding and the
-//   remainder), and releases the stage before P V. What bounds it is no longer the float32
-//   work of the CUDA-core walk below but the bytes of the codes and, on
-//   the card, the widening's integer instructions (PERF.md).
+//   boxes a page, one a 128-byte half row). The producer lane of a page
+//   also stores that page's scale into the stage's slots before its own
+//   expect-tx arrival, whose release orders the store before the wait on
+//   the stage. At head_dim 64 and 128 a consumer warp widens each code
+//   stage into a bf16 tile of its own (exact; positions outside the range
+//   zeroed by select) and releases the stage before P V. At head_dim 256
+//   a producer warp loads three 32 KB code stages and a widening warpgroup
+//   beside the four consumer warps widens each into one of two bf16 K
+//   stages and a bf16 V stage, off the consumers' walk; the consumers read
+//   those as they read the bf16 ring's (decode_tc.cuh's header comment:
+//   the bytes and the barriers).
+//   Either way the consumers fold the K scales into S's columns and the V
+//   scales into P's (P V then takes the scaled P as two bf16 fragments,
+//   its rounding and the remainder). What bounds it is no longer the
+//   float32 work of the CUDA-core walk below but the bytes of the codes
+//   and, on the card, the widening's integer instructions and the second
+//   P V product (PERF.md).
 // * paged_decode_kernel, float32 arithmetic on the CUDA cores, for two
 //   inputs. A float32 pool: the tensor cores take float32 only as TF32
 //   (~3 decimal digits). A quantized pool with float32 q (held at 2e-5),
@@ -395,18 +402,14 @@ int dispatch(const void* q, const void* kp, const void* vp, const int* pt,
   return -1;
 }
 
-// bf16 q over a quantized pool: the paged producer of decode_tc.cuh's
-// consumer over a QRing of codes. Each pool of codes (Hkv, P, ps, D) is one
-// 3-D uint8 map (Hkv, P * ps, D) whose box is one page of D-byte rows (at
-// head_dim 256 of 128-byte half rows: TMA's 128-byte swizzle takes a box
-// at most 128 bytes wide); lane (page i, K or V[, half]) of the producer
-// warp issues that page's box of each stage with its own expect-tx arrival
-// (the full barrier counts 2 * 64 / ps of them, twice that at head_dim
-// 256: 32 lanes at ps 8), after it stores the page's scale into the
-// stage's slots of the page's 8-key groups (the lane of the first half at
-// head_dim 256). Page ids come two stages ahead, scales one. Grid and
-// ranges as paged_decode_tc_kernel's. At head_dim 256 the consumer is
-// consume_d256 over CodeChunks, whose four warps read every stage.
+// bf16 q over a quantized pool at head_dim 64 and 128: the paged producer
+// of decode_tc.cuh's consumer over a QRing of codes. Each pool of codes
+// (Hkv, P, ps, D) is one 3-D uint8 map (Hkv, P * ps, D) whose box is one
+// page of D-byte rows; lane (page i, K or V) of the producer warp issues
+// that page's box of each stage with its own expect-tx arrival (the full
+// barrier counts 2 * 64 / ps of them), after it stores the page's scale
+// into the stage's slots of the page's 8-key groups. Page ids come two
+// stages ahead, scales one. Grid and ranges as paged_decode_tc_kernel's.
 template <int D, int MT, bool SPLIT, class Code>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
@@ -419,6 +422,7 @@ paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
                          int pps, float scale, int window, float softcap) {
   using namespace hopper;
   using R = dtc::QRing<D>;
+  static_assert(D == 64 || D == 128, "head_dim 256 runs paged_decode_q_tc256_kernel");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = dtc::ring_base(smem_raw);
 
@@ -435,22 +439,19 @@ paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
   const int last_page = hi > lo ? (hi - 1) / ps : first_page;
   const int per_stage = BT / ps;
   const int ntiles = hi > lo ? (last_page - first_page + per_stage) / per_stage : 0;
-  constexpr int HALVES = D == 256 ? 2 : 1;   // TMA boxes of a code row
-  constexpr int ROW = D / HALVES;            // a box's bytes a row
-  dtc::bars_init(dtc::full_bars<R>(smem), dtc::empty_bars<R>(smem), R::STAGES,
-                 2 * HALVES * per_stage, D == 256 ? CONSUMER_WARPS : MT);
+  dtc::bars_init(dtc::full_bars<R>(smem), dtc::empty_bars<R>(smem), R::STAGES, 2 * per_stage,
+                 MT);
 
   if (threadIdx.x >> 5 == CONSUMER_WARPS) {
     const int lane = threadIdx.x & 31;
     const int kv = lane & 1;
-    const int half = (lane >> 1) % HALVES;
-    const int i = (lane >> 1) / HALVES;
+    const int i = lane >> 1;
     if (i >= per_stage || ntiles == 0) return;
     const int* table = page_table + (size_t)b * mp;
     const float* tab = (kv ? vs_tab : ks_tab) + (size_t)h * P;
     uint64_t* full = dtc::full_bars<R>(smem);
     uint64_t* empty = dtc::empty_bars<R>(smem);
-    uint8_t* dst = smem + (kv ? R::V : R::K) + half * BT * ROW + i * ps * ROW;
+    uint8_t* dst = smem + (kv ? R::V : R::K) + i * ps * D;
     float* slots = dtc::q_scales<D>(smem) + kv * (BT / 8) + i * (ps / 8);
     const CUtensorMap* map = kv ? &tv : &tk;
     // This lane's page of stage t; a slot past the range's pages repeats
@@ -462,26 +463,196 @@ paged_decode_q_tc_kernel(const __grid_constant__ CUtensorMap tk,
     for (int t = 0; t < ntiles; ++t) {
       const int st = t % R::STAGES;
       mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
-      if (half == 0)
-        for (int r = 0; r < ps / 8; ++r) slots[st * 2 * (BT / 8) + r] = sc;
-      mbar_expect_tx(&full[st], ps * ROW);
-      tma_load_3d(dst + st * R::TILE, map, &full[st], half * ROW, page * ps, h);
+      for (int r = 0; r < ps / 8; ++r) slots[st * 2 * (BT / 8) + r] = sc;
+      mbar_expect_tx(&full[st], ps * D);
+      tma_load_3d(dst + st * R::TILE, map, &full[st], 0, page * ps, h);
       page = next;
       if (t + 1 < ntiles) sc = tab[page];
       if (t + 2 < ntiles) next = page_of(t + 2);
     }
     return;
   }
-  uint8_t* own = smem + R::OWN + (threadIdx.x >> 5) * R::OWN_TILE;
-  if constexpr (D == 256) {
-    dtc::CodeChunks<Code> tiles{smem, own};
+  dtc::CodeTiles<D, Code> tiles{smem, smem + R::OWN + (threadIdx.x >> 5) * R::OWN_TILE};
+  dtc::consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G,
+                                   first_page * ps, lo, hi, ntiles, scale, softcap);
+}
+
+// bf16 q over a quantized pool at head_dim 256 (decode_tc.cuh's header
+// comment): a block of WIDE_THREADS, warps 0-3 the consumers (consume_d256
+// over WideChunks), warps 4-7 the widening warpgroup, warp 8 the producer
+// (warps 9-11 fill its warpgroup and leave). setmaxnreg raises the
+// consumers to CONSUMER_REGS and lowers the producer's warpgroup to
+// PRODUCER_REGS, the consumers' branch first (with it second, ptxas holds
+// the consumers to the launch's share); the wideners keep the launch's
+// share. A code row is two boxes of 128-byte half rows (TMA's 128-byte swizzle
+// takes a box at most 128 bytes wide); producer lane (page i, K or V, half)
+// issues that box of each code stage with its own expect-tx arrival (the
+// full barrier counts 4 * 64 / ps of them: all 32 lanes at ps 8), after the
+// lane of the first half stores the page's scale into the stage's slots of
+// the page's 8-key groups; page ids come two stages ahead, scales one, and a
+// slot past the range's pages repeats its last live page (the consumers
+// mask it to P = 0, and its rows are widened to zeros). Tile t's codes sit
+// in code stage t % STAGES, its bf16 K in stage t % KSTAGES and its V in t
+// % VSTAGES; each ring's parity comes from its own depth. Grid and ranges as
+// paged_decode_tc_kernel's. Where trouble lies, each named where it is
+// handled below: blocks with no tile (length-0 rows, splits past a row's
+// end, rows frozen on the null page at the full table width in the fused
+// decode's graph), the rings' phases, the last stage's surplus slots, and
+// ps 8's 32 boxes a stage.
+template <int MT, bool SPLIT, class Code>
+__global__ void __launch_bounds__(dtc::WIDE_THREADS, 1)
+paged_decode_q_tc256_kernel(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __nv_bfloat16* __restrict__ q,
+                            const float* __restrict__ ks_tab, const float* __restrict__ vs_tab,
+                            const int* __restrict__ page_table, const int* __restrict__ lengths,
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
+                            float* __restrict__ m_out, float* __restrict__ l_out, int Hkv, int G,
+                            int P, int ps, int mp, int pps, float scale, int window,
+                            float softcap) {
+  using namespace hopper;
+  using R = dtc::QRing<256>;
+  constexpr int ROW = 128;                          // a box's bytes a row: half a code row
+  constexpr int WIDENERS = 32 * CONSUMER_WARPS;     // the widening warpgroup's threads
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = dtc::ring_base(smem_raw);
+
+  const int s = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int length = lengths[b];
+  const int p_lo = SPLIT ? s * pps : 0;
+  const int p_hi = SPLIT ? min(p_lo + pps, mp) : mp;
+  int lo = p_lo * ps;
+  const int hi = min(p_hi * ps, length);
+  if (window > 0) lo = max(lo, length - window);
+  const int first_page = lo / ps;
+  const int last_page = hi > lo ? (hi - 1) / ps : first_page;
+  const int per_stage = BT / ps;
+  const int ntiles = hi > lo ? (last_page - first_page + per_stage) / per_stage : 0;
+  uint64_t* cfull = dtc::full_bars<R>(smem);
+  uint64_t* cempty = dtc::empty_bars<R>(smem);
+  const dtc::WideBars wb = dtc::wide_bars(smem);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < R::STAGES; ++st) {
+      mbar_init(&cfull[st], 4 * per_stage);   // a box each
+      mbar_init(&cempty[st], WIDENERS);
+    }
+    for (int st = 0; st < R::KSTAGES; ++st) {
+      mbar_init(&wb.kfull[st], WIDENERS);
+      mbar_init(&wb.kempty[st], CONSUMER_WARPS);
+    }
+    for (int st = 0; st < R::VSTAGES; ++st) {
+      mbar_init(&wb.vfull[st], WIDENERS);
+      mbar_init(&wb.vempty[st], CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < CONSUMER_WARPS) {
+    regs_alloc<R::CONSUMER_REGS>();
+    dtc::WideChunks tiles{smem, wb};
     dtc::consume_d256<MT, SPLIT>(tiles, q, out, acc_out, m_out, l_out, Hkv, G, first_page * ps,
                                  lo, hi, ntiles, scale, softcap);
-  } else {
-    dtc::CodeTiles<D, Code> tiles{smem, own};
-    dtc::consume_tiles<D, MT, SPLIT>(tiles, smem, q, out, acc_out, m_out, l_out, Hkv, G,
-                                     first_page * ps, lo, hi, ntiles, scale, softcap);
+    return;
   }
+  // No tile (a length-0 row, a split past the row's end, a frozen row):
+  // nothing to load or widen, and nothing waits on the producer or the
+  // wideners; the consumers, whose walk is empty, write the empty state.
+  // The producer's warpgroup lowers its registers first, whatever it then
+  // does: the consumers' setmaxnreg.inc waits for them.
+  if (warp >= 2 * CONSUMER_WARPS) {
+    regs_dealloc<R::PRODUCER_REGS>();
+    // The producer: lane (i, kv, half) of warp 8. At ps 8 a stage holds 8
+    // pages, 32 boxes, and every lane loads; at ps 64 four lanes do.
+    const int kv = lane & 1;
+    const int half = (lane >> 1) & 1;
+    const int i = lane >> 2;
+    if (warp != 2 * CONSUMER_WARPS || ntiles == 0 || i >= per_stage) return;
+    const int* table = page_table + (size_t)b * mp;
+    const float* tab = (kv ? vs_tab : ks_tab) + (size_t)h * P;
+    uint8_t* dst = smem + (kv ? R::V : R::K) + half * BT * ROW + i * ps * ROW;
+    float* slots = dtc::q_scales<256>(smem) + kv * (BT / 8) + i * (ps / 8);
+    const CUtensorMap* map = kv ? &tv : &tk;
+    // This lane's page of tile t; the last stage's surplus slots repeat the
+    // range's last live page, so every slot is written on every phase.
+    auto page_of = [&](int t) { return table[min(first_page + t * per_stage + i, last_page)]; };
+    int page = page_of(0);
+    int next = ntiles > 1 ? page_of(1) : page;
+    float sc = tab[page];
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % R::STAGES;
+      mbar_wait(&cempty[st], ((t / R::STAGES) & 1) ^ 1);
+      if (half == 0)
+        for (int r = 0; r < ps / 8; ++r) slots[st * 2 * (BT / 8) + r] = sc;
+      mbar_expect_tx(&cfull[st], ps * ROW);
+      tma_load_3d(dst + st * R::TILE, map, &cfull[st], half * ROW, page * ps, h);
+      page = next;
+      if (t + 1 < ntiles) sc = tab[page];
+      if (t + 2 < ntiles) next = page_of(t + 2);
+    }
+    return;
+  }
+  if (ntiles == 0) return;
+
+  // The widening of tile t by thread ct of warps 4-7 (column chunk ct / 32):
+  // its codes from code stage t % STAGES (phase t / STAGES) into registers,
+  // the code stage released, then K into bf16 K stage t % KSTAGES (free once
+  // the consumers have read tile t - KSTAGES's scores) and V into bf16 V
+  // stage t % VSTAGES (free once their P V of tile t - VSTAGES is done). Each
+  // thread arrives on each barrier itself, after its own accesses, so the
+  // four warps never wait for one another. Rows outside [lo, hi), the
+  // surplus slots' and a frozen row's null page among them (e4m3 NaN bits),
+  // widen to zeros by select; a tile all of whose rows are inside skips it.
+  const int ct = threadIdx.x - WIDENERS;
+  const int v = ct >> 5;
+  const int first = first_page * ps;
+  const unsigned live = (unsigned)(hi - lo);
+  const float* cscales = dtc::q_scales<256>(smem);
+  float* wscales = dtc::wide_scales(smem);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % R::STAGES;
+    const int ks = t % R::KSTAGES;
+    const int vs = t % R::VSTAGES;
+    const int rel0 = first + t * BT - lo;
+    const bool whole = (unsigned)rel0 < live && (unsigned)(rel0 + BT - 1) < live;
+    mbar_wait(&cfull[st], (t / R::STAGES) & 1);
+    dtc::CodeChunk kc, vc;
+    kc.load(smem + R::K + st * R::TILE, v, lane);
+    vc.load(smem + R::V + st * R::TILE, v, lane);
+    const float tile_sc = ct < 2 * (BT / 8) ? cscales[st * 2 * (BT / 8) + ct] : 0.f;
+    // This thread read TMA-written codes with ordinary loads, and TMA
+    // rewrites the stage once it is released: the proxy fence first.
+    fence_async_smem();
+    mbar_arrive(&cempty[st]);
+    mbar_wait(&wb.kempty[ks], ((t / R::KSTAGES) & 1) ^ 1);
+    uint8_t* wk = smem + R::WK + ks * R::WTILE + v * BT * 128;
+    if (whole)
+      kc.widen<Code, true>(wk, rel0, live, lane);
+    else
+      kc.widen<Code, false>(wk, rel0, live, lane);
+    if (ct < 2 * (BT / 8)) wscales[ks * 2 * (BT / 8) + ct] = tile_sc;
+    mbar_arrive(&wb.kfull[ks]);
+    mbar_wait(&wb.vempty[vs], ((t / R::VSTAGES) & 1) ^ 1);
+    uint8_t* wv = smem + R::WV + vs * R::WTILE + v * BT * 128;
+    if (whole)
+      vc.widen<Code, true>(wv, rel0, live, lane);
+    else
+      vc.widen<Code, false>(wv, rel0, live, lane);
+    mbar_arrive(&wb.vfull[vs]);
+  }
+}
+
+// The quantized kernel of head_dim D.
+template <int D, int MT, bool SPLIT, class Code>
+constexpr auto q_tc_kernel() {
+  if constexpr (D == 256)
+    return paged_decode_q_tc256_kernel<MT, SPLIT, Code>;
+  else
+    return paged_decode_q_tc_kernel<D, MT, SPLIT, Code>;
 }
 
 template <int D, int MT, bool SPLIT, class Code>
@@ -493,11 +664,24 @@ int launch_q(const void* q, const void* kc, const void* vc, const float* ks_tab,
   int err = hopper::make_map_3d_u8(&tk, kc, D, P * ps, Hkv, ps);
   if (err == 0) err = hopper::make_map_3d_u8(&tv, vc, D, P * ps, Hkv, ps);
   if (err != 0) return err;
+  const auto kernel = q_tc_kernel<D, MT, SPLIT, Code>();
+  const int threads = D == 256 ? dtc::WIDE_THREADS : THREADS;
+  if constexpr (D == 256) {
+    // setmaxnreg.inc waits until the registers it asks for are free: a
+    // launch share too small for the three warpgroups' sum (the wideners
+    // keep the share) would hang the consumers, so refuse it.
+    using R = dtc::QRing<256>;
+    static const int regs = [&] {
+      cudaFuncAttributes a;
+      return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
+    }();
+    if (2 * regs < R::CONSUMER_REGS + R::PRODUCER_REGS) return (int)cudaErrorInvalidConfiguration;
+  }
   const size_t smem = dtc::QRing<D>::bytes;
-  const cudaError_t e = allow_smem(paged_decode_q_tc_kernel<D, MT, SPLIT, Code>, smem);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(S, Hkv, B);
-  paged_decode_q_tc_kernel<D, MT, SPLIT, Code><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), ks_tab, vs_tab, pt, lengths,
       static_cast<__nv_bfloat16*>(out), acc, m, l, Hkv, G, P, ps, mp, pps, scale, window,
       softcap);

@@ -16,10 +16,11 @@ the CUDA cores (the tensor cores would round it to TF32). A quantized pool
 bf16 q it runs ``paged_decode_q_tc`` / ``paged_decode_split_q_tc`` on the
 tensor cores: the same walk and consumer, fed the 1-byte codes page by page
 by TMA, each consumer warp widening a stage of codes exactly into a bf16
-tile of its own (at head_dim 256 its 64-column chunk of each tile), with
-K's page scales folded into S's columns and V's into P's; the page size
-must then be a multiple of 8 that divides 64, as for a bf16 pool. With
-float32 q it runs ``paged_decode_q`` /
+tile of its own (at head_dim 256 a widening warpgroup beside the consumer
+warps widens each code stage into a bf16 stage, which they read as over a
+bf16 pool), with K's page scales folded into S's columns and V's into P's;
+the page size must then be a multiple of 8 that divides 64, as for a bf16
+pool. With float32 q it runs ``paged_decode_q`` /
 ``paged_decode_split_q``: the float32 CUDA-core walk, each code widened to
 float32 and multiplied by its page's scale where it is staged
 (:func:`paged_flash_decode_q_cuda_cores` runs that walk for bf16 q too,

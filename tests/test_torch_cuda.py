@@ -1966,11 +1966,12 @@ def _d256_quantized_decode_inputs(rng, dev, hq, hkv, ps, kv_dtype):
 @pytest.mark.parametrize("window", D256_Q_WINDOWS)
 def test_d256_quantized_paged_decode_matches_plain(cuda, kv_dtype, ps, num_splits, hq, hkv,
                                                     window):
-    """K3q / K4q at head_dim 256 (the four warps each widen their 64
-    columns of a code stage): softcap 50, live rows within ROW_TOL of the
-    plain version and finite, the length-0 and frozen length-0 rows exactly
-    zero, every launch on the tensor cores, ten reruns bitwise equal (the
-    frozen rows' bits too)."""
+    """K3q / K4q at head_dim 256 (a widening warpgroup turns each code
+    stage into a bf16 stage, which the four consumer warps read as over a
+    bf16 pool): softcap 50, live rows within ROW_TOL of the plain version
+    and finite, the length-0 and frozen length-0 rows exactly zero, every
+    launch on the tensor cores, ten reruns bitwise equal (the frozen rows'
+    bits too)."""
     args, scales = _d256_quantized_decode_inputs(np.random.default_rng(200 + ps), cuda, hq,
                                                  hkv, ps, kv_dtype)
     kw = dict(num_splits=num_splits, window=window, softcap=50.0, **scales)
@@ -2010,6 +2011,54 @@ def test_d256_quantized_paged_decode_ignores_rows_past_length(cuda, kv_dtype, nu
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
     assert bool(torch.isfinite(outs[1].float()).all())
+
+
+#: Row lengths of the head_dim 256 ring test: one-pass walks of exactly 1,
+#: 2, 3 and 5 tiles of 64 keys (the 100-token row's second stage half
+#: surplus slots), a row of 1 and a row of 0, on a 320-token table.
+D256_WALK_LENGTHS = [64, 100, 192, 320, 1, 0]
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("num_splits", [1, 2, 8])
+@pytest.mark.parametrize("hq,hkv", [(8, 4), (32, 1)], ids=["gemma2", "group32"])
+def test_d256_quantized_paged_decode_rings_wrap(cuda, kv_dtype, ps, num_splits, hq, hkv):
+    """K3q / K4q at head_dim 256 over their three rings (three code
+    stages, two bf16 K stages, one bf16 V stage): one-pass walks of exactly
+    1, 2, 3 and 5 tiles, so that each ring wraps at its own depth; at 2 and
+    8 splits more splits than the short rows have pages, so that blocks
+    with no tile run beside live ones; three rows frozen on the null page
+    at the full table width (NaN codes and scales there), as the fused
+    decode's graph runs them; two m16 tiles (group 32) at pages of 8, 32
+    boxes a code stage. Live rows within ROW_TOL of the plain version and
+    finite, length-0 rows exactly zero, every launch on the tensor cores,
+    ten reruns bitwise equal."""
+    rng = np.random.default_rng(220 + ps + num_splits)
+    lengths = D256_WALK_LENGTHS
+    mp = 320 // ps
+    b = len(lengths)
+    kc, ks, vc, vs = _quantized(rng, cuda, hkv, 1 + b * mp, ps, 256, kv_dtype)
+    table = np.zeros((b + 3, mp), np.int32)
+    free = list(rng.permutation(np.arange(1, 1 + b * mp)))
+    for i, n in enumerate(lengths):
+        table[i, :-(-n // ps)] = [free.pop() for _ in range(-(-n // ps))]
+    q = _randn(rng, (b + 3, hq, 256), cuda, torch.bfloat16)
+    args = (q, kc, vc, torch.from_numpy(table).to(cuda),
+            torch.tensor(lengths + [0, 1, 0], dtype=torch.int32, device=cuda))
+    kw = dict(num_splits=num_splits, softcap=50.0, k_scales=ks, v_scales=vs)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(*args, **kw)
+    assert _quantized_routes(kernels.launch_counts(), num_splits, torch.bfloat16)
+    o_ref = pd.paged_flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    live = [0, 1, 2, 3, 4]   # row 7 reads the null page's NaNs, as the plain version does
+    assert torch.isfinite(o[live].float()).all()
+    assert _row_err(o[live], o_ref[live]) < ROW_TOL
+    assert float(o[[5, 6, 8]].float().abs().max()) == 0.0
+    bits = o.view(torch.int16)
+    assert all(torch.equal(pd.paged_flash_decode(*args, **kw).view(torch.int16), bits)
+               for _ in range(10))
 
 
 @pytest.mark.parametrize("kv_dtype", CODES)
