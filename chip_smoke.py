@@ -1679,9 +1679,11 @@ def check_gemma_kernels(torch, timer):
 def check_gemma_quantized(torch, timer, gen, model, hq, hkv, local, cap):
     """K3q / K4q and K2q at head_dim 256 (bf16 q over int8 and fp8 pools,
     on the tensor cores: K3q / K4q's consumer warps read bf16 stages that a
-    widening warpgroup beside them fills from three code stages, K2q's
-    consumers those its producer warpgroup widens from one) at ``model``'s
-    widths, with its softcap, over
+    widening warpgroup beside them fills from three code stages; K2q's read
+    a ring of two bf16 K stages, handed back after S, and one bf16 V stage,
+    which its widening warpgroup fills from two stages each of K and V
+    codes, loaded two tiles ahead) at ``model``'s widths, with its softcap,
+    over
     pools whose null page holds NaN scales and e4m3 NaN codes (``quant_pools``,
     pages of PS). Decode: B 8 with lengths up to 4096 and a length-0 row,
     global and the local window, at 1 and 4 splits; the serve run (a)'s

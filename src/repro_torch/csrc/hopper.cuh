@@ -134,6 +134,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// Adds `bytes` to the transactions the phase waits for, without arriving.
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
@@ -177,6 +184,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 16 bytes from / to shared address `addr` (16-byte aligned).
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float lds32f(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // Makes this thread's ordinary shared-memory writes visible to TMA (the
@@ -405,12 +433,11 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int seg, int rows) {
 // Byte offset of 16-byte chunk m (codes 16 m .. 16 m + 15) of row `row` in
 // a tile of D-byte code rows written by TMA with the row's swizzle
 // (make_map_3d_u8: 128 bytes at D 128, 64 at D 64, the chunk index XOR
-// address bits 7 and up). At D 256 the tile is two halves of `rows` rows
-// of 128 bytes (one box each), half m / 8 at (m / 8) * rows * 128, laid
+// address bits 7 and up). At D 256 a code row is two 128-byte boxes, laid
 // out as sw128_offset's column chunks.
 template <int D>
-__device__ __forceinline__ uint32_t code_offset(int row, int m, int rows = 64) {
-  if constexpr (D == 256) return sw128_offset(row, m, rows);
+__device__ __forceinline__ uint32_t code_offset(int row, int m) {
+  static_assert(D == 64 || D == 128, "head_dim 256 codes: sw128_offset");
   return (uint32_t)(row * D + ((m ^ ((row * D >> 7) & (D / 16 - 1))) << 4));
 }
 

@@ -62,8 +62,15 @@
 //   the dequantized values (dequantize_pages(...).to(bfloat16)); the
 //   widening runs under the consumers' wgmma. It takes 208 of the 3 x 168
 //   registers for each consumer thread and 88 for the producer warpgroup's
-//   (224 and 56 at head_dim 256, where K2's 64-key stages and one 32 KB
-//   code stage fill shared memory: QSmem).
+//   (QSmem). At head_dim 256 (paged_prefill_q_tc256_kernel, setmaxnreg
+//   216 / 72) Q leaves room for five 32 KB stages: K2's ring splits into a
+//   K ring of two stages and a V ring of one, with barriers of their own
+//   (the consumers hand a K stage back once S = Q K^T has read it, so it is
+//   widened again under the softmax and P V), and the codes into a K code
+//   ring and a V code ring of two 16 KB stages each (QRing256), each stage
+//   reloaded as soon as every thread has read it; each widening thread
+//   arrives on the barriers itself: no thread of the warpgroup waits for
+//   another.
 // * paged_prefill_kernel, float32 arithmetic on the CUDA cores over
 //   prefill_tile.cuh (shared with K1's float32 kernel), for two inputs. A
 //   float32 pool: the tensor cores take float32 only as TF32 (~3 decimal
@@ -77,6 +84,8 @@
 //   (row = i * group + g), so each prefix page is read once per (b, kv
 //   head, row tile) for every q head of the group. The page table is read
 //   by the block itself (no scalar prefetch on a GPU).
+#include <type_traits>
+
 #include "prefill_tc.cuh"
 #include "prefill_tile.cuh"
 
@@ -353,10 +362,11 @@ __device__ __forceinline__ void load_tail(uint8_t* smem, uint64_t* bar, const CU
   }
 }
 
+// The Q tile, completing on `qbar`.
 template <int D>
-__device__ __forceinline__ void load_q(uint8_t* smem, const CUtensorMap* tq, int q0, int plane) {
+__device__ __forceinline__ void load_q(uint8_t* smem, uint64_t* qbar, const CUtensorMap* tq,
+                                       int q0, int plane) {
   using L = ptc::Smem<D>;
-  uint64_t* qbar = ptc::q_bar<D>(smem);
   hopper::mbar_expect_tx(qbar, BM * D * 2);
 #pragma unroll
   for (int c = 0; c < D / 64; ++c)
@@ -391,7 +401,7 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     uint64_t* full = ptc::full_bars<D>(smem);
     uint64_t* empty = ptc::empty_bars<D>(smem);
     const int lane = threadIdx.x & 31;
-    if (lane == 0) load_q<D>(smem, &tq, blk.q0, blk.b * Hq + blk.h);
+    if (lane == 0) load_q<D>(smem, ptc::q_bar<D>(smem), &tq, blk.q0, blk.b * Hq + blk.h);
     // Box j = lane + 32 r of a prefix stage: K or V (j % 2), column chunk
     // (j / 2) % (D / 64), page slot (j / 2) / (D / 64) of the stage.
     const int boxes = 2 * (D / 64) * per_stage;
@@ -447,25 +457,20 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- K2q: quantized prefix codes on the tensor cores -----------------------------
 
-// The code ring of paged_prefill_q_tc_kernel, after K2's shared memory
-// (ptc::Smem<D>): CSTAGES stages of K and V codes (BN rows of D bytes each,
-// the stage keys of K2's tile, swizzled over the row by TMA; at D 256 two
-// halves of BN rows of 128 bytes, one box each, as TMA's 128-byte swizzle
-// takes a box at most 128 bytes wide), each stage's K and V scales by page
-// slot, then the ring's full barriers. At D 128 that is 226.3 KB over two
-// code stages of 128 keys. At D 256 K2's Q tile and two bf16 stages of 64
-// keys take 192 KB, and one code stage of 64 keys (32 KB) fits beside them
-// (226.1 KB): a second would not.
+// The code ring of paged_prefill_q_tc_kernel (head_dim 64 and 128), after
+// K2's shared memory (ptc::Smem<D>): CSTAGES stages of K and V codes (BN
+// rows of D bytes each, the stage keys of K2's tile, swizzled over the row
+// by TMA), each stage's K and V scales by page slot, then the ring's full
+// barriers. At D 128 that is 226.3 KB over two code stages of 128 keys.
 constexpr int MAX_SLOTS = 128 / 8;        // pages of a stage at ps 8
 constexpr int CONVERTERS = 128;           // the producer warpgroup
 constexpr int CONVERT_BAR = 3;            // named barrier (1, 2: the consumers' epilogue)
 
 template <int D>
 struct QSmem {
+  static_assert(D == 64 || D == 128, "head_dim 256 runs paged_prefill_q_tc256_kernel");
   static constexpr int BN = ptc::Smem<D>::BN;
-  static constexpr int CSTAGES = D == 256 ? 1 : 2;
-  static constexpr int HALVES = D == 256 ? 2 : 1;   // TMA boxes of a code row
-  static constexpr int ROW = D / HALVES;            // a box's bytes a row
+  static constexpr int CSTAGES = 2;
   static constexpr int CTILE = BN * D;
   static constexpr int K = (ptc::Smem<D>::BAR + 8 * (2 * STAGES + 1) + 1023) / 1024 * 1024;
   static constexpr int V = K + CSTAGES * CTILE;
@@ -473,16 +478,101 @@ struct QSmem {
   static constexpr int BAR = SCALES + CSTAGES * 2 * MAX_SLOTS * 4;   // full[CSTAGES]
   static constexpr size_t bytes = BAR + 8 * CSTAGES + 1024;          // + base alignment
   // setmaxnreg's registers for each consumer thread and each converter
-  // thread: 2 x 208 + 88 = 3 x 168 at D 64 and 128; at D 256 K2's
-  // consumers hold O's 128 floats a thread and take ~200 (PERF.md), so
-  // 2 x 224 + 56.
-  static constexpr int CONSUMER_REGS = D == 256 ? 224 : 208;
-  static constexpr int PRODUCER_REGS = D == 256 ? 56 : 88;
+  // thread: 2 x 208 + 88 = 3 x 168.
+  static constexpr int CONSUMER_REGS = 208;
+  static constexpr int PRODUCER_REGS = 88;
 };
 static_assert(QSmem<128>::bytes <= 232448, "K2q's shared memory exceeds a block's 227 KB");
-static_assert(QSmem<256>::bytes <= 232448, "K2q's shared memory exceeds a block's 227 KB");
-static_assert(2 * QSmem<256>::CONSUMER_REGS + QSmem<256>::PRODUCER_REGS == 3 * 168,
+
+// paged_prefill_q_tc256_kernel's shared memory, from a 1024-byte aligned
+// base: K2's Q tile (ptc::Smem<256>::Q, 64 KB, also O's way out), KSTAGES
+// bf16 K stages and VSTAGES bf16 V stages (32 KB each: four 128-byte
+// swizzled column chunks of BN = 64 rows, K2's tile), CKSTAGES stages of K
+// codes and CVSTAGES of V codes (16 KB each: two halves of BN rows of 128
+// bytes, one TMA box a page each, as TMA's 128-byte swizzle takes a box at
+// most 128 bytes wide), each code stage's scales by page slot, then the
+// barriers (QBars). Two bf16 K stages, one bf16 V stage and two stages of
+// each code fill 225.2 KB of the 227 KB a block may have: a code stage is
+// loaded two tiles ahead, the lead its page boxes need, and a bf16 K stage
+// is free again once S = Q K^T has read it (tools/k2q_variants.py --d256
+// times other splits).
+struct QRing256 {
+  static constexpr int D = 256;
+  static constexpr int BN = ptc::Smem<D>::BN;
+  static constexpr int KSTAGES = 2;                  // bf16 K stages
+  static constexpr int VSTAGES = 1;                  // bf16 V stages
+  static constexpr int CKSTAGES = 2;                 // K code stages
+  static constexpr int CVSTAGES = 2;                 // V code stages
+  static constexpr int SLOTS = BN / 8;               // pages of a stage at ps 8
+  static constexpr int TILE = ptc::Smem<D>::TILE;    // a bf16 stage
+  static constexpr int CTILE = BN * D;               // a code stage
+  static constexpr int WK = ptc::Smem<D>::K;         // after Q
+  static constexpr int WV = WK + KSTAGES * TILE;
+  static constexpr int CK = WV + VSTAGES * TILE;
+  static constexpr int CV = CK + CKSTAGES * CTILE;
+  static constexpr int SCALES = CV + CVSTAGES * CTILE;   // float [CKSTAGES + CVSTAGES][SLOTS]
+  static constexpr int BAR = SCALES + (CKSTAGES + CVSTAGES) * SLOTS * 4;
+  static constexpr int NBARS = 1 + 2 * (KSTAGES + VSTAGES + CKSTAGES + CVSTAGES);
+  static constexpr size_t bytes = BAR + 8 * NBARS + 1024;   // + base alignment
+  // setmaxnreg's registers for each consumer thread and each widening
+  // thread: K2's consumers hold O's 128 floats a thread and take ~200.
+  static constexpr int CONSUMER_REGS = 216;
+  static constexpr int PRODUCER_REGS = 72;
+};
+static_assert(QRing256::bytes <= 232448, "K2q's head_dim 256 rings exceed a block's 227 KB");
+static_assert(QRing256::WK % 1024 == 0 && QRing256::CK % 1024 == 0 && QRing256::CV % 1024 == 0,
+              "swizzled stages sit on the swizzle's 1024-byte period");
+static_assert(2 * QRing256::CONSUMER_REGS + QRing256::PRODUCER_REGS == 3 * 168,
               "setmaxnreg's roles must sum to the launch's registers");
+
+// QRing256's barriers: the Q tile's, then each ring's full and empty
+// barriers. A bf16 stage is full after CONVERTERS arrivals (one from each
+// widening thread, or for a tail tile one with the boxes' bytes and 127
+// plain), empty after one from each consumer warp; a code stage is full
+// after one expect-tx arrival a box and its bytes, empty after one arrival
+// from each widening thread.
+struct QBars {
+  uint64_t *q, *kfull, *kempty, *vfull, *vempty, *ckfull, *ckempty, *cvfull, *cvempty;
+};
+
+__device__ __forceinline__ QBars q_bars(uint8_t* smem) {
+  using R = QRing256;
+  uint64_t* k = reinterpret_cast<uint64_t*>(smem + R::BAR) + 1;
+  uint64_t* v = k + 2 * R::KSTAGES;
+  uint64_t* ck = v + 2 * R::VSTAGES;
+  uint64_t* cv = ck + 2 * R::CKSTAGES;
+  return {k - 1, k, k + R::KSTAGES, v, v + R::VSTAGES, ck, ck + R::CKSTAGES, cv,
+          cv + R::CVSTAGES};
+}
+
+// ptc::consume's ring over QRing256: tile t's K in bf16 K stage t % KSTAGES,
+// handed back once S = Q K^T has read it, its V in bf16 V stage t %
+// VSTAGES, handed back after P V; each ring's parity from its own depth.
+// The stages are read only by wgmma, so a release needs no proxy fence.
+struct SplitRing {
+  using R = QRing256;
+  uint8_t* smem;
+
+  __device__ __forceinline__ uint64_t* qbar() const { return q_bars(smem).q; }
+  __device__ __forceinline__ uint32_t k(int t) const {
+    return hopper::smem_u32(smem + R::WK + (t % R::KSTAGES) * R::TILE);
+  }
+  __device__ __forceinline__ uint32_t v(int t) const {
+    return hopper::smem_u32(smem + R::WV + (t % R::VSTAGES) * R::TILE);
+  }
+  __device__ __forceinline__ void wait_k(int t) const {
+    hopper::mbar_wait(&q_bars(smem).kfull[t % R::KSTAGES], (t / R::KSTAGES) & 1);
+  }
+  __device__ __forceinline__ void done_k(int t, int lane) const {
+    if (lane == 0) hopper::mbar_arrive(&q_bars(smem).kempty[t % R::KSTAGES]);
+  }
+  __device__ __forceinline__ void wait_v(int t) const {
+    hopper::mbar_wait(&q_bars(smem).vfull[t % R::VSTAGES], (t / R::VSTAGES) & 1);
+  }
+  __device__ __forceinline__ void done_v(int t, int lane) const {
+    if (lane == 0) hopper::mbar_arrive(&q_bars(smem).vempty[t % R::VSTAGES]);
+  }
+};
 
 // Sixteen codes (one 16-byte chunk, code i in byte i) times a float32
 // scale, each product rounded once to bf16, as pairs (codes 2i, 2i + 1 in
@@ -521,27 +611,25 @@ struct E4m3Scaled {
   }
 };
 
-// K2q: bf16 q over int8 or float8_e4m3fn prefix codes. K2's walk and K2's
-// consumer warpgroups, fed bf16 stages laid out as K2's by the producer
-// warpgroup. Its first warp loads each prefix page's K and V codes as one
-// box of a uint8 map (D bytes by ps rows; at D 256 two, a half row each)
-// into the code ring, a lane a box, after that lane (of the first half)
-// stores the page's scale into the stage's slot (its
-// expect-tx arrival orders the store before the wait), and the tail's bf16
-// boxes straight into the bf16 ring, as K2 does. Between those, all four
-// warps widen each prefix code stage into the bf16 stage: each code times
-// its page's scale rounded once to bf16, positions at or past the live
-// prefix written as 0 by select (a frozen row's null page holds NaN scales
-// and e4m3 NaN codes: 0 * NaN is NaN in an mma). Each thread then fences
-// the proxy (wgmma reads the bf16 stage next and TMA rewrites the code
-// stage, both in the async proxy), a named barrier joins the warpgroup,
-// one thread arrives on the bf16 stage's full barrier, and the first warp
-// refills the code stage CSTAGES tiles ahead (two at D 64 and 128; one at
-// D 256, whose loads then wait on the widening of the tile before). A bf16
-// stage is so filled by the
-// warpgroup's stores for a prefix tile and by TMA for a tail tile, either
-// way completing on one arrival; the one warpgroup waits on every empty
-// barrier in tile order, so no parity can match a phase two behind.
+// K2q at head_dim 64 and 128: bf16 q over int8 or float8_e4m3fn prefix
+// codes. K2's walk and K2's consumer warpgroups, fed bf16 stages laid out as
+// K2's by the producer warpgroup. Its first warp loads each prefix page's K
+// and V codes as one box of a uint8 map (D bytes by ps rows) into the code
+// ring, a lane a box, after that lane stores the page's scale into the
+// stage's slot (its expect-tx arrival orders the store before the wait),
+// and the tail's bf16 boxes straight into the bf16 ring, as K2 does.
+// Between those, all four warps widen each prefix code stage into the bf16
+// stage: each code times its page's scale rounded once to bf16, positions
+// at or past the live prefix written as 0 by select (a frozen row's null
+// page holds NaN scales and e4m3 NaN codes: 0 * NaN is NaN in an mma). Each
+// thread then fences the proxy (wgmma reads the bf16 stage next and TMA
+// rewrites the code stage, both in the async proxy), a named barrier joins
+// the warpgroup, one thread arrives on the bf16 stage's full barrier, and
+// the first warp refills the code stage CSTAGES tiles ahead. A bf16 stage
+// is so filled by the warpgroup's stores for a prefix tile and by TMA for a
+// tail tile, either way completing on one arrival; the one warpgroup waits
+// on every empty barrier in tile order, so no parity can match a phase two
+// behind.
 template <int D, bool SOFTCAP, class Code>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
@@ -560,8 +648,6 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   using QL = QSmem<D>;
   constexpr int BN = QL::BN;
   constexpr int CSTAGES = QL::CSTAGES;
-  constexpr int HALVES = QL::HALVES;
-  constexpr int ROW = QL::ROW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = ptc::setup<D>(smem_raw);
   const Block<BN> blk = block_of<BN>(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
@@ -571,7 +657,7 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   float* scales = reinterpret_cast<float*>(smem + QL::SCALES);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < CSTAGES; ++s) mbar_init(&cfull[s], 2 * HALVES * per_stage);   // a box each
+    for (int s = 0; s < CSTAGES; ++s) mbar_init(&cfull[s], 2 * per_stage);   // a box each
     fence_barrier_init();
   }
   __syncthreads();
@@ -588,12 +674,11 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = ct & 31;
   const bool loader = ct < 32;
 
-  // Lane j < 2 * HALVES * per_stage of the first warp loads K (j even) or V
-  // codes of page slot j / (2 HALVES) of each prefix stage (half (j / 2) %
-  // HALVES of its rows), its page id and scale read one stage ahead.
+  // Lane j < 2 * per_stage of the first warp loads K (j even) or V codes of
+  // page slot j / 2 of each prefix stage, its page id and scale read one
+  // stage ahead.
   const int kv_box = lane & 1;
-  const int half = (lane >> 1) % HALVES;
-  const int slot = (lane >> 1) / HALVES;
+  const int slot = lane >> 1;
   const bool mine = loader && slot < per_stage && n_pref > 0;
   const int* table = page_table + (size_t)blk.b * mp;
   const float* tab = (kv_box ? vs_tab : ks_tab) + (size_t)blk.hk * P;
@@ -604,17 +689,17 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   float page_scale = mine ? tab[page] : 0.f;
   auto load_codes = [&](int t) {
     const int cs = t % CSTAGES;
-    if (half == 0) scales[(cs * 2 + kv_box) * MAX_SLOTS + slot] = page_scale;
-    mbar_expect_tx(&cfull[cs], ps * ROW);
-    tma_load_3d(smem + (kv_box ? QL::V : QL::K) + cs * QL::CTILE + half * BN * ROW +
-                    slot * ps * ROW,
-                kv_box ? &tcv : &tck, &cfull[cs], half * ROW, page * ps, blk.hk);
+    scales[(cs * 2 + kv_box) * MAX_SLOTS + slot] = page_scale;
+    mbar_expect_tx(&cfull[cs], ps * D);
+    tma_load_3d(smem + (kv_box ? QL::V : QL::K) + cs * QL::CTILE + slot * ps * D,
+                kv_box ? &tcv : &tck, &cfull[cs], 0, page * ps, blk.hk);
     if (t + 1 < n_pref) {
       page = page_of(t + 1);
       page_scale = tab[page];
     }
   };
-  if (loader && lane == 0) load_q<D>(smem, &tq, blk.q0, blk.b * Hq + blk.h);
+  if (loader && lane == 0)
+    load_q<D>(smem, ptc::q_bar<D>(smem), &tq, blk.q0, blk.b * Hq + blk.h);
   if (mine) {
     for (int t = 0; t < min(n_pref, CSTAGES); ++t) load_codes(t);
   }
@@ -630,7 +715,7 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int U = BN / RSTEP;          // a thread's units of K (and of V)
   const int m = (ct >> 3) % CH;
   const int row0 = (ct >> 3) / CH * 8 + (ct & 7);
-  const uint32_t code0 = code_offset<D>(row0, m, BN);
+  const uint32_t code0 = code_offset<D>(row0, m);
   const uint32_t lo0 = sw128_offset(row0, 2 * m, BN);
   const uint32_t hi0 = sw128_offset(row0, 2 * m + 1, BN);
   const int ps_shift = __ffs(ps) - 1;
@@ -649,7 +734,7 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
       uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
       if (row < n_live) {
         const uint4 c = *reinterpret_cast<const uint4*>(
-            smem + (kv ? QL::V : QL::K) + cs * QL::CTILE + code0 + (i % U) * RSTEP * ROW);
+            smem + (kv ? QL::V : QL::K) + cs * QL::CTILE + code0 + (i % U) * RSTEP * D);
         uint32_t o[8];
         Code::widen16(c, sc[kv * MAX_SLOTS + (row >> ps_shift)], o);
         lo = make_uint4(o[0], o[1], o[2], o[3]);
@@ -673,6 +758,263 @@ paged_prefill_q_tc_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
     if (lane == 0) load_tail<D>(smem, &full[st], &ttk, &ttv, blk.walk.col0(t), blk.b * Hkv + blk.hk,
                                 st);
+  }
+}
+
+// K2q at head_dim 256: bf16 q over int8 or float8_e4m3fn prefix codes, K2's
+// walk and K2's consumer warpgroups (ptc::consume over SplitRing) beside a
+// widening warpgroup, in QRing256's shared memory. Code loads: lane (page
+// slot i, K or V, half) of the widening warpgroup's first warp issues that
+// box of each K (or V) code stage, then (the lane of the first half) stores
+// the page's scale into the stage's slot and arrives (2 * 64 / ps arrivals a
+// stage: 16 lanes at ps 8); its page ids come two stages ahead and its
+// scales one, so that no lane waits on device memory where it widens, and
+// no load waits for a scale. The widening of tile t by each of the four
+// warps' threads: its K codes from K code stage t % CKSTAGES into registers
+// (the stage then released), then, once bf16 K stage t % KSTAGES is free,
+// each code times its page's scale rounded once to bf16 into it; then V the
+// same way, through V code stage t % CVSTAGES into bf16 V stage t %
+// VSTAGES. A fence and the thread's own arrival follow each step, so no
+// widening thread waits for another, but for the loading lanes: once their
+// warp has published a half of tile t, that half's lanes refill its code
+// stage with tile t + CKSTAGES (or CVSTAGES), waiting for the other warps to
+// have left it (they read their codes before they wait for the bf16 stage,
+// so they have). A refill earlier in the tile held the loading warp back
+// from widening V, which the consumers then waited for. The tail's bf16
+// boxes go straight into the two bf16 rings by TMA, as K2's. Where trouble
+// lies, each named where it is handled below: the rings' phases, the two
+// kinds of bf16 stage, walks shorter than the code rings, the null page, the
+// proxy fences and the registers.
+template <bool SOFTCAP, class Code>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_prefill_q_tc256_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tck,
+                             const __grid_constant__ CUtensorMap tcv,
+                             const __grid_constant__ CUtensorMap ttk,
+                             const __grid_constant__ CUtensorMap ttv,
+                             const __grid_constant__ CUtensorMap to,
+                             const float* __restrict__ ks_tab, const float* __restrict__ vs_tab,
+                             const int* __restrict__ page_table,
+                             const int* __restrict__ prefix_len,
+                             const int* __restrict__ tail_len, int Hq, int Hkv, int St, int P,
+                             int ps, int mp, float scale, int window, float softcap) {
+  using namespace hopper;
+  using R = QRing256;
+  constexpr int D = R::D;
+  constexpr int BN = R::BN;
+  constexpr int ROW = 128;   // a code box's bytes a row: half a code row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const Block<BN> blk = block_of<BN>(prefix_len, tail_len, Hq, Hkv, St, ps, mp, window);
+  const int n_pref = blk.walk.n_pref;
+  const int per_stage = BN / ps;
+  const QBars bars = q_bars(smem);
+  // Phases: tile t's K codes sit in K code stage t % CKSTAGES, its V codes
+  // in V code stage t % CVSTAGES, its bf16 K in K stage t % KSTAGES and its
+  // V in V stage t % VSTAGES; every wait below takes its parity from that
+  // ring's own depth. Two kinds of bf16 stage: a prefix stage completes on
+  // the 128 widening threads' arrivals, a tail stage on one thread's
+  // expect-tx arrival (with the boxes' bytes) and the other 127 threads'
+  // plain ones, each after its wait on the stage's empty barrier, so that
+  // no arrival can fall into the phase before.
+  if (threadIdx.x == 0) {
+    mbar_init(bars.q, 1);
+    for (int s = 0; s < R::KSTAGES; ++s) {
+      mbar_init(&bars.kfull[s], CONVERTERS);
+      mbar_init(&bars.kempty[s], ptc::CONSUMER_WARPS);
+    }
+    for (int s = 0; s < R::VSTAGES; ++s) {
+      mbar_init(&bars.vfull[s], CONVERTERS);
+      mbar_init(&bars.vempty[s], ptc::CONSUMER_WARPS);
+    }
+    for (int s = 0; s < R::CKSTAGES; ++s) {
+      mbar_init(&bars.ckfull[s], 2 * per_stage);   // a box each
+      mbar_init(&bars.ckempty[s], CONVERTERS);
+    }
+    for (int s = 0; s < R::CVSTAGES; ++s) {
+      mbar_init(&bars.cvfull[s], 2 * per_stage);
+      mbar_init(&bars.cvempty[s], CONVERTERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // Registers: the consumers' branch first, or ptxas holds them to the
+  // launch's share; the widening warpgroup lowers its registers before
+  // anything else, as the consumers' setmaxnreg.inc waits for them.
+  if (threadIdx.x < 256) {
+    ptc::consume<D, SOFTCAP, false, R::CONSUMER_REGS, SplitRing>(
+        smem, blk.walk, blk.ntiles, blk.q0, blk.b * Hq + blk.h, &to, nullptr, St, scale,
+        softcap);
+    return;
+  }
+  regs_dealloc<R::PRODUCER_REGS>();
+  const int ct = threadIdx.x - 256;   // 0 .. 127
+  if (ct == 0) load_q<D>(smem, bars.q, &tq, blk.q0, blk.b * Hq + blk.h);
+  float* scales = reinterpret_cast<float*>(smem + R::SCALES);
+
+  // The loading lanes: K (kv_box 0) or V codes, half `half` of page slot
+  // `slot` of each stage of that ring.
+  const int kv_box = ct & 1;
+  const int half = (ct >> 1) & 1;
+  const int slot = ct >> 2;
+  const bool loads = ct < 4 * per_stage && n_pref > 0;
+  const int depth = kv_box ? R::CVSTAGES : R::CKSTAGES;
+  const int* table = page_table + (size_t)blk.b * mp;
+  const float* tab = (kv_box ? vs_tab : ks_tab) + (size_t)blk.hk * P;
+  auto page_of = [&](int t) {
+    return table[min(blk.first_page + t * per_stage + slot, blk.last_page)];
+  };
+  int page = 0, next = 0;
+  float page_scale = 0.f;
+  // Stage u % depth of this lane's ring gets tile u's box, then its scale
+  // and the lane's arrival (which orders the scale's store before the
+  // wideners' wait); the page id of tile u + 2 and the scale of tile u + 1
+  // are read here, used a stage later.
+  auto load_codes = [&](int u) {
+    const int cs = u % depth;
+    uint64_t* full = (kv_box ? bars.cvfull : bars.ckfull) + cs;
+    mbar_expect_tx_only(full, ps * ROW);
+    tma_load_3d(smem + (kv_box ? R::CV : R::CK) + cs * R::CTILE + half * BN * ROW +
+                    slot * ps * ROW,
+                kv_box ? &tcv : &tck, full, half * ROW, page * ps, blk.hk);
+    if (half == 0) scales[(kv_box * R::CKSTAGES + cs) * R::SLOTS + slot] = page_scale;
+    mbar_arrive(full);
+    page = next;
+    if (u + 1 < n_pref) page_scale = tab[page];
+    if (u + 2 < n_pref) next = page_of(u + 2);
+  };
+  // Walks shorter than the code rings: the prologue loads no tile past n_pref.
+  if (loads) {
+    page = page_of(0);
+    next = n_pref > 1 ? page_of(1) : page;
+    page_scale = tab[page];
+    for (int u = 0; u < min(n_pref, depth); ++u) load_codes(u);
+  }
+
+  // Thread ct widens one row of each stage, row = 8 (ct / 16) + ct % 8, in
+  // half h = (ct / 8) % 2 of its codes: U 16-byte units, unit i code chunk
+  // 8 h + i, into bf16 column segments 2 (8 h + i) and + 1. Eight
+  // consecutive threads take one chunk of eight consecutive rows, so their
+  // code reads and both swizzled stores each hit eight distinct bank
+  // groups; and a thread's units share one page, so one scale a stage. The
+  // code stage is laid out as sw128_offset's tiles too (two halves of BN
+  // rows of 128 bytes), so in both unit i's address is the row's own, whose
+  // bits 4-6 hold row % 8, with those bits XORed by a constant: one
+  // instruction a unit, on 32-bit shared addresses. The codes of GROUP
+  // units are read into registers before any is widened (a read after a
+  // store would wait for it).
+  constexpr int U = 8;
+  constexpr int GROUP = 4;   // units read at once (all eight spill at 72 registers)
+  const int row = 8 * (ct >> 4) + (ct & 7);
+  const uint32_t swz = (row & 7) << 4;
+  const uint32_t h = (ct >> 3) & 1;
+  const uint32_t code_row = (h * BN + row) * 128 + swz;       // sw128_offset(row, 8 h, BN)
+  const uint32_t bf16_row = (2 * h * BN + row) * 128 + swz;   // sw128_offset(row, 16 h, BN)
+  const uint32_t base = smem_u32(smem);
+  const int ps_shift = __ffs(ps) - 1;
+  const uint32_t row_scales = base + R::SCALES + (row >> ps_shift) * 4;
+  auto read_codes = [&](uint4 (&c)[GROUP], uint32_t codes, int g) {
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) c[i] = lds128(codes ^ ((g + i) << 4));
+  };
+  // Unit i's two segments: 2 i and 2 i + 1 of column chunk 2 h + i / 4.
+  auto seg = [](uint32_t bf16, int i, int part) {
+    return (bf16 ^ (((2 * i + part) & 7) << 4)) + (i >> 2) * BN * 128;
+  };
+  // The null page holds NaN scales and e4m3 NaN codes: rows at or past the
+  // live prefix (only in the last prefix tile) are stored as zeros, never
+  // widened, so no NaN reaches a product.
+  auto widen = [&](uint32_t bf16, const uint4 (&c)[GROUP], float s, bool live, int g) {
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) {
+        uint32_t o[8];
+        Code::widen16(c[i], s, o);
+        sts128(seg(bf16, g + i, 0), make_uint4(o[0], o[1], o[2], o[3]));
+        sts128(seg(bf16, g + i, 1), make_uint4(o[4], o[5], o[6], o[7]));
+      }
+    } else {
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) {
+        sts128(seg(bf16, g + i, 0), z);
+        sts128(seg(bf16, g + i, 1), z);
+      }
+    }
+  };
+  // The lanes of ring kv refill the stage tile t read with tile t + depth,
+  // once every widening thread has left it.
+  auto refill = [&](int kv, int t) {
+    if (loads && kv_box == kv && t + depth < n_pref) {
+      mbar_wait((kv ? bars.cvempty : bars.ckempty) + t % depth, (t / depth) & 1);
+      load_codes(t + depth);
+    }
+  };
+  // Half kv of tile t's widening (K 0, V 1): the codes from code stage t %
+  // CKSTAGES (or CVSTAGES) into bf16 stage t % KSTAGES (or VSTAGES) once the
+  // consumers have handed that back, then published. Proxy fences: TMA
+  // rewrites the code stage once it is released, and wgmma reads the bf16
+  // stage next, both in the async proxy.
+  auto widen_half = [&](int t, int kv, bool live) {
+    const int stages = kv ? R::CVSTAGES : R::CKSTAGES;
+    const int bf16_stages = kv ? R::VSTAGES : R::KSTAGES;
+    const int cs = t % stages;
+    const int bs = t % bf16_stages;
+    uint64_t* full = (kv ? bars.cvfull : bars.ckfull) + cs;
+    uint64_t* empty = (kv ? bars.cvempty : bars.ckempty) + cs;
+    const uint32_t codes = base + (kv ? R::CV : R::CK) + cs * R::CTILE + code_row;
+    const uint32_t bf16 = base + (kv ? R::WV : R::WK) + bs * R::TILE + bf16_row;
+    mbar_wait(full, (t / stages) & 1);
+    const float s = lds32f(row_scales + (kv * R::CKSTAGES + cs) * R::SLOTS * 4);
+#pragma unroll
+    for (int g = 0; g < U; g += GROUP) {
+      uint4 c[GROUP];
+      read_codes(c, codes, g);
+      if (g + GROUP == U) {   // the code stage's last read: release it
+        fence_async_smem();
+        mbar_arrive(empty);
+      }
+      if (g == 0)
+        mbar_wait((kv ? bars.vempty : bars.kempty) + bs, ((t / bf16_stages) & 1) ^ 1);
+      widen(bf16, c, s, live, g);
+    }
+    fence_async_smem();
+    mbar_arrive((kv ? bars.vfull : bars.kfull) + bs);
+    refill(kv, t);
+  };
+  for (int t = 0; t < n_pref; ++t) {
+    const bool live = row < blk.walk.live - blk.walk.col0(t);
+    widen_half(t, 0, live);
+    widen_half(t, 1, live);
+  }
+
+  // The tail, by TMA into the two rings, after the prefix stages in order.
+  using L = ptc::Smem<D>;
+  const int plane = blk.b * Hkv + blk.hk;
+  for (int t = n_pref; t < blk.ntiles; ++t) {
+    const int ks = t % R::KSTAGES;
+    const int vs = t % R::VSTAGES;
+    const int row0 = blk.walk.col0(t);
+    mbar_wait(&bars.kempty[ks], ((t / R::KSTAGES) & 1) ^ 1);
+    if (ct == 0) {
+      mbar_expect_tx(&bars.kfull[ks], L::TILE);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_3d(smem + R::WK + ks * R::TILE + c * BN * 128, &ttk, &bars.kfull[ks], c * 64,
+                    row0, plane);
+    } else {
+      mbar_arrive(&bars.kfull[ks]);
+    }
+    mbar_wait(&bars.vempty[vs], ((t / R::VSTAGES) & 1) ^ 1);
+    if (ct == 0) {
+      mbar_expect_tx(&bars.vfull[vs], L::TILE);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_3d(smem + R::WV + vs * R::TILE + c * BN * 128, &ttv, &bars.vfull[vs], c * 64,
+                    row0, plane);
+    } else {
+      mbar_arrive(&bars.vfull[vs]);
+    }
   }
 }
 
@@ -710,6 +1052,15 @@ int launch(const void* q, const void* kp, const void* vp, const int* pt, const v
   return (int)cudaGetLastError();
 }
 
+// K2q's kernel of head_dim D.
+template <int D, bool SOFTCAP, class Code>
+constexpr auto q_tc_kernel() {
+  if constexpr (D == 256)
+    return paged_prefill_q_tc256_kernel<SOFTCAP, Code>;
+  else
+    return paged_prefill_q_tc_kernel<D, SOFTCAP, Code>;
+}
+
 template <int D, bool SOFTCAP, class Code>
 int launch_q(const void* q, const void* kc, const void* vc, const float* ks_tab,
              const float* vs_tab, const int* pt, const void* kt, const void* vt,
@@ -722,16 +1073,17 @@ int launch_q(const void* q, const void* kc, const void* vc, const float* ks_tab,
   if (err == 0) err = hopper::make_map_3d_u8(&tck, kc, D, P * ps, Hkv, ps);
   if (err == 0) err = hopper::make_map_3d_u8(&tcv, vc, D, P * ps, Hkv, ps);
   if (err != 0) return err;
-  const auto kernel = paged_prefill_q_tc_kernel<D, SOFTCAP, Code>;
+  using QL = std::conditional_t<D == 256, QRing256, QSmem<D>>;
+  const auto kernel = q_tc_kernel<D, SOFTCAP, Code>();
   // setmaxnreg.inc waits until the registers it asks for are free: a launch
   // share below the roles' sum would hang the consumers, so refuse it.
   static const int regs = [&] {
     cudaFuncAttributes a;
     return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
   }();
-  if (3 * regs < 2 * QSmem<D>::CONSUMER_REGS + QSmem<D>::PRODUCER_REGS)
+  if (3 * regs < 2 * QL::CONSUMER_REGS + QL::PRODUCER_REGS)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = QSmem<D>::bytes;
+  const size_t smem = QL::bytes;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(

@@ -10,7 +10,9 @@
 // warpgroups 0 and 1 consume 64 rows each, warpgroup 2 loads. The producer
 // fills the Q tile once (qbar) and BN-key K and V tiles through a
 // two-stage ring (each stage a "full" mbarrier armed with 2 * TILE bytes
-// and an "empty" one the eight consumer warps arrive on). Tiles are
+// and an "empty" one the eight consumer warps arrive on; consume's ring
+// description, Ring below, which K2q at head_dim 256 replaces by a K ring
+// and a V ring of their own barriers: paged_prefill.cu's SplitRing). Tiles are
 // 128-byte swizzled: D / 64 column chunks of rows of 128 bytes, each
 // chunk 1024-byte aligned. Per tile the consumers run S = Q K^T as wgmma
 // m64nBNk16 (both operands K-major in shared memory), the online softmax
@@ -20,7 +22,8 @@
 // as the A-register fragment of O += P V (wgmma m64nDk16 with V MN-major,
 // the transpose bit set). Masks run only on tiles the walk calls an edge.
 // setmaxnreg gives the consumers 240 registers and the producer warpgroup
-// 24 (K2q: 208 and 88, for its widening). O leaves through shared memory by
+// 24 (K2q, whose producer warpgroup widens codes: 208 and 88, at head_dim
+// 256 216 and 72). O leaves through shared memory by
 // a TMA store that drops the rows past the tensor map's extent.
 //
 // At head_dim 256 the kernels branch to the consumers first and return from
@@ -127,6 +130,35 @@ __device__ __forceinline__ uint8_t* setup(uint8_t* smem_raw) {
   return smem;
 }
 
+// The bf16 K / V stages a consumer walks and their barriers: consume's R.
+// Ring, the default, is Smem<D>'s: STAGES stages, a stage's K and V behind
+// one full barrier (the producer's one arrival, with both tiles' bytes) and
+// one empty barrier (an arrival from each consumer warp after P V). A ring
+// gives the Q tile's barrier (qbar), the shared addresses of tile t's K and
+// V stages (k, v), and the four points of a tile's walk: wait_k before S =
+// Q K^T, done_k once its wgmma has read K, wait_v before O += P V and
+// done_v after it.
+template <int D>
+struct Ring {
+  uint8_t* smem;
+
+  __device__ __forceinline__ uint64_t* qbar() const { return q_bar<D>(smem); }
+  __device__ __forceinline__ uint32_t k(int t) const {
+    return hopper::smem_u32(smem + Smem<D>::K + (t % STAGES) * Smem<D>::TILE);
+  }
+  __device__ __forceinline__ uint32_t v(int t) const {
+    return hopper::smem_u32(smem + Smem<D>::V + (t % STAGES) * Smem<D>::TILE);
+  }
+  __device__ __forceinline__ void wait_k(int t) const {
+    hopper::mbar_wait(&full_bars<D>(smem)[t % STAGES], (t / STAGES) & 1);
+  }
+  __device__ __forceinline__ void done_k(int, int) const {}
+  __device__ __forceinline__ void wait_v(int) const {}
+  __device__ __forceinline__ void done_v(int t, int lane) const {
+    if (lane == 0) hopper::mbar_arrive(&empty_bars<D>(smem)[t % STAGES]);
+  }
+};
+
 // S's registers scaled to log2 units in place (softcap first), masked to
 // exactly NEG_INF_F where walk.ok says no under MASK, each row's max into mx.
 template <bool SOFTCAP, bool MASK, int BN, class Walk>
@@ -152,16 +184,17 @@ __device__ __forceinline__ void scores(float (&s)[BN / 2], float (&mx)[2], const
 // 64 rows). LSE: also lse[plane * Sq + row] = m ln 2 + log l (-1e30 for a
 // row with nothing live) for rows below Sq. REGS: the registers setmaxnreg
 // gives each consumer thread; with the producer warpgroup's count it may sum
-// to at most 3 x 168 (the launch's share of a thread at 384 threads).
-template <int D, bool SOFTCAP, bool LSE, int REGS = 240, class Walk>
+// to at most 3 x 168 (the launch's share of a thread at 384 threads). R: the
+// ring of bf16 stages (Ring's interface), built on `smem`; Q sits at
+// Smem<D>::Q whatever the ring.
+template <int D, bool SOFTCAP, bool LSE, int REGS = 240, class R = Ring<D>, class Walk>
 __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int ntiles, int q0,
                                         int plane, const CUtensorMap* to, float* lse,
                                         int Sq, float scale, float softcap) {
   using namespace hopper;
   using L = Smem<D>;
   constexpr int BN = L::BN;
-  uint64_t* full = full_bars<D>(smem);
-  uint64_t* empty = empty_bars<D>(smem);
+  const R ring{smem};
   // Warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows row0 and
   // row0 + 8, and of every 8 columns the two at 2 (lane % 4).
   regs_alloc<REGS>();
@@ -180,13 +213,12 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
   float l[2] = {0.f, 0.f};   // this thread's part of each row's sum
   const Softcap cap(scale, softcap);
 
-  mbar_wait(q_bar<D>(smem), 0);
+  mbar_wait(ring.qbar(), 0);
   for (int t = 0; t < ntiles; ++t) {
-    const int st = t % STAGES;
     const int c0 = walk.col0(t);
-    const uint32_t kaddr = smem_u32(smem + L::K + st * L::TILE);
-    const uint32_t vaddr = smem_u32(smem + L::V + st * L::TILE);
-    mbar_wait(&full[st], (t / STAGES) & 1);
+    const uint32_t kaddr = ring.k(t);
+    const uint32_t vaddr = ring.v(t);
+    ring.wait_k(t);
 
     // S = Q K^T: D / 16 steps of k16; a step is 32 bytes into a 128-byte
     // swizzled row, every four steps the next column chunk.
@@ -201,6 +233,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
+    ring.done_k(t, lane);
 
     // Scores in log2 units; masks only where the walk says the tile has a
     // masked pair for this warpgroup's rows. The two loops are written out
@@ -249,6 +282,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
 
     // O += P V: BN / 16 steps of 16 keys (16 rows of 128 bytes each), each
     // one wgmma over all D columns.
+    ring.wait_v(t);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -257,7 +291,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Walk& walk, int nti
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    if (lane == 0) mbar_arrive(&empty[st]);
+    ring.done_v(t, lane);
   }
 
   // O goes out through this warpgroup's own 64 rows of the Q tile, which

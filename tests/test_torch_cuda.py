@@ -2062,17 +2062,18 @@ def test_d256_quantized_paged_decode_rings_wrap(cuda, kv_dtype, ps, num_splits, 
 
 
 @pytest.mark.parametrize("kv_dtype", CODES)
-@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
 @pytest.mark.parametrize("case", sorted(TC_PREFILL))
 @pytest.mark.parametrize("hq,hkv", GEMMA_HEADS, ids=GEMMA_IDS)
 @pytest.mark.parametrize("window", [None, 100])
 def test_d256_quantized_paged_prefill_equals_k2_on_dequantized_pools(cuda, kv_dtype, ps, case,
                                                                      hq, hkv, window):
-    """K2q at head_dim 256 (64-key stages, one code stage of two 128-byte
-    boxes a page) is bit for bit K2 over bf16 pools of the dequantized
-    values, softcap 50, within ROW_TOL of the plain version, rows past
-    tail_len exact zeros, ten reruns bitwise equal; the null page holds NaN
-    scales and codes."""
+    """K2q at head_dim 256 (64-key stages; a code ring, a bf16 K ring and
+    a bf16 V ring; two 128-byte code boxes a page, 64 / ps pages a stage)
+    is bit for bit K2 over bf16 pools of the dequantized values, softcap
+    50, within ROW_TOL of the plain version, rows past tail_len exact
+    zeros, ten reruns bitwise equal; the null page holds NaN scales and
+    codes."""
     args, scales = _k2q_inputs(np.random.default_rng(210 + ps), cuda, hq, hkv, 256, ps, case,
                                kv_dtype)
     q, kc, vc, table, kt, vt, plen, tlen = args
@@ -2122,6 +2123,84 @@ def test_d256_quantized_paged_prefill_long_prefix(cuda, kv_dtype, hq, hkv, windo
     assert _row_err(o, o_ref) < ROW_TOL
     assert float(o[1, :, 77:].float().abs().sum()) == 0.0
     assert all(torch.equal(pp.paged_flash_prefill(*args, **kw), o) for _ in range(10))
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("prefix_tiles", [1, 2, 3, 5])
+@pytest.mark.parametrize("tail_tiles", [1, 2, 3])
+def test_d256_quantized_paged_prefill_rings_wrap(cuda, kv_dtype, prefix_tiles, tail_tiles):
+    """K2q at head_dim 256 over prefix walks of exactly 1, 2, 3 and 5
+    64-key tiles (row 0 a whole number of tiles, row 1 the last tile 27
+    rows live), then tails of 1, 2 and 3 tiles (row 1 live to 37 fewer):
+    each ring (code, bf16 K, bf16 V) wraps at its own depth and the
+    prefix-to-tail handover lands on every phase. gemma2-2b's heads,
+    softcap 50, pages of 16. Bit for bit K2 over the dequantized pools,
+    within ROW_TOL of the plain version, rows past tail_len exact zeros,
+    ten reruns bitwise equal."""
+    rng = np.random.default_rng(230 + 10 * prefix_tiles + tail_tiles)
+    b, hq, hkv, ps = 2, 8, 4, 16
+    st = 64 * tail_tiles
+    plen = [64 * prefix_tiles, 64 * prefix_tiles - 37]
+    tlens = [st, st - 37]
+    mp = -(-max(plen) // ps)
+    kc, ks, vc, vs = _quantized(rng, cuda, hkv, 1 + b * mp, ps, 256, kv_dtype)
+    table = torch.from_numpy(rng.permutation(np.arange(1, 1 + b * mp)).reshape(b, mp)
+                             .astype(np.int32)).to(cuda)
+    q = _randn(rng, (b, hq, st, 256), cuda, torch.bfloat16)
+    kt, vt = (_randn(rng, (b, hkv, st, 256), cuda, torch.bfloat16) for _ in range(2))
+    as_int = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
+    args = (q, kc, vc, table, kt, vt, as_int(plen), as_int(tlens))
+    kw = dict(softcap=50.0, k_scales=ks, v_scales=vs)
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, **kw)
+    assert _prefill_q_routes(kernels.launch_counts(), torch.bfloat16)
+    o_bf = pp.paged_flash_prefill(q, _dequantized_bf16(kc, ks), _dequantized_bf16(vc, vs),
+                                  table, kt, vt, as_int(plen), as_int(tlens), softcap=50.0)
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_bf)
+    assert _row_err(o, o_ref) < ROW_TOL
+    assert float(o[1, :, st - 37:].float().abs().sum()) == 0.0
+    assert all(torch.equal(pp.paged_flash_prefill(*args, **kw), o) for _ in range(10))
+
+
+@pytest.mark.parametrize("kv_dtype", CODES)
+def test_d256_quantized_paged_prefill_reruns_with_a_frozen_row(cuda, kv_dtype):
+    """K2q at head_dim 256 at chip_smoke.py's kernel shape (prefix 1000,
+    tail 256, the second row live to 219; gemma2-2b's heads, window 4096,
+    softcap 50) beside a third row whose whole table is the null page (NaN
+    scales, e4m3 NaN codes), as a row frozen there reads it: 100 reruns,
+    the L2 flushed before every third, bitwise equal to the first, the
+    frozen row's NaNs included; the live rows bit for bit K2 over the
+    dequantized pools and within ROW_TOL of the plain version."""
+    rng = np.random.default_rng(240)
+    b, hq, hkv, ps, st, plen = 3, 8, 4, 16, 256, 1000
+    mp = -(-plen // ps)
+    kc, ks, vc, vs = _quantized(rng, cuda, hkv, 1 + 2 * mp, ps, 256, kv_dtype)
+    table = np.zeros((b, mp), np.int32)
+    table[:2] = rng.permutation(np.arange(1, 1 + 2 * mp)).reshape(2, mp)
+    table = torch.from_numpy(table).to(cuda)
+    q = _randn(rng, (b, hq, st, 256), cuda, torch.bfloat16)
+    kt, vt = (_randn(rng, (b, hkv, st, 256), cuda, torch.bfloat16) for _ in range(2))
+    as_int = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
+    args = (q, kc, vc, table, kt, vt, as_int([plen] * b), as_int([st, 219, st]))
+    kw = dict(window=4096, softcap=50.0, k_scales=ks, v_scales=vs)
+    o = pp.paged_flash_prefill(*args, **kw)
+    o_bf = pp.paged_flash_prefill(q, _dequantized_bf16(kc, ks), _dequantized_bf16(vc, vs),
+                                  *args[3:], window=4096, softcap=50.0)
+    o_ref = pp.paged_flash_prefill_plain(*args, **kw)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    bits = o.view(torch.int16)
+    differ = 0
+    for i in range(100):
+        if i % 3 == 0:
+            flush.zero_()
+        differ += not torch.equal(pp.paged_flash_prefill(*args, **kw).view(torch.int16), bits)
+    torch.cuda.synchronize()
+    assert differ == 0
+    assert torch.equal(o[:2], o_bf[:2])
+    assert _row_err(o[:2], o_ref[:2]) < ROW_TOL
+    assert float(o[1, :, 219:].float().abs().sum()) == 0.0
 
 
 def test_d256_quantized_refuses_pages_of_128(cuda):

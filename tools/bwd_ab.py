@@ -298,9 +298,11 @@ def sass(other: str, source: str = "flash_attention_bwd.cu") -> int:
                                "-sass", cubin], check=True, capture_output=True,
                               text=True).stdout
         parts = re.split(r"\n\s*Function : (\S+)\n", dump)[1:]
-        # cuobjdump pads each line to the width of the file's longest name.
-        strip = lambda text: re.sub(r"[ \t]+", " ",
-                                    re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", text))
+        # cuobjdump pads each line to the width of the file's longest name;
+        # the anonymous namespace's name holds a hash of the file and, in
+        # some files, a second one after "_cu_".
+        strip = lambda text: re.sub(r"[ \t]+", " ", re.sub(
+            r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_(?:[0-9a-f]{8})?", "", text))
         funcs.append({strip(name): strip(body) for name, body in zip(parts[::2], parts[1::2])})
     rc = 0
     for name in sorted(set(funcs[0]) | set(funcs[1])):

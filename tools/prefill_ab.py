@@ -39,6 +39,13 @@ D 128, bf16, pages of 16 on a scattered table):
   gemma2-2b's widths (Hq 8, Hkv 4, softcap 50; K1 also without it) and
   gemma3-1b's (Hq 4, Hkv 1, no softcap), K1's o and lse and K2's o
   compared bit for bit with the first root's;
+* K2q at head_dim 256 (``GEMMA_K2Q``): both models, over int8 and fp8
+  codes of the same values, global and the model's window at that kernel
+  shape, and the model's window at the gemma serve run's extend shape (7
+  rows, prefix 256, tail 256); each output compared bit for bit with the
+  first root's and with K2 over bf16 pools of the dequantized values, K2
+  there timed beside it, and as a yardstick (not the port's route) the two
+  calls ``quant.dequantize_pages`` of the prefix pages then bf16 K2;
 * in a root that has the paged extend's gather route, the extend A/B
   (:func:`extend_ab`, which ``chip_smoke.py``'s plan part (d) runs too):
   K2 against the gather route (the prefix gathered and packed into dense
@@ -94,6 +101,18 @@ GEMMA_K1 = (("K1 D 256 gemma2-2b (S 8192, global, softcap 50)", 8, 4, None, 50.0
 GEMMA_K2 = (("K2 D 256 gemma2-2b (prefix 1000, tail 256, window 4096, softcap 50)", 8, 4,
              4096, 50.0),
             ("K2 D 256 gemma3-1b (prefix 1000, tail 256, window 512)", 4, 1, 512, None))
+#: K2q at head_dim 256: label, Hq, Hkv, window, softcap, B, prefix, tail
+#: lengths; each over int8 and fp8 codes.
+GEMMA_K2Q = tuple(
+    case for model, hq, hkv, local, cap in (("gemma2-2b", 8, 4, 4096, 50.0),
+                                            ("gemma3-1b", 4, 1, 512, None))
+    for case in (
+        (f"K2q D 256 {model} (prefix 1000, tail 256, global)", hq, hkv, None, cap, 2, 1000,
+         [256, 219]),
+        (f"K2q D 256 {model} (prefix 1000, tail 256, window {local})", hq, hkv, local, cap, 2,
+         1000, [256, 219]),
+        (f"K2q D 256 {model} serve extend (B 7, prefix 256, tail 256, window {local})", hq, hkv,
+         local, cap, 7, 256, [256] * 7)))
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAVED = os.path.join(HERE, "build", "prefill_ab")
 
@@ -333,6 +352,38 @@ def run_one(root: str, tag: str, first: bool, serve: bool, d256: bool = False) -
                note=f"; o bitwise equal to the first root's: {same}")
         times[label]["bitwise_equal_first_root"] = same
         del args, ref
+    for i, (label, hq, hkv, window, cap, b, plen, tlens) in enumerate(GEMMA_K2Q):
+        q, kp, vp, table, kt, vt, plens, tl = k2_inputs(torch, gen, b, plen, max(tlens), tlens,
+                                                        hq=hq, hkv=hkv, d=256)
+        kw = dict(window=window, softcap=cap)
+        for kv_dtype in ("int8", "fp8"):
+            (kc, ks), (vc, vs) = (quant.quantize_pages(x.float(), kv_dtype) for x in (kp, vp))
+            qargs = (q, kc, vc, table, kt, vt, plens, tl)
+            ref = pp.paged_flash_prefill_plain(*qargs, **kw, k_scales=ks, v_scales=vs)
+            fn = lambda: pp.paged_flash_prefill(*qargs, **kw, k_scales=ks, v_scales=vs)
+            kd, vd = (quant.dequantize_pages(c, sc).to(torch.bfloat16)
+                      for c, sc in ((kc, ks), (vc, vs)))
+            k2 = lambda: pp.paged_flash_prefill(q, kd, vd, table, kt, vt, plens, tl, **kw)
+            deq = torch.equal(fn(), k2())
+            same = same_as_first_root(f"k2q_d256_{i}_{kv_dtype}", [fn()])
+            name = f"{label} {kv_dtype}"
+            report(name, fn, ref, "paged_prefill",
+                   note=f"; bitwise equal to K2 over the dequantized values in bf16: {deq}, "
+                        f"to the first root's: {same}")
+
+            def two_calls():   # the yardstick: widen the whole prefix, then bf16 K2
+                kd2, vd2 = (quant.dequantize_pages(c, sc).to(torch.bfloat16)
+                            for c, sc in ((kc, ks), (vc, vs)))
+                return pp.paged_flash_prefill(q, kd2, vd2, table, kt, vt, plens, tl, **kw)
+
+            times[name].update(bitwise_equal_k2_dequantized=deq, bitwise_equal_first_root=same,
+                               k2_ms=timer.ms(k2, primed=True),
+                               dequantize_then_k2_ms=timer.ms(two_calls, primed=True))
+            print(f"[{tag}] {name}: bf16 K2 on the dequantized pools "
+                  f"{times[name]['k2_ms']:.4f} ms, dequantize_pages then K2 "
+                  f"{times[name]['dequantize_then_k2_ms']:.4f} ms (queue primed)", flush=True)
+            del kc, vc, ks, vs, kd, vd, qargs, ref
+        del q, kp, vp, table, kt, vt, plens, tl
     if hasattr(pp, "paged_prefill_gather") and not d256:
         times["extend A/B"] = extend_ab(torch, timer, gen,
                                         log=lambda m: print(f"[{tag}] {m}", flush=True))
