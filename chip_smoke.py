@@ -210,7 +210,19 @@ and prints no result. Phases, in order (any failure exits non-zero):
      layers: 5 local with window 512, 1 global; sequence 4096, batch 4 in 2
      microbatches) at full width, head_dim 256: K5 and K6 on the tensor
      cores at D 256, the float32 LM head over 256000 / 262144 words, the
-     breakdown per distinct window of the layers.
+     breakdown per distinct window of the layers. Then mamba2-1.3b (24 of 48
+     layers) and hymba-1.5b (16 of 32) at full width, the serve phase's
+     cuts, sequence 4096, batch 4 in 2 microbatches: K9 forward twice per
+     SSM layer per microbatch through ``ssd.SSDIntraChunk``, whose backward
+     is written out in PyTorch ops (hymba also K1 / K5 / K6 at head_dim 64);
+     the breakdown adds one SSM block at the step's shape, timed whole and
+     in parts (K9, the written-out backward, the rest), K9 and the backward
+     held against the plain version there; the 2-layer gradients run the
+     plain path with ``ssm.impl`` "plain" too. Every 2-layer check also runs
+     the plain path in float32; on a hybrid stack (hymba) each leaf is held
+     by how much further the kernel path lies from float32 than the plain
+     path does (``check_train_grads``). ``--phase ssm`` runs K9's check and
+     these two train phases alone, with no result line.
 
 It ends with one JSON line of per-kernel numbers and, last, the line
 ``{"ok": true, "device": {...}}``.
@@ -256,6 +268,11 @@ GRAD_F32_TOL = 1e-5
 # order (about 1e-6 relative); a dropped or mis-masked key tile moves y by
 # a large fraction of its max, a single TF32 pass by ~5e-4.
 SSD_TOL = 1e-5
+# K9's written-out backward (float32, TF32 off) against autograd of the
+# plain version in float64, max |g - ref| over max |ref| of each gradient:
+# 2.8e-7 at most at mamba2-1.3b's chunk shape on the CPU; a wrong term or a
+# lost mask moves a gradient by a large fraction of its max, 0 * inf gives NaN.
+SSD_GRAD_TOL = 2e-5
 # Logits of the kernel path against the plain path, relative to max |logit|:
 # bf16 attention outputs round differently in the two paths (~2^-8
 # relative) and the difference compounds over 32 layers.
@@ -270,6 +287,14 @@ TRAIN_LOSS_TOL = 1e-2
 # before their products, carried through the backward pass (3.3e-3 at most
 # with the float32 CUDA-core backward). 1e-2 keeps ~2x headroom; each
 # kernel is also held per slice in phase 3.
+# A hybrid stack (hymba) is held by another distance at the same bar: how
+# much further each leaf lies from the plain path in float32 than the plain
+# path does. Its SSM vectors behind the output norm (dt_bias, a_log) sum
+# per-token terms that mostly cancel, so any two bf16 paths part there by
+# about the bar: the plain path with its attention forward exact to float64
+# before the same bf16 rounding read 6.0-8.3e-3 from the plain path, the
+# kernel path 1.04-1.50e-2; past the plain path from float32, 1.4e-3 and
+# 4.8e-3 at most (seeds 1-3, H100 80GB HBM3 at 700 W, tools/train_grads.py).
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
 HYMBA_LAYERS, MAMBA_LAYERS = 16, 24   # the serve phase's depth cuts (``main``)
@@ -3417,19 +3442,32 @@ def serve_gemma(torch, timer, cfg, params):
 
 # -- phase 5: train at full width ----------------------------------------------
 
+def train_launches(cfg, micro):
+    """The launches one train step makes, by counter: under remat K1 twice
+    per attention layer per microbatch, K5 and K6 once; K9 twice per SSM
+    layer per microbatch (its backward is PyTorch ops)."""
+    specs = cfg.layer_specs()
+    n_attn = sum(spec.kind in ("attn", "hybrid") for spec in specs)
+    n_ssm = sum(spec.kind in ("mamba", "hybrid") for spec in specs)
+    return {KERNELS["K1"]["counter"]: 2 * n_attn * micro,
+            KERNELS["K5"]["counter"]: n_attn * micro,
+            KERNELS["K6"]["counter"]: n_attn * micro,
+            KERNELS["K9"]["counter"]: 2 * n_ssm * micro}
+
+
 def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
           micro=TRAIN_MICRO):
     """``Trainer`` + ``make_train_step`` on ``cfg_full`` cut to ``layers``
     layers, ``TRAIN_STEPS`` steps of ``batch`` rows of ``seq`` tokens in
-    ``micro`` microbatches: each step's loss, grad norm, time and launches
-    (K1 twice per layer per microbatch, K5 and K6 once, all on the tensor
-    cores), the peak memory; then ``train_breakdown``; then one step's
-    gradients at 2 layers, sequence 1024, kernel path against plain path.
-    Returns the launch counts of the train run."""
+    ``micro`` microbatches: each step's loss, grad norm, time, tok/s and
+    launches (``train_launches``: K1, K5, K6 for attention layers, all on
+    the tensor cores; K9 for SSM layers), the peak memory; then
+    ``train_breakdown``; then one step's gradients at 2 layers, sequence
+    1024, kernel path against plain path (``check_train_grads``). Returns
+    the launch counts of the train run."""
     from repro_torch import kernels
     from repro_torch.core import tree as tree_lib
     from repro_torch.data.pipeline import DataConfig, make_pipeline
-    from repro_torch.models import transformer
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training import train_step as ts
     from repro_torch.training.trainer import Trainer, TrainerConfig
@@ -3462,25 +3500,22 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
     trainer = Trainer(counted, state, pipe,
                       TrainerConfig(total_steps=TRAIN_STEPS, log_every=1),
                       put_batch=lambda b: ts.to_device(b, "cuda"))
+    want = train_launches(cfg, micro)
     kernels.reset_launch_counts()
     trainer.run()
     counts = kernels.launch_counts()
     tokens = seq * batch
     prev = {key: 0 for key in counts}
     for rec, cum in zip(trainer.history, per_step):
-        step_counts = {KERNELS[k]["counter"]: cum[KERNELS[k]["counter"]]
-                       - prev[KERNELS[k]["counter"]] for k in ("K1", "K5", "K6")}
+        step_counts = {key: cum[key] - prev[key] for key in want}
         prev = cum
         log(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
             f"{rec['grad_norm']:.4f} step {rec['step_time_s']:.3f} s, "
             f"{tokens / rec['step_time_s']:.0f} tok/s (host clock, synced); launches "
             f"{json.dumps(step_counts)}")
-        want = {KERNELS["K1"]["counter"]: 2 * layers * micro,
-                KERNELS["K5"]["counter"]: layers * micro,
-                KERNELS["K6"]["counter"]: layers * micro}
         if step_counts != want:
-            raise AssertionError(f"train launches {step_counts}, expected {want} "
-                                 "(remat: K1 twice per layer per microbatch)")
+            raise AssertionError(f"train launches {step_counts}, expected {want} (remat: "
+                                 "K1 and K9 twice per layer per microbatch)")
         if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
             raise AssertionError(f"train step {rec['step']}: non-finite loss or grad norm")
     log(f"train {cfg.name} peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -3490,52 +3525,99 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
         f"launch counts over the train run: {json.dumps(counts)}")
     if trainer.retries or trainer.step != TRAIN_STEPS:
         raise AssertionError(f"trainer made {trainer.retries} retries")
-    check_k1_route(f"train {cfg.name}", counts)
-    check_bwd_route(f"train {cfg.name}", bwd_launches({key: 0 for key in counts}, counts))
+    if want[KERNELS["K1"]["counter"]]:
+        check_k1_route(f"train {cfg.name}", counts)
+        check_bwd_route(f"train {cfg.name}", bwd_launches({key: 0 for key in counts}, counts))
     step_s = trainer.history[-1]["step_time_s"]
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
     train_breakdown(torch, cfg, step_s, batch // micro, seq, micro)
 
-    # Kernel path against plain path: one step's gradients, same weights
-    # and batch, 2 layers at full width, sequence 1024, batch 1.
-    cfg2 = dataclasses.replace(cfg_full, n_layers=2)
-    params = transformer.init_model(cfg2, seed=seed + 1, device="cuda",
-                                    param_dtype=torch.float32)
-    batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=seed + 1,
-                                                  vocab=cfg2.vocab)).batch_at(0), "cuda")
+    check_train_grads(torch, cfg_full, seed + 1)
+    return counts
+
+
+def check_train_grads(torch, cfg_full, seed):
+    """One step's gradients of ``cfg_full`` at 2 layers, sequence 1024,
+    batch 1, from the weights and batch of ``seed``, bf16 compute, on the
+    kernel path (``cuda``), on the plain path (``plain``: ``attn_impl`` and
+    ``ssm.impl`` "plain") and on the plain path in float32 compute
+    (``float32``). The loss is held to the plain path's within
+    TRAIN_LOSS_TOL. Each gradient leaf is held by its relative norm: the
+    kernel path's distance from the plain path within TRAIN_GRAD_TOL; on a
+    hybrid stack the kernel path's distance from float32 within
+    TRAIN_GRAD_TOL of the plain path's own (``grad_bars``). A non-finite
+    loss or gradient fails."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.models import transformer
+    from repro_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    if cfg.ssm is not None:
+        plain = dataclasses.replace(plain, ssm=dataclasses.replace(cfg.ssm, impl="plain"))
+    runs = {"cuda": cfg, "plain": plain,
+            "float32": dataclasses.replace(plain, compute_dtype="float32")}
+    params = transformer.init_model(cfg, seed=seed, device="cuda", param_dtype=torch.float32)
+    batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=seed,
+                                                  vocab=cfg.vocab)).batch_at(0), "cuda")
     grads, losses = {}, {}
-    for name, c in (("cuda", cfg2), ("plain", dataclasses.replace(cfg2, attn_impl="plain"))):
+    for name, c in runs.items():
         g, loss, _ = ts._accumulate_grads(params, c, batch, ts.TrainConfig())
         torch.cuda.synchronize()
-        grads[name], losses[name] = g, float(loss)
+        grads[name] = {tree_lib.key_of(p): t.clone() for p, t in tree_lib.leaves_with_paths(g)}
+        losses[name] = float(loss)
+    del params
+    hybrid = any(spec.kind == "hybrid" for spec in cfg.layer_pattern)
     rel_loss = abs(losses["cuda"] - losses["plain"]) / abs(losses["plain"])
-    rels = {tree_lib.key_of(path): float((a - b).float().norm() / b.float().norm())
-            for (path, a), b in zip(tree_lib.leaves_with_paths(grads["cuda"]),
-                                    tree_lib.leaves(grads["plain"]))}
-    worst = max(rels, key=rels.get)
+    dist, held = grad_bars(grads, hybrid)
+    worst = max(held, key=held.get)
+    near = max(dist["cuda-plain"], key=dist["cuda-plain"].get)
     log(f"train {cfg.name} step-1 kernel path vs plain path: loss {losses['cuda']:.6f} vs "
         f"{losses['plain']:.6f} (relative {rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); gradient "
-        f"||g_cuda - g_plain|| / ||g_plain|| max {rels[worst]:.3e} at {worst} (tol "
-        f"{TRAIN_GRAD_TOL}), median {statistics.median(rels.values()):.3e}")
-    if rel_loss > TRAIN_LOSS_TOL or rels[worst] > TRAIN_GRAD_TOL or not math.isfinite(
-            losses["cuda"]):
+        f"||g_cuda - g_plain|| / ||g_plain|| max {dist['cuda-plain'][near]:.3e} at {near}, "
+        f"median {statistics.median(dist['cuda-plain'].values()):.3e}; against float32 "
+        f"(||g - g_f32|| / ||g_f32||) the kernel path {dist['cuda-f32'][worst]:.3e}, the plain "
+        f"path {dist['plain-f32'][worst]:.3e} at {worst}; held: "
+        f"{'the kernel path past the plain path from float32' if hybrid else 'kernel vs plain'}"
+        f" {held[worst]:.3e} at {worst} (tol {TRAIN_GRAD_TOL})")
+    if (rel_loss > TRAIN_LOSS_TOL or held[worst] > TRAIN_GRAD_TOL
+            or not all(map(math.isfinite, [*losses.values(), *held.values(),
+                                           *dist["cuda-f32"].values()]))):
         raise AssertionError("train: kernel path disagrees with the plain path")
-    return counts
+
+
+def grad_bars(grads, hybrid):
+    """``grads`` maps ``cuda`` / ``plain`` / ``float32`` to {leaf: gradient}.
+    Returns the relative-norm distances ``cuda-plain`` (over the plain
+    gradient), ``cuda-f32`` and ``plain-f32`` (over the float32 gradient),
+    each {leaf: distance}, and the distance held against TRAIN_GRAD_TOL:
+    ``cuda-plain``, or on a hybrid stack ``cuda-f32 - plain-f32``."""
+    def rel(a, b):
+        return {k: float((grads[a][k] - r).float().norm() / r.float().norm())
+                for k, r in grads[b].items()}
+
+    dist = {"cuda-plain": rel("cuda", "plain"), "cuda-f32": rel("cuda", "float32"),
+            "plain-f32": rel("plain", "float32")}
+    if not hybrid:
+        return dist, dist["cuda-plain"]
+    return dist, {k: v - dist["plain-f32"][k] for k, v in dist["cuda-f32"].items()}
 
 
 def train_breakdown(torch, cfg, step_s, b, s, micro):
     """K1, K5 and K6 at the train step's shapes (``b`` rows of ``s`` tokens
     per microbatch, causal) and with the plan its attention layers build,
-    once per distinct window of ``cfg``'s layers, with its softcap: each held
-    against its plain version on the same inputs (K1 per row, K5 / K6 per
-    (b, head) slice, ROW_TOL); then each timed alone (CUDA-event medians, L2
-    flushed) beside the float32 LM head, times its count per step, against
-    the measured step time: a breakdown by parts, not a profile. SDPA's
-    forward and backward are timed beside K1 and K5 + K6 where no softcap
-    or window keeps it from computing the same function. These launches
-    come after the train run's counts were read."""
+    once per distinct window of ``cfg``'s attention layers, with its
+    softcap: each held against its plain version on the same inputs (K1 per
+    row, K5 / K6 per (b, head) slice, ROW_TOL); then each timed alone
+    (CUDA-event medians, L2 flushed) beside one SSM block
+    (``ssm_breakdown``) and the float32 LM head, times its count per step,
+    against the measured step time: a breakdown by parts, not a profile.
+    SDPA's forward and backward are timed beside K1 and K5 + K6 where no
+    softcap or window keeps it from computing the same function. These
+    launches come after the train run's counts were read."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import plan as plan_lib
@@ -3548,61 +3630,75 @@ def train_breakdown(torch, cfg, step_s, b, s, micro):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    windows = [spec.window for spec in cfg.layer_specs()]
+    specs = cfg.layer_specs()
+    windows = [spec.window for spec in specs if spec.kind in ("attn", "hybrid")]
+    n_ssm = sum(spec.kind in ("mamba", "hybrid") for spec in specs)
     cap = cfg.attn_softcap
-    q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
     attn = k1_ms = 0.0
     torch.cuda.reset_peak_memory_stats()     # the train run's peak was read already
     log(f"train {cfg.name} parts: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         "before the plain versions")
-    for window in sorted(set(windows), key=lambda w: -1 if w is None else w):
-        n = windows.count(window)
-        plan = plan_lib.plan_for_config(cfg, (b, hq, hkv, s, s, d), device_type="cuda",
-                                        dtype_bytes=2, phase=plan_lib.PREFILL, window=window)
-        kw = dict(mapping=plan.mapping, causal=True, window=window, softcap=cap)
-        plain_kw = dict(causal=True, window=window, softcap=cap)
-        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        delta = (do.float() * o.float()).sum(-1)
-        dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **plain_kw)
-        e_o, e_l = row_err(o, o_ref), err(lse, lse_ref)
-        del o_ref, lse_ref
-        ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **plain_kw)
-        rel = [slice_err(g, r) for g, r in zip((dq, dk, dv), ref)]
-        del ref, dq, dk, dv
-        label = f"B {b} S {s} causal window {window} softcap {cap} ({n} of {len(windows)} layers)"
-        log(f"train {cfg.name} shape {label}, {plan.mapping}: K1 o row-relative {e_o:.3e} lse "
-            f"{e_l:.3e}; K5/K6 per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
-            f"{rel[2]:.3e} (tol {ROW_TOL:.3e}, lse {LSE_TOL}); peak of the check "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if e_o > ROW_TOL or e_l > LSE_TOL or max(rel) > ROW_TOL:
-            raise AssertionError("K1/K5/K6 at the train shape disagree with their plain "
-                                 "versions")
-        t_k1 = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
-        k1_bound = k1_bound_of(q, k, v, o, lse, causal=True, window=window)
-        t_k5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
-        t_k6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
-        lib = ""
-        if cap is None and window is None:
-            t_sdpa = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-            group = hq // hkv
-            leaves = [t.detach().requires_grad_(True)
-                      for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
-            out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
-            t_sdpa_bwd = timer.ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                              retain_graph=True))
-            del leaves, out
-            lib = f"; library sdpa {t_sdpa:.4f} ms, sdpa backward {t_sdpa_bwd:.4f} ms"
-        log(f"train {cfg.name} parts at {label} per microbatch: K1 {t_k1:.4f} ms (bound "
-            f"{k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.4f} ms, K6 {t_k6:.4f} ms (pair "
-            f"{t_k5 + t_k6:.4f} ms){lib}")
-        attn += micro * n * (2 * t_k1 + t_k5 + t_k6)
-        k1_ms += micro * n * 2 * t_k1
-        del o, lse, delta
-    del q, k, v, do
+    if windows:
+        q, k, v, do = (randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d),
+                       randn(b, hq, s, d))
+        for window in sorted(set(windows), key=lambda w: -1 if w is None else w):
+            n = windows.count(window)
+            plan = plan_lib.plan_for_config(cfg, (b, hq, hkv, s, s, d), device_type="cuda",
+                                            dtype_bytes=2, phase=plan_lib.PREFILL, window=window)
+            kw = dict(mapping=plan.mapping, causal=True, window=window, softcap=cap)
+            plain_kw = dict(causal=True, window=window, softcap=cap)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **plain_kw)
+            e_o, e_l = row_err(o, o_ref), err(lse, lse_ref)
+            del o_ref, lse_ref
+            ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **plain_kw)
+            rel = [slice_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+            del ref, dq, dk, dv
+            label = (f"B {b} S {s} causal window {window} softcap {cap} ({n} of "
+                     f"{len(windows)} layers)")
+            log(f"train {cfg.name} shape {label}, {plan.mapping}: K1 o row-relative {e_o:.3e} lse "
+                f"{e_l:.3e}; K5/K6 per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
+                f"{rel[2]:.3e} (tol {ROW_TOL:.3e}, lse {LSE_TOL}); peak of the check "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if e_o > ROW_TOL or e_l > LSE_TOL or max(rel) > ROW_TOL:
+                raise AssertionError("K1/K5/K6 at the train shape disagree with their plain "
+                                     "versions")
+            t_k1 = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+            k1_bound = k1_bound_of(q, k, v, o, lse, causal=True, window=window)
+            t_k5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+            t_k6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            lib = ""
+            if cap is None and window is None:
+                t_sdpa = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+                group = hq // hkv
+                leaves = [t.detach().requires_grad_(True)
+                          for t in (q, k.repeat_interleave(group, 1),
+                                    v.repeat_interleave(group, 1))]
+                out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+                t_sdpa_bwd = timer.ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                                  retain_graph=True))
+                del leaves, out
+                lib = f"; library sdpa {t_sdpa:.4f} ms, sdpa backward {t_sdpa_bwd:.4f} ms"
+            log(f"train {cfg.name} parts at {label} per microbatch: K1 {t_k1:.4f} ms (bound "
+                f"{k1_bound[0]:.4f} ms ({k1_bound[1]})), K5 {t_k5:.4f} ms, K6 {t_k6:.4f} ms (pair "
+                f"{t_k5 + t_k6:.4f} ms){lib}")
+            attn += micro * n * (2 * t_k1 + t_k5 + t_k6)
+            k1_ms += micro * n * 2 * t_k1
+            del o, lse, delta
+        del q, k, v, do
+    ssm_part = ""
+    if n_ssm:
+        fwd, bwd, k9, sbwd = ssm_breakdown(torch, timer, cfg, b, s)
+        blocks, k9_ms, sbwd_ms = (micro * n_ssm * t for t in (2 * fwd + bwd, 2 * k9, sbwd))
+        ssm_part = (f", SSM blocks (forward twice, backward once) {blocks:.1f} ms "
+                    f"({blocks / (step_s * 1e3):.1%}; K9 x 2 {k9_ms:.1f} ms, "
+                    f"{k9_ms / (step_s * 1e3):.1%}; the SSD backward {sbwd_ms:.1f} ms, "
+                    f"{sbwd_ms / (step_s * 1e3):.1%})")
     x = randn(b * s, cfg.d_model, dtype=torch.float32)
     head = randn(cfg.d_model, cfg.vocab, dtype=torch.float32)
     g = randn(b * s, cfg.vocab, dtype=torch.float32)
@@ -3613,8 +3709,85 @@ def train_breakdown(torch, cfg, step_s, b, s, micro):
     log(f"train {cfg.name} step parts: float32 LM head (3 products) {t_head:.3f} ms a "
         f"microbatch; per step: attention kernels {attn:.1f} ms "
         f"({attn / (step_s * 1e3):.1%} of the {step_s * 1e3:.1f} ms step; K1 x 2 "
-        f"{k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}), LM head {head_ms:.1f} ms "
+        f"{k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}){ssm_part}, LM head {head_ms:.1f} ms "
         f"({head_ms / (step_s * 1e3):.1%})")
+
+
+def ssm_breakdown(torch, timer, cfg, b, s):
+    """One Mamba-2 block of ``cfg`` at the train step's microbatch shape
+    (``b`` rows of ``s`` tokens, bf16 activations, float32 weights as the
+    train state keeps them), timed with CUDA events (L2 flushed): the
+    block's forward under grad (``ssm.mamba_train``, K9 through
+    ``ssd.SSDIntraChunk``) and its backward by autograd; and on the block's
+    own scan inputs K9 alone and the written-out backward alone
+    (``ssd.ssd_intra_chunk_bwd``). The rest of the block is its PyTorch ops:
+    projections, conv, the scan's preparation and recurrence, gate, norm.
+    At this shape K9 is held per slice against its plain version (SSD_TOL)
+    and the written-out backward against autograd of the plain version in
+    float64 (SSD_GRAD_TOL). Returns the four times in ms."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    d = cfg.d_model
+    p = ssm.init_mamba(gen, d, cfg.ssm, dtype=torch.float32, device="cuda")
+    leaves = [t.requires_grad_(True) for t in p.values()]
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    out = ssm.mamba_train(p, x, d, cfg.ssm)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    t_fwd = timer.ms(lambda: ssm.mamba_train(p, x, d, cfg.ssm))
+    t_bwd = timer.ms(lambda: torch.autograd.grad(out, [x] + leaves, dout, retain_graph=True))
+    del out
+    with torch.no_grad():
+        _, _, dt, a, xs, bm, cm = ssm._scan_inputs(p, x, d, cfg.ssm)
+        ins = ssd.chunk_inputs(xs, dt, a, bm, cm, cfg.ssm.chunk)
+    del dt, a, xs, bm, cm
+    y, st = ssd.ssd_intra_chunk_seq(*ins)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    ds = torch.randn(st.shape, generator=gen, device="cuda")
+    t_k9 = timer.ms(lambda: ssd.ssd_intra_chunk_seq(*ins))
+    t_sbwd = timer.ms(lambda: ssd.ssd_intra_chunk_bwd(*ins, dy, ds))
+    got = ssd.ssd_intra_chunk_bwd(*ins, dy, ds)
+    perm = (0, 1, 3, 2, 4)
+    ref = [t.double().requires_grad_(True) for t in ins]
+    y_r, s_r = ssd.ssd_intra_chunk_plain(ref[0].permute(perm), ref[1].permute(perm),
+                                         ref[2].permute(perm), ref[3].permute(0, 1, 3, 2))
+    e_y = slice_err(y.permute(perm), y_r.detach())
+    e_s = slice_err(st.transpose(-1, -2), s_r.detach())
+    torch.autograd.backward((y_r.permute(perm), s_r.transpose(-1, -2)),
+                            (dy.double(), ds.double()))
+    del y_r, s_r
+    e_g = {name: float((g.double() - r.grad).abs().max() / r.grad.abs().max())
+           for name, g, r in zip(("xdt", "B", "C", "acum"), got, ref)}
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    nc, q = ins[0].shape[1], ins[0].shape[2]
+    log(f"train {cfg.name} SSM block at B {b} S {s} (H {ins[0].shape[3]}, P "
+        f"{ins[0].shape[4]}, N {ins[1].shape[4]}, {nc} chunks of {q}): forward {t_fwd:.4f} ms, "
+        f"backward {t_bwd:.4f} ms; inside them K9 {t_k9:.4f} ms (per-slice relative y "
+        f"{e_y:.3e} s {e_s:.3e}, tol {SSD_TOL:.0e}), the written-out backward {t_sbwd:.4f} ms "
+        f"(against autograd of the plain version in float64: "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in e_g.items())}, tol {SSD_GRAD_TOL:.0e}), the "
+        f"rest {t_fwd + t_bwd - t_k9 - t_sbwd:.4f} ms")
+    if max(e_y, e_s) > SSD_TOL or max(e_g.values()) > SSD_GRAD_TOL or not finite:
+        raise AssertionError(f"train {cfg.name}: K9 or its written-out backward disagrees "
+                             "with the plain version at the train shape")
+    del ins, ref, got, y, st, dy, ds, p, leaves, x
+    return t_fwd, t_bwd, t_k9, t_sbwd
+
+
+def train_ssm(torch, cfg, layers):
+    """The train phase on full-width ``cfg`` (hymba-1.5b or mamba2-1.3b) at
+    the serve phase's depth cut, ``TRAIN_SEQ``, ``TRAIN_BATCH`` in
+    ``TRAIN_MICRO`` microbatches: K9 forward twice per SSM layer per
+    microbatch (remat), its backward written out in PyTorch ops; hymba's
+    K1 / K5 / K6 at head_dim 64, GQA 25 / 5, window 1024 on 7 of 8 layers."""
+    log(f"== train {cfg.name} ({layers} of {cfg.n_layers} layers, seq {TRAIN_SEQ}, batch "
+        f"{TRAIN_BATCH} in {TRAIN_MICRO} microbatches, bf16 compute, random weights)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train(torch, cfg, layers=layers)
 
 
 def train_gemma(torch, cfg):
@@ -3633,10 +3806,12 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "plan", "extend", "gemma"), default="all",
+    parser.add_argument("--phase", choices=("all", "plan", "extend", "gemma", "ssm"),
+                        default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
                              "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
-                             "the gemma serve runs alone; none prints a result line")
+                             "the gemma serve runs alone, 'ssm' K9's check and the hymba and "
+                             "mamba2 train phases alone; none prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -3692,6 +3867,15 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s (extend checks only: no result line)")
         if failures:
             raise AssertionError("plan part (d): " + "; ".join(failures))
+        return 0
+    ssm_train = ((mamba2_1_3b.CONFIG, MAMBA_LAYERS), (hymba_1_5b.CONFIG, HYMBA_LAYERS))
+    if args.phase == "ssm":
+        log("== kernel K9 (SSD intra-chunk, float32 in 3xTF32)")
+        check_ssd(torch, timer, {})
+        del timer
+        for cfg, layers in ssm_train:
+            train_ssm(torch, cfg, layers)
+        log(f"total {time.perf_counter() - t_start:.1f} s (ssm phase only: no result line)")
         return 0
     gemma = (gemma2_2b.CONFIG, gemma3_1b.CONFIG)
     if args.phase == "gemma":
@@ -3824,6 +4008,9 @@ def main() -> int:
         counts[key] += n
     for cfg in gemma:
         for key, n in train_gemma(torch, cfg).items():
+            counts[key] += n
+    for cfg, layers in ssm_train:
+        for key, n in train_ssm(torch, cfg, layers).items():
             counts[key] += n
     for key, spec in KERNELS.items():
         if counts[spec["counter"]] <= 0:

@@ -20,8 +20,14 @@ and the chunk state as (B, nc, H, P, N), the order the recurrence reads.
 JAX package's (B, nc, H, q, ·), as views. Both launch the kernel for CUDA
 tensors and run :func:`ssd_intra_chunk_plain` for CPU tensors. The cumsum,
 the padding and the inter-chunk recurrence are PyTorch in
-:func:`ssd_chunked_cuda`, as they are jnp in the JAX package. The kernel
-has no backward (nor has the Pallas one): under grad mode it raises.
+:func:`ssd_chunked_cuda`, as they are jnp in the JAX package.
+
+The kernel has no backward (nor has the Pallas one), so the two bare
+entries raise under grad mode. :func:`ssd_chunked_cuda` differentiates
+through :class:`SSDIntraChunk`, an autograd Function whose forward is
+:func:`ssd_intra_chunk_seq` and whose backward, :func:`ssd_intra_chunk_bwd`,
+is written out in PyTorch ops: the counterpart of JAX's autodiff of the
+XLA SSD, which the reference trains through.
 """
 
 from __future__ import annotations
@@ -140,6 +146,72 @@ def ssd_intra_chunk_seq(xdt, bh, ch, acum) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, s
 
 
+def ssd_intra_chunk_bwd(xdt, bq, cq, acum, dy, ds
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`ssd_intra_chunk_seq`'s inputs ``(xdt, bq, cq,
+    acum)`` from those of its outputs, ``dy`` (B,nc,q,H,P) and ``ds``
+    (B,nc,H,P,N), in float32, each in its input's layout. Per chunk and
+    head h of group g, with ``L_ij = exp(acum_i - acum_j)`` on j <= i (0
+    above), ``M_ij = (C_i.B_j) L_ij``, ``w_j = exp(acum_last - acum_j)``:
+
+      G_ij    = (dy_i . xdt_j) L_ij
+      dxdt_j  = sum_i M_ij dy_i + w_j (ds B_j)
+      dC_i    = sum_j G_ij B_j,  dB_j = sum_i G_ij C_i + w_j (ds^T xdt_j),
+                both summed over the heads of g
+      dacum_i = sum_j Q_ij - sum_j Q_ji  with Q_ij = G_ij (C_i.B_j),
+                plus the decay to the chunk's end: -dw_i w_i at every row and
+                sum_j dw_j w_j at the last, dw_j = xdt_j . (ds B_j).
+
+    L is masked in log space before the exp, as the forward is: above the
+    diagonal acum_i - acum_j > 0 overflows, and 0 * inf would be NaN."""
+    f32 = torch.float32
+    b, nc, q, h, p = xdt.shape
+    g, n = bq.shape[3], bq.shape[4]
+    r = h // g
+    perm = (0, 1, 3, 2, 4)
+    x = xdt.to(f32).permute(perm).reshape(b, nc, g, r, q, p)            # (B,nc,G,R,q,P)
+    dyh = dy.to(f32).permute(perm).reshape(b, nc, g, r, q, p)
+    bg = bq.to(f32).permute(perm)                                        # (B,nc,G,q,N)
+    cg = cq.to(f32).permute(perm)
+    a = acum.to(f32).permute(0, 1, 3, 2).reshape(b, nc, g, r, q)        # (B,nc,G,R,q)
+    dsh = ds.to(f32).reshape(b, nc, g, r, p, n)
+
+    causal = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
+    seg = torch.where(causal, a[..., :, None] - a[..., None, :],
+                      torch.full((), NEG_INF, dtype=f32, device=xdt.device))
+    lmat = torch.exp(seg)                                                # (B,nc,G,R,q,q)
+    cb = (cg @ bg.transpose(-1, -2))[:, :, :, None]                      # (B,nc,G,1,q,q)
+    gmat = (dyh @ x.transpose(-1, -2)) * lmat                            # G = dM . L
+    w = torch.exp(a[..., -1:] - a)                                       # (B,nc,G,R,q)
+    t = bg[:, :, :, None] @ dsh.transpose(-1, -2)                        # ds B_j: (..., q, P)
+    dx = (cb * lmat).transpose(-1, -2) @ dyh + w[..., None] * t
+    gsum = gmat.sum(3)                                                   # (B,nc,G,q,q)
+    dc = gsum @ bg
+    db = gsum.transpose(-1, -2) @ cg + ((w[..., None] * x) @ dsh).sum(3)
+    qmat = gmat * cb
+    dww = (x * t).sum(-1) * w                                            # dw_j w_j
+    da = qmat.sum(-1) - qmat.sum(-2) - dww
+    da[..., -1] += dww.sum(-1)
+    return (dx.reshape(b, nc, h, q, p).permute(perm), db.permute(perm),
+            dc.permute(perm), da.reshape(b, nc, h, q).permute(0, 1, 3, 2))
+
+
+class SSDIntraChunk(torch.autograd.Function):
+    """:func:`ssd_intra_chunk_seq` under autograd: the forward launches K9
+    for CUDA tensors (the plain version for CPU ones; grad mode is off
+    inside, so the wrapper's refusal lets it through) and the backward is
+    :func:`ssd_intra_chunk_bwd`."""
+
+    @staticmethod
+    def forward(ctx, xdt, bq, cq, acum):
+        ctx.save_for_backward(xdt, bq, cq, acum)
+        return ssd_intra_chunk_seq(xdt, bq, cq, acum)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return ssd_intra_chunk_bwd(*ctx.saved_tensors, dy, ds)
+
+
 def ssd_intra_chunk(xdt, bh, ch, acum) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9 in the JAX package's layout: xdt (B,nc,H,q,P), bh / ch
     (B,nc,G,q,N) with G dividing H (G == H: one per head, as the JAX
@@ -212,8 +284,10 @@ def ssd_chunked_cuda(x, dt, a, b_mat, c_mat, chunk: int,
     (B, H, P, N) float32)``. Same padding (dt = 0 keeps the state exact)
     and initial-state semantics. The kernel takes its inputs and gives its
     outputs in the layouts this function makes and reads: no permute, no
-    repeat of B and C per head."""
+    repeat of B and C per head. Differentiable in every input: the
+    intra-chunk block through :class:`SSDIntraChunk`, the rest through
+    autograd."""
     xdt, bq, cq, acum = chunk_inputs(x, dt, a, b_mat, c_mat, chunk)
-    y_intra, s_c = ssd_intra_chunk_seq(xdt, bq, cq, acum)
+    y_intra, s_c = SSDIntraChunk.apply(xdt, bq, cq, acum)
     y, h_final = inter_chunk(y_intra, s_c, cq, acum, x.shape[1], h0)
     return y.to(x.dtype), h_final

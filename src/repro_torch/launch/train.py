@@ -3,13 +3,17 @@
 The flags are those of ``repro.launch.train``, plus ``--device`` (default
 ``cuda``); ``--smoke --device cpu`` runs the plain PyTorch path on the CPU.
 On the card attention runs the hand-written FA2 kernels: K1 forward, K5
-(dQ) and K6 (dK/dV) backward. Checkpointing, resume and the data pipeline
-are the trainer's.
+(dQ) and K6 (dK/dV) backward; the Mamba-2 blocks of mamba2 and hymba run
+the SSD intra-chunk kernel K9 forward, with its backward written out in
+PyTorch ops. Checkpointing, resume and the data pipeline are the trainer's.
 
 Examples:
   python -m repro_torch.launch.train --arch llama3-8b --smoke --device cpu \
       --steps 20 --seq-len 64 --global-batch 8 --ckpt-dir /tmp/run1
   python -m repro_torch.launch.train --arch llama3-8b --smoke --steps 50
+  python -m repro_torch.launch.train --arch hymba-1.5b --smoke --device cpu
+  python -m repro_torch.launch.train --arch mamba2-1.3b --steps 2 --seq-len 1024 \
+      --global-batch 2
 """
 
 from __future__ import annotations

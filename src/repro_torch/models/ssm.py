@@ -13,7 +13,9 @@ linear recurrence over chunk states.
 :func:`ssd_chunked` is the plain version (the CPU path, and the reference
 the card compares K9 against); ``kernels.ssd.ssd_chunked_cuda`` runs the
 intra-chunk block on K9. :func:`_ssd` picks one by ``SSMConfig.impl`` and
-the device of the tensors. A layer's weights are a dict
+the device of the tensors. :func:`mamba_train` is the training form,
+:func:`mamba_block` the prefill's (with the decode cache), and
+:func:`mamba_decode` one token. A layer's weights are a dict
 ``{"win", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "norm",
 "wout"}``; ``a_log``, ``d_skip``, ``dt_bias`` and ``norm`` stay float32,
 as the JAX package reads them in float32.
@@ -183,6 +185,31 @@ def _finish(p, y, xs, z, d_in):
     return y @ p["wout"].to(y.dtype)
 
 
+def _scan_inputs(p, x, d_model: int, cfg: SSMConfig):
+    """A full-sequence block up to the scan: the gate z, the conv channels
+    before the conv (the decode cache's history), dt, a, and the scan's x,
+    B and C, cut from the conv's output."""
+    d_in, h, g, n, _ = _dims(d_model, cfg)
+    b, length, _ = x.shape
+    proj = x @ p["win"].to(x.dtype)
+    z, xbc, dt, a = _split_inputs(p, proj, d_model, cfg)
+    xbc_conv = _causal_conv(xbc, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
+    xs = xbc_conv[..., :d_in].reshape(b, length, h, d_in // h)
+    b_mat = xbc_conv[..., d_in: d_in + g * n].reshape(b, length, g, n)
+    c_mat = xbc_conv[..., d_in + g * n:].reshape(b, length, g, n)
+    return z, xbc, dt, a, xs, b_mat, c_mat
+
+
+def mamba_train(p: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig) -> torch.Tensor:
+    """The training form of the block, x (B, L, D) -> (B, L, D): the JAX
+    package's ``mamba_block``, over the whole unpadded sequence, with no
+    decode cache. Differentiable in x and every weight; on the card the
+    intra-chunk block runs K9 forward (``ssd.SSDIntraChunk``)."""
+    z, _, dt, a, xs, b_mat, c_mat = _scan_inputs(p, x, d_model, cfg)
+    y, _ = _ssd(cfg, x)(xs, dt, a, b_mat, c_mat, cfg.chunk)
+    return _finish(p, y, xs, z, _dims(d_model, cfg)[0])
+
+
 def mamba_block(p: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig, *,
                 last_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, dict]:
@@ -197,14 +224,9 @@ def mamba_block(p: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig, *,
     own padding), and the conv history is the ``w - 1`` pre-activation rows
     that end at ``last_positions``, zeros before position 0. Outputs at
     real positions do not depend on the padding."""
-    d_in, h, g, n, w = _dims(d_model, cfg)
+    d_in, _, _, _, w = _dims(d_model, cfg)
     b, length, _ = x.shape
-    proj = x @ p["win"].to(x.dtype)
-    z, xbc, dt, a = _split_inputs(p, proj, d_model, cfg)
-    xbc_conv = _causal_conv(xbc, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
-    xs = xbc_conv[..., :d_in].reshape(b, length, h, d_in // h)
-    b_mat = xbc_conv[..., d_in: d_in + g * n].reshape(b, length, g, n)
-    c_mat = xbc_conv[..., d_in + g * n:].reshape(b, length, g, n)
+    z, xbc, dt, a, xs, b_mat, c_mat = _scan_inputs(p, x, d_model, cfg)
     if last_positions is None:
         last = torch.full((b,), length - 1, dtype=torch.long, device=x.device)
     else:

@@ -3,7 +3,7 @@ final norm, LM head.
 
 Port of ``repro.models.transformer`` for the ``attn``, ``mamba`` and
 ``hybrid`` layer kinds with ``ffn="mlp"`` or ``"none"`` (llama, mamba2,
-hymba, gemma): ``forward`` (training, attention stacks only), ``prefill`` and
+hymba, gemma): ``forward`` (training), ``prefill`` and
 ``decode_step`` over paged pools or dense stripes. A Python loop over
 layers takes the place of the JAX package's scan over periods. Parameters
 are a dict::
@@ -234,25 +234,29 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 
 def _train_layer(lp, x, cfg: ModelConfig, spec):
-    x = x + attn_lib.attention_block(lp, layers.rmsnorm(lp["ln1"], x), cfg, spec)
-    return x + _mlp(lp, x)
+    h = layers.rmsnorm(lp["ln1"], x)
+    ya = attn_lib.attention_block(lp, h, cfg, spec) if spec.kind in _ATTN_KINDS else None
+    ym = (ssm_lib.mamba_train(lp["mamba"], h, cfg.d_model, cfg.ssm)
+          if spec.kind in _SSM_KINDS else None)
+    return _mix(lp, x, spec, ya, ym)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: tokens (B, S) -> (logits (B, S, V) float32, aux).
 
-    With ``remat`` each layer runs under ``torch.utils.checkpoint`` and is
-    recomputed in the backward pass, as the JAX package's ``jax.checkpoint``
-    recomputes each period: only the layer inputs stay alive, and the
-    attention forward (K1) runs twice per layer. Attention + MLP stacks
-    only: Mamba-2 training waits for a backward of K9, which the JAX
-    package does not have either."""
+    Every layer kind the port takes (``attn``, ``mamba``, ``hybrid``; ``ffn``
+    ``"mlp"`` or ``"none"``), as the JAX package's ``forward`` trains them:
+    attention through ``ops.flash_attention`` (K1 forward, K5 / K6
+    backward on the card), the SSM through ``ssm.mamba_train`` (K9 forward
+    on the card, its backward written out in PyTorch ops, as the JAX
+    package differentiates its XLA SSD), hymba's two mixers normalized and
+    averaged. With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
+    the JAX package's ``jax.checkpoint`` recomputes each period: only the
+    layer inputs stay alive, and K1 and K9 run twice per layer."""
+    _check_supported(cfg)
     specs = cfg.layer_specs()
-    if any(spec.kind != "attn" or spec.ffn != "mlp" for spec in specs):
-        raise NotImplementedError(
-            "training of mamba / hybrid / ffn='none' stacks is not ported yet "
-            "(ROADMAP Queue A, other model families: K9 has no backward)")
     x = _embed_tokens(params, cfg, tokens)
     for spec, lp in zip(specs, params["layers"]):
         if remat:

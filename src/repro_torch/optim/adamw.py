@@ -66,14 +66,22 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_lib.leaves(tree)))
 
 
+#: The Mamba-2 vectors, which the JAX package names ``conv_b_r``,
+#: ``a_log_r``, ``d_skip_r`` and ``dt_bias_r`` and ``from_jax_params``
+#: carries across without the ``_r``.
+_SSM_VECTORS = frozenset(("conv_b", "a_log", "d_skip", "dt_bias"))
+
+
 def _decayable(path) -> bool:
-    """No decay on norms / scalars / 1-D gains: the last key of the path
-    ending in ``_r``, holding ``norm`` or starting with ``ln`` (the port's
-    ``ln1``, ``ln2``, ``ln_f``). ``embed``, ``head`` and the matmul weights
-    decay, as in the JAX package."""
+    """No decay on norms / scalars / 1-D vectors: the last key of the path
+    ending in ``_r``, holding ``norm``, starting with ``ln`` (the port's
+    ``ln1``, ``ln2``, ``ln_f``) or naming a Mamba-2 vector. ``embed``,
+    ``head`` and the matmul weights decay: the leaves the JAX package
+    decays."""
     for entry in reversed(path):
         if isinstance(entry, str):
-            return not (entry.endswith("_r") or "norm" in entry or entry.startswith("ln"))
+            return not (entry.endswith("_r") or entry in _SSM_VECTORS or "norm" in entry
+                        or entry.startswith("ln"))
     return True
 
 

@@ -56,9 +56,9 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     logits, aux = transformer.forward(params, cfg, batch["tokens"], remat=tcfg.remat)
     loss, metrics = layers.softmax_cross_entropy(logits, batch["targets"], batch["mask"],
                                                  z_loss=cfg.z_loss)
-    # Only llama-family (dense MLP) layers are ported, so the MoE losses are
-    # the zeros of the aux dict: the loss is the cross-entropy alone. The
-    # MoE coefficients come back with the MoE port (ROADMAP Queue A).
+    # No MoE layer is ported, so the MoE losses are the zeros of the aux
+    # dict: the loss is the cross-entropy alone. The MoE coefficients come
+    # back with the MoE port (ROADMAP Queue A).
     metrics = dict(metrics)
     metrics.update(moe_lb_loss=aux["moe_lb_loss"], moe_dropped=aux["moe_dropped_frac"])
     return loss, metrics

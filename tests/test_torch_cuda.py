@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b
+from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
 from repro_torch.kernels import decode_attention as dd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
@@ -1000,6 +1000,100 @@ def test_ssd_intra_chunk_reruns_are_bitwise_equal(cuda):
         y2, s2 = ssd_kernel.ssd_intra_chunk_seq(*args)
         differ += not (torch.equal(y, y2) and torch.equal(s, s2))
     assert differ == 0
+
+
+@pytest.mark.parametrize("n,p", ssd_kernel.SHAPES)
+def test_ssd_function_runs_k9_forward_and_the_written_out_backward(cuda, n, p):
+    """``ssd.SSDIntraChunk`` on the card: K9 forward (one launch) within
+    SSD_TOL per slice of the plain version, and the written-out backward
+    (float32, TF32 off) within 2e-5 of each gradient's max of autograd of
+    the plain version in float64, at each instantiated (N, P); B and C per
+    group (G 2 over H 4) as slices of one wider row, acum spanning 100 over
+    a chunk (exp above the diagonal overflows float32)."""
+    rng = np.random.default_rng(68)
+    b, nc, q, h, g = 1, 2, 256, 4, 2
+    xdt, bq, cq, _ = _ssd_seq_inputs(rng, cuda, b, nc, q, h, p, g, n, "g2")
+    steps = torch.from_numpy(rng.exponential(1.0, (b, nc, q, h)).astype(np.float32)).to(cuda)
+    acum = -torch.cumsum(steps, 2) / steps.sum(2, keepdim=True) * 100.0
+    dy = _randn(rng, (b, nc, q, h, p), cuda)
+    ds = _randn(rng, (b, nc, h, p, n), cuda)
+    ins = [t.detach().requires_grad_(True) for t in (xdt, bq, cq, acum)]
+    kernels.reset_launch_counts()
+    y, s = ssd_kernel.SSDIntraChunk.apply(*ins)
+    torch.autograd.backward((y, s), (dy, ds))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_intra_chunk_tc"] == 1
+    perm = (0, 1, 3, 2, 4)
+    ref = [t.detach().double().requires_grad_(True) for t in (xdt, bq, cq, acum)]
+    y_r, s_r = ssd_kernel.ssd_intra_chunk_plain(ref[0].permute(perm), ref[1].permute(perm),
+                                                ref[2].permute(perm), ref[3].permute(0, 1, 3, 2))
+    torch.autograd.backward((y_r.permute(perm), s_r.transpose(-1, -2)),
+                            (dy.double(), ds.double()))
+    assert _slice_rel(y.permute(perm).double(), y_r) <= SSD_TOL
+    assert _slice_rel(s.transpose(-1, -2).double(), s_r) <= SSD_TOL
+    for name, t, r in zip(("xdt", "bq", "cq", "acum"), ins, ref):
+        assert torch.isfinite(t.grad).all(), name
+        err = float((t.grad.double() - r.grad).abs().max())
+        assert err <= 2e-5 * float(r.grad.abs().max()), name
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_train_grads_on_kernels_match_plain(cuda, arch, seed):
+    """mamba2-1.3b and hymba-1.5b at full width, 2 layers, bf16 compute,
+    sequence 1024, weights and batch of ``seed`` (1 is ``chip_smoke.py``'s):
+    one step's gradients through K9 (forward, the written-out backward) and,
+    for hymba, K1 / K5 / K6, against the same step on the plain versions
+    (``attn_impl`` and ``ssm.impl`` "plain") and on the plain versions in
+    float32 compute. As ``chip_smoke.py``'s ``check_train_grads`` holds
+    them: the loss within 1e-2 relative of the plain path's
+    (``TRAIN_LOSS_TOL``), each leaf by its relative norm within 1e-2
+    (``TRAIN_GRAD_TOL``): mamba2's distance from the plain path; hymba's
+    distance from float32 past the plain path's own, since hymba's SSM
+    vectors behind the output norms (``dt_bias``, ``a_log``) move by about
+    that bar between any two bf16 paths (``PERF.md`` section 6). Remat: K9
+    and K1 twice per layer, K5 / K6 once."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    full = {"mamba2-1.3b": mamba2_1_3b.CONFIG, "hymba-1.5b": hymba_1_5b.CONFIG}[arch]
+    cfg = dataclasses.replace(full, n_layers=2)
+    plain = dataclasses.replace(cfg, attn_impl="plain",
+                                ssm=dataclasses.replace(cfg.ssm, impl="plain"))
+    runs = {"auto": cfg, "plain": plain,
+            "float32": dataclasses.replace(plain, compute_dtype="float32")}
+    batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=seed,
+                                                  vocab=cfg.vocab)).batch_at(0), cuda)
+    params = transformer.init_model(cfg, seed=seed, device=cuda, param_dtype=torch.float32)
+    grads, losses = {}, {}
+    for impl, c in runs.items():
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, c, batch, ts.TrainConfig())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        grads[impl] = {tree_lib.key_of(p): t.clone() for p, t in tree_lib.leaves_with_paths(g)}
+        losses[impl] = float(loss)
+        if impl == "auto":
+            attn = 2 if arch == "hymba-1.5b" else 0
+            assert counts["ssd_intra_chunk_tc"] == 2 * 2
+            assert counts["flash_attention_fwd_tc"] == 2 * attn
+            assert counts["flash_attention_bwd_dq_tc"] == attn
+            assert counts["flash_attention_bwd_dkv_tc"] == attn
+        else:
+            assert sum(counts.values()) == 0
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-2 * abs(losses["plain"])
+
+    def rel(a, b):
+        return {k: float((grads[a][k] - r).norm() / r.norm()) for k, r in grads[b].items()}
+
+    if arch == "hymba-1.5b":
+        own, ref = rel("auto", "float32"), rel("plain", "float32")
+        held = {k: own[k] - ref[k] for k in own}
+    else:
+        held = rel("auto", "plain")
+    for path, g in grads["auto"].items():
+        assert torch.isfinite(g).all(), path
+        assert held[path] <= 1e-2, path
 
 
 @pytest.mark.parametrize("view", ["contiguous", "xbc_slices"])

@@ -15,6 +15,8 @@ the recurrent oracle as there; 1e-4 on SMOKE logits (float32 end to end,
 logits O(1)), as ``tests/test_torch_model.py``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -246,9 +248,16 @@ def test_short_prompts_zero_fill_the_conv_history(models):
 
 
 def test_training_of_ssm_stacks_waits():
-    params = transformer.init_model(hymba_1_5b.SMOKE, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="K9 has no backward"):
-        transformer.forward(params, hymba_1_5b.SMOKE, torch.zeros((1, 8), dtype=torch.long))
+    """What of an SSM stack's training still waits: an MoE FFN. The hybrid
+    and Mamba-2 stacks themselves train (``forward``), held to the JAX
+    train step in ``tests/test_torch_training.py``."""
+    params = transformer.init_model(hymba_1_5b.SMOKE, seed=0, device="cpu",
+                                    param_dtype=torch.float32)
+    moe = dataclasses.replace(hymba_1_5b.SMOKE,
+                              layer_pattern=(dataclasses.replace(
+                                  hymba_1_5b.SMOKE.layer_pattern[0], ffn="moe"),))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.forward(params, moe, torch.zeros((1, 8), dtype=torch.long))
 
 
 def test_init_model_matches_jax_tree_shapes(models):

@@ -3,7 +3,9 @@
 ``repro.training.train_step`` (the JAX package's own CPU route, jitted) and
 the port's ``make_train_step`` start from the same SMOKE weights
 (``llama3_8b``, and the gemma family's ``gemma2_2b`` with its softcaps and
-``gemma3_1b`` with its qk-norm; carried across by ``from_jax_params(...,
+``gemma3_1b`` with its qk-norm; the SSM stack ``mamba2_1_3b`` and the hybrid
+``hymba_1_5b`` at 80 tokens: two chunks of 32 and a ragged tail, past
+hymba's window of 64; carried across by ``from_jax_params(...,
 param_dtype=float32)``) and take the same batches (``data.pipeline``,
 byte-identical in both packages). Bars, float32 end to end in both:
 
@@ -36,13 +38,15 @@ import torch
 
 from repro.configs import gemma2_2b as jax_gemma2
 from repro.configs import gemma3_1b as jax_gemma3
+from repro.configs import hymba_1_5b as jax_hymba
 from repro.configs import llama3_8b as jax_llama
+from repro.configs import mamba2_1_3b as jax_mamba
 from repro.data.pipeline import DataConfig as JaxDataConfig
 from repro.data.pipeline import make_pipeline as jax_make_pipeline
 from repro.optim.adamw import AdamWConfig as JaxAdamW
 from repro.training import train_step as jax_ts
 
-from repro_torch.configs import gemma2_2b, gemma3_1b, llama3_8b
+from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
 from repro_torch.core import tree as tree_lib
 from repro_torch.models import transformer
 from repro_torch.optim import adamw, grad_compress
@@ -77,14 +81,20 @@ def _port_params(tree, cfg=llama3_8b.SMOKE):
 #: arch -> (the JAX package's SMOKE config, the port's).
 ARCHS = {"llama3-8b": (jax_llama.SMOKE, llama3_8b.SMOKE),
          "gemma2-2b": (jax_gemma2.SMOKE, gemma2_2b.SMOKE),
-         "gemma3-1b": (jax_gemma3.SMOKE, gemma3_1b.SMOKE)}
+         "gemma3-1b": (jax_gemma3.SMOKE, gemma3_1b.SMOKE),
+         "mamba2-1.3b": (jax_mamba.SMOKE, mamba2_1_3b.SMOKE),
+         "hymba-1.5b": (jax_hymba.SMOKE, hymba_1_5b.SMOKE)}
+#: Sequence length of the batches: 32, or this for the arch.
+SEQ_LEN = {"mamba2-1.3b": 80, "hymba-1.5b": 80}
 
 
 @pytest.mark.parametrize("arch,microbatches,compression",
                          [("llama3-8b", 1, "none"), ("llama3-8b", 2, "none"),
                           ("llama3-8b", 1, "int8_ef"), ("gemma2-2b", 1, "none"),
-                          ("gemma3-1b", 1, "none")],
-                         ids=["plain", "microbatches2", "int8_ef", "gemma2-2b", "gemma3-1b"])
+                          ("gemma3-1b", 1, "none"), ("mamba2-1.3b", 1, "none"),
+                          ("hymba-1.5b", 1, "none")],
+                         ids=["plain", "microbatches2", "int8_ef", "gemma2-2b", "gemma3-1b",
+                              "mamba2-1.3b", "hymba-1.5b"])
 def test_train_steps_match_jax(arch, microbatches, compression):
     cfg_j, cfg = ARCHS[arch]
     jt = jax_ts.TrainConfig(optimizer=JaxAdamW(lr=LR, warmup_steps=WARMUP, total_steps=TOTAL),
@@ -96,7 +106,8 @@ def test_train_steps_match_jax(arch, microbatches, compression):
     state = {"params": params, "opt": adamw.init(params, tt.optimizer)}
     if compression == "int8_ef":
         state["ef"] = grad_compress.init_error_feedback(params)
-    pipe = jax_make_pipeline(JaxDataConfig(seq_len=32, global_batch=4, vocab=cfg.vocab))
+    pipe = jax_make_pipeline(JaxDataConfig(seq_len=SEQ_LEN.get(arch, 32), global_batch=4,
+                                           vocab=cfg.vocab))
 
     # Step-1 gradients, leaf by leaf (int8_ef compresses after this point,
     # so its raw gradients are the "plain" case's).
