@@ -194,7 +194,18 @@ and prints no result. Phases, in order (any failure exits non-zero):
      the fused decode on (a)'s engine at ``steps_per_sync`` 1 and 8.
      ``python3 chip_smoke.py --phase
      gemma`` runs the head_dim 256 kernels, these runs and the gemma train
-     phases alone, with no result line;
+     phases alone, with no result line. Then moonshot-v1-16b-a3b at full
+     width and all 48 layers (64 experts top-6 in every layer, MHA: 16
+     heads and 16 KV heads at head_dim 128, so K1-K4 run at a GQA group of
+     1; ``serve_moe``): paged runs (a) and (b) as for llama3-8b, each sync
+     held to the plain path with the expert choices pinned to the plain
+     path's (``RouteTape``: bf16 rounding flips near-tied top-6 choices,
+     which moves logits by more than the kernels' error), then run free
+     (the share of choices that differ and every flip's margin within twice
+     the router logits' error), the fused decode at ``steps_per_sync`` 1
+     and 8, the MoE layers' share of the decode tick (all 48 layers' MoE
+     FFNs and their expert products as CUDA graphs against the tick), and
+     the split model (fitted at a group of 4) against K3 / K4 at group 1;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
      cut to 4 layers (float32 masters and AdamW moments of all 32 layers
      need ~128 GB), sequence 4096, global batch 4 in 2 microbatches, bf16
@@ -222,7 +233,12 @@ and prints no result. Phases, in order (any failure exits non-zero):
      the plain path in float32; on a hybrid stack (hymba) each leaf is held
      by how much further the kernel path lies from float32 than the plain
      path does (``check_train_grads``). ``--phase ssm`` runs K9's check and
-     these two train phases alone, with no result line.
+     these two train phases alone, with no result line. Then
+     moonshot-v1-16b-a3b at full width cut to 2 layers (sequence 4096,
+     batch 4 in 2 microbatches): K1 / K5 / K6 at a GQA group of 1, the MoE
+     aux losses in the loss, one MoE FFN timed at the step's shape, and
+     the 2-layer gradients with the routes pinned. ``--phase moe`` runs the
+     moonshot serve and train phases alone, with no result line.
 
 It ends with one JSON line of per-kernel numbers and, last, the line
 ``{"ok": true, "device": {...}}``.
@@ -298,6 +314,10 @@ TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
 HYMBA_LAYERS, MAMBA_LAYERS = 16, 24   # the serve phase's depth cuts (``main``)
+# moonshot-v1-16b-a3b: served at all 48 layers (56 GB of bf16 weights);
+# trained at 2 (float32 masters, gradients and AdamW moments are 16 B a
+# parameter, 9.1 GB a layer of 64 experts).
+MOONSHOT_LAYERS, MOE_TRAIN_LAYERS = 48, 2
 REPS = 20                  # timed runs per case; the median is reported
 PRIME_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any wrapper's host time
 HQ, HKV, D, PS = 32, 8, 128, 16
@@ -2589,6 +2609,7 @@ def serve(torch, cfg, params, seed=0, device="cuda", rows=8, b_len=4096, b_kw=SE
         stats[label] = (engine.stats(), engine.backend.decode_tick_s)
         engine.close()
         del engine
+        gc.collect()   # an engine sits in reference cycles: free its pool now
     counts = kernels.launch_counts()
     for label, (out, secs, ttfts) in runs.items():
         uids = sorted(o.uid for o in out)
@@ -2678,6 +2699,7 @@ def serve_quantized(torch, cfg, params, bf16_logits, seed=0, device="cuda", rows
                 raise AssertionError(f"serve {kv_dtype} ({label}): not 32 tokens each")
             engine.close()
             del engine, b
+            gc.collect()   # an engine sits in reference cycles: free its pool now
         counts = kernels.launch_counts()
         log(f"launch counts over the {kv_dtype} serve runs: "
             f"{json.dumps({k: v for k, v in counts.items() if v})}")
@@ -2747,6 +2769,7 @@ def serve_gather(torch, cfg, params, seed=0, device="cuda"):
             extends = engine.backend.stats["extend_prefills"]
             engine.close()
             del engine
+            gc.collect()   # an engine sits in reference cycles: free its pool now
             counts = kernels.launch_counts()
         k2 = sum(counts[c] for c in ("paged_flash_prefill", "paged_flash_prefill_q"))
         label = f"serve (a) {'bf16' if kv_dtype == 'fp32' else kv_dtype}, gather route pinned"
@@ -2835,6 +2858,7 @@ def serve_tiered(torch, cfg, params, seed=0, device="cuda"):
         f"median of 10; card: {smi_line()})")
     engine.close()
     del engine, b, payload
+    gc.collect()   # an engine sits in reference cycles: free its pool now
 
 
 def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_len=None,
@@ -2886,6 +2910,7 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_le
         prefills += engine.stats().prefill_launches
         engine.close()
         del engine
+        gc.collect()   # an engine sits in reference cycles: free its pool now
     counts = kernels.launch_counts()
     for label, (out, secs, group, ttfts, stats) in runs.items():
         ttft = sorted(ttfts[o.uid] * 1e3 for o in out)
@@ -2923,6 +2948,149 @@ def serve_dense(torch, cfg, params, *, prompt_lens, lone_len=None, lone_cache_le
     return counts
 
 
+class RouteTape:
+    """A wrapper in place of ``repro_torch.models.moe.route``, the one
+    routing function of the MoE layers, so that a kernel-path run can take
+    the plain path's expert choices. ``record()``: each call's router
+    logits and expert ids are kept, in call order (clones taken inside a
+    CUDA graph capture hold the replay's values once it has run; ``stop``
+    copies them out). ``replay(tape)``: the i-th call routes to the i-th
+    recorded ids, with the gates the call's own probabilities there,
+    renormalised (so the router's gradient flows as on the plain path);
+    the call's own probabilities feed its aux losses. ``close`` puts the
+    function back."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.inner = moe, moe.route
+        self.mode, self.calls, self.tape, self.i = "off", [], None, 0
+        moe.route = self
+
+    def __call__(self, logits, k):
+        probs, gates, idx = self.inner(logits, k)
+        if self.mode == "replay":
+            if self.i >= len(self.tape) or self.tape[self.i][1].shape != idx.shape:
+                raise AssertionError(f"route replay: call {self.i} does not match the tape")
+            idx = self.tape[self.i][1]
+            self.i += 1
+            gates = probs.gather(1, idx)
+            gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        elif self.mode == "record":
+            self.calls.append((logits.detach().clone(), idx.clone()))
+        return probs, gates, idx
+
+    def record(self):
+        self.mode, self.calls = "record", []
+
+    def replay(self, tape):
+        self.mode, self.tape, self.i = "replay", tape, 0
+
+    def stop(self):
+        """Ends a run: the recorded calls (copied out of any graph memory),
+        or, after a replay, a check that every recorded call was replayed."""
+        if self.mode == "replay" and self.i != len(self.tape):
+            raise AssertionError(f"route replay: {self.i} of {len(self.tape)} calls replayed")
+        calls = [(lg.clone(), ix.clone()) for lg, ix in self.calls]
+        self.mode, self.calls = "off", []
+        return calls
+
+    def close(self):
+        self.moe.route = self.inner
+
+
+def route_flips(torch, plain, free):
+    """The free-running kernel path's routes against the plain path's, call
+    by call: (the share of (token, slot) choices that differ, the largest
+    router-logit difference, the count of differing tokens whose plain
+    margin at the first differing slot, its logit minus the next one's, is
+    more than twice that call's largest router-logit difference)."""
+    if len(plain) != len(free):
+        raise AssertionError(f"route calls differ: {len(plain)} plain, {len(free)} free")
+    differ = total = unexplained = 0
+    worst = 0.0
+    for (lp, ip), (lc, ic) in zip(plain, free):
+        e = float((lc - lp).abs().max())
+        worst = max(worst, e)
+        mask = ip != ic
+        differ += int(mask.sum())
+        total += mask.numel()
+        rows = mask.any(dim=1)
+        if not bool(rows.any()):
+            continue
+        first = mask[rows].int().argmax(dim=1)
+        top = torch.sort(lp[rows], dim=1, descending=True).values
+        margin = (top.gather(1, first[:, None]) - top.gather(1, first[:, None] + 1))[:, 0]
+        unexplained += int((margin > 2 * e).sum())
+    return differ / max(total, 1), worst, unexplained
+
+
+def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
+    """One ``steps_per_sync=1`` sync of an engine on ``c``; ``force`` hands
+    the first-token sample the given ids. Returns each request's prefill
+    logits, fed first token and decode tick logits, and with ``tape`` its
+    routes (``RouteTape.stop``, taken before the engine frees its graphs)."""
+    from repro_torch.serving import LLMEngine, Request, SamplingParams
+
+    greedy = SamplingParams(max_tokens=32)
+    engine = LLMEngine(c, params, steps_per_sync=1, **engine_kw)
+    b = engine.backend
+    first = {}
+
+    def recording(records, flush=b.flush):
+        got = flush(records)
+        for row, x in got.items():
+            uid = b.row_req(row).uid
+            first[uid] = x.float().clone()
+            if force is not None:
+                pick = torch.zeros_like(x)
+                pick[force[uid]] = 1.0
+                got[row] = pick
+        return got
+
+    b.flush = recording
+    for i, p in enumerate(prompts):
+        engine.add_request(Request(uid=i, prompt=p, sampling=greedy))
+    engine.step()
+    torch.cuda.synchronize()
+    rows = {b.row_req(r).uid: r for r in range(b.rows) if b.active[r]}
+    if sorted(rows) != list(range(len(prompts))) or b.stats["decode_traces"] != 1:
+        raise AssertionError(f"compare {label}: the first sync did not decode every "
+                             "request in one graph")
+    run = dict(first=first, fed={u: int(b.out[r][0]) for u, r in rows.items()},
+               last={u: b.last_logits[r].float().clone() for u, r in rows.items()},
+               routes=tape.stop() if tape else None)
+    engine.close()
+    del engine, b
+    gc.collect()   # an engine sits in reference cycles: free its pool now
+    return run
+
+
+def _logit_distance(plain, got, label):
+    """Per stage (prefill, decode tick): the largest |got - plain| over max
+    |plain| of a request, the requests whose greedy id agrees, and the
+    near-ties (ids that differ where the plain margin between them is within
+    twice the row's largest error); an id that differs otherwise raises."""
+    worst, same, flips = {}, {}, 0
+    for stage in ("first", "last"):
+        worst[stage], same[stage] = 0.0, 0
+        for uid, ref in plain[stage].items():
+            x = got[stage][uid]
+            if not bool(x.isfinite().all()):
+                raise AssertionError(f"compare {label}: non-finite {stage} logits, uid {uid}")
+            diff = float((x - ref).abs().max())
+            worst[stage] = max(worst[stage], diff / float(ref.abs().max()))
+            i, j = int(ref.argmax()), int(x.argmax())
+            if i == j:
+                same[stage] += 1
+            elif float(ref[i] - ref[j]) <= 2 * diff:
+                flips += 1
+            else:
+                raise AssertionError(f"compare {label} uid {uid}: {stage} argmax {j} against "
+                                     f"the plain path's {i}, outside the error's reach")
+    return worst, same, flips
+
+
 def compare_sync(torch, cfg, plain_cfg, params, *, label, engine_kw, prompts):
     """The kernel path against the plain path on the main path's own
     decode: one ``steps_per_sync=1`` sync through ``engine.step()``
@@ -2936,72 +3104,62 @@ def compare_sync(torch, cfg, plain_cfg, params, *, label, engine_kw, prompts):
     tick's logits (``backend.last_logits``) must lie within LOGIT_TOL of the
     plain path's max |logit|, and their greedy ids must agree, except where
     the plain logits' margin between the two ids is within twice the row's
-    largest error (a near-tie that an error within tolerance can flip)."""
-    from repro_torch.serving import LLMEngine, Request, SamplingParams
+    largest error (a near-tie that an error within tolerance can flip).
 
-    greedy = SamplingParams(max_tokens=32)
-    runs, force = {}, None
-    for name, c in (("plain", plain_cfg), ("cuda", cfg)):
-        engine = LLMEngine(c, params, steps_per_sync=1, **engine_kw)
-        b = engine.backend
-        first = {}
-
-        def recording(records, b=b, flush=b.flush, first=first, force=force):
-            got = flush(records)
-            for row, x in got.items():
-                uid = b.row_req(row).uid
-                first[uid] = x.float().clone()
-                if force is not None:
-                    pick = torch.zeros_like(x)
-                    pick[force[uid]] = 1.0
-                    got[row] = pick
-            return got
-
-        b.flush = recording
-        for i, p in enumerate(prompts):
-            engine.add_request(Request(uid=i, prompt=p, sampling=greedy))
-        engine.step()
-        torch.cuda.synchronize()
-        rows = {b.row_req(r).uid: r for r in range(b.rows) if b.active[r]}
-        if sorted(rows) != list(range(len(prompts))) or b.stats["decode_traces"] != 1:
-            raise AssertionError(f"compare {label}: the first sync did not decode every "
-                                 "request in one graph")
-        runs[name] = dict(first=first, fed={u: int(b.out[r][0]) for u, r in rows.items()},
-                          last={u: b.last_logits[r].float().clone() for u, r in rows.items()})
-        if force is None:
-            force = runs[name]["fed"]
-        engine.close()
-        del engine, b
-    if runs["cuda"]["fed"] != force:
+    With MoE layers the kernel path first runs with the plain path's expert
+    choices pinned (``RouteTape``): bf16 rounding moves router logits by
+    ~1e-3, enough to flip a top-k choice between near-equal experts and so
+    move the logits by far more than the attention kernels' error. That run
+    is held as above. Then the kernel path runs free: the share of (token,
+    slot) choices that differ from the plain path's and its logit distance
+    are printed without a bar, and every differing choice must be a
+    near-tie: its plain margin within twice that call's largest
+    router-logit difference (``route_flips``)."""
+    tape = RouteTape() if cfg.moe is not None else None
+    kw = dict(label=label, engine_kw=engine_kw, prompts=prompts, tape=tape)
+    free = None
+    try:
+        if tape:
+            tape.record()
+        plain = _sync_run(torch, plain_cfg, params, force=None, **kw)
+        if tape:
+            tape.replay(plain["routes"])
+        cuda = _sync_run(torch, cfg, params, force=plain["fed"], **kw)
+        if tape:
+            tape.record()
+            free = _sync_run(torch, cfg, params, force=plain["fed"], **kw)
+    finally:
+        if tape:
+            tape.close()
+    if cuda["fed"] != plain["fed"]:
         raise AssertionError(f"compare {label}: the kernel engine did not decode the plain "
                              "path's first tokens")
-    worst, same, flips = {}, {}, 0
-    for stage in ("first", "last"):
-        worst[stage], same[stage] = 0.0, 0
-        for uid, ref in runs["plain"][stage].items():
-            got = runs["cuda"][stage][uid]
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"compare {label}: non-finite {stage} logits, uid {uid}")
-            diff = float((got - ref).abs().max())
-            worst[stage] = max(worst[stage], diff / float(ref.abs().max()))
-            i, j = int(ref.argmax()), int(got.argmax())
-            if i == j:
-                same[stage] += 1
-            elif float(ref[i] - ref[j]) <= 2 * diff:
-                flips += 1
-            else:
-                raise AssertionError(f"compare {label} uid {uid}: {stage} argmax {j} against "
-                                     f"the plain path's {i}, outside the error's reach")
+    worst, same, flips = _logit_distance(plain, cuda, label)
     n = len(prompts)
     log(f"compare {label}, one sync at steps_per_sync=1 ({n} requests, engine "
-        f"{json.dumps({k: v for k, v in engine_kw.items() if k != 'device'})}): prefill "
+        f"{json.dumps({k: v for k, v in engine_kw.items() if k != 'device'})}"
+        f"{'; routes pinned to the plain path' if tape else ''}): prefill "
         f"logits max |cuda - plain| / max |plain| = {worst['first']:.3e}, decode tick "
         f"(graph) logits {worst['last']:.3e} (tol {LOGIT_TOL}); greedy ids equal "
         f"{same['first']}/{n} prefill, {same['last']}/{n} decode ({flips} near-ties within "
         "twice the error)")
     if max(worst.values()) > LOGIT_TOL:
         raise AssertionError(f"compare {label}: kernel path disagrees with the plain path")
-    return runs["cuda"]
+    if free is not None:
+        share, router_err, unexplained = route_flips(torch, plain["routes"], free["routes"])
+        fw = {stage: max(float((free[stage][u] - ref).abs().max() / ref.abs().max())
+                         for u, ref in plain[stage].items()) for stage in ("first", "last")}
+        log(f"compare {label}, routes free (informative, no bar): {len(free['routes'])} route "
+            "calls, "
+            f"{share:.4%} of (token, slot) choices differ from the plain path's (every token "
+            f"of each call, pads and frozen rows included), largest router-logit difference "
+            f"{router_err:.3e}; prefill logits {fw['first']:.3e}, decode tick {fw['last']:.3e}; "
+            f"differing choices with a plain margin past twice their call's router-logit "
+            f"difference: {unexplained}")
+        if unexplained:
+            raise AssertionError(f"compare {label}: {unexplained} route choices differ beyond "
+                                 "the router logits' error")
+    return cuda
 
 
 # -- phase 4 (fused decode): CUDA graphs of the decode tick ---------------------
@@ -3059,6 +3217,7 @@ def graph_runs(torch, cfg, params, *, label, engine_kw, prompts, steps):
             raise AssertionError(f"fused {label} steps_per_sync={n!r}: not 32 tokens each")
         engine.close()
         del engine
+        gc.collect()   # an engine sits in reference cycles: free its pool now
     for n in steps[1:]:
         if ids[n] != ids[steps[0]]:
             raise AssertionError(f"fused {label}: steps_per_sync={n!r} ids differ from "
@@ -3143,6 +3302,7 @@ def tick_times(torch, timer, cfg, params, *, label, engine_kw, prompts, host_syn
         out["eager_profile"] = profile_summary(torch, eager, f"{label} eager tick")
     engine.close()
     del engine
+    gc.collect()   # an engine sits in reference cycles: free its pool now
     if profile:
         out["graph8_ms"], out["graph8_profile"] = graph8(torch, timer, cfg, params, label=label,
                                                          engine_kw=engine_kw, prompts=prompts)
@@ -3166,6 +3326,7 @@ def graph8(torch, timer, cfg, params, *, label, engine_kw, prompts):
     summary = profile_summary(torch, replay, f"{label} 8-tick graph replay")
     engine.close()
     del engine
+    gc.collect()   # an engine sits in reference cycles: free its pool now
     return ms8, summary
 
 
@@ -3358,6 +3519,7 @@ def loadgen_phase(torch, cfg, params):
         rates[name] = engine.stats().decode_tok_s
         engine.close()
         del engine
+        gc.collect()   # an engine sits in reference cycles: free its pool now
     if ids["on"] != ids["off"]:
         raise AssertionError("telemetry changed the greedy ids of the closed-loop requests")
     log(f"closed loop, 8 requests of 512 tokens, 32 new each, N 1: greedy ids identical with "
@@ -3440,6 +3602,106 @@ def serve_gemma(torch, timer, cfg, params):
     return counts, fused
 
 
+def serve_moe(torch, timer, cfg, params):
+    """Full-width ``cfg`` (moonshot-v1-16b-a3b: 64 experts top-6, MHA at
+    head_dim 128, so K1-K4 run at a GQA group of 1) on random seeded bf16
+    weights: paged runs (a) and (b) (``serve``: K1, K2 on (a)'s extend wave,
+    K3, then K4 over (b)'s row of 4096 tokens; one sync of each held to the
+    plain path with the routes pinned, then run free, by ``compare_sync``),
+    the fused decode on (a)'s engine at ``steps_per_sync`` 1 and 8
+    (identical ids, eager and graph tick times, a profiler summary of an
+    8-tick replay), and the MoE layers' share of that tick
+    (``moe_tick_share``). Returns the launch counts of the paged runs and the
+    fused decode's (rates, ticks)."""
+    counts, _ = serve(torch, cfg, params)
+    prompts, _ = serve_prompts(cfg)
+    fused = fused_phase(torch, timer, cfg, params, label=f"{cfg.name} paged",
+                        engine_kw=dict(SERVE_PAGED_KW, device="cuda"), prompts=prompts,
+                        profile=True)
+    moe_tick_share(torch, timer, cfg, params, rows=len(prompts), tick_ms=fused[1]["graph_ms"],
+                   tick8_ms=fused[1]["graph8_ms"] / 8)
+    split_model_at(torch, timer, cfg)
+    return counts, fused
+
+
+def split_model_at(torch, timer, cfg):
+    """The split model (fitted at llama3-8b's GQA group of 4) against K3 /
+    K4 at ``cfg``'s heads, at the serve runs' decode shapes: (a)'s 8 rows of
+    560 tokens on 36-page tables and (b)'s one row of 4096 on 260 pages.
+    Each split count of the model's sweep that the table allows up to 8 is
+    held per row against the plain version (ROW_TOL) and timed (CUDA events,
+    queue primed) beside the model's time; the model's pick is marked."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for label, b, mp, n in (("(a) 8 x 560, 36 pages", 8, 36, 560),
+                            ("(b) 1 x 4096, 260 pages", 1, 260, 4096)):
+        est = perf_model.estimate_decode_splits(
+            batch=b, num_q_heads=hq, num_kv_heads=hkv, seq_kv=mp * PS, granule=PS,
+            head_dim=d, dtype_bytes=2, topo=plan_lib.TOPOLOGY)
+        num_pages = 1 + b * mp
+        kp, vp = (torch.randn((hkv, num_pages, PS, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1).reshape(
+            b, mp).to(torch.int32).contiguous()
+        lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        pairs = []
+        for ns, model_s in est.times:
+            if ns > 8:
+                continue
+            o = pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns)
+            e = row_err(o, pd.paged_flash_decode_plain(q, kp, vp, table, lengths,
+                                                       num_splits=ns))
+            if e > ROW_TOL:
+                raise AssertionError(f"split model {cfg.name} {label} num_splits {ns}: "
+                                     f"row-relative {e:.3e} against the plain version")
+            ms = timer.ms(lambda: pd.paged_flash_decode(q, kp, vp, table, lengths,
+                                                        num_splits=ns), primed=True)
+            pairs.append(f"{ns}{'*' if ns == est.num_splits else ''}: model "
+                         f"{model_s * 1e3:.4f} / measured {ms:.4f}")
+        log(f"split model {cfg.name} (Hq {hq}, Hkv {hkv}, D {d}, group {hq // hkv}) at {label}, "
+            f"ms (* the model's pick): {'; '.join(pairs)}; card: {smi_line()}")
+
+
+def moe_tick_share(torch, timer, cfg, params, *, rows, tick_ms, tick8_ms):
+    """Every layer's MoE FFN at the decode tick's shape (``rows`` tokens,
+    capacity 8: the (E, 8, D) buffers of all experts), captured as one CUDA
+    graph and replayed (CUDA events, queue primed), and inside it the three
+    expert products alone (``torch.bmm`` over every expert's weights), each
+    against the one-tick graph (``tick_ms``) and the 8-tick graph's tick
+    (``tick8_ms``), beside the bound of the expert weights' bytes."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    d, e = cfg.d_model, cfg.moe.num_experts
+    cap = moe.capacity_of(rows, cfg.moe)
+    x = torch.randn((rows, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    live = torch.ones((rows, 1), dtype=torch.bool, device="cuda")
+    buf = torch.randn((e, cap, d), generator=gen, device="cuda").to(torch.bfloat16)
+    h = torch.randn((e, cap, cfg.moe.d_ff), generator=gen, device="cuda").to(torch.bfloat16)
+    ps = [lp["moe"] for lp in params["layers"]]
+    with torch.no_grad():
+        ffn_ms = graph_ms(torch, timer, lambda: [moe.moe_ffn(p, x, cfg.moe, valid=live)
+                                                 for p in ps])
+        bmm_ms = graph_ms(torch, timer, lambda: [
+            (torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"]), torch.bmm(h, p["w_down"]))
+            for p in ps])
+    weights = sum(nbytes(p["w_gate"], p["w_up"], p["w_down"]) for p in ps)
+    log(f"decode tick {cfg.name}, {rows} rows, {len(ps)} MoE layers (capacity {cap}, every "
+        f"expert read): the MoE FFNs {ffn_ms:.3f} ms as one graph, the expert products alone "
+        f"{bmm_ms:.3f} ms (bound {weights / PEAK_HBM_BW * 1e3:.3f} ms: {weights / 1e9:.2f} GB of "
+        f"expert weights over 3.35 TB/s); of the one-tick graph's {tick_ms:.3f} ms: "
+        f"{ffn_ms / tick_ms:.1%} / {bmm_ms / tick_ms:.1%}; of the 8-tick graph's "
+        f"{tick8_ms:.3f} ms a tick: {ffn_ms / tick8_ms:.1%} / {bmm_ms / tick8_ms:.1%} (CUDA "
+        f"events, queue primed; card: {smi_line()})")
+
+
 # -- phase 5: train at full width ----------------------------------------------
 
 def train_launches(cfg, micro):
@@ -3509,15 +3771,22 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
     for rec, cum in zip(trainer.history, per_step):
         step_counts = {key: cum[key] - prev[key] for key in want}
         prev = cum
-        log(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
+        moe_part = (f" (with the MoE aux losses: total {rec['loss_total']:.4f}, lb "
+                    f"{rec['moe_lb_loss']:.4f}, dropped {rec['moe_dropped']:.4f}, summed over "
+                    "the layers)" if cfg.moe is not None else "")
+        log(f"train step {rec['step']}: loss {rec['loss']:.4f}{moe_part} grad_norm "
             f"{rec['grad_norm']:.4f} step {rec['step_time_s']:.3f} s, "
             f"{tokens / rec['step_time_s']:.0f} tok/s (host clock, synced); launches "
             f"{json.dumps(step_counts)}")
         if step_counts != want:
             raise AssertionError(f"train launches {step_counts}, expected {want} (remat: "
                                  "K1 and K9 twice per layer per microbatch)")
-        if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
+        keys = ("loss", "grad_norm", "loss_total", "moe_lb_loss", "moe_dropped")
+        if not all(math.isfinite(rec[k]) for k in keys):
             raise AssertionError(f"train step {rec['step']}: non-finite loss or grad norm")
+        if cfg.moe is not None and not rec["loss_total"] > rec["loss"]:
+            raise AssertionError(f"train step {rec['step']}: the MoE aux losses are not in "
+                                 "the loss")
     log(f"train {cfg.name} peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(max_memory_allocated; parameters, gradients and AdamW state {state_gib:.2f} + "
         f"{n_params * 4 / 2**30:.2f} GiB; float32 logits of one microbatch "
@@ -3548,7 +3817,10 @@ def check_train_grads(torch, cfg_full, seed):
     kernel path's distance from the plain path within TRAIN_GRAD_TOL; on a
     hybrid stack the kernel path's distance from float32 within
     TRAIN_GRAD_TOL of the plain path's own (``grad_bars``). A non-finite
-    loss or gradient fails."""
+    loss or gradient fails. With MoE layers the plain path runs first and
+    the other two take its expert choices (``RouteTape``; the forward's and
+    the remat recompute's calls alike): a top-k flip between near-equal
+    experts would move a gradient by far more than the kernels' error."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.data.pipeline import DataConfig, make_pipeline
     from repro_torch.models import transformer
@@ -3558,17 +3830,31 @@ def check_train_grads(torch, cfg_full, seed):
     plain = dataclasses.replace(cfg, attn_impl="plain")
     if cfg.ssm is not None:
         plain = dataclasses.replace(plain, ssm=dataclasses.replace(cfg.ssm, impl="plain"))
-    runs = {"cuda": cfg, "plain": plain,
+    runs = {"plain": plain, "cuda": cfg,
             "float32": dataclasses.replace(plain, compute_dtype="float32")}
     params = transformer.init_model(cfg, seed=seed, device="cuda", param_dtype=torch.float32)
     batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=seed,
                                                   vocab=cfg.vocab)).batch_at(0), "cuda")
     grads, losses = {}, {}
-    for name, c in runs.items():
-        g, loss, _ = ts._accumulate_grads(params, c, batch, ts.TrainConfig())
-        torch.cuda.synchronize()
-        grads[name] = {tree_lib.key_of(p): t.clone() for p, t in tree_lib.leaves_with_paths(g)}
-        losses[name] = float(loss)
+    tape = RouteTape() if cfg.moe is not None else None
+    try:
+        for name, c in runs.items():
+            if tape and name == "plain":
+                tape.record()
+            elif tape:
+                tape.replay(routes)
+            g, loss, _ = ts._accumulate_grads(params, c, batch, ts.TrainConfig())
+            torch.cuda.synchronize()
+            if tape:
+                got = tape.stop()
+                if name == "plain":
+                    routes = got
+            grads[name] = {tree_lib.key_of(p): t.clone()
+                           for p, t in tree_lib.leaves_with_paths(g)}
+            losses[name] = float(loss)
+    finally:
+        if tape:
+            tape.close()
     del params
     hybrid = any(spec.kind == "hybrid" for spec in cfg.layer_pattern)
     rel_loss = abs(losses["cuda"] - losses["plain"]) / abs(losses["plain"])
@@ -3699,6 +3985,12 @@ def train_breakdown(torch, cfg, step_s, b, s, micro):
                     f"({blocks / (step_s * 1e3):.1%}; K9 x 2 {k9_ms:.1f} ms, "
                     f"{k9_ms / (step_s * 1e3):.1%}; the SSD backward {sbwd_ms:.1f} ms, "
                     f"{sbwd_ms / (step_s * 1e3):.1%})")
+    n_moe = sum(spec.ffn == "moe" for spec in specs)
+    if n_moe:
+        fwd, bwd = moe_breakdown(torch, timer, cfg, b, s)
+        part = micro * n_moe * (2 * fwd + bwd)
+        ssm_part += (f", MoE FFNs (forward twice, backward once) {part:.1f} ms "
+                     f"({part / (step_s * 1e3):.1%})")
     x = randn(b * s, cfg.d_model, dtype=torch.float32)
     head = randn(cfg.d_model, cfg.vocab, dtype=torch.float32)
     g = randn(b * s, cfg.vocab, dtype=torch.float32)
@@ -3711,6 +4003,48 @@ def train_breakdown(torch, cfg, step_s, b, s, micro):
         f"({attn / (step_s * 1e3):.1%} of the {step_s * 1e3:.1f} ms step; K1 x 2 "
         f"{k1_ms:.1f} ms, {k1_ms / (step_s * 1e3):.1%}){ssm_part}, LM head {head_ms:.1f} ms "
         f"({head_ms / (step_s * 1e3):.1%})")
+
+
+def moe_breakdown(torch, timer, cfg, b, s):
+    """One MoE FFN of ``cfg`` at the train step's microbatch shape (``b``
+    rows of ``s`` tokens, bf16 activations, float32 weights as the train
+    state keeps them), timed with CUDA events (L2 flushed): its forward
+    under grad and its backward by autograd, and inside the forward the
+    three expert products alone at the capacity's (E, C, D) buffers.
+    Returns the forward's and the backward's ms."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff
+    p = moe.init_moe(gen, d, cfg.moe, dtype=torch.float32, device="cuda")
+    leaves = [t.requires_grad_(True) for t in tree_lib.leaves(p)]
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    out, aux = moe.moe_ffn(p, x, cfg.moe)
+    loss = (out.float() * torch.randn(out.shape, generator=gen, device="cuda")).sum() \
+        + aux["moe_lb_loss"] + aux["moe_z_loss"]
+    t_fwd = timer.ms(lambda: moe.moe_ffn(p, x, cfg.moe))
+    t_bwd = timer.ms(lambda: torch.autograd.grad(loss, [x] + leaves, retain_graph=True))
+    del out, aux, loss
+    cap = moe.capacity_of(b * s, cfg.moe)
+    with torch.no_grad():
+        w = [p[k].to(torch.bfloat16) for k in ("w_gate", "w_up", "w_down")]
+        buf = torch.randn((e, cap, d), generator=gen, device="cuda").to(torch.bfloat16)
+        h = torch.randn((e, cap, f), generator=gen, device="cuda").to(torch.bfloat16)
+        t_bmm = timer.ms(lambda: (torch.bmm(buf, w[0]), torch.bmm(buf, w[1]),
+                                  torch.bmm(h, w[2])))
+    flops = 2 * 3 * e * cap * d * f
+    # Inputs read once (the buffers, h, the weights), outputs written once
+    # (gate and up (E, C, F), down (E, C, D)), bf16.
+    t_min, by = bound(nbytes(buf, h, *w) + 2 * (2 * h.numel() + buf.numel()), flops)
+    log(f"train {cfg.name} MoE FFN at B {b} S {s} ({e} experts top-{cfg.moe.top_k}, capacity "
+        f"{cap}): forward {t_fwd:.4f} ms, backward {t_bwd:.4f} ms; the three expert products "
+        f"alone {t_bmm:.4f} ms (bound {t_min:.4f} ms ({by}), {flops / t_bmm / 1e9:.1f} "
+        "TFLOP/s)")
+    del p, leaves, x, w, buf, h
+    return t_fwd, t_bwd
 
 
 def ssm_breakdown(torch, timer, cfg, b, s):
@@ -3802,16 +4136,43 @@ def train_gemma(torch, cfg):
     return train(torch, cfg, **run)
 
 
+def serve_moonshot(torch, timer, cfg):
+    """``serve_moe`` on ``cfg``'s depth, its weights freed after."""
+    log(f"== serve {cfg.name} ({cfg.n_layers} layers, 64 experts top-6, "
+        "MHA at head_dim 128; paged, fused decode; bf16, random weights)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch, cfg)
+    out = serve_moe(torch, timer, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe(torch, cfg):
+    """The train phase on full-width ``cfg`` (moonshot-v1-16b-a3b) cut to
+    ``MOE_TRAIN_LAYERS``, ``TRAIN_SEQ``, ``TRAIN_BATCH`` in ``TRAIN_MICRO``
+    microbatches: K1 x 2, K5, K6 at a GQA group of 1, the MoE FFNs' aux
+    losses in the loss, the 2-layer gradients with the routes pinned."""
+    log(f"== train {cfg.name} ({MOE_TRAIN_LAYERS} of {cfg.n_layers} layers, seq {TRAIN_SEQ}, "
+        f"batch {TRAIN_BATCH} in {TRAIN_MICRO} microbatches, bf16 compute, random weights)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train(torch, cfg, layers=MOE_TRAIN_LAYERS)
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "plan", "extend", "gemma", "ssm"),
+    parser.add_argument("--phase", choices=("all", "plan", "extend", "gemma", "ssm", "moe"),
                         default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
                              "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
                              "the gemma serve runs alone, 'ssm' K9's check and the hymba and "
-                             "mamba2 train phases alone; none prints a result line")
+                             "mamba2 train phases alone, 'moe' the moonshot-v1-16b-a3b serve "
+                             "(48 layers) and train phases alone; none prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -3825,7 +4186,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
+    from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b,
+                                     moonshot_v1_16b_a3b)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -3876,6 +4238,12 @@ def main() -> int:
         for cfg, layers in ssm_train:
             train_ssm(torch, cfg, layers)
         log(f"total {time.perf_counter() - t_start:.1f} s (ssm phase only: no result line)")
+        return 0
+    moonshot = moonshot_v1_16b_a3b.CONFIG
+    if args.phase == "moe":
+        serve_moonshot(torch, timer, moonshot)
+        train_moe(torch, moonshot)
+        log(f"total {time.perf_counter() - t_start:.1f} s (moe phase only: no result line)")
         return 0
     gemma = (gemma2_2b.CONFIG, gemma3_1b.CONFIG)
     if args.phase == "gemma":
@@ -3991,6 +4359,9 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    moe_counts, fused[f"{moonshot.name} paged"] = serve_moonshot(
+        torch, timer, dataclasses.replace(moonshot, n_layers=MOONSHOT_LAYERS))
+    paths.append(moe_counts)
     del timer
     log("fused decode summary (decode tok/s; host clock for the engine runs, CUDA events "
         f"for the ticks; card: {smi_line()}): " + json.dumps({
@@ -4012,6 +4383,8 @@ def main() -> int:
     for cfg, layers in ssm_train:
         for key, n in train_ssm(torch, cfg, layers).items():
             counts[key] += n
+    for key, n in train_moe(torch, moonshot).items():
+        counts[key] += n
     for key, spec in KERNELS.items():
         if counts[spec["counter"]] <= 0:
             raise AssertionError(f"{key} was not launched on a main path")

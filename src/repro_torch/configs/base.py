@@ -4,9 +4,9 @@ A ``ModelConfig`` fully determines parameter shapes and the layer stack:
 ``n_layers`` repetitions of ``layer_pattern`` (one ``LayerSpec`` per pattern
 position). The fields and defaults match the JAX package's schema so a
 config built here describes the same model. The port serves the
-``attn``, ``mamba`` and ``hybrid`` layer kinds with ``ffn="mlp"`` or
-``"none"`` (llama, mamba2, hymba); MoE, cross-attention and multi-codebook
-fields wait for their slices.
+``attn``, ``mamba`` and ``hybrid`` layer kinds with ``ffn="mlp"``,
+``"moe"`` or ``"none"`` (llama, gemma, mamba2, hymba, moonshot, mixtral);
+cross-attention and multi-codebook fields wait for their slices.
 """
 
 from __future__ import annotations
@@ -24,6 +24,18 @@ class LayerSpec:
     window: Optional[int] = None  # sliding-window size; None = global
     cross_attn: bool = False      # cross-attend to encoder states (VLM)
     rope_theta: float = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Top-k routed experts (``models/moe.py``)."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff: int = 0                # per-expert hidden dim
+    capacity_factor: float = 1.25
+    num_shared_experts: int = 0
+    router_z_loss: float = 1e-3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +63,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     layer_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # attention extras
     attn_softcap: Optional[float] = None

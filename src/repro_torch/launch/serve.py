@@ -20,6 +20,8 @@ Examples:
   python -m repro_torch.launch.serve --arch llama3-8b --steps-per-sync auto
   python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
       --kv-dtype int8 --host-pool-bytes 1048576 --shared-prefix 16
+  python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu \
+      --prompt-len 32 --shared-prefix 16
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ The flags are those of ``repro.launch.train``, plus ``--device`` (default
 On the card attention runs the hand-written FA2 kernels: K1 forward, K5
 (dQ) and K6 (dK/dV) backward; the Mamba-2 blocks of mamba2 and hymba run
 the SSD intra-chunk kernel K9 forward, with its backward written out in
-PyTorch ops. Checkpointing, resume and the data pipeline are the trainer's.
+PyTorch ops; the MoE FFNs of moonshot and mixtral add their aux losses to
+the loss. Checkpointing, resume and the data pipeline are the trainer's.
 
 Examples:
   python -m repro_torch.launch.train --arch llama3-8b --smoke --device cpu \
@@ -14,6 +15,7 @@ Examples:
   python -m repro_torch.launch.train --arch hymba-1.5b --smoke --device cpu
   python -m repro_torch.launch.train --arch mamba2-1.3b --steps 2 --seq-len 1024 \
       --global-batch 2
+  python -m repro_torch.launch.train --arch mixtral-8x7b --smoke --device cpu
 """
 
 from __future__ import annotations

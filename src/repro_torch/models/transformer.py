@@ -1,9 +1,10 @@
-"""The model stack: embedding, attention / Mamba-2 / hybrid layers, MLP,
-final norm, LM head.
+"""The model stack: embedding, attention / Mamba-2 / hybrid layers, MLP or
+MoE FFN, final norm, LM head.
 
 Port of ``repro.models.transformer`` for the ``attn``, ``mamba`` and
-``hybrid`` layer kinds with ``ffn="mlp"`` or ``"none"`` (llama, mamba2,
-hymba, gemma): ``forward`` (training), ``prefill`` and
+``hybrid`` layer kinds with ``ffn="mlp"``, ``"moe"`` or ``"none"`` (llama,
+mamba2, hymba, gemma, moonshot, mixtral): ``forward`` (training, with the
+MoE aux losses summed over the stack), ``prefill`` and
 ``decode_step`` over paged pools or dense stripes. A Python loop over
 layers takes the place of the JAX package's scan over periods. Parameters
 are a dict::
@@ -14,7 +15,8 @@ are a dict::
                  "q_norm", "k_norm"                   (qk-norm models: gemma3),
                  "mamba": {...}                       (mamba, hybrid; models/ssm.py),
                  "ln_attn_out", "ln_mamba_out"        (hybrid),
-                 "ln2", "w_gate", "w_up", "w_down"    (ffn "mlp")}, ...]}
+                 "ln2", "w_gate", "w_up", "w_down"    (ffn "mlp"),
+                 "ln2", "moe": {...}                  (ffn "moe"; models/moe.py)}, ...]}
 
 Matmul weights are stored in ``param_dtype``: by default the compute
 dtype, which serving uses (the JAX package keeps float32 parameters and
@@ -29,7 +31,10 @@ the same normed input and adds ``0.5 * (rmsnorm(ya) + rmsnorm(ym))``. The
 prefill's SSM cache is exact under right padding (``ssm.mamba_block`` with
 ``last_positions``): the JAX package's ``_mamba_with_cache`` takes the
 state and the conv history from the padded sequence, so pad tokens leak
-into the recurrent state there (ROADMAP Queue C).
+into the recurrent state there (ROADMAP Queue C). Likewise an MoE FFN
+gives no expert slot to a prefill's pad tokens or to a decode tick's
+frozen rows (``moe.moe_ffn(valid=...)``), where the JAX package lets them
+push real tokens out of an expert.
 
 ``init_model`` draws weights from a ``torch.Generator`` with the JAX
 package's distributions; ``from_jax_params`` carries a JAX parameter tree
@@ -49,6 +54,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import device as device_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 Params = Dict[str, Any]
@@ -56,20 +62,25 @@ Params = Dict[str, Any]
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 #: Mamba-2 weights stored in the parameter dtype (the rest stay float32).
 _SSM_CAST_KEYS = ("win", "conv_w", "conv_b", "wout")
+#: The JAX package's names of an MoE layer's leaves, by the port's.
+_MOE_KEYS = {"router": "router_de", "w_gate": "wi_gate_edm", "w_up": "wi_up_edm",
+             "w_down": "wo_emd"}
 _ATTN_KINDS = ("attn", "hybrid")
 _SSM_KINDS = ("mamba", "hybrid")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
-        if spec.kind not in ("attn", "mamba", "hybrid") or spec.ffn not in ("mlp", "none") \
-                or spec.cross_attn:
+        if spec.kind not in ("attn", "mamba", "hybrid") \
+                or spec.ffn not in ("mlp", "moe", "none") or spec.cross_attn:
             raise NotImplementedError(
                 f"layer kind={spec.kind!r} ffn={spec.ffn!r} cross_attn="
                 f"{spec.cross_attn} is not ported yet (ROADMAP Queue A, other "
                 "model families)")
         if spec.kind in _SSM_KINDS and cfg.ssm is None:
             raise ValueError(f"layer kind={spec.kind!r} needs cfg.ssm")
+        if spec.ffn == "moe" and cfg.moe is None:
+            raise ValueError('ffn="moe" needs cfg.moe')
     if cfg.num_codebooks != 1:
         raise NotImplementedError(
             "multi-codebook models are not ported yet (ROADMAP Queue A, other "
@@ -86,8 +97,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     the distributions of ``repro.models.transformer.init_model``: normal
     weights scaled by 1/sqrt(fan_in), embedding by d_model^-0.5, zero norm
     gains (the ``(1 + scale)`` identity), ``ssm.init_mamba`` for Mamba-2
-    blocks. Matmul weights and an untied embedding are ``param_dtype``
-    (default: the compute dtype)."""
+    blocks, ``moe.init_moe`` for MoE FFNs. Matmul weights and an untied
+    embedding are ``param_dtype`` (default: the compute dtype)."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev)
@@ -119,6 +130,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
             lp.update(ln2=zeros(d), w_gate=normal((d, f), 1 / math.sqrt(d)),
                       w_up=normal((d, f), 1 / math.sqrt(d)),
                       w_down=normal((f, d), 1 / math.sqrt(f)))
+        elif spec.ffn == "moe":
+            lp.update(ln2=zeros(d), moe=moe_lib.init_moe(gen, d, cfg.moe, dtype=dt, device=dev))
         return lp
 
     params: Params = {"embed": normal((cfg.vocab, d), d**-0.5,
@@ -153,10 +166,15 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None,
     layers_out = []
     for lp in per_layer:
         out = {k: t(v, dt if k in _MATMUL_KEYS else torch.float32)
-               for k, v in lp.items() if k != "mamba"}
+               for k, v in lp.items() if k not in ("mamba", "moe")}
         if "mamba" in lp:
             out["mamba"] = {k: t(v, dt if k in _SSM_CAST_KEYS else torch.float32)
                             for k, v in lp["mamba"].items()}
+        if "moe" in lp:
+            out["moe"] = {k: t(v, torch.float32 if k == "router" else dt)
+                          for k, v in lp["moe"].items() if k != "shared"}
+            if "shared" in lp["moe"]:
+                out["moe"]["shared"] = {k: t(v, dt) for k, v in lp["moe"]["shared"].items()}
         layers_out.append(out)
     params = {
         "embed": t(tree["embed"]["table_vd"],
@@ -193,6 +211,14 @@ def _jax_layer(tree, period: Optional[int]) -> dict:
         m = tree["mlp"]
         out.update(ln2=pick(tree["ln2"]["scale_r"]), w_gate=pick(m["wi_gate_dm"]),
                    w_up=pick(m["wi_up_dm"]), w_down=pick(m["wo_md"]))
+    if "moe" in tree:
+        m = tree["moe"]
+        out["ln2"] = pick(tree["ln2"]["scale_r"])
+        out["moe"] = {mine: pick(m[theirs]) for mine, theirs in _MOE_KEYS.items()}
+        if "shared" in m:
+            sh = m["shared"]
+            out["moe"]["shared"] = {"w_gate": pick(sh["wi_gate_dm"]),
+                                    "w_up": pick(sh["wi_up_dm"]), "w_down": pick(sh["wo_md"])}
     return out
 
 
@@ -214,9 +240,15 @@ def _mlp(lp, x):
     return layers.mlp(lp["w_gate"], lp["w_up"], lp["w_down"], layers.rmsnorm(lp["ln2"], x))
 
 
-def _mix(lp, x, spec: LayerSpec, ya, ym):
-    """The residual update of a layer's token mixer(s); hymba's hybrid layer
-    normalizes and averages its parallel attention and SSM heads."""
+#: The JAX stack's aux losses, in the order ``_train_layer`` returns them.
+_AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
+
+
+def _mix(lp, x, cfg: ModelConfig, spec: LayerSpec, ya, ym, valid=None):
+    """The residual update of a layer's token mixer(s), then its FFN:
+    ``(x, aux)``, aux the MoE FFN's losses (None for other FFNs). hymba's
+    hybrid layer normalizes and averages its parallel attention and SSM
+    heads; ``valid`` marks the tokens an MoE FFN gives expert slots to."""
     if spec.kind == "attn":
         x = x + ya
     elif spec.kind == "mamba":
@@ -224,21 +256,27 @@ def _mix(lp, x, spec: LayerSpec, ya, ym):
     else:
         x = x + 0.5 * (layers.rmsnorm(lp["ln_attn_out"], ya)
                        + layers.rmsnorm(lp["ln_mamba_out"], ym))
-    return x + _mlp(lp, x) if spec.ffn == "mlp" else x
-
-
-def _zero_aux(device) -> Dict[str, torch.Tensor]:
-    """The JAX stack's aux losses; all zero without MoE."""
-    z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"moe_lb_loss": z, "moe_z_loss": z, "moe_dropped_frac": z}
+    if spec.ffn == "mlp":
+        return x + _mlp(lp, x), None
+    if spec.ffn == "moe":
+        y, aux = moe_lib.moe_ffn(lp["moe"], layers.rmsnorm(lp["ln2"], x), cfg.moe,
+                                 valid=valid)
+        return x + y, aux
+    return x, None
 
 
 def _train_layer(lp, x, cfg: ModelConfig, spec):
+    """One layer of ``forward``: ``(x, lb, z, dropped)``, the last three the
+    MoE losses (zero for other FFNs), as tensors so that
+    ``torch.utils.checkpoint`` carries them."""
     h = layers.rmsnorm(lp["ln1"], x)
     ya = attn_lib.attention_block(lp, h, cfg, spec) if spec.kind in _ATTN_KINDS else None
     ym = (ssm_lib.mamba_train(lp["mamba"], h, cfg.d_model, cfg.ssm)
           if spec.kind in _SSM_KINDS else None)
-    return _mix(lp, x, spec, ya, ym)
+    x, aux = _mix(lp, x, cfg, spec, ya, ym)
+    if aux is None:
+        return (x, *(torch.zeros((), dtype=torch.float32, device=x.device) for _ in _AUX_KEYS))
+    return (x, *(aux[key] for key in _AUX_KEYS))
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -246,7 +284,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Training forward: tokens (B, S) -> (logits (B, S, V) float32, aux).
 
     Every layer kind the port takes (``attn``, ``mamba``, ``hybrid``; ``ffn``
-    ``"mlp"`` or ``"none"``), as the JAX package's ``forward`` trains them:
+    ``"mlp"``, ``"moe"`` or ``"none"``), as the JAX package's ``forward``
+    trains them, the MoE losses summed over the layers as its scan does:
     attention through ``ops.flash_attention`` (K1 forward, K5 / K6
     backward on the card), the SSM through ``ssm.mamba_train`` (K9 forward
     on the card, its backward written out in PyTorch ops, as the JAX
@@ -258,13 +297,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     _check_supported(cfg)
     specs = cfg.layer_specs()
     x = _embed_tokens(params, cfg, tokens)
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device) for _ in _AUX_KEYS]
     for spec, lp in zip(specs, params["layers"]):
         if remat:
-            x = checkpoint(_train_layer, lp, x, cfg, spec, use_reentrant=False)
+            x, *a = checkpoint(_train_layer, lp, x, cfg, spec, use_reentrant=False)
         else:
-            x = _train_layer(lp, x, cfg, spec)
+            x, *a = _train_layer(lp, x, cfg, spec)
+        aux = [t + u for t, u in zip(aux, a)]
     x = layers.rmsnorm(params["ln_f"], x)
-    return _logits(params, cfg, x), _zero_aux(x.device)
+    return _logits(params, cfg, x), dict(zip(_AUX_KEYS, aux))
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -279,7 +320,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     layers.
 
     ``last_positions`` (B,): each row's last real token in a right-padded
-    batch (default S - 1); the SSM caches are those of the unpadded prompt.
+    batch (default S - 1); the SSM caches are those of the unpadded prompt,
+    and the pads take no MoE expert slot.
     ``prefix_caches`` (the per-layer page pools) + ``page_table`` (B, pages)
     + ``prefix_len`` (B,): prefix-extension prefill of attention stacks —
     ``tokens`` holds only the tail, which attends to the prefix in place in
@@ -288,7 +330,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """
     x = _embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
-    positions = tail_len = None
+    positions = tail_len = valid = None
+    if last_positions is not None:
+        valid = (torch.arange(s, device=x.device)[None, :]
+                 <= last_positions.to(x.device).long()[:, None])
     if prefix_caches is not None:
         if page_table is None or prefix_len is None:
             raise ValueError("prefix-extension prefill needs page_table and prefix_len")
@@ -314,7 +359,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                         last_positions=last_positions)
             cache.update(c)
         caches.append(cache)
-        x = _mix(lp, x, spec, ya, ym)
+        x, _ = _mix(lp, x, cfg, spec, ya, ym, valid)
     if last_positions is None:
         x = x[:, -1:]
     else:
@@ -325,15 +370,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 caches: List[dict], lengths: torch.Tensor, *,
-                page_table: Optional[torch.Tensor] = None
+                page_table: Optional[torch.Tensor] = None,
+                live: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[dict]]:
     """One decode step: returns (logits (B, V), caches).
 
     ``token`` (B,); ``lengths`` (B,) int32 including the new token. With
     ``page_table`` (B, max_pages) int32 the caches are paged pools;
     without, dense per-row caches (``init_caches``, or views of them cut to
-    the live rows and width). Either way they are updated in place."""
+    the live rows and width). Either way they are updated in place.
+    ``live`` (B,) bool: the rows that are a request's (default all); the
+    others take no MoE expert slot."""
     x = _embed_tokens(params, cfg, token[:, None])
+    valid = None if live is None else live.to(x.device)[:, None]
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs(), params["layers"])):
         h = layers.rmsnorm(lp["ln1"], x)
         ya = ym = None
@@ -345,7 +394,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ya, _ = attn_lib.attention_decode(lp, h, cfg, spec, caches[i], lengths)
         if spec.kind in _SSM_KINDS:
             ym, _ = ssm_lib.mamba_decode(lp["mamba"], h, cfg.d_model, cfg.ssm, caches[i])
-        x = _mix(lp, x, spec, ya, ym)
+        x, _ = _mix(lp, x, cfg, spec, ya, ym, valid)
     x = layers.rmsnorm(params["ln_f"], x)
     return _logits(params, cfg, x)[:, 0], caches
 

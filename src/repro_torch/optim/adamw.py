@@ -76,8 +76,8 @@ def _decayable(path) -> bool:
     """No decay on norms / scalars / 1-D vectors: the last key of the path
     ending in ``_r``, holding ``norm``, starting with ``ln`` (the port's
     ``ln1``, ``ln2``, ``ln_f``) or naming a Mamba-2 vector. ``embed``,
-    ``head`` and the matmul weights decay: the leaves the JAX package
-    decays."""
+    ``head``, the matmul weights and every MoE leaf (the router, the expert
+    stacks, the shared expert) decay: the leaves the JAX package decays."""
     for entry in reversed(path):
         if isinstance(entry, str):
             return not (entry.endswith("_r") or entry in _SSM_VECTORS or "norm" in entry

@@ -210,9 +210,10 @@ class _Backend:
         advancing, a paged row's table row turns to the null page (its later
         writes sink there) and a dense row re-feeds its last token at the
         same position, rewriting the same K/V. Rows inactive at the start
-        run frozen throughout. ``tok``, ``gen``, ``max_toks``, the sampling
-        parameters: (rows,) host arrays; ``stops``: (rows, W) stop ids padded
-        with -1 (W 0: no stop detection). ``ys`` are (n_steps, rows) host
+        run frozen throughout. A frozen row takes no MoE expert slot.
+        ``tok``, ``gen``, ``max_toks``, the sampling parameters: (rows,) host
+        arrays; ``stops``: (rows, W) stop ids padded with -1 (W 0: no stop
+        detection). ``ys`` are (n_steps, rows) host
         arrays: the fed token, the sampled token, and the live, appended-stop,
         fed-stop and hit-max masks; ``final_lengths`` feeds
         :meth:`commit_scan`."""
@@ -263,7 +264,7 @@ class _Backend:
             for _ in range(n_steps):
                 live = ~done
                 lengths1 = lengths + live.int()
-                logits = decode(tok, lengths1, table)
+                logits = decode(tok, lengths1, table, live)
                 # A frozen row's logits are discarded: keep whatever they
                 # hold out of the sampler.
                 logits = logits.masked_fill(done[:, None], 0.0)
@@ -470,8 +471,8 @@ class DenseBackend(_Backend):
 
     def _decoder(self):
         params, cfg, caches = self.params, self.cfg, self.caches
-        return lambda tok, lengths, table: transformer.decode_step(
-            params, cfg, tok, caches, lengths)[0]
+        return lambda tok, lengths, table, live: transformer.decode_step(
+            params, cfg, tok, caches, lengths, live=live)[0]
 
     def _scratch_state(self) -> Callable[[], None]:
         """Save what a warm-up tick at length 0 overwrites (position 0 of
@@ -1102,8 +1103,8 @@ class PagedBackend(_Backend):
 
     def _decoder(self):
         params, cfg, caches = self.params, self.cfg, self.caches
-        return lambda tok, lengths, table: transformer.decode_step(
-            params, cfg, tok, caches, lengths, page_table=table)[0]
+        return lambda tok, lengths, table, live: transformer.decode_step(
+            params, cfg, tok, caches, lengths, page_table=table, live=live)[0]
 
     def _scratch_state(self) -> Callable[[], None]:
         """A warm-up tick writes only the null page: save its codes and, for

@@ -8,6 +8,8 @@ updates the state in place:
     microbatches (microbatch m = rows ``[m::n]``, the JAX package's strided
     split) and are averaged, as the JAX scan sums and scales them;
   * ``remat`` checkpoints each layer (``transformer.forward``);
+  * the loss adds the MoE aux losses summed over the stack, weighted by
+    ``moe_lb_coef`` and ``moe_z_coef``, as there;
   * ``grad_compression="int8_ef"`` quantizes the gradients with error
     feedback before AdamW, as there;
   * AdamW then writes the parameters and moments in place under
@@ -39,6 +41,8 @@ from repro_torch.optim import adamw, grad_compress
 class TrainConfig:
     optimizer: adamw.AdamWConfig = adamw.AdamWConfig()
     microbatches: int = 1
+    moe_lb_coef: float = 0.01
+    moe_z_coef: float = 1e-3
     remat: bool = True
     grad_compression: str = "none"   # "none" | "int8_ef"
     # Kernel-schedule policy of the attention layers: None keeps the model
@@ -56,12 +60,14 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     logits, aux = transformer.forward(params, cfg, batch["tokens"], remat=tcfg.remat)
     loss, metrics = layers.softmax_cross_entropy(logits, batch["targets"], batch["mask"],
                                                  z_loss=cfg.z_loss)
-    # No MoE layer is ported, so the MoE losses are the zeros of the aux
-    # dict: the loss is the cross-entropy alone. The MoE coefficients come
-    # back with the MoE port (ROADMAP Queue A).
+    # Without an MoE layer the aux losses are zeros and the total is the
+    # cross-entropy; the metrics are the JAX package's either way.
+    total = (loss + tcfg.moe_lb_coef * aux["moe_lb_loss"]
+             + tcfg.moe_z_coef * aux["moe_z_loss"])
     metrics = dict(metrics)
-    metrics.update(moe_lb_loss=aux["moe_lb_loss"], moe_dropped=aux["moe_dropped_frac"])
-    return loss, metrics
+    metrics.update(moe_lb_loss=aux["moe_lb_loss"].detach(),
+                   moe_dropped=aux["moe_dropped_frac"].detach())
+    return total, metrics
 
 
 def _accumulate_grads(params, cfg: ModelConfig, batch, tcfg: TrainConfig):

@@ -2517,3 +2517,113 @@ def test_d256_gemma_train_grads_on_kernels_match_plain(cuda, arch):
     for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
                             tree_lib.leaves(grads["plain"])):
         assert float((a - b).float().norm() / b.float().norm()) <= 3e-2, path
+
+
+# -- MoE: moonshot-v1-16b-a3b at full width --------------------------------------
+
+def _moonshot(n_layers=2):
+    from repro_torch.configs import moonshot_v1_16b_a3b
+
+    return dataclasses.replace(moonshot_v1_16b_a3b.CONFIG, n_layers=n_layers)
+
+
+def test_moonshot_fused_decode_ids_agree_across_steps_per_sync(cuda):
+    """moonshot-v1-16b-a3b at full width (64 experts top-6, Hq = Hkv = 16,
+    D 128), 2 layers, bf16, paged: 5 greedy requests that share a 64-token
+    prefix and finish at different lengths, on an engine of 8 rows (frozen
+    rows in every tick), at steps_per_sync 1 and 8. The MoE layers run
+    inside the captured decode graphs; the ids agree token for token, K1,
+    K2 and K3 each launch, all on the tensor cores at a GQA group of 1."""
+    cfg = _moonshot()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(60)
+    system = rng.integers(1, cfg.vocab, size=(64,))
+    prompts = [np.concatenate([system, rng.integers(1, cfg.vocab, size=(n,))])
+               for n in (20, 70, 5, 120, 33)]
+    kw = dict(kv_layout="paged", num_pages=128, page_size=16, max_batch=8,
+              max_pages_per_seq=16, prompt_buckets=(64, 128, 256))
+    ids = {}
+    for n in (1, 8):
+        kernels.reset_launch_counts()
+        eng = LLMEngine(cfg, params, steps_per_sync=n, device=cuda, **kw)
+        out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=m)
+                            for i, (p, m) in enumerate(zip(prompts, (3, 11, 17, 8, 20)))])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ids[n] = {o.uid: [int(t) for t in o.tokens] for o in out}
+        assert eng.backend.stats["decode_traces"] >= 1
+        eng.close()
+        assert counts["flash_attention_fwd_tc"] > 0 and counts["paged_flash_prefill_tc"] > 0
+        assert counts["paged_flash_decode_tc"] + counts["paged_flash_decode_split_tc"] > 0
+        assert counts["flash_attention_fwd"] == counts["flash_attention_fwd_tc"]
+        assert counts["paged_flash_prefill"] == counts["paged_flash_prefill_tc"]
+        assert (counts["paged_flash_decode"] + counts["paged_flash_decode_split"]
+                == counts["paged_flash_decode_tc"] + counts["paged_flash_decode_split_tc"])
+    assert ids[1] == ids[8]
+    assert [len(ids[1][u]) for u in range(5)] == [3, 11, 17, 8, 20]
+
+
+def test_moe_layer_is_deterministic_eager_and_in_a_graph(cuda):
+    """One full-width moonshot MoE FFN (64 experts top-6, D 2048, F 1408),
+    bf16: two eager runs over 2 right-padded rows give the same routes and
+    the same bits, forward and backward (no float atomics: slots by
+    ``index_copy``, the k slots summed in slot order); at the decode shape
+    (8 rows, 3 frozen) a captured CUDA graph's replay gives the eager run's
+    bits; the frozen rows' values change no live row's output."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import moe
+
+    cfg = _moonshot().moe
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    p = moe.init_moe(gen, 2048, cfg, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(61)
+    x = _randn(rng, (2, 700, 2048), cuda, torch.bfloat16)
+    valid = torch.zeros((2, 700), dtype=torch.bool, device=cuda)
+    valid[0, :650] = True
+    valid[1, :300] = True
+    routes = []
+    inner = moe.route
+
+    def recording(logits, k):
+        out = inner(logits, k)
+        routes.append(out[2].clone())
+        return out
+
+    runs = []
+    moe.route = recording
+    try:
+        for _ in range(2):
+            leaves = [t.detach().requires_grad_(True) for t in tree_lib.leaves(p)]
+            q = dict(zip(("router", "w_gate", "w_up", "w_down"), leaves))
+            xg = x.detach().requires_grad_(True)
+            y, aux = moe.moe_ffn(q, xg, cfg, valid=valid)
+            (y.float().square().mean() + aux["moe_lb_loss"] + aux["moe_z_loss"]).backward()
+            runs.append([y.detach(), *(aux[key].detach() for key in sorted(aux)), xg.grad,
+                         *(t.grad for t in leaves)])
+    finally:
+        moe.route = inner
+    assert torch.equal(routes[0], routes[1])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert float(runs[0][0][~valid].abs().max()) == 0.0      # no slot, no output
+    assert torch.isfinite(runs[0][0]).all()
+
+    xd = _randn(rng, (8, 1, 2048), cuda, torch.bfloat16)
+    live = torch.tensor([1, 1, 0, 1, 0, 1, 1, 0], dtype=torch.bool, device=cuda)[:, None]
+    with torch.no_grad():
+        eager, _ = moe.moe_ffn(p, xd, cfg, valid=live)
+        noisy = torch.where(live[..., None], xd, 7.0)
+        other, _ = moe.moe_ffn(p, noisy, cfg, valid=live)
+        static = xd.clone()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            moe.moe_ffn(p, static, cfg, valid=live)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured, _ = moe.moe_ffn(p, static, cfg, valid=live)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    assert torch.equal(eager[live[:, 0]], other[live[:, 0]])

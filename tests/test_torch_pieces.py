@@ -107,8 +107,8 @@ def test_configs_match_jax():
         assert [s.rope_theta for s in mine.layer_pattern] == \
             [s.rope_theta for s in theirs.layer_pattern]
     assert registry.get_config("llama3-8b") is llama3_8b.CONFIG
-    with pytest.raises(KeyError):
-        registry.get_config("mixtral-8x7b")
+    with pytest.raises(KeyError):      # an architecture not ported yet
+        registry.get_config("musicgen-medium")
 
 
 def _splits(batch, seq_kv):

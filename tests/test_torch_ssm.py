@@ -30,6 +30,7 @@ from repro.models import ssm as jax_ssm
 from repro.models import transformer as jax_tf
 
 from repro_torch.configs import hymba_1_5b, mamba2_1_3b
+from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import ssd
 from repro_torch.models import ssm, transformer
 
@@ -248,16 +249,21 @@ def test_short_prompts_zero_fill_the_conv_history(models):
 
 
 def test_training_of_ssm_stacks_waits():
-    """What of an SSM stack's training still waits: an MoE FFN. The hybrid
-    and Mamba-2 stacks themselves train (``forward``), held to the JAX
-    train step in ``tests/test_torch_training.py``."""
-    params = transformer.init_model(hymba_1_5b.SMOKE, seed=0, device="cpu",
-                                    param_dtype=torch.float32)
+    """What an SSM stack's training waited for, an MoE FFN, is ported: a
+    hybrid stack with MoE FFNs trains and returns its aux losses, and
+    ``ffn="moe"`` without ``cfg.moe`` raises. The hybrid and Mamba-2 stacks
+    are held to the JAX train step in ``tests/test_torch_training.py``, the
+    MoE layer in ``tests/test_torch_moe.py``."""
     moe = dataclasses.replace(hymba_1_5b.SMOKE,
                               layer_pattern=(dataclasses.replace(
                                   hymba_1_5b.SMOKE.layer_pattern[0], ffn="moe"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward(params, moe, torch.zeros((1, 8), dtype=torch.long))
+    with pytest.raises(ValueError, match="cfg.moe"):
+        transformer.init_model(moe, seed=0, device="cpu")
+    moe = dataclasses.replace(moe, moe=MoEConfig(num_experts=4, top_k=2, d_ff=32))
+    params = transformer.init_model(moe, seed=0, device="cpu", param_dtype=torch.float32)
+    logits, aux = transformer.forward(params, moe, torch.arange(8)[None])
+    assert logits.shape == (1, 8, moe.vocab) and torch.isfinite(logits).all()
+    assert float(aux["moe_lb_loss"]) > 0 and float(aux["moe_z_loss"]) > 0
 
 
 def test_init_model_matches_jax_tree_shapes(models):

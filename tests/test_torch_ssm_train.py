@@ -2,10 +2,11 @@
 
 * AdamW's decay mask: one ``adamw.update`` with zero gradients and weight
   decay 0.1 from the JAX package's ``init_train_state`` parameters, for the
-  five SMOKE configs the port takes, against the JAX update leaf by leaf
+  seven SMOKE configs the port takes, against the JAX update leaf by leaf
   (1e-6 relative: both compute ``p - lr * wd * p`` in float32, one rounding
   apart). The SSM vectors ``a_log``, ``dt_bias``, ``d_skip`` and ``conv_b``
-  (``*_r`` in the JAX package) take no decay.
+  (``*_r`` in the JAX package) take no decay; every MoE leaf (router,
+  expert stacks, shared expert) decays, as there.
 * ``ssd.SSDIntraChunk``'s written-out backward against ``torch.autograd``
   of ``ssd_intra_chunk_plain`` in float64, over one group and over groups of
   heads, with acum spanning 100 inside a chunk so that above the diagonal
@@ -30,12 +31,15 @@ from repro.configs import gemma3_1b as jax_gemma3
 from repro.configs import hymba_1_5b as jax_hymba
 from repro.configs import llama3_8b as jax_llama
 from repro.configs import mamba2_1_3b as jax_mamba
+from repro.configs import mixtral_8x7b as jax_mixtral
+from repro.configs import moonshot_v1_16b_a3b as jax_moonshot
 from repro.models import ssm as jax_ssm
 from repro.models import transformer as jax_tf
 from repro.optim import adamw as jax_adamw
 from repro.training import train_step as jax_ts
 
-from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
+from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b,
+                                 mixtral_8x7b, moonshot_v1_16b_a3b)
 from repro_torch.core import tree as tree_lib
 from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.models import transformer
@@ -47,7 +51,9 @@ ARCHS = {"llama3-8b": (jax_llama.SMOKE, llama3_8b.SMOKE),
          "gemma2-2b": (jax_gemma2.SMOKE, gemma2_2b.SMOKE),
          "gemma3-1b": (jax_gemma3.SMOKE, gemma3_1b.SMOKE),
          "mamba2-1.3b": (jax_mamba.SMOKE, mamba2_1_3b.SMOKE),
-         "hymba-1.5b": (jax_hymba.SMOKE, hymba_1_5b.SMOKE)}
+         "hymba-1.5b": (jax_hymba.SMOKE, hymba_1_5b.SMOKE),
+         "moonshot-v1-16b-a3b": (jax_moonshot.SMOKE, moonshot_v1_16b_a3b.SMOKE),
+         "mixtral-8x7b": (jax_mixtral.SMOKE, mixtral_8x7b.SMOKE)}
 
 
 @pytest.fixture(autouse=True)
@@ -96,6 +102,8 @@ def test_weight_decay_mask_matches_jax(arch):
             moved.add(path[-1])
     assert {"embed", "wq", "win", "wout"} & moved      # some leaves do decay
     assert not {"a_log", "dt_bias", "d_skip", "conv_b", "norm", "ln1", "ln_f"} & moved
+    if cfg.moe is not None:
+        assert {"router", "w_gate", "w_up", "w_down"} <= moved
 
 
 def _seq_inputs(rng, b, nc, q, h, p, g, n, span):

@@ -5,9 +5,11 @@ the port's ``make_train_step`` start from the same SMOKE weights
 (``llama3_8b``, and the gemma family's ``gemma2_2b`` with its softcaps and
 ``gemma3_1b`` with its qk-norm; the SSM stack ``mamba2_1_3b`` and the hybrid
 ``hymba_1_5b`` at 80 tokens: two chunks of 32 and a ragged tail, past
-hymba's window of 64; carried across by ``from_jax_params(...,
-param_dtype=float32)``) and take the same batches (``data.pipeline``,
-byte-identical in both packages). Bars, float32 end to end in both:
+hymba's window of 64; the MoE stacks ``moonshot_v1_16b_a3b`` (a shared
+expert) and ``mixtral_8x7b``, whose aux losses enter the loss; carried
+across by ``from_jax_params(..., param_dtype=float32)``) and take the same
+batches (``data.pipeline``, byte-identical in both packages). Bars,
+float32 end to end in both:
 
 * every metric of 3 steps within 1e-5 relative: the two differ only in the
   order of float32 sums (about 1e-7 relative per operation over two
@@ -41,12 +43,15 @@ from repro.configs import gemma3_1b as jax_gemma3
 from repro.configs import hymba_1_5b as jax_hymba
 from repro.configs import llama3_8b as jax_llama
 from repro.configs import mamba2_1_3b as jax_mamba
+from repro.configs import mixtral_8x7b as jax_mixtral
+from repro.configs import moonshot_v1_16b_a3b as jax_moonshot
 from repro.data.pipeline import DataConfig as JaxDataConfig
 from repro.data.pipeline import make_pipeline as jax_make_pipeline
 from repro.optim.adamw import AdamWConfig as JaxAdamW
 from repro.training import train_step as jax_ts
 
-from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
+from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b,
+                                 mixtral_8x7b, moonshot_v1_16b_a3b)
 from repro_torch.core import tree as tree_lib
 from repro_torch.models import transformer
 from repro_torch.optim import adamw, grad_compress
@@ -83,7 +88,9 @@ ARCHS = {"llama3-8b": (jax_llama.SMOKE, llama3_8b.SMOKE),
          "gemma2-2b": (jax_gemma2.SMOKE, gemma2_2b.SMOKE),
          "gemma3-1b": (jax_gemma3.SMOKE, gemma3_1b.SMOKE),
          "mamba2-1.3b": (jax_mamba.SMOKE, mamba2_1_3b.SMOKE),
-         "hymba-1.5b": (jax_hymba.SMOKE, hymba_1_5b.SMOKE)}
+         "hymba-1.5b": (jax_hymba.SMOKE, hymba_1_5b.SMOKE),
+         "moonshot-v1-16b-a3b": (jax_moonshot.SMOKE, moonshot_v1_16b_a3b.SMOKE),
+         "mixtral-8x7b": (jax_mixtral.SMOKE, mixtral_8x7b.SMOKE)}
 #: Sequence length of the batches: 32, or this for the arch.
 SEQ_LEN = {"mamba2-1.3b": 80, "hymba-1.5b": 80}
 
@@ -92,9 +99,11 @@ SEQ_LEN = {"mamba2-1.3b": 80, "hymba-1.5b": 80}
                          [("llama3-8b", 1, "none"), ("llama3-8b", 2, "none"),
                           ("llama3-8b", 1, "int8_ef"), ("gemma2-2b", 1, "none"),
                           ("gemma3-1b", 1, "none"), ("mamba2-1.3b", 1, "none"),
-                          ("hymba-1.5b", 1, "none")],
+                          ("hymba-1.5b", 1, "none"), ("moonshot-v1-16b-a3b", 1, "none"),
+                          ("mixtral-8x7b", 1, "none")],
                          ids=["plain", "microbatches2", "int8_ef", "gemma2-2b", "gemma3-1b",
-                              "mamba2-1.3b", "hymba-1.5b"])
+                              "mamba2-1.3b", "hymba-1.5b", "moonshot-v1-16b-a3b",
+                              "mixtral-8x7b"])
 def test_train_steps_match_jax(arch, microbatches, compression):
     cfg_j, cfg = ARCHS[arch]
     jt = jax_ts.TrainConfig(optimizer=JaxAdamW(lr=LR, warmup_steps=WARMUP, total_steps=TOTAL),
