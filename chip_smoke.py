@@ -195,7 +195,8 @@ and prints no result. Phases, in order (any failure exits non-zero):
      ``python3 chip_smoke.py --phase
      gemma`` runs the head_dim 256 kernels, these runs and the gemma train
      phases alone, with no result line. Then moonshot-v1-16b-a3b at full
-     width and all 48 layers (64 experts top-6 in every layer, MHA: 16
+     width and 24 of its 48 layers (all 48 under ``--phase moe``; 64
+     experts top-6 in every layer, MHA: 16
      heads and 16 KV heads at head_dim 128, so K1-K4 run at a GQA group of
      1; ``serve_moe``): paged runs (a) and (b) as for llama3-8b, each sync
      held to the plain path with the expert choices pinned to the plain
@@ -203,7 +204,7 @@ and prints no result. Phases, in order (any failure exits non-zero):
      which moves logits by more than the kernels' error), then run free
      (the share of choices that differ and every flip's margin within twice
      the router logits' error), the fused decode at ``steps_per_sync`` 1
-     and 8, the MoE layers' share of the decode tick (all 48 layers' MoE
+     and 8, the MoE layers' share of the decode tick (every layer's MoE
      FFNs and their expert products as CUDA graphs against the tick), and
      the split model (fitted at a group of 4) against K3 / K4 at group 1;
   5. train  — ``Trainer`` + ``make_train_step`` on llama3-8b at full width
@@ -238,7 +239,28 @@ and prints no result. Phases, in order (any failure exits non-zero):
      batch 4 in 2 microbatches): K1 / K5 / K6 at a GQA group of 1, the MoE
      aux losses in the loss, one MoE FFN timed at the step's shape, and
      the 2-layer gradients with the routes pinned. ``--phase moe`` runs the
-     moonshot serve and train phases alone, with no result line.
+     moonshot serve and train phases alone, with no result line;
+  6. vision — llama-3.2-vision-11b at full width, all 40 layers, bf16
+     random weights with every cross gate set to a seeded non-zero value
+     (zero gates would hide the cross blocks from the logits): 4 rows of
+     512 tokens (one right-padded through ``last_positions``), each with a
+     seeded image of 1600 x 7680, through ``transformer.prefill(
+     image_embeds=)`` and 32 greedy ``decode_step`` ticks over dense
+     stripes and the cross caches (``LLMEngine`` serves no vision model:
+     requests carry no image). The plain path runs first; the kernel path
+     decodes its ids; the prefill and every tick's logits within LOGIT_TOL,
+     greedy ids equal but for near-ties, the first cross layer's output
+     (prefill and a tick) per row within ROW_TOL of the plain one; the
+     prefill and tick times (eager, and a one-tick CUDA graph), K1 launches
+     causal and not, K7 / K8 launches on the self and the cross stripes,
+     the peak memory. Then the kernels at the cross shapes (K1 not causal
+     at 4 x 512 queries over 1600 keys, K7 / K8 over the 1600-row cross
+     stripe, K1 + K5 + K6 not causal at the train shape 2 x 4096 x 1600),
+     each against its plain version, timed beside its bound, its plain
+     version and SDPA. Then the train phase at one period (5 of 40 layers,
+     the cross layer at index 3) with seeded images in every batch, and
+     its step-1 gradients at 4 layers. ``--phase vision`` runs this phase
+     alone, with no result line.
 
 It ends with one JSON line of per-kernel numbers and, last, the line
 ``{"ok": true, "device": {...}}``.
@@ -311,13 +333,25 @@ TRAIN_LOSS_TOL = 1e-2
 # before the same bf16 rounding read 6.0-8.3e-3 from the plain path, the
 # kernel path 1.04-1.50e-2; past the plain path from float32, 1.4e-3 and
 # 4.8e-3 at most (seeds 1-3, H100 80GB HBM3 at 700 W, tools/train_grads.py).
+# A scalar leaf (llama-3.2-vision's cross gates) is a bf16 sum on both
+# paths, so it is held less one bf16 step, BF16_ULP (``grad_bars``).
 TRAIN_GRAD_TOL = 1e-2
+BF16_ULP = 2.0**-7         # one bf16 step over the value it follows, at most
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
 HYMBA_LAYERS, MAMBA_LAYERS = 16, 24   # the serve phase's depth cuts (``main``)
-# moonshot-v1-16b-a3b: served at all 48 layers (56 GB of bf16 weights);
-# trained at 2 (float32 masters, gradients and AdamW moments are 16 B a
-# parameter, 9.1 GB a layer of 64 experts).
-MOONSHOT_LAYERS, MOE_TRAIN_LAYERS = 48, 2
+# moonshot-v1-16b-a3b: served at 24 of its 48 layers in the full run (all
+# 48, 56 GB of bf16 weights, under --phase moe); trained at 2 (float32
+# masters, gradients and AdamW moments are 16 B a parameter, 9.1 GB a layer
+# of 64 experts).
+MOONSHOT_LAYERS, MOE_TRAIN_LAYERS = 24, 2
+# llama-3.2-vision-11b: served at all 40 layers (10.14 B bf16 parameters),
+# VISION_ROWS rows of VISION_PROMPT tokens (the last right-padded to
+# VISION_SHORT real ones), each with its own image, then VISION_TICKS greedy
+# decode ticks over dense stripes; trained at one period of 5 layers (its
+# cross layer at index 3); its step-1 gradient check at 4 layers, which
+# still hold that cross layer.
+VISION_ROWS, VISION_PROMPT, VISION_SHORT, VISION_TICKS = 4, 512, 400, 32
+VISION_TRAIN_LAYERS, VISION_GRAD_LAYERS = 5, 4
 REPS = 20                  # timed runs per case; the median is reported
 PRIME_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any wrapper's host time
 HQ, HKV, D, PS = 32, 8, 128, 16
@@ -479,9 +513,10 @@ def nbytes(*ts) -> int:
 def k1_bound_of(q, k, v, o, lse, *, causal, window=None, peak=PEAK_BF16_FLOPS):
     """K1's bound: q, k, v read and o, lse written once, against the two
     products' operations over the (row, key) pairs the masks leave live
-    (causal: row r sees min(r + 1, window) keys)."""
+    (causal: row r sees min(r + 1, window) keys; not causal: every key of
+    k, whose length may differ from q's)."""
     b, hq, s, d = q.shape
-    seen = [min(r + 1, window or s) if causal else s for r in range(s)]
+    seen = [min(r + 1, window or s) if causal else k.shape[2] for r in range(s)]
     return bound(nbytes(q, k, v, o, lse), 4.0 * d * b * hq * sum(seen), peak)
 
 
@@ -3066,13 +3101,13 @@ def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
     return run
 
 
-def _logit_distance(plain, got, label):
+def _logit_distance(plain, got, label, stages=("first", "last")):
     """Per stage (prefill, decode tick): the largest |got - plain| over max
     |plain| of a request, the requests whose greedy id agrees, and the
     near-ties (ids that differ where the plain margin between them is within
     twice the row's largest error); an id that differs otherwise raises."""
     worst, same, flips = {}, {}, 0
-    for stage in ("first", "last"):
+    for stage in stages:
         worst[stage], same[stage] = 0.0, 0
         for uid, ref in plain[stage].items():
             x = got[stage][uid]
@@ -3706,10 +3741,11 @@ def moe_tick_share(torch, timer, cfg, params, *, rows, tick_ms, tick8_ms):
 
 def train_launches(cfg, micro):
     """The launches one train step makes, by counter: under remat K1 twice
-    per attention layer per microbatch, K5 and K6 once; K9 twice per SSM
-    layer per microbatch (its backward is PyTorch ops)."""
+    per attention layer per microbatch, K5 and K6 once (a cross layer's
+    cross block once more); K9 twice per SSM layer per microbatch (its
+    backward is PyTorch ops)."""
     specs = cfg.layer_specs()
-    n_attn = sum(spec.kind in ("attn", "hybrid") for spec in specs)
+    n_attn = sum((spec.kind in ("attn", "hybrid")) + spec.cross_attn for spec in specs)
     n_ssm = sum(spec.kind in ("mamba", "hybrid") for spec in specs)
     return {KERNELS["K1"]["counter"]: 2 * n_attn * micro,
             KERNELS["K5"]["counter"]: n_attn * micro,
@@ -3718,15 +3754,19 @@ def train_launches(cfg, micro):
 
 
 def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
-          micro=TRAIN_MICRO):
+          micro=TRAIN_MICRO, grad_layers=2, cross_ms=None):
     """``Trainer`` + ``make_train_step`` on ``cfg_full`` cut to ``layers``
     layers, ``TRAIN_STEPS`` steps of ``batch`` rows of ``seq`` tokens in
     ``micro`` microbatches: each step's loss, grad norm, time, tok/s and
     launches (``train_launches``: K1, K5, K6 for attention layers, all on
     the tensor cores; K9 for SSM layers), the peak memory; then
-    ``train_breakdown``; then one step's gradients at 2 layers, sequence
-    1024, kernel path against plain path (``check_train_grads``). Returns
-    the launch counts of the train run."""
+    ``train_breakdown`` (``cross_ms``: ``check_vision_kernels``' times at
+    the cross shape); then one step's gradients at ``grad_layers`` layers,
+    sequence 1024, kernel path against plain path (``check_train_grads``).
+    A vision model trains with its cross gates open (``open_gates``) and
+    the same seeded images in every batch, added by ``put_batch``; its
+    cross blocks' launches (K1, K5 / K6 not causal) are counted apart
+    (``CrossTally``). Returns the launch counts of the train run."""
     from repro_torch import kernels
     from repro_torch.core import tree as tree_lib
     from repro_torch.data.pipeline import DataConfig, make_pipeline
@@ -3743,6 +3783,16 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = ts.init_train_state(seed, cfg, tcfg, device="cuda")
+    put_batch = lambda b: ts.to_device(b, "cuda")   # noqa: E731
+    n_cross = sum(spec.cross_attn for spec in cfg.layer_specs())
+    if cfg.vision_tokens:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 11)
+        gates = open_gates(torch, state["params"], gen)
+        images = vision_images(torch, cfg, batch, gen)
+        put_batch = lambda b: dict(ts.to_device(b, "cuda"), image_embeds=images)  # noqa: E731
+        log(f"train {cfg.name}: {n_cross} cross layer(s), gates {gates}; images "
+            f"{tuple(images.shape)} float32 in every batch")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_lib.leaves(state["params"]))
     state_gib = torch.cuda.memory_allocated() / 2**30
@@ -3760,11 +3810,14 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
         return out
 
     trainer = Trainer(counted, state, pipe,
-                      TrainerConfig(total_steps=TRAIN_STEPS, log_every=1),
-                      put_batch=lambda b: ts.to_device(b, "cuda"))
+                      TrainerConfig(total_steps=TRAIN_STEPS, log_every=1), put_batch=put_batch)
     want = train_launches(cfg, micro)
     kernels.reset_launch_counts()
-    trainer.run()
+    if n_cross:
+        with CrossTally() as tally:
+            trainer.run()
+    else:
+        trainer.run()
     counts = kernels.launch_counts()
     tokens = seq * batch
     prev = {key: 0 for key in counts}
@@ -3797,18 +3850,29 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
     if want[KERNELS["K1"]["counter"]]:
         check_k1_route(f"train {cfg.name}", counts)
         check_bwd_route(f"train {cfg.name}", bwd_launches({key: 0 for key in counts}, counts))
+    if n_cross:
+        cross = {key: tally.cross.get(key, 0) for key in (
+            "flash_attention_fwd_tc", "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")}
+        want_cross = [2 * n_cross * micro * TRAIN_STEPS] + [n_cross * micro * TRAIN_STEPS] * 2
+        log(f"train {cfg.name}: the cross blocks' launches (not causal, on the tensor cores) "
+            f"{json.dumps(cross)}, expected K1 / K5 / K6 {want_cross}")
+        if list(cross.values()) != want_cross:
+            raise AssertionError(f"train {cfg.name}: the cross blocks did not launch K1 / K5 / "
+                                 "K6 not causal on the tensor cores as often as expected")
     step_s = trainer.history[-1]["step_time_s"]
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
-    train_breakdown(torch, cfg, step_s, batch // micro, seq, micro)
+    train_breakdown(torch, cfg, step_s, batch // micro, seq, micro, cross_ms=cross_ms)
 
-    check_train_grads(torch, cfg_full, seed + 1)
+    check_train_grads(torch, cfg_full, seed + 1, layers=grad_layers)
     return counts
 
 
-def check_train_grads(torch, cfg_full, seed):
-    """One step's gradients of ``cfg_full`` at 2 layers, sequence 1024,
+def check_train_grads(torch, cfg_full, seed, layers=2):
+    """One step's gradients of ``cfg_full`` at ``layers`` layers (a vision
+    model's first 4 hold its first cross layer; its gates open, a seeded
+    image in the batch), sequence 1024,
     batch 1, from the weights and batch of ``seed``, bf16 compute, on the
     kernel path (``cuda``), on the plain path (``plain``: ``attn_impl`` and
     ``ssm.impl`` "plain") and on the plain path in float32 compute
@@ -3826,7 +3890,7 @@ def check_train_grads(torch, cfg_full, seed):
     from repro_torch.models import transformer
     from repro_torch.training import train_step as ts
 
-    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    cfg = dataclasses.replace(cfg_full, n_layers=layers)
     plain = dataclasses.replace(cfg, attn_impl="plain")
     if cfg.ssm is not None:
         plain = dataclasses.replace(plain, ssm=dataclasses.replace(cfg.ssm, impl="plain"))
@@ -3835,6 +3899,11 @@ def check_train_grads(torch, cfg_full, seed):
     params = transformer.init_model(cfg, seed=seed, device="cuda", param_dtype=torch.float32)
     batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=seed,
                                                   vocab=cfg.vocab)).batch_at(0), "cuda")
+    if cfg.vision_tokens:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 11)
+        open_gates(torch, params, gen)
+        batch["image_embeds"] = vision_images(torch, cfg, 1, gen)
     grads, losses = {}, {}
     tape = RouteTape() if cfg.moe is not None else None
     try:
@@ -3861,7 +3930,16 @@ def check_train_grads(torch, cfg_full, seed):
     dist, held = grad_bars(grads, hybrid)
     worst = max(held, key=held.get)
     near = max(dist["cuda-plain"], key=dist["cuda-plain"].get)
-    log(f"train {cfg.name} step-1 kernel path vs plain path: loss {losses['cuda']:.6f} vs "
+    scalars = {k: [float(grads[run][k]) for run in ("cuda", "plain", "float32")]
+               for k in grads["plain"] if grads["plain"][k].ndim == 0}
+    if scalars:
+        log(f"train {cfg.name} ({layers} layers) scalar leaves' gradients (kernel path, plain "
+            f"path, float32; each held less {BF16_ULP}): " + ", ".join(
+                f"{k} {a:.6e} {b:.6e} {c:.6e} (kernel vs plain "
+                f"{dist['cuda-plain'][k]:.3e}, held {held[k]:.3e})"
+                for k, (a, b, c) in scalars.items()))
+    log(f"train {cfg.name} ({layers} layers) step-1 kernel path vs plain path: loss "
+        f"{losses['cuda']:.6f} vs "
         f"{losses['plain']:.6f} (relative {rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); gradient "
         f"||g_cuda - g_plain|| / ||g_plain|| max {dist['cuda-plain'][near]:.3e} at {near}, "
         f"median {statistics.median(dist['cuda-plain'].values()):.3e}; against float32 "
@@ -3880,19 +3958,31 @@ def grad_bars(grads, hybrid):
     Returns the relative-norm distances ``cuda-plain`` (over the plain
     gradient), ``cuda-f32`` and ``plain-f32`` (over the float32 gradient),
     each {leaf: distance}, and the distance held against TRAIN_GRAD_TOL:
-    ``cuda-plain``, or on a hybrid stack ``cuda-f32 - plain-f32``."""
+    ``cuda-plain``, or on a hybrid stack ``cuda-f32 - plain-f32``; a scalar
+    leaf (a cross layer's gate) less BF16_ULP, one bf16 step at most. On
+    both bf16 paths, as in the JAX package, the gate is cast to the compute
+    dtype before its product, so its gradient is one sum over every token
+    and channel rounded to bf16 (then scaled by tanh's derivative): two
+    paths whose sums fall in neighbouring steps of that grid part by one
+    step whatever their accuracy. The sum also
+    mostly cancels: llama-3.2-vision-11b at 4 layers, seeds 1-3, the plain
+    path lay 6.8e-2 / 6.0e-3 / 5.8e-3 from float32 there, one or two ulps,
+    and the plain path with a float64 attention forward one ulp from the
+    plain path (4.48e-3, 5.03e-3, 0; ``tools/train_grads.py --layers 4``,
+    NVIDIA H100 80GB HBM3 at 700 W)."""
     def rel(a, b):
         return {k: float((grads[a][k] - r).float().norm() / r.float().norm())
                 for k, r in grads[b].items()}
 
     dist = {"cuda-plain": rel("cuda", "plain"), "cuda-f32": rel("cuda", "float32"),
             "plain-f32": rel("plain", "float32")}
-    if not hybrid:
-        return dist, dist["cuda-plain"]
-    return dist, {k: v - dist["plain-f32"][k] for k, v in dist["cuda-f32"].items()}
+    held = dist["cuda-plain"] if not hybrid else {
+        k: v - dist["plain-f32"][k] for k, v in dist["cuda-f32"].items()}
+    return dist, {k: v - BF16_ULP if grads["plain"][k].ndim == 0 else v
+                  for k, v in held.items()}
 
 
-def train_breakdown(torch, cfg, step_s, b, s, micro):
+def train_breakdown(torch, cfg, step_s, b, s, micro, cross_ms=None):
     """K1, K5 and K6 at the train step's shapes (``b`` rows of ``s`` tokens
     per microbatch, causal) and with the plan its attention layers build,
     once per distinct window of ``cfg``'s attention layers, with its
@@ -3901,6 +3991,8 @@ def train_breakdown(torch, cfg, step_s, b, s, micro):
     (CUDA-event medians, L2 flushed) beside one SSM block
     (``ssm_breakdown``) and the float32 LM head, times its count per step,
     against the measured step time: a breakdown by parts, not a profile.
+    A cross layer's block adds ``cross_ms``' K1, K5 and K6 at the cross
+    shape (``check_vision_kernels``), K1 twice.
     SDPA's forward and backward are timed beside K1 and K5 + K6 where no
     softcap or window keeps it from computing the same function. These
     launches come after the train run's counts were read."""
@@ -3977,6 +4069,13 @@ def train_breakdown(torch, cfg, step_s, b, s, micro):
             k1_ms += micro * n * 2 * t_k1
             del o, lse, delta
         del q, k, v, do
+    n_cross = sum(spec.cross_attn for spec in specs)
+    if n_cross:
+        t_k1, t_k5, t_k6 = (cross_ms[key]["ms"] for key in ("K1 train", "K5 train", "K6 train"))
+        attn += micro * n_cross * (2 * t_k1 + t_k5 + t_k6)
+        k1_ms += micro * n_cross * 2 * t_k1
+        log(f"train {cfg.name} parts: {n_cross} cross block(s) per microbatch, not causal over "
+            f"{cfg.vision_tokens} keys: K1 {t_k1:.4f} ms, K5 {t_k5:.4f} ms, K6 {t_k6:.4f} ms")
     ssm_part = ""
     if n_ssm:
         fwd, bwd, k9, sbwd = ssm_breakdown(torch, timer, cfg, b, s)
@@ -4162,17 +4261,407 @@ def train_moe(torch, cfg):
     return train(torch, cfg, layers=MOE_TRAIN_LAYERS)
 
 
+# -- phase 6: llama-3.2-vision-11b, gated cross-attention over image tokens ------
+
+class CrossTally:
+    """While open, the launches made by the cross blocks, apart from the
+    rest: ``ops.flash_attention_fwd`` / ``ops.flash_attention_bwd`` calls
+    with ``causal=False`` (K1, K5 / K6 of a cross block: the only
+    non-causal attention of the path) and ``attention.attention_decode``
+    calls with ``is_cross=True`` (K7 / K8 over a cross stripe) add the
+    counters' growth over the call to ``cross``. It also keeps the first
+    cross call of ``attention.attention_prefill`` (given
+    ``encoder_states``) and of ``attention.attention_decode`` as
+    ``(args, kw, output)`` in ``first``. The wrapped functions run as they
+    are."""
+
+    def __init__(self):
+        self.cross, self.first = {}, {}
+
+    def _wrap(self, fn, name, is_cross, keep=True, count=True):
+        from repro_torch import kernels
+
+        def wrapped(*args, **kw):
+            if not is_cross(kw):
+                return fn(*args, **kw)
+            before = kernels.launch_counts() if count else None
+            out = fn(*args, **kw)
+            if count:
+                for key, n in kernels.launch_counts().items():
+                    if n != before[key]:
+                        self.cross[key] = self.cross.get(key, 0) + n - before[key]
+            if keep and name not in self.first:
+                self.first[name] = (args, kw, out)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention
+
+        self._saved = [(ops, "flash_attention_fwd"), (ops, "flash_attention_bwd"),
+                       (attention, "attention_decode"), (attention, "attention_prefill")]
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in self._saved]
+        not_causal = lambda kw: kw.get("causal") is False   # noqa: E731
+        ops.flash_attention_fwd = self._wrap(ops.flash_attention_fwd, "k1", not_causal,
+                                             keep=False)
+        ops.flash_attention_bwd = self._wrap(ops.flash_attention_bwd, "bwd", not_causal,
+                                             keep=False)
+        attention.attention_decode = self._wrap(attention.attention_decode, "decode",
+                                                lambda kw: kw.get("is_cross", False))
+        attention.attention_prefill = self._wrap(
+            attention.attention_prefill, "prefill",
+            lambda kw: kw.get("encoder_states") is not None, count=False)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def open_gates(torch, params, gen):
+    """Every cross gate of ``params`` set to a seeded value of magnitude
+    0.5 .. 1.5 and random sign (``init_model`` leaves them at zero, which
+    hides the cross blocks from the logits and their weights from the
+    gradients); returns the gates."""
+    gates = []
+    for lp in params["layers"]:
+        if "cross" in lp:
+            mag = torch.rand((), generator=gen, device="cuda") + 0.5
+            sign = torch.where(torch.rand((), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+            lp["cross_gate"] = (mag * sign).to(lp["cross_gate"].dtype)
+            gates.append(round(float(lp["cross_gate"]), 4))
+    return gates
+
+
+def vision_images(torch, cfg, rows, gen):
+    """Seeded stand-ins for the stub vision tower's patch embeddings:
+    (rows, vision_tokens, vision_dim) standard normals, float32."""
+    return torch.randn((rows, cfg.vision_tokens, cfg.vision_dim), generator=gen,
+                       device="cuda")
+
+
+def serve_vision(torch, timer, cfg, seed=0):
+    """llama-3.2-vision-11b at ``cfg``'s depth through the model-level
+    serve path: ``transformer.prefill(image_embeds=)`` of VISION_ROWS rows
+    of VISION_PROMPT tokens (the last row right-padded to VISION_SHORT),
+    each with its own seeded image, then VISION_TICKS greedy
+    ``decode_step`` ticks over dense stripes of VISION_PROMPT +
+    VISION_TICKS rows and the read-only cross caches. The plain path
+    (``attn_impl="plain"``) runs first and picks the ids; the kernel path
+    decodes the same ids with its launch counts set to 0 just before and
+    read just after. Held: the prefill and every tick's logits within
+    LOGIT_TOL of max |plain| per row, greedy ids equal but for near-ties
+    (``_logit_distance``), the first cross layer's output at the prefill
+    and at the first tick within ROW_TOL per row of the plain version on
+    the same inputs, every K1 and K7 / K8 launch on the tensor cores, K1
+    launched causal and not, K7 / K8 on the self and the cross stripes.
+    Returns the kernel path's launch counts."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch, cfg, seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    gates = open_gates(torch, params, gen)
+    images = vision_images(torch, cfg, VISION_ROWS, gen).to(torch.bfloat16)
+    rng = np.random.default_rng(seed + 13)
+    tokens = rng.integers(1, cfg.vocab, size=(VISION_ROWS, VISION_PROMPT))
+    tokens[-1, VISION_SHORT:] = 0
+    tokens = torch.from_numpy(tokens).to("cuda")
+    last = torch.full((VISION_ROWS,), VISION_PROMPT - 1, device="cuda")
+    last[-1] = VISION_SHORT - 1
+    cache_len = VISION_PROMPT + VISION_TICKS
+    log(f"serve {cfg.name}: cross gates {gates}; images {tuple(images.shape)} bf16; prompts "
+        f"{VISION_ROWS} x {VISION_PROMPT} (the last right-padded to {VISION_SHORT}); dense "
+        f"stripes of {cache_len}, cross stripes of {cfg.vision_tokens}")
+
+    def run(c, feed=None):
+        """Prefill, then VISION_TICKS ticks; ``feed``: the ids to decode
+        (default each tick's own greedy ids)."""
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(params, c, tokens, cache_len=cache_len,
+                                             image_embeds=images, last_positions=last)
+        torch.cuda.synchronize()
+        out = dict(prefill_s=time.perf_counter() - t0, first=logits.float(), ticks=[], ids=[],
+                   events=[])
+        lengths = (last + 1).to(torch.int32)
+        nxt = logits.argmax(-1) if feed is None else feed[0]
+        for t in range(VISION_TICKS):
+            out["ids"].append(nxt)
+            lengths = lengths + 1
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            logits, caches = transformer.decode_step(params, c, nxt, caches, lengths)
+            end.record()
+            out["events"].append((start, end))
+            out["ticks"].append(logits.float())
+            if t + 1 < VISION_TICKS:
+                nxt = logits.argmax(-1) if feed is None else feed[t + 1]
+        torch.cuda.synchronize()
+        out["tick_ms"] = statistics.median(s.elapsed_time(e) for s, e in out["events"][1:])
+        out["caches"], out["lengths"] = caches, lengths
+        return out
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
+    plain = run(plain_cfg)
+    del plain["caches"]
+    kernels.reset_launch_counts()
+    with CrossTally() as tally:
+        cuda = run(cfg, feed=plain["ids"])
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    worst, same, flips = _logit_distance({"first": dict(enumerate(plain["first"]))},
+                                         {"first": dict(enumerate(cuda["first"]))},
+                                         f"{cfg.name} prefill", stages=("first",))
+    worst["last"], same["last"] = 0.0, 0
+    for t in range(VISION_TICKS):
+        w, sm, f = _logit_distance({"last": dict(enumerate(plain["ticks"][t]))},
+                                   {"last": dict(enumerate(cuda["ticks"][t]))},
+                                   f"{cfg.name} tick {t}", stages=("last",))
+        worst["last"] = max(worst["last"], w["last"])
+        same["last"] += sm["last"]
+        flips += f
+    # The first cross layer's block, prefill and first tick, on the plain
+    # version from the kernel path's own inputs.
+    args, kw, (y, _) = tally.first["prefill"]
+    y_ref, _ = attn_lib.attention_prefill(args[0], args[1], plain_cfg, *args[3:], **kw)
+    e_prefill = row_err(y, y_ref)
+    args, kw, (y, _) = tally.first["decode"]
+    y_ref, _ = attn_lib.attention_decode(args[0], args[1], plain_cfg, *args[3:], **kw)
+    e_tick = row_err(y, y_ref)
+    del y, y_ref, args, kw
+    tally.first.clear()
+    cross = tally.cross
+    k1_nc = cross.get("flash_attention_fwd", 0)
+    dec = ("flash_decode", "flash_decode_split")
+    dec_all, dec_cross = (sum(c.get(k, 0) for k in dec) for c in (counts, cross))
+    n = VISION_ROWS * VISION_TICKS
+    log(f"serve {cfg.name} ({cfg.n_layers} layers, {VISION_ROWS} rows): prefill "
+        f"{cuda['prefill_s'] * 1e3:.1f} ms (host clock, synced; plain path "
+        f"{plain['prefill_s'] * 1e3:.1f} ms), eager decode tick {cuda['tick_ms']:.3f} ms "
+        f"(CUDA events, median of ticks 2-{VISION_TICKS}; plain path {plain['tick_ms']:.3f} "
+        f"ms); peak memory {peak:.2f} GiB (max_memory_allocated)")
+    log(f"serve {cfg.name}: K1 launches {counts['flash_attention_fwd']} (causal "
+        f"{counts['flash_attention_fwd'] - k1_nc}, not causal {k1_nc}); K7 / K8 launches "
+        f"{dec_all} (self {dec_all - dec_cross}, cross {dec_cross}; one pass "
+        f"{counts['flash_decode']} of which cross {cross.get('flash_decode', 0)}, split "
+        f"{counts['flash_decode_split']} of which cross {cross.get('flash_decode_split', 0)}); "
+        f"launch counts {json.dumps(counts)}")
+    log(f"compare {cfg.name}: prefill logits max |cuda - plain| / max |plain| = "
+        f"{worst['first']:.3e}, decode ticks {worst['last']:.3e} (worst of {VISION_TICKS}; tol "
+        f"{LOGIT_TOL}); greedy ids equal {same['first']}/{VISION_ROWS} prefill, "
+        f"{same['last']}/{n} decode ({flips} near-ties within twice the error); the first cross "
+        f"layer's output row-relative {e_prefill:.3e} at the prefill, {e_tick:.3e} at the first "
+        f"tick (tol {ROW_TOL:.3e})")
+    check_k1_route(f"serve {cfg.name}", counts)
+    check_dense_route(f"serve {cfg.name}", counts)
+    n_cross = sum(spec.cross_attn for spec in cfg.layer_specs())
+    want = dict(k1=(cfg.n_layers, n_cross), dec=(cfg.n_layers * VISION_TICKS,
+                                                  n_cross * VISION_TICKS))
+    if (counts["flash_attention_fwd"] - k1_nc, k1_nc) != want["k1"] \
+            or (dec_all - dec_cross, dec_cross) != want["dec"]:
+        raise AssertionError(f"serve {cfg.name}: K1 (causal, not) and K7 / K8 (self, cross) "
+                             f"launches, expected {want}")
+    if max(worst.values()) > LOGIT_TOL or max(e_prefill, e_tick) > ROW_TOL:
+        raise AssertionError(f"serve {cfg.name}: kernel path disagrees with the plain path")
+
+    # One decode tick as a CUDA graph, as an engine would replay it.
+    caches, lengths = cuda.pop("caches"), cuda["lengths"]
+    tok = plain["ids"][-1].clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        transformer.decode_step(params, cfg, tok, caches, lengths)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        transformer.decode_step(params, cfg, tok, caches, lengths)
+    graph_ms = timer.ms(graph.replay)
+    log(f"serve {cfg.name}: one-tick CUDA graph replay {graph_ms:.3f} ms (CUDA events, "
+        f"median of {REPS}; card: {smi_line()})")
+    del graph, caches, cuda, plain, params, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_vision_kernels(torch, timer, cfg):
+    """The kernels at the vision path's cross shapes, bf16 on the tensor
+    cores (``cfg``'s widths: Hq 32, Hkv 8, D 128, 1600 keys): K1 not causal
+    at the serve prefill (VISION_ROWS x VISION_PROMPT queries), K7 and K8
+    over the cross stripe of VISION_ROWS rows, every row live (one pass and
+    the plan's split, or 4), and K1 + K5 + K6 not causal at the train
+    shape (TRAIN_BATCH / TRAIN_MICRO rows of TRAIN_SEQ queries), as
+    ``ops.flash_attention`` calls them (unpadded keys, ``kv_len``). Each is
+    held to its plain version on the same inputs (K1 and K7 / K8 per row,
+    K5 / K6 per (b, head) slice, ROW_TOL; lse LSE_TOL) and timed (CUDA-event
+    medians of REPS runs, L2 flushed; decode with the queue primed) beside
+    its bound (every (row, key) pair live), its plain version and SDPA
+    (``enable_gqa``, not causal; its backward on K/V expanded to Hq).
+    Returns {case: times} for the train breakdown and the summary."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    skv, out = cfg.vision_tokens, {}
+    for label, b, sq in (("serve", VISION_ROWS, VISION_PROMPT),
+                         ("train", TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ)):
+        q, k, v, do = randn(b, hq, sq, d), randn(b, hkv, skv, d), randn(b, hkv, skv, d), \
+            randn(b, hq, sq, d)
+        plan = plan_lib.plan_attention((b, hq, hkv, sq, skv, d), device_type="cuda",
+                                       dtype_bytes=2)
+        kw = dict(mapping=plan.mapping, causal=False, kv_len=skv)
+        kernels.reset_launch_counts()
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        check_k1_route(f"K1 {cfg.name} cross {label}", kernels.launch_counts())
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        e_o, e_l, ab = row_err(o, o_ref), err(lse, lse_ref), err(o, o_ref)
+        del o_ref, lse_ref
+        ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        plain_ms = timer.ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=False))
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
+        kb = k1_bound_of(q, k, v, o, lse, causal=False)
+        shape = f"B {b} Hq {hq} Hkv {hkv} Sq {sq} Skv {skv} D {d} not causal"
+        log(f"K1 {cfg.name} cross {label} ({shape}, {plan.mapping}): row-relative {e_o:.3e} "
+            f"(max abs {ab:.3e}), lse {e_l:.3e} (tol {ROW_TOL:.3e}, lse {LSE_TOL}); {ms:.4f} ms, "
+            f"bound {kb[0]:.4f} ms ({kb[1]}), plain {plain_ms:.3f} ms, library sdpa "
+            f"{lib_ms:.4f} ms")
+        if e_o > ROW_TOL or e_l > LSE_TOL:
+            raise AssertionError(f"K1 {cfg.name} cross {label} disagrees with its plain version")
+        out[f"K1 {label}"] = dict(max_abs_err=ab, ms=ms, plain_ms=plain_ms, bound_ms=kb[0],
+                                  bound_by=kb[1], library_ms=lib_ms)
+        if label == "train":
+            delta = (do.float() * o.float()).sum(-1)
+            kernels.reset_launch_counts()
+            dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            check_bwd_route(f"K5/K6 {cfg.name} cross train",
+                            bwd_launches({key: 0 for key in kernels.launch_counts()},
+                                         kernels.launch_counts()))
+            ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
+            torch.cuda.synchronize()
+            rel = [slice_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+            abs_err = [err(g, r) for g, r in zip((dq, dk, dv), ref)]
+            del ref, dq, dk, dv
+            ms5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+            ms6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            plain_bwd = timer.ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                      causal=False))
+            group = hq // hkv
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+            sd = F.scaled_dot_product_attention(*leaves)
+            lib_bwd = timer.ms(lambda: torch.autograd.grad(sd, leaves, do, retain_graph=True))
+            del leaves, sd
+            pairs = b * hq * sq * skv
+            b5 = bound(nbytes(q, k, v, do, lse, delta, q), 6.0 * d * pairs)
+            b6 = bound(nbytes(q, k, v, do, lse, delta, k, v), 8.0 * d * pairs)
+            log(f"K5/K6 {cfg.name} cross train ({shape}): per-slice relative dq {rel[0]:.3e} "
+                f"dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {ROW_TOL:.3e}); K5 {ms5:.4f} ms bound "
+                f"{b5[0]:.4f} ({b5[1]}), K6 {ms6:.4f} ms bound {b6[0]:.4f} ({b6[1]}), pair "
+                f"{ms5 + ms6:.4f} ms; plain backward {plain_bwd:.3f} ms; library sdpa backward "
+                f"{lib_bwd:.4f} ms")
+            if max(rel) > ROW_TOL:
+                raise AssertionError(f"K5/K6 {cfg.name} cross train disagree with the plain "
+                                     "backward")
+            out["K5 train"] = dict(max_abs_err=abs_err[0], ms=ms5, plain_ms=plain_bwd,
+                                   bound_ms=b5[0], bound_by=b5[1], library_ms=lib_bwd)
+            out["K6 train"] = dict(max_abs_err=max(abs_err[1:]), ms=ms6, plain_ms=plain_bwd,
+                                   bound_ms=b6[0], bound_by=b6[1], library_ms=lib_bwd)
+            del delta
+        del q, k, v, do, o, lse
+
+    # K7 / K8 over the cross stripe: every row attends all of its image's keys.
+    b = VISION_ROWS
+    q, kc, vc = randn(b, hq, d), randn(b, hkv, skv, d), randn(b, hkv, skv, d)
+    lens = torch.full((b,), skv, dtype=torch.int32, device="cuda")
+    plan = plan_lib.plan_attention((b, hq, hkv, 1, skv, d), phase=plan_lib.DECODE,
+                                   kv_layout=plan_lib.DENSE, device_type="cuda",
+                                   dtype_bytes=2)
+    live = b * skv
+    db = bound(2 * hkv * live * d * 2 + 2 * nbytes(q) + nbytes(lens), 4.0 * hq * d * live)
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                             enable_gqa=True), primed=True)
+    for ns in (1, plan.num_splits if plan.num_splits > 1 else 4):
+        key = "K7" if ns == 1 else "K8"
+        kw = dict(chunk=plan.chunk, num_splits=ns)
+        kernels.reset_launch_counts()
+        o = dd.flash_decode(q, kc, vc, lens, **kw)
+        check_dense_route(f"{key} {cfg.name} cross stripe", kernels.launch_counts())
+        o_ref = dd.flash_decode_plain(q, kc, vc, lens, **kw)
+        torch.cuda.synchronize()
+        e, e_r = err(o, o_ref), row_err(o, o_ref)
+        ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lens, **kw), primed=True)
+        plain_ms = timer.ms(lambda: dd.flash_decode_plain(q, kc, vc, lens, **kw))
+        log(f"{key} {cfg.name} cross stripe (B {b} Hq {hq} Hkv {hkv} {skv} rows, all live, "
+            f"chunk {plan.chunk}, num_splits {ns}; the plan picks {plan.num_splits}): "
+            f"row-relative {e_r:.3e} (tol {ROW_TOL:.3e}), {ms:.4f} ms (queue primed), bound "
+            f"{db[0]:.5f} ms ({db[1]}), plain {plain_ms:.3f} ms, library sdpa {lib_ms:.4f} ms")
+        if e_r > ROW_TOL:
+            raise AssertionError(f"{key} {cfg.name} cross stripe disagrees with its plain "
+                                 "version")
+        out[f"{key} cross"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=db[0],
+                                   bound_by=db[1], library_ms=lib_ms)
+    del q, kc, vc
+    log(f"vision kernels (card: {smi_line()}): {json.dumps(out)}")
+    return out
+
+
+def vision_phase(torch, cfg):
+    """Phase 6 on llama-3.2-vision-11b ``cfg``: ``serve_vision`` at all 40
+    layers, ``check_vision_kernels``, then the train phase at
+    VISION_TRAIN_LAYERS with images in every batch and the step-1
+    gradients at VISION_GRAD_LAYERS. Returns the launch counts of the serve
+    and train runs together."""
+    log(f"== serve {cfg.name} ({cfg.n_layers} layers, {cfg.vision_tokens} image tokens of "
+        f"{cfg.vision_dim}, cross layers every 5th; dense, model level; bf16, random weights)")
+    timer = Timer(torch)
+    counts = serve_vision(torch, timer, cfg)
+    log(f"== kernels at {cfg.name}'s cross shapes (bf16, not causal, {cfg.vision_tokens} keys)")
+    cross_ms = check_vision_kernels(torch, timer, cfg)
+    del timer
+    log(f"== train {cfg.name} ({VISION_TRAIN_LAYERS} of {cfg.n_layers} layers, seq {TRAIN_SEQ}, "
+        f"batch {TRAIN_BATCH} in {TRAIN_MICRO} microbatches, images in every batch, bf16 "
+        "compute, random weights)")
+    for key, n in train(torch, cfg, layers=VISION_TRAIN_LAYERS, grad_layers=VISION_GRAD_LAYERS,
+                        cross_ms=cross_ms).items():
+        counts[key] += n
+    return counts
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "plan", "extend", "gemma", "ssm", "moe"),
+    parser.add_argument("--phase",
+                        choices=("all", "plan", "extend", "gemma", "ssm", "moe", "vision"),
                         default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
                              "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
                              "the gemma serve runs alone, 'ssm' K9's check and the hymba and "
                              "mamba2 train phases alone, 'moe' the moonshot-v1-16b-a3b serve "
-                             "(48 layers) and train phases alone; none prints a result line")
+                             "(48 layers) and train phases alone, 'vision' the "
+                             "llama-3.2-vision-11b serve, kernel and train phases alone; none "
+                             "prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -4186,8 +4675,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b,
-                                     moonshot_v1_16b_a3b)
+    from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b,
+                                     llama_3_2_vision_11b, mamba2_1_3b, moonshot_v1_16b_a3b)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -4244,6 +4733,12 @@ def main() -> int:
         serve_moonshot(torch, timer, moonshot)
         train_moe(torch, moonshot)
         log(f"total {time.perf_counter() - t_start:.1f} s (moe phase only: no result line)")
+        return 0
+    vision = llama_3_2_vision_11b.CONFIG
+    if args.phase == "vision":
+        del timer
+        vision_phase(torch, vision)
+        log(f"total {time.perf_counter() - t_start:.1f} s (vision phase only: no result line)")
         return 0
     gemma = (gemma2_2b.CONFIG, gemma3_1b.CONFIG)
     if args.phase == "gemma":
@@ -4384,6 +4879,8 @@ def main() -> int:
         for key, n in train_ssm(torch, cfg, layers).items():
             counts[key] += n
     for key, n in train_moe(torch, moonshot).items():
+        counts[key] += n
+    for key, n in vision_phase(torch, vision).items():
         counts[key] += n
     for key, spec in KERNELS.items():
         if counts[spec["counter"]] <= 0:

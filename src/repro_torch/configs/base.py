@@ -5,8 +5,9 @@ A ``ModelConfig`` fully determines parameter shapes and the layer stack:
 position). The fields and defaults match the JAX package's schema so a
 config built here describes the same model. The port serves the
 ``attn``, ``mamba`` and ``hybrid`` layer kinds with ``ffn="mlp"``,
-``"moe"`` or ``"none"`` (llama, gemma, mamba2, hymba, moonshot, mixtral);
-cross-attention and multi-codebook fields wait for their slices.
+``"moe"`` or ``"none"`` (llama, gemma, mamba2, hymba, moonshot, mixtral),
+and gated cross-attention layers over stub image embeddings
+(llama-3.2-vision); the multi-codebook field waits for its slice.
 """
 
 from __future__ import annotations
@@ -73,6 +74,8 @@ class ModelConfig:
     # io
     tie_embeddings: bool = True
     num_codebooks: int = 1
+    vision_tokens: int = 0        # >0: VLM with stub patch-embedding frontend
+    vision_dim: int = 0
     embed_scale: bool = False     # gemma-style sqrt(d) embedding scale
     # runtime
     max_seq_len: int = 131072

@@ -1,17 +1,21 @@
-"""GQA self-attention blocks of the serving paths and of training.
+"""GQA self- and cross-attention blocks of the serving paths and of training.
 
-Port of the self-attention subset of ``repro.models.attention``:
-``_project_qkv``, ``attention_block`` (training), ``attention_prefill``,
-``attention_prefill_paged``, ``attention_decode`` (dense stripes),
-``attention_decode_paged``, ``init_cache`` and ``init_paged_cache``, with
-quantized page pools (int8 / fp8 codes and per-(kv head, page) scales,
-``cache.quant``); cross-attention decode (``is_cross``) waits for the VLM
-slice. Layer weights are a dict ``{"wq", "wk", "wv", "wo"}``
-laid out ``(d_in, d_out)`` as in the JAX package, in any dtype: each is
-cast to the activations' dtype at its product; a qk-norm model (gemma3)
-adds float32 ``"q_norm"`` / ``"k_norm"`` gains of width ``head_dim``. The page pools and the
-dense stripes are updated in place (JAX returns new arrays); the functions
-still return the cache dict so call sites read the same in both packages.
+Port of ``repro.models.attention``: ``_project_qkv``, ``attention_block``
+(training), ``attention_prefill``, ``attention_prefill_paged``,
+``attention_decode`` (dense stripes), ``attention_decode_paged``,
+``init_cache`` and ``init_paged_cache``, with quantized page pools (int8 /
+fp8 codes and per-(kv head, page) scales, ``cache.quant``). A cross layer
+(``spec.cross_attn``, llama-3.2-vision) passes ``encoder_states``: its K/V
+are projected from them, without rotary, and attended without causality
+or window; its decode (``is_cross``) reads that K/V as a read-only stripe,
+every row live. Without ``encoder_states`` a cross layer's weights run as
+causal, roped self-attention, as in the JAX package. Layer weights are a
+dict ``{"wq", "wk", "wv", "wo"}`` laid out ``(d_in, d_out)`` as in the JAX
+package, in any dtype: each is cast to the activations' dtype at its
+product; a qk-norm model (gemma3) adds float32 ``"q_norm"`` / ``"k_norm"``
+gains of width ``head_dim``. The page pools and the dense stripes are
+updated in place (JAX returns new arrays); the functions still return the
+cache dict so call sites read the same in both packages.
 """
 
 from __future__ import annotations
@@ -33,21 +37,46 @@ def _plan(cfg: ModelConfig, shape, x: torch.Tensor, **kw) -> plan_lib.AttentionP
                                     dtype_bytes=x.element_size(), **kw)
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, rope_theta):
-    """x: (B, S, D) -> q (B, H, S, hd), k / v (B, Hkv, S, hd). Under qk-norm
-    q and k are RMS-normed over ``hd`` (``(1 + scale)`` gains) before
-    rotary, as the JAX package does, on every path."""
+def _project_qkv(p, x, cfg: ModelConfig, positions, rope_theta, kv_x=None,
+                 rope: bool = True):
+    """x: (B, S, D) -> q (B, H, S, hd), k / v (B, Hkv, Skv, hd), K/V from
+    ``kv_x`` (B, Skv, D) where given (cross-attention), else from x. Under
+    qk-norm q and k are RMS-normed over ``hd`` (``(1 + scale)`` gains)
+    before rotary, as the JAX package does, on every path; ``rope=False``
+    (cross-attention) leaves both unrotated."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
+    skv = src.shape[1]
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd).transpose(1, 2)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
+    k = (src @ p["wk"].to(x.dtype)).reshape(b, skv, hkv, hd).transpose(1, 2)
+    v = (src @ p["wv"].to(x.dtype)).reshape(b, skv, hkv, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q)
         k = layers.rmsnorm(p["k_norm"], k)
-    q = layers.apply_rotary(q, positions, rope_theta)
-    k = layers.apply_rotary(k, positions, rope_theta)
+    if rope:
+        q = layers.apply_rotary(q, positions, rope_theta)
+        k = layers.apply_rotary(k, positions, rope_theta)
     return q, k, v
+
+
+def _full_attention(p, x, cfg: ModelConfig, spec: LayerSpec, positions, encoder_states):
+    """q, k, v and the attention output (B, H, S, hd) of a whole sequence:
+    causal, roped and windowed self-attention, or, on a cross layer given
+    ``encoder_states`` (B, Skv, D), non-causal attention over their K/V
+    with neither rotary nor window."""
+    b, s, _ = x.shape
+    cross = spec.cross_attn and encoder_states is not None
+    if positions is None and not cross:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions, spec.rope_theta,
+                           kv_x=encoder_states if cross else None, rope=not cross)
+    window = None if cross else spec.window
+    plan = _plan(cfg, (b, cfg.n_heads, cfg.n_kv_heads, s, k.shape[2], cfg.head_dim), x,
+                 phase=plan_lib.PREFILL, window=window)
+    o = ops.flash_attention(q, k, v, causal=not cross, window=window,
+                            softcap=cfg.attn_softcap, plan=plan)
+    return q, k, v, o
 
 
 def _out(p, o, cfg: ModelConfig):
@@ -56,36 +85,28 @@ def _out(p, o, cfg: ModelConfig):
 
 
 def attention_block(p, x, cfg: ModelConfig, spec: LayerSpec, *,
-                    positions=None) -> torch.Tensor:
-    """Full-sequence causal self-attention (training). x (B, S, D).
+                    positions=None, encoder_states=None) -> torch.Tensor:
+    """Full-sequence attention (training). x (B, S, D): causal
+    self-attention, or cross-attention over ``encoder_states`` (B, Skv, D)
+    on a cross layer (``_full_attention``).
 
     Differentiable: ``ops.flash_attention`` runs K1 forward and K5 / K6
     backward on the card."""
-    b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions, spec.rope_theta)
-    plan = _plan(cfg, (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.head_dim), x,
-                 phase=plan_lib.PREFILL, window=spec.window)
-    o = ops.flash_attention(q, k, v, causal=True, window=spec.window,
-                            softcap=cfg.attn_softcap, plan=plan)
-    return _out(p, o, cfg)
+    return _out(p, _full_attention(p, x, cfg, spec, positions, encoder_states)[3], cfg)
 
 
 def attention_prefill(p, x, cfg: ModelConfig, spec: LayerSpec, *, cache_len: int,
-                      positions=None) -> Tuple[torch.Tensor, dict]:
-    """Full-prompt causal self-attention; also returns the prompt's K/V,
-    padded to ``cache_len``, for the caller to store."""
-    b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions, spec.rope_theta)
-    plan = _plan(cfg, (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.head_dim), x,
-                 phase=plan_lib.PREFILL, window=spec.window)
-    o = ops.flash_attention(q, k, v, causal=True, window=spec.window,
-                            softcap=cfg.attn_softcap, plan=plan)
-    pad = cache_len - s
-    cache = {"k": F.pad(k, (0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, pad))}
+                      positions=None, encoder_states=None) -> Tuple[torch.Tensor, dict]:
+    """Full-prompt attention as ``attention_block``; also returns the K/V,
+    padded to ``cache_len``, for the caller to store: the prompt's, or on a
+    cross layer the encoder states' (the JAX package passes their length,
+    so the cross cache holds them unpadded)."""
+    _, k, v, o = _full_attention(p, x, cfg, spec, positions, encoder_states)
+    pad = cache_len - k.shape[2]
+    # Contiguous stripes, as the dense decode kernels read them (with no
+    # padding, F.pad keeps the projection's strides).
+    cache = {"k": F.pad(k, (0, 0, 0, pad)).contiguous(),
+             "v": F.pad(v, (0, 0, 0, pad)).contiguous()}
     return _out(p, o, cfg), cache
 
 
@@ -116,16 +137,30 @@ def attention_prefill_paged(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict
 
 
 def attention_decode(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict,
-                     lengths) -> Tuple[torch.Tensor, dict]:
+                     lengths, *, is_cross: bool = False) -> Tuple[torch.Tensor, dict]:
     """One-token decode over dense stripes. x (B, 1, D); cache k / v
     (B, Hkv, Smax, hd), possibly a view cut to the live width; lengths (B,)
     int32 *including* the new token. The new K/V row is written in place at
     ``lengths - 1`` (a length-0 row writes position 0 of its free slot, as
     the JAX package's clamped update does), then the dense decode kernel
-    reads the stripes."""
+    reads the stripes.
+
+    ``is_cross``: the cache holds a cross layer's encoder K/V, read-only.
+    Only q is projected (qk-normed, not rotated); every row attends all
+    ``Smax`` positions, whatever ``lengths`` says."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     k, v = cache["k"], cache["v"]
+    if is_cross:
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, 1, h, hd).transpose(1, 2)
+        if cfg.qk_norm:
+            q = layers.rmsnorm(p["q_norm"], q)
+        kv_len = torch.full((b,), k.shape[2], dtype=torch.int32, device=x.device)
+        plan = _plan(cfg, (b, h, hkv, 1, k.shape[2], hd), x, phase=plan_lib.DECODE,
+                     kv_layout=plan_lib.DENSE)
+        o = ops.decode_attention(q[:, :, 0].contiguous(), k, v, kv_len,
+                                 softcap=cfg.attn_softcap, plan=plan)
+        return o.reshape(b, 1, h * hd) @ p["wo"].to(o.dtype), cache
     positions = (lengths.long() - 1)[:, None]
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, spec.rope_theta)
     rows = torch.arange(b, device=x.device)

@@ -3,20 +3,31 @@ MoE FFN, final norm, LM head.
 
 Port of ``repro.models.transformer`` for the ``attn``, ``mamba`` and
 ``hybrid`` layer kinds with ``ffn="mlp"``, ``"moe"`` or ``"none"`` (llama,
-mamba2, hymba, gemma, moonshot, mixtral): ``forward`` (training, with the
-MoE aux losses summed over the stack), ``prefill`` and
-``decode_step`` over paged pools or dense stripes. A Python loop over
-layers takes the place of the JAX package's scan over periods. Parameters
-are a dict::
+mamba2, hymba, gemma, moonshot, mixtral), and for gated cross-attention
+layers (llama-3.2-vision): ``forward`` (training, with the MoE aux losses
+summed over the stack), ``prefill`` and ``decode_step`` over paged pools
+or dense stripes (cross layers: dense only, as in the JAX package). A
+Python loop over layers takes the place of the JAX package's scan over
+periods. Parameters are a dict::
 
     {"embed": (V, D), "ln_f": (D,), "head": (D, V) unless tied,
+     "vision_proj": (vision_dim, D)                   (vision models),
      "layers": [{"ln1",
                  "wq", "wk", "wv", "wo"              (attn, hybrid),
                  "q_norm", "k_norm"                   (qk-norm models: gemma3),
                  "mamba": {...}                       (mamba, hybrid; models/ssm.py),
                  "ln_attn_out", "ln_mamba_out"        (hybrid),
+                 "ln_cross", "cross": {"wq", "wk", "wv", "wo"}, "cross_gate" ()
+                                                      (cross layers),
                  "ln2", "w_gate", "w_up", "w_down"    (ffn "mlp"),
                  "ln2", "moe": {...}                  (ffn "moe"; models/moe.py)}, ...]}
+
+A cross layer adds ``tanh(cross_gate) * cross_attn(rmsnorm(ln_cross, x))``
+after its token mixer and before its FFN; the cross block's K/V come from
+the image embeddings through ``vision_proj`` (the vision tower is a stub,
+as in the JAX config). Its gate starts at zero, so a fresh model ignores
+the images until it is trained. ``prefill`` returns each cross layer's K/V
+under ``"cross"`` in its cache dict, and ``decode_step`` reads them.
 
 Matmul weights are stored in ``param_dtype``: by default the compute
 dtype, which serving uses (the JAX package keeps float32 parameters and
@@ -71,12 +82,10 @@ _SSM_KINDS = ("mamba", "hybrid")
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
-        if spec.kind not in ("attn", "mamba", "hybrid") \
-                or spec.ffn not in ("mlp", "moe", "none") or spec.cross_attn:
+        if spec.kind not in ("attn", "mamba", "hybrid") or spec.ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
-                f"layer kind={spec.kind!r} ffn={spec.ffn!r} cross_attn="
-                f"{spec.cross_attn} is not ported yet (ROADMAP Queue A, other "
-                "model families)")
+                f"layer kind={spec.kind!r} ffn={spec.ffn!r} is not ported yet "
+                "(ROADMAP Queue A, other model families)")
         if spec.kind in _SSM_KINDS and cfg.ssm is None:
             raise ValueError(f"layer kind={spec.kind!r} needs cfg.ssm")
         if spec.ffn == "moe" and cfg.moe is None:
@@ -97,8 +106,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     the distributions of ``repro.models.transformer.init_model``: normal
     weights scaled by 1/sqrt(fan_in), embedding by d_model^-0.5, zero norm
     gains (the ``(1 + scale)`` identity), ``ssm.init_mamba`` for Mamba-2
-    blocks, ``moe.init_moe`` for MoE FFNs. Matmul weights and an untied
-    embedding are ``param_dtype`` (default: the compute dtype)."""
+    blocks, ``moe.init_moe`` for MoE FFNs, zero cross gates. Matmul
+    weights, ``vision_proj`` and an untied embedding are ``param_dtype``
+    (default: the compute dtype)."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev)
@@ -113,19 +123,26 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32, device=dev)
 
+    def attention() -> dict:
+        p = dict(wq=normal((d, h * hd), 1 / math.sqrt(d)),
+                 wk=normal((d, hkv * hd), 1 / math.sqrt(d)),
+                 wv=normal((d, hkv * hd), 1 / math.sqrt(d)),
+                 wo=normal((h * hd, d), 1 / math.sqrt(h * hd)))
+        if cfg.qk_norm:
+            p.update(q_norm=zeros(hd), k_norm=zeros(hd))
+        return p
+
     def layer(spec: LayerSpec) -> dict:
         lp = {"ln1": zeros(d)}
         if spec.kind in _ATTN_KINDS:
-            lp.update(wq=normal((d, h * hd), 1 / math.sqrt(d)),
-                      wk=normal((d, hkv * hd), 1 / math.sqrt(d)),
-                      wv=normal((d, hkv * hd), 1 / math.sqrt(d)),
-                      wo=normal((h * hd, d), 1 / math.sqrt(h * hd)))
-            if cfg.qk_norm:
-                lp.update(q_norm=zeros(hd), k_norm=zeros(hd))
+            lp.update(attention())
         if spec.kind in _SSM_KINDS:
             lp["mamba"] = ssm_lib.init_mamba(gen, d, cfg.ssm, dtype=dt, device=dev)
         if spec.kind == "hybrid":
             lp.update(ln_attn_out=zeros(d), ln_mamba_out=zeros(d))
+        if spec.cross_attn:
+            lp.update(ln_cross=zeros(d), cross=attention(),
+                      cross_gate=torch.zeros((), dtype=torch.float32, device=dev))
         if spec.ffn == "mlp":
             lp.update(ln2=zeros(d), w_gate=normal((d, f), 1 / math.sqrt(d)),
                       w_up=normal((d, f), 1 / math.sqrt(d)),
@@ -136,6 +153,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
 
     params: Params = {"embed": normal((cfg.vocab, d), d**-0.5,
                                       torch.float32 if cfg.tie_embeddings else dt)}
+    if cfg.vision_tokens:
+        params["vision_proj"] = normal((cfg.vision_dim, d), 1 / math.sqrt(cfg.vision_dim))
     params["layers"] = [layer(spec) for spec in cfg.layer_specs()]
     params["ln_f"] = zeros(d)
     if not cfg.tie_embeddings:
@@ -166,7 +185,10 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None,
     layers_out = []
     for lp in per_layer:
         out = {k: t(v, dt if k in _MATMUL_KEYS else torch.float32)
-               for k, v in lp.items() if k not in ("mamba", "moe")}
+               for k, v in lp.items() if k not in ("mamba", "moe", "cross")}
+        if "cross" in lp:
+            out["cross"] = {k: t(v, dt if k in _MATMUL_KEYS else torch.float32)
+                            for k, v in lp["cross"].items()}
         if "mamba" in lp:
             out["mamba"] = {k: t(v, dt if k in _SSM_CAST_KEYS else torch.float32)
                             for k, v in lp["mamba"].items()}
@@ -184,18 +206,24 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None,
     }
     if not cfg.tie_embeddings:
         params["head"] = t(tree["head"]["w_dm"])
+    if "vision_proj" in tree:
+        params["vision_proj"] = t(tree["vision_proj"]["w_dm"], dt)
     return params
+
+
+def _jax_attention(a, pick) -> dict:
+    out = dict(wq=pick(a["wq_dm"]), wk=pick(a["wk_dm"]), wv=pick(a["wv_dm"]),
+               wo=pick(a["wo_md"]))
+    if "q_norm" in a:
+        out.update(q_norm=pick(a["q_norm"]["scale_r"]), k_norm=pick(a["k_norm"]["scale_r"]))
+    return out
 
 
 def _jax_layer(tree, period: Optional[int]) -> dict:
     pick = (lambda a: np.asarray(a)[period]) if period is not None else np.asarray
     out = {"ln1": pick(tree["ln1"]["scale_r"])}
     if "attn" in tree:
-        a = tree["attn"]
-        out.update(wq=pick(a["wq_dm"]), wk=pick(a["wk_dm"]), wv=pick(a["wv_dm"]),
-                   wo=pick(a["wo_md"]))
-        if "q_norm" in a:
-            out.update(q_norm=pick(a["q_norm"]["scale_r"]), k_norm=pick(a["k_norm"]["scale_r"]))
+        out.update(_jax_attention(tree["attn"], pick))
     if "mamba" in tree:
         m = tree["mamba"]
         out["mamba"] = {
@@ -207,6 +235,10 @@ def _jax_layer(tree, period: Optional[int]) -> dict:
     if "ln_attn_out" in tree:
         out.update(ln_attn_out=pick(tree["ln_attn_out"]["scale_r"]),
                    ln_mamba_out=pick(tree["ln_mamba_out"]["scale_r"]))
+    if "cross" in tree:
+        out.update(ln_cross=pick(tree["ln_cross"]["scale_r"]),
+                   cross=_jax_attention(tree["cross"], pick),
+                   cross_gate=pick(tree["cross_gate_r"]))
     if "mlp" in tree:
         m = tree["mlp"]
         out.update(ln2=pick(tree["ln2"]["scale_r"]), w_gate=pick(m["wi_gate_dm"]),
@@ -244,11 +276,33 @@ def _mlp(lp, x):
 _AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
 
 
-def _mix(lp, x, cfg: ModelConfig, spec: LayerSpec, ya, ym, valid=None):
-    """The residual update of a layer's token mixer(s), then its FFN:
-    ``(x, aux)``, aux the MoE FFN's losses (None for other FFNs). hymba's
-    hybrid layer normalizes and averages its parallel attention and SSM
-    heads; ``valid`` marks the tokens an MoE FFN gives expert slots to."""
+def _cross(lp, x, cfg: ModelConfig, spec: LayerSpec, mode: str, *, enc=None,
+           cache: Optional[dict] = None, lengths=None) -> torch.Tensor:
+    """A cross layer's gated block in ``mode`` ("train", "prefill" or
+    "decode"): ``x + tanh(cross_gate) * cross_attn(rmsnorm(ln_cross, x))``.
+    Training and prefill attend ``enc``, the projected image embeddings;
+    prefill stores their K/V in the layer's ``cache`` dict under
+    ``"cross"``, and decode reads them there. Training without images runs
+    the block's weights as causal self-attention, as the JAX package does."""
+    hc = layers.rmsnorm(lp["ln_cross"], x)
+    gate = torch.tanh(lp["cross_gate"]).to(x.dtype)
+    if mode == "decode":
+        y, _ = attn_lib.attention_decode(lp["cross"], hc, cfg, spec, cache["cross"], lengths,
+                                         is_cross=True)
+    elif mode == "prefill":
+        y, cache["cross"] = attn_lib.attention_prefill(
+            lp["cross"], hc, cfg, spec, cache_len=enc.shape[1], encoder_states=enc)
+    else:
+        y = attn_lib.attention_block(lp["cross"], hc, cfg, spec, encoder_states=enc)
+    return x + gate * y
+
+
+def _mix(lp, x, cfg: ModelConfig, spec: LayerSpec, ya, ym, valid=None, cross=None):
+    """The residual update of a layer's token mixer(s), then ``cross`` (a
+    cross layer's gated block, a function of x), then its FFN: ``(x,
+    aux)``, aux the MoE FFN's losses (None for other FFNs). hymba's hybrid
+    layer normalizes and averages its parallel attention and SSM heads;
+    ``valid`` marks the tokens an MoE FFN gives expert slots to."""
     if spec.kind == "attn":
         x = x + ya
     elif spec.kind == "mamba":
@@ -256,6 +310,8 @@ def _mix(lp, x, cfg: ModelConfig, spec: LayerSpec, ya, ym, valid=None):
     else:
         x = x + 0.5 * (layers.rmsnorm(lp["ln_attn_out"], ya)
                        + layers.rmsnorm(lp["ln_mamba_out"], ym))
+    if cross is not None:
+        x = cross(x)
     if spec.ffn == "mlp":
         return x + _mlp(lp, x), None
     if spec.ffn == "moe":
@@ -265,21 +321,33 @@ def _mix(lp, x, cfg: ModelConfig, spec: LayerSpec, ya, ym, valid=None):
     return x, None
 
 
-def _train_layer(lp, x, cfg: ModelConfig, spec):
+def _train_layer(lp, x, cfg: ModelConfig, spec, enc=None):
     """One layer of ``forward``: ``(x, lb, z, dropped)``, the last three the
     MoE losses (zero for other FFNs), as tensors so that
-    ``torch.utils.checkpoint`` carries them."""
+    ``torch.utils.checkpoint`` carries them. ``enc``: the projected image
+    embeddings a cross layer attends (None: none given)."""
     h = layers.rmsnorm(lp["ln1"], x)
     ya = attn_lib.attention_block(lp, h, cfg, spec) if spec.kind in _ATTN_KINDS else None
     ym = (ssm_lib.mamba_train(lp["mamba"], h, cfg.d_model, cfg.ssm)
           if spec.kind in _SSM_KINDS else None)
-    x, aux = _mix(lp, x, cfg, spec, ya, ym)
+    cross = (lambda x: _cross(lp, x, cfg, spec, "train", enc=enc)) if spec.cross_attn else None
+    x, aux = _mix(lp, x, cfg, spec, ya, ym, cross=cross)
     if aux is None:
         return (x, *(torch.zeros((), dtype=torch.float32, device=x.device) for _ in _AUX_KEYS))
     return (x, *(aux[key] for key in _AUX_KEYS))
 
 
+def _project_images(params, cfg: ModelConfig, image_embeds, dtype):
+    """The cross layers' encoder states: ``image_embeds`` (B, vision_tokens,
+    vision_dim) through ``vision_proj`` in ``dtype``, or None where the
+    model or the caller has no images."""
+    if not cfg.vision_tokens or image_embeds is None:
+        return None
+    return layers.linear(params["vision_proj"], image_embeds.to(dtype))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
             remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: tokens (B, S) -> (logits (B, S, V) float32, aux).
 
@@ -293,23 +361,31 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     averaged. With ``remat`` each layer runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
     the JAX package's ``jax.checkpoint`` recomputes each period: only the
-    layer inputs stay alive, and K1 and K9 run twice per layer."""
+    layer inputs stay alive, and K1 and K9 run twice per layer.
+
+    ``image_embeds`` (B, vision_tokens, vision_dim): the images that the
+    cross layers attend, projected once per call (non-causal K1 forward,
+    K5 / K6 backward on the card). Without them each cross layer runs its
+    weights as causal self-attention, as the JAX ``forward`` does (ROADMAP
+    Queue C: a departure the port copies)."""
     _check_supported(cfg)
     specs = cfg.layer_specs()
     x = _embed_tokens(params, cfg, tokens)
+    enc = _project_images(params, cfg, image_embeds, x.dtype)
     aux = [torch.zeros((), dtype=torch.float32, device=x.device) for _ in _AUX_KEYS]
     for spec, lp in zip(specs, params["layers"]):
         if remat:
-            x, *a = checkpoint(_train_layer, lp, x, cfg, spec, use_reentrant=False)
+            x, *a = checkpoint(_train_layer, lp, x, cfg, spec, enc, use_reentrant=False)
         else:
-            x, *a = _train_layer(lp, x, cfg, spec)
+            x, *a = _train_layer(lp, x, cfg, spec, enc)
         aux = [t + u for t, u in zip(aux, a)]
     x = layers.rmsnorm(params["ln_f"], x)
     return _logits(params, cfg, x), dict(zip(_AUX_KEYS, aux))
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache_len: int, last_positions: Optional[torch.Tensor] = None,
+            cache_len: int, image_embeds: Optional[torch.Tensor] = None,
+            last_positions: Optional[torch.Tensor] = None,
             prefix_caches: Optional[List[dict]] = None,
             page_table: Optional[torch.Tensor] = None,
             prefix_len: Optional[torch.Tensor] = None,
@@ -317,7 +393,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Prefill: returns (logits at the last real position (B, V) float32,
     per-layer caches): ``{"k", "v"}`` of shape (B, Hkv, cache_len, hd) for
     attention, ``{"conv", "ssm"}`` for Mamba-2 blocks, both for hybrid
-    layers.
+    layers; a cross layer adds ``"cross": {"k", "v"}``, the K/V of its
+    encoder states (B, Hkv, vision_tokens, hd).
+
+    ``image_embeds`` (B, vision_tokens, vision_dim): the images of a
+    vision model, projected once per call; every row's queries attend all
+    of its image's tokens. A model with cross layers raises ``ValueError``
+    without them (the JAX ``prefill`` fails with an ``AttributeError``).
 
     ``last_positions`` (B,): each row's last real token in a right-padded
     batch (default S - 1); the SSM caches are those of the unpadded prompt,
@@ -330,6 +412,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """
     x = _embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
+    enc = _project_images(params, cfg, image_embeds, x.dtype)
+    if enc is None and any(spec.cross_attn for spec in cfg.layer_specs()):
+        raise ValueError(f"{cfg.name}: prefill of a model with cross-attention layers needs "
+                         "image_embeds (B, vision_tokens, vision_dim)")
     positions = tail_len = valid = None
     if last_positions is not None:
         valid = (torch.arange(s, device=x.device)[None, :]
@@ -359,7 +445,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                         last_positions=last_positions)
             cache.update(c)
         caches.append(cache)
-        x, _ = _mix(lp, x, cfg, spec, ya, ym, valid)
+        cross = ((lambda x: _cross(lp, x, cfg, spec, "prefill", enc=enc, cache=cache))
+                 if spec.cross_attn else None)
+        x, _ = _mix(lp, x, cfg, spec, ya, ym, valid, cross)
     if last_positions is None:
         x = x[:, -1:]
     else:
@@ -380,7 +468,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     without, dense per-row caches (``init_caches``, or views of them cut to
     the live rows and width). Either way they are updated in place.
     ``live`` (B,) bool: the rows that are a request's (default all); the
-    others take no MoE expert slot."""
+    others take no MoE expert slot. A cross layer reads the encoder K/V
+    under ``"cross"`` in its dense cache, which it leaves as it is."""
     x = _embed_tokens(params, cfg, token[:, None])
     valid = None if live is None else live.to(x.device)[:, None]
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs(), params["layers"])):
@@ -394,15 +483,20 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ya, _ = attn_lib.attention_decode(lp, h, cfg, spec, caches[i], lengths)
         if spec.kind in _SSM_KINDS:
             ym, _ = ssm_lib.mamba_decode(lp["mamba"], h, cfg.d_model, cfg.ssm, caches[i])
-        x, _ = _mix(lp, x, cfg, spec, ya, ym, valid)
+        cross = ((lambda x: _cross(lp, x, cfg, spec, "decode", cache=caches[i], lengths=lengths))
+                 if spec.cross_attn else None)
+        x, _ = _mix(lp, x, cfg, spec, ya, ym, valid, cross)
     x = layers.rmsnorm(params["ln_f"], x)
     return _logits(params, cfg, x)[:, 0], caches
 
 
-def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device) -> List[dict]:
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device,
+                image_len: int = 0) -> List[dict]:
     """Zero dense caches, one dict per layer with the keys ``prefill``
     returns: ``(batch, Hkv, cache_len, hd)`` stripes for attention, the
-    conv history and float32 state for Mamba-2 blocks."""
+    conv history and float32 state for Mamba-2 blocks, and for a cross
+    layer ``"cross"`` stripes of ``max(image_len, 1)`` rows, as the JAX
+    package sizes them."""
     _check_supported(cfg)
     dt = device_lib.dtype_of(cfg.compute_dtype)
     caches = []
@@ -412,6 +506,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device) -> List[di
             c.update(attn_lib.init_cache(cfg, batch, cache_len, dt, device))
         if spec.kind in _SSM_KINDS:
             c.update(ssm_lib.init_mamba_cache(cfg.d_model, cfg.ssm, batch, dt, device))
+        if spec.cross_attn:
+            c["cross"] = attn_lib.init_cache(cfg, batch, max(image_len, 1), dt, device)
         caches.append(c)
     return caches
 
@@ -421,7 +517,8 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
     """One zero-filled head-major page pool per attention layer, all indexed
     by the same physical page ids (one allocator drives every layer); a
     quantized ``kv_dtype`` adds each layer's scale tables. Only pure
-    self-attention stacks page: SSM state is not page-structured."""
+    self-attention stacks page: SSM state and cross-attention K/V are not
+    page-structured, as in the JAX package."""
     _check_supported(cfg)
     for spec in cfg.layer_specs():
         if spec.kind != "attn" or spec.cross_attn:

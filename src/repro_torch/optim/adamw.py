@@ -66,21 +66,23 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_lib.leaves(tree)))
 
 
-#: The Mamba-2 vectors, which the JAX package names ``conv_b_r``,
-#: ``a_log_r``, ``d_skip_r`` and ``dt_bias_r`` and ``from_jax_params``
-#: carries across without the ``_r``.
-_SSM_VECTORS = frozenset(("conv_b", "a_log", "d_skip", "dt_bias"))
+#: The leaves the JAX package names with an ``_r`` suffix that
+#: ``from_jax_params`` drops: the Mamba-2 vectors (``conv_b_r``,
+#: ``a_log_r``, ``d_skip_r``, ``dt_bias_r``) and a cross layer's scalar gate
+#: (``cross_gate_r``).
+_UNDECAYED = frozenset(("conv_b", "a_log", "d_skip", "dt_bias", "cross_gate"))
 
 
 def _decayable(path) -> bool:
     """No decay on norms / scalars / 1-D vectors: the last key of the path
     ending in ``_r``, holding ``norm``, starting with ``ln`` (the port's
-    ``ln1``, ``ln2``, ``ln_f``) or naming a Mamba-2 vector. ``embed``,
-    ``head``, the matmul weights and every MoE leaf (the router, the expert
-    stacks, the shared expert) decay: the leaves the JAX package decays."""
+    ``ln1``, ``ln2``, ``ln_f``, ``ln_cross``) or in ``_UNDECAYED``.
+    ``embed``, ``head``, ``vision_proj``, the matmul weights (a cross
+    block's too) and every MoE leaf (the router, the expert stacks, the
+    shared expert) decay: the leaves the JAX package decays."""
     for entry in reversed(path):
         if isinstance(entry, str):
-            return not (entry.endswith("_r") or entry in _SSM_VECTORS or "norm" in entry
+            return not (entry.endswith("_r") or entry in _UNDECAYED or "norm" in entry
                         or entry.startswith("ln"))
     return True
 

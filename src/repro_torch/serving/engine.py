@@ -39,7 +39,11 @@ engine's own ``ttft`` dict stops when the first token is sampled, at the
 prefill flush. ``stream()`` is the async push iterator over one request.
 
 The JAX engine's ``mesh`` raises ``NotImplementedError`` naming the ROADMAP
-item, never accepted and ignored.
+item, never accepted and ignored. A vision model (``cfg.vision_tokens > 0``)
+raises ``ValueError`` at construction: requests carry no image, and the
+JAX engine fails at its first prefill for want of one (ROADMAP Queue C);
+such a model is served through ``transformer.prefill(image_embeds=)`` and
+``decode_step``.
 """
 
 from __future__ import annotations
@@ -138,6 +142,12 @@ class LLMEngine:
             kv_layout = "paged"
         if mesh is not None:
             raise _not_ported("mesh", "distributed")
+        if cfg.vision_tokens:
+            raise ValueError(
+                f"{cfg.name}: LLMEngine serves no vision model: a Request carries no image "
+                "for its cross-attention layers, and the JAX engine fails at its first "
+                "prefill (its backend passes no image_embeds); call transformer.prefill("
+                "image_embeds=...) and decode_step directly")
         # "auto": the scheduler re-picks N before every admission round from
         # the last sync's measured tick (perf_model.choose_steps_per_sync),
         # powers of two only, so the graphs per engine stay O(log N).

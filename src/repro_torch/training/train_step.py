@@ -8,6 +8,8 @@ updates the state in place:
     microbatches (microbatch m = rows ``[m::n]``, the JAX package's strided
     split) and are averaged, as the JAX scan sums and scales them;
   * ``remat`` checkpoints each layer (``transformer.forward``);
+  * a batch may carry ``image_embeds`` (B, vision_tokens, vision_dim) for
+    a vision model's cross layers, split over microbatches as the tokens;
   * the loss adds the MoE aux losses summed over the stack, weighted by
     ``moe_lb_coef`` and ``moe_z_coef``, as there;
   * ``grad_compression="int8_ef"`` quantizes the gradients with error
@@ -57,7 +59,9 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = transformer.forward(params, cfg, batch["tokens"], remat=tcfg.remat)
+    logits, aux = transformer.forward(params, cfg, batch["tokens"],
+                                      image_embeds=batch.get("image_embeds"),
+                                      remat=tcfg.remat)
     loss, metrics = layers.softmax_cross_entropy(logits, batch["targets"], batch["mask"],
                                                  z_loss=cfg.z_loss)
     # Without an MoE layer the aux losses are zeros and the total is the
@@ -86,12 +90,21 @@ def _accumulate_grads(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
             p.requires_grad_(False)
 
 
+def _grad_of(p: torch.Tensor) -> torch.Tensor:
+    """``p.grad``, zeros where the loss does not reach ``p`` (a vision
+    model's ``vision_proj`` on a batch without images), as ``jax.grad``
+    gives."""
+    if p.grad is None:
+        p.grad = torch.zeros_like(p)
+    return p.grad
+
+
 def _grads(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
     n = tcfg.microbatches
     if n == 1:
         loss, metrics = loss_fn(params, cfg, batch, tcfg=tcfg)
         loss.backward()
-        return tree_lib.map_tree(lambda p: p.grad, params), loss.detach(), metrics
+        return tree_lib.map_tree(_grad_of, params), loss.detach(), metrics
     if batch["tokens"].shape[0] % n:
         raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does not split "
                          f"into {n} microbatches")
@@ -105,7 +118,7 @@ def _grads(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
         m_sum = metrics if m_sum is None else {k: m_sum[k] + metrics[k] for k in m_sum}
     inv = 1.0 / n
     with torch.no_grad():
-        grads = tree_lib.map_tree(lambda p: p.grad.mul_(inv), params)
+        grads = tree_lib.map_tree(lambda p: _grad_of(p).mul_(inv), params)
     return grads, loss_sum * inv, {k: v * inv for k, v in m_sum.items()}
 
 

@@ -36,13 +36,15 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b, mamba2_1_3b
+from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b,
+                                 llama_3_2_vision_11b, mamba2_1_3b)
 from repro_torch.kernels import decode_attention as dd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pd
 from repro_torch.kernels import paged_prefill_attention as pp
+from repro_torch.kernels import plan as plan_lib
 from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.models import ssm, transformer
 from repro_torch.optim.adamw import AdamWConfig
@@ -2627,3 +2629,151 @@ def test_moe_layer_is_deterministic_eager_and_in_a_graph(cuda):
         torch.cuda.synchronize()
     assert torch.equal(captured, eager)
     assert torch.equal(eager[live[:, 0]], other[live[:, 0]])
+
+
+# -- the vision model's forms: K1 / K5 / K6 not causal over image keys, K7 / K8
+# -- over a fixed cross stripe ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("sq", [512, 130])
+def test_flash_fwd_noncausal_over_1600_image_keys(cuda, dtype, sq):
+    """K1 not causal with Sq != Skv over llama-3.2-vision's 1600 image keys
+    (12.5 key tiles of 128 on the tensor cores: the last one ragged),
+    through ``ops.flash_attention`` as the cross prefill calls it."""
+    rng = np.random.default_rng(70)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (2, 32, sq, 128), cuda, dt)
+    k, v = (_randn(rng, (2, 8, 1600, 128), cuda, dt) for _ in range(2))
+    kernels.reset_launch_counts()
+    o = ops.flash_attention(q, k, v, causal=False)
+    counts = kernels.launch_counts()
+    o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_fwd_tc"] == int(dt == torch.bfloat16)
+    assert o.shape == q.shape and _close(o, o_ref)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("sq,skv", [(512, 1600), (300, 1000)])
+def test_flash_bwd_noncausal_queries_and_keys_differ(cuda, dtype, sq, skv):
+    """K5 / K6 not causal with Sq != Skv: every kv tile walks every q tile,
+    and the key tail is ragged."""
+    dt = DTYPES[dtype]
+    args = _bwd_case(np.random.default_rng(71), cuda, dt, 32, 8, sq, skv, 128, causal=False)
+    kernels.reset_launch_counts()
+    got = fb.flash_attention_bwd(*args, causal=False)
+    counts = kernels.launch_counts()
+    want = fb.flash_attention_bwd_plain(*args, causal=False)
+    torch.cuda.synchronize()
+    assert _bwd_routes(counts, dt), counts
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape, name
+        assert _slice_err(g, w) <= GRAD_TOL[dt], name
+
+
+@pytest.mark.parametrize("num_splits", [1, 4, 7])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_dense_decode_over_a_full_cross_stripe(cuda, num_splits, dtype):
+    """K7 / K8 over a cross cache: a stripe of 1600 rows that never grows,
+    every row live for every query, at the plan's chunk for that width."""
+    rng = np.random.default_rng(72)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (4, 32, 128), cuda, dt)
+    kc, vc = (_randn(rng, (4, 8, 1600, 128), cuda, dt) for _ in range(2))
+    lengths = torch.full((4,), 1600, dtype=torch.int32, device=cuda)
+    kw = dict(chunk=plan_lib.decode_chunk(1600), num_splits=num_splits)
+    kernels.reset_launch_counts()
+    o = dd.flash_decode(q, kc, vc, lengths, **kw)
+    assert _dense_routes(kernels.launch_counts(), dt)
+    ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _close(o, ref)
+
+
+def _vision_cfg():
+    """llama-3.2-vision's SMOKE at head_dim 64 (the kernels' smallest),
+    float32: held at the float32 bars."""
+    return dataclasses.replace(llama_3_2_vision_11b.SMOKE, head_dim=64)
+
+
+def _open_gates(params, gen):
+    for lp in params["layers"]:
+        if "cross" in lp:
+            lp["cross_gate"] = torch.rand((), generator=gen, device=lp["cross_gate"].device) + 0.5
+
+
+def test_vision_prefill_and_decode_on_kernels_match_plain(cuda):
+    """Prefill with images (K1 causal and not), then 4 decode steps over
+    dense stripes and the cross caches (K7 / K8 on both), against the plain
+    path on the same weights with the cross gates open: logits within 1e-4
+    of the largest."""
+    cfg = _vision_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    _open_gates(params, gen)
+    images = torch.randn((2, cfg.vision_tokens, cfg.vision_dim), generator=gen, device=cuda)
+    tokens = torch.randint(1, cfg.vocab, (2, 24), generator=gen, device=cuda)
+    last = torch.tensor([23, 15], device=cuda)
+    n_cross = sum(spec.cross_attn for spec in cfg.layer_specs())
+    runs = {}
+    for impl in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        kernels.reset_launch_counts()
+        logits, caches = transformer.prefill(params, c, tokens, cache_len=32,
+                                             image_embeds=images, last_positions=last)
+        out = [logits]
+        lengths = (last + 1).to(torch.int32)
+        tok = logits.argmax(-1)
+        for _ in range(4):
+            lengths = lengths + 1
+            logits, caches = transformer.decode_step(params, c, tok, caches, lengths)
+            out.append(logits)
+        torch.cuda.synchronize()
+        runs[impl] = (out, kernels.launch_counts())
+    counts = runs["auto"][1]
+    assert counts["flash_attention_fwd"] == cfg.n_layers + n_cross
+    assert counts["flash_decode"] + counts["flash_decode_split"] == 4 * (cfg.n_layers + n_cross)
+    assert sum(runs["plain"][1].values()) == 0
+    for got, want in zip(runs["auto"][0], runs["plain"][0]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_vision_train_step_on_kernels_matches_plain_path(cuda):
+    """One train step with images in 2 microbatches, gates open: gradients
+    through K1 / K5 / K6 (the cross layers' not causal) against the same
+    step on the plain versions, and the launches the step makes."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    cfg = _vision_cfg()
+    tcfg = ts.TrainConfig(microbatches=2)
+    batch = ts.to_device(make_pipeline(DataConfig(seq_len=100, global_batch=4,
+                                                  vocab=cfg.vocab)).batch_at(0), cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    batch["image_embeds"] = torch.randn((4, cfg.vision_tokens, cfg.vision_dim), generator=gen,
+                                        device=cuda)
+    n_attn = cfg.n_layers + sum(spec.cross_attn for spec in cfg.layer_specs())
+    grads, losses = {}, {}
+    for impl in ("auto", "plain"):
+        params = transformer.init_model(cfg, seed=0, device=cuda, param_dtype=torch.float32)
+        gen.manual_seed(3)
+        _open_gates(params, gen)
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, dataclasses.replace(cfg, attn_impl=impl),
+                                          batch, tcfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        grads[impl], losses[impl] = g, float(loss)
+        if impl == "auto":
+            assert counts["flash_attention_fwd"] == 2 * n_attn * 2
+            assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] \
+                == n_attn * 2
+        else:
+            assert sum(counts.values()) == 0
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-5 * abs(losses["plain"])
+    for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
+                            tree_lib.leaves(grads["plain"])):
+        assert float((a - b).norm() / b.norm()) <= 1e-4, path

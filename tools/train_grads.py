@@ -4,13 +4,15 @@ by route, on one card.
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
-    python3 tools/train_grads.py [--arch ARCH ...] [--seeds N]
+    python3 tools/train_grads.py [--arch ARCH ...] [--seeds N] [--layers L]
 
 For each arch (default hymba-1.5b, mamba2-1.3b, llama3-8b) at full width,
-cut to 2 layers, and each seed s in 1..N, one step's gradients of a batch
-of one 1024-token row, from weights and data of seed s, as
-``chip_smoke.py``'s 2-layer check takes them (bf16 compute, float32
-parameters, remat), under six settings of the routes:
+cut to L layers (default 2), and each seed s in 1..N, one step's gradients
+of a batch of one 1024-token row, from weights and data of seed s, as
+``chip_smoke.py``'s gradient check takes them (bf16 compute, float32
+parameters, remat; a vision model with its cross gates open and a seeded
+image in the batch, ``chip_smoke.open_gates`` / ``vision_images``), under
+six settings of the routes:
 
 * ``cuda``: every kernel (``attn_impl`` and ``ssm.impl`` "auto");
 * ``attention kernels``: K1 / K5 / K6, the SSM on its plain route;
@@ -25,7 +27,8 @@ Each of the others is compared with ``plain`` leaf by leaf by the check's
 measure, ``||g - g_plain|| / ||g_plain||``: the largest, its leaf, the
 median and the next five. Then each bf16 setting with ``plain float32``,
 ``||g - g_f32|| / ||g_f32||``: its distance on the SSM vectors ``dt_bias``
-and ``a_log`` of both layers and on its farthest leaf, and the most it lies
+and ``a_log`` and on the cross layers' gates, and on its farthest leaf,
+and the most it lies
 further from float32 than ``plain`` does on any leaf (what
 ``chip_smoke.py`` holds on a hybrid stack). An arch without attention or
 without SSM layers gives the same gradients under two of the settings.
@@ -73,6 +76,7 @@ def main() -> int:
     parser.add_argument("--arch", nargs="+",
                         default=["hymba-1.5b", "mamba2-1.3b", "llama3-8b"])
     parser.add_argument("--seeds", type=int, default=3)
+    parser.add_argument("--layers", type=int, default=2)
     args = parser.parse_args()
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
@@ -91,6 +95,8 @@ def main() -> int:
 
     build.build_all()
     plain_fwd, exact_fwd = ops.flash_attention_fwd_plain, float64_attention(torch, ops)
+    sys.path.insert(0, HERE)
+    import chip_smoke
 
     def routes(cfg, attn, ssm):
         cfg = dataclasses.replace(cfg, attn_impl=attn)
@@ -99,7 +105,7 @@ def main() -> int:
         return cfg
 
     for arch in args.arch:
-        cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
+        cfg = dataclasses.replace(registry.get_config(arch), n_layers=args.layers)
         settings = {"cuda": routes(cfg, "auto", "auto"),
                     "attention kernels": routes(cfg, "auto", "plain"),
                     "SSM route": routes(cfg, "plain", "auto"),
@@ -112,6 +118,11 @@ def main() -> int:
                                             param_dtype=torch.float32)
             batch = ts.to_device(make_pipeline(DataConfig(
                 seq_len=1024, global_batch=1, seed=seed, vocab=cfg.vocab)).batch_at(0), "cuda")
+            if cfg.vision_tokens:
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(seed + 11)
+                chip_smoke.open_gates(torch, params, gen)
+                batch["image_embeds"] = chip_smoke.vision_images(torch, cfg, 1, gen)
             grads, losses = {}, {}
             for name, c in settings.items():
                 ops.flash_attention_fwd_plain = exact_fwd if "float64" in name else plain_fwd
@@ -137,7 +148,7 @@ def main() -> int:
                       f"{statistics.median(rels.values()):.3e}; next "
                       + ", ".join(f"{k} {rels[k]:.2e}" for k in top[1:6]), flush=True)
             floor = rel("plain", "plain float32")
-            ssm_leaves = [k for k in floor if k.endswith(("dt_bias", "a_log"))]
+            ssm_leaves = [k for k in floor if k.endswith(("dt_bias", "a_log", "cross_gate"))]
             for name in [n for n in settings if n != "plain float32"]:
                 d = rel(name, "plain float32")
                 far = max(d, key=d.get)
@@ -149,9 +160,6 @@ def main() -> int:
                     f"{excess[worst]:.3e} at {worst}", flush=True)
             del params, grads
             torch.cuda.empty_cache()
-    sys.path.insert(0, HERE)
-    import chip_smoke
-
     print(f"card: {chip_smoke.smi_line()}")
     return 0
 
