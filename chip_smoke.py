@@ -260,7 +260,25 @@ and prints no result. Phases, in order (any failure exits non-zero):
      version and SDPA. Then the train phase at one period (5 of 40 layers,
      the cross layer at index 3) with seeded images in every batch, and
      its step-1 gradients at 4 layers. ``--phase vision`` runs this phase
-     alone, with no result line.
+     alone, with no result line;
+  7. musicgen — musicgen-medium at full width, all 48 layers (24 query
+     heads over 24 KV heads: group 1 at head_dim 64; 4 codebooks), bf16
+     random weights: 8 prompts of random (S, 4) codes, S from 100 to 1500
+     frames, through ``LLMEngine`` ("auto" resolves to dense; 2048-frame
+     stripes), 32 new frames each, six greedy and two sampled at
+     temperature 1.0, top_k 250; K1 and the plan's K7 / K8 launched, all on
+     the tensor cores. Then one sync of the kernel path against the plain
+     path (``compare_sync``: (K, V) logits within LOGIT_TOL, each
+     codebook's greedy id equal but for near-ties), the fused decode at
+     steps_per_sync 1 and 8 (ids identical, the sampled rows too; one-tick
+     and 8-tick replays against the eager tick; the 8-tick graph's (rows,
+     K) tokens against its tick function run eagerly), the tick against
+     its bound (weights and live K / V read once). Then the kernels at
+     musicgen's shapes (K1 causal at 1 x 2048 and 2 x 4096, K5 / K6 at 2 x
+     4096, K7 / K8 over the served stripes), each against its plain
+     version, timed beside its bound, its plain version and SDPA. Then the
+     train phase at all 48 layers and the step-1 gradients at 4.
+     ``--phase musicgen`` runs this phase alone, with no result line.
 
 It ends with one JSON line of per-kernel numbers and, last, the line
 ``{"ok": true, "device": {...}}``.
@@ -352,6 +370,15 @@ MOONSHOT_LAYERS, MOE_TRAIN_LAYERS = 24, 2
 # still hold that cross layer.
 VISION_ROWS, VISION_PROMPT, VISION_SHORT, VISION_TICKS = 4, 512, 400, 32
 VISION_TRAIN_LAYERS, VISION_GRAD_LAYERS = 5, 4
+# musicgen-medium: served at all 48 layers (1.82 B bf16 parameters, 3.65 GB)
+# on one dense engine of 8 rows over 2048-frame stripes; prompts of random
+# (S, 4) codes, S in MUSICGEN_LENS (2-30 s of audio at 50 frames a second),
+# the last MUSICGEN_SAMPLED of them sampled at MusicGen's defaults
+# (temperature 1.0, top_k 250); trained at all 48 layers (float32 masters,
+# gradients and AdamW moments: 29 GB), its step-1 gradients at 4.
+MUSICGEN_LENS = (100, 250, 400, 600, 800, 1000, 1250, 1500)
+MUSICGEN_KW = dict(max_batch=8, cache_len=2048, prompt_buckets=(512, 1024, 2048))
+MUSICGEN_SAMPLED, MUSICGEN_GRAD_LAYERS = 2, 4
 REPS = 20                  # timed runs per case; the median is reported
 PRIME_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any wrapper's host time
 HQ, HKV, D, PS = 32, 8, 128, 16
@@ -542,6 +569,12 @@ def slice_err(g, ref) -> float:
 
 def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def token_ids(t):
+    """One streamed token as plain Python: an int, or a multi-codebook
+    model's (K,) ids as a list."""
+    return t.tolist() if getattr(t, "ndim", 0) else int(t)
 
 
 def check_k1_route(label, counts):
@@ -3078,9 +3111,10 @@ def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
             uid = b.row_req(row).uid
             first[uid] = x.float().clone()
             if force is not None:
-                pick = torch.zeros_like(x)
-                pick[force[uid]] = 1.0
-                got[row] = pick
+                # One-hot logits of the forced ids: (V,), or (K, V) for a
+                # multi-codebook model's (K,) ids.
+                ids = torch.as_tensor(force[uid], device=x.device).reshape(*x.shape[:-1], 1)
+                got[row] = torch.zeros_like(x).scatter_(-1, ids, 1.0)
         return got
 
     b.flush = recording
@@ -3092,7 +3126,7 @@ def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
     if sorted(rows) != list(range(len(prompts))) or b.stats["decode_traces"] != 1:
         raise AssertionError(f"compare {label}: the first sync did not decode every "
                              "request in one graph")
-    run = dict(first=first, fed={u: int(b.out[r][0]) for u, r in rows.items()},
+    run = dict(first=first, fed={u: token_ids(b.out[r][0]) for u, r in rows.items()},
                last={u: b.last_logits[r].float().clone() for u, r in rows.items()},
                routes=tape.stop() if tape else None)
     engine.close()
@@ -3103,9 +3137,10 @@ def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
 
 def _logit_distance(plain, got, label, stages=("first", "last")):
     """Per stage (prefill, decode tick): the largest |got - plain| over max
-    |plain| of a request, the requests whose greedy id agrees, and the
-    near-ties (ids that differ where the plain margin between them is within
-    twice the row's largest error); an id that differs otherwise raises."""
+    |plain| of a request, the requests whose greedy ids all agree (one id,
+    or one per codebook of (K, V) logits), and the near-ties (ids that
+    differ where the plain margin between them is within twice the
+    request's largest error); an id that differs otherwise raises."""
     worst, same, flips = {}, {}, 0
     for stage in stages:
         worst[stage], same[stage] = 0.0, 0
@@ -3115,14 +3150,18 @@ def _logit_distance(plain, got, label, stages=("first", "last")):
                 raise AssertionError(f"compare {label}: non-finite {stage} logits, uid {uid}")
             diff = float((x - ref).abs().max())
             worst[stage] = max(worst[stage], diff / float(ref.abs().max()))
-            i, j = int(ref.argmax()), int(x.argmax())
-            if i == j:
+            rows = ref.reshape(-1, ref.shape[-1])
+            want, picked = rows.argmax(-1).tolist(), x.reshape(rows.shape).argmax(-1).tolist()
+            if want == picked:
                 same[stage] += 1
-            elif float(ref[i] - ref[j]) <= 2 * diff:
+            for row, i, j in zip(rows, want, picked):
+                if i == j:
+                    continue
+                if float(row[i] - row[j]) > 2 * diff:
+                    raise AssertionError(f"compare {label} uid {uid}: {stage} argmax {j} "
+                                         f"against the plain path's {i}, outside the error's "
+                                         "reach")
                 flips += 1
-            else:
-                raise AssertionError(f"compare {label} uid {uid}: {stage} argmax {j} against "
-                                     f"the plain path's {i}, outside the error's reach")
     return worst, same, flips
 
 
@@ -3199,9 +3238,10 @@ def compare_sync(torch, cfg, plain_cfg, params, *, label, engine_kw, prompts):
 
 # -- phase 4 (fused decode): CUDA graphs of the decode tick ---------------------
 
-def graph_runs(torch, cfg, params, *, label, engine_kw, prompts, steps):
-    """The same greedy requests (32 new tokens each) on a fresh engine at
-    each ``steps_per_sync`` of ``steps``. Each engine first serves requests
+def graph_runs(torch, cfg, params, *, label, engine_kw, prompts, steps, sampling=None):
+    """The same requests (32 new tokens each; greedy, or ``sampling``'s
+    parameters, one per prompt) on a fresh engine at each
+    ``steps_per_sync`` of ``steps``. Each engine first serves requests
     of the same lengths drawn anew, which captures its graphs; then, the
     launch counts set to 0 just before and read just after, ``prompts``:
     that run must capture no graph, its decode must launch its kernels, all
@@ -3213,23 +3253,23 @@ def graph_runs(torch, cfg, params, *, label, engine_kw, prompts, steps):
     from repro_torch import kernels
     from repro_torch.serving import LLMEngine, Request, SamplingParams
 
-    greedy = SamplingParams(max_tokens=32)
+    sampling = sampling or [SamplingParams(max_tokens=32)] * len(prompts)
     rng = np.random.default_rng(99)
-    warm = [rng.integers(1, cfg.vocab, size=(len(p),)) for p in prompts]
+    warm = [rng.integers(1, cfg.vocab, size=np.shape(p)) for p in prompts]
     ids, rates, first = {}, {}, {}
     for n in steps:
         engine = LLMEngine(cfg, params, steps_per_sync=n, **engine_kw)
-        engine.generate([Request(uid=1000 + i, prompt=p, sampling=greedy)
-                         for i, p in enumerate(warm)])
+        engine.generate([Request(uid=1000 + i, prompt=p, sampling=sp)
+                         for i, (p, sp) in enumerate(zip(warm, sampling))])
         torch.cuda.synchronize()
         st0, graphs = engine.stats(), engine.backend.stats["decode_traces"]
         kernels.reset_launch_counts()
-        out = engine.generate([Request(uid=i, prompt=p, sampling=greedy)
-                               for i, p in enumerate(prompts)])
+        out = engine.generate([Request(uid=i, prompt=p, sampling=sp)
+                               for i, (p, sp) in enumerate(zip(prompts, sampling))])
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         st = engine.stats()
-        ids[n] = {o.uid: [int(t) for t in o.tokens] for o in out}
+        ids[n] = {o.uid: [token_ids(t) for t in o.tokens] for o in out}
         secs = st.decode_elapsed_s - st0.decode_elapsed_s
         rates[n] = sum(len(t) for t in ids[n].values()) / secs
         first[n] = st0.decode_elapsed_s
@@ -3366,9 +3406,9 @@ def graph8(torch, timer, cfg, params, *, label, engine_kw, prompts):
 
 
 def fused_phase(torch, timer, cfg, params, *, label, engine_kw, prompts, steps=(1, 8),
-                **kw):
+                sampling=None, **kw):
     rates, _ = graph_runs(torch, cfg, params, label=label, engine_kw=engine_kw,
-                          prompts=prompts, steps=steps)
+                          prompts=prompts, steps=steps, sampling=sampling)
     ticks = tick_times(torch, timer, cfg, params, label=label, engine_kw=engine_kw,
                        prompts=prompts, **kw)
     log(f"decode {label}: graphs {', '.join(f'N={n!r} {r:.1f}' for n, r in rates.items())} "
@@ -3800,7 +3840,7 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
         f"float32 parameters, {state_gib:.2f} GiB with AdamW state, "
         f"{time.perf_counter() - t0:.1f} s")
     pipe = make_pipeline(DataConfig(seq_len=seq, global_batch=batch, seed=seed,
-                                    vocab=cfg.vocab))
+                                    vocab=cfg.vocab, num_codebooks=cfg.num_codebooks))
     step_fn = ts.make_train_step(cfg, tcfg)
     per_step = []
 
@@ -3843,7 +3883,8 @@ def train(torch, cfg_full, seed=0, *, layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=
     log(f"train {cfg.name} peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(max_memory_allocated; parameters, gradients and AdamW state {state_gib:.2f} + "
         f"{n_params * 4 / 2**30:.2f} GiB; float32 logits of one microbatch "
-        f"{batch // micro * seq * cfg.vocab * 4 / 2**30:.2f} GiB); retries {trainer.retries}; "
+        f"{batch // micro * seq * cfg.num_codebooks * cfg.vocab * 4 / 2**30:.2f} GiB); retries "
+        f"{trainer.retries}; "
         f"launch counts over the train run: {json.dumps(counts)}")
     if trainer.retries or trainer.step != TRAIN_STEPS:
         raise AssertionError(f"trainer made {trainer.retries} retries")
@@ -3897,8 +3938,9 @@ def check_train_grads(torch, cfg_full, seed, layers=2):
     runs = {"plain": plain, "cuda": cfg,
             "float32": dataclasses.replace(plain, compute_dtype="float32")}
     params = transformer.init_model(cfg, seed=seed, device="cuda", param_dtype=torch.float32)
-    batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=seed,
-                                                  vocab=cfg.vocab)).batch_at(0), "cuda")
+    batch = ts.to_device(make_pipeline(DataConfig(
+        seq_len=1024, global_batch=1, seed=seed, vocab=cfg.vocab,
+        num_codebooks=cfg.num_codebooks)).batch_at(0), "cuda")
     if cfg.vision_tokens:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed + 11)
@@ -4090,9 +4132,11 @@ def train_breakdown(torch, cfg, step_s, b, s, micro, cross_ms=None):
         part = micro * n_moe * (2 * fwd + bwd)
         ssm_part += (f", MoE FFNs (forward twice, backward once) {part:.1f} ms "
                      f"({part / (step_s * 1e3):.1%})")
+    # A multi-codebook model's K heads are one product over the (K V, D) table.
+    width = cfg.num_codebooks * cfg.vocab
     x = randn(b * s, cfg.d_model, dtype=torch.float32)
-    head = randn(cfg.d_model, cfg.vocab, dtype=torch.float32)
-    g = randn(b * s, cfg.vocab, dtype=torch.float32)
+    head = randn(cfg.d_model, width, dtype=torch.float32)
+    g = randn(b * s, width, dtype=torch.float32)
     # The head's forward product and the two of its backward, float32.
     t_head = timer.ms(lambda: (x @ head, g @ head.T, x.T @ g))
     del x, head, g, timer
@@ -4648,20 +4692,309 @@ def vision_phase(torch, cfg):
     return counts
 
 
+def musicgen_requests(cfg, seed=0):
+    """The musicgen serve run's prompts, random (S, K) codes of
+    MUSICGEN_LENS frames, and each one's sampling parameters: 32 new
+    frames, greedy but for the last MUSICGEN_SAMPLED (temperature 1.0,
+    top_k 250, a seed each)."""
+    import numpy as np
+
+    from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(0, cfg.vocab, size=(n, cfg.num_codebooks)) for n in MUSICGEN_LENS]
+    n_greedy = len(prompts) - MUSICGEN_SAMPLED
+    sampling = [SamplingParams(max_tokens=32) if i < n_greedy else
+                SamplingParams(temperature=1.0, top_k=250, max_tokens=32, seed=i)
+                for i in range(len(prompts))]
+    return prompts, sampling
+
+
+def serve_musicgen(torch, timer, cfg, params):
+    """musicgen-medium through ``LLMEngine`` (``kv_layout`` "auto", which
+    must resolve to dense) on MUSICGEN_KW's engine: a first run of requests
+    of the same lengths and other codes (the card's first launches and
+    library set-up: its TTFT is printed as cold), then the measured run,
+    the launch counts set to 0 just before it and read just after, K1 and
+    the plan's K7 / K8 launched, all on the tensor cores; every request 32
+    (K,) tokens inside the vocabulary. Then ``compare_sync`` (every request greedy), the fused
+    decode at steps_per_sync 1 and 8 with the sampled rows (``fused_phase``:
+    ids identical across N, one-tick and 8-tick replays against the eager
+    tick), the 8-tick graph against its tick function run eagerly on the
+    same inputs (``graph_against_eager``), and the one-tick graph against
+    the tick's bound: the bf16 weights and the float32 table read once,
+    with the live K / V of every row. Returns the serve run's launch counts
+    and the fused decode's figures."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.serving import LLMEngine, Request
+
+    prompts, sampling = musicgen_requests(cfg)
+    engine_kw = dict(MUSICGEN_KW, device="cuda")
+    engine = LLMEngine(cfg, params, **engine_kw)
+    if engine.kv_layout != "dense":
+        raise AssertionError(f"{cfg.name}: kv_layout resolved to {engine.kv_layout}, not dense")
+    cold, _ = musicgen_requests(cfg, seed=1)
+    engine.generate([Request(uid=100 + i, prompt=p, sampling=sp)
+                     for i, (p, sp) in enumerate(zip(cold, sampling))])
+    torch.cuda.synchronize()
+    cold_ttft = max(engine.ttft.values()) * 1e3
+    engine.reset_metrics()
+    prefills = engine.backend.stats["prefill_launches"]
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    out = engine.generate([Request(uid=i, prompt=p, sampling=sp)
+                           for i, (p, sp) in enumerate(zip(prompts, sampling))])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    stats, ttft = engine.stats(), sorted(engine.ttft[o.uid] * 1e3 for o in out)
+    prefills = stats.prefill_launches - prefills
+    engine.close()
+    del engine
+    gc.collect()   # an engine sits in reference cycles: free its pool now
+    for o in out:
+        toks = np.stack(o.tokens)
+        if toks.shape != (32, cfg.num_codebooks) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            raise AssertionError(f"serve {cfg.name} uid {o.uid}: tokens of shape {toks.shape}, "
+                                 f"range {toks.min()}..{toks.max()}")
+    log(f"serve {cfg.name} (dense, prompts {list(MUSICGEN_LENS)} frames of "
+        f"{cfg.num_codebooks} codes, {MUSICGEN_SAMPLED} sampled at temperature 1.0, top_k 250): "
+        f"{len(out)} requests, {32 * len(out)} frames in {secs:.2f} s; TTFT ms min "
+        f"{ttft[0]:.1f} max {ttft[-1]:.1f} (the first run's, cold, max {cold_ttft:.1f}); "
+        f"decode {stats.decode_tok_s:.1f} frames/s over {stats.decode_elapsed_s:.2f} s (host "
+        f"clock, 1 step per sync, CUDA graphs); prefill launches {prefills}; launch counts "
+        f"{json.dumps(counts)}")
+    check_k1_route(f"serve {cfg.name}", counts)
+    check_dense_route(f"serve {cfg.name}", counts)
+    if counts["flash_attention_fwd_tc"] <= 0 or \
+            counts["flash_decode_tc"] + counts["flash_decode_split_tc"] <= 0:
+        raise AssertionError(f"serve {cfg.name}: K1 or the plan's K7 / K8 was not launched")
+    compare_sync(torch, cfg, dataclasses.replace(cfg, attn_impl="plain"), params,
+                 label=f"{cfg.name} dense", engine_kw=engine_kw, prompts=prompts)
+    fused = fused_phase(torch, timer, cfg, params, label=f"{cfg.name} dense",
+                        engine_kw=engine_kw, prompts=prompts, sampling=sampling, profile=True)
+    graph_against_eager(torch, cfg, params, engine_kw=engine_kw, prompts=prompts,
+                        sampling=sampling)
+    # The tick's bound at the tick_times engine's lengths (the prompts, the
+    # first token and two ticks): every weight once, every live K / V row.
+    weights = sum(p.numel() * p.element_size() for p in tree_lib.leaves(params))
+    live = sum(n + 3 for n in MUSICGEN_LENS)
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * live
+    tick_bound = (weights + kv) / PEAK_HBM_BW * 1e3
+    ticks = fused[1]
+    log(f"tick {cfg.name}, 8 rows: bound {tick_bound:.3f} ms (bytes: weights "
+        f"{weights / 1e9:.3f} GB, live K / V {kv / 1e9:.3f} GB over {PEAK_HBM_BW / 1e12:.2f} "
+        f"TB/s); one-tick graph {ticks['graph_ms']:.3f} ms = {ticks['graph_ms'] / tick_bound:.2f}x "
+        f"the bound, 8-tick graph {ticks['graph8_ms'] / 8:.3f} ms a tick, eager tick "
+        f"{ticks['eager_ms']:.3f} ms; card: {smi_line()}")
+    return counts, fused
+
+
+def graph_against_eager(torch, cfg, params, *, engine_kw, prompts, sampling):
+    """One steps_per_sync=8 sync of an engine serving ``prompts``, then the
+    same 8 ticks once more as the graph's replay and once as its tick
+    function run eagerly, on the inputs the sync left in the buffers (each
+    run rewrites the cache entries the sync wrote, with the same values):
+    the replay must give the sync's packed outputs bit for bit, the eager
+    run the same fed and sampled (rows, K) tokens and masks, and its last
+    logits within LOGIT_TOL of the graph's max |logit|."""
+    from repro_torch.serving import LLMEngine, Request
+
+    engine = LLMEngine(cfg, params, steps_per_sync=8, **engine_kw)
+    for i, (p, sp) in enumerate(zip(prompts, sampling)):
+        engine.add_request(Request(uid=i, prompt=p, sampling=sp))
+    engine.step()
+    program = engine.backend._programs[(8, 0)]
+    got, logits = program.out.clone(), program.logits.float().clone()
+    program.graph.replay()
+    torch.cuda.synchronize()
+    replay_same = torch.equal(program.out, got)
+    eager, eager_logits = program.run()
+    torch.cuda.synchronize()
+    same = torch.equal(eager, got)
+    diff = float((eager_logits.float() - logits).abs().max()) / float(logits.abs().max())
+    log(f"fused {cfg.name}: the 8-tick graph's outputs (fed and sampled (rows, "
+        f"{cfg.num_codebooks}) tokens, masks, lengths) against a replay "
+        f"{'identical' if replay_same else 'DIFFERENT'}, against the eager tick function "
+        f"{'identical' if same else 'DIFFERENT'}; last logits {tuple(logits.shape)} eager vs "
+        f"graph {diff:.3e} of max |logit| (tol {LOGIT_TOL})")
+    engine.close()
+    del engine, program
+    gc.collect()   # an engine sits in reference cycles: free its pool now
+    if not (replay_same and same) or diff > LOGIT_TOL:
+        raise AssertionError(f"fused {cfg.name}: the graph disagrees with the eager ticks")
+
+
+def check_musicgen_kernels(torch, timer, cfg):
+    """The kernels at musicgen-medium's shapes, bf16 on the tensor cores,
+    group 1 at D 64 (Hq = Hkv = 24): K1 causal at the serve prefill's
+    largest bucket (B 1, S 2048) and at the train microbatch (B 2, S 4096);
+    K5 and K6 causal at the train microbatch; K7 and K8 over 8 stripes of
+    2048 rows, live lengths as served (each prompt and its 32 frames), one
+    pass and the plan's split (or 4 where the plan picks one). Each is held
+    to its plain version on the same inputs (K1, K7 / K8 per row, K5 / K6
+    per (b, head) slice, ROW_TOL; lse LSE_TOL) and timed (CUDA-event medians
+    of REPS runs, L2 flushed; decode with the queue primed) beside its
+    bound (live (row, key) pairs; decode: live K / V bytes), its plain
+    version and SDPA (the decode's masked to the live lengths). Returns
+    {case: figures}."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import decode_attention as dd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    for label, b, s in (("serve", 1, 2048), ("train", TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ)):
+        q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), \
+            randn(b, hq, s, d)
+        plan = plan_lib.plan_attention((b, hq, hkv, s, s, d), device_type="cuda", dtype_bytes=2)
+        kw = dict(mapping=plan.mapping, causal=True)
+        kernels.reset_launch_counts()
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        check_k1_route(f"K1 {cfg.name} {label}", kernels.launch_counts())
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        e_o, e_l, ab = row_err(o, o_ref), err(lse, lse_ref), err(o, o_ref)
+        del o_ref, lse_ref
+        ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        plain_ms = timer.ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True))
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        kb = k1_bound_of(q, k, v, o, lse, causal=True)
+        shape = f"B {b} Hq {hq} Hkv {hkv} S {s} D {d} causal"
+        log(f"K1 {cfg.name} {label} ({shape}, {plan.mapping}): row-relative {e_o:.3e} (max abs "
+            f"{ab:.3e}), lse {e_l:.3e} (tol {ROW_TOL:.3e}, lse {LSE_TOL}); {ms:.4f} ms, bound "
+            f"{kb[0]:.4f} ms ({kb[1]}), plain {plain_ms:.3f} ms, library sdpa {lib_ms:.4f} ms")
+        if e_o > ROW_TOL or e_l > LSE_TOL:
+            raise AssertionError(f"K1 {cfg.name} {label} disagrees with its plain version")
+        out[f"K1 {label}"] = dict(max_abs_err=ab, ms=ms, plain_ms=plain_ms, bound_ms=kb[0],
+                                  bound_by=kb[1], library_ms=lib_ms)
+        if label == "train":
+            delta = (do.float() * o.float()).sum(-1)
+            kernels.reset_launch_counts()
+            dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            check_bwd_route(f"K5/K6 {cfg.name} train",
+                            bwd_launches({key: 0 for key in kernels.launch_counts()},
+                                         kernels.launch_counts()))
+            ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+            torch.cuda.synchronize()
+            rel = [slice_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+            abs_err = [err(g, r) for g, r in zip((dq, dk, dv), ref)]
+            del ref, dq, dk, dv
+            ms5 = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+            ms6 = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            plain_bwd = timer.ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                      causal=True))
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            sd = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            lib_bwd = timer.ms(lambda: torch.autograd.grad(sd, leaves, do, retain_graph=True))
+            del leaves, sd
+            pairs = b * hq * s * (s + 1) // 2
+            b5 = bound(nbytes(q, k, v, do, lse, delta, q), 6.0 * d * pairs)
+            b6 = bound(nbytes(q, k, v, do, lse, delta, k, v), 8.0 * d * pairs)
+            log(f"K5/K6 {cfg.name} train ({shape}): per-slice relative dq {rel[0]:.3e} dk "
+                f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {ROW_TOL:.3e}); K5 {ms5:.4f} ms bound "
+                f"{b5[0]:.4f} ({b5[1]}), K6 {ms6:.4f} ms bound {b6[0]:.4f} ({b6[1]}), pair "
+                f"{ms5 + ms6:.4f} ms; plain backward {plain_bwd:.3f} ms; library sdpa backward "
+                f"{lib_bwd:.4f} ms")
+            if max(rel) > ROW_TOL:
+                raise AssertionError(f"K5/K6 {cfg.name} train disagree with the plain backward")
+            out["K5 train"] = dict(max_abs_err=abs_err[0], ms=ms5, plain_ms=plain_bwd,
+                                   bound_ms=b5[0], bound_by=b5[1], library_ms=lib_bwd)
+            out["K6 train"] = dict(max_abs_err=max(abs_err[1:]), ms=ms6, plain_ms=plain_bwd,
+                                   bound_ms=b6[0], bound_by=b6[1], library_ms=lib_bwd)
+            del delta
+        del q, k, v, do, o, lse
+
+    rows, smax = MUSICGEN_KW["max_batch"], MUSICGEN_KW["cache_len"]
+    q, kc, vc = randn(rows, hq, d), randn(rows, hkv, smax, d), randn(rows, hkv, smax, d)
+    lens = torch.tensor([n + 32 for n in MUSICGEN_LENS], dtype=torch.int32, device="cuda")
+    plan = plan_lib.plan_attention((rows, hq, hkv, 1, smax, d), phase=plan_lib.DECODE,
+                                   kv_layout=plan_lib.DENSE, device_type="cuda", dtype_bytes=2)
+    live = int(lens.sum())
+    db = bound(2 * hkv * live * d * 2 + 2 * nbytes(q) + nbytes(lens), 4.0 * hq * d * live)
+    mask = torch.arange(smax, device="cuda")[None, :] < lens[:, None]
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :]), primed=True)
+    for ns in (1, plan.num_splits if plan.num_splits > 1 else 4):
+        key = "K7" if ns == 1 else "K8"
+        kw = dict(chunk=plan.chunk, num_splits=ns)
+        kernels.reset_launch_counts()
+        o = dd.flash_decode(q, kc, vc, lens, **kw)
+        check_dense_route(f"{key} {cfg.name} stripes", kernels.launch_counts())
+        o_ref = dd.flash_decode_plain(q, kc, vc, lens, **kw)
+        torch.cuda.synchronize()
+        e, e_r = err(o, o_ref), row_err(o, o_ref)
+        ms = timer.ms(lambda: dd.flash_decode(q, kc, vc, lens, **kw), primed=True)
+        plain_ms = timer.ms(lambda: dd.flash_decode_plain(q, kc, vc, lens, **kw))
+        log(f"{key} {cfg.name} stripes (B {rows} Hq {hq} Hkv {hkv} D {d}, {smax} rows, live "
+            f"{lens.tolist()}, chunk {plan.chunk}, num_splits {ns}; the plan picks "
+            f"{plan.num_splits}): row-relative {e_r:.3e} (tol {ROW_TOL:.3e}), {ms:.4f} ms (queue "
+            f"primed), bound {db[0]:.5f} ms ({db[1]}) a layer, plain {plain_ms:.3f} ms, library "
+            f"sdpa (masked) {lib_ms:.4f} ms")
+        if e_r > ROW_TOL:
+            raise AssertionError(f"{key} {cfg.name} stripes disagree with the plain version")
+        out[f"{key} serve"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=db[0],
+                                   bound_by=db[1], library_ms=lib_ms)
+    del q, kc, vc
+    log(f"musicgen kernels (card: {smi_line()}): {json.dumps(out)}")
+    return out
+
+
+def musicgen_phase(torch, cfg):
+    """Phase 7 on musicgen-medium ``cfg``, all 48 layers: ``serve_musicgen``,
+    ``check_musicgen_kernels``, then the train phase at all 48 layers with
+    the step-1 gradients at MUSICGEN_GRAD_LAYERS. Returns the launch counts
+    of the serve and train runs together."""
+    log(f"== serve {cfg.name} ({cfg.n_layers} layers, {cfg.num_codebooks} codebooks, Hq "
+        f"{cfg.n_heads} Hkv {cfg.n_kv_heads} D {cfg.head_dim}; kv_layout auto -> dense, bf16, "
+        "random weights)")
+    timer = Timer(torch)
+    params = init_params(torch, cfg)
+    counts, _ = serve_musicgen(torch, timer, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== kernels at {cfg.name}'s shapes (bf16, group 1, D {cfg.head_dim})")
+    check_musicgen_kernels(torch, timer, cfg)
+    del timer
+    log(f"== train {cfg.name} ({cfg.n_layers} layers, seq {TRAIN_SEQ}, batch {TRAIN_BATCH} in "
+        f"{TRAIN_MICRO} microbatches of {cfg.num_codebooks} codebooks, bf16 compute, random "
+        "weights)")
+    for key, n in train(torch, cfg, layers=cfg.n_layers,
+                        grad_layers=MUSICGEN_GRAD_LAYERS).items():
+        counts[key] += n
+    return counts
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
-                        choices=("all", "plan", "extend", "gemma", "ssm", "moe", "vision"),
+                        choices=("all", "plan", "extend", "gemma", "ssm", "moe", "vision",
+                                 "musicgen"),
                         default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
                              "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
                              "the gemma serve runs alone, 'ssm' K9's check and the hymba and "
                              "mamba2 train phases alone, 'moe' the moonshot-v1-16b-a3b serve "
                              "(48 layers) and train phases alone, 'vision' the "
-                             "llama-3.2-vision-11b serve, kernel and train phases alone; none "
-                             "prints a result line")
+                             "llama-3.2-vision-11b serve, kernel and train phases alone, "
+                             "'musicgen' the musicgen-medium serve, kernel and train phases "
+                             "alone; none prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -4676,7 +5009,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b,
-                                     llama_3_2_vision_11b, mamba2_1_3b, moonshot_v1_16b_a3b)
+                                     llama_3_2_vision_11b, mamba2_1_3b, moonshot_v1_16b_a3b,
+                                     musicgen_medium)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -4739,6 +5073,12 @@ def main() -> int:
         del timer
         vision_phase(torch, vision)
         log(f"total {time.perf_counter() - t_start:.1f} s (vision phase only: no result line)")
+        return 0
+    musicgen = musicgen_medium.CONFIG
+    if args.phase == "musicgen":
+        del timer
+        musicgen_phase(torch, musicgen)
+        log(f"total {time.perf_counter() - t_start:.1f} s (musicgen phase only: no result line)")
         return 0
     gemma = (gemma2_2b.CONFIG, gemma3_1b.CONFIG)
     if args.phase == "gemma":
@@ -4881,6 +5221,8 @@ def main() -> int:
     for key, n in train_moe(torch, moonshot).items():
         counts[key] += n
     for key, n in vision_phase(torch, vision).items():
+        counts[key] += n
+    for key, n in musicgen_phase(torch, musicgen).items():
         counts[key] += n
     for key, spec in KERNELS.items():
         if counts[spec["counter"]] <= 0:

@@ -6,8 +6,8 @@ position). The fields and defaults match the JAX package's schema so a
 config built here describes the same model. The port serves the
 ``attn``, ``mamba`` and ``hybrid`` layer kinds with ``ffn="mlp"``,
 ``"moe"`` or ``"none"`` (llama, gemma, mamba2, hymba, moonshot, mixtral),
-and gated cross-attention layers over stub image embeddings
-(llama-3.2-vision); the multi-codebook field waits for its slice.
+gated cross-attention layers over stub image embeddings
+(llama-3.2-vision), and ``num_codebooks`` > 1 token streams (musicgen).
 """
 
 from __future__ import annotations

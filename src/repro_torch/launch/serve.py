@@ -22,6 +22,10 @@ Examples:
       --kv-dtype int8 --host-pool-bytes 1048576 --shared-prefix 16
   python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu \
       --prompt-len 32 --shared-prefix 16
+  python -m repro_torch.launch.serve --arch musicgen-medium --smoke --device cpu
+
+A multi-codebook model (musicgen-medium) gets (prompt_len, K) prompts of
+random codes, with no shared prefix, and prints each request's (K,) tokens.
 """
 
 from __future__ import annotations
@@ -84,11 +88,13 @@ def main(argv=None):
     )
     print(f"kv_layout={engine.kv_layout} device={engine.device}")
     rng = np.random.default_rng(args.seed)
+    multi = cfg.num_codebooks > 1
+    shape = (args.prompt_len, cfg.num_codebooks) if multi else (args.prompt_len,)
     system = (rng.integers(1, cfg.vocab, size=(args.shared_prefix,))
-              if args.shared_prefix else None)
+              if args.shared_prefix and not multi else None)
     reqs = []
     for i in range(args.requests):
-        prompt = rng.integers(1, cfg.vocab, size=(args.prompt_len,))
+        prompt = rng.integers(1, cfg.vocab, size=shape)
         if system is not None:
             prompt = np.concatenate([system, prompt[: args.prompt_len - args.shared_prefix]])
         reqs.append(Request(
@@ -98,7 +104,7 @@ def main(argv=None):
         ))
     results = engine.generate(reqs)
     for r in sorted(results, key=lambda r: r.uid)[:4]:
-        toks = [int(t) for t in r.tokens]
+        toks = [np.asarray(t).tolist() for t in r.tokens]
         print(f"  uid={r.uid} prompt_len={r.prompt_len} finish={r.finish_reason} out={toks}")
     print(engine.stats().summary())
 

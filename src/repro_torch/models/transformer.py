@@ -3,14 +3,16 @@ MoE FFN, final norm, LM head.
 
 Port of ``repro.models.transformer`` for the ``attn``, ``mamba`` and
 ``hybrid`` layer kinds with ``ffn="mlp"``, ``"moe"`` or ``"none"`` (llama,
-mamba2, hymba, gemma, moonshot, mixtral), and for gated cross-attention
-layers (llama-3.2-vision): ``forward`` (training, with the MoE aux losses
+mamba2, hymba, gemma, moonshot, mixtral), for gated cross-attention
+layers (llama-3.2-vision) and for multi-codebook token streams (musicgen):
+``forward`` (training, with the MoE aux losses
 summed over the stack), ``prefill`` and ``decode_step`` over paged pools
 or dense stripes (cross layers: dense only, as in the JAX package). A
 Python loop over layers takes the place of the JAX package's scan over
 periods. Parameters are a dict::
 
-    {"embed": (V, D), "ln_f": (D,), "head": (D, V) unless tied,
+    {"embed": (V, D), or (K, V, D) for K > 1 codebooks,
+     "ln_f": (D,), "head": (D, V) unless tied,
      "vision_proj": (vision_dim, D)                   (vision models),
      "layers": [{"ln1",
                  "wq", "wk", "wv", "wo"              (attn, hybrid),
@@ -36,6 +38,11 @@ same); training passes ``torch.float32``, the JAX package's parameter
 dtype, so AdamW updates float32 masters. Norm gains and the LM head stay
 float32, as the JAX head runs in float32; a tied embedding is kept in
 float32 for the same reason, since it is the head too.
+
+A model of ``num_codebooks`` K > 1 (musicgen) takes (B, S, K) tokens:
+each position's embedding is the sum of its K codebooks' rows of the
+(K, V, D) table, summed in float32 in codebook order; the same table gives
+(B, S, K, V) float32 logits, K tied heads, as in the JAX package.
 
 A hybrid layer (hymba) runs attention and a Mamba-2 block side by side on
 the same normed input and adds ``0.5 * (rmsnorm(ya) + rmsnorm(ym))``. The
@@ -84,16 +91,12 @@ def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
         if spec.kind not in ("attn", "mamba", "hybrid") or spec.ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
-                f"layer kind={spec.kind!r} ffn={spec.ffn!r} is not ported yet "
-                "(ROADMAP Queue A, other model families)")
+                f"layer kind={spec.kind!r} ffn={spec.ffn!r}: the model stack has attn, "
+                "mamba and hybrid layers with an mlp, moe or no FFN, as the JAX package")
         if spec.kind in _SSM_KINDS and cfg.ssm is None:
             raise ValueError(f"layer kind={spec.kind!r} needs cfg.ssm")
         if spec.ffn == "moe" and cfg.moe is None:
             raise ValueError('ffn="moe" needs cfg.moe')
-    if cfg.num_codebooks != 1:
-        raise NotImplementedError(
-            "multi-codebook models are not ported yet (ROADMAP Queue A, other "
-            "model families)")
 
 
 def _param_dtype(cfg: ModelConfig, param_dtype) -> torch.dtype:
@@ -108,7 +111,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     gains (the ``(1 + scale)`` identity), ``ssm.init_mamba`` for Mamba-2
     blocks, ``moe.init_moe`` for MoE FFNs, zero cross gates. Matmul
     weights, ``vision_proj`` and an untied embedding are ``param_dtype``
-    (default: the compute dtype)."""
+    (default: the compute dtype); a multi-codebook model's (K, V, D) table
+    is float32, as it is the heads too."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev)
@@ -151,8 +155,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
             lp.update(ln2=zeros(d), moe=moe_lib.init_moe(gen, d, cfg.moe, dtype=dt, device=dev))
         return lp
 
-    params: Params = {"embed": normal((cfg.vocab, d), d**-0.5,
-                                      torch.float32 if cfg.tie_embeddings else dt)}
+    if cfg.num_codebooks > 1:
+        params: Params = {"embed": normal((cfg.num_codebooks, cfg.vocab, d), d**-0.5,
+                                          torch.float32)}
+    else:
+        params = {"embed": normal((cfg.vocab, d), d**-0.5,
+                                  torch.float32 if cfg.tie_embeddings else dt)}
     if cfg.vision_tokens:
         params["vision_proj"] = normal((cfg.vision_dim, d), 1 / math.sqrt(cfg.vision_dim))
     params["layers"] = [layer(spec) for spec in cfg.layer_specs()]
@@ -198,9 +206,10 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None,
             if "shared" in lp["moe"]:
                 out["moe"]["shared"] = {k: t(v, dt) for k, v in lp["moe"]["shared"].items()}
         layers_out.append(out)
+    embed = tree["embed"]
     params = {
-        "embed": t(tree["embed"]["table_vd"],
-                   torch.float32 if cfg.tie_embeddings else dt),
+        "embed": (t(embed["table_kvd"]) if "table_kvd" in embed else
+                  t(embed["table_vd"], torch.float32 if cfg.tie_embeddings else dt)),
         "layers": layers_out,
         "ln_f": t(tree["ln_f"]["scale_r"]),
     }
@@ -255,14 +264,29 @@ def _jax_layer(tree, period: Optional[int]) -> dict:
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
+    dt = device_lib.dtype_of(cfg.compute_dtype)
+    if cfg.num_codebooks > 1:
+        # tokens (..., K): the codebooks' rows summed in float32, in order.
+        tab, tokens = params["embed"], tokens.long()
+        x = tab[0][tokens[..., 0]].float()
+        for k in range(1, cfg.num_codebooks):
+            x = x + tab[k][tokens[..., k]].float()
+        return x.to(dt)
     return layers.embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale,
-                        compute_dtype=device_lib.dtype_of(cfg.compute_dtype))
+                        compute_dtype=dt)
 
 
 def _logits(params, cfg: ModelConfig, x):
-    if cfg.tie_embeddings:
+    if cfg.num_codebooks > 1:
+        # (B, S, D) x (K, V, D) -> (B, S, K, V): one product with the
+        # float32 table as (K V, D).
+        tab = params["embed"]
+        logits = (x.float() @ tab.reshape(-1, tab.shape[-1]).T).reshape(
+            *x.shape[:-1], *tab.shape[:2])
+    elif cfg.tie_embeddings:
         return layers.unembed(params["embed"], x, softcap=cfg.final_softcap)
-    logits = x.float() @ params["head"]
+    else:
+        logits = x.float() @ params["head"]
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -349,7 +373,8 @@ def _project_images(params, cfg: ModelConfig, image_embeds, dtype):
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Training forward: tokens (B, S) -> (logits (B, S, V) float32, aux).
+    """Training forward: tokens (B, S) -> (logits (B, S, V) float32, aux);
+    a multi-codebook model's (B, S, K) tokens give (B, S, K, V) logits.
 
     Every layer kind the port takes (``attn``, ``mamba``, ``hybrid``; ``ffn``
     ``"mlp"``, ``"moe"`` or ``"none"``), as the JAX package's ``forward``
@@ -391,7 +416,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_len: Optional[torch.Tensor] = None,
             plan=None) -> Tuple[torch.Tensor, List[dict]]:
     """Prefill: returns (logits at the last real position (B, V) float32,
-    per-layer caches): ``{"k", "v"}`` of shape (B, Hkv, cache_len, hd) for
+    (B, K, V) for (B, S, K) tokens of a multi-codebook model, per-layer
+    caches): ``{"k", "v"}`` of shape (B, Hkv, cache_len, hd) for
     attention, ``{"conv", "ssm"}`` for Mamba-2 blocks, both for hybrid
     layers; a cross layer adds ``"cross": {"k", "v"}``, the K/V of its
     encoder states (B, Hkv, vision_tokens, hd).
@@ -411,7 +437,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     caller-resolved extend plan (None lets each layer resolve its own).
     """
     x = _embed_tokens(params, cfg, tokens)
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     enc = _project_images(params, cfg, image_embeds, x.dtype)
     if enc is None and any(spec.cross_attn for spec in cfg.layer_specs()):
         raise ValueError(f"{cfg.name}: prefill of a model with cross-attention layers needs "
@@ -463,7 +489,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[dict]]:
     """One decode step: returns (logits (B, V), caches).
 
-    ``token`` (B,); ``lengths`` (B,) int32 including the new token. With
+    ``token`` (B,), or (B, K) for a multi-codebook model, whose logits are
+    then (B, K, V); ``lengths`` (B,) int32 including the new token. With
     ``page_table`` (B, max_pages) int32 the caches are paged pools;
     without, dense per-row caches (``init_caches``, or views of them cut to
     the live rows and width). Either way they are updated in place.

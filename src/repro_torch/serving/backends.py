@@ -65,7 +65,7 @@ class _SeqState:
 
 
 #: Rows of the fused decode's integer inputs (``_Inputs.ints``).
-_TOK, _LEN, _GEN, _DONE, _TOP_K, _SEED, _MAX = range(7)
+_LEN, _GEN, _DONE, _TOP_K, _SEED, _MAX = range(6)
 
 #: Device index -> the stream every backend on that card captures its
 #: graphs on. PyTorch keeps one cuBLAS workspace per (handle, stream) for the
@@ -85,11 +85,15 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
 class _Inputs:
     """The fused decode's input buffers: persistent tensors on the engine's
     device that every sync refills in place (a captured graph reads them
-    at fixed addresses), each with a pinned host mirror on the card."""
+    at fixed addresses), each with a pinned host mirror on the card. The
+    tokens to feed are (rows,), or (rows, K) for K > 1 codebooks."""
 
-    def __init__(self, rows: int, table_width: int, device: torch.device):
+    def __init__(self, rows: int, table_width: int, device: torch.device,
+                 codebooks: int = 1):
         self.device = device
-        self.ints = torch.zeros((7, rows), dtype=torch.int64, device=device)
+        self.tok = torch.zeros((rows,) if codebooks == 1 else (rows, codebooks),
+                               dtype=torch.int64, device=device)
+        self.ints = torch.zeros((6, rows), dtype=torch.int64, device=device)
         self.floats = torch.zeros((2, rows), dtype=torch.float32, device=device)
         self.table = (torch.zeros((rows, table_width), dtype=torch.int32, device=device)
                       if table_width else None)
@@ -114,8 +118,9 @@ class _Inputs:
         host.copy_(src)
         dst.copy_(host, non_blocking=True)
 
-    def fill(self, ints: np.ndarray, floats: np.ndarray, table: Optional[np.ndarray],
-             stops: np.ndarray) -> None:
+    def fill(self, tok: np.ndarray, ints: np.ndarray, floats: np.ndarray,
+             table: Optional[np.ndarray], stops: np.ndarray) -> None:
+        self._fill(self.tok, tok)
         self._fill(self.ints, ints)
         self._fill(self.floats, floats)
         if self.table is not None:
@@ -172,8 +177,9 @@ class _Backend:
         self._programs: Dict[Tuple[int, int], _Program] = {}
         self._inputs: Optional[_Inputs] = None
         self._graph_pool = None
-        #: The last tick's logits (rows, V) of the latest fused sync; on the
-        #: card they live in the graphs' memory and hold until the next sync.
+        #: The last tick's logits (rows, V), or (rows, K, V), of the latest
+        #: fused sync; on the card they live in the graphs' memory and hold
+        #: until the next sync.
         self.last_logits: Optional[torch.Tensor] = None
         #: Measured time of one tick of the latest sync (the graph replay's
         #: device time on the card, the tick function's host time on the
@@ -211,26 +217,31 @@ class _Backend:
         writes sink there) and a dense row re-feeds its last token at the
         same position, rewriting the same K/V. Rows inactive at the start
         run frozen throughout. A frozen row takes no MoE expert slot.
-        ``tok``, ``gen``, ``max_toks``, the sampling parameters: (rows,) host
+        ``tok``: (rows,) host array, or (rows, K) for K > 1 codebooks;
+        ``gen``, ``max_toks``, the sampling parameters: (rows,) host
         arrays; ``stops``: (rows, W) stop ids padded with -1 (W 0: no stop
-        detection). ``ys`` are (n_steps, rows) host
-        arrays: the fed token, the sampled token, and the live, appended-stop,
-        fed-stop and hit-max masks; ``final_lengths`` feeds
+        detection, as for every multi-codebook stream). ``ys`` are host
+        arrays: the fed token and the sampled token, (n_steps, rows) or
+        (n_steps, rows, K), and the live, appended-stop, fed-stop and
+        hit-max masks, (n_steps, rows); ``final_lengths`` feeds
         :meth:`commit_scan`."""
         n, width = int(n_steps), int(stops.shape[1])
         program = self.prepare_decode(n, width)
-        ints = np.zeros((7, self.rows), np.int64)
-        ints[_TOK], ints[_LEN], ints[_GEN] = tok, self.lengths, gen
+        ints = np.zeros((6, self.rows), np.int64)
+        ints[_LEN], ints[_GEN] = self.lengths, gen
         ints[_DONE], ints[_TOP_K], ints[_SEED], ints[_MAX] = ~self.active, top_k, seeds, max_toks
-        self._inputs.fill(ints, np.stack([temps, top_p]),
+        self._inputs.fill(tok, ints, np.stack([temps, top_p]),
                           self.page_table if self.kv_layout == "paged" else None, stops)
         t0 = time.perf_counter()
         out, self.last_logits = program()
         host = out.cpu().numpy()
         secs = time.perf_counter() - t0 if program.graph is None else program.replay_seconds()
         self.decode_tick_s = secs / n
-        ys = host[: n * 6 * self.rows].reshape(n, 6, self.rows)
-        return tuple(ys[:, i] for i in range(6)), host[n * 6 * self.rows:]
+        k = self.cfg.num_codebooks
+        cols = 2 * k + 4
+        ys = host[: n * self.rows * cols].reshape(n, self.rows, cols)
+        toks = (ys[..., :k], ys[..., k:2 * k]) if k > 1 else (ys[..., 0], ys[..., 1])
+        return toks + tuple(ys[..., 2 * k + i] for i in range(4)), host[n * self.rows * cols:]
 
     def prepare_decode(self, n_steps: int, stop_width: int = 0) -> "_Program":
         """The program of one (n_steps, stop width) key, built (on the card:
@@ -246,16 +257,23 @@ class _Backend:
     def _tick_fn(self, n_steps: int, stop_width: int):
         """The fused decode of ``n_steps`` ticks over the input buffers, as a
         function of nothing: it returns the outputs packed into one int64
-        tensor (``n_steps`` x 6 x rows, then the final lengths) and the last
-        tick's logits. It holds the input buffers and the decoder, never
-        the backend, so dropping the backend's programs frees the graphs."""
+        tensor (``n_steps`` x rows x (2 K + 4): the fed and sampled tokens'
+        K codebooks each, then the four masks; then the final lengths) and
+        the last tick's logits. It holds the input buffers and the decoder,
+        never the backend, so dropping the backend's programs frees the
+        graphs."""
         inputs = self._inputs
         paged = self.kv_layout == "paged"
         decode = self._decoder()
 
+        def per_row(mask, like):
+            """(rows,) ``mask`` shaped to broadcast over ``like``'s rows."""
+            return mask.reshape(-1, *(1,) * (like.dim() - 1))
+
         @torch.no_grad()
         def run():
-            tok, lengths, gen, done = (inputs.ints[i] for i in (_TOK, _LEN, _GEN, _DONE))
+            tok = inputs.tok
+            lengths, gen, done = (inputs.ints[i] for i in (_LEN, _GEN, _DONE))
             top_k, seeds, max_toks = (inputs.ints[i] for i in (_TOP_K, _SEED, _MAX))
             temps, top_p = inputs.floats[0], inputs.floats[1]
             stops = inputs.stops_of(stop_width) if stop_width else None
@@ -267,7 +285,7 @@ class _Backend:
                 logits = decode(tok, lengths1, table, live)
                 # A frozen row's logits are discarded: keep whatever they
                 # hold out of the sampler.
-                logits = logits.masked_fill(done[:, None], 0.0)
+                logits = logits.masked_fill(per_row(done, logits), 0.0)
                 gen1 = gen + live.long()
                 nxt = sampling_lib.sample_batch(logits, temps, top_k, top_p, seeds, gen1)
                 if stops is not None:
@@ -282,9 +300,10 @@ class _Backend:
                 newly = done_fed | append_nxt
                 if paged:
                     table = table.masked_fill(newly[:, None], NULL_PAGE)
-                ys.append(torch.stack([tok, nxt, live.long(), append_nxt.long(),
-                                       fed_stop.long(), hit_max.long()]))
-                tok = torch.where(live & ~newly, nxt, tok)
+                masks = torch.stack([live, append_nxt, fed_stop, hit_max], 1).long()
+                ys.append(torch.cat([tok.reshape(len(tok), -1), nxt.reshape(len(tok), -1),
+                                     masks], 1))
+                tok = torch.where(per_row(live & ~newly, tok), nxt, tok)
                 lengths, gen, done = lengths1, gen1 + append_nxt.long(), done | newly
             return torch.cat([torch.stack(ys).reshape(-1), lengths.long()]), logits
 
@@ -301,7 +320,7 @@ class _Backend:
         self.stats["decode_traces"] += 1
         if self._inputs is None:
             width = self.max_pages_per_seq if self.kv_layout == "paged" else 0
-            self._inputs = _Inputs(self.rows, width, self.device)
+            self._inputs = _Inputs(self.rows, width, self.device, self.cfg.num_codebooks)
         if stop_width:
             self._inputs.stops_of(stop_width)
         run = self._tick_fn(n_steps, stop_width)
@@ -330,6 +349,7 @@ class _Backend:
         page: its writes land where :meth:`_scratch_state` restores them."""
         inputs = self._inputs
         restore = self._scratch_state()
+        inputs.tok.zero_()
         inputs.ints.zero_()
         inputs.ints[_DONE] = 1
         inputs.floats.zero_()
@@ -449,12 +469,13 @@ class DenseBackend(_Backend):
     @torch.no_grad()
     def flush(self, records) -> Dict[int, torch.Tensor]:
         """Prefill each admitted record into its slot (right-padded to its
-        bucket; the SSM state is the unpadded prompt's); returns per-row
-        last-position logits for the engine's first-token sample."""
+        bucket along the sequence axis only, a multi-codebook prompt's K
+        columns kept; the SSM state is the unpadded prompt's); returns
+        per-row last-position logits for the engine's first-token sample."""
         first_logits: Dict[int, torch.Tensor] = {}
         for rec in records:
-            n, bucket = rec["n"], rec["bucket"]
-            padded = np.pad(rec["prompt"], (0, bucket - n))[None]
+            n, bucket, prompt = rec["n"], rec["bucket"], rec["prompt"]
+            padded = np.pad(prompt, [(0, bucket - n)] + [(0, 0)] * (prompt.ndim - 1))[None]
             self.stats["prefill_launches"] += 1
             logits, caches = transformer.prefill(
                 self.params, self.cfg, torch.from_numpy(padded.astype(np.int64)).to(self.device),
@@ -516,7 +537,8 @@ class PagedBackend(_Backend):
     decode headroom. ``kv_dtype`` "int8" / "fp8" stores the pool as codes
     with per-(kv head, page) scales; ``host_pool_bytes`` puts a host tier of
     that budget behind the pool (it needs ``prefix_sharing``: demoted pages
-    are keyed by the prefix hash chain)."""
+    are keyed by the prefix hash chain). Single-codebook token streams only,
+    as in the JAX package: a page's prefix hash chain is over scalar ids."""
 
     kv_layout = "paged"
 
@@ -526,6 +548,8 @@ class PagedBackend(_Backend):
                  prefix_sharing: bool = True, reserve_pages: int = 1,
                  batch_prefills: bool = True, kv_dtype: str = "fp32",
                  host_pool_bytes=None):
+        if cfg.num_codebooks != 1:
+            raise ValueError("paged backend supports single-codebook models")
         self.kv_dtype = quant.validate_kv_dtype(kv_dtype)
         for b in prompt_buckets:
             if b % page_size:

@@ -44,6 +44,12 @@ raises ``ValueError`` at construction: requests carry no image, and the
 JAX engine fails at its first prefill for want of one (ROADMAP Queue C);
 such a model is served through ``transformer.prefill(image_embeds=)`` and
 ``decode_step``.
+
+A multi-codebook model (musicgen, ``num_codebooks`` K > 1) takes (S, K)
+prompts and streams (K,) int64 arrays, one per step, as the JAX engine does:
+it is served from dense stripes (``kv_layout="paged"`` raises
+``ValueError``), every codebook sampled from its own stream, and stop
+tokens do not apply to it (the stop width is 0).
 """
 
 from __future__ import annotations
@@ -196,7 +202,9 @@ class LLMEngine:
         engine = weakref.ref(self)
         self.backend.on_preempt = lambda *a: engine()._on_preempt(*a)
         self._detokenizer = detokenizer
-        self._pending: Dict[int, int] = {}      # row -> next token to feed
+        #: row -> next token to feed: an int, or a (K,) array for K > 1
+        #: codebooks.
+        self._pending: Dict[int, object] = {}
         self._streamed: Dict[int, int] = {}     # uid -> tokens emitted
         #: uid -> buffered outputs of an open stream() consumer; only uids
         #: with an open stream have an entry.
@@ -527,16 +535,24 @@ class LLMEngine:
         toks = sampling_lib.sample_batch(logits, *params).cpu().numpy()
         now = time.perf_counter()
         for r, t in zip(rows, toks):
-            self._pending[r] = int(t)
+            self._pending[r] = self._token(t)
             uid = self.backend.row_req(r).uid
             if uid in self._arrival and uid not in self.ttft:
                 self.ttft[uid] = now - self._arrival[uid]
 
+    def _token(self, t):
+        """One sampled token as the engine keeps it: an int, or a copy of a
+        multi-codebook model's (K,) ids."""
+        return int(t) if self.cfg.num_codebooks == 1 else np.array(t, dtype=np.int64)
+
     def _stop_array(self, rows: List[int]) -> np.ndarray:
         """(rows, W) stop ids padded with -1, W a power of two (a graph key
         component, so bucketing bounds the captures); W 0 when no active
-        row has stop tokens."""
+        row has stop tokens, or the stream is multi-codebook (a scalar stop
+        id does not apply to a (K,) token), as in the JAX engine."""
         b = self.backend
+        if self.cfg.num_codebooks != 1:
+            return np.zeros((b.rows, 0), np.int64)
         width = max((len(b.row_req(r).sampling.stop_token_ids) for r in rows), default=0)
         if width == 0:
             return np.zeros((b.rows, 0), np.int64)
@@ -560,9 +576,10 @@ class LLMEngine:
         if not rows:
             self._last_ticks = 0
             return []
-        tok = np.zeros((b.rows,), np.int64)
+        k = self.cfg.num_codebooks
+        tok = np.zeros((b.rows,) if k == 1 else (b.rows, k), np.int64)
         for r in rows:
-            tok[r] = self._pending.pop(r) if r in self._pending else int(b.out[r][-1])
+            tok[r] = self._pending.pop(r) if r in self._pending else b.out[r][-1]
         temps, top_k, top_p, seeds, pos = self._sampling_arrays(b.rows, [(r, r) for r in rows])
         max_toks = np.zeros((b.rows,), np.int64)
         for r in rows:
@@ -596,7 +613,7 @@ class LLMEngine:
                 if not col[t]:
                     break
                 last_t = t
-                b.out[r].append(int(tok_seq[t, r]))
+                b.out[r].append(self._token(tok_seq[t, r]))
                 self._tokens_generated += 1
                 if fed_stop[t, r]:
                     reason = FINISH_STOP
@@ -605,14 +622,14 @@ class LLMEngine:
                     reason = FINISH_LENGTH
                     break
                 if appended[t, r]:
-                    b.out[r].append(int(nxt_seq[t, r]))
+                    b.out[r].append(self._token(nxt_seq[t, r]))
                     self._tokens_generated += 1
                     reason = FINISH_STOP
                     break
             if reason is not None:
                 outputs.append(self._finish(r, req, reason))
                 continue
-            self._pending[r] = int(nxt_seq[last_t, r])
+            self._pending[r] = self._token(nxt_seq[last_t, r])
             delta = self._delta(req.uid, b.out[r])
             if delta:
                 outputs.append(RequestOutput(uid=req.uid, prompt_len=len(req.prompt),

@@ -12,8 +12,13 @@ by Gumbel-max, its noise a counter-based hash of (seed, stream_pos, vocab
 index). A request's samples then depend on neither the rows that share its
 tick nor the device's RNG state, and resume after preemption continues the
 same stream. The port keeps these properties, not the JAX package's
-threefry bits. Nothing here reads a tensor back to the host, so the sampler
-runs inside a captured CUDA graph.
+threefry bits.
+
+Multi-codebook logits (B, K, V) (musicgen) give (B, K) tokens: greedy rows
+take each codebook's argmax, and a sampled row draws each codebook from its
+own stream, the codebook index folded into the row's key, as the JAX
+package folds it into its key. Nothing here reads a tensor back to the
+host, so the sampler runs inside a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -41,12 +46,17 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _gumbel(seed: torch.Tensor, stream_pos: torch.Tensor, vocab: int) -> torch.Tensor:
+def _gumbel(seed: torch.Tensor, stream_pos: torch.Tensor, vocab: int,
+            codebooks: int = 0) -> torch.Tensor:
     """(B, V) float32 Gumbel noise, a function of (seed, stream_pos, index)
-    only."""
+    only; with ``codebooks`` K > 0, (B, K, V) noise, a function of (seed,
+    stream_pos, codebook, index)."""
     key = _mix32(_mix32(seed.long() & _MASK32) ^ (stream_pos.long() & _MASK32))
+    if codebooks:
+        key = _mix32(key[:, None] ^ torch.arange(codebooks, dtype=torch.int64,
+                                                 device=seed.device)[None, :])
     idx = torch.arange(vocab, dtype=torch.int64, device=seed.device)
-    bits = _mix32(_mix32(key[:, None] ^ idx[None, :]) ^ 0x9E3779B9)
+    bits = _mix32(_mix32(key[..., None] ^ idx) ^ 0x9E3779B9)
     # 23 bits to a float32 in (0, 1), both ends excluded (exact: 24 bits
     # with the half).
     u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
@@ -56,9 +66,25 @@ def _gumbel(seed: torch.Tensor, stream_pos: torch.Tensor, vocab: int) -> torch.T
 def sample_batch(logits: torch.Tensor, temperature: torch.Tensor, top_k: torch.Tensor,
                  top_p: torch.Tensor, seed: torch.Tensor,
                  stream_pos: torch.Tensor) -> torch.Tensor:
-    """``logits`` (B, V) -> (B,) int64 tokens. Every parameter is a (B,)
-    tensor on the logits' device: temperature and top_p float, top_k, seed
-    and stream_pos integer."""
+    """``logits`` (B, V) -> (B,) int64 tokens, or (B, K, V) -> (B, K). Every
+    parameter is a (B,) tensor on the logits' device: temperature and top_p
+    float, top_k, seed and stream_pos integer; a row's parameters hold for
+    each of its codebooks."""
+    if logits.ndim == 2:
+        return _sample_rows(logits, temperature, top_k, top_p,
+                            _gumbel(seed, stream_pos, logits.shape[-1]))
+    b, k, v = logits.shape
+    noise = _gumbel(seed, stream_pos, v, k).reshape(b * k, v)
+
+    def per_codebook(t):
+        return t[:, None].expand(b, k).reshape(-1)
+
+    return _sample_rows(logits.reshape(b * k, v), *map(per_codebook, (temperature, top_k, top_p)),
+                        noise).reshape(b, k)
+
+
+def _sample_rows(logits, temperature, top_k, top_p, noise) -> torch.Tensor:
+    """(R, V) logits, (R,) parameters and (R, V) Gumbel noise -> (R,)."""
     v = logits.shape[-1]
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits.float() / temperature.float().clamp_min(_MIN_TEMPERATURE)[:, None]
@@ -71,15 +97,16 @@ def sample_batch(logits: torch.Tensor, temperature: torch.Tensor, top_k: torch.T
     keep = (torch.cumsum(p_desc, dim=-1) - p_desc) < top_p.float()[:, None]
     cutoff = torch.gather(p_desc, 1, (keep.sum(-1) - 1).clamp_min(0)[:, None])
     masked = masked.masked_fill(probs < cutoff, -torch.inf)
-    sampled = torch.argmax(masked + _gumbel(seed, stream_pos, v), dim=-1)
+    sampled = torch.argmax(masked + noise, dim=-1)
     return torch.where(temperature <= 0, greedy, sampled)
 
 
 def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p, seed,
                   stream_pos) -> torch.Tensor:
-    """``logits`` (B, V) -> (B,) int64 tokens on the logits' device. The
-    parameter arguments are length-B sequences of Python numbers; they go
-    through :func:`sample_batch`, the program every decode tick runs."""
+    """``logits`` (B, V) -> (B,) int64 tokens on the logits' device, or
+    (B, K, V) -> (B, K). The parameter arguments are length-B sequences of
+    Python numbers; they go through :func:`sample_batch`, the program every
+    decode tick runs."""
     dev = logits.device
 
     def col(values, dtype):

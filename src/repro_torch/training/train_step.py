@@ -10,6 +10,9 @@ updates the state in place:
   * ``remat`` checkpoints each layer (``transformer.forward``);
   * a batch may carry ``image_embeds`` (B, vision_tokens, vision_dim) for
     a vision model's cross layers, split over microbatches as the tokens;
+  * a multi-codebook model's (B, S, K) targets are scored against its
+    (B, S, K, V) logits, the (B, S) mask broadcast over the K codebooks, as
+    there;
   * the loss adds the MoE aux losses summed over the stack, weighted by
     ``moe_lb_coef`` and ``moe_z_coef``, as there;
   * ``grad_compression="int8_ef"`` quantizes the gradients with error
@@ -62,7 +65,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     logits, aux = transformer.forward(params, cfg, batch["tokens"],
                                       image_embeds=batch.get("image_embeds"),
                                       remat=tcfg.remat)
-    loss, metrics = layers.softmax_cross_entropy(logits, batch["targets"], batch["mask"],
+    mask = batch["mask"]
+    if cfg.num_codebooks > 1:
+        mask = mask[..., None] * torch.ones_like(batch["targets"], dtype=torch.float32)
+    loss, metrics = layers.softmax_cross_entropy(logits, batch["targets"], mask,
                                                  z_loss=cfg.z_loss)
     # Without an MoE layer the aux losses are zeros and the total is the
     # cross-entropy; the metrics are the JAX package's either way.

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b,
-                                 llama_3_2_vision_11b, mamba2_1_3b)
+                                 llama_3_2_vision_11b, mamba2_1_3b, musicgen_medium)
 from repro_torch.kernels import decode_attention as dd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
@@ -2771,6 +2771,210 @@ def test_vision_train_step_on_kernels_matches_plain_path(cuda):
             assert counts["flash_attention_fwd"] == 2 * n_attn * 2
             assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] \
                 == n_attn * 2
+        else:
+            assert sum(counts.values()) == 0
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-5 * abs(losses["plain"])
+    for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
+                            tree_lib.leaves(grads["plain"])):
+        assert float((a - b).norm() / b.norm()) <= 1e-4, path
+
+
+# -- musicgen-medium: group 1 at head_dim 64, (B, K) token streams --------------
+
+#: musicgen-medium's heads: 24 query heads over 24 KV heads at head_dim 64.
+MUSICGEN_HEADS = (24, 24, 64)
+
+
+def test_musicgen_k1_k5_k6_at_group_one_match_plain(cuda):
+    """K1 (causal, ragged S) and K5 / K6 in bf16 at musicgen's heads, group
+    1 at D 64, on the tensor cores, against their plain versions."""
+    hq, hkv, d = MUSICGEN_HEADS
+    rng = np.random.default_rng(70)
+    q = _randn(rng, (1, hq, 300, d), cuda, torch.bfloat16)
+    k, v = (_randn(rng, (1, hkv, 300, d), cuda, torch.bfloat16) for _ in range(2))
+    kernels.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    assert kernels.launch_counts()["flash_attention_fwd_tc"] == 1
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _close(o, o_ref) and _err(lse, lse_ref) < LSE_TOL
+    args = _bwd_case(np.random.default_rng(71), cuda, torch.bfloat16, hq, hkv, 200, 200, d,
+                     causal=True)
+    kernels.reset_launch_counts()
+    got = fb.flash_attention_bwd(*args, causal=True)
+    counts = kernels.launch_counts()
+    want = fb.flash_attention_bwd_plain(*args, causal=True)
+    torch.cuda.synchronize()
+    assert _bwd_routes(counts, torch.bfloat16), counts
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _slice_err(g, w) <= GRAD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 4, 7, "plan"])
+def test_musicgen_k7_k8_at_group_one_match_plain(cuda, num_splits):
+    """K7 / K8 in bf16 at musicgen's heads over 2048-row stripes (the
+    tensor-core consumer pads the group of 1 to the MMA's M), with the
+    plan's split count among the cases: rows empty, short, mid and full."""
+    hq, hkv, d = MUSICGEN_HEADS
+    q, kc, vc, _ = _dense_inputs(np.random.default_rng(72), cuda, torch.bfloat16, hq, hkv, d,
+                                 2048, b=8)
+    lengths = torch.tensor([0, 1, 100, 600, 1000, 1250, 1532, 2048], dtype=torch.int32,
+                           device=cuda)
+    plan = plan_lib.plan_attention((8, hq, hkv, 1, 2048, d), phase=plan_lib.DECODE,
+                                   kv_layout=plan_lib.DENSE, device_type="cuda", dtype_bytes=2)
+    kw = dict(chunk=plan.chunk,
+              num_splits=plan.num_splits if num_splits == "plan" else num_splits)
+    kernels.reset_launch_counts()
+    o = dd.flash_decode(q, kc, vc, lengths, **kw)
+    assert _dense_routes(kernels.launch_counts(), torch.bfloat16)
+    ref = dd.flash_decode_plain(q, kc, vc, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _close(o, ref)
+    assert float(o[0].float().abs().max()) == 0.0
+
+
+def _musicgen_cfg(dtype="float32"):
+    """musicgen SMOKE widened to head_dim 64 (the kernels take 64 and 128)."""
+    return dataclasses.replace(musicgen_medium.SMOKE, head_dim=64, compute_dtype=dtype)
+
+
+def _musicgen_prompts(cfg, lens, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=(n, cfg.num_codebooks)) for n in lens]
+
+
+def test_musicgen_engine_on_kernels_matches_plain(cuda):
+    """float32, dense (``"auto"``), prompts off the buckets: the kernel
+    engine (K1, K7/K8) gives the plain engine's greedy (K,) ids at
+    steps_per_sync 1 and 8."""
+    cfg = _musicgen_cfg()
+    params = transformer.init_model(cfg, seed=0, device=cuda)
+    prompts = _musicgen_prompts(cfg, (20, 90, 45, 130), 73)
+    kw = dict(max_batch=3, cache_len=256, prompt_buckets=(32, 64, 128, 192), device=cuda)
+    tokens = {}
+    for impl, steps in (("auto", 1), ("auto", 8), ("plain", 1)):
+        eng = LLMEngine(dataclasses.replace(cfg, attn_impl=impl), params,
+                        steps_per_sync=steps, **kw)
+        assert eng.kv_layout == "dense"
+        kernels.reset_launch_counts()
+        out = eng.generate([Request(uid=i, prompt=p, max_new_tokens=10)
+                            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        tokens[impl, steps] = {o.uid: np.stack(o.tokens).tolist() for o in out}
+        assert all(np.asarray(t).shape == (cfg.num_codebooks,) for o in out for t in o.tokens)
+        eng.close()
+        if impl == "auto":
+            assert counts["flash_attention_fwd"] > 0
+            assert counts["flash_decode"] + counts["flash_decode_split"] > 0
+        else:
+            assert sum(counts.values()) == 0
+    assert tokens["auto", 1] == tokens["plain", 1] == tokens["auto", 8]
+
+
+def test_musicgen_prefill_and_decode_on_kernels_match_plain_in_bf16(cuda):
+    """bf16 at the model level: prefill of two rows (one right-padded) and 4
+    greedy decode steps over dense stripes on the tensor-core K1 and K7/K8,
+    against the plain path on the same weights and tokens: (B, K, V)
+    logits within LOGIT_TOL of the plain path's max |logit|."""
+    cfg = _musicgen_cfg("bfloat16")
+    params = transformer.init_model(cfg, seed=1, device=cuda)
+    lens, bucket, cache_len = [40, 27], 64, 128
+    tokens = torch.zeros((2, bucket, cfg.num_codebooks), dtype=torch.int64, device=cuda)
+    for b, p in enumerate(_musicgen_prompts(cfg, lens, 74)):
+        tokens[b, : len(p)] = torch.from_numpy(p)
+    last = torch.tensor(lens, device=cuda) - 1
+    runs = {}
+    for impl in ("plain", "auto"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        kernels.reset_launch_counts()
+        logits, caches = transformer.prefill(params, c, tokens, cache_len=cache_len,
+                                             last_positions=last)
+        seen, lengths = [logits], torch.tensor(lens, dtype=torch.int32, device=cuda)
+        tok = runs["plain"][0][0].argmax(-1) if impl == "auto" else logits.argmax(-1)
+        for step in range(4):
+            lengths = lengths + 1
+            logits, caches = transformer.decode_step(params, c, tok, caches, lengths)
+            seen.append(logits)
+            # Both paths feed the plain path's greedy ids.
+            tok = (runs["plain"][0][step + 1] if impl == "auto" else logits).argmax(-1)
+        torch.cuda.synchronize()
+        runs[impl] = (seen, kernels.launch_counts())
+    counts = runs["auto"][1]
+    assert counts["flash_attention_fwd_tc"] == cfg.n_layers
+    assert counts["flash_decode_tc"] + counts["flash_decode_split_tc"] == 4 * cfg.n_layers
+    for got, ref in zip(runs["auto"][0], runs["plain"][0]):
+        assert tuple(got.shape) == (2, cfg.num_codebooks, cfg.vocab)
+        assert torch.isfinite(got).all()
+        assert float((got - ref).abs().max()) <= LOGIT_TOL * float(ref.abs().max())
+
+
+def test_musicgen_fused_graph_tokens_match_eager_ticks(cuda):
+    """bf16, dense, steps_per_sync 8, one greedy and one sampled request: the
+    8-tick graph's (rows, K) fed and sampled tokens and masks equal those of
+    the same tick function run eagerly on the same inputs, and its last
+    logits lie within LOGIT_TOL of the eager ones; the one-tick graph
+    engine gives the same ids."""
+    from repro_torch.serving import SamplingParams
+
+    cfg = _musicgen_cfg("bfloat16")
+    params = transformer.init_model(cfg, seed=2, device=cuda)
+    prompts = _musicgen_prompts(cfg, (21, 40), 75)
+    sampled = SamplingParams(temperature=1.0, top_k=250, max_tokens=17, seed=4)
+    kw = dict(max_batch=3, cache_len=128, prompt_buckets=(32, 64), device=cuda)
+    ids = {}
+    for n in (8, 1):
+        eng = LLMEngine(cfg, params, steps_per_sync=n, **kw)
+        eng.add_request(Request(uid=0, prompt=prompts[0], max_new_tokens=17))
+        eng.add_request(Request(uid=1, prompt=prompts[1], sampling=sampled))
+        out = {o.uid: o for o in eng.step() if o.finished}
+        if n == 8:
+            program = eng.backend._programs[(8, 0)]
+            assert program.graph is not None
+            graph_out, graph_logits = program.out.clone(), program.logits.clone()
+            program.graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(program.out, graph_out)
+            eager_out, eager_logits = program.run()
+            torch.cuda.synchronize()
+            assert torch.equal(eager_out, graph_out)
+            assert tuple(graph_logits.shape) == (3, cfg.num_codebooks, cfg.vocab)
+            diff = float((graph_logits - eager_logits).float().abs().max())
+            assert diff <= LOGIT_TOL * float(eager_logits.float().abs().max())
+        while eng.backend.active.any() or eng.scheduler.has_work():
+            out.update({o.uid: o for o in eng.step() if o.finished})
+        ids[n] = {u: np.stack(o.tokens).tolist() for u, o in out.items()}
+        assert all(p.graph is not None for p in eng.backend._programs.values())
+        eng.close()
+    assert ids[8] == ids[1]
+    assert all(len(t) == 17 for t in ids[8].values())
+
+
+def test_musicgen_train_step_on_kernels_matches_plain_path(cuda):
+    """float32, (B, S, K) codes in 2 microbatches: one step's gradients
+    through K1 / K5 / K6 against the same step on the plain versions, and
+    the launches the step makes."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    cfg = _musicgen_cfg()
+    tcfg = ts.TrainConfig(microbatches=2)
+    batch = ts.to_device(make_pipeline(DataConfig(
+        seq_len=100, global_batch=4, vocab=cfg.vocab,
+        num_codebooks=cfg.num_codebooks)).batch_at(0), cuda)
+    grads, losses = {}, {}
+    for impl in ("auto", "plain"):
+        params = transformer.init_model(cfg, seed=0, device=cuda, param_dtype=torch.float32)
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, dataclasses.replace(cfg, attn_impl=impl),
+                                          batch, tcfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        grads[impl], losses[impl] = g, float(loss)
+        if impl == "auto":
+            assert counts["flash_attention_fwd"] == 2 * cfg.n_layers * 2
+            assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] \
+                == cfg.n_layers * 2
         else:
             assert sum(counts.values()) == 0
     assert abs(losses["auto"] - losses["plain"]) <= 1e-5 * abs(losses["plain"])

@@ -108,7 +108,7 @@ def test_configs_match_jax():
             [s.rope_theta for s in theirs.layer_pattern]
     assert registry.get_config("llama3-8b") is llama3_8b.CONFIG
     with pytest.raises(KeyError):      # an architecture not ported yet
-        registry.get_config("musicgen-medium")
+        registry.get_config("llama3-405b")
 
 
 def _splits(batch, seq_kv):

@@ -11,7 +11,8 @@ cut to L layers (default 2), and each seed s in 1..N, one step's gradients
 of a batch of one 1024-token row, from weights and data of seed s, as
 ``chip_smoke.py``'s gradient check takes them (bf16 compute, float32
 parameters, remat; a vision model with its cross gates open and a seeded
-image in the batch, ``chip_smoke.open_gates`` / ``vision_images``), under
+image in the batch, ``chip_smoke.open_gates`` / ``vision_images``; a
+multi-codebook model, musicgen-medium, on (1, 1024, K) codes), under
 six settings of the routes:
 
 * ``cuda``: every kernel (``attn_impl`` and ``ssm.impl`` "auto");
@@ -117,7 +118,8 @@ def main() -> int:
             params = transformer.init_model(cfg, seed=seed, device="cuda",
                                             param_dtype=torch.float32)
             batch = ts.to_device(make_pipeline(DataConfig(
-                seq_len=1024, global_batch=1, seed=seed, vocab=cfg.vocab)).batch_at(0), "cuda")
+                seq_len=1024, global_batch=1, seed=seed, vocab=cfg.vocab,
+                num_codebooks=cfg.num_codebooks)).batch_at(0), "cuda")
             if cfg.vision_tokens:
                 gen = torch.Generator(device="cuda")
                 gen.manual_seed(seed + 11)
