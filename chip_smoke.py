@@ -278,7 +278,29 @@ and prints no result. Phases, in order (any failure exits non-zero):
      4096, K7 / K8 over the served stripes), each against its plain
      version, timed beside its bound, its plain version and SDPA. Then the
      train phase at all 48 layers and the step-1 gradients at 4.
-     ``--phase musicgen`` runs this phase alone, with no result line.
+     ``--phase musicgen`` runs this phase alone, with no result line;
+  8. mixtral — mixtral-8x7b at full width (8 experts top-2 with d_ff
+     14336, GQA 32 / 8 at head_dim 128, a 4096 window on every layer) cut
+     to MIXTRAL_LAYERS of its 32 layers (the deepest cut one H100 holds;
+     ``serve_moe``): paged run (a) as for llama3-8b (K1, K2, K3) and run (b)
+     of one row of 6144 tokens on 392-page tables, past the window (K1
+     windowed, K4 with its first splits before the window), each sync held
+     to the plain path with the routes pinned, then run free; the fused
+     decode at ``steps_per_sync`` 1 and 8, the MoE layers' share of the
+     tick, the split model at both decode shapes with the window; the peak
+     memory after each run and each compared engine. Then the kernels at
+     its widths (``check_mixtral_kernels``: K1 at 1 x 6144 windowed and
+     global, K2 over a prefix of 5000 whose window starts mid-prefix, K3 on
+     392-page tables with two rows frozen on the null page, K4 over (b)'s
+     row at 1, 2, 4 and 9 splits and the estimator's pick, the 9-split
+     launch in a CUDA graph replayed at two lengths, K5 / K6 at 1 x 8192
+     windowed and global; each against its plain version, 100 reruns
+     bitwise equal, timed beside its bound, its plain version and SDPA with
+     the window as a mask). Then the train phase at MIXTRAL_TRAIN (2
+     layers, seq 8192, batch 2 in 2 microbatches: K1 x 2, K5, K6 with the
+     window biting, the aux losses in the loss) and its 2-layer gradients
+     with the routes pinned. ``--phase mixtral`` runs this phase alone,
+     with no result line.
 
 It ends with one JSON line of per-kernel numbers and, last, the line
 ``{"ok": true, "device": {...}}``.
@@ -362,6 +384,26 @@ HYMBA_LAYERS, MAMBA_LAYERS = 16, 24   # the serve phase's depth cuts (``main``)
 # masters, gradients and AdamW moments are 16 B a parameter, 9.1 GB a layer
 # of 64 experts).
 MOONSHOT_LAYERS, MOE_TRAIN_LAYERS = 24, 2
+# mixtral-8x7b: 1,451,270,144 parameters a layer (attention 41.9 M, 8 experts
+# of 3 x 4096 x 14336), 2.90 GB in bf16, beside 0.52 GB of embedding and
+# untied head: 24 layers come to 70.2 GB (65.4 GiB), 25 to 73.1, 26 to 76.0,
+# all 32 to 93.4, where one H100 80GB holds 79.1 GiB. Served paged at
+# MIXTRAL_LAYERS, the deepest cut whose peak across the serve phase
+# (max_memory_allocated) stays at or under ~75 GiB: 74.66 GiB at 25 layers,
+# 71.80 at 24, both at the plain path's sync of run (b) (NVIDIA H100 80GB
+# HBM3, 700 W), so 26 layers would peak near 77.5; trained at
+# MIXTRAL_TRAIN_LAYERS: float32 masters, gradients and two AdamW moments are
+# 16 B a parameter, 23.2 GB a layer, so 2 layers and the embedding and head
+# come to 50.6 GB before activations (3 layers: 73.9 GB).
+MIXTRAL_LAYERS, MIXTRAL_TRAIN_LAYERS = 25, 2
+# Run (b) on mixtral: one row of 6144 tokens, past the 4096 window, on an
+# engine of one row over 392-page tables (6272 tokens: the prompt, 32 new
+# tokens and a page of slack).
+MIXTRAL_B_LEN = 6144
+MIXTRAL_B_KW = dict(max_batch=1, max_pages_per_seq=392, prompt_buckets=(256, 512, 6144))
+# The train step: sequence 8192 (the window bites), global batch 2 in 2
+# microbatches.
+MIXTRAL_TRAIN = dict(layers=MIXTRAL_TRAIN_LAYERS, seq=8192, batch=2, micro=2)
 # llama-3.2-vision-11b: served at all 40 layers (10.14 B bf16 parameters),
 # VISION_ROWS rows of VISION_PROMPT tokens (the last right-padded to
 # VISION_SHORT real ones), each with its own image, then VISION_TICKS greedy
@@ -380,6 +422,7 @@ MUSICGEN_LENS = (100, 250, 400, 600, 800, 1000, 1250, 1500)
 MUSICGEN_KW = dict(max_batch=8, cache_len=2048, prompt_buckets=(512, 1024, 2048))
 MUSICGEN_SAMPLED, MUSICGEN_GRAD_LAYERS = 2, 4
 REPS = 20                  # timed runs per case; the median is reported
+PLAIN_REPS = 3             # of a plain version that takes 50-360 ms a call
 PRIME_CYCLES = 2_000_000   # ~1 ms of the card's clock: longer than any wrapper's host time
 HQ, HKV, D, PS = 32, 8, 128, 16
 
@@ -497,6 +540,16 @@ def smi_line() -> str:
 
 # -- timing and bounds -------------------------------------------------------
 
+def log_peak(torch, label):
+    """Logs the card's peak allocation since the last reset
+    (max_memory_allocated), the allocator's peak reservation and what is
+    allocated now, then resets the peaks."""
+    log(f"peak memory {label}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(max_memory_allocated; {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved "
+        f"at most, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after)")
+    torch.cuda.reset_peak_memory_stats()
+
+
 class Timer:
     """CUDA-event medians of REPS runs; a 64 MB write before each run
     leaves the 50 MB L2 cold, as the serving path finds it. ``primed``
@@ -509,12 +562,12 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, primed=False) -> float:
+    def ms(self, fn, primed=False, reps=REPS) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             self.flush.zero_()
             if primed:
                 torch.cuda._sleep(PRIME_CYCLES)
@@ -2678,6 +2731,8 @@ def serve(torch, cfg, params, seed=0, device="cuda", rows=8, b_len=4096, b_kw=SE
         engine.close()
         del engine
         gc.collect()   # an engine sits in reference cycles: free its pool now
+        if device == "cuda":
+            log_peak(torch, f"serve {cfg.name} ({label})")
     counts = kernels.launch_counts()
     for label, (out, secs, ttfts) in runs.items():
         uids = sorted(o.uid for o in out)
@@ -3101,6 +3156,7 @@ def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
     from repro_torch.serving import LLMEngine, Request, SamplingParams
 
     greedy = SamplingParams(max_tokens=32)
+    mode = f", routes {tape.mode}" if tape else ""
     engine = LLMEngine(c, params, steps_per_sync=1, **engine_kw)
     b = engine.backend
     first = {}
@@ -3132,6 +3188,7 @@ def _sync_run(torch, c, params, *, label, engine_kw, prompts, force, tape=None):
     engine.close()
     del engine, b
     gc.collect()   # an engine sits in reference cycles: free its pool now
+    log_peak(torch, f"compare {label}, {c.attn_impl} path{mode}")
     return run
 
 
@@ -3677,35 +3734,41 @@ def serve_gemma(torch, timer, cfg, params):
     return counts, fused
 
 
-def serve_moe(torch, timer, cfg, params):
+def serve_moe(torch, timer, cfg, params, *, b_len=4096, b_kw=SERVE_B_KW):
     """Full-width ``cfg`` (moonshot-v1-16b-a3b: 64 experts top-6, MHA at
-    head_dim 128, so K1-K4 run at a GQA group of 1) on random seeded bf16
-    weights: paged runs (a) and (b) (``serve``: K1, K2 on (a)'s extend wave,
-    K3, then K4 over (b)'s row of 4096 tokens; one sync of each held to the
-    plain path with the routes pinned, then run free, by ``compare_sync``),
-    the fused decode on (a)'s engine at ``steps_per_sync`` 1 and 8
-    (identical ids, eager and graph tick times, a profiler summary of an
-    8-tick replay), and the MoE layers' share of that tick
-    (``moe_tick_share``). Returns the launch counts of the paged runs and the
-    fused decode's (rates, ticks)."""
-    counts, _ = serve(torch, cfg, params)
+    head_dim 128, so K1-K4 run at a GQA group of 1; mixtral-8x7b: 8 experts
+    top-2, GQA 32 / 8 at head_dim 128 under a 4096 window) on random seeded
+    bf16 weights: paged runs (a) and (b) (``serve``: K1, K2 on (a)'s extend
+    wave, K3, then K4 over (b)'s one row of ``b_len`` tokens on ``b_kw``'s
+    engine; one sync of each held to the plain path with the routes pinned,
+    then run free, by ``compare_sync``), the fused decode on (a)'s engine
+    at ``steps_per_sync`` 1 and 8 (identical ids, eager and graph tick
+    times, a profiler summary of an 8-tick replay), the MoE layers' share of
+    that tick (``moe_tick_share``) and the split model at both runs' decode
+    shapes (``split_model_at``); the peak memory after each part. Returns
+    the launch counts of the paged runs and the fused decode's (rates,
+    ticks)."""
+    counts, _ = serve(torch, cfg, params, b_len=b_len, b_kw=b_kw)
     prompts, _ = serve_prompts(cfg)
     fused = fused_phase(torch, timer, cfg, params, label=f"{cfg.name} paged",
                         engine_kw=dict(SERVE_PAGED_KW, device="cuda"), prompts=prompts,
                         profile=True)
+    log_peak(torch, f"{cfg.name} fused decode")
     moe_tick_share(torch, timer, cfg, params, rows=len(prompts), tick_ms=fused[1]["graph_ms"],
                    tick8_ms=fused[1]["graph8_ms"] / 8)
-    split_model_at(torch, timer, cfg)
+    split_model_at(torch, timer, cfg, b_len=b_len, b_pages=b_kw["max_pages_per_seq"])
+    log_peak(torch, f"{cfg.name} tick share and split model")
     return counts, fused
 
 
-def split_model_at(torch, timer, cfg):
+def split_model_at(torch, timer, cfg, *, b_len=4096, b_pages=260):
     """The split model (fitted at llama3-8b's GQA group of 4) against K3 /
-    K4 at ``cfg``'s heads, at the serve runs' decode shapes: (a)'s 8 rows of
-    560 tokens on 36-page tables and (b)'s one row of 4096 on 260 pages.
-    Each split count of the model's sweep that the table allows up to 8 is
-    held per row against the plain version (ROW_TOL) and timed (CUDA events,
-    queue primed) beside the model's time; the model's pick is marked."""
+    K4 at ``cfg``'s heads and window, at the serve runs' decode shapes:
+    (a)'s 8 rows of 560 tokens on 36-page tables and (b)'s one row of
+    ``b_len`` on ``b_pages`` pages. Each split count of the model's sweep
+    that the table allows up to 8, and the model's pick, is held per row
+    against the plain version (ROW_TOL) and timed (CUDA events, queue
+    primed) beside the model's time; the model's pick is marked."""
     from repro_torch.core import perf_model
     from repro_torch.kernels import paged_decode_attention as pd
     from repro_torch.kernels import plan as plan_lib
@@ -3713,11 +3776,12 @@ def split_model_at(torch, timer, cfg):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.layer_pattern[0].window
     for label, b, mp, n in (("(a) 8 x 560, 36 pages", 8, 36, 560),
-                            ("(b) 1 x 4096, 260 pages", 1, 260, 4096)):
+                            (f"(b) 1 x {b_len}, {b_pages} pages", 1, b_pages, b_len)):
         est = perf_model.estimate_decode_splits(
             batch=b, num_q_heads=hq, num_kv_heads=hkv, seq_kv=mp * PS, granule=PS,
-            head_dim=d, dtype_bytes=2, topo=plan_lib.TOPOLOGY)
+            head_dim=d, dtype_bytes=2, topo=plan_lib.TOPOLOGY, window=window)
         num_pages = 1 + b * mp
         kp, vp = (torch.randn((hkv, num_pages, PS, d), generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(2))
@@ -3725,22 +3789,24 @@ def split_model_at(torch, timer, cfg):
             b, mp).to(torch.int32).contiguous()
         lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
         q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(window=window)
         pairs = []
         for ns, model_s in est.times:
-            if ns > 8:
+            if ns > 8 and ns != est.num_splits:
                 continue
-            o = pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns)
+            o = pd.paged_flash_decode(q, kp, vp, table, lengths, num_splits=ns, **kw)
             e = row_err(o, pd.paged_flash_decode_plain(q, kp, vp, table, lengths,
-                                                       num_splits=ns))
+                                                       num_splits=ns, **kw))
             if e > ROW_TOL:
                 raise AssertionError(f"split model {cfg.name} {label} num_splits {ns}: "
                                      f"row-relative {e:.3e} against the plain version")
             ms = timer.ms(lambda: pd.paged_flash_decode(q, kp, vp, table, lengths,
-                                                        num_splits=ns), primed=True)
+                                                        num_splits=ns, **kw), primed=True)
             pairs.append(f"{ns}{'*' if ns == est.num_splits else ''}: model "
                          f"{model_s * 1e3:.4f} / measured {ms:.4f}")
-        log(f"split model {cfg.name} (Hq {hq}, Hkv {hkv}, D {d}, group {hq // hkv}) at {label}, "
-            f"ms (* the model's pick): {'; '.join(pairs)}; card: {smi_line()}")
+        log(f"split model {cfg.name} (Hq {hq}, Hkv {hkv}, D {d}, group {hq // hkv}, window "
+            f"{window}) at {label}, ms (* the model's pick): {'; '.join(pairs)}; card: "
+            f"{smi_line()}")
 
 
 def moe_tick_share(torch, timer, cfg, params, *, rows, tick_ms, tick8_ms):
@@ -3960,7 +4026,10 @@ def check_train_grads(torch, cfg_full, seed, layers=2):
                 got = tape.stop()
                 if name == "plain":
                     routes = got
-            grads[name] = {tree_lib.key_of(p): t.clone()
+            # The last run's gradients stay in the parameters' .grad (a
+            # clone of them would hold one more float32 copy of the model).
+            last = name == list(runs)[-1]
+            grads[name] = {tree_lib.key_of(p): t if last else t.clone()
                            for p, t in tree_lib.leaves_with_paths(g)}
             losses[name] = float(loss)
     finally:
@@ -4279,30 +4348,39 @@ def train_gemma(torch, cfg):
     return train(torch, cfg, **run)
 
 
-def serve_moonshot(torch, timer, cfg):
-    """``serve_moe`` on ``cfg``'s depth, its weights freed after."""
-    log(f"== serve {cfg.name} ({cfg.n_layers} layers, 64 experts top-6, "
-        "MHA at head_dim 128; paged, fused decode; bf16, random weights)")
+def serve_moe_model(torch, timer, cfg, **kw):
+    """``serve_moe`` on ``cfg``'s depth (``kw``: run (b)'s length and
+    engine), its weights freed after."""
+    window = cfg.layer_pattern[0].window
+    log(f"== serve {cfg.name} ({cfg.n_layers} layers, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, Hq {cfg.n_heads} Hkv {cfg.n_kv_heads} at head_dim {cfg.head_dim}"
+        f"{f', window {window}' if window else ''}; paged, fused decode; bf16, random "
+        "weights)")
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(torch, cfg)
-    out = serve_moe(torch, timer, cfg, params)
+    log_peak(torch, f"{cfg.name} x {cfg.n_layers} layers init_model")
+    out = serve_moe(torch, timer, cfg, params, **kw)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def train_moe(torch, cfg):
-    """The train phase on full-width ``cfg`` (moonshot-v1-16b-a3b) cut to
-    ``MOE_TRAIN_LAYERS``, ``TRAIN_SEQ``, ``TRAIN_BATCH`` in ``TRAIN_MICRO``
-    microbatches: K1 x 2, K5, K6 at a GQA group of 1, the MoE FFNs' aux
-    losses in the loss, the 2-layer gradients with the routes pinned."""
-    log(f"== train {cfg.name} ({MOE_TRAIN_LAYERS} of {cfg.n_layers} layers, seq {TRAIN_SEQ}, "
-        f"batch {TRAIN_BATCH} in {TRAIN_MICRO} microbatches, bf16 compute, random weights)")
+def train_moe(torch, cfg, *, layers=MOE_TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+              micro=TRAIN_MICRO):
+    """The train phase on full-width ``cfg`` (moonshot-v1-16b-a3b, or
+    mixtral-8x7b at ``MIXTRAL_TRAIN``) cut to ``layers``, ``batch`` rows of
+    ``seq`` tokens in ``micro`` microbatches: K1 x 2, K5, K6 (at a GQA group
+    of 1 for moonshot, of 4 under a window that bites at seq 8192 for
+    mixtral), the MoE FFNs' aux losses in the loss, the 2-layer gradients
+    with the routes pinned."""
+    log(f"== train {cfg.name} ({layers} of {cfg.n_layers} layers, seq {seq}, batch {batch} "
+        f"in {micro} microbatches, bf16 compute, random weights)")
     gc.collect()
     torch.cuda.empty_cache()
-    return train(torch, cfg, layers=MOE_TRAIN_LAYERS)
+    return train(torch, cfg, layers=layers, seq=seq, batch=batch, micro=micro)
 
 
 # -- phase 6: llama-3.2-vision-11b, gated cross-attention over image tokens ------
@@ -4979,13 +5057,334 @@ def musicgen_phase(torch, cfg):
     return counts
 
 
+# -- phase 8: mixtral-8x7b, top-2 of 8 experts under a 4096 window ------------
+
+#: K3's rows at mixtral's widths on the serve table's width (392 pages):
+#: lengths spread over 100-6144, three past the window, and two rows frozen
+#: on the null page (a decode row that finished: its length kept, its table
+#: all null; and an idle row of length 0).
+MIXTRAL_K3_LENS = (6144, 3000, 100, 2500, 4096, 0, 5000, 6000)
+MIXTRAL_K3_FROZEN = (1, 5)
+
+
+def check_mixtral_kernels(torch, timer, cfg):
+    """The kernels at mixtral-8x7b's widths, bf16 on the tensor cores: Hq
+    32, Hkv 8 (group 4), D 128, no softcap, its window of 4096 keys. K1
+    causal at B 1, S 6144 (run (b)'s prefill), windowed and global; K2 at B
+    2, prefix 5000, tail 256 (the second row's live to 219), pages of 16, so
+    the window's first key lies inside the prefix; K3 at B 8 over 392-page
+    tables (MIXTRAL_K3_LENS, two rows frozen on the null page); K4 over run
+    (b)'s one row of 6144 tokens on 392 pages at 1, 2, 4 and 9 splits and
+    the split estimator's pick (at 9 splits the first two splits hold no
+    live key), then the same 9-split launch captured in a CUDA graph beside
+    a frozen row and replayed first at a length whose every split is live,
+    then at 6144: the splits the window empties must write their empty state
+    over what the first replay left in the workspace; K5 and K6 at the train
+    microbatch (B 1, S 8192), windowed and global, and the block-first order.
+    Each is held to its plain version (per row; K5 / K6 per (b, head)
+    slice; ROW_TOL), run RERUNS times bitwise equal with one launch of its
+    tensor-core kernel, timed (CUDA-event medians, L2 flushed, the queue
+    primed) beside its bound (live (row, key) pairs; decode: the
+    live K / V bytes), its plain version (the median of PLAIN_REPS runs)
+    and SDPA with the window as an explicit mask (K2-K4: gather + SDPA, two
+    calls). Returns {case: figures}."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import paged_prefill_attention as pp
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(38)
+
+    def plain_ms(fn):   # the plain versions take 4-360 ms a call here
+        return timer.ms(fn, reps=PLAIN_REPS)
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group, win = hq // hkv, cfg.layer_pattern[0].window
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def report(case, run, got, rel, abs_err, counter, kb, plain, lib_ms, primed, extra=""):
+        """``run`` returns a tensor or a tuple; ``got`` its first result."""
+        def same(x):
+            x = x if isinstance(x, tuple) else (x,)
+            return all(torch.equal(a, b) for a, b in zip(x, got if isinstance(got, tuple)
+                                                         else (got,)))
+        differ = sum(not same(run()) for _ in range(RERUNS))
+        kernels.reset_launch_counts()
+        run()
+        launched = kernels.launch_counts()
+        ms = timer.ms(run, primed=primed)
+        log(f"{case}: relative {rel:.3e} (tol {ROW_TOL:.3e}), max abs {abs_err:.3e}; {differ} "
+            f"of {RERUNS} reruns differ; {ms:.4f} ms{' (queue primed)' if primed else ''}, "
+            f"bound {kb[0]:.5f} ms ({kb[1]}), plain {plain:.3f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}{extra}")
+        if rel > ROW_TOL or differ or launched[counter] != 1:
+            raise AssertionError(f"{case}: disagrees with its plain version, changes between "
+                                 "reruns or missed the tensor-core kernel")
+        out[case] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=kb[0],
+                         bound_by=kb[1], library_ms=lib_ms, rel_err=rel)
+
+    # K1: run (b)'s prefill, B 1, S 6144, windowed and global.
+    s = MIXTRAL_B_LEN
+    q, k, v = randn(1, hq, s, d), randn(1, hkv, s, d), randn(1, hkv, s, d)
+    pos = torch.arange(s, device="cuda")
+    for window in (win, None):
+        kw = dict(causal=True, window=window)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rel, abs_err, e_l = row_err(o, o_ref), err(o, o_ref), err(lse, lse_ref)
+        del o_ref, lse_ref
+        if e_l > LSE_TOL:
+            raise AssertionError(f"K1 {cfg.name} window {window}: lse {e_l:.3e} from the plain "
+                                 "version")
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                          enable_gqa=True)
+        else:
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
+                                                          enable_gqa=True)
+        report(f"K1 {cfg.name} B 1 S {s} window {window}",
+               lambda: fa.flash_attention_fwd(q, k, v, **kw)[0], o, rel, abs_err,
+               "flash_attention_fwd_tc", k1_bound_of(q, k, v, o, lse, causal=True,
+                                                     window=window),
+               plain_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
+               timer.ms(sdpa, primed=True), True,
+               f" (sdpa, the window as a mask, primed); lse {e_l:.3e} (tol {LSE_TOL})")
+        del o, lse
+    del q, k, v, pos
+
+    # K2: B 2, prefix 5000, tail 256 (the second row's live to 219): tail
+    # row i sits at 5000 + i and sees keys from 5000 + i - 4095 on, inside
+    # the prefix.
+    b, plen, st, tlens = 2, 5000, 256, [256, 219]
+    mp = -(-plen // PS)
+    num_pages = 1 + b * mp
+    kp, vp = randn(hkv, num_pages, PS, d), randn(hkv, num_pages, PS, d)
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
+    q, kt, vt = randn(b, hq, st, d), randn(b, hkv, st, d), randn(b, hkv, st, d)
+    plens = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+    tl = torch.tensor(tlens, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, table, kt, vt, plens, tl)
+    o = pp.paged_flash_prefill(*args, window=win)
+    o_ref = pp.paged_flash_prefill_plain(*args, window=win)
+    torch.cuda.synchronize()
+    past = sum(float(o[i, :, t:].float().abs().sum()) for i, t in enumerate(tlens))
+    rel = row_err(o, o_ref) if past == 0.0 else float("inf")
+    seen = sum(min(plen + i + 1, win) for t in tlens for i in range(t))
+    kb = bound(2 * hkv * b * min(plen, win - 1) * d * 2 + nbytes(q, kt, vt, o, table, plens, tl),
+               4.0 * d * hq * seen)
+    rows = torch.arange(st, device="cuda")[None, :, None]
+    cp = torch.arange(mp * PS, device="cuda")[None, None, :]
+    ct = torch.arange(st, device="cuda")[None, None, :]
+    ok = rows < tl[:, None, None]
+    mask = torch.cat([(cp < plen) & (cp > plen + rows - win) & ok,
+                      (ct <= rows) & ok], dim=-1)[:, None]
+
+    def gather_sdpa():
+        kk, vv = (torch.cat([p.index_select(1, table.flatten()).view(hkv, b, mp * PS, d)
+                             .transpose(0, 1), t], dim=2) for p, t in ((kp, kt), (vp, vt)))
+        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, enable_gqa=True)
+
+    report(f"K2 {cfg.name} B 2 prefix {plen} tail {st} window {win}",
+           lambda: pp.paged_flash_prefill(*args, window=win), o, rel, err(o, o_ref),
+           "paged_flash_prefill_tc", kb,
+           plain_ms(lambda: pp.paged_flash_prefill_plain(*args, window=win)),
+           timer.ms(gather_sdpa, primed=True), True,
+           f" (gather + sdpa, two calls, primed); rows past tail_len sum |o| {past}")
+    del kp, vp, q, kt, vt, o, o_ref, args, mask
+
+    def decode_case(lens, frozen, mp):
+        """Pools, a scattered table (frozen rows all on the null page 0),
+        lengths, q, the bound of the live K / V and the gather + SDPA time."""
+        b = len(lens)
+        num_pages = 1 + b * mp
+        kp, vp = randn(hkv, num_pages, PS, d), randn(hkv, num_pages, PS, d)
+        perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+        table = perm.reshape(b, mp).to(torch.int32)
+        for r in frozen:
+            table[r] = 0
+        table = table.contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = randn(b, hq, d)
+        live = sum(min(n, win) for r, n in enumerate(lens) if r not in frozen)
+        kb = bound(2 * hkv * live * d * 2 + nbytes(q, q, table, lengths), 4.0 * hq * d * live)
+        p = torch.arange(mp * PS, device="cuda")[None, :]
+        mask = ((p < lengths[:, None]) & (p > lengths[:, None] - 1 - win))[:, None, None, :]
+
+        def gather_sdpa():
+            kk, vv = (x.index_select(1, table.flatten()).view(hkv, b, mp * PS, d)
+                      .transpose(0, 1) for x in (kp, vp))
+            return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        return kp, vp, table, lengths, q, kb, timer.ms(gather_sdpa, primed=True)
+
+    def decode_err(o, o_ref):
+        return row_err(o, o_ref), err(o, o_ref)
+
+    # K3: B 8 over the serve table's width, two rows frozen.
+    mp_b = MIXTRAL_B_KW["max_pages_per_seq"]
+    kp, vp, table, lengths, q, kb, lib_ms = decode_case(MIXTRAL_K3_LENS, MIXTRAL_K3_FROZEN,
+                                                        mp_b)
+    dkw = dict(window=win, num_splits=1)
+    o = pd.paged_flash_decode(q, kp, vp, table, lengths, **dkw)
+    o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **dkw)
+    torch.cuda.synchronize()
+    report(f"K3 {cfg.name} B 8 table {mp_b} pages lengths {list(MIXTRAL_K3_LENS)} (rows "
+           f"{list(MIXTRAL_K3_FROZEN)} frozen on the null page) window {win}",
+           lambda: pd.paged_flash_decode(q, kp, vp, table, lengths, **dkw), o,
+           *decode_err(o, o_ref), "paged_flash_decode_tc", kb,
+           plain_ms(lambda: pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **dkw)),
+           lib_ms, True, " (gather + sdpa, two calls, primed)")
+    del kp, vp, q, o, o_ref
+
+    # K4: run (b)'s one row of 6144 on 392 pages at 1, 2, 4 and 9 splits and
+    # the estimator's pick; 9 splits of 44 pages leave splits 0 and 1 (keys
+    # 0 .. 1407) before the window's first key, 2048.
+    est = perf_model.estimate_decode_splits(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_kv=mp_b * PS, granule=PS, head_dim=d,
+        dtype_bytes=2, topo=plan_lib.TOPOLOGY, window=win)
+    pick = plan_lib.plan_attention((1, hq, hkv, 1, mp_b * PS, d), phase=plan_lib.DECODE,
+                                   kv_layout=plan_lib.PAGED, page_size=PS, window=win,
+                                   device_type="cuda", dtype_bytes=2).num_splits
+    model = dict(est.times)
+    kp, vp, table, lengths, q, kb, lib_ms = decode_case([MIXTRAL_B_LEN], (), mp_b)
+    for ns in sorted({1, 2, 4, 9, pick}):
+        dkw = dict(window=win, num_splits=ns)
+        o = pd.paged_flash_decode(q, kp, vp, table, lengths, **dkw)
+        o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **dkw)
+        torch.cuda.synchronize()
+        key = "K3" if ns == 1 else "K4"
+        report(f"{key} {cfg.name} run (b)'s row B 1 x {MIXTRAL_B_LEN} table {mp_b} pages "
+               f"window {win} num_splits {ns}",
+               lambda: pd.paged_flash_decode(q, kp, vp, table, lengths, **dkw), o,
+               *decode_err(o, o_ref),
+               "paged_flash_decode_tc" if ns == 1 else "paged_flash_decode_split_tc", kb,
+               plain_ms(lambda: pd.paged_flash_decode_plain(q, kp, vp, table, lengths,
+                                                            **dkw)),
+               lib_ms, True, f" (gather + sdpa, two calls, primed); split model "
+               f"{model.get(ns, float('nan')) * 1e3:.4f} ms; the estimator picks "
+               f"{est.num_splits}, the engine's plan {pick}")
+    del kp, vp, q, o, o_ref
+
+    # The 9-split launch in a CUDA graph, a frozen row beside the live one:
+    # replayed at a length whose every split is live, then at 6144.
+    kp, vp, table, lengths, q, _, _ = decode_case([4000, 3000], (1,), mp_b)
+    dkw = dict(window=win, num_splits=9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pd.paged_flash_decode(q, kp, vp, table, lengths, **dkw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o_graph = pd.paged_flash_decode(q, kp, vp, table, lengths, **dkw)
+    errs = []
+    for n in (4000, MIXTRAL_B_LEN):
+        lengths[0] = n
+        graph.replay()
+        o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **dkw)
+        torch.cuda.synchronize()
+        errs.append(row_err(o_graph, o_ref))
+    log(f"K4 {cfg.name} 9 splits in a CUDA graph, row 0 live at 4000 then {MIXTRAL_B_LEN} "
+        f"tokens (splits 0 and 1 empty), row 1 frozen on the null page: row-relative "
+        f"{errs[0]:.3e} then {errs[1]:.3e} (tol {ROW_TOL:.3e})")
+    if max(errs) > ROW_TOL:
+        raise AssertionError(f"K4 {cfg.name}: a split the window empties passed a stale state "
+                             "to the combine")
+    del graph, o_graph, kp, vp, q, o_ref
+
+    # K5 / K6: the train microbatch, B 1, S 8192, windowed and global.
+    tr = MIXTRAL_TRAIN
+    b, s = tr["batch"] // tr["micro"], tr["seq"]
+    q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
+    pos = torch.arange(s, device="cuda")
+    for window in (win, None):
+        kw = dict(causal=True, window=window)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+
+        def k5(order=fa.HEAD_FIRST):
+            return fb.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                             mapping=fa.MappingConfig(order=order), **kw)
+
+        def k6(order=fa.HEAD_FIRST):
+            return fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                              mapping=fa.MappingConfig(order=order), **kw)
+
+        got = (k5(), *k6())
+        ref = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        rel = [slice_err(g, r) for g, r in zip(got, ref)]
+        ab = [err(g, r) for g, r in zip(got, ref)]
+        del ref
+        orders = torch.equal(k5(fa.BLOCK_FIRST), got[0]) and all(
+            torch.equal(x, y) for x, y in zip(k6(fa.BLOCK_FIRST), got[1:]))
+        bwd_plain_ms = plain_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                     **kw))
+        leaves = [t.detach().requires_grad_(True) for t in
+                  (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+        if window is None:
+            sd = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        else:
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            sd = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_ms = timer.ms(lambda: torch.autograd.grad(sd, leaves, do, retain_graph=True),
+                          primed=True)
+        del leaves, sd
+        torch.cuda.empty_cache()
+        pairs = b * hq * sum(min(r + 1, window or s) for r in range(s))
+        b5 = bound(nbytes(q, k, v, do, lse, delta, q), 6.0 * d * pairs)
+        b6 = bound(nbytes(q, k, v, do, lse, delta, k, v), 8.0 * d * pairs)
+        extra = (f" (sdpa backward with K6, the window as a mask, primed); block-first bitwise "
+                 f"equal {orders}; plain and library for the pair")
+        if not orders:
+            raise AssertionError(f"K5/K6 {cfg.name} window {window}: the block-first order "
+                                 "changed a bit")
+        report(f"K5 {cfg.name} B {b} S {s} window {window}", k5, got[0], rel[0], ab[0],
+               "flash_attention_bwd_dq_tc", b5, bwd_plain_ms, lib_ms, True, extra)
+        report(f"K6 {cfg.name} B {b} S {s} window {window}", k6, got[1:], max(rel[1:]),
+               max(ab[1:]), "flash_attention_bwd_dkv_tc", b6, bwd_plain_ms, lib_ms, True, extra)
+        del o, lse, delta, got
+    del q, k, v, do
+    log(f"mixtral kernels (card: {smi_line()}): {json.dumps(out)}")
+    return out
+
+
+def mixtral_phase(torch, cfg):
+    """Phase 8 on mixtral-8x7b ``cfg``: ``serve_moe`` at MIXTRAL_LAYERS (run
+    (b) one row of MIXTRAL_B_LEN), ``check_mixtral_kernels``, then the train
+    phase at MIXTRAL_TRAIN. Returns the launch counts of the serve and train
+    runs together."""
+    timer = Timer(torch)
+    counts, _ = serve_moe_model(torch, timer, dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS),
+                                b_len=MIXTRAL_B_LEN, b_kw=MIXTRAL_B_KW)
+    log(f"== kernels at {cfg.name}'s shapes (bf16, Hq {cfg.n_heads} Hkv {cfg.n_kv_heads} D "
+        f"{cfg.head_dim}, window {cfg.layer_pattern[0].window})")
+    check_mixtral_kernels(torch, timer, cfg)
+    del timer
+    for key, n in train_moe(torch, cfg, **MIXTRAL_TRAIN).items():
+        counts[key] += n
+    return counts
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
                         choices=("all", "plan", "extend", "gemma", "ssm", "moe", "vision",
-                                 "musicgen"),
+                                 "musicgen", "mixtral"),
                         default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
                              "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
@@ -4994,7 +5393,8 @@ def main() -> int:
                              "(48 layers) and train phases alone, 'vision' the "
                              "llama-3.2-vision-11b serve, kernel and train phases alone, "
                              "'musicgen' the musicgen-medium serve, kernel and train phases "
-                             "alone; none prints a result line")
+                             "alone, 'mixtral' the mixtral-8x7b serve, kernel and train "
+                             "phases alone; none prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -5009,8 +5409,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import (gemma2_2b, gemma3_1b, hymba_1_5b, llama3_8b,
-                                     llama_3_2_vision_11b, mamba2_1_3b, moonshot_v1_16b_a3b,
-                                     musicgen_medium)
+                                     llama_3_2_vision_11b, mamba2_1_3b, mixtral_8x7b,
+                                     moonshot_v1_16b_a3b, musicgen_medium)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -5064,7 +5464,7 @@ def main() -> int:
         return 0
     moonshot = moonshot_v1_16b_a3b.CONFIG
     if args.phase == "moe":
-        serve_moonshot(torch, timer, moonshot)
+        serve_moe_model(torch, timer, moonshot)
         train_moe(torch, moonshot)
         log(f"total {time.perf_counter() - t_start:.1f} s (moe phase only: no result line)")
         return 0
@@ -5079,6 +5479,12 @@ def main() -> int:
         del timer
         musicgen_phase(torch, musicgen)
         log(f"total {time.perf_counter() - t_start:.1f} s (musicgen phase only: no result line)")
+        return 0
+    mixtral = mixtral_8x7b.CONFIG
+    if args.phase == "mixtral":
+        del timer
+        mixtral_phase(torch, mixtral)
+        log(f"total {time.perf_counter() - t_start:.1f} s (mixtral phase only: no result line)")
         return 0
     gemma = (gemma2_2b.CONFIG, gemma3_1b.CONFIG)
     if args.phase == "gemma":
@@ -5194,7 +5600,7 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    moe_counts, fused[f"{moonshot.name} paged"] = serve_moonshot(
+    moe_counts, fused[f"{moonshot.name} paged"] = serve_moe_model(
         torch, timer, dataclasses.replace(moonshot, n_layers=MOONSHOT_LAYERS))
     paths.append(moe_counts)
     del timer
@@ -5223,6 +5629,8 @@ def main() -> int:
     for key, n in vision_phase(torch, vision).items():
         counts[key] += n
     for key, n in musicgen_phase(torch, musicgen).items():
+        counts[key] += n
+    for key, n in mixtral_phase(torch, mixtral).items():
         counts[key] += n
     for key, spec in KERNELS.items():
         if counts[spec["counter"]] <= 0:

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core import swizzle
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap
+from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap, score_blocks
 
 HEAD_FIRST = "head_first"
 BLOCK_FIRST = "block_first"
@@ -156,7 +156,26 @@ def flash_attention_fwd_plain(q, k, v, *, causal=True, window=None,
     ``i`` of batch row ``b`` sits at position ``q_offset[b] + i``; keys at
     or past ``kv_len[b]`` are masked (each an int, a ``(B,)`` tensor or
     None: offset 0, every key). A fully masked row gives o = 0 and
-    lse = -1e30, as the kernel does."""
+    lse = -1e30, as the kernel does. Past ``ref.PLAIN_SCORE_ELEMS`` scores
+    it runs by blocks of batch rows and kv heads (``ref.score_blocks``)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    blocks = score_blocks(b, hkv, group, sq, skv)
+    if blocks is None:
+        return _fwd_plain(q, k, v, causal, window, softcap, scale, kv_len, q_offset)
+    off = _per_row(q_offset, b, 0, q.device)
+    live = _per_row(kv_len, b, skv, q.device)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    for bi, h0, h1 in blocks:
+        r, hs = slice(bi, bi + 1), slice(h0 * group, h1 * group)
+        o[r, hs], lse[r, hs] = _fwd_plain(q[r, hs], k[r, h0:h1], v[r, h0:h1], causal, window,
+                                          softcap, scale, live[r], off[r])
+    return o, lse
+
+
+def _fwd_plain(q, k, v, causal, window, softcap, scale, kv_len, q_offset):
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     if scale is None:

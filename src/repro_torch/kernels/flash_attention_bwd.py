@@ -38,7 +38,7 @@ from repro_torch.kernels.flash_attention import (
     MappingConfig,
     _check_inputs,
 )
-from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap
+from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap, score_blocks
 
 #: Launches of K5 ("dq") and K6 ("dkv") since the last reset, either dtype;
 #: "dq_tc" / "dkv_tc" count those of the bf16 tensor-core kernels alone.
@@ -54,7 +54,25 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=None,
     p is recomputed from the saved ``lse``; ``ds = p (dp - delta)``, times
     ``1 - (s_capped / softcap)^2`` with a softcap; rows whose lse is at most
     ``NEG_INF / 2`` (fully masked) contribute nothing; dK and dV are summed
-    over the GQA group."""
+    over the GQA group. Past ``ref.PLAIN_SCORE_ELEMS`` scores it runs by
+    blocks of batch rows and kv heads (``ref.score_blocks``), each with its
+    kv heads' whole group."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    blocks = score_blocks(b, hkv, group, sq, skv)
+    if blocks is None:
+        return _bwd_plain(q, k, v, o, lse, do, causal, window, softcap, scale, kv_len)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for bi, h0, h1 in blocks:
+        r, hs = slice(bi, bi + 1), slice(h0 * group, h1 * group)
+        dq[r, hs], dk[r, h0:h1], dv[r, h0:h1] = _bwd_plain(
+            q[r, hs], k[r, h0:h1], v[r, h0:h1], o[r, hs], lse[r, hs], do[r, hs], causal,
+            window, softcap, scale, kv_len)
+    return dq, dk, dv
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal, window, softcap, scale, kv_len):
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv

@@ -18,6 +18,24 @@ from repro_torch.cache import quant
 from repro_torch.cache.layout import decode_split_ranges
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
+#: The plain versions of K1 and K5 / K6 hold (B, Hq, Sq, Skv) float32 scores
+#: and several tensors of that size at once. Past this many elements (1 GiB
+#: a tensor) they run one batch row and as many kv heads as fit at a time
+#: (:func:`score_blocks`): mixtral-8x7b's 6144-token prefill at Hq 32 would
+#: otherwise hold ~20 GB beside 70 GB of weights.
+PLAIN_SCORE_ELEMS = 1 << 28
+
+
+def score_blocks(b: int, hkv: int, group: int, sq: int, skv: int):
+    """None where the whole (B, Hq, Sq, Skv) score tensor is at most
+    :data:`PLAIN_SCORE_ELEMS`; else the (batch row, first kv head, end kv
+    head) blocks that cover it, each with the whole GQA group of its kv
+    heads (so dK / dV sum over the group inside one block)."""
+    per_head = max(1, group * sq * skv)
+    if b * hkv * per_head <= PLAIN_SCORE_ELEMS:
+        return None
+    hc = max(1, min(hkv, PLAIN_SCORE_ELEMS // per_head))
+    return [(bi, h0, min(h0 + hc, hkv)) for bi in range(b) for h0 in range(0, hkv, hc)]
 
 
 def _expand_kv(x: torch.Tensor, group: int) -> torch.Tensor:

@@ -2981,3 +2981,136 @@ def test_musicgen_train_step_on_kernels_matches_plain_path(cuda):
     for (path, a), b in zip(tree_lib.leaves_with_paths(grads["auto"]),
                             tree_lib.leaves(grads["plain"])):
         assert float((a - b).norm() / b.norm()) <= 1e-4, path
+
+
+# -- mixtral-8x7b: group 4 at head_dim 128 under a 4096 window that bites -------
+
+#: mixtral's heads (Hq 32, Hkv 8, D 128) and window.
+MIXTRAL = dict(hq=32, hkv=8, d=128, window=4096)
+
+
+def _windowed_table(rng, dev, b, mp, frozen=()):
+    """A scattered (b, mp) page table over 1 + b * mp pages, the rows in
+    ``frozen`` all on the null page 0."""
+    table = rng.permutation(np.arange(1, 1 + b * mp)).reshape(b, mp).astype(np.int32)
+    table[list(frozen)] = 0
+    return torch.from_numpy(table).to(dev)
+
+
+@pytest.mark.parametrize("plen,window", [(5000, 4096), (1500, 700)],
+                         ids=["prefix5000_window4096", "prefix1500_window700"])
+def test_mixtral_windowed_paged_prefill_matches_plain(cuda, plen, window):
+    """K2 at mixtral's heads, bf16, pages of 16: three rows over prefixes of
+    ``plen`` keys, tails of 256, 219 and 0 (a row with nothing to prefill).
+    Tail row i sits at plen + i and sees keys from plen + i - window + 1 on,
+    inside the prefix, so the walk starts on a page mid-prefix and masks
+    both at the window's edge and at the diagonal. Held per row within
+    2^-6; rows past tail_len exact zeros; 10 reruns bitwise equal."""
+    rng = np.random.default_rng(380)
+    hq, hkv, d = MIXTRAL["hq"], MIXTRAL["hkv"], MIXTRAL["d"]
+    b, st, ps = 3, 256, 16
+    mp = -(-plen // ps)
+    q = _randn(rng, (b, hq, st, d), cuda, torch.bfloat16)
+    kt, vt = (_randn(rng, (b, hkv, st, d), cuda, torch.bfloat16) for _ in range(2))
+    kp, vp = (_randn(rng, (hkv, 1 + b * mp, ps, d), cuda, torch.bfloat16) for _ in range(2))
+    args = (q, kp, vp, _windowed_table(rng, cuda, b, mp), kt, vt,
+            torch.full((b,), plen, dtype=torch.int32, device=cuda),
+            torch.tensor([256, 219, 0], dtype=torch.int32, device=cuda))
+    kernels.reset_launch_counts()
+    o = pp.paged_flash_prefill(*args, window=window)
+    assert _prefill_routes(kernels.launch_counts(), torch.bfloat16)
+    o_ref = pp.paged_flash_prefill_plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert _row_err(o, o_ref) < ROW_TOL
+    for bi, t in enumerate((256, 219, 0)):
+        assert float(o[bi, :, t:].float().abs().sum()) == 0.0
+    assert all(torch.equal(pp.paged_flash_prefill(*args, window=window), o) for _ in range(10))
+
+
+@pytest.mark.parametrize("num_splits", [1, 4, 9])
+def test_mixtral_windowed_paged_decode_matches_plain(cuda, num_splits):
+    """K3 / K4 at mixtral's heads, bf16, over 392-page tables (run (b)'s
+    engine): rows of 6144 (its first 2048 keys before the window: at 9
+    splits of 44 pages splits 0 and 1 hold no live key), 4000, 100 and 0
+    tokens, and a row frozen on the null page at 3000. Held per row within
+    2^-6; the length-0 row exact zeros; 10 reruns bitwise equal."""
+    rng = np.random.default_rng(381)
+    hq, hkv, d, window = (MIXTRAL[k] for k in ("hq", "hkv", "d", "window"))
+    lens, mp, ps = [6144, 3000, 4000, 100, 0], 392, 16
+    q = _randn(rng, (len(lens), hq, d), cuda, torch.bfloat16)
+    kp, vp = (_randn(rng, (hkv, 1 + len(lens) * mp, ps, d), cuda, torch.bfloat16)
+              for _ in range(2))
+    args = (q, kp, vp, _windowed_table(rng, cuda, len(lens), mp, frozen=(1,)),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+    kw = dict(window=window, num_splits=num_splits)
+    kernels.reset_launch_counts()
+    o = pd.paged_flash_decode(*args, **kw)
+    assert _paged_routes(kernels.launch_counts(), torch.bfloat16)
+    o_ref = pd.paged_flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _row_err(o, o_ref) < ROW_TOL
+    assert float(o[4].float().abs().max()) == 0.0
+    assert all(torch.equal(pd.paged_flash_decode(*args, **kw), o) for _ in range(10))
+
+
+def test_mixtral_empty_splits_in_a_graph_write_their_state(cuda):
+    """K4 at mixtral's heads, 9 splits over 392 pages, captured in a CUDA
+    graph as the fused decode captures it: its split workspace keeps the
+    last replay's states. A replay at 4000 tokens (every split up to the
+    row's end live) fills splits 0 and 1; a replay at 6144 leaves them
+    before the window, so each must write (0, -1e30, 0) over them, or the
+    combine would take 4000's states. A row frozen on the null page beside
+    it. Each replay held per row within 2^-6 of the plain version."""
+    rng = np.random.default_rng(382)
+    hq, hkv, d, window = (MIXTRAL[k] for k in ("hq", "hkv", "d", "window"))
+    mp, ps = 392, 16
+    q = _randn(rng, (2, hq, d), cuda, torch.bfloat16)
+    kp, vp = (_randn(rng, (hkv, 1 + 2 * mp, ps, d), cuda, torch.bfloat16) for _ in range(2))
+    table = _windowed_table(rng, cuda, 2, mp, frozen=(1,))
+    lengths = torch.tensor([4000, 3000], dtype=torch.int32, device=cuda)
+    kw = dict(window=window, num_splits=9)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pd.paged_flash_decode(q, kp, vp, table, lengths, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = pd.paged_flash_decode(q, kp, vp, table, lengths, **kw)
+    for n in (4000, 6144, 4000, 6144):
+        lengths[0] = n
+        graph.replay()
+        o_ref = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **kw)
+        torch.cuda.synchronize()
+        assert _row_err(o, o_ref) < ROW_TOL, n
+
+
+@pytest.mark.parametrize("s,window", [(4608, 4096), (1280, 300)],
+                         ids=["s4608_window4096", "s1280_window300"])
+def test_mixtral_windowed_k1_k5_k6_match_plain(cuda, s, window):
+    """K1, K5 and K6 at mixtral's heads (group 4, D 128), bf16, causal under
+    a window shorter than the sequence: for a key block the live query rows
+    end at key + window, so K6's walk stops before the last row tile. o per
+    row, lse within 1e-5, dq / dk / dv per (b, head) slice within 2^-6 of
+    the plain versions; the block-first order gives the head-first bits."""
+    rng = np.random.default_rng(383)
+    hq, hkv, d = MIXTRAL["hq"], MIXTRAL["hkv"], MIXTRAL["d"]
+    q, do = (_randn(rng, (1, hq, s, d), cuda, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(rng, (1, hkv, s, d), cuda, torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=window)
+    kernels.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    got = {}
+    for order in (fa.HEAD_FIRST, fa.BLOCK_FIRST):
+        got[order] = fb.flash_attention_bwd(q, k, v, o, lse, do,
+                                            mapping=fa.MappingConfig(order=order), **kw)
+    counts = kernels.launch_counts()
+    want = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert counts["flash_attention_fwd_tc"] == counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd_dq_tc"] == counts["flash_attention_bwd_dkv_tc"] == 2
+    assert _row_err(o, o_ref) < ROW_TOL and _err(lse, lse_ref) < LSE_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[fa.HEAD_FIRST], want):
+        assert _slice_err(g, w) <= ROW_TOL, name
+    assert all(torch.equal(a, b) for a, b in zip(got[fa.HEAD_FIRST], got[fa.BLOCK_FIRST]))

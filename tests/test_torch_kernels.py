@@ -90,6 +90,32 @@ def test_flash_fwd_bf16_matches_jax():
     assert _diff(oj, ot) < BF16_TOL
 
 
+def test_plain_k1_k5_k6_by_blocks_match_jax(monkeypatch):
+    """Past ``ref.PLAIN_SCORE_ELEMS`` scores the plain versions of K1 and
+    K5 / K6 run one batch row and a few kv heads at a time (a 6144-token
+    prefill at Hq 32 would hold ~20 GB at once). Here the limit is cut so
+    that blocks of 2 of 3 kv heads cover B 2, Hq 12: o and lse against the
+    JAX reference (window and softcap), the gradients against the whole
+    call's (kv_len masking too)."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    rng = np.random.default_rng(3)
+    q, do = _normal(rng, 2, 12, 40, 16), _normal(rng, 2, 12, 40, 16)
+    k, v = _normal(rng, 2, 3, 40, 16), _normal(rng, 2, 3, 40, 16)
+    (qj, qt), (kj, kt), (vj, vt) = _pair(q), _pair(k), _pair(v)
+    dot = torch.from_numpy(do)
+    kw = dict(causal=True, window=13, softcap=20.0)
+    whole = fb.flash_attention_bwd_plain(qt, kt, vt, *flash_attention_fwd(qt, kt, vt, **kw),
+                                         dot, kv_len=33, **kw)
+    monkeypatch.setattr(ref, "PLAIN_SCORE_ELEMS", 2 * 4 * 40 * 40)
+    assert ref.score_blocks(2, 3, 4, 40, 40) == [(0, 0, 2), (0, 2, 3), (1, 0, 2), (1, 2, 3)]
+    ot, lt = flash_attention_fwd(qt, kt, vt, **kw)
+    assert _diff(jax_ref.attention(qj, kj, vj, **kw), ot) < F32_TOL
+    assert _diff(jax_ref.attention_lse(qj, kj, vj, **kw), lt) < F32_TOL
+    blocked = fb.flash_attention_bwd_plain(qt, kt, vt, ot, lt, dot, kv_len=33, **kw)
+    assert max(_diff(a.numpy(), b) for a, b in zip(whole, blocked)) < F32_TOL
+
+
 ROW_TOL = 2.0**-6   # per row, against the row's max |o|: one bf16 ulp is 2^-7
 LSE_TOL = 1e-5
 
@@ -327,19 +353,39 @@ def _paged_decode_inputs(rng, hq, hkv, d=32, ps=16, mp=6, b=4):
     return q, kp, vp, table, lengths
 
 
-@pytest.mark.parametrize("num_splits", [1, 2, 7])
-@pytest.mark.parametrize("hq,hkv", HEADS, ids=HEAD_IDS)
-def test_paged_decode_matches_jax(num_splits, hq, hkv):
+#: (hq, hkv, num_splits, case): every head layout at 1, 2 and 7 splits on
+#: ``_paged_decode_inputs``; and mixtral's case, group 4 at D 128 under a
+#: window that leaves whole splits before its first key.
+DECODE_CASES = [pytest.param(hq, hkv, ns, None, id=f"{hid}-{ns}")
+                for (hq, hkv), hid in zip(HEADS, HEAD_IDS) for ns in (1, 2, 7)] + [
+    pytest.param(8, 2, 9, "window_empties_splits", id="d128_group4_window_empties_splits-9")]
+
+
+def _windowed_decode_inputs(rng):
+    """D 128, pages of 16, 18-page tables (9 splits of 2 pages): a row of
+    288 tokens under window 100 (keys 188 .. 287: splits 0-4 hold no live
+    key), one of 250 (splits 0-3 empty) and one frozen at length 0."""
+    q, kp, vp, table, _ = _paged_decode_inputs(rng, 8, 2, d=128, ps=16, mp=18, b=3)
+    return q, kp, vp, table, np.array([288, 0, 250], np.int32)
+
+
+@pytest.mark.parametrize("hq,hkv,num_splits,case", DECODE_CASES)
+def test_paged_decode_matches_jax(hq, hkv, num_splits, case):
     rng = np.random.default_rng(20 + num_splits)
-    window, softcap = ((None, None) if hkv == 2 else (24, 30.0))
-    args = _paged_decode_inputs(rng, hq, hkv)
+    if case is None:
+        window, softcap = ((None, None) if hkv == 2 else (24, 30.0))
+        args = _paged_decode_inputs(rng, hq, hkv)
+    else:
+        window, softcap = 100, None
+        args = _windowed_decode_inputs(rng)
     jargs, targs = zip(*(_pair(a) for a in args))
     oj = jax_decode(*jargs, num_splits=num_splits, window=window, softcap=softcap,
                     interpret=True)
     ot = paged_flash_decode(*targs, num_splits=num_splits, window=window,
                             softcap=softcap)
     assert _diff(oj, ot) < F32_TOL
-    assert float(ot[0].abs().max()) == 0.0           # length-0 row: exact zeros
+    zero_row = 0 if case is None else 1
+    assert float(ot[zero_row].abs().max()) == 0.0    # length-0 row: exact zeros
     want = jax_ref.split_decode_attention(
         jargs[0], jax_ref.gather_pages(jargs[1], jargs[3]),
         jax_ref.gather_pages(jargs[2], jargs[3]), jargs[4],

@@ -170,6 +170,52 @@ def test_moonshot_full_width():
     assert moe.capacity_of(4096, cfg.moe) == 480
 
 
+def _layer_params(cfg) -> int:
+    """One attention + MoE layer's parameters, from the config's widths: the
+    q / k / v / o projections, the float32 router, the E SwiGLU experts and
+    the two norms."""
+    d, h, hkv, hd, m = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.moe
+    return (d * hd * (h + 2 * hkv) + h * hd * d + d * m.num_experts
+            + m.num_experts * 3 * d * m.d_ff + 2 * d)
+
+
+def test_mixtral_full_width():
+    """mixtral-8x7b's widths, and the sizes behind the depth cuts that
+    ``chip_smoke.py`` runs on one H100 80GB: a layer of 1,451,270,144
+    parameters (2.90 GB in bf16; the JAX config's count per layer), and the
+    MoE capacity at the slice's shapes."""
+    cfg = mixtral_8x7b.CONFIG
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.vocab, cfg.tie_embeddings) == (32, 4096, 32, 8, 128, 32000, False)
+    assert [(s.kind, s.ffn, s.window) for s in cfg.layer_pattern] == [("attn", "moe", 4096)]
+    assert (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff, cfg.moe.num_shared_experts,
+            cfg.moe.capacity_factor) == (8, 2, 14336, 0, 1.25)
+    # The formula is the port's layout: one SMOKE layer's tensors, counted.
+    smoke = transformer.init_model(mixtral_8x7b.SMOKE, seed=0, device="cpu")
+    assert _layer_params(mixtral_8x7b.SMOKE) == sum(
+        t.numel() for t in tree_lib.leaves(smoke["layers"][0]))
+    jcfg = jax_mixtral.CONFIG
+    per_layer = (dataclasses.replace(jcfg, n_layers=2).param_count()
+                 - dataclasses.replace(jcfg, n_layers=1).param_count())
+    assert _layer_params(cfg) == per_layer == 1_451_270_144
+    # The embedding and the untied head (the JAX count leaves out the final
+    # norm's 4096); then the depth cuts in bf16 (served) and at 16 B a
+    # parameter (float32 masters, gradients and two AdamW moments:
+    # trained), in GB.
+    rest = 2 * cfg.vocab * cfg.d_model
+    assert rest + 32 * per_layer == jcfg.param_count() == 46_702_788_608
+
+    def gb(layers, nbytes):
+        return round((rest + layers * per_layer) * nbytes / 1e9, 1)
+
+    assert [gb(n, 2) for n in (24, 25, 26, 32)] == [70.2, 73.1, 76.0, 93.4]
+    assert [gb(n, 16) for n in (2, 3)] == [50.6, 73.9]
+    # Capacity: a decode tick of 8 rows, run (a)'s prefill of 8 x 512 in one
+    # call, run (b)'s 6144-token prefill, the 8192-token train microbatch.
+    assert [moe.capacity_of(n, cfg.moe) for n in (8, 4096, 6144, 8192)] == [8, 1280, 1920,
+                                                                              2560]
+
+
 # -- the layer ---------------------------------------------------------------
 
 def _layer(arch, seed=0):
