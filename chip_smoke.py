@@ -52,8 +52,11 @@ and prints no result. Phases, in order (any failure exits non-zero):
      (dQ) and K6 (dK/dV) in bf16, on the tensor cores, under both launch
      orders (bitwise equal), with window + softcap, and at S 1000 padded to
      1024 (kv_len masking), SDPA's backward as the library yardstick; K5 /
-     K6 in float32 (the CUDA-core kernels) held per slice at 1e-5 and timed
-     at the same B 2, S 2048; then K7 / K8 (dense decode, one pass and
+     K6 in float32 (on the tensor cores in 3xTF32, ``check_backward_f32``)
+     held per slice at 1e-5 in the same cases, both orders and 100 reruns
+     bitwise equal, and timed at the same B 2, S 2048 beside their bounds
+     at the float32 peak and at 3xTF32's and SDPA's float32 backward; then
+     K7 / K8 (dense decode, one pass and
      split-K; bf16 on the tensor cores) at llama3-8b and hymba-1.5b widths
      (window 1024 and global) and at hymba's serve batch, one pass against
      4 splits, SDPA on the expanded, masked stripes as the library
@@ -217,7 +220,13 @@ and prints no result. Phases, in order (any failure exits non-zero):
      float32 LM head, timed alone there (K1 with SDPA beside it, K5 + K6
      with SDPA's backward), beside the step time; then one step's
      gradients at 2 layers, sequence 1024, kernel path against the plain
-     path. Then the same for gemma2-2b (4 layers: 2 local with window 4096,
+     path. Then one float32 step (``check_train_f32``: compute_dtype
+     "float32", K1 in float32 twice a layer, K5 / K6 once on the 3xTF32
+     kernels) of llama3-8b and hymba-1.5b at 2 layers, sequence 1024,
+     against the plain path in float32: the loss within TRAIN_LOSS_TOL,
+     every gradient leaf within FP32_TRAIN_GRAD_TOL; ``--phase fp32`` runs
+     the float32 K5 / K6 checks and these two steps alone, with no result
+     line. Then the same for gemma2-2b (4 layers: 2 local with window 4096,
      2 global; sequence 8192, batch 2 in 2 microbatches) and gemma3-1b (6
      layers: 5 local with window 512, 1 global; sequence 4096, batch 4 in 2
      microbatches) at full width, head_dim 256: K5 and K6 on the tensor
@@ -336,9 +345,10 @@ LSE_TOL = 1e-5             # float32 logsumexp, |lse| ~ 8: about 10 ulp
 # K1 in float32 (CUDA cores) against its plain version: both sum float32
 # products, in another order (the card tests' bar).
 F32_TOL = 2e-5
-# K5 / K6 in float32 (CUDA cores) against the plain backward, per (b, head)
-# slice of each gradient: float32 sums in another order differ by ~1e-6 of a
-# slice's max (the card tests' bar).
+# K5 / K6 in float32 (3xTF32 on the tensor cores, about 22 bits a product)
+# against the plain backward, per (b, head) slice of each gradient: float32
+# sums in another order differ by ~1e-6 of a slice's max (the card tests'
+# bar); one TF32 pass would miss it by ~50x (5e-4).
 GRAD_F32_TOL = 1e-5
 # K9 (float32 in and out; its products in 3xTF32 on the tensor cores, about
 # 22 bits each) against its plain version, per (b, chunk, head) slice: max
@@ -376,6 +386,16 @@ TRAIN_LOSS_TOL = 1e-2
 # A scalar leaf (llama-3.2-vision's cross gates) is a bf16 sum on both
 # paths, so it is held less one bf16 step, BF16_ULP (``grad_bars``).
 TRAIN_GRAD_TOL = 1e-2
+# The float32 train step (compute_dtype "float32": K1 in float32, K5 / K6
+# in 3xTF32) against the plain path in float32 compute, each gradient
+# leaf's relative norm. Both paths are float32 throughout: they differ by
+# sums taken in another order and the backward's products carried in about
+# 22 bits (each K5 / K6 slice within 1e-5). Read at 2 layers, seq 1024 on
+# an NVIDIA H100 80GB HBM3 at 700 W: 2.2e-6 at most on llama3-8b, 2.1e-5 on
+# hymba-1.5b (its a_log, a sum of per-token terms that mostly cancel). One
+# TF32 pass would exceed the bar: its K5 / K6 slices lie 2.8e-4 to 1.2e-3
+# from the JAX backward (tests/test_torch_bwd_tf32.py).
+FP32_TRAIN_GRAD_TOL = 1e-4
 BF16_ULP = 2.0**-7         # one bf16 step over the value it follows, at most
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 2, 3
 HYMBA_LAYERS, MAMBA_LAYERS = 16, 24   # the serve phase's depth cuts (``main``)
@@ -451,6 +471,14 @@ KERNELS = {
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
                replaces="src/repro/kernels/flash_attention_bwd.py:279",
                counter="flash_attention_bwd_dkv_tc"),
+    "K5f32": dict(name="K5 flash_attention_bwd_dq (float32, tensor cores in 3xTF32)",
+                  source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                  replaces="src/repro/kernels/flash_attention_bwd.py:228",
+                  counter="flash_attention_bwd_dq_tf32"),
+    "K6f32": dict(name="K6 flash_attention_bwd_dkv (float32, tensor cores in 3xTF32)",
+                  source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                  replaces="src/repro/kernels/flash_attention_bwd.py:279",
+                  counter="flash_attention_bwd_dkv_tf32"),
     "K7": dict(name="K7 flash_decode (bf16, tensor cores)",
                source="src/repro_torch/csrc/dense_decode.cu",
                replaces="src/repro/kernels/decode_attention.py:175",
@@ -639,20 +667,22 @@ def check_k1_route(label, counts):
 
 
 def bwd_launches(before, after):
-    """K5 and K6 launches between two reads of the counters: (all, on the
-    tensor cores) for each."""
-    return {key: (after[f"flash_attention_bwd_{key}"] - before[f"flash_attention_bwd_{key}"],
-                  after[f"flash_attention_bwd_{key}_tc"] - before[f"flash_attention_bwd_{key}_tc"])
+    """K5 and K6 launches between two reads of the counters: (all, the bf16
+    tensor-core kernels', the float32 3xTF32 kernels') for each."""
+    return {key: tuple(after[f"flash_attention_bwd_{key}{route}"]
+                       - before[f"flash_attention_bwd_{key}{route}"]
+                       for route in ("", "_tc", "_tf32"))
             for key in ("dq", "dkv")}
 
 
-def check_bwd_route(label, launched, tensor_cores=True):
-    """K5 and K6 launched, each on the tensor cores (bf16) or each on the
-    CUDA cores (float32)."""
-    log(f"{label}: K5 / K6 launches (all, on the tensor cores) {launched}")
-    for key, (total, tc) in launched.items():
-        if total <= 0 or tc != (total if tensor_cores else 0):
-            raise AssertionError(f"{label}: {key} launches {total}, {tc} on the tensor cores")
+def check_bwd_route(label, launched, bf16=True):
+    """K5 and K6 launched, each on the bf16 tensor-core kernels (bf16) or
+    each on the 3xTF32 ones (float32)."""
+    log(f"{label}: K5 / K6 launches (all, bf16 tensor cores, float32 3xTF32) {launched}")
+    for key, (total, tc, tf32) in launched.items():
+        if total <= 0 or (tc, tf32) != ((total, 0) if bf16 else (0, total)):
+            raise AssertionError(f"{label}: {key} launches {total}: {tc} on the bf16 kernels, "
+                                 f"{tf32} on the 3xTF32 ones")
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -1378,65 +1408,94 @@ def check_quantized(torch, timer, results, gen):
             del o32_ref, o_bf, o_deq, f32
 
 
+def bwd_run(args, kw, mapping):
+    """K5 and K6 on the inputs ``(q, k, v, o, lse, do)``: ``((dq, dk, dv),
+    delta)``."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v, o, lse, do = args
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, mapping=mapping, **kw)
+    dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, mapping=mapping, **kw)
+    return (dq, dk, dv), delta
+
+
+def bwd_check(torch, label, args, kw, mapping, tol=ROW_TOL):
+    """K5 and K6 against the plain backward per (b, head) slice of each
+    gradient within ``tol``, on the route of the inputs' dtype: returns the
+    max abs errors, delta and the gradients."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    before = kernels.launch_counts()
+    got, delta = bwd_run(args, kw, mapping)
+    check_bwd_route(f"K5/K6 {label}", bwd_launches(before, kernels.launch_counts()),
+                    bf16=args[0].dtype == torch.bfloat16)
+    ref = fb.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    rel = [slice_err(g, r) for g, r in zip(got, ref)]
+    ab = [err(g, r) for g, r in zip(got, ref)]
+    log(f"K5/K6 {label}: per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} "
+        f"dv {rel[2]:.3e} (tol {tol:.3e}); max abs {ab[0]:.3e} {ab[1]:.3e} "
+        f"{ab[2]:.3e}")
+    if max(rel) > tol:
+        raise AssertionError(f"K5/K6 {label} disagree with the plain backward")
+    return ab, delta, got
+
+
+def bwd_inputs(torch, gen, b, s, dtype, pad_to=None, **kw):
+    """Seeded (q, k, v, o, lse, do) at Hq 32, Hkv 8, D 128 in ``dtype`` (o
+    and lse from K1), and the flags; ``pad_to`` pads S with zero rows and
+    masks them with kv_len, as ops.flash_attention pads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = randn(b, HQ, s, D), randn(b, HKV, s, D), randn(b, HKV, s, D)
+    do = randn(b, HQ, s, D)
+    if pad_to is not None:
+        q, k, v, do = (F.pad(t, (0, 0, 0, pad_to - s)) for t in (q, k, v, do))
+        kw = dict(kw, kv_len=s)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+def sdpa_bwd_ms(torch, timer, q, k, v, do):
+    """SDPA's backward on the same shapes, K / V expanded to Hq so that its
+    flash backend takes them: one number beside K5 + K6."""
+    import torch.nn.functional as F
+
+    group = q.shape[1] // k.shape[1]
+    leaves = [t.detach().requires_grad_(True)
+              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    return timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+
+
 def check_backward(torch, timer, results):
     """K5 and K6 (bf16, the tensor-core kernels) against the plain backward,
     per (b, head) slice of each gradient: max |g - ref| / max |ref| within
     ROW_TOL (both round float32 sums to bf16 once; the kernels also round P
-    and dS to bf16 before their products, and sum in another order). Then
-    the float32 CUDA-core kernels, per slice within GRAD_F32_TOL."""
-    import torch.nn.functional as F
-    from repro_torch import kernels
+    and dS to bf16 before their products, and sum in another order)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-    def inputs(b, s, pad_to=None, **kw):
-        q, k, v = randn(b, HQ, s, D), randn(b, HKV, s, D), randn(b, HKV, s, D)
-        do = randn(b, HQ, s, D)
-        if pad_to is not None:   # as ops.flash_attention pads: zero rows, kv_len = s
-            q, k, v, do = (F.pad(t, (0, 0, 0, pad_to - s)) for t in (q, k, v, do))
-            kw = dict(kw, kv_len=s)
-        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        return (q, k, v, o, lse, do), kw
-
-    def run(args, kw, mapping):
-        q, k, v, o, lse, do = args
-        delta = (do.float() * o.float()).sum(-1)
-        dq = fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, mapping=mapping, **kw)
-        dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, mapping=mapping, **kw)
-        return (dq, dk, dv), delta
-
-    def check(label, args, kw, mapping, tol=ROW_TOL):
-        before = kernels.launch_counts()
-        got, delta = run(args, kw, mapping)
-        check_bwd_route(f"K5/K6 {label}", bwd_launches(before, kernels.launch_counts()),
-                        tensor_cores=args[0].dtype == torch.bfloat16)
-        ref = fb.flash_attention_bwd_plain(*args, **kw)
-        torch.cuda.synchronize()
-        rel = [slice_err(g, r) for g, r in zip(got, ref)]
-        ab = [err(g, r) for g, r in zip(got, ref)]
-        log(f"K5/K6 {label}: per-slice relative dq {rel[0]:.3e} dk {rel[1]:.3e} "
-            f"dv {rel[2]:.3e} (tol {tol:.3e}); max abs {ab[0]:.3e} {ab[1]:.3e} "
-            f"{ab[2]:.3e}")
-        if max(rel) > tol:
-            raise AssertionError(f"K5/K6 {label} disagree with the plain backward")
-        return ab, delta, got
-
     # B 2, S 2048, causal: the K1 case, under both orders.
     b, s = 2, 2048
-    args, kw = inputs(b, s, causal=True)
+    args, kw = bwd_inputs(torch, gen, b, s, torch.bfloat16, causal=True)
     q, k, v, o, lse, do = args
     rows = torch.arange(s)
     pairs = b * HQ * int((rows + 1).sum())
     main, grads = {}, {}
     for name, order in (("head_first", fa.HEAD_FIRST), ("block_first", fa.BLOCK_FIRST)):
         mapping = fa.MappingConfig(order=order)
-        ab, delta, grads[name] = check(f"B {b} S {s} causal {name}", args, kw, mapping)
+        ab, delta, grads[name] = bwd_check(torch, f"B {b} S {s} causal {name}", args, kw,
+                                           mapping)
         ms_dq = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                                            mapping=mapping, **kw))
         ms_dkv = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -1452,14 +1511,7 @@ def check_backward(torch, timer, results):
     del grads
     delta = main["delta"]
     plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(*args, **kw))
-    # SDPA's backward on the same shapes: one number beside K5 + K6, with
-    # K/V expanded to Hq so the flash backend takes them.
-    group = HQ // HKV
-    leaves = [t.detach().requires_grad_(True)
-              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    lib_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-    del leaves, out
+    lib_ms = sdpa_bwd_ms(torch, timer, q, k, v, do)
     dq_bytes = nbytes(q, k, v, do, lse, delta, q)
     dkv_bytes = nbytes(q, k, v, do, lse, delta, k, v)
     k5_bound = bound(dq_bytes, 6.0 * D * pairs)       # S, dP, dQ: 3 products
@@ -1474,42 +1526,81 @@ def check_backward(torch, timer, results):
     results["K6"] = dict(max_abs_err=max(main["ab"][1:]), ms=main["dkv"], plain_ms=plain_ms,
                          bound_ms=k6_bound[0], bound_by=k6_bound[1], library_ms=lib_ms)
     del args, q, k, v, o, lse, do
-    args, kw = inputs(b, s, causal=True, window=512, softcap=50.0)
-    check("window 512 + softcap 50", args, kw, fa.MappingConfig())
+    args, kw = bwd_inputs(torch, gen, b, s, torch.bfloat16, causal=True, window=512,
+                          softcap=50.0)
+    bwd_check(torch, "window 512 + softcap 50", args, kw, fa.MappingConfig())
     del args
-    args, kw = inputs(b, 1000, pad_to=1024, causal=True)
-    check("S 1000 padded to 1024 (kv_len 1000)", args, kw, fa.MappingConfig())
+    args, kw = bwd_inputs(torch, gen, b, 1000, torch.bfloat16, pad_to=1024, causal=True)
+    bwd_check(torch, "S 1000 padded to 1024 (kv_len 1000)", args, kw, fa.MappingConfig())
+
+
+def check_backward_f32(torch, timer, results):
+    """K5 and K6 in float32, on the tensor cores in 3xTF32, against the
+    plain backward per (b, head) slice within GRAD_F32_TOL (both sum
+    float32; the kernels' products carry about 22 bits): Hq 32, Hkv 8, S
+    300; B 2, S 2048 causal under both orders, bitwise equal, and 100
+    reruns bitwise equal; window 512 + softcap 50; S 1000 padded to 1024
+    (kv_len 1000). Then each kernel timed at B 2, S 2048 causal, beside its
+    bound at the float32 peak and at 3xTF32's (the TF32 peak over three,
+    as K9's row), the plain version and SDPA's float32 backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    f32 = torch.float32
+    args, kw = bwd_inputs(torch, gen, 1, 300, f32, causal=True)
+    bwd_check(torch, "float32 (3xTF32) Hq 32, Hkv 8, S 300 causal", args, kw,
+              fa.MappingConfig(), tol=GRAD_F32_TOL)
+    b, s = 2, 2048
+    args, kw = bwd_inputs(torch, gen, b, s, f32, causal=True)
+    q, k, v, o, lse, do = args
+    grads = {}
+    for name, order in (("head_first", fa.HEAD_FIRST), ("block_first", fa.BLOCK_FIRST)):
+        ab, delta, grads[name] = bwd_check(
+            torch, f"float32 (3xTF32) B {b} S {s} causal {name}", args, kw,
+            fa.MappingConfig(order=order), tol=GRAD_F32_TOL)
+        if order == fa.HEAD_FIRST:
+            main_ab = ab
+    first = grads["head_first"]
+    same = all(torch.equal(x, y) for x, y in zip(first, grads["block_first"]))
+    differ = sum(not all(torch.equal(x, y) for x, y in zip(
+        bwd_run(args, kw, fa.MappingConfig())[0], first)) for _ in range(100))
+    log(f"K5/K6 float32 head-first and block-first bitwise equal: {same}; reruns of 100 "
+        f"that differ from the first: {differ}")
+    if not same or differ:
+        raise AssertionError("the float32 K5/K6 gave other bits under another order or in a "
+                             "rerun")
+    del grads, first
+    ms_dq = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+    ms_dkv = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(*args, **kw), reps=PLAIN_REPS)
+    lib_ms = sdpa_bwd_ms(torch, timer, q, k, v, do)
+    pairs = b * HQ * int((torch.arange(s) + 1).sum())
+    dq_bytes = nbytes(q, k, v, do, lse, delta, q)
+    dkv_bytes = nbytes(q, k, v, do, lse, delta, k, v)
+    f5 = bound(dq_bytes, 6.0 * D * pairs, PEAK_F32_FLOPS)
+    f6 = bound(dkv_bytes, 8.0 * D * pairs, PEAK_F32_FLOPS)
+    t5 = bound(dq_bytes, 3 * 6.0 * D * pairs, PEAK_TF32_FLOPS)   # three TF32 products each
+    t6 = bound(dkv_bytes, 3 * 8.0 * D * pairs, PEAK_TF32_FLOPS)
+    log(f"K5/K6 float32 (3xTF32) B {b} S {s} causal: K5 {ms_dq:.4f} ms bound {t5[0]:.4f} "
+        f"({t5[1]}, 3xTF32) / {f5[0]:.4f} ({f5[1]}, float32 peak); K6 {ms_dkv:.4f} ms bound "
+        f"{t6[0]:.4f} ({t6[1]}, 3xTF32) / {f6[0]:.4f} ({f6[1]}, float32 peak); pair "
+        f"{ms_dq + ms_dkv:.4f} ms; plain {plain_ms:.3f} ms; library sdpa backward "
+        f"(float32) {lib_ms:.4f} ms: the pair {'below' if ms_dq + ms_dkv < lib_ms else 'above'}"
+        f" it (card: {smi_line()})")
+    results["K5f32"] = dict(max_abs_err=main_ab[0], ms=ms_dq, plain_ms=plain_ms,
+                            bound_ms=t5[0], bound_by=t5[1], library_ms=lib_ms)
+    results["K6f32"] = dict(max_abs_err=max(main_ab[1:]), ms=ms_dkv, plain_ms=plain_ms,
+                            bound_ms=t6[0], bound_by=t6[1], library_ms=lib_ms)
+    del args, q, k, v, o, lse, do
+    args, kw = bwd_inputs(torch, gen, b, s, f32, causal=True, window=512, softcap=50.0)
+    bwd_check(torch, "float32 (3xTF32) window 512 + softcap 50", args, kw, fa.MappingConfig(),
+              tol=GRAD_F32_TOL)
     del args
-
-    # float32 stays on the CUDA cores: held per slice at GRAD_F32_TOL (both
-    # sum float32), then timed at the bf16 case's shape against the float32
-    # peak, with the plain version and SDPA's float32 backward beside it.
-    def randn32(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    q, k, v, do = randn32(1, HQ, 300, D), randn32(1, HKV, 300, D), randn32(1, HKV, 300, D), \
-        randn32(1, HQ, 300, D)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    check("float32 (CUDA cores) Hq 32, Hkv 8, S 300 causal", (q, k, v, o, lse, do),
-          dict(causal=True), fa.MappingConfig(), tol=GRAD_F32_TOL)
-    q, k, v, do = randn32(b, HQ, s, D), randn32(b, HKV, s, D), randn32(b, HKV, s, D), \
-        randn32(b, HQ, s, D)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    delta = (do * o).sum(-1)
-    ms_dq = timer.ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True))
-    ms_dkv = timer.ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))
-    plain_ms = timer.ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True))
-    leaves = [t.detach().requires_grad_(True)
-              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    lib_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-    del leaves, out
-    f5 = bound(nbytes(q, k, v, do, lse, delta, q), 6.0 * D * pairs, PEAK_F32_FLOPS)
-    f6 = bound(nbytes(q, k, v, do, lse, delta, k, v), 8.0 * D * pairs, PEAK_F32_FLOPS)
-    log(f"K5/K6 float32 (CUDA cores) B {b} S {s} causal: K5 {ms_dq:.3f} ms bound "
-        f"{f5[0]:.4f} ({f5[1]}, float32 peak), K6 {ms_dkv:.3f} ms bound {f6[0]:.4f} "
-        f"({f6[1]}, float32 peak); plain {plain_ms:.3f} ms; library sdpa backward "
-        f"(float32) {lib_ms:.3f} ms")
+    args, kw = bwd_inputs(torch, gen, b, 1000, f32, pad_to=1024, causal=True)
+    bwd_check(torch, "float32 (3xTF32) S 1000 padded to 1024 (kv_len 1000)", args, kw,
+              fa.MappingConfig(), tol=GRAD_F32_TOL)
 
 
 def check_dense_route(label, counts):
@@ -2111,7 +2202,7 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
         log(f"K5/K6 D 256 {label} softcap {cap}: per-slice relative dq {rel[0]:.3e} dk "
             f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {ROW_TOL:.3e}), max abs {ab[0]:.3e} "
             f"{ab[1]:.3e} {ab[2]:.3e}; {differ} of {RERUNS} reruns differ, block-first "
-            f"bitwise equal {orders}; launches (all, on the tensor cores) {launched}; times "
+            f"bitwise equal {orders}; launches (all, bf16, 3xTF32) {launched}; times "
             f"with the queue primed (in parentheses with the wrappers' host time): K5 "
             f"{ms5:.4f} ms ({host5:.4f}) bound {b5[0]:.4f} ({b5[1]}), K6 {ms6:.4f} ms "
             f"({host6:.4f}) bound {b6[0]:.4f} ({b6[1]}), pair {ms5 + ms6:.4f} ms "
@@ -2119,8 +2210,8 @@ def check_gemma_backward(torch, timer, gen, model, hq, hkv, local, cap):
             f"{lib}{no_cap}; K6 in {parts} part(s) of {b * hkv * len(walks)} blocks on {sms} "
             f"SMs, longest block {longest} tiles against a mean of {mean_walk:.2f} "
             f"({longest / mean_walk:.3f}x)")
-        if max(rel) > ROW_TOL or differ or not orders or launched != {"dq": (1, 1),
-                                                                         "dkv": (1, 1)}:
+        if max(rel) > ROW_TOL or differ or not orders or launched != {"dq": (1, 1, 0),
+                                                                         "dkv": (1, 1, 0)}:
             raise AssertionError(f"K5/K6 D 256 {label}: disagree with the plain backward, "
                                  "change between reruns or orders, or missed the tensor cores")
         for key, ms, host, kb, e in (("K5", ms5, host5, b5, ab[0]),
@@ -4064,6 +4155,72 @@ def check_train_grads(torch, cfg_full, seed, layers=2):
         raise AssertionError("train: kernel path disagrees with the plain path")
 
 
+def check_train_f32(torch, cfg_full, seed, layers=2):
+    """One float32 train step (compute_dtype "float32") of ``cfg_full`` at
+    ``layers`` layers, sequence 1024, batch 1, from the weights and batch of
+    ``seed``: on the kernels (K1 in float32 twice a layer under remat, K5 and
+    K6 once on the 3xTF32 kernels, K9 twice a layer where the stack has SSM
+    layers) against the plain path in float32. The loss within
+    TRAIN_LOSS_TOL, each gradient leaf's relative norm within
+    FP32_TRAIN_GRAD_TOL, every value finite. Returns the kernel path's
+    launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.models import transformer
+    from repro_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(cfg_full, n_layers=layers, compute_dtype="float32")
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    if cfg.ssm is not None:
+        plain = dataclasses.replace(plain, ssm=dataclasses.replace(cfg.ssm, impl="plain"))
+    specs = cfg.layer_specs()
+    n_attn = sum(spec.kind in ("attn", "hybrid") for spec in specs)
+    n_ssm = sum(spec.kind in ("mamba", "hybrid") for spec in specs)
+    want = {"flash_attention_fwd": 2 * n_attn, "flash_attention_fwd_tc": 0,
+            KERNELS["K5f32"]["counter"]: n_attn, KERNELS["K6f32"]["counter"]: n_attn,
+            KERNELS["K5"]["counter"]: 0, KERNELS["K6"]["counter"]: 0,
+            KERNELS["K9"]["counter"]: 2 * n_ssm}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = transformer.init_model(cfg, seed=seed, device="cuda", param_dtype=torch.float32)
+    batch = ts.to_device(make_pipeline(DataConfig(
+        seq_len=1024, global_batch=1, seed=seed, vocab=cfg.vocab,
+        num_codebooks=cfg.num_codebooks)).batch_at(0), "cuda")
+    grads, losses = {}, {}
+    for name, c in (("cuda", cfg), ("plain", plain)):
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, c, batch, ts.TrainConfig())
+        torch.cuda.synchronize()
+        if name == "cuda":
+            counts = kernels.launch_counts()
+        grads[name] = {tree_lib.key_of(p): t.clone() for p, t in tree_lib.leaves_with_paths(g)}
+        losses[name] = float(loss)
+    del params
+    got = {key: counts[key] for key in want}
+    rel_loss = abs(losses["cuda"] - losses["plain"]) / abs(losses["plain"])
+    dist = {k: float((grads["cuda"][k] - r).norm() / r.norm()) for k, r in grads["plain"].items()}
+    worst = max(dist, key=dist.get)
+    finite = all(torch.isfinite(g).all() for g in grads["cuda"].values())
+    log(f"train {cfg.name} float32 ({layers} layers, seq 1024) kernel path vs plain path: loss "
+        f"{losses['cuda']:.7f} vs {losses['plain']:.7f} (relative {rel_loss:.3e}, tol "
+        f"{TRAIN_LOSS_TOL}); gradient ||g_cuda - g_plain|| / ||g_plain|| max {dist[worst]:.3e} "
+        f"at {worst}, median {statistics.median(dist.values()):.3e} (tol {FP32_TRAIN_GRAD_TOL});"
+        f" launches {json.dumps(got)}, expected {json.dumps(want)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got != want:
+        raise AssertionError(f"train {cfg.name} float32: launches {got}, expected {want}")
+    if (rel_loss > TRAIN_LOSS_TOL or dist[worst] > FP32_TRAIN_GRAD_TOL or not finite
+            or not all(map(math.isfinite, losses.values()))):
+        raise AssertionError(f"train {cfg.name} float32: the kernel path disagrees with the "
+                             "plain path")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def grad_bars(grads, hybrid):
     """``grads`` maps ``cuda`` / ``plain`` / ``float32`` to {leaf: gradient}.
     Returns the relative-norm distances ``cuda-plain`` (over the plain
@@ -5384,7 +5541,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
                         choices=("all", "plan", "extend", "gemma", "ssm", "moe", "vision",
-                                 "musicgen", "mixtral"),
+                                 "musicgen", "mixtral", "fp32"),
                         default="all",
                         help="'plan' runs the plan phase alone, 'extend' K1's offset checks "
                              "and plan part (d) alone, 'gemma' the head_dim 256 kernels and "
@@ -5394,7 +5551,8 @@ def main() -> int:
                              "llama-3.2-vision-11b serve, kernel and train phases alone, "
                              "'musicgen' the musicgen-medium serve, kernel and train phases "
                              "alone, 'mixtral' the mixtral-8x7b serve, kernel and train "
-                             "phases alone; none prints a result line")
+                             "phases alone, 'fp32' the float32 K5 / K6 checks and the "
+                             "float32 train steps alone; none prints a result line")
     args = parser.parse_args()
     import torch
 
@@ -5454,6 +5612,15 @@ def main() -> int:
             raise AssertionError("plan part (d): " + "; ".join(failures))
         return 0
     ssm_train = ((mamba2_1_3b.CONFIG, MAMBA_LAYERS), (hymba_1_5b.CONFIG, HYMBA_LAYERS))
+    f32_train = (llama3_8b.CONFIG, hymba_1_5b.CONFIG)
+    if args.phase == "fp32":
+        log("== kernels K5 / K6 in float32 (3xTF32)")
+        check_backward_f32(torch, timer, {})
+        del timer
+        for cfg in f32_train:
+            check_train_f32(torch, cfg, seed=1)
+        log(f"total {time.perf_counter() - t_start:.1f} s (fp32 phase only: no result line)")
+        return 0
     if args.phase == "ssm":
         log("== kernel K9 (SSD intra-chunk, float32 in 3xTF32)")
         check_ssd(torch, timer, {})
@@ -5507,6 +5674,7 @@ def main() -> int:
     results = {}
     check_kernels(torch, timer, results)
     check_backward(torch, timer, results)
+    check_backward_f32(torch, timer, results)
     log("== kernels K7 / K8 (dense decode, bf16) and K9 (SSD intra-chunk, float32 in 3xTF32)")
     check_dense_decode(torch, timer, results)
     check_ssd(torch, timer, results)
@@ -5618,6 +5786,11 @@ def main() -> int:
     train_counts = train(torch, llama3_8b.CONFIG)
     for key, n in train_counts.items():
         counts[key] += n
+    log("== train float32 (K1 in float32, K5 / K6 in 3xTF32): llama3-8b and hymba-1.5b at 2 "
+        "layers against the plain path in float32")
+    for cfg in f32_train:
+        for key, n in check_train_f32(torch, cfg, seed=1).items():
+            counts[key] += n
     for cfg in gemma:
         for key, n in train_gemma(torch, cfg).items():
             counts[key] += n

@@ -13,8 +13,11 @@
 //
 // What bounds them on an H100: like the forward, these are bound by
 // arithmetic at training shapes (K5 does 3 products of 64 x 64 x D per
-// tile pair, K6 4), far above the card's balance point, so the bf16 tensor
-// cores (989 TFLOP/s) are the only way to that bound. Two routes:
+// tile pair, K6 4), far above the card's balance point, so the tensor cores
+// are the only way to that bound: bf16's at 989 TFLOP/s, and for float32
+// 3xTF32 at a third of the TF32 rate (165 TFLOP/s on the data sheet, about
+// 105 for mma.sync as measured), past the 67 TFLOP/s of the CUDA cores. Two
+// routes:
 //
 // * bf16 (every train step): fa2_dq_tc_kernel and fa2_dkv_tc_kernel, wgmma
 //   fed by TMA. A block of two warpgroups owns 128 rows: K5 q rows of one
@@ -41,9 +44,47 @@
 //   64-row blocks, both warpgroups on the same rows, one computing S and P,
 //   the other dP and dS, each accumulating half of D's columns (the
 //   comment above Smem256 says why and how).
-// * float32: fa2_dq_kernel and fa2_dkv_kernel on the CUDA cores in float32
-//   (TF32 tensor cores would keep ~3 decimal digits), 4 x 4 register tiles
-//   fed from shared memory in the layout of csrc/prefill_tile.cuh.
+// * float32: fa2_dq_tf32_kernel and fa2_dkv_tf32_kernel on the tensor
+//   cores in 3xTF32 (mma.sync m16n8k8, csrc/tf32.cuh: each operand split
+//   into hi = tf32(x) and lo = tf32(x - hi), rounded as cvt.rna rounds
+//   (f32::split_rna), each product lo hi' + hi lo' + hi hi' into float32,
+//   about 22 bits). mma.sync and not wgmma:
+//   wgmma takes TF32 operands K-major only, and dQ += dS K, dV += P^T dO and
+//   dK += dS^T Q contract over the rows of K, dO and Q, which would then
+//   need transposed copies; mma.sync fragments load from either layout. A
+//   block of 8 warps owns 64 rows (K5 q rows, K6 kv rows) and walks the
+//   other side in tiles of 32 rows. The own pair of tiles is split once
+//   into hi and lo planes in shared memory (plain loads); each walked pair
+//   lands by 16-byte cp.async in a landing buffer while the pair before it,
+//   already split into planes for all warps, multiplies (K9's pipeline:
+//   each thread splits the chunks it copied). Warp w takes 16 own rows
+//   (w % 4) and 16 walked rows (w / 4) of each tile: S and dP (K6 S^T and
+//   dP^T) per warp are 16 x 16, P is recomputed from lse with exp2 and
+//   scale * log2(e) folded in, and P and dS stay float32, split in
+//   registers as the A fragments of the next products with K9's key
+//   permutation (column t of a k-step is key 2t, column t + 4 key 2t + 1,
+//   so an accumulator is an A fragment without shuffles; the B operand's
+//   rows are read in that order). The two warps on the same own rows each
+//   sum half of every tile's keys (K6: q rows) and add their sums once at
+//   the end, in a fixed order through shared memory. Masks apply only on a
+//   warp's 16 x 16 tiles that straddle kv_len, the diagonal or the window
+//   edge, a warp skips the tiles its rows cannot see, and rows with lse <=
+//   ROW_DEAD give nothing (their -lse log2(e) is -inf). Under causality a
+//   block takes own tile i and its mirror n - 1 - i in turn: their walks
+//   sum to about the same for every block, so no block started last walks
+//   far longer than the rest (head-first, K6's walks would otherwise fall
+//   from 256 tiles to 8 in every head's run of blocks).
+//   Shared memory, at D 128: own planes 4 x 64 x 128 floats (128 KB),
+//   walked planes 4 x 32 x 128 (64 KB), the landing buffer 2 x 32 x 128 (32
+//   KB) and K6's 64 column values: 224.3 KB of the 227 KB a block may use,
+//   so one block an SM (two at D 64). Own tiles of 64 rows against walked
+//   tiles of 64 would need 128 + 128 + 64 KB; split stages of both sides
+//   are kept because splitting an operand in registers at each use costs
+//   ~10 instructions an element (ptxas expands cvt.rna into four), more
+//   issue slots than the three mma it feeds leave free. The planes are
+//   unpadded: their 16-byte chunks are permuted by the row's low three bits
+//   (f32::swz), so every fragment load is free of bank conflicts and the
+//   four planes of a side fit where padded rows would not.
 //
 // What the design does about the TPU's choices: the Pallas kernels carry
 // dQ (and dK / dV) in VMEM scratch across a sequential grid axis; here that
@@ -60,339 +101,13 @@
 // fastest), the paper's choice for the backward pass. The order changes
 // which blocks run together, never a block's sums.
 #include "hopper.cuh"
-#include "prefill_tile.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace rt;
 
 constexpr float ROW_DEAD = NEG_INF_F * 0.5f;   // lse at or below: a fully masked row
-
-// -- float32 on the CUDA cores -------------------------------------------------
-
-constexpr int BM = PF_BM;          // q rows per tile
-constexpr int BN = PF_BN;          // kv rows per tile
-constexpr int THREADS = PF_THREADS;
-
-template <int D>
-struct BwdSmem {
-  static constexpr int DP = D + 1;    // padded row of Q, dO, K, V
-  static constexpr int PP = BN + 1;   // padded row of a P / dS tile
-  // K5: Q, dO, K, V tiles + dS tile.
-  static constexpr size_t dq_bytes =
-      sizeof(float) * (size_t)(4 * BM * DP + BM * PP);
-  // K6: K, V, Q, dO tiles + P^T and dS^T tiles + lse and delta of the q tile.
-  static constexpr size_t dkv_bytes =
-      sizeof(float) * (size_t)(4 * BM * DP + 2 * BN * PP + 2 * BM);
-};
-
-// Softcap, the p recomputation and dS for one (row, col) pair.
-__device__ __forceinline__ float grad_score(float s_acc, float dp, float lse,
-                                            float delta, bool ok, float scale,
-                                            float softcap, float* p_out) {
-  const float sc = apply_softcap(s_acc * scale, softcap);
-  const float p = ok ? expf(sc - lse) : 0.f;
-  float ds = p * (dp - delta);
-  if (softcap > 0.f) {
-    const float t = sc / softcap;
-    ds *= 1.f - t * t;
-  }
-  *p_out = p;
-  return ds;
-}
-
-// ---- K5: dQ -----------------------------------------------------------------
-// One block per (b, q head, 64-row q tile); thread (ty, tx) owns q rows
-// ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and dQ columns
-// tx + 16 c (c < D / 16).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa2_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int kv_len,
-              float scale, int causal, int window, float softcap, int order) {
-  extern __shared__ float smem[];
-  constexpr int DP = BwdSmem<D>::DP;
-  constexpr int PP = BwdSmem<D>::PP;
-  float* Qs = smem;
-  float* dOs = Qs + BM * DP;
-  float* Ks = dOs + BM * DP;
-  float* Vs = Ks + BN * DP;
-  float* dSs = Vs + BN * DP;
-
-  int b, h, mb;
-  decode_block((Sq + BM - 1) / BM, Hq, order, b, h, mb);
-  const int hk = h / (Hq / Hkv);
-  const size_t qoff = ((size_t)b * Hq + h) * (size_t)Sq;
-  const float* kh = k + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
-  const float* vh = v + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
-  const int q0 = mb * BM;
-
-  stage_rows<D, DP, float>(Qs, [&](int rr) -> const float* {
-    return q0 + rr < Sq ? q + (qoff + q0 + rr) * D : nullptr;
-  });
-  stage_rows<D, DP, float>(dOs, [&](int rr) -> const float* {
-    return q0 + rr < Sq ? dout + (qoff + q0 + rr) * D : nullptr;
-  });
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float row_lse[4], row_delta[4];
-  bool row_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    row_lse[i] = row < Sq ? lse[qoff + row] : NEG_INF_F;
-    row_delta[i] = row < Sq ? delta[qoff + row] : 0.f;
-    row_ok[i] = row < Sq && row_lse[i] > ROW_DEAD;
-  }
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-
-  const int live = min(Skv, kv_len);
-  int n_lo, n_hi;
-  kv_tile_range(q0, BM, BN, live, causal, window, n_lo, n_hi);
-  for (int n = n_lo; n < n_hi; ++n) {
-    const int c0 = n * BN;
-    __syncthreads();
-    stage_rows<D, DP, float>(Ks, [&](int rr) -> const float* {
-      return c0 + rr < Skv ? kh + (size_t)(c0 + rr) * D : nullptr;
-    });
-    stage_rows<D, DP, float>(Vs, [&](int rr) -> const float* {
-      return c0 + rr < Skv ? vh + (size_t)(c0 + rr) * D : nullptr;
-    });
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T, both (64 x 64), in one sweep over D.
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D; ++kk) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * DP + kk];
-        ov[i] = dOs[(ty + 16 * i) * DP + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DP + kk];
-        vv[j] = Vs[(tx + 16 * j) * DP + kk];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        bool ok = row_ok[i] && col < live;
-        if (causal) ok = ok && col <= row;
-        if (window > 0) ok = ok && col > row - window;
-        float p;
-        dSs[(ty + 16 * i) * PP + tx + 16 * j] =
-            grad_score(s[i][j], dp[i][j], row_lse[i], row_delta[i], ok, scale,
-                       softcap, &p);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K.
-#pragma unroll 4
-    for (int jj = 0; jj < BN; ++jj) {
-      float dsv[4], kv[D / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * PP + jj];
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) kv[c] = Ks[jj * DP + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
-    }
-  }
-
-  float* dqh = dq + qoff * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      dqh[(size_t)row * D + tx + 16 * c] = scale * acc[i][c];
-  }
-}
-
-// ---- K6: dK, dV ------------------------------------------------------------
-// One block per (b, kv head, 64-row kv tile); thread (ty, tx) owns kv rows
-// ty + 16 i (i < 4), q columns tx + 16 j of the transposed score tile and
-// dK / dV columns tx + 16 c. The block loops over the group's q heads and,
-// for each, the q tiles that causal, window and Sq leave live.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa2_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv, int Sq,
-               int Skv, int kv_len, float scale, int causal, int window,
-               float softcap, int order) {
-  extern __shared__ float smem[];
-  constexpr int DP = BwdSmem<D>::DP;
-  constexpr int PP = BwdSmem<D>::PP;
-  float* Ks = smem;
-  float* Vs = Ks + BN * DP;
-  float* Qs = Vs + BN * DP;
-  float* dOs = Qs + BM * DP;
-  float* Pt = dOs + BM * DP;
-  float* dSt = Pt + BN * PP;
-  float* Ls = dSt + BN * PP;
-  float* Ds = Ls + BM;
-
-  int b, hk, nb;
-  decode_block((Skv + BN - 1) / BN, Hkv, order, b, hk, nb);
-  const int group = Hq / Hkv;
-  const size_t kvoff = ((size_t)b * Hkv + hk) * (size_t)Skv;
-  const int c0 = nb * BN;
-  const int live = min(Skv, kv_len);
-
-  stage_rows<D, DP, float>(Ks, [&](int rr) -> const float* {
-    return c0 + rr < Skv ? k + (kvoff + c0 + rr) * D : nullptr;
-  });
-  stage_rows<D, DP, float>(Vs, [&](int rr) -> const float* {
-    return c0 + rr < Skv ? v + (kvoff + c0 + rr) * D : nullptr;
-  });
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc_k[4][D / 16], acc_v[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // Live q tiles of this kv tile: none past kv_len; causal rows >= c0;
-  // window rows <= c0 + BN - 1 + window - 1.
-  const int nm = (Sq + BM - 1) / BM;
-  int m_lo = 0, m_hi = c0 < live ? nm : 0;
-  if (causal) m_lo = c0 / BM;
-  if (window > 0) m_hi = min(m_hi, (c0 + BN - 1 + window - 1) / BM + 1);
-
-  for (int g = 0; g < group; ++g) {
-    const size_t qoff = ((size_t)b * Hq + (size_t)hk * group + g) * (size_t)Sq;
-    for (int mb = m_lo; mb < m_hi; ++mb) {
-      const int q0 = mb * BM;
-      __syncthreads();
-      stage_rows<D, DP, float>(Qs, [&](int rr) -> const float* {
-        return q0 + rr < Sq ? q + (qoff + q0 + rr) * D : nullptr;
-      });
-      stage_rows<D, DP, float>(dOs, [&](int rr) -> const float* {
-        return q0 + rr < Sq ? dout + (qoff + q0 + rr) * D : nullptr;
-      });
-      if (threadIdx.x < BM) {
-        const int row = q0 + threadIdx.x;
-        Ls[threadIdx.x] = row < Sq ? lse[qoff + row] : NEG_INF_F;
-        Ds[threadIdx.x] = row < Sq ? delta[qoff + row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T, both (64 kv x 64 q).
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < D; ++kk) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty + 16 * i) * DP + kk];
-          vv[i] = Vs[(ty + 16 * i) * DP + kk];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * DP + kk];
-          ov[j] = dOs[(tx + 16 * j) * DP + kk];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = c0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int jl = tx + 16 * j;
-          const int row = q0 + jl;
-          const float l = Ls[jl];
-          bool ok = row < Sq && l > ROW_DEAD && col < live;
-          if (causal) ok = ok && col <= row;
-          if (window > 0) ok = ok && col > row - window;
-          float p;
-          dSt[(ty + 16 * i) * PP + jl] =
-              grad_score(st[i][j], dpt[i][j], l, Ds[jl], ok, scale, softcap, &p);
-          Pt[(ty + 16 * i) * PP + jl] = p;
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q.
-#pragma unroll 2
-      for (int jj = 0; jj < BM; ++jj) {
-        float pv[4], dsv[4], ov[D / 16], qv[D / 16];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Pt[(ty + 16 * i) * PP + jj];
-          dsv[i] = dSt[(ty + 16 * i) * PP + jj];
-        }
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          ov[c] = dOs[jj * DP + tx + 16 * c];
-          qv[c] = Qs[jj * DP + tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < D / 16; ++c) {
-            acc_v[i][c] = fmaf(pv[i], ov[c], acc_v[i][c]);
-            acc_k[i][c] = fmaf(dsv[i], qv[c], acc_k[i][c]);
-          }
-      }
-    }
-  }
-
-  float* dkh = dk + kvoff * D;
-  float* dvh = dv + kvoff * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = c0 + ty + 16 * i;
-    if (row >= Skv) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      dkh[(size_t)row * D + tx + 16 * c] = scale * acc_k[i][c];
-      dvh[(size_t)row * D + tx + 16 * c] = acc_v[i][c];
-    }
-  }
-}
 
 // -- bf16 on the tensor cores --------------------------------------------------
 
@@ -1415,17 +1130,669 @@ int launch_dkv256(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace tc
 
+// -- float32 on the tensor cores in 3xTF32 --------------------------------------
+
+namespace f32 {
+
+using tc::LOG2E;
+using tc::recompute_p;
+using tc::visible;
+
+constexpr int OWN = 64;                      // a block's own rows: K5 q rows, K6 kv rows
+constexpr int WALK = 32;                     // rows of a walked tile: K5 keys, K6 q rows
+constexpr int WN = 16;                       // walked rows of each tile a warp takes
+constexpr int ROW_WARPS = OWN / 16;          // 16 own rows a warp
+constexpr int HALVES = WALK / WN;            // warps on the same own rows
+constexpr int THREADS = ROW_WARPS * HALVES * 32;
+// Causal walks grow with the own tile (K5) or shrink (K6): a block then
+// takes own tile i and its mirror n - 1 - i in turn, so that every block
+// walks about as far and the last blocks to start are no longer than the
+// first. Each tile's sums are the same either way.
+constexpr bool PAIRED = true;
+
+// Dynamic shared memory, in floats: the own pair of tiles (K5 Q and dO, K6
+// K and V), each split into a hi and a lo plane; the walked pair (K5 K and
+// V, K6 Q and dO) split the same way; the landing buffer the next walked
+// pair arrives in, as cp.async writes it; K6's columns of the walked tile
+// (-lse log2(e), then delta). A plane holds unpadded rows of D floats whose
+// 16-byte chunks are permuted by the row (swz).
 template <int D>
-int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* delta, void* dq, int B, int Hq, int Hkv,
-                  int Sq, int Skv, int kv_len, float scale, int causal, int window,
-                  float softcap, int order, cudaStream_t stream) {
-  const size_t smem = BwdSmem<D>::dq_bytes;
-  cudaError_t err = allow_smem(fa2_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * Hq * ((Sq + BM - 1) / BM);
+struct Smem {
+  static constexpr int OWN_PLANE = OWN * D;
+  static constexpr int WALK_PLANE = WALK * D;
+  static constexpr int OA = 0;                        // hi, then lo
+  static constexpr int OB = OA + 2 * OWN_PLANE;
+  static constexpr int WA = OB + 2 * OWN_PLANE;       // hi, then lo
+  static constexpr int WB = WA + 2 * WALK_PLANE;
+  static constexpr int RAW = WB + 2 * WALK_PLANE;     // A rows, then B rows
+  static constexpr int COLS = RAW + 2 * WALK_PLANE;
+  static constexpr size_t bytes = sizeof(float) * (COLS + 2 * WALK);
+  static_assert(bytes <= 232448, "more than a block's shared memory");
+};
+
+// Element (row, col) of a plane: 16-byte chunk col / 4 of the row, XOR the
+// row's low three bits. A fragment's 32 loads (rows g or columns g, lanes
+// g = lane / 4) then fall in 32 different banks.
+template <int D>
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * D + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// A thread's fragment loads, as offsets into a plane fixed for the whole
+// walk: the swizzle's XOR depends only on the thread (g = lane / 4, t =
+// lane % 4) and on a column's place in its 32-column group, so every load
+// below is one of eight offsets plus a constant.
+//
+// Rows r + g (r % 8 == 0), column 4 j + t (+ 32 c) of every 32-column
+// group: swz(r + g, 32 c + 4 j + t) = x[j] + 32 c.
+template <int D>
+__device__ __forceinline__ void row_offsets(int (&x)[8], int r, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = (r + g) * D + 4 * (j ^ g) + t;
+}
+
+// Rows r + 2t and r + 2t + 1 (r % 8 == 0), column 8 b + g (+ 32 c): x[2 b]
+// and x[2 b + 1], plus 32 c.
+template <int D>
+__device__ __forceinline__ void pair_offsets(int (&x)[8], int r, int g, int t) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int chunk = 2 * b + (g >> 2);
+    x[2 * b] = (r + 2 * t) * D + 4 * (chunk ^ (2 * t)) + (g & 3);
+    x[2 * b + 1] = (r + 2 * t + 1) * D + 4 * (chunk ^ (2 * t + 1)) + (g & 3);
+  }
+}
+
+// The A fragment of rows r .. r + 15 and the k-step of columns 4 j .. 4 j
+// + 7 of a 32-column group (j even), from planes offset to that group,
+// with x = row_offsets(r): (r + g, 4 j + t), (r + g + 8, 4 j + t), (r + g,
+// 4 j + t + 4), (r + g + 8, 4 j + t + 4).
+template <int D>
+__device__ __forceinline__ void frag_a(const float* hi, const float* lo, const int (&x)[8],
+                                       int j, uint32_t (&ahi)[4], uint32_t (&alo)[4]) {
+  const int o[4] = {x[j], x[j] + 8 * D, x[j + 1], x[j + 1] + 8 * D};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ahi[e] = __float_as_uint(hi[o[e]]);
+    alo[e] = __float_as_uint(lo[o[e]]);
+  }
+}
+
+// The B fragment of M^T for 8 rows of M (the B column n = row n + g) and
+// the same k-step, with x = row_offsets of those rows: (n + g, 4 j + t)
+// and (n + g, 4 j + t + 4).
+template <int D>
+__device__ __forceinline__ void frag_bt(const float* hi, const float* lo, const int (&x)[8],
+                                        int j, uint32_t (&bhi)[2], uint32_t (&blo)[2]) {
+  bhi[0] = __float_as_uint(hi[x[j]]);
+  bhi[1] = __float_as_uint(hi[x[j + 1]]);
+  blo[0] = __float_as_uint(lo[x[j]]);
+  blo[1] = __float_as_uint(lo[x[j + 1]]);
+}
+
+// The B fragment of M for a k-step of 8 rows and the 8 columns 8 b .. 8 b
+// + 7 of a 32-column group, rows in the permuted order of an A fragment
+// made from an accumulator (column t is row 2t, column t + 4 row 2t + 1),
+// with x = pair_offsets of those rows: rows 2t and 2t + 1 of column 8 b +
+// g.
+template <int D>
+__device__ __forceinline__ void frag_bk(const float* hi, const float* lo, const int (&x)[8],
+                                        int b, uint32_t (&bhi)[2], uint32_t (&blo)[2]) {
+  bhi[0] = __float_as_uint(hi[x[2 * b]]);
+  bhi[1] = __float_as_uint(hi[x[2 * b + 1]]);
+  blo[0] = __float_as_uint(lo[x[2 * b]]);
+  blo[1] = __float_as_uint(lo[x[2 * b + 1]]);
+}
+
+// part[b] += A B over one k-step for the four 8-column tiles b of a
+// 32-column group of B (plane pair hi / lo offset to the group and the
+// k-step's rows, x = pair_offsets): each of the three products issued for
+// the four tiles in turn, so that four independent accumulators, not one,
+// carry each mma's latency.
+template <int D>
+__device__ __forceinline__ void mma_group(float (&part)[4][4], const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4], const float* hi,
+                                          const float* lo, const int (&x)[8]) {
+  uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) frag_bk<D>(hi, lo, x, b, bhi[b], blo[b]);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) mma_tf32(part[b], alo, bhi[b]);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) mma_tf32(part[b], ahi, blo[b]);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) mma_tf32(part[b], ahi, bhi[b]);
+}
+
+// hi = tf32(x), lo = tf32(x - hi), each rounded as cvt.rna rounds (to
+// nearest, ties away from zero: add half of the 13 dropped bits' range to
+// the magnitude, clear them) by two integer operations: for a finite x
+// split_tf32's bits, where ptxas expands each cvt.rna into four
+// instructions (csrc/ssd.cu). A NaN or an infinity still ends in NaN
+// products. The splits are what these kernels spend on top of their mma: a
+// walked tile's operands are split once a tile, P and dS once a score.
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// An accumulator tile (rows g and g + 8, columns 2t and 2t + 1 of an 8-wide
+// k-step) split as the A fragment of the next product, in the permuted
+// order: column t is 2t, column t + 4 is 2t + 1. No shuffles.
+__device__ __forceinline__ void acc_to_a(const float (&e)[4], uint32_t (&ahi)[4],
+                                         uint32_t (&alo)[4]) {
+  split_rna(e[0], ahi[0], alo[0]);   // (g,     2t)
+  split_rna(e[2], ahi[1], alo[1]);   // (g + 8, 2t)
+  split_rna(e[1], ahi[2], alo[2]);   // (g,     2t + 1)
+  split_rna(e[3], ahi[3], alo[3]);   // (g + 8, 2t + 1)
+}
+
+// One k-step of the two score products of a warp (K5: S = Q K^T and dP =
+// dO V^T; K6: S^T and dP^T), WN / 8 column tiles each, in 3xTF32: x / y
+// are the A fragments (Q, dO), bx / by the B fragments (K, V) per column
+// tile. The two cross terms are summed apart, in s_x / d_x: the tensor
+// core rounds each accumulation toward zero, so a chain of mma into one
+// register drifts by up to an ulp of the running sum a step, all one way;
+// the sum then takes one accumulation a k-step instead of three, and the
+// cross sums (about 2^-11 of it) drift by ulps of a far smaller number.
+// Each term is issued for every accumulator in turn, so that 4 WN / 8
+// independent chains carry the mma latency.
+template <int N>
+__device__ __forceinline__ void score_step(float (&s)[N][4], float (&s_x)[N][4],
+                                           float (&d)[N][4], float (&d_x)[N][4],
+                                           const uint32_t (&xhi)[4], const uint32_t (&xlo)[4],
+                                           const uint32_t (&yhi)[4], const uint32_t (&ylo)[4],
+                                           const uint32_t (&bxhi)[N][2],
+                                           const uint32_t (&bxlo)[N][2],
+                                           const uint32_t (&byhi)[N][2],
+                                           const uint32_t (&bylo)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(s_x[n], xlo, bxhi[n]);
+    mma_tf32(d_x[n], ylo, byhi[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(s_x[n], xhi, bxlo[n]);
+    mma_tf32(d_x[n], yhi, bylo[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(s[n], xhi, bxhi[n]);
+    mma_tf32(d[n], yhi, byhi[n]);
+  }
+}
+
+__device__ __forceinline__ void store_split(const float4 x, float* hi, float* lo) {
+  uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+  split_rna(x.x, h0, l0);
+  split_rna(x.y, h1, l1);
+  split_rna(x.z, h2, l2);
+  split_rna(x.w, h3, l3);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h0, h1, h2, h3);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l0, l1, l2, l3);
+}
+
+// Rows r0 .. r0 + OWN - 1 of a row-major (n x D) matrix into the hi and lo
+// planes at dst (lo OWN_PLANE after hi), rows at or past n as zeros. Once
+// a block: the loads are plain, all of a thread's issued together.
+template <int D>
+__device__ __forceinline__ void split_own(float* dst, const float* src, int r0, int n) {
+  constexpr int C4 = D / 4;
+  static_assert(OWN * C4 % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < OWN * C4 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int row = i / C4, c = i % C4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + row < n) x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + row) * D) + c);
+    const int o = swz<D>(row, 4 * c);
+    store_split(x, dst + o, dst + Smem<D>::OWN_PLANE + o);
+  }
+}
+
+// Rows r0 .. r0 + WALK - 1 of two row-major (n x D) matrices a and b into
+// the landing buffer by 16-byte cp.async, rows at or past n zero-filled.
+template <int D>
+__device__ __forceinline__ void land(float* raw, const float* a, const float* b, int r0, int n) {
+  constexpr int C4 = D / 4, PER = WALK * C4;
+  static_assert(PER % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < 2 * PER / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int row = i % PER / C4, c = i % C4;
+    const float* src = i < PER ? a : b;
+    const bool live = r0 + row < n;
+    cp_async16(raw + 4 * i, live ? src + (size_t)(r0 + row) * D + 4 * c : src, live);
+  }
+}
+
+// The landed pair into the walked planes at dst (A hi, A lo, B hi, B lo).
+// Each thread splits the chunks it copied, so its own cp.async.wait_group
+// is all it waits for, and the landing buffer is free for the next pair as
+// soon as it has split them.
+template <int D>
+__device__ __forceinline__ void split_walk(const float* raw, float* dst) {
+  constexpr int C4 = D / 4, PER = WALK * C4, P = Smem<D>::WALK_PLANE;
+#pragma unroll
+  for (int j = 0; j < 2 * PER / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int row = i % PER / C4, c = i % C4;
+    float* plane = dst + (i < PER ? 0 : 2 * P) + swz<D>(row, 4 * c);
+    store_split(*reinterpret_cast<const float4*>(raw + 4 * i), plane, plane + P);
+  }
+}
+
+// The two halves' sums of one own row block, added in a fixed order: the
+// second half's warps leave theirs in `part` (OWN x D, in the own planes,
+// which nothing reads after the walk), the first half's add them to their
+// own. Every thread calls it.
+template <int D>
+__device__ __forceinline__ void add_halves(float (&acc)[D / 8][4], float* part, bool second,
+                                           int lr, int g, int t) {
+  __syncthreads();
+  if (second) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      *reinterpret_cast<float2*>(part + swz<D>(lr + g, 8 * dn + 2 * t)) =
+          make_float2(acc[dn][0], acc[dn][1]);
+      *reinterpret_cast<float2*>(part + swz<D>(lr + g + 8, 8 * dn + 2 * t)) =
+          make_float2(acc[dn][2], acc[dn][3]);
+    }
+  }
+  __syncthreads();
+  if (!second) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const float2 x = *reinterpret_cast<const float2*>(part + swz<D>(lr + g, 8 * dn + 2 * t));
+      const float2 y =
+          *reinterpret_cast<const float2*>(part + swz<D>(lr + g + 8, 8 * dn + 2 * t));
+      acc[dn][0] += x.x;
+      acc[dn][1] += x.y;
+      acc[dn][2] += y.x;
+      acc[dn][3] += y.y;
+    }
+  }
+}
+
+// Rows row and row + 8 (those below n) of a (n x D) output, times mul.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 8][4], int row,
+                                           int n, int t, float mul) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = 8 * dn + 2 * t;
+    if (row < n)
+      *reinterpret_cast<float2*>(out + (size_t)row * D + col) =
+          make_float2(mul * acc[dn][0], mul * acc[dn][1]);
+    if (row + 8 < n)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8) * D + col) =
+          make_float2(mul * acc[dn][2], mul * acc[dn][3]);
+  }
+}
+
+// -- K5: dQ. Own Q and dO (64 q rows of one (b, q head)); walked K, V.
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
+fa2_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int kv_len,
+                   float scale, int causal, int window, float softcap, int order) {
+  using L = Smem<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* const qs = smem + L::OA;     // Q hi, lo
+  float* const os = smem + L::OB;     // dO hi, lo
+  float* const ks = smem + L::WA;     // K hi, lo, then V hi, lo
+  float* const vs = smem + L::WB;
+  float* const raw = smem + L::RAW;
+
+  const int nm = (Sq + OWN - 1) / OWN;
+  const bool paired = PAIRED && causal;
+  int b, h, pb;
+  decode_block(paired ? (nm + 1) / 2 : nm, Hq, order, b, h, pb);
+  const int hk = h / (Hq / Hkv);
+  const size_t qoff = ((size_t)b * Hq + h) * (size_t)Sq;
+  const float* kh = k + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
+  const float* vh = v + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
+  const int live = min(Skv, kv_len);
+
+  // Warp w owns q rows lr .. lr + 15 and keys wk .. wk + WN - 1 of every
+  // walked tile; this thread rows r_lo + g and r_lo + g + 8.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = 16 * (warp % ROW_WARPS);
+  const int wk = WN * (warp / ROW_WARPS);
+  const bool second = warp >= ROW_WARPS;
+  int xq[8], xk[8], xkp[8];   // Q / dO rows, K / V rows for S and dP, K rows for dQ
+  row_offsets<D>(xq, lr, g, t);
+  row_offsets<D>(xk, wk, g, t);
+  pair_offsets<D>(xkp, wk, g, t);
+  const float dead_row = __uint_as_float(0xff800000u);   // -inf: 2^(x - inf) = 0
+  const float scale2 = scale * LOG2E;
+  const float cap_scale = SOFTCAP ? scale / softcap : 0.f;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    const int mb = pass == 0 ? pb : nm - 1 - pb;
+    if (pass == 1) {
+      if (!paired || mb == pb) break;
+      __syncthreads();   // the first tile's sums have left the own planes
+    }
+    const int q0 = mb * OWN;
+    int n_lo, n_hi;
+    kv_tile_range(q0, OWN, WALK, live, causal, window, n_lo, n_hi);
+    const int ntiles = max(0, n_hi - n_lo);
+    if (ntiles > 0) {
+      land<D>(raw, kh, vh, n_lo * WALK, Skv);
+      cp_async_commit();
+    }
+    split_own<D>(qs, q + qoff * D, q0, Sq);
+    split_own<D>(os, dout + qoff * D, q0, Sq);
+    const int r_lo = q0 + lr;
+    float nl[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_lo + g + 8 * r;
+      const float l = row < Sq ? lse[qoff + row] : NEG_INF_F;
+      nl[r] = l > ROW_DEAD ? -l * LOG2E : dead_row;
+      dl[r] = row < Sq ? delta[qoff + row] : 0.f;
+    }
+    float acc[D / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+    for (int it = 0; it < ntiles; ++it) {
+      // This thread's chunks of tile it have landed: split them, then land
+      // tile it + 1 while this one multiplies.
+      cp_async_wait_all();
+      split_walk<D>(raw, ks);
+      if (it + 1 < ntiles) {
+        land<D>(raw, kh, vh, (n_lo + it + 1) * WALK, Skv);
+        cp_async_commit();
+      }
+      __syncthreads();
+      const int c0 = (n_lo + it) * WALK + wk;   // this warp's first key
+      const bool dead = r_lo >= Sq || c0 >= live || (causal && c0 > r_lo + 15) ||
+                        (window > 0 && c0 + WN - 1 <= r_lo - window);
+      if (!dead) {
+        // S = Q K^T and dP = dO V^T (16 x WN), k-steps over D.
+        float s[WN / 8][4], dp[WN / 8][4], s_x[WN / 8][4], dp_x[WN / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < WN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = s_x[nt][e] = dp_x[nt][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < D; kc += 32) {
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) {   // the k-step of columns kc + 4 j .. + 7
+            uint32_t qhi[4], qlo[4], ohi[4], olo[4];
+            uint32_t khi[WN / 8][2], klo[WN / 8][2], vhi[WN / 8][2], vlo[WN / 8][2];
+            frag_a<D>(qs + kc, qs + L::OWN_PLANE + kc, xq, j, qhi, qlo);
+            frag_a<D>(os + kc, os + L::OWN_PLANE + kc, xq, j, ohi, olo);
+#pragma unroll
+            for (int nt = 0; nt < WN / 8; ++nt) {
+              const int o = kc + 8 * nt * D;
+              frag_bt<D>(ks + o, ks + L::WALK_PLANE + o, xk, j, khi[nt], klo[nt]);
+              frag_bt<D>(vs + o, vs + L::WALK_PLANE + o, xk, j, vhi[nt], vlo[nt]);
+            }
+            score_step(s, s_x, dp, dp_x, qhi, qlo, ohi, olo, khi, klo, vhi, vlo);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < WN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[nt][e] += s_x[nt][e];
+            dp[nt][e] += dp_x[nt][e];
+          }
+        const bool edge = c0 + WN > live || (causal && c0 + WN - 1 > r_lo) ||
+                          (window > 0 && c0 <= r_lo + 15 - window);
+        // dS = P (dP - delta), split as the A fragments of dQ += dS K.
+        uint32_t ahi[WN / 8][4], alo[WN / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < WN / 8; ++nt) {
+          float e[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1;
+            float f;
+            float p = recompute_p<SOFTCAP>(s[nt][i], nl[r], scale2, cap_scale, softcap, &f);
+            if (edge && !visible(c0 + 8 * nt + 2 * t + (i & 1), r_lo + g + 8 * r, live, causal,
+                                 window))
+              p = 0.f;
+            e[i] = p * (dp[nt][i] - dl[r]) * f;
+          }
+          acc_to_a(e, ahi[nt], alo[nt]);
+        }
+        // dQ += dS K by 32-column groups: each group sums this tile's WN
+        // keys in zeroed accumulators, then adds them to the walk's sums in
+        // float32, so no chain of mma runs over the whole walk.
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c) {
+          float part[4][4] = {};
+#pragma unroll
+          for (int nt = 0; nt < WN / 8; ++nt) {
+            const int o = 8 * nt * D + 32 * c;
+            mma_group<D>(part, ahi[nt], alo[nt], ks + o, ks + L::WALK_PLANE + o, xkp);
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[4 * c + n][e] += part[n][e];
+        }
+      }
+      __syncthreads();   // the walked planes are free for the next split
+    }
+
+    if constexpr (HALVES > 1) add_halves<D>(acc, smem, second, lr, g, t);
+    if (!second) store_rows<D>(dq + qoff * D, acc, r_lo + g, Sq, t, scale);
+  }
+}
+
+// -- K6: dK, dV. Own K and V (64 kv rows of one (b, kv head)); walked Q and
+// dO of the GQA group's q heads, each head's live q tiles in turn.
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
+fa2_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv, int Sq,
+                    int Skv, int kv_len, float scale, int causal, int window, float softcap,
+                    int order) {
+  using L = Smem<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* const ks = smem + L::OA;     // K hi, lo
+  float* const vs = smem + L::OB;     // V hi, lo
+  float* const qs = smem + L::WA;     // Q hi, lo, then dO hi, lo
+  float* const os = smem + L::WB;
+  float* const raw = smem + L::RAW;
+  float* const cols = smem + L::COLS;
+
+  const int nkv = (Skv + OWN - 1) / OWN;
+  const bool paired = PAIRED && causal;
+  int b, hk, pb;
+  decode_block(paired ? (nkv + 1) / 2 : nkv, Hkv, order, b, hk, pb);
+  const int group = Hq / Hkv;
+  const size_t kvoff = ((size_t)b * Hkv + hk) * (size_t)Skv;
+  const int live = min(Skv, kv_len);
+  const int nm = (Sq + WALK - 1) / WALK;
+  const float dead_row = __uint_as_float(0xff800000u);   // -inf: 2^(x - inf) = 0
+  const bool fetcher = threadIdx.x < 2 * WALK;
+
+  // Warp w owns kv rows lr .. lr + 15 and q rows wq .. wq + WN - 1 of every
+  // walked tile; this thread kv rows k_lo + g and k_lo + g + 8.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = 16 * (warp % ROW_WARPS);
+  const int wq = WN * (warp / ROW_WARPS);
+  const bool second = warp >= ROW_WARPS;
+  int xk[8], xq[8], xqp[8];   // K / V rows, Q / dO rows for S^T and dP^T, for dV and dK
+  row_offsets<D>(xk, lr, g, t);
+  row_offsets<D>(xq, wq, g, t);
+  pair_offsets<D>(xqp, wq, g, t);
+  const float scale2 = scale * LOG2E;
+  const float cap_scale = SOFTCAP ? scale / softcap : 0.f;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    const int nb = pass == 0 ? pb : nkv - 1 - pb;
+    if (pass == 1) {
+      if (!paired || nb == pb) break;
+      __syncthreads();   // the first tile's sums have left the own planes
+    }
+    const int c0 = nb * OWN;
+    // Live q tiles of these keys: none if all are past kv_len; causal rows
+    // >= c0; window rows <= c0 + OWN - 1 + window - 1.
+    const int m_lo = causal ? c0 / WALK : 0;
+    int m_hi = c0 < live ? nm : 0;
+    if (window > 0) m_hi = min(m_hi, (c0 + OWN - 1 + window - 1) / WALK + 1);
+    const int nq = max(0, m_hi - m_lo);
+    const int ntiles = group * nq;
+    // Walked tile t: q head hk * group + t / nq, rows from (m_lo + t % nq) * WALK.
+    auto plane_of = [&](int t) { return (size_t)b * Hq + (size_t)hk * group + t / nq; };
+    auto row_of = [&](int t) { return (m_lo + t % nq) * WALK; };
+    auto land_tile = [&](int t) {
+      const size_t off = plane_of(t) * Sq * D;
+      land<D>(raw, q + off, dout + off, row_of(t), Sq);
+      cp_async_commit();
+    };
+    // Thread i < WALK fetches -lse log2(e) of row i of walked tile t (-inf
+    // past Sq or for a fully masked row), thread WALK + i its delta; one tile
+    // ahead, stored to `cols` when the tile is split.
+    auto fetch = [&](int t) -> float {
+      const int row = row_of(t) + (threadIdx.x & (WALK - 1));
+      const size_t at = plane_of(t) * Sq + row;
+      if (threadIdx.x < WALK) {
+        const float l = row < Sq ? lse[at] : NEG_INF_F;
+        return l > ROW_DEAD ? -l * LOG2E : dead_row;
+      }
+      return row < Sq ? delta[at] : 0.f;
+    };
+    float ahead = 0.f;
+    if (ntiles > 0) {
+      land_tile(0);
+      if (fetcher) ahead = fetch(0);
+    }
+    split_own<D>(ks, k + kvoff * D, c0, Skv);
+    split_own<D>(vs, v + kvoff * D, c0, Skv);
+    const int k_lo = c0 + lr;
+    float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
+
+    for (int it = 0; it < ntiles; ++it) {
+      cp_async_wait_all();
+      split_walk<D>(raw, qs);
+      if (fetcher) cols[threadIdx.x] = ahead;
+      if (it + 1 < ntiles) {
+        land_tile(it + 1);
+        if (fetcher) ahead = fetch(it + 1);
+      }
+      __syncthreads();
+      const int m0 = row_of(it);
+      const int p_lo = m0 + wq;   // this warp's first q row
+      const bool dead = k_lo >= live || p_lo >= Sq || (causal && k_lo > p_lo + WN - 1) ||
+                        (window > 0 && k_lo + 15 <= p_lo - window);
+      if (!dead) {
+        // S^T = K Q^T and dP^T = V dO^T (16 x WN), k-steps over D.
+        float st[WN / 8][4], dpt[WN / 8][4], st_x[WN / 8][4], dpt_x[WN / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < WN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = st_x[nt][e] = dpt_x[nt][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < D; kc += 32) {
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) {   // the k-step of columns kc + 4 j .. + 7
+            uint32_t khi[4], klo[4], vhi[4], vlo[4];
+            uint32_t qhi[WN / 8][2], qlo[WN / 8][2], ohi[WN / 8][2], olo[WN / 8][2];
+            frag_a<D>(ks + kc, ks + L::OWN_PLANE + kc, xk, j, khi, klo);
+            frag_a<D>(vs + kc, vs + L::OWN_PLANE + kc, xk, j, vhi, vlo);
+#pragma unroll
+            for (int nt = 0; nt < WN / 8; ++nt) {
+              const int o = kc + 8 * nt * D;
+              frag_bt<D>(qs + o, qs + L::WALK_PLANE + o, xq, j, qhi[nt], qlo[nt]);
+              frag_bt<D>(os + o, os + L::WALK_PLANE + o, xq, j, ohi[nt], olo[nt]);
+            }
+            score_step(st, st_x, dpt, dpt_x, khi, klo, vhi, vlo, qhi, qlo, ohi, olo);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < WN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[nt][e] += st_x[nt][e];
+            dpt[nt][e] += dpt_x[nt][e];
+          }
+        const bool edge = k_lo + 15 >= live || (causal && k_lo + 15 > p_lo) ||
+                          (window > 0 && k_lo <= p_lo + WN - 1 - window);
+        // P^T and dS^T, split as the A fragments of dV += P^T dO and dK +=
+        // dS^T Q; lse and delta are per column, from `cols`.
+        uint32_t phi[WN / 8][4], plo[WN / 8][4], dhi[WN / 8][4], dlo[WN / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < WN / 8; ++nt) {
+          float pe[4], de[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1;
+            const int c = wq + 8 * nt + 2 * t + (i & 1);
+            float f;
+            float p = recompute_p<SOFTCAP>(st[nt][i], cols[c], scale2, cap_scale, softcap, &f);
+            if (edge && !visible(k_lo + g + 8 * r, m0 + c, live, causal, window)) p = 0.f;
+            pe[i] = p;
+            de[i] = p * (dpt[nt][i] - cols[WALK + c]) * f;
+          }
+          acc_to_a(pe, phi[nt], plo[nt]);
+          acc_to_a(de, dhi[nt], dlo[nt]);
+        }
+        // dV += P^T dO and dK += dS^T Q by 32-column groups, this tile's WN
+        // q rows summed in zeroed accumulators, then added (as K5's dQ).
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c) {
+          float pv[4][4] = {}, pk[4][4] = {};
+#pragma unroll
+          for (int nt = 0; nt < WN / 8; ++nt) {
+            const int o = 8 * nt * D + 32 * c;
+            mma_group<D>(pv, phi[nt], plo[nt], os + o, os + L::WALK_PLANE + o, xqp);
+            mma_group<D>(pk, dhi[nt], dlo[nt], qs + o, qs + L::WALK_PLANE + o, xqp);
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc_v[4 * c + n][e] += pv[n][e];
+              acc_k[4 * c + n][e] += pk[n][e];
+            }
+        }
+      }
+      __syncthreads();   // the walked planes and cols are free for the next split
+    }
+
+    if constexpr (HALVES > 1) {
+      add_halves<D>(acc_k, smem, second, lr, g, t);
+      add_halves<D>(acc_v, smem + L::OWN_PLANE, second, lr, g, t);
+    }
+    if (!second) {
+      store_rows<D>(dk + kvoff * D, acc_k, k_lo + g, Skv, t, scale);
+      store_rows<D>(dv + kvoff * D, acc_v, k_lo + g, Skv, t, 1.f);
+    }
+  }
+}
+
+template <int D, bool SOFTCAP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, void* dq, int B, int Hq, int Hkv, int Sq, int Skv,
+              int kv_len, float scale, int causal, int window, float softcap, int order,
+              cudaStream_t stream) {
+  const int nm = (Sq + OWN - 1) / OWN;
+  const long long blocks = (long long)B * Hq * (PAIRED && causal ? (nm + 1) / 2 : nm);
   if (blocks <= 0) return 0;
-  fa2_dq_kernel<D><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  const cudaError_t e = allow_smem(fa2_dq_tf32_kernel<D, SOFTCAP>, Smem<D>::bytes);
+  if (e != cudaSuccess) return (int)e;
+  fa2_dq_tf32_kernel<D, SOFTCAP><<<(unsigned)blocks, THREADS, Smem<D>::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
       static_cast<float*>(dq), Hq, Hkv, Sq, Skv, kv_len, scale, causal, window, softcap,
@@ -1433,23 +1800,25 @@ int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dk, void* dv, int B, int Hq,
-                   int Hkv, int Sq, int Skv, int kv_len, float scale, int causal, int window,
-                   float softcap, int order, cudaStream_t stream) {
-  const size_t smem = BwdSmem<D>::dkv_bytes;
-  cudaError_t err = allow_smem(fa2_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * Hkv * ((Skv + BN - 1) / BN);
+template <int D, bool SOFTCAP>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+               int kv_len, float scale, int causal, int window, float softcap, int order,
+               cudaStream_t stream) {
+  const int nkv = (Skv + OWN - 1) / OWN;
+  const long long blocks = (long long)B * Hkv * (PAIRED && causal ? (nkv + 1) / 2 : nkv);
   if (blocks <= 0) return 0;
-  fa2_dkv_kernel<D><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  const cudaError_t e = allow_smem(fa2_dkv_tf32_kernel<D, SOFTCAP>, Smem<D>::bytes);
+  if (e != cudaSuccess) return (int)e;
+  fa2_dkv_tf32_kernel<D, SOFTCAP><<<(unsigned)blocks, THREADS, Smem<D>::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
       static_cast<float*>(dk), static_cast<float*>(dv), Hq, Hkv, Sq, Skv, kv_len, scale,
       causal, window, softcap, order);
   return (int)cudaGetLastError();
 }
+
+}  // namespace f32
 
 }  // namespace
 
@@ -1475,16 +1844,31 @@ int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout
   return FN(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Skv, kv_len, scale, causal, \
             window, softcap, order, parts, scratch, static_cast<cudaStream_t>(stream))
 
-// float32 on the CUDA cores.
-extern "C" int fa2_bwd_dq(BWD_DQ_ARGS) {
-  if (D == 128) DQ_PASS(launch_dq_f32<128>);
-  if (D == 64) DQ_PASS(launch_dq_f32<64>);
+// float32 on the tensor cores in 3xTF32, head_dim 64 or 128; 16-byte
+// aligned contiguous rows (the 16-byte loads' requirement).
+extern "C" int fa2_bwd_dq_tf32(BWD_DQ_ARGS) {
+  const bool cap = softcap > 0.f;
+  if (D == 128) {
+    if (cap) DQ_PASS((f32::launch_dq<128, true>));
+    DQ_PASS((f32::launch_dq<128, false>));
+  }
+  if (D == 64) {
+    if (cap) DQ_PASS((f32::launch_dq<64, true>));
+    DQ_PASS((f32::launch_dq<64, false>));
+  }
   return -1;
 }
 
-extern "C" int fa2_bwd_dkv(BWD_DKV_ARGS) {
-  if (D == 128) DKV_PASS(launch_dkv_f32<128>);
-  if (D == 64) DKV_PASS(launch_dkv_f32<64>);
+extern "C" int fa2_bwd_dkv_tf32(BWD_DKV_ARGS) {
+  const bool cap = softcap > 0.f;
+  if (D == 128) {
+    if (cap) DKV_PASS((f32::launch_dkv<128, true>));
+    DKV_PASS((f32::launch_dkv<128, false>));
+  }
+  if (D == 64) {
+    if (cap) DKV_PASS((f32::launch_dkv<64, true>));
+    DKV_PASS((f32::launch_dkv<64, false>));
+  }
   return -1;
 }
 

@@ -27,16 +27,17 @@
 // mamba2 by operations.
 //
 // What the design does about it: the products run on the tensor cores as
-// mma.sync m16n8k8 TF32. TF32 alone keeps 10 mantissa bits, so each float32
-// operand is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna both
-// times: the tensor core ignores the low 13 bits of a raw float32, so the
-// hi it would use is not the one lo was taken from), and each product is
-// lo hi' + hi lo' + hi hi', accumulated in float32: about 22 bits a
-// product, at a third of the TF32 rate (165 TFLOP/s), 2.5x the float32
-// peak. mma.sync and not wgmma: wgmma takes tf32 operands K-major only, and
-// W X and B^T X would need X and B transposed in staging; mma.sync
-// fragments load from either layout with padded ld.shared (rows padded by 4
-// floats: every fragment load below is free of bank conflicts).
+// mma.sync m16n8k8 TF32 (the helpers are csrc/tf32.cuh). TF32 alone keeps
+// 10 mantissa bits, so each float32 operand is split into hi = tf32(x)
+// and lo = tf32(x - hi) (cvt.rna both times: the tensor core ignores the
+// low 13 bits of a raw float32, so the hi it would use is not the one lo
+// was taken from), and each product is lo hi' + hi lo' + hi hi',
+// accumulated in float32: about 22 bits a product, at a third of the TF32
+// rate (165 TFLOP/s), 2.5x the float32 peak. mma.sync and not wgmma: wgmma
+// takes tf32 operands K-major only, and W X and B^T X would need X and B
+// transposed in staging; mma.sync fragments load from either layout with
+// padded ld.shared (rows padded by 4 floats: every fragment load below is
+// free of bank conflicts).
 //
 // A block of 8 warps owns one (b, chunk, head) and walks the causal half:
 // 128 query rows at a time (16 per warp) against key tiles of BK rows (64;
@@ -66,7 +67,7 @@
 // order; with G < H the blocks in flight at once share their group's B and
 // C through L2. No atomics: every output element is summed by one thread
 // in a fixed order, so reruns give the same bits.
-#include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -109,33 +110,6 @@ struct SsdTile {
   static_assert(SSD_BM % BK == 0, "a query tile is a whole number of key tiles");
 };
 
-// hi = tf32(x), lo = tf32(x - hi), both rounded to nearest (ties away).
-// The mask keeps hi exactly the value the tensor core reads, whatever the
-// conversion leaves in the low 13 bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  uint32_t h;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
-  hi = h & 0xffffe000u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32: the two small cross terms first, then hi hi'.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
-                                           const uint32_t (&blo)[2]) {
-  mma_tf32(d, alo, bhi);
-  mma_tf32(d, ahi, blo);
-  mma_tf32(d, ahi, bhi);
-}
-
 // The B fragment (rows k and k + 4 of an 8 x 8 tile, i.e. elements i and i
 // + step of a plane) from the hi and lo planes of a split stage.
 __device__ __forceinline__ void frag_b(const float* hi, const float* lo, int i, int step,
@@ -145,14 +119,6 @@ __device__ __forceinline__ void frag_b(const float* hi, const float* lo, int i, 
   blo[0] = __float_as_uint(lo[i]);
   blo[1] = __float_as_uint(lo[i + step]);
 }
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool live) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
-               "r"(live ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;"); }
 
 // Row r0 + r of a row-strided (q x W) matrix, 16-byte chunk c4 / 4, into
 // dst; rows at or past q are zero-filled (the source then reads nothing).

@@ -3,7 +3,8 @@
 K1 ``flash_attention.flash_attention_fwd`` (``flash_attention_fwd_tc``
 counts its bf16 tensor-core launches alone), K5/K6
 ``flash_attention_bwd.flash_attention_bwd`` (dQ / dK-dV; the ``_tc``
-counters likewise), K2
+counters likewise, the ``_tf32`` ones its float32 launches, on the tensor
+cores in 3xTF32), K2
 ``paged_prefill_attention.paged_flash_prefill`` (``paged_flash_prefill_tc``
 counts its bf16 tensor-core launches alone, ``paged_flash_prefill_q`` its
 launches over a quantized pool, which the other two do not count, and
@@ -49,6 +50,8 @@ _COUNTERS = {
     "flash_attention_bwd_dkv": (flash_attention_bwd, "launches", "dkv"),
     "flash_attention_bwd_dq_tc": (flash_attention_bwd, "launches", "dq_tc"),
     "flash_attention_bwd_dkv_tc": (flash_attention_bwd, "launches", "dkv_tc"),
+    "flash_attention_bwd_dq_tf32": (flash_attention_bwd, "launches", "dq_tf32"),
+    "flash_attention_bwd_dkv_tf32": (flash_attention_bwd, "launches", "dkv_tf32"),
     "paged_flash_prefill": (paged_prefill_attention, "launches", None),
     "paged_flash_prefill_tc": (paged_prefill_attention, "launches_tc", None),
     "paged_flash_prefill_q": (paged_prefill_attention, "launches_q", None),

@@ -9,9 +9,11 @@ rounded to bf16 before their products) at head_dim 64, 128 and 256 (the
 gemma family: both warpgroups of a block on 64 shared rows, each
 accumulating half of D's columns; causal K5 issues its longest walks first,
 and K6 splits walks too long for the card's blocks into parts summed in a
-fixed order, :func:`dkv_parts`), float32 ``fa2_bwd_dq`` /
-``fa2_bwd_dkv`` on the CUDA cores in float32 at head_dim 64 and 128. Each pair is launched by its
-own wrapper (:func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`);
+fixed order, :func:`dkv_parts`), float32 ``fa2_bwd_dq_tf32`` /
+``fa2_bwd_dkv_tf32`` on the tensor cores in 3xTF32 (``mma.sync m16n8k8``;
+each float32 operand, P and dS included, split into two TF32 parts, each
+product the sum of three, about 22 bits) at head_dim 64 and 128. Each pair
+is launched by its own wrapper (:func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`);
 :func:`flash_attention_bwd` launches both for CUDA tensors and runs
 :func:`flash_attention_bwd_plain` for CPU tensors. ``delta = rowsum(dO * O)``
 is computed here in PyTorch, outside the kernels, as the JAX package
@@ -41,8 +43,9 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.ref import NEG_INF, _expand_kv, _softcap, score_blocks
 
 #: Launches of K5 ("dq") and K6 ("dkv") since the last reset, either dtype;
-#: "dq_tc" / "dkv_tc" count those of the bf16 tensor-core kernels alone.
-launches = {"dq": 0, "dkv": 0, "dq_tc": 0, "dkv_tc": 0}
+#: "dq_tc" / "dkv_tc" count those of the bf16 tensor-core kernels alone,
+#: "dq_tf32" / "dkv_tf32" those of the float32 kernels (3xTF32).
+launches = {"dq": 0, "dkv": 0, "dq_tc": 0, "dkv_tc": 0, "dq_tf32": 0, "dkv_tf32": 0}
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=None,
@@ -107,8 +110,9 @@ def _bwd_plain(q, k, v, o, lse, do, causal, window, softcap, scale, kv_len):
 
 
 #: (kernel, dtype) -> the C entry point that takes it.
-_ENTRY = {("dq", torch.float32): "fa2_bwd_dq", ("dq", torch.bfloat16): "fa2_bwd_dq_tc",
-          ("dkv", torch.float32): "fa2_bwd_dkv", ("dkv", torch.bfloat16): "fa2_bwd_dkv_tc"}
+_ENTRY = {("dq", torch.float32): "fa2_bwd_dq_tf32", ("dq", torch.bfloat16): "fa2_bwd_dq_tc",
+          ("dkv", torch.float32): "fa2_bwd_dkv_tf32",
+          ("dkv", torch.bfloat16): "fa2_bwd_dkv_tc"}
 _fns = {}
 
 
@@ -215,8 +219,7 @@ def _args(q, k, mapping, causal, window, softcap, scale, kv_len):
 
 def _count(which: str, dtype) -> None:
     launches[which] += 1
-    if dtype == torch.bfloat16:
-        launches[which + "_tc"] += 1
+    launches[which + ("_tc" if dtype == torch.bfloat16 else "_tf32")] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
@@ -225,8 +228,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """K5 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype, from the forward's
     ``lse`` and ``delta = rowsum(dO * O)`` (both (B, Hq, Sq) float32). bf16
-    runs on the tensor cores (D 64, 128 or 256), float32 on the CUDA cores
-    (D 64 or 128); inputs must be contiguous and 16-byte aligned."""
+    runs on the tensor cores (D 64, 128 or 256), float32 on the tensor
+    cores in 3xTF32 (D 64 or 128); inputs must be contiguous and 16-byte
+    aligned."""
     _check_bwd_inputs(q, k, v, do, lse, delta, mapping)
     build.refuse_grad("flash_attention_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)

@@ -7,7 +7,12 @@ with the telemetry of ``repro_torch.obs`` attached:
     requests/s, summed into a wall-clock schedule. The harness releases each
     request when its arrival time passes, steps the engine while it has
     work, and sleeps toward the next arrival when idle, so queueing delay is
-    measured, not simulated.
+    measured, not simulated. ``--smoke-tiered`` releases them on the
+    engine's step clock instead (each step advances it by ``TIERED_STEP_S``
+    seconds, an idle engine jumps to the next arrival), so which requests
+    meet in a batch does not depend on the host's speed: on the wall clock
+    its preemption count depends on how fast the host steps the engine
+    against 100 arrivals a second.
   * **Workload mix**: prompt tails and output budgets are drawn from
     weighted mixes, and a fraction of requests shares a system prefix
     (page-aligned, so the paged backend's prefix cache hits).
@@ -67,6 +72,14 @@ OUTPUT_MIX: Tuple[Tuple[int, float], ...] = ((4, 0.6), (8, 0.3), (12, 0.1))
 PROMPT_BUCKETS: Tuple[int, ...] = (16, 32, 64)
 #: Warm-up requests take uids from here up; measured uids stay below.
 PILOT_UID = 10_000_000
+#: ``--smoke-tiered``'s step clock: one engine step advances the arrival
+#: clock by this many seconds (about one mean gap at the JAX CI's 100
+#: requests/s), whatever the step's wall time.
+TIERED_STEP_S = 0.01
+#: ``--smoke`` runs each (layout, steps_per_sync) this many times and
+#: compares the least host overhead per token of each: one run's residual
+#: takes every stall the host scheduler adds to it.
+SMOKE_RUNS = 3
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -162,24 +175,33 @@ def _warmup(engine: LLMEngine, cfg, rng, workload) -> None:
     engine.reset_metrics()
 
 
-def drive(engine: LLMEngine, workload, *, idle_sleep_cap: float = 0.01, on_step=None):
+def drive(engine: LLMEngine, workload, *, idle_sleep_cap: float = 0.01, on_step=None,
+          step_s: Optional[float] = None):
     """Open-loop drive: release requests at their arrival times, step while
     the engine has work, sleep toward the next arrival when idle. Returns
     the finished ``RequestOutput`` list. ``on_step(engine)`` runs after
-    every step."""
+    every step. With ``step_s`` the arrival clock is the engine's steps,
+    ``step_s`` seconds each (an idle engine jumps to the next arrival), not
+    the wall clock."""
     pending = sorted(workload, key=lambda a: a[0])
     done = []
     i = 0
     t0 = time.perf_counter()
+    clock = 0.0
     while i < len(pending) or engine.backend.active.any() or engine.scheduler.has_work():
-        now = time.perf_counter() - t0
+        now = clock if step_s is not None else time.perf_counter() - t0
         while i < len(pending) and pending[i][0] <= now:
             engine.add_request(pending[i][1])
             i += 1
         if not engine.backend.active.any() and not engine.scheduler.has_work():
-            time.sleep(min(max(pending[i][0] - now, 0.0), idle_sleep_cap))
+            if step_s is not None:
+                clock = pending[i][0]
+            else:
+                time.sleep(min(max(pending[i][0] - now, 0.0), idle_sleep_cap))
             continue
         done.extend(o for o in engine.step() if o.finished)
+        if step_s is not None:
+            clock += step_s
         if on_step is not None:
             on_step(engine)
     return done
@@ -202,6 +224,7 @@ def run_one(args, kv_layout: str, *, cfg=None, params=None, prompt_mix=PROMPT_MI
         steps = int(steps)
     kv_dtype = getattr(args, "kv_dtype", "fp32") or "fp32"
     host_pool = int(getattr(args, "host_pool_bytes", 0) or 0)
+    step_s = getattr(args, "arrival_step_s", None)
     if params is None:
         params = transformer.init_model(cfg, seed=args.seed, device=device)
     telemetry = Telemetry.create()
@@ -236,7 +259,7 @@ def run_one(args, kv_layout: str, *, cfg=None, params=None, prompt_mix=PROMPT_MI
             peak["pages"] = max(peak["pages"], int(pool.used_pages))
 
     t0 = time.perf_counter()
-    done = drive(engine, workload, on_step=_sample)
+    done = drive(engine, workload, on_step=_sample, step_s=step_s)
     wall = time.perf_counter() - t0
     retraces = engine.backend.stats["decode_traces"] - traces_warm
 
@@ -268,6 +291,7 @@ def run_one(args, kv_layout: str, *, cfg=None, params=None, prompt_mix=PROMPT_MI
         "requests": args.requests,
         "finished": len(done),
         "rate_req_s": args.rate,
+        "arrival_clock": "wall" if step_s is None else f"engine steps of {step_s} s",
         "wall_s": wall,
         "steps_per_sync": engine.steps_per_sync,
         "tokens_generated": stats.tokens_generated,
@@ -390,6 +414,7 @@ def main(argv=None):
     if args.smoke_tiered:
         if not args.host_pool_bytes:
             args.host_pool_bytes = 1 << 20
+        args.arrival_step_s = TIERED_STEP_S
         payload = run_one(args, "paged")
         _smoke_check(payload)
         pf = payload["prefix"]
@@ -402,27 +427,35 @@ def main(argv=None):
         return
 
     if args.smoke:
-        # Both layouts x N in {1, 8}: each run passes the smoke checks; the
-        # N 8 run builds no program after warm-up and pays less host time per
-        # token than the N 1 run.
+        # Both layouts x N in {1, 8}, each SMOKE_RUNS times: every run passes
+        # the smoke checks; every N 8 run builds no program after warm-up;
+        # the N 8 runs' least host time per token is below the N 1 runs'.
         sweep: Dict[str, Dict[int, Dict]] = {}
+        runs: Dict[str, Dict[int, List[float]]] = {}
         for layout in ("dense", "paged"):
-            sweep[layout] = {}
+            sweep[layout], runs[layout] = {}, {}
             for n in (1, 8):
                 args.steps_per_sync = n
-                payload = run_one(args, layout)
-                _smoke_check(payload)
-                if n > 1:
-                    assert payload["decode_retraces_after_warmup"] == 0, (
-                        layout, n, payload["decode_retraces_after_warmup"])
-                sweep[layout][n] = payload
+                runs[layout][n] = []
+                for _ in range(SMOKE_RUNS):
+                    payload = run_one(args, layout)
+                    _smoke_check(payload)
+                    if n > 1:
+                        assert payload["decode_retraces_after_warmup"] == 0, (
+                            layout, n, payload["decode_retraces_after_warmup"])
+                    runs[layout][n].append(payload["host_overhead_per_token_s"])
+                    best = sweep[layout].get(n)
+                    if best is None or (payload["host_overhead_per_token_s"]
+                                        < best["host_overhead_per_token_s"]):
+                        sweep[layout][n] = payload
             base, fused = sweep[layout][1], sweep[layout][8]
             assert fused["host_overhead_per_token_s"] < base["host_overhead_per_token_s"], (
-                layout, base["host_overhead_per_token_s"], fused["host_overhead_per_token_s"])
+                layout, runs[layout])
         overhead = {
             layout: {
                 f"n{n}": {
                     "host_overhead_per_token_s": p["host_overhead_per_token_s"],
+                    "host_overhead_per_token_s_runs": runs[layout][n],
                     "modeled_host_overhead_s": p["modeled_host_overhead_s"],
                     "measured_tok_s": p["measured_tok_s"],
                     "tokens_generated": p["tokens_generated"],

@@ -346,11 +346,14 @@ def _bwd_case(rng, dev, dt, hq, hkv, sq, skv, d, **kw):
     return q, k, v, o.contiguous(), lse.contiguous(), do
 
 
-def _bwd_routes(counts, dt) -> bool:
-    """One K5 and one K6 launch, on the tensor cores exactly when bf16."""
-    tc = int(dt == torch.bfloat16)
-    return (counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 1
-            and counts["flash_attention_bwd_dq_tc"] == counts["flash_attention_bwd_dkv_tc"] == tc)
+def _bwd_routes(counts, dt, n=1) -> bool:
+    """``n`` K5 and ``n`` K6 launches, on the bf16 tensor-core kernels (the
+    ``_tc`` counters) for bf16, on the 3xTF32 ones (``_tf32``) for float32."""
+    tc = n * int(dt == torch.bfloat16)
+    return (counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == n
+            and counts["flash_attention_bwd_dq_tc"] == counts["flash_attention_bwd_dkv_tc"] == tc
+            and counts["flash_attention_bwd_dq_tf32"] == counts["flash_attention_bwd_dkv_tf32"]
+            == n - tc)
 
 
 @pytest.mark.parametrize("order", [fa.HEAD_FIRST, fa.BLOCK_FIRST])
@@ -363,8 +366,9 @@ def _bwd_routes(counts, dt) -> bool:
     ((4, 1, 130, 170), dict(causal=False, kv_len=150)),
 ], ids=["gqa_causal", "gqa_window_softcap_odd", "mha_odd", "mqa_noncausal_kvlen"])
 def test_flash_bwd_matches_plain(cuda, order, dtype, d, shape, kw):
-    """bf16 runs the tensor-core K5 / K6 (their counters move), float32 the
-    CUDA-core ones (theirs do not)."""
+    """bf16 runs the bf16 tensor-core K5 / K6 (the ``_tc`` counters move),
+    float32 the 3xTF32 ones (the ``_tf32`` counters), each per (b, head)
+    slice within its dtype's bar."""
     dt = DTYPES[dtype]
     args = _bwd_case(np.random.default_rng(50), cuda, dt, *shape, d, **kw)
     kernels.reset_launch_counts()
@@ -419,6 +423,44 @@ def test_flash_bwd_orders_agree_exactly(cuda):
     counts = kernels.launch_counts()
     assert counts["flash_attention_bwd_dq_tc"] == counts["flash_attention_bwd_dkv_tc"] == 2
     assert all(torch.equal(a, b) for a, b in zip(hf, bf))
+
+
+def test_flash_bwd_f32_orders_and_reruns_agree_exactly(cuda):
+    """The float32 K5 / K6 (3xTF32) give the same bits head-first and
+    block-first, and in 100 reruns: every output element is summed by one
+    thread in a fixed order, the two halves of a block's walk added once,
+    in a fixed order, at the end. Each run within GRAD_TOL of the plain
+    backward per slice."""
+    kw = dict(causal=True)
+    args = _bwd_case(np.random.default_rng(58), cuda, torch.float32, 8, 2, 300, 300, 128, **kw)
+    kernels.reset_launch_counts()
+    first = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=fa.HEAD_FIRST), **kw)
+    other = fb.flash_attention_bwd(*args, mapping=fa.MappingConfig(order=fa.BLOCK_FIRST), **kw)
+    torch.cuda.synchronize()
+    assert _bwd_routes(kernels.launch_counts(), torch.float32, n=2)
+    assert all(torch.equal(a, b) for a, b in zip(first, other))
+    want = fb.flash_attention_bwd_plain(*args, **kw)
+    assert max(_slice_err(g, w) for g, w in zip(first, want)) <= GRAD_TOL[torch.float32]
+    for _ in range(100):
+        again = fb.flash_attention_bwd(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_bwd_f32_hymba_group_of_five(cuda, window):
+    """hymba-1.5b's head layout on the float32 K5 / K6 (3xTF32): Hq 25 over
+    Hkv 5 (K6 sums a GQA group of 5), D 64, with and without a window, per
+    slice within GRAD_TOL."""
+    kw = dict(causal=True, window=window)
+    args = _bwd_case(np.random.default_rng(59), cuda, torch.float32, 25, 5, 300, 300, 64, **kw)
+    kernels.reset_launch_counts()
+    got = fb.flash_attention_bwd(*args, **kw)
+    counts = kernels.launch_counts()
+    want = fb.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bwd_routes(counts, torch.float32), counts
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _slice_err(g, w) <= GRAD_TOL[torch.float32], name
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -1257,6 +1299,48 @@ def test_train_step_on_kernels_matches_plain_path(cuda):
                             tree_lib.leaves(grads["plain"])):
         assert float((a - b).norm() / b.norm()) <= 1e-4, path
 
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "hymba-1.5b"])
+def test_train_f32_full_width_on_kernels_matches_plain(cuda, arch):
+    """A float32 train step at full width, 2 layers, sequence 1024 (as
+    ``chip_smoke.py``'s ``check_train_f32``): llama3-8b (D 128, GQA 32 / 8)
+    and hymba-1.5b (D 64, GQA 25 / 5, a window-1024 layer, K9 beside the
+    attention) on the kernels, K1 in float32 twice a layer (remat) and K5 /
+    K6 once on the 3xTF32 kernels, against the plain float32 path: the loss
+    within 1e-2 relative (``TRAIN_LOSS_TOL``), each gradient leaf's
+    relative norm within 1e-4 (``FP32_TRAIN_GRAD_TOL``)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    full = {"llama3-8b": llama3_8b.CONFIG, "hymba-1.5b": hymba_1_5b.CONFIG}[arch]
+    cfg = dataclasses.replace(full, n_layers=2, compute_dtype="float32")
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    if cfg.ssm is not None:
+        plain = dataclasses.replace(plain, ssm=dataclasses.replace(cfg.ssm, impl="plain"))
+    batch = ts.to_device(make_pipeline(DataConfig(seq_len=1024, global_batch=1, seed=1,
+                                                  vocab=cfg.vocab)).batch_at(0), cuda)
+    params = transformer.init_model(cfg, seed=1, device=cuda, param_dtype=torch.float32)
+    grads, losses = {}, {}
+    for impl, c in (("auto", cfg), ("plain", plain)):
+        kernels.reset_launch_counts()
+        g, loss, _ = ts._accumulate_grads(params, c, batch, ts.TrainConfig())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        grads[impl] = {tree_lib.key_of(p): t.clone() for p, t in tree_lib.leaves_with_paths(g)}
+        losses[impl] = float(loss)
+        if impl == "auto":
+            assert counts["flash_attention_fwd"] == 2 * 2
+            assert counts["flash_attention_fwd_tc"] == 0
+            assert _bwd_routes(counts, torch.float32, n=2), counts
+            assert counts["ssd_intra_chunk_tc"] == (2 * 2 if cfg.ssm is not None else 0)
+        else:
+            assert sum(counts.values()) == 0
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-2 * abs(losses["plain"])
+    for path, r in grads["plain"].items():
+        g = grads["auto"][path]
+        assert torch.isfinite(g).all(), path
+        assert float((g - r).norm() / r.norm()) <= 1e-4, path
 
 # -- the fused decode as CUDA graphs --------------------------------------------
 

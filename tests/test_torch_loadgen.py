@@ -116,10 +116,12 @@ def test_warmup_resets_measurement():
 
 
 def test_cli_smoke_and_tiered_smoke(tmp_path):
-    """``--smoke`` (both layouts at steps_per_sync 1 and 8: no program built
-    after warm-up at 8, less host time per token than at 1) and
-    ``--smoke-tiered`` with the JAX CI's arguments (demotions, no
-    preemption, a leak-free close) on the CPU."""
+    """``--smoke`` (both layouts at steps_per_sync 1 and 8, three runs each:
+    no program built after warm-up at 8, less host time per token than at
+    1, the least of each side's runs) and ``--smoke-tiered`` with the JAX
+    CI's arguments (demotions, no preemption, a leak-free close; arrivals on
+    the engine's step clock, so the host's speed does not decide which
+    requests meet) on the CPU."""
     loadgen.main(["--smoke", "--device", "cpu", "--out-dir", str(tmp_path)])
     overhead = json.load(open(tmp_path / "loadgen_host_overhead.json"))["payload"]
     for layout in ("dense", "paged"):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The bf16 FA2 backward kernels (K5 dQ, K6 dK/dV) of checkouts side by
-side on one card, and the softcap forms of the head_dim 256 kernels.
+"""The FA2 backward kernels (K5 dQ, K6 dK/dV) of checkouts side by side on
+one card: bf16, float32, and the softcap forms of the head_dim 256 kernels.
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``::
 
-    python3 tools/bwd_ab.py [--d256] [OTHER_ROOT ...]
+    python3 tools/bwd_ab.py [--d256 | --f32] [OTHER_ROOT ...]
     python3 tools/bwd_ab.py --sass OTHER_ROOT [SOURCE ...]
     python3 tools/bwd_ab.py --variants
 
@@ -20,6 +20,8 @@ and without, the wrapper's host time included), runs K5 and K6
 
 * head_dim 128, ``chip_smoke.py``'s K5 / K6 case: B 2, S 2048, Hq 32, Hkv
   8, causal; and the same with window 512 and softcap 50;
+* the first of those in float32, with SDPA's float32 backward on the same
+  inputs (K and V expanded to Hq) timed beside it in every run;
 * head_dim 256, ``chip_smoke.py``'s ``check_gemma_backward`` shapes, in a
   root whose K5 / K6 take it: gemma2-2b's train microbatch (B 1, S 8192, Hq
   8, Hkv 4, softcap 50, global and window 4096) and gemma3-1b's (B 2, S
@@ -27,11 +29,14 @@ and without, the wrapper's host time included), runs K5 and K6
   ``parts`` (its walk split over blocks, summed in a fixed order), K6 is
   also timed with the walk forced into 1, 2, 4, 8 and 16 parts.
 
-``--d256`` runs the head_dim 256 cases alone. Every case's dQ, dK and dV
-are compared bit for bit with those of the first root that ran it (saved
-under ``build/bwd_ab/``), and K6 forced into one part with the first root's
-default; the head_dim 256 ones are also held per (b, head) slice against
-the root's plain backward.
+``--d256`` runs the head_dim 256 cases alone, ``--f32`` the float32 case
+alone. Every bf16 case's dQ, dK and dV are compared bit for bit with those
+of the first root that ran it (saved under ``build/bwd_ab/``), and K6
+forced into one part with the first root's default; the head_dim 256 ones
+are also held per (b, head) slice against the root's plain backward. The
+float32 case is held per slice against the root's plain backward in
+float32 within ``GRAD_F32_TOL`` (its bits differ from root to root where
+the kernels do: the CUDA-core kernels before the 3xTF32 ones).
 
 ``--sass OTHER_ROOT [SOURCE ...]`` compiles ``flash_attention_bwd.cu`` (or
 each SOURCE of ``csrc/``, for example ``paged_decode.cu``) of this checkout
@@ -44,7 +49,9 @@ once as committed and once per entry of ``VARIANTS`` under
 ``build/bwd_variants/``, each a substitution in the source:
 ``ascending`` issues causal K5's blocks at head dim 256 in ascending tile
 order (shortest walks first); then times all at the head_dim 256 cases, in
-turns
+turns; ``--variants --f32`` does the same with ``F32_VARIANTS`` (the float32
+kernels' warp tiling and unroll depth) at the float32 case, held within
+``GRAD_F32_TOL``, in turns
 (committed, each variant, the variants reversed, committed), each held
 against the plain backward. The last line of each run is one JSON object
 of the times.
@@ -67,6 +74,9 @@ SAVED = os.path.join(HERE, "build", "bwd_ab")
 D128_CASES = (("K5/K6 D 128 (B 2, S 2048, Hq 32, Hkv 8)", 2, 32, 8, 128, 2048, None, None),
               ("K5/K6 D 128 (B 2, S 2048, window 512, softcap 50)", 2, 32, 8, 128, 2048, 512,
                50.0))
+#: The float32 case: chip_smoke.py's float32 K5 / K6 timing shape.
+F32_CASES = (("K5/K6 float32 D 128 (B 2, S 2048, Hq 32, Hkv 8)", 2, 32, 8, 128, 2048, None,
+              None),)
 D256_CASES = (("K5/K6 D 256 gemma2-2b (B 1, S 8192, global, softcap 50)", 1, 8, 4, 256, 8192,
                None, 50.0),
               ("K5/K6 D 256 gemma2-2b (B 1, S 8192, window 4096, softcap 50)", 1, 8, 4, 256,
@@ -76,20 +86,32 @@ D256_CASES = (("K5/K6 D 256 gemma2-2b (B 1, S 8192, global, softcap 50)", 1, 8, 
                None))
 #: K6's part counts forced in a root that takes them.
 FORCED_PARTS = (1, 2, 4, 8, 16)
-#: --variants: name -> substitutions (old, new) in flash_attention_bwd.cu.
+#: --variants: name -> substitutions (old, new) in flash_attention_bwd.cu,
+#: each old string replaced wherever it stands.
 VARIANTS = {
-    "ascending": [("  if (causal) mb = nm - 1 - mb;", "")],
+    "ascending": [("  if (causal) mb = nm - 1 - mb;   // the longest walks",
+                   "  // the longest walks")],
+}
+#: --variants --f32: the same for the float32 kernels.
+F32_VARIANTS = {
+    # Causal blocks on one own tile each (not paired with its mirror).
+    "unpaired": [("constexpr bool PAIRED = true;", "constexpr bool PAIRED = false;")],
+    # The splits by cvt.rna (split_tf32) in place of the two integer
+    # operations of split_rna.
+    "cvt_split": [("  split_rna(", "  split_tf32(")],
 }
 
 
-def cases_inputs(torch, gen, cases):
-    """label -> (q, k, v, do, o, lse, delta, kw) of each case, in bf16."""
+def cases_inputs(torch, gen, cases, dtype=None):
+    """label -> (q, k, v, do, o, lse, delta, kw) of each case, in ``dtype``
+    (bf16 by default)."""
     from repro_torch.kernels import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
     out = {}
     for label, b, hq, hkv, d, s, window, cap in cases:
         def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
         q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
         do = randn(b, hq, s, d)
@@ -139,7 +161,38 @@ def takes_parts() -> bool:
     return "parts" in inspect.signature(fb.flash_attention_bwd_dkv).parameters
 
 
-def run_one(root: str, tag: str, first: bool, d256_only: bool) -> None:
+def sdpa_bwd_ms(torch, timer, args) -> float:
+    """SDPA's backward (K and V expanded to Hq) on one case's inputs."""
+    import torch.nn.functional as F
+
+    q, k, v, do, o, lse, delta, kw = args
+    group = q.shape[1] // k.shape[1]
+    leaves = [t.detach().requires_grad_(True)
+              for t in (q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    return timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                    primed=True)
+
+
+def run_f32(torch, cs, timer, gen, tag) -> dict:
+    """The float32 case: times, SDPA's float32 backward, and each gradient
+    per slice against the root's plain backward in float32."""
+    times = {}
+    for label, args in cases_inputs(torch, gen, F32_CASES, torch.float32).items():
+        row, grads = time_case(torch, cs, timer, args)
+        row["slice_err"] = slice_err_to_plain(cs, args, grads)
+        row["sdpa_f32_ms"] = sdpa_bwd_ms(torch, timer, args)
+        print(f"[{tag}] {label}: {show(row)}; SDPA float32 backward {row['sdpa_f32_ms']:.4f} "
+              f"ms; per-slice error to plain {row['slice_err']:.3e} (tol "
+              f"{cs.GRAD_F32_TOL:.0e})", flush=True)
+        if row["slice_err"] > cs.GRAD_F32_TOL:
+            raise AssertionError(f"[{tag}] {label}: disagrees with the plain backward")
+        times[label] = row
+        del grads, args
+    return times
+
+
+def run_one(root: str, tag: str, first: bool, mode: str) -> None:
     # The port from `root`; the timer and the bars from this checkout's
     # chip_smoke.py, so every root is measured alike.
     sys.path.insert(0, os.path.join(root, "src"))
@@ -155,8 +208,10 @@ def run_one(root: str, tag: str, first: bool, d256_only: bool) -> None:
     timer = cs.Timer(torch)
     os.makedirs(SAVED, exist_ok=True)
     times = {}
+    if mode in ("all", "f32"):
+        times.update(run_f32(torch, cs, timer, gen, tag))
     for i, cases in enumerate((D128_CASES, D256_CASES)):
-        if d256_only and i == 0:
+        if mode == "f32" or (mode == "d256" and i == 0):
             continue
         for j, (label, args) in enumerate(cases_inputs(torch, gen, cases).items()):
             try:
@@ -208,12 +263,13 @@ def run_one(root: str, tag: str, first: bool, d256_only: bool) -> None:
           flush=True)
 
 
-def build_variants(build) -> dict:
+def build_variants(build, variants_of) -> dict:
     """name -> the loaded library of that variant of flash_attention_bwd.cu,
-    with ptxas' registers and spills of its head_dim 256 kernels printed."""
+    with ptxas' registers and spills of its head_dim 256 and float32
+    kernels printed."""
     out_root = os.path.join(HERE, "build", "bwd_variants")
     procs = {}
-    for name, subs in [("committed", [])] + list(VARIANTS.items()):
+    for name, subs in [("committed", [])] + list(variants_of.items()):
         d = os.path.join(out_root, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build.CSRC, d)
@@ -221,8 +277,8 @@ def build_variants(build) -> dict:
         with open(src) as f:
             text = f.read()
         for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} matched {text.count(old)} times")
+            if old not in text:
+                raise RuntimeError(f"{name}: {old!r} not in the source")
             text = text.replace(old, new)
         with open(src, "w") as f:
             f.write(text)
@@ -238,15 +294,17 @@ def build_variants(build) -> dict:
         lines = log.splitlines()
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m and "tc256_kernel" in m.group(1):
-                kernel = re.search(r"(fa2_\w+_tc256_kernel)ILb(\d)", m.group(1))
+            kernel = m and re.search(r"(fa2_\w+_(?:tc256|tf32)_kernel)I(?:Li(\d+)E)?Lb(\d)",
+                                     m.group(1))
+            if kernel:
                 info = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 3])
-                print(f"{name}: {kernel[1]}<softcap {kernel[2]}>: {info}", flush=True)
+                dim = f"D {kernel[2]}, " if kernel[2] else ""
+                print(f"{name}: {kernel[1]}<{dim}softcap {kernel[3]}>: {info}", flush=True)
         libs[name] = ctypes.CDLL(os.path.join(d, "lib.so"))
     return libs
 
 
-def variants() -> int:
+def variants(f32: bool) -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     sys.path.insert(0, HERE)
     import torch
@@ -256,14 +314,20 @@ def variants() -> int:
     from repro_torch.kernels import flash_attention_bwd as fb
 
     build.build_all(["flash_attention"])
-    libs = build_variants(build)
+    variants_of = F32_VARIANTS if f32 else VARIANTS
+    libs = build_variants(build, variants_of)
     print(cs.smi_line(), flush=True)
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(29)
-    inputs = cases_inputs(torch, gen, D256_CASES)
+    if f32:
+        inputs = cases_inputs(torch, gen, F32_CASES, torch.float32)
+    else:
+        inputs = cases_inputs(torch, gen, D256_CASES)
+    tol = cs.GRAD_F32_TOL if f32 else cs.ROW_TOL
     times = {}
-    names = list(VARIANTS)
+    rc = 0
+    names = list(variants_of)
     for name in ["committed"] + names + names[::-1] + ["committed"]:
         build._libs["flash_attention_bwd"] = libs[name]
         fb._fns.clear()
@@ -273,10 +337,12 @@ def variants() -> int:
             times.setdefault(name, {}).setdefault(label, []).append(tv)
             print(f"{name:9s} {label}: {show(tv)}; per-slice error to plain {e:.3e}",
                   flush=True)
-            if e > cs.ROW_TOL:
-                raise AssertionError(f"{name} {label}: disagrees with the plain backward")
+            if e > tol:
+                print(f"{name} {label}: DISAGREES with the plain backward (tol {tol:.0e})",
+                      flush=True)
+                rc = 1
     print(json.dumps({"card": cs.smi_line(), "times": times}), flush=True)
-    return 0
+    return rc
 
 
 def sass(other: str, source: str = "flash_attention_bwd.cu") -> int:
@@ -314,21 +380,28 @@ def sass(other: str, source: str = "flash_attention_bwd.cu") -> int:
         print(f"{name}: SASS {'identical' if same else 'DIFFERS'} "
               f"({funcs[1][name].count(chr(10))} lines)", flush=True)
         if not same:   # the first differing lines, OTHER_ROOT's then this checkout's
-            pairs = [(a, b) for a, b in zip(*(f[name].splitlines() for f in funcs)) if a != b]
+            lines = [f[name].splitlines() for f in funcs]
+            pairs = [(a, b) for a, b in zip(*lines) if a != b]
             for a, b in pairs[:2]:
                 print(f"    {a.strip()}\n    {b.strip()}", flush=True)
+            if not pairs:   # one is the other with lines added at its end
+                n = min(map(len, lines))
+                for i, extra in enumerate(lines):
+                    for line in extra[n:n + 4]:
+                        print(f"    {'other' if i == 0 else 'this'} only: {line.strip()}",
+                              flush=True)
     return rc
 
 
 def main() -> int:
     if len(sys.argv) == 6 and sys.argv[1] == "--one":
-        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first", sys.argv[5] == "d256")
+        run_one(sys.argv[2], sys.argv[3], sys.argv[4] == "first", sys.argv[5])
         return 0
     args = sys.argv[1:]
-    d256 = "--d256" in args
-    args = [a for a in args if a != "--d256"]
+    mode = "d256" if "--d256" in args else "f32" if "--f32" in args else "all"
+    args = [a for a in args if a not in ("--d256", "--f32")]
     if args == ["--variants"]:
-        return variants()
+        return variants(mode == "f32")
     if len(args) >= 2 and args[0] == "--sass":
         rc = 0
         for source in args[2:] or ["flash_attention_bwd.cu"]:
@@ -340,7 +413,7 @@ def main() -> int:
     rc = 0
     for i, (root, tag) in enumerate(order):
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, tag,
-                              "first" if i == 0 else "later", "d256" if d256 else "all"],
+                              "first" if i == 0 else "later", mode],
                              cwd=root).returncode
     return rc
 
